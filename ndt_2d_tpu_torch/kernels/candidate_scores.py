@@ -1,0 +1,203 @@
+"""K2: exhaustive candidate scoring + its reduction (CUDA
+``csrc/candidate_scores.cu``) and the plain-PyTorch twin.
+
+Replaces the local fast path of ``ndt_2d_tpu/matching/matcher.py``
+(``prepare_neighborhood`` -> ``_candidate_scores_local`` ->
+``reduce_candidates`` -> ``finalize_match``), which the retired Pallas
+kernels ``candidate_scores_pallas`` / ``_gather`` also computed.  The
+kernel covers lattices no wider than one NDT cell
+(2 * search_linear_size <= ndt_resolution), where each (angle, beam) meets
+one 2x2 cell patch; the matcher raises for wider ones.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from ndt_2d_tpu_torch.kernels import _build
+from ndt_2d_tpu_torch.kernels.score_points import subsample
+from ndt_2d_tpu_torch.ndt import grid as ndt_grid
+
+launches = 0
+
+_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_float] + [ctypes.c_int] * 2
+         + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+         + [ctypes.c_int] + [ctypes.c_void_p] + [ctypes.c_int]
+         + [ctypes.c_void_p] * 4)
+# Per-angle partial of the kernel: best, best index, 10 Olson sums.
+_PARTIAL = 12
+
+
+class MatchResult(NamedTuple):
+    score: torch.Tensor        # best candidate score / beams used
+    correction: torch.Tensor   # [3] (dx, dy, dtheta) to add to the pose
+    covariance: torch.Tensor   # [3, 3] Olson covariance of the search
+
+
+def search_offsets(config, device):
+    """The candidate lattice: angles [A], linear offsets [L] (both axes)."""
+    a = (-config.search_angular_size
+         + torch.arange(config.num_angles, dtype=torch.float32, device=device)
+         * config.search_angular_resolution)
+    l = (-config.search_linear_size
+         + torch.arange(config.num_linear, dtype=torch.float32, device=device)
+         * config.search_linear_resolution)
+    return a, l
+
+
+def prepare_neighborhood(config, grid: ndt_grid.NDTGrid, spts, smask, pose,
+                         dths, dls, table):
+    """Per-(angle, beam) operands from ONE patch-row gather: rotated beam
+    (bx, by), crossing lines (cross_x, cross_y) [A, B], the 2x2 patch
+    [A, B, 2(y), 2(x), 6] of (mean_x, mean_y, i00, i01, i11, ok), and the
+    grid bounds (x_lo, x_hi, y_lo, y_hi) as 0-d tensors."""
+    W, H = config.grid_cells_x, config.grid_cells_y
+    cell = ndt_grid.f32(grid.cell_size, spts.device)
+    th = pose[2] + dths
+    c, s = torch.cos(th)[:, None], torch.sin(th)[:, None]
+    px, py = spts[:, 0][None, :], spts[:, 1][None, :]
+    bx = c * px - s * py + pose[0]
+    by = s * px + c * py + pose[1]
+
+    ix0 = torch.floor((bx + dls[0] - grid.origin[0]) / cell).to(torch.int32)
+    iy0 = torch.floor((by + dls[0] - grid.origin[1]) / cell).to(torch.int32)
+    ixc = torch.clamp(ix0, 0, W - 2)
+    iyc = torch.clamp(iy0, 0, H - 2)
+    cross_x = grid.origin[0] + (ixc.to(bx.dtype) + 1.0) * cell
+    cross_y = grid.origin[1] + (iyc.to(by.dtype) + 1.0) * cell
+
+    flat = (iyc * W + ixc).to(torch.int64)
+    nb = table[flat].reshape(flat.shape[0], flat.shape[1], 2, 2, 8)
+    ok = (nb[..., 5] > 0.5) & smask[None, :, None, None]
+    pack = torch.cat([nb[..., :5], ok[..., None].to(nb.dtype)], dim=-1)
+    bounds = (grid.origin[0], grid.origin[0] + W * cell,
+              grid.origin[1], grid.origin[1] + H * cell)
+    return bx, by, cross_x, cross_y, pack, bounds
+
+
+def candidate_scores_local(config, grid: ndt_grid.NDTGrid, spts, smask,
+                           pose, dths, dls, table):
+    """[A, L(dx), L(dy)] candidate scores: -sum over beams of the clamped
+    Gaussian of the patch cell each shifted beam lands in (masked by the
+    grid bounds at candidate level)."""
+    bx, by, cross_x, cross_y, pack, bounds = prepare_neighborhood(
+        config, grid, spts, smask, pose, dths, dls, table)
+    wxc = bx[:, None, :] + dls[None, :, None]             # [A, Lx, B]
+    wyc = by[:, None, :] + dls[None, :, None]             # [A, Ly, B]
+    jx = (wxc >= cross_x[:, None, :])[:, :, None, :]       # [A, Lx, 1, B]
+    jy = (wyc >= cross_y[:, None, :])[:, None, :, :]       # [A, 1, Ly, B]
+    x_lo, x_hi, y_lo, y_hi = bounds
+    in_gx = ((wxc >= x_lo) & (wxc < x_hi))[:, :, None, :]
+    in_gy = ((wyc >= y_lo) & (wyc < y_hi))[:, None, :, :]
+
+    def sel(f):
+        """Field f of the selected patch cell, [A, Lx, Ly, B]."""
+        v = pack[..., f][:, None, None]                    # [A,1,1,B,2,2]
+        lo = torch.where(jx, v[..., 0, 1], v[..., 0, 0])
+        hi = torch.where(jx, v[..., 1, 1], v[..., 1, 0])
+        return torch.where(jy, hi, lo)
+
+    valid = (sel(5) > 0.5) & in_gx & in_gy
+    qx = wxc[:, :, None, :] - sel(0)
+    qy = wyc[:, None, :, :] - sel(1)
+    e = -0.5 * (sel(2) * qx * qx + 2.0 * sel(3) * qx * qy
+                + sel(4) * qy * qy)
+    pt = torch.exp(torch.clamp(e, max=0.0))
+    return -torch.sum(torch.where(valid, pt, torch.zeros_like(pt)), dim=-1)
+
+
+def reduce_candidates(cand, dths, dls):
+    """(best, correction [3], K [3, 3], u [3], s): first-index argmin in
+    (angle, dx, dy) order, correction applied only when best < 0, and the
+    raw Olson accumulators over every candidate."""
+    A, L = cand.shape[0], cand.shape[1]
+    flat = cand.reshape(-1)
+    best_idx = torch.argmin(flat)
+    best = flat[best_idx]
+    ai, xi, yi = best_idx // (L * L), (best_idx // L) % L, best_idx % L
+    correction = torch.where(best < 0.0,
+                             torch.stack([dls[xi], dls[yi], dths[ai]]),
+                             torch.zeros(3, dtype=cand.dtype,
+                                         device=cand.device))
+    x = torch.stack([dls[None, :, None].expand(A, L, L),
+                     dls[None, None, :].expand(A, L, L),
+                     dths[:, None, None].expand(A, L, L)], dim=-1)
+    sw = cand[..., None]
+    u = torch.sum(x * sw, dim=(0, 1, 2))
+    k = torch.sum(x[..., :, None] * x[..., None, :] * sw[..., None],
+                  dim=(0, 1, 2))
+    s = torch.sum(cand)
+    return best, correction, k, u, s
+
+
+def finalize_match(best, correction, k, u, s, used: int) -> MatchResult:
+    """cov = K/s + u u^T / s^2 and score / max(used, 1); when s == 0 (no
+    candidate scored any point) a weak isotropic covariance
+    diag(1, 1, 0.25) instead of the reference's inf/NaN."""
+    dev = best.device
+    ok = s < 0.0
+    safe = torch.where(ok, s, ndt_grid.f32(-1.0, dev))
+    covariance = k / safe + (u[:, None] * u[None, :]) / (safe * safe)
+    fallback = torch.diag(torch.tensor([1.0, 1.0, 0.25], dtype=best.dtype,
+                                       device=dev))
+    covariance = torch.where(ok, covariance, fallback)
+    return MatchResult(score=best / ndt_grid.f32(max(used, 1), dev),
+                       correction=correction, covariance=covariance)
+
+
+def match_twin(config, grid: ndt_grid.NDTGrid, table, points, point_mask,
+               num_points: int, pose, dths, dls):
+    """Plain-PyTorch K2: (MatchResult, scores [A, L, L])."""
+    spts, smask, used = subsample(points, point_mask, num_points,
+                                  config.laser_max_beams)
+    cand = candidate_scores_local(config, grid, spts, smask, pose, dths, dls,
+                                  table)
+    best, correction, k, u, s = reduce_candidates(cand, dths, dls)
+    return finalize_match(best, correction, k, u, s, used), cand
+
+
+def match(config, grid: ndt_grid.NDTGrid, table, points, point_mask,
+          num_points: int, pose, dths, dls, with_scores: bool = False):
+    """K2.  table [H*W, 32] f32 (K1's), points [P, 2] f32, point_mask [P]
+    bool, pose [3] f32, dths [A] / dls [L] f32.  Returns a MatchResult, or
+    (MatchResult, scores [A, L, L]) with ``with_scores``, which makes the
+    kernel also write its per-candidate scores (a check of the kernel;
+    the match itself never stores them).  CPU tensors run the twin; CUDA
+    tensors launch the kernel."""
+    global launches
+    if points.device.type == "cpu":
+        res, cand = match_twin(config, grid, table, points, point_mask,
+                               num_points, pose, dths, dls)
+        return (res, cand) if with_scores else res
+    dev = points.device
+    W, H = config.grid_cells_x, config.grid_cells_y
+    P = points.shape[0]
+    A, L = dths.shape[0], dls.shape[0]
+    if L * L > 1024 or A > 512 or W < 2 or H < 2:
+        raise ValueError(f"lattice {A}x{L}x{L} on a {W}x{H} grid is outside "
+                         "the kernel's range")
+    _build.require(table, "table", torch.float32, (W * H, 32), dev)
+    _build.require(grid.origin, "origin", torch.float32, (2,), dev)
+    _build.require(points, "points", torch.float32, (P, 2), dev)
+    _build.require(point_mask, "point_mask", torch.bool, (P,), dev)
+    _build.require(pose, "pose", torch.float32, (3,), dev)
+    _build.require(dths, "dths", torch.float32, (A,), dev)
+    _build.require(dls, "dls", torch.float32, (L,), dev)
+    partial = torch.empty(A, _PARTIAL, dtype=torch.float32, device=dev)
+    out = torch.empty(13, dtype=torch.float32, device=dev)
+    scores = (torch.empty(A, L, L, dtype=torch.float32, device=dev)
+              if with_scores else None)
+    p = _build.ptr
+    err = _build.function("ndt2d_candidate_scores", _ARGS)(
+        p(table), p(grid.origin), float(grid.cell_size), W, H, p(points),
+        p(point_mask), P, int(num_points), int(config.laser_max_beams),
+        p(pose), p(dths), A, p(dls), L, p(partial), p(out),
+        None if scores is None else p(scores), _build.stream_ptr(dev))
+    _build.check(err, "candidate_scores")
+    launches += 1
+    res = MatchResult(score=out[0], correction=out[1:4],
+                      covariance=out[4:13].reshape(3, 3))
+    return (res, scores) if with_scores else res

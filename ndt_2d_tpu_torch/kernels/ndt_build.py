@@ -1,0 +1,81 @@
+"""K1: the window NDT build (CUDA ``csrc/ndt_build.cu``) and its twin.
+
+Replaces ``ndt_2d_tpu/matching/matcher.py::window_origin`` +
+``build_window_ndt`` (single grid) -> ``ndt_2d_tpu/ndt/grid.py::
+build_ndt_from_scans`` / ``build_ndt_binned`` + ``packed_patch_table``.
+One launch bins the window's points, sums each cell's moments in
+point-index order (no float atomics), finalizes every cell and writes the
+[C, 32] patch table K2 reads; the source's header says what bounds it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ndt_2d_tpu_torch.kernels import _build
+from ndt_2d_tpu_torch.ndt import grid as ndt_grid
+
+launches = 0
+
+_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
+         + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10)
+
+
+def window_origin(poses, window_mask, range_max: float):
+    """Grid origin of a window: min over its poses - range_max per axis."""
+    big = torch.finfo(poses.dtype).max
+    xy = torch.where(window_mask[:, None], poses[:, :2],
+                     torch.full_like(poses[:, :2], big))
+    return torch.amin(xy, dim=0) - range_max
+
+
+def build_window_twin(poses, points, point_mask, window_mask,
+                      range_max: float, cell_size: float, width: int,
+                      height: int):
+    """Plain-PyTorch K1: (NDTGrid, packed patch table [C, 32])."""
+    origin = window_origin(poses, window_mask, range_max)
+    mask = point_mask & window_mask[:, None]
+    grid = ndt_grid.build_ndt_from_scans(poses, points, mask, origin,
+                                         cell_size, width, height)
+    return grid, ndt_grid.packed_patch_table(grid, width)
+
+
+def build_window(poses, points, point_mask, window_mask, range_max: float,
+                 cell_size: float, width: int, height: int):
+    """Window NDT + patch table.  poses [S, 3] f32, points [S, P, 2] f32,
+    point_mask [S, P] bool, window_mask [S] bool.  CPU tensors run the
+    twin; CUDA tensors launch the kernel."""
+    global launches
+    if poses.device.type == "cpu":
+        return build_window_twin(poses, points, point_mask, window_mask,
+                                 range_max, cell_size, width, height)
+    dev = poses.device
+    S, P = points.shape[0], points.shape[1]
+    _build.require(poses, "poses", torch.float32, (S, 3), dev)
+    _build.require(points, "points", torch.float32, (S, P, 2), dev)
+    _build.require(point_mask, "point_mask", torch.bool, (S, P), dev)
+    _build.require(window_mask, "window_mask", torch.bool, (S,), dev)
+    C = width * height
+    key = torch.empty(S * P, dtype=torch.int32, device=dev)
+    wx = torch.empty(S * P, dtype=torch.float32, device=dev)
+    wy = torch.empty(S * P, dtype=torch.float32, device=dev)
+    origin = torch.empty(2, dtype=torch.float32, device=dev)
+    mean = torch.empty(C, 2, dtype=torch.float32, device=dev)
+    info = torch.empty(C, 3, dtype=torch.float32, device=dev)
+    cov = torch.empty(C, 3, dtype=torch.float32, device=dev)
+    count = torch.empty(C, dtype=torch.int32, device=dev)
+    table = torch.empty(C, 32, dtype=torch.float32, device=dev)
+    p = _build.ptr
+    err = _build.function("ndt2d_ndt_build", _ARGS)(
+        p(poses), p(points), p(point_mask), p(window_mask), S, P,
+        float(range_max), float(cell_size), width, height, p(key), p(wx),
+        p(wy), p(origin), p(mean), p(info), p(cov), p(count), p(table),
+        _build.stream_ptr(dev))
+    _build.check(err, "ndt_build")
+    launches += 1
+    grid = ndt_grid.NDTGrid(origin=origin, cell_size=float(cell_size),
+                            mean=mean, information=info, count=count,
+                            covariance=cov)
+    return grid, table
