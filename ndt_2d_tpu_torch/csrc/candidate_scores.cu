@@ -4,7 +4,10 @@
 // Pallas kernels candidate_scores_pallas / _gather that computed it):
 // ndt_2d_tpu/matching/matcher.py::prepare_neighborhood ->
 // _candidate_scores_local -> reduce_candidates -> finalize_match, reading
-// ndt_2d_tpu/ndt/grid.py::packed_patch_table.
+// ndt_2d_tpu/ndt/grid.py::packed_patch_table; with a row axis, the
+// jax.vmap of match_scan in match_scan_batch_multi (R loop-closure
+// confirmation rows, each with its own table, origin, query scan and start
+// pose, in one launch per pass).
 //
 // What it computes: for every candidate (angle a, dx, dy) of the lattice,
 // the negated sum over the subsampled beams of exp(min(-q^T Lambda q / 2, 0))
@@ -16,14 +19,15 @@
 // What bounds it on the card: the exp and quadratic form of
 // A x L x L x B = 3.5e6 (candidate, beam) terms, about 0.1 GFLOP; the
 // only gathers are A x B patch rows of 128 bytes.  Design: one block per
-// angle; one thread per (dx, dy), the block padded to whole warps.  The
+// (angle, row); one thread per (dx, dy), the block padded to whole warps.  The
 // block first stages every beam's rotated point, crossing lines and
 // 2x2 patch records in shared memory (one 32-float row gather per beam), then
 // each thread walks the beams in order, so its candidate score sums in a
 // fixed order.  Warp shuffles plus an ordered combine of the warps reduce
 // (min, first flat index) and the 10 Olson sums per angle; a second
-// one-block launch combines the angles in angle order and finalizes
-// (A <= 512 angles, L*L <= 1024 offsets per angle).  The
+// launch, one block per row, combines the row's angles in angle order and
+// finalizes (A <= 512 angles, L*L <= 1024 offsets per angle).  A row's
+// blocks read only that row's inputs, so its bits do not depend on R.  The
 // [A, L, L] scores never reach device memory, except through the optional
 // debug output used to check the kernel against its twin.
 #include "common.cuh"
@@ -42,17 +46,32 @@ struct Beam {
   float rec[4][6];  // y-major 2x2: mean_x, mean_y, i00, i01, i11, ok
 };
 
+// Per-row beam count: the row's entry of `nums` when given, else `num`.
+__device__ __forceinline__ int row_points(const int* nums, int num, int r) {
+  return nums != nullptr ? nums[r] : num;
+}
+
+// Grid (A, R): angle a = blockIdx.x of row r = blockIdx.y.
 __global__ void score_angles(
     const float* __restrict__ table, const float* __restrict__ origin,
     float cell, int W, int H, const float* __restrict__ points,
-    const uint8_t* __restrict__ pmask, int P, int num_points, int max_beams,
-    const float* __restrict__ pose, const float* __restrict__ dths,
-    const float* __restrict__ dls, int L, float* __restrict__ partial,
-    float* __restrict__ scores) {
+    const uint8_t* __restrict__ pmask, int P, const int* __restrict__ nums,
+    int num, int max_beams, const float* __restrict__ pose,
+    const float* __restrict__ dths, const float* __restrict__ dls, int A,
+    int L, float* __restrict__ partial, float* __restrict__ scores) {
   __shared__ Beam beams[kBeamChunk];
   __shared__ float warp_sums[kMaxWarps][kPartial];
 
   const int a = blockIdx.x;
+  const size_t r = blockIdx.y;
+  const int num_points = row_points(nums, num, r);
+  table += r * W * H * 32;
+  origin += r * 2;
+  points += r * P * 2;
+  pmask += r * P;
+  pose += r * 3;
+  partial += r * A * kPartial;
+  if (scores != nullptr) scores += r * A * L * L;
   const int t = threadIdx.x;
   const int LL = L * L;
   const bool live = t < LL;
@@ -191,12 +210,17 @@ __global__ void score_angles(
 constexpr int kFinalizeThreads = 128;
 constexpr int kMaxAngles = 512;
 
+// Grid (R): row r = blockIdx.x.
 __global__ void finalize(const float* __restrict__ partial, int A, int L,
-                         int num_points, int max_beams,
-                         const float* __restrict__ dths,
+                         const int* __restrict__ nums, int num,
+                         int max_beams, const float* __restrict__ dths,
                          const float* __restrict__ dls,
                          float* __restrict__ out) {
   __shared__ float sp[kMaxAngles * kPartial];
+  const size_t r = blockIdx.x;
+  const int num_points = row_points(nums, num, r);
+  partial += r * A * kPartial;
+  out += r * 13;
   for (int i = threadIdx.x; i < A * kPartial; i += blockDim.x)
     sp[i] = partial[i];
   __syncthreads();
@@ -240,26 +264,28 @@ __global__ void finalize(const float* __restrict__ partial, int A, int L,
 
 }  // namespace
 
-// table [H*W,32] f32, origin [2] f32, points [P,2] f32, pmask [P] u8,
-// pose [3] f32, dths [A] f32, dls [L] f32; scratch partial [A,12] f32;
-// out [13] f32; scores [A,L,L] f32 or null.
+// table [R,H*W,32] f32, origin [R,2] f32, points [R,P,2] f32, pmask
+// [R,P] u8, nums [R] i32 (or null: every row has `num` points), pose [R,3]
+// f32, dths [A] f32, dls [L] f32; scratch partial [R,A,12] f32; out [R,13]
+// f32; scores [R,A,L,L] f32 or null.
 NDT2D_API int ndt2d_candidate_scores(
     const void* table, const void* origin, float cell, int W, int H,
-    const void* points, const void* pmask, int P, int num_points,
-    int max_beams, const void* pose, const void* dths, int A, const void* dls,
-    int L, void* partial, void* out, void* scores, void* stream) {
+    const void* points, const void* pmask, int R, int P, const void* nums,
+    int num, int max_beams, const void* pose, const void* dths, int A,
+    const void* dls, int L, void* partial, void* out, void* scores,
+    void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int threads = ((L * L + 31) / 32) * 32;
-  score_angles<<<A, threads, 0, st>>>(
+  score_angles<<<dim3(A, R), threads, 0, st>>>(
       static_cast<const float*>(table), static_cast<const float*>(origin),
       cell, W, H, static_cast<const float*>(points),
-      static_cast<const uint8_t*>(pmask), P, num_points, max_beams,
-      static_cast<const float*>(pose), static_cast<const float*>(dths),
-      static_cast<const float*>(dls), L, static_cast<float*>(partial),
-      static_cast<float*>(scores));
-  finalize<<<1, kFinalizeThreads, 0, st>>>(
-      static_cast<const float*>(partial), A, L, num_points, max_beams,
-      static_cast<const float*>(dths), static_cast<const float*>(dls),
-      static_cast<float*>(out));
+      static_cast<const uint8_t*>(pmask), P, static_cast<const int*>(nums),
+      num, max_beams, static_cast<const float*>(pose),
+      static_cast<const float*>(dths), static_cast<const float*>(dls), A, L,
+      static_cast<float*>(partial), static_cast<float*>(scores));
+  finalize<<<R, kFinalizeThreads, 0, st>>>(
+      static_cast<const float*>(partial), A, L, static_cast<const int*>(nums),
+      num, max_beams, static_cast<const float*>(dths),
+      static_cast<const float*>(dls), static_cast<float*>(out));
   return (int)cudaGetLastError();
 }

@@ -3,21 +3,26 @@
 // Replaces the jitted XLA build of the JAX package:
 // ndt_2d_tpu/matching/matcher.py::window_origin + build_window_ndt ->
 // ndt_2d_tpu/ndt/grid.py::build_ndt_from_scans -> build_ndt_binned, and
-// ndt_2d_tpu/ndt/grid.py::packed_patch_table.
+// ndt_2d_tpu/ndt/grid.py::packed_patch_table; with a row axis, the
+// jax.vmap of build_window_ndt in match_scan_batch_multi (R loop-closure
+// confirmation windows in one launch per pass).
 //
 // What bounds it on the card: the per-cell moment sums.  A scatter with
 // float atomics would be the fast form, but its summation order changes from
 // run to run, and the reference's parity rule is that every reduction is
 // deterministic.  Design: pass A bins each window point (one thread per
-// point: world transform, floor binning, key = flat cell or -1).  Pass B
-// gives every thread one cell; each block stages the (key, x, y) of all
-// points through shared memory in chunks and every thread sums its cell's
-// moments in point-index order, then finalizes the cell (mean, covariance
-// n/(n-1), closed-form eigenvalue floor, information) and writes its packed
-// 8-float record into the four rows of the [C, 32] patch table that hold
-// it.  The cost is O(cells x points) shared-memory compares (about 1.9e8 at
-// 192^2 cells and 10 x 512 points), which a sort-by-key build would cut; the
-// sums stay bitwise reproducible either way.
+// point of one row: world transform, floor binning against the row's own
+// origin, key = flat cell or -1).  Pass B gives every thread one cell of one
+// row; each block stages the (key, x, y) of its row's S x P points through
+// shared memory in chunks and every thread sums its cell's moments in
+// point-index order, then finalizes the cell (mean, covariance n/(n-1),
+// closed-form eigenvalue floor, information) and writes its packed 8-float
+// record into the four rows of the row's [C, 32] patch table that hold it.
+// Rows never read each other's data, so a row's bits do not depend on R or
+// on the other rows.  The cost is O(cells x points) shared-memory compares
+// per row (about 1.9e8 at 192^2 cells and 10 x 512 points), which a
+// sort-by-key build would cut; the sums stay bitwise reproducible either
+// way.
 #include "common.cuh"
 
 #include <float.h>
@@ -46,6 +51,7 @@ __device__ __forceinline__ void window_origin(const float* poses,
   *oy = my - range_max;
 }
 
+// Grid (point blocks, R): row r = blockIdx.y.
 __global__ void bin_points(const float* __restrict__ poses,
                            const float* __restrict__ points,
                            const uint8_t* __restrict__ pmask,
@@ -55,6 +61,16 @@ __global__ void bin_points(const float* __restrict__ poses,
                            float* __restrict__ wy,
                            float* __restrict__ origin_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t r = blockIdx.y;
+  const size_t N = (size_t)S * P;
+  poses += r * S * 3;
+  points += r * N * 2;
+  pmask += r * N;
+  wmask += r * S;
+  key += r * N;
+  wx += r * N;
+  wy += r * N;
+  origin_out += r * 2;
   float ox, oy;
   window_origin(poses, wmask, S, range_max, &ox, &oy);
   if (i == 0) {
@@ -80,6 +96,7 @@ __global__ void bin_points(const float* __restrict__ poses,
 
 __device__ __forceinline__ int wrap(int r, int C) { return ((r % C) + C) % C; }
 
+// Grid (cell blocks, R): row r = blockIdx.y; N = S * P points per row.
 __global__ void accumulate_cells(const int* __restrict__ key,
                                  const float* __restrict__ wx,
                                  const float* __restrict__ wy, int N, int W,
@@ -88,6 +105,15 @@ __global__ void accumulate_cells(const int* __restrict__ key,
                                  float* __restrict__ cov,
                                  int* __restrict__ count,
                                  float* __restrict__ table) {
+  const size_t r = blockIdx.y;
+  key += r * N;
+  wx += r * N;
+  wy += r * N;
+  mean += r * C * 2;
+  info += r * C * 3;
+  cov += r * C * 3;
+  count += r * C;
+  table += r * C * 32;
   extern __shared__ unsigned char smem[];
   int* skey = reinterpret_cast<int*>(smem);
   float* sx = reinterpret_cast<float*>(skey + kChunk);
@@ -165,26 +191,27 @@ __global__ void accumulate_cells(const int* __restrict__ key,
 
 }  // namespace
 
-// poses [S,3] f32, points [S,P,2] f32, pmask [S,P] u8, wmask [S] u8;
-// scratch: key [S*P] i32, wx/wy [S*P] f32; out: origin [2], mean [C,2],
-// info [C,3], cov [C,3] f32, count [C] i32, table [C,32] f32.
+// poses [R,S,3] f32, points [R,S,P,2] f32, pmask [R,S,P] u8, wmask [R,S]
+// u8; scratch: key [R,S*P] i32, wx/wy [R,S*P] f32; out: origin [R,2],
+// mean [R,C,2], info [R,C,3], cov [R,C,3] f32, count [R,C] i32,
+// table [R,C,32] f32.
 NDT2D_API int ndt2d_ndt_build(const void* poses, const void* points,
-                              const void* pmask, const void* wmask, int S,
-                              int P, float range_max, float cell, int W, int H,
-                              void* key, void* wx, void* wy, void* origin,
-                              void* mean, void* info, void* cov, void* count,
-                              void* table, void* stream) {
+                              const void* pmask, const void* wmask, int R,
+                              int S, int P, float range_max, float cell,
+                              int W, int H, void* key, void* wx, void* wy,
+                              void* origin, void* mean, void* info, void* cov,
+                              void* count, void* table, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int N = S * P;
   const int C = W * H;
-  const int nb = max((N + kBinThreads - 1) / kBinThreads, 1);
+  const dim3 nb(max((N + kBinThreads - 1) / kBinThreads, 1), R);
   bin_points<<<nb, kBinThreads, 0, st>>>(
       static_cast<const float*>(poses), static_cast<const float*>(points),
       static_cast<const uint8_t*>(pmask), static_cast<const uint8_t*>(wmask),
       S, P, range_max, cell, W, H, static_cast<int*>(key),
       static_cast<float*>(wx), static_cast<float*>(wy),
       static_cast<float*>(origin));
-  const int nc = (C + kCellThreads - 1) / kCellThreads;
+  const dim3 nc((C + kCellThreads - 1) / kCellThreads, R);
   const size_t smem = (size_t)kChunk * (sizeof(int) + 2 * sizeof(float));
   accumulate_cells<<<nc, kCellThreads, smem, st>>>(
       static_cast<const int*>(key), static_cast<const float*>(wx),

@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of ``ndt_2d_tpu_torch/csrc``.
 
 The kernels have a plain C interface, so they are compiled by ``nvcc``
-alone into one shared library and loaded with ``ctypes``; no PyTorch header
-is compiled.  The library lands in ``ndt_2d_tpu_torch/build/`` under a name
+alone (one process per source, all started together, then one link) into
+one shared library and loaded with ``ctypes``; no PyTorch header is
+compiled.  The library lands in ``ndt_2d_tpu_torch/build/`` under a name
 carrying the hash of the sources and flags, so an edited source rebuilds on
 next use.  Nothing here runs at
 import time: the first kernel launch builds.
@@ -28,8 +29,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 class _State:
@@ -84,26 +84,38 @@ def library() -> ctypes.CDLL:
         path = os.path.join(BUILD_DIR, f"libndt2d_{_digest(files)}.so")
         if not os.path.exists(path):
             os.makedirs(BUILD_DIR, exist_ok=True)
-            cu = [f for f in files if f.endswith(".cu")]
             t0 = time.perf_counter()
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                proc = subprocess.run(
-                    [find_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cu],
-                    capture_output=True, text=True, check=False)
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-                os.replace(tmp, path)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
+            _STATE.build_log = _compile(
+                [f for f in files if f.endswith(".cu")], path)
             _STATE.build_seconds = time.perf_counter() - t0
-            _STATE.build_log = proc.stdout + proc.stderr
         _STATE.lib = ctypes.CDLL(path)
         _STATE.path = path
         return _STATE.lib
+
+
+def _compile(cu: Sequence[str], path: str) -> str:
+    """Compile every source to an object in parallel, link them into the
+    shared library ``path``; returns the compilers' output."""
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(f) + ".o") for f in cu]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", o, f],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for f, o in zip(cu, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        for f, p, log in zip(cu, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {os.path.basename(f)} "
+                                   f"({p.returncode}):\n{log}")
+        lib = os.path.join(tmp, "lib.so")
+        link = subprocess.run([nvcc, "-shared", "-o", lib, *objs],
+                              capture_output=True, text=True, check=False)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stderr}")
+        os.replace(lib, path)
+    return "".join(logs) + link.stdout + link.stderr
 
 
 def function(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:

@@ -8,6 +8,9 @@ kernels ``candidate_scores_pallas`` / ``_gather`` also computed.  The
 kernel covers lattices no wider than one NDT cell
 (2 * search_linear_size <= ndt_resolution), where each (angle, beam) meets
 one 2x2 cell patch; the matcher raises for wider ones.
+
+``match_rows`` takes a row axis (R confirmation rows, the ``jax.vmap`` of
+``match_scan_batch_multi``); ``match`` is the same launch at R = 1.
 """
 
 from __future__ import annotations
@@ -24,9 +27,9 @@ from ndt_2d_tpu_torch.ndt import grid as ndt_grid
 launches = 0
 
 _ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_float] + [ctypes.c_int] * 2
-         + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-         + [ctypes.c_int] + [ctypes.c_void_p] + [ctypes.c_int]
-         + [ctypes.c_void_p] * 4)
+         + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+         + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+         + [ctypes.c_void_p] + [ctypes.c_int] + [ctypes.c_void_p] * 4)
 # Per-angle partial of the kernel: best, best index, 10 Olson sums.
 _PARTIAL = 12
 
@@ -159,45 +162,97 @@ def match_twin(config, grid: ndt_grid.NDTGrid, table, points, point_mask,
     return finalize_match(best, correction, k, u, s, used), cand
 
 
-def match(config, grid: ndt_grid.NDTGrid, table, points, point_mask,
-          num_points: int, pose, dths, dls, with_scores: bool = False):
-    """K2.  table [H*W, 32] f32 (K1's), points [P, 2] f32, point_mask [P]
-    bool, pose [3] f32, dths [A] / dls [L] f32.  Returns a MatchResult, or
-    (MatchResult, scores [A, L, L]) with ``with_scores``, which makes the
-    kernel also write its per-candidate scores (a check of the kernel;
-    the match itself never stores them).  CPU tensors run the twin; CUDA
-    tensors launch the kernel."""
+def match_rows_twin(config, grid: ndt_grid.NDTGrid, tables, points,
+                    point_mask, num_points, poses, dths, dls):
+    """Plain-PyTorch K2 over a row axis, one row at a time: (MatchResult
+    of [R], [R, 3], [R, 3, 3] tensors, scores [R, A, L, L])."""
+    res, cand = [], []
+    for r in range(points.shape[0]):
+        g = ndt_grid.NDTGrid(origin=grid.origin[r], cell_size=grid.cell_size,
+                             mean=None, information=None, count=None,
+                             covariance=None)
+        m, c = match_twin(config, g, tables[r], points[r], point_mask[r],
+                          int(num_points[r]), poses[r], dths, dls)
+        res.append(m)
+        cand.append(c)
+    return (MatchResult(*[torch.stack([getattr(m, f) for m in res])
+                          for f in MatchResult._fields]),
+            torch.stack(cand))
+
+
+def _launch(config, origin, cell_size: float, tables, points, point_mask,
+            nums, num: int, poses, dths, dls, with_scores: bool):
+    """One K2 launch over R rows; returns (out [R, 13], scores or None)."""
     global launches
-    if points.device.type == "cpu":
-        res, cand = match_twin(config, grid, table, points, point_mask,
-                               num_points, pose, dths, dls)
-        return (res, cand) if with_scores else res
     dev = points.device
     W, H = config.grid_cells_x, config.grid_cells_y
-    P = points.shape[0]
+    R, P = points.shape[0], points.shape[1]
     A, L = dths.shape[0], dls.shape[0]
     if L * L > 1024 or A > 512 or W < 2 or H < 2:
         raise ValueError(f"lattice {A}x{L}x{L} on a {W}x{H} grid is outside "
                          "the kernel's range")
-    _build.require(table, "table", torch.float32, (W * H, 32), dev)
-    _build.require(grid.origin, "origin", torch.float32, (2,), dev)
-    _build.require(points, "points", torch.float32, (P, 2), dev)
-    _build.require(point_mask, "point_mask", torch.bool, (P,), dev)
-    _build.require(pose, "pose", torch.float32, (3,), dev)
+    _build.require(tables, "tables", torch.float32, (R, W * H, 32), dev)
+    _build.require(origin, "origin", torch.float32, (R, 2), dev)
+    _build.require(points, "points", torch.float32, (R, P, 2), dev)
+    _build.require(point_mask, "point_mask", torch.bool, (R, P), dev)
+    if nums is not None:
+        _build.require(nums, "num_points", torch.int32, (R,), dev)
+    _build.require(poses, "poses", torch.float32, (R, 3), dev)
     _build.require(dths, "dths", torch.float32, (A,), dev)
     _build.require(dls, "dls", torch.float32, (L,), dev)
-    partial = torch.empty(A, _PARTIAL, dtype=torch.float32, device=dev)
-    out = torch.empty(13, dtype=torch.float32, device=dev)
-    scores = (torch.empty(A, L, L, dtype=torch.float32, device=dev)
+    partial = torch.empty(R, A, _PARTIAL, dtype=torch.float32, device=dev)
+    out = torch.empty(R, 13, dtype=torch.float32, device=dev)
+    scores = (torch.empty(R, A, L, L, dtype=torch.float32, device=dev)
               if with_scores else None)
     p = _build.ptr
     err = _build.function("ndt2d_candidate_scores", _ARGS)(
-        p(table), p(grid.origin), float(grid.cell_size), W, H, p(points),
-        p(point_mask), P, int(num_points), int(config.laser_max_beams),
-        p(pose), p(dths), A, p(dls), L, p(partial), p(out),
-        None if scores is None else p(scores), _build.stream_ptr(dev))
+        p(tables), p(origin), float(cell_size), W, H, p(points),
+        p(point_mask), R, P, None if nums is None else p(nums), int(num),
+        int(config.laser_max_beams), p(poses), p(dths), A, p(dls), L,
+        p(partial), p(out), None if scores is None else p(scores),
+        _build.stream_ptr(dev))
     _build.check(err, "candidate_scores")
     launches += 1
-    res = MatchResult(score=out[0], correction=out[1:4],
-                      covariance=out[4:13].reshape(3, 3))
+    return out, scores
+
+
+def match_rows(config, grid: ndt_grid.NDTGrid, tables, points, point_mask,
+               num_points, poses, dths, dls, with_scores: bool = False):
+    """K2 over R rows in one launch.  grid.origin [R, 2] f32 (the other
+    grid fields are not read), tables [R, H*W, 32] f32 (K1's), points
+    [R, P, 2] f32, point_mask [R, P] bool, num_points [R] int32, poses
+    [R, 3] f32, dths [A] / dls [L] f32.  Returns a MatchResult of
+    [R], [R, 3], [R, 3, 3] tensors, or (MatchResult, scores [R, A, L, L])
+    with ``with_scores``.  CPU tensors run the twin; CUDA tensors launch
+    the kernel."""
+    if points.device.type == "cpu":
+        res, cand = match_rows_twin(config, grid, tables, points, point_mask,
+                                    num_points, poses, dths, dls)
+        return (res, cand) if with_scores else res
+    out, scores = _launch(config, grid.origin, grid.cell_size, tables,
+                          points, point_mask, num_points, 0, poses, dths,
+                          dls, with_scores)
+    res = MatchResult(score=out[:, 0], correction=out[:, 1:4],
+                      covariance=out[:, 4:13].reshape(-1, 3, 3))
     return (res, scores) if with_scores else res
+
+
+def match(config, grid: ndt_grid.NDTGrid, table, points, point_mask,
+          num_points: int, pose, dths, dls, with_scores: bool = False):
+    """K2 of one scan: ``match_rows``' launch at R = 1.  table [H*W, 32]
+    f32 (K1's), points [P, 2] f32, point_mask [P] bool, pose [3] f32,
+    dths [A] / dls [L] f32.  Returns a MatchResult, or (MatchResult,
+    scores [A, L, L]) with ``with_scores``, which makes the kernel also
+    write its per-candidate scores (a check of the kernel; the match
+    itself never stores them).  CPU tensors run the twin; CUDA tensors
+    launch the kernel."""
+    if points.device.type == "cpu":
+        res, cand = match_twin(config, grid, table, points, point_mask,
+                               num_points, pose, dths, dls)
+        return (res, cand) if with_scores else res
+    out, scores = _launch(config, grid.origin[None], grid.cell_size,
+                          table[None], points[None], point_mask[None], None,
+                          num_points, pose[None], dths, dls, with_scores)
+    res = MatchResult(score=out[0, 0], correction=out[0, 1:4],
+                      covariance=out[0, 4:13].reshape(3, 3))
+    return (res, scores[0]) if with_scores else res

@@ -3,9 +3,12 @@
 Replaces ``ndt_2d_tpu/matching/matcher.py::window_origin`` +
 ``build_window_ndt`` (single grid) -> ``ndt_2d_tpu/ndt/grid.py::
 build_ndt_from_scans`` / ``build_ndt_binned`` + ``packed_patch_table``.
-One launch bins the window's points, sums each cell's moments in
+One launch bins the windows' points, sums each cell's moments in
 point-index order (no float atomics), finalizes every cell and writes the
 [C, 32] patch table K2 reads; the source's header says what bounds it.
+
+``build_windows`` takes a row axis (R windows, the ``jax.vmap`` of the
+loop-closure confirmation); ``build_window`` is the same launch at R = 1.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from ndt_2d_tpu_torch.ndt import grid as ndt_grid
 
 launches = 0
 
-_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
+_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
          + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10)
 
 
@@ -34,7 +37,8 @@ def window_origin(poses, window_mask, range_max: float):
 def build_window_twin(poses, points, point_mask, window_mask,
                       range_max: float, cell_size: float, width: int,
                       height: int):
-    """Plain-PyTorch K1: (NDTGrid, packed patch table [C, 32])."""
+    """Plain-PyTorch K1 of one window: (NDTGrid, packed patch table
+    [C, 32])."""
     origin = window_origin(poses, window_mask, range_max)
     mask = point_mask & window_mask[:, None]
     grid = ndt_grid.build_ndt_from_scans(poses, points, mask, origin,
@@ -42,34 +46,51 @@ def build_window_twin(poses, points, point_mask, window_mask,
     return grid, ndt_grid.packed_patch_table(grid, width)
 
 
-def build_window(poses, points, point_mask, window_mask, range_max: float,
-                 cell_size: float, width: int, height: int):
-    """Window NDT + patch table.  poses [S, 3] f32, points [S, P, 2] f32,
-    point_mask [S, P] bool, window_mask [S] bool.  CPU tensors run the
-    twin; CUDA tensors launch the kernel."""
+def build_windows_twin(poses, points, point_mask, window_mask,
+                       range_max: float, cell_size: float, width: int,
+                       height: int):
+    """Plain-PyTorch K1 over a row axis, one window at a time: (NDTGrid
+    whose fields carry a leading [R] axis, tables [R, C, 32])."""
+    rows = [build_window_twin(poses[r], points[r], point_mask[r],
+                              window_mask[r], range_max, cell_size, width,
+                              height) for r in range(poses.shape[0])]
+    grid = ndt_grid.NDTGrid(
+        cell_size=float(cell_size),
+        **{f: torch.stack([getattr(g, f) for g, _ in rows])
+           for f in ("origin", "mean", "information", "count", "covariance")})
+    return grid, torch.stack([t for _, t in rows])
+
+
+def build_windows(poses, points, point_mask, window_mask, range_max: float,
+                  cell_size: float, width: int, height: int):
+    """R window NDTs + patch tables in one launch.  poses [R, S, 3] f32,
+    points [R, S, P, 2] f32, point_mask [R, S, P] bool, window_mask [R, S]
+    bool.  Returns (NDTGrid with a leading [R] axis on every field, tables
+    [R, C, 32]).  CPU tensors run the twin; CUDA tensors launch the
+    kernel."""
     global launches
     if poses.device.type == "cpu":
-        return build_window_twin(poses, points, point_mask, window_mask,
-                                 range_max, cell_size, width, height)
+        return build_windows_twin(poses, points, point_mask, window_mask,
+                                  range_max, cell_size, width, height)
     dev = poses.device
-    S, P = points.shape[0], points.shape[1]
-    _build.require(poses, "poses", torch.float32, (S, 3), dev)
-    _build.require(points, "points", torch.float32, (S, P, 2), dev)
-    _build.require(point_mask, "point_mask", torch.bool, (S, P), dev)
-    _build.require(window_mask, "window_mask", torch.bool, (S,), dev)
+    R, S, P = points.shape[0], points.shape[1], points.shape[2]
+    _build.require(poses, "poses", torch.float32, (R, S, 3), dev)
+    _build.require(points, "points", torch.float32, (R, S, P, 2), dev)
+    _build.require(point_mask, "point_mask", torch.bool, (R, S, P), dev)
+    _build.require(window_mask, "window_mask", torch.bool, (R, S), dev)
     C = width * height
-    key = torch.empty(S * P, dtype=torch.int32, device=dev)
-    wx = torch.empty(S * P, dtype=torch.float32, device=dev)
-    wy = torch.empty(S * P, dtype=torch.float32, device=dev)
-    origin = torch.empty(2, dtype=torch.float32, device=dev)
-    mean = torch.empty(C, 2, dtype=torch.float32, device=dev)
-    info = torch.empty(C, 3, dtype=torch.float32, device=dev)
-    cov = torch.empty(C, 3, dtype=torch.float32, device=dev)
-    count = torch.empty(C, dtype=torch.int32, device=dev)
-    table = torch.empty(C, 32, dtype=torch.float32, device=dev)
+    key = torch.empty(R, S * P, dtype=torch.int32, device=dev)
+    wx = torch.empty(R, S * P, dtype=torch.float32, device=dev)
+    wy = torch.empty(R, S * P, dtype=torch.float32, device=dev)
+    origin = torch.empty(R, 2, dtype=torch.float32, device=dev)
+    mean = torch.empty(R, C, 2, dtype=torch.float32, device=dev)
+    info = torch.empty(R, C, 3, dtype=torch.float32, device=dev)
+    cov = torch.empty(R, C, 3, dtype=torch.float32, device=dev)
+    count = torch.empty(R, C, dtype=torch.int32, device=dev)
+    table = torch.empty(R, C, 32, dtype=torch.float32, device=dev)
     p = _build.ptr
     err = _build.function("ndt2d_ndt_build", _ARGS)(
-        p(poses), p(points), p(point_mask), p(window_mask), S, P,
+        p(poses), p(points), p(point_mask), p(window_mask), R, S, P,
         float(range_max), float(cell_size), width, height, p(key), p(wx),
         p(wy), p(origin), p(mean), p(info), p(cov), p(count), p(table),
         _build.stream_ptr(dev))
@@ -79,3 +100,25 @@ def build_window(poses, points, point_mask, window_mask, range_max: float,
                             mean=mean, information=info, count=count,
                             covariance=cov)
     return grid, table
+
+
+def build_window(poses, points, point_mask, window_mask, range_max: float,
+                 cell_size: float, width: int, height: int):
+    """One window NDT + patch table: ``build_windows`` at R = 1.  poses
+    [S, 3] f32, points [S, P, 2] f32, point_mask [S, P] bool, window_mask
+    [S] bool."""
+    if poses.device.type == "cpu":
+        return build_window_twin(poses, points, point_mask, window_mask,
+                                 range_max, cell_size, width, height)
+    grid, table = build_windows(poses[None], points[None], point_mask[None],
+                                window_mask[None], range_max, cell_size,
+                                width, height)
+    return row_grid(grid, 0), table[0]
+
+
+def row_grid(grid: ndt_grid.NDTGrid, r: int) -> ndt_grid.NDTGrid:
+    """Row ``r`` of a grid with a leading row axis."""
+    return ndt_grid.NDTGrid(
+        origin=grid.origin[r], cell_size=grid.cell_size, mean=grid.mean[r],
+        information=grid.information[r], count=grid.count[r],
+        covariance=grid.covariance[r])

@@ -1,4 +1,5 @@
-"""The mapper runtime: synchronous rolling-window SLAM on the port's kernels.
+"""The mapper runtime: synchronous SLAM with radius loop closure on the
+port's kernels.
 
 Port of the synchronous mapping branch of ``ndt_2d_tpu/mapping/mapper.py``
 (the reference's ``ndt_2d::Mapper``):
@@ -8,14 +9,18 @@ Port of the synchronous mapping branch of ``ndt_2d_tpu/mapping/mapper.py``
   fused window build (K1) + uncorrected score (K3) + exhaustive match (K2)
   against the device-resident rolling window, the EWMA of match quality,
   and the odometry constraint into the shared host pose graph.
-* ``loop_closure`` runs the host radius search; confirming a proposed
-  candidate (and the solver behind it) is not ported yet, so a proposal
-  raises instead of being skipped.
+* ``loop_closure`` == one pass of loopClosureThread: the host radius
+  search, the confirmation of every (query, candidate) row on the global
+  matcher (``match_scan_batch_multi``: one K1 and one K2 launch per chunk
+  of up to 64 rows; or one window at a time on the sequential path), the
+  acceptance gates, and the LM solve on K4 (``graph/solver.py``).
 * ``render_map`` == the occupancy export (K5).
 
 Refused with NotImplementedError rather than approximated: the particle
-filter, localization (``enable_mapping=False``), the pipelined path
-(``max_inflight > 0``), meshes, and loop searches other than "radius".
+filter, localization (``enable_mapping=False``), the pipelined per-scan
+path (``max_inflight > 0``), meshes, loop searches other than "radius"
+(descriptor mode and its coarse-to-fine confirmation), and matcher options
+whose kernels are not ported (checked at construction).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import numpy as np
 import torch
 
 from ndt_2d_tpu_torch.device import get_device
+from ndt_2d_tpu_torch.graph import solver
 from ndt_2d_tpu_torch.mapping import occupancy
 from ndt_2d_tpu_torch.matching import matcher as matcher_mod
 from ndt_2d_tpu_torch.matching import registry
@@ -71,6 +77,8 @@ def check_supported(config: MapperConfig) -> None:
     for bad, what in unsupported:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet")
+    for m in (config.local_scan_matcher, config.global_scan_matcher):
+        matcher_mod.check_supported(m)
 
 
 class Mapper:
@@ -94,20 +102,29 @@ class Mapper:
         self.laser_transform = np.asarray(laser_transform, np.float64)
         self.laser_inverted = bool(laser_inverted)
 
-        # The rolling-window matcher; loop-closure confirmation (the
-        # reference's global matcher) is not ported yet.
         self.local_matcher = None
+        self.global_matcher = None
+        # Descriptor mode's coarse matcher is not ported: always None, so
+        # every confirmation row takes the fine (near) segment.
+        self.coarse_matcher = None
 
         self.prev_odom_pose = np.zeros(3)
         self.prev_robot_pose = np.zeros(3)
         self.typical_matcher_response = -0.5   # ndt_mapper.cpp:55
         self.global_scans_processed = 0
+        self.optimization_last = 0
+        self.map_update_available = False
 
         self._scans_since_loop_closure = 0
         self.stats = SessionStats()
-        # (query, candidate ids, query position) rows, bounded as in the
-        # reference mapper.
-        self.lc_log = {"candidates": deque(maxlen=100_000)}
+        # Loop-closure log, bounded as in the reference mapper: "candidates"
+        # rows are (query, candidate ids, query position), "decisions" rows
+        # (query, candidate, score, gate, accepted).
+        self.lc_log = {"candidates": deque(maxlen=100_000),
+                       "decisions": deque(maxlen=100_000)}
+        # The negative cache of clearly rejected far rows; it only ever
+        # fills with a coarse matcher (descriptor mode, not ported).
+        self._reject_cache = {}
         # Device-resident rolling window, rebuilt from the graph tail
         # whenever it is not the graph's newest rolling_depth scans;
         # _window_synced counts the graph scans it reflects (-1: rebuild).
@@ -124,9 +141,13 @@ class Mapper:
             return
         if self.range_max < 0:
             self.range_max = float(msg_range_max)
+        mtype = self.config.scan_matcher_type
+        self.global_matcher = registry.create(
+            mtype, self.config.global_scan_matcher, self.range_max,
+            device=self.device)
         self.local_matcher = registry.create(
-            self.config.scan_matcher_type, self.config.local_scan_matcher,
-            self.range_max, device=self.device)
+            mtype, self.config.local_scan_matcher, self.range_max,
+            device=self.device)
 
     # ------------------------------------------------------------------
     def process_scan(self, msg: LaserScanMsg, odom_pose,
@@ -301,6 +322,7 @@ class Mapper:
 
         self.prev_odom_pose = odom_pose.copy()
         self.prev_robot_pose = pose.copy()
+        self.map_update_available = True
         self.stats.record_scan(True, matched if g.num_scans > 1 else None)
 
         self._scans_since_loop_closure += 1
@@ -322,14 +344,12 @@ class Mapper:
     # ------------------------------------------------------------------
     def loop_closure(self) -> int:
         """One pass of the loop-closure search (loopClosureThread body,
-        ndt_mapper.cpp:569-685), as far as the host radius search.
-
-        Confirming a candidate needs the batched confirmation matcher and
-        the pose-graph solver, which are not ported yet: a pass that
-        proposes any candidate raises NotImplementedError.  A pass that
-        proposes none advances ``global_scans_processed`` and trims the
-        host heap, as the reference's pass does.  Returns 0."""
+        ndt_mapper.cpp:569-685): radius candidates of every scan not yet
+        searched, their confirmation on the global matcher, the acceptance
+        gates, and the optimization cadence.  Returns the number of
+        closures added."""
         self._scans_since_loop_closure = 0
+        self._drain_all()
         g = self.graph
         num_scans = g.num_scans
         depth = self.config.rolling_depth
@@ -337,22 +357,52 @@ class Mapper:
             return 0
         if self.global_scans_processed <= depth:
             self.global_scans_processed = depth + 1
-        with self.stats.timer.section("loop_closure"):
-            for j in range(self.global_scans_processed, num_scans):
-                cands = self._loop_candidates(j)
-                if cands:
-                    raise NotImplementedError(
-                        f"scan {j} proposes loop-closure candidates "
-                        f"{cands}; loop-closure confirmation and the "
-                        "pose-graph solver are not ported yet")
-            self.global_scans_processed = num_scans
-        trim_host_heap()
-        return 0
 
+        added = 0
+        if (self._fused_confirmation_available()
+                and self.config.pipeline_loop_closure):
+            added = self._loop_closure_pass_pipelined(num_scans)
+        else:
+            while self.global_scans_processed < num_scans:
+                idx = self.global_scans_processed
+                with self.stats.timer.section("loop_closure"):
+                    candidates = self._loop_candidates(idx)
+                    if candidates:
+                        added += self._confirm_candidates(idx, candidates)
+                self.global_scans_processed += 1
+
+        # Optimization cadence (ndt_mapper.cpp:676-683).
+        if added and (num_scans - self.optimization_last
+                      > self.config.optimization_node_limit):
+            logger.info("Optimizing pose graph")
+            with self.stats.timer.section("optimize"):
+                self._solve_graph()
+            self.stats.optimizations += 1
+            self.optimization_last = g.num_scans
+            self.map_update_available = True
+            self._window_synced = -1  # optimized poses invalidate the window
+            self._reject_cache.clear()
+            self._reanchor_pose()
+        # Return the pass's freed host buffers to the OS.
+        trim_host_heap()
+        return added
+
+    def _reanchor_pose(self) -> None:
+        """Re-anchor the dead-reckoning chain on the newest graph pose after
+        an optimization (or a closure that moved the newest scan).  The
+        reference never does (src/ndt_mapper.cpp:569-685 vs :541-545); its
+        stale chain strands the next start pose outside the match window,
+        which the JAX package fixes and the port keeps fixed."""
+        g = self.graph
+        if g.num_scans:
+            self.prev_robot_pose = g.poses[g.num_scans - 1].copy()
+
+    # --- loop-closure internals ------------------------------------------
     def _loop_candidates(self, idx: int) -> list:
         """Radius-search candidates of scan ``idx`` (Graph::findNearest
-        below the rolling window), point-less scans dropped, capped at
-        global_search_limit; logged like the reference mapper's."""
+        below the rolling window), ordered, point-less scans dropped,
+        capped at global_search_limit; "both" positions add a pose-space
+        arm with its own budget.  Logged like the reference mapper's."""
         g = self.graph
         limit = self.config.global_search_limit
         rolling = idx - self.config.rolling_depth
@@ -365,8 +415,13 @@ class Mapper:
             i = int(i)
             if len(out) >= limit:
                 break
-            if g.point_mask[i].any():
-                out.append(i)
+            if not g.point_mask[i].any():
+                continue
+            if (self._reject_cache and self._is_far(idx, i)
+                    and self._far_key(idx, i) in self._reject_cache):
+                self.stats.far_rows_cache_skipped += 1
+                continue
+            out.append(i)
         if self.config.loop_search_positions == "both":
             extras = 0
             for i in g.find_nearest(g.poses[idx, :2],
@@ -377,16 +432,442 @@ class Mapper:
                     break
                 if i in out or not g.point_mask[i].any():
                     continue
+                if (self._reject_cache and self._is_far(idx, i)
+                        and self._far_key(idx, i) in self._reject_cache):
+                    self.stats.far_rows_cache_skipped += 1
+                    continue
                 out.append(i)
                 extras += 1
         self.lc_log["candidates"].append((idx, tuple(out),
                                           tuple(np.asarray(query, float))))
         return out
 
+    def _window_bounds(self, i: int, rolling: int):
+        """[begin, end) scan range of candidate ``i``'s S-slot confirmation
+        region (shared by the window build and the row-reuse key)."""
+        S = self.config.loop_closure_region_size
+        begin_idx = max(i - S // 2, 0)
+        end_idx = max(min(i + (S - S // 2), rolling), i + 1)
+        return begin_idx, begin_idx + min(end_idx - begin_idx, S)
+
+    def _grid_cells_snapshot(self):
+        """Current global (and coarse) matcher grid sizes."""
+        gm = self.global_matcher.config
+        cells = [gm.grid_cells_x, gm.grid_cells_y]
+        if self.coarse_matcher is not None:
+            cells += [self.coarse_matcher.config.grid_cells_x,
+                      self.coarse_matcher.config.grid_cells_y]
+        return tuple(cells)
+
+    def _confirm_row_key(self, j: int, i: int) -> bytes:
+        """Snapshot of everything a confirmation row's result depends on:
+        the query pose, the candidate window's poses and the grid sizes."""
+        g = self.graph
+        begin_idx, end_idx = self._window_bounds(
+            i, j - self.config.rolling_depth)
+        return (g.poses[j].tobytes() + g.poses[begin_idx:end_idx].tobytes()
+                + np.asarray(self._grid_cells_snapshot(), np.int64).tobytes())
+
+    def _candidate_window(self, i: int, rolling: int):
+        """The candidate's S-slot scan region around scan ``i``
+        (ndt_mapper.cpp:627-631; S = 2 is the reference's {i-1, i}),
+        never reaching into the query's rolling window, padded to S."""
+        g = self.graph
+        S = self.config.loop_closure_region_size
+        begin_idx, end_idx = self._window_bounds(i, rolling)
+        k = end_idx - begin_idx
+        poses2 = np.zeros((S, 3), np.float32)
+        pts2 = np.zeros((S, g.max_points, 2), np.float32)
+        pmask2 = np.zeros((S, g.max_points), bool)
+        wmask2 = np.zeros(S, bool)
+        poses2[:k] = g.poses[begin_idx:end_idx].astype(np.float32)
+        pts2[:k] = g.points[begin_idx:end_idx]
+        pmask2[:k] = g.point_mask[begin_idx:end_idx]
+        wmask2[:k] = True
+        return poses2, pts2, pmask2, wmask2
+
+    def _candidate_start(self, idx: int, i: int, descriptor: bool):
+        """(start pose, wants_coarse) for candidate ``i`` of query ``idx``:
+        the query's own pose; far descriptor candidates (not ported)
+        would start at the candidate's position on the coarse lattice."""
+        g = self.graph
+        st = g.poses[idx].copy()
+        if descriptor:
+            d2 = float(np.sum((g.poses[i, :2] - st[:2]) ** 2))
+            if d2 > self.config.global_search_size:
+                st[:2] = g.poses[i, :2]
+                return st, True
+        return st, False
+
+    # --- far-candidate pruning: only active with a coarse matcher ---------
+    def _is_far(self, idx: int, i: int) -> bool:
+        """Whether candidate ``i`` of ``idx`` takes the coarse-to-fine arm
+        (never, without a coarse matcher)."""
+        if self.coarse_matcher is None:
+            return False
+        g = self.graph
+        d2 = float(np.sum((g.poses[i, :2] - g.poses[idx, :2]) ** 2))
+        return d2 > self.config.global_search_size
+
+    def _far_key(self, idx: int, i: int):
+        """Spatial cell key of a far (query, candidate) pair."""
+        cell = self.config.loop_closure_far_dedup or 2.0
+        g = self.graph
+        q = g.poses[idx, :2] / cell
+        c = g.poses[i, :2] / cell
+        return (int(np.floor(q[0])), int(np.floor(q[1])),
+                int(np.floor(c[0])), int(np.floor(c[1])))
+
+    def _prune_far_pass(self, pending: list) -> list:
+        """Per-pass dedup and cap of far rows (config.loop_closure_far_dedup,
+        loop_closure_max_far_rows).  Without a coarse matcher no row is
+        far, so the pass comes back unchanged."""
+        return pending
+
+    def _apply_gate(self, idx: int, i: int, start, score: float, correction,
+                    covariance) -> bool:
+        """Acceptance gate + graph update for one confirmed candidate
+        (ndt_mapper.cpp:645-668), shared by every confirmation path."""
+        g = self.graph
+        gate = (self.typical_matcher_response
+                * self.config.loop_closure_gate_scale)
+        accepted = bool(np.isfinite(score) and score < gate)
+        if accepted:
+            # Separation gate: the corrected query pose must land within
+            # loop_closure_max_separation of the candidate (inf = parity).
+            sep = np.hypot(*(start[:2] + np.asarray(correction)[:2]
+                             - g.poses[i, :2]))
+            accepted = sep <= self.config.loop_closure_max_separation
+        self.lc_log["decisions"].append((idx, i, float(score), float(gate),
+                                         accepted))
+        margin = self.config.loop_closure_reject_cache_margin
+        if not accepted and margin > 0 and self._is_far(idx, i):
+            if (not np.isfinite(score)
+                    or score - gate >= margin * abs(gate)):
+                self._reject_cache[self._far_key(idx, i)] = float(score)
+        if accepted:
+            self._reject_cache.clear()
+            self.stats.loop_closures_accepted += 1
+            logger.info("***Adding loop closure from %d to %d (score %f)",
+                        i, idx, score)
+            new_pose = start + np.asarray(correction, np.float64)
+            poses = g.poses.copy()
+            poses[idx] = new_pose
+            g.set_poses(poses)
+            pose_graph.make_constraint_np(
+                g, i, idx, np.asarray(covariance, np.float64),
+                switchable=True)
+            self.map_update_available = True
+            # The corrected pose may sit inside the device rolling window.
+            self._window_synced = -1
+            if idx == g.num_scans - 1:
+                # The closure moved the newest keyframe: optionally let the
+                # robust solve arbitrate first, then re-anchor the chain.
+                if self.config.loop_closure_solve_before_reanchor:
+                    with self.stats.timer.section("optimize"):
+                        if self._solve_graph():
+                            self.stats.optimizations += 1
+                            self.optimization_last = g.num_scans
+                self._reanchor_pose()
+            return True
+        self.stats.loop_closures_rejected += 1
+        logger.info("***Rejecting loop closure from %d to %d (score %f)",
+                    i, idx, score)
+        return False
+
+    def _fused_confirmation_available(self) -> bool:
+        """Whether the batched confirmation applies (NDT matchers only)."""
+        return (self.config.batch_loop_closure
+                and isinstance(self.global_matcher,
+                               matcher_mod.NDTScanMatcher)
+                and (self.coarse_matcher is None
+                     or isinstance(self.coarse_matcher,
+                                   matcher_mod.NDTScanMatcher)))
+
+    def _loop_closure_pass_pipelined(self, num_scans: int) -> int:
+        """The whole pass's (query, candidate) rows confirmed in batches,
+        then gated in scan order.  An acceptance restarts the pass from the
+        next scan with the corrected graph; rows whose inputs did not
+        change (``_confirm_row_key``) reuse their result instead of
+        re-running.  A row's result does not depend on the batch it rides
+        in, so decisions equal the per-scan path's."""
+        added = 0
+        row_cache = {}
+        while self.global_scans_processed < num_scans:
+            pending = []
+            rows = []
+            with self.stats.timer.section("loop_closure"):
+                for j in range(self.global_scans_processed, num_scans):
+                    cands = self._loop_candidates(j)
+                    if cands:
+                        pending.append((j, cands))
+                self.global_scans_processed = num_scans
+                pending = self._prune_far_pass(pending)
+                rows = [(j, i) for j, cands in pending for i in cands]
+                if not rows:
+                    break
+                while True:
+                    keys = {r: self._confirm_row_key(*r) for r in rows}
+                    fresh = [r for r in rows
+                             if row_cache.get(r, (None,))[0] != keys[r]]
+                    if not fresh:
+                        break
+                    cells0 = self._grid_cells_snapshot()
+                    starts, segments = self._dispatch_confirm_rows(fresh)
+                    fsc, fco, fcv, ffs = self._fetch_rows(starts, segments)
+                    if self._grid_cells_snapshot() != cells0:
+                        # auto_grow_grids fired mid-dispatch: redo under the
+                        # grown config so no entry mixes grid sizes.
+                        row_cache.clear()
+                        continue
+                    for m, r in enumerate(fresh):
+                        row_cache[r] = (keys[r], float(fsc[m]),
+                                        fco[m].copy(), fcv[m].copy(),
+                                        ffs[m].copy())
+                    break
+                self.stats.confirm_rows_reused += len(rows) - len(fresh)
+                N = len(rows)
+                scores = np.zeros(N)
+                corrs = np.zeros((N, 3))
+                covs = np.zeros((N, 3, 3))
+                fstarts = np.zeros((N, 3))
+                for m, r in enumerate(rows):
+                    _, scores[m], corrs[m], covs[m], fstarts[m] = \
+                        row_cache[r]
+            off = 0
+            for (j, cands) in pending:
+                k = len(cands)
+                with self.stats.timer.section("loop_closure"):
+                    a, changed = self._gate_rows(
+                        j, cands, fstarts[off:off + k], scores[off:off + k],
+                        corrs[off:off + k], covs[off:off + k])
+                added += a
+                off += k
+                if changed and j + 1 < num_scans:
+                    # Everything after j saw the pre-acceptance graph.
+                    self.global_scans_processed = j + 1
+                    break
+        return added
+
+    def _confirm_candidates(self, idx: int, candidates: list) -> int:
+        """Confirm the candidates of scan ``idx``; returns closures added."""
+        if self._fused_confirmation_available():
+            return self._confirm_candidates_batched(idx, candidates)
+        return self._confirm_candidates_sequential(idx, candidates)
+
+    def _confirm_candidates_sequential(self, idx: int,
+                                       candidates: list) -> int:
+        """Reference-shaped path: per candidate, rebuild the global
+        matcher's NDT and match (ndt_mapper.cpp:623-663); the equivalence
+        oracle of the batched paths."""
+        g = self.graph
+        rolling = idx - self.config.rolling_depth
+        n = int(g.point_mask[idx].sum())
+        best_mode = self.config.loop_closure_accept == "best"
+        results = []
+        added = 0
+        for i in candidates:
+            poses2, pts2, pmask2, wmask2 = self._candidate_window(i, rolling)
+            grown = self._check_grid_capacity(
+                poses2[wmask2][:, :2], self.global_matcher.config,
+                "loop-closure candidate window", "scan matcher grid_cells_*")
+            if grown:
+                self._grow_matcher("global_matcher", grown)
+            self.global_matcher.reset()
+            self.global_matcher.add_scans(poses2, pts2, pmask2, wmask2)
+            start, _ = self._candidate_start(
+                idx, i, self.coarse_matcher is not None)
+            res = self.global_matcher.match_scan(
+                g.points[idx], g.point_mask[idx], n, start.astype(np.float32))
+            flat = torch.cat([res.score.reshape(1), res.correction,
+                              res.covariance.reshape(9)]).cpu().numpy()
+            score = float(flat[0])
+            corr = flat[1:4].astype(np.float64)
+            cov = flat[4:13].reshape(3, 3).astype(np.float64)
+            if best_mode:
+                results.append((score, i, start, corr, cov))
+                continue
+            added += int(self._apply_gate(idx, i, start, score, corr, cov))
+        if best_mode:
+            for score, i, start, corr, cov in sorted(results,
+                                                     key=lambda r: r[0]):
+                if self._apply_gate(idx, i, start, score, corr, cov):
+                    added += 1
+                    break
+        return added
+
+    def _confirm_candidates_batched(self, idx: int, candidates: list) -> int:
+        """All candidate windows of scan ``idx`` confirmed in one batch.  If
+        a mid-batch acceptance moves the scan pose, the remaining
+        candidates re-match from the corrected pose (_gate_rows)."""
+        starts, segments = self._dispatch_confirm(idx, candidates)
+        added, _ = self._drain_confirm(idx, candidates, starts, segments)
+        return added
+
+    def _dispatch_confirm(self, idx: int, candidates: list):
+        """Dispatch the confirmation of ``candidates`` of scan ``idx``."""
+        return self._dispatch_confirm_rows([(idx, i) for i in candidates])
+
+    def _dispatch_confirm_rows(self, rows: list):
+        """Dispatch the confirmation of ``rows``, (query, candidate) pairs
+        possibly spanning many query scans, in chunks of at most 64 rows
+        (one K1 and one K2 launch each).  Every row is near (the coarse
+        segment needs descriptor mode).  Returns (starts [N, 3] float64,
+        segments [(row positions, device outputs, coarse flag)])."""
+        descriptor = self.coarse_matcher is not None
+        N = len(rows)
+        starts = np.zeros((N, 3), np.float64)
+        for r, (q, i) in enumerate(rows):
+            starts[r], _ = self._candidate_start(q, i, descriptor)
+        segments = []
+        pos = np.arange(N)
+        cap = 64
+        for c0 in range(0, N, cap):
+            chunk = pos[c0:c0 + cap]
+            out = self._dispatch_rows_segment([rows[r] for r in chunk],
+                                              starts[chunk], False)
+            segments.append((chunk, out, False))
+        return starts, segments
+
+    def _dispatch_rows_segment(self, rows: list, starts, coarse: bool):
+        """One chunk: the rows padded to a power of two (at least 4) and
+        confirmed by ``match_scan_batch_multi``; returns its device
+        (scores, corrections, covariances)."""
+        if coarse:
+            raise NotImplementedError("coarse-to-fine confirmation is not "
+                                      "ported yet")
+        g = self.graph
+        K = len(rows)
+        pad = max(4, 1 << (K - 1).bit_length())
+        S = self.config.loop_closure_region_size
+        poses = np.zeros((pad, S, 3), np.float32)
+        pts = np.zeros((pad, S, g.max_points, 2), np.float32)
+        pmask = np.zeros((pad, S, g.max_points), bool)
+        wmask = np.zeros((pad, S), bool)
+        qpts = np.zeros((pad, g.max_points, 2), np.float32)
+        qmask = np.zeros((pad, g.max_points), bool)
+        qnum = np.zeros(pad, np.int32)
+        st = np.zeros((pad, 3), np.float32)
+        for j, (q, i) in enumerate(rows):
+            rolling = q - self.config.rolling_depth
+            poses[j], pts[j], pmask[j], wmask[j] = \
+                self._candidate_window(i, rolling)
+            qpts[j] = g.points[q]
+            qmask[j] = g.point_mask[q]
+            qnum[j] = int(g.point_mask[q].sum())
+            st[j] = starts[j]
+
+        self._check_batch_capacity(poses, wmask, coarse)
+
+        dev = self.device
+        args = [torch.from_numpy(a).to(dev)
+                for a in (poses, pts, pmask, wmask)]
+        query = [torch.from_numpy(a).to(dev) for a in (qpts, qmask, qnum, st)]
+        return matcher_mod.match_scan_batch_multi(
+            self.global_matcher.config, *args, self.range_max, *query)
+
+    def _fetch_rows(self, starts, segments):
+        """Materialize dispatched segments into per-row (scores, corrs,
+        covs, fine_starts) host arrays in row order, one device->host copy
+        per segment."""
+        N = len(starts)
+        scores = np.zeros(N)
+        corrs = np.zeros((N, 3))
+        covs = np.zeros((N, 3, 3))
+        fstarts = np.asarray(starts, np.float64).copy()
+        for pos, (sc, co, cv), _ in segments:
+            flat = torch.cat([sc[:, None], co, cv.reshape(-1, 9)],
+                             1).cpu().numpy()[:len(pos)]
+            scores[pos] = flat[:, 0]
+            corrs[pos] = flat[:, 1:4]
+            covs[pos] = flat[:, 4:13].reshape(-1, 3, 3)
+        return scores, corrs, covs, fstarts
+
+    def _gate_rows(self, idx: int, candidates: list, fstarts, scores, corrs,
+                   covs):
+        """Apply the acceptance gates for one query's candidates.
+        Returns (closures added, graph changed)."""
+        K = len(candidates)
+        if self.config.loop_closure_accept == "best":
+            # Score order, at most one closure per query per pass.
+            for j in np.argsort(scores[:K]):
+                ok = self._apply_gate(idx, candidates[j], fstarts[j],
+                                      float(scores[j]), corrs[j], covs[j])
+                if ok:
+                    return 1, True
+            return 0, False
+        added = 0
+        for j, i in enumerate(candidates):
+            ok = self._apply_gate(idx, i, fstarts[j], float(scores[j]),
+                                  corrs[j], covs[j])
+            if ok:
+                added += 1
+                if j + 1 < K:
+                    # The acceptance moved g.poses[idx]; re-batch the rest
+                    # from the corrected pose, as the sequential path does.
+                    added += self._confirm_candidates_batched(
+                        idx, candidates[j + 1:])
+                return added, True
+        return added, False
+
+    def _drain_confirm(self, idx: int, candidates: list, starts, segments):
+        """Fetch a dispatched confirmation and apply the acceptance gates in
+        candidate order.  Returns (closures added, graph changed)."""
+        scores, corrs, covs, fstarts = self._fetch_rows(starts, segments)
+        return self._gate_rows(idx, candidates, fstarts, scores, corrs, covs)
+
+    def _check_batch_capacity(self, poses, wmask, coarse: bool) -> None:
+        """Static-grid capacity check over all candidate windows; grows the
+        tripped matcher(s) to the largest window's need."""
+        matchers = ["global_matcher"] + (["coarse_matcher"] if coarse else [])
+        for attr in matchers:
+            need = None
+            for w in range(poses.shape[0]):
+                wp = poses[w][wmask[w]]
+                if not len(wp):
+                    continue
+                grown = self._check_grid_capacity(
+                    wp[:, :2], getattr(self, attr).config,
+                    "loop-closure candidate window",
+                    "scan matcher grid_cells_*")
+                if grown:
+                    need = (max(grown[0], need[0]),
+                            max(grown[1], need[1])) if need else grown
+            if need:
+                self._grow_matcher(attr, need)
+
+    def _solve_graph(self) -> bool:
+        """Optimize the graph in place on the mapper's device."""
+        return solver.solve_graph(self.graph, self.config.solver,
+                                  device=self.device)
+
+    def optimize(self) -> bool:
+        """Force a pose-graph optimization."""
+        self._drain_all()
+        ok = self._solve_graph()
+        if ok:
+            self.optimization_last = self.graph.num_scans
+            self.map_update_available = True
+            self._window_synced = -1
+            self._reject_cache.clear()
+            self._reanchor_pose()
+        return ok
+
+    def graph_snapshot(self) -> dict:
+        """Graph visualization data (Graph::getMsg, src/graph.cpp:191-256)."""
+        self._drain_all()
+        g = self.graph
+        return {
+            "nodes": g.poses[:, :2].copy(),
+            "edges": np.stack([g.constraint_begin, g.constraint_end], -1),
+            "switchable": g.constraint_switchable.copy(),
+        }
+
     # ------------------------------------------------------------------
     def render_map(self) -> occupancy.OccupancyGridResult:
         """Occupancy-grid export (mapPublishThread, ndt_mapper.cpp:696-705)."""
         self._drain_all()
+        self.map_update_available = False
         g = self.graph
         return occupancy.render_occupancy(
             g.poses, g.points, g.point_mask, self.config.resolution,

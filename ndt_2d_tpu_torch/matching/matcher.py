@@ -1,7 +1,9 @@
 """NDT scan matching on the port's kernels: window NDT build (K1), the
 uncorrected score (K3) and the exhaustive 3-DoF search (K2).
 
-Port of the main-path subset of ``ndt_2d_tpu/matching/matcher.py``.  The
+Port of the main-path subset of ``ndt_2d_tpu/matching/matcher.py``,
+including the loop-closure confirmation ``match_scan_batch_multi`` (K1 and
+K2 over a row axis, one launch each).  The
 plain steps of the search live beside their kernels and are re-exported
 here under the reference's names (``subsample``, ``window_origin``,
 ``prepare_neighborhood``, ``_candidate_scores_local``,
@@ -9,7 +11,8 @@ here under the reference's names (``subsample``, ``window_origin``,
 
 Not ported yet, and refused rather than approximated: lattices wider than
 one NDT cell (the per-candidate gather path, kernel K6), overlapping grids
-(K8) and Newton refinement (K7).
+(K8), Newton refinement (K7) and the coarse-to-fine confirmation
+(``match_scan_batch_multi_coarse_fine``, descriptor mode).
 """
 
 from __future__ import annotations
@@ -107,6 +110,30 @@ def match_scan_windowed(config: ScanMatcherConfig, poses, points, point_mask,
     res = match_scan(config, grid, scan_points, scan_mask, num_points, pose,
                      packed_table=table)
     return unc, res
+
+
+def match_scan_batch_multi(config: ScanMatcherConfig, poses, points,
+                           point_mask, window_mask, range_max: float,
+                           query_points, query_mask, query_num, start_poses):
+    """Loop-closure confirmation of N rows, each a candidate window and
+    its own query scan: every row's window build (K1) and match (K2) in one
+    launch each.
+
+    poses [N, S, 3], points [N, S, P, 2], point_mask [N, S, P], window_mask
+    [N, S] (all-False rows are padding: their empty grids score 0 and never
+    pass the acceptance gate); query_points [N, P, 2], query_mask [N, P],
+    query_num [N] int32; start_poses [N, 3].  Returns (scores [N],
+    corrections [N, 3], covariances [N, 3, 3]).  A row's result does not
+    depend on N or on the other rows.  CPU tensors run the twins row by
+    row."""
+    check_supported(config)
+    grid, tables = k1.build_windows(
+        poses, points, point_mask, window_mask, range_max,
+        config.ndt_resolution, config.grid_cells_x, config.grid_cells_y)
+    res = k2.match_rows(config, grid, tables, query_points, query_mask,
+                        query_num, start_poses,
+                        *_search_offsets(config, points.device))
+    return res.score, res.correction, res.covariance
 
 
 @dataclasses.dataclass

@@ -7,7 +7,8 @@ port module takes them from here, so the boundary is one import list
 (``tests/test_torch_slice.py`` checks that it stays jax-free).
 """
 
-from ndt_2d_tpu.config import MapperConfig, ScanMatcherConfig  # noqa: F401
+from ndt_2d_tpu.config import (  # noqa: F401
+    MapperConfig, ScanMatcherConfig, SolverConfig)
 from ndt_2d_tpu.graph import pose_graph  # noqa: F401
 from ndt_2d_tpu.io import serialization  # noqa: F401
 from ndt_2d_tpu.io.bag import ScanBag, load_bag, record_synthetic, save_bag  # noqa: F401

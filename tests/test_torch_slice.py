@@ -133,16 +133,20 @@ def test_port_never_imports_jax():
         import sys
         import ndt_2d_tpu_torch.cli
         import ndt_2d_tpu_torch.convert
+        from ndt_2d_tpu_torch.graph import solver
         from ndt_2d_tpu_torch.mapping import runtime
         from ndt_2d_tpu_torch.mapping.mapper import Mapper
         from ndt_2d_tpu_torch.shared import (
             MapperConfig, ScanMatcherConfig, record_synthetic)
-        b = record_synthetic("box", 5, n_beams=90)
+        b = record_synthetic("box", 24, n_beams=90)
         m = ScanMatcherConfig(grid_cells_x=160, grid_cells_y=160)
         cfg = MapperConfig(local_scan_matcher=m, global_scan_matcher=m,
-                           max_points_per_scan=128)
-        st = runtime.run_bag(Mapper(cfg, device="cpu"), b)
-        assert st["scans_accepted"] == 5, st
+                           max_points_per_scan=128, loop_closure_every=12)
+        mapper = Mapper(cfg, device="cpu")
+        st = runtime.run_bag(mapper, b)
+        assert st["scans_accepted"] == 24, st
+        assert len(mapper.lc_log["decisions"]) >= 1, "no row confirmed"
+        assert solver.solve_graph(mapper.graph, cfg.solver)
         assert "jax" not in sys.modules, "jax imported"
         print("ok")
     """)
@@ -156,7 +160,7 @@ def test_port_never_imports_jax():
 def test_kernel_sources_found_from_package_path():
     names = {os.path.basename(p) for p in _build.sources()}
     assert {"ndt_build.cu", "candidate_scores.cu", "score_points.cu",
-            "raymarch.cu", "common.cuh"} <= names
+            "raymarch.cu", "normal_blocks.cu", "common.cuh"} <= names
     assert all(p.startswith(_build.CSRC) for p in _build.sources())
     assert _build.BUILD_DIR.startswith(os.path.dirname(_build.CSRC))
     # The build is lazy: importing the kernel modules compiled nothing.
@@ -173,6 +177,20 @@ def test_kernel_sources_found_from_package_path():
 def test_unported_mapper_modes_raise(change):
     with pytest.raises(NotImplementedError):
         Mapper(dataclasses.replace(CONFIG2, **change), device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    dict(search_linear_size=0.2, search_linear_resolution=0.02),
+    dict(refine_iterations=8),
+    dict(overlapping_grids=True),
+])
+def test_unported_global_matcher_fails_at_construction(change):
+    """An unported global lattice or option is refused by Mapper(...), not
+    at the first loop-closure pass."""
+    cfg = dataclasses.replace(
+        CONFIG2, global_scan_matcher=dataclasses.replace(M192, **change))
+    with pytest.raises(NotImplementedError):
+        Mapper(cfg, device="cpu")
 
 
 def test_mesh_and_configure_actions_raise():
@@ -215,13 +233,17 @@ def test_window_mirrors_graph_tail_and_grid_grows():
 
 
 def test_proposed_loop_closure_raises():
-    """A revisit proposes a radius-search candidate; its confirmation is
-    not ported, so the pass raises instead of skipping it."""
+    """A revisit's proposed radius-search candidates raise confirmation
+    rows: the pass confirms each one on the global matcher and gates it."""
     bag = bag_mod.record_synthetic("box", 30, n_beams=180, seed=0)
     m = ScanMatcherConfig(grid_cells_x=160, grid_cells_y=160)
     cfg = MapperConfig(local_scan_matcher=m, global_scan_matcher=m,
                        max_points_per_scan=256, loop_closure_every=10**9)
     mapper = Mapper(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        runtime.run_bag(mapper, bag)
-    assert any(c[1] for c in mapper.lc_log["candidates"])
+    runtime.run_bag(mapper, bag)
+    proposed = sum(len(c[1]) for c in mapper.lc_log["candidates"])
+    st = mapper.stats
+    assert proposed >= 1
+    assert st.loop_closures_accepted + st.loop_closures_rejected >= 1
+    assert len(mapper.lc_log["decisions"]) == (st.loop_closures_accepted
+                                              + st.loop_closures_rejected)
