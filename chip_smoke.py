@@ -31,15 +31,36 @@ Phases (any failure exits non-zero):
     confirmation dispatches and the first solve of that session are
     replayed through the twins on the card and must reach the same gate
     decisions (scores within 1e-5 relative) and poses within 1e-4;
+    (d) BASELINE config 4 (benchmarks/run_benchmarks.py:378-426): the
+    150-scan box (360 beams, seed 2), mapped and saved before [3], is
+    loaded; the 150-scan box bag (seed 7) is localized with the particle
+    filter (5000 particles, KLD min 500, odometry alphas 0.05, seed 3):
+    mean position error <= 0.10 m and below odometry's, every step on
+    K3-batch and K9; the first three filter steps replayed through the
+    twins with the same draws give the same n_active and particles
+    bitwise; then the scan-match branch on the same map and bag: mean
+    error <= 0.12 m.  Before it, [3] holds K3 over 5000 and over 20,000
+    poses of the config-4 grid against its twin (bitwise, and 64 rows
+    bitwise equal to their M = 1 launch) and K9's motion, resample (plain
+    and recovery), EWMAs and statistics against their twins on the same
+    scores and draws at both counts (bitwise: n_active, drawn indices,
+    first-occurrence marks, particles, weights, w_slow/w_fast, mean and
+    covariance); (e) BASELINE config 7 (run_benchmarks.py:598-657): 20,000
+    particles seeded over the free space (K5), 40 scans; the scan it
+    converged at and its final error are printed, not gated; K3-batch and
+    K9 launched every step and no twin ran; the first two steps replayed
+    through the twins give the same n_active and particles bitwise;
  5. print the kernels' JSON line and, last, the device JSON line.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 KERNELS = {
@@ -55,12 +76,22 @@ KERNELS = {
                       "ndt_2d_tpu/graph/solver.py:140"),
     "pcg_matvec": ("ndt_2d_tpu_torch/csrc/normal_blocks.cu",
                    "ndt_2d_tpu/graph/solver.py:203"),
+    "score_points_batch": ("ndt_2d_tpu_torch/csrc/score_points.cu",
+                           "ndt_2d_tpu/matching/matcher.py:424"),
+    "pf_motion": ("ndt_2d_tpu_torch/csrc/particle_filter.cu",
+                  "ndt_2d_tpu/filter/motion_model.py:21"),
+    "pf_resample": ("ndt_2d_tpu_torch/csrc/particle_filter.cu",
+                    "ndt_2d_tpu/filter/particle_filter.py:81"),
+    "pf_statistics": ("ndt_2d_tpu_torch/csrc/particle_filter.cu",
+                      "ndt_2d_tpu/filter/particle_filter.py:55"),
 }
 N_SCANS = 200
 N_BEAMS = 600
 OFFICE_SCANS = 2000
 ROWS = 64
 DISTRICT_NODES = 50_000
+PARTICLES = 5000         # config 4
+GLOBAL_PARTICLES = 20_000  # config 7
 
 
 class SmokeFailure(Exception):
@@ -70,6 +101,11 @@ class SmokeFailure(Exception):
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise SmokeFailure(what)
+
+
+def max_abs_diff(pairs) -> float:
+    """Largest |kernel - twin| over (kernel, twin) tensor pairs."""
+    return max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -255,21 +291,27 @@ def phase_kernels(cfg, win, query, rays, dev):
 
 def reset_counts():
     from ndt_2d_tpu_torch.kernels import (
-        candidate_scores, ndt_build, normal_blocks, raymarch, score_points)
+        candidate_scores, ndt_build, normal_blocks, particle_filter, raymarch,
+        score_points)
     for m in (ndt_build, candidate_scores, score_points, raymarch):
         m.launches = 0
-    for k in normal_blocks.launches:
-        normal_blocks.launches[k] = 0
+    score_points.batch_launches = 0
+    for d in (normal_blocks.launches, particle_filter.launches):
+        for k in d:
+            d[k] = 0
 
 
 def read_counts() -> dict:
     from ndt_2d_tpu_torch.kernels import (
-        candidate_scores, ndt_build, normal_blocks, raymarch, score_points)
+        candidate_scores, ndt_build, normal_blocks, particle_filter, raymarch,
+        score_points)
     out = {"ndt_build": ndt_build.launches,
            "candidate_scores": candidate_scores.launches,
            "score_points": score_points.launches,
+           "score_points_batch": score_points.batch_launches,
            "raymarch": raymarch.launches}
     out.update(normal_blocks.launches)
+    out.update(particle_filter.launches)
     return out
 
 
@@ -779,6 +821,412 @@ def phase_replay(rec):
           f"({int(kw['node_mask'].sum())} nodes) poses within {diff:.3g}")
 
 
+def config4_configs():
+    """BASELINE config 4 as benchmarks/run_benchmarks.py:378-426 sets it up:
+    the mapping config and the particle-filter config."""
+    import dataclasses
+
+    from ndt_2d_tpu_torch.shared import (
+        MapperConfig, ParticleFilterConfig, ScanMatcherConfig)
+    m = ScanMatcherConfig(grid_cells_x=192, grid_cells_y=192)
+    base = MapperConfig(local_scan_matcher=m, global_scan_matcher=m,
+                        max_points_per_scan=512)
+    pf = dataclasses.replace(
+        ParticleFilterConfig(), min_particles=max(100, PARTICLES // 10),
+        max_particles=PARTICLES, odom_alpha1=0.05, odom_alpha2=0.05,
+        odom_alpha3=0.05, odom_alpha4=0.05)
+    return (dataclasses.replace(base, loop_closure_every=10**9),
+            dataclasses.replace(base, use_particle_filter=True,
+                                particle_filter=pf))
+
+
+def map_and_save(cfg, scans, path, dev):
+    """Map ``scans`` [(msg, odom pose)] with the port and save the graph;
+    returns the number of keyframes."""
+    from ndt_2d_tpu_torch.mapping.mapper import SAVE_TO_FILE, Mapper
+    mapper = Mapper(cfg, device=dev)
+    for msg, odom in scans:
+        mapper.process_scan(msg, odom)
+    mapper.configure(SAVE_TO_FILE, path)
+    return mapper.graph.num_scans
+
+
+def localizer(cfg, path, dev, seed):
+    from ndt_2d_tpu_torch.mapping.mapper import LOAD_FROM_FILE, Mapper
+    loc = Mapper(cfg, seed=seed, device=dev)
+    loc.configure(LOAD_FROM_FILE, path)
+    return loc
+
+
+def phase_pf_kernels(path, bag4, dev):
+    """K3 over poses and K9 against their twins on the config-4 grid (the
+    loaded box map's global NDT) with the same scores and draws, at the
+    particle counts of config 4 and config 7; times at both."""
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.shared import laser, metrics
+    _, cfg = config4_configs()
+    loc = localizer(cfg, path, dev, 3)
+    loc._ensure_matchers(bag4.range_max)
+    t = 40
+    rel = metrics.relative_to_first(bag4.truth)
+    pts, msk = laser.project_scan(bag4[t][0], bag4.range_max, np.zeros(3),
+                                  False, None, cfg.max_points_per_scan)
+    scan = (torch.tensor(pts, device=dev), torch.tensor(msk, device=dev),
+            int(msk.sum()))
+    center = torch.tensor(rel[t], dtype=torch.float32, device=dev)
+    out = {}
+    for M, suffix in ((PARTICLES, ""),
+                      (GLOBAL_PARTICLES, f"_{GLOBAL_PARTICLES}")):
+        times = pf_kernels_at(loc.global_matcher, cfg.particle_filter, scan,
+                              center, M, dev)
+        out.update({k + suffix: v for k, v in times.items()})
+    return out
+
+
+def pf_kernels_at(m, pcfg, scan, center, M, dev):
+    """K3 over M poses around ``center`` and K9 on those scores: each
+    bitwise equal to its twin and reproducible; returns the times."""
+    import torch
+
+    from ndt_2d_tpu_torch.filter import motion_model
+    from ndt_2d_tpu_torch.filter import particle_filter as pf_mod
+    from ndt_2d_tpu_torch.kernels import particle_filter as k9
+    from ndt_2d_tpu_torch.kernels import score_points as k3
+    W, H = m.config.grid_cells_x, m.config.grid_cells_y
+    B = m.config.laser_max_beams
+    q, qm, n = scan
+    gen = torch.Generator(device=dev).manual_seed(11)
+    poses = (center + torch.randn(M, 3, generator=gen, device=dev)
+             * torch.tensor([0.2, 0.2, 0.05], device=dev)).contiguous()
+    sa = (m.grid, W, H, B, q, qm, n, poses)
+    sc, sct = k3.score_batch(*sa), k3.score_batch_twin(*sa)
+    torch.cuda.synchronize()
+    require(torch.equal(sc, sct), f"K3 batch ({M} poses) differs from its "
+            "twin")
+    for i in range(0, M, M // 64):
+        one = k3.score_at_pose(m.grid, W, H, B, q, qm, n, poses[i])
+        require(torch.equal(one, sc[i]), f"K3 batch row {i} of {M} differs "
+                "from its M = 1 launch")
+    require(torch.equal(k3.score_batch(*sa), sc),
+            f"K3 batch ({M} poses) not bitwise reproducible")
+    print(f"[3] K3 batch: {M} poses on the config-4 grid ({W}x{H}), "
+          f"scores {float(sc.min()):.4f}..{float(sc.max()):.4f}, bitwise "
+          f"equal to the twin, 64 rows bitwise equal to their M = 1 launch")
+    out = {"score_points_batch": dict(
+        max_abs_err=max_abs_diff([(sc, sct)]),
+        ms=cuda_ms(lambda: k3.score_batch(*sa), 20),
+        plain_ms=cuda_ms(lambda: k3.score_batch_twin(*sa), 5))}
+
+    # K9 on those scores, with one set of draws for kernel and twin.
+    free = torch.rand(30000, 2, generator=gen, device=dev) * 8.0
+    draws = pf_mod.draw_step(gen, M, dev, free.shape[0])
+    scal = motion_model.motion_scalars(0.05, 0.002, 0.03, 0.05, 0.05, 0.05,
+                                       0.05)
+    pm, pmt = k9.motion(poses, draws.motion, scal), \
+        k9.motion_twin(poses, draws.motion, scal)
+    torch.cuda.synchronize()
+    require(torch.equal(pm, pmt), f"K9 motion ({M}) differs from its twin")
+    bins = (pcfg.kld_bin_x, pcfg.kld_bin_y, pcfg.kld_bin_theta)
+    n_in = torch.tensor([M], dtype=torch.int32, device=dev)
+    inj = k9.Injection(free, 0.05, draws.inject_sel, draws.inject_idx,
+                       draws.inject_jitter, draws.inject_theta)
+    w0 = torch.tensor([0.9, 0.5], device=dev)
+    rec = k9.Recovery(w0, 0.001, 0.1, True, inj)
+    args = (sc, n_in, draws.resample, pm, bins, 0.01, 2.3,
+            pcfg.min_particles)
+    ns, errs = [], {}
+    for name, r in (("plain", None), ("recovery", rec)):
+        a, b = k9.resample(*args, r), k9.resample_twin(*args, r)
+        torch.cuda.synchronize()
+        fields = [f for f in a._fields if getattr(a, f) is not None]
+        pairs = [(getattr(a, f), getattr(b, f)) for f in fields]
+        for f, (x, y) in zip(fields, pairs):
+            require(torch.equal(x, y), f"K9 resample ({name}, {M}): {f} "
+                    "differs from its twin")
+        errs[name] = max_abs_diff(pairs)
+        again = k9.resample(*args, r)
+        require(all(torch.equal(getattr(a, f), getattr(again, f))
+                    for f in a._fields if getattr(a, f) is not None),
+                f"K9 resample ({name}, {M}) not bitwise reproducible")
+        ns.append(int(a.n[0]))
+        if r is not None:
+            moved = int((a.particles != pm[a.idx.long()]).any(1).sum())
+            require(moved > 0, "recovery resample injected nothing")
+            ew = k9.ewma(sc, n_in, w0, 0.001, 0.1)
+            require(torch.equal(ew, k9.ewma_twin(sc, n_in, w0, 0.001, 0.1))
+                    and torch.equal(ew, a.w_state),
+                    f"K9 ewma ({M}) differs from its twin or the resample's")
+    st, stt = k9.statistics(pm, sc, n_in), k9.statistics_twin(pm, sc, n_in)
+    torch.cuda.synchronize()
+    st_pairs = [(getattr(st, f), getattr(stt, f))
+                for f in ("particles", "weights", "normalized", "n", "stats")]
+    require(all(torch.equal(x, y) for x, y in st_pairs),
+            f"K9 statistics ({M}) differ from the twin")
+    print(f"[3] K9: motion, resample (n_active {ns[0]} plain, {ns[1]} with "
+          f"recovery), the EWMAs alone and statistics on {M} particles "
+          f"bitwise equal to their twins (n_active, drawn indices, "
+          f"first-occurrence marks, particles, weights, w_slow/w_fast, mean, "
+          f"covariance) and reproducible")
+    out["pf_motion"] = dict(
+        max_abs_err=max_abs_diff([(pm, pmt)]),
+        ms=cuda_ms(lambda: k9.motion(poses, draws.motion, scal), 20),
+        plain_ms=cuda_ms(lambda: k9.motion_twin(poses, draws.motion, scal),
+                         5))
+    out["pf_resample"] = dict(
+        max_abs_err=errs["plain"], ms=cuda_ms(lambda: k9.resample(*args), 20),
+        plain_ms=cuda_ms(lambda: k9.resample_twin(*args), 3))
+    out["pf_resample_recovery"] = dict(
+        max_abs_err=errs["recovery"],
+        ms=cuda_ms(lambda: k9.resample(*args, rec), 20),
+        plain_ms=cuda_ms(lambda: k9.resample_twin(*args, rec), 3))
+    out["pf_statistics"] = dict(
+        max_abs_err=max_abs_diff(st_pairs),
+        ms=cuda_ms(lambda: k9.statistics(pm, sc, n_in), 20),
+        plain_ms=cuda_ms(lambda: k9.statistics_twin(pm, sc, n_in), 3))
+    return out
+
+
+class StepRecorder:
+    """Records the inputs and outputs of the first filter steps of a
+    session, for the twin replay."""
+
+    def __init__(self, keep: int):
+        from ndt_2d_tpu_torch.filter import particle_filter
+        self.mod, self.real, self.keep = particle_filter, \
+            particle_filter.pf_step, keep
+        self.steps = []
+
+    def step(self, *args, **kw):
+        out = self.real(*args, **kw)
+        if len(self.steps) < self.keep:
+            self.steps.append((args, out))
+        return out
+
+    def __enter__(self):
+        self.mod.pf_step = self.step
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.pf_step = self.real
+
+
+class TwinTrap:
+    """Counts calls of the K3-batch and K9 twins while it is active."""
+
+    NAMES = {"score_points": ("score_batch_twin", "score_at_pose_twin"),
+             "particle_filter": ("motion_twin", "resample_twin",
+                                 "statistics_twin")}
+
+    def __init__(self):
+        from ndt_2d_tpu_torch.kernels import particle_filter, score_points
+        self.mods = {"score_points": score_points,
+                     "particle_filter": particle_filter}
+        self.calls = 0
+        self.saved = []
+
+    def __enter__(self):
+        for key, names in self.NAMES.items():
+            mod = self.mods[key]
+            for name in names:
+                real = getattr(mod, name)
+                self.saved.append((mod, name, real))
+
+                def counted(*a, _real=real, **kw):
+                    self.calls += 1
+                    return _real(*a, **kw)
+                setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in self.saved:
+            setattr(mod, name, real)
+
+
+def track(loc, scans, rel):
+    """Run (t, msg, odom) scans through ``loc``; returns the position
+    errors of the accepted scans against ``rel``, their indices t, and the
+    seconds of every process_scan."""
+    import numpy as np
+    errs, ts, times = [], [], []
+    for t, msg, odom in scans:
+        t0 = time.perf_counter()
+        res = loc.process_scan(msg, odom)
+        times.append(time.perf_counter() - t0)
+        if res.accepted:
+            errs.append(float(np.hypot(*(res.pose[:2] - rel[t][:2]))))
+            ts.append(t)
+    return np.asarray(errs), np.asarray(ts), np.asarray(times)
+
+
+def phase_config4(path_map, keyframes, dev):
+    """BASELINE config 4 on the card: load the saved box map of
+    ``keyframes`` keyframes, localize with the particle filter, replay its
+    first steps through the twins, then the scan-match branch on the same
+    map and bag."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.shared import metrics, record_synthetic
+    mapping, cfg = config4_configs()
+    loc_bag = record_synthetic("box", 150, n_beams=360, seed=7,
+                               odom_trans_noise=0.01)
+    rel = metrics.relative_to_first(loc_bag.truth)
+    odom_rel = metrics.relative_to_first(loc_bag.odom)
+    scans = [(t, msg, odom) for t, (msg, odom) in enumerate(loc_bag)
+             if t > 0]
+    reset_counts()
+    loc = localizer(cfg, path_map, dev, 3)
+    loc.set_initial_pose(rel[0], np.diag([0.04, 0.04, 0.01]),
+                         loc_bag.truth[0])
+    with StepRecorder(3) as rec:
+        errs, ts, times = track(loc, scans, rel)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    steps = len(errs)
+    require(steps >= 50, f"PF accepted {steps} of {len(scans)} scans")
+    # Odometry alone over the same scans, from the same initial pose.
+    odom_err = float(np.mean(np.hypot(*(odom_rel[ts, :2] - rel[ts, :2]).T)))
+    for k in ("score_points_batch", "pf_motion", "pf_resample"):
+        require(launches[k] == steps,
+                f"{k} launched {launches[k]} times, expected {steps}")
+    require(launches["pf_statistics"] >= 1, "pf_statistics never launched")
+    require(launches["ndt_build"] >= 1, "the global NDT was not built")
+    mean_err, final_err = float(np.mean(errs)), float(errs[-1])
+    require(np.isfinite(errs).all() and mean_err <= 0.10,
+            f"PF mean position error {mean_err} > 0.10 m")
+    require(mean_err < odom_err, f"PF mean error {mean_err} not below "
+            f"odometry's {odom_err}")
+    pf_t = loc.stats.timer.summary()["pf_step"]
+    print(f"[4d] config 4: {keyframes}-keyframe box map saved and loaded; "
+          f"PF {PARTICLES} particles over {steps} accepted of "
+          f"{len(scans)} scans: mean position "
+          f"error {mean_err:.4f} m, final {final_err:.4f} m (odometry "
+          f"{odom_err:.4f} m), {np.median(times[2:]) * 1e3:.3f} ms/scan "
+          f"median, pf_step {pf_t['mean_ms']:.3f} ms x {pf_t['count']}, "
+          f"n_active at the end {loc.filter.n_active}; launches {launches}")
+    phase_pf_replay(rec, "[4d]", 3)
+
+    # The scan-match branch on the same map and bag.
+    sm_cfg = dataclasses.replace(mapping, enable_mapping=False)
+    reset_counts()
+    sm = localizer(sm_cfg, path_map, dev, 0)
+    sm.set_initial_pose(rel[0], np.diag([0.04, 0.04, 0.01]),
+                        loc_bag.truth[0])
+    serrs, _, stimes = track(sm, scans, rel)
+    sm_launches = read_counts()
+    sm_mean = float(np.mean(serrs))
+    require(len(serrs) == steps, f"scan-match accepted {len(serrs)} scans, "
+            f"the PF {steps}")
+    require(sm_mean <= 0.12, f"scan-match mean error {sm_mean} > 0.12 m")
+    for k in ("candidate_scores", "score_points"):
+        require(sm_launches[k] == len(serrs), f"scan-match {k} launched "
+                f"{sm_launches[k]} times, expected {len(serrs)}")
+    print(f"[4d] scan-match branch: mean position error {sm_mean:.4f} m, "
+          f"final {float(serrs[-1]):.4f} m, "
+          f"{np.median(stimes[2:]) * 1e3:.3f} ms/scan median; launches "
+          f"{sm_launches}")
+    return launches
+
+
+def twin_step(draws, particles, n, control, mcfg, grid, points, point_mask,
+              num_points, alphas, kld_err, kld_z, bins, min_particles):
+    """A recorded ``pf_step``'s inputs through the twins: the motion sample,
+    K3 over the moved particles, the KLD resample and statistics."""
+    from ndt_2d_tpu_torch.filter import motion_model
+    from ndt_2d_tpu_torch.kernels import particle_filter as k9
+    from ndt_2d_tpu_torch.kernels import score_points as k3
+    p = k9.motion_twin(particles, draws.motion,
+                       motion_model.motion_scalars(*control, *alphas))
+    scores = k3.score_batch_twin(grid, mcfg.grid_cells_x, mcfg.grid_cells_y,
+                                 mcfg.laser_max_beams, points, point_mask,
+                                 num_points, p)
+    return k9.resample_twin(scores, n, draws.resample, p, bins, kld_err,
+                            kld_z, min_particles)
+
+
+def phase_pf_replay(rec, tag, steps):
+    """The first ``steps`` recorded filter steps again, through the twins
+    with the same draws: the same n_active and particles, bit for bit."""
+    import torch
+    require(len(rec.steps) == steps, f"recorded {len(rec.steps)} steps")
+    for i, (args, out) in enumerate(rec.steps):
+        twin = twin_step(*args)
+        require(torch.equal(out.n, twin.n), f"replayed step {i}: n_active")
+        require(torch.equal(out.particles, twin.particles),
+                f"replayed step {i}: particles differ")
+        require(torch.equal(out.stats, twin.stats),
+                f"replayed step {i}: mean/covariance differ")
+    print(f"{tag} replay of the first {steps} filter steps "
+          f"({out.particles.shape[0]} particles) through the twins: "
+          f"n_active {[int(o.n[0]) for _, o in rec.steps]}, particles, "
+          f"mean and covariance bitwise equal")
+
+
+def phase_config7(path_map, dev):
+    """BASELINE config 7: global relocalization, 20,000 particles seeded
+    over the free space of the symmetry-broken office."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.shared import (
+        MapperConfig, ParticleFilterConfig, ScanMatcherConfig, metrics, sim)
+    world = np.concatenate([sim.make_office_world(16.0),
+                            np.asarray([[[1.0, 13.0], [3.0, 15.0]]])],
+                           axis=0)
+    n = 40
+    truth = np.stack([np.linspace(2.0, 10.0, n), np.full(n, 2.0),
+                      np.zeros(n)], axis=-1)
+    m = ScanMatcherConfig(grid_cells_x=192, grid_cells_y=192)
+    mapping = MapperConfig(local_scan_matcher=m, global_scan_matcher=m,
+                           max_points_per_scan=512, loop_closure_every=10**9,
+                           max_range=14.0)
+    cfg = dataclasses.replace(
+        mapping, use_particle_filter=True,
+        particle_filter=dataclasses.replace(
+            ParticleFilterConfig(), min_particles=200,
+            max_particles=GLOBAL_PARTICLES, odom_alpha1=0.05,
+            odom_alpha2=0.05, odom_alpha3=0.05, odom_alpha4=0.05))
+
+    def scan(t, seed):
+        return sim.scan_at_pose(world, truth[t], n_beams=240, range_max=14.0,
+                                noise=0.01, rng=np.random.default_rng(seed))
+    rel = metrics.relative_to_first(truth)
+    odom = sim.drift_odometry(truth, 0.01, 0.003, seed=31)
+    scans = [(t, scan(t, 900 + t), odom[t]) for t in range(1, n)]
+    with TwinTrap() as trap:
+        reset_counts()
+        map_and_save(mapping, [(scan(t, t), truth[t]) for t in range(n)],
+                     path_map, dev)
+        loc = localizer(cfg, path_map, dev, 7)
+        require(loc.global_localize(truth[0]), "global_localize failed")
+        spread = float(loc.filter.get_covariance()[0, 0])
+        with StepRecorder(2) as rec:
+            errs, ts, times = track(loc, scans, rel)
+        torch.cuda.synchronize()
+        launches = read_counts()
+    require(trap.calls == 0, f"{trap.calls} twin calls on the CUDA path")
+    steps = len(errs)
+    for k in ("score_points_batch", "pf_motion", "pf_resample"):
+        require(launches[k] == steps, f"config 7: {k} launched "
+                f"{launches[k]} times, expected {steps}")
+    require(launches["raymarch"] >= 1, "config 7: the free space was not "
+            "rendered on K5")
+    conv = next((int(t) for t, e in zip(ts, errs) if e < 0.5), None)
+    print(f"[4e] config 7: {GLOBAL_PARTICLES} particles over the free space "
+          f"(initial x variance {spread:.3f} m^2), {steps} scans; converged "
+          f"(< 0.5 m) at scan {conv}, final error {float(errs[-1]):.4f} m, "
+          f"{np.median(times[2:]) * 1e3:.3f} ms/scan median; no twin ran; "
+          f"launches {launches}")
+    phase_pf_replay(rec, "[4e]", 2)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -790,6 +1238,7 @@ def main() -> int:
         return 2
     try:
         from ndt_2d_tpu_torch.device import get_device
+        from ndt_2d_tpu_torch.shared import record_synthetic
         dev = get_device("cuda:0")
         ident = phase_card()
         phase_build()
@@ -799,16 +1248,27 @@ def main() -> int:
         timing.update(phase_rows(cfg3, bag3, dev))
         truth, district = district_graph()
         timing.update(phase_k4(district, dev))
-        phase_session(cfg, bag, dev)
-        district_launches = phase_district_solve(truth, district, dev)
-        launches = phase_office(cfg3, bag3, dev)
+        bag4 = record_synthetic("box", 150, n_beams=360, seed=2)
+        with tempfile.TemporaryDirectory() as tmp:
+            map4 = os.path.join(tmp, "box_map.npz")
+            keyframes = map_and_save(config4_configs()[0], bag4, map4, dev)
+            timing.update(phase_pf_kernels(map4, bag4, dev))
+            phase_session(cfg, bag, dev)
+            district_launches = phase_district_solve(truth, district, dev)
+            launches = phase_office(cfg3, bag3, dev)
+            pf_launches = phase_config4(map4, keyframes, dev)
+            phase_config7(os.path.join(tmp, "office_map.npz"), dev)
         require("jax" not in sys.modules, "jax was imported")
     except SmokeFailure as e:
         print(f"FAIL: {e}")
         return 1
     # Launch counts from the config-3 session, which runs every kernel but
-    # the PCG matvec; that one's from the district solve.
+    # the PCG matvec, the batched K3 and K9; the PCG matvec's from the
+    # district solve, the others' from the config-4 particle filter.
     launches["pcg_matvec"] = district_launches["pcg_matvec"]
+    for k in ("score_points_batch", "pf_motion", "pf_resample",
+              "pf_statistics"):
+        launches[k] = pf_launches[k]
     # K1/K2 times and errors at config-3 confirmation shapes (64 rows);
     # the config-2 single-window ones are printed at [3].
     for k in ("ndt_build", "candidate_scores"):

@@ -1,21 +1,30 @@
-"""Command-line interface of the port: ``simulate`` and ``run``.
+"""Command-line interface of the port: ``simulate``, ``run`` and
+``localize``.
 
   python -m ndt_2d_tpu_torch.cli simulate --world corridor --scans 200 \\
       --beams 600 --out bag.npz
   python -m ndt_2d_tpu_torch.cli run --bag bag.npz --grid-out grid.npz \\
-      --loop-closure-every 1000000000 --local_scan_matcher.grid_cells 192
+      --map-out map.npz --loop-closure-every 1000000000 \\
+      --local_scan_matcher.grid_cells 192
+  python -m ndt_2d_tpu_torch.cli localize --bag bag.npz --map map.npz \\
+      --particle-filter --pf.max_particles 5000
 
-``run`` prints the same JSON stats line as ``python -m ndt_2d_tpu.cli run``
-and takes the reference CLI's names for the flags it shares: the matchers'
-namespaced parameters (``--global_scan_matcher.ndt_resolution`` ...; not
-``refine_iterations`` or ``overlapping_grids``, which the port refuses), the
-radius loop-closure and solver flags.  It maps on the CUDA device unless
-``--device cpu`` is given.
+``run`` and ``localize`` print the same JSON stats line as ``python -m
+ndt_2d_tpu.cli`` and take the reference CLI's names for the flags they
+share: the matchers' namespaced parameters
+(``--global_scan_matcher.ndt_resolution`` ...; not ``refine_iterations``
+or ``overlapping_grids``, which the port refuses), the radius loop-closure
+and solver flags, and for ``localize`` ``--map``, ``--particle-filter``,
+``--global-init`` and the ``--pf.*`` filter parameters.  ``localize``
+starts from the bag's first true pose (or its origin), or with
+``--global-init`` from a particle cloud over the map's free space.  Both
+run on the CUDA device unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import sys
@@ -23,8 +32,8 @@ import sys
 import numpy as np
 
 from ndt_2d_tpu_torch.shared import (
-    MapperConfig, ScanMatcherConfig, SolverConfig, load_bag,
-    record_synthetic, save_bag, serialization)
+    MapperConfig, ParticleFilterConfig, ScanMatcherConfig, SolverConfig,
+    load_bag, metrics, record_synthetic, save_bag, serialization)
 
 
 def cmd_simulate(args) -> int:
@@ -71,6 +80,21 @@ def _matcher_config(args, ns: str) -> ScanMatcherConfig:
     return ScanMatcherConfig(**kw)
 
 
+def _add_pf_args(p: argparse.ArgumentParser) -> None:
+    """The reference's particle-filter parameters (ndt_mapper.cpp:71-88),
+    one ``--pf.<field>`` flag per ``ParticleFilterConfig`` field."""
+    for f in dataclasses.fields(ParticleFilterConfig):
+        p.add_argument(f"--pf.{f.name}", type=type(f.default), default=None,
+                       dest=f"pf__{f.name}")
+
+
+def _pf_config(args) -> ParticleFilterConfig:
+    kw = {f.name: getattr(args, f"pf__{f.name}")
+          for f in dataclasses.fields(ParticleFilterConfig)
+          if getattr(args, f"pf__{f.name}", None) is not None}
+    return ParticleFilterConfig(**kw)
+
+
 def _mapper_config(args) -> MapperConfig:
     kw = {f: getattr(args, f) for f in _MAPPER_FLAGS
           if getattr(args, f) is not None}
@@ -83,11 +107,47 @@ def _mapper_config(args) -> MapperConfig:
 
 
 def cmd_run(args) -> int:
-    from ndt_2d_tpu_torch.mapping import runtime
-    from ndt_2d_tpu_torch.mapping.mapper import SAVE_TO_FILE, Mapper
+    from ndt_2d_tpu_torch.mapping.mapper import Mapper
 
     mapper = Mapper(_mapper_config(args), device=args.device)
+    return _replay(args, mapper, load_bag(args.bag))
+
+
+def cmd_localize(args) -> int:
+    """Localize a bag against a saved map: the particle filter with
+    ``--particle-filter``, else scan-match tracking."""
+    from ndt_2d_tpu_torch.mapping.mapper import Mapper
+
+    cfg = dataclasses.replace(
+        _mapper_config(args), enable_mapping=False,
+        use_particle_filter=args.particle_filter,
+        particle_filter=_pf_config(args))
+    graph = None
+    if args.map:
+        graph = serialization.load_graph(args.map, cfg.max_points_per_scan,
+                                         cfg.use_barycenter)
+    mapper = Mapper(cfg, graph=graph, device=args.device)
     bag = load_bag(args.bag)
+    if args.global_init:
+        # No initial pose: a uniform cloud over the map's free space.
+        if not mapper.global_localize(bag.odom[0]):
+            print(json.dumps({"error": "global_localize failed (requires "
+                              "--particle-filter and a map)"}))
+            return 1
+    else:
+        # Start at the bag's first true pose in the map frame.
+        init = (metrics.relative_to_first(bag.truth)[0]
+                if bag.truth is not None else np.zeros(3))
+        mapper.set_initial_pose(init, np.diag([0.25, 0.25, 0.06]),
+                                bag.odom[0])
+    return _replay(args, mapper, bag)
+
+
+def _replay(args, mapper, bag) -> int:
+    """Run ``bag`` through ``mapper``, write the requested outputs and
+    print the stats line."""
+    from ndt_2d_tpu_torch.mapping import runtime
+    from ndt_2d_tpu_torch.mapping.mapper import SAVE_TO_FILE
 
     def progress(t, res):
         if args.verbose and res.accepted:
@@ -129,7 +189,27 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", required=True)
     p.set_defaults(fn=cmd_simulate)
 
-    p = sub.add_parser("run", help="replay a bag, mapping")
+    for name, localize in (("run", False), ("localize", True)):
+        p = sub.add_parser(name, help="replay a bag, " + (
+            "localizing in a saved map" if localize else "mapping"))
+        _add_session_args(p)
+        if localize:
+            p.add_argument("--map", default=None,
+                           help="pose graph npz to localize in")
+            p.add_argument("--particle-filter", action="store_true",
+                           dest="particle_filter")
+            p.add_argument("--global-init", action="store_true",
+                           dest="global_init",
+                           help="global relocalization: a uniform particle "
+                                "cloud over the map's free space instead of "
+                                "an initial pose (needs --particle-filter)")
+            _add_pf_args(p)
+        p.set_defaults(fn=cmd_localize if localize else cmd_run)
+    return ap
+
+
+def _add_session_args(p: argparse.ArgumentParser) -> None:
+    """The flags ``run`` and ``localize`` share."""
     p.add_argument("--bag", required=True)
     p.add_argument("--map-out", default=None, help="pose graph npz output")
     p.add_argument("--grid-out", default=None,
@@ -175,8 +255,6 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (the kernels) or cpu (their plain twins)")
     p.add_argument("--verbose", action="store_true")
-    p.set_defaults(fn=cmd_run)
-    return ap
 
 
 def main(argv=None) -> int:

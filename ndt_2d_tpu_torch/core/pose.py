@@ -18,6 +18,15 @@ def normalize_angle(theta: torch.Tensor) -> torch.Tensor:
     return theta - TWO_PI * torch.floor((theta + math.pi) / TWO_PI)
 
 
+def normalize_angle_exact(theta: torch.Tensor) -> torch.Tensor:
+    """``normalize_angle`` with its constants as device tensors: on a CUDA
+    tensor PyTorch divides by a host scalar as a multiply by its
+    reciprocal, and by a device tensor exactly, as a kernel does."""
+    pi = torch.tensor(math.pi, dtype=theta.dtype, device=theta.device)
+    two_pi = torch.tensor(TWO_PI, dtype=theta.dtype, device=theta.device)
+    return theta - two_pi * torch.floor((theta + pi) / two_pi)
+
+
 def rotate(theta: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Rotate [..., 2] points by angle(s) theta (broadcasting)."""
     c, s = torch.cos(theta), torch.sin(theta)

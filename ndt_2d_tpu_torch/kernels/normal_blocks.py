@@ -19,6 +19,7 @@ import dataclasses
 
 import torch
 
+from ndt_2d_tpu_torch.core.pose import normalize_angle_exact
 from ndt_2d_tpu_torch.kernels import _build
 
 launches = {"normal_blocks": 0, "pcg_matvec": 0}
@@ -115,13 +116,6 @@ def _mv(a, v):
     return _dot3(a, v[..., None, :])
 
 
-def _normalize_angle(t):
-    """core/pose.py::normalize_angle with device-tensor constants."""
-    pi = torch.tensor(torch.pi, dtype=t.dtype, device=t.device)
-    two_pi = torch.tensor(2.0 * torch.pi, dtype=t.dtype, device=t.device)
-    return t - two_pi * torch.floor((t + pi) / two_pi)
-
-
 def residuals_and_jacobians(poses, begin, end, transform):
     """(r [C, 3], Ja, Jb [C, 3, 3]) in the kernel's evaluation order."""
     pa, pb = poses[begin.long()], poses[end.long()]
@@ -129,7 +123,7 @@ def residuals_and_jacobians(poses, begin, end, transform):
     c, s = torch.cos(pa[:, 2]), torch.sin(pa[:, 2])
     r = torch.stack([(c * dx + s * dy) - transform[:, 0],
                      (-s * dx + c * dy) - transform[:, 1],
-                     _normalize_angle((pb[:, 2] - pa[:, 2])
+                     normalize_angle_exact((pb[:, 2] - pa[:, 2])
                                       - transform[:, 2])], -1)
     zero, one = torch.zeros_like(c), torch.ones_like(c)
     ja = torch.stack([torch.stack([-c, -s, -s * dx + c * dy], -1),

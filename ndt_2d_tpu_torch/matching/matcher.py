@@ -3,7 +3,10 @@ uncorrected score (K3) and the exhaustive 3-DoF search (K2).
 
 Port of the main-path subset of ``ndt_2d_tpu/matching/matcher.py``,
 including the loop-closure confirmation ``match_scan_batch_multi`` (K1 and
-K2 over a row axis, one launch each).  The
+K2 over a row axis, one launch each), and for localization
+``score_points_batch`` (K3 over a pose axis, the particle filter's
+measurement) and ``match_scan_with_score`` (K3 + K2 against a global
+grid).  The
 plain steps of the search live beside their kernels and are re-exported
 here under the reference's names (``subsample``, ``window_origin``,
 ``prepare_neighborhood``, ``_candidate_scores_local``,
@@ -96,6 +99,32 @@ def score_points_at_pose(config: ScanMatcherConfig, grid: ndt_grid.NDTGrid,
     return k3.score_at_pose(grid, config.grid_cells_x, config.grid_cells_y,
                             config.laser_max_beams, points, point_mask,
                             num_points, pose)
+
+
+def score_points_batch(config: ScanMatcherConfig, grid: ndt_grid.NDTGrid,
+                       points, point_mask, num_points: int, poses):
+    """scorePoints over poses [M, 3] in one K3 launch: the particle
+    filter's measurement (replaces the per-particle loop at
+    src/particle_filter.cpp:81-88).  Row m equals ``score_points_at_pose``
+    at poses[m] bitwise."""
+    check_supported(config)
+    return k3.score_batch(grid, config.grid_cells_x, config.grid_cells_y,
+                          config.laser_max_beams, points, point_mask,
+                          num_points, poses)
+
+
+def match_scan_with_score(config: ScanMatcherConfig,
+                          grid: ndt_grid.NDTGrid, scan_points, scan_mask,
+                          num_points: int, pose, packed_table=None):
+    """scoreScan + matchScan against a prebuilt (global) grid, the
+    scan-match localization step (ndt_mapper.cpp:556-558): K3 + K2 at one
+    pose.  Returns (uncorrected_score, score, correction, covariance) as
+    tensors, for one device->host read."""
+    unc = score_points_at_pose(config, grid, scan_points, scan_mask,
+                               num_points, pose)
+    res = match_scan(config, grid, scan_points, scan_mask, num_points, pose,
+                     packed_table=packed_table)
+    return unc, res.score, res.correction, res.covariance
 
 
 def match_scan_windowed(config: ScanMatcherConfig, poses, points, point_mask,
@@ -200,10 +229,12 @@ class NDTScanMatcher:
         return torch.as_tensor(np.array(x), device=self.device).to(dtype)
 
     def add_scans(self, poses, points, point_mask, window_mask=None):
+        """Build the NDT of a window of scans, or of a whole loaded map:
+        poses [S, 3], robot-frame points [S, P, 2], point_mask [S, P],
+        window_mask [S] (default: every scan)."""
         poses = self._tensor(poses, torch.float32)
         if window_mask is None:
-            window_mask = torch.ones(poses.shape[0], dtype=torch.bool,
-                                     device=self.device)
+            window_mask = np.ones(poses.shape[0], bool)
         window_mask = self._tensor(window_mask, torch.bool)
         # The static grid must cover the window (the reference sizes its
         # grid per window, scan_matcher_ndt.cpp:52-67).

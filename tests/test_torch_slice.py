@@ -128,6 +128,38 @@ def test_cli_simulate_and_run(tmp_path, capsys):
     assert len(open(traj).read().strip().splitlines()) == 8
 
 
+def test_cli_localize_particle_filter(tmp_path, capsys):
+    """``localize --particle-filter`` on a small box bag against the map its
+    own ``run`` saved (the analogue of tests/test_cli.py::
+    test_localize_against_map), and scan-match ``localize``."""
+    bag = str(tmp_path / "bag.npz")
+    assert cli.main(["simulate", "--world", "box", "--scans", "16",
+                     "--beams", "180", "--range-max", "14.0", "--out",
+                     bag]) == 0
+    map_out = str(tmp_path / "map.npz")
+    assert cli.main(["run", "--bag", bag, "--device", "cpu", "--map-out",
+                     map_out, "--local_scan_matcher.grid_cells", "160",
+                     "--loop-closure-every", "1000000"]) == 0
+    capsys.readouterr()
+    for extra in (["--particle-filter", "--pf.max_particles", "400",
+                   "--pf.min_particles", "100"], []):
+        assert cli.main(["localize", "--bag", bag, "--map", map_out,
+                         "--device", "cpu",
+                         "--global_scan_matcher.grid_cells", "192",
+                         *extra]) == 0
+        stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        # localization never grows the graph
+        assert stats["graph_scans"] == stats["graph_constraints"] + 1
+        assert stats["scans_accepted"] >= 8
+        # The CLI seeds the filter with sigma 0.5 m (the JAX CLI's PF reads
+        # ATE 0.26 m on such a bag); scan matching tracks to centimetres.
+        assert stats["ate_rmse_m"] < (0.6 if extra else 0.05)
+        key = "pf_step" if extra else "global_match"
+        assert stats["session"]["timing"][key]["count"] >= 8
+    assert cli.main(["localize", "--bag", bag, "--device", "cpu",
+                     "--global-init"]) == 1
+
+
 def test_port_never_imports_jax():
     code = textwrap.dedent("""
         import sys
@@ -147,6 +179,14 @@ def test_port_never_imports_jax():
         assert st["scans_accepted"] == 24, st
         assert len(mapper.lc_log["decisions"]) >= 1, "no row confirmed"
         assert solver.solve_graph(mapper.graph, cfg.solver)
+        import dataclasses
+        from ndt_2d_tpu_torch.shared import ParticleFilterConfig
+        pf = ParticleFilterConfig(min_particles=50, max_particles=200)
+        loc = Mapper(dataclasses.replace(cfg, use_particle_filter=True,
+                                         particle_filter=pf),
+                     graph=mapper.graph, device="cpu")
+        assert loc.global_localize(b.odom[0])
+        assert runtime.run_bag(loc, b)["scans_accepted"] >= 12
         assert "jax" not in sys.modules, "jax imported"
         print("ok")
     """)
@@ -160,7 +200,8 @@ def test_port_never_imports_jax():
 def test_kernel_sources_found_from_package_path():
     names = {os.path.basename(p) for p in _build.sources()}
     assert {"ndt_build.cu", "candidate_scores.cu", "score_points.cu",
-            "raymarch.cu", "normal_blocks.cu", "common.cuh"} <= names
+            "raymarch.cu", "normal_blocks.cu", "particle_filter.cu",
+            "common.cuh"} <= names
     assert all(p.startswith(_build.CSRC) for p in _build.sources())
     assert _build.BUILD_DIR.startswith(os.path.dirname(_build.CSRC))
     # The build is lazy: importing the kernel modules compiled nothing.
@@ -168,8 +209,8 @@ def test_kernel_sources_found_from_package_path():
 
 
 @pytest.mark.parametrize("change", [
-    dict(use_particle_filter=True),
-    dict(enable_mapping=False),
+    dict(use_particle_filter=True, max_inflight=4),
+    dict(enable_mapping=False, max_inflight=4),
     dict(max_inflight=8),
     dict(loop_search="descriptor"),
     dict(loop_search="both"),
@@ -193,11 +234,12 @@ def test_unported_global_matcher_fails_at_construction(change):
         Mapper(cfg, device="cpu")
 
 
-def test_mesh_and_configure_actions_raise():
+def test_mesh_and_configure_actions_raise(tmp_path):
+    """A mesh is refused; LOAD_FROM_FILE of a missing map raises."""
     with pytest.raises(NotImplementedError):
         Mapper(CONFIG2, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        Mapper(CONFIG2, device="cpu").configure(4, "map.npz")
+    with pytest.raises(FileNotFoundError):
+        Mapper(CONFIG2, device="cpu").configure(4, str(tmp_path / "no.npz"))
 
 
 def test_cuda_requested_without_a_card_raises():
