@@ -12,10 +12,13 @@
 ``run`` and ``localize`` print the same JSON stats line as ``python -m
 ndt_2d_tpu.cli`` and take the reference CLI's names for the flags they
 share: the matchers' namespaced parameters
-(``--global_scan_matcher.ndt_resolution`` ...; not ``refine_iterations``
-or ``overlapping_grids``, which the port refuses), the radius loop-closure
-and solver flags, and for ``localize`` ``--map``, ``--particle-filter``,
-``--global-init`` and the ``--pf.*`` filter parameters.  ``localize``
+(``--global_scan_matcher.ndt_resolution`` ..., ``.refine_iterations`` for
+the Newton polish and ``.overlapping_grids 1`` for the four overlapping
+grids), the radius loop-closure and solver flags, ``--recipe`` (the
+reference CLI's measured presets ``office`` and ``simlab``; an explicit
+flag overrides its preset value), and for ``localize`` ``--map``,
+``--particle-filter``, ``--global-init`` and the ``--pf.*`` filter
+parameters.  ``localize``
 starts from the bag's first true pose (or its origin), or with
 ``--global-init`` from a particle cloud over the map's free space.  Both
 run on the CUDA device unless ``--device cpu`` is given.
@@ -31,9 +34,11 @@ import sys
 
 import numpy as np
 
-from ndt_2d_tpu_torch.shared import (
-    MapperConfig, ParticleFilterConfig, ScanMatcherConfig, SolverConfig,
-    load_bag, metrics, record_synthetic, save_bag, serialization)
+from ndt_2d_tpu_torch.config import (
+    MapperConfig, ParticleFilterConfig, ScanMatcherConfig, SolverConfig)
+from ndt_2d_tpu_torch.io import serialization
+from ndt_2d_tpu_torch.io.bag import load_bag, record_synthetic, save_bag
+from ndt_2d_tpu_torch.utils import metrics
 
 
 def cmd_simulate(args) -> int:
@@ -59,24 +64,52 @@ _MAPPER_FLAGS = ("loop_closure_every", "max_points_per_scan",
                  "loop_search_positions")
 
 
+# The reference CLI's measured loop-closure presets (ndt_2d_tpu/cli.py:
+# 102-136): each sets only the quality levers; "global_refine_iterations"
+# and "robust_loss" go to the nested global-matcher and solver configs.
+_RECIPES = {
+    "office": dict(
+        loop_closure_gate_scale=0.85, loop_closure_region_size=3,
+        loop_search_positions="both", robust_loss="geman_mcclure",
+        global_refine_iterations=8),
+    "simlab": dict(
+        loop_closure_gate_scale=1.0, loop_closure_region_size=3,
+        loop_search_positions="both", robust_loss="geman_mcclure",
+        global_refine_iterations=8),
+}
+# Presets that need appearance (descriptor) loop search: its descriptors
+# and all-pairs search (kernel K10) and the coarse matcher's wide lattice
+# (kernel K6) are not ported.
+_DESCRIPTOR_RECIPES = ("office-descriptor", "drift")
+
+
 def _add_matcher_args(p: argparse.ArgumentParser, ns: str) -> None:
     """The reference's namespaced matcher parameters
-    (scan_matcher_ndt.cpp:37-44) the port supports."""
+    (scan_matcher_ndt.cpp:37-44) and the reference CLI's additions."""
     for name in _MATCHER_FLOATS:
         p.add_argument(f"--{ns}.{name}", type=float, default=None,
                        dest=f"{ns}__{name}")
     for name in ("laser_max_beams", "grid_cells"):
         p.add_argument(f"--{ns}.{name}", type=int, default=None,
                        dest=f"{ns}__{name}")
+    p.add_argument(f"--{ns}.refine_iterations", type=int, default=None,
+                   dest=f"{ns}__refine_iterations",
+                   help="Newton sub-lattice polish iterations (0 = off)")
+    p.add_argument(f"--{ns}.overlapping_grids", type=int, default=None,
+                   dest=f"{ns}__overlapping_grids",
+                   help="1 = four overlapping grids (Biber), 0 = one grid")
 
 
 def _matcher_config(args, ns: str) -> ScanMatcherConfig:
     kw = {f: getattr(args, f"{ns}__{f}")
-          for f in _MATCHER_FLOATS + ("laser_max_beams",)
+          for f in _MATCHER_FLOATS + ("laser_max_beams", "refine_iterations")
           if getattr(args, f"{ns}__{f}") is not None}
     cells = getattr(args, f"{ns}__grid_cells")
     if cells is not None:
         kw.update(grid_cells_x=cells, grid_cells_y=cells)
+    og = getattr(args, f"{ns}__overlapping_grids")
+    if og is not None:
+        kw["overlapping_grids"] = bool(og)
     return ScanMatcherConfig(**kw)
 
 
@@ -96,14 +129,28 @@ def _pf_config(args) -> ParticleFilterConfig:
 
 
 def _mapper_config(args) -> MapperConfig:
-    kw = {f: getattr(args, f) for f in _MAPPER_FLAGS
-          if getattr(args, f) is not None}
-    if args.robust_loss is not None:
-        kw["solver"] = SolverConfig(robust_loss=args.robust_loss)
+    """The session's MapperConfig: defaults, then the ``--recipe`` preset,
+    then every explicit flag (ndt_2d_tpu/cli.py:139-179)."""
+    if args.recipe in _DESCRIPTOR_RECIPES:
+        raise NotImplementedError(
+            f"--recipe {args.recipe} needs descriptor loop search (kernels "
+            "K6 and K10), which is not ported yet")
+    recipe = dict(_RECIPES.get(args.recipe or "", {}))
+    robust_loss = recipe.pop("robust_loss", None)
+    robust_loss = args.robust_loss or robust_loss
+    global_refine = recipe.pop("global_refine_iterations", None)
+    kw = recipe
+    kw.update({f: getattr(args, f) for f in _MAPPER_FLAGS
+               if getattr(args, f) is not None})
+    if robust_loss is not None:
+        kw["solver"] = SolverConfig(robust_loss=robust_loss)
+    gm = _matcher_config(args, "global_scan_matcher")
+    if (global_refine is not None
+            and args.global_scan_matcher__refine_iterations is None):
+        gm = dataclasses.replace(gm, refine_iterations=global_refine)
     return MapperConfig(
         local_scan_matcher=_matcher_config(args, "local_scan_matcher"),
-        global_scan_matcher=_matcher_config(args, "global_scan_matcher"),
-        **kw)
+        global_scan_matcher=gm, **kw)
 
 
 def cmd_run(args) -> int:
@@ -252,6 +299,10 @@ def _add_session_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--loop-search-positions",
                    choices=["barycenter", "pose", "both"], default=None,
                    dest="loop_search_positions")
+    p.add_argument("--recipe", default=None,
+                   choices=sorted(_RECIPES) + list(_DESCRIPTOR_RECIPES),
+                   help="measured loop-closure preset (explicit flags "
+                        "override its values)")
     p.add_argument("--device", default="cuda",
                    help="cuda (the kernels) or cpu (their plain twins)")
     p.add_argument("--verbose", action="store_true")

@@ -1,15 +1,19 @@
 """State carried between the JAX package and the port.
 
 The JAX side is taken as numpy (what ``jax.device_get`` returns): an
-``NDTGrid`` or ``MatchResult`` named tuple of arrays, a ``RollingWindow``
-named tuple, the [C, 32] packed patch table, the pose-graph solver's inputs
+``NDTGrid`` (single, or the stacked overlapping grids whose fields, the
+cell size included, lead with a [4] axis) or ``MatchResult`` named tuple of
+arrays, a ``RollingWindow`` named tuple, the [C, 32] packed patch table
+(or the overlapping grids' [4, C, 32] tables), the pose-graph solver's inputs
 (``graph/solver.py::solve``'s arrays) or its ``SolveResult``, and a particle
 filter's state (``filter_to_port`` / ``filter_to_numpy``).
 ``*_to_port`` builds the port's tensors on ``device``; ``*_to_numpy``
 returns a dict of numpy arrays under the JAX field names, so
 ``JaxType(**d)`` (or ``solve(config, **d)``) rebuilds the JAX value.
-``MapperConfig``, ``SolverConfig`` and the pose ``Graph`` are shared
-objects and need no conversion.
+The configuration dataclasses and the pose ``Graph`` are plain
+numpy-and-Python objects that each package keeps a copy of
+(``ndt_2d_tpu_torch/config.py``, ``graph/pose_graph.py``); maps pass
+between the packages through the npz files of ``io/serialization.py``.
 """
 
 from __future__ import annotations
@@ -41,13 +45,16 @@ def _t(x, device) -> torch.Tensor:
 
 
 def grid_to_port(grid, device=None) -> NDTGrid:
-    return NDTGrid(cell_size=float(np.asarray(grid.cell_size)),
+    return NDTGrid(cell_size=float(np.asarray(grid.cell_size).reshape(-1)[0]),
                    **{f: _t(getattr(grid, f), device) for f in _GRID_FIELDS})
 
 
 def grid_to_numpy(grid: NDTGrid) -> dict:
+    """Under the JAX field names; a stacked grid's cell size gets the
+    grid axis as JAX's ``vmap``-built one has it."""
     d = {f: getattr(grid, f).cpu().numpy() for f in _GRID_FIELDS}
-    d["cell_size"] = np.float32(grid.cell_size)
+    d["cell_size"] = np.full(d["origin"].shape[:-1], grid.cell_size,
+                             np.float32)
     return d
 
 

@@ -7,7 +7,12 @@
 // ndt_2d_tpu/ndt/grid.py::packed_patch_table; with a row axis, the
 // jax.vmap of match_scan in match_scan_batch_multi (R loop-closure
 // confirmation rows, each with its own table, origin, query scan and start
-// pose, in one launch per pass).
+// pose, in one launch per pass).  With a grid axis (G = 4, the overlapping
+// grids, matcher.py:194-202) every candidate's beam sum is taken per grid,
+// each grid with its own patch table, crossing lines and bounds mask, and
+// the candidate score is their mean ((((0 + p0) + p1) + p2) + p3) / 4, as
+// Python's sum builds it, before the argmin and the Olson sums; at G = 1 the
+// score is the one grid's sum, bit for bit the single-grid launch.
 //
 // What it computes: for every candidate (angle a, dx, dy) of the lattice,
 // the negated sum over the subsampled beams of exp(min(-q^T Lambda q / 2, 0))
@@ -51,10 +56,10 @@ __device__ __forceinline__ int row_points(const int* nums, int num, int r) {
   return nums != nullptr ? nums[r] : num;
 }
 
-// Grid (A, R): angle a = blockIdx.x of row r = blockIdx.y.
+// Grid (A, R): angle a = blockIdx.x of row r = blockIdx.y; G grids a row.
 __global__ void score_angles(
     const float* __restrict__ table, const float* __restrict__ origin,
-    float cell, int W, int H, const float* __restrict__ points,
+    int G, float cell, int W, int H, const float* __restrict__ points,
     const uint8_t* __restrict__ pmask, int P, const int* __restrict__ nums,
     int num, int max_beams, const float* __restrict__ pose,
     const float* __restrict__ dths, const float* __restrict__ dls, int A,
@@ -65,8 +70,8 @@ __global__ void score_angles(
   const int a = blockIdx.x;
   const size_t r = blockIdx.y;
   const int num_points = row_points(nums, num, r);
-  table += r * W * H * 32;
-  origin += r * 2;
+  table += r * G * W * H * 32;
+  origin += r * G * 2;
   points += r * P * 2;
   pmask += r * P;
   pose += r * 3;
@@ -77,68 +82,74 @@ __global__ void score_angles(
   const bool live = t < LL;
   const int lx = live ? t / L : 0;
   const int ly = live ? t % L : 0;
-  const float ox = origin[0], oy = origin[1];
-  const float x_hi = ox + (float)W * cell;
-  const float y_hi = oy + (float)H * cell;
   const float dx = dls[lx], dy = dls[ly];
 
   const ndt2d::Subsample sub(num_points, max_beams);
   const float th = pose[2] + dths[a];
   const float c = cosf(th), s = sinf(th);
 
-  float acc = 0.f;
-  for (int base = 0; base < max_beams; base += kBeamChunk) {
-    const int nb = min(kBeamChunk, max_beams - base);
-    __syncthreads();
-    // matcher.py::prepare_neighborhood for this chunk of beams.
-    for (int j = t; j < nb; j += blockDim.x) {
-      const int b = base + j;
-      const int idx = sub.index(b, num_points, P);
-      const bool m = (b < sub.used) && pmask[idx];
-      const float px = points[2 * idx], py = points[2 * idx + 1];
-      const float bx = c * px - s * py + pose[0];
-      const float by = s * px + c * py + pose[1];
-      const int ix0 = (int)floorf((bx + dls[0] - ox) / cell);
-      const int iy0 = (int)floorf((by + dls[0] - oy) / cell);
-      const int ixc = ndt2d::clampi(ix0, 0, W - 2);
-      const int iyc = ndt2d::clampi(iy0, 0, H - 2);
-      Beam& bm = beams[j];
-      bm.bx = bx;
-      bm.by = by;
-      bm.cx = ox + ((float)ixc + 1.f) * cell;
-      bm.cy = oy + ((float)iyc + 1.f) * cell;
-      const float4* row =
-          reinterpret_cast<const float4*>(table + (size_t)(iyc * W + ixc) * 32);
+  float mean_sum = 0.f;  // sum over grids, from 0 (G > 1 only)
+  float cand = 0.f;
+  for (int g = 0; g < G; ++g) {
+    const float* gtable = table + (size_t)g * W * H * 32;
+    const float ox = origin[2 * g], oy = origin[2 * g + 1];
+    const float x_hi = ox + (float)W * cell;
+    const float y_hi = oy + (float)H * cell;
+    float acc = 0.f;
+    for (int base = 0; base < max_beams; base += kBeamChunk) {
+      const int nb = min(kBeamChunk, max_beams - base);
+      __syncthreads();
+      // matcher.py::prepare_neighborhood for this chunk of beams.
+      for (int j = t; j < nb; j += blockDim.x) {
+        const int b = base + j;
+        const int idx = sub.index(b, num_points, P);
+        const bool m = (b < sub.used) && pmask[idx];
+        const float px = points[2 * idx], py = points[2 * idx + 1];
+        const float bx = c * px - s * py + pose[0];
+        const float by = s * px + c * py + pose[1];
+        const int ix0 = (int)floorf((bx + dls[0] - ox) / cell);
+        const int iy0 = (int)floorf((by + dls[0] - oy) / cell);
+        const int ixc = ndt2d::clampi(ix0, 0, W - 2);
+        const int iyc = ndt2d::clampi(iy0, 0, H - 2);
+        Beam& bm = beams[j];
+        bm.bx = bx;
+        bm.by = by;
+        bm.cx = ox + ((float)ixc + 1.f) * cell;
+        bm.cy = oy + ((float)iyc + 1.f) * cell;
+        const float4* row = reinterpret_cast<const float4*>(
+            gtable + (size_t)(iyc * W + ixc) * 32);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float4 lo = row[2 * q], hi = row[2 * q + 1];
-        bm.rec[q][0] = lo.x;
-        bm.rec[q][1] = lo.y;
-        bm.rec[q][2] = lo.z;
-        bm.rec[q][3] = lo.w;
-        bm.rec[q][4] = hi.x;
-        bm.rec[q][5] = (hi.y > 0.5f && m) ? 1.f : 0.f;
+        for (int q = 0; q < 4; ++q) {
+          const float4 lo = row[2 * q], hi = row[2 * q + 1];
+          bm.rec[q][0] = lo.x;
+          bm.rec[q][1] = lo.y;
+          bm.rec[q][2] = lo.z;
+          bm.rec[q][3] = lo.w;
+          bm.rec[q][4] = hi.x;
+          bm.rec[q][5] = (hi.y > 0.5f && m) ? 1.f : 0.f;
+        }
+      }
+      __syncthreads();
+      // matcher.py::_candidate_scores_local, beams in order.
+      for (int j = 0; j < nb; ++j) {
+        const Beam& bm = beams[j];
+        const float wxc = bm.bx + dx;
+        const float wyc = bm.by + dy;
+        const int q = (wyc >= bm.cy ? 2 : 0) + (wxc >= bm.cx ? 1 : 0);
+        const float* r = bm.rec[q];
+        const bool valid = r[5] > 0.5f && wxc >= ox && wxc < x_hi &&
+                           wyc >= oy && wyc < y_hi;
+        const float qx = wxc - r[0];
+        const float qy = wyc - r[1];
+        const float e =
+            -0.5f * (r[2] * qx * qx + 2.f * r[3] * qx * qy + r[4] * qy * qy);
+        acc += valid ? expf(fminf(e, 0.f)) : 0.f;
       }
     }
-    __syncthreads();
-    // matcher.py::_candidate_scores_local, beams in order.
-    for (int j = 0; j < nb; ++j) {
-      const Beam& bm = beams[j];
-      const float wxc = bm.bx + dx;
-      const float wyc = bm.by + dy;
-      const int q = (wyc >= bm.cy ? 2 : 0) + (wxc >= bm.cx ? 1 : 0);
-      const float* r = bm.rec[q];
-      const bool valid = r[5] > 0.5f && wxc >= ox && wxc < x_hi &&
-                         wyc >= oy && wyc < y_hi;
-      const float qx = wxc - r[0];
-      const float qy = wyc - r[1];
-      const float e =
-          -0.5f * (r[2] * qx * qx + 2.f * r[3] * qx * qy + r[4] * qy * qy);
-      acc += valid ? expf(fminf(e, 0.f)) : 0.f;
-    }
+    cand = -acc;
+    mean_sum = mean_sum + cand;
   }
-
-  const float cand = -acc;
+  if (G > 1) cand = mean_sum / (float)G;
   const int flat = a * LL + t;
   if (live && scores != nullptr) scores[flat] = cand;
 
@@ -264,12 +275,12 @@ __global__ void finalize(const float* __restrict__ partial, int A, int L,
 
 }  // namespace
 
-// table [R,H*W,32] f32, origin [R,2] f32, points [R,P,2] f32, pmask
+// table [R,G,H*W,32] f32, origin [R,G,2] f32, points [R,P,2] f32, pmask
 // [R,P] u8, nums [R] i32 (or null: every row has `num` points), pose [R,3]
 // f32, dths [A] f32, dls [L] f32; scratch partial [R,A,12] f32; out [R,13]
 // f32; scores [R,A,L,L] f32 or null.
 NDT2D_API int ndt2d_candidate_scores(
-    const void* table, const void* origin, float cell, int W, int H,
+    const void* table, const void* origin, int G, float cell, int W, int H,
     const void* points, const void* pmask, int R, int P, const void* nums,
     int num, int max_beams, const void* pose, const void* dths, int A,
     const void* dls, int L, void* partial, void* out, void* scores,
@@ -277,7 +288,7 @@ NDT2D_API int ndt2d_candidate_scores(
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int threads = ((L * L + 31) / 32) * 32;
   score_angles<<<dim3(A, R), threads, 0, st>>>(
-      static_cast<const float*>(table), static_cast<const float*>(origin),
+      static_cast<const float*>(table), static_cast<const float*>(origin), G,
       cell, W, H, static_cast<const float*>(points),
       static_cast<const uint8_t*>(pmask), P, static_cast<const int*>(nums),
       num, max_beams, static_cast<const float*>(pose),

@@ -5,7 +5,14 @@
 // ndt_2d_tpu/ndt/grid.py::build_ndt_from_scans -> build_ndt_binned, and
 // ndt_2d_tpu/ndt/grid.py::packed_patch_table; with a row axis, the
 // jax.vmap of build_window_ndt in match_scan_batch_multi (R loop-closure
-// confirmation windows in one launch per pass).
+// confirmation windows in one launch per pass).  With a grid axis of G = 4
+// it is also the overlapping-grids build (build_window_ndt with
+// config.overlapping_grids, matcher.py:95-103): grid g of a window has the
+// origin window_origin - offs[g], offs = (0,0), (h,0), (0,h), (h,h) with
+// h = 0.5 * cell in float32, and is a full build of the same points.  The
+// launch runs R x G "virtual rows" v = r * G + g; every output is laid out
+// [R, G, ...], and at G = 1 the offsets are 0 and the bits are those of the
+// single-grid build.
 //
 // What bounds it on the card: the per-cell moment sums.  A scatter with
 // float atomics would be the fast form, but its summation order changes from
@@ -51,28 +58,34 @@ __device__ __forceinline__ void window_origin(const float* poses,
   *oy = my - range_max;
 }
 
-// Grid (point blocks, R): row r = blockIdx.y.
+// Grid (point blocks, R * G): virtual row v = blockIdx.y is grid
+// g = v % G of window r = v / G.
 __global__ void bin_points(const float* __restrict__ poses,
                            const float* __restrict__ points,
                            const uint8_t* __restrict__ pmask,
                            const uint8_t* __restrict__ wmask, int S, int P,
-                           float range_max, float cell, int W, int H,
-                           int* __restrict__ key, float* __restrict__ wx,
-                           float* __restrict__ wy,
+                           int G, float half, float range_max, float cell,
+                           int W, int H, int* __restrict__ key,
+                           float* __restrict__ wx, float* __restrict__ wy,
                            float* __restrict__ origin_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t r = blockIdx.y;
+  const size_t v = blockIdx.y;
+  const size_t r = v / G;
+  const int g = (int)(v % G);
   const size_t N = (size_t)S * P;
   poses += r * S * 3;
   points += r * N * 2;
   pmask += r * N;
   wmask += r * S;
-  key += r * N;
-  wx += r * N;
-  wy += r * N;
-  origin_out += r * 2;
+  key += v * N;
+  wx += v * N;
+  wy += v * N;
+  origin_out += v * 2;
   float ox, oy;
   window_origin(poses, wmask, S, range_max, &ox, &oy);
+  // matcher.py:96-103: origin - offs[g] (offs[0] = 0: the single grid).
+  ox = ox - ((g & 1) ? half : 0.f);
+  oy = oy - ((g & 2) ? half : 0.f);
   if (i == 0) {
     origin_out[0] = ox;
     origin_out[1] = oy;
@@ -96,7 +109,7 @@ __global__ void bin_points(const float* __restrict__ poses,
 
 __device__ __forceinline__ int wrap(int r, int C) { return ((r % C) + C) % C; }
 
-// Grid (cell blocks, R): row r = blockIdx.y; N = S * P points per row.
+// Grid (cell blocks, R * G): virtual row r = blockIdx.y; N = S * P points.
 __global__ void accumulate_cells(const int* __restrict__ key,
                                  const float* __restrict__ wx,
                                  const float* __restrict__ wy, int N, int W,
@@ -192,26 +205,28 @@ __global__ void accumulate_cells(const int* __restrict__ key,
 }  // namespace
 
 // poses [R,S,3] f32, points [R,S,P,2] f32, pmask [R,S,P] u8, wmask [R,S]
-// u8; scratch: key [R,S*P] i32, wx/wy [R,S*P] f32; out: origin [R,2],
-// mean [R,C,2], info [R,C,3], cov [R,C,3] f32, count [R,C] i32,
-// table [R,C,32] f32.
+// u8; G grids per window (1, or 4 overlapping ones offset by `half`);
+// scratch: key [R,G,S*P] i32, wx/wy [R,G,S*P] f32; out: origin [R,G,2],
+// mean [R,G,C,2], info [R,G,C,3], cov [R,G,C,3] f32, count [R,G,C] i32,
+// table [R,G,C,32] f32.
 NDT2D_API int ndt2d_ndt_build(const void* poses, const void* points,
                               const void* pmask, const void* wmask, int R,
-                              int S, int P, float range_max, float cell,
-                              int W, int H, void* key, void* wx, void* wy,
-                              void* origin, void* mean, void* info, void* cov,
-                              void* count, void* table, void* stream) {
+                              int S, int P, int G, float half,
+                              float range_max, float cell, int W, int H,
+                              void* key, void* wx, void* wy, void* origin,
+                              void* mean, void* info, void* cov, void* count,
+                              void* table, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int N = S * P;
   const int C = W * H;
-  const dim3 nb(max((N + kBinThreads - 1) / kBinThreads, 1), R);
+  const dim3 nb(max((N + kBinThreads - 1) / kBinThreads, 1), R * G);
   bin_points<<<nb, kBinThreads, 0, st>>>(
       static_cast<const float*>(poses), static_cast<const float*>(points),
       static_cast<const uint8_t*>(pmask), static_cast<const uint8_t*>(wmask),
-      S, P, range_max, cell, W, H, static_cast<int*>(key),
+      S, P, G, half, range_max, cell, W, H, static_cast<int*>(key),
       static_cast<float*>(wx), static_cast<float*>(wy),
       static_cast<float*>(origin));
-  const dim3 nc((C + kCellThreads - 1) / kCellThreads, R);
+  const dim3 nc((C + kCellThreads - 1) / kCellThreads, R * G);
   const size_t smem = (size_t)kChunk * (sizeof(int) + 2 * sizeof(float));
   accumulate_cells<<<nc, kCellThreads, smem, st>>>(
       static_cast<const int*>(key), static_cast<const float*>(wx),

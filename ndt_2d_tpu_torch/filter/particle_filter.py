@@ -34,7 +34,7 @@ from ndt_2d_tpu_torch.device import get_device
 from ndt_2d_tpu_torch.filter import motion_model
 from ndt_2d_tpu_torch.kernels import particle_filter as k9
 from ndt_2d_tpu_torch.matching import matcher as matcher_mod
-from ndt_2d_tpu_torch.shared import ParticleFilterConfig
+from ndt_2d_tpu_torch.config import ParticleFilterConfig
 
 
 class Draws(NamedTuple):

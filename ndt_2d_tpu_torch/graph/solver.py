@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ndt_2d_tpu_torch.kernels import normal_blocks as k4
-from ndt_2d_tpu_torch.shared import SolverConfig
+from ndt_2d_tpu_torch.config import SolverConfig
 
 
 class SolveResult(NamedTuple):

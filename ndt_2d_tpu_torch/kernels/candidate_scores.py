@@ -10,7 +10,16 @@ kernel covers lattices no wider than one NDT cell
 one 2x2 cell patch; the matcher raises for wider ones.
 
 ``match_rows`` takes a row axis (R confirmation rows, the ``jax.vmap`` of
-``match_scan_batch_multi``); ``match`` is the same launch at R = 1.
+``match_scan_batch_multi``); ``match`` is the same launch at R = 1.  Both
+return the kernel's [R, 13] output rows, which K7 refines in place and
+``unpack`` reads.  A grid with a grid axis (the four overlapping grids of
+K1 with ``grids=4``: origin [4, 2], tables [4, C, 32] per row) is scored
+as the mean over its grids (matcher.py:194-202); without one, the launch
+is the single-grid search.
+
+The twin adds in the kernel's order (each candidate's beams from 0, the
+Olson sums through the kernel's warp tree, warps and angles in order), so
+on the same CUDA inputs kernel and twin agree bitwise.
 """
 
 from __future__ import annotations
@@ -26,7 +35,8 @@ from ndt_2d_tpu_torch.ndt import grid as ndt_grid
 
 launches = 0
 
-_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_float] + [ctypes.c_int] * 2
+_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_float]
+         + [ctypes.c_int] * 2
          + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
          + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
          + [ctypes.c_void_p] + [ctypes.c_int] + [ctypes.c_void_p] * 4)
@@ -109,13 +119,56 @@ def candidate_scores_local(config, grid: ndt_grid.NDTGrid, spts, smask,
     e = -0.5 * (sel(2) * qx * qx + 2.0 * sel(3) * qx * qy
                 + sel(4) * qy * qy)
     pt = torch.exp(torch.clamp(e, max=0.0))
-    return -torch.sum(torch.where(valid, pt, torch.zeros_like(pt)), dim=-1)
+    terms = torch.where(valid, pt, torch.zeros_like(pt))
+    # The beams in order from 0, as each of the kernel's threads sums them.
+    acc = torch.zeros_like(terms[..., 0])
+    for b in range(terms.shape[-1]):
+        acc = acc + terms[..., b]
+    return -acc
+
+
+def candidate_scores(config, grid: ndt_grid.NDTGrid, spts, smask, pose,
+                     dths, dls, table):
+    """[A, L, L] candidate scores; a stacked grid (origin [G, 2], table
+    [G, C, 32]) scores the mean over its grids, summed from 0 in grid order
+    as Python's ``sum`` does (matcher.py:194-202)."""
+    if table.dim() == 2:
+        return candidate_scores_local(config, grid, spts, smask, pose, dths,
+                                      dls, table)
+    per = [candidate_scores_local(
+        config, ndt_grid.NDTGrid(origin=grid.origin[g],
+                                 cell_size=grid.cell_size, mean=None,
+                                 information=None, count=None,
+                                 covariance=None),
+        spts, smask, pose, dths, dls, table[g])
+        for g in range(table.shape[0])]
+    return sum(per) / ndt_grid.f32(len(per), spts.device)
+
+
+def _sum_as_kernel(terms):
+    """terms [A, T, K] summed in the kernel's order: per angle its T
+    candidates as zero-padded 32-lane warps, each folded in halves (the
+    shuffle tree), the warps added in order, then the angles in order."""
+    A, T, K = terms.shape
+    nw = -(-T // 32)
+    x = torch.nn.functional.pad(terms, (0, 0, 0, nw * 32 - T))
+    x = x.reshape(A, nw, 32, K)
+    for h in (16, 8, 4, 2, 1):
+        x = x[:, :, :h] + x[:, :, h:2 * h]
+    acc = x[:, 0, 0]
+    for w in range(1, nw):
+        acc = acc + x[:, w, 0]
+    total = acc[0]
+    for a in range(1, A):
+        total = total + acc[a]
+    return total
 
 
 def reduce_candidates(cand, dths, dls):
     """(best, correction [3], K [3, 3], u [3], s): first-index argmin in
     (angle, dx, dy) order, correction applied only when best < 0, and the
-    raw Olson accumulators over every candidate."""
+    raw Olson accumulators over every candidate, summed in the kernel's
+    order."""
     A, L = cand.shape[0], cand.shape[1]
     flat = cand.reshape(-1)
     best_idx = torch.argmin(flat)
@@ -129,11 +182,11 @@ def reduce_candidates(cand, dths, dls):
                      dls[None, None, :].expand(A, L, L),
                      dths[:, None, None].expand(A, L, L)], dim=-1)
     sw = cand[..., None]
-    u = torch.sum(x * sw, dim=(0, 1, 2))
-    k = torch.sum(x[..., :, None] * x[..., None, :] * sw[..., None],
-                  dim=(0, 1, 2))
-    s = torch.sum(cand)
-    return best, correction, k, u, s
+    i, j = [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]
+    terms = torch.cat([sw, x * sw, x[..., i] * x[..., j] * sw], dim=-1)
+    total = _sum_as_kernel(terms.reshape(A, L * L, 10))
+    k = total[[4, 5, 6, 5, 7, 8, 6, 8, 9]].reshape(3, 3)
+    return best, correction, k, total[1:4], total[0]
 
 
 def finalize_match(best, correction, k, u, s, used: int) -> MatchResult:
@@ -153,11 +206,12 @@ def finalize_match(best, correction, k, u, s, used: int) -> MatchResult:
 
 def match_twin(config, grid: ndt_grid.NDTGrid, table, points, point_mask,
                num_points: int, pose, dths, dls):
-    """Plain-PyTorch K2: (MatchResult, scores [A, L, L])."""
+    """Plain-PyTorch K2: (MatchResult, scores [A, L, L]).  table [C, 32],
+    or [G, C, 32] with grid.origin [G, 2]."""
     spts, smask, used = subsample(points, point_mask, num_points,
                                   config.laser_max_beams)
-    cand = candidate_scores_local(config, grid, spts, smask, pose, dths, dls,
-                                  table)
+    cand = candidate_scores(config, grid, spts, smask, pose, dths, dls,
+                            table)
     best, correction, k, u, s = reduce_candidates(cand, dths, dls)
     return finalize_match(best, correction, k, u, s, used), cand
 
@@ -180,9 +234,23 @@ def match_rows_twin(config, grid: ndt_grid.NDTGrid, tables, points,
             torch.stack(cand))
 
 
+def pack(res: MatchResult) -> torch.Tensor:
+    """A MatchResult of R rows as the kernel's [R, 13] output rows (score,
+    correction, row-major covariance)."""
+    return torch.cat([res.score[:, None], res.correction,
+                      res.covariance.reshape(-1, 9)], 1)
+
+
+def unpack(out) -> MatchResult:
+    """[R, 13] output rows as a MatchResult of views into them."""
+    return MatchResult(score=out[:, 0], correction=out[:, 1:4],
+                       covariance=out[:, 4:13].reshape(-1, 3, 3))
+
+
 def _launch(config, origin, cell_size: float, tables, points, point_mask,
             nums, num: int, poses, dths, dls, with_scores: bool):
-    """One K2 launch over R rows; returns (out [R, 13], scores or None)."""
+    """One K2 launch over R rows (tables [R, (G,) C, 32], origin
+    [R, (G,) 2]); returns (out [R, 13], scores or None)."""
     global launches
     dev = points.device
     W, H = config.grid_cells_x, config.grid_cells_y
@@ -191,8 +259,11 @@ def _launch(config, origin, cell_size: float, tables, points, point_mask,
     if L * L > 1024 or A > 512 or W < 2 or H < 2:
         raise ValueError(f"lattice {A}x{L}x{L} on a {W}x{H} grid is outside "
                          "the kernel's range")
-    _build.require(tables, "tables", torch.float32, (R, W * H, 32), dev)
-    _build.require(origin, "origin", torch.float32, (R, 2), dev)
+    if tables.dim() == 3:  # no grid axis: G = 1
+        tables, origin = tables[:, None], origin[:, None]
+    G = tables.shape[1]
+    _build.require(tables, "tables", torch.float32, (R, G, W * H, 32), dev)
+    _build.require(origin, "origin", torch.float32, (R, G, 2), dev)
     _build.require(points, "points", torch.float32, (R, P, 2), dev)
     _build.require(point_mask, "point_mask", torch.bool, (R, P), dev)
     if nums is not None:
@@ -206,7 +277,7 @@ def _launch(config, origin, cell_size: float, tables, points, point_mask,
               if with_scores else None)
     p = _build.ptr
     err = _build.function("ndt2d_candidate_scores", _ARGS)(
-        p(tables), p(origin), float(cell_size), W, H, p(points),
+        p(tables), p(origin), G, float(cell_size), W, H, p(points),
         p(point_mask), R, P, None if nums is None else p(nums), int(num),
         int(config.laser_max_beams), p(poses), p(dths), A, p(dls), L,
         p(partial), p(out), None if scores is None else p(scores),
@@ -218,41 +289,38 @@ def _launch(config, origin, cell_size: float, tables, points, point_mask,
 
 def match_rows(config, grid: ndt_grid.NDTGrid, tables, points, point_mask,
                num_points, poses, dths, dls, with_scores: bool = False):
-    """K2 over R rows in one launch.  grid.origin [R, 2] f32 (the other
-    grid fields are not read), tables [R, H*W, 32] f32 (K1's), points
-    [R, P, 2] f32, point_mask [R, P] bool, num_points [R] int32, poses
-    [R, 3] f32, dths [A] / dls [L] f32.  Returns a MatchResult of
-    [R], [R, 3], [R, 3, 3] tensors, or (MatchResult, scores [R, A, L, L])
-    with ``with_scores``.  CPU tensors run the twin; CUDA tensors launch
-    the kernel."""
+    """K2 over R rows in one launch.  grid.origin [R, (G,) 2] f32 (the
+    other grid fields are not read), tables [R, (G,) H*W, 32] f32 (K1's),
+    points [R, P, 2] f32, point_mask [R, P] bool, num_points [R] int32,
+    poses [R, 3] f32, dths [A] / dls [L] f32.  Returns the [R, 13] output
+    rows (``unpack`` reads them; K7 refines them in place), or (rows,
+    scores [R, A, L, L]) with ``with_scores``.  CPU tensors run the twin;
+    CUDA tensors launch the kernel."""
     if points.device.type == "cpu":
         res, cand = match_rows_twin(config, grid, tables, points, point_mask,
                                     num_points, poses, dths, dls)
-        return (res, cand) if with_scores else res
+        return (pack(res), cand) if with_scores else pack(res)
     out, scores = _launch(config, grid.origin, grid.cell_size, tables,
                           points, point_mask, num_points, 0, poses, dths,
                           dls, with_scores)
-    res = MatchResult(score=out[:, 0], correction=out[:, 1:4],
-                      covariance=out[:, 4:13].reshape(-1, 3, 3))
-    return (res, scores) if with_scores else res
+    return (out, scores) if with_scores else out
 
 
 def match(config, grid: ndt_grid.NDTGrid, table, points, point_mask,
           num_points: int, pose, dths, dls, with_scores: bool = False):
-    """K2 of one scan: ``match_rows``' launch at R = 1.  table [H*W, 32]
-    f32 (K1's), points [P, 2] f32, point_mask [P] bool, pose [3] f32,
-    dths [A] / dls [L] f32.  Returns a MatchResult, or (MatchResult,
-    scores [A, L, L]) with ``with_scores``, which makes the kernel also
-    write its per-candidate scores (a check of the kernel; the match
-    itself never stores them).  CPU tensors run the twin; CUDA tensors
-    launch the kernel."""
+    """K2 of one scan: ``match_rows``' launch at R = 1.  table [(G,) H*W,
+    32] f32 (K1's, with grid.origin [(G,) 2]), points [P, 2] f32,
+    point_mask [P] bool, pose [3] f32, dths [A] / dls [L] f32.  Returns its
+    [1, 13] output row, or (row, scores [A, L, L]) with ``with_scores``,
+    which makes the kernel also write its per-candidate scores (a check of
+    the kernel; the match itself never stores them).  CPU tensors run the
+    twin; CUDA tensors launch the kernel."""
     if points.device.type == "cpu":
         res, cand = match_twin(config, grid, table, points, point_mask,
                                num_points, pose, dths, dls)
-        return (res, cand) if with_scores else res
+        out = pack(MatchResult(*[x[None] for x in res]))
+        return (out, cand) if with_scores else out
     out, scores = _launch(config, grid.origin[None], grid.cell_size,
                           table[None], points[None], point_mask[None], None,
                           num_points, pose[None], dths, dls, with_scores)
-    res = MatchResult(score=out[0, 0], correction=out[0, 1:4],
-                      covariance=out[0, 4:13].reshape(3, 3))
-    return (res, scores[0]) if with_scores else res
+    return (out, scores[0]) if with_scores else out

@@ -12,6 +12,10 @@ score is the same bits through either entry.
 The beams of a pose are summed in the kernel's order: lane l of a warp adds
 beams l, l + 32, ... from 0, then lanes combine by halving (16, 8, 4, 2, 1).
 The twin adds in that order too, so kernel and twin agree bitwise.
+
+A grid with a grid axis (the four overlapping grids: origin [4, 2], mean
+[4, C, 2], ...) scores each beam as the mean over its grids, summed from 0
+in grid order, before the beams are summed (matcher.py:411-416).
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ launches = 0
 batch_launches = 0
 
 _ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-         + [ctypes.c_int] + [ctypes.c_void_p] + [ctypes.c_float]
+         + [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_float]
          + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5)
 
 
@@ -72,8 +76,13 @@ def score_batch_twin(grid: ndt_grid.NDTGrid, width: int, height: int,
     wx = c * px - s * py + poses[:, 0:1]
     wy = s * px + c * py + poses[:, 1:2]
     w = torch.stack([wx, wy], dim=-1)
-    sc = ndt_grid.score_points(grid, w, smask.expand(poses.shape[0], -1),
-                               width, height)
+    wmask = smask.expand(poses.shape[0], -1)
+    if grid.mean.dim() == 2:
+        sc = ndt_grid.score_points(grid, w, wmask, width, height)
+    else:
+        grids = ndt_grid.split_grids(grid)
+        sc = sum(ndt_grid.score_points(g, w, wmask, width, height)
+                 for g in grids) / ndt_grid.f32(len(grids), points.device)
     slots = -(-max_beams // 32) * 32
     sc = torch.nn.functional.pad(sc, (0, slots - max_beams))
     return -lane_tree_sum(sc) / ndt_grid.f32(max(used, 1), points.device)
@@ -94,19 +103,21 @@ def _launch(grid, width, height, max_beams, points, point_mask, num_points,
     P, M, C = points.shape[0], poses.shape[0], width * height
     if M < 1:
         raise ValueError("score_points needs at least one pose")
+    G = grid.mean.shape[0] if grid.mean.dim() == 3 else 1
+    lead = () if grid.mean.dim() == 2 else (G,)
     _build.require(points, "points", torch.float32, (P, 2), dev)
     _build.require(point_mask, "point_mask", torch.bool, (P,), dev)
     _build.require(poses, "poses", torch.float32, (M, 3), dev)
-    _build.require(grid.origin, "origin", torch.float32, (2,), dev)
-    _build.require(grid.mean, "mean", torch.float32, (C, 2), dev)
-    _build.require(grid.information, "information", torch.float32, (C, 3),
-                   dev)
-    _build.require(grid.count, "count", torch.int32, (C,), dev)
+    _build.require(grid.origin, "origin", torch.float32, (*lead, 2), dev)
+    _build.require(grid.mean, "mean", torch.float32, (*lead, C, 2), dev)
+    _build.require(grid.information, "information", torch.float32,
+                   (*lead, C, 3), dev)
+    _build.require(grid.count, "count", torch.int32, (*lead, C), dev)
     out = torch.empty(M, dtype=torch.float32, device=dev)
     p = _build.ptr
     err = _build.function("ndt2d_score_points", _ARGS)(
         p(points), p(point_mask), P, int(num_points), int(max_beams),
-        p(poses), M, p(grid.origin), float(grid.cell_size), width, height,
+        p(poses), M, G, p(grid.origin), float(grid.cell_size), width, height,
         p(grid.mean), p(grid.information), p(grid.count), p(out),
         _build.stream_ptr(dev))
     _build.check(err, "score_points")

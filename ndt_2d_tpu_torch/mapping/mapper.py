@@ -5,13 +5,15 @@ Port of the synchronous branches of ``ndt_2d_tpu/mapping/mapper.py`` (the
 reference's ``ndt_2d::Mapper``):
 
 * ``process_scan`` == laserCallback: the localized gate, motion gate,
-  odometry dead-reckoning, de-skewed projection (shared host numpy), then
+  odometry dead-reckoning, de-skewed projection (host numpy), then
   one of three branches.  Mapping: one fused window build (K1) +
-  uncorrected score (K3) + exhaustive match (K2) against the
-  device-resident rolling window, the EWMA of match quality, and the
-  odometry constraint into the shared host pose graph.  Scan-match
-  localization (``enable_mapping=False``): K3 + K2 against the global NDT
-  of the loaded map (K1, built once).  Particle filter
+  uncorrected score (K3) + exhaustive match (K2), and its Newton polish
+  (K7) when the matcher refines, against the device-resident rolling
+  window; the EWMA of match quality, and the odometry constraint into the
+  host pose graph.  With ``overlapping_grids`` every kernel works on the
+  four overlapping grids of the window.  Scan-match localization
+  (``enable_mapping=False``): K3 + K2 (+ K7) against the global NDT of the
+  loaded map (K1, built once).  Particle filter
   (``use_particle_filter``): one fused filter step (K9 motion, K3 over all
   particles, K9 resample and statistics) and one read.
 * ``set_initial_pose`` == poseCallback; ``global_localize`` seeds the
@@ -19,15 +21,16 @@ reference's ``ndt_2d::Mapper``):
   maps and switches mapping on and off; ``map_to_odom`` the transform.
 * ``loop_closure`` == one pass of loopClosureThread: the host radius
   search, the confirmation of every (query, candidate) row on the global
-  matcher (``match_scan_batch_multi``: one K1 and one K2 launch per chunk
-  of up to 64 rows; or one window at a time on the sequential path), the
-  acceptance gates, and the LM solve on K4 (``graph/solver.py``).
+  matcher (``match_scan_batch_multi``: one K1, one K2 and, when the matcher
+  refines, one K7 launch per chunk of up to 64 rows; or one window at a
+  time on the sequential path), the acceptance gates, and the LM solve on
+  K4 (``graph/solver.py``).
 * ``render_map`` == the occupancy export (K5).
 
 Refused with NotImplementedError rather than approximated: the pipelined
 per-scan paths (``max_inflight > 0``), meshes, loop searches other than
-"radius" (descriptor mode and its coarse-to-fine confirmation), and matcher
-options whose kernels are not ported (checked at construction).
+"radius" (descriptor mode and its coarse-to-fine confirmation), and
+lattices wider than one NDT cell (kernel K6; checked at construction).
 """
 
 from __future__ import annotations
@@ -46,9 +49,13 @@ from ndt_2d_tpu_torch.graph import solver
 from ndt_2d_tpu_torch.mapping import occupancy
 from ndt_2d_tpu_torch.matching import matcher as matcher_mod
 from ndt_2d_tpu_torch.matching import registry
-from ndt_2d_tpu_torch.shared import (
-    LaserScanMsg, MapperConfig, SessionStats, laser, pose_graph,
-    serialization, trim_host_heap)
+from ndt_2d_tpu_torch.config import MapperConfig
+from ndt_2d_tpu_torch.graph import pose_graph
+from ndt_2d_tpu_torch.io import serialization
+from ndt_2d_tpu_torch.mapping import laser
+from ndt_2d_tpu_torch.utils.memory import trim_host_heap
+from ndt_2d_tpu_torch.utils.profiling import SessionStats
+from ndt_2d_tpu_torch.utils.sim import LaserScanMsg
 
 logger = logging.getLogger("ndt_2d_tpu_torch.mapper")
 
@@ -185,6 +192,17 @@ class Mapper:
         self.local_matcher = registry.create(
             mtype, self.config.local_scan_matcher, self.range_max,
             device=self.device)
+        if (self.enable_mapping
+                and self.local_matcher.config.refine_iterations > 0):
+            # The reference's measurement on synthetic corridors
+            # (ndt_2d_tpu/mapping/mapper.py:229-239): continuous refinement
+            # against the rolling window drags poses sub-cell toward the
+            # window's own history and worsens trajectory ATE.
+            logger.warning(
+                "Newton refinement is enabled on the LOCAL (rolling-window) "
+                "matcher while mapping; this was measured to worsen "
+                "trajectory ATE. Prefer refinement on the global matcher "
+                "only (localization / loop-closure confirmation).")
         if localizing and self.graph.num_scans:
             g = self.graph
             self.global_matcher.add_scans(g.poses.astype(np.float32),

@@ -1,8 +1,7 @@
 """Bag replay loop around the port's ``Mapper``.
 
 Port of ``ndt_2d_tpu/mapping/runtime.py::run_bag`` and ``sweep_end_odom``
-(without the UNIX-socket control channel).  They are restated, not shared:
-the reference module imports the JAX mapper.
+(without the UNIX-socket control channel).
 """
 
 from __future__ import annotations
@@ -12,7 +11,8 @@ from typing import Callable, Optional
 import numpy as np
 
 from ndt_2d_tpu_torch.mapping.mapper import Mapper
-from ndt_2d_tpu_torch.shared import ScanBag, metrics
+from ndt_2d_tpu_torch.io.bag import ScanBag
+from ndt_2d_tpu_torch.utils import metrics
 
 
 def sweep_end_odom(bag: ScanBag, t: int, msg) -> Optional[np.ndarray]:

@@ -1,21 +1,24 @@
 """NDT scan matching on the port's kernels: window NDT build (K1), the
-uncorrected score (K3) and the exhaustive 3-DoF search (K2).
+uncorrected score (K3), the exhaustive 3-DoF search (K2) and its Newton
+polish (K7).
 
 Port of the main-path subset of ``ndt_2d_tpu/matching/matcher.py``,
-including the loop-closure confirmation ``match_scan_batch_multi`` (K1 and
-K2 over a row axis, one launch each), and for localization
+including the loop-closure confirmation ``match_scan_batch_multi`` (K1, K2
+and K7 over a row axis, one launch each), and for localization
 ``score_points_batch`` (K3 over a pose axis, the particle filter's
-measurement) and ``match_scan_with_score`` (K3 + K2 against a global
-grid).  The
-plain steps of the search live beside their kernels and are re-exported
-here under the reference's names (``subsample``, ``window_origin``,
-``prepare_neighborhood``, ``_candidate_scores_local``,
-``reduce_candidates``, ``finalize_match``).
+measurement) and ``match_scan_with_score`` (K3 + K2 + K7 against a global
+grid).  ``config.overlapping_grids`` is a grid axis of 4 through K1, K2, K3
+and K7 (the reference's K8: ``build_window_ndt`` stacks four half-cell
+shifted grids, and every score is their mean); ``refine_iterations > 0``
+chains K7 after K2 in every match.  The plain steps of the search live
+beside their kernels and are re-exported here under the reference's names
+(``subsample``, ``window_origin``, ``prepare_neighborhood``,
+``_candidate_scores_local``, ``reduce_candidates``, ``finalize_match``).
 
 Not ported yet, and refused rather than approximated: lattices wider than
-one NDT cell (the per-candidate gather path, kernel K6), overlapping grids
-(K8), Newton refinement (K7) and the coarse-to-fine confirmation
-(``match_scan_batch_multi_coarse_fine``, descriptor mode).
+one NDT cell (the per-candidate gather path, kernel K6) and the
+coarse-to-fine confirmation (``match_scan_batch_multi_coarse_fine``,
+descriptor mode).
 """
 
 from __future__ import annotations
@@ -27,9 +30,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ndt_2d_tpu_torch.config import ScanMatcherConfig
 from ndt_2d_tpu_torch.device import get_device
 from ndt_2d_tpu_torch.kernels import candidate_scores as k2
 from ndt_2d_tpu_torch.kernels import ndt_build as k1
+from ndt_2d_tpu_torch.kernels import newton as k7
 from ndt_2d_tpu_torch.kernels import score_points as k3
 from ndt_2d_tpu_torch.kernels.candidate_scores import (  # noqa: F401
     MatchResult, finalize_match, prepare_neighborhood, reduce_candidates)
@@ -38,18 +43,10 @@ from ndt_2d_tpu_torch.kernels.candidate_scores import (  # noqa: F401
 from ndt_2d_tpu_torch.kernels.ndt_build import window_origin  # noqa: F401
 from ndt_2d_tpu_torch.kernels.score_points import subsample  # noqa: F401
 from ndt_2d_tpu_torch.ndt import grid as ndt_grid
-from ndt_2d_tpu_torch.shared import ScanMatcherConfig
 
 
 def check_supported(config: ScanMatcherConfig) -> None:
     """Raise NotImplementedError for matcher options the port lacks."""
-    if config.overlapping_grids:
-        raise NotImplementedError(
-            "overlapping_grids (kernel K8) is not ported yet")
-    if config.refine_iterations > 0:
-        raise NotImplementedError(
-            "Newton refinement (refine_iterations > 0, kernel K7) is not "
-            "ported yet")
     if 2.0 * config.search_linear_size > config.ndt_resolution:
         raise NotImplementedError(
             "lattices wider than one NDT cell (2 * search_linear_size > "
@@ -64,32 +61,58 @@ def _search_offsets(config: ScanMatcherConfig, device: torch.device):
     return k2.search_offsets(config, device)
 
 
+def num_grids(config: ScanMatcherConfig) -> int:
+    """Grids per window: 4 with overlapping_grids, else 1."""
+    return 4 if config.overlapping_grids else 1
+
+
+def is_multi_grid(grid: ndt_grid.NDTGrid) -> bool:
+    """True for a window's stacked overlapping grids ([4, ...] fields)."""
+    return grid.mean.dim() == 3
+
+
 def build_window_ndt(config: ScanMatcherConfig, poses, points, point_mask,
                      window_mask, range_max: float):
     """Window NDT (ScanMatcherNDT::addScans) on K1: (NDTGrid, patch table).
 
     poses [S, 3], points [S, P, 2] robot frame, point_mask [S, P],
-    window_mask [S] (which scans participate)."""
+    window_mask [S] (which scans participate).  With overlapping_grids the
+    four half-cell shifted grids: [4, ...] fields and tables [4, C, 32]."""
     check_supported(config)
     return k1.build_window(poses, points, point_mask, window_mask,
                            range_max, config.ndt_resolution,
-                           config.grid_cells_x, config.grid_cells_y)
+                           config.grid_cells_x, config.grid_cells_y,
+                           num_grids(config))
 
 
 def match_scan(config: ScanMatcherConfig, grid: ndt_grid.NDTGrid, points,
                point_mask, num_points: int, pose, range_max=None,
                packed_table=None) -> MatchResult:
-    """Exhaustive 3-DoF search of one scan against a window NDT (K2).
+    """Exhaustive 3-DoF search of one scan against a window NDT (K2), then
+    with refine_iterations > 0 its Newton polish from the lattice winner
+    (K7, matcher.py:384-393): the refined score and correction, K2's
+    covariance.
 
     ``packed_table`` is K1's patch table; without it the table is laid out
     from the grid."""
     del range_max  # part of the reference's signature; unused here
     check_supported(config)
     if packed_table is None:
-        packed_table = ndt_grid.packed_patch_table(grid, config.grid_cells_x)
+        if is_multi_grid(grid):
+            packed_table = torch.stack([
+                ndt_grid.packed_patch_table(g, config.grid_cells_x)
+                for g in ndt_grid.split_grids(grid)])
+        else:
+            packed_table = ndt_grid.packed_patch_table(grid,
+                                                       config.grid_cells_x)
     dths, dls = _search_offsets(config, points.device)
-    return k2.match(config, grid, packed_table, points, point_mask,
-                    num_points, pose, dths, dls)
+    out = k2.match(config, grid, packed_table, points, point_mask,
+                   num_points, pose, dths, dls)
+    if config.refine_iterations > 0:
+        out = k7.refine(config, grid, points, point_mask, num_points, pose,
+                        out, config.refine_iterations)
+    res = k2.unpack(out)
+    return MatchResult(res.score[0], res.correction[0], res.covariance[0])
 
 
 def score_points_at_pose(config: ScanMatcherConfig, grid: ndt_grid.NDTGrid,
@@ -145,8 +168,8 @@ def match_scan_batch_multi(config: ScanMatcherConfig, poses, points,
                            point_mask, window_mask, range_max: float,
                            query_points, query_mask, query_num, start_poses):
     """Loop-closure confirmation of N rows, each a candidate window and
-    its own query scan: every row's window build (K1) and match (K2) in one
-    launch each.
+    its own query scan: every row's window build (K1), match (K2) and, with
+    refine_iterations > 0, Newton polish (K7) in one launch each.
 
     poses [N, S, 3], points [N, S, P, 2], point_mask [N, S, P], window_mask
     [N, S] (all-False rows are padding: their empty grids score 0 and never
@@ -158,10 +181,16 @@ def match_scan_batch_multi(config: ScanMatcherConfig, poses, points,
     check_supported(config)
     grid, tables = k1.build_windows(
         poses, points, point_mask, window_mask, range_max,
-        config.ndt_resolution, config.grid_cells_x, config.grid_cells_y)
-    res = k2.match_rows(config, grid, tables, query_points, query_mask,
+        config.ndt_resolution, config.grid_cells_x, config.grid_cells_y,
+        num_grids(config))
+    out = k2.match_rows(config, grid, tables, query_points, query_mask,
                         query_num, start_poses,
                         *_search_offsets(config, points.device))
+    if config.refine_iterations > 0:
+        out = k7.refine_rows(config, grid, query_points, query_mask,
+                             query_num, start_poses, out,
+                             config.refine_iterations)
+    res = k2.unpack(out)
     return res.score, res.correction, res.covariance
 
 

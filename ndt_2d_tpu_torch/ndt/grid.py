@@ -44,7 +44,16 @@ class NDTGrid:
 
     @property
     def num_cells(self) -> int:
-        return self.mean.shape[0]
+        return self.mean.shape[-2]
+
+
+def split_grids(grid: NDTGrid) -> list:
+    """The grids of a stacked NDTGrid (fields with a leading grid axis, as
+    the overlapping grids' [4, ...]), each as an NDTGrid of views."""
+    return [NDTGrid(origin=grid.origin[g], cell_size=grid.cell_size,
+                    mean=grid.mean[g], information=grid.information[g],
+                    count=grid.count[g], covariance=grid.covariance[g])
+            for g in range(grid.mean.shape[0])]
 
 
 def f32(x: float, device) -> torch.Tensor:

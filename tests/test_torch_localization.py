@@ -25,7 +25,7 @@ from ndt_2d_tpu.utils import metrics, sim
 from ndt_2d_tpu_torch.mapping import runtime
 from ndt_2d_tpu_torch.mapping.mapper import (
     DISABLE_MAPPING, ENABLE_MAPPING, LOAD_FROM_FILE, SAVE_TO_FILE, Mapper)
-from ndt_2d_tpu_torch.shared import record_synthetic
+from ndt_2d_tpu_torch.io.bag import record_synthetic
 
 torch.set_num_threads(2)
 

@@ -200,10 +200,11 @@ def port_rows(arrays, with_scores=False):
                                               *t[4:])
     grid, tables = k1.build_windows(*t[:4], RANGE_MAX, GLOBAL.ndt_resolution,
                                     GLOBAL.grid_cells_x, GLOBAL.grid_cells_y)
-    return k2.match_rows(GLOBAL, grid, tables, *t[4:],
-                         *matcher._search_offsets(GLOBAL,
-                                                  torch.device("cpu")),
-                         with_scores=True)
+    out, cand = k2.match_rows(GLOBAL, grid, tables, *t[4:],
+                              *matcher._search_offsets(GLOBAL,
+                                                       torch.device("cpu")),
+                              with_scores=True)
+    return k2.unpack(out), cand
 
 
 def same_trig(theta):

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 import __graft_entry__
+from ndt_2d_tpu import config as jax_config
 from ndt_2d_tpu.config import ScanMatcherConfig
 from ndt_2d_tpu.matching import matcher as jax_matcher
 from ndt_2d_tpu.utils import sim
@@ -89,9 +90,10 @@ def assert_scores_close(cand, ref, theta0):
 def test_entry_match_score_and_candidates():
     poses, wp, wpm, wm, qp, qm, qn, pose = entry_inputs()
     grid, table = port_grid(poses, wp, wpm, wm)
-    res, cand = k2.match(CFG, grid, table, T(qp), T(qm), int(qn), T(pose),
+    out, cand = k2.match(CFG, grid, table, T(qp), T(qm), int(qn), T(pose),
                          *matcher._search_offsets(CFG, torch.device("cpu")),
                          with_scores=True)
+    res = k2.MatchResult(*(f[0] for f in k2.unpack(out)))
     unc = matcher.score_points_at_pose(CFG, grid, T(qp), T(qm), int(qn),
                                        T(pose))
     jargs = (jnp.asarray(qp), jnp.asarray(qm), jnp.int32(qn),
@@ -241,10 +243,60 @@ def test_empty_window_falls_back_to_weak_covariance():
     dict(refine_iterations=4),
 ])
 def test_unported_matcher_options_raise(change):
+    """A lattice wider than a cell (kernel K6) is refused; overlapping grids
+    (K8) and the Newton polish (K7) are ported and match op-by-op JAX (the
+    jitted reference contracts FMAs in the covariance of near-degenerate
+    cells, which moves its overlapping score by 0.3% on this window)."""
     cfg = dataclasses.replace(CFG, **change)
     poses, wp, wpm, wm, qp, qm, qn, pose = entry_inputs()
-    with pytest.raises(NotImplementedError):
-        registry.create("ndt", cfg, RANGE_MAX, device="cpu")
-    with pytest.raises(NotImplementedError):
-        matcher.build_window_ndt(cfg, T(poses), T(wp), T(wpm), T(wm),
-                                 RANGE_MAX)
+    if "search_linear_size" in change:
+        with pytest.raises(NotImplementedError):
+            registry.create("ndt", cfg, RANGE_MAX, device="cpu")
+        with pytest.raises(NotImplementedError):
+            matcher.build_window_ndt(cfg, T(poses), T(wp), T(wpm), T(wm),
+                                     RANGE_MAX)
+        return
+    m = registry.create("ndt", cfg, RANGE_MAX, device="cpu")
+    m.add_scans(poses, wp, wpm, wm)
+    res = m.match_scan(qp, qm, qn, pose)
+    jcfg = jax_config.ScanMatcherConfig(
+        **{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)})
+    with jax.disable_jit():
+        ref = jax_matcher.match_scan(
+            jcfg, jax_matcher.build_window_ndt(
+                jcfg, jnp.asarray(poses), jnp.asarray(wp), jnp.asarray(wpm),
+                jnp.asarray(wm), jnp.float32(RANGE_MAX)),
+            jnp.asarray(qp), jnp.asarray(qm), jnp.int32(qn),
+            jnp.asarray(pose), jnp.float32(RANGE_MAX))
+    np.testing.assert_allclose(res.correction.numpy(),
+                               np.asarray(ref.correction), rtol=0, atol=1e-6)
+    assert float(res.score) == pytest.approx(float(ref.score), rel=1e-5)
+
+
+def warp_tree_sum(terms):
+    """The kernel's reduction lane by lane in numpy float32: per angle,
+    32-lane warps (dead lanes 0) reduced by ``__shfl_down_sync`` steps
+    (lane i adds lane i + off, or itself past lane 31), lane 0's sums of
+    the warps added in order, then the angles in order."""
+    A, T, K = terms.shape
+    lanes = np.arange(32)
+    total = None
+    for a in range(A):
+        acc = None
+        for w in range(0, T, 32):
+            v = np.zeros((32, K), np.float32)
+            v[:min(32, T - w)] = terms[a, w:w + 32]
+            for off in (16, 8, 4, 2, 1):
+                v = v + v[np.where(lanes + off < 32, lanes + off, lanes)]
+            acc = v[0] if acc is None else acc + v[0]
+        total = acc if total is None else total + acc
+    return total
+
+
+@pytest.mark.parametrize("angles,cands", [(80, 441), (40, 900), (3, 7)])
+def test_twin_sums_in_the_kernels_order(angles, cands):
+    terms = np.random.default_rng(cands).normal(
+        size=(angles, cands, 10)).astype(np.float32)
+    np.testing.assert_array_equal(
+        k2._sum_as_kernel(torch.from_numpy(terms)).numpy(),
+        warp_tree_sum(terms))

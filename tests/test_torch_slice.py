@@ -34,6 +34,7 @@ from ndt_2d_tpu_torch import cli, convert
 from ndt_2d_tpu_torch.kernels import _build
 from ndt_2d_tpu_torch.mapping import runtime
 from ndt_2d_tpu_torch.mapping.mapper import Mapper
+from ndt_2d_tpu_torch.utils import sim
 
 torch.set_num_threads(2)
 
@@ -168,8 +169,8 @@ def test_port_never_imports_jax():
         from ndt_2d_tpu_torch.graph import solver
         from ndt_2d_tpu_torch.mapping import runtime
         from ndt_2d_tpu_torch.mapping.mapper import Mapper
-        from ndt_2d_tpu_torch.shared import (
-            MapperConfig, ScanMatcherConfig, record_synthetic)
+        from ndt_2d_tpu_torch.config import MapperConfig, ScanMatcherConfig
+        from ndt_2d_tpu_torch.io.bag import record_synthetic
         b = record_synthetic("box", 24, n_beams=90)
         m = ScanMatcherConfig(grid_cells_x=160, grid_cells_y=160)
         cfg = MapperConfig(local_scan_matcher=m, global_scan_matcher=m,
@@ -180,7 +181,7 @@ def test_port_never_imports_jax():
         assert len(mapper.lc_log["decisions"]) >= 1, "no row confirmed"
         assert solver.solve_graph(mapper.graph, cfg.solver)
         import dataclasses
-        from ndt_2d_tpu_torch.shared import ParticleFilterConfig
+        from ndt_2d_tpu_torch.config import ParticleFilterConfig
         pf = ParticleFilterConfig(min_particles=50, max_particles=200)
         loc = Mapper(dataclasses.replace(cfg, use_particle_filter=True,
                                          particle_filter=pf),
@@ -188,6 +189,9 @@ def test_port_never_imports_jax():
         assert loc.global_localize(b.odom[0])
         assert runtime.run_bag(loc, b)["scans_accepted"] >= 12
         assert "jax" not in sys.modules, "jax imported"
+        reached = [m for m in sys.modules
+                   if m == "ndt_2d_tpu" or m.startswith("ndt_2d_tpu.")]
+        assert not reached, reached
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2")
@@ -201,7 +205,7 @@ def test_kernel_sources_found_from_package_path():
     names = {os.path.basename(p) for p in _build.sources()}
     assert {"ndt_build.cu", "candidate_scores.cu", "score_points.cu",
             "raymarch.cu", "normal_blocks.cu", "particle_filter.cu",
-            "common.cuh"} <= names
+            "newton.cu", "common.cuh"} <= names
     assert all(p.startswith(_build.CSRC) for p in _build.sources())
     assert _build.BUILD_DIR.startswith(os.path.dirname(_build.CSRC))
     # The build is lazy: importing the kernel modules compiled nothing.
@@ -226,12 +230,25 @@ def test_unported_mapper_modes_raise(change):
     dict(overlapping_grids=True),
 ])
 def test_unported_global_matcher_fails_at_construction(change):
-    """An unported global lattice or option is refused by Mapper(...), not
-    at the first loop-closure pass."""
+    """An unported global lattice (kernel K6) is refused by Mapper(...), not
+    at the first loop-closure pass; the Newton polish (K7) and overlapping
+    grids (K8) are ported: the mapper builds and one global match runs."""
     cfg = dataclasses.replace(
         CONFIG2, global_scan_matcher=dataclasses.replace(M192, **change))
-    with pytest.raises(NotImplementedError):
-        Mapper(cfg, device="cpu")
+    if "search_linear_size" in change:
+        with pytest.raises(NotImplementedError):
+            Mapper(cfg, device="cpu")
+        return
+    mapper = Mapper(cfg, device="cpu")
+    mapper._ensure_matchers(15.0)
+    world = sim.make_box_world(10.0, 8.0)
+    pose = np.asarray([5.0, 4.0, 0.0], np.float32)
+    pts, mask = sim.project_scan(sim.scan_at_pose(world, pose, 1440), 1440)
+    m = mapper.global_matcher
+    m.add_scans(pose[None], pts[None], mask[None])
+    res = m.match_scan(pts, mask, int(mask.sum()), pose + [0.01, 0.0, 0.0])
+    assert float(res.score) < -0.5
+    assert abs(float(res.correction[0]) + 0.01) < 0.006
 
 
 def test_mesh_and_configure_actions_raise(tmp_path):
