@@ -26,7 +26,18 @@ Phases (any failure exits non-zero):
     launch and to itself at pad 4 and pad 16, without and with K7; K4
     (normal_blocks, pcg_matvec, the latter
     beside a torch sparse CSR product) on the 50,000-node district graph
-    of config 5;
+    of config 5; K6 over 32 coarse-stage rows of office windows (3-scan
+    regions, 192x192 cells of 0.5 m, the coarse lattice of about 21x41x41
+    candidates): scores and rows bitwise against the twin, each row
+    bitwise equal at pad 4, pad 32 and R = 1, equal argmin and scores
+    within 1e-5 against K2 on a one-cell lattice, once with G = 4, and at
+    the map merge's shape (126 angles, R = 1); K10 over a 2048 x 512 point
+    table of the office bag: its bin tables, descriptors and all-pairs
+    top-k bitwise against the twins, rows of ``search_all_pairs`` bitwise
+    equal to ``search_dense``, scores against a matrix product; the
+    coarse-to-fine chain ``match_scan_batch_multi_coarse_fine`` against
+    the twins' chain bitwise, with no host synchronization inside it and
+    one K1 + K6 + K1 + K2 + K7 launch a chunk;
  4. drive the main paths, each with the launch counts set to 0 before and
     read after: (a) the 200-scan, 600-beam config-2 corridor through
     ``Mapper`` and ``run_bag`` (no loop closure) with its export: every scan
@@ -72,6 +83,19 @@ Phases (any failure exits non-zero):
     converged at and its final error are printed, not gated; K3-batch and
     K9 launched every step and no twin ran; the first two steps replayed
     through the twins give the same n_active and particles bitwise;
+    (h) BASELINE config 6 (run_benchmarks.py:248-303): the 2000-scan office
+    bag of (c) with descriptor loop search as ``run --recipe
+    office-descriptor`` builds it from config 3's flags: >= 1 closure and
+    >= 1 optimization, final ATE below odometry's, far rows pruned > 0,
+    K10's three kernels once a pass with pending scans, K6 once a coarse
+    chunk; its first coarse dispatch replayed through the twins' chain
+    bitwise, its last descriptor pass through K10's twins bitwise; (i) the
+    ``drift`` recipe on the 3x-drift office bag
+    (benchmarks/loop_closure_pr.py:279-281, odom_scale 3.0): >= 1 accepted
+    closure from a far row, final ATE below odometry's; (j) ``merge_maps``
+    of two sessions of >= 100 keyframes in the symmetry-broken office
+    whose frames differ by a rotation of pi: >= 2 pairs accepted,
+    transform within 0.15 m and 0.05 rad of the truth, merged ATE < 0.2 m;
  5. print the kernels' JSON line and, last, the device JSON line.
 """
 
@@ -114,6 +138,16 @@ KERNELS = {
                         "ndt_2d_tpu/matching/matcher.py:411"),
     "newton": ("ndt_2d_tpu_torch/csrc/newton.cu",
                "ndt_2d_tpu/matching/newton.py:62"),
+    "candidate_gather": ("ndt_2d_tpu_torch/csrc/candidate_gather.cu",
+                         "ndt_2d_tpu/matching/matcher.py:272"),
+    "candidate_gather_merge": ("ndt_2d_tpu_torch/csrc/candidate_gather.cu",
+                               "ndt_2d_tpu/matching/matcher.py:272"),
+    "descriptors": ("ndt_2d_tpu_torch/csrc/descriptors.cu",
+                    "ndt_2d_tpu/parallel/loop_search.py:39"),
+    "descriptor_spectra": ("ndt_2d_tpu_torch/csrc/descriptors.cu",
+                           "ndt_2d_tpu/parallel/loop_search.py:92"),
+    "descriptor_search": ("ndt_2d_tpu_torch/csrc/descriptor_search.cu",
+                          "ndt_2d_tpu/parallel/loop_search.py:153"),
 }
 # The bound of a kernel: the larger of the bytes it must move over the
 # H100's memory rate and its operations over the float32 rate outside the
@@ -124,6 +158,9 @@ N_SCANS = 200
 N_BEAMS = 600
 OFFICE_SCANS = 2000
 ROWS = 64
+COARSE_ROWS = 32         # one far chunk of the mapper
+DRIFT_SCANS = 1000
+TABLE_SCANS = 2048       # the padded capacity of a 2000-keyframe graph
 DISTRICT_NODES = 50_000
 PARTICLES = 5000         # config 4
 GLOBAL_PARTICLES = 20_000  # config 7
@@ -423,11 +460,14 @@ def cost_newton(mc, origin, cell_size, count, points, point_mask,
 
 def reset_counts():
     from ndt_2d_tpu_torch.kernels import (
-        candidate_scores, ndt_build, newton, normal_blocks, particle_filter,
-        raymarch, score_points)
-    for m in (ndt_build, candidate_scores, score_points, raymarch, newton):
+        candidate_gather, candidate_scores, descriptor_search, descriptors,
+        ndt_build, newton, normal_blocks, particle_filter, raymarch,
+        score_points)
+    for m in (ndt_build, candidate_scores, score_points, raymarch, newton,
+              candidate_gather, descriptors, descriptor_search):
         m.launches = 0
     score_points.batch_launches = 0
+    descriptors.spectra_launches = 0
     for d in (normal_blocks.launches, particle_filter.launches):
         for k in d:
             d[k] = 0
@@ -435,10 +475,15 @@ def reset_counts():
 
 def read_counts() -> dict:
     from ndt_2d_tpu_torch.kernels import (
-        candidate_scores, ndt_build, newton, normal_blocks, particle_filter,
-        raymarch, score_points)
+        candidate_gather, candidate_scores, descriptor_search, descriptors,
+        ndt_build, newton, normal_blocks, particle_filter, raymarch,
+        score_points)
     out = {"ndt_build": ndt_build.launches,
            "candidate_scores": candidate_scores.launches,
+           "candidate_gather": candidate_gather.launches,
+           "descriptors": descriptors.launches,
+           "descriptor_spectra": descriptors.spectra_launches,
+           "descriptor_search": descriptor_search.launches,
            "score_points": score_points.launches,
            "score_points_batch": score_points.batch_launches,
            "raymarch": raymarch.launches, "newton": newton.launches}
@@ -565,27 +610,29 @@ def office_bag():
                             odom_rot_noise=0.004)
 
 
-def office_rows(cfg, bag, dev):
-    """ROWS confirmation rows of real office windows: the 2-scan region
-    (k, k + 10) at its odometry poses, matched by scan k + 15 from its own
-    odometry pose, for k spread over the bag."""
+def office_rows(cfg, bag, dev, rows=ROWS, region=(0, 10),
+                shift=(0.0, 0.0, 0.0)):
+    """``rows`` confirmation rows of real office windows: the region of
+    scans k + ``region`` at its odometry poses, matched by scan k + 15 from
+    its own odometry pose plus ``shift``, for k spread over the bag."""
     import numpy as np
     import torch
 
     from ndt_2d_tpu_torch.mapping import laser
     P = cfg.max_points_per_scan
     cols = [[] for _ in range(8)]
-    for r in range(ROWS):
-        k = 20 + r * (OFFICE_SCANS - 60) // ROWS
+    for r in range(rows):
+        k = 20 + r * (OFFICE_SCANS - 60) // rows
+        members = [k + d for d in region]
         win = [laser.project_scan(bag[t][0], bag.range_max, np.zeros(3),
-                                  False, None, P) for t in (k, k + 10)]
+                                  False, None, P) for t in members]
         qp, qm = laser.project_scan(bag[k + 15][0], bag.range_max,
                                     np.zeros(3), False, None, P)
-        for c, v in zip(cols, (bag.odom[[k, k + 10]],
+        for c, v in zip(cols, (bag.odom[members],
                                np.stack([w[0] for w in win]),
                                np.stack([w[1] for w in win]),
-                               np.ones(2, bool), qp, qm, qm.sum(),
-                               bag.odom[k + 15])):
+                               np.ones(len(members), bool), qp, qm, qm.sum(),
+                               bag.odom[k + 15] + np.asarray(shift))):
             c.append(v)
     dtypes = (torch.float32, torch.float32, torch.bool, torch.bool,
               torch.float32, torch.bool, torch.int32, torch.float32)
@@ -1150,6 +1197,15 @@ class Recorder:
         self.solver.solve = self.real_solve
 
 
+def config6():
+    """BASELINE config 6 (run_benchmarks.py:248-303): config 3 with
+    descriptor loop search, as ``run --recipe office-descriptor`` builds it
+    (gate 0.85, 3-scan regions, best-accept, 1.5 m separation, far dedup
+    2.5 m, reject-cache margin 0.10, 16 far rows a pass, Geman-McClure,
+    global refine_iterations 8)."""
+    return office_config("--recipe", "office-descriptor")
+
+
 def office_recipe_config():
     """Config 3 with the ``office`` recipe, as ``run --recipe office``
     builds it (gate scale 0.85, 3-scan regions, both search positions,
@@ -1698,8 +1754,724 @@ def phase_config7(path_map, dev):
     return launches
 
 
+def cost_candidate_gather(mc, origin, cell_size, points, point_mask,
+                          num_points: int, pose, dths, dls):
+    """K6's (bytes, operations) for one row: each distinct cell record (32
+    bytes) that any (candidate, used beam) looks up on its grids, the used
+    beams (9 bytes each), the start pose and the [13] output; ~30
+    operations (shift, division, floor, quadratic form, exp, sum) a
+    (candidate, used beam) per grid."""
+    import torch
+    W, H = mc.grid_cells_x, mc.grid_cells_y
+    spts, smask, used = used_beams(mc, points, point_mask, num_points)
+    spts = spts[smask]
+    th = pose[2] + dths
+    c, s = torch.cos(th)[:, None], torch.sin(th)[:, None]
+    rx = c * spts[:, 0] - s * spts[:, 1] + pose[0]          # [A, B]
+    ry = s * spts[:, 0] + c * spts[:, 1] + pose[1]
+    cells = 0
+    origins = origin.reshape(-1, 2)
+    for o in origins:
+        ix = torch.floor((rx[..., None] + dls - o[0]) / cell_size).long()
+        iy = torch.floor((ry[..., None] + dls - o[1]) / cell_size).long()
+        okx, oky = (ix >= 0) & (ix < W), (iy >= 0) & (iy < H)
+        keys = iy[:, :, None, :] * W + ix[:, :, :, None]    # [A, B, L, L]
+        ok = okx[:, :, :, None] & oky[:, :, None, :]
+        cells += torch.unique(keys[ok]).numel()
+    L = dls.numel()
+    return (cells * 32 + used * 9 + 12 + 13 * 4,
+            origins.shape[0] * dths.numel() * L * L * used * 30)
+
+
+def edge_candidates(mc, origin, cell_size, points, point_mask, num_points,
+                    pose, dths, dls):
+    """[A, L, L] bool: the candidates (angle, dx, dy) of one row that have
+    a used beam whose cell coordinate ``(w - origin) / cell`` lies within
+    4 ulp of an integer in x (for that dx) or in y (for that dy): the beams
+    that an edge comparison and a floor of the quotient may place in
+    different cells."""
+    import torch
+    spts, smask, _ = used_beams(mc, points, point_mask, int(num_points))
+    th = pose[2] + dths
+    c, s = torch.cos(th)[:, None], torch.sin(th)[:, None]
+    rx = c * spts[:, 0] - s * spts[:, 1] + pose[0]          # [A, B]
+    ry = s * spts[:, 0] + c * spts[:, 1] + pose[1]
+    eps = torch.finfo(torch.float32).eps
+
+    def near(w, o):
+        q = (w[..., None] + dls - o) / cell_size            # [A, B, L]
+        close = (q - torch.round(q)).abs() <= 4 * eps * q.abs().clamp(min=1)
+        return (close & smask[None, :, None]).any(dim=1)    # [A, L]
+    o = origin.reshape(-1, 2)[0]
+    return near(rx, o[0])[:, :, None] | near(ry, o[1])[:, None, :]
+
+
+def coarse_rows(cfg, bag, dev, rows=COARSE_ROWS):
+    """Far confirmation rows at config-6 shapes: 3-scan office regions,
+    the query started 1.1 m and 0.15 rad off, as a far candidate's start
+    is off by the odometry drift."""
+    return office_rows(cfg, bag, dev, rows, region=(0, 5, 10),
+                       shift=(0.9, -0.6, 0.15))
+
+
+def phase_k6(cfg, bag, dev):
+    """K6 at the coarse stage's shapes and at the map merge's."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import candidate_gather as k6
+    from ndt_2d_tpu_torch.kernels import candidate_scores as k2
+    from ndt_2d_tpu_torch.kernels import ndt_build as k1
+    from ndt_2d_tpu_torch.mapping import merge
+    from ndt_2d_tpu_torch.matching import matcher
+    cm = cfg.coarse_scan_matcher
+    require(matcher.search_kernel(cm) is k6
+            and matcher.search_kernel(cfg.global_scan_matcher) is k2,
+            "the coarse matcher is not on K6 or the global one not on K2")
+    rmax = 12.0
+    rows = coarse_rows(cfg, bag, dev)
+    win, query = rows[:4], rows[4:]
+    dths, dls = matcher._search_offsets(cm, dev)
+    build = (rmax, cm.ndt_resolution, cm.grid_cells_x, cm.grid_cells_y)
+    g, tab = k1.build_windows(*win, *build)
+
+    def run(scores=False):
+        return k6.match_rows(cm, g, tab, *query, dths, dls,
+                             with_scores=scores)
+
+    def twin():
+        return k6.match_rows_twin(cm, g, tab, *query, dths, dls)
+
+    (out, sc), (rest, sct) = run(True), twin()
+    torch.cuda.synchronize()
+    check_match(out, sc, k2.pack(rest), sct, "K6 rows")
+    check_match(out, sc, *run(True), "K6 rows (reproducibility)")
+    require(torch.equal(out, run()), "K6 rows differ without the scores")
+    moved = float(out[:, 1:3].abs().max())
+    require(moved > cm.ndt_resolution, "no K6 row left its start's cell")
+
+    # Row independence: R = COARSE_ROWS against R = 1 and pad 4 / pad 32.
+    full = matcher.match_scan_batch_multi(cm, *win, rmax, *query)
+    require(torch.equal(full[0], out[:, 0]), "batch_multi is not K6's rows")
+    for r in range(COARSE_ROWS):
+        one = matcher.match_scan_batch_multi(
+            cm, *[t[r:r + 1] for t in win], rmax,
+            *[t[r:r + 1] for t in query])
+        require(all(torch.equal(a[r], b[0]) for a, b in zip(full, one)),
+                f"K6 row {r} differs between R = {COARSE_ROWS} and R = 1")
+    for pad in (4, 32):
+        p = padded_rows(rows, 3, pad)
+        o = matcher.match_scan_batch_multi(cm, *p[:4], rmax, *p[4:])
+        require(all(torch.equal(a[:3], b[:3]) for a, b in zip(full, o)),
+                f"K6 rows differ at pad {pad}")
+        require(bool((o[0][3:] == 0).all()) and bool((o[1][3:] == 0).all()),
+                f"K6 padding rows at pad {pad} scored or moved")
+
+    # One-cell lattice: K6 and K2 compute the same function, up to the
+    # beams that sit within a few ulp of a cell edge: K2 places them by
+    # ``w >= edge``, K6 by ``floor((w - origin) / cell)``, as the two
+    # reference paths do, and a beam placed in the other cell changes its
+    # candidate's score.  Every candidate whose scores differ by more than
+    # 1e-5 must have such a beam, and two rows may pick different winners
+    # only where one of the two winners has one.
+    narrow = dataclasses.replace(cm, search_linear_size=0.25,
+                                 search_linear_resolution=0.05)
+    nd, nl = matcher._search_offsets(narrow, dev)
+    a6, s6 = k6.match_rows(narrow, g, tab, *query, nd, nl, with_scores=True)
+    a2, s2 = k2.match_rows(narrow, g, tab, *query, nd, nl, with_scores=True)
+    torch.cuda.synchronize()
+    apart = (s6 - s2).abs() > 1e-5
+    on_edge = torch.stack([edge_candidates(
+        narrow, g.origin[r], g.cell_size, *[t[r] for t in query], nd, nl)
+        for r in range(COARSE_ROWS)])
+    require(not bool((apart & ~on_edge).any()),
+            f"{int((apart & ~on_edge).sum())} candidates differ between K6 "
+            "and K2 on a one-cell lattice with no beam on a cell edge")
+    win6 = s6.reshape(COARSE_ROWS, -1).argmin(dim=1)
+    win2 = s2.reshape(COARSE_ROWS, -1).argmin(dim=1)
+    flat_edge = on_edge.reshape(COARSE_ROWS, -1)
+    rows_r = torch.arange(COARSE_ROWS, device=dev)
+    excused = flat_edge[rows_r, win6] | flat_edge[rows_r, win2]
+    same = (a6[:, 1:4] == a2[:, 1:4]).all(dim=1)
+    same_winner = int(same.sum())
+    require(bool((same | excused).all()),
+            f"K6 and K2 pick different winners in rows "
+            f"{torch.nonzero(~(same | excused)).flatten().tolist()} with no "
+            "beam on a cell edge")
+    quiet = same & ~apart.reshape(COARSE_ROWS, -1).any(dim=1)
+    require(bool(quiet.any()) and float(
+        (a6[quiet, :4] - a2[quiet, :4]).abs().max()) <= 1e-5,
+        "K6 and K2 scores or corrections differ where every candidate "
+        "agrees")
+
+    # The grid axis once: four overlapping grids on the first 4 rows.
+    g4, tab4 = k1.build_windows(*[t[:4] for t in win], *build, 4)
+    q4 = [t[:4] for t in query]
+    o4, s4 = k6.match_rows(cm, g4, tab4, *q4, dths, dls, with_scores=True)
+    r4, s4t = k6.match_rows_twin(cm, g4, tab4, *q4, dths, dls)
+    torch.cuda.synchronize()
+    check_match(o4, s4, k2.pack(r4), s4t, "K6 G = 4")
+
+    # The merge's shape: a 7-scan window, the full-heading lattice, R = 1,
+    # the query turned by 2.5 rad.
+    mrows = office_rows(cfg, bag, dev, 1, region=tuple(range(7)),
+                        shift=(0.4, -0.3, 2.5))
+    mwin, mquery = mrows[:4], mrows[4:]
+    span = float(np.ptp(mwin[0][0, :, :2].cpu().numpy(), axis=0).max())
+    mm = merge._coarse_config(rmax, span)
+    md, ml = matcher._search_offsets(mm, dev)
+    mg, mtab = k1.build_windows(*mwin, rmax, mm.ndt_resolution,
+                                mm.grid_cells_x, mm.grid_cells_y)
+
+    def mrun(scores=False):
+        return k6.match_rows(mm, mg, mtab, *mquery, md, ml,
+                             with_scores=scores)
+
+    def mtwin():
+        return k6.match_rows_twin(mm, mg, mtab, *mquery, md, ml)
+    (mo, ms), (mr, mst) = mrun(True), mtwin()
+    torch.cuda.synchronize()
+    check_match(mo, ms, k2.pack(mr), mst, "K6 merge shape")
+    print(f"[3] K6 candidate_gather: {COARSE_ROWS} office rows x "
+          f"{cm.grid_cells_x}^2 cells of {cm.ndt_resolution} m x "
+          f"{dths.numel()}x{dls.numel()}x{dls.numel()} candidates: scores "
+          f"and rows bitwise equal to the twin and reproducible, largest "
+          f"correction {moved:.2f} m; each row bitwise equal at R = 1, pad 4 "
+          f"and pad 32; against K2 on a one-cell lattice "
+          f"({nd.numel()}x{nl.numel()}x{nl.numel()}): {int(apart.sum())} of "
+          f"{apart.numel()} candidates differ by more than 1e-5, each with "
+          f"a beam within 4 ulp of a cell edge ({int(on_edge.sum())} "
+          f"candidates have one); the same winner in {same_winner} rows, "
+          f"the others' winners have such a beam; G = 4 "
+          f"bitwise; merge shape "
+          f"{md.numel()}x{ml.numel()}x{ml.numel()} on {mm.grid_cells_x}^2 "
+          f"cells bitwise, correction "
+          f"{[round(float(x), 3) for x in mo[0, 1:4]]}")
+    qp, qm, qn, qpose = query
+    mqp, mqm, mqn, mqpose = mquery
+    return {"candidate_gather": timed(
+                0.0, cuda_ms(run, 10), cuda_ms(twin, 1),
+                *sum_costs(cost_candidate_gather(
+                    cm, g.origin[r], g.cell_size, qp[r], qm[r], int(qn[r]),
+                    qpose[r], dths, dls) for r in range(COARSE_ROWS))),
+            "candidate_gather_merge": timed(
+                0.0, cuda_ms(mrun, 10), cuda_ms(mtwin, 1),
+                *cost_candidate_gather(mm, mg.origin[0], mg.cell_size,
+                                       mqp[0], mqm[0], int(mqn[0]),
+                                       mqpose[0], md, ml))}
+
+
+def office_table(cfg, bag, dev):
+    """The office bag's scans as a graph's padded buffers hold them:
+    points [TABLE_SCANS, P, 2] and masks, the rows past the bag empty."""
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.mapping import laser
+    P = cfg.max_points_per_scan
+    pts = np.zeros((TABLE_SCANS, P, 2), np.float32)
+    msk = np.zeros((TABLE_SCANS, P), bool)
+    for t in range(len(bag)):
+        pts[t], msk[t] = laser.project_scan(bag[t][0], bag.range_max,
+                                            np.zeros(3), False, None, P)
+    return torch.from_numpy(pts).to(dev), torch.from_numpy(msk).to(dev)
+
+
+DESCRIPTOR_KERNELS = ("descriptors", "descriptor_spectra",
+                      "descriptor_search")
+
+
+def check_descriptors(pts, msk, rmax, n_bins, n_valid, k, ex, what,
+                      suffix="", tag="[3]"):
+    """K10's three kernels over one point table [S, P, 2]: the bin tables,
+    the descriptors and the all-pairs top-k (k, rolling exclusion ex, the
+    first n_valid scans valid), each bitwise against its twin and
+    reproducible; the entry points of ``parallel/loop_search.py`` give the
+    same bits, row q of the all-pairs search is ``search_dense`` at q to
+    the bit, and the scores agree with a float32 matrix product within
+    1e-6.  Returns (timing entries named with ``suffix``, descriptor table,
+    indices, scores)."""
+    import math
+
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import descriptor_search as ks
+    from ndt_2d_tpu_torch.kernels import descriptors as k10
+    from ndt_2d_tpu_torch.parallel import loop_search
+    dev = pts.device
+    S, P = msk.shape
+    shape = (64, 4, n_bins)
+
+    def bins():
+        return k10.bin_points(pts, msk, rmax, *shape)
+
+    def bins_twin():
+        return k10.bin_twin(pts, msk, rmax, *shape)
+    a, b = bins(), bins_twin()
+    torch.cuda.synchronize()
+    for f in a._fields:
+        require(torch.equal(getattr(a, f), getattr(b, f)),
+                f"{what}: K10 {f} differs from the twin")
+    require(all(torch.equal(x, y) for x, y in zip(a, bins())),
+            f"{what}: K10 bins not bitwise reproducible")
+    require(float(a.total.sum()) == float(msk.sum())
+            and float(a.hist.sum()) == float(msk.sum()),
+            f"{what}: K10 lost points")
+
+    def spectra():
+        return k10.spectra(a, rmax, *shape)
+
+    def spectra_twin():
+        return k10.spectra_twin(a, rmax, *shape)
+    table, table_t = spectra(), spectra_twin()
+    torch.cuda.synchronize()
+    require(torch.equal(table, table_t),
+            f"{what}: K10 descriptors differ from the twin")
+    require(torch.equal(table, spectra()) and torch.equal(
+        table, loop_search.descriptors(pts, msk, rmax, n_bins)),
+        f"{what}: K10 descriptors not reproducible, or not what "
+        "loop_search.descriptors returns")
+    full = a.total > 0
+    norms = torch.linalg.norm(table[full], dim=1)
+    require(bool(((norms - 1).abs() < 1e-5).all())
+            and float(table[~full].abs().sum()) == 0.0,
+            f"{what}: descriptors are not unit vectors, or empty rows are "
+            "not zero")
+
+    ar = torch.arange(S, device=dev)
+    valid = ar < n_valid
+    limit = (ar - ex).to(torch.int32)
+    kk = min(k, S)
+
+    def search():
+        return ks.top_k(table, table, valid, limit, kk)
+
+    def search_twin():
+        return ks.top_k_twin(table, table, valid, limit, kk)
+    (idx, sims), (idx_t, sims_t) = search(), search_twin()
+    torch.cuda.synchronize()
+    require(torch.equal(idx, idx_t) and torch.equal(sims, sims_t),
+            f"{what}: K10 search differs from the twin in "
+            f"{int((idx != idx_t).sum())} indices")
+    again = search()
+    entry = loop_search.search_all_pairs(table, valid, k=k,
+                                         rolling_exclude=ex)
+    require(all(torch.equal(x, y) for pair in (again, entry)
+                for x, y in zip((idx, sims), pair)),
+            f"{what}: K10 search not reproducible, or not what "
+            "search_all_pairs returns")
+    checked = 0
+    for q in range(ex, n_valid, max(1, n_valid // 64)):
+        qi, qs = loop_search.search_dense(table, valid, q, k=k,
+                                          rolling_exclude=ex)
+        require(torch.equal(qi, idx[q]) and torch.equal(qs, sims[q]),
+                f"{what}: search_all_pairs row {q} is not search_dense's")
+        live = torch.isfinite(qs)
+        require(bool((qi[live] <= q - ex).all())
+                and int(live.sum()) == min(kk, max(q - ex + 1, 0)),
+                f"{what}: row {q} holds an ineligible or a missing index")
+        checked += 1
+    eligible = valid[None, :] & (ar[None, :] <= limit[:, None])
+
+    def library():
+        prod = torch.where(eligible, table @ table.T, -math.inf)
+        return torch.topk(prod, kk, dim=1)
+    lib_scores = library().values
+    require(torch.allclose(lib_scores, sims, rtol=0, atol=1e-6),
+            f"{what}: K10 search scores differ from a matrix product's")
+    print(f"{tag} K10 descriptors, {what}: {S} x {P} points "
+          f"({int(msk.sum())} valid, {n_valid} scans): bin tables, "
+          f"descriptors [{S}, {table.shape[1]}] and the all-pairs top {kk} "
+          f"(indices and scores) bitwise equal to the twins and "
+          f"reproducible; {checked} rows bitwise equal to search_dense; "
+          f"scores within 1e-6 of a float32 matrix product")
+    # The library yardsticks: for the bins the counts alone, one
+    # torch.bincount over sector ids computed outside the timing; for the
+    # search one matrix product, the mask and torch.topk.
+    _, sec, _, _ = k10.bin_indices(pts, rmax, *shape)
+    seg = (ar[:, None] * 64 + sec.long())[msk]
+    cos_t, sin_t = k10.dft_tables(64, dev)
+    B = table.shape[1]
+    pairs = int(eligible.sum())
+    names = [n + suffix for n in DESCRIPTOR_KERNELS]
+    # Bins: ~40 operations a point (the norm, atan2, three bin indices, the
+    # counts).  Spectra, per scan with points: five profiles x 32
+    # frequencies x 64 sectors x two multiply-adds, then the norm.  Search:
+    # a multiply-add per eligible pair and descriptor element, a compare a
+    # pair.
+    return ({
+        names[0]: timed(
+            max_abs_diff(list(zip(a, b))), cuda_ms(bins, 20),
+            cuda_ms(bins_twin, 1), nbytes(pts, msk, *a), 40 * S * P,
+            library_ms=cuda_ms(
+                lambda: torch.bincount(seg, minlength=S * 64), 20)),
+        names[1]: timed(
+            max_abs_diff([(table, table_t)]), cuda_ms(spectra, 20),
+            cuda_ms(spectra_twin, 1), nbytes(*a, cos_t, sin_t, table),
+            int(full.sum()) * (4 * 5 * 32 * 64 + 8 * B)),
+        names[2]: timed(
+            max_abs_diff([(torch.nan_to_num(sims, neginf=0.0),
+                           torch.nan_to_num(sims_t, neginf=0.0))]),
+            cuda_ms(search, 20), cuda_ms(search_twin, 1),
+            nbytes(table, valid, limit, sims) + 4 * idx.numel(),
+            (2 * B + 1) * pairs,
+            library_ms=cuda_ms(library, 20))}, table, idx, sims)
+
+
+def phase_k10(cfg, bag, dev):
+    """K10 over the office bag's point table at a 2000-keyframe graph's
+    padded capacity."""
+    pts, msk = office_table(cfg, bag, dev)
+    return check_descriptors(
+        pts, msk, 12.0, cfg.descriptor_bins, len(bag),
+        cfg.global_search_limit, cfg.rolling_depth + 1,
+        f"a {TABLE_SCANS}-slot table of the office bag",
+        f"_table{TABLE_SCANS}")[0]
+
+
+def twin_chain(coarse, fine, poses, points, pmask, wmask, rmax, qp, qm, qn,
+               st):
+    """``match_scan_batch_multi_coarse_fine`` on the plain twins: (fine
+    starts, scores, corrections, covariances)."""
+    from ndt_2d_tpu_torch.kernels import candidate_gather as k6
+    from ndt_2d_tpu_torch.kernels import candidate_scores as k2
+    from ndt_2d_tpu_torch.kernels import ndt_build as k1
+    from ndt_2d_tpu_torch.kernels import newton as k7
+    from ndt_2d_tpu_torch.matching import matcher, newton
+
+    def stage(cfg, start):
+        mod = matcher.search_kernel(cfg)
+        grid, tables = k1.build_windows_twin(
+            poses, points, pmask, wmask, rmax, cfg.ndt_resolution,
+            cfg.grid_cells_x, cfg.grid_cells_y)
+        res, _ = mod.match_rows_twin(
+            cfg, grid, tables, qp, qm, qn, start,
+            *matcher._search_offsets(cfg, qp.device))
+        out = k2.pack(res)
+        if cfg.refine_iterations > 0:
+            out = k7.refine_rows_twin(
+                cfg, newton.with_row_grid_axes(grid, True), qp, qm, qn,
+                start, out, cfg.refine_iterations)
+        return k2.unpack(out)
+    st2 = st + stage(coarse, st).correction
+    res = stage(fine, st2)
+    return st2, res.score, res.correction, res.covariance
+
+
+def check_chain(coarse, fine, args, out, what):
+    """A coarse-to-fine dispatch's outputs bitwise against the twins' chain
+    on the same CUDA inputs."""
+    import torch
+    twin = twin_chain(coarse, fine, *args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("fine starts", "scores", "corrections",
+                           "covariances"), out, twin):
+        require(torch.equal(a, b), f"{what}: {name} differ from the twins'")
+
+
+def phase_chain(cfg, bag, dev):
+    """The coarse-to-fine chain at config-6 shapes: bitwise against the
+    twins' chain, launch counts, and no host synchronization inside."""
+    import torch
+
+    from ndt_2d_tpu_torch.matching import matcher
+    cm, gm = cfg.coarse_scan_matcher, cfg.global_scan_matcher
+    rows = coarse_rows(cfg, bag, dev)
+    args = (*rows[:4], 12.0, *rows[4:])
+    matcher.match_scan_batch_multi_coarse_fine(cm, gm, *args)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    # Any synchronizing call (a host read of a device value) raises here.
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = matcher.match_scan_batch_multi_coarse_fine(cm, gm, *args)
+        flat = torch.cat([out[1][:, None], out[2], out[3].reshape(-1, 9),
+                          out[0]], 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    host = flat.cpu()              # the one device-to-host copy
+    counts = read_counts()
+    want = {"ndt_build": 2, "candidate_gather": 1, "candidate_scores": 1,
+            "newton": 1 if gm.refine_iterations > 0 else 0}
+    require(all(counts[k] == v for k, v in want.items()),
+            f"the chain launched {counts}, expected {want}")
+    check_chain(cm, gm, args, out, "coarse-to-fine chain")
+    shift = float((out[0] - rows[7])[:, :2].abs().max())
+    ms = cuda_ms(lambda: matcher.match_scan_batch_multi_coarse_fine(
+        cm, gm, *args), 10)
+    print(f"[3] coarse-to-fine chain: {COARSE_ROWS} rows, fine starts, "
+          f"scores, corrections and covariances bitwise equal to the twins' "
+          f"chain; one launch each of K1 (coarse), K6, K1 (fine), K2 and K7 "
+          f"with no host synchronization, then one device-to-host copy of "
+          f"{tuple(host.shape)}; the coarse stage moved a start by up to "
+          f"{shift:.2f} m; {int((out[1] < -0.2).sum())} rows score below "
+          f"-0.2; {ms:.3f} ms a chunk")
+
+
+class ConfirmRecorder:
+    """Counts the chunks of both confirmation entries during a session and
+    keeps the first coarse-to-fine dispatch for the twin replay."""
+
+    def __init__(self):
+        from ndt_2d_tpu_torch.matching import matcher
+        self.mod = matcher
+        self.real = (matcher.match_scan_batch_multi,
+                     matcher.match_scan_batch_multi_coarse_fine)
+        self.near = self.far = self.far_rows = 0
+        self.first = None
+
+    def fine(self, *args, **kw):
+        self.near += 1
+        return self.real[0](*args, **kw)
+
+    def coarse_fine(self, coarse, fine, *args):
+        out = self.real[1](coarse, fine, *args)
+        self.far += 1
+        self.far_rows += int(args[3].any(dim=1).sum())
+        if self.first is None:
+            self.first = (coarse, fine,
+                          [a.clone() if hasattr(a, "clone") else a
+                           for a in args], [o.clone() for o in out])
+        return out
+
+    def __enter__(self):
+        self.mod.match_scan_batch_multi = self.fine
+        self.mod.match_scan_batch_multi_coarse_fine = self.coarse_fine
+        return self
+
+    def __exit__(self, *exc):
+        (self.mod.match_scan_batch_multi,
+         self.mod.match_scan_batch_multi_coarse_fine) = self.real
+
+
+class DescriptorRecorder:
+    """Counts a session's descriptor passes and keeps the last one's
+    inputs and results (the pass over the most keyframes) for the replay
+    at the session's own table shape."""
+
+    def __init__(self):
+        from ndt_2d_tpu_torch.parallel import loop_search
+        self.mod = loop_search
+        self.real = (loop_search.descriptors, loop_search.search_all_pairs)
+        self.passes = 0
+        self.last = None
+
+    def descriptors(self, points, point_mask, range_max, n_bins):
+        self.table = self.real[0](points, point_mask, range_max, n_bins)
+        self.args = (points, point_mask, range_max, n_bins)
+        return self.table
+
+    def search_all_pairs(self, table, valid, k, rolling_exclude):
+        out = self.real[1](table, valid, k=k, rolling_exclude=rolling_exclude)
+        self.passes += 1
+        self.last = (*self.args, int(valid.sum()), k, rolling_exclude,
+                     self.table, *out)
+        return out
+
+    def __enter__(self):
+        self.mod.descriptors = self.descriptors
+        self.mod.search_all_pairs = self.search_all_pairs
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.descriptors, self.mod.search_all_pairs = self.real
+
+
+def drift_bag(scans=DRIFT_SCANS):
+    """The 3x-drift office bag of benchmarks/loop_closure_pr.py:279-281
+    (odom_scale 3.0)."""
+    from ndt_2d_tpu_torch.io.bag import record_synthetic
+    return record_synthetic("office", scans, n_beams=N_BEAMS, range_max=12.0,
+                            seed=1, odom_trans_noise=0.06,
+                            odom_rot_noise=0.012)
+
+
+def phase_descriptor_session(cfg, bag, dev, tag, name, need_far=False):
+    """A descriptor-mode session on the card (config 6, or the drift
+    recipe): gates, counts and the replay of its first coarse dispatch."""
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.mapping.mapper import Mapper
+    from ndt_2d_tpu_torch.utils import metrics
+    mapper = Mapper(cfg, device=dev)
+    # Closures accepted from far rows: the drift class is the mapper's own
+    # test at decision time, before the acceptance moves the pose.
+    far_accepts = []
+    gate = mapper._apply_gate
+
+    def counting_gate(idx, i, *rest):
+        far = mapper._is_far(idx, i)
+        ok = gate(idx, i, *rest)
+        if ok and far:
+            far_accepts.append((idx, i))
+        return ok
+    mapper._apply_gate = counting_gate
+    with ConfirmRecorder() as rec, DescriptorRecorder() as drec:
+        reset_counts()
+        t0 = time.perf_counter()
+        stats, grid, dt, _, acc_flags, _ = run_session(cfg, bag, dev,
+                                                       mapper=mapper)
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    acc = stats["scans_accepted"]
+    st = mapper.stats
+    used = bag.truth[np.nonzero(acc_flags)[0]]
+    online = stats["ate_rmse_m"]
+    final = metrics.ate_rmse(mapper.graph.poses[:acc], used)
+    aligned = metrics.ate_rmse_aligned(mapper.graph.poses[:acc], used)
+    odom = metrics.ate_rmse(bag.odom, bag.truth)
+    far_accepted = len(far_accepts)
+    require(st.loop_closures_accepted >= 1, f"{name}: no closure accepted")
+    require(st.optimizations >= 1, f"{name}: no optimization ran")
+    require(np.isfinite(final) and final < odom,
+            f"{name}: final ATE {final} not below odometry's {odom}")
+    require(st.far_rows_pruned > 0, f"{name}: no far row was pruned")
+    require(not need_far or far_accepted >= 1,
+            f"{name}: no closure accepted from a far row")
+    want = {"candidate_gather": rec.far, "newton": rec.near + rec.far,
+            "candidate_scores": acc - 1 + rec.near + rec.far,
+            "ndt_build": acc - 1 + rec.near + 2 * rec.far,
+            "score_points": acc - 1}
+    require(all(launches[k] == v for k, v in want.items()),
+            f"{name}: launches {launches}, expected {want}")
+    require(rec.far >= 1 and drec.passes >= 1
+            and all(launches[k] == drec.passes for k in DESCRIPTOR_KERNELS)
+            and launches["normal_blocks"] >= 1 and launches["raymarch"] >= 1,
+            f"{name}: K6, K4 or K5 never launched, or K10 not once a pass "
+            f"({drec.passes}): {launches}")
+    require(int((grid.data == 100).sum()) > 0, f"{name}: no occupied cells")
+    timing = st.timer.summary()
+    ms = float(np.median(dt[acc_flags][4:]) * 1e3)
+    print(f"{tag} {name}: {acc}/{len(bag)} scans accepted, "
+          f"{st.loop_closures_accepted} closures accepted "
+          f"({far_accepted} from far rows), {st.loop_closures_rejected} "
+          f"rejected, {st.optimizations} optimizations; far rows: "
+          f"{rec.far_rows} dispatched in {rec.far} chunks, "
+          f"{st.far_rows_pruned} pruned, {st.far_rows_cache_skipped} "
+          f"cache-skipped; {rec.near} near chunks, "
+          f"{st.confirm_rows_reused} rows reused, {drec.passes} "
+          f"descriptor passes; ATE online {online:.4f} final {final:.4f} m "
+          f"(aligned {aligned:.4f}, odometry {odom:.4f}); {ms:.3f} ms per "
+          f"accepted scan (median), loop_closure "
+          f"{timing['loop_closure']['mean_ms']:.3f} ms x "
+          f"{timing['loop_closure']['count']}, optimize "
+          f"{timing['optimize']['mean_ms']:.3f} ms x "
+          f"{timing['optimize']['count']}; session {wall:.2f} s; launches "
+          f"{launches}")
+    coarse, fine, args, out = rec.first
+    check_chain(coarse, fine, args, out, f"{name} replay")
+    print(f"{tag} replay of the first coarse-to-fine dispatch "
+          f"({int(args[3].any(dim=1).sum())} rows padded to "
+          f"{args[0].shape[0]}) through the twins' chain: fine starts, "
+          f"scores, corrections and covariances bitwise equal")
+    # K10 at the session's own shape: the last descriptor pass replayed.
+    pts, msk, rmax, n_bins, n_valid, k, ex, table, idx, sims = drec.last
+    timing, t2, i2, s2 = check_descriptors(
+        pts, msk, rmax, n_bins, n_valid, k, ex,
+        f"its last descriptor pass", tag=tag)
+    require(torch.equal(t2, table) and torch.equal(i2, idx)
+            and torch.equal(s2, sims),
+            f"{name}: the replayed descriptor pass differs from the "
+            "session's")
+    return launches, timing
+
+
+def merge_sessions(dev):
+    """Two sessions of the symmetry-broken office (the world and the
+    drives of tests/test_merge.py, at 106 keyframes each, 6 cm apart)
+    mapped on the card with clean odometry: A drives the bottom corridor
+    from its left corner to the middle, B from the right to the middle the
+    opposite way, so B's frame is A's turned by pi.  Both stay out of the
+    right-hand corners, which the 4-fold symmetric ring aliases onto A's.
+    Returns (truth A, truth B, graph A, graph B)."""
+    import numpy as np
+
+    from ndt_2d_tpu_torch.config import MapperConfig, ScanMatcherConfig
+    from ndt_2d_tpu_torch.mapping.mapper import Mapper
+    from ndt_2d_tpu_torch.utils import sim
+    world = np.concatenate([sim.make_office_world(16.0),
+                            np.asarray([[[1.0, 13.0], [3.0, 15.0]]])],
+                           axis=0)
+    m = ScanMatcherConfig(grid_cells_x=160, grid_cells_y=160)
+    cfg = MapperConfig(local_scan_matcher=m, global_scan_matcher=m,
+                       max_points_per_scan=512, loop_closure_every=10**9,
+                       minimum_travel_distance=0.05)
+    n = 106
+    truth_a = np.stack([np.linspace(2.0, 8.0, n), np.full(n, 2.0),
+                        np.zeros(n)], axis=-1)
+    truth_b = np.stack([np.linspace(12.0, 6.0, n), np.full(n, 2.2),
+                        np.full(n, np.pi)], axis=-1)
+    graphs = []
+    for truth in (truth_a, truth_b):
+        mapper = Mapper(cfg, device=dev)
+        for t in range(n):
+            msg = sim.scan_at_pose(world, truth[t], n_beams=300,
+                                   range_max=14.0, noise=0.01,
+                                   rng=np.random.default_rng(t))
+            mapper.process_scan(msg, truth[t])
+        graphs.append(mapper.graph)
+    return truth_a, truth_b, graphs[0], graphs[1]
+
+
+def phase_merge(dev):
+    """``merge_maps`` of two >= 100-keyframe sessions on the card."""
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.core import pose as pose_ops
+    from ndt_2d_tpu_torch.mapping import merge
+    from ndt_2d_tpu_torch.utils import metrics
+    truth_a, truth_b, ga, gb = merge_sessions(dev)
+    require(ga.num_scans >= 100 and gb.num_scans >= 100,
+            f"sessions of {ga.num_scans} and {gb.num_scans} keyframes")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = merge.merge_maps(ga, gb, range_max=14.0, score_threshold=-0.25,
+                           device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+
+    def f32(p):
+        return torch.tensor(np.asarray(p), dtype=torch.float32)
+    t_true = pose_ops.compose(pose_ops.inverse(f32(truth_a[0])),
+                              f32(truth_b[0])).numpy()
+    err_xy = float(np.hypot(*(res.transform[:2] - t_true[:2])))
+    err_th = abs(float(pose_ops.normalize_angle(
+        f32(res.transform[2] - t_true[2]))))
+    rel_b = metrics.relative_to_first(truth_b)
+    truth_b_in_a = pose_ops.compose(f32(t_true), f32(rel_b)).numpy()
+    ate = metrics.ate_rmse(res.graph.poses[ga.num_scans:], truth_b_in_a)
+    require(res.pairs_accepted >= 2, f"merge accepted {res.pairs_accepted} "
+            f"of {res.pairs_checked} pairs")
+    require(err_xy < 0.15 and err_th < 0.05,
+            f"merge transform off by {err_xy} m, {err_th} rad")
+    require(ate < 0.2, f"merged ATE {ate} m")
+    require(res.graph.num_scans == ga.num_scans + gb.num_scans
+            and res.optimized, "merged graph incomplete or not optimized")
+    require(launches["candidate_gather"] == launches["candidate_scores"]
+            >= res.pairs_accepted and launches["descriptors"] == 2
+            and launches["descriptor_spectra"] == 2
+            and launches["descriptor_search"] == 1
+            and launches["normal_blocks"] >= 1,
+            f"merge launches {launches}")
+    print(f"[4j] merge: sessions of {ga.num_scans} and {gb.num_scans} "
+          f"keyframes, {res.pairs_checked} pairs checked, "
+          f"{res.pairs_accepted} accepted; transform "
+          f"{[round(float(v), 3) for v in res.transform]} (truth "
+          f"{[round(float(v), 3) for v in t_true]}): off by {err_xy:.4f} m, "
+          f"{err_th:.4f} rad; merged ATE {ate:.4f} m; {wall:.2f} s; launches "
+          f"{launches}")
+    return launches
+
+
 def profile_sessions(dev, warmup: int = 20) -> None:
-    """``--profile``: the mapping sessions of [4a], [4f], [4c] and [4g],
+    """``--profile``: the mapping sessions of [4a], [4f], [4c], [4g] and
+    [4h],
     each with ``torch.profiler`` over every scan after the first
     ``warmup``; one JSON line each: wall and device-busy ms per accepted
     scan (busy = the union of the kernel and copy intervals), the device's
@@ -1713,7 +2485,8 @@ def profile_sessions(dev, warmup: int = 20) -> None:
     for name, cfg, b in (("config 2", cfg2, bag), ("config 8", config8(cfg2),
                                                    bag),
                          ("config 3", office_config(), bag3),
-                         ("office recipe", office_recipe_config(), bag3)):
+                         ("office recipe", office_recipe_config(), bag3),
+                         ("config 6", config6(), bag3)):
         mapper = Mapper(cfg, device=dev)
         scans = list(b)
         for msg, odom in scans[:warmup]:
@@ -1739,7 +2512,7 @@ def profile_sessions(dev, warmup: int = 20) -> None:
         for s, e in sorted(spans):
             busy += max(0.0, e - max(s, end))
             end = max(end, e)
-        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:14]
         print(json.dumps({
             "session": name, "scans": len(scans) - warmup,
             "accepted": accepted,
@@ -1775,6 +2548,10 @@ def main() -> int:
         timing.update(phase_rows(cfg3, bag3, dev))
         truth, district = district_graph()
         timing.update(phase_k4(district, dev))
+        cfg6 = config6()
+        timing.update(phase_k6(cfg6, bag3, dev))
+        timing.update(phase_k10(cfg6, bag3, dev))
+        phase_chain(cfg6, bag3, dev)
         bag4 = record_synthetic("box", 150, n_beams=360, seed=2)
         with tempfile.TemporaryDirectory() as tmp:
             map4 = os.path.join(tmp, "box_map.npz")
@@ -1787,6 +2564,14 @@ def main() -> int:
             phase_office(office_recipe_config(), bag3, dev, "[4g]", plain3)
             pf_launches = phase_config4(map4, keyframes, dev)
             phase_config7(os.path.join(tmp, "office_map.npz"), dev)
+        c6_launches, c6_timing = phase_descriptor_session(
+            cfg6, bag3, dev, "[4h]", "config 6")
+        timing.update(c6_timing)
+        phase_descriptor_session(office_config("--recipe", "drift"),
+                                 drift_bag(), dev, "[4i]",
+                                 f"drift recipe ({DRIFT_SCANS} scans)",
+                                 need_far=True)
+        merge_launches = phase_merge(dev)
         require("jax" not in sys.modules, "jax was imported")
     except SmokeFailure as e:
         print(f"FAIL: {e}")
@@ -1802,6 +2587,14 @@ def main() -> int:
     launches["newton"] = c8_launches["newton"]
     for k in ("ndt_build", "candidate_scores", "score_points"):
         launches[f"{k}_g4"] = c8_launches[k]
+    # K6 and K10 from the config-6 session (K10's times and bounds at the
+    # shape of that session's last descriptor pass; those at the
+    # 2048-slot table are printed beside them); K6 at the merge's shape
+    # from the merge.
+    launches["candidate_gather"] = c6_launches["candidate_gather"]
+    for k in DESCRIPTOR_KERNELS:
+        launches[k] = c6_launches[k]
+    launches["candidate_gather_merge"] = merge_launches["candidate_gather"]
     # K1/K2 times and errors at config-3 confirmation shapes (64 rows);
     # the config-2 single-window ones are printed at [3].
     for k in ("ndt_build", "candidate_scores"):

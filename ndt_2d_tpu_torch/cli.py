@@ -1,5 +1,5 @@
-"""Command-line interface of the port: ``simulate``, ``run`` and
-``localize``.
+"""Command-line interface of the port: ``simulate``, ``run``, ``localize``
+and ``merge-maps``.
 
   python -m ndt_2d_tpu_torch.cli simulate --world corridor --scans 200 \\
       --beams 600 --out bag.npz
@@ -8,19 +8,25 @@
       --local_scan_matcher.grid_cells 192
   python -m ndt_2d_tpu_torch.cli localize --bag bag.npz --map map.npz \\
       --particle-filter --pf.max_particles 5000
+  python -m ndt_2d_tpu_torch.cli run --bag bag.npz --recipe drift
+  python -m ndt_2d_tpu_torch.cli merge-maps --map-a a.npz --map-b b.npz \
+      --out merged.npz
 
 ``run`` and ``localize`` print the same JSON stats line as ``python -m
 ndt_2d_tpu.cli`` and take the reference CLI's names for the flags they
 share: the matchers' namespaced parameters
 (``--global_scan_matcher.ndt_resolution`` ..., ``.refine_iterations`` for
 the Newton polish and ``.overlapping_grids 1`` for the four overlapping
-grids), the radius loop-closure and solver flags, ``--recipe`` (the
-reference CLI's measured presets ``office`` and ``simlab``; an explicit
-flag overrides its preset value), and for ``localize`` ``--map``,
+grids), the loop-closure and solver flags (``--loop-search`` radius,
+descriptor or both, with the far-row pruning levers), ``--recipe`` (the
+reference CLI's measured presets ``office``, ``office-descriptor``,
+``simlab`` and ``drift``; an explicit flag overrides its preset value), and
+for ``localize`` ``--map``,
 ``--particle-filter``, ``--global-init`` and the ``--pf.*`` filter
 parameters.  ``localize``
 starts from the bag's first true pose (or its origin), or with
-``--global-init`` from a particle cloud over the map's free space.  Both
+``--global-init`` from a particle cloud over the map's free space.
+``merge-maps`` aligns and fuses two saved maps (``mapping/merge.py``).  All
 run on the CUDA device unless ``--device cpu`` is given.
 """
 
@@ -61,26 +67,43 @@ _MAPPER_FLAGS = ("loop_closure_every", "max_points_per_scan",
                  "loop_closure_region_size", "loop_closure_accept",
                  "loop_closure_max_separation", "loop_closure_gate_scale",
                  "loop_closure_solve_before_reanchor",
-                 "loop_search_positions")
+                 "loop_search_positions", "loop_search",
+                 "descriptor_min_similarity", "loop_closure_far_dedup",
+                 "loop_closure_reject_cache_margin",
+                 "loop_closure_max_far_rows")
 
 
 # The reference CLI's measured loop-closure presets (ndt_2d_tpu/cli.py:
 # 102-136): each sets only the quality levers; "global_refine_iterations"
 # and "robust_loss" go to the nested global-matcher and solver configs.
 _RECIPES = {
+    # Radius search on structured indoor loops.
     "office": dict(
         loop_closure_gate_scale=0.85, loop_closure_region_size=3,
         loop_search_positions="both", robust_loss="geman_mcclure",
         global_refine_iterations=8),
+    # Appearance (descriptor) search with the far-alias pruning.
+    "office-descriptor": dict(
+        loop_search="descriptor", loop_closure_gate_scale=0.85,
+        loop_closure_region_size=3, loop_closure_accept="best",
+        loop_closure_max_separation=1.5, loop_closure_far_dedup=2.5,
+        loop_closure_reject_cache_margin=0.10, loop_closure_max_far_rows=16,
+        robust_loss="geman_mcclure", global_refine_iterations=8),
+    # Open or cluttered geometry surveyed densely.
     "simlab": dict(
         loop_closure_gate_scale=1.0, loop_closure_region_size=3,
         loop_search_positions="both", robust_loss="geman_mcclure",
         global_refine_iterations=8),
+    # High odometry drift, where the radius search cannot reach the
+    # revisits: union candidates, best-accept, separation gate, pruning.
+    "drift": dict(
+        loop_search="both", loop_closure_accept="best",
+        loop_closure_max_separation=1.5, global_search_limit=8,
+        descriptor_min_similarity=0.80, loop_closure_region_size=3,
+        loop_closure_far_dedup=2.5, loop_closure_reject_cache_margin=0.10,
+        loop_closure_max_far_rows=16,
+        robust_loss="geman_mcclure", global_refine_iterations=8),
 }
-# Presets that need appearance (descriptor) loop search: its descriptors
-# and all-pairs search (kernel K10) and the coarse matcher's wide lattice
-# (kernel K6) are not ported.
-_DESCRIPTOR_RECIPES = ("office-descriptor", "drift")
 
 
 def _add_matcher_args(p: argparse.ArgumentParser, ns: str) -> None:
@@ -131,10 +154,6 @@ def _pf_config(args) -> ParticleFilterConfig:
 def _mapper_config(args) -> MapperConfig:
     """The session's MapperConfig: defaults, then the ``--recipe`` preset,
     then every explicit flag (ndt_2d_tpu/cli.py:139-179)."""
-    if args.recipe in _DESCRIPTOR_RECIPES:
-        raise NotImplementedError(
-            f"--recipe {args.recipe} needs descriptor loop search (kernels "
-            "K6 and K10), which is not ported yet")
     recipe = dict(_RECIPES.get(args.recipe or "", {}))
     robust_loss = recipe.pop("robust_loss", None)
     robust_loss = args.robust_loss or robust_loss
@@ -188,6 +207,33 @@ def cmd_localize(args) -> int:
         mapper.set_initial_pose(init, np.diag([0.25, 0.25, 0.06]),
                                 bag.odom[0])
     return _replay(args, mapper, bag)
+
+
+def cmd_merge_maps(args) -> int:
+    """Align map B to map A, fuse the graphs and save the merged map."""
+    from ndt_2d_tpu_torch.mapping import merge
+
+    ga = serialization.load_graph(args.map_a, args.max_points)
+    gb = serialization.load_graph(args.map_b, args.max_points)
+    try:
+        res = merge.merge_maps(ga, gb, range_max=args.max_range,
+                               min_similarity=args.min_similarity,
+                               score_threshold=args.score_threshold,
+                               top_k=args.top_k, device=args.device)
+    except merge.MergeError as e:
+        print(json.dumps({"error": str(e)}))
+        return 1
+    serialization.save_graph(res.graph, args.out)
+    print(json.dumps({
+        "out": args.out,
+        "scans": res.graph.num_scans,
+        "constraints": res.graph.num_constraints,
+        "cross_constraints": res.pairs_accepted,
+        "pairs_checked": res.pairs_checked,
+        "transform_b_to_a": [round(float(v), 4) for v in res.transform],
+        "optimized": res.optimized,
+    }))
+    return 0
 
 
 def _replay(args, mapper, bag) -> int:
@@ -252,6 +298,24 @@ def _build_parser() -> argparse.ArgumentParser:
                                 "an initial pose (needs --particle-filter)")
             _add_pf_args(p)
         p.set_defaults(fn=cmd_localize if localize else cmd_run)
+
+    p = sub.add_parser("merge-maps",
+                       help="align and fuse two saved maps (descriptor "
+                            "search + full-heading NDT registration + joint "
+                            "solve)")
+    p.add_argument("--map-a", required=True, help="base map (keeps its frame)")
+    p.add_argument("--map-b", required=True, help="map merged into A's frame")
+    p.add_argument("--out", required=True)
+    p.add_argument("--max-range", type=float, default=15.0)
+    p.add_argument("--max-points", type=int, default=512)
+    p.add_argument("--top-k", type=int, default=10,
+                   help="descriptor candidate pairs to confirm")
+    p.add_argument("--min-similarity", type=float, default=0.9)
+    p.add_argument("--score-threshold", type=float, default=-0.25,
+                   help="NDT accept gate for cross-map matches")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the kernels) or cpu (their plain twins)")
+    p.set_defaults(fn=cmd_merge_maps)
     return ap
 
 
@@ -279,6 +343,26 @@ def _add_session_args(p: argparse.ArgumentParser) -> None:
                    dest="optimization_node_limit")
     _add_matcher_args(p, "local_scan_matcher")
     _add_matcher_args(p, "global_scan_matcher")
+    p.add_argument("--loop-search", choices=["radius", "descriptor", "both"],
+                   default=None, dest="loop_search",
+                   help="loop-closure candidate source (default radius; "
+                        "descriptor = drift-robust appearance search; "
+                        "both = deduped union of the two)")
+    p.add_argument("--descriptor-min-similarity", type=float, default=None,
+                   dest="descriptor_min_similarity",
+                   help="cosine cutoff for descriptor candidates")
+    p.add_argument("--loop-closure-far-dedup", type=float, default=None,
+                   dest="loop_closure_far_dedup", metavar="M",
+                   help="per-pass spatial dedup radius for far (coarse) "
+                        "confirmation rows (0 = off)")
+    p.add_argument("--loop-closure-reject-cache-margin", type=float,
+                   default=None, dest="loop_closure_reject_cache_margin",
+                   help="cache clearly rejected far site pairs and skip "
+                        "proposing them again (fraction of |gate|; 0 = off)")
+    p.add_argument("--loop-closure-max-far-rows", type=int, default=None,
+                   dest="loop_closure_max_far_rows",
+                   help="per-pass cap on far confirmation rows, "
+                        "similarity-ranked (0 = unlimited)")
     p.add_argument("--loop-closure-region-size", type=int, default=None,
                    dest="loop_closure_region_size", metavar="S",
                    help="scans per candidate confirmation region "
@@ -300,7 +384,7 @@ def _add_session_args(p: argparse.ArgumentParser) -> None:
                    choices=["barycenter", "pose", "both"], default=None,
                    dest="loop_search_positions")
     p.add_argument("--recipe", default=None,
-                   choices=sorted(_RECIPES) + list(_DESCRIPTOR_RECIPES),
+                   choices=sorted(_RECIPES),
                    help="measured loop-closure preset (explicit flags "
                         "override its values)")
     p.add_argument("--device", default="cuda",

@@ -1,0 +1,146 @@
+"""K6: exhaustive candidate scoring over a lattice wider than one NDT cell,
+with its reduction (CUDA ``csrc/candidate_gather.cu``), and the
+plain-PyTorch twin.
+
+Replaces the general path of ``ndt_2d_tpu/matching/matcher.py``
+(``_candidate_scores_gather`` -> ``reduce_candidates`` ->
+``finalize_match``), which ``candidate_scores`` picks when
+2 * search_linear_size > ndt_resolution: every (candidate, beam) looks up
+the cell the shifted beam itself falls in.  It is the coarse stage of the
+coarse-to-fine loop-closure confirmation and of the map merge.
+
+The interface is K2's (``kernels/candidate_scores.py``): ``match_rows``
+over R rows, ``match`` at R = 1, both returning the [R, 13] output rows
+that K7 refines and ``unpack`` reads; a grid axis (G = 4) scores the mean
+over the grids.  The cell records are the first 8 floats of each row of
+K1's [C, 32] patch table (the cell's own ``packed_cell_table`` record), so
+K6 reads the same table K2 does.
+
+The twin adds in the kernel's order (each candidate's beams from 0; the
+Olson sums per 256-offset tile through the warp tree, warps, tiles and
+angles in order), so on the same CUDA inputs kernel and twin agree
+bitwise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ndt_2d_tpu_torch.kernels import candidate_scores as k2
+from ndt_2d_tpu_torch.kernels.candidate_scores import MatchResult
+from ndt_2d_tpu_torch.kernels.score_points import subsample
+from ndt_2d_tpu_torch.ndt import grid as ndt_grid
+
+launches = 0
+
+# Offsets (threads) a block of the kernel; the reduction's tile.
+TILE = 256
+
+
+def candidate_scores_gather(config, grid: ndt_grid.NDTGrid, spts, smask,
+                            pose, dths, dls, table):
+    """[A, L(dx), L(dy)] candidate scores of one grid: -sum over beams of
+    the clamped Gaussian of the cell each rotated, shifted beam falls in
+    (0 where that cell is outside the grid, holds < 5 points or the beam
+    is unused).  One beam at a time, so the [A, L, L, B] terms of the
+    reference are never held and each candidate sums its beams from 0."""
+    W, H = config.grid_cells_x, config.grid_cells_y
+    cell = ndt_grid.f32(grid.cell_size, spts.device)
+    th = pose[2] + dths
+    c, s = torch.cos(th)[:, None], torch.sin(th)[:, None]
+    px, py = spts[:, 0][None, :], spts[:, 1][None, :]
+    rx = c * px - s * py + pose[0]                         # [A, B]
+    ry = s * px + c * py + pose[1]
+    rec = table[:, :8]
+    A, L = dths.shape[0], dls.shape[0]
+    acc = torch.zeros(A, L, L, dtype=spts.dtype, device=spts.device)
+    for b in range(spts.shape[0]):
+        wx = rx[:, b, None, None] + dls[None, :, None]     # [A, L, 1]
+        wy = ry[:, b, None, None] + dls[None, None, :]     # [A, 1, L]
+        ix = torch.floor((wx - grid.origin[0]) / cell).to(torch.int32)
+        iy = torch.floor((wy - grid.origin[1]) / cell).to(torch.int32)
+        inb = (ix >= 0) & (iy >= 0) & (ix < W) & (iy < H)  # [A, L, L]
+        flat = torch.where(
+            inb, torch.clamp(iy, 0, H - 1) * W + torch.clamp(ix, 0, W - 1),
+            torch.zeros_like(ix))
+        r = rec[flat.to(torch.int64)]                      # [A, L, L, 8]
+        qx = wx - r[..., 0]
+        qy = wy - r[..., 1]
+        e = -0.5 * (r[..., 2] * qx * qx + 2.0 * r[..., 3] * qx * qy
+                    + r[..., 4] * qy * qy)
+        pt = torch.exp(torch.clamp(e, max=0.0))
+        valid = inb & (r[..., 5] > 0.5) & smask[b]
+        acc = acc + torch.where(valid, pt, torch.zeros_like(pt))
+    return -acc
+
+
+def match_twin(config, grid: ndt_grid.NDTGrid, table, points, point_mask,
+               num_points: int, pose, dths, dls):
+    """Plain-PyTorch K6: (MatchResult, scores [A, L, L]).  table [C, 32],
+    or [G, C, 32] with grid.origin [G, 2]."""
+    spts, smask, used = subsample(points, point_mask, num_points,
+                                  config.laser_max_beams)
+    cand = k2.candidate_scores(config, grid, spts, smask, pose, dths, dls,
+                               table, one=candidate_scores_gather)
+    best, correction, k, u, s = k2.reduce_candidates(cand, dths, dls, TILE)
+    return k2.finalize_match(best, correction, k, u, s, used), cand
+
+
+def match_rows_twin(config, grid: ndt_grid.NDTGrid, tables, points,
+                    point_mask, num_points, poses, dths, dls):
+    """Plain-PyTorch K6 over a row axis, one row at a time: (MatchResult
+    of [R], [R, 3], [R, 3, 3] tensors, scores [R, A, L, L])."""
+    return k2.match_rows_twin(config, grid, tables, points, point_mask,
+                              num_points, poses, dths, dls, match=match_twin)
+
+
+def _launch(config, origin, cell_size: float, tables, points, point_mask,
+            nums, num: int, poses, dths, dls, with_scores: bool):
+    """One K6 launch over R rows; returns (out [R, 13], scores or None)."""
+    global launches
+    A, L = dths.shape[0], dls.shape[0]
+    if points.shape[0] > 65535 or A > 65535:
+        raise ValueError(f"{points.shape[0]} rows x {A} angles is outside "
+                         "the kernel's launch range")
+    out, scores = k2.launch_rows(
+        "ndt2d_candidate_gather", A * (-(-L * L // TILE)), config, origin,
+        cell_size, tables, points, point_mask, nums, num, poses, dths, dls,
+        with_scores)
+    launches += 1
+    return out, scores
+
+
+def match_rows(config, grid: ndt_grid.NDTGrid, tables, points, point_mask,
+               num_points, poses, dths, dls, with_scores: bool = False):
+    """K6 over R rows in one launch; arguments and results as K2's
+    ``match_rows``: grid.origin [R, (G,) 2] f32, tables [R, (G,) H*W, 32]
+    f32 (K1's), points [R, P, 2] f32, point_mask [R, P] bool, num_points
+    [R] int32, poses [R, 3] f32 (a device tensor: the coarse-to-fine chain
+    never reads it back), dths [A] / dls [L] f32.  Returns the [R, 13]
+    output rows, or (rows, scores [R, A, L, L]) with ``with_scores``.  CPU
+    tensors run the twin; CUDA tensors launch the kernel."""
+    if points.device.type == "cpu":
+        res, cand = match_rows_twin(config, grid, tables, points, point_mask,
+                                    num_points, poses, dths, dls)
+        return (k2.pack(res), cand) if with_scores else k2.pack(res)
+    out, scores = _launch(config, grid.origin, grid.cell_size, tables,
+                          points, point_mask, num_points, 0, poses, dths,
+                          dls, with_scores)
+    return (out, scores) if with_scores else out
+
+
+def match(config, grid: ndt_grid.NDTGrid, table, points, point_mask,
+          num_points: int, pose, dths, dls, with_scores: bool = False):
+    """K6 of one scan: ``match_rows``' launch at R = 1 (arguments as K2's
+    ``match``).  Returns its [1, 13] output row, or (row, scores
+    [A, L, L]) with ``with_scores``.  CPU tensors run the twin; CUDA
+    tensors launch the kernel."""
+    if points.device.type == "cpu":
+        res, cand = match_twin(config, grid, table, points, point_mask,
+                               num_points, pose, dths, dls)
+        out = k2.pack(MatchResult(*[x[None] for x in res]))
+        return (out, cand) if with_scores else out
+    out, scores = _launch(config, grid.origin[None], grid.cell_size,
+                          table[None], points[None], point_mask[None], None,
+                          num_points, pose[None], dths, dls, with_scores)
+    return (out, scores[0]) if with_scores else out

@@ -7,7 +7,9 @@ Replaces the local fast path of ``ndt_2d_tpu/matching/matcher.py``
 kernels ``candidate_scores_pallas`` / ``_gather`` also computed.  The
 kernel covers lattices no wider than one NDT cell
 (2 * search_linear_size <= ndt_resolution), where each (angle, beam) meets
-one 2x2 cell patch; the matcher raises for wider ones.
+one 2x2 cell patch; the matcher sends wider ones to K6
+(``kernels/candidate_gather.py``), which shares this module's reduction,
+row packing and launch plumbing.
 
 ``match_rows`` takes a row axis (R confirmation rows, the ``jax.vmap`` of
 ``match_scan_batch_multi``); ``match`` is the same launch at R = 1.  Both
@@ -128,14 +130,14 @@ def candidate_scores_local(config, grid: ndt_grid.NDTGrid, spts, smask,
 
 
 def candidate_scores(config, grid: ndt_grid.NDTGrid, spts, smask, pose,
-                     dths, dls, table):
+                     dths, dls, table, one=candidate_scores_local):
     """[A, L, L] candidate scores; a stacked grid (origin [G, 2], table
     [G, C, 32]) scores the mean over its grids, summed from 0 in grid order
-    as Python's ``sum`` does (matcher.py:194-202)."""
+    as Python's ``sum`` does (matcher.py:194-202).  ``one`` scores one
+    grid (K6 passes its per-candidate gather)."""
     if table.dim() == 2:
-        return candidate_scores_local(config, grid, spts, smask, pose, dths,
-                                      dls, table)
-    per = [candidate_scores_local(
+        return one(config, grid, spts, smask, pose, dths, dls, table)
+    per = [one(
         config, ndt_grid.NDTGrid(origin=grid.origin[g],
                                  cell_size=grid.cell_size, mean=None,
                                  information=None, count=None,
@@ -145,10 +147,18 @@ def candidate_scores(config, grid: ndt_grid.NDTGrid, spts, smask, pose,
     return sum(per) / ndt_grid.f32(len(per), spts.device)
 
 
-def _sum_as_kernel(terms):
+def _sum_as_kernel(terms, tile=None):
     """terms [A, T, K] summed in the kernel's order: per angle its T
     candidates as zero-padded 32-lane warps, each folded in halves (the
-    shuffle tree), the warps added in order, then the angles in order."""
+    shuffle tree), the warps added in order, then the angles in order.
+    With ``tile`` (K6's block size) each angle's candidates are first cut
+    into zero-padded tiles of that many, and the (angle, tile) blocks take
+    the angles' place."""
+    if tile is not None:
+        A, T, K = terms.shape
+        nt = -(-T // tile)
+        terms = torch.nn.functional.pad(terms, (0, 0, 0, nt * tile - T))
+        terms = terms.reshape(A * nt, tile, K)
     A, T, K = terms.shape
     nw = -(-T // 32)
     x = torch.nn.functional.pad(terms, (0, 0, 0, nw * 32 - T))
@@ -164,11 +174,11 @@ def _sum_as_kernel(terms):
     return total
 
 
-def reduce_candidates(cand, dths, dls):
+def reduce_candidates(cand, dths, dls, tile=None):
     """(best, correction [3], K [3, 3], u [3], s): first-index argmin in
     (angle, dx, dy) order, correction applied only when best < 0, and the
     raw Olson accumulators over every candidate, summed in the kernel's
-    order."""
+    order (K2's, or with ``tile`` K6's)."""
     A, L = cand.shape[0], cand.shape[1]
     flat = cand.reshape(-1)
     best_idx = torch.argmin(flat)
@@ -184,7 +194,7 @@ def reduce_candidates(cand, dths, dls):
     sw = cand[..., None]
     i, j = [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]
     terms = torch.cat([sw, x * sw, x[..., i] * x[..., j] * sw], dim=-1)
-    total = _sum_as_kernel(terms.reshape(A, L * L, 10))
+    total = _sum_as_kernel(terms.reshape(A, L * L, 10), tile)
     k = total[[4, 5, 6, 5, 7, 8, 6, 8, 9]].reshape(3, 3)
     return best, correction, k, total[1:4], total[0]
 
@@ -217,16 +227,18 @@ def match_twin(config, grid: ndt_grid.NDTGrid, table, points, point_mask,
 
 
 def match_rows_twin(config, grid: ndt_grid.NDTGrid, tables, points,
-                    point_mask, num_points, poses, dths, dls):
+                    point_mask, num_points, poses, dths, dls,
+                    match=match_twin):
     """Plain-PyTorch K2 over a row axis, one row at a time: (MatchResult
-    of [R], [R, 3], [R, 3, 3] tensors, scores [R, A, L, L])."""
+    of [R], [R, 3], [R, 3, 3] tensors, scores [R, A, L, L]).  ``match`` is
+    the one-row twin (K6 passes its own)."""
     res, cand = [], []
     for r in range(points.shape[0]):
         g = ndt_grid.NDTGrid(origin=grid.origin[r], cell_size=grid.cell_size,
                              mean=None, information=None, count=None,
                              covariance=None)
-        m, c = match_twin(config, g, tables[r], points[r], point_mask[r],
-                          int(num_points[r]), poses[r], dths, dls)
+        m, c = match(config, g, tables[r], points[r], point_mask[r],
+                     int(num_points[r]), poses[r], dths, dls)
         res.append(m)
         cand.append(c)
     return (MatchResult(*[torch.stack([getattr(m, f) for m in res])
@@ -247,18 +259,18 @@ def unpack(out) -> MatchResult:
                        covariance=out[:, 4:13].reshape(-1, 3, 3))
 
 
-def _launch(config, origin, cell_size: float, tables, points, point_mask,
-            nums, num: int, poses, dths, dls, with_scores: bool):
-    """One K2 launch over R rows (tables [R, (G,) C, 32], origin
-    [R, (G,) 2]); returns (out [R, 13], scores or None)."""
-    global launches
+def launch_rows(symbol: str, slots: int, config, origin, cell_size: float,
+                tables, points, point_mask, nums, num: int, poses, dths,
+                dls, with_scores: bool):
+    """Check the arguments and launch the lattice search ``symbol`` (K2's
+    or K6's C entry, which share their signature) over R rows, with a
+    scratch of ``slots`` partials a row (tables [R, (G,) C, 32], origin
+    [R, (G,) 2]); returns (out [R, 13], scores or None).  The caller counts
+    the launch."""
     dev = points.device
     W, H = config.grid_cells_x, config.grid_cells_y
     R, P = points.shape[0], points.shape[1]
     A, L = dths.shape[0], dls.shape[0]
-    if L * L > 1024 or A > 512 or W < 2 or H < 2:
-        raise ValueError(f"lattice {A}x{L}x{L} on a {W}x{H} grid is outside "
-                         "the kernel's range")
     if tables.dim() == 3:  # no grid axis: G = 1
         tables, origin = tables[:, None], origin[:, None]
     G = tables.shape[1]
@@ -271,18 +283,34 @@ def _launch(config, origin, cell_size: float, tables, points, point_mask,
     _build.require(poses, "poses", torch.float32, (R, 3), dev)
     _build.require(dths, "dths", torch.float32, (A,), dev)
     _build.require(dls, "dls", torch.float32, (L,), dev)
-    partial = torch.empty(R, A, _PARTIAL, dtype=torch.float32, device=dev)
+    partial = torch.empty(R, slots, _PARTIAL, dtype=torch.float32,
+                          device=dev)
     out = torch.empty(R, 13, dtype=torch.float32, device=dev)
     scores = (torch.empty(R, A, L, L, dtype=torch.float32, device=dev)
               if with_scores else None)
     p = _build.ptr
-    err = _build.function("ndt2d_candidate_scores", _ARGS)(
+    err = _build.function(symbol, _ARGS)(
         p(tables), p(origin), G, float(cell_size), W, H, p(points),
         p(point_mask), R, P, None if nums is None else p(nums), int(num),
         int(config.laser_max_beams), p(poses), p(dths), A, p(dls), L,
         p(partial), p(out), None if scores is None else p(scores),
         _build.stream_ptr(dev))
-    _build.check(err, "candidate_scores")
+    _build.check(err, symbol)
+    return out, scores
+
+
+def _launch(config, origin, cell_size: float, tables, points, point_mask,
+            nums, num: int, poses, dths, dls, with_scores: bool):
+    """One K2 launch over R rows; returns (out [R, 13], scores or None)."""
+    global launches
+    W, H = config.grid_cells_x, config.grid_cells_y
+    A, L = dths.shape[0], dls.shape[0]
+    if L * L > 1024 or A > 512 or W < 2 or H < 2:
+        raise ValueError(f"lattice {A}x{L}x{L} on a {W}x{H} grid is outside "
+                         "the kernel's range")
+    out, scores = launch_rows("ndt2d_candidate_scores", A, config, origin,
+                              cell_size, tables, points, point_mask, nums,
+                              num, poses, dths, dls, with_scores)
     launches += 1
     return out, scores
 

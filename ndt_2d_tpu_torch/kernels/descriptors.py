@@ -1,0 +1,202 @@
+"""K10: the keyframe descriptors (CUDA ``csrc/descriptors.cu``) and their
+plain-PyTorch twins.
+
+Two kernels replace ``ndt_2d_tpu/parallel/loop_search.py::descriptors``.
+``bin_points`` is its segment sums (``binned_sum`` over the sector, ring x
+sector and range-bin ids) with the range, angle and bin indices they are
+taken over: per scan, one pass over its masked points gives the points per
+angular sector, the sum of their ranges per sector, the points per (ring,
+sector), the points per range bin and the points of the scan.  ``spectra``
+turns these tables into the descriptors: the mean-range profile and the
+ring occupancy profiles through |DFT| over the sectors, the mean-centred
+range histogram, and the joint L2 norm.
+
+The counts are exact in any order.  Every float sum (a sector's ranges over
+its points, a DFT term over the sectors, the histogram's mean, the norm)
+adds in index order from 0, in the kernels and in the twins, so on the same
+CUDA inputs they agree bitwise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import NamedTuple
+
+import torch
+
+from ndt_2d_tpu_torch.kernels import _build
+from ndt_2d_tpu_torch.ndt import grid as ndt_grid
+
+launches = 0           # bin_points
+spectra_launches = 0
+
+_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_float]
+         + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6)
+_SPECTRA_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_float]
+                 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+
+
+class Bins(NamedTuple):
+    sector_count: torch.Tensor   # [S, n_sectors] points per sector
+    sector_range: torch.Tensor   # [S, n_sectors] sum of ranges per sector
+    ring_count: torch.Tensor     # [S, n_rings * n_sectors], ring-major
+    hist: torch.Tensor           # [S, n_bins] points per range bin
+    total: torch.Tensor          # [S] masked points of the scan
+
+
+def bin_indices(points, range_max: float, n_sectors: int, n_rings: int,
+                n_bins: int):
+    """(r, sector, ring, range bin) of [..., 2] robot-frame points, as the
+    kernel computes them: float32, one rounding per operation, the
+    constants as device tensors so that every division is a division."""
+    dev = points.device
+    x, y = points[..., 0], points[..., 1]
+    r = torch.sqrt(x * x + y * y)
+    ang = torch.atan2(y, x)
+
+    def clipped(v, n):
+        return torch.clamp((v * ndt_grid.f32(n, dev)).to(torch.int32), 0,
+                           n - 1)
+    sec = clipped((ang + ndt_grid.f32(math.pi, dev))
+                  / ndt_grid.f32(2.0 * math.pi, dev), n_sectors)
+    rel = r / ndt_grid.f32(range_max, dev)
+    return r, sec, clipped(rel, n_rings), clipped(rel, n_bins)
+
+
+def bin_twin(points, point_mask, range_max: float, n_sectors: int = 64,
+             n_rings: int = 4, n_bins: int = 32) -> Bins:
+    """Plain-PyTorch K10: the five tables of points [S, P, 2] under
+    point_mask [S, P]."""
+    S = points.shape[0]
+    r, sec, ring, b = bin_indices(points, range_max, n_sectors, n_rings,
+                                  n_bins)
+    keep = torch.nonzero(point_mask.reshape(-1)).squeeze(1)
+    scan = (keep // points.shape[1]).to(torch.int64)
+
+    def count(ids, n):
+        seg = scan * n + ids.reshape(-1)[keep].to(torch.int64)
+        return torch.bincount(seg, minlength=S * n).reshape(S, n).to(
+            torch.float32)
+    seg = scan * n_sectors + sec.reshape(-1)[keep].to(torch.int64)
+    sector_range = ndt_grid.segment_sum_in_order(
+        seg, r.reshape(-1)[keep][:, None], S * n_sectors).reshape(
+            S, n_sectors)
+    return Bins(count(sec, n_sectors), sector_range,
+                count(ring * n_sectors + sec, n_rings * n_sectors),
+                count(b, n_bins),
+                point_mask.sum(dim=1).to(torch.float32))
+
+
+def bin_points(points, point_mask, range_max: float, n_sectors: int = 64,
+               n_rings: int = 4, n_bins: int = 32) -> Bins:
+    """K10 over S scans in one launch: points [S, P, 2] f32 robot frame,
+    point_mask [S, P] bool.  CPU tensors run the twin; CUDA tensors launch
+    the kernel."""
+    global launches
+    if points.device.type == "cpu":
+        return bin_twin(points, point_mask, range_max, n_sectors, n_rings,
+                        n_bins)
+    dev = points.device
+    S, P = points.shape[0], points.shape[1]
+    _build.require(points, "points", torch.float32, (S, P, 2), dev)
+    _build.require(point_mask, "point_mask", torch.bool, (S, P), dev)
+    # One block's shared memory: r and sector per point, the counters.
+    shared = 6 * P + 4 * (n_sectors * (1 + n_rings) + n_bins + 1)
+    if min(n_sectors, n_rings, n_bins) < 1 or shared > 48 * 1024:
+        raise ValueError(f"{P} points x {n_sectors} sectors x {n_rings} "
+                         f"rings, {n_bins} bins is outside the kernel's "
+                         "range")
+
+    def empty(*shape):
+        return torch.empty(*shape, dtype=torch.float32, device=dev)
+    out = Bins(empty(S, n_sectors), empty(S, n_sectors),
+               empty(S, n_rings * n_sectors), empty(S, n_bins), empty(S))
+    p = _build.ptr
+    err = _build.function("ndt2d_descriptor_bins", _ARGS)(
+        p(points), p(point_mask), S, P, float(range_max), n_sectors,
+        n_rings, n_bins, *[p(t) for t in out], _build.stream_ptr(dev))
+    _build.check(err, "descriptor_bins")
+    launches += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def dft_tables(n_sectors: int, device):
+    """cos and sin of 2 pi a k / n_sectors, [n_sectors, n_sectors / 2], at
+    the frequencies k = 1 .. n_sectors / 2 (the DC term is dropped); made
+    once per size and device."""
+    k = torch.arange(1, n_sectors // 2 + 1, dtype=torch.float32,
+                     device=device)
+    a = torch.arange(n_sectors, dtype=torch.float32, device=device)
+    w = (ndt_grid.f32(2.0 * math.pi, device) * a[:, None] * k[None, :]
+         / ndt_grid.f32(n_sectors, device))
+    return torch.cos(w).contiguous(), torch.sin(w).contiguous()
+
+
+def _sum_in_order(x):
+    """Sum over the last axis, adding from index 0."""
+    acc = torch.zeros_like(x[..., 0])
+    for i in range(x.shape[-1]):
+        acc = acc + x[..., i]
+    return acc
+
+
+def spectra_twin(bins: Bins, range_max: float, n_sectors: int = 64,
+                 n_rings: int = 4, n_bins: int = 32):
+    """Plain-PyTorch ``spectra``: descriptors [S, D] of the bin tables."""
+    dev = bins.total.device
+    S = bins.total.shape[0]
+    one = ndt_grid.f32(1.0, dev)
+    total = torch.maximum(bins.total[:, None], one)
+    prof = (bins.sector_range / torch.maximum(bins.sector_count, one)
+            / ndt_grid.f32(range_max, dev))
+    profs = torch.cat([prof[:, None],
+                       (bins.ring_count / total).reshape(S, n_rings,
+                                                         n_sectors)], 1)
+    cos_t, sin_t = dft_tables(n_sectors, dev)
+    re = torch.zeros(S, 1 + n_rings, n_sectors // 2, device=dev)
+    im = torch.zeros_like(re)
+    for a in range(n_sectors):
+        re = re + profs[:, :, a, None] * cos_t[a]
+        im = im + profs[:, :, a, None] * sin_t[a]
+    spec = torch.sqrt(re * re + im * im).reshape(S, -1)
+    hist = bins.hist / total
+    mean = _sum_in_order(hist) / ndt_grid.f32(n_bins, dev)
+    d = torch.cat([spec, hist - mean[:, None]], 1)
+    norm = torch.sqrt(_sum_in_order(d * d))
+    out = d / torch.maximum(norm, ndt_grid.f32(1e-12, dev))[:, None]
+    return torch.where(bins.total[:, None] > 0, out, torch.zeros_like(out))
+
+
+def spectra(bins: Bins, range_max: float, n_sectors: int = 64,
+            n_rings: int = 4, n_bins: int = 32):
+    """The L2-normalized descriptors [S, (1 + n_rings) * n_sectors / 2 +
+    n_bins] of K10's bin tables, in one launch.  CPU tensors run the twin;
+    CUDA tensors launch the kernel."""
+    global spectra_launches
+    dev = bins.total.device
+    if dev.type == "cpu":
+        return spectra_twin(bins, range_max, n_sectors, n_rings, n_bins)
+    S = bins.total.shape[0]
+    for t, name, width in zip(bins, Bins._fields,
+                              (n_sectors, n_sectors, n_rings * n_sectors,
+                               n_bins)):
+        _build.require(t, name, torch.float32, (S, width), dev)
+    _build.require(bins.total, "total", torch.float32, (S,), dev)
+    half = n_sectors // 2
+    width = (1 + n_rings) * half + n_bins
+    if (min(half, n_rings, n_bins) < 1
+            or 4 * ((1 + n_rings) * (n_sectors + half) + n_bins) > 48 * 1024):
+        raise ValueError(f"{n_sectors} sectors x {n_rings} rings, {n_bins} "
+                         "bins is outside the kernel's range")
+    cos_t, sin_t = dft_tables(n_sectors, dev)
+    out = torch.empty(S, width, dtype=torch.float32, device=dev)
+    p = _build.ptr
+    err = _build.function("ndt2d_descriptor_spectra", _SPECTRA_ARGS)(
+        *[p(t) for t in bins], p(cos_t), p(sin_t), S, float(range_max),
+        n_sectors, n_rings, n_bins, p(out), _build.stream_ptr(dev))
+    _build.check(err, "descriptor_spectra")
+    spectra_launches += 1
+    return out

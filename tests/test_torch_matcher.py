@@ -243,19 +243,17 @@ def test_empty_window_falls_back_to_weak_covariance():
     dict(refine_iterations=4),
 ])
 def test_unported_matcher_options_raise(change):
-    """A lattice wider than a cell (kernel K6) is refused; overlapping grids
-    (K8) and the Newton polish (K7) are ported and match op-by-op JAX (the
-    jitted reference contracts FMAs in the covariance of near-degenerate
-    cells, which moves its overlapping score by 0.3% on this window)."""
+    """No matcher option is refused any more: a lattice wider than a cell
+    (kernel K6), overlapping grids (K8) and the Newton polish (K7) are
+    ported and match op-by-op JAX (the jitted reference contracts FMAs in
+    the covariance of near-degenerate cells, which moves its overlapping
+    score by 0.3% on this window).  (The name dates from when they were
+    refused; kept so the ids stay comparable.)"""
     cfg = dataclasses.replace(CFG, **change)
     poses, wp, wpm, wm, qp, qm, qn, pose = entry_inputs()
-    if "search_linear_size" in change:
-        with pytest.raises(NotImplementedError):
-            registry.create("ndt", cfg, RANGE_MAX, device="cpu")
-        with pytest.raises(NotImplementedError):
-            matcher.build_window_ndt(cfg, T(poses), T(wp), T(wpm), T(wm),
-                                     RANGE_MAX)
-        return
+    assert matcher.search_kernel(cfg).__name__.endswith(
+        "candidate_gather" if "search_linear_size" in change
+        else "candidate_scores")
     m = registry.create("ndt", cfg, RANGE_MAX, device="cpu")
     m.add_scans(poses, wp, wpm, wm)
     res = m.match_scan(qp, qm, qn, pose)

@@ -368,7 +368,18 @@ def test_cli_run_with_the_office_recipe(tmp_path, capsys):
     stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert stats["scans_accepted"] == 24
     assert stats["ate_rmse_m"] < 0.2
-    for recipe in ("office-descriptor", "drift"):
-        with pytest.raises(NotImplementedError, match="K10"):
-            cli.main(["run", "--bag", bag, "--device", "cpu", "--recipe",
-                      recipe])
+    # The descriptor presets are ported too: each builds its configuration
+    # and maps the bag.
+    for recipe, search in (("office-descriptor", "descriptor"),
+                           ("drift", "both")):
+        rargs = ["run", "--bag", bag, "--device", "cpu", "--recipe", recipe,
+                 "--max-points-per-scan", "256", "--loop-closure-every", "12",
+                 "--local_scan_matcher.grid_cells", "160",
+                 "--global_scan_matcher.grid_cells", "160"]
+        rcfg = cli._mapper_config(cli._build_parser().parse_args(rargs))
+        assert rcfg.loop_search == search
+        assert rcfg.loop_closure_max_far_rows == 16
+        assert rcfg.loop_closure_accept == "best"
+        assert cli.main(rargs) == 0
+        stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert stats["scans_accepted"] == 24

@@ -32,8 +32,11 @@ from ndt_2d_tpu.matching import matcher as jax_matcher
 from ndt_2d_tpu.ndt import grid as jax_grid
 from ndt_2d_tpu_torch import cli, convert
 from ndt_2d_tpu_torch.kernels import _build
+from ndt_2d_tpu_torch.kernels import candidate_gather as k6
+from ndt_2d_tpu_torch.kernels import candidate_scores as k2
 from ndt_2d_tpu_torch.mapping import runtime
 from ndt_2d_tpu_torch.mapping.mapper import Mapper
+from ndt_2d_tpu_torch.matching import matcher
 from ndt_2d_tpu_torch.utils import sim
 
 torch.set_num_threads(2)
@@ -169,6 +172,8 @@ def test_port_never_imports_jax():
         from ndt_2d_tpu_torch.graph import solver
         from ndt_2d_tpu_torch.mapping import runtime
         from ndt_2d_tpu_torch.mapping.mapper import Mapper
+        import ndt_2d_tpu_torch.mapping.merge
+        import ndt_2d_tpu_torch.parallel.loop_search
         from ndt_2d_tpu_torch.config import MapperConfig, ScanMatcherConfig
         from ndt_2d_tpu_torch.io.bag import record_synthetic
         b = record_synthetic("box", 24, n_beams=90)
@@ -205,7 +210,8 @@ def test_kernel_sources_found_from_package_path():
     names = {os.path.basename(p) for p in _build.sources()}
     assert {"ndt_build.cu", "candidate_scores.cu", "score_points.cu",
             "raymarch.cu", "normal_blocks.cu", "particle_filter.cu",
-            "newton.cu", "common.cuh"} <= names
+            "newton.cu", "candidate_gather.cu", "descriptors.cu",
+            "descriptor_search.cu", "common.cuh"} <= names
     assert all(p.startswith(_build.CSRC) for p in _build.sources())
     assert _build.BUILD_DIR.startswith(os.path.dirname(_build.CSRC))
     # The build is lazy: importing the kernel modules compiled nothing.
@@ -220,8 +226,21 @@ def test_kernel_sources_found_from_package_path():
     dict(loop_search="both"),
 ])
 def test_unported_mapper_modes_raise(change):
-    with pytest.raises(NotImplementedError):
-        Mapper(dataclasses.replace(CONFIG2, **change), device="cpu")
+    """The pipelined modes are refused; the descriptor modes are ported:
+    the mapper builds, and its matchers include the wide-lattice coarse
+    one (kernel K6).  (The test keeps the name it had while the descriptor
+    modes were refused too, so that its ids stay comparable across
+    versions.)"""
+    cfg = dataclasses.replace(CONFIG2, **change)
+    if "max_inflight" in change:
+        with pytest.raises(NotImplementedError):
+            Mapper(cfg, device="cpu")
+        return
+    mapper = Mapper(cfg, device="cpu")
+    mapper._ensure_matchers(15.0)
+    assert mapper.coarse_matcher.config == cfg.coarse_scan_matcher
+    assert matcher.search_kernel(cfg.coarse_scan_matcher) is k6
+    assert matcher.search_kernel(cfg.global_scan_matcher) is k2
 
 
 @pytest.mark.parametrize("change", [
@@ -230,15 +249,12 @@ def test_unported_mapper_modes_raise(change):
     dict(overlapping_grids=True),
 ])
 def test_unported_global_matcher_fails_at_construction(change):
-    """An unported global lattice (kernel K6) is refused by Mapper(...), not
-    at the first loop-closure pass; the Newton polish (K7) and overlapping
-    grids (K8) are ported: the mapper builds and one global match runs."""
+    """No global matcher is refused any more: a lattice wider than a cell
+    (kernel K6), the Newton polish (K7) and overlapping grids (K8) are
+    ported: the mapper builds and one global match runs.  (The name dates
+    from when they were refused; kept so the ids stay comparable.)"""
     cfg = dataclasses.replace(
         CONFIG2, global_scan_matcher=dataclasses.replace(M192, **change))
-    if "search_linear_size" in change:
-        with pytest.raises(NotImplementedError):
-            Mapper(cfg, device="cpu")
-        return
     mapper = Mapper(cfg, device="cpu")
     mapper._ensure_matchers(15.0)
     world = sim.make_box_world(10.0, 8.0)
@@ -248,7 +264,21 @@ def test_unported_global_matcher_fails_at_construction(change):
     m.add_scans(pose[None], pts[None], mask[None])
     res = m.match_scan(pts, mask, int(mask.sum()), pose + [0.01, 0.0, 0.0])
     assert float(res.score) < -0.5
-    assert abs(float(res.correction[0]) + 0.01) < 0.006
+    if "search_linear_size" not in change:
+        assert abs(float(res.correction[0]) + 0.01) < 0.006
+        return
+    # The +-0.2 m lattice finds the noise-free box's other optimum: hold
+    # it to the JAX matcher's on the same window (1e-6: the jitted lattice
+    # offsets contract an FMA).
+    jcfg = ScanMatcherConfig(**dataclasses.asdict(m.config))
+    start = pose + np.float32([0.01, 0.0, 0.0])
+    ref = jax_matcher.match_scan(
+        jcfg, jax_matcher.build_window_ndt(
+            jcfg, pose[None], pts[None], mask[None], np.ones(1, bool), 15.0),
+        pts, mask, np.int32(mask.sum()), start, 15.0)
+    np.testing.assert_allclose(res.correction.numpy(),
+                               np.asarray(ref.correction), rtol=0, atol=1e-6)
+    assert float(res.score) == pytest.approx(float(ref.score), rel=1e-5)
 
 
 def test_mesh_and_configure_actions_raise(tmp_path):
