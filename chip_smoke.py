@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profile   # device-time breakdown of the sessions
+                                      # (synchronous and pipelined)
 
 Phases (any failure exits non-zero):
  1. require CUDA; print the card (nvidia-smi name and power limit), the
@@ -37,7 +38,14 @@ Phases (any failure exits non-zero):
     equal to ``search_dense``, scores against a matrix product; the
     coarse-to-fine chain ``match_scan_batch_multi_coarse_fine`` against
     the twins' chain bitwise, with no host synchronization inside it and
-    one K1 + K6 + K1 + K2 + K7 launch a chunk;
+    one K1 + K6 + K1 + K2 + K7 launch a chunk; K13 (the pipelined paths'
+    pose compose and correction apply) over a 200-step chain of the
+    config-2 odometry, start poses, corrected poses and window slots
+    bitwise against the twins' chain, and across the +-pi wrap; K11 (the
+    correlative matcher's field build, lattice search and point score)
+    bitwise against its twins and reproducible, and 64 lattice rows each
+    bitwise equal to its R = 1 launch, at config-2 shapes and at the shape
+    of (o)'s box drive (160x160 cells, the widened 80x40x40 lattice);
  4. drive the main paths, each with the launch counts set to 0 before and
     read after: (a) the 200-scan, 600-beam config-2 corridor through
     ``Mapper`` and ``run_bag`` (no loop closure) with its export: every scan
@@ -96,6 +104,26 @@ Phases (any failure exits non-zero):
     of two sessions of >= 100 keyframes in the symmetry-broken office
     whose frames differ by a rotation of pi: >= 2 pairs accepted,
     transform within 0.15 m and 0.05 rad of the truth, merged ATE < 0.2 m;
+    the pipelined paths at max_inflight=8, each printed beside its
+    synchronous arm: (k) config 2 with its dispatch loop under CUDA
+    sync-debug "error" (no stream or device synchronization, no blocking
+    copy; a drain waits on its step's event): every scan accepted, ATE
+    below odometry's, K13 launched twice a pipelined scan, the first 20
+    poses within 0.03 of (a)'s and every pose within 0.03 m across the
+    corridor and 0.01 rad in heading of (a)'s; (l) config 3: >= 1 closure and
+    optimization, final ATE below odometry's; (m) config 4: the particle
+    filter (mean error <= 0.10 m and below odometry's; its first three
+    steps replayed through step() with the same seed and controls give the
+    same particles and n_active bitwise), then scan matching (<= 0.12 m);
+    (n) BASELINE config 9 (run_benchmarks.py:700-815): datasets/simlab.clf.gz
+    through the port's CARMEN importer (range_max 10) with the settings of
+    run_benchmarks.py:732-761 (max_inflight 8, gate 1.0, 3-scan regions,
+    both positions, Geman-McClure, global refine 8): >= 1 closure and
+    optimization, final ATE below the odometry ATE of the same run; (o)
+    the correlative matcher on the box drive of tests/test_correlative.py
+    (>= 12 of 14 accepted, ATE below odometry's and < 0.15 m, one K11
+    field, lattice and score launch a matched scan), then on the config-2
+    corridor with the widened local lattice, printed and not gated;
  5. print the kernels' JSON line and, last, the device JSON line.
 """
 
@@ -148,7 +176,18 @@ KERNELS = {
                            "ndt_2d_tpu/parallel/loop_search.py:92"),
     "descriptor_search": ("ndt_2d_tpu_torch/csrc/descriptor_search.cu",
                           "ndt_2d_tpu/parallel/loop_search.py:153"),
+    "pose_compose": ("ndt_2d_tpu_torch/csrc/pose_chain.cu",
+                     "ndt_2d_tpu/matching/matcher.py:657"),
+    "pose_apply": ("ndt_2d_tpu_torch/csrc/pose_chain.cu",
+                   "ndt_2d_tpu/matching/matcher.py:665"),
+    "correlative_field": ("ndt_2d_tpu_torch/csrc/correlative.cu",
+                          "ndt_2d_tpu/matching/correlative.py:38"),
+    "correlative_match": ("ndt_2d_tpu_torch/csrc/correlative.cu",
+                          "ndt_2d_tpu/matching/correlative.py:76"),
+    "correlative_score": ("ndt_2d_tpu_torch/csrc/correlative.cu",
+                          "ndt_2d_tpu/matching/correlative.py:108"),
 }
+ROOT = os.path.dirname(os.path.abspath(__file__))
 # The bound of a kernel: the larger of the bytes it must move over the
 # H100's memory rate and its operations over the float32 rate outside the
 # tensor cores (NVIDIA's data sheet, SXM, 700 W).
@@ -460,14 +499,17 @@ def cost_newton(mc, origin, cell_size, count, points, point_mask,
 
 def reset_counts():
     from ndt_2d_tpu_torch.kernels import (
-        candidate_gather, candidate_scores, descriptor_search, descriptors,
-        ndt_build, newton, normal_blocks, particle_filter, raymarch,
-        score_points)
+        candidate_gather, candidate_scores, correlative, descriptor_search,
+        descriptors, ndt_build, newton, normal_blocks, particle_filter,
+        pose_chain, raymarch, score_points)
     for m in (ndt_build, candidate_scores, score_points, raymarch, newton,
               candidate_gather, descriptors, descriptor_search):
         m.launches = 0
     score_points.batch_launches = 0
     descriptors.spectra_launches = 0
+    pose_chain.compose_launches = pose_chain.apply_launches = 0
+    correlative.field_launches = correlative.match_launches = 0
+    correlative.score_launches = 0
     for d in (normal_blocks.launches, particle_filter.launches):
         for k in d:
             d[k] = 0
@@ -475,10 +517,15 @@ def reset_counts():
 
 def read_counts() -> dict:
     from ndt_2d_tpu_torch.kernels import (
-        candidate_gather, candidate_scores, descriptor_search, descriptors,
-        ndt_build, newton, normal_blocks, particle_filter, raymarch,
-        score_points)
+        candidate_gather, candidate_scores, correlative, descriptor_search,
+        descriptors, ndt_build, newton, normal_blocks, particle_filter,
+        pose_chain, raymarch, score_points)
     out = {"ndt_build": ndt_build.launches,
+           "pose_compose": pose_chain.compose_launches,
+           "pose_apply": pose_chain.apply_launches,
+           "correlative_field": correlative.field_launches,
+           "correlative_match": correlative.match_launches,
+           "correlative_score": correlative.score_launches,
            "candidate_scores": candidate_scores.launches,
            "candidate_gather": candidate_gather.launches,
            "descriptors": descriptors.launches,
@@ -539,7 +586,7 @@ def session_numbers(stats, bag, dt) -> dict:
 def phase_session(cfg, bag, dev):
     import numpy as np
     reset_counts()
-    stats, grid, dt, _, _, _ = run_session(cfg, bag, dev)
+    stats, grid, dt, _, _, mapper = run_session(cfg, bag, dev)
     launches = read_counts()
     numbers = session_numbers(stats, bag, dt)
     acc = stats["scans_accepted"]
@@ -578,7 +625,7 @@ def phase_session(cfg, bag, dev):
     print(f"[4a] first {n} scans, GPU vs CPU twins: {exact:.2f} of "
           f"corrections equal, ATE {sg['ate_rmse_m']:.5f} vs "
           f"{sc['ate_rmse_m']:.5f}, {same:.4f} of grid cells equal")
-    return launches, numbers
+    return launches, numbers, mapper.graph.poses.copy()
 
 
 # BASELINE.json config 3, the synchronous arm of
@@ -1655,7 +1702,8 @@ def phase_config4(path_map, keyframes, dev):
           f"final {float(serrs[-1]):.4f} m, "
           f"{np.median(stimes[2:]) * 1e3:.3f} ms/scan median; launches "
           f"{sm_launches}")
-    return launches
+    return launches, dict(pf=float(np.median(times[2:]) * 1e3),
+                          sm=float(np.median(stimes[2:]) * 1e3))
 
 
 def twin_step(draws, particles, n, control, mcfg, grid, points, point_mask,
@@ -1755,12 +1803,14 @@ def phase_config7(path_map, dev):
 
 
 def cost_candidate_gather(mc, origin, cell_size, points, point_mask,
-                          num_points: int, pose, dths, dls):
+                          num_points: int, pose, dths, dls,
+                          record_bytes: int = 32, term_ops: int = 30):
     """K6's (bytes, operations) for one row: each distinct cell record (32
     bytes) that any (candidate, used beam) looks up on its grids, the used
     beams (9 bytes each), the start pose and the [13] output; ~30
     operations (shift, division, floor, quadratic form, exp, sum) a
-    (candidate, used beam) per grid."""
+    (candidate, used beam) per grid.  K11's lattice reads a 4-byte field
+    value and does ~10 (shift, division, floor, bounds, sum)."""
     import torch
     W, H = mc.grid_cells_x, mc.grid_cells_y
     spts, smask, used = used_beams(mc, points, point_mask, num_points)
@@ -1779,8 +1829,8 @@ def cost_candidate_gather(mc, origin, cell_size, points, point_mask,
         ok = okx[:, :, :, None] & oky[:, :, None, :]
         cells += torch.unique(keys[ok]).numel()
     L = dls.numel()
-    return (cells * 32 + used * 9 + 12 + 13 * 4,
-            origins.shape[0] * dths.numel() * L * L * used * 30)
+    return (cells * record_bytes + used * 9 + 12 + 13 * 4,
+            origins.shape[0] * dths.numel() * L * L * used * term_ops)
 
 
 def edge_candidates(mc, origin, cell_size, points, point_mask, num_points,
@@ -2469,28 +2519,700 @@ def phase_merge(dev):
     return launches
 
 
+def odom_deltas(odom):
+    """Consecutive odometry motions in the previous robot frame, float32
+    [T - 1, 3] (the mapper's ``_odom_delta``)."""
+    import numpy as np
+    d = odom[1:, :2] - odom[:-1, :2]
+    c0, s0 = np.cos(odom[:-1, 2]), np.sin(odom[:-1, 2])
+    dth = np.arctan2(np.sin(odom[1:, 2] - odom[:-1, 2]),
+                     np.cos(odom[1:, 2] - odom[:-1, 2]))
+    return np.stack([c0 * d[:, 0] + s0 * d[:, 1],
+                     -s0 * d[:, 0] + c0 * d[:, 1], dth], 1).astype(np.float32)
+
+
+def phase_k13(bag, dev):
+    """K13 over a 200-step chain of the config-2 corridor's odometry
+    deltas, each step a compose, a window shift and an apply with a
+    lattice-sized correction: every start pose, corrected pose and window
+    slot bitwise against the twins' chain, plus two composes across the
+    +-pi wrap; times."""
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import pose_chain as k13
+    deltas = odom_deltas(bag.odom)
+    rng = np.random.default_rng(13)
+    corrs = rng.uniform(-0.05, 0.05, deltas.shape).astype(np.float32)
+    dt = torch.tensor(deltas, device=dev)
+    ct = torch.tensor(corrs, device=dev)
+    start = torch.tensor(bag.odom[0], dtype=torch.float32, device=dev)
+    chains = []
+    for compose, apply in ((k13.compose, k13.apply),
+                           (k13.compose_twin, k13.apply_twin)):
+        win = torch.zeros(10, 3, device=dev)
+        prev, starts, news, slots = start, [], [], []
+        for i in range(len(deltas)):
+            pose = compose(prev, dt[i])
+            win[:-1] = win[1:].clone()
+            prev = apply(pose, ct[i], win)
+            starts.append(pose)
+            news.append(prev)
+            slots.append(win[-1].clone())
+        chains.append([torch.stack(x) for x in (starts, news, slots)])
+    torch.cuda.synchronize()
+    (sk, nk, wk), (st, nt, wt) = chains
+    require(torch.equal(sk, st), "K13 compose: start poses differ from the "
+            "twin's chain")
+    require(torch.equal(nk, nt), "K13 apply: corrected poses differ")
+    require(torch.equal(wk, wt) and torch.equal(wk, nk),
+            "K13 apply: window slots differ from the corrected poses")
+    for th, dth in ((3.13, 0.03), (-3.13, -0.03)):
+        prev = torch.tensor([1.0, 2.0, th], device=dev)
+        d = torch.tensor([0.1, 0.02, dth], device=dev)
+        a, b = k13.compose(prev, d), k13.compose_twin(prev, d)
+        require(torch.equal(a, b) and abs(float(a[2])) <= np.pi,
+                f"K13 compose across the wrap: {a.tolist()} {b.tolist()}")
+    print(f"[3] K13 pose_chain: {len(deltas)} steps of the config-2 "
+          f"odometry (compose, window shift, apply), start poses, corrected "
+          f"poses and window slots bitwise equal to the twins' chain; wrap "
+          f"at +-pi bitwise; final pose "
+          f"{[round(float(v), 4) for v in nk[-1]]}")
+    w = torch.zeros(10, 3, device=dev)
+    # compose: reads prev and delta, writes the pose (36 bytes); two cos,
+    # three sin/cos and an atan2 (~12 operations each) and 10 more.
+    # apply: reads the pose and the correction, writes the new pose and
+    # the window slot (48 bytes); three additions.
+    return {"pose_compose": timed(
+                0.0, cuda_ms(lambda: k13.compose(start, dt[0]), 100),
+                cuda_ms(lambda: k13.compose_twin(start, dt[0]), 50), 36,
+                70),
+            "pose_apply": timed(
+                0.0, cuda_ms(lambda: k13.apply(start, ct[0], w), 100),
+                cuda_ms(lambda: k13.apply_twin(start, ct[0], w), 50), 48,
+                3)}
+
+
+def corridor_scans(bag, cfg, ts):
+    """The projected points and masks of scans ``ts`` of ``bag``."""
+    import numpy as np
+
+    from ndt_2d_tpu_torch.mapping import laser
+    out = [laser.project_scan(bag[t][0], bag.range_max, np.zeros(3), False,
+                              None, cfg.max_points_per_scan) for t in ts]
+    return np.stack([p for p, _ in out]), np.stack([m for _, m in out])
+
+
+def k11_shape(mc, win, query, odom, pts, msk, ks, rmax, dev, what):
+    """K11's three entries at one shape: the field of window ``win``, the
+    lattice of ``mc`` and the point score of ``query``, bitwise against the
+    twins and reproducible; ROWS lattice rows (window k .. k + D - 1 of
+    ``odom``/``pts``/``msk``, query k + D from its odometry pose shifted
+    by (0.02, -0.01, 0.01), k in ``ks``) bitwise equal to their R = 1
+    launches.  Returns the timing entries."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import correlative as k11
+    from ndt_2d_tpu_torch.matching.matcher import _search_offsets
+    W, H = mc.grid_cells_x, mc.grid_cells_y
+    fargs = (win["poses"], win["points"], win["point_mask"],
+             win["window_mask"], rmax, mc.ndt_resolution, W, H)
+    f, o = k11.build_field(*fargs)
+    ft, ot = k11.build_field_twin(*fargs)
+    f2, o2 = k11.build_field(*fargs)
+    torch.cuda.synchronize()
+    require(torch.equal(f, ft) and torch.equal(o, ot),
+            f"K11 field differs from its twin ({what})")
+    require(torch.equal(f, f2) and torch.equal(o, o2),
+            f"K11 field not bitwise reproducible ({what})")
+    ids = k11.cell_ids(win["poses"], win["points"], win["point_mask"],
+                       win["window_mask"], o, mc.ndt_resolution, W, H)
+    S, P = win["points"].shape[:2]
+    out = {"correlative_field": timed(
+        0.0, cuda_ms(lambda: k11.build_field(*fargs), 20),
+        cuda_ms(lambda: k11.build_field_twin(*fargs), 5),
+        nbytes(*win.values(), f, o) + 28,
+        15 * S * P + 30 * W * H,
+        cuda_ms(lambda: torch.bincount(ids, minlength=W * H), 20))}
+
+    dths, dls = _search_offsets(mc, dev)
+    margs = (mc, f, o, query["points"], query["point_mask"],
+             query["num_points"], query["pose"], dths, dls)
+    row, sc = k11.match(*margs, with_scores=True)
+    rest, sct = k11.match_twin(*margs)
+    torch.cuda.synchronize()
+    check_match(row, sc, one_row(rest), sct, f"K11 lattice ({what})")
+    check_match(row, sc, *k11.match(*margs, with_scores=True),
+                f"K11 lattice reproducibility ({what})")
+    out["correlative_match"] = timed(
+        0.0, cuda_ms(lambda: k11.match(*margs), 20),
+        cuda_ms(lambda: k11.match_twin(*margs), 3),
+        *cost_candidate_gather(mc, o, mc.ndt_resolution, *margs[3:],
+                               record_bytes=4, term_ops=10))
+
+    sargs = (mc, f, o, query["points"], query["point_mask"],
+             query["num_points"], query["pose"][None])
+    u, ut = k11.score_batch(*sargs), k11.score_batch_twin(*sargs)
+    require(torch.equal(u, ut), f"K11 point score {float(u[0])} differs "
+            f"from the twin's {float(ut[0])} ({what})")
+    spts, smask, used = used_beams(mc, *sargs[3:6])
+    keys = cells_read(mc, o, mc.ndt_resolution, spts, smask, sargs[6])
+    out["correlative_score"] = timed(
+        0.0, cuda_ms(lambda: k11.score_batch(*sargs), 20),
+        cuda_ms(lambda: k11.score_batch_twin(*sargs), 5),
+        4 * keys.numel() + used * 9 + 16, 12 * used)
+
+    R, D = len(ks), win["points"].shape[0]
+    fields, origins = [], []
+    for k in ks:
+        fr, orr = k11.build_field(
+            torch.tensor(odom[k:k + D], dtype=torch.float32, device=dev),
+            torch.tensor(pts[k:k + D], device=dev),
+            torch.tensor(msk[k:k + D], device=dev),
+            torch.ones(D, dtype=torch.bool, device=dev), rmax,
+            mc.ndt_resolution, W, H)
+        fields.append(fr)
+        origins.append(orr)
+    qi = [k + D for k in ks]
+    rows = (torch.stack(fields), torch.stack(origins),
+            torch.tensor(pts[qi], device=dev),
+            torch.tensor(msk[qi], device=dev),
+            torch.tensor(msk[qi].sum(1), dtype=torch.int32, device=dev),
+            torch.tensor(odom[qi] + [0.02, -0.01, 0.01],
+                         dtype=torch.float32, device=dev))
+    many = k11.match_rows(mc, *rows, dths, dls)
+    for r in range(R):
+        one = k11.match(mc, rows[0][r], rows[1][r], rows[2][r], rows[3][r],
+                        int(rows[4][r]), rows[5][r], dths, dls)
+        require(torch.equal(many[r:r + 1], one),
+                f"K11 lattice row {r} differs from its R = 1 launch ({what})")
+    print(f"[3] K11 correlative, {what}: field of {S} scans x {P} points on "
+          f"{W}x{H} cells ({int((ids >= 0).sum())} hits, peak-normalized), "
+          f"lattice of {sc.numel()} candidates (score {float(row[0, 0]):.5f}, "
+          f"correction {[round(float(x), 4) for x in row[0, 1:4]]}) and "
+          f"point score {float(u[0]):.5f} bitwise equal to their twins and "
+          f"reproducible; {R} lattice rows bitwise equal to their R = 1 "
+          f"launches ({int((many[:, 0] < -0.3).sum())} score below -0.3)")
+    return out
+
+
+def phase_k11(cfg, bag, win, query, dev):
+    """K11 at two shapes.  Config 2's (the 10-scan window of 512 points,
+    192x192 cells of 0.25 m, 80x21x21 candidates x 100 beams; rows from
+    every other scan of the corridor), timed as ``correlative_*_config2``.
+    Then the shape the correlative box drive of [4o] gives it, whose
+    launches the kernels' line counts: its 160x160-cell local grid and
+    widened lattice (+-0.15 m at 0.0075 m, 80x40x40 candidates x 100
+    beams) over 10 box scans of 360 beams to 12 m, rows from consecutive
+    scans of a box bag."""
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.io.bag import record_synthetic
+    D = cfg.rolling_depth
+    ks = [2 * r for r in range(ROWS)]
+    pts, msk = corridor_scans(bag, cfg, range(max(ks) + D + 1))
+    out = {f"{k}_config2": v for k, v in k11_shape(
+        cfg.local_scan_matcher, win, query, bag.odom, pts, msk, ks,
+        bag.range_max, dev, "config 2").items()}
+
+    box_cfg = correlative_box_config()
+    box = record_synthetic("box", ROWS + D, n_beams=360, range_max=12.0,
+                           seed=4)
+    bpts, bmsk = corridor_scans(box, box_cfg, range(len(box)))
+    odom = box.odom.astype(np.float32)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    bwin = dict(poses=t(odom[:D]), points=t(bpts[:D]),
+                point_mask=t(bmsk[:D]),
+                window_mask=torch.ones(D, dtype=torch.bool, device=dev))
+    bquery = dict(points=t(bpts[D]), point_mask=t(bmsk[D]),
+                  num_points=int(bmsk[D].sum()),
+                  pose=t((box.odom[D] + [0.02, -0.01, 0.01]).astype(
+                      np.float32)))
+    out.update(k11_shape(box_cfg.local_scan_matcher, bwin, bquery, box.odom,
+                         bpts, bmsk, list(range(ROWS)), box.range_max, dev,
+                         "box drive's shape"))
+    return out
+
+
+def pipelined(cfg, inflight=8):
+    import dataclasses
+    return dataclasses.replace(cfg, max_inflight=inflight)
+
+
+def k13_launches(launches) -> int:
+    return launches["pose_compose"] + launches["pose_apply"]
+
+
+def phase_pipelined_config2(cfg, bag, dev, sync_numbers, sync_poses):
+    """Config 2 at max_inflight = 8: the dispatch loop (every
+    process_scan, the drains of older steps included) under CUDA
+    sync-debug "error", so no call in it synchronizes the stream or the
+    device or copies to the host blocking; a drain waits on its step's
+    event alone.  Every scan accepted, ATE below odometry's, one K1 + K3 +
+    K2 and two K13 launches a pipelined scan, the first 20 graph poses
+    within 0.03 m of the synchronous run's."""
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.mapping import runtime
+    from ndt_2d_tpu_torch.mapping.mapper import Mapper
+    from ndt_2d_tpu_torch.utils import metrics
+    pcfg = pipelined(cfg)
+    mapper = Mapper(pcfg, device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    times, futures = [], []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        for t, (msg, odom) in enumerate(bag):
+            t1 = time.perf_counter()
+            res = mapper.process_scan(msg, odom,
+                                      runtime.sweep_end_odom(bag, t, msg))
+            times.append(time.perf_counter() - t1)
+            futures.append(res)
+        dispatch = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    mapper.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    acc = sum(r.accepted for r in futures)
+    require(acc == len(bag), f"pipelined config 2 accepted {acc} scans")
+    est = np.stack([futures[0].pose] + [r.pose_future.result()
+                                        for r in futures[1:]])
+    ate = metrics.ate_rmse(est, bag.truth)
+    odom = metrics.ate_rmse(bag.odom, bag.truth)
+    require(np.isfinite(ate) and ate < odom,
+            f"pipelined config 2 ATE {ate} not below odometry's {odom}")
+    for k in ("ndt_build", "candidate_scores", "score_points"):
+        require(launches[k] == acc - 1, f"pipelined {k} launched "
+                f"{launches[k]} times, expected {acc - 1}")
+    require(k13_launches(launches) == 2 * (acc - 1),
+            f"K13 launched {k13_launches(launches)} times, expected "
+            f"{2 * (acc - 1)}")
+    g = mapper.graph
+    dev20 = float(np.abs(g.poses[:20] - sync_poses[:20]).max())
+    require(dev20 <= 0.03, f"pipelined first 20 poses {dev20} from the "
+            "synchronous run's")
+    # Where the two chains part: the first scan more than 5 mm apart.  A
+    # lattice edge argmin that flips along the featureless corridor moves
+    # a pose along it (x) only: across it and in heading the arms stay
+    # within test_mapper_e2e.py's 0.03 m and 0.01 rad.
+    diff = g.poses - sync_poses[:acc]
+    apart = np.hypot(diff[:, 0], diff[:, 1])
+    split = int(np.argmax(apart > 0.005)) if (apart > 0.005).any() else acc
+    dx, dy, dth = np.abs(diff).max(0)
+    require(dy <= 0.03 and dth <= 0.01, f"pipelined config 2 parts from "
+            f"the synchronous run across the corridor by {dy} m or in "
+            f"heading by {dth} rad")
+    require(g.num_constraints == acc - 1, "pipelined constraints")
+    ms = float(np.median(times[4:]) * 1e3)
+    print(f"[4k] config 2 at max_inflight=8: {acc}/{len(bag)} scans "
+          f"accepted, the dispatch loop under sync-debug \"error\" (drains "
+          f"wait on their step's event); ATE {ate:.4f} m (synchronous "
+          f"{sync_numbers['ate']:.4f}, odometry {odom:.4f}); first 20 "
+          f"poses within {dev20:.2e} of the synchronous run's, all within "
+          f"5 mm up to scan {split}, at most {dx:.4f} m apart along the "
+          f"corridor, {dy:.4f} m across it and {dth:.5f} rad in heading; "
+          f"{ms:.3f} ms/scan median (synchronous {sync_numbers['ms']:.3f}); "
+          f"dispatch loop {dispatch:.3f} s, session {wall:.3f} s; launches "
+          f"{launches}")
+    return launches, dict(ms=ms, ate=ate)
+
+
+def phase_pipelined_office(cfg, bag, dev, sync):
+    """Config 3 at max_inflight = 8 (the office loop with radius loop
+    closure): >= 1 closure, >= 1 optimization, final ATE below odometry's;
+    printed beside the synchronous run's numbers."""
+    import numpy as np
+
+    from ndt_2d_tpu_torch.mapping.mapper import Mapper
+    from ndt_2d_tpu_torch.utils import metrics
+    mapper = Mapper(pipelined(cfg), device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    stats, grid, dt, _, acc_flags, _ = run_session(cfg, bag, dev,
+                                                   mapper=mapper)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    acc = stats["scans_accepted"]
+    st = mapper.stats
+    used = bag.truth[np.nonzero(acc_flags)[0]]
+    final = metrics.ate_rmse(mapper.graph.poses[:acc], used)
+    odom = metrics.ate_rmse(bag.odom, bag.truth)
+    require(st.loop_closures_accepted >= 1, "pipelined config 3: no closure")
+    require(st.optimizations >= 1, "pipelined config 3: no optimization")
+    require(np.isfinite(final) and final < odom, f"pipelined config 3: "
+            f"final ATE {final} not below odometry's {odom}")
+    require(k13_launches(launches) == 2 * (acc - 1),
+            f"pipelined config 3: K13 launched {k13_launches(launches)} "
+            f"times for {acc} accepted scans")
+    ms = float(np.median(dt[acc_flags][4:]) * 1e3)
+    print(f"[4l] config 3 at max_inflight=8: {acc}/{len(bag)} scans "
+          f"accepted, {st.loop_closures_accepted} closures accepted "
+          f"({sync['closures']} synchronous), {st.loop_closures_rejected} "
+          f"rejected, {st.optimizations} optimizations "
+          f"({sync['optimizations']}); ATE online "
+          f"{stats['ate_rmse_m']:.4f} final {final:.4f} m (synchronous "
+          f"{sync['final']:.4f}, odometry {odom:.4f}); {ms:.3f} ms per "
+          f"accepted scan (synchronous {sync['ms']:.3f}); session "
+          f"{wall:.2f} s; launches {launches}")
+    return launches
+
+
+class AsyncStepRecorder:
+    """Keeps the arguments and resulting state of a filter's first
+    ``keep`` ``step_async`` calls."""
+
+    def __init__(self, flt, keep: int):
+        self.flt, self.keep, self.steps = flt, keep, []
+        self.real = flt.step_async
+
+    def __call__(self, matcher, control, points, point_mask, num_points):
+        handle = self.real(matcher, control, points, point_mask, num_points)
+        if len(self.steps) < self.keep:
+            self.steps.append(((control, points, point_mask, num_points),
+                               self.flt.particles.clone(),
+                               self.flt._n_dev.clone()))
+        return handle
+
+    def __enter__(self):
+        self.flt.step_async = self
+        return self
+
+    def __exit__(self, *exc):
+        del self.flt.step_async
+
+
+def track_deferred(loc, scans, rel):
+    """Run (t, msg, odom) scans through a pipelined ``loc``; after the
+    flush, the position errors of the accepted scans against ``rel``, their
+    indices and the seconds of every process_scan."""
+    import numpy as np
+    futs, times = [], []
+    for t, msg, odom in scans:
+        t0 = time.perf_counter()
+        res = loc.process_scan(msg, odom)
+        times.append(time.perf_counter() - t0)
+        if res.accepted:
+            futs.append((t, res.pose_future))
+    loc.flush()
+    errs = [float(np.hypot(*(f.result()[:2] - rel[t][:2]))) for t, f in futs]
+    return (np.asarray(errs), np.asarray([t for t, _ in futs]),
+            np.asarray(times))
+
+
+def phase_pipelined_config4(path_map, dev, sync_ms):
+    """Config 4 at max_inflight = 8: the particle filter (mean error <=
+    0.10 m and below odometry's; its first three steps replayed through
+    ``step`` by a filter of the same seed with the same controls give the
+    same particles and n_active bitwise), then scan-match localization
+    (mean error <= 0.12 m)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.io.bag import record_synthetic
+    from ndt_2d_tpu_torch.utils import metrics
+    mapping, cfg = config4_configs()
+    loc_bag = record_synthetic("box", 150, n_beams=360, seed=7,
+                               odom_trans_noise=0.01)
+    rel = metrics.relative_to_first(loc_bag.truth)
+    odom_rel = metrics.relative_to_first(loc_bag.odom)
+    scans = [(t, msg, odom) for t, (msg, odom) in enumerate(loc_bag)
+             if t > 0]
+    init = (rel[0], np.diag([0.04, 0.04, 0.01]), loc_bag.truth[0])
+    reset_counts()
+    loc = localizer(pipelined(cfg), path_map, dev, 3)
+    loc.set_initial_pose(*init)
+    with AsyncStepRecorder(loc.filter, 3) as rec:
+        errs, ts, times = track_deferred(loc, scans, rel)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    steps = len(errs)
+    odom_err = float(np.mean(np.hypot(*(odom_rel[ts, :2] - rel[ts, :2]).T)))
+    mean_err = float(np.mean(errs))
+    require(steps >= 50, f"pipelined PF accepted {steps} of {len(scans)} "
+            "scans")
+    for k in ("score_points_batch", "pf_motion", "pf_resample"):
+        require(launches[k] == steps, f"pipelined PF: {k} launched "
+                f"{launches[k]} times, expected {steps}")
+    require(np.isfinite(errs).all() and mean_err <= 0.10,
+            f"pipelined PF mean error {mean_err} > 0.10 m")
+    require(mean_err < odom_err, f"pipelined PF mean error {mean_err} not "
+            f"below odometry's {odom_err}")
+    # The same seed and controls through the synchronous entry point.
+    ref = localizer(cfg, path_map, dev, 3)
+    ref.set_initial_pose(*init)
+    ref._ensure_matchers(loc_bag.range_max)
+    for i, (args, particles, n) in enumerate(rec.steps):
+        ref.filter.step(ref.global_matcher, *args)
+        require(torch.equal(ref.filter.particles, particles)
+                and ref.filter.n_active == int(n[0]),
+                f"pipelined PF step {i} differs from step() with the same "
+                "seed and controls")
+    ms = float(np.median(times[2:]) * 1e3)
+    print(f"[4m] config 4 at max_inflight=8: PF {PARTICLES} particles over "
+          f"{steps} accepted of {len(scans)} scans: mean position error "
+          f"{mean_err:.4f} m, final "
+          f"{float(errs[-1]):.4f} m (odometry {odom_err:.4f} m), {ms:.3f} "
+          f"ms/scan median (synchronous {sync_ms['pf']:.3f}); its first "
+          f"{len(rec.steps)} steps replayed through step() give the same "
+          f"particles and n_active {[int(n[0]) for _, _, n in rec.steps]} "
+          f"bitwise; launches {launches}")
+
+    reset_counts()
+    sm = localizer(pipelined(dataclasses.replace(mapping,
+                                                 enable_mapping=False)),
+                   path_map, dev, 0)
+    sm.set_initial_pose(*init)
+    serrs, _, stimes = track_deferred(sm, scans, rel)
+    sm_launches = read_counts()
+    sm_mean = float(np.mean(serrs))
+    require(len(serrs) == steps and sm_mean <= 0.12,
+            f"pipelined scan-match: {len(serrs)} scans, mean error "
+            f"{sm_mean} m")
+    require(k13_launches(sm_launches) == 2 * len(serrs),
+            f"pipelined scan-match: K13 launches {sm_launches}")
+    sms = float(np.median(stimes[2:]) * 1e3)
+    print(f"[4m] scan-match at max_inflight=8: mean position error "
+          f"{sm_mean:.4f} m, final {float(serrs[-1]):.4f} m, {sms:.3f} "
+          f"ms/scan median (synchronous {sync_ms['sm']:.3f}); launches "
+          f"{sm_launches}")
+
+
+def config9():
+    """BASELINE config 9 as benchmarks/run_benchmarks.py:732-761 sets it
+    up: the simlab CARMEN log at range_max 10, max_inflight 8, gate 1.0,
+    3-scan regions, both search positions, Geman-McClure, the global
+    matcher at 0.35 m cells with 8 Newton iterations."""
+    import dataclasses
+
+    from ndt_2d_tpu_torch.config import (
+        MapperConfig, ScanMatcherConfig, SolverConfig)
+    m = ScanMatcherConfig(grid_cells_x=192, grid_cells_y=192)
+    g = ScanMatcherConfig(ndt_resolution=0.35, search_linear_size=0.15,
+                          search_linear_resolution=0.01,
+                          search_angular_size=0.05, grid_cells_x=160,
+                          grid_cells_y=160, refine_iterations=8)
+    return MapperConfig(
+        local_scan_matcher=m, global_scan_matcher=g, max_points_per_scan=512,
+        global_search_size=4.0, optimization_node_limit=10,
+        loop_closure_every=20, minimum_travel_distance=0.3, max_range=10.0,
+        max_inflight=8, loop_closure_gate_scale=1.0,
+        loop_closure_region_size=3, loop_search_positions="both",
+        solver=dataclasses.replace(SolverConfig(),
+                                   robust_loss="geman_mcclure"))
+
+
+def phase_config9(dev):
+    """BASELINE config 9 (run_benchmarks.py:700-815): the committed simlab
+    log through the port's CARMEN importer, mapped pipelined as the
+    reference runs it.  Gates: >= 1 closure, >= 1 optimization, final ATE
+    below the odometry ATE of the same run."""
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.io import carmen
+    from ndt_2d_tpu_torch.mapping.mapper import Mapper
+    from ndt_2d_tpu_torch.utils import metrics
+    bag = carmen.load_carmen(os.path.join(ROOT, "datasets",
+                                          "simlab.clf.gz"), range_max=10.0)
+    truth = np.load(os.path.join(ROOT, "datasets",
+                                 "simlab_truth.npz"))["truth"]
+    n = len(bag)
+    require(len(truth) == n, f"simlab truth {len(truth)} vs log {n}")
+    mapper = Mapper(config9(), device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    est, used, times = [], [], []
+    t0 = time.perf_counter()
+    for t in range(n):
+        msg, odom = bag[t]
+        t1 = time.perf_counter()
+        res = mapper.process_scan(msg, odom)
+        if res.accepted:
+            times.append(time.perf_counter() - t1)
+            est.append(res.pose if res.pose is not None else res.pose_future)
+            used.append(truth[t])
+    mapper.flush()
+    mapper.loop_closure()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    est = np.stack([e if isinstance(e, np.ndarray) else e.result()
+                    for e in est])
+    used = np.asarray(used)
+    st = mapper.stats
+    closures = int(mapper.graph.constraint_switchable.sum())
+    online = metrics.ate_rmse(est, used)
+    final_poses = mapper.graph.poses[:len(used)]
+    final = metrics.ate_rmse(final_poses, used)
+    aligned = metrics.ate_rmse_aligned(final_poses, used)
+    odom = metrics.ate_rmse(bag.odom[:n], truth[:n])
+    require(closures >= 1, "config 9: no loop closure")
+    require(st.optimizations >= 1, "config 9: no optimization")
+    require(np.isfinite(final) and final < odom,
+            f"config 9: final ATE {final} not below odometry's {odom}")
+    require(k13_launches(launches) >= 2 * (len(used) - 1),
+            f"config 9: K13 launches {launches}")
+    ms = float(np.median(times[3:]) * 1e3)
+    timing = st.timer.summary()
+    print(f"[4n] config 9 (simlab, {n} scans through the CARMEN importer, "
+          f"max_inflight=8): {len(used)} accepted, {closures} closures, "
+          f"{st.loop_closures_rejected} rejected, {st.optimizations} "
+          f"optimizations; ATE online {online:.4f} final {final:.4f} m "
+          f"(aligned {aligned:.4f}, odometry {odom:.4f}); {ms:.3f} ms per "
+          f"accepted scan (median), loop_closure "
+          f"{timing['loop_closure']['mean_ms']:.3f} ms x "
+          f"{timing['loop_closure']['count']}, optimize "
+          f"{timing['optimize']['mean_ms']:.3f} ms x "
+          f"{timing['optimize']['count']}; session {wall:.2f} s; launches "
+          f"{launches}")
+
+
+def correlative_box_config():
+    """The mapper configuration of tests/test_correlative.py:68-99's box
+    drive: the correlative matcher with a wider local lattice (+-0.15 m at
+    0.0075 m) on 160x160 cells."""
+    import dataclasses
+
+    from ndt_2d_tpu_torch.config import MapperConfig, ScanMatcherConfig
+    g = ScanMatcherConfig(grid_cells_x=128, grid_cells_y=128)
+    local = dataclasses.replace(g, grid_cells_x=160, grid_cells_y=160,
+                                search_linear_size=0.15,
+                                search_linear_resolution=0.0075)
+    return MapperConfig(scan_matcher_type="correlative",
+                        local_scan_matcher=local, global_scan_matcher=g,
+                        max_points_per_scan=512, loop_closure_every=10**9)
+
+
+def correlative_box(dev):
+    """The box drive of tests/test_correlative.py:68-99 with the
+    correlative matcher: (accepted, scans, ATE, odometry ATE)."""
+    import numpy as np
+
+    from ndt_2d_tpu_torch.mapping.mapper import Mapper
+    from ndt_2d_tpu_torch.utils import metrics, sim
+    world = sim.make_box_world(10.0, 8.0)
+    n = 14
+    truth = np.stack([np.linspace(3.0, 6.5, n), np.full(n, 4.0),
+                      np.zeros(n)], -1)
+    odom = sim.drift_odometry(truth, 0.04, 0.012, seed=3)
+    mapper = Mapper(correlative_box_config(), device=dev)
+    est, tru = [], []
+    for t in range(n):
+        msg = sim.scan_at_pose(world, truth[t], n_beams=360, range_max=12.0,
+                               noise=0.01, rng=np.random.default_rng(t))
+        res = mapper.process_scan(msg, odom[t])
+        if res.accepted:
+            est.append(res.pose)
+            tru.append(truth[t])
+    return (len(est), n, metrics.ate_rmse(np.asarray(est), np.asarray(tru)),
+            metrics.ate_rmse(odom, truth))
+
+
+def phase_correlative(cfg, bag, dev):
+    """The correlative matcher in the mapper: the box drive of the JAX
+    test (>= 12 of 14 accepted, ATE below odometry's and < 0.15 m, one
+    field build, lattice search and point score a matched scan), then the
+    config-2 corridor with scan_matcher_type="correlative" and the widened
+    local lattice, printed and not gated."""
+    import dataclasses
+
+    import numpy as np
+    reset_counts()
+    acc, n, ate, odom = correlative_box(dev)
+    launches = read_counts()
+    require(acc >= 12, f"correlative box: {acc} of {n} accepted")
+    require(ate < odom and ate < 0.15,
+            f"correlative box ATE {ate} (odometry {odom})")
+    for k in ("correlative_field", "correlative_match", "correlative_score"):
+        require(launches[k] == acc - 1, f"correlative box: {k} launched "
+                f"{launches[k]} times, expected {acc - 1}")
+    require(launches["ndt_build"] == 0 and launches["candidate_scores"] == 0,
+            f"correlative box ran an NDT kernel: {launches}")
+    print(f"[4o] correlative matcher, box drive: {acc}/{n} accepted, ATE "
+          f"{ate:.4f} m (odometry {odom:.4f}); launches {launches}")
+    local = dataclasses.replace(cfg.local_scan_matcher,
+                                search_linear_size=0.15,
+                                search_linear_resolution=0.0075)
+    ccfg = dataclasses.replace(cfg, scan_matcher_type="correlative",
+                               local_scan_matcher=local)
+    reset_counts()
+    stats, _, dt, _, _, _ = run_session(ccfg, bag, dev)
+    corridor = read_counts()
+    print(f"[4o] correlative matcher, config-2 corridor (local lattice "
+          f"+-0.15 m at 0.0075 m, not gated): {stats['scans_accepted']}/"
+          f"{len(bag)} accepted, ATE {stats['ate_rmse_m']:.4f} m "
+          f"(odometry {stats['odom_ate_rmse_m']:.4f}), "
+          f"{float(np.median(dt[4:]) * 1e3):.3f} ms/scan median; launches "
+          f"{corridor}")
+    return launches
+
+
 def profile_sessions(dev, warmup: int = 20) -> None:
     """``--profile``: the mapping sessions of [4a], [4f], [4c], [4g] and
-    [4h],
-    each with ``torch.profiler`` over every scan after the first
-    ``warmup``; one JSON line each: wall and device-busy ms per accepted
-    scan (busy = the union of the kernel and copy intervals), the device's
-    idle share, and the kernels by device time."""
+    [4h], the pipelined ones of [4k], [4l] and [4n], and config 4's filter
+    synchronous and pipelined ([4d], [4m]), each with ``torch.profiler``
+    over every scan after the first ``warmup`` and the final flush; one
+    JSON line each: wall and device-busy ms per accepted scan (busy = the
+    union of the kernel and copy intervals), the device's idle share, and
+    the kernels by device time."""
+    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from ndt_2d_tpu_torch.io import carmen
+    from ndt_2d_tpu_torch.io.bag import record_synthetic
     from ndt_2d_tpu_torch.mapping.mapper import Mapper
+    from ndt_2d_tpu_torch.utils import metrics
     bag, cfg2, _, _, _ = inputs(dev)
     bag3 = office_bag()
-    for name, cfg, b in (("config 2", cfg2, bag), ("config 8", config8(cfg2),
-                                                   bag),
-                         ("config 3", office_config(), bag3),
-                         ("office recipe", office_recipe_config(), bag3),
-                         ("config 6", config6(), bag3)):
-        mapper = Mapper(cfg, device=dev)
+    bag9 = carmen.load_carmen(os.path.join(ROOT, "datasets",
+                                           "simlab.clf.gz"), range_max=10.0)
+    loc_bag = record_synthetic("box", 150, n_beams=360, seed=7,
+                               odom_trans_noise=0.01)
+    tmp = tempfile.mkdtemp()
+    map4 = os.path.join(tmp, "box_map.npz")
+    map_and_save(config4_configs()[0],
+                 record_synthetic("box", 150, n_beams=360, seed=2), map4, dev)
+    _, pf4 = config4_configs()
+    init = (metrics.relative_to_first(loc_bag.truth)[0],
+            np.diag([0.04, 0.04, 0.01]), loc_bag.truth[0])
+
+    def mapping(cfg):
+        return lambda: Mapper(cfg, device=dev)
+
+    def filtering(cfg):
+        def make():
+            loc = localizer(cfg, map4, dev, 3)
+            loc.set_initial_pose(*init)
+            return loc
+        return make
+    sessions = (
+        ("config 2", mapping(cfg2), bag),
+        ("config 2 pipelined", mapping(pipelined(cfg2)), bag),
+        ("config 8", mapping(config8(cfg2)), bag),
+        ("config 3", mapping(office_config()), bag3),
+        ("config 3 pipelined", mapping(pipelined(office_config())), bag3),
+        ("office recipe", mapping(office_recipe_config()), bag3),
+        ("config 6", mapping(config6()), bag3),
+        ("config 9 (pipelined)", mapping(config9()), bag9),
+        ("config 4 filter", filtering(pf4), loc_bag),
+        ("config 4 filter pipelined", filtering(pipelined(pf4)), loc_bag))
+    for name, make, b in sessions:
+        mapper = make()
         scans = list(b)
         for msg, odom in scans[:warmup]:
             mapper.process_scan(msg, odom)
+        mapper.flush()
         torch.cuda.synchronize()
         accepted = 0
         with profile(activities=[ProfilerActivity.CPU,
@@ -2498,6 +3220,7 @@ def profile_sessions(dev, warmup: int = 20) -> None:
             t0 = time.perf_counter()
             for msg, odom in scans[warmup:]:
                 accepted += mapper.process_scan(msg, odom).accepted
+            mapper.flush()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         spans, kernels = [], {}
@@ -2520,6 +3243,8 @@ def profile_sessions(dev, warmup: int = 20) -> None:
             "device_ms_per_accepted": busy / 1e3 / max(accepted, 1),
             "idle_share": 1.0 - busy / 1e6 / wall,
             "kernels_ms": {k: [round(v[0], 3), v[1]] for k, v in top}}))
+    import shutil
+    shutil.rmtree(tmp)
 
 
 def main() -> int:
@@ -2552,17 +3277,23 @@ def main() -> int:
         timing.update(phase_k6(cfg6, bag3, dev))
         timing.update(phase_k10(cfg6, bag3, dev))
         phase_chain(cfg6, bag3, dev)
+        timing.update(phase_k13(bag, dev))
+        timing.update(phase_k11(cfg, bag, win, query, dev))
         bag4 = record_synthetic("box", 150, n_beams=360, seed=2)
         with tempfile.TemporaryDirectory() as tmp:
             map4 = os.path.join(tmp, "box_map.npz")
             keyframes = map_and_save(config4_configs()[0], bag4, map4, dev)
             timing.update(phase_pf_kernels(map4, bag4, dev))
-            _, config2 = phase_session(cfg, bag, dev)
+            _, config2, sync_poses = phase_session(cfg, bag, dev)
+            c2p_launches, _ = phase_pipelined_config2(cfg, bag, dev, config2,
+                                                      sync_poses)
             c8_launches = phase_config8(cfg, bag, dev, config2)
             district_launches = phase_district_solve(truth, district, dev)
             launches, plain3 = phase_office(cfg3, bag3, dev)
+            phase_pipelined_office(cfg3, bag3, dev, plain3)
             phase_office(office_recipe_config(), bag3, dev, "[4g]", plain3)
-            pf_launches = phase_config4(map4, keyframes, dev)
+            pf_launches, sync4 = phase_config4(map4, keyframes, dev)
+            phase_pipelined_config4(map4, dev, sync4)
             phase_config7(os.path.join(tmp, "office_map.npz"), dev)
         c6_launches, c6_timing = phase_descriptor_session(
             cfg6, bag3, dev, "[4h]", "config 6")
@@ -2572,6 +3303,8 @@ def main() -> int:
                                  f"drift recipe ({DRIFT_SCANS} scans)",
                                  need_far=True)
         merge_launches = phase_merge(dev)
+        phase_config9(dev)
+        corr_launches = phase_correlative(cfg, bag, dev)
         require("jax" not in sys.modules, "jax was imported")
     except SmokeFailure as e:
         print(f"FAIL: {e}")
@@ -2595,6 +3328,12 @@ def main() -> int:
     for k in DESCRIPTOR_KERNELS:
         launches[k] = c6_launches[k]
     launches["candidate_gather_merge"] = merge_launches["candidate_gather"]
+    # K13 from the pipelined config-2 session, K11 from the correlative box
+    # drive.
+    for k in ("pose_compose", "pose_apply"):
+        launches[k] = c2p_launches[k]
+    for k in ("correlative_field", "correlative_match", "correlative_score"):
+        launches[k] = corr_launches[k]
     # K1/K2 times and errors at config-3 confirmation shapes (64 rows);
     # the config-2 single-window ones are printed at [3].
     for k in ("ndt_build", "candidate_scores"):

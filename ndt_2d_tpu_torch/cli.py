@@ -1,5 +1,5 @@
-"""Command-line interface of the port: ``simulate``, ``run``, ``localize``
-and ``merge-maps``.
+"""Command-line interface of the port: ``simulate``, ``import-carmen``,
+``run``, ``localize`` and ``merge-maps``.
 
   python -m ndt_2d_tpu_torch.cli simulate --world corridor --scans 200 \\
       --beams 600 --out bag.npz
@@ -9,6 +9,10 @@ and ``merge-maps``.
   python -m ndt_2d_tpu_torch.cli localize --bag bag.npz --map map.npz \\
       --particle-filter --pf.max_particles 5000
   python -m ndt_2d_tpu_torch.cli run --bag bag.npz --recipe drift
+  python -m ndt_2d_tpu_torch.cli import-carmen \
+      --log datasets/simlab.clf.gz --range-max 10 --out simlab.npz
+  python -m ndt_2d_tpu_torch.cli run --bag simlab.npz --recipe simlab \
+      --max-inflight 8
   python -m ndt_2d_tpu_torch.cli merge-maps --map-a a.npz --map-b b.npz \
       --out merged.npz
 
@@ -23,10 +27,14 @@ reference CLI's measured presets ``office``, ``office-descriptor``,
 ``simlab`` and ``drift``; an explicit flag overrides its preset value), and
 for ``localize`` ``--map``,
 ``--particle-filter``, ``--global-init`` and the ``--pf.*`` filter
-parameters.  ``localize``
+parameters.  ``--max-inflight N`` pipelines ``run`` and ``localize`` (the
+pose chain stays on the device, up to N steps in flight), and
+``--scan-matcher-type correlative`` swaps the NDT matchers for the
+correlative one.  ``localize``
 starts from the bag's first true pose (or its origin), or with
 ``--global-init`` from a particle cloud over the map's free space.
-``merge-maps`` aligns and fuses two saved maps (``mapping/merge.py``).  All
+``merge-maps`` aligns and fuses two saved maps (``mapping/merge.py``);
+``import-carmen`` converts a CARMEN log (``io/carmen.py``) to a bag.  All
 run on the CUDA device unless ``--device cpu`` is given.
 """
 
@@ -42,7 +50,7 @@ import numpy as np
 
 from ndt_2d_tpu_torch.config import (
     MapperConfig, ParticleFilterConfig, ScanMatcherConfig, SolverConfig)
-from ndt_2d_tpu_torch.io import serialization
+from ndt_2d_tpu_torch.io import carmen, serialization
 from ndt_2d_tpu_torch.io.bag import load_bag, record_synthetic, save_bag
 from ndt_2d_tpu_torch.utils import metrics
 
@@ -70,7 +78,8 @@ _MAPPER_FLAGS = ("loop_closure_every", "max_points_per_scan",
                  "loop_search_positions", "loop_search",
                  "descriptor_min_similarity", "loop_closure_far_dedup",
                  "loop_closure_reject_cache_margin",
-                 "loop_closure_max_far_rows")
+                 "loop_closure_max_far_rows", "max_inflight",
+                 "scan_matcher_type")
 
 
 # The reference CLI's measured loop-closure presets (ndt_2d_tpu/cli.py:
@@ -209,6 +218,24 @@ def cmd_localize(args) -> int:
     return _replay(args, mapper, bag)
 
 
+def cmd_import_carmen(args) -> int:
+    """Convert a CARMEN log to a scan bag (ndt_2d_tpu/cli.py:365-380)."""
+    report = carmen.CarmenReport()
+    bag = carmen.load_carmen(args.log, fov_degrees=args.fov_degrees,
+                             range_max=args.range_max,
+                             use_laser_pose=not args.robot_odom,
+                             time_increment=args.time_increment,
+                             report=report)
+    save_bag(bag, args.out)
+    print(json.dumps({"out": args.out, "scans": len(bag),
+                      "beams": int(bag.ranges.shape[1]),
+                      "range_max": bag.range_max,
+                      "config": list(report.kept_config),
+                      "skipped_lines": report.skipped,
+                      "has_timestamps": bag.times is not None}))
+    return 0
+
+
 def cmd_merge_maps(args) -> int:
     """Align map B to map A, fuse the graphs and save the merged map."""
     from ndt_2d_tpu_torch.mapping import merge
@@ -243,7 +270,8 @@ def _replay(args, mapper, bag) -> int:
     from ndt_2d_tpu_torch.mapping.mapper import SAVE_TO_FILE
 
     def progress(t, res):
-        if args.verbose and res.accepted:
+        # A pipelined scan's pose is still in flight: nothing to print.
+        if args.verbose and res.pose is not None:
             print(f"scan {t}: pose={np.round(res.pose, 3)} "
                   f"score={res.matched_score:.3f}", file=sys.stderr)
 
@@ -281,6 +309,20 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", required=True)
     p.set_defaults(fn=cmd_simulate)
+
+    p = sub.add_parser("import-carmen",
+                       help="convert a CARMEN .log/.clf dataset to a scan "
+                            "bag")
+    p.add_argument("--log", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--fov-degrees", type=float, default=180.0)
+    p.add_argument("--range-max", type=float, default=None)
+    p.add_argument("--robot-odom", action="store_true",
+                   help="use the robot odometry columns instead of the "
+                        "laser pose")
+    p.add_argument("--time-increment", type=float, default=0.0,
+                   help="per-beam time (s) for motion de-skew (0 = none)")
+    p.set_defaults(fn=cmd_import_carmen)
 
     for name, localize in (("run", False), ("localize", True)):
         p = sub.add_parser(name, help="replay a bag, " + (
@@ -341,6 +383,15 @@ def _add_session_args(p: argparse.ArgumentParser) -> None:
                    dest="global_search_limit")
     p.add_argument("--optimization-node-limit", type=int, default=None,
                    dest="optimization_node_limit")
+    p.add_argument("--max-inflight", type=int, default=None,
+                   dest="max_inflight",
+                   help="pipelined mapping and localization: the pose chain "
+                        "stays on the device with up to N steps in flight "
+                        "(0 = synchronous, the default)")
+    p.add_argument("--scan-matcher-type", default=None,
+                   dest="scan_matcher_type",
+                   help="matcher plugin (ndt_mapper.cpp:91-92): ndt, "
+                        "ndt_newton or correlative")
     _add_matcher_args(p, "local_scan_matcher")
     _add_matcher_args(p, "global_scan_matcher")
     p.add_argument("--loop-search", choices=["radius", "descriptor", "both"],

@@ -11,6 +11,7 @@ import shutil
 import subprocess
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -27,6 +28,57 @@ def get_device(device: Optional[Union[str, torch.device]] = None
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def upload(array, device: torch.device) -> torch.Tensor:
+    """A host array as a new tensor on ``device``.  To a CUDA device the
+    copy is non-blocking, from a pinned staging copy, so it never waits
+    for the stream (PyTorch's host allocator keeps the staging buffer until
+    the copy has run)."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type != "cuda":
+        return t.clone()
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+class HostCopy:
+    """A device tensor on its way to the host: a non-blocking copy into a
+    pinned buffer and one CUDA event after it.  The source stays referenced
+    until the event has completed.  A CPU tensor is copied at once."""
+
+    def __init__(self, flat: torch.Tensor):
+        self.event = None
+        if flat.device.type == "cuda":
+            self.host = torch.empty(flat.shape, dtype=flat.dtype,
+                                    pin_memory=True)
+            self.host.copy_(flat, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+            self._source = flat
+        else:
+            self.host = flat.clone()
+
+    def wait(self) -> np.ndarray:
+        """The host values, after waiting on this copy's event alone."""
+        if self.event is not None:
+            self.event.synchronize()
+            self.event = self._source = None
+        return self.host.numpy()
+
+    def future(self, index) -> "HostFuture":
+        """A future of ``wait()[index]``."""
+        return HostFuture(self, index)
+
+
+class HostFuture:
+    """Part of a ``HostCopy``: ``result()`` waits for the copy and returns
+    the part as float64."""
+
+    def __init__(self, copy: HostCopy, index):
+        self.copy, self.index = copy, index
+
+    def result(self) -> np.ndarray:
+        return np.asarray(self.copy.wait()[self.index], np.float64)
 
 
 def card_identity() -> str:

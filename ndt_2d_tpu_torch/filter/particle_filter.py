@@ -8,6 +8,10 @@ over all particles (``matcher.score_points_batch``) and K9's resample
 chain, with no host sync between them; the host reads n_active, the mean
 and the covariance once per scan.  ``pf_step_recovery`` adds the AMCL
 w_slow/w_fast EWMAs and the free-space injection inside the same chain.
+``ParticleFilter.step_async`` dispatches a step without that read (the
+particles, weights, active count and EWMAs chain on the device, the
+statistics copy to the host in flight) and ``resolve_async`` waits for
+it; ``step`` is the two back to back.
 
 Random numbers come from a ``torch.Generator`` on the filter's device,
 seeded from ``seed``; each step draws its ``Draws`` in a fixed order and
@@ -30,7 +34,7 @@ import numpy as np
 import torch
 
 from ndt_2d_tpu_torch.core.pose import normalize_angle_exact
-from ndt_2d_tpu_torch.device import get_device
+from ndt_2d_tpu_torch.device import HostCopy, get_device, upload
 from ndt_2d_tpu_torch.filter import motion_model
 from ndt_2d_tpu_torch.kernels import particle_filter as k9
 from ndt_2d_tpu_torch.matching import matcher as matcher_mod
@@ -95,7 +99,7 @@ def _n_tensor(n, device) -> torch.Tensor:
     """n_active as the kernels take it: an int32 tensor [1]."""
     if isinstance(n, torch.Tensor):
         return n.reshape(1).to(device=device, dtype=torch.int32)
-    return torch.tensor([int(n)], dtype=torch.int32, device=device)
+    return upload(np.asarray([int(n)], np.int32), device)
 
 
 def update_statistics(particles, weights, n):
@@ -192,6 +196,10 @@ class ParticleFilter:
         self.weights = torch.full((m,), 1.0 / config.min_particles,
                                   device=self.device)
         self.n_active = config.min_particles
+        # The device-resident active count that step_async leaves, so the
+        # next step reads it without waiting for the host (None: use
+        # n_active).
+        self._n_dev = None
         # AMCL recovery: the free-space pool and (w_slow, w_fast), chained
         # on the device; 0 = unset (the first measurement seeds both).
         self.free_xy = None
@@ -201,18 +209,30 @@ class ParticleFilter:
 
     # ------------------------------------------------------------------
     def _n(self) -> torch.Tensor:
+        if self._n_dev is not None:
+            return self._n_dev
         return _n_tensor(self.n_active, self.device)
 
     def _take(self, particles, weights, stats) -> None:
         """Adopt a step's state; one device->host read of its statistics
         (n_active, mean, covariance)."""
         self.particles, self.weights = particles, weights
-        host = stats.cpu().numpy().astype(np.float64)
+        self._n_dev = None
+        self._resolve(stats.cpu().numpy())
+
+    def _resolve(self, stats) -> np.ndarray:
+        """Host statistics from a step's [13] (n, mean, covariance);
+        returns the mean."""
+        host = np.asarray(stats, np.float64)
         self.n_active = int(host[0])
         self._mean = host[1:4]
         self._cov = host[4:].reshape(3, 3)
+        return self.get_mean()
 
     def _refresh_statistics(self) -> None:
+        # A count left on the device by step_async is stale once the host
+        # has set n_active (init_global): recompute over the host's count.
+        self._n_dev = None
         r = k9.statistics(self.particles, self.weights, self._n())
         self._take(r.particles, r.normalized, r.stats)
 
@@ -335,15 +355,17 @@ class ParticleFilter:
         self._take(r.particles, r.normalized, r.stats)
 
     def _scan(self, points, point_mask):
-        return (torch.as_tensor(np.asarray(points, np.float32),
-                                device=self.device),
-                torch.as_tensor(np.asarray(point_mask, bool),
-                                device=self.device))
+        return (upload(np.asarray(points, np.float32), self.device),
+                upload(np.asarray(point_mask, bool), self.device))
 
-    def step(self, matcher, control, points, point_mask, num_points):
-        """Fused per-scan update (pf_step, or pf_step_recovery when armed):
-        no host sync inside, one read of (n_active, mean, cov) at the end.
-        Returns the mean pose."""
+    def step_async(self, matcher, control, points, point_mask,
+                   num_points) -> HostCopy:
+        """Dispatch one fused scan update (pf_step, or pf_step_recovery when
+        armed) without reading anything back: particles, weights, the
+        active count and (w_slow, w_fast) chain on the device, and the
+        step's statistics start their copy to the host.  Pass the returned
+        handle to ``resolve_async``.  Draws from ``gen`` in ``step``'s
+        order."""
         if matcher.grid is None:
             raise ValueError("the particle filter needs a map to measure "
                              "against")
@@ -361,8 +383,21 @@ class ParticleFilter:
             self.w_state = r.w_state
         else:
             r = pf_step(*args)
-        self._take(r.particles, r.weights, r.stats)
-        return self.get_mean()
+        self.particles, self.weights, self._n_dev = r.particles, r.weights, \
+            r.n
+        return HostCopy(r.stats)
+
+    def resolve_async(self, handle: HostCopy) -> np.ndarray:
+        """Wait for a ``step_async`` handle's copy and adopt its statistics
+        (n_active, mean, covariance); returns the mean pose."""
+        return self._resolve(handle.wait())
+
+    def step(self, matcher, control, points, point_mask, num_points):
+        """Fused per-scan update: ``step_async`` then ``resolve_async``, no
+        host sync inside, one read of (n_active, mean, cov) at the end.
+        Returns the mean pose."""
+        return self.resolve_async(self.step_async(
+            matcher, control, points, point_mask, num_points))
 
     # ------------------------------------------------------------------
     def get_mean(self) -> np.ndarray:

@@ -1,0 +1,314 @@
+"""K11: the correlative matcher's field build, lattice search and point
+score (CUDA ``csrc/correlative.cu``) and their plain-PyTorch twins.
+
+Replaces ``ndt_2d_tpu/matching/correlative.py``'s ``build_field`` (:38),
+``match_scan_field`` (:76) and ``score_points_field`` (:108).  The field is
+a blurred hit count of the window's points, normalized to a peak of 1; a
+candidate pose scores minus the field values under its subsampled beams.
+
+The lattice search has K6's interface (``kernels/candidate_gather.py``):
+``match_rows`` over R rows, ``match`` at R = 1, both returning the [R, 13]
+output rows ``candidate_scores.unpack`` reads, reduced by K6's tiles.  The
+twins add in the kernels' orders (the blur's 7 taps in index order, each
+candidate's beams from 0 and the Olson sums per 256-offset tile, each
+pose's beams lane by lane then halving), so on the same CUDA inputs kernel
+and twin agree bitwise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ndt_2d_tpu_torch.core import pose as pose_ops
+from ndt_2d_tpu_torch.kernels import _build
+from ndt_2d_tpu_torch.kernels import candidate_scores as k2
+from ndt_2d_tpu_torch.kernels.candidate_gather import TILE
+from ndt_2d_tpu_torch.kernels.candidate_scores import MatchResult
+from ndt_2d_tpu_torch.kernels.ndt_build import window_origin
+from ndt_2d_tpu_torch.kernels.score_points import lane_tree_sum, subsample
+from ndt_2d_tpu_torch.ndt.grid import f32
+
+field_launches = 0
+match_launches = 0
+score_launches = 0
+
+RADIUS = 3  # blur taps: sigma 1 cell, 2 * RADIUS + 1 of them
+
+
+@functools.lru_cache(maxsize=4)
+def blur_taps(device: torch.device) -> torch.Tensor:
+    """The normalized Gaussian taps exp(-x^2 / 2) / sum, x = -3 .. 3,
+    computed once per device by torch (correlative.py:57-60)."""
+    x = torch.arange(-RADIUS, RADIUS + 1, dtype=torch.float32, device=device)
+    k = torch.exp(-0.5 * x * x)
+    return k / torch.sum(k)
+
+
+def cell_ids(poses, points, point_mask, window_mask, origin, cell_size,
+             width: int, height: int):
+    """The flat cell id of every window point that lands in the grid
+    ([N] int64), in point order."""
+    world = pose_ops.transform_points(poses, points).reshape(-1, 2)
+    mask = (point_mask & window_mask[:, None]).reshape(-1)
+    cell = f32(cell_size, poses.device)
+    ix = torch.floor((world[:, 0] - origin[0]) / cell).to(torch.int64)
+    iy = torch.floor((world[:, 1] - origin[1]) / cell).to(torch.int64)
+    ok = mask & (ix >= 0) & (iy >= 0) & (ix < width) & (iy < height)
+    return (iy * width + ix)[ok]
+
+
+def _blur(plane, taps, dim: int):
+    """One blur pass along ``dim`` of [H, W]: the 7 taps added in index
+    order from 0, zero past the edges."""
+    n = plane.shape[dim]
+    pad = [0, 0, 0, 0]
+    pad[2 * (1 - dim)] = pad[2 * (1 - dim) + 1] = RADIUS
+    padded = torch.nn.functional.pad(plane, pad)
+    acc = torch.zeros_like(plane)
+    for k in range(2 * RADIUS + 1):
+        acc = acc + taps[k] * padded.narrow(dim, k, n)
+    return acc
+
+
+def build_field_twin(poses, points, point_mask, window_mask,
+                     range_max: float, cell_size: float, width: int,
+                     height: int):
+    """Plain-PyTorch build: (field [H, W] f32, origin [2])."""
+    origin = window_origin(poses, window_mask, range_max)
+    ids = cell_ids(poses, points, point_mask, window_mask, origin, cell_size,
+                   width, height)
+    hits = torch.bincount(ids, minlength=width * height).reshape(
+        height, width).to(torch.float32)
+    taps = blur_taps(poses.device)
+    f = _blur(_blur(hits, taps, 1), taps, 0)
+    peak = torch.maximum(torch.max(f), f32(1e-6, poses.device))
+    return f / peak, origin
+
+
+def build_field(poses, points, point_mask, window_mask, range_max: float,
+                cell_size: float, width: int, height: int):
+    """The window's blurred, normalized hit field and its origin.  poses
+    [S, 3] f32, points [S, P, 2] f32, point_mask [S, P] bool, window_mask
+    [S] bool.  Returns (field [H, W] f32, origin [2] f32).  CPU tensors run
+    the twin; CUDA tensors launch the kernel."""
+    global field_launches
+    if poses.device.type == "cpu":
+        return build_field_twin(poses, points, point_mask, window_mask,
+                                range_max, cell_size, width, height)
+    dev = poses.device
+    S, P = points.shape[0], points.shape[1]
+    _build.require(poses, "poses", torch.float32, (S, 3), dev)
+    _build.require(points, "points", torch.float32, (S, P, 2), dev)
+    _build.require(point_mask, "point_mask", torch.bool, (S, P), dev)
+    _build.require(window_mask, "window_mask", torch.bool, (S,), dev)
+    C = width * height
+    hits = torch.empty(C, dtype=torch.int32, device=dev)
+    tmp = torch.empty(C, dtype=torch.float32, device=dev)
+    peak = torch.empty(1, dtype=torch.float32, device=dev)
+    origin = torch.empty(2, dtype=torch.float32, device=dev)
+    field = torch.empty(height, width, dtype=torch.float32, device=dev)
+    p = _build.ptr
+    err = _build.function(
+        "ndt2d_correlative_field",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7)(
+        p(poses), p(points), p(point_mask), p(window_mask), S, P,
+        float(range_max), float(cell_size), width, height,
+        p(blur_taps(dev)), p(hits), p(tmp), p(peak), p(origin), p(field),
+        _build.stream_ptr(dev))
+    _build.check(err, "correlative_field")
+    field_launches += 1
+    return field, origin
+
+
+def lattice_scores(config, field, origin, spts, smask, pose, dths, dls):
+    """[A, L(dx), L(dy)] candidate scores: minus the sum over the beams of
+    the field value of the cell each rotated, shifted beam falls in (0
+    outside the grid or for an unused beam), one beam at a time from 0."""
+    W, H = config.grid_cells_x, config.grid_cells_y
+    cell = f32(config.ndt_resolution, spts.device)
+    th = pose[2] + dths
+    c, s = torch.cos(th)[:, None], torch.sin(th)[:, None]
+    px, py = spts[:, 0][None, :], spts[:, 1][None, :]
+    rx = c * px - s * py + pose[0]                         # [A, B]
+    ry = s * px + c * py + pose[1]
+    flat_field = field.reshape(-1)
+    A, L = dths.shape[0], dls.shape[0]
+    acc = torch.zeros(A, L, L, dtype=spts.dtype, device=spts.device)
+    for b in range(spts.shape[0]):
+        wx = rx[:, b, None, None] + dls[None, :, None]     # [A, L, 1]
+        wy = ry[:, b, None, None] + dls[None, None, :]     # [A, 1, L]
+        ix = torch.floor((wx - origin[0]) / cell).to(torch.int64)
+        iy = torch.floor((wy - origin[1]) / cell).to(torch.int64)
+        inb = (ix >= 0) & (iy >= 0) & (ix < W) & (iy < H)  # [A, L, L]
+        flat = torch.where(inb, iy * W + ix, torch.zeros_like(ix))
+        valid = inb & smask[b]
+        acc = acc + torch.where(valid, flat_field[flat],
+                                torch.zeros((), device=spts.device))
+    return -acc
+
+
+def match_twin(config, field, origin, points, point_mask, num_points: int,
+               pose, dths, dls):
+    """Plain-PyTorch lattice search of one scan: (MatchResult, scores
+    [A, L, L])."""
+    spts, smask, used = subsample(points, point_mask, num_points,
+                                  config.laser_max_beams)
+    cand = lattice_scores(config, field, origin, spts, smask, pose, dths,
+                          dls)
+    best, correction, k, u, s = k2.reduce_candidates(cand, dths, dls, TILE)
+    return k2.finalize_match(best, correction, k, u, s, used), cand
+
+
+def match_rows_twin(config, fields, origins, points, point_mask, num_points,
+                    poses, dths, dls):
+    """Plain-PyTorch search over a row axis, one row at a time: (MatchResult
+    of [R], [R, 3], [R, 3, 3] tensors, scores [R, A, L, L])."""
+    res, cand = [], []
+    for r in range(points.shape[0]):
+        m, c = match_twin(config, fields[r], origins[r], points[r],
+                          point_mask[r], int(num_points[r]), poses[r], dths,
+                          dls)
+        res.append(m)
+        cand.append(c)
+    return (MatchResult(*[torch.stack([getattr(m, f) for m in res])
+                          for f in MatchResult._fields]),
+            torch.stack(cand))
+
+
+def _launch_match(config, fields, origins, points, point_mask, nums,
+                  num: int, poses, dths, dls, with_scores: bool):
+    global match_launches
+    dev = points.device
+    W, H = config.grid_cells_x, config.grid_cells_y
+    R, P = points.shape[0], points.shape[1]
+    A, L = dths.shape[0], dls.shape[0]
+    if R > 65535 or A > 65535:
+        raise ValueError(f"{R} rows x {A} angles is outside the kernel's "
+                         "launch range")
+    _build.require(fields, "fields", torch.float32, (R, H, W), dev)
+    _build.require(origins, "origins", torch.float32, (R, 2), dev)
+    _build.require(points, "points", torch.float32, (R, P, 2), dev)
+    _build.require(point_mask, "point_mask", torch.bool, (R, P), dev)
+    if nums is not None:
+        _build.require(nums, "num_points", torch.int32, (R,), dev)
+    _build.require(poses, "poses", torch.float32, (R, 3), dev)
+    _build.require(dths, "dths", torch.float32, (A,), dev)
+    _build.require(dls, "dls", torch.float32, (L,), dev)
+    tiles = -(-L * L // TILE)
+    partial = torch.empty(R, A * tiles, 12, dtype=torch.float32, device=dev)
+    out = torch.empty(R, 13, dtype=torch.float32, device=dev)
+    scores = (torch.empty(R, A, L, L, dtype=torch.float32, device=dev)
+              if with_scores else None)
+    p = _build.ptr
+    err = _build.function(
+        "ndt2d_correlative_match",
+        [ctypes.c_void_p] * 2 + [ctypes.c_float] + [ctypes.c_int] * 2
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+        + [ctypes.c_void_p] + [ctypes.c_int] + [ctypes.c_void_p] * 4)(
+        p(fields), p(origins), float(config.ndt_resolution), W, H,
+        p(points), p(point_mask), R, P, None if nums is None else p(nums),
+        int(num), int(config.laser_max_beams), p(poses), p(dths), A, p(dls),
+        L, p(partial), p(out), None if scores is None else p(scores),
+        _build.stream_ptr(dev))
+    _build.check(err, "correlative_match")
+    match_launches += 1
+    return out, scores
+
+
+def match_rows(config, fields, origins, points, point_mask, num_points,
+               poses, dths, dls, with_scores: bool = False):
+    """The lattice search over R rows in one launch: fields [R, H, W] f32,
+    origins [R, 2] f32, points [R, P, 2] f32, point_mask [R, P] bool,
+    num_points [R] int32, poses [R, 3] f32, dths [A] / dls [L] f32.
+    Returns the [R, 13] output rows, or (rows, scores [R, A, L, L]) with
+    ``with_scores``.  CPU tensors run the twin; CUDA tensors launch the
+    kernel."""
+    if points.device.type == "cpu":
+        res, cand = match_rows_twin(config, fields, origins, points,
+                                    point_mask, num_points, poses, dths, dls)
+        return (k2.pack(res), cand) if with_scores else k2.pack(res)
+    out, scores = _launch_match(config, fields, origins, points, point_mask,
+                                num_points, 0, poses, dths, dls,
+                                with_scores)
+    return (out, scores) if with_scores else out
+
+
+def match(config, field, origin, points, point_mask, num_points: int, pose,
+          dths, dls, with_scores: bool = False):
+    """The lattice search of one scan: ``match_rows``' launch at R = 1.
+    field [H, W], origin [2], points [P, 2], point_mask [P], pose [3].
+    Returns its [1, 13] output row, or (row, scores [A, L, L]).  CPU
+    tensors run the twin; CUDA tensors launch the kernel."""
+    if points.device.type == "cpu":
+        res, cand = match_twin(config, field, origin, points, point_mask,
+                               num_points, pose, dths, dls)
+        out = k2.pack(MatchResult(*[x[None] for x in res]))
+        return (out, cand) if with_scores else out
+    out, scores = _launch_match(config, field[None], origin[None],
+                                points[None], point_mask[None], None,
+                                num_points, pose[None], dths, dls,
+                                with_scores)
+    return (out, scores[0]) if with_scores else out
+
+
+def score_batch_twin(config, field, origin, points, point_mask,
+                     num_points: int, poses):
+    """Plain-PyTorch point score at poses [M, 3]: [M] minus the mean field
+    value under the used beams, summed in the kernel's lane order."""
+    W, H = config.grid_cells_x, config.grid_cells_y
+    dev = points.device
+    B = config.laser_max_beams
+    spts, smask, used = subsample(points, point_mask, num_points, B)
+    c, s = torch.cos(poses[:, 2:3]), torch.sin(poses[:, 2:3])
+    wx = c * spts[:, 0] - s * spts[:, 1] + poses[:, 0:1]
+    wy = s * spts[:, 0] + c * spts[:, 1] + poses[:, 1:2]
+    cell = f32(config.ndt_resolution, dev)
+    ix = torch.floor((wx - origin[0]) / cell).to(torch.int64)
+    iy = torch.floor((wy - origin[1]) / cell).to(torch.int64)
+    inb = (ix >= 0) & (iy >= 0) & (ix < W) & (iy < H) & smask
+    flat = torch.where(inb, iy * W + ix, torch.zeros_like(ix))
+    vals = torch.where(inb, field.reshape(-1)[flat],
+                       torch.zeros((), device=dev))
+    slots = -(-B // 32) * 32
+    vals = torch.nn.functional.pad(vals, (0, slots - B))
+    return -lane_tree_sum(vals) / f32(max(used, 1), dev)
+
+
+def score_batch(config, field, origin, points, point_mask, num_points: int,
+                poses):
+    """Minus the mean field value under a scan's used beams at poses
+    [M, 3] f32 (points [P, 2] f32, point_mask [P] bool); returns [M] f32.
+    CPU tensors run the twin; CUDA tensors launch the kernel."""
+    global score_launches
+    if points.device.type == "cpu":
+        return score_batch_twin(config, field, origin, points, point_mask,
+                                num_points, poses)
+    dev = points.device
+    W, H = config.grid_cells_x, config.grid_cells_y
+    P, M = points.shape[0], poses.shape[0]
+    if M < 1:
+        raise ValueError("score_batch needs at least one pose")
+    _build.require(field, "field", torch.float32, (H, W), dev)
+    _build.require(origin, "origin", torch.float32, (2,), dev)
+    _build.require(points, "points", torch.float32, (P, 2), dev)
+    _build.require(point_mask, "point_mask", torch.bool, (P,), dev)
+    _build.require(poses, "poses", torch.float32, (M, 3), dev)
+    out = torch.empty(M, dtype=torch.float32, device=dev)
+    p = _build.ptr
+    err = _build.function(
+        "ndt2d_correlative_score",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+         ctypes.c_void_p, ctypes.c_void_p])(
+        p(field), p(origin), float(config.ndt_resolution), W, H, p(points),
+        p(point_mask), P, int(num_points), int(config.laser_max_beams),
+        p(poses), M, p(out), _build.stream_ptr(dev))
+    _build.check(err, "correlative_score")
+    score_launches += 1
+    return out

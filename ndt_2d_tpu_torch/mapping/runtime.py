@@ -1,7 +1,8 @@
 """Bag replay loop around the port's ``Mapper``.
 
-Port of ``ndt_2d_tpu/mapping/runtime.py::run_bag`` and ``sweep_end_odom``
-(without the UNIX-socket control channel).
+Port of ``ndt_2d_tpu/mapping/runtime.py::run_bag`` (with the pipelined
+paths' deferred poses) and ``sweep_end_odom``, without the UNIX-socket
+control channel.
 """
 
 from __future__ import annotations
@@ -33,20 +34,30 @@ def sweep_end_odom(bag: ScanBag, t: int, msg) -> Optional[np.ndarray]:
 def run_bag(mapper: Mapper, bag: ScanBag,
             progress: Optional[Callable[[int, object], None]] = None) -> dict:
     """Replay a bag through the mapper; returns session statistics, with
-    ATE against ground truth when the bag carries it."""
-    est, used_truth, accepted, est_t = [], [], 0, []
+    ATE against ground truth when the bag carries it.  The pipelined paths
+    defer their poses: they are read after the final flush, when their
+    copies to the host have long completed."""
+    est, used_truth, accepted, est_t, deferred = [], [], 0, [], []
     for t, (msg, odom_pose) in enumerate(bag):
         res = mapper.process_scan(msg, odom_pose, sweep_end_odom(bag, t, msg))
         if res.accepted:
             accepted += 1
-            est.append(res.pose)
-            est_t.append(t)
-            if bag.truth is not None:
-                used_truth.append(bag.truth[t])
+            if res.pose is not None:
+                est.append(res.pose)
+                est_t.append(t)
+                if bag.truth is not None:
+                    used_truth.append(bag.truth[t])
+            elif res.pose_future is not None:
+                deferred.append((res.pose_future, t))
         if progress:
             progress(t, res)
     mapper.flush()
     mapper.loop_closure()
+    for fut, t in deferred:
+        est.append(fut.result())
+        est_t.append(t)
+        if bag.truth is not None:
+            used_truth.append(bag.truth[t])
 
     stats = {
         "scans_in": len(bag),

@@ -13,8 +13,12 @@ measurement) and ``match_scan_with_score`` (K3 + K2 + K7 against a global
 grid).  ``config.overlapping_grids`` is a grid axis of 4 through K1, K2, K3
 and K7 (the reference's K8: ``build_window_ndt`` stacks four half-cell
 shifted grids, and every score is their mean); ``refine_iterations > 0``
-chains K7 after K2 in every match.  The plain steps of the search live
-beside their kernels and are re-exported here under the reference's names
+chains K7 after K2 in every match.  The pipelined paths'
+``mapping_step_async`` and ``localization_step_async`` keep the pose chain
+on the device: K13 composes the start pose from the odometry motion and
+applies the correction around the same kernels, with no host read.  The
+plain steps of the search live beside their kernels and are re-exported
+here under the reference's names
 (``subsample``, ``window_origin``, ``prepare_neighborhood``,
 ``_candidate_scores_local``, ``_candidate_scores_gather``,
 ``reduce_candidates``, ``finalize_match``).
@@ -34,11 +38,12 @@ import numpy as np
 import torch
 
 from ndt_2d_tpu_torch.config import ScanMatcherConfig
-from ndt_2d_tpu_torch.device import get_device
+from ndt_2d_tpu_torch.device import HostCopy, get_device
 from ndt_2d_tpu_torch.kernels import candidate_gather as k6
 from ndt_2d_tpu_torch.kernels import candidate_scores as k2
 from ndt_2d_tpu_torch.kernels import ndt_build as k1
 from ndt_2d_tpu_torch.kernels import newton as k7
+from ndt_2d_tpu_torch.kernels import pose_chain as k13
 from ndt_2d_tpu_torch.kernels import score_points as k3
 from ndt_2d_tpu_torch.kernels.candidate_scores import (  # noqa: F401
     MatchResult, finalize_match, prepare_neighborhood, reduce_candidates)
@@ -252,16 +257,25 @@ def make_window(depth: int, max_points: int, device=None) -> RollingWindow:
         mask=torch.zeros(depth, dtype=torch.bool, device=device))
 
 
+def window_shift(window: RollingWindow, points, point_mask) -> None:
+    """Shift the window left by one scan IN PLACE and put the new scan's
+    points in the last slot; the last pose slot is left for the caller."""
+    for field in (window.poses, window.points, window.point_mask,
+                  window.mask):
+        field[:-1] = field[1:].clone()
+    window.points[-1] = points
+    window.point_mask[-1] = point_mask
+    # fill_ on the device: assigning a Python scalar would copy it from
+    # the host and wait for the stream.
+    window.mask[-1:].fill_(True)
+
+
 def window_append(window: RollingWindow, pose, points,
                   point_mask) -> RollingWindow:
     """Shift the window left by one scan and put the new scan in the last
     slot, IN PLACE; returns the same window."""
-    for field, new in ((window.poses, pose), (window.points, points),
-                       (window.point_mask, point_mask)):
-        field[:-1] = field[1:].clone()
-        field[-1] = new
-    window.mask[:-1] = window.mask[1:].clone()
-    window.mask[-1] = True
+    window_shift(window, points, point_mask)
+    window.poses[-1] = pose
     return window
 
 
@@ -274,6 +288,52 @@ def match_scan_rolling(config: ScanMatcherConfig, window: RollingWindow,
         config, window.poses, window.points, window.point_mask, window.mask,
         range_max, scan_points, scan_mask, num_points, pose)
     return unc, res.score, res.correction, res.covariance
+
+
+def mapping_step_async(config: ScanMatcherConfig, window: RollingWindow,
+                       prev_pose, range_max: float, points, mask,
+                       num_points: int, delta):
+    """One mapping step with the pose chain on the device (matcher.py:638):
+    compose the start pose from the previous corrected pose ``prev_pose``
+    [3] and the odometry motion ``delta`` [3] in its robot frame (K13),
+    build the window NDT (K1), score the start (K3), match (K2 or K6, K7
+    when refining), then shift the window and apply the correction, which
+    also fills the window's newest pose slot (K13).  Everything runs on the
+    current stream with no host read; the window is updated in place.
+
+    Returns (window, new pose [3], (uncorrected, score, correction,
+    covariance, new pose) device tensors, a ``HostCopy`` of their flat [17]
+    values, already in flight)."""
+    pose = k13.compose(prev_pose, delta)
+    unc, res = match_scan_windowed(
+        config, window.poses, window.points, window.point_mask, window.mask,
+        range_max, points, mask, num_points, pose)
+    window_shift(window, points, mask)
+    new_pose = k13.apply(pose, res.correction, window.poses)
+    out = (unc, res.score, res.correction, res.covariance, new_pose)
+    return window, new_pose, out, _host_copy(out)
+
+
+def localization_step_async(config: ScanMatcherConfig,
+                            grid: ndt_grid.NDTGrid, prev_pose, points, mask,
+                            num_points: int, delta, packed_table=None):
+    """Scan-match localization step with the pose chain on the device
+    (matcher.py:675): compose (K13), score and match against the global
+    grid (K3, K2 or K6, K7 when refining), apply the correction (K13), with
+    no host read.  Returns (new pose [3], (uncorrected, score, correction,
+    new pose) device tensors, a ``HostCopy`` of their flat [8] values)."""
+    pose = k13.compose(prev_pose, delta)
+    unc, score, correction, _ = match_scan_with_score(
+        config, grid, points, mask, num_points, pose, packed_table)
+    new_pose = k13.apply(pose, correction)
+    out = (unc, score, correction, new_pose)
+    return new_pose, out, _host_copy(out)
+
+
+def _host_copy(tensors) -> HostCopy:
+    """The step's results as one flat tensor, copied to the host without
+    blocking."""
+    return HostCopy(torch.cat([t.reshape(-1) for t in tensors]))
 
 
 class GridCapacityError(ValueError):

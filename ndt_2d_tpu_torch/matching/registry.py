@@ -1,13 +1,14 @@
 """Matcher registry: string-keyed construction of scan matchers (the
 reference's pluginlib indirection).  Port of
-``ndt_2d_tpu/matching/registry.py`` with the NDT keys only (``ndt``, its
-pluginlib alias, and ``ndt_newton``)."""
+``ndt_2d_tpu/matching/registry.py``: ``ndt``, its pluginlib alias,
+``ndt_newton`` and ``correlative``."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict
 
+from ndt_2d_tpu_torch.matching.correlative import CorrelativeScanMatcher
 from ndt_2d_tpu_torch.matching.matcher import NDTScanMatcher
 from ndt_2d_tpu_torch.config import ScanMatcherConfig
 
@@ -42,3 +43,4 @@ def _ndt_newton(config: ScanMatcherConfig, range_max: float, device=None):
 
 
 register("ndt_newton", _ndt_newton)
+register("correlative", CorrelativeScanMatcher)

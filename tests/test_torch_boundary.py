@@ -1,8 +1,9 @@
 """The port's boundary: it imports nothing of the JAX package, and its own
 copies of that package's numpy modules (configuration, pose graph, bag and
-map I/O, scan projection, simulator, metrics, session statistics) behave
-exactly as the originals do: equal fields and defaults, bitwise-equal
-arrays on seeded inputs, and files that load in either package.
+map I/O, the CARMEN importer, scan projection, simulator, metrics, session
+statistics) behave exactly as the originals do: equal fields and defaults,
+bitwise-equal arrays on seeded inputs, and files that load in either
+package.
 """
 
 import ast
@@ -15,6 +16,7 @@ import pytest
 from ndt_2d_tpu import config as jax_config
 from ndt_2d_tpu.graph import pose_graph as jax_pose_graph
 from ndt_2d_tpu.io import bag as jax_bag
+from ndt_2d_tpu.io import carmen as jax_carmen
 from ndt_2d_tpu.io import serialization as jax_serialization
 from ndt_2d_tpu.mapping import laser as jax_laser
 from ndt_2d_tpu.utils import metrics as jax_metrics
@@ -22,7 +24,7 @@ from ndt_2d_tpu.utils import profiling as jax_profiling
 from ndt_2d_tpu.utils import sim as jax_sim
 from ndt_2d_tpu_torch import config
 from ndt_2d_tpu_torch.graph import pose_graph
-from ndt_2d_tpu_torch.io import bag, native, serialization
+from ndt_2d_tpu_torch.io import bag, carmen, native, serialization
 from ndt_2d_tpu_torch.mapping import laser
 from ndt_2d_tpu_torch.utils import metrics, profiling, sim
 from port_configs import to_jax
@@ -215,3 +217,106 @@ def test_bags_round_trip(tmp_path, suffix):
         for f in ("ranges", "odom", "truth"):
             np.testing.assert_array_equal(getattr(back, f), getattr(b, f))
         assert back.angle_increment == b.angle_increment
+
+
+def _rl1_line(ranges, pose, ts, n_rem=0):
+    """A ROBOTLASER1 line over a 180-degree field of view
+    (tests/test_carmen.py's format)."""
+    n = len(ranges)
+    vals = " ".join(f"{v:.3f}" for v in ranges)
+    rem = " ".join(["0.0"] * n_rem)
+    x, y, th = pose
+    return (f"ROBOTLASER1 0 {-np.pi / 2:.6f} {np.pi:.6f} "
+            f"{np.pi / max(n - 1, 1):.6f} 81.90 0.01 0 {n} {vals} "
+            f"{n_rem}{' ' if n_rem else ''}{rem} {x:.6f} {y:.6f} {th:.6f} "
+            f"{x:.6f} {y:.6f} {th:.6f} 0.1 0.0 0.5 0.3 0.2 {ts:.6f} host "
+            f"{ts:.6f}\n")
+
+
+def _carmen_log(tmp_path, kind):
+    """The log files of tests/test_carmen.py: (path, load_carmen keyword
+    arguments)."""
+    path = str(tmp_path / f"{kind}.clf")
+    rng = np.random.default_rng(0)
+    lines = []
+    if kind == "flaser":
+        ref = jax_bag.record_synthetic("box", 12, n_beams=181, seed=4)
+        ref = dataclasses.replace(ref, angle_min=-np.pi / 2,
+                                  angle_increment=np.pi / 180)
+        jax_carmen.save_carmen(ref, path)
+        return path, dict(fov_degrees=180.0)
+    if kind == "out_of_range":
+        vals = " ".join(["2.0"] * 5 + ["81.91"] + ["2.0"] * 5)
+        lines = [f"FLASER 11 {vals} 0 0 0 0 0 0 0.0 host 0.0\n",
+                 "ODOM 0 0 0 0 0 0 0.0 host 0.0\n"]
+    elif kind == "robotlaser1":
+        lines = ["# comment line\n", "PARAM robot_frontlaser_offset 0.08\n"]
+        lines += [_rl1_line(rng.uniform(1.0, 9.0, 91), (0.1 * t, 0.0, 0.0),
+                            100.0 + 0.2 * t, n_rem=3) for t in range(8)]
+    elif kind == "mixed":
+        for t in range(10):
+            lines.append(_rl1_line(rng.uniform(1, 9, 181), (0.1 * t, 0, 0),
+                                   10.0 + 0.1 * t))
+            if t % 2 == 0:
+                lines.append(_rl1_line(rng.uniform(1, 9, 61),
+                                       (0.1 * t, 0, 0), 10.05 + 0.1 * t))
+        lines.append("FLASER 3 1.0 2.0\n")
+    elif kind == "timestamps":
+        vals = " ".join(["5.0"] * 7)
+        lines = [f"FLASER 7 {vals} {0.1*t} 0 0 {0.1*t} 0 0 "
+                 f"{50.0 + 0.25 * t} host {50.0 + 0.25 * t}\n"
+                 for t in range(5)]
+        with open(path, "w") as f:
+            f.writelines(lines)
+        return path, dict(time_increment=1e-3, use_laser_pose=False)
+    with open(path, "w") as f:
+        f.writelines(lines)
+    return path, {}
+
+
+def _assert_bags_equal(ours, ref):
+    for f in dataclasses.fields(ref):
+        a, b = getattr(ours, f.name), getattr(ref, f.name)
+        if b is None:
+            assert a is None, f.name
+        elif isinstance(b, np.ndarray):
+            assert a.dtype == b.dtype, f.name
+            np.testing.assert_array_equal(a, b, err_msg=f.name)
+        else:
+            assert a == b, f.name
+
+
+@pytest.mark.parametrize("kind", ["flaser", "out_of_range", "robotlaser1",
+                                  "mixed", "timestamps"])
+def test_carmen_import_equals_the_reference(tmp_path, kind):
+    """The port's CARMEN importer gives the JAX importer's bag bitwise, and
+    the same report, on the log fixtures of tests/test_carmen.py."""
+    path, kw = _carmen_log(tmp_path, kind)
+    reports = [carmen.CarmenReport(), jax_carmen.CarmenReport()]
+    ours = carmen.load_carmen(path, report=reports[0], **kw)
+    ref = jax_carmen.load_carmen(path, report=reports[1], **kw)
+    _assert_bags_equal(ours, ref)
+    assert (dataclasses.asdict(reports[0])
+            == dataclasses.asdict(reports[1]))
+
+
+def test_carmen_simlab_log_equals_the_reference():
+    """datasets/simlab.clf.gz (BASELINE config 9) imports bitwise equal."""
+    log = os.path.join(ROOT, "datasets", "simlab.clf.gz")
+    ours = carmen.load_carmen(log, range_max=10.0)
+    ref = jax_carmen.load_carmen(log, range_max=10.0)
+    assert len(ours) > 1500
+    _assert_bags_equal(ours, ref)
+
+
+def test_carmen_writer_equals_the_reference(tmp_path):
+    """save_carmen writes the JAX writer's bytes, and its log reads back."""
+    b = bag.record_synthetic("corridor", 6, n_beams=91, seed=2)
+    carmen.save_carmen(b, str(tmp_path / "a.clf"))
+    jax_carmen.save_carmen(jax_bag.record_synthetic("corridor", 6,
+                                                    n_beams=91, seed=2),
+                           str(tmp_path / "b.clf"))
+    assert (open(tmp_path / "a.clf").read()
+            == open(tmp_path / "b.clf").read())
+    back = carmen.load_carmen(str(tmp_path / "a.clf"), fov_degrees=360.0)
+    assert back.ranges.shape == b.ranges.shape

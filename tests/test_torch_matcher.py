@@ -208,7 +208,10 @@ def test_matcher_interface_and_registry():
         m.reset()
         assert m.grid is None
     with pytest.raises(KeyError):
-        registry.create("correlative", CFG, RANGE_MAX, device="cpu")
+        registry.create("no_such_matcher", CFG, RANGE_MAX, device="cpu")
+    assert type(registry.create("correlative", CFG, RANGE_MAX,
+                                device="cpu")).__name__ == (
+        "CorrelativeScanMatcher")
     small = dataclasses.replace(CFG, grid_cells_x=32, grid_cells_y=32)
     with pytest.raises(ValueError):
         registry.create("ndt", small, RANGE_MAX, device="cpu").add_scans(
@@ -242,13 +245,12 @@ def test_empty_window_falls_back_to_weak_covariance():
     dict(overlapping_grids=True),
     dict(refine_iterations=4),
 ])
-def test_unported_matcher_options_raise(change):
-    """No matcher option is refused any more: a lattice wider than a cell
-    (kernel K6), overlapping grids (K8) and the Newton polish (K7) are
-    ported and match op-by-op JAX (the jitted reference contracts FMAs in
-    the covariance of near-degenerate cells, which moves its overlapping
-    score by 0.3% on this window).  (The name dates from when they were
-    refused; kept so the ids stay comparable.)"""
+def test_matcher_options_match_op_by_op_jax(change):
+    """Every matcher option is ported: a lattice wider than a cell (kernel
+    K6), overlapping grids (K8) and the Newton polish (K7) match op-by-op
+    JAX (the jitted reference contracts FMAs in the covariance of
+    near-degenerate cells, which moves its overlapping score by 0.3% on
+    this window)."""
     cfg = dataclasses.replace(CFG, **change)
     poses, wp, wpm, wm, qp, qm, qn, pose = entry_inputs()
     assert matcher.search_kernel(cfg).__name__.endswith(

@@ -35,7 +35,7 @@ from ndt_2d_tpu_torch.kernels import _build
 from ndt_2d_tpu_torch.kernels import candidate_gather as k6
 from ndt_2d_tpu_torch.kernels import candidate_scores as k2
 from ndt_2d_tpu_torch.mapping import runtime
-from ndt_2d_tpu_torch.mapping.mapper import Mapper
+from ndt_2d_tpu_torch.mapping.mapper import Mapper, check_supported
 from ndt_2d_tpu_torch.matching import matcher
 from ndt_2d_tpu_torch.utils import sim
 
@@ -211,7 +211,8 @@ def test_kernel_sources_found_from_package_path():
     assert {"ndt_build.cu", "candidate_scores.cu", "score_points.cu",
             "raymarch.cu", "normal_blocks.cu", "particle_filter.cu",
             "newton.cu", "candidate_gather.cu", "descriptors.cu",
-            "descriptor_search.cu", "common.cuh"} <= names
+            "descriptor_search.cu", "pose_chain.cu", "correlative.cu",
+            "common.cuh", "lattice.cuh"} <= names
     assert all(p.startswith(_build.CSRC) for p in _build.sources())
     assert _build.BUILD_DIR.startswith(os.path.dirname(_build.CSRC))
     # The build is lazy: importing the kernel modules compiled nothing.
@@ -222,20 +223,61 @@ def test_kernel_sources_found_from_package_path():
     dict(use_particle_filter=True, max_inflight=4),
     dict(enable_mapping=False, max_inflight=4),
     dict(max_inflight=8),
+])
+def test_pipelined_mapper_builds_and_runs(change, tmp_path):
+    """Every pipelined mode (max_inflight > 0) builds and runs: mapping,
+    and localizing by scan matching or the particle filter in a map of the
+    same corridor, dispatch scans with their poses in flight, which the
+    flush drains into the graph and the pose estimate."""
+    bag = bag_mod.record_synthetic("corridor", 40, n_beams=120, seed=0)
+    cfg = dataclasses.replace(CONFIG2, **change)
+    if change.get("use_particle_filter") or "enable_mapping" in change:
+        path = str(tmp_path / "map.npz")
+        source = Mapper(CONFIG2, device="cpu")
+        for t in range(5):
+            source.process_scan(*bag[t])
+        source.configure(8, path)  # SAVE_TO_FILE
+        cfg = dataclasses.replace(cfg, particle_filter=dataclasses.replace(
+            cfg.particle_filter, min_particles=50, max_particles=200))
+        mapper = Mapper(cfg, device="cpu")
+        mapper.configure(4, path)  # LOAD_FROM_FILE
+        mapper.set_initial_pose(np.zeros(3), np.diag([0.01, 0.01, 0.005]),
+                                bag.odom[0])
+        results = [mapper.process_scan(*bag[t]) for t in range(1, 5)]
+        assert all(r.accepted and r.pose is None for r in results)
+        assert len(mapper._pending) == 4
+        mapper.flush()
+        assert not mapper._pending
+        np.testing.assert_array_equal(results[-1].pose_future.result(),
+                                      mapper.prev_robot_pose)
+        assert np.isfinite(mapper.prev_robot_pose).all()
+        if not change.get("use_particle_filter"):  # the filter's 200
+            # particles stay spread along the featureless corridor
+            assert np.hypot(*(mapper.prev_robot_pose[:2]
+                              - source.graph.poses[4, :2])) < 0.3
+        return
+    mapper = Mapper(cfg, device="cpu")
+    results = [mapper.process_scan(*bag[t]) for t in range(5)]
+    assert all(r.accepted for r in results)
+    assert results[0].pose is not None
+    assert all(r.pose is None and r.pose_future is not None
+               for r in results[1:])
+    assert len(mapper._pending) == 4
+    mapper.flush()
+    assert not mapper._pending
+    assert mapper.graph.num_constraints == 4
+    for r, pose in zip(results[1:], mapper.graph.poses[1:]):
+        np.testing.assert_array_equal(r.pose_future.result(), pose)
+
+
+@pytest.mark.parametrize("change", [
     dict(loop_search="descriptor"),
     dict(loop_search="both"),
 ])
-def test_unported_mapper_modes_raise(change):
-    """The pipelined modes are refused; the descriptor modes are ported:
-    the mapper builds, and its matchers include the wide-lattice coarse
-    one (kernel K6).  (The test keeps the name it had while the descriptor
-    modes were refused too, so that its ids stay comparable across
-    versions.)"""
+def test_descriptor_modes_build_their_coarse_matcher(change):
+    """The descriptor modes build, and their matchers include the
+    wide-lattice coarse one (kernel K6)."""
     cfg = dataclasses.replace(CONFIG2, **change)
-    if "max_inflight" in change:
-        with pytest.raises(NotImplementedError):
-            Mapper(cfg, device="cpu")
-        return
     mapper = Mapper(cfg, device="cpu")
     mapper._ensure_matchers(15.0)
     assert mapper.coarse_matcher.config == cfg.coarse_scan_matcher
@@ -248,11 +290,10 @@ def test_unported_mapper_modes_raise(change):
     dict(refine_iterations=8),
     dict(overlapping_grids=True),
 ])
-def test_unported_global_matcher_fails_at_construction(change):
-    """No global matcher is refused any more: a lattice wider than a cell
-    (kernel K6), the Newton polish (K7) and overlapping grids (K8) are
-    ported: the mapper builds and one global match runs.  (The name dates
-    from when they were refused; kept so the ids stay comparable.)"""
+def test_global_matcher_options_build_and_match(change):
+    """Every global matcher option is ported: a lattice wider than a cell
+    (kernel K6), the Newton polish (K7) and overlapping grids (K8); the
+    mapper builds and one global match runs."""
     cfg = dataclasses.replace(
         CONFIG2, global_scan_matcher=dataclasses.replace(M192, **change))
     mapper = Mapper(cfg, device="cpu")
@@ -279,6 +320,16 @@ def test_unported_global_matcher_fails_at_construction(change):
     np.testing.assert_allclose(res.correction.numpy(),
                                np.asarray(ref.correction), rtol=0, atol=1e-6)
     assert float(res.score) == pytest.approx(float(ref.score), rel=1e-5)
+
+
+def test_mesh_is_refused():
+    """A mesh is the one mode the port refuses, in the constructor and in
+    check_supported."""
+    with pytest.raises(NotImplementedError):
+        Mapper(CONFIG2, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError):
+        check_supported(object())
+    check_supported(None)
 
 
 def test_mesh_and_configure_actions_raise(tmp_path):
@@ -321,7 +372,7 @@ def test_window_mirrors_graph_tail_and_grid_grows():
         runtime.run_bag(Mapper(strict, device="cpu"), bag)
 
 
-def test_proposed_loop_closure_raises():
+def test_proposed_loop_closure_is_confirmed_and_gated():
     """A revisit's proposed radius-search candidates raise confirmation
     rows: the pass confirms each one on the global matcher and gates it."""
     bag = bag_mod.record_synthetic("box", 30, n_beams=180, seed=0)
