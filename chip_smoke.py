@@ -45,7 +45,14 @@ Phases (any failure exits non-zero):
     correlative matcher's field build, lattice search and point score)
     bitwise against its twins and reproducible, and 64 lattice rows each
     bitwise equal to its R = 1 launch, at config-2 shapes and at the shape
-    of (o)'s box drive (160x160 cells, the widened 80x40x40 lattice);
+    of (o)'s box drive (160x160 cells, the widened 80x40x40 lattice); K12
+    (the mesh's split search and rank-ordered sum): K2's partials over
+    contiguous angle blocks and their finalize, split 2 and 4 ways, bitwise
+    equal to the one-launch K2 and to the twins' split search, at config
+    2's window (R = 1) and over the 64 config-3 rows; K6's the same over
+    the 32 coarse rows; ``rank_sum`` at S = 2, 4 ranks of 3 x 50,000 and
+    9 x 50,000 floats (the district's gradient and block diagonal) against
+    its twin, beside ``torch.sum(x, 0)``;
  4. drive the main paths, each with the launch counts set to 0 before and
     read after: (a) the 200-scan, 600-beam config-2 corridor through
     ``Mapper`` and ``run_bag`` (no loop closure) with its export: every scan
@@ -124,13 +131,44 @@ Phases (any failure exits non-zero):
     (>= 12 of 14 accepted, ATE below odometry's and < 0.15 m, one K11
     field, lattice and score launch a matched scan), then on the config-2
     corridor with the widened local lattice, printed and not gated;
+    the mesh path (K12): (p) one rank over NCCL on cuda:0, BASELINE config
+    10 (benchmarks/mesh_slam_bench.py:48-62, the 600-scan office bag with
+    config 3's settings) through ``Mapper(mesh=make_mesh(1))`` beside the
+    single-device run of the same bag: the same accepted count, >= 1
+    closure and optimization, final ATE below odometry's and within 0.08 m
+    of the single-device run's (JAX's office criterion), the export
+    bitwise equal to single-device K5 on the same graph, K12's split K2
+    and rank sum launched and the one-launch K2 not; then at max_inflight
+    8 (>= 1 closure, final ATE below odometry's); config 2's pipelined
+    dispatch loop on the mesh with the one-rank group's collectives
+    forced through NCCL (the mesh path skips them as the identity), under
+    CUDA sync-debug "error", its graph and export bitwise the
+    single-device pipelined run's; config 6 on the mesh beside the
+    single-device run (>= 1 closure, final ATE below odometry's and within
+    0.08 m of one device's, K6's split search and K10's search launched)
+    and, as a witness, one device with the solve forced to PCG; the time
+    of ``distributed.gather`` through NCCL at the solver's shape; (q) two
+    ranks sharing the card over gloo (collectives staged through the
+    host), meshes (2, 1) and (1, 2): config 10 synchronously (accepted
+    count equal to the single-device run's, >= 1 closure and
+    optimization, final ATE below odometry's and within 0.08 m of one
+    device's), the district's PCG solve
+    by ``solve_multichip`` (within 5e-3 of the single-device PCG solve,
+    RMSE <= 0.05 m) and config 4's 5000-particle measurement (bitwise
+    equal to unsharded K3), final poses, export, solve and scores bitwise
+    equal on both ranks; correctness and the cost of host-staged
+    collectives, not scaling;
  5. print the kernels' JSON line and, last, the device JSON line.
+
+``python3 chip_smoke.py --mesh-rank OUT SPACE BATCH MAP DEVICE`` is one
+rank of (q), started by the script itself.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -186,6 +224,16 @@ KERNELS = {
                           "ndt_2d_tpu/matching/correlative.py:76"),
     "correlative_score": ("ndt_2d_tpu_torch/csrc/correlative.cu",
                           "ndt_2d_tpu/matching/correlative.py:108"),
+    "candidate_partials": ("ndt_2d_tpu_torch/csrc/candidate_scores.cu",
+                           "ndt_2d_tpu/parallel/matcher.py:81"),
+    "candidate_finalize": ("ndt_2d_tpu_torch/csrc/candidate_scores.cu",
+                           "ndt_2d_tpu/parallel/matcher.py:89"),
+    "candidate_gather_partials": ("ndt_2d_tpu_torch/csrc/candidate_gather.cu",
+                                  "ndt_2d_tpu/parallel/runtime.py:127"),
+    "candidate_gather_finalize": ("ndt_2d_tpu_torch/csrc/candidate_gather.cu",
+                                  "ndt_2d_tpu/parallel/runtime.py:131"),
+    "rank_sum": ("ndt_2d_tpu_torch/csrc/shard_combine.cu",
+                 "ndt_2d_tpu/parallel/solver.py:92"),
 }
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # The bound of a kernel: the larger of the bytes it must move over the
@@ -501,10 +549,13 @@ def reset_counts():
     from ndt_2d_tpu_torch.kernels import (
         candidate_gather, candidate_scores, correlative, descriptor_search,
         descriptors, ndt_build, newton, normal_blocks, particle_filter,
-        pose_chain, raymarch, score_points)
+        pose_chain, raymarch, score_points, shard_combine)
     for m in (ndt_build, candidate_scores, score_points, raymarch, newton,
-              candidate_gather, descriptors, descriptor_search):
+              candidate_gather, descriptors, descriptor_search,
+              shard_combine):
         m.launches = 0
+    for m in (candidate_scores, candidate_gather):
+        m.partial_launches = m.finalize_launches = 0
     score_points.batch_launches = 0
     descriptors.spectra_launches = 0
     pose_chain.compose_launches = pose_chain.apply_launches = 0
@@ -519,8 +570,13 @@ def read_counts() -> dict:
     from ndt_2d_tpu_torch.kernels import (
         candidate_gather, candidate_scores, correlative, descriptor_search,
         descriptors, ndt_build, newton, normal_blocks, particle_filter,
-        pose_chain, raymarch, score_points)
+        pose_chain, raymarch, score_points, shard_combine)
     out = {"ndt_build": ndt_build.launches,
+           "candidate_partials": candidate_scores.partial_launches,
+           "candidate_finalize": candidate_scores.finalize_launches,
+           "candidate_gather_partials": candidate_gather.partial_launches,
+           "candidate_gather_finalize": candidate_gather.finalize_launches,
+           "rank_sum": shard_combine.launches,
            "pose_compose": pose_chain.compose_launches,
            "pose_apply": pose_chain.apply_launches,
            "correlative_field": correlative.field_launches,
@@ -950,8 +1006,8 @@ class MatchRecorder:
             matcher.match_scan_rolling, keep
         self.calls = []
 
-    def match(self, config, window, range_max, *args):
-        out = self.real(config, window, range_max, *args)
+    def match(self, config, window, range_max, *args, **kw):
+        out = self.real(config, window, range_max, *args, **kw)
         if len(self.calls) < self.keep:
             win = tuple(getattr(window, f).clone()
                         for f in ("poses", "points", "point_mask", "mask"))
@@ -1192,13 +1248,14 @@ def phase_district_solve(truth, district, dev):
     require(diff <= 1e-4, f"twin solve poses differ by {diff} > 1e-4")
     require(launches["pcg_matvec"] >= 1 and launches["normal_blocks"] >= 1,
             f"district solve launched {launches}")
+    district_poses = poses
     print(f"[4b] district PCG solve ({truth.shape[0]} nodes): RMSE "
           f"{init:.4f} -> {final:.4f} m in {int(res.iterations)} LM "
           f"iterations, {wall:.3f} s on the kernels, {out[True][1]:.3f} s "
           f"on the twins, max |kernel - twin| poses {diff:.3g}; launches "
           f"normal_blocks {launches['normal_blocks']}, pcg_matvec "
           f"{launches['pcg_matvec']}")
-    return launches
+    return launches, district_poses
 
 
 class Recorder:
@@ -2276,8 +2333,8 @@ class ConfirmRecorder:
         self.near += 1
         return self.real[0](*args, **kw)
 
-    def coarse_fine(self, coarse, fine, *args):
-        out = self.real[1](coarse, fine, *args)
+    def coarse_fine(self, coarse, fine, *args, **kw):
+        out = self.real[1](coarse, fine, *args, **kw)
         self.far += 1
         self.far_rows += int(args[3].any(dim=1).sum())
         if self.first is None:
@@ -2873,8 +2930,10 @@ class AsyncStepRecorder:
         self.flt, self.keep, self.steps = flt, keep, []
         self.real = flt.step_async
 
-    def __call__(self, matcher, control, points, point_mask, num_points):
-        handle = self.real(matcher, control, points, point_mask, num_points)
+    def __call__(self, matcher, control, points, point_mask, num_points,
+                 **kw):
+        handle = self.real(matcher, control, points, point_mask, num_points,
+                           **kw)
         if len(self.steps) < self.keep:
             self.steps.append(((control, points, point_mask, num_points),
                                self.flt.particles.clone(),
@@ -3247,6 +3306,598 @@ def profile_sessions(dev, warmup: int = 20) -> None:
     shutil.rmtree(tmp)
 
 
+# --- K12: the multi-device mesh path ---------------------------------------
+K12_KERNELS = ("candidate_partials", "candidate_finalize",
+               "candidate_gather_partials", "candidate_gather_finalize",
+               "rank_sum")
+MESH_SCANS = 600          # config 10's bag (benchmarks/mesh_slam_bench.py:48)
+# A mesh session's final ATE against one device's: JAX's office criterion
+# (tests/test_mesh_mapper.py:100).
+MESH_ATE_GAP = 0.08
+
+
+def config10():
+    """BASELINE config 10 (benchmarks/mesh_slam_bench.py:48-62): the
+    600-scan office bag (600 beams at 12 m, seed 1, odometry noise
+    0.02/0.004) and config 3's settings (local 192^2, global 160^2 of
+    0.35 m with +-0.15 m / +-0.05 rad, 512 points, global_search_size 4.0,
+    optimization_node_limit 10, loop_closure_every 20,
+    minimum_travel_distance 0.3)."""
+    from ndt_2d_tpu_torch.io.bag import record_synthetic
+    bag = record_synthetic("office", MESH_SCANS, n_beams=N_BEAMS,
+                           range_max=12.0, seed=1, odom_trans_noise=0.02,
+                           odom_rot_noise=0.004)
+    return office_config(), bag
+
+
+def split_search(kern, mc, rows, dths, dls, shards, twin=False):
+    """The lattice search of ``rows`` (grid, tables, points, mask, counts,
+    poses) as a (shards, 1) mesh computes it, in one process: each rank's
+    block of angles through K12's partials (or their twin), concatenated in
+    rank order, then the finalize."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import candidate_gather as k6
+    from ndt_2d_tpu_torch.kernels import candidate_scores as k2
+    from ndt_2d_tpu_torch.parallel import matcher as pmatcher
+    extra = () if kern is k2 else (k6.TILE, k6.candidate_scores_gather)
+    parts = []
+    for s in range(shards):
+        a0, n = pmatcher.angle_block(dths.shape[0], shards, s)
+        if not n:
+            continue
+        if twin:
+            parts.append(k2.partial_rows_twin(mc, *rows, dths, dls, a0, n,
+                                              *extra))
+        else:
+            parts.append(kern.partial_rows(mc, *rows, dths, dls, a0, n))
+    p = torch.cat(parts, 1)
+    if twin:
+        return k2.finalize_rows_twin(mc, p, rows[4], dths, dls)
+    return kern.finalize_rows(mc, p, rows[4], dths, dls)
+
+
+def check_split(kern, mc, rows, what, dev):
+    """K12's split search of ``kern`` (K2 or K6) over ``rows``: split 2 and
+    4 ways, bitwise equal to the one-launch search and to the twins' split
+    search; the partials of a block and the finalize bitwise against their
+    twins.  Returns the partials' and the finalize's timing entries (a
+    2-way split's first block; the finalize of all angles)."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import candidate_gather as k6
+    from ndt_2d_tpu_torch.kernels import candidate_scores as k2
+    from ndt_2d_tpu_torch.matching import matcher
+    from ndt_2d_tpu_torch.parallel import matcher as pmatcher
+    dths, dls = matcher._search_offsets(mc, dev)
+    ref = kern.match_rows(mc, *rows, dths, dls)
+    for shards in (2, 4):
+        out = split_search(kern, mc, rows, dths, dls, shards)
+        twin = split_search(kern, mc, rows, dths, dls, shards, twin=True)
+        torch.cuda.synchronize()
+        require(torch.equal(out, ref), f"{what}: the {shards}-way split "
+                "search differs from the one-launch search")
+        require(torch.equal(twin, ref), f"{what}: the twins' {shards}-way "
+                "split search differs from the one-launch search")
+    A, L = dths.shape[0], dls.shape[0]
+    a0, n = pmatcher.angle_block(A, 2, 0)
+    extra = () if kern is k2 else (k6.TILE, k6.candidate_scores_gather)
+
+    def part():
+        return kern.partial_rows(mc, *rows, dths, dls, a0, n)
+
+    def part_twin():
+        return k2.partial_rows_twin(mc, *rows, dths, dls, a0, n, *extra)
+
+    p, pt = part(), part_twin()
+    full = torch.cat([p, kern.partial_rows(mc, *rows, dths, dls, n, A - n)],
+                     1)
+
+    def fin():
+        return kern.finalize_rows(mc, full, rows[4], dths, dls)
+
+    def fin_twin():
+        return k2.finalize_rows_twin(mc, full, rows[4], dths, dls)
+    f, ft = fin(), fin_twin()
+    torch.cuda.synchronize()
+    require(torch.equal(p, pt), f"{what}: partials differ from the twin")
+    require(torch.equal(f, ft) and torch.equal(f, ref),
+            f"{what}: the finalize differs from its twin or the search")
+    R = rows[2].shape[0]
+    g, qp, qm, qn, st = rows[0], rows[2], rows[3], rows[4], rows[5]
+    nums = ([int(v) for v in qn.tolist()] if isinstance(qn, torch.Tensor)
+            else [int(qn)] * R)
+    cost = cost_candidate_scores if kern is k2 else cost_candidate_gather
+    moved, ops = sum_costs(cost(mc, g.origin[r], g.cell_size, qp[r], qm[r],
+                                nums[r], st[r], dths[a0:a0 + n], dls)
+                           for r in range(R))
+    per = kern.blocks_per_angle(dls)
+    # The partials replace the [13] output row: R x n x per x 12 floats.
+    moved += R * (n * per * 12 - 13) * 4
+    reps = 20
+    print(f"[3] K12 split search, {what}: {R} rows x {A}x{L}x{L} "
+          f"candidates split 2 and 4 ways, bitwise equal to the one-launch "
+          f"search and to the twins; partials ({n} angles) and finalize "
+          f"bitwise against their twins")
+    return (timed(0.0, cuda_ms(part, reps), cuda_ms(part_twin, 2), moved,
+                  ops),
+            timed(0.0, cuda_ms(fin, reps), cuda_ms(fin_twin, 2),
+                  nbytes(full, f) + (A + L) * 4 + R * 4,
+                  R * A * per * 12))
+
+
+def phase_k12(cfg, win, query, cfg3, bag3, cfg6, dev):
+    """K12's kernels against their twins: the split K2 at config 2's
+    window (R = 1) and over 64 config-3 confirmation rows, the split K6
+    over config 6's 32 coarse rows, and the rank-ordered sum at the
+    district's shapes."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import candidate_gather as k6
+    from ndt_2d_tpu_torch.kernels import candidate_scores as k2
+    from ndt_2d_tpu_torch.kernels import ndt_build as k1
+    from ndt_2d_tpu_torch.kernels import shard_combine
+    from ndt_2d_tpu_torch.ndt import grid as ndt_grid
+    out = {}
+    mc = cfg.local_scan_matcher
+    g, tab = k1.build_window(**win, range_max=15.0,
+                             cell_size=mc.ndt_resolution,
+                             width=mc.grid_cells_x, height=mc.grid_cells_y)
+    row = ndt_grid.NDTGrid(origin=g.origin[None], cell_size=g.cell_size,
+                           mean=None, information=None, count=None,
+                           covariance=None)
+    rows2 = (row, tab[None], query["points"][None],
+             query["point_mask"][None],
+             torch.tensor([query["num_points"]], dtype=torch.int32,
+                          device=dev), query["pose"][None])
+    p2, f2 = check_split(k2, mc, rows2, "K2 at config 2's window", dev)
+    out["candidate_partials_config2"] = p2
+    out["candidate_finalize_config2"] = f2
+    gm = cfg3.global_scan_matcher
+    rows = office_rows(cfg3, bag3, dev)
+    gr, tabs = k1.build_windows(*rows[:4], 12.0, gm.ndt_resolution,
+                                gm.grid_cells_x, gm.grid_cells_y)
+    out["candidate_partials"], out["candidate_finalize"] = check_split(
+        k2, gm, (gr, tabs, *rows[4:]), f"K2 over {ROWS} config-3 rows", dev)
+    cm = cfg6.coarse_scan_matcher
+    rows = coarse_rows(cfg6, bag3, dev)
+    gr, tabs = k1.build_windows(*rows[:4], 12.0, cm.ndt_resolution,
+                                cm.grid_cells_x, cm.grid_cells_y)
+    (out["candidate_gather_partials"],
+     out["candidate_gather_finalize"]) = check_split(
+        k6, cm, (gr, tabs, *rows[4:]),
+        f"K6 over {COARSE_ROWS} config-6 coarse rows", dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for S in (2, 4):
+        for width in (3, 9):
+            n = width * DISTRICT_NODES
+            x = torch.randn(S, n, generator=gen, device=dev)
+            x[1] *= 1e6
+            y, yt = shard_combine.rank_sum(x), shard_combine.rank_sum_twin(x)
+            torch.cuda.synchronize()
+            require(torch.equal(y, yt), f"rank_sum ({S} x {n}) differs from "
+                    "its twin")
+            require(torch.equal(y, shard_combine.rank_sum(x)),
+                    "rank_sum not bitwise reproducible")
+            entry = timed(0.0, cuda_ms(lambda: shard_combine.rank_sum(x), 50),
+                          cuda_ms(lambda: shard_combine.rank_sum_twin(x), 20),
+                          nbytes(x, y), S * n,
+                          cuda_ms(lambda: torch.sum(x, 0), 50))
+            key = "rank_sum" if (S, width) == (2, 9) else \
+                f"rank_sum_{S}x{width}n"
+            out[key] = entry
+    print(f"[3] K12 rank_sum: S = 2, 4 ranks x {3 * DISTRICT_NODES} and "
+          f"{9 * DISTRICT_NODES} floats (the district's gradient and block "
+          "diagonal), bitwise equal to the twin's rank-order adds and "
+          "reproducible")
+    return out
+
+
+def mesh_launches(launches) -> dict:
+    """The K12 launches of a run."""
+    return {k: launches[k] for k in K12_KERNELS}
+
+
+def final_ate(mapper, stats, bag) -> float:
+    """ATE of the graph after the session's last solve."""
+    from ndt_2d_tpu_torch.utils import metrics
+    return metrics.ate_rmse(mapper.graph.poses[:len(stats["_est"])],
+                            bag.truth[stats["_est_t"]])
+
+
+class ForcedCollectives:
+    """Inside, a group of one rank runs its collectives where the mesh path
+    skips them as the identity, so the NCCL branches of
+    ``distributed.gather`` and ``sum_int`` run on one card; ``calls``
+    counts the all-gathers and all-reduces made."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        from ndt_2d_tpu_torch.parallel import distributed
+        self.saved = (distributed._alone, dist.all_gather_into_tensor,
+                      dist.all_reduce)
+        self.calls = {"all_gather": 0, "all_reduce": 0}
+
+        def counted(name, fn):
+            def call(*args, **kwargs):
+                self.calls[name] += 1
+                return fn(*args, **kwargs)
+            return call
+        distributed._alone = lambda group: group is None
+        dist.all_gather_into_tensor = counted("all_gather", self.saved[1])
+        dist.all_reduce = counted("all_reduce", self.saved[2])
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        from ndt_2d_tpu_torch.parallel import distributed
+        (distributed._alone, dist.all_gather_into_tensor,
+         dist.all_reduce) = self.saved
+        return False
+
+
+def phase_mesh_nccl(cfg, bag, cfg6, bag3, dev, tmp):
+    """The mesh path on one rank over NCCL (cuda:0): config 10 through
+    ``Mapper(mesh=make_mesh(1))`` synchronously and at max_inflight 8,
+    beside the single-device run of the same bag; config 2's pipelined
+    dispatch loop and export on the mesh with the one-rank collectives
+    forced through NCCL, the loop under CUDA sync-debug "error"; config 6
+    (descriptor search, far rows on K6) on the mesh beside the
+    single-device run and, as the witness of the solver's share, the
+    single-device run with the solve forced to PCG; the time of
+    ``distributed.gather`` through NCCL at the solver's shape.  Returns
+    (config 10's launches, config 6's, the gather ms, the single-device
+    config-10 run)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ndt_2d_tpu_torch.mapping import occupancy
+    from ndt_2d_tpu_torch.mapping.mapper import Mapper
+    from ndt_2d_tpu_torch.parallel import distributed, mesh as mesh_mod
+    distributed.initialize(dev, init_method="file://" + os.path.join(
+        tmp, "nccl_rendezvous"), world_size=1, rank=0)
+    try:
+        require(dist.get_backend() == "nccl", "the one-rank group is not "
+                "NCCL")
+        mesh = mesh_mod.make_mesh(1)
+        numbers = {}
+        for name, m in (("single", None), ("mesh", mesh)):
+            reset_counts()
+            t0 = time.perf_counter()
+            stats, grid, dt, _, acc, mapper = run_session(
+                cfg, bag, dev, mapper=Mapper(cfg, device=dev, mesh=m))
+            wall = time.perf_counter() - t0
+            numbers[name] = dict(
+                stats=stats, grid=grid, mapper=mapper, wall=wall,
+                launches=read_counts(), final=final_ate(mapper, stats, bag),
+                ms=float(np.median(dt[acc][4:]) * 1e3))
+        s, m = numbers["single"], numbers["mesh"]
+        st, launches, final = m["stats"], m["launches"], m["final"]
+        require(st["scans_accepted"] == s["stats"]["scans_accepted"],
+                f"config 10 on the mesh accepted {st['scans_accepted']}, "
+                f"single-device {s['stats']['scans_accepted']}")
+        require(st["loop_closures"] >= 1 and st["session"]["optimizations"]
+                >= 1, f"config 10 on the mesh: {st['loop_closures']} "
+                f"closures, {st['session']['optimizations']} optimizations")
+        require(final < st["odom_ate_rmse_m"]
+                and abs(final - s["final"]) < MESH_ATE_GAP,
+                f"config 10 mesh final ATE {final} (single-device "
+                f"{s['final']}, odometry {st['odom_ate_rmse_m']})")
+        g = m["mapper"].graph
+        plain = occupancy.render_occupancy(
+            g.poses, g.points, g.point_mask, cfg.resolution,
+            cfg.occupancy_threshold, device=dev)
+        require(np.array_equal(plain.data, m["grid"].data),
+                "config 10: the mesh export differs from single-device K5")
+        for k in ("candidate_partials", "candidate_finalize", "rank_sum"):
+            require(launches[k] >= 1, f"config 10 on the mesh never "
+                    f"launched {k}: {launches}")
+        require(launches["candidate_scores"] == 0, "config 10 on the mesh "
+                "launched the one-launch K2 search")
+        print(f"[4p] config 10 ({len(bag)} office scans) on a one-rank NCCL "
+              f"mesh: {st['scans_accepted']} accepted (single-device "
+              f"{s['stats']['scans_accepted']}), {st['loop_closures']} "
+              f"closures / {st['session']['optimizations']} optimizations "
+              f"(single {s['stats']['loop_closures']} / "
+              f"{s['stats']['session']['optimizations']}), ATE online "
+              f"{st['ate_rmse_m']:.4f} final {final:.4f} m (single "
+              f"{s['stats']['ate_rmse_m']:.4f} / {s['final']:.4f}, odometry "
+              f"{st['odom_ate_rmse_m']:.4f}); {m['ms']:.3f} ms per accepted "
+              f"scan (single {s['ms']:.3f}), session {m['wall']:.3f} s "
+              f"(single {s['wall']:.3f}); export bitwise equal to "
+              f"single-device K5; K12 launches {mesh_launches(launches)}")
+        # Pipelined, max_inflight 8.
+        reset_counts()
+        t0 = time.perf_counter()
+        pst, _, pdt, _, pacc, pm = run_session(
+            pipelined(cfg), bag, dev,
+            mapper=Mapper(pipelined(cfg), device=dev, mesh=mesh))
+        pwall = time.perf_counter() - t0
+        plaunch = read_counts()
+        pfinal = final_ate(pm, pst, bag)
+        require(pst["loop_closures"] >= 1 and pfinal < pst["odom_ate_rmse_m"],
+                f"pipelined config 10 on the mesh: {pst['loop_closures']} "
+                f"closures, final ATE {pfinal}")
+        require(k13_launches(plaunch) >= 2 and plaunch["candidate_partials"]
+                >= 1, f"pipelined config 10 launches {plaunch}")
+        print(f"[4p] config 10 at max_inflight=8 on the mesh: "
+              f"{pst['scans_accepted']} accepted, {pst['loop_closures']} "
+              f"closures, final ATE {pfinal:.4f} m, "
+              f"{float(np.median(pdt[pacc][4:]) * 1e3):.3f} ms per accepted "
+              f"scan, session {pwall:.3f} s")
+        mesh_sync_debug(dev, mesh)
+        # Config 6: descriptor search (query rows over 'batch') and far rows
+        # coarse-to-fine on K6's split search, beside one device; then one
+        # device with the solver forced to PCG, the mesh's solve before
+        # the mesh took one device's dense rule.
+        pcg6 = dataclasses.replace(cfg6, solver=dataclasses.replace(
+            cfg6.solver, dense_size_limit=0))
+        runs6 = {}
+        for name, c6, m6 in (("mesh", cfg6, mesh), ("single", cfg6, None),
+                             ("single_pcg", pcg6, None)):
+            reset_counts()
+            t0 = time.perf_counter()
+            st6, _, _, _, _, mp6 = run_session(
+                c6, bag3, dev, mapper=Mapper(c6, device=dev, mesh=m6))
+            runs6[name] = dict(stats=st6, wall=time.perf_counter() - t0,
+                               launches=read_counts(), mapper=mp6,
+                               final=final_ate(mp6, st6, bag3))
+        d, d1, dp = runs6["mesh"], runs6["single"], runs6["single_pcg"]
+        dst, dlaunch = d["stats"], d["launches"]
+        require(dst["loop_closures"] >= 1
+                and d["final"] < dst["odom_ate_rmse_m"]
+                and abs(d["final"] - d1["final"]) < MESH_ATE_GAP,
+                f"config 6 on the mesh: {dst['loop_closures']} closures, "
+                f"final ATE {d['final']} (single-device {d1['final']})")
+        for k in ("candidate_gather_partials", "candidate_gather_finalize",
+                  "descriptor_search"):
+            require(dlaunch[k] >= 1, f"config 6 on the mesh never launched "
+                    f"{k}")
+        print(f"[4p] config 6 on the mesh: {dst['loop_closures']} closures "
+              f"({d['mapper'].stats.far_rows_pruned} far rows pruned), final "
+              f"ATE {d['final']:.4f} m (single-device "
+              f"{d1['stats']['loop_closures']} closures, {d1['final']:.4f}; "
+              f"odometry {dst['odom_ate_rmse_m']:.4f}), session "
+              f"{d['wall']:.3f} s (single {d1['wall']:.3f}); K12 launches "
+              f"{mesh_launches(dlaunch)}")
+        print(f"[4p] witness: config 6 on one device with the solve forced "
+              f"to PCG (dense_size_limit 0): "
+              f"{dp['stats']['loop_closures']} closures, "
+              f"{dp['stats']['session']['optimizations']} optimizations, "
+              f"final ATE {dp['final']:.4f} m (dense "
+              f"{d1['final']:.4f}), {dp['launches']['pcg_matvec']} PCG "
+              f"matvecs, session {dp['wall']:.3f} s")
+        # distributed.gather through NCCL at the solver's shape (the
+        # block diagonal of the district's 50,000 nodes).
+        x = torch.randn(9 * DISTRICT_NODES, device=dev)
+        with ForcedCollectives():
+            def gather():
+                return distributed.gather(x, dist.group.WORLD)
+            y = gather()
+            torch.cuda.synchronize()
+            require(y.shape == (1, x.numel()) and torch.equal(y[0], x),
+                    "the NCCL gather differs from its input")
+            gather_ms = cuda_ms(gather, 50)
+        print(f"[5] distributed.gather through NCCL over the one-rank group "
+              f"of {x.numel()} floats (the district's block diagonal): "
+              f"{gather_ms:.4f} ms")
+    finally:
+        dist.destroy_process_group()
+    return launches, dlaunch, gather_ms, s
+
+
+def mesh_sync_debug(dev, mesh):
+    """Config 2's pipelined dispatch loop (max_inflight 8, no loop closure)
+    on the one-rank mesh with its collectives forced through NCCL: the
+    loop under CUDA sync-debug "error" (no call in it synchronizes or
+    copies to the host blocking, the NCCL gathers of the search's partials
+    included), the graph bitwise the single-device pipelined run's; then
+    the export, its ray counts summed by an NCCL all-reduce, bitwise the
+    single-device export."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.mapping import runtime
+    from ndt_2d_tpu_torch.mapping.mapper import Mapper
+    bag, cfg, _, _, _ = inputs(dev)
+    pcfg = pipelined(cfg)
+    graphs, grids = [], []
+    forced = ForcedCollectives()
+    for m in (None, mesh):
+        mapper = Mapper(pcfg, device=dev, mesh=m)
+        torch.cuda.synchronize()
+        with forced if m is not None else contextlib.nullcontext():
+            if m is not None:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                for t, (msg, odom) in enumerate(bag):
+                    mapper.process_scan(msg, odom,
+                                        runtime.sweep_end_odom(bag, t, msg))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            mapper.flush()
+            grids.append(mapper.render_map().data)
+        graphs.append(mapper.graph.poses[:mapper.graph.num_scans].copy())
+    calls = forced.calls
+    require(len(graphs[1]) == len(bag) and np.array_equal(*graphs),
+            "config 2 pipelined on the mesh differs from single-device")
+    require(np.array_equal(*grids), "config 2's export on the mesh differs "
+            "from single-device")
+    require(calls["all_gather"] >= len(bag) - 1 and calls["all_reduce"] >= 1,
+            f"the forced NCCL collectives did not run: {calls}")
+    print(f"[4p] config 2 at max_inflight=8 on the mesh, every one-rank "
+          f"collective through NCCL ({calls['all_gather']} all-gathers, "
+          f"{calls['all_reduce']} integer all-reduces): the dispatch loop "
+          f"under sync-debug \"error\", {len(bag)} scans, graph and export "
+          f"bitwise equal to the single-device pipelined run's")
+
+
+def mesh_rank(out_dir, space: int, batch: int, map4: str,
+              device: str) -> int:
+    """One rank of ``phase_mesh_shared``: a (space, batch) gloo mesh whose
+    ranks share ``device`` (the card).  Runs config 10 synchronously, the
+    district's PCG solve by ``solve_multichip`` and the 5000-particle
+    measurement on the config-4 map, and saves the results to
+    ``out_dir``."""
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch import convert
+    from ndt_2d_tpu_torch.config import SolverConfig
+    from ndt_2d_tpu_torch.kernels import score_points as k3
+    from ndt_2d_tpu_torch.mapping import laser
+    from ndt_2d_tpu_torch.mapping.mapper import Mapper
+    from ndt_2d_tpu_torch.parallel import distributed, mesh as mesh_mod
+    from ndt_2d_tpu_torch.parallel import filter as pfilter
+    from ndt_2d_tpu_torch.parallel import solver as psolver
+    from ndt_2d_tpu_torch.io.bag import record_synthetic
+    from ndt_2d_tpu_torch.utils import metrics
+    dev = distributed.initialize(device, backend="gloo")
+    mesh = mesh_mod.make_mesh(shape=(space, batch))
+    out = {}
+    cfg, bag = config10()
+    t0 = time.perf_counter()
+    stats, grid, dt, _, acc, mapper = run_session(
+        cfg, bag, dev, mapper=Mapper(cfg, device=dev, mesh=mesh))
+    out["wall"] = time.perf_counter() - t0
+    g = mapper.graph
+    out.update(accepted=stats["scans_accepted"],
+               closures=stats["loop_closures"],
+               optimizations=stats["session"]["optimizations"],
+               ate=stats["ate_rmse_m"], odom=stats["odom_ate_rmse_m"],
+               final=metrics.ate_rmse(g.poses[:len(stats["_est"])],
+                                      bag.truth[stats["_est_t"]]),
+               ms=float(np.median(dt[acc][4:]) * 1e3), poses=g.poses,
+               grid=grid.data)
+    # The district's PCG solve, constraints over 'batch'.
+    _, district = district_graph()
+    nb = mesh_mod.axis_size(mesh, mesh_mod.BATCH_AXIS)
+    d = dict(district)
+    d.pop("robust_mask")
+    (d["begin"], d["end"], d["transform"], d["information"],
+     d["constraint_mask"]) = psolver.pad_constraints(
+        d["begin"], d["end"], d["transform"], d["information"],
+        d["constraint_mask"], nb)
+    t = convert.solve_inputs_to_port(dev, **d)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = psolver.solve_multichip(
+        SolverConfig(max_iterations=30, cg_max_iterations=150), mesh, **t)
+    torch.cuda.synchronize()
+    out["district_wall"] = time.perf_counter() - t0
+    out["district_ok"] = bool(res.success)
+    out["district"] = res.poses.cpu().numpy().astype(np.float64)
+    x = torch.zeros(9 * DISTRICT_NODES, device=dev)
+    out["gather_ms"] = cuda_ms(
+        lambda: distributed.gather(x, torch.distributed.group.WORLD), 20)
+    # Config 4's measurement of 5000 particles, sharded over 'batch'.
+    _, cfg4 = config4_configs()
+    bag4 = record_synthetic("box", 150, n_beams=360, seed=2)
+    loc = localizer(cfg4, map4, dev, 3)
+    loc._ensure_matchers(bag4.range_max)
+    m = loc.global_matcher
+    pts, msk = laser.project_scan(bag4[40][0], bag4.range_max, np.zeros(3),
+                                  False, None, cfg4.max_points_per_scan)
+    q, qm = torch.tensor(pts, device=dev), torch.tensor(msk, device=dev)
+    center = torch.tensor(metrics.relative_to_first(bag4.truth)[40],
+                          dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    poses = (center + torch.randn(PARTICLES, 3, generator=gen, device=dev)
+             * torch.tensor([0.2, 0.2, 0.05], device=dev)).contiguous()
+    sc = pfilter.measure_multichip(m.config, mesh, m.grid, q, qm,
+                                   int(msk.sum()), poses)
+    one = k3.score_batch(m.grid, m.config.grid_cells_x, m.config.grid_cells_y,
+                         m.config.laser_max_beams, q, qm, int(msk.sum()),
+                         poses)
+    out["measure_equal"] = bool(torch.equal(sc, one))
+    out["measure"] = sc.cpu().numpy()
+    out["jax"] = "jax" in sys.modules
+    np.savez(os.path.join(out_dir, f"rank{distributed.rank()}.npz"),
+             **{k: np.asarray(v) for k, v in out.items()})
+    distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_mesh_shared(cfg, bag, single10, district_poses, district_truth,
+                      map4, tmp, dev):
+    """Two ranks sharing the one card over gloo (their collectives staged
+    through the host), on meshes (2, 1) and (1, 2): config 10
+    synchronously, the district's PCG solve and config 4's 5000-particle
+    measurement.  Correctness and the cost of host-staged collectives, not
+    scaling."""
+    import numpy as np
+
+    from ndt_2d_tpu_torch.parallel import distributed
+    smi = shutil.which("nvidia-smi")
+    mode = subprocess.run(
+        [smi, "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30,
+        check=False).stdout.strip() if smi else "nvidia-smi: not found"
+    print(f"[4q] compute mode: {mode}")
+
+    def rmse(p):
+        return float(np.sqrt(np.mean(np.sum(
+            (p[:, :2] - district_truth[:, :2]) ** 2, -1))))
+    rows = {}
+    for shape in ((2, 1), (1, 2)):
+        out = os.path.join(tmp, f"mesh{shape[0]}x{shape[1]}")
+        os.makedirs(out)
+        t0 = time.perf_counter()
+        distributed.launch([sys.executable, os.path.abspath(__file__),
+                            "--mesh-rank", out, str(shape[0]), str(shape[1]),
+                            map4, str(dev)], 2, timeout=900)
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with np.load(os.path.join(out, f"rank{r}.npz")) as z:
+                ranks.append({k: z[k] for k in z.files})
+        a, b = ranks
+        tag = f"({shape[0]}, {shape[1]})"
+        for k in ("poses", "grid", "district", "measure"):
+            require(np.array_equal(a[k], b[k]), f"mesh {tag}: {k} differs "
+                    "between the ranks")
+        require(not a["jax"] and not b["jax"], "a rank imported jax")
+        require(int(a["accepted"]) == single10["stats"]["scans_accepted"],
+                f"mesh {tag}: config 10 accepted {int(a['accepted'])}")
+        require(int(a["closures"]) >= 1 and int(a["optimizations"]) >= 1
+                and float(a["final"]) < float(a["odom"])
+                and abs(float(a["final"]) - single10["final"]) < MESH_ATE_GAP,
+                f"mesh {tag}: config 10 {int(a['closures'])} closures, final "
+                f"ATE {float(a['final'])} (single-device "
+                f"{single10['final']})")
+        dd = float(np.abs(a["district"] - district_poses).max())
+        require(bool(a["district_ok"]) and dd <= 5e-3
+                and rmse(a["district"]) <= 0.05,
+                f"mesh {tag}: district solve {dd} from single-device, RMSE "
+                f"{rmse(a['district'])}")
+        require(bool(a["measure_equal"]) and bool(b["measure_equal"]),
+                f"mesh {tag}: the sharded measurement differs from K3")
+        rows[shape] = dict(ms=float(a["ms"]), wall=float(a["wall"]),
+                           ate=float(a["final"]))
+        print(f"[4q] two ranks on cuda:0, mesh {tag} over gloo: config 10 "
+              f"{int(a['accepted'])} accepted, {int(a['closures'])} closures "
+              f"/ {int(a['optimizations'])} optimizations, ATE online "
+              f"{float(a['ate']):.4f} final {float(a['final']):.4f} m "
+              f"(odometry {float(a['odom']):.4f}), {float(a['ms']):.3f} ms "
+              f"per accepted scan, session {float(a['wall']):.3f} s; "
+              f"district PCG solve {float(a['district_wall']):.3f} s, RMSE "
+              f"{rmse(a['district']):.4f} m, {dd:.2e} from the single-device "
+              f"solve; {PARTICLES}-particle measurement bitwise equal to "
+              f"unsharded K3; host-staged all_gather of "
+              f"{9 * DISTRICT_NODES} floats {float(a['gather_ms']):.4f} ms; "
+              f"final poses, export, solve and scores bitwise equal on both "
+              f"ranks; launch + both ranks {wall:.1f} s")
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -3256,6 +3907,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False")
         return 2
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        out, space, batch, map4, device = sys.argv[2:7]
+        return mesh_rank(out, int(space), int(batch), map4, device)
     if "--profile" in sys.argv[1:]:
         from ndt_2d_tpu_torch.device import get_device
         profile_sessions(get_device("cuda:0"))
@@ -3277,6 +3931,7 @@ def main() -> int:
         timing.update(phase_k6(cfg6, bag3, dev))
         timing.update(phase_k10(cfg6, bag3, dev))
         phase_chain(cfg6, bag3, dev)
+        timing.update(phase_k12(cfg, win, query, cfg3, bag3, cfg6, dev))
         timing.update(phase_k13(bag, dev))
         timing.update(phase_k11(cfg, bag, win, query, dev))
         bag4 = record_synthetic("box", 150, n_beams=360, seed=2)
@@ -3288,13 +3943,19 @@ def main() -> int:
             c2p_launches, _ = phase_pipelined_config2(cfg, bag, dev, config2,
                                                       sync_poses)
             c8_launches = phase_config8(cfg, bag, dev, config2)
-            district_launches = phase_district_solve(truth, district, dev)
+            district_launches, district_poses = phase_district_solve(
+                truth, district, dev)
             launches, plain3 = phase_office(cfg3, bag3, dev)
             phase_pipelined_office(cfg3, bag3, dev, plain3)
             phase_office(office_recipe_config(), bag3, dev, "[4g]", plain3)
             pf_launches, sync4 = phase_config4(map4, keyframes, dev)
             phase_pipelined_config4(map4, dev, sync4)
             phase_config7(os.path.join(tmp, "office_map.npz"), dev)
+            cfg10, bag10 = config10()
+            (k12_launches, k12_desc_launches, gather_ms,
+             single10) = phase_mesh_nccl(cfg10, bag10, cfg6, bag3, dev, tmp)
+            phase_mesh_shared(cfg10, bag10, single10, district_poses, truth,
+                              map4, tmp, dev)
         c6_launches, c6_timing = phase_descriptor_session(
             cfg6, bag3, dev, "[4h]", "config 6")
         timing.update(c6_timing)
@@ -3334,6 +3995,12 @@ def main() -> int:
         launches[k] = c2p_launches[k]
     for k in ("correlative_field", "correlative_match", "correlative_score"):
         launches[k] = corr_launches[k]
+    # K12 from the mesh sessions on the one-rank NCCL mesh: K2's split
+    # search and the rank sum from config 10, K6's from config 6.
+    for k in ("candidate_partials", "candidate_finalize", "rank_sum"):
+        launches[k] = k12_launches[k]
+    for k in ("candidate_gather_partials", "candidate_gather_finalize"):
+        launches[k] = k12_desc_launches[k]
     # K1/K2 times and errors at config-3 confirmation shapes (64 rows);
     # the config-2 single-window ones are printed at [3].
     for k in ("ndt_build", "candidate_scores"):

@@ -36,6 +36,16 @@ starts from the bag's first true pose (or its origin), or with
 ``merge-maps`` aligns and fuses two saved maps (``mapping/merge.py``);
 ``import-carmen`` converts a CARMEN log (``io/carmen.py``) to a bag.  All
 run on the CUDA device unless ``--device cpu`` is given.
+
+``run`` and ``localize`` shard the session over a device mesh
+(``parallel/``) with ``--mesh N``, which starts N local ranks, one per
+CUDA device (gloo ranks with ``--device cpu``), or with ``--distributed``,
+which joins the process group ``torchrun`` describes in its environment
+and meshes over all of its ranks; rank 0 writes the outputs:
+
+  python -m ndt_2d_tpu_torch.cli run --bag bag.npz --mesh 2 --map-out m.npz
+  torchrun --nproc-per-node 2 -m ndt_2d_tpu_torch.cli run --bag bag.npz \
+      --distributed
 """
 
 from __future__ import annotations
@@ -181,10 +191,44 @@ def _mapper_config(args) -> MapperConfig:
         global_scan_matcher=gm, **kw)
 
 
+def _spawn_mesh(args) -> bool:
+    """With ``--mesh N`` (and not yet a rank), start N local ranks of this
+    same command with ``--distributed`` and wait for them; returns True
+    when it did.  On CUDA each rank needs a device of its own."""
+    if args.mesh is None or args.distributed:
+        return False
+    from ndt_2d_tpu_torch.parallel import distributed
+    if args.mesh < 1:
+        raise ValueError("--mesh needs at least one rank")
+    if distributed.backend_for(args.device) == "nccl":
+        import torch
+        count = torch.cuda.device_count()
+        if args.mesh > count:
+            raise RuntimeError(f"--mesh {args.mesh} needs {args.mesh} CUDA "
+                               f"devices, {count} visible")
+    distributed.launch([sys.executable, "-m", "ndt_2d_tpu_torch.cli",
+                        *args.argv, "--distributed"], args.mesh)
+    return True
+
+
+def _session_mesh(args):
+    """The session's mesh under ``--distributed``: join the process group
+    (this rank's device replaces ``args.device``) and mesh over all of its
+    ranks; None otherwise."""
+    if not args.distributed:
+        return None
+    from ndt_2d_tpu_torch.parallel import distributed, mesh as mesh_mod
+    args.device = distributed.initialize(args.device)
+    return mesh_mod.make_mesh()
+
+
 def cmd_run(args) -> int:
     from ndt_2d_tpu_torch.mapping.mapper import Mapper
 
-    mapper = Mapper(_mapper_config(args), device=args.device)
+    if _spawn_mesh(args):
+        return 0
+    mesh = _session_mesh(args)
+    mapper = Mapper(_mapper_config(args), device=args.device, mesh=mesh)
     return _replay(args, mapper, load_bag(args.bag))
 
 
@@ -193,6 +237,9 @@ def cmd_localize(args) -> int:
     ``--particle-filter``, else scan-match tracking."""
     from ndt_2d_tpu_torch.mapping.mapper import Mapper
 
+    if _spawn_mesh(args):
+        return 0
+    mesh = _session_mesh(args)
     cfg = dataclasses.replace(
         _mapper_config(args), enable_mapping=False,
         use_particle_filter=args.particle_filter,
@@ -201,7 +248,7 @@ def cmd_localize(args) -> int:
     if args.map:
         graph = serialization.load_graph(args.map, cfg.max_points_per_scan,
                                          cfg.use_barycenter)
-    mapper = Mapper(cfg, graph=graph, device=args.device)
+    mapper = Mapper(cfg, graph=graph, device=args.device, mesh=mesh)
     bag = load_bag(args.bag)
     if args.global_init:
         # No initial pose: a uniform cloud over the map's free space.
@@ -265,9 +312,8 @@ def cmd_merge_maps(args) -> int:
 
 def _replay(args, mapper, bag) -> int:
     """Run ``bag`` through ``mapper``, write the requested outputs and
-    print the stats line."""
+    print the stats line (rank 0 of a mesh only)."""
     from ndt_2d_tpu_torch.mapping import runtime
-    from ndt_2d_tpu_torch.mapping.mapper import SAVE_TO_FILE
 
     def progress(t, res):
         # A pipelined scan's pose is still in flight: nothing to print.
@@ -276,20 +322,8 @@ def _replay(args, mapper, bag) -> int:
                   f"score={res.matched_score:.3f}", file=sys.stderr)
 
     stats = runtime.run_bag(mapper, bag, progress=progress)
-    est = stats.pop("_est")
-    est_t = stats.pop("_est_t")
-    if args.traj_out:
-        serialization.save_tum(args.traj_out, est_t, est)
-        stats["traj_out"] = args.traj_out
-    if args.map_out:
-        mapper.configure(SAVE_TO_FILE, args.map_out)
-        stats["map_out"] = args.map_out
-    if args.grid_out:
-        grid = mapper.render_map()
-        np.savez_compressed(args.grid_out, data=grid.data, origin=grid.origin,
-                            resolution=grid.resolution)
-        stats["grid_out"] = args.grid_out
-    print(json.dumps(stats))
+    runtime.write_outputs(mapper, stats, args.traj_out, args.map_out,
+                          args.grid_out)
     return 0
 
 
@@ -440,13 +474,34 @@ def _add_session_args(p: argparse.ArgumentParser) -> None:
                         "override its values)")
     p.add_argument("--device", default="cuda",
                    help="cuda (the kernels) or cpu (their plain twins)")
+    p.add_argument("--mesh", type=int, default=None, metavar="N",
+                   help="shard the session over N local ranks, one per "
+                        "CUDA device (gloo ranks with --device cpu): match "
+                        "angles over 'space', confirmation rows, particles "
+                        "and constraints over 'batch', occupancy rays over "
+                        "every rank")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the process group described by the "
+                        "environment (RANK, WORLD_SIZE, LOCAL_RANK and "
+                        "MASTER_ADDR/MASTER_PORT, as torchrun sets them) and "
+                        "mesh over all of its ranks")
     p.add_argument("--verbose", action="store_true")
 
 
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.WARNING)
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = _build_parser().parse_args(argv)
-    return args.fn(args)
+    # What a rank of --mesh N runs: this command without "--mesh N".
+    args.argv = [a for i, a in enumerate(argv)
+                 if a != "--mesh" and (i == 0 or argv[i - 1] != "--mesh")
+                 and not a.startswith("--mesh=")]
+    try:
+        return args.fn(args)
+    finally:
+        import torch.distributed as dist
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -45,6 +45,13 @@
 // only that row's inputs, so its bits do not depend on R.  The [A, L, L]
 // scores never reach device memory, except through the optional debug
 // output used to check the kernel against its twin.
+//
+// K12 (a device mesh): the two launches are also entries of their own, as
+// K2's are.  ndt2d_candidate_gather_partials scores a contiguous block of
+// angles from global angle a0 (flat indices stay global) and writes its
+// (angle, tile) partials; ndt2d_candidate_gather_finalize combines the
+// partials of all A angles, gathered from the ranks in rank order, in
+// (angle, tile) order: bit for bit the one-launch search.
 #include "lattice.cuh"
 
 namespace {
@@ -61,15 +68,16 @@ __device__ __forceinline__ int row_points(const int* nums, int num, int r) {
   return nums != nullptr ? nums[r] : num;
 }
 
-// Grid (tiles, A, R): offsets tile blockIdx.x of angle blockIdx.y of row
-// blockIdx.z; G grids a row.
+// Grid (tiles, A, R): offsets tile blockIdx.x of angle a0 + blockIdx.y of
+// row blockIdx.z; G grids a row.  dths holds the whole lattice's angles; the
+// partials [R, A * tiles, 12] and the scores [R, A, L, L] the launch's A.
 __global__ void __launch_bounds__(kTile) gather_tiles(
     const float* __restrict__ table, const float* __restrict__ origin,
     int G, float cell, int W, int H, const float* __restrict__ points,
     const uint8_t* __restrict__ pmask, int P, const int* __restrict__ nums,
     int num, int max_beams, const float* __restrict__ pose,
-    const float* __restrict__ dths, const float* __restrict__ dls, int A,
-    int L, float* __restrict__ partial, float* __restrict__ scores) {
+    const float* __restrict__ dths, int a0, const float* __restrict__ dls,
+    int A, int L, float* __restrict__ partial, float* __restrict__ scores) {
   __shared__ Beam beams[kBeamChunk];
 
   const int tile = blockIdx.x, tiles = gridDim.x;
@@ -91,7 +99,8 @@ __global__ void __launch_bounds__(kTile) gather_tiles(
   const float dx = dls[lx], dy = dls[ly];
 
   const ndt2d::Subsample sub(num_points, max_beams);
-  const float th = pose[2] + dths[a];
+  const int ag = a0 + a;  // the angle's index in the whole lattice
+  const float th = pose[2] + dths[ag];
   const float c = cosf(th), s = sinf(th);
 
   float mean_sum = 0.f;  // sum over grids, from 0 (G > 1 only)
@@ -136,11 +145,11 @@ __global__ void __launch_bounds__(kTile) gather_tiles(
     mean_sum = mean_sum + cand;
   }
   if (G > 1) cand = mean_sum / (float)G;
-  const int flat = a * LL + t;
-  if (live && scores != nullptr) scores[flat] = cand;
+  const int flat = ag * LL + t;
+  if (live && scores != nullptr) scores[a * LL + t] = cand;
 
   // matcher.py::reduce_candidates over this tile: x = (dx, dy, dth).
-  lattice::reduce_tile(cand, live, flat, dx, dy, dths[a], partial);
+  lattice::reduce_tile(cand, live, flat, dx, dy, dths[ag], partial);
 }
 
 }  // namespace
@@ -163,8 +172,43 @@ NDT2D_API int ndt2d_candidate_gather(
       cell, W, H, static_cast<const float*>(points),
       static_cast<const uint8_t*>(pmask), P, static_cast<const int*>(nums),
       num, max_beams, static_cast<const float*>(pose),
-      static_cast<const float*>(dths), static_cast<const float*>(dls), A, L,
-      static_cast<float*>(partial), static_cast<float*>(scores));
+      static_cast<const float*>(dths), 0, static_cast<const float*>(dls), A,
+      L, static_cast<float*>(partial), static_cast<float*>(scores));
+  lattice::finalize<<<R, lattice::kFinalizeThreads, 0, st>>>(
+      static_cast<const float*>(partial), A * tiles, L,
+      static_cast<const int*>(nums), num, max_beams,
+      static_cast<const float*>(dths), static_cast<const float*>(dls),
+      static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
+// K12, first half: the (angle, tile) partials [R, A * tiles, 12] f32 of
+// angles a0 .. a0 + A - 1 of the lattice dths (other arguments as above).
+NDT2D_API int ndt2d_candidate_gather_partials(
+    const void* table, const void* origin, int G, float cell, int W, int H,
+    const void* points, const void* pmask, int R, int P, const void* nums,
+    int num, int max_beams, const void* pose, const void* dths, int a0,
+    int A, const void* dls, int L, void* partial, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int tiles = (L * L + kTile - 1) / kTile;
+  gather_tiles<<<dim3(tiles, A, R), kTile, 0, st>>>(
+      static_cast<const float*>(table), static_cast<const float*>(origin), G,
+      cell, W, H, static_cast<const float*>(points),
+      static_cast<const uint8_t*>(pmask), P, static_cast<const int*>(nums),
+      num, max_beams, static_cast<const float*>(pose),
+      static_cast<const float*>(dths), a0, static_cast<const float*>(dls), A,
+      L, static_cast<float*>(partial), nullptr);
+  return (int)cudaGetLastError();
+}
+
+// K12, second half: out [R, 13] from the partials [R, A * tiles, 12] of all
+// A angles in (angle, tile) order.
+NDT2D_API int ndt2d_candidate_gather_finalize(
+    const void* partial, int R, int A, int L, const void* nums, int num,
+    int max_beams, const void* dths, const void* dls, void* out,
+    void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int tiles = (L * L + kTile - 1) / kTile;
   lattice::finalize<<<R, lattice::kFinalizeThreads, 0, st>>>(
       static_cast<const float*>(partial), A * tiles, L,
       static_cast<const int*>(nums), num, max_beams,

@@ -35,6 +35,15 @@
 // blocks read only that row's inputs, so its bits do not depend on R.  The
 // [A, L, L] scores never reach device memory, except through the optional
 // debug output used to check the kernel against its twin.
+//
+// K12 (a device mesh, ndt_2d_tpu/parallel/matcher.py::match_scan_multichip
+// with its psum and all_gather): the two launches are also entries of their
+// own.  ndt2d_candidate_partials scores a contiguous block of angles
+// starting at global angle a0 (a rank's share; flat indices stay global)
+// and writes only its per-angle partials; ndt2d_candidate_finalize combines
+// the partials of all A angles, gathered from the ranks in rank order.  The
+// finalize adds in angle order, so the split search is the one-launch
+// search bit for bit, whatever the split.
 #include "common.cuh"
 
 namespace {
@@ -56,14 +65,16 @@ __device__ __forceinline__ int row_points(const int* nums, int num, int r) {
   return nums != nullptr ? nums[r] : num;
 }
 
-// Grid (A, R): angle a = blockIdx.x of row r = blockIdx.y; G grids a row.
+// Grid (A, R): angle a0 + a of the lattice, a = blockIdx.x, of row r =
+// blockIdx.y; G grids a row.  dths holds the whole lattice's angles; the
+// partials [R, A, 12] and the scores [R, A, L, L] hold the launch's A.
 __global__ void score_angles(
     const float* __restrict__ table, const float* __restrict__ origin,
     int G, float cell, int W, int H, const float* __restrict__ points,
     const uint8_t* __restrict__ pmask, int P, const int* __restrict__ nums,
     int num, int max_beams, const float* __restrict__ pose,
-    const float* __restrict__ dths, const float* __restrict__ dls, int A,
-    int L, float* __restrict__ partial, float* __restrict__ scores) {
+    const float* __restrict__ dths, int a0, const float* __restrict__ dls,
+    int A, int L, float* __restrict__ partial, float* __restrict__ scores) {
   __shared__ Beam beams[kBeamChunk];
   __shared__ float warp_sums[kMaxWarps][kPartial];
 
@@ -85,7 +96,8 @@ __global__ void score_angles(
   const float dx = dls[lx], dy = dls[ly];
 
   const ndt2d::Subsample sub(num_points, max_beams);
-  const float th = pose[2] + dths[a];
+  const int ag = a0 + a;  // the angle's index in the whole lattice
+  const float th = pose[2] + dths[ag];
   const float c = cosf(th), s = sinf(th);
 
   float mean_sum = 0.f;  // sum over grids, from 0 (G > 1 only)
@@ -150,15 +162,15 @@ __global__ void score_angles(
     mean_sum = mean_sum + cand;
   }
   if (G > 1) cand = mean_sum / (float)G;
-  const int flat = a * LL + t;
-  if (live && scores != nullptr) scores[flat] = cand;
+  const int flat = ag * LL + t;
+  if (live && scores != nullptr) scores[a * LL + t] = cand;
 
   // matcher.py::reduce_candidates over this angle: x = (dx, dy, dth).
   float best = live ? cand : __int_as_float(0x7f800000);  // +inf
   int best_i = live ? flat : 0x7fffffff;
   float v[kSums] = {0.f};
   if (live) {
-    const float x0 = dx, x1 = dy, x2 = dths[a];
+    const float x0 = dx, x1 = dy, x2 = dths[ag];
     v[0] = cand;
     v[1] = x0 * cand;
     v[2] = x1 * cand;
@@ -292,8 +304,42 @@ NDT2D_API int ndt2d_candidate_scores(
       cell, W, H, static_cast<const float*>(points),
       static_cast<const uint8_t*>(pmask), P, static_cast<const int*>(nums),
       num, max_beams, static_cast<const float*>(pose),
-      static_cast<const float*>(dths), static_cast<const float*>(dls), A, L,
-      static_cast<float*>(partial), static_cast<float*>(scores));
+      static_cast<const float*>(dths), 0, static_cast<const float*>(dls), A,
+      L, static_cast<float*>(partial), static_cast<float*>(scores));
+  finalize<<<R, kFinalizeThreads, 0, st>>>(
+      static_cast<const float*>(partial), A, L, static_cast<const int*>(nums),
+      num, max_beams, static_cast<const float*>(dths),
+      static_cast<const float*>(dls), static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
+// K12, first half: the partials [R, A, 12] f32 of angles a0 .. a0 + A - 1 of
+// the lattice dths (other arguments as above); no finalize.
+NDT2D_API int ndt2d_candidate_partials(
+    const void* table, const void* origin, int G, float cell, int W, int H,
+    const void* points, const void* pmask, int R, int P, const void* nums,
+    int num, int max_beams, const void* pose, const void* dths, int a0,
+    int A, const void* dls, int L, void* partial, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int threads = ((L * L + 31) / 32) * 32;
+  score_angles<<<dim3(A, R), threads, 0, st>>>(
+      static_cast<const float*>(table), static_cast<const float*>(origin), G,
+      cell, W, H, static_cast<const float*>(points),
+      static_cast<const uint8_t*>(pmask), P, static_cast<const int*>(nums),
+      num, max_beams, static_cast<const float*>(pose),
+      static_cast<const float*>(dths), a0, static_cast<const float*>(dls), A,
+      L, static_cast<float*>(partial), nullptr);
+  return (int)cudaGetLastError();
+}
+
+// K12, second half: out [R, 13] from the partials [R, A, 12] of all A angles
+// in angle order (nums, num, max_beams, dths [A], dls [L] as above).
+NDT2D_API int ndt2d_candidate_finalize(const void* partial, int R, int A,
+                                       int L, const void* nums, int num,
+                                       int max_beams, const void* dths,
+                                       const void* dls, void* out,
+                                       void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   finalize<<<R, kFinalizeThreads, 0, st>>>(
       static_cast<const float*>(partial), A, L, static_cast<const int*>(nums),
       num, max_beams, static_cast<const float*>(dths),

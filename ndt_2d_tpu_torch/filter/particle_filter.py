@@ -133,25 +133,28 @@ def inject_free_space(particles, weights, n, free_xy, free_cell: float,
 
 
 def _motion_and_measure(draws: Draws, particles, control, mcfg, grid,
-                        points, point_mask, num_points, alphas):
+                        points, point_mask, num_points, alphas, mesh=None):
     p = motion_model.sample(particles, draws.motion, control[0], control[1],
                             control[2], alphas[0], alphas[1], alphas[2],
                             alphas[3])
     scores = matcher_mod.score_points_batch(mcfg, grid, points, point_mask,
-                                            num_points, p)
+                                            num_points, p, mesh=mesh)
     return p, scores
 
 
 def pf_step(draws: Draws, particles, n, control, mcfg, grid, points,
             point_mask, num_points: int, alphas, kld_err: float, kld_z: float,
-            bin_sizes, min_particles: int) -> StepResult:
+            bin_sizes, min_particles: int, mesh=None) -> StepResult:
     """One scan update: motion sample + measurement of every particle + KLD
     resample + statistics (the laserCallback PF branch,
     ndt_mapper.cpp:471-476), with the host-side ``control`` [3] and
     ``alphas`` [4].  ``n`` is the active count (int or int32 [1]); the
-    kernels derive the mask from it on the device."""
+    kernels derive the mask from it on the device.  With a ``mesh`` the
+    measurement shards the particles over its ``batch`` axis
+    (parallel/filter.py); everything else is replicated."""
     p, scores = _motion_and_measure(draws, particles, control, mcfg, grid,
-                                    points, point_mask, num_points, alphas)
+                                    points, point_mask, num_points, alphas,
+                                    mesh)
     r = k9.resample(scores, _n_tensor(n, scores.device), draws.resample, p,
                     bin_sizes, kld_err, kld_z, min_particles)
     return StepResult(r.particles, r.normalized, r.n, r.stats)
@@ -161,7 +164,7 @@ def pf_step_recovery(draws: Draws, particles, n, control, mcfg, grid, points,
                      point_mask, num_points: int, alphas, kld_err: float,
                      kld_z: float, bin_sizes, min_particles: int, free_xy,
                      free_cell: float, w_state, alpha_slow: float,
-                     alpha_fast: float) -> StepResult:
+                     alpha_fast: float, mesh=None) -> StepResult:
     """pf_step + AMCL w_slow/w_fast recovery (Probabilistic Robotics table
     8.3): the EWMAs of the mean likelihood of the active particles set
     p_inject = max(0, 1 - w_fast / w_slow), and each resampled particle is
@@ -169,7 +172,8 @@ def pf_step_recovery(draws: Draws, particles, n, control, mcfg, grid, points,
     ``w_state`` [2] (w_slow, w_fast; 0 = unset) comes back updated in
     ``StepResult.w_state``."""
     p, scores = _motion_and_measure(draws, particles, control, mcfg, grid,
-                                    points, point_mask, num_points, alphas)
+                                    points, point_mask, num_points, alphas,
+                                    mesh)
     inj = k9.Injection(free_xy, float(free_cell), draws.inject_sel,
                        draws.inject_idx, draws.inject_jitter,
                        draws.inject_theta)
@@ -318,15 +322,18 @@ class ParticleFilter:
                                              dth, *self._alphas())
         self._refresh_statistics()
 
-    def measure(self, matcher, points, point_mask, num_points) -> None:
+    def measure(self, matcher, points, point_mask, num_points,
+                mesh=None) -> None:
         """Measurement update: weight_i = scorePoints(scan, particle_i)
         (particle_filter.cpp:78-89), the raw (negative) NDT score; with
         recovery armed the EWMAs update here from the raw scores, on K9 in
-        the order of the fused step's."""
+        the order of the fused step's.  ``mesh``: the particles shard over
+        its ``batch`` axis (particle_filter.py:355-396), scores bitwise
+        the single-device ones."""
         pts, msk = self._scan(points, point_mask)
         scores = matcher_mod.score_points_batch(
             matcher.config, matcher.grid, pts, msk, int(num_points),
-            self.particles)
+            self.particles, mesh=mesh)
         if self.recovery_enabled:
             c = self.config
             self.w_state = k9.ewma(scores, self._n(), self.w_state,
@@ -359,13 +366,14 @@ class ParticleFilter:
                 upload(np.asarray(point_mask, bool), self.device))
 
     def step_async(self, matcher, control, points, point_mask,
-                   num_points) -> HostCopy:
+                   num_points, mesh=None) -> HostCopy:
         """Dispatch one fused scan update (pf_step, or pf_step_recovery when
         armed) without reading anything back: particles, weights, the
         active count and (w_slow, w_fast) chain on the device, and the
         step's statistics start their copy to the host.  Pass the returned
         handle to ``resolve_async``.  Draws from ``gen`` in ``step``'s
-        order."""
+        order.  With a ``mesh`` the measurement is particle-sharded; every
+        rank's generator is seeded alike, so the rest stays replicated."""
         if matcher.grid is None:
             raise ValueError("the particle filter needs a map to measure "
                              "against")
@@ -379,10 +387,10 @@ class ParticleFilter:
         if self.recovery_enabled:
             r = pf_step_recovery(*args, self.free_xy, self.free_cell,
                                  self.w_state, c.recovery_alpha_slow,
-                                 c.recovery_alpha_fast)
+                                 c.recovery_alpha_fast, mesh=mesh)
             self.w_state = r.w_state
         else:
-            r = pf_step(*args)
+            r = pf_step(*args, mesh=mesh)
         self.particles, self.weights, self._n_dev = r.particles, r.weights, \
             r.n
         return HostCopy(r.stats)
@@ -392,12 +400,13 @@ class ParticleFilter:
         (n_active, mean, covariance); returns the mean pose."""
         return self._resolve(handle.wait())
 
-    def step(self, matcher, control, points, point_mask, num_points):
+    def step(self, matcher, control, points, point_mask, num_points,
+             mesh=None):
         """Fused per-scan update: ``step_async`` then ``resolve_async``, no
         host sync inside, one read of (n_active, mean, cov) at the end.
         Returns the mean pose."""
         return self.resolve_async(self.step_async(
-            matcher, control, points, point_mask, num_points))
+            matcher, control, points, point_mask, num_points, mesh=mesh))
 
     # ------------------------------------------------------------------
     def get_mean(self) -> np.ndarray:

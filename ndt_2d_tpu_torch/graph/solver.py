@@ -18,6 +18,14 @@ the reference calls ``jax.scipy.linalg.solve``.  The LM and PCG loops are
 host loops that stop at the reference's iteration (one device->host read
 per iteration).  Everything runs in float32 with TF32 off
 (``precision="highest"`` in the reference).
+
+On a device mesh (``mesh``; ``parallel/solver.py``) each rank holds a
+contiguous block of the constraints, over the mesh's ``batch`` axis.  The
+robust cost, gradient, block diagonal, the dense system's off-diagonal
+blocks and each PCG product are then the rank's partials, all-gathered
+and added in rank order (K12's ``rank_sum``), so every rank holds the same
+bits and the LM and CG loops take the same path on every rank.  A mesh
+chooses dense or PCG by one device's size rule.
 """
 
 from __future__ import annotations
@@ -28,8 +36,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ndt_2d_tpu_torch.kernels import normal_blocks as k4
 from ndt_2d_tpu_torch.config import SolverConfig
+from ndt_2d_tpu_torch.kernels import normal_blocks as k4
+from ndt_2d_tpu_torch.kernels import shard_combine
+from ndt_2d_tpu_torch.parallel import distributed
+from ndt_2d_tpu_torch.parallel.mesh import (
+    BATCH_AXIS, axis_group, axis_rank, axis_size)
 
 
 class SolveResult(NamedTuple):
@@ -136,20 +148,20 @@ class _Pairs:
                        for d in range(depth)]
 
 
-def _dense_solve(n, begin, end, baa, bab, bbb, g, diag, lam, free_mask,
-                 pairs: _Pairs):
-    """Assemble the [3N, 3N] damped system and Cholesky-solve it.  Diagonal
-    blocks are K4's D (sum of Baa and Bbb per node) plus damping;
-    off-diagonal blocks add in constraint order per node pair."""
-    del begin, end, baa, bbb  # in pairs and diag already
+def _dense_solve(n, bab, g, diag, lam, free_mask, pairs: _Pairs, combine):
+    """Assemble the [3N, 3N] damped system and Cholesky-solve it.
+    Off-diagonal blocks add in constraint order per node pair, then over
+    ranks (``combine``); diagonal blocks are K4's D (sum of Baa and Bbb
+    per node, already combined) plus damping."""
     dev, dt = g.device, g.dtype
     eye = torch.eye(3, dtype=dt, device=dev)
     h = torch.zeros(n * n, 3, 3, dtype=dt, device=dev)
     on_diag = torch.arange(n, device=dev) * (n + 1)
-    h[on_diag] = diag
     entries = torch.cat([bab, bab.transpose(-1, -2)])
     for keys, src in pairs.rounds:
         h[keys] = h[keys] + entries[src]
+    h = combine(h)
+    h[on_diag] = h[on_diag] + diag
     # LM damping on the block diagonal (Marquardt scaling).
     h[on_diag] = h[on_diag] + lam * (diag * eye + _f32(1e-12, g) * eye)
     # Gauge fix + inactive nodes: identity rows/cols, zero rhs.
@@ -167,21 +179,42 @@ def _dense_solve(n, begin, end, baa, bab, bbb, g, diag, lam, free_mask,
     return torch.where(info == 0, delta, _f32(float("nan"), delta))
 
 
-def _pcg_solve(n, begin, end, baa, bab, bbb, g, diag, lam, free_mask,
-               max_iter: int, tol, inc: k4.Incidence, twin: bool = False):
+def _pcg_solve(begin, end, baa, bab, bbb, g, diag, lam, free_mask,
+               max_iter: int, tol, inc: k4.Incidence, twin: bool,
+               combine=None):
     """Matrix-free block-Jacobi PCG on the damped normal equations; the
-    matvec is K4's (its twin with ``twin``)."""
+    matvec is K4's (its twin with ``twin``).  With ``combine`` (a mesh)
+    the rank's undamped product is added over ranks, then damped as K4
+    damps it."""
+    fm = free_mask.to(g.dtype)
+    mv = k4.pcg_matvec_twin if twin else k4.pcg_matvec
+
+    if combine is None:
+        def matvec(v):
+            return mv(begin, end, baa, bab, bbb, diag, lam, fm, v, inc)
+    else:
+        zero = _f32(0.0, g)
+        dii = torch.diagonal(diag, dim1=-2, dim2=-1)
+
+        def matvec(v):
+            part = mv(begin, end, baa, bab, bbb, diag, zero, fm, v, inc)
+            return (combine(part) + lam * (dii * (v * fm[:, None]))) \
+                * fm[:, None]
+
+    return _pcg_iterate(matvec, g, diag, lam, free_mask, max_iter, tol)
+
+
+def _pcg_iterate(matvec, g, diag, lam, free_mask, max_iter: int, tol):
+    """Block-Jacobi PCG on ``matvec`` (the damped normal-equation product)
+    with right-hand side -g over the free nodes; stops at the reference's
+    iteration (one device->host read of the residual norm each)."""
     dt, dev = g.dtype, g.device
     eye = torch.eye(3, dtype=dt, device=dev)
     dd = diag + lam * (diag * eye) + _f32(1e-8, g) * eye
     fm = free_mask.to(dt)
     # Block-Jacobi preconditioner: invert 3x3 diagonal blocks.
     pinv = torch.linalg.inv(dd + (1.0 - fm)[:, None, None] * eye)
-    mv = k4.pcg_matvec_twin if twin else k4.pcg_matvec
     tol = _f32(tol, g)
-
-    def matvec(v):
-        return mv(begin, end, baa, bab, bbb, diag, lam, fm, v, inc)
 
     def prec(r):
         return k4._mv(pinv, r) * fm[:, None]
@@ -226,38 +259,70 @@ def _highest_precision():
 def solve(config: SolverConfig, poses, begin, end, transform, information,
           constraint_mask, node_mask, fixed_index: int = 0,
           use_dense: bool = True, robust_mask=None,
-          twin: bool = False) -> SolveResult:
+          twin: bool = False, mesh=None) -> SolveResult:
     """Optimize the pose graph with Levenberg-Marquardt.
 
-    Args (tensors on one device): poses [N, 3] f32; begin/end [C] int;
-    transform [C, 3]; information [C, 3, 3]; constraint_mask [C] bool;
-    node_mask [N] bool; fixed_index: the gauge-fixed node; use_dense:
-    dense Cholesky or PCG; robust_mask: [C] bool, the constraints under
-    the configured robust loss (None = none); twin: run K4's plain-PyTorch
-    twins even on a CUDA device (to hold the kernels against them).
+    Args (tensors on one device, replicated over a mesh): poses [N, 3]
+    f32; begin/end [C] int; transform [C, 3]; information [C, 3, 3];
+    constraint_mask [C] bool; node_mask [N] bool; fixed_index: the
+    gauge-fixed node; use_dense: dense Cholesky or PCG; robust_mask: [C]
+    bool, the constraints under the configured robust loss (None = none);
+    twin: run K4's plain-PyTorch twins even on a CUDA device (to hold the
+    kernels against them); mesh: shard the constraints over its ``batch``
+    axis (C a multiple of its size: ``parallel.solver.pad_constraints``).
     """
     n = poses.shape[0]
     dev = poses.device
-    begin = torch.clamp(begin.to(torch.int32), 0, n - 1).contiguous()
-    end = torch.clamp(end.to(torch.int32), 0, n - 1).contiguous()
+    begin = torch.clamp(begin.to(torch.int32), 0, n - 1)
+    end = torch.clamp(end.to(torch.int32), 0, n - 1)
     free_mask = node_mask & (torch.arange(n, device=dev) != fixed_index)
     if robust_mask is None:
         robust_mask = torch.zeros(begin.shape[0], dtype=torch.bool,
                                   device=dev)
+    shard = (begin, end, transform, information, constraint_mask,
+             robust_mask)
+    combine = None
+    if mesh is not None:
+        shard, combine = _constraint_shard(mesh, shard)
+    shard = [x.contiguous() for x in shard]
     with _highest_precision():
-        return _solve_impl(config, poses.contiguous(), begin, end,
-                           transform.contiguous(), information.contiguous(),
-                           constraint_mask.contiguous(), free_mask,
-                           robust_mask.contiguous(), n, use_dense, twin)
+        return _solve_impl(config, poses.contiguous(), *shard, free_mask, n,
+                           use_dense, twin, combine)
+
+
+def _constraint_shard(mesh, arrays):
+    """This rank's contiguous block of each [C, ...] constraint array over
+    the mesh's ``batch`` axis, and the combine of a partial over that axis:
+    every rank's partial, added in rank order."""
+    S, s = axis_size(mesh, BATCH_AXIS), axis_rank(mesh, BATCH_AXIS)
+    C = arrays[0].shape[0]
+    if C % S:
+        raise ValueError(f"constraint capacity {C} must divide by the "
+                         f"'batch' shard count {S}; use pad_constraints()")
+    block = slice(s * (C // S), (s + 1) * (C // S))
+    group = axis_group(mesh, BATCH_AXIS)
+
+    def combine(x):
+        return shard_combine.rank_sum(distributed.gather(x, group))
+    return [x[block] for x in arrays], combine
 
 
 def _solve_impl(config, poses, begin, end, transform, information,
-                constraint_mask, free_mask, robust_mask, n, use_dense, twin):
+                constraint_mask, robust_mask, free_mask, n, use_dense, twin,
+                combine=None):
+    """The LM loop over the constraints given (a rank's shard on a mesh,
+    where ``combine`` adds a partial over the ranks)."""
     inc = k4.incidence(begin, end, constraint_mask, n)
     pairs = _Pairs(begin, end, constraint_mask, n) if use_dense else None
     blocks = k4.normal_blocks_twin if twin else k4.normal_blocks
-    cost0 = _robust_cost(config, poses, begin, end, transform, information,
+    total = combine or (lambda x: x)
+
+    def cost_of(p):
+        c = _robust_cost(config, p, begin, end, transform, information,
                          constraint_mask, robust_mask)
+        return total(c.reshape(1))[0]
+
+    cost0 = cost_of(poses)
     start = poses
     lam = _f32(config.lm_lambda_init, poses)
     cost = cost0
@@ -267,16 +332,16 @@ def _solve_impl(config, poses, begin, end, transform, information,
         baa, bab, bbb, _, _, g, diag = blocks(
             poses, begin, end, transform, information, constraint_mask,
             robust_mask, config.robust_loss, config.huber_delta, inc)
+        g, diag = total(g), total(diag)
         if use_dense:
-            delta = _dense_solve(n, begin, end, baa, bab, bbb, g, diag, lam,
-                                 free_mask, pairs)
+            delta = _dense_solve(n, bab, g, diag, lam, free_mask, pairs,
+                                 total)
         else:
-            delta = _pcg_solve(n, begin, end, baa, bab, bbb, g, diag, lam,
+            delta = _pcg_solve(begin, end, baa, bab, bbb, g, diag, lam,
                                free_mask, config.cg_max_iterations,
-                               config.cg_tolerance, inc, twin)
+                               config.cg_tolerance, inc, twin, combine)
         new_poses = poses + delta
-        new_cost = _robust_cost(config, new_poses, begin, end, transform,
-                                information, constraint_mask, robust_mask)
+        new_cost = cost_of(new_poses)
         accept = new_cost < cost
         poses = torch.where(accept, new_poses, poses)
         lam = torch.where(accept, lam * config.lm_lambda_down,
@@ -296,18 +361,22 @@ def _solve_impl(config, poses, begin, end, transform, information,
 
 
 def solve_graph(graph, config: SolverConfig, fixed_index: int = 0,
-                device=None) -> bool:
+                device=None, mesh=None) -> bool:
     """Optimize a ``pose_graph.Graph`` in place on ``device`` (default
-    CPU).  No-op on an empty graph; on success writes the optimized poses
-    back (as float64).  Returns True on success."""
+    CPU), with a ``mesh`` constraint-sharded over its ``batch`` axis
+    (runtime.py:398).  No-op on an empty graph; on success writes the
+    optimized poses back (as float64).  Returns True on success."""
     if graph.num_scans == 0 or graph.num_constraints == 0:
         return False
     n = graph.num_scans
     c = graph.num_constraints
     # Power-of-two buckets of at least 64 (solver.py:346-347): the padded
-    # node count decides dense vs PCG, as in the reference.
+    # node count decides dense vs PCG, as in the reference.  On a mesh the
+    # constraints round up to a multiple of the shard count.
+    shards = 1 if mesh is None else axis_size(mesh, BATCH_AXIS)
     np_ = max(64, 1 << (n - 1).bit_length())
     cp = max(64, 1 << (c - 1).bit_length())
+    cp = -(-cp // shards) * shards
     poses = np.zeros((np_, 3), np.float32)
     poses[:n] = graph.poses
     begin = np.zeros(cp, np.int32)
@@ -324,9 +393,9 @@ def solve_graph(graph, config: SolverConfig, fixed_index: int = 0,
                 information=information, constraint_mask=np.arange(cp) < c,
                 node_mask=np.arange(np_) < n, robust_mask=switchable)
     use_dense = 3 * np_ <= config.dense_size_limit
+    tensors = {k: torch.from_numpy(v).to(device) for k, v in args.items()}
     res = solve(config, fixed_index=fixed_index, use_dense=use_dense,
-                **{k: torch.from_numpy(v).to(device)
-                   for k, v in args.items()})
+                mesh=mesh, **tensors)
     if not bool(res.success):
         return False
     graph.set_poses(res.poses[:n].cpu().numpy().astype(np.float64))

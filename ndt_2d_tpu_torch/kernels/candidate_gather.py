@@ -19,7 +19,9 @@ K6 reads the same table K2 does.
 The twin adds in the kernel's order (each candidate's beams from 0; the
 Olson sums per 256-offset tile through the warp tree, warps, tiles and
 angles in order), so on the same CUDA inputs kernel and twin agree
-bitwise.
+bitwise.  For a device mesh (K12) the launch splits in two as K2's does:
+``partial_rows`` over one rank's block of angles, ``finalize_rows`` over
+the (angle, tile) partials of all angles gathered in rank order.
 """
 
 from __future__ import annotations
@@ -32,6 +34,9 @@ from ndt_2d_tpu_torch.kernels.score_points import subsample
 from ndt_2d_tpu_torch.ndt import grid as ndt_grid
 
 launches = 0
+# K12: launches of the split search's two entries.
+partial_launches = 0
+finalize_launches = 0
 
 # Offsets (threads) a block of the kernel; the reduction's tile.
 TILE = 256
@@ -144,3 +149,43 @@ def match(config, grid: ndt_grid.NDTGrid, table, points, point_mask,
                           table[None], points[None], point_mask[None], None,
                           num_points, pose[None], dths, dls, with_scores)
     return (out, scores[0]) if with_scores else out
+
+
+# --- K12: the split search of a device mesh -------------------------------
+def blocks_per_angle(dls) -> int:
+    """Partials an angle: one per tile of TILE offsets."""
+    return -(-dls.shape[0] ** 2 // TILE)
+
+
+def partial_rows(config, grid: ndt_grid.NDTGrid, tables, points, point_mask,
+                 num_points, poses, dths, dls, a0: int, n: int):
+    """K12's first half on K6: the (angle, tile) partials [R, n * tiles,
+    12] of angles a0 .. a0 + n - 1 (one rank's block), flat indices global;
+    arguments as K2's ``partial_rows``.  CPU tensors run the twin; CUDA
+    tensors launch the kernel."""
+    global partial_launches
+    if points.device.type == "cpu":
+        return k2.partial_rows_twin(config, grid, tables, points, point_mask,
+                                    num_points, poses, dths, dls, a0, n,
+                                    TILE, candidate_scores_gather)
+    out = k2.launch_partials("ndt2d_candidate_gather_partials", config,
+                             grid.origin, grid.cell_size, tables, points,
+                             point_mask, num_points, poses, dths, dls, a0, n,
+                             blocks_per_angle(dls))
+    partial_launches += 1
+    return out
+
+
+def finalize_rows(config, partials, num_points, dths, dls):
+    """K12's second half on K6: [R, 13] from the partials [R, A * tiles,
+    12] of every angle in (angle, tile) order.  Bitwise the one-launch
+    ``match_rows``.  CPU tensors run the twin; CUDA tensors launch the
+    kernel."""
+    global finalize_launches
+    if partials.device.type == "cpu":
+        return k2.finalize_rows_twin(config, partials, num_points, dths, dls)
+    out = k2.launch_finalize("ndt2d_candidate_gather_finalize", config,
+                             partials, num_points, dths, dls,
+                             blocks_per_angle(dls))
+    finalize_launches += 1
+    return out

@@ -22,11 +22,20 @@ is the single-grid search.
 The twin adds in the kernel's order (each candidate's beams from 0, the
 Olson sums through the kernel's warp tree, warps and angles in order), so
 on the same CUDA inputs kernel and twin agree bitwise.
+
+For a device mesh (K12, ``ndt_2d_tpu/parallel/matcher.py::
+match_scan_multichip``) the launch splits in two: ``partial_rows`` scores
+one rank's block of angles into per-angle partials (best, first flat
+index, the 10 Olson sums) and ``finalize_rows`` folds the partials of all
+angles, gathered in rank order, in angle order.  The fold is the one the
+one-launch search makes, so the split search equals it bitwise; the twin's
+``reduce_candidates`` is the same two steps.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -36,12 +45,23 @@ from ndt_2d_tpu_torch.kernels.score_points import subsample
 from ndt_2d_tpu_torch.ndt import grid as ndt_grid
 
 launches = 0
+# K12: launches of the split search's two entries.
+partial_launches = 0
+finalize_launches = 0
 
 _ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_float]
          + [ctypes.c_int] * 2
          + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
          + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
          + [ctypes.c_void_p] + [ctypes.c_int] + [ctypes.c_void_p] * 4)
+_PARTIAL_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_float]
+                 + [ctypes.c_int] * 2
+                 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                 + [ctypes.c_void_p] + [ctypes.c_int] * 2
+                 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                 + [ctypes.c_void_p] + [ctypes.c_int] + [ctypes.c_void_p] * 2)
+_FINALIZE_ARGS = ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+                  + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4)
 # Per-angle partial of the kernel: best, best index, 10 Olson sums.
 _PARTIAL = 12
 
@@ -147,13 +167,13 @@ def candidate_scores(config, grid: ndt_grid.NDTGrid, spts, smask, pose,
     return sum(per) / ndt_grid.f32(len(per), spts.device)
 
 
-def _sum_as_kernel(terms, tile=None):
-    """terms [A, T, K] summed in the kernel's order: per angle its T
-    candidates as zero-padded 32-lane warps, each folded in halves (the
-    shuffle tree), the warps added in order, then the angles in order.
-    With ``tile`` (K6's block size) each angle's candidates are first cut
-    into zero-padded tiles of that many, and the (angle, tile) blocks take
-    the angles' place."""
+def _block_sums(terms, tile=None):
+    """terms [A, T, K] summed per block in the kernel's order: per angle
+    its T candidates as zero-padded 32-lane warps, each folded in halves
+    (the shuffle tree), the warps added in order.  With ``tile`` (K6's
+    block size) each angle's candidates are first cut into zero-padded
+    tiles of that many, and the (angle, tile) blocks take the angles'
+    place.  Returns [blocks, K]."""
     if tile is not None:
         A, T, K = terms.shape
         nt = -(-T // tile)
@@ -168,35 +188,79 @@ def _sum_as_kernel(terms, tile=None):
     acc = x[:, 0, 0]
     for w in range(1, nw):
         acc = acc + x[:, w, 0]
+    return acc
+
+
+def _fold_sums(acc):
+    """[blocks, K] block sums added in block order from the first."""
     total = acc[0]
-    for a in range(1, A):
+    for a in range(1, acc.shape[0]):
         total = total + acc[a]
     return total
+
+
+def _sum_as_kernel(terms, tile=None):
+    """terms [A, T, K] summed in the kernel's order: each block's sum
+    (``_block_sums``), then the blocks in order."""
+    return _fold_sums(_block_sums(terms, tile))
+
+
+def block_partials(cand, dths, dls, a0: int = 0, tile=None):
+    """The kernel's partials of candidate scores ``cand`` [n, L, L], the
+    angles a0 .. a0 + n - 1 of the lattice ``dths``: per angle (with
+    ``tile``, per (angle, tile) block) the lowest score, its first flat
+    index in the whole lattice (int32 bits stored as float32) and the 10
+    Olson sums.  Returns [blocks, 12] float32."""
+    n, L = cand.shape[0], cand.shape[1]
+    LL = L * L
+    bd = dths[a0:a0 + n]
+    x = torch.stack([dls[None, :, None].expand(n, L, L),
+                     dls[None, None, :].expand(n, L, L),
+                     bd[:, None, None].expand(n, L, L)], dim=-1)
+    sw = cand[..., None]
+    i, j = [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]
+    terms = torch.cat([sw, x * sw, x[..., i] * x[..., j] * sw], dim=-1)
+    sums = _block_sums(terms.reshape(n, LL, 10), tile)
+    size = LL if tile is None else tile
+    nb = -(-LL // size)
+    flat = torch.nn.functional.pad(cand.reshape(n, LL),
+                                   (0, nb * size - LL), value=math.inf)
+    best, arg = torch.min(flat.reshape(n * nb, size), dim=1)
+    base = ((a0 + torch.arange(n, device=cand.device))[:, None] * LL
+            + torch.arange(nb, device=cand.device)[None, :] * size)
+    index = (base.reshape(-1) + arg).to(torch.int32)
+    return torch.cat([best[:, None], index.view(torch.float32)[:, None],
+                      sums], dim=1)
+
+
+def fold_partials(partials, dths, dls):
+    """(best, correction [3], K [3, 3], u [3], s) from the partials [N, 12]
+    of a whole lattice in order, as the kernel's finalize folds them: the
+    lowest score with the earliest index (strictly lower scores replace
+    it), the sums added from the first partial on; the correction applies
+    only when best < 0."""
+    L = dls.shape[0]
+    bi = int(torch.argmin(partials[:, 0]))  # the first of equal lows
+    best = partials[bi, 0]
+    idx = int(partials[bi, 1:2].view(torch.int32))
+    total = _fold_sums(partials[:, 2:])
+    ai, xi, yi = idx // (L * L), (idx // L) % L, idx % L
+    correction = torch.where(best < 0.0,
+                             torch.stack([dls[xi], dls[yi], dths[ai]]),
+                             torch.zeros(3, dtype=best.dtype,
+                                         device=best.device))
+    k = total[[4, 5, 6, 5, 7, 8, 6, 8, 9]].reshape(3, 3)
+    return best, correction, k, total[1:4], total[0]
 
 
 def reduce_candidates(cand, dths, dls, tile=None):
     """(best, correction [3], K [3, 3], u [3], s): first-index argmin in
     (angle, dx, dy) order, correction applied only when best < 0, and the
     raw Olson accumulators over every candidate, summed in the kernel's
-    order (K2's, or with ``tile`` K6's)."""
-    A, L = cand.shape[0], cand.shape[1]
-    flat = cand.reshape(-1)
-    best_idx = torch.argmin(flat)
-    best = flat[best_idx]
-    ai, xi, yi = best_idx // (L * L), (best_idx // L) % L, best_idx % L
-    correction = torch.where(best < 0.0,
-                             torch.stack([dls[xi], dls[yi], dths[ai]]),
-                             torch.zeros(3, dtype=cand.dtype,
-                                         device=cand.device))
-    x = torch.stack([dls[None, :, None].expand(A, L, L),
-                     dls[None, None, :].expand(A, L, L),
-                     dths[:, None, None].expand(A, L, L)], dim=-1)
-    sw = cand[..., None]
-    i, j = [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]
-    terms = torch.cat([sw, x * sw, x[..., i] * x[..., j] * sw], dim=-1)
-    total = _sum_as_kernel(terms.reshape(A, L * L, 10), tile)
-    k = total[[4, 5, 6, 5, 7, 8, 6, 8, 9]].reshape(3, 3)
-    return best, correction, k, total[1:4], total[0]
+    order (K2's, or with ``tile`` K6's): the partials of every angle,
+    folded."""
+    return fold_partials(block_partials(cand, dths, dls, 0, tile), dths,
+                         dls)
 
 
 def finalize_match(best, correction, k, u, s, used: int) -> MatchResult:
@@ -352,3 +416,147 @@ def match(config, grid: ndt_grid.NDTGrid, table, points, point_mask,
                           table[None], points[None], point_mask[None], None,
                           num_points, pose[None], dths, dls, with_scores)
     return (out, scores[0]) if with_scores else out
+
+
+# --- K12: the split search of a device mesh -------------------------------
+def blocks_per_angle(dls) -> int:
+    """Partials an angle: K2 reduces each angle in one block."""
+    del dls
+    return 1
+
+
+def _row_nums(num_points, R: int):
+    """Per-row beam counts as ints: ``num_points`` is an int32 [R] tensor or
+    one int for every row."""
+    if isinstance(num_points, torch.Tensor):
+        return [int(v) for v in num_points.tolist()]
+    return [int(num_points)] * R
+
+
+def partial_rows_twin(config, grid: ndt_grid.NDTGrid, tables, points,
+                      point_mask, num_points, poses, dths, dls, a0: int,
+                      n: int, tile=None, one=candidate_scores_local):
+    """Plain-PyTorch ``partial_rows``: [R, blocks, 12] (``tile``, ``one``:
+    K6's block size and per-candidate gather)."""
+    R = points.shape[0]
+    nums = _row_nums(num_points, R)
+    out = []
+    for r in range(R):
+        g = ndt_grid.NDTGrid(origin=grid.origin[r], cell_size=grid.cell_size,
+                             mean=None, information=None, count=None,
+                             covariance=None)
+        spts, smask, _ = subsample(points[r], point_mask[r], nums[r],
+                                   config.laser_max_beams)
+        cand = candidate_scores(config, g, spts, smask, poses[r],
+                                dths[a0:a0 + n], dls, tables[r], one)
+        out.append(block_partials(cand, dths, dls, a0, tile))
+    return torch.stack(out)
+
+
+def finalize_rows_twin(config, partials, num_points, dths, dls):
+    """Plain-PyTorch ``finalize_rows``: [R, 13]."""
+    R = partials.shape[0]
+    rows = []
+    for r, num in enumerate(_row_nums(num_points, R)):
+        best, correction, k, u, s = fold_partials(partials[r], dths, dls)
+        rows.append(finalize_match(best, correction, k, u, s,
+                                   min(config.laser_max_beams, num)))
+    return pack(MatchResult(*[torch.stack([getattr(m, f) for m in rows])
+                              for f in MatchResult._fields]))
+
+
+def launch_partials(symbol: str, config, origin, cell_size: float, tables,
+                    points, point_mask, num_points, poses, dths, dls,
+                    a0: int, n: int, per_angle: int):
+    """Check the arguments and launch the partials entry ``symbol`` (K2's
+    or K6's) over R rows for angles a0 .. a0 + n - 1; returns the partials
+    [R, n * per_angle, 12].  The caller counts the launch."""
+    dev = points.device
+    W, H = config.grid_cells_x, config.grid_cells_y
+    R, P = points.shape[0], points.shape[1]
+    A, L = dths.shape[0], dls.shape[0]
+    if not 0 <= a0 <= a0 + n <= A or n < 1:
+        raise ValueError(f"angle block {a0} + {n} outside the lattice's {A}")
+    if tables.dim() == 3:  # no grid axis: G = 1
+        tables, origin = tables[:, None], origin[:, None]
+    G = tables.shape[1]
+    _build.require(tables, "tables", torch.float32, (R, G, W * H, 32), dev)
+    _build.require(origin, "origin", torch.float32, (R, G, 2), dev)
+    _build.require(points, "points", torch.float32, (R, P, 2), dev)
+    _build.require(point_mask, "point_mask", torch.bool, (R, P), dev)
+    nums, num = (num_points, 0) if isinstance(num_points, torch.Tensor) \
+        else (None, int(num_points))
+    if nums is not None:
+        _build.require(nums, "num_points", torch.int32, (R,), dev)
+    _build.require(poses, "poses", torch.float32, (R, 3), dev)
+    _build.require(dths, "dths", torch.float32, (A,), dev)
+    _build.require(dls, "dls", torch.float32, (L,), dev)
+    partial = torch.empty(R, n * per_angle, _PARTIAL, dtype=torch.float32,
+                          device=dev)
+    p = _build.ptr
+    err = _build.function(symbol, _PARTIAL_ARGS)(
+        p(tables), p(origin), G, float(cell_size), W, H, p(points),
+        p(point_mask), R, P, None if nums is None else p(nums), num,
+        int(config.laser_max_beams), p(poses), p(dths), int(a0), int(n),
+        p(dls), L, p(partial), _build.stream_ptr(dev))
+    _build.check(err, symbol)
+    return partial
+
+
+def launch_finalize(symbol: str, config, partials, num_points, dths, dls,
+                    per_angle: int):
+    """Check the arguments and launch the finalize entry ``symbol`` over
+    the partials [R, A * per_angle, 12] of all A angles; returns [R, 13].
+    The caller counts the launch."""
+    dev = partials.device
+    R, A, L = partials.shape[0], dths.shape[0], dls.shape[0]
+    _build.require(partials, "partials", torch.float32,
+                   (R, A * per_angle, _PARTIAL), dev)
+    nums, num = (num_points, 0) if isinstance(num_points, torch.Tensor) \
+        else (None, int(num_points))
+    if nums is not None:
+        _build.require(nums, "num_points", torch.int32, (R,), dev)
+    _build.require(dths, "dths", torch.float32, (A,), dev)
+    _build.require(dls, "dls", torch.float32, (L,), dev)
+    out = torch.empty(R, 13, dtype=torch.float32, device=dev)
+    p = _build.ptr
+    err = _build.function(symbol, _FINALIZE_ARGS)(
+        p(partials), R, A, L, None if nums is None else p(nums), num,
+        int(config.laser_max_beams), p(dths), p(dls), p(out),
+        _build.stream_ptr(dev))
+    _build.check(err, symbol)
+    return out
+
+
+def partial_rows(config, grid: ndt_grid.NDTGrid, tables, points, point_mask,
+                 num_points, poses, dths, dls, a0: int, n: int):
+    """K12's first half on K2: the per-angle partials [R, n, 12] of angles
+    a0 .. a0 + n - 1 of the lattice ``dths`` (one rank's block), flat
+    indices global.  Arguments as ``match_rows``; ``num_points`` an int32
+    [R] tensor or one int.  CPU tensors run the twin; CUDA tensors launch
+    the kernel."""
+    global partial_launches
+    if points.device.type == "cpu":
+        return partial_rows_twin(config, grid, tables, points, point_mask,
+                                 num_points, poses, dths, dls, a0, n)
+    out = launch_partials("ndt2d_candidate_partials", config, grid.origin,
+                          grid.cell_size, tables, points, point_mask,
+                          num_points, poses, dths, dls, a0, n, 1)
+    partial_launches += 1
+    return out
+
+
+def finalize_rows(config, partials, num_points, dths, dls):
+    """K12's second half on K2: the [R, 13] output rows from the partials
+    [R, A, 12] of every angle in angle order (gathered from the ranks in
+    rank order).  Bitwise the one-launch ``match_rows``.  CPU tensors run
+    the twin; CUDA tensors launch the kernel."""
+    global finalize_launches
+    if partials.device.type == "cpu":
+        return finalize_rows_twin(config, partials, num_points, dths, dls)
+    if dths.shape[0] > 512:
+        raise ValueError("more than 512 angles is outside the kernel's range")
+    out = launch_finalize("ndt2d_candidate_finalize", config, partials,
+                          num_points, dths, dls, 1)
+    finalize_launches += 1
+    return out

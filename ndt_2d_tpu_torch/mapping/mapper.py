@@ -43,8 +43,20 @@ reference's ``ndt_2d::Mapper``):
   rows), or one window at a time on the sequential path; the acceptance
   gates; and the LM solve on K4 (``graph/solver.py``).
 * ``render_map`` == the occupancy export (K5).
-
-Refused with NotImplementedError rather than approximated: meshes.
+* With a device ``mesh`` (``parallel/mesh.py``; one process per device,
+  every rank running this same host program on the same inputs) the
+  device steps run sharded, as the reference's mesh branches do
+  (``ndt_2d_tpu/mapping/mapper.py:78-115``): the rolling match's and the
+  localization match's candidate angles over ``space`` (synchronous and
+  pipelined), confirmation rows over ``batch`` with each row's angles over
+  ``space`` (near and far), the particles of the filter's measurement
+  over ``batch``, the descriptor search's query rows over ``batch``, the
+  solve's constraints over ``batch`` (``graph/solver.py``; dense or PCG
+  by one device's rule) and the occupancy rays over every rank
+  (``parallel/runtime.py``).  Every combine is an all-gather reduced in
+  rank order, so every rank holds the same results and makes the same
+  decisions; all but a solve over more than one ``batch`` rank equal the
+  single-device results bitwise.
 """
 
 from __future__ import annotations
@@ -56,6 +68,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from ndt_2d_tpu_torch.device import HostFuture, get_device, upload
 from ndt_2d_tpu_torch.filter.particle_filter import ParticleFilter
@@ -68,6 +81,7 @@ from ndt_2d_tpu_torch.graph import pose_graph
 from ndt_2d_tpu_torch.io import serialization
 from ndt_2d_tpu_torch.mapping import laser
 from ndt_2d_tpu_torch.parallel import loop_search
+from ndt_2d_tpu_torch.parallel.mesh import BATCH_AXIS, axis_size
 from ndt_2d_tpu_torch.utils.memory import trim_host_heap
 from ndt_2d_tpu_torch.utils.profiling import SessionStats
 from ndt_2d_tpu_torch.utils.sim import LaserScanMsg
@@ -114,12 +128,6 @@ class ScanResult:
     score_future: Optional[HostFuture] = None
 
 
-def check_supported(mesh=None) -> None:
-    """Raise NotImplementedError for what the port lacks: a mesh."""
-    if mesh is not None:
-        raise NotImplementedError("multi-device meshes are not ported yet")
-
-
 class Mapper:
     def __init__(self, config: MapperConfig = MapperConfig(),
                  graph: Optional[pose_graph.Graph] = None,
@@ -130,10 +138,15 @@ class Mapper:
         theta) and the mirrored-laser flag of the reference's projection
         (ndt_mapper.cpp:271-290); ``seed`` of the particle filter's
         generator; ``device``: ``cuda`` unless ``cpu`` is passed (the
-        kernels' twins).  ``mesh`` is refused."""
-        check_supported(mesh)
+        kernels' twins); ``mesh``: a ``parallel.mesh.make_mesh`` device mesh
+        over the process group this rank belongs to, which shards every
+        device step (the module's docstring), or None for one device."""
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a DeviceMesh "
+                            f"(parallel.mesh.make_mesh), not {type(mesh)}")
         self.config = config
         self.device = get_device(device)
+        self.mesh = mesh
         self.enable_mapping = config.enable_mapping
         self.use_particle_filter = config.use_particle_filter
         self.range_max = config.max_range
@@ -292,7 +305,8 @@ class Mapper:
         g = self.graph
         grid = occupancy.render_occupancy(
             g.poses, g.points, g.point_mask, self.config.resolution,
-            self.config.occupancy_threshold, device=self.device)
+            self.config.occupancy_threshold, device=self.device,
+            mesh=self.mesh)
         free = np.argwhere(grid.data == 0)                 # [N, (iy, ix)]
         if not len(free):
             return None
@@ -400,7 +414,7 @@ class Mapper:
                     m.config, m.grid, upload(points.astype(np.float32), dev),
                     upload(mask, dev), num_points,
                     upload(robot_pose.astype(np.float32), dev),
-                    m.packed_table)
+                    m.packed_table, mesh=self.mesh)
                 host = torch.cat([out[0].reshape(1), out[1].reshape(1),
                                   out[2].reshape(3)]).cpu().numpy()
             else:  # other matchers, or no map: the generic surface
@@ -436,7 +450,7 @@ class Mapper:
                 m.config, m.grid, self._pose_dev,
                 upload(points.astype(np.float32), dev), upload(mask, dev),
                 num_points, upload(delta.astype(np.float32), dev),
-                m.packed_table)
+                m.packed_table, mesh=self.mesh)
         self._pending.append(("loc", copy))
         self.prev_odom_pose = odom_pose.copy()
         if len(self._pending) > self.config.max_inflight:
@@ -468,7 +482,7 @@ class Mapper:
             control = self._odom_delta(odom_pose)
             with self.stats.timer.section("pf_step"):
                 copy = f.step_async(self.global_matcher, control, points,
-                                    mask, num_points)
+                                    mask, num_points, mesh=self.mesh)
             self._pending.append(("pf", copy))
             self.prev_odom_pose = odom_pose.copy()
             if len(self._pending) > self.config.max_inflight:
@@ -486,7 +500,7 @@ class Mapper:
             _normalize_angle(robot_pose[2] - self.prev_robot_pose[2])])
         with self.stats.timer.section("pf_step"):
             mean = f.step(self.global_matcher, control, points, mask,
-                          num_points)
+                          num_points, mesh=self.mesh)
         pose = np.asarray(mean, np.float64)
         self.prev_odom_pose = odom_pose.copy()
         self.prev_robot_pose = pose.copy()
@@ -605,7 +619,8 @@ class Mapper:
                 if fused:
                     out = matcher_mod.match_scan_rolling(
                         self.local_matcher.config, window, self.range_max,
-                        dev_points, dev_mask, num_points, pose32)
+                        dev_points, dev_mask, num_points, pose32,
+                        mesh=self.mesh)
                 else:
                     m = self.local_matcher
                     m.add_scans(window.poses, window.points,
@@ -708,7 +723,7 @@ class Mapper:
                     self.local_matcher.config, self._window, self._pose_dev,
                     self.range_max, upload(points.astype(np.float32), dev),
                     upload(mask, dev), num_points,
-                    upload(delta.astype(np.float32), dev))
+                    upload(delta.astype(np.float32), dev), mesh=self.mesh)
 
         scan_id = g.add_scan(self._approx_pose, points, mask)
         self._window_synced = g.num_scans
@@ -869,9 +884,17 @@ class Mapper:
             torch.from_numpy(g.point_mask_padded).to(dev),
             float(np.float32(self.range_max)), self.config.descriptor_bins)
         valid = torch.arange(table.shape[0], device=dev) < num_scans
-        idx_t, score_t = loop_search.search_all_pairs(
-            table, valid, k=self.config.global_search_limit,
-            rolling_exclude=self.config.rolling_depth + 1)
+        if self.mesh is None:
+            idx_t, score_t = loop_search.search_all_pairs(
+                table, valid, k=self.config.global_search_limit,
+                rolling_exclude=self.config.rolling_depth + 1)
+        else:
+            # The query rows shard over 'batch' (mapper.py:1008-1024).
+            dp, vp = loop_search.pad_descriptors(
+                table, valid, axis_size(self.mesh, BATCH_AXIS))
+            idx_t, score_t = loop_search.search_all_pairs_multichip(
+                self.mesh, dp, vp, k=self.config.global_search_limit,
+                rolling_exclude=self.config.rolling_depth + 1)
         self._desc_topk = (idx_t.cpu().numpy(), score_t.cpu().numpy())
         return table, valid
 
@@ -1320,6 +1343,10 @@ class Mapper:
         g = self.graph
         K = len(rows)
         pad = max(4, 1 << (K - 1).bit_length())
+        if self.mesh is not None:
+            # Rows shard over the mesh's 'batch' axis (mapper.py:1662-1666).
+            nb = axis_size(self.mesh, BATCH_AXIS)
+            pad = -(-pad // nb) * nb
         S = self.config.loop_closure_region_size
         poses = np.zeros((pad, S, 3), np.float32)
         pts = np.zeros((pad, S, g.max_points, 2), np.float32)
@@ -1347,9 +1374,10 @@ class Mapper:
         if coarse:
             return matcher_mod.match_scan_batch_multi_coarse_fine(
                 self.coarse_matcher.config, self.global_matcher.config,
-                *args, self.range_max, *query)
+                *args, self.range_max, *query, mesh=self.mesh)
         return matcher_mod.match_scan_batch_multi(
-            self.global_matcher.config, *args, self.range_max, *query)
+            self.global_matcher.config, *args, self.range_max, *query,
+            mesh=self.mesh)
 
     def _fetch_rows(self, starts, segments):
         """Materialize dispatched segments into per-row (scores, corrs,
@@ -1425,9 +1453,10 @@ class Mapper:
                 self._grow_matcher(attr, need)
 
     def _solve_graph(self) -> bool:
-        """Optimize the graph in place on the mapper's device."""
+        """Optimize the graph in place on the mapper's device; with a mesh,
+        constraint-sharded over its 'batch' axis (mapper.py:1791-1797)."""
         return solver.solve_graph(self.graph, self.config.solver,
-                                  device=self.device)
+                                  device=self.device, mesh=self.mesh)
 
     def optimize(self) -> bool:
         """Force a pose-graph optimization."""
@@ -1459,7 +1488,8 @@ class Mapper:
         g = self.graph
         return occupancy.render_occupancy(
             g.poses, g.points, g.point_mask, self.config.resolution,
-            self.config.occupancy_threshold, device=self.device)
+            self.config.occupancy_threshold, device=self.device,
+            mesh=self.mesh)
 
     def map_to_odom(self, drain: bool = True) -> np.ndarray:
         """map->odom transform = (map->robot) * (odom->robot)^-1

@@ -1,9 +1,11 @@
 """Occupancy-grid export on the ray-march kernel (K5).
 
-Port of ``ndt_2d_tpu/mapping/occupancy.py`` without the mesh: the bounds
-and sample count are host numpy as in the reference, the ray-march runs on
-``device`` and the classification (occupied if hit/(hit+empty) >
-occ_thresh, free if observed, else unknown) runs on the host.  The
+Port of ``ndt_2d_tpu/mapping/occupancy.py``: the bounds and sample count
+are host numpy as in the reference, the ray-march runs on ``device`` (with
+a ``mesh``, its rays sharded over every rank and the integer counts summed,
+``parallel/runtime.py::raymarch_counts_multichip``) and the classification
+(occupied if hit/(hit+empty) > occ_thresh, free if observed, else unknown)
+runs on the host.  The
 reference module imports jax at the top, so its two numpy pieces
 (``OccupancyGridResult``, ``compute_bounds``) are restated here.
 """
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from ndt_2d_tpu_torch.kernels import raymarch
+from ndt_2d_tpu_torch.parallel import runtime as pruntime
 
 
 class OccupancyGridResult(NamedTuple):
@@ -101,13 +104,17 @@ def ray_tensors(rays: RayBatch, resolution: float, device=None) -> tuple:
 def render_occupancy(poses: np.ndarray, points: np.ndarray, mask: np.ndarray,
                      resolution: float, occ_thresh: float,
                      pad_cells: int = 5, size_bucket: int = 64,
-                     device=None) -> OccupancyGridResult:
+                     device=None, mesh=None) -> OccupancyGridResult:
     """Render scans into an occupancy grid (OccupancyGrid::getMsg).
 
-    poses [S, 3], points [S, P, 2] robot frame, mask [S, P] (host numpy)."""
+    poses [S, 3], points [S, P, 2] robot frame, mask [S, P] (host numpy).
+    With a ``mesh`` the rays shard over its ranks (bit-identical grid)."""
     rays = ray_batch(poses, points, mask, resolution, pad_cells, size_bucket)
-    hit, empty = raymarch.raymarch_counts(
-        *ray_tensors(rays, resolution, device))
+    args = ray_tensors(rays, resolution, device)
+    if mesh is None:
+        hit, empty = raymarch.raymarch_counts(*args)
+    else:
+        hit, empty = pruntime.raymarch_counts_multichip(mesh, *args)
     hit = hit.cpu().numpy().astype(np.float64)
     empty = empty.cpu().numpy().astype(np.float64)
 

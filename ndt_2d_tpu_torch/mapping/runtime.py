@@ -2,7 +2,8 @@
 
 Port of ``ndt_2d_tpu/mapping/runtime.py::run_bag`` (with the pipelined
 paths' deferred poses) and ``sweep_end_odom``, without the UNIX-socket
-control channel.
+control channel, and ``write_outputs``: under a device mesh every rank
+replays the bag and holds the same results, and only rank 0 writes them.
 """
 
 from __future__ import annotations
@@ -11,8 +12,12 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from ndt_2d_tpu_torch.mapping.mapper import Mapper
+import json
+
+from ndt_2d_tpu_torch.io import serialization
 from ndt_2d_tpu_torch.io.bag import ScanBag
+from ndt_2d_tpu_torch.mapping.mapper import SAVE_TO_FILE, Mapper
+from ndt_2d_tpu_torch.parallel import distributed
 from ndt_2d_tpu_torch.utils import metrics
 
 
@@ -75,4 +80,32 @@ def run_bag(mapper: Mapper, bag: ScanBag,
     # --traj-out export; callers pop these before serializing.
     stats["_est"] = np.asarray(est) if est else np.zeros((0, 3))
     stats["_est_t"] = np.asarray(est_t, np.int64)
+    return stats
+
+
+def write_outputs(mapper: Mapper, stats: dict, traj_out=None, map_out=None,
+                  grid_out=None) -> dict:
+    """Write a session's trajectory (TUM), map and occupancy grid and print
+    its stats line; returns the stats without their private keys.  The grid
+    is rendered on every rank (with a mesh, a collective); only rank 0
+    writes files and prints."""
+    writer = distributed.rank() == 0
+    est = stats.pop("_est")
+    est_t = stats.pop("_est_t")
+    if traj_out:
+        if writer:
+            serialization.save_tum(traj_out, est_t, est)
+        stats["traj_out"] = traj_out
+    if map_out:
+        if writer:
+            mapper.configure(SAVE_TO_FILE, map_out)
+        stats["map_out"] = map_out
+    if grid_out:
+        grid = mapper.render_map()
+        if writer:
+            np.savez_compressed(grid_out, data=grid.data, origin=grid.origin,
+                                resolution=grid.resolution)
+        stats["grid_out"] = grid_out
+    if writer:
+        print(json.dumps(stats))
     return stats

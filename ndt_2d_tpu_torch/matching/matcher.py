@@ -26,6 +26,16 @@ here under the reference's names
 The search kernel follows the reference's rule (matcher.py:207-215): K2
 when 2 * search_linear_size <= ndt_resolution, where every (angle, beam)
 meets one 2x2 cell patch, and K6, the per-candidate cell gather, otherwise.
+
+Every entry takes an optional device ``mesh`` (``parallel/mesh.py``), the
+port of ``ndt_2d_tpu/parallel/runtime.py``'s sharded programs: the
+search's angles shard over the mesh's ``space`` axis
+(``parallel/matcher.py``), confirmation rows over ``batch`` (each rank
+builds, searches and polishes its rows; the rows are gathered in rank
+order at the end of the chain) and particles over ``batch``
+(``parallel/filter.py``).  The window builds, the uncorrected score and
+the Newton polish are replicated.  Every result equals the single-device
+one bitwise, on every rank.
 """
 
 from __future__ import annotations
@@ -54,6 +64,11 @@ from ndt_2d_tpu_torch.kernels.candidate_gather import (  # noqa: F401
 from ndt_2d_tpu_torch.kernels.ndt_build import window_origin  # noqa: F401
 from ndt_2d_tpu_torch.kernels.score_points import subsample  # noqa: F401
 from ndt_2d_tpu_torch.ndt import grid as ndt_grid
+from ndt_2d_tpu_torch.parallel import distributed
+from ndt_2d_tpu_torch.parallel import filter as pfilter
+from ndt_2d_tpu_torch.parallel import matcher as pmatcher
+from ndt_2d_tpu_torch.parallel.mesh import (
+    BATCH_AXIS, axis_group, axis_rank, axis_size)
 
 
 def search_kernel(config: ScanMatcherConfig):
@@ -94,16 +109,30 @@ def build_window_ndt(config: ScanMatcherConfig, poses, points, point_mask,
                            num_grids(config))
 
 
+def _search_rows(config: ScanMatcherConfig, grid: ndt_grid.NDTGrid, tables,
+                 points, point_mask, num_points, poses, mesh=None):
+    """The lattice search (K2 or K6) of R rows: [R, 13] output rows.  With
+    a ``mesh`` its angles shard over the ``space`` axis (K12)."""
+    kern = search_kernel(config)
+    dths, dls = _search_offsets(config, points.device)
+    if mesh is None:
+        return kern.match_rows(config, grid, tables, points, point_mask,
+                               num_points, poses, dths, dls)
+    return pmatcher.search_rows(kern, config, mesh, grid, tables, points,
+                                point_mask, num_points, poses, dths, dls)
+
+
 def match_scan(config: ScanMatcherConfig, grid: ndt_grid.NDTGrid, points,
                point_mask, num_points: int, pose, range_max=None,
-               packed_table=None) -> MatchResult:
+               packed_table=None, mesh=None) -> MatchResult:
     """Exhaustive 3-DoF search of one scan against a window NDT (K2 or
     K6), then with refine_iterations > 0 its Newton polish from the lattice
     winner (K7, matcher.py:384-393): the refined score and correction, the
     search's covariance.
 
     ``packed_table`` is K1's patch table; without it the table is laid out
-    from the grid."""
+    from the grid.  With a ``mesh`` the search's angles shard over its
+    ``space`` axis (parallel/matcher.py:48) and the polish is replicated."""
     del range_max  # part of the reference's signature; unused here
     if packed_table is None:
         if is_multi_grid(grid):
@@ -113,10 +142,17 @@ def match_scan(config: ScanMatcherConfig, grid: ndt_grid.NDTGrid, points,
         else:
             packed_table = ndt_grid.packed_patch_table(grid,
                                                        config.grid_cells_x)
-    dths, dls = _search_offsets(config, points.device)
-    out = search_kernel(config).match(config, grid, packed_table, points,
-                                      point_mask, num_points, pose, dths,
-                                      dls)
+    if mesh is None:
+        dths, dls = _search_offsets(config, points.device)
+        out = search_kernel(config).match(config, grid, packed_table,
+                                          points, point_mask, num_points,
+                                          pose, dths, dls)
+    else:
+        row = ndt_grid.NDTGrid(origin=grid.origin[None],
+                               cell_size=grid.cell_size, mean=None,
+                               information=None, count=None, covariance=None)
+        out = _search_rows(config, row, packed_table[None], points[None],
+                           point_mask[None], num_points, pose[None], mesh)
     if config.refine_iterations > 0:
         out = k7.refine(config, grid, points, point_mask, num_points, pose,
                         out, config.refine_iterations)
@@ -133,11 +169,16 @@ def score_points_at_pose(config: ScanMatcherConfig, grid: ndt_grid.NDTGrid,
 
 
 def score_points_batch(config: ScanMatcherConfig, grid: ndt_grid.NDTGrid,
-                       points, point_mask, num_points: int, poses):
+                       points, point_mask, num_points: int, poses,
+                       mesh=None):
     """scorePoints over poses [M, 3] in one K3 launch: the particle
     filter's measurement (replaces the per-particle loop at
     src/particle_filter.cpp:81-88).  Row m equals ``score_points_at_pose``
-    at poses[m] bitwise."""
+    at poses[m] bitwise.  With a ``mesh`` the poses shard over its
+    ``batch`` axis (parallel/filter.py)."""
+    if mesh is not None:
+        return pfilter.measure_multichip(config, mesh, grid, points,
+                                         point_mask, num_points, poses)
     return k3.score_batch(grid, config.grid_cells_x, config.grid_cells_y,
                           config.laser_max_beams, points, point_mask,
                           num_points, poses)
@@ -145,7 +186,8 @@ def score_points_batch(config: ScanMatcherConfig, grid: ndt_grid.NDTGrid,
 
 def match_scan_with_score(config: ScanMatcherConfig,
                           grid: ndt_grid.NDTGrid, scan_points, scan_mask,
-                          num_points: int, pose, packed_table=None):
+                          num_points: int, pose, packed_table=None,
+                          mesh=None):
     """scoreScan + matchScan against a prebuilt (global) grid, the
     scan-match localization step (ndt_mapper.cpp:556-558): K3 + the search
     at one pose.  Returns (uncorrected_score, score, correction, covariance) as
@@ -153,13 +195,13 @@ def match_scan_with_score(config: ScanMatcherConfig,
     unc = score_points_at_pose(config, grid, scan_points, scan_mask,
                                num_points, pose)
     res = match_scan(config, grid, scan_points, scan_mask, num_points, pose,
-                     packed_table=packed_table)
+                     packed_table=packed_table, mesh=mesh)
     return unc, res.score, res.correction, res.covariance
 
 
 def match_scan_windowed(config: ScanMatcherConfig, poses, points, point_mask,
                         window_mask, range_max: float, scan_points, scan_mask,
-                        num_points: int, pose):
+                        num_points: int, pose, mesh=None):
     """Per-scan step: window build (K1), uncorrected score (K3), match (K2
     or K6).  Returns (uncorrected_score, MatchResult)."""
     grid, table = build_window_ndt(config, poses, points, point_mask,
@@ -167,24 +209,24 @@ def match_scan_windowed(config: ScanMatcherConfig, poses, points, point_mask,
     unc = score_points_at_pose(config, grid, scan_points, scan_mask,
                                num_points, pose)
     res = match_scan(config, grid, scan_points, scan_mask, num_points, pose,
-                     packed_table=table)
+                     packed_table=table, mesh=mesh)
     return unc, res
 
 
 def _match_rows(config: ScanMatcherConfig, poses, points, point_mask,
                 window_mask, range_max: float, query_points, query_mask,
-                query_num, start_poses):
+                query_num, start_poses, mesh=None):
     """One stage of a confirmation over N rows: every row's window build
-    (K1), lattice search (K2 or K6) and, with refine_iterations > 0, Newton
-    polish (K7), one launch each.  Returns the [N, 13] output rows on the
+    (K1), lattice search (K2 or K6; with a ``mesh``, angle-sharded over
+    its ``space`` axis) and, with refine_iterations > 0, Newton polish
+    (K7), one launch each.  Returns the [N, 13] output rows on the
     device."""
     grid, tables = k1.build_windows(
         poses, points, point_mask, window_mask, range_max,
         config.ndt_resolution, config.grid_cells_x, config.grid_cells_y,
         num_grids(config))
-    out = search_kernel(config).match_rows(
-        config, grid, tables, query_points, query_mask, query_num,
-        start_poses, *_search_offsets(config, points.device))
+    out = _search_rows(config, grid, tables, query_points, query_mask,
+                       query_num, start_poses, mesh)
     if config.refine_iterations > 0:
         out = k7.refine_rows(config, grid, query_points, query_mask,
                              query_num, start_poses, out,
@@ -192,9 +234,28 @@ def _match_rows(config: ScanMatcherConfig, poses, points, point_mask,
     return out
 
 
+def _batch_shard(mesh, n: int) -> slice:
+    """This rank's rows of an N-row batch sharded over the mesh's
+    ``batch`` axis (N a multiple of its size: pad with all-False windows)."""
+    nb = axis_size(mesh, BATCH_AXIS)
+    if n % nb:
+        raise ValueError(f"{n} rows do not divide over {nb} batch shards; "
+                         "pad them")
+    b = axis_rank(mesh, BATCH_AXIS)
+    return slice(b * (n // nb), (b + 1) * (n // nb))
+
+
+def _gather_batch(mesh, rows):
+    """Every rank's rows [Nb, F] of a batch-sharded result, in rank order:
+    [N, F] on every rank."""
+    every = distributed.gather(rows, axis_group(mesh, BATCH_AXIS))
+    return every.reshape(-1, rows.shape[1])
+
+
 def match_scan_batch_multi(config: ScanMatcherConfig, poses, points,
                            point_mask, window_mask, range_max: float,
-                           query_points, query_mask, query_num, start_poses):
+                           query_points, query_mask, query_num, start_poses,
+                           mesh=None):
     """Loop-closure confirmation of N rows, each a candidate window and
     its own query scan: every row's window build (K1), match (K2 or K6)
     and, with refine_iterations > 0, Newton polish (K7) in one launch each.
@@ -205,17 +266,26 @@ def match_scan_batch_multi(config: ScanMatcherConfig, poses, points,
     query_num [N] int32; start_poses [N, 3].  Returns (scores [N],
     corrections [N, 3], covariances [N, 3, 3]).  A row's result does not
     depend on N or on the other rows.  CPU tensors run the twins row by
-    row."""
-    res = k2.unpack(_match_rows(config, poses, points, point_mask,
-                                window_mask, range_max, query_points,
-                                query_mask, query_num, start_poses))
+    row.  With a ``mesh`` the rows shard over its ``batch`` axis and each
+    row's angles over ``space`` (runtime.py:288); N must divide over the
+    batch shards."""
+    windows = (poses, points, point_mask, window_mask)
+    query = (query_points, query_mask, query_num, start_poses)
+    if mesh is None:
+        out = _match_rows(config, *windows, range_max, *query)
+    else:
+        sl = _batch_shard(mesh, poses.shape[0])
+        out = _gather_batch(mesh, _match_rows(
+            config, *[w[sl] for w in windows], range_max,
+            *[q[sl] for q in query], mesh=mesh))
+    res = k2.unpack(out)
     return res.score, res.correction, res.covariance
 
 
 def match_scan_batch_multi_coarse_fine(
         coarse_config: ScanMatcherConfig, fine_config: ScanMatcherConfig,
         poses, points, point_mask, window_mask, range_max: float,
-        query_points, query_mask, query_num, start_poses):
+        query_points, query_mask, query_num, start_poses, mesh=None):
     """Coarse-to-fine confirmation of N far rows (matcher.py:580-606):
     every row's start pose carries unknown odometry drift, so the wide
     coarse lattice aligns first (K1 at the coarse resolution, then K6),
@@ -224,13 +294,26 @@ def match_scan_batch_multi_coarse_fine(
     the host never reads before the results.  Arguments as
     ``match_scan_batch_multi``.  Returns (fine_starts [N, 3], scores [N],
     corrections [N, 3], covariances [N, 3, 3]), the corrections relative to
-    the fine starts."""
+    the fine starts.  With a ``mesh`` each rank runs the chain on its
+    ``batch`` shard of the rows (angles over ``space``), and the starts and
+    results are gathered at its end (runtime.py:335)."""
+    if mesh is not None:
+        sl = _batch_shard(mesh, poses.shape[0])
+        poses, points, point_mask, window_mask = (
+            w[sl] for w in (poses, points, point_mask, window_mask))
+        query_points, query_mask, query_num, start_poses = (
+            q[sl] for q in (query_points, query_mask, query_num,
+                            start_poses))
     windows = (poses, points, point_mask, window_mask, range_max)
     query = (query_points, query_mask, query_num)
     coarse = k2.unpack(_match_rows(coarse_config, *windows, *query,
-                                   start_poses))
+                                   start_poses, mesh=mesh))
     fine_starts = start_poses + coarse.correction
-    fine = k2.unpack(_match_rows(fine_config, *windows, *query, fine_starts))
+    out = _match_rows(fine_config, *windows, *query, fine_starts, mesh=mesh)
+    if mesh is not None:
+        both = _gather_batch(mesh, torch.cat([fine_starts, out], 1))
+        fine_starts, out = both[:, :3], both[:, 3:]
+    fine = k2.unpack(out)
     return fine_starts, fine.score, fine.correction, fine.covariance
 
 
@@ -281,18 +364,18 @@ def window_append(window: RollingWindow, pose, points,
 
 def match_scan_rolling(config: ScanMatcherConfig, window: RollingWindow,
                        range_max: float, scan_points, scan_mask,
-                       num_points: int, pose):
+                       num_points: int, pose, mesh=None):
     """match_scan_windowed over a RollingWindow; returns the flat
     (uncorrected, score, correction, covariance) tuple of tensors."""
     unc, res = match_scan_windowed(
         config, window.poses, window.points, window.point_mask, window.mask,
-        range_max, scan_points, scan_mask, num_points, pose)
+        range_max, scan_points, scan_mask, num_points, pose, mesh)
     return unc, res.score, res.correction, res.covariance
 
 
 def mapping_step_async(config: ScanMatcherConfig, window: RollingWindow,
                        prev_pose, range_max: float, points, mask,
-                       num_points: int, delta):
+                       num_points: int, delta, mesh=None):
     """One mapping step with the pose chain on the device (matcher.py:638):
     compose the start pose from the previous corrected pose ``prev_pose``
     [3] and the odometry motion ``delta`` [3] in its robot frame (K13),
@@ -307,7 +390,7 @@ def mapping_step_async(config: ScanMatcherConfig, window: RollingWindow,
     pose = k13.compose(prev_pose, delta)
     unc, res = match_scan_windowed(
         config, window.poses, window.points, window.point_mask, window.mask,
-        range_max, points, mask, num_points, pose)
+        range_max, points, mask, num_points, pose, mesh)
     window_shift(window, points, mask)
     new_pose = k13.apply(pose, res.correction, window.poses)
     out = (unc, res.score, res.correction, res.covariance, new_pose)
@@ -316,7 +399,8 @@ def mapping_step_async(config: ScanMatcherConfig, window: RollingWindow,
 
 def localization_step_async(config: ScanMatcherConfig,
                             grid: ndt_grid.NDTGrid, prev_pose, points, mask,
-                            num_points: int, delta, packed_table=None):
+                            num_points: int, delta, packed_table=None,
+                            mesh=None):
     """Scan-match localization step with the pose chain on the device
     (matcher.py:675): compose (K13), score and match against the global
     grid (K3, K2 or K6, K7 when refining), apply the correction (K13), with
@@ -324,7 +408,7 @@ def localization_step_async(config: ScanMatcherConfig,
     new pose) device tensors, a ``HostCopy`` of their flat [8] values)."""
     pose = k13.compose(prev_pose, delta)
     unc, score, correction, _ = match_scan_with_score(
-        config, grid, points, mask, num_points, pose, packed_table)
+        config, grid, points, mask, num_points, pose, packed_table, mesh)
     new_pose = k13.apply(pose, correction)
     out = (unc, score, correction, new_pose)
     return new_pose, out, _host_copy(out)

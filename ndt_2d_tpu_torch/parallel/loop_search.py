@@ -7,8 +7,10 @@ cosine similarity and a top-k.  Candidates are proposals; the mapper
 confirms each with a full NDT match and the score gate.  Everything here
 runs on kernel K10: the binning of the points and the descriptors' spectra
 (``kernels/descriptors.py``), the similarities and the top-k
-(``kernels/descriptor_search.py``).  The sharded all-pairs search over a
-device mesh is not ported.
+(``kernels/descriptor_search.py``).  Over a device mesh
+(``search_all_pairs_multichip``) the query rows shard over the mesh's
+``batch`` axis against the whole key table on every rank, and the rows are
+gathered in rank order.
 
 Sums are float32 in a fixed order, so row q of ``search_all_pairs`` is
 ``search_dense`` at q to the bit.  Top-k ties go to the lower index, as
@@ -17,10 +19,14 @@ Sums are float32 in a fixed order, so row q of ``search_all_pairs`` is
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ndt_2d_tpu_torch.kernels import descriptor_search
 from ndt_2d_tpu_torch.kernels import descriptors as k10
+from ndt_2d_tpu_torch.parallel import distributed
+from ndt_2d_tpu_torch.parallel.mesh import (
+    BATCH_AXIS, axis_group, axis_rank, axis_size)
 
 
 def descriptors(points, point_mask, range_max: float, n_bins: int = 32,
@@ -67,3 +73,50 @@ def search_all_pairs(desc, valid, k: int = 8, rolling_exclude: int = 10):
         - rolling_exclude
     return descriptor_search.top_k(desc, desc, valid, limit, min(k, n))
 
+
+
+def search_all_pairs_multichip(mesh, desc, valid, k: int = 8,
+                               rolling_exclude: int = 10):
+    """``search_all_pairs`` with the query rows sharded over the mesh's
+    ``batch`` axis (loop_search.py:180): each rank searches its contiguous
+    block of query rows against the whole table in one K10 launch, and
+    the blocks are all-gathered in rank order.  A row's result does not
+    depend on the other rows, so every row equals the
+    single-device search's bitwise.  The row count must divide over the
+    shards (``pad_descriptors``).  Unlike the JAX mesh search, a query row
+    of a padding keyframe is searched like any other (its rows are never
+    read)."""
+    n = desc.shape[0]
+    S, s = axis_size(mesh, BATCH_AXIS), axis_rank(mesh, BATCH_AXIS)
+    if n % S:
+        raise ValueError(f"keyframe capacity {n} must divide the 'batch' "
+                         f"shard count {S}")
+    m = n // S
+    limit = (torch.arange(s * m, (s + 1) * m, dtype=torch.int32,
+                          device=desc.device) - rolling_exclude)
+    idx, scores = descriptor_search.top_k(desc[s * m:(s + 1) * m], desc,
+                                          valid, limit, min(k, n))
+    group = axis_group(mesh, BATCH_AXIS)
+    idx = distributed.gather(idx, group).reshape(n, -1)
+    scores = distributed.gather(scores, group).reshape(n, -1)
+    return idx, scores
+
+
+def pad_descriptors(desc, valid, n_shards: int):
+    """The descriptor table and its valid mask padded with invalid rows to
+    a multiple of the shard count (loop_search.py:219); host numpy or
+    tensors in, the same kind out."""
+    n = desc.shape[0]
+    n_pad = -(-n // n_shards) * n_shards
+    if n_pad == n:
+        return desc, valid
+    if isinstance(desc, torch.Tensor):
+        d = torch.zeros(n_pad, desc.shape[1], dtype=desc.dtype,
+                        device=desc.device)
+        v = torch.zeros(n_pad, dtype=torch.bool, device=valid.device)
+    else:
+        d = np.zeros((n_pad, desc.shape[1]), desc.dtype)
+        v = np.zeros(n_pad, bool)
+    d[:n] = desc
+    v[:n] = valid
+    return d, v

@@ -35,7 +35,7 @@ from ndt_2d_tpu_torch.kernels import _build
 from ndt_2d_tpu_torch.kernels import candidate_gather as k6
 from ndt_2d_tpu_torch.kernels import candidate_scores as k2
 from ndt_2d_tpu_torch.mapping import runtime
-from ndt_2d_tpu_torch.mapping.mapper import Mapper, check_supported
+from ndt_2d_tpu_torch.mapping.mapper import Mapper
 from ndt_2d_tpu_torch.matching import matcher
 from ndt_2d_tpu_torch.utils import sim
 
@@ -322,19 +322,34 @@ def test_global_matcher_options_build_and_match(change):
     assert float(res.score) == pytest.approx(float(ref.score), rel=1e-5)
 
 
-def test_mesh_is_refused():
-    """A mesh is the one mode the port refuses, in the constructor and in
-    check_supported."""
-    with pytest.raises(NotImplementedError):
-        Mapper(CONFIG2, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        check_supported(object())
-    check_supported(None)
+def test_mesh_is_accepted(tmp_path):
+    """A device mesh runs the session: a one-rank gloo mesh in this process
+    maps the corridor to the single-device graph bitwise."""
+    import torch.distributed as dist
+
+    from ndt_2d_tpu_torch.io.bag import record_synthetic
+    from ndt_2d_tpu_torch.parallel import distributed, mesh as mesh_mod
+    bag = record_synthetic("corridor", 8, n_beams=120, seed=0)
+    single = Mapper(CONFIG2, device="cpu")
+    runtime.run_bag(single, bag)
+    distributed.initialize("cpu", init_method="file://" + str(
+        tmp_path / "rendezvous"), world_size=1, rank=0)
+    try:
+        meshed = []
+        for mesh in (mesh_mod.make_mesh(), mesh_mod.single_axis_mesh()):
+            meshed.append(Mapper(CONFIG2, device="cpu", mesh=mesh))
+            runtime.run_bag(meshed[-1], bag)
+    finally:
+        dist.destroy_process_group()
+    for m in meshed:
+        assert m.graph.num_scans == single.graph.num_scans == 8
+        np.testing.assert_array_equal(m.graph.poses, single.graph.poses)
 
 
 def test_mesh_and_configure_actions_raise(tmp_path):
-    """A mesh is refused; LOAD_FROM_FILE of a missing map raises."""
-    with pytest.raises(NotImplementedError):
+    """A mesh that is not a DeviceMesh raises; LOAD_FROM_FILE of a missing
+    map raises."""
+    with pytest.raises(TypeError):
         Mapper(CONFIG2, mesh=object(), device="cpu")
     with pytest.raises(FileNotFoundError):
         Mapper(CONFIG2, device="cpu").configure(4, str(tmp_path / "no.npz"))
