@@ -52,7 +52,13 @@ Phases (any failure exits non-zero):
     2's window (R = 1) and over the 64 config-3 rows; K6's the same over
     the 32 coarse rows; ``rank_sum`` at S = 2, 4 ranks of 3 x 50,000 and
     9 x 50,000 floats (the district's gradient and block diagonal) against
-    its twin, beside ``torch.sum(x, 0)``;
+    its twin, beside ``torch.sum(x, 0)``; K12·blocks on config 4's saved
+    map: KB1 (the stripe build) on every stripe of 2 and of 4, bitwise its
+    twin and the dense K1 rows, KB2 (the stripe scores) over the 5000
+    particles and the scan's world points, KB3 (a localization scan's
+    stripe field, then the reduction of two stripes' summed field) and KB4
+    (the fused step's append into a 256-slot state), each bitwise against
+    its twin;
  4. drive the main paths, each with the launch counts set to 0 before and
     read after: (a) the 200-scan, 600-beam config-2 corridor through
     ``Mapper`` and ``run_bag`` (no loop closure) with its export: every scan
@@ -158,10 +164,25 @@ Phases (any failure exits non-zero):
     equal to unsharded K3), final poses, export, solve and scores bitwise
     equal on both ranks; correctness and the cost of host-staged
     collectives, not scaling;
+    K12·blocks, first on a one-rank NCCL mesh (the launch counts of KB1-KB4
+    read around (r) and (s)), then on gloo ranks sharing the card: (2, 1)
+    (r), (s), (t); (1, 2) (r), (s); (2, 2) (r), (t); every rank bitwise
+    equal: (r) the stripe-sharded map of config 4 (its mapper-sized global
+    NDT in y-stripes over 'space'): every stripe bitwise the dense K1 rows;
+    the 5000-particle measurement and config 7's 20,000 on its office map
+    within 1e-5 relative of the dense K3 batch; all 150 scans of config 4's
+    localization bag (seed 7) matched against the stripes from the starts
+    of a dense K6 chain, each winner the dense K6 one or printed with both
+    scores within 1e-5 relative; at one stripe all bitwise the dense
+    results; (s) the fused SLAM step (``parallel/slam_step.py``) over config
+    2's 200-scan corridor, optimizing every 8 scans, capacity 256: ATE below
+    odometry's, (2, 1) bitwise the one-rank run; (t) the port's
+    ``dryrun_multichip`` on 1, 2 and 4 ranks;
  5. print the kernels' JSON line and, last, the device JSON line.
 
 ``python3 chip_smoke.py --mesh-rank OUT SPACE BATCH MAP DEVICE`` is one
-rank of (q), started by the script itself.
+rank of (q), and ``--blocks-rank OUT SPACE BATCH MAP4 MAP7 DEVICE PARTS``
+one of (r)-(t), started by the script itself.
 """
 
 from __future__ import annotations
@@ -234,6 +255,16 @@ KERNELS = {
                                   "ndt_2d_tpu/parallel/runtime.py:131"),
     "rank_sum": ("ndt_2d_tpu_torch/csrc/shard_combine.cu",
                  "ndt_2d_tpu/parallel/solver.py:92"),
+    "ndt_build_stripe": ("ndt_2d_tpu_torch/csrc/ndt_build.cu",
+                         "ndt_2d_tpu/parallel/ndt_blocks.py:46"),
+    "stripe_score": ("ndt_2d_tpu_torch/csrc/score_points.cu",
+                     "ndt_2d_tpu/parallel/ndt_blocks.py:116"),
+    "stripe_field": ("ndt_2d_tpu_torch/csrc/candidate_gather.cu",
+                     "ndt_2d_tpu/parallel/ndt_blocks.py:169"),
+    "field_partials": ("ndt_2d_tpu_torch/csrc/candidate_gather.cu",
+                       "ndt_2d_tpu/parallel/ndt_blocks.py:216"),
+    "slam_append": ("ndt_2d_tpu_torch/csrc/slam_step.cu",
+                    "ndt_2d_tpu/parallel/slam_step.py:71"),
 }
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # The bound of a kernel: the larger of the bytes it must move over the
@@ -549,11 +580,14 @@ def reset_counts():
     from ndt_2d_tpu_torch.kernels import (
         candidate_gather, candidate_scores, correlative, descriptor_search,
         descriptors, ndt_build, newton, normal_blocks, particle_filter,
-        pose_chain, raymarch, score_points, shard_combine)
+        pose_chain, raymarch, score_points, shard_combine, slam_step)
     for m in (ndt_build, candidate_scores, score_points, raymarch, newton,
               candidate_gather, descriptors, descriptor_search,
-              shard_combine):
+              shard_combine, slam_step):
         m.launches = 0
+    ndt_build.stripe_launches = score_points.stripe_launches = 0
+    candidate_gather.field_launches = 0
+    candidate_gather.field_partial_launches = 0
     for m in (candidate_scores, candidate_gather):
         m.partial_launches = m.finalize_launches = 0
     score_points.batch_launches = 0
@@ -570,8 +604,13 @@ def read_counts() -> dict:
     from ndt_2d_tpu_torch.kernels import (
         candidate_gather, candidate_scores, correlative, descriptor_search,
         descriptors, ndt_build, newton, normal_blocks, particle_filter,
-        pose_chain, raymarch, score_points, shard_combine)
+        pose_chain, raymarch, score_points, shard_combine, slam_step)
     out = {"ndt_build": ndt_build.launches,
+           "ndt_build_stripe": ndt_build.stripe_launches,
+           "stripe_score": score_points.stripe_launches,
+           "stripe_field": candidate_gather.field_launches,
+           "field_partials": candidate_gather.field_partial_launches,
+           "slam_append": slam_step.launches,
            "candidate_partials": candidate_scores.partial_launches,
            "candidate_finalize": candidate_scores.finalize_launches,
            "candidate_gather_partials": candidate_gather.partial_launches,
@@ -1797,17 +1836,17 @@ def phase_pf_replay(rec, tag, steps):
           f"mean and covariance bitwise equal")
 
 
-def phase_config7(path_map, dev):
-    """BASELINE config 7: global relocalization, 20,000 particles seeded
-    over the free space of the symmetry-broken office."""
+def config7():
+    """BASELINE config 7 (run_benchmarks.py:598-657): the symmetry-broken
+    office, the 40-pose drive, the mapping and particle-filter configs and
+    the drive's scan at pose t (noise seeded by ``seed``)."""
     import dataclasses
 
     import numpy as np
-    import torch
 
     from ndt_2d_tpu_torch.config import (
         MapperConfig, ParticleFilterConfig, ScanMatcherConfig)
-    from ndt_2d_tpu_torch.utils import metrics, sim
+    from ndt_2d_tpu_torch.utils import sim
     world = np.concatenate([sim.make_office_world(16.0),
                             np.asarray([[[1.0, 13.0], [3.0, 15.0]]])],
                            axis=0)
@@ -1828,6 +1867,18 @@ def phase_config7(path_map, dev):
     def scan(t, seed):
         return sim.scan_at_pose(world, truth[t], n_beams=240, range_max=14.0,
                                 noise=0.01, rng=np.random.default_rng(seed))
+    return truth, mapping, cfg, scan
+
+
+def phase_config7(path_map, dev):
+    """BASELINE config 7: global relocalization, 20,000 particles seeded
+    over the free space of the symmetry-broken office."""
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.utils import metrics, sim
+    truth, mapping, cfg, scan = config7()
+    n = len(truth)
     rel = metrics.relative_to_first(truth)
     odom = sim.drift_odometry(truth, 0.01, 0.003, seed=31)
     scans = [(t, scan(t, 900 + t), odom[t]) for t in range(1, n)]
@@ -3898,6 +3949,540 @@ def phase_mesh_shared(cfg, bag, single10, district_poses, district_truth,
     return rows
 
 
+# --- K12·blocks: the stripe-sharded map (KB1-KB3), the fused SLAM step (KB4)
+# and the dry run of the multi-device pipeline.
+KB_KERNELS = ("ndt_build_stripe", "stripe_score", "stripe_field",
+              "field_partials", "slam_append")
+BLOCK_SHAPES = ((2, 1), (1, 2), (2, 2))
+SLAM_CAPACITY = 256       # scans and constraints of the fused step's state
+SLAM_OPTIMIZE_EVERY = 8
+MAP4_SCANS = 150          # config 4's localization bag (seed 7)
+
+
+def blocks_map(path, cfg, range_max, dev):
+    """The loaded map's global matcher (K1's dense grid, auto-sized by the
+    mapper) and the map's keyframes as device tensors."""
+    import torch
+    loc = localizer(cfg, path, dev, 3)
+    loc._ensure_matchers(range_max)
+    g = loc.graph
+    n = g.num_scans
+    keyframes = dict(
+        poses=torch.tensor(g.poses[:n], dtype=torch.float32, device=dev),
+        points=torch.tensor(g.points[:n], device=dev),
+        point_mask=torch.tensor(g.point_mask[:n], device=dev),
+        window_mask=torch.ones(n, dtype=torch.bool, device=dev))
+    return loc.global_matcher, keyframes
+
+
+def stripe_of(m, keyframes, S: int, s: int):
+    """Stripe s of S of the map (KB1), as ndt_blocks holds it."""
+    from ndt_2d_tpu_torch.kernels import ndt_build as k1
+    mc = m.config
+    h = mc.grid_cells_y // S
+    return k1.build_stripe(**keyframes, origin=m.grid.origin,
+                           cell_size=mc.ndt_resolution,
+                           width=mc.grid_cells_x, row0=s * h, rows=h), h
+
+
+def stripe_keys(mc, origin, cell, x, y, ok, row0: int, rows: int):
+    """Distinct stripe cells (iy - row0) * W + ix of world points (x, y)
+    binned against the map's origin, where ``ok``."""
+    import torch
+    W = mc.grid_cells_x
+    ix = torch.floor((x - origin[0]) / cell).long()
+    iy = torch.floor((y - origin[1]) / cell).long()
+    ok = ok & (ix >= 0) & (ix < W) & (iy >= row0) & (iy < row0 + rows)
+    return torch.unique(((iy - row0) * W + ix)[ok])
+
+
+def particle_poses(center, M: int, dev):
+    """M poses around ``center`` [3] (sd 0.2 m, 0.2 m, 0.05 rad), seed 11:
+    the particles of config 4's measurement checks."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(11)
+    return (center + torch.randn(M, 3, generator=gen, device=dev)
+            * torch.tensor([0.2, 0.2, 0.05], device=dev)).contiguous()
+
+
+def map4_scan(bag4, t: int, cfg, dev):
+    """Config 4's scan t (projected) and the particles around its truth."""
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.mapping import laser
+    from ndt_2d_tpu_torch.utils import metrics
+    pts, msk = laser.project_scan(bag4[t][0], bag4.range_max, np.zeros(3),
+                                  False, None, cfg.max_points_per_scan)
+    center = torch.tensor(metrics.relative_to_first(bag4.truth)[t],
+                          dtype=torch.float32, device=dev)
+    return (torch.tensor(pts, device=dev), torch.tensor(msk, device=dev),
+            int(msk.sum()), center)
+
+
+def phase_kb(path4, bag4, dev):
+    """KB1-KB4 against their twins on the card at the main path's shapes:
+    KB1 on stripe 0 of 2 of config 4's map (and every stripe of 2 and 4
+    bitwise the dense K1 rows), KB2 over the 5000 particles and the scan's
+    world points on that stripe, KB3's field of one localization scan on
+    it and its reduction on the summed field, KB4 on the fused step's
+    256-slot state; bitwise, with times and bounds."""
+    import torch
+
+    from ndt_2d_tpu_torch.core import pose as pose_ops
+    from ndt_2d_tpu_torch.io.bag import record_synthetic
+    from ndt_2d_tpu_torch.kernels import candidate_gather as k6
+    from ndt_2d_tpu_torch.kernels import candidate_scores as k2
+    from ndt_2d_tpu_torch.kernels import ndt_build as k1
+    from ndt_2d_tpu_torch.kernels import score_points as k3
+    from ndt_2d_tpu_torch.kernels import slam_step as kb4
+    from ndt_2d_tpu_torch.parallel import slam_step
+    _, cfg = config4_configs()
+    m, kf = blocks_map(path4, cfg, bag4.range_max, dev)
+    mc, grid = m.config, m.grid
+    W, H, cell = mc.grid_cells_x, mc.grid_cells_y, mc.ndt_resolution
+    out = {}
+    # KB1: every stripe of 2 and 4 bitwise the dense rows and its twin.
+    for S in (2, 4):
+        for s in range(S):
+            (g, tab), h = stripe_of(m, kf, S, s)
+            gt, tabt = k1.build_stripe_twin(**kf, origin=grid.origin,
+                                            cell_size=cell, width=W,
+                                            row0=s * h, rows=h)
+            rows = slice(s * h * W, (s + 1) * h * W)
+            for f in ("mean", "information", "count", "covariance"):
+                require(torch.equal(getattr(g, f), getattr(gt, f)),
+                        f"KB1 stripe {s} of {S}: {f} differs from its twin")
+                require(torch.equal(getattr(g, f), getattr(grid, f)[rows]),
+                        f"KB1 stripe {s} of {S}: {f} differs from the dense "
+                        "K1 rows")
+            require(torch.equal(tab, tabt), f"KB1 stripe {s} of {S}: table "
+                    "differs from its twin")
+    (g, tab), h = stripe_of(m, kf, 2, 0)
+    n_pts = kf["points"].shape[0] * kf["points"].shape[1]
+    print(f"[3] KB1 ndt_build_stripe: config 4's {W}x{H} map of "
+          f"{kf['poses'].shape[0]} keyframes in 2 and 4 stripes, every "
+          f"stripe bitwise its twin and the dense K1 rows")
+    stripe_args = dict(**kf, origin=grid.origin, cell_size=cell, width=W,
+                       row0=0, rows=h)
+    out["ndt_build_stripe"] = timed(
+        0.0, cuda_ms(lambda: k1.build_stripe(**stripe_args), 20),
+        cuda_ms(lambda: k1.build_stripe_twin(**stripe_args), 3),
+        nbytes(*kf.values(), grid.origin, g.mean, g.information,
+               g.covariance, g.count, tab),
+        ops_ndt_build(1, 1, n_pts, h * W))
+
+    # KB2 over config 4's 5000 particles, and over the scan's world points.
+    q, qm, n, center = map4_scan(bag4, 40, cfg, dev)
+    poses = particle_poses(center, PARTICLES, dev)
+    B = mc.laser_max_beams
+    a2 = (g, W, 0, h, B, q, qm, n, poses)
+    sc, sct = k3.stripe_poses(*a2), k3.stripe_poses_twin(*a2)
+    require(torch.equal(sc, sct), "KB2 (poses) differs from its twin")
+    require(torch.equal(sc, k3.stripe_poses(*a2)),
+            "KB2 not bitwise reproducible")
+    world = pose_ops.transform_points(center, q).contiguous()
+    wp, wpt = (k3.stripe_points(g, W, 0, h, world, qm),
+               k3.stripe_points_twin(g, W, 0, h, world, qm))
+    require(torch.equal(wp, wpt), "KB2 (points) differs from its twin")
+    spts, smask, used = used_beams(mc, q, qm, n)
+    c, s_ = torch.cos(poses[:, 2:3]), torch.sin(poses[:, 2:3])
+    x = c * spts[:, 0] - s_ * spts[:, 1] + poses[:, 0:1]
+    y = s_ * spts[:, 0] + c * spts[:, 1] + poses[:, 1:2]
+    keys = stripe_keys(mc, grid.origin, cell, x, y,
+                       smask[None].expand_as(x), 0, h)
+    out["stripe_score"] = timed(
+        0.0, cuda_ms(lambda: k3.stripe_poses(*a2), 20),
+        cuda_ms(lambda: k3.stripe_poses_twin(*a2), 3),
+        cell_bytes(keys, g.count) + used * 9 + PARTICLES * 16,
+        PARTICLES * used * 20)
+    pts_ms = cuda_ms(lambda: k3.stripe_points(g, W, 0, h, world, qm), 20)
+    print(f"[3] KB2 stripe_score: {PARTICLES} particles on stripe 0 of 2 "
+          f"and the scan's {int(qm.sum())} world points ({float(wp):.4f}), "
+          f"bitwise equal to the twins and reproducible; world-point entry "
+          f"{pts_ms:.4f} ms")
+
+    # KB3: one localization scan's field on stripe 0 of 2, and the
+    # reduction of the two stripes' summed field.
+    loc_bag = record_synthetic("box", MAP4_SCANS, n_beams=360, seed=7,
+                               odom_trans_noise=0.01)
+    lq, lqm, ln, lcenter = map4_scan(loc_bag, 20, cfg, dev)
+    start = (lcenter + torch.tensor([0.02, -0.01, 0.01], device=dev))
+    dths, dls = k2.search_offsets(mc, dev)
+    a3 = (mc, g, tab, 0, h, lq, lqm, ln, start, dths, dls)
+    f0, f0t = k6.stripe_field(*a3), k6.stripe_field_twin(*a3)
+    require(torch.equal(f0, f0t), "KB3 field differs from its twin")
+    require(torch.equal(f0, k6.stripe_field(*a3)),
+            "KB3 field not bitwise reproducible")
+    (g1, tab1), _ = stripe_of(m, kf, 2, 1)
+    f1 = k6.stripe_field(mc, g1, tab1, h, h, lq, lqm, ln, start, dths, dls)
+    total = f0 + f1
+    p, pt = (k6.field_partials(total, dths, dls),
+             k2.block_partials(total, dths, dls, 0, k6.TILE))
+    require(torch.equal(p, pt), "KB3 partials differ from the twin")
+    row = k6.finalize_rows(mc, p[None], ln, dths, dls)
+    dense = k6.match(mc, grid, m.packed_table, lq, lqm, ln, start, dths, dls)
+    print(f"[3] KB3 stripe_field + field_partials: {dths.numel()}x"
+          f"{dls.numel()}x{dls.numel()} candidates x {B} beams on stripe 0 "
+          f"of 2, field and partials bitwise equal to the twins; two "
+          f"stripes' match score {float(row[0, 0]):.6f}, dense K6 "
+          f"{float(dense[0, 0]):.6f}, corrections equal: "
+          f"{torch.equal(row[0, 1:4], dense[0, 1:4])}")
+    th = start[2] + dths
+    c, s_ = torch.cos(th)[:, None], torch.sin(th)[:, None]
+    lsp, lsm, lused = used_beams(mc, lq, lqm, ln)
+    lsp = lsp[lsm]
+    rx = c * lsp[:, 0] - s_ * lsp[:, 1] + start[0]
+    ry = s_ * lsp[:, 0] + c * lsp[:, 1] + start[1]
+    L = dls.numel()
+    xs = rx[:, :, None, None] + dls[None, None, :, None]
+    ys = ry[:, :, None, None] + dls[None, None, None, :]
+    xs, ys = torch.broadcast_tensors(xs, ys)
+    fkeys = stripe_keys(mc, grid.origin, cell, xs, ys,
+                        torch.ones_like(xs, dtype=torch.bool), 0, h)
+    out["stripe_field"] = timed(
+        0.0, cuda_ms(lambda: k6.stripe_field(*a3), 20),
+        cuda_ms(lambda: k6.stripe_field_twin(*a3), 3),
+        fkeys.numel() * 32 + lused * 9 + 12 + total.numel() * 4,
+        dths.numel() * L * L * lused * 30)
+    out["field_partials"] = timed(
+        0.0, cuda_ms(lambda: k6.field_partials(total, dths, dls), 20),
+        cuda_ms(lambda: k2.block_partials(total, dths, dls, 0, k6.TILE), 3),
+        nbytes(total, dths, dls, p), total.numel() * 22)
+
+    # KB4 on the fused step's 256-slot state, config 2's 512-point scans.
+    P = 512
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def state():
+        st = slam_step.init_state(SLAM_CAPACITY, P, SLAM_CAPACITY, dev)
+        st.prev_pose.copy_(torch.tensor([1.0, 2.0, 0.3], device=dev))
+        return st
+    scan = torch.randn(P, 2, generator=gen, device=dev)
+    smsk = torch.rand(P, generator=gen, device=dev) > 0.2
+    est = torch.tensor([1.2, 2.05, 0.31], device=dev)
+    corr = torch.tensor([0.005, -0.01, 0.0025], device=dev)
+    cov = torch.tensor([[2e-4, 1e-5, 2e-6], [1e-5, 3e-4, -1e-6],
+                        [2e-6, -1e-6, 4e-5]], device=dev)
+    a4 = (est, corr, cov, scan, smsk, 7, 6, True)
+    st, stt = state(), state()
+    kb4.append(st, *a4)
+    kb4.append_twin(stt, *a4)
+    for f in ("poses", "points", "point_mask", "c_begin", "c_end",
+              "c_transform", "c_information", "prev_pose"):
+        require(torch.equal(getattr(st, f), getattr(stt, f)),
+                f"KB4: {f} differs from its twin")
+    st = state()
+    out["slam_append"] = timed(
+        0.0, cuda_ms(lambda: kb4.append(st, *a4), 50),
+        cuda_ms(lambda: kb4.append_twin(st, *a4), 10),
+        nbytes(est, corr, cov, scan, smsk) * 2 + 4 * (3 + 3 + 9 + 2),
+        150)
+    print(f"[3] KB4 slam_append: slot 7 of {SLAM_CAPACITY} scans x {P} "
+          f"points, constraint slot 6: poses, points, mask, constraint and "
+          f"previous pose bitwise equal to the twin")
+    return out
+
+
+def blocks_map_run(mesh, dev, map4, map7) -> dict:
+    """[4r] on ``mesh``: config 4's map in stripes over 'space' (KB1, each
+    stripe bitwise the dense K1 rows), its 5000-particle measurement over
+    both axes (KB2) against the dense K3 batch, all 150 localization scans
+    matched against the stripes (KB3) from the dense chain's start poses
+    against the dense K6 match, and config 7's 20,000 particles on its
+    office map."""
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.core import pose as pose_ops
+    from ndt_2d_tpu_torch.io.bag import record_synthetic
+    from ndt_2d_tpu_torch.kernels import candidate_gather as k6
+    from ndt_2d_tpu_torch.kernels import candidate_scores as k2
+    from ndt_2d_tpu_torch.kernels import score_points as k3
+    from ndt_2d_tpu_torch.mapping import laser
+    from ndt_2d_tpu_torch.parallel import ndt_blocks
+    from ndt_2d_tpu_torch.parallel import mesh as mesh_mod
+    from ndt_2d_tpu_torch.utils import metrics
+    out = {}
+    space = mesh_mod.axis_size(mesh, mesh_mod.SPACE_AXIS)
+    _, cfg = config4_configs()
+    bag4 = record_synthetic("box", 150, n_beams=360, seed=2)
+    m, kf = blocks_map(map4, cfg, bag4.range_max, dev)
+    mc, grid = m.config, m.grid
+    W, H = mc.grid_cells_x, mc.grid_cells_y
+    t0 = time.perf_counter()
+    sg = ndt_blocks.build_ndt_sharded(mesh, *kf.values(), grid.origin,
+                                      mc.ndt_resolution, W, H)
+    rows = slice(sg.row0 * W, (sg.row0 + sg.rows) * W)
+    out["stripes_equal"] = all(
+        torch.equal(getattr(sg, f), getattr(grid, f)[rows])
+        for f in ("mean", "information", "count", "covariance"))
+    full = ndt_blocks.gather_grid(mesh, sg)
+    out["gathered_equal"] = all(
+        torch.equal(getattr(full, f), getattr(grid, f))
+        for f in ("mean", "information", "count", "covariance"))
+    # 5000 particles.
+    q, qm, n, center = map4_scan(bag4, 40, cfg, dev)
+    poses = particle_poses(center, PARTICLES, dev)
+    w = ndt_blocks.score_particles_sharded_map(mc, mesh, sg, q, qm, n, poses)
+    wd = k3.score_batch(grid, W, H, mc.laser_max_beams, q, qm, n, poses)
+    out["weights"] = w.cpu().numpy()
+    out["weights_rel"] = float(((w - wd).abs() / wd.abs().clamp(
+        min=1e-30)).max())
+    out["weights_equal_dense"] = bool(torch.equal(w, wd))
+    # The 150 localization scans: a dense K6 chain gives every start.
+    loc_bag = record_synthetic("box", MAP4_SCANS, n_beams=360, seed=7,
+                               odom_trans_noise=0.01)
+    dths, dls = k2.search_offsets(mc, dev)
+    rel = metrics.relative_to_first(loc_bag.truth)
+    start = np.asarray(rel[0], np.float64)
+    rows_d, rows_s, parted = [], [], []
+    for t in range(MAP4_SCANS):
+        pts, msk = laser.project_scan(loc_bag[t][0], loc_bag.range_max,
+                                      np.zeros(3), False, None,
+                                      cfg.max_points_per_scan)
+        q, qm = torch.tensor(pts, device=dev), torch.tensor(msk, device=dev)
+        nt = int(msk.sum())
+        pose = torch.tensor(start, dtype=torch.float32, device=dev)
+        dense = k6.match(mc, grid, m.packed_table, q, qm, nt, pose, dths,
+                         dls)[0]
+        res = ndt_blocks.match_scan_sharded_map(mc, mesh, sg, q, qm, nt,
+                                                pose)
+        sharded = torch.cat([res.score.reshape(1), res.correction,
+                             res.covariance.reshape(9)])
+        rows_d.append(dense.cpu().numpy())
+        rows_s.append(sharded.cpu().numpy())
+        if not torch.equal(sharded[1:4], dense[1:4]):
+            parted.append(t)
+        corrected = torch.tensor(start + rows_d[-1][1:4])
+        if t + 1 < MAP4_SCANS:
+            start = pose_ops.compose(corrected, pose_ops.relative(
+                *torch.tensor(loc_bag.odom[t:t + 2]))).numpy()
+    out["match_dense"], out["match"] = np.stack(rows_d), np.stack(rows_s)
+    out["match_parted"] = np.asarray(parted, np.int64)
+    # Config 7's 20,000 particles on the office map.
+    truth7, _, cfg7, scan7 = config7()
+    m7, kf7 = blocks_map(map7, cfg7, 14.0, dev)
+    mc7 = m7.config
+    sg7 = ndt_blocks.build_ndt_sharded(mesh, *kf7.values(), m7.grid.origin,
+                                       mc7.ndt_resolution, mc7.grid_cells_x,
+                                       mc7.grid_cells_y)
+    pts, msk = laser.project_scan(scan7(10, 10), 14.0, np.zeros(3), False,
+                                  None, cfg7.max_points_per_scan)
+    q, qm = torch.tensor(pts, device=dev), torch.tensor(msk, device=dev)
+    poses7 = particle_poses(kf7["poses"][10], GLOBAL_PARTICLES, dev)
+    w7 = ndt_blocks.score_particles_sharded_map(mc7, mesh, sg7, q, qm,
+                                                int(msk.sum()), poses7)
+    wd7 = k3.score_batch(m7.grid, mc7.grid_cells_x, mc7.grid_cells_y,
+                         mc7.laser_max_beams, q, qm, int(msk.sum()), poses7)
+    out["weights7"] = w7.cpu().numpy()
+    out["weights7_rel"] = float(((w7 - wd7).abs() / wd7.abs().clamp(
+        min=1e-30)).max())
+    out["weights7_equal_dense"] = bool(torch.equal(w7, wd7))
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    out["space"] = space
+    out["grid"] = f"{W}x{H}"
+    return out
+
+
+def slam_run(mesh, dev) -> dict:
+    """[4s] on ``mesh``: config 2's corridor (200 scans, 600 beams, 512
+    points, 192^2 grids, 80x21x21 x 100 beams) through the fused step,
+    optimizing every 8 scans, capacity 256 scans / 256 constraints; the
+    odometry deltas added in the map frame, as the JAX dry run adds
+    them."""
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.io.bag import record_synthetic
+    from ndt_2d_tpu_torch.mapping import laser
+    from ndt_2d_tpu_torch.parallel import slam_step
+    from ndt_2d_tpu_torch.device import upload
+    from ndt_2d_tpu_torch.utils import metrics
+    from ndt_2d_tpu_torch.config import MapperConfig, ScanMatcherConfig
+    bag = record_synthetic("corridor", N_SCANS, n_beams=N_BEAMS, seed=0)
+    mcfg = ScanMatcherConfig(grid_cells_x=192, grid_cells_y=192)
+    cfg = MapperConfig(local_scan_matcher=mcfg, global_scan_matcher=mcfg,
+                       max_points_per_scan=512, loop_closure_every=10**9)
+    odom = metrics.relative_to_first(bag.odom)
+    scans = []
+    for t in range(N_SCANS):
+        p, k = laser.project_scan(bag[t][0], bag.range_max, np.zeros(3),
+                                  False, None, cfg.max_points_per_scan)
+        d = odom[t] - odom[t - 1] if t else np.zeros(3)
+        d[2] = (d[2] + np.pi) % (2 * np.pi) - np.pi
+        scans.append((upload(p, dev), upload(k, dev),
+                      upload(d.astype(np.float32), dev), int(k.sum())))
+    step = slam_step.make_slam_step(mesh, cfg, bag.range_max,
+                                    SLAM_OPTIMIZE_EVERY)
+    state = slam_step.init_state(SLAM_CAPACITY, cfg.max_points_per_scan,
+                                 SLAM_CAPACITY, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p, k, d, n in scans:
+        state, _ = step(state, p, k, d, num_points=n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    poses = state.poses[:state.num_scans].cpu().numpy().astype(np.float64)
+    return dict(slam_poses=poses, slam_steps_per_s=N_SCANS / wall,
+                slam_ate=metrics.ate_rmse(poses, bag.truth),
+                slam_odom_ate=metrics.ate_rmse(bag.odom, bag.truth),
+                slam_scans=state.num_scans, slam_constraints=state.c_num)
+
+
+def blocks_rank(out_dir, space: int, batch: int, map4: str, map7: str,
+                device: str, parts: str) -> int:
+    """One gloo rank of ``phase_blocks`` on a (space, batch) mesh whose
+    ranks share ``device``: the parts of "r" ([4r]), "s" ([4s]) and "t"
+    ([4t], the dry run on the default mesh of the world)."""
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.entry import dryrun_multichip
+    from ndt_2d_tpu_torch.parallel import distributed, mesh as mesh_mod
+    dev = distributed.initialize(device, backend="gloo")
+    mesh = mesh_mod.make_mesh(shape=(space, batch))
+    out = {}
+    if "r" in parts:
+        out.update(blocks_map_run(mesh, dev, map4, map7))
+    if "s" in parts:
+        out.update(slam_run(mesh, dev))
+    if "t" in parts:
+        t0 = time.perf_counter()
+        dry = dryrun_multichip(space * batch, dev)
+        out["dryrun_seconds"] = time.perf_counter() - t0
+        out.update({f"dryrun_{k}": v for k, v in dry.items()})
+    out["jax"] = "jax" in sys.modules
+    np.savez(os.path.join(out_dir, f"rank{distributed.rank()}.npz"),
+             **{k: np.asarray(v) for k, v in out.items()})
+    distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def check_blocks_map(r, tag):
+    """[4r]'s gates on one rank's results."""
+    import numpy as np
+    require(bool(r["stripes_equal"]) and bool(r["gathered_equal"]),
+            f"{tag}: the stripes differ from the dense K1 rows")
+    require(float(r["weights_rel"]) <= 1e-5 and float(r["weights7_rel"])
+            <= 1e-5, f"{tag}: the sharded measurement is "
+            f"{float(r['weights_rel'])} / {float(r['weights7_rel'])} from "
+            "the dense K3 batch (relative)")
+    d, s = r["match_dense"], r["match"]
+    for t in np.asarray(r["match_parted"]).reshape(-1):
+        print(f"{tag} scan {int(t)}: the stripes' winner {s[t, 1:4]} "
+              f"(score {s[t, 0]:.7f}) differs from dense K6's {d[t, 1:4]} "
+              f"(score {d[t, 0]:.7f})")
+        require(abs(s[t, 0] - d[t, 0]) <= 1e-5 * abs(d[t, 0]),
+                f"{tag} scan {int(t)}: the scores differ by more than "
+                "1e-5 relative")
+    if int(r["space"]) == 1:
+        require(bool(r["weights_equal_dense"])
+                and bool(r["weights7_equal_dense"])
+                and np.array_equal(d, s), f"{tag}: at one stripe the "
+                "results are not the dense K3 / K6 ones bitwise")
+
+
+def phase_blocks(map4, map7, dev, tmp):
+    """K12·blocks on the card: [4r] the stripe-sharded config-4 map, [4s]
+    the fused SLAM step on config 2's corridor and [4t] the port's
+    ``dryrun_multichip``, first on a one-rank NCCL mesh (the main path,
+    launch counts read around it), then on gloo ranks sharing the card:
+    (2, 1) all three, (1, 2) [4r] and [4s], (2, 2) [4r] and the dry run of
+    four ranks.  Returns the one-rank run's launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ndt_2d_tpu_torch.entry import dryrun_multichip
+    from ndt_2d_tpu_torch.parallel import distributed, mesh as mesh_mod
+    distributed.initialize(dev, init_method="file://" + os.path.join(
+        tmp, "blocks_rendezvous"), world_size=1, rank=0)
+    try:
+        mesh = mesh_mod.make_mesh(1)
+        reset_counts()
+        one = blocks_map_run(mesh, dev, map4, map7)
+        one.update(slam_run(mesh, dev))
+        torch.cuda.synchronize()
+        launches = read_counts()
+        t0 = time.perf_counter()
+        dryrun_multichip(1, dev)
+        dry_s = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    for k in KB_KERNELS:
+        require(launches[k] >= 1, f"[4r]/[4s] never launched {k}: "
+                f"{launches}")
+    check_blocks_map(one, "[4r] one rank")
+    require(one["slam_ate"] < one["slam_odom_ate"]
+            and one["slam_scans"] == N_SCANS
+            and one["slam_constraints"] == N_SCANS - 1,
+            f"[4s] one rank: ATE {one['slam_ate']} (odometry "
+            f"{one['slam_odom_ate']}), {one['slam_scans']} scans, "
+            f"{one['slam_constraints']} constraints")
+    print(f"[4r] config 4's {one['grid']} map on a one-rank NCCL mesh: "
+          f"stripe bitwise the dense K1 grid; {PARTICLES} and "
+          f"{GLOBAL_PARTICLES} (config 7) particle measurements and all "
+          f"{MAP4_SCANS} matches bitwise the dense K3 / K6 results; "
+          f"{one['seconds']:.3f} s; launches "
+          f"{ {k: launches[k] for k in KB_KERNELS} }")
+    print(f"[4s] fused step, config 2 ({N_SCANS} scans) on one NCCL rank: "
+          f"{one['slam_steps_per_s']:.1f} steps/s, ATE "
+          f"{one['slam_ate']:.4f} m (odometry {one['slam_odom_ate']:.4f})")
+    print(f"[4t] dryrun_multichip on one NCCL rank: passed in {dry_s:.1f} s")
+    runs = {}
+    for shape, parts in (((2, 1), "rst"), ((1, 2), "rs"), ((2, 2), "rt")):
+        n = shape[0] * shape[1]
+        out = os.path.join(tmp, f"blocks{shape[0]}x{shape[1]}")
+        os.makedirs(out)
+        t0 = time.perf_counter()
+        distributed.launch([sys.executable, os.path.abspath(__file__),
+                            "--blocks-rank", out, str(shape[0]),
+                            str(shape[1]), map4, map7, str(dev), parts], n,
+                           timeout=600)
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(n):
+            with np.load(os.path.join(out, f"rank{r}.npz")) as z:
+                ranks.append({k: z[k] for k in z.files})
+        runs[shape] = ranks
+        tag = f"({shape[0]}, {shape[1]})"
+        a = ranks[0]
+        for b in ranks:
+            require(not bool(b["jax"]), f"{tag}: a rank imported jax")
+            for k in a:
+                if k.startswith(("weights", "match", "slam_poses",
+                                 "dryrun_")) and not k.endswith(
+                                     ("seconds", "_rel")):
+                    require(np.array_equal(a[k], b[k]), f"{tag}: {k} "
+                            "differs between the ranks")
+        msg = [f"launch + {n} ranks {wall:.1f} s"]
+        if "r" in parts:
+            check_blocks_map(a, f"[4r] {tag}")
+            rel = max(float(a["weights_rel"]), float(a["weights7_rel"]))
+            msg.append(f"[4r] stripes bitwise the dense rows, measurements "
+                       f"within {rel:.2e} of dense K3, "
+                       f"{len(a['match_parted'])} of {MAP4_SCANS} winners "
+                       f"parted, {float(a['seconds']):.3f} s")
+        if "s" in parts:
+            require(float(a["slam_ate"]) < float(a["slam_odom_ate"]),
+                    f"[4s] {tag}: ATE {float(a['slam_ate'])}")
+            dp = float(np.abs(a["slam_poses"] - one["slam_poses"]).max())
+            if shape == (2, 1):
+                require(dp == 0.0, f"[4s] (2, 1): {dp} m from one rank")
+            msg.append(f"[4s] {float(a['slam_steps_per_s']):.1f} steps/s, "
+                       f"ATE {float(a['slam_ate']):.4f} m, {dp:.2e} m from "
+                       "one rank")
+        if "t" in parts:
+            msg.append(f"[4t] dryrun_multichip({n}) passed in "
+                       f"{float(a['dryrun_seconds']):.1f} s")
+        print(f"[4r-t] {n} ranks on cuda:0 over gloo, mesh {tag}, ranks "
+              f"bitwise equal: " + "; ".join(msg))
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3910,6 +4495,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--mesh-rank"]:
         out, space, batch, map4, device = sys.argv[2:7]
         return mesh_rank(out, int(space), int(batch), map4, device)
+    if sys.argv[1:2] == ["--blocks-rank"]:
+        out, space, batch, map4, map7, device, parts = sys.argv[2:9]
+        return blocks_rank(out, int(space), int(batch), map4, map7, device,
+                           parts)
     if "--profile" in sys.argv[1:]:
         from ndt_2d_tpu_torch.device import get_device
         profile_sessions(get_device("cuda:0"))
@@ -3939,6 +4528,7 @@ def main() -> int:
             map4 = os.path.join(tmp, "box_map.npz")
             keyframes = map_and_save(config4_configs()[0], bag4, map4, dev)
             timing.update(phase_pf_kernels(map4, bag4, dev))
+            timing.update(phase_kb(map4, bag4, dev))
             _, config2, sync_poses = phase_session(cfg, bag, dev)
             c2p_launches, _ = phase_pipelined_config2(cfg, bag, dev, config2,
                                                       sync_poses)
@@ -3956,6 +4546,8 @@ def main() -> int:
              single10) = phase_mesh_nccl(cfg10, bag10, cfg6, bag3, dev, tmp)
             phase_mesh_shared(cfg10, bag10, single10, district_poses, truth,
                               map4, tmp, dev)
+            kb_launches = phase_blocks(
+                map4, os.path.join(tmp, "office_map.npz"), dev, tmp)
         c6_launches, c6_timing = phase_descriptor_session(
             cfg6, bag3, dev, "[4h]", "config 6")
         timing.update(c6_timing)
@@ -4001,6 +4593,9 @@ def main() -> int:
         launches[k] = k12_launches[k]
     for k in ("candidate_gather_partials", "candidate_gather_finalize"):
         launches[k] = k12_desc_launches[k]
+    # K12·blocks from [4r] and [4s] on the one-rank NCCL mesh.
+    for k in KB_KERNELS:
+        launches[k] = kb_launches[k]
     # K1/K2 times and errors at config-3 confirmation shapes (64 rows);
     # the config-2 single-window ones are printed at [3].
     for k in ("ndt_build", "candidate_scores"):

@@ -52,6 +52,17 @@
 // (angle, tile) partials; ndt2d_candidate_gather_finalize combines the
 // partials of all A angles, gathered from the ranks in rank order, in
 // (angle, tile) order: bit for bit the one-launch search.
+//
+// KB3 (a y-stripe-sharded map, ndt_2d_tpu/parallel/ndt_blocks.py::
+// match_scan_sharded_map, :169-217): ndt2d_stripe_field runs the same
+// scoring over the whole lattice against one stripe's cells, a beam
+// counting only where its GLOBAL bin lies in the stripe's rows [row0,
+// row0 + h), and writes the raw [A, L, L] field, no reduction (the stripe
+// table is KB1's, [h * W, 32]).  The ranks add their fields in rank order
+// (K12's rank_sum); ndt2d_field_partials then reduces a given field into
+// this search's (angle, tile) partials, which ndt2d_candidate_gather_finalize
+// folds into the [13] row.  At one stripe (row0 = 0, h = H) the field is
+// the one-launch search's candidate scores bit for bit, and so is the row.
 #include "lattice.cuh"
 
 namespace {
@@ -70,10 +81,13 @@ __device__ __forceinline__ int row_points(const int* nums, int num, int r) {
 
 // Grid (tiles, A, R): offsets tile blockIdx.x of angle a0 + blockIdx.y of
 // row blockIdx.z; G grids a row.  dths holds the whole lattice's angles; the
-// partials [R, A * tiles, 12] and the scores [R, A, L, L] the launch's A.
+// partials [R, A * tiles, 12] (or null: no reduction) and the scores
+// [R, A, L, L] the launch's A.  The grid's cells are the rows [row0,
+// row0 + H) of a grid binned at `origin` (row0 = 0: the whole grid).
 __global__ void __launch_bounds__(kTile) gather_tiles(
     const float* __restrict__ table, const float* __restrict__ origin,
-    int G, float cell, int W, int H, const float* __restrict__ points,
+    int G, float cell, int W, int row0, int H,
+    const float* __restrict__ points,
     const uint8_t* __restrict__ pmask, int P, const int* __restrict__ nums,
     int num, int max_beams, const float* __restrict__ pose,
     const float* __restrict__ dths, int a0, const float* __restrict__ dls,
@@ -89,7 +103,8 @@ __global__ void __launch_bounds__(kTile) gather_tiles(
   points += r * P * 2;
   pmask += r * P;
   pose += r * 3;
-  partial += (r * A * tiles + (size_t)a * tiles + tile) * lattice::kPartial;
+  if (partial != nullptr)
+    partial += (r * A * tiles + (size_t)a * tiles + tile) * lattice::kPartial;
   const int LL = L * L;
   if (scores != nullptr) scores += r * A * LL;
   const int t = tile * kTile + threadIdx.x;  // offset index lx * L + ly
@@ -127,7 +142,7 @@ __global__ void __launch_bounds__(kTile) gather_tiles(
         const float wx = beams[j].rx + dx;
         const float wy = beams[j].ry + dy;
         const int ix = (int)floorf((wx - ox) / cell);
-        const int iy = (int)floorf((wy - oy) / cell);
+        const int iy = (int)floorf((wy - oy) / cell) - row0;
         const bool inb = ix >= 0 && iy >= 0 && ix < W && iy < H;
         const int flat = inb ? iy * W + ix : 0;
         const float4* rec =
@@ -149,7 +164,26 @@ __global__ void __launch_bounds__(kTile) gather_tiles(
   if (live && scores != nullptr) scores[a * LL + t] = cand;
 
   // matcher.py::reduce_candidates over this tile: x = (dx, dy, dth).
-  lattice::reduce_tile(cand, live, flat, dx, dy, dths[ag], partial);
+  if (partial != nullptr)
+    lattice::reduce_tile(cand, live, flat, dx, dy, dths[ag], partial);
+}
+
+// KB3's reduction.  Grid (tiles, A): the tile blockIdx.x of angle
+// blockIdx.y of a given [A, L, L] field; the partials [A * tiles, 12].
+__global__ void __launch_bounds__(kTile) field_tiles(
+    const float* __restrict__ field, const float* __restrict__ dths,
+    const float* __restrict__ dls, int L, float* __restrict__ partial) {
+  const int tile = blockIdx.x, tiles = gridDim.x;
+  const int a = blockIdx.y;
+  const int LL = L * L;
+  const int t = tile * kTile + threadIdx.x;
+  const bool live = t < LL;
+  const int lx = live ? t / L : 0;
+  const int ly = live ? t % L : 0;
+  const float cand = live ? field[(size_t)a * LL + t] : 0.f;
+  lattice::reduce_tile(cand, live, a * LL + t, dls[lx], dls[ly], dths[a],
+                       partial + ((size_t)a * tiles + tile) *
+                                     lattice::kPartial);
 }
 
 }  // namespace
@@ -169,7 +203,7 @@ NDT2D_API int ndt2d_candidate_gather(
   const int tiles = (L * L + kTile - 1) / kTile;
   gather_tiles<<<dim3(tiles, A, R), kTile, 0, st>>>(
       static_cast<const float*>(table), static_cast<const float*>(origin), G,
-      cell, W, H, static_cast<const float*>(points),
+      cell, W, 0, H, static_cast<const float*>(points),
       static_cast<const uint8_t*>(pmask), P, static_cast<const int*>(nums),
       num, max_beams, static_cast<const float*>(pose),
       static_cast<const float*>(dths), 0, static_cast<const float*>(dls), A,
@@ -193,7 +227,7 @@ NDT2D_API int ndt2d_candidate_gather_partials(
   const int tiles = (L * L + kTile - 1) / kTile;
   gather_tiles<<<dim3(tiles, A, R), kTile, 0, st>>>(
       static_cast<const float*>(table), static_cast<const float*>(origin), G,
-      cell, W, H, static_cast<const float*>(points),
+      cell, W, 0, H, static_cast<const float*>(points),
       static_cast<const uint8_t*>(pmask), P, static_cast<const int*>(nums),
       num, max_beams, static_cast<const float*>(pose),
       static_cast<const float*>(dths), a0, static_cast<const float*>(dls), A,
@@ -214,5 +248,41 @@ NDT2D_API int ndt2d_candidate_gather_finalize(
       static_cast<const int*>(nums), num, max_beams,
       static_cast<const float*>(dths), static_cast<const float*>(dls),
       static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
+// KB3, the field: table [h*W,32] f32 (KB1's stripe table), origin [2] f32
+// (the map's), points [P,2] f32, pmask [P] u8, num points, pose [3] f32,
+// dths [A] f32, dls [L] f32 -> field [A,L,L] f32, each candidate's -sum
+// over the beams whose global bin lies in rows [row0, row0 + h).
+NDT2D_API int ndt2d_stripe_field(const void* table, const void* origin,
+                                 float cell, int W, int row0, int h,
+                                 const void* points, const void* pmask,
+                                 int P, int num, int max_beams,
+                                 const void* pose, const void* dths, int A,
+                                 const void* dls, int L, void* field,
+                                 void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int tiles = (L * L + kTile - 1) / kTile;
+  gather_tiles<<<dim3(tiles, A, 1), kTile, 0, st>>>(
+      static_cast<const float*>(table), static_cast<const float*>(origin), 1,
+      cell, W, row0, h, static_cast<const float*>(points),
+      static_cast<const uint8_t*>(pmask), P, nullptr, num, max_beams,
+      static_cast<const float*>(pose), static_cast<const float*>(dths), 0,
+      static_cast<const float*>(dls), A, L, nullptr,
+      static_cast<float*>(field));
+  return (int)cudaGetLastError();
+}
+
+// KB3, the reduction: field [A,L,L] f32 -> partial [A * ceil(L*L / 256), 12]
+// f32 in (angle, tile) order, the input of ndt2d_candidate_gather_finalize.
+NDT2D_API int ndt2d_field_partials(const void* field, int A, const void* dths,
+                                   const void* dls, int L, void* partial,
+                                   void* stream) {
+  const int tiles = (L * L + kTile - 1) / kTile;
+  field_tiles<<<dim3(tiles, A), kTile, 0,
+                reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(field), static_cast<const float*>(dths),
+      static_cast<const float*>(dls), L, static_cast<float*>(partial));
   return (int)cudaGetLastError();
 }

@@ -30,6 +30,18 @@
 // per row (about 1.9e8 at 192^2 cells and 10 x 512 points), which a
 // sort-by-key build would cut; the sums stay bitwise reproducible either
 // way.
+//
+// KB1, the stripe build (ndt2d_ndt_build_stripe): one device's block of a
+// y-stripe-sharded map, ndt_2d_tpu/parallel/ndt_blocks.py::
+// build_ndt_sharded (:46-85).  The points bin against the map's GLOBAL
+// origin (given, not window_origin) and a point belongs to the stripe of
+// rows [row0, row0 + h) when its global floor bin iy does; its key is
+// (iy - row0) * W + ix.  Binning against a shifted stripe origin would
+// differ at cell edges.  Pass B is K1's over the stripe's h x W cells, so
+// each cell sees the same points in the same order as the dense build and
+// the stripe's cells are bitwise rows [row0, row0 + h) of the dense K1
+// grid.  Its [h * W, 32] patch table wraps at the stripe's own edge; the
+// stripe match reads only a row's first 8 floats (the cell's own record).
 #include "common.cuh"
 
 #include <float.h>
@@ -103,6 +115,32 @@ __global__ void bin_points(const float* __restrict__ poses,
   const bool valid = pmask[i] && wmask[s] && ix >= 0 && iy >= 0 && ix < W &&
                      iy < H;
   key[i] = valid ? iy * W + ix : -1;
+  wx[i] = x;
+  wy[i] = y;
+}
+
+// KB1's pass A.  Grid (point blocks): one thread a window point, binned
+// against the global origin into the stripe of rows [row0, row0 + h).
+__global__ void bin_stripe(const float* __restrict__ poses,
+                           const float* __restrict__ points,
+                           const uint8_t* __restrict__ pmask,
+                           const uint8_t* __restrict__ wmask, int S, int P,
+                           const float* __restrict__ origin, float cell,
+                           int W, int row0, int h, int* __restrict__ key,
+                           float* __restrict__ wx, float* __restrict__ wy) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= S * P) return;
+  const int s = i / P;
+  const float th = poses[3 * s + 2];
+  const float c = cosf(th), sn = sinf(th);
+  const float px = points[2 * i], py = points[2 * i + 1];
+  const float x = c * px - sn * py + poses[3 * s];
+  const float y = sn * px + c * py + poses[3 * s + 1];
+  const int ix = (int)floorf((x - origin[0]) / cell);
+  const int iy = (int)floorf((y - origin[1]) / cell);
+  const bool valid = pmask[i] && wmask[s] && ix >= 0 && ix < W &&
+                     iy >= row0 && iy < row0 + h;
+  key[i] = valid ? (iy - row0) * W + ix : -1;
   wx[i] = x;
   wy[i] = y;
 }
@@ -229,6 +267,38 @@ NDT2D_API int ndt2d_ndt_build(const void* poses, const void* points,
   const dim3 nc((C + kCellThreads - 1) / kCellThreads, R * G);
   const size_t smem = (size_t)kChunk * (sizeof(int) + 2 * sizeof(float));
   accumulate_cells<<<nc, kCellThreads, smem, st>>>(
+      static_cast<const int*>(key), static_cast<const float*>(wx),
+      static_cast<const float*>(wy), N, W, C, static_cast<float*>(mean),
+      static_cast<float*>(info), static_cast<float*>(cov),
+      static_cast<int*>(count), static_cast<float*>(table));
+  return (int)cudaGetLastError();
+}
+
+// KB1: poses [S,3] f32, points [S,P,2] f32, pmask [S,P] u8, wmask [S] u8,
+// origin [2] f32 (the map's global origin); the stripe of rows [row0,
+// row0 + h) of a W-wide grid.  Scratch: key [S*P] i32, wx/wy [S*P] f32;
+// out: mean [h*W,2], info [h*W,3], cov [h*W,3] f32, count [h*W] i32, table
+// [h*W,32] f32.
+NDT2D_API int ndt2d_ndt_build_stripe(const void* poses, const void* points,
+                                     const void* pmask, const void* wmask,
+                                     int S, int P, const void* origin,
+                                     float cell, int W, int row0, int h,
+                                     void* key, void* wx, void* wy,
+                                     void* mean, void* info, void* cov,
+                                     void* count, void* table, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int N = S * P;
+  const int C = W * h;
+  bin_stripe<<<max((N + kBinThreads - 1) / kBinThreads, 1), kBinThreads, 0,
+               st>>>(
+      static_cast<const float*>(poses), static_cast<const float*>(points),
+      static_cast<const uint8_t*>(pmask), static_cast<const uint8_t*>(wmask),
+      S, P, static_cast<const float*>(origin), cell, W, row0, h,
+      static_cast<int*>(key), static_cast<float*>(wx),
+      static_cast<float*>(wy));
+  const size_t smem = (size_t)kChunk * (sizeof(int) + 2 * sizeof(float));
+  accumulate_cells<<<(C + kCellThreads - 1) / kCellThreads, kCellThreads,
+                     smem, st>>>(
       static_cast<const int*>(key), static_cast<const float*>(wx),
       static_cast<const float*>(wy), N, W, C, static_cast<float*>(mean),
       static_cast<float*>(info), static_cast<float*>(cov),

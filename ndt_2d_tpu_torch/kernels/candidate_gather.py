@@ -22,12 +22,20 @@ angles in order), so on the same CUDA inputs kernel and twin agree
 bitwise.  For a device mesh (K12) the launch splits in two as K2's does:
 ``partial_rows`` over one rank's block of angles, ``finalize_rows`` over
 the (angle, tile) partials of all angles gathered in rank order.
+
+KB3 (``ndt_2d_tpu/parallel/ndt_blocks.py::match_scan_sharded_map``):
+``stripe_field`` scores the lattice against one y-stripe of a sharded map
+into the raw [A, L, L] field, and ``field_partials`` reduces the stripes'
+summed field into this search's partials for ``finalize_rows``.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from ndt_2d_tpu_torch.kernels import _build
 from ndt_2d_tpu_torch.kernels import candidate_scores as k2
 from ndt_2d_tpu_torch.kernels.candidate_scores import MatchResult
 from ndt_2d_tpu_torch.kernels.score_points import subsample
@@ -37,19 +45,33 @@ launches = 0
 # K12: launches of the split search's two entries.
 partial_launches = 0
 finalize_launches = 0
+# KB3: launches of the stripe field and of the field's reduction.
+field_launches = 0
+field_partial_launches = 0
+
+_FIELD_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_float] + [ctypes.c_int] * 3
+               + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+               + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p]
+               + [ctypes.c_int] + [ctypes.c_void_p] * 2)
+_FIELD_PARTIAL_ARGS = ([ctypes.c_void_p] + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 2)
 
 # Offsets (threads) a block of the kernel; the reduction's tile.
 TILE = 256
 
 
 def candidate_scores_gather(config, grid: ndt_grid.NDTGrid, spts, smask,
-                            pose, dths, dls, table):
+                            pose, dths, dls, table, row0: int = 0,
+                            rows=None):
     """[A, L(dx), L(dy)] candidate scores of one grid: -sum over beams of
     the clamped Gaussian of the cell each rotated, shifted beam falls in
     (0 where that cell is outside the grid, holds < 5 points or the beam
     is unused).  One beam at a time, so the [A, L, L, B] terms of the
-    reference are never held and each candidate sums its beams from 0."""
-    W, H = config.grid_cells_x, config.grid_cells_y
+    reference are never held and each candidate sums its beams from 0.
+    With ``rows`` the table holds only the grid rows [row0, row0 + rows)
+    (KB3's stripe field): a beam counts where its bin lies in them."""
+    W, H = config.grid_cells_x, config.grid_cells_y if rows is None else rows
     cell = ndt_grid.f32(grid.cell_size, spts.device)
     th = pose[2] + dths
     c, s = torch.cos(th)[:, None], torch.sin(th)[:, None]
@@ -63,7 +85,8 @@ def candidate_scores_gather(config, grid: ndt_grid.NDTGrid, spts, smask,
         wx = rx[:, b, None, None] + dls[None, :, None]     # [A, L, 1]
         wy = ry[:, b, None, None] + dls[None, None, :]     # [A, 1, L]
         ix = torch.floor((wx - grid.origin[0]) / cell).to(torch.int32)
-        iy = torch.floor((wy - grid.origin[1]) / cell).to(torch.int32)
+        iy = (torch.floor((wy - grid.origin[1]) / cell).to(torch.int32)
+              - row0)
         inb = (ix >= 0) & (iy >= 0) & (ix < W) & (iy < H)  # [A, L, L]
         flat = torch.where(
             inb, torch.clamp(iy, 0, H - 1) * W + torch.clamp(ix, 0, W - 1),
@@ -188,4 +211,76 @@ def finalize_rows(config, partials, num_points, dths, dls):
                              partials, num_points, dths, dls,
                              blocks_per_angle(dls))
     finalize_launches += 1
+    return out
+
+
+# --- KB3: the lattice against one y-stripe of a sharded map ---------------
+def stripe_field_twin(config, stripe: ndt_grid.NDTGrid, table, row0: int,
+                      rows: int, points, point_mask, num_points: int, pose,
+                      dths, dls):
+    """Plain-PyTorch KB3 field: [A, L, L], each candidate's -sum over the
+    subsampled beams whose global bin lies in the stripe's rows."""
+    spts, smask, _ = subsample(points, point_mask, num_points,
+                               config.laser_max_beams)
+    return candidate_scores_gather(config, stripe, spts, smask, pose, dths,
+                                   dls, table, row0, rows)
+
+
+def stripe_field(config, stripe: ndt_grid.NDTGrid, table, row0: int,
+                 rows: int, points, point_mask, num_points: int, pose, dths,
+                 dls):
+    """KB3: the raw [A, L, L] candidate field of one scan against the
+    stripe of grid rows [row0, row0 + rows) (``stripe`` and ``table``
+    [rows * W, 32] KB1's, origin the map's), K6's per-candidate gather with
+    only the stripe's beams counted.  points [P, 2] f32, point_mask [P]
+    bool, pose [3] f32, dths [A] / dls [L] f32.  CPU tensors run the twin;
+    CUDA tensors launch the kernel."""
+    global field_launches
+    if points.device.type == "cpu":
+        return stripe_field_twin(config, stripe, table, row0, rows, points,
+                                 point_mask, num_points, pose, dths, dls)
+    dev = points.device
+    W, P = config.grid_cells_x, points.shape[0]
+    A, L = dths.shape[0], dls.shape[0]
+    if A > 65535:
+        raise ValueError(f"{A} angles is outside the kernel's launch range")
+    _build.require(table, "table", torch.float32, (rows * W, 32), dev)
+    _build.require(stripe.origin, "origin", torch.float32, (2,), dev)
+    _build.require(points, "points", torch.float32, (P, 2), dev)
+    _build.require(point_mask, "point_mask", torch.bool, (P,), dev)
+    _build.require(pose, "pose", torch.float32, (3,), dev)
+    _build.require(dths, "dths", torch.float32, (A,), dev)
+    _build.require(dls, "dls", torch.float32, (L,), dev)
+    field = torch.empty(A, L, L, dtype=torch.float32, device=dev)
+    p = _build.ptr
+    err = _build.function("ndt2d_stripe_field", _FIELD_ARGS)(
+        p(table), p(stripe.origin), float(stripe.cell_size), W, int(row0),
+        int(rows), p(points), p(point_mask), P, int(num_points),
+        int(config.laser_max_beams), p(pose), p(dths), A, p(dls), L,
+        p(field), _build.stream_ptr(dev))
+    _build.check(err, "stripe_field")
+    field_launches += 1
+    return field
+
+
+def field_partials(field, dths, dls):
+    """KB3's reduction: a [A, L, L] candidate field (the stripes' fields
+    added in rank order) -> this search's (angle, tile) partials
+    [A * tiles, 12], which ``finalize_rows`` folds.  CPU tensors run the
+    twin (``block_partials``); CUDA tensors launch the kernel."""
+    global field_partial_launches
+    if field.device.type == "cpu":
+        return k2.block_partials(field, dths, dls, 0, TILE)
+    dev = field.device
+    A, L = dths.shape[0], dls.shape[0]
+    _build.require(field, "field", torch.float32, (A, L, L), dev)
+    _build.require(dths, "dths", torch.float32, (A,), dev)
+    _build.require(dls, "dls", torch.float32, (L,), dev)
+    out = torch.empty(A * blocks_per_angle(dls), k2._PARTIAL,
+                      dtype=torch.float32, device=dev)
+    p = _build.ptr
+    err = _build.function("ndt2d_field_partials", _FIELD_PARTIAL_ARGS)(
+        p(field), A, p(dths), p(dls), L, p(out), _build.stream_ptr(dev))
+    _build.check(err, "field_partials")
+    field_partial_launches += 1
     return out

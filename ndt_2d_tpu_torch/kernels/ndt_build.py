@@ -15,6 +15,11 @@ is the window origin minus offs[g], offs = (0,0), (h,0), (0,h), (h,h),
 h = 0.5 * cell_size in float32, and every field gains a grid axis after the
 row axis ([R, 4, ...], or [4, ...] for one window).  With ``grids=1`` there
 is no grid axis, and the launch is the single-grid build.
+
+KB1, ``build_stripe``: one y-stripe of a sharded map
+(``ndt_2d_tpu/parallel/ndt_blocks.py::build_ndt_sharded``), the points
+binned against the map's given origin and K1's pass B over the stripe's
+cells, which are bitwise those rows of the dense build.
 """
 
 from __future__ import annotations
@@ -23,14 +28,20 @@ import ctypes
 
 import torch
 
+from ndt_2d_tpu_torch.core import pose as pose_ops
 from ndt_2d_tpu_torch.kernels import _build
 from ndt_2d_tpu_torch.ndt import grid as ndt_grid
 
 launches = 0
+# KB1: launches of the stripe build.
+stripe_launches = 0
 
 _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
          + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10)
 _GRID_FIELDS = ("origin", "mean", "information", "count", "covariance")
+_STRIPE_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+                + [ctypes.c_float] + [ctypes.c_int] * 3
+                + [ctypes.c_void_p] * 9)
 
 
 def window_origin(poses, window_mask, range_max: float):
@@ -155,3 +166,56 @@ def row_grid(grid: ndt_grid.NDTGrid, r: int) -> ndt_grid.NDTGrid:
         origin=grid.origin[r], cell_size=grid.cell_size, mean=grid.mean[r],
         information=grid.information[r], count=grid.count[r],
         covariance=grid.covariance[r])
+
+
+# --- KB1: one y-stripe of a sharded map (parallel/ndt_blocks.py) ---------
+def build_stripe_twin(poses, points, point_mask, window_mask, origin,
+                      cell_size: float, width: int, row0: int, rows: int):
+    """Plain-PyTorch KB1: (NDTGrid of the stripe's rows * width cells with
+    the global origin, patch table [rows * width, 32])."""
+    world = pose_ops.transform_points(poses, points).reshape(-1, 2)
+    mask = (point_mask & window_mask[:, None]).reshape(-1)
+    flat, valid = ndt_grid.stripe_cells(origin, cell_size, width, row0,
+                                        rows, world)
+    g = ndt_grid.build_ndt_binned(world, valid & mask, flat, origin,
+                                  cell_size, rows * width)
+    return g, ndt_grid.packed_patch_table(g, width)
+
+
+def build_stripe(poses, points, point_mask, window_mask, origin,
+                 cell_size: float, width: int, row0: int, rows: int):
+    """KB1: the NDT of the grid rows [row0, row0 + rows) of the window's
+    points binned against ``origin`` [2] f32 (the whole map's), and its
+    patch table.  poses [S, 3] f32, points [S, P, 2] f32, point_mask
+    [S, P] bool, window_mask [S] bool.  The cells are bitwise those rows
+    of the dense K1 build at that origin.  CPU tensors run the twin; CUDA
+    tensors launch the kernel."""
+    global stripe_launches
+    if poses.device.type == "cpu":
+        return build_stripe_twin(poses, points, point_mask, window_mask,
+                                 origin, cell_size, width, row0, rows)
+    dev = poses.device
+    S, P = points.shape[0], points.shape[1]
+    _build.require(poses, "poses", torch.float32, (S, 3), dev)
+    _build.require(points, "points", torch.float32, (S, P, 2), dev)
+    _build.require(point_mask, "point_mask", torch.bool, (S, P), dev)
+    _build.require(window_mask, "window_mask", torch.bool, (S,), dev)
+    _build.require(origin, "origin", torch.float32, (2,), dev)
+    C = width * rows
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(*shape, dtype=dtype, device=dev)
+    key, wx, wy = empty(S * P, dtype=torch.int32), empty(S * P), empty(S * P)
+    mean, info, cov = empty(C, 2), empty(C, 3), empty(C, 3)
+    count, table = empty(C, dtype=torch.int32), empty(C, 32)
+    p = _build.ptr
+    err = _build.function("ndt2d_ndt_build_stripe", _STRIPE_ARGS)(
+        p(poses), p(points), p(point_mask), p(window_mask), S, P, p(origin),
+        float(cell_size), width, int(row0), int(rows), p(key), p(wx), p(wy),
+        p(mean), p(info), p(cov), p(count), p(table), _build.stream_ptr(dev))
+    _build.check(err, "ndt_build_stripe")
+    stripe_launches += 1
+    grid = ndt_grid.NDTGrid(origin=origin.clone(), cell_size=float(cell_size),
+                            mean=mean, information=info, count=count,
+                            covariance=cov)
+    return grid, table

@@ -16,6 +16,12 @@ The twin adds in that order too, so kernel and twin agree bitwise.
 A grid with a grid axis (the four overlapping grids: origin [4, 2], mean
 [4, C, 2], ...) scores each beam as the mean over its grids, summed from 0
 in grid order, before the beams are summed (matcher.py:411-416).
+
+KB2, ``stripe_points`` / ``stripe_poses``: the same kernel against one
+y-stripe of a sharded map (``ndt_2d_tpu/parallel/ndt_blocks.py:88``,
+``:116``), only the points or beams whose global bin lies in the stripe
+counted, as raw sums in the same lane order (the caller adds the stripes
+and divides).
 """
 
 from __future__ import annotations
@@ -30,10 +36,13 @@ from ndt_2d_tpu_torch.ndt import grid as ndt_grid
 # Launches of the single-pose entry and of the batched one.
 launches = 0
 batch_launches = 0
+# KB2: launches of the stripe scores (world points; poses).
+stripe_launches = 0
 
 _ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
          + [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_float]
-         + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5)
+         + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+         + [ctypes.c_void_p] * 2)
 
 
 def subsample(points, point_mask, num_points: int, max_beams: int):
@@ -97,10 +106,12 @@ def score_at_pose_twin(grid: ndt_grid.NDTGrid, width: int, height: int,
                             point_mask, num_points, pose[None])[0]
 
 
-def _launch(grid, width, height, max_beams, points, point_mask, num_points,
-            poses):
+def _launch(grid, width, row0, rows, max_beams, points, point_mask,
+            num_points, poses, raw):
+    """One K3 launch over the grid rows [row0, row0 + rows) (the whole
+    grid at row0 = 0, rows = H); ``raw`` leaves out the division."""
     dev = points.device
-    P, M, C = points.shape[0], poses.shape[0], width * height
+    P, M, C = points.shape[0], poses.shape[0], width * rows
     if M < 1:
         raise ValueError("score_points needs at least one pose")
     G = grid.mean.shape[0] if grid.mean.dim() == 3 else 1
@@ -117,9 +128,9 @@ def _launch(grid, width, height, max_beams, points, point_mask, num_points,
     p = _build.ptr
     err = _build.function("ndt2d_score_points", _ARGS)(
         p(points), p(point_mask), P, int(num_points), int(max_beams),
-        p(poses), M, G, p(grid.origin), float(grid.cell_size), width, height,
-        p(grid.mean), p(grid.information), p(grid.count), p(out),
-        _build.stream_ptr(dev))
+        p(poses), M, G, p(grid.origin), float(grid.cell_size), width,
+        int(row0), int(rows), p(grid.mean), p(grid.information),
+        p(grid.count), int(raw), p(out), _build.stream_ptr(dev))
     _build.check(err, "score_points")
     return out
 
@@ -133,8 +144,8 @@ def score_batch(grid: ndt_grid.NDTGrid, width: int, height: int,
     if points.device.type == "cpu":
         return score_batch_twin(grid, width, height, max_beams, points,
                                 point_mask, num_points, poses)
-    out = _launch(grid, width, height, max_beams, points, point_mask,
-                  num_points, poses)
+    out = _launch(grid, width, 0, height, max_beams, points, point_mask,
+                  num_points, poses, False)
     batch_launches += 1
     return out
 
@@ -148,7 +159,81 @@ def score_at_pose(grid: ndt_grid.NDTGrid, width: int, height: int,
     if points.device.type == "cpu":
         return score_at_pose_twin(grid, width, height, max_beams, points,
                                   point_mask, num_points, pose)
-    out = _launch(grid, width, height, max_beams, points, point_mask,
-                  num_points, pose.reshape(1, 3))
+    out = _launch(grid, width, 0, height, max_beams, points, point_mask,
+                  num_points, pose.reshape(1, 3), False)
     launches += 1
     return out[0]
+
+
+# --- KB2: scores against one y-stripe of a sharded map -------------------
+def _pad32(x):
+    """[M, n] padded with zeros to a multiple of 32 columns."""
+    return torch.nn.functional.pad(x, (0, -(-x.shape[1] // 32) * 32
+                                       - x.shape[1]))
+
+
+def _stripe_at(stripe: ndt_grid.NDTGrid, width: int, row0: int, rows: int,
+               w, wmask):
+    """Clamped Gaussian scores of world points ``w`` [..., 2] against the
+    stripe's cells (0 outside the stripe's global rows)."""
+    flat, valid = ndt_grid.stripe_cells(stripe.origin, stripe.cell_size,
+                                        width, row0, rows, w)
+    return ndt_grid.score_at_cells(stripe.mean, stripe.information,
+                                   stripe.count, w, valid & wmask, flat)
+
+
+def stripe_points_twin(stripe: ndt_grid.NDTGrid, width: int, row0: int,
+                       rows: int, points, mask):
+    """Plain-PyTorch KB2, world points: the [1] sum of the scores of every
+    masked point in the stripe, in the kernel's lane order."""
+    sc = _stripe_at(stripe, width, row0, rows, points, mask)
+    return lane_tree_sum(_pad32(sc[None]))
+
+
+def stripe_poses_twin(stripe: ndt_grid.NDTGrid, width: int, row0: int,
+                      rows: int, max_beams: int, points, point_mask,
+                      num_points: int, poses):
+    """Plain-PyTorch KB2, poses: [M] raw -sum over each pose's subsampled
+    beams that fall in the stripe, in the kernel's lane order."""
+    spts, smask, _ = subsample(points, point_mask, num_points, max_beams)
+    c, s = torch.cos(poses[:, 2:3]), torch.sin(poses[:, 2:3])
+    px, py = spts[:, 0], spts[:, 1]
+    w = torch.stack([c * px - s * py + poses[:, 0:1],
+                     s * px + c * py + poses[:, 1:2]], dim=-1)
+    sc = _stripe_at(stripe, width, row0, rows, w,
+                    smask.expand(poses.shape[0], -1))
+    return -lane_tree_sum(_pad32(sc))
+
+
+def stripe_points(stripe: ndt_grid.NDTGrid, width: int, row0: int,
+                  rows: int, points, mask):
+    """KB2 over world points [N, 2] f32 (mask [N] bool): [1], the sum of
+    the clamped Gaussian scores of the masked points whose global bin lies
+    in the stripe's rows [row0, row0 + rows).  ``stripe`` is KB1's (the
+    map's origin, rows * width cells).  CPU tensors run the twin; CUDA
+    tensors launch the kernel."""
+    global stripe_launches
+    if points.device.type == "cpu":
+        return stripe_points_twin(stripe, width, row0, rows, points, mask)
+    P = points.shape[0]
+    identity = torch.zeros(1, 3, dtype=torch.float32, device=points.device)
+    out = _launch(stripe, width, row0, rows, P, points, mask, P, identity,
+                  True)
+    stripe_launches += 1
+    return -out
+
+
+def stripe_poses(stripe: ndt_grid.NDTGrid, width: int, row0: int, rows: int,
+                 max_beams: int, points, point_mask, num_points: int, poses):
+    """KB2 over poses [M, 3] f32 (points [P, 2] f32 robot frame,
+    point_mask [P] bool): [M], each pose's -sum of scores over its
+    subsampled beams in the stripe, not yet divided by the beams used.
+    CPU tensors run the twin; CUDA tensors launch the kernel."""
+    global stripe_launches
+    if points.device.type == "cpu":
+        return stripe_poses_twin(stripe, width, row0, rows, max_beams,
+                                 points, point_mask, num_points, poses)
+    out = _launch(stripe, width, row0, rows, max_beams, points, point_mask,
+                  num_points, poses, True)
+    stripe_launches += 1
+    return out

@@ -78,6 +78,19 @@ def cell_index(origin, cell_size, width: int, height: int, points):
     return flat, valid
 
 
+def stripe_cells(origin, cell_size: float, width: int, row0: int, rows: int,
+                 points):
+    """(flat stripe cell, valid) of [..., 2] world points binned against
+    the map's GLOBAL origin: valid when the global bin lies in columns
+    [0, W) and rows [row0, row0 + rows); flat = (iy - row0) * W + ix."""
+    cell = f32(cell_size, points.device)
+    ix, iy = cell_ij(origin, cell, points)
+    valid = (ix >= 0) & (ix < width) & (iy >= row0) & (iy < row0 + rows)
+    flat = (torch.clamp(iy - row0, 0, rows - 1) * width
+            + torch.clamp(ix, 0, width - 1))
+    return flat, valid
+
+
 def build_ndt(points, mask, origin, cell_size: float, width: int,
               height: int) -> NDTGrid:
     """Build an NDT grid from [N, 2] world-frame points and [N] mask."""

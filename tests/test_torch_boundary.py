@@ -36,7 +36,8 @@ def port_sources():
     # chip_smoke.py and the mesh tests' rank bodies run without the
     # reference too.
     out = [os.path.join(ROOT, "chip_smoke.py"),
-           os.path.join(ROOT, "tests", "torch_mesh_ranks.py")]
+           os.path.join(ROOT, "tests", "torch_mesh_ranks.py"),
+           os.path.join(ROOT, "tests", "torch_blocks_ranks.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "ndt_2d_tpu_torch")):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
