@@ -35,7 +35,9 @@ Phases (any failure exits non-zero):
     the map merge's shape (126 angles, R = 1); K10 over a 2048 x 512 point
     table of the office bag: its bin tables, descriptors and all-pairs
     top-k bitwise against the twins, rows of ``search_all_pairs`` bitwise
-    equal to ``search_dense``, scores against a matrix product; the
+    equal to ``search_dense``, scores against a matrix product, and the
+    search again at an odd shape (37 queries x 1000 keys of 190 floats,
+    exact ties, negative limits, k = 3, 8, 20, one-row launches); the
     coarse-to-fine chain ``match_scan_batch_multi_coarse_fine`` against
     the twins' chain bitwise, with no host synchronization inside it and
     one K1 + K6 + K1 + K2 + K7 launch a chunk; K13 (the pipelined paths'
@@ -51,8 +53,11 @@ Phases (any failure exits non-zero):
     equal to the one-launch K2 and to the twins' split search, at config
     2's window (R = 1) and over the 64 config-3 rows; K6's the same over
     the 32 coarse rows; ``rank_sum`` at S = 2, 4 ranks of 3 x 50,000 and
-    9 x 50,000 floats (the district's gradient and block diagonal) against
-    its twin, beside ``torch.sum(x, 0)``; K12·blocks on config 4's saved
+    9 x 50,000 floats (the district's gradient and block diagonal) and at
+    3 x 450,001 on a misaligned view against its twin, beside
+    ``torch.sum(x, 0)``, with its launch path's host cost piece by piece
+    (K10's search and ``rank_sum`` also timed on the device alone, in a
+    CUDA graph, beside their library calls); K12·blocks on config 4's saved
     map: KB1 (the stripe build) on every stripe of 2 and of 4, bitwise its
     twin and the dense K1 rows, KB2 (the stripe scores) over the 5000
     particles and the scan's world points, KB3 (a localization scan's
@@ -297,17 +302,20 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def timed(max_abs_err, ms, plain_ms, moved, ops, library_ms=None) -> dict:
+def timed(max_abs_err, ms, plain_ms, moved, ops, library_ms=None,
+          graph_ms=None) -> dict:
     """A kernel's timing entry: errors and times measured in this run, and
     its bound from ``moved`` bytes (each input read once, each output
     written once; gathered rows where the data picks them) and ``ops``
-    float32 operations, both counted from this run's inputs."""
+    float32 operations, both counted from this run's inputs.  ``graph_ms``
+    (kernel, library call), where given: the device's time alone, from
+    ``graph_ms()``."""
     t_bytes = moved / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
     return dict(max_abs_err=float(max_abs_err), ms=ms, plain_ms=plain_ms,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=library_ms)
+                library_ms=library_ms, graph_ms=graph_ms)
 
 
 def max_abs_diff(pairs) -> float:
@@ -331,6 +339,41 @@ def cuda_ms(fn, reps: int) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Milliseconds per call of ``fn()`` on the device alone: ``reps``
+    calls captured in one CUDA graph, the graph replayed once between CUDA
+    events, over the count.  The launch path's host side is not in it."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capturing stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def host_us(fn, reps: int) -> float:
+    """Microseconds of host time per call of ``fn()`` (``perf_counter``
+    around ``reps`` calls, no synchronization inside)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e6
 
 
 def phase_card():
@@ -2273,14 +2316,57 @@ def check_descriptors(pts, msk, rmax, n_bins, n_valid, k, ex, what,
             max_abs_diff([(torch.nan_to_num(sims, neginf=0.0),
                            torch.nan_to_num(sims_t, neginf=0.0))]),
             cuda_ms(search, 20), cuda_ms(search_twin, 1),
-            nbytes(table, valid, limit, sims) + 4 * idx.numel(),
-            (2 * B + 1) * pairs,
-            library_ms=cuda_ms(library, 20))}, table, idx, sims)
+            nbytes(table, valid, limit, sims, idx),
+            (2 * B + 1) * pairs, library_ms=cuda_ms(library, 20),
+            graph_ms=(graph_ms(search, 20), graph_ms(library, 20)))},
+        table, idx, sims)
+
+
+def check_search_odd(dev):
+    """K10's search at an odd shape: 37 queries x 1000 keys of 190 floats
+    (4-byte copies, a partial last chunk, ragged tiles), exact ties (five
+    equal keys, four queries equal to them), invalid keys, negative limits
+    and limits past the table; k = 3, 8 and 20 (one, two and five rounds of
+    the top-k's lists).  Bitwise against the twin, and six rows bitwise
+    equal to one-row launches of them."""
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import descriptor_search as ks
+    rng = np.random.default_rng(5)
+    keys = rng.normal(size=(1000, 190)).astype(np.float32)
+    keys[[7, 300, 301, 999]] = keys[123]
+    valid = rng.random(1000) > 0.1
+    valid[[7, 123, 300, 301, 999]] = True
+    query = rng.normal(size=(37, 190)).astype(np.float32)
+    query[:4] = keys[123]
+    limit = rng.integers(-20, 1100, size=37).astype(np.int32)
+    limit[:4] = [999, 301, 5, -3]
+    q, kt, v, lim = (torch.from_numpy(a).to(dev)
+                     for a in (query, keys, valid, limit))
+    for k in (3, 8, 20):
+        got, want = ks.top_k(q, kt, v, lim, k), ks.top_k_twin(q, kt, v, lim,
+                                                              k)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"K10 search at 37 x 1000 x 190, k = {k}, differs from the "
+                "twin")
+        for r in (0, 1, 2, 3, 17, 36):
+            one = ks.top_k(q[r:r + 1], kt, v, lim[r:r + 1], k)
+            require(torch.equal(one[0][0], got[0][r])
+                    and torch.equal(one[1][0], got[1][r]),
+                    f"K10 search row {r} differs from its one-row launch")
+    require(got[0][0, :5].tolist() == [7, 123, 300, 301, 999],
+            "K10 search: exact ties not in ascending index")
+    print("[3] K10 search at 37 queries x 1000 keys x 190 floats (ties, "
+          "invalid keys, negative limits), k = 3, 8, 20: bitwise equal to "
+          "the twin; rows 0-3, 17, 36 bitwise equal to one-row launches")
 
 
 def phase_k10(cfg, bag, dev):
     """K10 over the office bag's point table at a 2000-keyframe graph's
-    padded capacity."""
+    padded capacity, then the search at an odd shape."""
+    check_search_odd(dev)
     pts, msk = office_table(cfg, bag, dev)
     return check_descriptors(
         pts, msk, 12.0, cfg.descriptor_bins, len(bag),
@@ -3477,6 +3563,105 @@ def check_split(kern, mc, rows, what, dev):
                   R * A * per * 12))
 
 
+def launch_path(dev) -> dict:
+    """The host side of one ``rank_sum`` launch at 2 x 450,000, piece by
+    piece (``host_us``), beside ``torch.sum(x, 0)``'s; the current stream
+    read by three public calls and, for scale, PyTorch's private one."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import _build
+    from ndt_2d_tpu_torch.kernels import shard_combine as sc
+    x = torch.randn(2, 9 * DISTRICT_NODES, device=dev)
+    n = x.shape[1]
+    out = torch.empty(n, device=dev)
+    fn = _build.function("ndt2d_rank_sum", sc._ARGS)
+    xp, op = x.data_ptr(), out.data_ptr()
+    width, _, blocks = sc.geometry(n, xp, op, sc._sms(dev.index))
+    stream = _build.stream_ptr(dev)
+    reps = 5000
+    pieces = {
+        "rank_sum": lambda: sc.rank_sum(x),
+        "torch.sum": lambda: torch.sum(x, 0),
+        "require": lambda: _build.require(x, "x", torch.float32, x.shape,
+                                          dev),
+        "x.device": lambda: x.device,
+        "x.shape": lambda: x.shape,
+        "x.numel": lambda: x.numel(),
+        "torch.empty": lambda: torch.empty(n, dtype=torch.float32,
+                                           device=dev),
+        "function": lambda: _build.function("ndt2d_rank_sum", sc._ARGS),
+        "data_ptr": lambda: x.data_ptr(),
+        "geometry": lambda: sc.geometry(n, xp, op, sc._sms(dev.index)),
+        "stream_ptr": lambda: _build.stream_ptr(dev),
+        "current_stream(device)": lambda: torch.cuda.current_stream(
+            dev).cuda_stream,
+        "current_stream()": lambda: torch.cuda.current_stream().cuda_stream,
+        # PyTorch's private raw read, for scale only: the port does not
+        # call it.
+        "_cuda_getCurrentRawStream": lambda: (
+            torch._C._cuda_getCurrentRawStream(dev.index)),
+        "ctypes call": lambda: fn(xp, 2, n, width, blocks, op, stream),
+        "check": lambda: _build.check(0, "rank_sum"),
+    }
+    us = {k: host_us(f, reps) for k, f in pieces.items()}
+    torch.cuda.synchronize()
+    print("[3] K12 rank_sum launch path, host us a call (2 x "
+          f"{n}): " + ", ".join(f"{k} {v:.3f}" for k, v in us.items()))
+    return us
+
+
+def check_rank_sum(dev) -> dict:
+    """``rank_sum`` against its twin at the district's shapes and at odd
+    ones; its times (host-inclusive and in a CUDA graph) beside
+    ``torch.sum(x, 0)``'s, and its launch path piece by piece."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import shard_combine
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    # The district's shapes, then an odd one: three ranks of 450,001
+    # floats through a view one float into its buffer (one float a load).
+    cases = [(S, width * DISTRICT_NODES, 0) for S in (2, 4)
+             for width in (3, 9)] + [(3, 9 * DISTRICT_NODES + 1, 1)]
+    for S, n, offset in cases:
+        buf = torch.randn(S * n + offset, generator=gen, device=dev)
+        x = buf[offset:].view(S, n)
+        x[1] *= 1e6
+        y, yt = shard_combine.rank_sum(x), shard_combine.rank_sum_twin(x)
+        torch.cuda.synchronize()
+        require(torch.equal(y, yt), f"rank_sum ({S} x {n}, offset "
+                f"{offset}) differs from its twin")
+        require(torch.equal(y, shard_combine.rank_sum(x)),
+                "rank_sum not bitwise reproducible")
+
+        def run():
+            return shard_combine.rank_sum(x)
+
+        def library():
+            return torch.sum(x, 0)
+        entry = timed(0.0, cuda_ms(run, 200),
+                      cuda_ms(lambda: shard_combine.rank_sum_twin(x), 20),
+                      nbytes(x, y), S * n, cuda_ms(library, 200),
+                      (graph_ms(run, 200), graph_ms(library, 200)))
+        key = {(2, 9 * DISTRICT_NODES): "rank_sum"}.get(
+            (S, n), f"rank_sum_{S}x{n}" if offset else
+            f"rank_sum_{S}x{n // DISTRICT_NODES}n")
+        out[key] = entry
+    # A misaligned view whose n is a multiple of 4 takes one float a load.
+    buf = torch.randn(2 * 9 * DISTRICT_NODES + 1, generator=gen, device=dev)
+    x = buf[1:].view(2, -1)
+    require(torch.equal(shard_combine.rank_sum(x),
+                        shard_combine.rank_sum_twin(x)),
+            "rank_sum on a misaligned view differs from its twin")
+    print(f"[3] K12 rank_sum: S = 2, 4 ranks x {3 * DISTRICT_NODES} and "
+          f"{9 * DISTRICT_NODES} floats (the district's gradient and block "
+          "diagonal), 3 x 450,001 and 2 x 450,000 on views one float into "
+          "their buffers, bitwise equal to the twin's rank-order adds and "
+          "reproducible")
+    launch_path(dev)
+    return out
+
+
 def phase_k12(cfg, win, query, cfg3, bag3, cfg6, dev):
     """K12's kernels against their twins: the split K2 at config 2's
     window (R = 1) and over 64 config-3 confirmation rows, the split K6
@@ -3487,7 +3672,6 @@ def phase_k12(cfg, win, query, cfg3, bag3, cfg6, dev):
     from ndt_2d_tpu_torch.kernels import candidate_gather as k6
     from ndt_2d_tpu_torch.kernels import candidate_scores as k2
     from ndt_2d_tpu_torch.kernels import ndt_build as k1
-    from ndt_2d_tpu_torch.kernels import shard_combine
     from ndt_2d_tpu_torch.ndt import grid as ndt_grid
     out = {}
     mc = cfg.local_scan_matcher
@@ -3518,29 +3702,7 @@ def phase_k12(cfg, win, query, cfg3, bag3, cfg6, dev):
      out["candidate_gather_finalize"]) = check_split(
         k6, cm, (gr, tabs, *rows[4:]),
         f"K6 over {COARSE_ROWS} config-6 coarse rows", dev)
-    gen = torch.Generator(device=dev).manual_seed(7)
-    for S in (2, 4):
-        for width in (3, 9):
-            n = width * DISTRICT_NODES
-            x = torch.randn(S, n, generator=gen, device=dev)
-            x[1] *= 1e6
-            y, yt = shard_combine.rank_sum(x), shard_combine.rank_sum_twin(x)
-            torch.cuda.synchronize()
-            require(torch.equal(y, yt), f"rank_sum ({S} x {n}) differs from "
-                    "its twin")
-            require(torch.equal(y, shard_combine.rank_sum(x)),
-                    "rank_sum not bitwise reproducible")
-            entry = timed(0.0, cuda_ms(lambda: shard_combine.rank_sum(x), 50),
-                          cuda_ms(lambda: shard_combine.rank_sum_twin(x), 20),
-                          nbytes(x, y), S * n,
-                          cuda_ms(lambda: torch.sum(x, 0), 50))
-            key = "rank_sum" if (S, width) == (2, 9) else \
-                f"rank_sum_{S}x{width}n"
-            out[key] = entry
-    print(f"[3] K12 rank_sum: S = 2, 4 ranks x {3 * DISTRICT_NODES} and "
-          f"{9 * DISTRICT_NODES} floats (the district's gradient and block "
-          "diagonal), bitwise equal to the twin's rank-order adds and "
-          "reproducible")
+    out.update(check_rank_sum(dev))
     return out
 
 
@@ -4605,13 +4767,17 @@ def main() -> int:
     for name, (src, replaces) in KERNELS.items():
         t = timing[name]
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches[name], **t})
+                     "replaces": replaces, "launches": launches[name],
+                     **{k: v for k, v in t.items() if k != "graph_ms"}})
     for name, t in timing.items():
         lib = ("" if t["library_ms"] is None
                else f", library {t['library_ms']:.4f} ms")
+        graph = ("" if t["graph_ms"] is None else
+                 f", in a CUDA graph kernel {t['graph_ms'][0]:.5f} ms, "
+                 f"library {t['graph_ms'][1]:.5f} ms")
         print(f"[5] {name}: kernel {t['ms']:.4f} ms, twin "
               f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
-              f"({t['bound_by']}){lib} ({ident})")
+              f"({t['bound_by']}){lib}{graph} ({ident})")
     print(ident)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

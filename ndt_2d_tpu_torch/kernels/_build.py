@@ -8,6 +8,10 @@ carrying the hash of the sources and flags, so an edited source rebuilds on
 next use.  Nothing here runs at
 import time: the first kernel launch builds.
 
+A small kernel's time is the host side of its launch, so the launch path
+is kept short: each C function is bound once (``function``), and pointers
+and the stream cross as plain ints.
+
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` without fast math,
 so every float32 expression rounds exactly as the plain-PyTorch twin's does.
 """
@@ -25,6 +29,8 @@ import threading
 import time
 from typing import Optional, Sequence
 
+import torch
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "build")
@@ -41,6 +47,7 @@ class _State:
         self.path = ""
         self.build_seconds = 0.0
         self.build_log = ""
+        self.funcs: dict = {}
 
 
 _STATE = _State()
@@ -119,12 +126,17 @@ def _compile(cu: Sequence[str], path: str) -> str:
 
 
 def function(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
-    """C function ``name`` of the library with its argument types set
-    (``c_void_p`` for pointers and the stream); it returns the CUDA error
-    code of its launches."""
-    fn = getattr(library(), name)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    """C function ``name`` of the library, bound once: its argument types
+    (``c_void_p`` for pointers and the stream, which take Python ints) and
+    its ``c_int`` result, the CUDA error code of its launches, are set at
+    the first lookup and the bound function is kept.  Later calls are one
+    dictionary read, without the build lock."""
+    fn = _STATE.funcs.get(name)
+    if fn is None:
+        fn = getattr(library(), name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _STATE.funcs[name] = fn
     return fn
 
 
@@ -142,7 +154,7 @@ def require(t, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
     if not t.is_contiguous():
@@ -155,12 +167,17 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def ptr(t) -> ctypes.c_void_p:
-    """A tensor's device pointer for a ``c_void_p`` argument."""
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t) -> int:
+    """A tensor's device pointer, as the int a ``c_void_p`` argument
+    takes."""
+    return t.data_ptr()
 
 
-def stream_ptr(device) -> ctypes.c_void_p:
-    """PyTorch's current CUDA stream on ``device``."""
-    import torch
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream_ptr(device) -> int:
+    """PyTorch's current CUDA stream on ``device``, as an int.  Read on
+    every launch, never cached: a caller may switch streams or capture a
+    graph.  A device index skips ``current_stream``'s parsing of a
+    ``torch.device``."""
+    index = device.index
+    return torch.cuda.current_stream(
+        device if index is None else index).cuda_stream

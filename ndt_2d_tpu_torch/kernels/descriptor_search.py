@@ -11,6 +11,11 @@ order, equal values in ascending j (``jax.lax.top_k``'s order).
 A similarity has one summation order whatever the launch, in the kernel and
 in the twin, so a row's bits do not depend on how many rows are asked for:
 the all-pairs search and the one-query search agree exactly.
+
+On the card a call is two launches: tiles of 64 query rows x 64 keys write
+the masked similarities to a scratch [Nq, Nk] buffer, skipping the tiles
+whose keys all lie above their rows' limits (``plan``, ``tiles_run``);
+then a warp a query row takes its k best.
 """
 
 from __future__ import annotations
@@ -18,14 +23,39 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from ndt_2d_tpu_torch.kernels import _build
 
 launches = 0
 
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
-_THREADS, _TILE = 128, 32
+_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+         + [ctypes.c_void_p] * 4)
+TILE = 64            # query rows and keys of a similarity tile
+MAX_QUERY_TILES = 65535
+
+
+def plan(Nq: int, Nk: int, B: int, query_ptr: int, keys_ptr: int):
+    """The similarity launch: (vec, key tiles, query tiles).  ``vec`` when
+    B is a multiple of 4 and both tables are 16-byte aligned (16-byte
+    copies into shared memory, else 4-byte ones); a grid of ``TILE`` x
+    ``TILE`` tiles over [Nq, Nk]."""
+    vec = B % 4 == 0 and query_ptr % 16 == 0 and keys_ptr % 16 == 0
+    return int(vec), -(-Nk // TILE), -(-Nq // TILE)
+
+
+def tiles_run(limit, Nk: int):
+    """[query tiles, key tiles] bool: the similarity tiles the kernel
+    computes.  Tile (a, b) is skipped when its first key, b * TILE, lies
+    above the largest limit of its rows a * TILE .. (a + 1) * TILE - 1;
+    the top-k reads only keys j <= limit[q]."""
+    limit = np.asarray(limit, np.int64)
+    pad = -len(limit) % TILE
+    top = np.concatenate([limit, np.full(pad, np.iinfo(np.int64).min)])
+    top = top.reshape(-1, TILE).max(axis=1)
+    first = np.arange(-(-Nk // TILE)) * TILE
+    return first[None, :] <= top[:, None]
 
 
 def similarities_twin(query, keys):
@@ -49,13 +79,13 @@ def top_k_twin(query, keys, valid, limit, k: int):
 
 
 def top_k(query, keys, valid, limit, k: int):
-    """The k most similar eligible keys of every query row, in one launch.
+    """The k most similar eligible keys of every query row.
 
     query [Nq, B] and keys [Nk, B] float32 (finite), valid [Nk] bool, limit
     [Nq] int32: key j is eligible for row q when ``valid[j]`` and ``j <=
     limit[q]``.  Returns (indices [Nq, k] int64, scores [Nq, k]); slots
     beyond the eligible keys score -inf.  ``1 <= k <= Nk``.  CPU tensors run
-    the twin; CUDA tensors launch the kernel."""
+    the twin; CUDA tensors launch the kernels."""
     global launches
     Nq, B = query.shape
     Nk = keys.shape[0]
@@ -68,15 +98,17 @@ def top_k(query, keys, valid, limit, k: int):
     _build.require(keys, "keys", torch.float32, (Nk, B), dev)
     _build.require(valid, "valid", torch.bool, (Nk,), dev)
     _build.require(limit, "limit", torch.int32, (Nq,), dev)
-    if 4 * (B + Nk + _THREADS * (_TILE + 1)) > 200 * 1024:
-        raise ValueError(f"{Nk} keys of {B} floats are outside the kernel's "
-                         "range")
-    idx = torch.empty(Nq, k, dtype=torch.int32, device=dev)
+    qp, kp = query.data_ptr(), keys.data_ptr()
+    vec, key_tiles, query_tiles = plan(Nq, Nk, B, qp, kp)
+    if query_tiles > MAX_QUERY_TILES:
+        raise ValueError(f"{Nq} query rows are outside the kernel's range")
+    sims = torch.empty(Nq, Nk, dtype=torch.float32, device=dev)
+    idx = torch.empty(Nq, k, dtype=torch.int64, device=dev)
     scores = torch.empty(Nq, k, dtype=torch.float32, device=dev)
     p = _build.ptr
     err = _build.function("ndt2d_descriptor_top_k", _ARGS)(
-        p(query), p(keys), p(valid), p(limit), Nq, Nk, B, k, p(idx),
-        p(scores), _build.stream_ptr(dev))
+        qp, kp, p(valid), p(limit), Nq, Nk, B, k, vec, key_tiles,
+        query_tiles, p(sims), p(idx), p(scores), _build.stream_ptr(dev))
     _build.check(err, "descriptor_top_k")
     launches += 1
-    return idx.long(), scores
+    return idx, scores

@@ -11,6 +11,7 @@ the same bits.  Kernel and twin add in that order and agree bitwise.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -18,8 +19,28 @@ from ndt_2d_tpu_torch.kernels import _build
 
 launches = 0
 
-_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-         ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+THREADS = 256        # the kernel's block size
+BLOCKS_PER_SM = 4
+
+
+def geometry(n: int, x_ptr: int, out_ptr: int, sms: int):
+    """The launch of ``rank_sum`` over n elements a rank: (width, units,
+    blocks).  ``width`` floats a load, 4 (16-byte loads and stores) when n
+    is a multiple of 4 and both pointers are 16-byte aligned, else 1;
+    ``units = n // width``; ``blocks`` of ``THREADS`` threads, at most
+    ``BLOCKS_PER_SM`` an SM, whose thread i takes units i, i + blocks *
+    THREADS, ... below ``units``."""
+    width = 4 if n % 4 == 0 and x_ptr % 16 == 0 and out_ptr % 16 == 0 \
+        else 1
+    units = n // width
+    blocks = max(1, min(-(-units // THREADS), sms * BLOCKS_PER_SM))
+    return width, units, blocks
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def rank_sum_twin(x):
@@ -35,18 +56,21 @@ def rank_sum(x):
     added in rank order from x[0].  CPU tensors run the twin; CUDA tensors
     launch the kernel."""
     global launches
-    if x.device.type == "cpu":
-        return rank_sum_twin(x)
     dev = x.device
-    S = x.shape[0]
-    n = x[0].numel()
-    if S < 1 or S * n >= 2 ** 31:
+    if dev.type == "cpu":
+        return rank_sum_twin(x)
+    shape = x.shape
+    S = shape[0]
+    n = x.numel() // S if S else 0
+    if S < 1 or n >= 2 ** 31:
         raise ValueError(f"rank_sum of {S} x {n} is outside the kernel's "
                          "range")
-    _build.require(x, "x", torch.float32, tuple(x.shape), dev)
-    out = torch.empty(x.shape[1:], dtype=torch.float32, device=dev)
+    _build.require(x, "x", torch.float32, shape, dev)
+    out = torch.empty(shape[1:], dtype=torch.float32, device=dev)
+    xp, op = x.data_ptr(), out.data_ptr()
+    width, _, blocks = geometry(n, xp, op, _sms(dev.index))
     err = _build.function("ndt2d_rank_sum", _ARGS)(
-        _build.ptr(x), S, n, _build.ptr(out), _build.stream_ptr(dev))
+        xp, S, n, width, blocks, op, _build.stream_ptr(dev))
     _build.check(err, "rank_sum")
     launches += 1
     return out
