@@ -4,6 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --profile   # device-time breakdown of the sessions
                                       # (synchronous and pipelined)
+    python3 chip_smoke.py --kernel-times  # K1/K2 times alone (also in an
+                                          # older checkout)
 
 Phases (any failure exits non-zero):
  1. require CUDA; print the card (nvidia-smi name and power limit), the
@@ -63,7 +65,12 @@ Phases (any failure exits non-zero):
     particles and the scan's world points, KB3 (a localization scan's
     stripe field, then the reduction of two stripes' summed field) and KB4
     (the fused step's append into a 256-slot state), each bitwise against
-    its twin;
+    its twin; K1 at its sort's edges (every valid point of a 38,400-point
+    window in one cell, 4277-point rows, a window without a valid point)
+    and K2 at its range edges (512 angles x 32 x 32 offsets at R = 1 and
+    64), bitwise; K1 and K2 at the main path's shapes timed by CUDA
+    events, alone on the device in a CUDA graph and by host time a call
+    (``kernel_times``, the same lines as ``--kernel-times``);
  4. drive the main paths, each with the launch counts set to 0 before and
     read after: (a) the 200-scan, 600-beam config-2 corridor through
     ``Mapper`` and ``run_bag`` (no loop closure) with its export: every scan
@@ -366,10 +373,22 @@ def graph_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def host_us(fn, reps: int) -> float:
+def host_us(fn, reps: int, sync: bool = False) -> float:
     """Microseconds of host time per call of ``fn()`` (``perf_counter``
-    around ``reps`` calls, no synchronization inside)."""
+    around ``reps`` calls, no synchronization inside; with ``sync``, the
+    median of ``reps`` calls each timed alone, the device synchronized
+    between calls, outside the timed interval)."""
+    import torch
     fn()
+    if sync:
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        return sorted(times)[reps // 2] * 1e6
     t0 = time.perf_counter()
     for _ in range(reps):
         fn()
@@ -400,6 +419,42 @@ def phase_build():
     for line in info["log"].splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("    " + line.strip())
+    for name, (regs, st, ld) in kernel_resources(info["log"]).items():
+        print(f"[3] registers {name}: {regs} registers, {st} bytes spill "
+              f"stores, {ld} bytes spill loads")
+
+
+# The kernels of K1 and K2 whose registers and spills [3] prints.
+RESOURCE_KERNELS = ("bin_points", "bin_stripe", "sort_cells", "cell_records",
+                    "score_angles")
+
+
+def kernel_resources(log: str) -> dict:
+    """{K1/K2 kernel: (registers, spill store bytes, spill load bytes)}
+    from nvcc's -Xptxas -v report; a template's arguments (K2's thread
+    tile) follow its name.  Empty when the library was already built."""
+    import re
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = next((k for k in RESOURCE_KERNELS if k in m.group(1)),
+                        None)
+            if name is not None:
+                args = re.findall(r"Li(\d+)E", m.group(1).split(name)[1])
+                name += f"<{','.join(args[:2])}>" if args else ""
+                out[name] = [0, 0, 0]
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def inputs(dev):
@@ -489,6 +544,11 @@ def phase_kernels(cfg, win, query, rays, dev):
           f"{float(o2[0, 0]):.5f} correction "
           f"{[round(float(x), 4) for x in o2[0, 1:4]]}, scores and output "
           f"row bitwise equal to the twin")
+    nums = torch.tensor([query["num_points"]], dtype=torch.int32,
+                        device=dev)
+    tile_variants(mc, g.origin[None], tab[None],
+                  (query["points"][None], query["point_mask"][None], nums,
+                   query["pose"][None]), dths, dls, o2, "config 2 (R = 1)")
     out["candidate_scores"] = timed(
         0.0, cuda_ms(lambda: k2.match(*args), 20),
         cuda_ms(lambda: k2.match_twin(*args), 5),
@@ -946,6 +1006,8 @@ def phase_rows(cfg, bag, dev):
     S, P = win[1].shape[1], win[1].shape[2]
     C = gm.grid_cells_x * gm.grid_cells_y
     qp, qm, qn, qpose = query
+    tile_variants(gm, g.origin, tab, query, dths, dls, k2_out,
+                  f"{ROWS} config-3 rows")
     return {"ndt_build_rows": timed(
                 0.0, cuda_ms(k1_run, 20), cuda_ms(k1_twin, 2),
                 nbytes(*win, g.origin, g.mean, g.information, g.covariance,
@@ -961,6 +1023,206 @@ def phase_rows(cfg, bag, dev):
                     gm, g.origin[r], g.cell_size, g.count[r], qp[r], qm[r],
                     int(qn[r]), qpose[r] + k2_out[r, 1:4],
                     qpose[r] + o7[r, 1:4], 8) for r in range(ROWS)))}
+
+
+def tile_variants(mc, origin, tables, query, dths, dls, ref, what):
+    """K2 over the rows ``query`` (points, mask, counts, poses) with each
+    thread tile the kernel is built for (``tile_plan`` with the tile
+    forced): rows bitwise the planned launch's ``ref``, and each tile's
+    time alone on the device.  These launches are comparisons and are not
+    counted."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import _build
+    from ndt_2d_tpu_torch.kernels import candidate_scores as k2
+    qp, qm, qn, qpose = query
+    A, L, R = dths.shape[0], dls.shape[0], qp.shape[0]
+    sms = _build.sm_count(qp.device.index)
+    chosen = k2.tile_plan(A, L, R, sms)
+    parts = []
+    for tile in k2.TILES:
+        def run(plan=k2.tile_plan(A, L, R, sms, tile)):
+            return k2.launch_rows("ndt2d_candidate_scores", A, mc, origin,
+                                  mc.ndt_resolution, tables, qp, qm, qn, 0,
+                                  qpose, dths, dls, False, plan)[0]
+        out = run()
+        torch.cuda.synchronize()
+        require(torch.equal(out, ref), f"K2 {what} with the {tile} tile "
+                "differs from the planned launch")
+        parts.append(f"{tile[0]}x{tile[1]} {graph_ms(run, 10):.5f}")
+    print(f"[3] K2 thread tiles, {what} (plan {chosen.kx}x{chosen.ky}, "
+          f"{chosen.threads} threads): rows bitwise equal for every tile; in "
+          f"a CUDA graph, ms: " + ", ".join(parts))
+
+
+def phase_k1_stress(dev):
+    """K1 (and KB1) at the edges of its sort, each bitwise against its twin
+    and reproducible: every valid point of a 38,400-point window (75 x 512,
+    a tenth masked) in one cell; three windows of 7 x 611 points (4277: no
+    multiple of the 4096-point tile) at G = 1 and G = 4; a window with no
+    valid point beside a full one, each row bitwise its R = 1 build."""
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import ndt_build as k1
+    rng = np.random.default_rng(11)
+    W = H = 192
+    cell, rmax = 0.25, 15.0
+
+    def t(x, dtype=torch.float32):
+        return torch.tensor(x, dtype=dtype, device=dev)
+
+    def check(what, run, twin):
+        (g, tab), (gt, tabt) = run(), twin()
+        torch.cuda.synchronize()
+        check_build(g, tab, gt, tabt, what)
+        check_build(g, tab, *run(), f"{what} (reproducibility)")
+        return g
+
+    def window(R, S, P, keep):
+        poses = np.concatenate([rng.uniform(-2, 2, (R, S, 2)),
+                                rng.uniform(-np.pi, np.pi, (R, S, 1))], -1)
+        pts = rng.uniform(-9, 9, (R, S, P, 2))
+        return (t(poses), t(pts), t(rng.random((R, S, P)) < keep,
+                                    torch.bool),
+                t(np.ones((R, S), bool), torch.bool))
+
+    # Every valid point in one cell: all poses 0, all points (0.1, 0.1).
+    S, P = 75, 512
+    one = (t(np.zeros((1, S, 3))), t(np.full((1, S, P, 2), 0.1)),
+           t(rng.random((1, S, P)) < 0.9, torch.bool),
+           t(np.ones((1, S), bool), torch.bool))
+    build = (rmax, cell, W, H)
+    g = check("K1, one cell", lambda: k1.build_windows(*one, *build),
+              lambda: k1.build_windows_twin(*one, *build))
+    full = int(g.count.max())
+    require(full == int(one[2].sum()), "K1, one cell: the cell holds "
+            f"{full} of {int(one[2].sum())} valid points")
+    ms = cuda_ms(lambda: k1.build_windows(*one, *build), 5)
+    stripe = dict(poses=one[0][0], points=one[1][0], point_mask=one[2][0],
+                  window_mask=one[3][0], origin=g.origin[0], cell_size=cell,
+                  width=W, row0=0, rows=H // 2)
+    check("KB1, one cell", lambda: k1.build_stripe(**stripe),
+          lambda: k1.build_stripe_twin(**stripe))
+    # N = 7 x 611 = 4277 points a row, three rows, one and four grids.
+    ragged = window(3, 7, 611, 0.95)
+    for grids in (1, 4):
+        check(f"K1, 3 rows of 4277 points, G = {grids}",
+              lambda: k1.build_windows(*ragged, *build, grids=grids),
+              lambda: k1.build_windows_twin(*ragged, *build, grids=grids))
+    # Row 0 without a valid point, row 1 full; each as its own launch.
+    pair = list(window(2, 10, 512, 1.0))
+    pair[2][0] = False
+    g = check("K1, a window with no valid point",
+              lambda: k1.build_windows(*pair, *build),
+              lambda: k1.build_windows_twin(*pair, *build))
+    require(int(g.count[0].sum()) == 0, "K1: a window without points "
+            "counted some")
+    for r in range(2):
+        g1, tab1 = k1.build_windows(*[x[r:r + 1] for x in pair], *build)
+        require(torch.equal(g1.count, g.count[r:r + 1]) and
+                torch.equal(g1.mean, g.mean[r:r + 1]),
+                f"K1: row {r} differs from its R = 1 build")
+    print(f"[3] K1 stress: every valid point ({full}) of a 38,400-point "
+          f"window in one cell ({ms:.4f} ms a build), 3 rows of 4277 "
+          f"points at G = 1 and 4, a window with no valid point: K1 and "
+          f"KB1 bitwise equal to their twins and reproducible")
+
+
+def phase_k2_edges(cfg3, bag3, dev):
+    """K2 at the edges of its range on the 64 config-3 windows: 32 x 32
+    offsets and 512 angles, at R = 1 and R = 64: scores and rows bitwise
+    against the twin, the R = 1 row bitwise row 0 of the 64."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import candidate_scores as k2
+    from ndt_2d_tpu_torch.kernels import ndt_build as k1
+    from ndt_2d_tpu_torch.ndt import grid as ndt_grid
+    gm = cfg3.global_scan_matcher
+    rows = office_rows(cfg3, bag3, dev)
+    g, tab = k1.build_windows(*rows[:4], 12.0, gm.ndt_resolution,
+                              gm.grid_cells_x, gm.grid_cells_y)
+    A, L = 512, 32
+    f32 = torch.float32
+    dths = -0.4 + torch.arange(A, dtype=f32, device=dev) * (0.8 / (A - 1))
+    dls = -0.155 + torch.arange(L, dtype=f32, device=dev) * 0.01
+    outs = {}
+    for R in (1, ROWS):
+        gr = ndt_grid.NDTGrid(origin=g.origin[:R], cell_size=g.cell_size,
+                              mean=None, information=None, count=None,
+                              covariance=None)
+        q = [x[:R] for x in rows[4:]]
+        out, sc = k2.match_rows(gm, gr, tab[:R], *q, dths, dls,
+                                with_scores=True)
+        rest, sct = k2.match_rows_twin(gm, gr, tab[:R], *q, dths, dls)
+        torch.cuda.synchronize()
+        check_match(out, sc, k2.pack(rest), sct,
+                    f"K2 at {A} x {L} x {L}, R = {R}")
+        outs[R] = out
+    require(torch.equal(outs[1][0], outs[ROWS][0]),
+            "K2 at the range edge: row 0 differs between R = 1 and R = 64")
+    print(f"[3] K2 at the range edge ({A} angles x {L} x {L} offsets) at "
+          f"R = 1 and R = {ROWS}: scores and rows bitwise equal to the "
+          f"twin, row 0 equal across R")
+
+
+def kernel_times(dev, ident: str, map4: str, range_max: float) -> dict:
+    """K1 and K2 at the main path's shapes, the one source of their
+    comparison rows: CUDA events around back-to-back calls (``cuda_ms``,
+    host launch included), alone on the device (``graph_ms``) and the
+    host's time a call with the device idle (``host_us``, the median of
+    101 calls, synchronized outside the timed call): config 2's window,
+    config 8's (G = 4), 64 config-3 rows, K12's partials over those rows
+    (the first of two angle blocks) and KB1 (stripe 0 of 2 of config 4's
+    map ``map4``, loaded with ``range_max``).  It calls only the
+    wrappers' public entries, so ``--kernel-times`` in an older checkout
+    times that checkout's kernels."""
+    from ndt_2d_tpu_torch.kernels import candidate_scores as k2
+    from ndt_2d_tpu_torch.kernels import ndt_build as k1
+    from ndt_2d_tpu_torch.matching import matcher
+    from ndt_2d_tpu_torch.parallel import matcher as pmatcher
+    _, cfg, win, query, _ = inputs(dev)
+    out = {}
+
+    def both(name, fn, reps):
+        out[name] = {"cuda_ms": cuda_ms(fn, reps),
+                     "graph_ms": graph_ms(fn, reps),
+                     "host_us": host_us(fn, 101, sync=True)}
+    for name, mc, grids in (("config 2", cfg.local_scan_matcher, 1),
+                            ("config 8 (G = 4)",
+                             config8(cfg).local_scan_matcher, 4)):
+        b = dict(range_max=15.0, cell_size=mc.ndt_resolution,
+                 width=mc.grid_cells_x, height=mc.grid_cells_y, grids=grids)
+        g, tab = k1.build_window(**win, **b)
+        dths, dls = matcher._search_offsets(mc, dev)
+        a = (mc, g, tab, query["points"], query["point_mask"],
+             query["num_points"], query["pose"], dths, dls)
+        both(f"K1 {name}", lambda b=b: k1.build_window(**win, **b), 20)
+        both(f"K2 {name}", lambda a=a: k2.match(*a), 20)
+    cfg3 = office_config()
+    gm = cfg3.global_scan_matcher
+    rows = office_rows(cfg3, office_bag(), dev)
+    build = (12.0, gm.ndt_resolution, gm.grid_cells_x, gm.grid_cells_y)
+    gr, tabs = k1.build_windows(*rows[:4], *build)
+    dths, dls = matcher._search_offsets(gm, dev)
+    a0, n = pmatcher.angle_block(dths.shape[0], 2, 0)
+    both(f"K1 {ROWS} config-3 rows",
+         lambda: k1.build_windows(*rows[:4], *build), 10)
+    both(f"K2 {ROWS} config-3 rows",
+         lambda: k2.match_rows(gm, gr, tabs, *rows[4:], dths, dls), 10)
+    both(f"K12 K2 partials, {ROWS} rows, {n} of {dths.shape[0]} angles",
+         lambda: k2.partial_rows(gm, gr, tabs, *rows[4:], dths, dls, a0, n),
+         10)
+    m, kf = blocks_map(map4, config4_configs()[1], range_max, dev)
+    mc = m.config
+    sa = dict(**kf, origin=m.grid.origin, cell_size=mc.ndt_resolution,
+              width=mc.grid_cells_x, row0=0, rows=mc.grid_cells_y // 2)
+    both("KB1 stripe 0 of 2", lambda: k1.build_stripe(**sa), 20)
+    for name, t in out.items():
+        print(f"[5] {name}: {t['cuda_ms']:.4f} ms, in a CUDA graph "
+              f"{t['graph_ms']:.5f} ms, host {t['host_us']:.1f} us a call "
+              f"({ident})")
+    return out
 
 
 def config8(cfg):
@@ -1352,10 +1614,12 @@ class Recorder:
         self.real_solve = solver.solve
         self.mapper = mapper
         self.dispatches, self.solves, self.chunks = [], [], 0
+        self.rows = []  # the (padded) rows of each confirmation chunk
 
     def batch(self, config, *args, **kw):
         out = self.real_batch(config, *args, **kw)
         self.chunks += 1
+        self.rows.append(int(args[0].shape[0]))
         if len(self.dispatches) < 2:
             m = self.mapper
             gate = (m.typical_matcher_response
@@ -1466,6 +1730,9 @@ def phase_office(cfg, bag, dev, tag="[4c]", plain=None):
               f"final ATE {plain['final']:.4f} -> {numbers['final']:.4f} m, "
               f"loop_closure {plain['lc_ms']:.3f} -> {numbers['lc_ms']:.3f} "
               f"ms, {plain['ms']:.3f} -> {ms:.3f} ms per accepted scan")
+    shapes = {r: rec.rows.count(r) for r in sorted(set(rec.rows))}
+    print(f"{tag} K1 and K2 launches by shape: {acc - 1} at R = 1 (one a "
+          f"scan), {rec.chunks} confirmation chunks by rows {shapes}")
     phase_replay(rec, tag, 1 if plain else 2, solve=not plain)
     return launches, numbers
 
@@ -3576,7 +3843,7 @@ def launch_path(dev) -> dict:
     out = torch.empty(n, device=dev)
     fn = _build.function("ndt2d_rank_sum", sc._ARGS)
     xp, op = x.data_ptr(), out.data_ptr()
-    width, _, blocks = sc.geometry(n, xp, op, sc._sms(dev.index))
+    width, _, blocks = sc.geometry(n, xp, op, _build.sm_count(dev.index))
     stream = _build.stream_ptr(dev)
     reps = 5000
     pieces = {
@@ -3591,7 +3858,8 @@ def launch_path(dev) -> dict:
                                            device=dev),
         "function": lambda: _build.function("ndt2d_rank_sum", sc._ARGS),
         "data_ptr": lambda: x.data_ptr(),
-        "geometry": lambda: sc.geometry(n, xp, op, sc._sms(dev.index)),
+        "geometry": lambda: sc.geometry(n, xp, op,
+                                        _build.sm_count(dev.index)),
         "stream_ptr": lambda: _build.stream_ptr(dev),
         "current_stream(device)": lambda: torch.cuda.current_stream(
             dev).cuda_stream,
@@ -4665,6 +4933,19 @@ def main() -> int:
         from ndt_2d_tpu_torch.device import get_device
         profile_sessions(get_device("cuda:0"))
         return 0
+    if "--kernel-times" in sys.argv[1:]:
+        from ndt_2d_tpu_torch.device import get_device
+        from ndt_2d_tpu_torch.io.bag import record_synthetic
+        dev = get_device("cuda:0")
+        ident = phase_card()
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            map4 = os.path.join(tmp, "box_map.npz")
+            bag4 = record_synthetic("box", 150, n_beams=360, seed=2)
+            map_and_save(config4_configs()[0], bag4, map4, dev)
+            out = kernel_times(dev, ident, map4, bag4.range_max)
+        print(json.dumps({"kernel_times": out, "card": ident}))
+        return 0
     try:
         from ndt_2d_tpu_torch.device import get_device
         from ndt_2d_tpu_torch.io.bag import record_synthetic
@@ -4676,6 +4957,8 @@ def main() -> int:
         timing.update(phase_k8(cfg, win, query, dev))
         cfg3, bag3 = office_config(), office_bag()
         timing.update(phase_rows(cfg3, bag3, dev))
+        phase_k1_stress(dev)
+        phase_k2_edges(cfg3, bag3, dev)
         truth, district = district_graph()
         timing.update(phase_k4(district, dev))
         cfg6 = config6()
@@ -4691,6 +4974,7 @@ def main() -> int:
             keyframes = map_and_save(config4_configs()[0], bag4, map4, dev)
             timing.update(phase_pf_kernels(map4, bag4, dev))
             timing.update(phase_kb(map4, bag4, dev))
+            kernel_times(dev, ident, map4, bag4.range_max)
             _, config2, sync_poses = phase_session(cfg, bag, dev)
             c2p_launches, _ = phase_pipelined_config2(cfg, bag, dev, config2,
                                                       sync_poses)

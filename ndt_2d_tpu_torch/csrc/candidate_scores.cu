@@ -21,20 +21,53 @@
 // best score is < 0) and the Olson covariance K/s + u u^T / s^2, with the
 // weak isotropic fallback when s == 0.
 //
-// What bounds it on the card: the exp and quadratic form of
-// A x L x L x B = 3.5e6 (candidate, beam) terms, about 0.1 GFLOP; the
-// only gathers are A x B patch rows of 128 bytes.  Design: one block per
-// (angle, row); one thread per (dx, dy), the block padded to whole warps.  The
-// block first stages every beam's rotated point, crossing lines and
-// 2x2 patch records in shared memory (one 32-float row gather per beam), then
-// each thread walks the beams in order, so its candidate score sums in a
-// fixed order.  Warp shuffles plus an ordered combine of the warps reduce
-// (min, first flat index) and the 10 Olson sums per angle; a second
-// launch, one block per row, combines the row's angles in angle order and
-// finalizes (A <= 512 angles, L*L <= 1024 offsets per angle).  A row's
-// blocks read only that row's inputs, so its bits do not depend on R.  The
-// [A, L, L] scores never reach device memory, except through the optional
-// debug output used to check the kernel against its twin.
+// What bounds it on the card: the instruction throughput.  A (candidate,
+// beam) term is about thirty instructions (the cell pick, the form's seven
+// roundings, the clamp, expf's ten and the sum), and -fmad=false with the
+// twin's expression order (the parity rule) keeps a multiply-add as two,
+// so the operations bound (an FMA as two operations at 67 TFLOP/s) is out
+// of reach bitwise; the only gathers are A x B patch rows of 128 bytes.
+// Design (candidate_scores.py::tile_plan sets the numbers), one block an
+// (angle, row):
+//  - the block stages its beams in chunks of 128 (one a grid at 100
+//    beams): a header float4 (the rotated beam and its crossing lines)
+//    and the beam's 128-byte patch row, copied as it lies in the table
+//    with cp.async (zeros for a masked beam), so every record is two
+//    aligned 16-byte (and 8-byte) loads.  A block of one candidate a
+//    thread (one block an SM) with several chunks (G = 4 grids) has two
+//    stages and copies chunk k + 1 while it scores chunk k, keeping each
+//    beam's point in registers across grids, so only the first chunk's
+//    gather is waited for.  A 2 x 4 block keeps one stage: six of them
+//    share an SM and hide each other's gathers, and a second stage costs
+//    registers and occupancy (measured slower on an H100, PERF.md §6);
+//  - each thread scores KX dx rows x KY dy columns with its sums in
+//    registers: per beam it loads the header and, per dx, the two records
+//    of its x half, and computes the dx-only parts of the form ((i00 qx)
+//    qx, (2 i01) qx) once, the first as +inf where the record is not
+//    scorable or the shift leaves the grid in x; per dy it adds -inf to
+//    the exponent off the grid in y.  An invalid term's exponent is thus
+//    -inf and the term +0, which leaves a sum of non-negative terms bit for
+//    bit unchanged, with no branch or select on validity.  Per candidate
+//    it picks the y half and adds ((A + B qy) + (i11 qy) qy), the twin's
+//    rounding sequence, its beams in order from 0.  A thread of one
+//    candidate (KX = KY = 1, the launches of fewer blocks than SMs) loads
+//    only the record its shift falls in and adds +0 for an invalid term
+//    (a select, as the twin's where), four beams an iteration;
+//  - the block reduces the angle in the one-launch order: 32 consecutive
+//    flat indices a warp, folded by the shuffle tree (16, 8, 4, 2, 1),
+//    then the warps in order (min, first flat index and the 10 Olson
+//    sums); a tiled block goes through its scores in shared memory, a
+//    block of one candidate a thread (thread t is flat index t) folds
+//    from registers.  A second launch, one block per row, combines the
+//    row's angles in angle order and finalizes (A <= 512 angles, L*L <=
+//    1024 offsets per angle).
+// Each candidate's sum is a chain of max_beams dependent adds, so a launch
+// of few rows is bound by that chain's latency, not by the SMs it fills:
+// spreading an angle's candidates over a cluster of blocks only added
+// staging and barriers, and made a one-row launch slower on an H100.
+// A row's blocks read only that row's inputs, so its bits do not depend on
+// R.  The [A, L, L] scores never reach device memory, except through the
+// optional debug output used to check the kernel against its twin.
 //
 // K12 (a device mesh, ndt_2d_tpu/parallel/matcher.py::match_scan_multichip
 // with its psum and all_gather): the two launches are also entries of their
@@ -48,16 +81,21 @@
 
 namespace {
 
-constexpr int kBeamChunk = 128;
+// Beams a chunk: a stage holds a chunk's headers and patch rows.
+constexpr int kChunk = 128;
+constexpr int kStageBytes = kChunk * (16 + 32 * 4);
 constexpr int kMaxWarps = 32;
+constexpr int kMaxCand = kMaxWarps * 32;
 // Olson sums: s, u0..u2, k00, k01, k02, k11, k12, k22.
 constexpr int kSums = 10;
 // Per-angle partial: best, best flat index (as float), the 10 sums.
 constexpr int kPartial = 2 + kSums;
+constexpr float kInf = __builtin_huge_valf();
 
-struct Beam {
-  float bx, by, cx, cy;
-  float rec[4][6];  // y-major 2x2: mean_x, mean_y, i00, i01, i11, ok
+// The tile plan: thread t = tx * nyg + ty (tx < nxg) takes dx rows tx +
+// i * nxg (i < KX) and dy columns ty + j * nyg (j < KY), those below L.
+struct Tile {
+  int nxg, nyg;
 };
 
 // Per-row beam count: the row's entry of `nums` when given, else `num`.
@@ -65,122 +103,48 @@ __device__ __forceinline__ int row_points(const int* nums, int num, int r) {
   return nums != nullptr ? nums[r] : num;
 }
 
-// Grid (A, R): angle a0 + a of the lattice, a = blockIdx.x, of row r =
-// blockIdx.y; G grids a row.  dths holds the whole lattice's angles; the
-// partials [R, A, 12] and the scores [R, A, L, L] hold the launch's A.
-__global__ void score_angles(
-    const float* __restrict__ table, const float* __restrict__ origin,
-    int G, float cell, int W, int H, const float* __restrict__ points,
-    const uint8_t* __restrict__ pmask, int P, const int* __restrict__ nums,
-    int num, int max_beams, const float* __restrict__ pose,
-    const float* __restrict__ dths, int a0, const float* __restrict__ dls,
-    int A, int L, float* __restrict__ partial, float* __restrict__ scores) {
-  __shared__ Beam beams[kBeamChunk];
-  __shared__ float warp_sums[kMaxWarps][kPartial];
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
 
-  const int a = blockIdx.x;
-  const size_t r = blockIdx.y;
-  const int num_points = row_points(nums, num, r);
-  table += r * G * W * H * 32;
-  origin += r * G * 2;
-  points += r * P * 2;
-  pmask += r * P;
-  pose += r * 3;
-  partial += r * A * kPartial;
-  if (scores != nullptr) scores += r * A * L * L;
-  const int t = threadIdx.x;
-  const int LL = L * L;
-  const bool live = t < LL;
-  const int lx = live ? t / L : 0;
-  const int ly = live ? t % L : 0;
-  const float dx = dls[lx], dy = dls[ly];
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  const ndt2d::Subsample sub(num_points, max_beams);
-  const int ag = a0 + a;  // the angle's index in the whole lattice
-  const float th = pose[2] + dths[ag];
-  const float c = cosf(th), s = sinf(th);
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
 
-  float mean_sum = 0.f;  // sum over grids, from 0 (G > 1 only)
-  float cand = 0.f;
-  for (int g = 0; g < G; ++g) {
-    const float* gtable = table + (size_t)g * W * H * 32;
-    const float ox = origin[2 * g], oy = origin[2 * g + 1];
-    const float x_hi = ox + (float)W * cell;
-    const float y_hi = oy + (float)H * cell;
-    float acc = 0.f;
-    for (int base = 0; base < max_beams; base += kBeamChunk) {
-      const int nb = min(kBeamChunk, max_beams - base);
-      __syncthreads();
-      // matcher.py::prepare_neighborhood for this chunk of beams.
-      for (int j = t; j < nb; j += blockDim.x) {
-        const int b = base + j;
-        const int idx = sub.index(b, num_points, P);
-        const bool m = (b < sub.used) && pmask[idx];
-        const float px = points[2 * idx], py = points[2 * idx + 1];
-        const float bx = c * px - s * py + pose[0];
-        const float by = s * px + c * py + pose[1];
-        const int ix0 = (int)floorf((bx + dls[0] - ox) / cell);
-        const int iy0 = (int)floorf((by + dls[0] - oy) / cell);
-        const int ixc = ndt2d::clampi(ix0, 0, W - 2);
-        const int iyc = ndt2d::clampi(iy0, 0, H - 2);
-        Beam& bm = beams[j];
-        bm.bx = bx;
-        bm.by = by;
-        bm.cx = ox + ((float)ixc + 1.f) * cell;
-        bm.cy = oy + ((float)iyc + 1.f) * cell;
-        const float4* row = reinterpret_cast<const float4*>(
-            gtable + (size_t)(iyc * W + ixc) * 32);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float4 lo = row[2 * q], hi = row[2 * q + 1];
-          bm.rec[q][0] = lo.x;
-          bm.rec[q][1] = lo.y;
-          bm.rec[q][2] = lo.z;
-          bm.rec[q][3] = lo.w;
-          bm.rec[q][4] = hi.x;
-          bm.rec[q][5] = (hi.y > 0.5f && m) ? 1.f : 0.f;
-        }
-      }
-      __syncthreads();
-      // matcher.py::_candidate_scores_local, beams in order.
-      for (int j = 0; j < nb; ++j) {
-        const Beam& bm = beams[j];
-        const float wxc = bm.bx + dx;
-        const float wyc = bm.by + dy;
-        const int q = (wyc >= bm.cy ? 2 : 0) + (wxc >= bm.cx ? 1 : 0);
-        const float* r = bm.rec[q];
-        const bool valid = r[5] > 0.5f && wxc >= ox && wxc < x_hi &&
-                           wyc >= oy && wyc < y_hi;
-        const float qx = wxc - r[0];
-        const float qy = wyc - r[1];
-        const float e =
-            -0.5f * (r[2] * qx * qx + 2.f * r[3] * qx * qy + r[4] * qy * qy);
-        acc += valid ? expf(fminf(e, 0.f)) : 0.f;
-      }
-    }
-    cand = -acc;
-    mean_sum = mean_sum + cand;
-  }
-  if (G > 1) cand = mean_sum / (float)G;
-  const int flat = ag * LL + t;
-  if (live && scores != nullptr) scores[a * LL + t] = cand;
+// The most threads a block of a KX x KY tile has (L <= 32), its launch
+// bound.
+constexpr int tile_threads(int kx, int ky) {
+  return ((31 + kx) / kx * ((31 + ky) / ky) + 31) / 32 * 32;
+}
 
-  // matcher.py::reduce_candidates over this angle: x = (dx, dy, dth).
-  float best = live ? cand : __int_as_float(0x7f800000);  // +inf
-  int best_i = live ? flat : 0x7fffffff;
+// matcher.py::reduce_candidates of one warp's 32 consecutive flat indices
+// f (the angle's own, live below L*L) with scores v0: the shuffle tree
+// (16, 8, 4, 2, 1) into warp_sums[w]; x = (dx, dy, dth).
+__device__ __forceinline__ void fold_warp(
+    float v0, bool live, int f, int ag, int L, const float* dls,
+    const float* dths, float (*warp_sums)[kPartial], int w) {
+  float best = live ? v0 : kInf;
+  int best_i = live ? ag * L * L + f : 0x7fffffff;
   float v[kSums] = {0.f};
   if (live) {
-    const float x0 = dx, x1 = dy, x2 = dths[ag];
-    v[0] = cand;
-    v[1] = x0 * cand;
-    v[2] = x1 * cand;
-    v[3] = x2 * cand;
-    v[4] = x0 * x0 * cand;
-    v[5] = x0 * x1 * cand;
-    v[6] = x0 * x2 * cand;
-    v[7] = x1 * x1 * cand;
-    v[8] = x1 * x2 * cand;
-    v[9] = x2 * x2 * cand;
+    const float x0 = dls[f / L], x1 = dls[f % L], x2 = dths[ag];
+    v[0] = v0;
+    v[1] = x0 * v0;
+    v[2] = x1 * v0;
+    v[3] = x2 * v0;
+    v[4] = x0 * x0 * v0;
+    v[5] = x0 * x1 * v0;
+    v[6] = x0 * x2 * v0;
+    v[7] = x1 * x1 * v0;
+    v[8] = x1 * x2 * v0;
+    v[9] = x2 * x2 * v0;
   }
   // Fixed-shape warp tree; ties keep the lower flat index (jnp.argmin).
   for (int off = 16; off > 0; off >>= 1) {
@@ -194,22 +158,270 @@ __global__ void score_angles(
     for (int k = 0; k < kSums; ++k)
       v[k] += __shfl_down_sync(0xffffffffu, v[k], off);
   }
-  const int warp = t >> 5, lane = t & 31;
-  if (lane == 0) {
-    warp_sums[warp][0] = best;
-    warp_sums[warp][1] = __int_as_float(best_i);
+  if ((threadIdx.x & 31) == 0) {
+    warp_sums[w][0] = best;
+    warp_sums[w][1] = __int_as_float(best_i);
 #pragma unroll
-    for (int k = 0; k < kSums; ++k) warp_sums[warp][2 + k] = v[k];
+    for (int k = 0; k < kSums; ++k) warp_sums[w][2 + k] = v[k];
+  }
+}
+
+// Grid (A, R): angle a0 + a of the lattice, a = blockIdx.x, of row r =
+// blockIdx.y; G grids a row.  dths holds the whole lattice's angles; the
+// partials [R, A, 12] and the scores [R, A, L, L] hold the launch's A.
+template <int KX, int KY>
+__global__ void __launch_bounds__(tile_threads(KX, KY)) score_angles(
+    const float* __restrict__ table, const float* __restrict__ origin,
+    int G, float cell, int W, int H, const float* __restrict__ points,
+    const uint8_t* __restrict__ pmask, int P, const int* __restrict__ nums,
+    int num, int max_beams, const float* __restrict__ pose,
+    const float* __restrict__ dths, int a0, const float* __restrict__ dls,
+    int A, int L, Tile tile, float* __restrict__ partial,
+    float* __restrict__ scores) {
+  constexpr bool kOne = KX * KY == 1;
+  // Stages (two for a block of one candidate a thread and more than one
+  // chunk) of kChunk beams in dynamic shared memory: headers (bx, by, cross_x,
+  // cross_y), then the beams' 2x2 patch rows, y-major quadrants of
+  // (mean_x, mean_y, i00, i01, i11, scorable, 0, 0).
+  extern __shared__ float4 stage_mem[];
+  __shared__ float cand_s[kOne ? 1 : kMaxCand];
+  __shared__ float warp_sums[kMaxWarps][kPartial];
+
+  const int a = blockIdx.x;
+  const size_t r = blockIdx.y;
+  const int num_points = row_points(nums, num, r);
+  table += r * G * W * H * 32;
+  origin += r * G * 2;
+  points += r * P * 2;
+  pmask += r * P;
+  pose += r * 3;
+  partial += r * A * kPartial;
+  if (scores != nullptr) scores += r * A * L * L;
+  const int t = threadIdx.x;
+  const int warp = t >> 5, lane = t & 31;
+  const int nw = blockDim.x >> 5;
+  const int LL = L * L;
+
+  const int tx = t / tile.nyg, ty = t % tile.nyg;
+  int lxs[KX], lys[KY];
+  bool livex[KX], livey[KY];
+  float dxv[KX], dyv[KY];
+#pragma unroll
+  for (int i = 0; i < KX; ++i) {
+    lxs[i] = tx + i * tile.nxg;
+    livex[i] = tx < tile.nxg && lxs[i] < L;
+    dxv[i] = dls[livex[i] ? lxs[i] : 0];
+  }
+#pragma unroll
+  for (int j = 0; j < KY; ++j) {
+    lys[j] = ty + j * tile.nyg;
+    livey[j] = lys[j] < L;
+    dyv[j] = dls[livey[j] ? lys[j] : 0];
+  }
+
+  const ndt2d::Subsample sub(num_points, max_beams);
+  const int ag = a0 + a;  // the angle's index in the whole lattice
+  const float th = pose[2] + dths[ag];
+  const float c = cosf(th), s = sinf(th);
+
+  // The chunks: k = g * per_grid + i holds beams i * kChunk .. of grid g.
+  const int per_grid = (max_beams + kChunk - 1) / kChunk;
+  const int nk = G * per_grid;
+  const bool two = kOne && nk > 1;
+  auto hdr_of = [&](int k) {
+    return stage_mem + (two ? (k & 1) : 0) * (kStageBytes / 16);
+  };
+  auto rows_of = [&](int k) {
+    return reinterpret_cast<float(*)[32]>(hdr_of(k) + kChunk);
+  };
+  // matcher.py::prepare_neighborhood for chunk k, a thread a beam: the
+  // header and the patch row copied as it lies in the table (cp.async,
+  // 16 bytes at a time; zeros for a masked beam), committed as a group.
+  // A thread of one candidate keeps its last beam's point, so the next
+  // grid's copy of the same beam waits on no global load.
+  int pb = -1;
+  float px = 0.f, py = 0.f;
+  bool m = false;
+  auto stage = [&](int k) {
+    const int g = k / per_grid, base = (k % per_grid) * kChunk;
+    const int nb = min(kChunk, max_beams - base);
+    const float ox = origin[2 * g], oy = origin[2 * g + 1];
+    float4* hdr = hdr_of(k);
+    float(*rows)[32] = rows_of(k);
+    for (int j = t; j < nb; j += blockDim.x) {
+      const int b = base + j;
+      if (!kOne || b != pb) {
+        const int idx = sub.index(b, num_points, P);
+        m = (b < sub.used) && pmask[idx];
+        px = points[2 * idx];
+        py = points[2 * idx + 1];
+        pb = b;
+      }
+      const float bx = c * px - s * py + pose[0];
+      const float by = s * px + c * py + pose[1];
+      const int ix0 = (int)floorf((bx + dls[0] - ox) / cell);
+      const int iy0 = (int)floorf((by + dls[0] - oy) / cell);
+      const int ixc = ndt2d::clampi(ix0, 0, W - 2);
+      const int iyc = ndt2d::clampi(iy0, 0, H - 2);
+      hdr[j] = make_float4(bx, by, ox + ((float)ixc + 1.f) * cell,
+                           oy + ((float)iyc + 1.f) * cell);
+      const float* src =
+          table + ((size_t)g * W * H + (size_t)(iyc * W + ixc)) * 32;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        if (m)
+          cp_async16(&rows[j][4 * q], src + 4 * q);
+        else  // a masked beam's cells are never scorable
+          *reinterpret_cast<float4*>(&rows[j][4 * q]) =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[KX][KY], cand[KX][KY], mean_sum[KX][KY];  // mean: G > 1 only
+#pragma unroll
+  for (int i = 0; i < KX; ++i)
+#pragma unroll
+    for (int j = 0; j < KY; ++j) {
+      acc[i][j] = mean_sum[i][j] = 0.f;
+      cand[i][j] = -0.f;  // -(a sum of no beams)
+    }
+  if (nk > 0) stage(0);
+  for (int k = 0; k < nk; ++k) {
+    cp_async_wait_all();
+    __syncthreads();
+    // With two stages the next chunk's rows are copied while this one is
+    // scored: its stage was last read by chunk k - 1, before the barrier.
+    if (two && k + 1 < nk) stage(k + 1);
+    const int g = k / per_grid;
+    const int nb = min(kChunk, max_beams - (k % per_grid) * kChunk);
+    const float ox = origin[2 * g], oy = origin[2 * g + 1];
+    const float x_hi = ox + (float)W * cell;
+    const float y_hi = oy + (float)H * cell;
+    const float4* hs = hdr_of(k);
+    const float(*rs)[32] = rows_of(k);
+    // matcher.py::_candidate_scores_local, beams in order.
+    if constexpr (kOne) {
+      // One candidate a thread: the one record its shift falls in; four
+      // beams an iteration, so their loads and expf overlap the adds.
+#pragma unroll 4
+      for (int j = 0; j < nb; ++j) {
+        const float4 h = hs[j];
+        const float wxc = h.x + dxv[0], wyc = h.y + dyv[0];
+        const int q = (wyc >= h.w ? 2 : 0) + (wxc >= h.z ? 1 : 0);
+        const float* rec = &rs[j][8 * q];
+        const float4 lo = *reinterpret_cast<const float4*>(rec);
+        const float2 hi = *reinterpret_cast<const float2*>(rec + 4);
+        const bool valid = hi.y > 0.5f && wxc >= ox && wxc < x_hi &&
+                           wyc >= oy && wyc < y_hi;
+        const float qx = wxc - lo.x, qy = wyc - lo.y;
+        const float e = -0.5f * (lo.z * qx * qx + 2.f * lo.w * qx * qy +
+                                 hi.x * qy * qy);
+        acc[0][0] += valid ? expf(fminf(e, 0.f)) : 0.f;
+      }
+    } else {
+      for (int j = 0; j < nb; ++j) {
+        const float4 h = hs[j];
+        // Per dx: the two records of its x half (y half 0, 1) and the
+        // dx-only parts of the form, (i00 qx) qx and (2 i01) qx.  The
+        // first is +inf where the record is not scorable or the shift
+        // leaves the grid in x: that term's exponent is then -inf and it
+        // adds +0, which leaves a sum of non-negative terms bit for bit.
+        float am0[KX], am1[KX], bm0[KX], bm1[KX], my0[KX], my1[KX];
+        float ky0[KX], ky1[KX];
+#pragma unroll
+        for (int i = 0; i < KX; ++i) {
+          const float wxc = h.x + dxv[i];
+          const int sx = wxc >= h.z ? 1 : 0;
+          const bool inx = wxc >= ox && wxc < x_hi;
+          const float* rec0 = &rs[j][8 * sx];
+          const float* rec1 = &rs[j][8 * (2 + sx)];
+          const float4 lo0 = *reinterpret_cast<const float4*>(rec0);
+          const float2 hi0 = *reinterpret_cast<const float2*>(rec0 + 4);
+          const float4 lo1 = *reinterpret_cast<const float4*>(rec1);
+          const float2 hi1 = *reinterpret_cast<const float2*>(rec1 + 4);
+          const float qx0 = wxc - lo0.x, qx1 = wxc - lo1.x;
+          am0[i] = (inx && hi0.y > 0.5f) ? lo0.z * qx0 * qx0 : kInf;
+          am1[i] = (inx && hi1.y > 0.5f) ? lo1.z * qx1 * qx1 : kInf;
+          bm0[i] = 2.f * lo0.w * qx0;
+          bm1[i] = 2.f * lo1.w * qx1;
+          my0[i] = lo0.y;
+          my1[i] = lo1.y;
+          ky0[i] = hi0.x;
+          ky1[i] = hi1.x;
+        }
+#pragma unroll
+        for (int jj = 0; jj < KY; ++jj) {
+          const float wyc = h.y + dyv[jj];
+          const bool sy = wyc >= h.w;
+          // -inf off the grid in y (the same +0 term), else +0: adding it
+          // changes at most the sign of a zero exponent.
+          const float off = (wyc >= oy && wyc < y_hi) ? 0.f : -kInf;
+#pragma unroll
+          for (int i = 0; i < KX; ++i) {
+            const float qy = wyc - (sy ? my1[i] : my0[i]);
+            const float i11 = sy ? ky1[i] : ky0[i];
+            const float e = -0.5f * (((sy ? am1[i] : am0[i]) +
+                                      (sy ? bm1[i] : bm0[i]) * qy) +
+                                     i11 * qy * qy);
+            acc[i][jj] += expf(fminf(e + off, 0.f));
+          }
+        }
+      }
+    }
+    if (k % per_grid == per_grid - 1) {  // grid g's last chunk
+#pragma unroll
+      for (int i = 0; i < KX; ++i)
+#pragma unroll
+        for (int j = 0; j < KY; ++j) {
+          cand[i][j] = -acc[i][j];
+          mean_sum[i][j] = mean_sum[i][j] + cand[i][j];
+          acc[i][j] = 0.f;
+        }
+    }
+    if (!two && k + 1 < nk) {  // one stage: refill it once all are done
+      __syncthreads();
+      stage(k + 1);
+    }
+  }
+
+  // matcher.py::reduce_candidates over this angle: 32 consecutive flat
+  // indices a warp, then the warps in order.
+  const int nwc = (LL + 31) >> 5;  // the angle's candidate warps
+  if constexpr (kOne) {
+    // Thread t holds flat index t: its warp is the candidates' warp.
+    const bool live = livex[0] && livey[0];
+    const float v = G > 1 ? mean_sum[0][0] / (float)G : cand[0][0];
+    if (live && scores != nullptr) scores[a * LL + t] = v;
+    if (warp < nwc) fold_warp(v, live, t, ag, L, dls, dths, warp_sums, warp);
+  } else {
+#pragma unroll
+    for (int i = 0; i < KX; ++i)
+#pragma unroll
+      for (int j = 0; j < KY; ++j) {
+        if (!(livex[i] && livey[j])) continue;
+        const float v = G > 1 ? mean_sum[i][j] / (float)G : cand[i][j];
+        const int f = lxs[i] * L + lys[j];
+        cand_s[f] = v;
+        if (scores != nullptr) scores[a * LL + f] = v;
+      }
+    __syncthreads();
+    for (int w = warp; w < nwc; w += nw) {
+      const int f = w * 32 + lane;
+      const bool live = f < LL;
+      fold_warp(live ? cand_s[f] : 0.f, live, f, ag, L, dls, dths,
+                warp_sums, w);
+    }
   }
   __syncthreads();
   if (t == 0) {
-    const int nw = blockDim.x >> 5;
     float b = warp_sums[0][0];
     int bi = __float_as_int(warp_sums[0][1]);
     float acc_s[kSums];
 #pragma unroll
     for (int k = 0; k < kSums; ++k) acc_s[k] = warp_sums[0][2 + k];
-    for (int w = 1; w < nw; ++w) {  // warps hold increasing flat indices
+    for (int w = 1; w < nwc; ++w) {  // warps hold increasing flat indices
       if (warp_sums[w][0] < b) {
         b = warp_sums[w][0];
         bi = __float_as_int(warp_sums[w][1]);
@@ -225,11 +437,48 @@ __global__ void score_angles(
   }
 }
 
+// The scoring launch of a plan (kx, ky, nxg, nyg, threads);
+// cudaErrorInvalidValue for a plan the kernel does not take.
+cudaError_t launch_scores(const int* plan, int A, int R, cudaStream_t st,
+                          const float* table, const float* origin, int G,
+                          float cell, int W, int H, const float* points,
+                          const uint8_t* pmask, int P, const int* nums,
+                          int num, int max_beams, const float* pose,
+                          const float* dths, int a0, const float* dls, int L,
+                          float* partial, float* scores) {
+  const int kx = plan[0], ky = plan[1], threads = plan[4];
+  const Tile tile = {plan[2], plan[3]};
+  // The one-candidate path folds its warps from registers: thread t must
+  // be flat index t.
+  const bool one = kx == 1 && ky == 1;
+  // Two stages when a block of one candidate a thread scores more than
+  // one chunk of beams (score_angles' `two`).
+  const int chunks = G * ((max_beams + kChunk - 1) / kChunk);
+  const size_t smem = (one && chunks > 1 ? 2 : 1) * (size_t)kStageBytes;
+  if (L * L > kMaxCand || threads < 32 || threads % 32 != 0 ||
+      threads > tile_threads(kx, ky) || tile.nxg * kx < L ||
+      tile.nyg * ky < L || tile.nxg * tile.nyg > threads ||
+      (one && (tile.nyg != L || threads < L * L)))
+    return cudaErrorInvalidValue;
+#define NDT2D_TILE(X, Y)                                                  \
+  if (kx == X && ky == Y) {                                               \
+    score_angles<X, Y><<<dim3(A, R), threads, smem, st>>>(                \
+        table, origin, G, cell, W, H, points, pmask, P, nums, num,        \
+        max_beams, pose, dths, a0, dls, A, L, tile, partial, scores);     \
+    return cudaGetLastError();                                            \
+  }
+  NDT2D_TILE(2, 4)
+  NDT2D_TILE(1, 1)
+#undef NDT2D_TILE
+  return cudaErrorInvalidValue;
+}
+
 // Combine the per-angle partials in angle order; matcher.py::finalize_match.
 // out = [score, correction (3), covariance (9, row-major)].  The block
-// stages the partials in shared memory with coalesced loads, then one
-// thread combines them in order (a chain of global loads would serialize
-// on their latency).
+// stages the partials in shared memory with coalesced loads; then thread
+// k < 10 adds Olson sum k over the angles in order while warp 1's first
+// thread takes the (min, first index) chain, each a chain of its own (one
+// thread walking all eleven would serialize on their shared-memory loads).
 constexpr int kFinalizeThreads = 128;
 constexpr int kMaxAngles = 512;
 
@@ -240,6 +489,7 @@ __global__ void finalize(const float* __restrict__ partial, int A, int L,
                          const float* __restrict__ dls,
                          float* __restrict__ out) {
   __shared__ float sp[kMaxAngles * kPartial];
+  __shared__ float folded[kPartial];
   const size_t r = blockIdx.x;
   const int num_points = row_points(nums, num, r);
   partial += r * A * kPartial;
@@ -247,21 +497,31 @@ __global__ void finalize(const float* __restrict__ partial, int A, int L,
   for (int i = threadIdx.x; i < A * kPartial; i += blockDim.x)
     sp[i] = partial[i];
   __syncthreads();
-  if (threadIdx.x != 0) return;
-  float best = sp[0];
-  int bi = __float_as_int(sp[1]);
+  const int t = threadIdx.x;
+  if (t < kSums) {
+    float v = sp[2 + t];
+    for (int a = 1; a < A; ++a) v += sp[a * kPartial + 2 + t];
+    folded[2 + t] = v;
+  } else if (t == 32) {
+    float best = sp[0];
+    int bi = __float_as_int(sp[1]);
+    for (int a = 1; a < A; ++a) {
+      const float* p = sp + a * kPartial;
+      if (p[0] < best) {  // strict: earlier angles hold lower flat indices
+        best = p[0];
+        bi = __float_as_int(p[1]);
+      }
+    }
+    folded[0] = best;
+    folded[1] = __int_as_float(bi);
+  }
+  __syncthreads();
+  if (t != 0) return;
+  const float best = folded[0];
+  const int bi = __float_as_int(folded[1]);
   float v[kSums];
 #pragma unroll
-  for (int k = 0; k < kSums; ++k) v[k] = sp[2 + k];
-  for (int a = 1; a < A; ++a) {
-    const float* p = sp + a * kPartial;
-    if (p[0] < best) {  // strict: earlier angles hold lower flat indices
-      best = p[0];
-      bi = __float_as_int(p[1]);
-    }
-#pragma unroll
-    for (int k = 0; k < kSums; ++k) v[k] += p[2 + k];
-  }
+  for (int k = 0; k < kSums; ++k) v[k] = folded[2 + k];
   const int LL = L * L;
   const int ai = bi / LL, xi = (bi / L) % L, yi = bi % L;
   const bool apply = best < 0.f;
@@ -287,25 +547,28 @@ __global__ void finalize(const float* __restrict__ partial, int A, int L,
 
 }  // namespace
 
-// table [R,G,H*W,32] f32, origin [R,G,2] f32, points [R,P,2] f32, pmask
-// [R,P] u8, nums [R] i32 (or null: every row has `num` points), pose [R,3]
-// f32, dths [A] f32, dls [L] f32; scratch partial [R,A,12] f32; out [R,13]
-// f32; scores [R,A,L,L] f32 or null.
+// table [R,G,H*W,32] f32 (16-byte aligned), origin [R,G,2] f32, points
+// [R,P,2] f32, pmask [R,P] u8, nums [R] i32 (or null: every row has `num`
+// points), pose [R,3] f32, dths [A] f32, dls [L] f32; scratch partial
+// [R,A,12] f32; out [R,13] f32; scores [R,A,L,L] f32 or null; the tile
+// plan (candidate_scores.py::tile_plan): kx, ky, nxg, nyg, threads.
 NDT2D_API int ndt2d_candidate_scores(
     const void* table, const void* origin, int G, float cell, int W, int H,
     const void* points, const void* pmask, int R, int P, const void* nums,
     int num, int max_beams, const void* pose, const void* dths, int A,
-    const void* dls, int L, void* partial, void* out, void* scores,
-    void* stream) {
+    const void* dls, int L, void* partial, void* out, void* scores, int kx,
+    int ky, int nxg, int nyg, int threads, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int threads = ((L * L + 31) / 32) * 32;
-  score_angles<<<dim3(A, R), threads, 0, st>>>(
-      static_cast<const float*>(table), static_cast<const float*>(origin), G,
-      cell, W, H, static_cast<const float*>(points),
-      static_cast<const uint8_t*>(pmask), P, static_cast<const int*>(nums),
-      num, max_beams, static_cast<const float*>(pose),
-      static_cast<const float*>(dths), 0, static_cast<const float*>(dls), A,
-      L, static_cast<float*>(partial), static_cast<float*>(scores));
+  const int plan[5] = {kx, ky, nxg, nyg, threads};
+  const cudaError_t err = launch_scores(
+      plan, A, R, st, static_cast<const float*>(table),
+      static_cast<const float*>(origin), G, cell, W, H,
+      static_cast<const float*>(points), static_cast<const uint8_t*>(pmask),
+      P, static_cast<const int*>(nums), num, max_beams,
+      static_cast<const float*>(pose), static_cast<const float*>(dths), 0,
+      static_cast<const float*>(dls), L, static_cast<float*>(partial),
+      static_cast<float*>(scores));
+  if (err != cudaSuccess) return (int)err;
   finalize<<<R, kFinalizeThreads, 0, st>>>(
       static_cast<const float*>(partial), A, L, static_cast<const int*>(nums),
       num, max_beams, static_cast<const float*>(dths),
@@ -314,21 +577,24 @@ NDT2D_API int ndt2d_candidate_scores(
 }
 
 // K12, first half: the partials [R, A, 12] f32 of angles a0 .. a0 + A - 1 of
-// the lattice dths (other arguments as above); no finalize.
+// the lattice dths (other arguments and the plan as above); no finalize.
 NDT2D_API int ndt2d_candidate_partials(
     const void* table, const void* origin, int G, float cell, int W, int H,
     const void* points, const void* pmask, int R, int P, const void* nums,
     int num, int max_beams, const void* pose, const void* dths, int a0,
-    int A, const void* dls, int L, void* partial, void* stream) {
+    int A, const void* dls, int L, void* partial, int kx, int ky, int nxg,
+    int nyg, int threads, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int threads = ((L * L + 31) / 32) * 32;
-  score_angles<<<dim3(A, R), threads, 0, st>>>(
-      static_cast<const float*>(table), static_cast<const float*>(origin), G,
-      cell, W, H, static_cast<const float*>(points),
-      static_cast<const uint8_t*>(pmask), P, static_cast<const int*>(nums),
-      num, max_beams, static_cast<const float*>(pose),
-      static_cast<const float*>(dths), a0, static_cast<const float*>(dls), A,
-      L, static_cast<float*>(partial), nullptr);
+  const int plan[5] = {kx, ky, nxg, nyg, threads};
+  const cudaError_t err = launch_scores(
+      plan, A, R, st, static_cast<const float*>(table),
+      static_cast<const float*>(origin), G, cell, W, H,
+      static_cast<const float*>(points), static_cast<const uint8_t*>(pmask),
+      P, static_cast<const int*>(nums), num, max_beams,
+      static_cast<const float*>(pose), static_cast<const float*>(dths), a0,
+      static_cast<const float*>(dls), L, static_cast<float*>(partial),
+      nullptr);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

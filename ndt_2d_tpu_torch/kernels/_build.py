@@ -19,6 +19,7 @@ so every float32 expression rounds exactly as the plain-PyTorch twin's does.
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -92,9 +93,14 @@ def library() -> ctypes.CDLL:
         if not os.path.exists(path):
             os.makedirs(BUILD_DIR, exist_ok=True)
             t0 = time.perf_counter()
-            _STATE.build_log = _compile(
-                [f for f in files if f.endswith(".cu")], path)
+            log = _compile([f for f in files if f.endswith(".cu")], path)
             _STATE.build_seconds = time.perf_counter() - t0
+            with open(path + ".log", "w") as fh:
+                fh.write(log)
+        # The compiler's report, also for a library an earlier process built.
+        if os.path.exists(path + ".log"):
+            with open(path + ".log") as fh:
+                _STATE.build_log = fh.read()
         _STATE.lib = ctypes.CDLL(path)
         _STATE.path = path
         return _STATE.lib
@@ -142,7 +148,8 @@ def function(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
 
 def build_info() -> dict:
     """Path, build seconds (0 when the library was already built) and the
-    compiler's per-kernel register/shared-memory report."""
+    compiler's per-kernel register/shared-memory report (kept beside the
+    library)."""
     return {"path": _STATE.path, "seconds": _STATE.build_seconds,
             "log": _STATE.build_log}
 
@@ -171,6 +178,13 @@ def ptr(t) -> int:
     """A tensor's device pointer, as the int a ``c_void_p`` argument
     takes."""
     return t.data_ptr()
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (a launch plan
+    sizes its grid by them)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_ptr(device) -> int:

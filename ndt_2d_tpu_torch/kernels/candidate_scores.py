@@ -21,7 +21,8 @@ is the single-grid search.
 
 The twin adds in the kernel's order (each candidate's beams from 0, the
 Olson sums through the kernel's warp tree, warps and angles in order), so
-on the same CUDA inputs kernel and twin agree bitwise.
+on the same CUDA inputs kernel and twin agree bitwise.  ``tile_plan`` says
+how a launch spreads an angle's candidates over a block's threads.
 
 For a device mesh (K12, ``ndt_2d_tpu/parallel/matcher.py::
 match_scan_multichip``) the launch splits in two: ``partial_rows`` scores
@@ -35,6 +36,7 @@ one-launch search makes, so the split search equals it bitwise; the twin's
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -60,10 +62,47 @@ _PARTIAL_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_float]
                  + [ctypes.c_void_p] + [ctypes.c_int] * 2
                  + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
                  + [ctypes.c_void_p] + [ctypes.c_int] + [ctypes.c_void_p] * 2)
+# K2's own entries take its tile plan's five ints before the stream; K6's
+# share the signatures above.
+_TILE_ARGS = _ARGS[:-1] + [ctypes.c_int] * 5 + _ARGS[-1:]
+_TILE_PARTIAL_ARGS = _PARTIAL_ARGS[:-1] + [ctypes.c_int] * 5 \
+    + _PARTIAL_ARGS[-1:]
 _FINALIZE_ARGS = ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4)
 # Per-angle partial of the kernel: best, best index, 10 Olson sums.
 _PARTIAL = 12
+# The thread tiles (KX dx rows x KY dy columns) the kernel is built for:
+# 2 x 4 for launches that fill the card, one candidate a thread otherwise.
+TILES = ((2, 4), (1, 1))
+
+
+class TilePlan(NamedTuple):
+    """How one K2 block covers an (angle, row)'s L x L candidates: thread
+    t = tx * nyg + ty (tx < nxg) of ``threads`` takes the dx rows tx + i *
+    nxg (i < kx) and the dy columns ty + j * nyg (j < ky), those below
+    L."""
+    kx: int
+    ky: int
+    nxg: int
+    nyg: int
+    threads: int
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(A: int, L: int, R: int, sms: int, tile=None) -> TilePlan:
+    """The K2 launch plan for A angles x L x L candidates over R rows on a
+    card of ``sms`` SMs.  A launch of fewer (angle, row) blocks than SMs is
+    bound by each candidate's chain of beam adds, so it takes one
+    candidate a thread (thread t is flat index t); a larger one 2 x 4.
+    ``tile`` (kx, ky) forces a tile."""
+    if not 1 <= L <= 32 or A < 1 or R < 1:
+        raise ValueError(f"lattice {A}x{L}x{L} over {R} rows is outside the "
+                         "kernel's range")
+    if tile is not None and tuple(tile) not in TILES:
+        raise ValueError(f"tile {tile}: the kernel is built for {TILES}")
+    kx, ky = tile if tile is not None else (1, 1) if A * R < sms else (2, 4)
+    nxg, nyg = -(-L // kx), -(-L // ky)
+    return TilePlan(kx, ky, nxg, nyg, -(-nxg * nyg // 32) * 32)
 
 
 class MatchResult(NamedTuple):
@@ -325,12 +364,12 @@ def unpack(out) -> MatchResult:
 
 def launch_rows(symbol: str, slots: int, config, origin, cell_size: float,
                 tables, points, point_mask, nums, num: int, poses, dths,
-                dls, with_scores: bool):
+                dls, with_scores: bool, plan=()):
     """Check the arguments and launch the lattice search ``symbol`` (K2's
-    or K6's C entry, which share their signature) over R rows, with a
-    scratch of ``slots`` partials a row (tables [R, (G,) C, 32], origin
-    [R, (G,) 2]); returns (out [R, 13], scores or None).  The caller counts
-    the launch."""
+    or K6's C entry, which share their signature up to K2's tile ``plan``
+    ints before the stream) over R rows, with a scratch of ``slots``
+    partials a row (tables [R, (G,) C, 32], origin [R, (G,) 2]); returns
+    (out [R, 13], scores or None).  The caller counts the launch."""
     dev = points.device
     W, H = config.grid_cells_x, config.grid_cells_y
     R, P = points.shape[0], points.shape[1]
@@ -353,14 +392,24 @@ def launch_rows(symbol: str, slots: int, config, origin, cell_size: float,
     scores = (torch.empty(R, A, L, L, dtype=torch.float32, device=dev)
               if with_scores else None)
     p = _build.ptr
-    err = _build.function(symbol, _ARGS)(
+    err = _build.function(symbol, _TILE_ARGS if plan else _ARGS)(
         p(tables), p(origin), G, float(cell_size), W, H, p(points),
         p(point_mask), R, P, None if nums is None else p(nums), int(num),
         int(config.laser_max_beams), p(poses), p(dths), A, p(dls), L,
-        p(partial), p(out), None if scores is None else p(scores),
+        p(partial), p(out), None if scores is None else p(scores), *plan,
         _build.stream_ptr(dev))
     _build.check(err, symbol)
     return out, scores
+
+
+def _tiles(tables, points, dls, A: int):
+    """K2's launch plan for these operands (and its range checks): the
+    patch rows are copied 16 bytes at a time, so the tables must be
+    16-byte aligned."""
+    if tables.data_ptr() % 16:
+        raise ValueError("tables: not 16-byte aligned")
+    return tile_plan(A, dls.shape[0], points.shape[0],
+                     _build.sm_count(points.device.index))
 
 
 def _launch(config, origin, cell_size: float, tables, points, point_mask,
@@ -374,7 +423,8 @@ def _launch(config, origin, cell_size: float, tables, points, point_mask,
                          "the kernel's range")
     out, scores = launch_rows("ndt2d_candidate_scores", A, config, origin,
                               cell_size, tables, points, point_mask, nums,
-                              num, poses, dths, dls, with_scores)
+                              num, poses, dths, dls, with_scores,
+                              _tiles(tables, points, dls, A))
     launches += 1
     return out, scores
 
@@ -467,10 +517,11 @@ def finalize_rows_twin(config, partials, num_points, dths, dls):
 
 def launch_partials(symbol: str, config, origin, cell_size: float, tables,
                     points, point_mask, num_points, poses, dths, dls,
-                    a0: int, n: int, per_angle: int):
+                    a0: int, n: int, per_angle: int, plan=()):
     """Check the arguments and launch the partials entry ``symbol`` (K2's
-    or K6's) over R rows for angles a0 .. a0 + n - 1; returns the partials
-    [R, n * per_angle, 12].  The caller counts the launch."""
+    or K6's; K2's takes its tile ``plan`` ints before the stream) over R
+    rows for angles a0 .. a0 + n - 1; returns the partials [R, n *
+    per_angle, 12].  The caller counts the launch."""
     dev = points.device
     W, H = config.grid_cells_x, config.grid_cells_y
     R, P = points.shape[0], points.shape[1]
@@ -494,11 +545,12 @@ def launch_partials(symbol: str, config, origin, cell_size: float, tables,
     partial = torch.empty(R, n * per_angle, _PARTIAL, dtype=torch.float32,
                           device=dev)
     p = _build.ptr
-    err = _build.function(symbol, _PARTIAL_ARGS)(
+    err = _build.function(symbol,
+                          _TILE_PARTIAL_ARGS if plan else _PARTIAL_ARGS)(
         p(tables), p(origin), G, float(cell_size), W, H, p(points),
         p(point_mask), R, P, None if nums is None else p(nums), num,
         int(config.laser_max_beams), p(poses), p(dths), int(a0), int(n),
-        p(dls), L, p(partial), _build.stream_ptr(dev))
+        p(dls), L, p(partial), *plan, _build.stream_ptr(dev))
     _build.check(err, symbol)
     return partial
 
@@ -541,7 +593,8 @@ def partial_rows(config, grid: ndt_grid.NDTGrid, tables, points, point_mask,
                                  num_points, poses, dths, dls, a0, n)
     out = launch_partials("ndt2d_candidate_partials", config, grid.origin,
                           grid.cell_size, tables, points, point_mask,
-                          num_points, poses, dths, dls, a0, n, 1)
+                          num_points, poses, dths, dls, a0, n, 1,
+                          _tiles(tables, points, dls, n))
     partial_launches += 1
     return out
 

@@ -3,9 +3,11 @@
 Replaces ``ndt_2d_tpu/matching/matcher.py::window_origin`` +
 ``build_window_ndt`` (single grid) -> ``ndt_2d_tpu/ndt/grid.py::
 build_ndt_from_scans`` / ``build_ndt_binned`` + ``packed_patch_table``.
-One launch bins the windows' points, sums each cell's moments in
-point-index order (no float atomics), finalizes every cell and writes the
-[C, 32] patch table K2 reads; the source's header says what bounds it.
+One launch bins the windows' points, sorts each window's points by cell
+(a stable radix sort), sums each cell's run of points in point-index order
+(no float atomics), finalizes every cell and writes the [C, 32] patch
+table K2 reads; the source's header says what bounds it.  ``build_plan``
+sizes the scratch and the passes of a launch.
 
 ``build_windows`` takes a row axis (R windows, the ``jax.vmap`` of the
 loop-closure confirmation); ``build_window`` is the same launch at R = 1.
@@ -18,13 +20,15 @@ is no grid axis, and the launch is the single-grid build.
 
 KB1, ``build_stripe``: one y-stripe of a sharded map
 (``ndt_2d_tpu/parallel/ndt_blocks.py::build_ndt_sharded``), the points
-binned against the map's given origin and K1's pass B over the stripe's
-cells, which are bitwise those rows of the dense build.
+binned against the map's given origin and K1's sort and cell passes over
+the stripe's cells, which are bitwise those rows of the dense build.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -37,11 +41,60 @@ launches = 0
 stripe_launches = 0
 
 _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
-         + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10)
+         + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 15)
 _GRID_FIELDS = ("origin", "mean", "information", "count", "covariance")
 _STRIPE_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-                + [ctypes.c_float] + [ctypes.c_int] * 3
-                + [ctypes.c_void_p] * 9)
+                + [ctypes.c_float] + [ctypes.c_int] * 7
+                + [ctypes.c_void_p] * 14)
+
+# The kernels' fixed geometry (csrc/ndt_build.cu): the sort's block of
+# SORT_THREADS threads ranks a tile of SORT_THREADS * SORT_ITEMS points a
+# round (each warp 32 * SORT_ITEMS consecutive points, 32 at a time), in
+# RADIX_BITS-bit digits; a block of the binning takes BLOCK_THREADS points
+# (or cells to clear), a block of the cell pass BLOCK_THREADS cells.
+SORT_THREADS = 512
+SORT_ITEMS = 8
+RADIX_BITS = 8
+MAX_DIGITS = 4
+BLOCK_THREADS = 256
+# The int32 scratch regions of a launch, in order: the two (key, x, y)
+# buffers of the sort, [rows, N] each, then the runs [rows, C] each.
+SCRATCH = ("key0", "x0", "y0", "key1", "x1", "y1", "run_start", "run_end")
+
+
+class BuildPlan(NamedTuple):
+    digits: int       # LSD passes: keys 0..C (C: off the grid) in 8-bit digits
+    tile: int         # points a sort round
+    bin_blocks: int   # 256-thread blocks over max(N, C) a row
+    cell_blocks: int  # 256-cell blocks a row
+    offsets: tuple    # element offset of each SCRATCH region
+    scratch: int      # int32 elements of scratch in all
+
+
+@functools.lru_cache(maxsize=None)
+def build_plan(points: int, cells: int, rows: int) -> BuildPlan:
+    """The passes and scratch of one K1 (or KB1) launch over ``rows``
+    virtual rows of ``points`` points and ``cells`` cells each."""
+    if cells < 1 or points < 0 or rows < 1:
+        raise ValueError(f"{rows} rows of {points} points on {cells} cells")
+    digits = max(1, -(-cells.bit_length() // RADIX_BITS))
+    if digits > MAX_DIGITS:
+        raise ValueError(f"{cells} cells is outside the kernel's range")
+    sizes = [rows * points] * 6 + [rows * cells] * 2
+    offsets = tuple(sum(sizes[:i]) for i in range(len(sizes)))
+    return BuildPlan(digits=digits, tile=SORT_THREADS * SORT_ITEMS,
+                     bin_blocks=-(-max(points, cells) // BLOCK_THREADS),
+                     cell_blocks=-(-cells // BLOCK_THREADS),
+                     offsets=offsets, scratch=max(1, sum(sizes)))
+
+
+def _launch_plan(points: int, cells: int, rows: int, dev):
+    """(plan ints for the C entry, scratch pointers) of one launch."""
+    plan = build_plan(points, cells, rows)
+    scratch = torch.empty(plan.scratch, dtype=torch.int32, device=dev)
+    base = scratch.data_ptr()
+    return ((plan.digits, plan.tile, plan.bin_blocks, plan.cell_blocks),
+            [base + 4 * o for o in plan.offsets], scratch)
 
 
 def window_origin(poses, window_mask, range_max: float):
@@ -127,8 +180,7 @@ def build_windows(poses, points, point_mask, window_mask, range_max: float,
 
     def empty(*shape, dtype=torch.float32):
         return torch.empty(*lead, *shape, dtype=dtype, device=dev)
-    key, wx, wy = empty(S * P, dtype=torch.int32), empty(S * P), \
-        empty(S * P)
+    plan, regions, scratch = _launch_plan(S * P, C, R * G, dev)
     origin, mean, info, cov = empty(2), empty(C, 2), empty(C, 3), \
         empty(C, 3)
     count, table = empty(C, dtype=torch.int32), empty(C, 32)
@@ -136,8 +188,9 @@ def build_windows(poses, points, point_mask, window_mask, range_max: float,
     err = _build.function("ndt2d_ndt_build", _ARGS)(
         p(poses), p(points), p(point_mask), p(window_mask), R, S, P, G,
         0.5 * float(cell_size), float(range_max), float(cell_size), width,
-        height, p(key), p(wx), p(wy), p(origin), p(mean), p(info), p(cov),
+        height, *plan, *regions, p(origin), p(mean), p(info), p(cov),
         p(count), p(table), _build.stream_ptr(dev))
+    del scratch  # the allocator reuses it in stream order
     _build.check(err, "ndt_build")
     launches += 1
     grid = ndt_grid.NDTGrid(origin=origin, cell_size=float(cell_size),
@@ -205,14 +258,15 @@ def build_stripe(poses, points, point_mask, window_mask, origin,
 
     def empty(*shape, dtype=torch.float32):
         return torch.empty(*shape, dtype=dtype, device=dev)
-    key, wx, wy = empty(S * P, dtype=torch.int32), empty(S * P), empty(S * P)
+    plan, regions, scratch = _launch_plan(S * P, C, 1, dev)
     mean, info, cov = empty(C, 2), empty(C, 3), empty(C, 3)
     count, table = empty(C, dtype=torch.int32), empty(C, 32)
     p = _build.ptr
     err = _build.function("ndt2d_ndt_build_stripe", _STRIPE_ARGS)(
         p(poses), p(points), p(point_mask), p(window_mask), S, P, p(origin),
-        float(cell_size), width, int(row0), int(rows), p(key), p(wx), p(wy),
+        float(cell_size), width, int(row0), int(rows), *plan, *regions,
         p(mean), p(info), p(cov), p(count), p(table), _build.stream_ptr(dev))
+    del scratch  # the allocator reuses it in stream order
     _build.check(err, "ndt_build_stripe")
     stripe_launches += 1
     grid = ndt_grid.NDTGrid(origin=origin.clone(), cell_size=float(cell_size),

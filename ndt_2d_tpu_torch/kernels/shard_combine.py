@@ -11,7 +11,6 @@ the same bits.  Kernel and twin add in that order and agree bitwise.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -36,11 +35,6 @@ def geometry(n: int, x_ptr: int, out_ptr: int, sms: int):
     units = n // width
     blocks = max(1, min(-(-units // THREADS), sms * BLOCKS_PER_SM))
     return width, units, blocks
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def rank_sum_twin(x):
@@ -68,7 +62,7 @@ def rank_sum(x):
     _build.require(x, "x", torch.float32, shape, dev)
     out = torch.empty(shape[1:], dtype=torch.float32, device=dev)
     xp, op = x.data_ptr(), out.data_ptr()
-    width, _, blocks = geometry(n, xp, op, _sms(dev.index))
+    width, _, blocks = geometry(n, xp, op, _build.sm_count(dev.index))
     err = _build.function("ndt2d_rank_sum", _ARGS)(
         xp, S, n, width, blocks, op, _build.stream_ptr(dev))
     _build.check(err, "rank_sum")
