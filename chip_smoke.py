@@ -25,13 +25,17 @@ Phases (any failure exits non-zero):
     K3's two entries, and K7 on the match (10 iterations); K1/K2 over 64
     loop-closure confirmation rows of real office windows at config-3
     shapes (2-scan regions, 160x160 cells of 0.35 m, 40x30x30 candidates)
-    and K7 on them (8 iterations), each row bitwise equal to its R = 1
-    launch and to itself at pad 4 and pad 16, without and with K7; K4
-    (normal_blocks, pcg_matvec, the latter
-    beside a torch sparse CSR product) on the 50,000-node district graph
-    of config 5; K6 over 32 coarse-stage rows of office windows (3-scan
-    regions, 192x192 cells of 0.5 m, the coarse lattice of about 21x41x41
-    candidates): scores and rows bitwise against the twin, each row
+    and K7 on them (8 iterations; bitwise also at 20, 40, 90 and 200
+    beams, 1-4 warps a grid and lanes over two strides), each row
+    bitwise equal to its R = 1 launch and to itself at pad 4 and pad 16,
+    without and with K7; K4 (normal_blocks, pcg_matvec beside a torch
+    sparse CSR product, fixed_dots beside ``torch.dot``, and pcg_solve,
+    one LM step's whole CG loop, in x and the step count, the host loop
+    over pcg_matvec and fixed_dots bitwise equal to it, timed a CG step
+    beside that loop and the same loop on the CSR product) on the 50,000-node
+    district graph of config 5; K6 over 32 coarse-stage rows of office
+    windows (3-scan regions, 192x192 cells of 0.5 m, the coarse lattice of
+    about 21x41x41 candidates): scores and rows bitwise against the twin, each row
     bitwise equal at pad 4, pad 32 and R = 1, equal argmin and scores
     within 1e-5 against K2 on a one-cell lattice, once with G = 4, and at
     the map merge's shape (126 angles, R = 1); K10 over a 2048 x 512 point
@@ -68,7 +72,8 @@ Phases (any failure exits non-zero):
     its twin; K1 at its sort's edges (every valid point of a 38,400-point
     window in one cell, 4277-point rows, a window without a valid point)
     and K2 at its range edges (512 angles x 32 x 32 offsets at R = 1 and
-    64), bitwise; K1 and K2 at the main path's shapes timed by CUDA
+    64), bitwise; K1 and K2 at the main path's shapes, and K7 at its three
+    (64 config-3 rows, config 8's match, config 2's window), timed by CUDA
     events, alone on the device in a CUDA graph and by host time a call
     (``kernel_times``, the same lines as ``--kernel-times``);
  4. drive the main paths, each with the launch counts set to 0 before and
@@ -76,8 +81,11 @@ Phases (any failure exits non-zero):
     ``Mapper`` and ``run_bag`` (no loop closure) with its export: every scan
     accepted, ATE below odometry's, K1 = K2 = K3 = accepted - 1, K5 >= 1,
     and the first 20 scans on the GPU against the CPU twins; (b) the
-    single-device PCG ``solve`` of the district, on the kernels and on the
-    twins: final RMSE below the initial, the twin's poses within 1e-4 m;
+    single-device PCG ``solve`` of the district, on the kernels (one
+    pcg_solve launch an LM iteration) and on the twins: final RMSE below
+    the initial, the two arms' poses bitwise equal; each LM iteration's CG
+    loop again as the host loop over pcg_matvec and fixed_dots (the mesh's
+    loop), bitwise, the walls printed;
     (f) BASELINE config 8 (run_benchmarks.py:139-162): the config-2
     corridor with four overlapping grids and 10 Newton iterations on both
     matchers: every scan accepted, ATE below odometry's, K1 = K2 = K3 = K7
@@ -95,7 +103,8 @@ Phases (any failure exits non-zero):
     flags (gate 0.85, 3-scan regions, both search positions,
     Geman-McClure, global refine_iterations 8):
     >= 1 closure and >= 1 optimization, final ATE below odometry's, one K7
-    launch a confirmation chunk, printed beside (c); its first dispatch
+    launch a confirmation chunk (printed by rows), beside (c); its first
+    dispatch
     replayed through the twins (K7's after K2's), scores bitwise;
     (d) BASELINE config 4 (benchmarks/run_benchmarks.py:378-426): the
     150-scan box (360 beams, seed 2), mapped and saved before [3], is
@@ -172,9 +181,10 @@ Phases (any failure exits non-zero):
     optimization, final ATE below odometry's and within 0.08 m of one
     device's), the district's PCG solve
     by ``solve_multichip`` (within 5e-3 of the single-device PCG solve,
-    RMSE <= 0.05 m) and config 4's 5000-particle measurement (bitwise
-    equal to unsharded K3), final poses, export, solve and scores bitwise
-    equal on both ranks; correctness and the cost of host-staged
+    RMSE <= 0.05 m; the launch counts of its host CG loop over pcg_matvec
+    and fixed_dots read around it) and config 4's 5000-particle
+    measurement (bitwise equal to unsharded K3), final poses, export,
+    solve and scores bitwise equal on both ranks; correctness and the cost of host-staged
     collectives, not scaling;
     K12·blocks, first on a one-rank NCCL mesh (the launch counts of KB1-KB4
     read around (r) and (s)), then on gloo ranks sharing the card: (2, 1)
@@ -221,6 +231,10 @@ KERNELS = {
                       "ndt_2d_tpu/graph/solver.py:140"),
     "pcg_matvec": ("ndt_2d_tpu_torch/csrc/normal_blocks.cu",
                    "ndt_2d_tpu/graph/solver.py:203"),
+    "pcg_solve": ("ndt_2d_tpu_torch/csrc/normal_blocks.cu",
+                  "ndt_2d_tpu/graph/solver.py:193"),
+    "fixed_dot": ("ndt_2d_tpu_torch/csrc/normal_blocks.cu",
+                  "ndt_2d_tpu/graph/solver.py:227"),
     "score_points_batch": ("ndt_2d_tpu_torch/csrc/score_points.cu",
                            "ndt_2d_tpu/matching/matcher.py:424"),
     "pf_motion": ("ndt_2d_tpu_torch/csrc/particle_filter.cu",
@@ -964,16 +978,23 @@ def phase_rows(cfg, bag, dev):
     # iterations) from K2's rows of the card, against its twin.
     rcfg = dataclasses.replace(gm, refine_iterations=8)
 
-    def k7_run():
-        return k7.refine_rows(rcfg, g, *query, k2_out.clone(), 8)
+    def k7_run(c=rcfg):
+        return k7.refine_rows(c, g, tab, *query, k2_out.clone(), 8)
 
-    def k7_twin():
-        return k7.refine_rows_twin(rcfg, newton.with_row_grid_axes(g, True),
+    def k7_twin(c=rcfg):
+        return k7.refine_rows_twin(c, newton.with_row_grid_axes(g, True),
                                    *query, k2_out.clone(), 8)
     o7, o7t = k7_run(), k7_twin()
     torch.cuda.synchronize()
     require(torch.equal(o7, o7t), "K7 rows differ from the twin")
     require(torch.equal(o7, k7_run()), "K7 rows not bitwise reproducible")
+    # The other warp counts a grid (S = 1, 2, 3) and lanes over more
+    # strides than S = 4 warps (200 beams), through the beams a row.
+    for beams in (20, 40, 90, 200):
+        c = dataclasses.replace(rcfg, laser_max_beams=beams)
+        require(torch.equal(k7_run(c), k7_twin(c)),
+                f"K7 rows differ from the twin at {beams} beams "
+                f"({k7.plan(beams, 1).strides} warps a grid)")
     n_moved = int((o7[:, 1:4] != k2_out[:, 1:4]).any(dim=1).sum())
 
     # Row independence, without and with K7: the R = ROWS batch against
@@ -1000,7 +1021,8 @@ def phase_rows(cfg, bag, dev):
     print(f"[3] K1/K2/K7 rows: {ROWS} office rows x {gm.grid_cells_x}^2 "
           f"cells x {dths.numel()}x{dls.numel()}x{dls.numel()} candidates, "
           f"{n_live} rows scored; K1, K2 (scores and rows) and K7 (8 "
-          f"iterations) bitwise equal to their twins, {n_moved} rows moved "
+          f"iterations; also at 20, 40, 90 and 200 beams) bitwise equal "
+          f"to their twins, {n_moved} rows moved "
           f"off the lattice by K7; each row bitwise equal to its R = 1 "
           f"launch and at pad 4 and 16, without and with K7")
     S, P = win[1].shape[1], win[1].shape[2]
@@ -1018,7 +1040,8 @@ def phase_rows(cfg, bag, dev):
                     gm, g.origin[r], g.cell_size, qp[r], qm[r], int(qn[r]),
                     qpose[r], dths, dls) for r in range(ROWS))),
             "newton_rows": timed(
-                0.0, cuda_ms(k7_run, 20), cuda_ms(k7_twin, 2),
+                0.0, cuda_ms(lambda o=k2_out.clone(): k7.refine_rows(
+                    rcfg, g, tab, *query, o, 8), 20), cuda_ms(k7_twin, 2),
                 *sum_costs(cost_newton(
                     gm, g.origin[r], g.cell_size, g.count[r], qp[r], qm[r],
                     int(qn[r]), qpose[r] + k2_out[r, 1:4],
@@ -1174,15 +1197,28 @@ def kernel_times(dev, ident: str, map4: str, range_max: float) -> dict:
     101 calls, synchronized outside the timed call): config 2's window,
     config 8's (G = 4), 64 config-3 rows, K12's partials over those rows
     (the first of two angle blocks) and KB1 (stripe 0 of 2 of config 4's
-    map ``map4``, loaded with ``range_max``).  It calls only the
-    wrappers' public entries, so ``--kernel-times`` in an older checkout
-    times that checkout's kernels."""
+    map ``map4``, loaded with ``range_max``); and K7 at its three
+    shapes: 64 config-3 rows (G = 1, 8 iterations), config 8's match (G =
+    4, 10 iterations) and config 2's window at R = 1 (G = 1, 10
+    iterations), refining a copy of K2's rows in place call after call
+    (the start moves within the trust region; the number of evaluations,
+    and so the work, is fixed).  It calls only the wrappers' public
+    entries (K7's as this tree or, before K7 read K1's table, as that tree
+    calls it), so ``--kernel-times`` in an older checkout times that
+    checkout's kernels."""
+    import dataclasses
+
+    import torch
+
     from ndt_2d_tpu_torch.kernels import candidate_scores as k2
     from ndt_2d_tpu_torch.kernels import ndt_build as k1
-    from ndt_2d_tpu_torch.matching import matcher
+    from ndt_2d_tpu_torch.kernels import newton as k7
+    from ndt_2d_tpu_torch.matching import matcher, newton
     from ndt_2d_tpu_torch.parallel import matcher as pmatcher
     _, cfg, win, query, _ = inputs(dev)
     out = {}
+    k7_cases = []
+    table_k7 = hasattr(k7, "row_tables")  # K7 reads K1's table
 
     def both(name, fn, reps):
         out[name] = {"cuda_ms": cuda_ms(fn, reps),
@@ -1199,6 +1235,15 @@ def kernel_times(dev, ident: str, map4: str, range_max: float) -> dict:
              query["num_points"], query["pose"], dths, dls)
         both(f"K1 {name}", lambda b=b: k1.build_window(**win, **b), 20)
         both(f"K2 {name}", lambda a=a: k2.match(*a), 20)
+        nums = torch.tensor([query["num_points"]], dtype=torch.int32,
+                            device=dev)
+        k7_cases.append((
+            f"{name} (R = 1, G = {grids}, 10 iterations)",
+            dataclasses.replace(mc, refine_iterations=10),
+            newton.with_row_grid_axes(g, rows_axis=False),
+            k7.row_tables(tab, rows_axis=False) if table_k7 else None,
+            (query["points"][None], query["point_mask"][None], nums,
+             query["pose"][None]), k2.match(*a)))
     cfg3 = office_config()
     gm = cfg3.global_scan_matcher
     rows = office_rows(cfg3, office_bag(), dev)
@@ -1213,6 +1258,14 @@ def kernel_times(dev, ident: str, map4: str, range_max: float) -> dict:
     both(f"K12 K2 partials, {ROWS} rows, {n} of {dths.shape[0]} angles",
          lambda: k2.partial_rows(gm, gr, tabs, *rows[4:], dths, dls, a0, n),
          10)
+    k7_cases.insert(0, (
+        f"{ROWS} config-3 rows (G = 1, 8 iterations)",
+        dataclasses.replace(gm, refine_iterations=8), gr, tabs,
+        tuple(rows[4:]), k2.match_rows(gm, gr, tabs, *rows[4:], dths, dls)))
+    for name, mc, g, tab, q, k2_out in k7_cases:
+        a = (mc, g, tab, *q) if table_k7 else (mc, g, *q)
+        both(f"K7 {name}", lambda a=a, o=k2_out.clone(),
+             it=mc.refine_iterations: k7.refine_rows(*a, o, it), 20)
     m, kf = blocks_map(map4, config4_configs()[1], range_max, dev)
     mc = m.config
     sa = dict(**kf, origin=m.grid.origin, cell_size=mc.ndt_resolution,
@@ -1290,7 +1343,7 @@ def phase_k8(cfg, win, query, dev):
     require(torch.equal(k3.score_at_pose(*a3, poses[7]), ub[7]),
             "K3 G = 4: a pose differs between the two entries")
 
-    k7_args = (mc, g, query["points"], query["point_mask"],
+    k7_args = (mc, g, tab, query["points"], query["point_mask"],
                query["num_points"], query["pose"])
 
     def k7_run():
@@ -1333,7 +1386,9 @@ def phase_k8(cfg, win, query, dev):
                 cuda_ms(lambda: k3.score_at_pose_twin(*a3, query["pose"]), 5),
                 *cost_score_points(mc, g, *scan, query["pose"][None])),
             "newton": timed(
-                0.0, cuda_ms(k7_run, 20), cuda_ms(k7_twin, 3),
+                0.0, cuda_ms(lambda o=out2.clone(): k7.refine(
+                    *k7_args, o, mc.refine_iterations), 20),
+                cuda_ms(k7_twin, 3),
                 *cost_newton(mc, g.origin, g.cell_size, g.count, *scan,
                              query["pose"] + out2[0, 1:4],
                              query["pose"] + o7[0, 1:4],
@@ -1467,11 +1522,12 @@ def district_graph():
                        node_mask=np.ones(n, bool), robust_mask=robust)
 
 
-def phase_k4(district, dev):
-    """K4's two entries against their twins on the district graph."""
+def phase_k4(district, dev, ident):
+    """K4's entries against their twins on the district graph."""
     import torch
 
     from ndt_2d_tpu_torch import convert
+    from ndt_2d_tpu_torch.graph import solver
     from ndt_2d_tpu_torch.kernels import normal_blocks as k4
     t = convert.solve_inputs_to_port(dev, **district)
     n = t["poses"].shape[0]
@@ -1500,9 +1556,51 @@ def phase_k4(district, dev):
     torch.cuda.synchronize()
     require(torch.equal(y, yt), "K4 pcg_matvec differs from twin")
     require(torch.equal(y, y2), "K4 pcg_matvec not bitwise reproducible")
+    # The whole PCG loop of one LM step (config 5's 150 CG steps) on these
+    # blocks, kernel against twin, and its fixed-order dot alone.
+    pinv, rhs = solver._preconditioner(a[5], d, lam, fm.bool())
+    ps = (t["begin"], t["end"], baa, bab, bbb, d, lam, fm, pinv, rhs, 150,
+          1e-6, inc)
+    (x, it), (xt, itt), (x2, it2) = (k4.pcg_solve(*ps),
+                                     k4.pcg_solve_twin(*ps),
+                                     k4.pcg_solve(*ps))
+    dot, dott = k4.fixed_dots((v, y)), k4.fixed_dots_twin((v, y))
+    dots2 = k4.fixed_dots((v, y), (y, y))
+    torch.cuda.synchronize()
+    require(torch.equal(x, xt) and int(it) == int(itt),
+            f"K4 pcg_solve differs from twin ({int(it)} vs {int(itt)} steps)")
+    require(torch.equal(x, x2) and int(it) == int(it2),
+            "K4 pcg_solve not bitwise reproducible")
+    require(torch.equal(dot[0], dott[0])
+            and torch.equal(dot[0], k4.fixed_dots((v, y))[0]),
+            "K4 fixed_dots differs from twin or is not reproducible")
+    require(all(torch.equal(a2, b2) for a2, b2 in zip(
+        dots2, k4.fixed_dots_twin((v, y), (y, y)))),
+            "K4 fixed_dots of two pairs differs from twin")
+    steps = int(it)
+
+    def host_loop(mv, dots):
+        return k4.pcg_loop(mv, dots, pinv, fm, rhs, 150, 1e-6)
+
+    def k4_mv(u):
+        return k4.pcg_matvec(t["begin"], t["end"], baa, bab, bbb, d, lam, fm,
+                             u, inc)
+
+    def csr_mv(u):
+        return (csr @ u.reshape(-1, 1)).reshape(n, 3)
+
+    def torch_dots(*pairs):
+        return tuple(torch.sum(p * q) for p, q in pairs)
+    xh, it_h = host_loop(k4_mv, k4.fixed_dots)
+    require(torch.equal(xh, x) and it_h == steps,
+            "the host loop over pcg_matvec and fixed_dots differs from "
+            "pcg_solve")
     print(f"[3] K4 on the district ({n} nodes, {t['begin'].numel()} "
-          "constraints): normal_blocks (none, huber, geman_mcclure) and "
-          "pcg_matvec bitwise equal to their twins and reproducible")
+          "constraints): normal_blocks (none, huber, geman_mcclure), "
+          "pcg_matvec, fixed_dots (one and two pairs) and pcg_solve (one "
+          f"LM step, {steps} CG steps: x and the step count) bitwise equal "
+          "to their twins and reproducible; the host loop over pcg_matvec "
+          "and fixed_dots bitwise pcg_solve")
     nb = args + ("none", 1.0, inc)
     C = t["begin"].numel()
     # The library yardstick of the matvec: the same product as one sparse
@@ -1513,10 +1611,63 @@ def phase_k4(district, dev):
         lib = (csr @ v.reshape(-1, 1)).reshape(n, 3)
     require(torch.allclose(lib, y, rtol=1e-4, atol=1e-4 * float(
         y.abs().max())), "the sparse product differs from K4's matvec")
+    # A CG step of pcg_solve in its three arms: the kernel (one launch a
+    # solve), the host loop over K4's matvec and dots, and the host loop
+    # on one sparse CSR product (the library arm).  Its operations: the
+    # matvec's ~70 a constraint and ~6 a node, the three dots' 18 a node,
+    # the x / r / z / p updates and the preconditioner ~36 a node.  Its
+    # bound: the contract's (each input read once a solve, the operations
+    # of the steps run) and, per step, one re-read of the blocks, lists and
+    # begin/end and 40 floats a node (pinv, diag, fm, five state vectors
+    # read, four written), as a step that kept nothing on the chip.
+    solve_ms = cuda_ms(lambda: k4.pcg_solve(*ps), 5)
+    solve_graph = graph_ms(lambda: k4.pcg_solve(*ps), 3)
+    loop_ms = cuda_ms(lambda: host_loop(k4_mv, k4.fixed_dots), 2)
+    _, it_lib = host_loop(csr_mv, torch_dots)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        lib_ms = cuda_ms(lambda: host_loop(csr_mv, torch_dots), 2)
+    twin_ms = cuda_ms(lambda: k4.pcg_solve_twin(*ps), 1)
+    lists = (inc.b_ptr, inc.b_idx, inc.e_ptr, inc.e_idx)
+    step_ops = 70 * C + 60 * n
+    reread = (nbytes(t["begin"], t["end"], baa, bab, bbb, *lists)
+              + 40 * 4 * n) / PEAK_BYTES_PER_S * 1e3
+    pcg = timed(0.0, solve_ms, twin_ms,
+                nbytes(t["begin"], t["end"], baa, bab, bbb, d, lam, fm, pinv,
+                       rhs, *lists, x, it),
+                step_ops * (steps + 1), library_ms=lib_ms)
+    print(f"[5] pcg_solve a CG step (district, {steps} steps a solve; the "
+          f"library arm {it_lib}): kernel {solve_ms / steps:.5f} ms, in a "
+          f"CUDA graph {solve_graph / steps:.5f} ms; host loop over "
+          f"pcg_matvec and fixed_dots "
+          f"{loop_ms / steps:.5f} ms; host loop on CSR x v "
+          f"{lib_ms / it_lib:.5f} ms; twin {twin_ms / steps:.4f} ms; bound "
+          f"{pcg['bound_ms'] / (steps + 1):.6f} ms ({pcg['bound_by']}, "
+          f"inputs once a solve), {reread:.6f} ms re-reading a step's "
+          f"inputs ({ident})")
+    # fixed_dots: one pair (p . Ap) beside torch.dot, in the kernels line;
+    # two pairs (r . z and r . r, one launch) beside two torch.dot calls.
+    vf, yf = v.reshape(-1), y.reshape(-1)
+    dot = timed(0.0, cuda_ms(lambda: k4.fixed_dots((v, y)), 50),
+                cuda_ms(lambda: k4.fixed_dots_twin((v, y)), 10),
+                nbytes(v, y) + 4, 2 * v.numel(),
+                library_ms=cuda_ms(lambda: torch.dot(vf, yf), 50))
+    dot["graph_ms"] = (graph_ms(lambda: k4.fixed_dots((v, y)), 50),
+                       graph_ms(lambda: torch.dot(vf, yf), 50))
+    two_ms = cuda_ms(lambda: k4.fixed_dots((v, y), (y, y)), 50)
+    two_lib = cuda_ms(lambda: (torch.dot(vf, yf), torch.dot(yf, yf)), 50)
+    two_graph = (graph_ms(lambda: k4.fixed_dots((v, y), (y, y)), 50),
+                 graph_ms(lambda: (torch.dot(vf, yf), torch.dot(yf, yf)), 50))
+    print(f"[5] fixed_dots of two pairs (one launch; the CG step's r . z "
+          f"and r . r) {two_ms:.4f} ms, in a CUDA graph {two_graph[0]:.5f} "
+          f"ms; two torch.dot calls {two_lib:.4f} ms, in a CUDA graph "
+          f"{two_graph[1]:.5f} ms ({ident})")
     # normal_blocks: per constraint the residual, its Jacobians, the robust
     # weight and three 3x3 blocks (~300 operations); pcg_matvec: four 3x3
     # block products and their sums a constraint (~70), ~6 a node.
-    return {"normal_blocks": timed(
+    return {"pcg_solve": pcg,
+            "fixed_dot": dot,
+            "normal_blocks": timed(
                 0.0, cuda_ms(lambda: k4.normal_blocks(*nb), 20),
                 cuda_ms(lambda: k4.normal_blocks_twin(*nb), 5),
                 nbytes(*args, *a), 300 * C),
@@ -1558,48 +1709,94 @@ def block_csr(begin, end, baa, bab, bbb, diag, lam, fm, n):
 
 def phase_district_solve(truth, district, dev):
     """The single-device PCG solve of the district (config 5's
-    SolverConfig), on the kernels and then on the twins."""
+    SolverConfig), on the kernels (one ``pcg_solve`` launch an LM step)
+    and on the twins, bitwise equal.  Then each LM step's CG loop, recorded
+    from a third kernels' solve, again as the host loop over
+    ``pcg_matvec`` and ``fixed_dots`` (the mesh's loop, and the parent
+    design's), bitwise equal to the kernel's, with the walls of both
+    loops.  Returns the kernels' run's launches and the solved poses."""
     import numpy as np
     import torch
 
     from ndt_2d_tpu_torch import convert
-    from ndt_2d_tpu_torch.graph import solver
     from ndt_2d_tpu_torch.config import SolverConfig
+    from ndt_2d_tpu_torch.graph import solver
+    from ndt_2d_tpu_torch.kernels import normal_blocks as k4
     cfg = SolverConfig(max_iterations=30, cg_max_iterations=150)
     t = convert.solve_inputs_to_port(dev, **district)
     t.pop("robust_mask")
     out = {}
-    for twin in (False, True):
-        if not twin:
-            reset_counts()
+    for arm in ("kernel", "twin"):
+        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = solver.solve(cfg, **t, use_dense=False, twin=twin)
+        res = solver.solve(cfg, **t, use_dense=False, twin=arm == "twin")
         torch.cuda.synchronize()
-        out[twin] = (res, time.perf_counter() - t0)
-        if not twin:
-            launches = read_counts()
-    res, wall = out[False]
+        out[arm] = (res, time.perf_counter() - t0, read_counts())
+    res, wall, launches = out["kernel"]
+    # Each LM step's pcg_solve inputs and result, from one more solve.
+    real, steps = k4.pcg_solve, []
+
+    def record(*args):
+        x, it = real(*args)
+        steps.append((args, x.clone(), it.clone()))
+        return x, it
+    k4.pcg_solve = record
+    try:
+        again = solver.solve(cfg, **t, use_dense=False)
+    finally:
+        k4.pcg_solve = real
+    require(torch.equal(again.poses, res.poses),
+            "district solve not bitwise reproducible")
+    walls = {"kernel": 0.0, "host loop": 0.0}
+    cg_steps = 0
+    for args, x, it in steps:
+        (begin, end, baa, bab, bbb, diag, lam, fm, pinv, b, max_iter, tol,
+         inc) = args
+
+        def matvec(v):
+            return k4.pcg_matvec(begin, end, baa, bab, bbb, diag, lam, fm, v,
+                                 inc)
+        for arm in walls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if arm == "kernel":
+                xa, ita = real(*args)
+                ita = int(ita)
+            else:
+                xa, ita = k4.pcg_loop(matvec, k4.fixed_dots, pinv, fm, b,
+                                      max_iter, tol)
+            torch.cuda.synchronize()
+            walls[arm] += time.perf_counter() - t0
+            require(torch.equal(xa, x) and ita == int(it),
+                    f"district LM step {len(steps)}: the {arm}'s CG loop "
+                    "differs from the solve's pcg_solve")
+        cg_steps += int(it)
     poses = res.poses.cpu().numpy().astype(np.float64)
 
     def rmse(p):
         return float(np.sqrt(np.mean(np.sum((p[:, :2] - truth[:, :2]) ** 2,
                                             -1))))
     init, final = rmse(district["poses"]), rmse(poses)
-    diff = float((res.poses - out[True][0].poses).abs().max())
+    lm = int(res.iterations)
     require(bool(res.success), "district solve failed")
     require(final < init, f"district RMSE {final} not below initial {init}")
-    require(diff <= 1e-4, f"twin solve poses differ by {diff} > 1e-4")
-    require(launches["pcg_matvec"] >= 1 and launches["normal_blocks"] >= 1,
-            f"district solve launched {launches}")
-    district_poses = poses
+    require(torch.equal(res.poses, out["twin"][0].poses),
+            "district solve: the twins' poses differ from the kernels'")
+    require(launches["pcg_solve"] == lm == len(steps)
+            and launches["normal_blocks"] >= 1,
+            f"district solve: {lm} LM iterations, launches {launches}")
     print(f"[4b] district PCG solve ({truth.shape[0]} nodes): RMSE "
-          f"{init:.4f} -> {final:.4f} m in {int(res.iterations)} LM "
-          f"iterations, {wall:.3f} s on the kernels, {out[True][1]:.3f} s "
-          f"on the twins, max |kernel - twin| poses {diff:.3g}; launches "
-          f"normal_blocks {launches['normal_blocks']}, pcg_matvec "
-          f"{launches['pcg_matvec']}")
-    return launches, district_poses
+          f"{init:.4f} -> {final:.4f} m in {lm} LM iterations; wall "
+          f"{wall:.3f} s on the kernels (one pcg_solve launch an LM "
+          f"iteration), {out['twin'][1]:.3f} s on the twins, poses bitwise "
+          f"equal; the {lm} CG loops ({cg_steps} steps) {walls['kernel']:.3f}"
+          f" s on pcg_solve, {walls['host loop']:.3f} s as the host loop "
+          f"over pcg_matvec and fixed_dots "
+          f"({walls['host loop'] / walls['kernel']:.2f}x), x and steps "
+          f"bitwise equal; launches normal_blocks "
+          f"{launches['normal_blocks']}, pcg_solve {launches['pcg_solve']}")
+    return launches, poses
 
 
 class Recorder:
@@ -1733,6 +1930,10 @@ def phase_office(cfg, bag, dev, tag="[4c]", plain=None):
     shapes = {r: rec.rows.count(r) for r in sorted(set(rec.rows))}
     print(f"{tag} K1 and K2 launches by shape: {acc - 1} at R = 1 (one a "
           f"scan), {rec.chunks} confirmation chunks by rows {shapes}")
+    if plain:
+        print(f"{tag} K7 launches by shape: {launches['newton']}, one a "
+              f"confirmation chunk, by rows {shapes} (G = 1, "
+              f"{cfg.global_scan_matcher.refine_iterations} iterations)")
     phase_replay(rec, tag, 1 if plain else 2, solve=not plain)
     return launches, numbers
 
@@ -4151,8 +4352,8 @@ def phase_mesh_nccl(cfg, bag, cfg6, bag3, dev, tmp):
               f"{dp['stats']['loop_closures']} closures, "
               f"{dp['stats']['session']['optimizations']} optimizations, "
               f"final ATE {dp['final']:.4f} m (dense "
-              f"{d1['final']:.4f}), {dp['launches']['pcg_matvec']} PCG "
-              f"matvecs, session {dp['wall']:.3f} s")
+              f"{d1['final']:.4f}), {dp['launches']['pcg_solve']} PCG "
+              f"solves (one launch an LM step), session {dp['wall']:.3f} s")
         # distributed.gather through NCCL at the solver's shape (the
         # block diagonal of the district's 50,000 nodes).
         x = torch.randn(9 * DISTRICT_NODES, device=dev)
@@ -4224,9 +4425,9 @@ def mesh_rank(out_dir, space: int, batch: int, map4: str,
               device: str) -> int:
     """One rank of ``phase_mesh_shared``: a (space, batch) gloo mesh whose
     ranks share ``device`` (the card).  Runs config 10 synchronously, the
-    district's PCG solve by ``solve_multichip`` and the 5000-particle
-    measurement on the config-4 map, and saves the results to
-    ``out_dir``."""
+    district's PCG solve by ``solve_multichip`` (with the launch counts
+    read around it) and the 5000-particle measurement on the config-4 map,
+    and saves the results to ``out_dir``."""
     import numpy as np
     import torch
 
@@ -4268,11 +4469,16 @@ def mesh_rank(out_dir, space: int, batch: int, map4: str,
         d["constraint_mask"], nb)
     t = convert.solve_inputs_to_port(dev, **d)
     torch.cuda.synchronize()
+    reset_counts()
     t0 = time.perf_counter()
     res = psolver.solve_multichip(
         SolverConfig(max_iterations=30, cg_max_iterations=150), mesh, **t)
     torch.cuda.synchronize()
     out["district_wall"] = time.perf_counter() - t0
+    counts = read_counts()
+    for k in ("pcg_matvec", "fixed_dot", "pcg_solve"):
+        out[f"district_{k}"] = counts[k]
+    out["district_lm"] = int(res.iterations)
     out["district_ok"] = bool(res.success)
     out["district"] = res.poses.cpu().numpy().astype(np.float64)
     x = torch.zeros(9 * DISTRICT_NODES, device=dev)
@@ -4313,7 +4519,8 @@ def phase_mesh_shared(cfg, bag, single10, district_poses, district_truth,
     through the host), on meshes (2, 1) and (1, 2): config 10
     synchronously, the district's PCG solve and config 4's 5000-particle
     measurement.  Correctness and the cost of host-staged collectives, not
-    scaling."""
+    scaling.  Returns, per mesh shape, rank 0's launches of the district
+    solve's host CG loop (``pcg_matvec``, ``fixed_dot``)."""
     import numpy as np
 
     from ndt_2d_tpu_torch.parallel import distributed
@@ -4361,8 +4568,14 @@ def phase_mesh_shared(cfg, bag, single10, district_poses, district_truth,
                 f"{rmse(a['district'])}")
         require(bool(a["measure_equal"]) and bool(b["measure_equal"]),
                 f"mesh {tag}: the sharded measurement differs from K3")
-        rows[shape] = dict(ms=float(a["ms"]), wall=float(a["wall"]),
-                           ate=float(a["final"]))
+        lm = int(a["district_lm"])
+        counts = {k: int(a[f"district_{k}"])
+                  for k in ("pcg_matvec", "fixed_dot", "pcg_solve")}
+        require(counts["pcg_solve"] == 0 and counts["pcg_matvec"] > lm
+                and counts["fixed_dot"] > lm,
+                f"mesh {tag}: the district solve's {lm} LM iterations "
+                f"launched {counts}")
+        rows[shape] = counts
         print(f"[4q] two ranks on cuda:0, mesh {tag} over gloo: config 10 "
               f"{int(a['accepted'])} accepted, {int(a['closures'])} closures "
               f"/ {int(a['optimizations'])} optimizations, ATE online "
@@ -4371,7 +4584,9 @@ def phase_mesh_shared(cfg, bag, single10, district_poses, district_truth,
               f"per accepted scan, session {float(a['wall']):.3f} s; "
               f"district PCG solve {float(a['district_wall']):.3f} s, RMSE "
               f"{rmse(a['district']):.4f} m, {dd:.2e} from the single-device "
-              f"solve; {PARTICLES}-particle measurement bitwise equal to "
+              f"solve, {lm} LM iterations, host CG loop launches pcg_matvec "
+              f"{counts['pcg_matvec']}, fixed_dot {counts['fixed_dot']}; "
+              f"{PARTICLES}-particle measurement bitwise equal to "
               f"unsharded K3; host-staged all_gather of "
               f"{9 * DISTRICT_NODES} floats {float(a['gather_ms']):.4f} ms; "
               f"final poses, export, solve and scores bitwise equal on both "
@@ -4960,7 +5175,7 @@ def main() -> int:
         phase_k1_stress(dev)
         phase_k2_edges(cfg3, bag3, dev)
         truth, district = district_graph()
-        timing.update(phase_k4(district, dev))
+        timing.update(phase_k4(district, dev, ident))
         cfg6 = config6()
         timing.update(phase_k6(cfg6, bag3, dev))
         timing.update(phase_k10(cfg6, bag3, dev))
@@ -4990,8 +5205,9 @@ def main() -> int:
             cfg10, bag10 = config10()
             (k12_launches, k12_desc_launches, gather_ms,
              single10) = phase_mesh_nccl(cfg10, bag10, cfg6, bag3, dev, tmp)
-            phase_mesh_shared(cfg10, bag10, single10, district_poses, truth,
-                              map4, tmp, dev)
+            mesh_district = phase_mesh_shared(cfg10, bag10, single10,
+                                              district_poses, truth, map4,
+                                              tmp, dev)
             kb_launches = phase_blocks(
                 map4, os.path.join(tmp, "office_map.npz"), dev, tmp)
         c6_launches, c6_timing = phase_descriptor_session(
@@ -5009,9 +5225,13 @@ def main() -> int:
         print(f"FAIL: {e}")
         return 1
     # Launch counts from the config-3 session, which runs every kernel but
-    # the PCG matvec, the batched K3 and K9; the PCG matvec's from the
-    # district solve, the others' from the config-4 particle filter.
-    launches["pcg_matvec"] = district_launches["pcg_matvec"]
+    # K4's PCG entries, the batched K3 and K9; the PCG solve's from the
+    # district solve, the matvec's and the dots' from the district solve
+    # by solve_multichip on the (1, 2) gloo mesh (rank 0; the mesh's host
+    # CG loop), the others' from the config-4 particle filter.
+    launches["pcg_solve"] = district_launches["pcg_solve"]
+    for k in ("pcg_matvec", "fixed_dot"):
+        launches[k] = mesh_district[(1, 2)][k]
     for k in ("score_points_batch", "pf_motion", "pf_resample",
               "pf_statistics"):
         launches[k] = pf_launches[k]

@@ -79,7 +79,9 @@ def cmd_simulate(args) -> int:
 _MATCHER_FLOATS = ("ndt_resolution", "search_angular_resolution",
                    "search_angular_size", "search_linear_resolution",
                    "search_linear_size")
-_MAPPER_FLAGS = ("loop_closure_every", "max_points_per_scan",
+_MAPPER_FLAGS = ("resolution", "minimum_travel_rotation", "rolling_depth",
+                 "occupancy_threshold", "max_range", "auto_grow_grids",
+                 "loop_closure_every", "max_points_per_scan",
                  "minimum_travel_distance", "global_search_size",
                  "global_search_limit", "optimization_node_limit",
                  "loop_closure_region_size", "loop_closure_accept",
@@ -182,13 +184,17 @@ def _mapper_config(args) -> MapperConfig:
                if getattr(args, f) is not None})
     if robust_loss is not None:
         kw["solver"] = SolverConfig(robust_loss=robust_loss)
+    if args.no_mapping:
+        kw["enable_mapping"] = False
+    if getattr(args, "particle_filter", False):
+        kw["use_particle_filter"] = True
     gm = _matcher_config(args, "global_scan_matcher")
     if (global_refine is not None
             and args.global_scan_matcher__refine_iterations is None):
         gm = dataclasses.replace(gm, refine_iterations=global_refine)
     return MapperConfig(
         local_scan_matcher=_matcher_config(args, "local_scan_matcher"),
-        global_scan_matcher=gm, **kw)
+        global_scan_matcher=gm, particle_filter=_pf_config(args), **kw)
 
 
 def _spawn_mesh(args) -> bool:
@@ -240,10 +246,7 @@ def cmd_localize(args) -> int:
     if _spawn_mesh(args):
         return 0
     mesh = _session_mesh(args)
-    cfg = dataclasses.replace(
-        _mapper_config(args), enable_mapping=False,
-        use_particle_filter=args.particle_filter,
-        particle_filter=_pf_config(args))
+    cfg = dataclasses.replace(_mapper_config(args), enable_mapping=False)
     graph = None
     if args.map:
         graph = serialization.load_graph(args.map, cfg.max_points_per_scan,
@@ -404,12 +407,32 @@ def _add_session_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--traj-out", default=None,
                    help="estimated trajectory in TUM format (timestamps = "
                         "scan indices)")
+    # The mapper's parameters (ndt_mapper.cpp:59-103).
+    p.add_argument("--resolution", type=float, default=None,
+                   help="occupancy-grid export resolution (m)")
     p.add_argument("--loop-closure-every", type=int, default=None,
                    dest="loop_closure_every")
     p.add_argument("--max-points-per-scan", type=int, default=None,
                    dest="max_points_per_scan")
     p.add_argument("--minimum-travel-distance", type=float, default=None,
                    dest="minimum_travel_distance")
+    p.add_argument("--minimum-travel-rotation", type=float, default=None,
+                   dest="minimum_travel_rotation")
+    p.add_argument("--rolling-depth", type=int, default=None,
+                   dest="rolling_depth")
+    p.add_argument("--occupancy-threshold", type=float, default=None,
+                   dest="occupancy_threshold")
+    p.add_argument("--max-range", type=float, default=None,
+                   dest="max_range",
+                   help="beam range cap (m; negative = the bag's range)")
+    p.add_argument("--auto-grow-grids",
+                   action=argparse.BooleanOptionalAction, default=None,
+                   dest="auto_grow_grids",
+                   help="rebuild a matcher at a larger static grid when a "
+                        "session outgrows it (default on; --no-... raises "
+                        "with sizing advice instead)")
+    p.add_argument("--no-mapping", action="store_true", dest="no_mapping",
+                   help="track without adding scans to the map")
     p.add_argument("--global-search-size", type=float, default=None,
                    dest="global_search_size",
                    help="loop-closure radius search bound (squared meters)")

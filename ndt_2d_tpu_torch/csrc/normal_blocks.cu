@@ -3,8 +3,10 @@
 //
 // Replaces the jitted XLA programs of the JAX package's
 // ndt_2d_tpu/graph/solver.py: robust_weights + _normal_blocks +
-// _gather_gradient_and_diag (entry ndt2d_normal_blocks) and the matvec of
-// _pcg_solve (entry ndt2d_pcg_matvec).
+// _gather_gradient_and_diag (entry ndt2d_normal_blocks), the matvec of
+// _pcg_solve (entry ndt2d_pcg_matvec, the mesh's host loop) and the whole
+// lax.while_loop of _pcg_solve (entry ndt2d_pcg_solve; its dot products
+// alone: ndt2d_fixed_dot).
 //
 // What it computes.  Per constraint k = (a, b): the residual
 // r = (R(th_a)^T (p_b - p_a) - t_xy, normalize(th_b - th_a - t_th)), the
@@ -33,6 +35,35 @@
 // scratch: the Baa/Bab half of a constraint is used only at its begin node
 // and the Bab^T/Bbb half only at its end node, so each node computes its
 // own terms while it walks its lists.
+//
+// The PCG solve (ndt2d_pcg_solve).  Run as a host loop, a CG step is about
+// ten launches and a blocking read of the residual norm; its work is ~14 MB
+// of reads (the blocks of ~55,000 constraints and ~30 floats a node of the
+// 50,000-node district), ~4 us at 3.35 TB/s, all of it in the 50 MB L2.
+// So the cost is the host, and the design keeps the whole loop in one
+// cooperative launch: a persistent grid (at most as many blocks as fit
+// co-resident) runs each step's phases - the matvec (a thread a node, the
+// walk above; from the second step the direction update p = z + beta p is
+// formed where the matvec reads it), the dot p.Ap, the x / r / z updates,
+// the dots r.z and r.r - between grid syncs, and tests the reference's stop
+// condition, sqrt(r.r) > tol && it < max_iter, on the device before every
+// step.  Its dots add in a layout that does not depend on the grid: lane l
+// of kLanes adds the products e = l, l + kLanes, ... of the flattened [3N]
+// vectors in index order from +0, and a fixed halving tree (partial i + h
+// into partial i, h = kLanes / 2, ..., 1) folds the lanes.  Every block
+// folds the same partials in the same order after a sync, so all blocks
+// hold the same alpha, beta and stop decision, and the bits depend neither
+// on the SM count nor on the occupancy.  A lane's adds are a serial chain,
+// so a block takes a group of 32 lanes: all its threads load the group's
+// products into shared memory at once, then a warp adds them in order
+// (two dots, r.z and r.r, in one pass by two warps).  The plain-PyTorch twin
+// (kernels/normal_blocks.py::pcg_solve_twin, fixed_dot_twin) writes the same
+// operations in the same order.  Data the kernel writes is read back
+// through L2 (__ldcg), never through a stale L1 line.
+#include <cooperative_groups.h>
+
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -200,32 +231,36 @@ __device__ __forceinline__ void btx(const float* B, const float* x,
     y[i] = dot3(B[i], B[3 + i], B[6 + i], x[0], x[1], x[2]);
 }
 
-// The masked node vector v_n * fm_n.
-__device__ __forceinline__ void masked(const float* v, const float* fm, int n,
-                                       float* out) {
-  load3(v + 3 * n, out);
+// The node vector v_n (read by `load`) times the free-node mask fm_n.
+template <class Load>
+__device__ __forceinline__ void masked(const Load& load, const float* fm,
+                                       int n, float* out) {
+  load(n, out);
   const float f = fm[n];
   out[0] *= f;
   out[1] *= f;
   out[2] *= f;
 }
 
-// solver.py::_pcg_solve matvec.
-__global__ void matvec(const int* __restrict__ b_ptr,
-                       const int* __restrict__ b_idx,
-                       const int* __restrict__ e_ptr,
-                       const int* __restrict__ e_idx, int N,
-                       const int* __restrict__ begin,
-                       const int* __restrict__ end,
-                       const float* __restrict__ baa,
-                       const float* __restrict__ bab,
-                       const float* __restrict__ bbb,
-                       const float* __restrict__ diag,
-                       const float* __restrict__ lam,
-                       const float* __restrict__ fm,
-                       const float* __restrict__ v, float* __restrict__ out) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
+// v_n of a plain vector [N, 3].
+struct Plain {
+  const float* v;
+  __device__ __forceinline__ void operator()(int n, float* out) const {
+    load3(v + 3 * n, out);
+  }
+};
+
+// Row n of the damped product A v (solver.py::_pcg_solve matvec): the
+// begin list's Baa v_n + Bab v_b, then the end list's Bab^T v_a + Bbb v_n,
+// each summed in constraint order from 0, plus lam D_ii v_i, times fm_n.
+template <class Load>
+__device__ __forceinline__ void matvec_row(
+    const int* __restrict__ b_ptr, const int* __restrict__ b_idx,
+    const int* __restrict__ e_ptr, const int* __restrict__ e_idx,
+    const int* __restrict__ begin, const int* __restrict__ end,
+    const float* __restrict__ baa, const float* __restrict__ bab,
+    const float* __restrict__ bbb, const float* __restrict__ diag, float l,
+    const float* __restrict__ fm, const Load& v, int n, float y[3]) {
   float vn[3], vo[3], y0[3], y1[3];
   masked(v, fm, n, vn);
   float sa[3] = {0.f, 0.f, 0.f};
@@ -246,13 +281,359 @@ __global__ void matvec(const int* __restrict__ b_ptr,
 #pragma unroll
     for (int i = 0; i < 3; ++i) sb[i] += y0[i] + y1[i];
   }
-  const float l = lam[0];
   const float f = fm[n];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     const float di = diag[9 * n + 4 * i] * vn[i];
-    out[3 * n + i] = ((sa[i] + sb[i]) + l * di) * f;
+    y[i] = ((sa[i] + sb[i]) + l * di) * f;
   }
+}
+
+// solver.py::_pcg_solve matvec, a thread a node.
+__global__ void matvec(const int* __restrict__ b_ptr,
+                       const int* __restrict__ b_idx,
+                       const int* __restrict__ e_ptr,
+                       const int* __restrict__ e_idx, int N,
+                       const int* __restrict__ begin,
+                       const int* __restrict__ end,
+                       const float* __restrict__ baa,
+                       const float* __restrict__ bab,
+                       const float* __restrict__ bbb,
+                       const float* __restrict__ diag,
+                       const float* __restrict__ lam,
+                       const float* __restrict__ fm,
+                       const float* __restrict__ v, float* __restrict__ out) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  float y[3];
+  matvec_row(b_ptr, b_idx, e_ptr, e_idx, begin, end, baa, bab, bbb, diag,
+             lam[0], fm, Plain{v}, n, y);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) out[3 * n + i] = y[i];
+}
+
+// --- The PCG solve ----------------------------------------------------------
+
+namespace cg = cooperative_groups;
+
+// Lanes of a dot product; a fold block holds kPer partials a thread.
+constexpr int kLanes = 2048;
+constexpr int kPer = kLanes / kThreads;
+static_assert(kPer * kThreads == kLanes && (kPer & (kPer - 1)) == 0,
+              "the fold takes kLanes / kThreads partials a thread");
+// A block forms the partials of a group of 32 lanes, staging up to
+// kStageRows of the group's rows of products (row k = elements
+// k kLanes + 32 grp .. + 31) in shared memory at a time.
+constexpr int kGroups = kLanes / 32;
+constexpr int kStageRows = 128;
+
+// The partials of D dots x_d . y_d over n floats for the 32 lanes of group
+// `grp`: the block loads up to kStageRows rows of the group's products at
+// once (all loads into registers first, then the stores to `stage` [D, m,
+// 32]; a product past n is +0), then warp d's lane l adds dot d's column l
+// row by row, continuing from +0: lane 32 grp + l adds the products e =
+// 32 grp + l, + kLanes, ... in index order.  Lane partials go to
+// lanes[d][32 grp + l].  Every thread of the block calls it.
+template <int D>
+__device__ __forceinline__ void group_partials(const float* const* x,
+                                               const float* const* y, int n,
+                                               int grp, float* stage,
+                                               float* const* lanes) {
+  constexpr int kLoads = kStageRows * 32 / kThreads;
+  const int rows = (n + kLanes - 1) / kLanes;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float acc = 0.f;
+  for (int r0 = 0; r0 < rows; r0 += kStageRows) {
+    const int m = min(kStageRows, rows - r0);
+    float v[D][kLoads];
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+      const int i = threadIdx.x + kThreads * j;  // row i / 32, lane i % 32
+      const int e = (r0 + i / 32) * kLanes + 32 * grp + (i & 31);
+#pragma unroll
+      for (int d = 0; d < D; ++d)
+        v[d][j] = i < 32 * m && e < n ? __ldcg(x[d] + e) * __ldcg(y[d] + e)
+                                      : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+      const int i = threadIdx.x + kThreads * j;
+#pragma unroll
+      for (int d = 0; d < D; ++d)
+        if (i < 32 * m) stage[d * 32 * m + i] = v[d][j];
+    }
+    __syncthreads();
+    if (warp < D) {
+      const float* col = stage + warp * 32 * m + lane;
+#pragma unroll 8
+      for (int rr = 0; rr < m; ++rr) acc += col[32 * rr];
+    }
+    __syncthreads();
+  }
+  if (warp < D) __stcg(lanes[warp] + 32 * grp + lane, acc);
+}
+
+// The halving tree over D sets of kLanes partials (lane i + h into lane i,
+// h = kLanes / 2, ..., 1): thread t loads partials t + kThreads k; levels
+// kLanes / 2 .. kThreads fold in registers, kThreads / 2 .. 32 in shared
+// memory, 16 .. 1 by shuffles in warp 0.  Every thread of the block gets
+// the D totals.  scratch: D (kThreads + 1) floats.
+template <int D>
+__device__ __forceinline__ void fold_lanes(const float* const* lanes,
+                                           float* scratch, float total[D]) {
+  const int t = threadIdx.x;
+  float v[D][kPer];
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+#pragma unroll
+    for (int k = 0; k < kPer; ++k)
+      v[d][k] = __ldcg(lanes[d] + t + kThreads * k);
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+#pragma unroll
+    for (int h = kPer / 2; h >= 1; h >>= 1)
+#pragma unroll
+      for (int k = 0; k < h; ++k) v[d][k] = v[d][k] + v[d][k + h];
+    scratch[d * (kThreads + 1) + t] = v[d][0];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int h = kThreads / 2; h >= 32; h >>= 1) {
+    if (t < h) {
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        float* sc = scratch + d * (kThreads + 1);
+        sc[t] = sc[t] + sc[t + h];
+      }
+    }
+    __syncthreads();
+  }
+  if (t < 32) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      float* sc = scratch + d * (kThreads + 1);
+      float s = sc[t];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        s = s + __shfl_down_sync(0xffffffffu, s, off);
+      if (t == 0) sc[kThreads] = s;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+    total[d] = scratch[d * (kThreads + 1) + kThreads];
+  __syncthreads();  // read by every thread before the scratch is reused
+}
+
+// One or two dots x_d . y_d of n floats in one cooperative launch
+// (ndt2d_fixed_dot): block grp forms lane group grp's partials, then after
+// a grid sync block 0 folds the lanes (as pcg's dots) into out [D].
+struct Dots {
+  const float* x[2];
+  const float* y[2];
+  int n;
+  float *lanes, *out;  // lanes: D kLanes partials
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) fixed_dots(const Dots a) {
+  __shared__ float stage[D * kStageRows * 32];
+  __shared__ float scratch[D * (kThreads + 1)];
+  float* ls[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) ls[d] = a.lanes + d * kLanes;
+  group_partials<D>(a.x, a.y, a.n, blockIdx.x, stage, ls);
+  cg::this_grid().sync();
+  if (blockIdx.x != 0) return;
+  float total[D];
+  fold_lanes<D>(ls, scratch, total);
+  if (threadIdx.x < D) a.out[threadIdx.x] = total[threadIdx.x];
+}
+
+// v_n of a vector the kernel writes, read through L2.
+struct Cached {
+  const float* v;
+  __device__ __forceinline__ void operator()(int n, float* out) const {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) out[i] = __ldcg(v + 3 * n + i);
+  }
+};
+
+// The zero vector (the CG start x = 0).
+struct Zero {
+  __device__ __forceinline__ void operator()(int, float* out) const {
+    out[0] = out[1] = out[2] = 0.f;
+  }
+};
+
+// The updated direction z_n + beta p_n from the previous one.
+struct Direction {
+  const float* z;
+  const float* p;
+  float beta;
+  __device__ __forceinline__ void operator()(int n, float* out) const {
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      out[i] = __ldcg(z + 3 * n + i) + beta * __ldcg(p + 3 * n + i);
+  }
+};
+
+// The block-Jacobi preconditioner: z_n = (pinv_n r_n) fm_n.
+__device__ __forceinline__ void precondition(const float* __restrict__ pinv,
+                                             const float* __restrict__ fm,
+                                             int n, const float r[3],
+                                             float z[3]) {
+  const float* m = pinv + 9 * n;
+  const float f = fm[n];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    z[i] = dot3(m[3 * i], m[3 * i + 1], m[3 * i + 2], r[0], r[1], r[2]) * f;
+}
+
+// torch.maximum(a, b) for a b that is not NaN: a NaN a is kept.
+__device__ __forceinline__ float max_keep_nan(float a, float b) {
+  return a != a ? a : (a > b ? a : b);
+}
+
+struct Pcg {
+  const int *b_ptr, *b_idx, *e_ptr, *e_idx, *begin, *end;
+  const float *baa, *bab, *bbb, *diag, *lam, *fm, *pinv, *b;
+  int N, max_iter;
+  float tol;
+  // Outputs x [N,3] and the step count; scratch r, z, p, q, ap [N,3] and the
+  // lane partials of p.Ap, r.z and r.r [3, kLanes].
+  float *x, *r, *z, *p, *q, *ap, *part;
+  int* iters;
+};
+
+// solver.py::_pcg_solve's whole loop in one cooperative launch.
+__global__ void __launch_bounds__(kThreads) pcg(const Pcg a) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ float stage[2 * kStageRows * 32];
+  __shared__ float scratch[2 * (kThreads + 1)];
+  const int tid = blockIdx.x * kThreads + threadIdx.x;
+  const int nth = gridDim.x * kThreads;
+  const int N = a.N, n3 = 3 * N;
+  const float l = a.lam[0];
+  const float tiny = 1e-30f;
+  float* const pap[1] = {a.part};
+  float* const rzz[2] = {a.part + kLanes, a.part + 2 * kLanes};
+  // The lane partials of p.Ap, and of r.z and r.r together.
+  auto dot_pap = [&](const float* p) {
+    const float* xs[1] = {p};
+    const float* ys[1] = {a.ap};
+    for (int grp = blockIdx.x; grp < kGroups; grp += gridDim.x)
+      group_partials<1>(xs, ys, n3, grp, stage, pap);
+  };
+  auto dot_rz_rr = [&]() {
+    const float* xs[2] = {a.r, a.r};
+    const float* ys[2] = {a.z, a.r};
+    for (int grp = blockIdx.x; grp < kGroups; grp += gridDim.x)
+      group_partials<2>(xs, ys, n3, grp, stage, rzz);
+  };
+#define NDT2D_ROW(load, n, y)                                                \
+  matvec_row(a.b_ptr, a.b_idx, a.e_ptr, a.e_idx, a.begin, a.end, a.baa,      \
+             a.bab, a.bbb, a.diag, l, a.fm, load, n, y)
+
+  // x = 0, r = b - A x, z = P r, p = z.
+  for (int n = tid; n < N; n += nth) {
+    float ax[3], rn[3], zn[3];
+    NDT2D_ROW(Zero{}, n, ax);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) rn[i] = a.b[3 * n + i] - ax[i];
+    precondition(a.pinv, a.fm, n, rn, zn);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      a.x[3 * n + i] = 0.f;
+      a.r[3 * n + i] = rn[i];
+      a.z[3 * n + i] = zn[i];
+      a.p[3 * n + i] = zn[i];
+    }
+  }
+  grid.sync();
+  dot_rz_rr();
+  grid.sync();
+  float t2[2];
+  fold_lanes<2>(rzz, scratch, t2);
+  float rz = t2[0], rr = t2[1];
+  float beta = 0.f;
+  float* p = a.p;  // the direction, and the buffer of the next one
+  float* q = a.q;
+  int it = 0;
+  while (sqrtf(rr) > a.tol && it < a.max_iter) {
+    // ap = A p; from the second step on, p = z + beta p is formed here.
+    if (it == 0) {
+      for (int n = tid; n < N; n += nth) {
+        float y[3];
+        NDT2D_ROW(Cached{p}, n, y);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) a.ap[3 * n + i] = y[i];
+      }
+    } else {
+      const Direction d{a.z, p, beta};
+      for (int n = tid; n < N; n += nth) {
+        float y[3], pn[3];
+        NDT2D_ROW(d, n, y);
+        d(n, pn);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          a.ap[3 * n + i] = y[i];
+          q[3 * n + i] = pn[i];
+        }
+      }
+      float* t = p;
+      p = q;
+      q = t;
+    }
+    grid.sync();
+    dot_pap(p);
+    grid.sync();
+    float t1[1];
+    fold_lanes<1>(pap, scratch, t1);
+    const float alpha = rz / max_keep_nan(t1[0], tiny);
+    for (int n = tid; n < N; n += nth) {
+      // Every load before the first store, which the compiler cannot
+      // move them past.
+      float xn[3], pn[3], rn[3], an[3], m[9], zn[3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        xn[i] = __ldcg(a.x + 3 * n + i);
+        pn[i] = __ldcg(p + 3 * n + i);
+        rn[i] = __ldcg(a.r + 3 * n + i);
+        an[i] = __ldcg(a.ap + 3 * n + i);
+      }
+#pragma unroll
+      for (int i = 0; i < 9; ++i) m[i] = a.pinv[9 * n + i];
+      const float f = a.fm[n];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        xn[i] = xn[i] + alpha * pn[i];
+        rn[i] = rn[i] - alpha * an[i];
+      }
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        zn[i] = dot3(m[3 * i], m[3 * i + 1], m[3 * i + 2], rn[0], rn[1],
+                     rn[2]) * f;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        a.x[3 * n + i] = xn[i];
+        a.r[3 * n + i] = rn[i];
+        a.z[3 * n + i] = zn[i];
+      }
+    }
+    grid.sync();
+    dot_rz_rr();
+    grid.sync();
+    fold_lanes<2>(rzz, scratch, t2);
+    const float rz_new = t2[0];
+    rr = t2[1];
+    beta = rz_new / max_keep_nan(rz, tiny);
+    rz = rz_new;
+    ++it;
+  }
+#undef NDT2D_ROW
+  if (tid == 0) *a.iters = it;
 }
 
 }  // namespace
@@ -308,4 +689,95 @@ NDT2D_API int ndt2d_pcg_matvec(const void* b_ptr, const void* b_idx,
       static_cast<const float*>(lam), static_cast<const float*>(fm),
       static_cast<const float*>(v), static_cast<float*>(out));
   return (int)cudaGetLastError();
+}
+
+// D = 1 or 2 dots x_d . y_d of n f32 each in the fixed lane-and-tree order
+// (x1, y1 unused at D = 1): out [D + D kLanes] f32, the dots in out[0 .. D)
+// (the lane partials after them).  One cooperative launch of kGroups
+// blocks; fails (no launch) where the card cannot hold them co-resident.
+NDT2D_API int ndt2d_fixed_dot(const void* x0, const void* y0, const void* x1,
+                              const void* y1, int d, int n, void* out,
+                              void* stream) {
+  if ((d != 1 && d != 2) || n < 0) return (int)cudaErrorInvalidValue;
+  // Whether this device can hold the kGroups blocks co-resident, asked once
+  // a device.
+  static int checked = -1;
+  void (*const one)(const Dots) = fixed_dots<1>;
+  void (*const two)(const Dots) = fixed_dots<2>;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (checked != dev) {
+    int coop = 0, sms = 0, per1 = 0, per2 = 0;
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per1, one,
+                                                          kThreads, 0);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per2, two,
+                                                          kThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    if (!coop) return (int)cudaErrorNotSupported;
+    if (std::min(per1, per2) * sms < kGroups)
+      return (int)cudaErrorCooperativeLaunchTooLarge;
+    checked = dev;
+  }
+  float* o = static_cast<float*>(out);
+  Dots a{{static_cast<const float*>(x0), static_cast<const float*>(x1)},
+         {static_cast<const float*>(y0), static_cast<const float*>(y1)},
+         n, o + d, o};
+  void* args[] = {&a};
+  void* fn = d == 1 ? reinterpret_cast<void*>(one)
+                    : reinterpret_cast<void*>(two);
+  return (int)cudaLaunchCooperativeKernel(
+      fn, kGroups, kThreads, args, 0, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The whole PCG loop of one LM step.  Incidence lists, begin/end and the
+// blocks as ndt2d_pcg_matvec's; lam [1], fm [N], pinv [N,3,3], b [N,3] f32
+// (b = -g fm); out: x [N,3] f32, iters [1] i32; work: 15 N + 3 kLanes f32.
+// Fails (no launch) where the card cannot launch cooperatively.
+NDT2D_API int ndt2d_pcg_solve(
+    const void* b_ptr, const void* b_idx, const void* e_ptr,
+    const void* e_idx, int N, const void* begin, const void* end,
+    const void* baa, const void* bab, const void* bbb, const void* diag,
+    const void* lam, const void* fm, const void* pinv, const void* b,
+    int max_iter, float tol, void* x, void* work, void* iters,
+    void* stream) {
+  if (N < 1) return (int)cudaErrorInvalidValue;
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pcg,
+                                                        kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  if (!coop) return (int)cudaErrorNotSupported;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  // A thread a node where the card holds that many; never more blocks than
+  // fit co-resident, and at least the kLanes / kThreads a dot's lanes fill.
+  const int want = std::max((N + kThreads - 1) / kThreads, kPer);
+  const int blocks = std::min(per_sm * sms, want);
+  float* w = static_cast<float*>(work);
+  const size_t v = (size_t)3 * N;
+  Pcg a{static_cast<const int*>(b_ptr), static_cast<const int*>(b_idx),
+        static_cast<const int*>(e_ptr), static_cast<const int*>(e_idx),
+        static_cast<const int*>(begin), static_cast<const int*>(end),
+        static_cast<const float*>(baa), static_cast<const float*>(bab),
+        static_cast<const float*>(bbb), static_cast<const float*>(diag),
+        static_cast<const float*>(lam), static_cast<const float*>(fm),
+        static_cast<const float*>(pinv), static_cast<const float*>(b), N,
+        max_iter, tol, static_cast<float*>(x), w, w + v, w + 2 * v,
+        w + 3 * v, w + 4 * v, w + 5 * v, static_cast<int*>(iters)};
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(pcg), blocks,
+                                    kThreads, args, 0,
+                                    reinterpret_cast<cudaStream_t>(stream));
+  return (int)err;
 }

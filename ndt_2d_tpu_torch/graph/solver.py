@@ -9,14 +9,16 @@ Marquardt accept/reject loop.  Failed solves leave the poses untouched.
 
 On the device: kernel K4 (``kernels/normal_blocks.py``) computes the
 robust weights, the per-constraint blocks and the per-node gradient and
-block diagonal (``normal_blocks``) and the PCG matvec (``pcg_matvec``),
-both summing per node in constraint order with no float atomics.  The
-dense system is assembled deterministically (diagonal blocks from K4's D,
-off-diagonal blocks summed in constraint order per node pair) and solved
-by ``torch.linalg.cholesky_ex`` + ``cholesky_solve``, a library call where
-the reference calls ``jax.scipy.linalg.solve``.  The LM and PCG loops are
-host loops that stop at the reference's iteration (one device->host read
-per iteration).  Everything runs in float32 with TF32 off
+block diagonal (``normal_blocks``), both summing per node in constraint
+order with no float atomics, and runs each LM step's whole PCG loop in one
+launch (``pcg_solve``: the matvec, fixed-order dot products and the
+reference's stop test on the device).  The dense system is assembled
+deterministically (diagonal blocks from K4's D, off-diagonal blocks summed
+in constraint order per node pair) and solved by
+``torch.linalg.cholesky_ex`` + ``cholesky_solve``, a library call where the
+reference calls ``jax.scipy.linalg.solve``.  The LM loop is a host loop
+that stops at the reference's iteration (one device->host read per
+iteration).  Everything runs in float32 with TF32 off
 (``precision="highest"`` in the reference).
 
 On a device mesh (``mesh``; ``parallel/solver.py``) each rank holds a
@@ -24,8 +26,9 @@ contiguous block of the constraints, over the mesh's ``batch`` axis.  The
 robust cost, gradient, block diagonal, the dense system's off-diagonal
 blocks and each PCG product are then the rank's partials, all-gathered
 and added in rank order (K12's ``rank_sum``), so every rank holds the same
-bits and the LM and CG loops take the same path on every rank.  A mesh
-chooses dense or PCG by one device's size rule.
+bits and the LM and CG loops take the same path on every rank.  The mesh's
+CG loop is K4's host loop ``pcg_loop`` over its ``pcg_matvec`` and
+``fixed_dots``.  A mesh chooses dense or PCG by one device's size rule.
 """
 
 from __future__ import annotations
@@ -182,63 +185,40 @@ def _dense_solve(n, bab, g, diag, lam, free_mask, pairs: _Pairs, combine):
 def _pcg_solve(begin, end, baa, bab, bbb, g, diag, lam, free_mask,
                max_iter: int, tol, inc: k4.Incidence, twin: bool,
                combine=None):
-    """Matrix-free block-Jacobi PCG on the damped normal equations; the
-    matvec is K4's (its twin with ``twin``).  With ``combine`` (a mesh)
-    the rank's undamped product is added over ranks, then damped as K4
-    damps it."""
+    """Matrix-free block-Jacobi PCG on the damped normal equations.  On one
+    device the whole loop is K4's ``pcg_solve`` (its twin with ``twin``).
+    With ``combine`` (a mesh) it is K4's host loop ``pcg_loop`` on K4's
+    matvec and fixed-order dots: the rank's undamped product is added over
+    ranks, then damped as K4 damps it."""
     fm = free_mask.to(g.dtype)
-    mv = k4.pcg_matvec_twin if twin else k4.pcg_matvec
-
+    pinv, b = _preconditioner(g, diag, lam, free_mask)
     if combine is None:
-        def matvec(v):
-            return mv(begin, end, baa, bab, bbb, diag, lam, fm, v, inc)
-    else:
-        zero = _f32(0.0, g)
-        dii = torch.diagonal(diag, dim1=-2, dim2=-1)
+        solve = k4.pcg_solve_twin if twin else k4.pcg_solve
+        return solve(begin, end, baa, bab, bbb, diag, lam, fm, pinv, b,
+                     max_iter, tol, inc)[0]
+    mv = k4.pcg_matvec_twin if twin else k4.pcg_matvec
+    zero = _f32(0.0, g)
+    dii = torch.diagonal(diag, dim1=-2, dim2=-1)
 
-        def matvec(v):
-            part = mv(begin, end, baa, bab, bbb, diag, zero, fm, v, inc)
-            return (combine(part) + lam * (dii * (v * fm[:, None]))) \
-                * fm[:, None]
+    def matvec(v):
+        part = mv(begin, end, baa, bab, bbb, diag, zero, fm, v, inc)
+        return (combine(part) + lam * (dii * (v * fm[:, None]))) \
+            * fm[:, None]
 
-    return _pcg_iterate(matvec, g, diag, lam, free_mask, max_iter, tol)
+    dots = k4.fixed_dots_twin if twin else k4.fixed_dots
+    return k4.pcg_loop(matvec, dots, pinv, fm, b, max_iter, tol)[0]
 
 
-def _pcg_iterate(matvec, g, diag, lam, free_mask, max_iter: int, tol):
-    """Block-Jacobi PCG on ``matvec`` (the damped normal-equation product)
-    with right-hand side -g over the free nodes; stops at the reference's
-    iteration (one device->host read of the residual norm each)."""
+def _preconditioner(g, diag, lam, free_mask):
+    """The block-Jacobi inverse pinv [N, 3, 3] of the damped diagonal
+    blocks (identity at fixed nodes) and the right-hand side -g over the
+    free nodes [N, 3]."""
     dt, dev = g.dtype, g.device
     eye = torch.eye(3, dtype=dt, device=dev)
     dd = diag + lam * (diag * eye) + _f32(1e-8, g) * eye
     fm = free_mask.to(dt)
-    # Block-Jacobi preconditioner: invert 3x3 diagonal blocks.
     pinv = torch.linalg.inv(dd + (1.0 - fm)[:, None, None] * eye)
-    tol = _f32(tol, g)
-
-    def prec(r):
-        return k4._mv(pinv, r) * fm[:, None]
-
-    b = -g * fm[:, None]
-    x = torch.zeros_like(b)
-    r = b - matvec(x)
-    z = prec(r)
-    p = z
-    rz = torch.sum(r * z)
-    tiny = _f32(1e-30, g)
-    it = 0
-    while it < max_iter and bool(torch.linalg.norm(r) > tol):
-        ap = matvec(p)
-        alpha = rz / torch.maximum(torch.sum(p * ap), tiny)
-        x = x + alpha * p
-        r = r - alpha * ap
-        z = prec(r)
-        rz_new = torch.sum(r * z)
-        beta = rz_new / torch.maximum(rz, tiny)
-        p = z + beta * p
-        rz = rz_new
-        it += 1
-    return x
+    return pinv.contiguous(), -g * fm[:, None]
 
 
 @contextlib.contextmanager

@@ -7,7 +7,8 @@ Replaces ``ndt_2d_tpu/matching/newton.py::refine_pose`` (->
 ``match_scan_batch_multi``.  One launch refines R rows: each starts at its
 pose plus K2's correction, read from K2's [R, 13] output rows, and writes
 its score (best_f / max(used, 1)) and correction (best - pose) back into
-them; K2's covariance stays.
+them; K2's covariance stays.  A row is a block of G x S warps (``plan``);
+each beam's cell is one 32-byte record of K1's packed table.
 
 The twin is ``matching/newton.py``, which writes the kernel's operations in
 the kernel's order, so on the same inputs kernel and twin agree bitwise.
@@ -16,6 +17,7 @@ the kernel's order, so on the same inputs kernel and twin agree bitwise.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -26,10 +28,45 @@ from ndt_2d_tpu_torch.ndt import grid as ndt_grid
 
 launches = 0
 
-_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_float]
+MAX_STRIDES = 4  # warps a grid (csrc/newton.cu's kMaxStrides)
+
+_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_float]
          + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-         + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+         + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
          + [ctypes.c_float] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2)
+
+
+class Plan(NamedTuple):
+    strides: int     # S: warps a grid
+    threads: int     # 32 G S
+    chunk: int       # beams a round of staged terms: 32 S
+    smem_bytes: int  # beams, staged terms, grid totals, pose broadcast
+
+
+def plan(max_beams: int, grids: int) -> Plan:
+    """K7's launch plan for ``max_beams`` beams on ``grids`` grids: S =
+    ceil(max_beams / 32) warps a grid, at most ``MAX_STRIDES``.  Warp
+    (g, s) computes beams l + 32 (s + S j) of grid g; warp (g, 0)'s lane l
+    then adds beams l, l + 32, ... in beam order, one chunk of 32 S beams
+    at a time."""
+    if max_beams < 1 or grids < 1:
+        raise ValueError(f"{max_beams} beams on {grids} grids")
+    S = min(-(-max_beams // 32), MAX_STRIDES)
+    smem = 4 * (3 * max_beams + grids * newton.NUM_SUMS * 32 * S
+                + grids * newton.NUM_SUMS + 4)
+    if smem > 48 * 1024:
+        raise ValueError(f"{max_beams} beams on {grids} grids need {smem} "
+                         "bytes of shared memory, above 48 KiB")
+    return Plan(S, 32 * grids * S, 32 * S, smem)
+
+
+def row_tables(table, rows_axis: bool):
+    """K1's packed table(s) as an [R, G, C, 32] view (as
+    ``newton.with_row_grid_axes`` lays out the grid)."""
+    single = table.dim() == (3 if rows_axis else 2)
+    if single:
+        table = table.unsqueeze(1 if rows_axis else 0)
+    return table if rows_axis else table[None]
 
 
 def refine_rows_twin(config, grid: ndt_grid.NDTGrid, points, point_mask,
@@ -54,18 +91,16 @@ def refine_rows_twin(config, grid: ndt_grid.NDTGrid, points, point_mask,
     return res
 
 
-def _launch(config, grid, points, point_mask, nums, num: int, poses, out,
-            iterations: int):
+def _launch(config, grid, table, points, point_mask, nums, num: int, poses,
+            out, iterations: int):
     global launches
     dev = points.device
     W, H = config.grid_cells_x, config.grid_cells_y
     R, P = points.shape[0], points.shape[1]
-    G, C = grid.mean.shape[1], W * H
+    G, C = grid.origin.shape[1], W * H
+    pl = plan(int(config.laser_max_beams), G)
     _build.require(grid.origin, "origin", torch.float32, (R, G, 2), dev)
-    _build.require(grid.mean, "mean", torch.float32, (R, G, C, 2), dev)
-    _build.require(grid.information, "information", torch.float32,
-                   (R, G, C, 3), dev)
-    _build.require(grid.count, "count", torch.int32, (R, G, C), dev)
+    _build.require(table, "table", torch.float32, (R, G, C, 32), dev)
     _build.require(points, "points", torch.float32, (R, P, 2), dev)
     _build.require(point_mask, "point_mask", torch.bool, (R, P), dev)
     if nums is not None:
@@ -74,10 +109,9 @@ def _launch(config, grid, points, point_mask, nums, num: int, poses, out,
     _build.require(out, "out", torch.float32, (R, 13), dev)
     p = _build.ptr
     err = _build.function("ndt2d_newton", _ARGS)(
-        p(grid.origin), p(grid.mean), p(grid.information), p(grid.count), G,
-        float(grid.cell_size), W, H, p(points), p(point_mask), R, P,
-        None if nums is None else p(nums), int(num),
-        int(config.laser_max_beams), p(poses),
+        p(grid.origin), p(table), G, float(grid.cell_size), W, H, p(points),
+        p(point_mask), R, P, None if nums is None else p(nums), int(num),
+        int(config.laser_max_beams), pl.strides, p(poses),
         float(config.search_linear_resolution),
         float(config.search_angular_resolution), int(iterations), p(out),
         _build.stream_ptr(dev))
@@ -86,29 +120,33 @@ def _launch(config, grid, points, point_mask, nums, num: int, poses, out,
     return out
 
 
-def refine_rows(config, grid: ndt_grid.NDTGrid, points, point_mask,
+def refine_rows(config, grid: ndt_grid.NDTGrid, table, points, point_mask,
                 num_points, poses, out, iterations: int):
     """K7 over R rows in one launch, chained after K2's rows ``out``
-    [R, 13] f32.  grid fields [R, (G,) ...] (K1's), points [R, P, 2] f32,
-    point_mask [R, P] bool, num_points [R] int32, poses [R, 3] f32.  CUDA
-    tensors launch the kernel, which rewrites ``out`` in place and returns
-    it; CPU tensors run the twin, which returns a refined copy."""
+    [R, 13] f32.  grid fields [R, (G,) ...] and table [R, (G,) C, 32] (K1's
+    window grids and packed tables), points [R, P, 2] f32, point_mask
+    [R, P] bool, num_points [R] int32, poses [R, 3] f32.  CUDA tensors
+    launch the kernel, which rewrites ``out`` in place and returns it; CPU
+    tensors run the twin, which returns a refined copy."""
     grid = newton.with_row_grid_axes(grid, rows_axis=True)
     if points.device.type == "cpu":
         return refine_rows_twin(config, grid, points, point_mask, num_points,
                                 poses, out, iterations)
-    return _launch(config, grid, points, point_mask, num_points, 0, poses,
-                   out, iterations)
+    return _launch(config, grid, row_tables(table, True), points,
+                   point_mask, num_points, 0, poses, out, iterations)
 
 
-def refine(config, grid: ndt_grid.NDTGrid, points, point_mask,
+def refine(config, grid: ndt_grid.NDTGrid, table, points, point_mask,
            num_points: int, pose, out, iterations: int):
     """K7 of one scan: ``refine_rows``' launch at R = 1.  grid fields
-    [(G,) ...], points [P, 2], point_mask [P], pose [3], out [1, 13]."""
+    [(G,) ...], table [(G,) C, 32], points [P, 2], point_mask [P], pose
+    [3], out [1, 13]."""
     grid = newton.with_row_grid_axes(grid, rows_axis=False)
     if points.device.type == "cpu":
         nums = torch.tensor([num_points], dtype=torch.int32)
         return refine_rows_twin(config, grid, points[None], point_mask[None],
                                 nums, pose[None], out, iterations)
-    return _launch(config, grid, points[None], point_mask[None], None,
-                   num_points, pose[None], out, iterations)
+    return _launch(config, grid, row_tables(table, False), points[None],
+                   point_mask[None], None, num_points, pose[None], out,
+                   iterations)
+

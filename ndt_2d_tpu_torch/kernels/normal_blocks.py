@@ -1,12 +1,15 @@
-"""K4: LM normal-equation blocks and the PCG matvec (CUDA
-``csrc/normal_blocks.cu``) and their plain-PyTorch twins.
+"""K4: LM normal-equation blocks, the PCG matvec and the whole PCG solve
+(CUDA ``csrc/normal_blocks.cu``) and their plain-PyTorch twins.
 
 Replaces ``ndt_2d_tpu/graph/solver.py::robust_weights`` +
-``_normal_blocks`` + ``_gather_gradient_and_diag`` (``normal_blocks``) and
-the matvec of ``_pcg_solve`` (``pcg_matvec``).  The per-node sums walk
-incidence lists (``Incidence``) in constraint order, so kernel and twin add
-the same float32 values in the same order and agree bitwise; neither uses
-float atomics.  The twins write every 3-term dot product as
+``_normal_blocks`` + ``_gather_gradient_and_diag`` (``normal_blocks``), the
+matvec of ``_pcg_solve`` (``pcg_matvec``, which the mesh's host loop runs)
+and ``_pcg_solve``'s ``lax.while_loop`` as one cooperative launch an LM
+step (``pcg_solve``), with its dot products alone as ``fixed_dots``.  The
+per-node sums walk incidence lists (``Incidence``) in constraint order, and
+a dot adds in a fixed lane-and-tree order (``fixed_dot_twin``), so kernel
+and twin add the same float32 values in the same order and agree bitwise;
+neither uses float atomics.  The twins write every 3-term dot product as
 ``(x0 y0 + x1 y1) + x2 y2``, the order the kernel sums in, and divide only
 by tensors on the same device (PyTorch's CUDA division by a host scalar
 multiplies by its reciprocal, which can round differently).
@@ -22,7 +25,11 @@ import torch
 from ndt_2d_tpu_torch.core.pose import normalize_angle_exact
 from ndt_2d_tpu_torch.kernels import _build
 
-launches = {"normal_blocks": 0, "pcg_matvec": 0}
+launches = {"normal_blocks": 0, "pcg_matvec": 0, "pcg_solve": 0,
+            "fixed_dot": 0}
+
+# Lanes of a dot product: kLanes of csrc/normal_blocks.cu.
+DOT_LANES = 2048
 
 LOSSES = {"none": 0, "huber": 1, "geman_mcclure": 2}
 
@@ -30,6 +37,9 @@ _NB_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_float,
                                      ctypes.c_int] + [ctypes.c_void_p] * 4
             + [ctypes.c_int] + [ctypes.c_void_p] * 8)
 _MV_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 11)
+_DOT_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+_PCG_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 10
+             + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 4)
 
 
 @dataclasses.dataclass
@@ -265,3 +275,138 @@ def pcg_matvec(begin, end, baa, bab, bbb, diag, lam, fm, v, inc: Incidence):
     _build.check(err, "pcg_matvec")
     launches["pcg_matvec"] += 1
     return out
+
+
+def fixed_dot_twin(x, y):
+    """0-d sum of x * y over every element, in the kernel's order: lane l
+    of ``DOT_LANES`` adds the products l, l + DOT_LANES, ... of the
+    flattened product in index order from +0 (a Python loop over its
+    zero-padded rows; +0 leaves a lane's sum as it is, which is never -0),
+    then a halving tree folds the lanes (lane i + h into lane i, h =
+    DOT_LANES / 2, ..., 1)."""
+    prod = (x * y).reshape(-1)
+    rows = max(1, -(-prod.numel() // DOT_LANES))
+    prod = torch.nn.functional.pad(prod, (0, rows * DOT_LANES - prod.numel()))
+    prod = prod.reshape(rows, DOT_LANES)
+    acc = torch.zeros(DOT_LANES, dtype=prod.dtype, device=prod.device)
+    for k in range(rows):
+        acc = acc + prod[k]
+    h = DOT_LANES // 2
+    while h:
+        acc = acc[:h] + acc[h:2 * h]
+        h //= 2
+    return acc[0]
+
+
+def fixed_dots_twin(*pairs):
+    """``fixed_dot_twin`` of each pair (x, y), as a tuple."""
+    return tuple(fixed_dot_twin(x, y) for x, y in pairs)
+
+
+def fixed_dots(*pairs):
+    """K4's dot products x . y of one or two pairs (x, y) of contiguous f32
+    tensors, all of one shape, in ``fixed_dot_twin``'s order: a tuple of
+    0-d tensors.  CPU tensors run the twin; CUDA tensors launch the kernel
+    (one cooperative launch: a block a group of 32 lanes, then one block
+    folds the lanes of every pair)."""
+    D = len(pairs)
+    if D not in (1, 2):
+        raise ValueError(f"{D} dot products: the kernel takes 1 or 2")
+    x0 = pairs[0][0]
+    if x0.device.type == "cpu":
+        return fixed_dots_twin(*pairs)
+    dev = x0.device
+    for x, y in pairs:
+        _build.require(x, "x", torch.float32, x0.shape, dev)
+        _build.require(y, "y", torch.float32, x0.shape, dev)
+    out = torch.empty(D * (1 + DOT_LANES), dtype=torch.float32, device=dev)
+    x1, y1 = pairs[-1]
+    p = _build.ptr
+    err = _build.function("ndt2d_fixed_dot", _DOT_ARGS)(
+        p(x0), p(pairs[0][1]), p(x1), p(y1), D, x0.numel(), p(out),
+        _build.stream_ptr(dev))
+    _build.check(err, "fixed_dot")
+    launches["fixed_dot"] += 1
+    return out[:D].unbind()
+
+
+def pcg_loop(matvec, dots, pinv, fm, b, max_iter: int, tol):
+    """Block-Jacobi PCG from x = 0 on the damped product ``matvec``, right
+    hand side b [N, 3], preconditioner pinv [N, 3, 3] and free-node mask fm
+    [N], with dot products ``dots`` (``fixed_dots``: p . Ap alone, r . z
+    and r . r in one call); stops before a step where
+    sqrt(r . r) <= tol or after max_iter steps, as the reference's
+    ``lax.while_loop`` (one device->host read a step).  Returns (x [N, 3],
+    steps taken)."""
+    tiny = torch.tensor(1e-30, dtype=b.dtype, device=b.device)
+    tol = torch.tensor(tol, dtype=b.dtype, device=b.device)
+
+    def prec(r):
+        return _mv(pinv, r) * fm[:, None]
+
+    x = torch.zeros_like(b)
+    r = b - matvec(x)
+    z = prec(r)
+    p = z
+    rz, rr = dots((r, z), (r, r))
+    it = 0
+    while it < max_iter and bool(torch.sqrt(rr) > tol):
+        ap = matvec(p)
+        alpha = rz / torch.maximum(dots((p, ap))[0], tiny)
+        x = x + alpha * p
+        r = r - alpha * ap
+        z = prec(r)
+        rz_new, rr = dots((r, z), (r, r))
+        beta = rz_new / torch.maximum(rz, tiny)
+        p = z + beta * p
+        rz = rz_new
+        it += 1
+    return x, it
+
+
+def pcg_solve_twin(begin, end, baa, bab, bbb, diag, lam, fm, pinv, b,
+                   max_iter: int, tol: float, inc: Incidence):
+    """Plain-PyTorch K4 PCG solve: ``pcg_loop`` on ``pcg_matvec_twin`` and
+    ``fixed_dots_twin``.  Returns (x [N, 3], steps as a 0-d int32)."""
+    def matvec(v):
+        return pcg_matvec_twin(begin, end, baa, bab, bbb, diag, lam, fm, v,
+                               inc)
+    x, it = pcg_loop(matvec, fixed_dots_twin, pinv, fm, b, max_iter, tol)
+    return x, torch.tensor(it, dtype=torch.int32, device=b.device)
+
+
+def pcg_solve(begin, end, baa, bab, bbb, diag, lam, fm, pinv, b,
+              max_iter: int, tol: float, inc: Incidence):
+    """K4's whole PCG loop of one LM step in one launch.  begin/end [C]
+    int32, baa/bab/bbb [C, 3, 3], diag [N, 3, 3], lam 0-d, fm [N] (the
+    free-node mask as float), pinv [N, 3, 3] (the block-Jacobi inverse),
+    b [N, 3] (-g fm) f32.  Returns (x [N, 3], steps taken as a 0-d int32
+    on the device).  CPU tensors run the twin; CUDA tensors launch the
+    kernel, which raises where the card cannot launch it cooperatively."""
+    if b.device.type == "cpu":
+        return pcg_solve_twin(begin, end, baa, bab, bbb, diag, lam, fm, pinv,
+                              b, max_iter, tol, inc)
+    dev = b.device
+    N, C = b.shape[0], begin.shape[0]
+    _build.require(begin, "begin", torch.int32, (C,), dev)
+    _build.require(end, "end", torch.int32, (C,), dev)
+    for name, t in (("baa", baa), ("bab", bab), ("bbb", bbb)):
+        _build.require(t, name, torch.float32, (C, 3, 3), dev)
+    _build.require(diag, "diag", torch.float32, (N, 3, 3), dev)
+    _build.require(lam, "lam", torch.float32, (), dev)
+    _build.require(fm, "fm", torch.float32, (N,), dev)
+    _build.require(pinv, "pinv", torch.float32, (N, 3, 3), dev)
+    _build.require(b, "b", torch.float32, (N, 3), dev)
+    x = torch.empty(N, 3, dtype=torch.float32, device=dev)
+    work = torch.empty(15 * N + 3 * DOT_LANES, dtype=torch.float32,
+                       device=dev)
+    it = torch.empty((), dtype=torch.int32, device=dev)
+    p = _build.ptr
+    err = _build.function("ndt2d_pcg_solve", _PCG_ARGS)(
+        p(inc.b_ptr), p(inc.b_idx), p(inc.e_ptr), p(inc.e_idx), N, p(begin),
+        p(end), p(baa), p(bab), p(bbb), p(diag), p(lam), p(fm), p(pinv),
+        p(b), int(max_iter), float(tol), p(x), p(work), p(it),
+        _build.stream_ptr(dev))
+    _build.check(err, "pcg_solve")
+    launches["pcg_solve"] += 1
+    return x, it

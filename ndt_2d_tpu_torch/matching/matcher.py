@@ -154,8 +154,8 @@ def match_scan(config: ScanMatcherConfig, grid: ndt_grid.NDTGrid, points,
         out = _search_rows(config, row, packed_table[None], points[None],
                            point_mask[None], num_points, pose[None], mesh)
     if config.refine_iterations > 0:
-        out = k7.refine(config, grid, points, point_mask, num_points, pose,
-                        out, config.refine_iterations)
+        out = k7.refine(config, grid, packed_table, points, point_mask,
+                        num_points, pose, out, config.refine_iterations)
     res = k2.unpack(out)
     return MatchResult(res.score[0], res.correction[0], res.covariance[0])
 
@@ -228,8 +228,8 @@ def _match_rows(config: ScanMatcherConfig, poses, points, point_mask,
     out = _search_rows(config, grid, tables, query_points, query_mask,
                        query_num, start_poses, mesh)
     if config.refine_iterations > 0:
-        out = k7.refine_rows(config, grid, query_points, query_mask,
-                             query_num, start_poses, out,
+        out = k7.refine_rows(config, grid, tables, query_points,
+                             query_mask, query_num, start_poses, out,
                              config.refine_iterations)
     return out
 

@@ -249,8 +249,8 @@ def test_cli_mesh_on_cuda_needs_a_device_per_rank(tmp_path, monkeypatch):
 
 def test_unsharded_mesh_solve_is_the_single_device_pcg(meshed):
     """On a (2, 1) mesh the constraints are not split: each rank's
-    ``solve_multichip`` is the single-device PCG solve (``_pcg_iterate``,
-    K4 and a one-rank sum) on the same buckets, bitwise."""
+    ``solve_multichip`` is the single-device PCG solve (K4's host loop
+    ``pcg_loop`` and a one-rank sum) on the same buckets, bitwise."""
     ref = solver.solve(ranks.SolverConfig(max_iterations=50),
                        use_dense=False, **ranks.ring_solve_inputs())
     assert bool(ref.success)
