@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --profile   # device-time breakdown of the sessions
                                       # (synchronous and pipelined)
-    python3 chip_smoke.py --kernel-times  # K1/K2 times alone (also in an
+    python3 chip_smoke.py --kernel-times  # kernel times alone (also in an
                                           # older checkout)
 
 Phases (any failure exits non-zero):
@@ -38,7 +38,12 @@ Phases (any failure exits non-zero):
     about 21x41x41 candidates): scores and rows bitwise against the twin, each row
     bitwise equal at pad 4, pad 32 and R = 1, equal argmin and scores
     within 1e-5 against K2 on a one-cell lattice, once with G = 4, and at
-    the map merge's shape (126 angles, R = 1); K10 over a 2048 x 512 point
+    the map merge's shape (126 angles, R = 1); 241 x 241 and 301 x 301
+    lattices through the field path and coarse rows through the table
+    path (offsets wider than the staged windows, and no window), rows,
+    scores and partials bitwise, and a plan whose shared memory the card
+    refuses (the wrapper raises, counts nothing);
+    K10 over a 2048 x 512 point
     table of the office bag: its bin tables, descriptors and all-pairs
     top-k bitwise against the twins, rows of ``search_all_pairs`` bitwise
     equal to ``search_dense``, scores against a matrix product, and the
@@ -72,8 +77,11 @@ Phases (any failure exits non-zero):
     its twin; K1 at its sort's edges (every valid point of a 38,400-point
     window in one cell, 4277-point rows, a window without a valid point)
     and K2 at its range edges (512 angles x 32 x 32 offsets at R = 1 and
-    64), bitwise; K1 and K2 at the main path's shapes, and K7 at its three
-    (64 config-3 rows, config 8's match, config 2's window), timed by CUDA
+    64), bitwise; K1 and K2 at the main path's shapes, K7 at its three
+    (64 config-3 rows, config 8's match, config 2's window), K9's resample
+    at 5000 and 20,000 particles (plain and with recovery), K6 over 32
+    coarse rows and at the merge's shape, K12's K6 partials, KB3's field
+    and K3 (M = 1 on config 3's window, G = 4, 5000 poses), timed by CUDA
     events, alone on the device in a CUDA graph and by host time a call
     (``kernel_times``, the same lines as ``--kernel-times``);
  4. drive the main paths, each with the launch counts set to 0 before and
@@ -117,13 +125,20 @@ Phases (any failure exits non-zero):
     error <= 0.12 m.  Before it, [3] holds K3 over 5000 and over 20,000
     poses of the config-4 grid against its twin (bitwise, and 64 rows
     bitwise equal to their M = 1 launch) and K9's motion, resample (plain
-    and recovery), EWMAs and statistics against their twins on the same
-    scores and draws at both counts (bitwise: n_active, drawn indices,
-    first-occurrence marks, particles, weights, w_slow/w_fast, mean and
-    covariance); (e) BASELINE config 7 (run_benchmarks.py:598-657): 20,000
-    particles seeded over the free space (K5), 40 scans; the scan it
-    converged at and its final error are printed, not gated; K3-batch and
-    K9 launched every step and no twin ran; the first two steps replayed
+    and recovery), EWMAs and statistics (alone and after an injection)
+    against their twins on the same scores and draws at both counts
+    (bitwise: n_active, drawn indices, first-occurrence marks, particles,
+    weights, w_slow/w_fast, mean and covariance), and at 20,000 the
+    resample with plans the card refuses (co-residency, shared memory):
+    the wrapper raises and counts nothing; at 40,000, 200,000 and
+    1,000,000 particles (first plans the card cannot hold at once, so
+    the plan takes more chunks a block, and at 1,000,000 keeps a block's
+    items in device memory) the resample, EWMAs and statistics bitwise
+    against their twins; (e) BASELINE config 7 (run_benchmarks.py:
+    598-657): 20,000 particles seeded over the free space (K5), 40 scans;
+    the scan it converged at and its final error are printed, not gated;
+    K3-batch and K9 launched every step and no twin ran; the first two
+    steps replayed
     through the twins give the same n_active and particles bitwise;
     (h) BASELINE config 6 (run_benchmarks.py:248-303): the 2000-scan office
     bag of (c) with descriptor loop search as ``run --recipe
@@ -1189,15 +1204,16 @@ def phase_k2_edges(cfg3, bag3, dev):
           f"twin, row 0 equal across R")
 
 
-def kernel_times(dev, ident: str, map4: str, range_max: float) -> dict:
-    """K1 and K2 at the main path's shapes, the one source of their
+def kernel_times(dev, ident: str, map4: str, bag4) -> dict:
+    """Kernels at the main path's shapes, the one source of their
     comparison rows: CUDA events around back-to-back calls (``cuda_ms``,
     host launch included), alone on the device (``graph_ms``) and the
     host's time a call with the device idle (``host_us``, the median of
-    101 calls, synchronized outside the timed call): config 2's window,
-    config 8's (G = 4), 64 config-3 rows, K12's partials over those rows
-    (the first of two angle blocks) and KB1 (stripe 0 of 2 of config 4's
-    map ``map4``, loaded with ``range_max``); and K7 at its three
+    101 calls, synchronized outside the timed call): K1 and K2 at config
+    2's window, config 8's (G = 4), 64 config-3 rows, K12's partials over
+    those rows (the first of two angle blocks) and KB1 (stripe 0 of 2 of
+    config 4's map ``map4``, mapped from ``bag4``); K9, K6, K12's K6
+    partials, KB3 and K3 (``pr_times``); and K7 at its three
     shapes: 64 config-3 rows (G = 1, 8 iterations), config 8's match (G =
     4, 10 iterations) and config 2's window at R = 1 (G = 1, 10
     iterations), refining a copy of K2's rows in place call after call
@@ -1266,16 +1282,131 @@ def kernel_times(dev, ident: str, map4: str, range_max: float) -> dict:
         a = (mc, g, tab, *q) if table_k7 else (mc, g, *q)
         both(f"K7 {name}", lambda a=a, o=k2_out.clone(),
              it=mc.refine_iterations: k7.refine_rows(*a, o, it), 20)
-    m, kf = blocks_map(map4, config4_configs()[1], range_max, dev)
+    m, kf = blocks_map(map4, config4_configs()[1], bag4.range_max, dev)
     mc = m.config
     sa = dict(**kf, origin=m.grid.origin, cell_size=mc.ndt_resolution,
               width=mc.grid_cells_x, row0=0, rows=mc.grid_cells_y // 2)
     both("KB1 stripe 0 of 2", lambda: k1.build_stripe(**sa), 20)
+    pr_times(dev, ident, both, map4, bag4, m, kf, cfg, win, query)
     for name, t in out.items():
         print(f"[5] {name}: {t['cuda_ms']:.4f} ms, in a CUDA graph "
               f"{t['graph_ms']:.5f} ms, host {t['host_us']:.1f} us a call "
               f"({ident})")
     return out
+
+
+def pr_times(dev, ident, both, map4, bag4, m4, kf, cfg, win, query):
+    """The rows the K9 / K6 redesign moves, and K3, through ``both``: K9's
+    resample at config 4's 5000 and config 7's 20,000 particles, plain and
+    with recovery, its statistics and EWMA entries (``pf_case``'s inputs),
+    and the host time that making a resample's scratch would add to a
+    call (printed, ``ident`` the card); K6 over config 6's 32 coarse
+    rows and at the merge's shape (``phase_k6``'s inputs), K12's K6
+    partials over those rows (the first of two angle blocks), KB3's field
+    (a localization scan on stripe 0 of 2 of config 4's map ``m4``); K3 at
+    M = 1 on config 3's local window (the office bag's first scans), at
+    G = 4 on config 8's window (config 2's ``cfg``, ``win``, ``query``)
+    and over config 4's 5000 poses."""
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.io.bag import record_synthetic
+    from ndt_2d_tpu_torch.kernels import candidate_gather as k6
+    from ndt_2d_tpu_torch.kernels import candidate_scores as k2
+    from ndt_2d_tpu_torch.kernels import ndt_build as k1
+    from ndt_2d_tpu_torch.kernels import particle_filter as k9
+    from ndt_2d_tpu_torch.kernels import score_points as k3
+    from ndt_2d_tpu_torch.mapping import laser, merge
+    from ndt_2d_tpu_torch.matching import matcher
+    from ndt_2d_tpu_torch.parallel import matcher as pmatcher
+    m, pcfg, scan, center = pf_setup(map4, bag4, dev)
+    for M in (PARTICLES, GLOBAL_PARTICLES):
+        # K9's calls are host-bound and short: 200 of them a reading.
+        c = pf_case(m, pcfg, scan, center, M, dev)
+        both(f"K9 resample {M}", lambda a=c.args: k9.resample(*a), 200)
+        both(f"K9 resample {M}, recovery",
+             lambda a=c.args, r=c.rec: k9.resample(*a, r), 200)
+        both(f"K9 statistics {M}",
+             lambda c=c: k9.statistics(c.pm, c.sc, c.n_in), 200)
+        both(f"K9 ewma {M}",
+             lambda c=c: k9.ewma(c.sc, c.n_in, c.w0, 0.001, 0.1), 200)
+        if hasattr(k9, "_make_scratch"):  # a tree that keeps its scratch
+            pl = k9.plan(M, k9.fits_on(dev))
+            made = host_us(lambda: k9._make_scratch(M, dev, pl), 101,
+                           sync=True)
+            print(f"[5] K9 resample {M}: making its scratch (which the kept "
+                  f"scratch saves), host {made:.1f} us a call ({ident})")
+        if M == PARTICLES:
+            both(f"K3 batch M = {M}", lambda a=c.sa: k3.score_batch(*a), 20)
+
+    cfg6, bag3 = config6(), office_bag()
+    cm = cfg6.coarse_scan_matcher
+    rmax = 12.0
+    rows = coarse_rows(cfg6, bag3, dev)
+    g, tab = k1.build_windows(*rows[:4], rmax, cm.ndt_resolution,
+                              cm.grid_cells_x, cm.grid_cells_y)
+    dths, dls = matcher._search_offsets(cm, dev)
+    both(f"K6 {COARSE_ROWS} coarse rows",
+         lambda: k6.match_rows(cm, g, tab, *rows[4:], dths, dls), 10)
+    a0, n = pmatcher.angle_block(dths.shape[0], 2, 0)
+    both(f"K12 K6 partials, {COARSE_ROWS} rows, {n} of {dths.shape[0]} "
+         "angles",
+         lambda: k6.partial_rows(cm, g, tab, *rows[4:], dths, dls, a0, n),
+         10)
+    mrows = office_rows(cfg6, bag3, dev, 1, region=tuple(range(7)),
+                        shift=(0.4, -0.3, 2.5))
+    span = float(np.ptp(mrows[0][0, :, :2].cpu().numpy(), axis=0).max())
+    mm = merge._coarse_config(rmax, span)
+    md, ml = matcher._search_offsets(mm, dev)
+    mg, mtab = k1.build_windows(*mrows[:4], rmax, mm.ndt_resolution,
+                                mm.grid_cells_x, mm.grid_cells_y)
+    both(f"K6 merge shape ({md.numel()}x{ml.numel()}x{ml.numel()}, R = 1)",
+         lambda: k6.match_rows(mm, mg, mtab, *mrows[4:], md, ml), 10)
+
+    _, cfg4 = config4_configs()
+    mc4 = m4.config
+    (gs, tabs), h = stripe_of(m4, kf, 2, 0)
+    loc_bag = record_synthetic("box", MAP4_SCANS, n_beams=360, seed=7,
+                               odom_trans_noise=0.01)
+    lq, lqm, ln, lcenter = map4_scan(loc_bag, 20, cfg4, dev)
+    start = lcenter + torch.tensor([0.02, -0.01, 0.01], device=dev)
+    d4, l4 = k2.search_offsets(mc4, dev)
+    both(f"KB3 stripe field ({d4.numel()}x{l4.numel()}x{l4.numel()})",
+         lambda: k6.stripe_field(mc4, gs, tabs, 0, h, lq, lqm, ln, start, d4,
+                                 l4), 20)
+
+    # K3 at M = 1: config 3's local window of the office bag's first scans,
+    # matched by the next; and config 8's (G = 4).
+    cfg3 = office_config()
+    mc3 = cfg3.local_scan_matcher
+    D = cfg3.rolling_depth
+    pts = [laser.project_scan(bag3[t][0], bag3.range_max, np.zeros(3),
+                              False, None, cfg3.max_points_per_scan)
+           for t in range(D + 1)]
+    f32 = torch.float32
+    g3, _ = k1.build_window(
+        poses=torch.tensor(bag3.odom[:D], dtype=f32, device=dev),
+        points=torch.tensor(np.stack([p[0] for p in pts[:D]]), device=dev),
+        point_mask=torch.tensor(np.stack([p[1] for p in pts[:D]]),
+                                device=dev),
+        window_mask=torch.ones(D, dtype=torch.bool, device=dev),
+        range_max=rmax, cell_size=mc3.ndt_resolution,
+        width=mc3.grid_cells_x, height=mc3.grid_cells_y)
+    a3 = (g3, mc3.grid_cells_x, mc3.grid_cells_y, mc3.laser_max_beams,
+          torch.tensor(pts[D][0], device=dev),
+          torch.tensor(pts[D][1], device=dev), int(pts[D][1].sum()),
+          torch.tensor(bag3.odom[D], dtype=f32, device=dev))
+    both("K3 M = 1 (config 3's window)", lambda: k3.score_at_pose(*a3), 20)
+    mc8 = config8(cfg).local_scan_matcher
+    g8, _ = k1.build_window(**win, range_max=15.0,
+                            cell_size=mc8.ndt_resolution,
+                            width=mc8.grid_cells_x, height=mc8.grid_cells_y,
+                            grids=4)
+    a8 = (g8, mc8.grid_cells_x, mc8.grid_cells_y, mc8.laser_max_beams,
+          query["points"], query["point_mask"], query["num_points"],
+          query["pose"])
+    both("K3 M = 1, G = 4 (config 8's window)",
+         lambda: k3.score_at_pose(*a8), 20)
 
 
 def config8(cfg):
@@ -2024,10 +2155,9 @@ def localizer(cfg, path, dev, seed):
     return loc
 
 
-def phase_pf_kernels(path, bag4, dev):
-    """K3 over poses and K9 against their twins on the config-4 grid (the
-    loaded box map's global NDT) with the same scores and draws, at the
-    particle counts of config 4 and config 7; times at both."""
+def pf_setup(path, bag4, dev):
+    """Config 4's localizer on the saved map ``path`` (its global matcher
+    and particle filter config) and bag4's scan 40 with its truth."""
     import numpy as np
     import torch
 
@@ -2043,18 +2173,77 @@ def phase_pf_kernels(path, bag4, dev):
     scan = (torch.tensor(pts, device=dev), torch.tensor(msk, device=dev),
             int(msk.sum()))
     center = torch.tensor(rel[t], dtype=torch.float32, device=dev)
+    return loc.global_matcher, cfg.particle_filter, scan, center
+
+
+def phase_pf_kernels(path, bag4, dev):
+    """K3 over poses and K9 against their twins on the config-4 grid (the
+    loaded box map's global NDT) with the same scores and draws, at the
+    particle counts of config 4 and config 7; times at both."""
+    m, pcfg, scan, center = pf_setup(path, bag4, dev)
     out = {}
     for M, suffix in ((PARTICLES, ""),
                       (GLOBAL_PARTICLES, f"_{GLOBAL_PARTICLES}")):
-        times = pf_kernels_at(loc.global_matcher, cfg.particle_filter, scan,
-                              center, M, dev)
+        times = pf_kernels_at(m, pcfg, scan, center, M, dev)
         out.update({k + suffix: v for k, v in times.items()})
+    pf_fitted_plans(m, pcfg, scan, center, dev)
     return out
 
 
-def pf_kernels_at(m, pcfg, scan, center, M, dev):
-    """K3 over M poses around ``center`` and K9 on those scores: each
-    bitwise equal to its twin and reproducible; returns the times."""
+def pf_fitted_plans(m, pcfg, scan, center, dev):
+    """K9 at particle counts past the filter's, where the chain's first
+    plan may not fit on the card at once: 40,000 (its staged CDF leaves
+    one block an SM), 200,000 (1024 blocks of one chunk) and 1,000,000
+    (its items no longer fit in shared memory): the resample (plain and
+    with recovery), the EWMAs and the statistics bitwise against their
+    twins on ``pf_case``'s scores and draws."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import particle_filter as k9
+    said = []
+    t0 = time.perf_counter()
+    for M in (40_000, 200_000, 1_000_000):
+        c = pf_case(m, pcfg, scan, center, M, dev)
+        fits = k9.fits_on(dev)
+        first, pl = k9.plan(M), k9.plan(M, fits)
+        require(pl.blocks <= fits(pl.smem), f"K9 plan {tuple(pl)} for {M} "
+                f"particles has more blocks than the card holds at once")
+        for name, r in (("plain", None), ("recovery", c.rec)):
+            a, b = k9.resample(*c.args, r), k9.resample_twin(*c.args, r)
+            torch.cuda.synchronize()
+            for f in a._fields:
+                if getattr(a, f) is not None:
+                    require(torch.equal(getattr(a, f), getattr(b, f)),
+                            f"K9 resample ({name}, {M}): {f} differs from "
+                            "its twin")
+        ew = k9.ewma(c.sc, c.n_in, c.w0, 0.001, 0.1)
+        require(torch.equal(ew, k9.ewma_twin(c.sc, c.n_in, c.w0, 0.001,
+                                             0.1)),
+                f"K9 ewma ({M}) differs from its twin")
+        st = k9.statistics(c.pm, c.sc, c.n_in)
+        stt = k9.statistics_twin(c.pm, c.sc, c.n_in)
+        require(all(torch.equal(getattr(st, f), getattr(stt, f))
+                    for f in ("particles", "weights", "normalized", "n",
+                              "stats")),
+                f"K9 statistics ({M}) differ from the twin")
+        said.append(f"{M}: n_active {int(a.n[0])}, plan {tuple(pl)} (first "
+                    f"{tuple(first)}, {first.blocks} blocks of the "
+                    f"{fits(first.smem)} the card holds at once)")
+        del c, a, b
+    torch.cuda.synchronize()
+    print("[3] K9 past the filter's counts: resample (plain, recovery), "
+          "EWMAs and statistics bitwise equal to their twins at "
+          + "; ".join(said) + f" ({time.perf_counter() - t0:.1f} s)")
+
+
+def pf_case(m, pcfg, scan, center, M, dev):
+    """K3's and K9's inputs at M particles around ``center`` (generator
+    seed 11): K3's arguments ``sa`` and its scores ``sc`` (the kernel's),
+    the motion draws and scalars, the moved particles ``pm`` (K9's
+    motion), the resample's arguments ``args`` and its recovery ``rec``
+    (the injection over 30,000 free cells, EWMAs from ``w0``)."""
+    import types
+
     import torch
 
     from ndt_2d_tpu_torch.filter import motion_model
@@ -2068,12 +2257,42 @@ def pf_kernels_at(m, pcfg, scan, center, M, dev):
     poses = (center + torch.randn(M, 3, generator=gen, device=dev)
              * torch.tensor([0.2, 0.2, 0.05], device=dev)).contiguous()
     sa = (m.grid, W, H, B, q, qm, n, poses)
-    sc, sct = k3.score_batch(*sa), k3.score_batch_twin(*sa)
+    sc = k3.score_batch(*sa)
+    free = torch.rand(30000, 2, generator=gen, device=dev) * 8.0
+    draws = pf_mod.draw_step(gen, M, dev, free.shape[0])
+    scal = motion_model.motion_scalars(0.05, 0.002, 0.03, 0.05, 0.05, 0.05,
+                                       0.05)
+    pm = k9.motion(poses, draws.motion, scal)
+    bins = (pcfg.kld_bin_x, pcfg.kld_bin_y, pcfg.kld_bin_theta)
+    n_in = torch.tensor([M], dtype=torch.int32, device=dev)
+    inj = k9.Injection(free, 0.05, draws.inject_sel, draws.inject_idx,
+                       draws.inject_jitter, draws.inject_theta)
+    w0 = torch.tensor([0.9, 0.5], device=dev)
+    return types.SimpleNamespace(
+        poses=poses, sa=sa, sc=sc, free=free, draws=draws, scal=scal, pm=pm,
+        n_in=n_in, w0=w0, rec=k9.Recovery(w0, 0.001, 0.1, True, inj),
+        args=(sc, n_in, draws.resample, pm, bins, 0.01, 2.3,
+              pcfg.min_particles))
+
+
+def pf_kernels_at(m, pcfg, scan, center, M, dev):
+    """K3 over M poses around ``center`` and K9 on those scores: each
+    bitwise equal to its twin and reproducible; returns the times."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import particle_filter as k9
+    from ndt_2d_tpu_torch.kernels import score_points as k3
+    W, H = m.config.grid_cells_x, m.config.grid_cells_y
+    c = pf_case(m, pcfg, scan, center, M, dev)
+    q, qm, n = scan
+    sa, sc, poses = c.sa, c.sc, c.poses
+    sct = k3.score_batch_twin(*sa)
     torch.cuda.synchronize()
     require(torch.equal(sc, sct), f"K3 batch ({M} poses) differs from its "
             "twin")
     for i in range(0, M, M // 64):
-        one = k3.score_at_pose(m.grid, W, H, B, q, qm, n, poses[i])
+        one = k3.score_at_pose(m.grid, W, H, m.config.laser_max_beams, q,
+                               qm, n, poses[i])
         require(torch.equal(one, sc[i]), f"K3 batch row {i} of {M} differs "
                 "from its M = 1 launch")
     require(torch.equal(k3.score_batch(*sa), sc),
@@ -2087,22 +2306,11 @@ def pf_kernels_at(m, pcfg, scan, center, M, dev):
         *cost_score_points(m.config, m.grid, q, qm, n, poses))}
 
     # K9 on those scores, with one set of draws for kernel and twin.
-    free = torch.rand(30000, 2, generator=gen, device=dev) * 8.0
-    draws = pf_mod.draw_step(gen, M, dev, free.shape[0])
-    scal = motion_model.motion_scalars(0.05, 0.002, 0.03, 0.05, 0.05, 0.05,
-                                       0.05)
-    pm, pmt = k9.motion(poses, draws.motion, scal), \
-        k9.motion_twin(poses, draws.motion, scal)
+    draws, scal, pm, n_in, w0 = c.draws, c.scal, c.pm, c.n_in, c.w0
+    pmt = k9.motion_twin(poses, draws.motion, scal)
     torch.cuda.synchronize()
     require(torch.equal(pm, pmt), f"K9 motion ({M}) differs from its twin")
-    bins = (pcfg.kld_bin_x, pcfg.kld_bin_y, pcfg.kld_bin_theta)
-    n_in = torch.tensor([M], dtype=torch.int32, device=dev)
-    inj = k9.Injection(free, 0.05, draws.inject_sel, draws.inject_idx,
-                       draws.inject_jitter, draws.inject_theta)
-    w0 = torch.tensor([0.9, 0.5], device=dev)
-    rec = k9.Recovery(w0, 0.001, 0.1, True, inj)
-    args = (sc, n_in, draws.resample, pm, bins, 0.01, 2.3,
-            pcfg.min_particles)
+    args, rec, free = c.args, c.rec, c.free
     ns, errs = [], {}
     for name, r in (("plain", None), ("recovery", rec)):
         a, b = k9.resample(*args, r), k9.resample_twin(*args, r)
@@ -2131,11 +2339,25 @@ def pf_kernels_at(m, pcfg, scan, center, M, dev):
                 for f in ("particles", "weights", "normalized", "n", "stats")]
     require(all(torch.equal(x, y) for x, y in st_pairs),
             f"K9 statistics ({M}) differ from the twin")
+    # The statistics entry after an injection, over the first 3/4.
+    n_part = torch.tensor([3 * M // 4], dtype=torch.int32, device=dev)
+    p_inj = torch.tensor([0.3], device=dev)
+    si = k9.statistics(pm, sc, n_part, rec.injection, p_inj)
+    sit = k9.statistics_twin(pm, sc, n_part, rec.injection, p_inj)
+    torch.cuda.synchronize()
+    require(all(torch.equal(getattr(si, f), getattr(sit, f))
+                for f in ("particles", "weights", "normalized", "n", "stats")),
+            f"K9 statistics with injection ({M}) differ from the twin")
+    require(bool((si.particles != pm).any()),
+            "K9 statistics with injection injected nothing")
+    refused = pf_refusals(args, M) if M == GLOBAL_PARTICLES else ""
     print(f"[3] K9: motion, resample (n_active {ns[0]} plain, {ns[1]} with "
-          f"recovery), the EWMAs alone and statistics on {M} particles "
-          f"bitwise equal to their twins (n_active, drawn indices, "
-          f"first-occurrence marks, particles, weights, w_slow/w_fast, mean, "
-          f"covariance) and reproducible")
+          f"recovery), the EWMAs alone and statistics (alone and after an "
+          f"injection into the first {3 * M // 4}) on {M} particles bitwise "
+          f"equal to their twins (n_active, drawn indices, first-occurrence "
+          f"marks, particles, weights, w_slow/w_fast, mean, covariance) and "
+          f"reproducible; chain plan {tuple(k9.plan(M, k9.fits_on(dev)))}"
+          f"{refused}")
     # K9: motion ~40 operations a particle (odometry model, normalize);
     # resample ~60 (weights, CDF, binary search, hash, marks, statistics);
     # statistics ~40 (normalize, weighted mean and covariance).  The
@@ -2164,7 +2386,53 @@ def pf_kernels_at(m, pcfg, scan, center, M, dev):
         cuda_ms(lambda: k9.statistics(pm, sc, n_in), 20),
         cuda_ms(lambda: k9.statistics_twin(pm, sc, n_in), 3),
         nbytes(pm, sc, *[x for x, _ in st_pairs]), 40 * M)
+    # The EWMAs alone: the masked sum of M weights and two updates (~3
+    # operations a particle).  Its library yardstick is that masked sum
+    # of the negated weights as PyTorch writes it, torch.sum(torch.where(
+    # mask, -w, 0)); the two scalar updates are left out.
+    ew = k9.ewma(sc, n_in, w0, 0.001, 0.1)
+    mask = torch.arange(M, device=dev) < n_in
+    zero = torch.zeros((), device=dev)
+    out["pf_ewma"] = timed(
+        0.0, cuda_ms(lambda: k9.ewma(sc, n_in, w0, 0.001, 0.1), 20),
+        cuda_ms(lambda: k9.ewma_twin(sc, n_in, w0, 0.001, 0.1), 5),
+        nbytes(sc, n_in, w0, ew), 3 * M,
+        library_ms=cuda_ms(lambda: torch.sum(torch.where(mask, -sc, zero)),
+                           20))
     return out
+
+
+def pf_refusals(args, M: int) -> str:
+    """The resample wrapper raises, and returns nothing, where the card
+    refuses its launch: a plan of 1024 blocks (more than the card holds
+    co-resident at the staged CDF's shared memory) and a plan of four
+    blocks whose shared memory exceeds a block's 227 KB."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import particle_filter as k9
+    real = k9.plan
+    pl = real(M)
+    forged = {
+        "co-residency": pl._replace(cpb=1, blocks=1024, items=pl.L),
+        "shared memory": pl._replace(cpb=256, blocks=4, items=256 * pl.L)}
+    said = []
+    try:
+        for what, bad in forged.items():
+            k9.plan = lambda m, fits=None, bad=bad: bad
+            before = k9.launches["pf_resample"]
+            try:
+                k9.resample(*args)
+            except RuntimeError as e:
+                said.append(f"{what}: {e}")
+            else:
+                raise SmokeFailure(f"K9 resample with a refused {what} plan "
+                                   "returned")
+            require(k9.launches["pf_resample"] == before,
+                    f"K9 resample counted a refused {what} launch")
+    finally:
+        k9.plan = real
+    torch.cuda.synchronize()
+    return "; refused launches raise (" + "; ".join(said) + ")"
 
 
 class StepRecorder:
@@ -2603,6 +2871,7 @@ def phase_k6(cfg, bag, dev):
     (mo, ms), (mr, mst) = mrun(True), mtwin()
     torch.cuda.synchronize()
     check_match(mo, ms, k2.pack(mr), mst, "K6 merge shape")
+    wide = k6_wide_lattice(cm, g, tab, query, dths, dls, dev)
     print(f"[3] K6 candidate_gather: {COARSE_ROWS} office rows x "
           f"{cm.grid_cells_x}^2 cells of {cm.ndt_resolution} m x "
           f"{dths.numel()}x{dls.numel()}x{dls.numel()} candidates: scores "
@@ -2617,7 +2886,9 @@ def phase_k6(cfg, bag, dev):
           f"bitwise; merge shape "
           f"{md.numel()}x{ml.numel()}x{ml.numel()} on {mm.grid_cells_x}^2 "
           f"cells bitwise, correction "
-          f"{[round(float(x), 3) for x in mo[0, 1:4]]}")
+          f"{[round(float(x), 3) for x in mo[0, 1:4]]}; plans "
+          f"{tuple(k6.plan(dls.numel()))} (coarse), "
+          f"{tuple(k6.plan(ml.numel()))} (merge); {wide}")
     qp, qm, qn, qpose = query
     mqp, mqm, mqn, mqpose = mquery
     return {"candidate_gather": timed(
@@ -2630,6 +2901,97 @@ def phase_k6(cfg, bag, dev):
                 *cost_candidate_gather(mm, mg.origin[0], mg.cell_size,
                                        mqp[0], mqm[0], int(mqn[0]),
                                        mqpose[0], md, ml))}
+
+
+def k6_wide_lattice(cm, g, tab, query, dths, dls, dev):
+    """K6 off the coarse stage's staged windows, each case's rows, scores
+    and split-search partials bitwise against the twins: 2 rows x 2
+    angles x 241 x 241 offsets of 0.0125 m, where an angle's scores do not
+    fit in shared memory, through the field and its reduction (the
+    config's 0.1 m offsets would span 48 cells, these span 6: every beam
+    stays in its window); 2 x 2 x 301 x 301 of 0.01 m, more offsets an
+    axis than a block has threads (the widest tile, a block a pass); 4
+    coarse rows at four times the config's offsets, a lattice wider than
+    the plan's windows, so that every chunk gathers from the table; and 4
+    coarse rows with a plan forced to stage no window (winx = winy = 0),
+    the table path for every chunk.  Then the 241 lattice with a forged
+    plan that stages 64 beams at a time (over 227 KB of shared memory a
+    block): the wrapper raises, launches nothing and counts nothing."""
+    import dataclasses
+
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import candidate_gather as k6
+    from ndt_2d_tpu_torch.kernels import candidate_scores as k2
+    t0 = time.perf_counter()
+    wd = dths[:2].contiguous()
+    w2 = [t[:2] for t in query]
+    g2 = dataclasses.replace(g, origin=g.origin[:2])
+    q4 = [t[:4] for t in query]
+    g4 = dataclasses.replace(g, origin=g.origin[:4])
+
+    def both(grid, tabs, q, angles, offsets, what, a0, n):
+        (o, sc), (r, sct) = (k6.match_rows(cm, grid, tabs, *q, angles,
+                                           offsets, with_scores=True),
+                             k6.match_rows_twin(cm, grid, tabs, *q, angles,
+                                                offsets))
+        torch.cuda.synchronize()
+        check_match(o, sc, k2.pack(r), sct, f"K6 {what}")
+        part = k6.partial_rows(cm, grid, tabs, *q, angles, offsets, a0, n)
+        partt = k2.partial_rows_twin(cm, grid, tabs, *q, angles, offsets,
+                                     a0, n, k6.TILE,
+                                     k6.candidate_scores_gather)
+        require(torch.equal(part, partt), f"K6 partials ({what}) differ "
+                "from the twin")
+
+    plans = {}
+    for L, span in ((241, 1.5), (301, 1.5)):
+        wl = torch.linspace(-span, span, L, device=dev)
+        pl = k6.plan(L, True, k6.span_cells(cm, g.cell_size, L))
+        require(not pl.fused, f"K6 plan {tuple(pl)} folds a {L} x {L} "
+                "lattice in shared memory")
+        both(g2, tab[:2], w2, wd, wl, f"{L} x {L} (field path)", 1, 1)
+        plans[L] = pl
+    require(plans[301].passes > 1 and (plans[301].kx, plans[301].ky)
+            == k6.TILES[-1], f"K6 plan {tuple(plans[301])} for 301 offsets "
+            "is not the widest tile over passes")
+    L = dls.numel()
+    real = k6.plan
+    pl = real(L, True, k6.span_cells(cm, g.cell_size, L))
+    wide = (dls * 4.0).contiguous()
+    require(pl.winx * pl.winy > 0 and float(wide[-1] - wide[0])
+            > (pl.winy - 1) * g.cell_size, f"K6 coarse plan {tuple(pl)} "
+            "stages no window, or one that holds four times its span")
+    both(g4, tab[:4], q4, dths, wide, "4 rows at 4x the offsets (table "
+         "path)", 3, 5)
+    bare = pl._replace(winx=0, winy=0)
+    k6.plan = lambda *a: bare
+    try:
+        both(g4, tab[:4], q4, dths, dls, "4 rows, no window (table path)",
+             3, 5)
+    finally:
+        k6.plan = real
+    forged = plans[241]._replace(chunk=64)
+    before = k6.launches
+    k6.plan = lambda *a: forged
+    try:
+        k6.match_rows(cm, g2, tab[:2], *w2, wd,
+                      torch.linspace(-1.5, 1.5, 241, device=dev))
+    except RuntimeError as e:
+        said = str(e)
+    else:
+        raise SmokeFailure("K6 with a refused shared-memory plan returned")
+    finally:
+        k6.plan = real
+    require(k6.launches == before, "K6 counted a refused launch")
+    torch.cuda.synchronize()
+    return (f"2 x 2 x 241 x 241 (plan {tuple(plans[241])}) and 2 x 2 x 301 "
+            f"x 301 (plan {tuple(plans[301])}) through the field path, 4 "
+            f"coarse rows at 4x the offsets and with no window (plan "
+            f"{tuple(bare)}) through the table path, each bitwise with its "
+            f"partials; a plan of {k6.plan_smem(forged, 241)} bytes of "
+            f"shared memory raises ({said}; "
+            f"{time.perf_counter() - t0:.1f} s)")
 
 
 def office_table(cfg, bag, dev):
@@ -5158,7 +5520,7 @@ def main() -> int:
             map4 = os.path.join(tmp, "box_map.npz")
             bag4 = record_synthetic("box", 150, n_beams=360, seed=2)
             map_and_save(config4_configs()[0], bag4, map4, dev)
-            out = kernel_times(dev, ident, map4, bag4.range_max)
+            out = kernel_times(dev, ident, map4, bag4)
         print(json.dumps({"kernel_times": out, "card": ident}))
         return 0
     try:
@@ -5189,7 +5551,7 @@ def main() -> int:
             keyframes = map_and_save(config4_configs()[0], bag4, map4, dev)
             timing.update(phase_pf_kernels(map4, bag4, dev))
             timing.update(phase_kb(map4, bag4, dev))
-            kernel_times(dev, ident, map4, bag4.range_max)
+            kernel_times(dev, ident, map4, bag4)
             _, config2, sync_poses = phase_session(cfg, bag, dev)
             c2p_launches, _ = phase_pipelined_config2(cfg, bag, dev, config2,
                                                       sync_poses)

@@ -27,11 +27,19 @@ KB3 (``ndt_2d_tpu/parallel/ndt_blocks.py::match_scan_sharded_map``):
 ``stripe_field`` scores the lattice against one y-stripe of a sharded map
 into the raw [A, L, L] field, and ``field_partials`` reduces the stripes'
 summed field into this search's partials for ``finalize_rows``.
+
+Each launch follows ``plan``: the threads' tile of candidates, the beams
+staged at a time and the window of cell records staged a beam (from the
+lattice's span in cells, ``span_cells``); ``tests/test_torch_gather_plan.py``
+holds it on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -52,13 +60,114 @@ field_partial_launches = 0
 _FIELD_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_float] + [ctypes.c_int] * 3
                + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
                + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p]
-               + [ctypes.c_int] + [ctypes.c_void_p] * 2)
+               + [ctypes.c_int] + [ctypes.c_void_p] + [ctypes.c_int] * 9
+               + [ctypes.c_void_p])
 _FIELD_PARTIAL_ARGS = ([ctypes.c_void_p] + [ctypes.c_int]
                        + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                        + [ctypes.c_void_p] * 2)
 
-# Offsets (threads) a block of the kernel; the reduction's tile.
+# Threads a block of the kernel; offsets a tile of the reduction.
 TILE = 256
+# The thread tiles (kx dx rows x ky dy columns) the kernel is built for:
+# one pass of TILE threads covers L <= 16 and 42 offsets an axis.
+TILES = ((1, 1), (1, 7))
+STAGE_BYTES = 24576  # one stage of a chunk's windows and entries
+MAX_CHUNK = 16  # beams a chunk, at most
+SMEM_LIMIT = 232448  # shared memory a block may use on an H100 (227 KB)
+SMEM_STATIC = 384  # the kernel's static shared memory (reduce_tile's)
+
+
+class GatherPlan(NamedTuple):
+    """How K6 covers an (angle, row)'s L x L candidates: thread t = tx *
+    nyg + ty (tx < nxg) of TILE takes, in pass p, the dx rows p * nxg * kx
+    + tx + i * nxg (i < kx) and the dy columns ty + j * nyg (j < ky), those
+    below L; ``chunk`` beams are staged at a time, each with a window of
+    winx x winy cell records.  ``fused``: one block an (angle, row) runs
+    its one pass and folds the scores from shared memory; else a block a
+    pass writes its scores to the field (in device memory) that a second
+    launch folds."""
+    kx: int
+    ky: int
+    nxg: int
+    nyg: int
+    passes: int
+    chunk: int
+    fused: int
+    winx: int
+    winy: int
+
+
+def stage_bytes(pl: GatherPlan, L: int) -> int:
+    """One stage (csrc ``stage_bytes``): per beam its window's records (16
+    + 8 bytes) and its (beam, dx) and (beam, dy) entries (8 bytes), padded
+    to 16 bytes."""
+    b = pl.chunk * (24 * pl.winx * pl.winy + 8 * (pl.nxg * pl.kx + L))
+    return -(-b // 16) * 16
+
+
+def plan_smem(pl: GatherPlan, L: int) -> int:
+    """The kernel's dynamic shared memory (csrc ``smem_bytes``): two
+    stages and three chunks of beams (5 words a beam, 1 a chunk); fused,
+    the angle's L * L scores in the same bytes once the last chunk is
+    scored."""
+    return max(2 * stage_bytes(pl, L) + 12 * (5 * pl.chunk + 1),
+               4 * L * L if pl.fused else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(L: int, fold: bool = True, cells: float = 0.0) -> GatherPlan:
+    """The K6 launch plan for an L x L lattice spanning ``cells`` cells an
+    axis ((L - 1) * resolution / cell size).  ``fold`` (a search): one
+    block an (angle, row) that folds its scores - the tile of TILES with
+    the fewest candidates a thread (the most threads at work) that covers
+    the lattice in one pass, the least padding among equals.  Else (KB3's
+    field, which nothing folds): one candidate a thread, a block a pass of
+    TILE // L dx rows, so that a launch of a few angles still fills the
+    card, the scores into the field.  A lattice that no tile
+    covers in one pass, or whose scores do not fit in shared memory, also
+    goes through the field.  A beam's window holds the cells its offsets
+    reach, with a cell to spare for rounding, at most TILE cells (a thread
+    stages one); a chunk with an offset outside its beam's window (a
+    lattice wider than ``cells`` says), or a window that would not fit,
+    gathers from the table."""
+    wide = TILES[-1]
+    if not 1 <= L <= TILE * wide[1]:
+        raise ValueError(f"{L} offsets an axis is outside the kernel's "
+                         "range")
+    one = None
+    if fold:
+        for kx, ky in TILES:
+            nxg, nyg = -(-L // kx), -(-L // ky)
+            key = (kx * ky, nxg * kx * nyg * ky)
+            if nxg * nyg <= TILE and (one is None or key < one[0]):
+                one = (key, GatherPlan(kx, ky, nxg, nyg, 1, 1, 1, 0, 0))
+    if one is not None:
+        pl = one[1]
+    elif L <= TILE:  # a dy column a thread
+        pl = GatherPlan(1, 1, TILE // L, L, -(-L // (TILE // L)), 1, 0, 0, 0)
+    else:  # more offsets than threads: the widest tile
+        kx, ky = wide
+        nyg = -(-L // ky)
+        nxg = TILE // nyg
+        pl = GatherPlan(kx, ky, nxg, nyg, -(-L // (nxg * kx)), 1, 0, 0, 0)
+    xw = min(pl.nxg * pl.kx, L)
+    per = max(L - 1, 1)
+    winy = int(math.floor(cells)) + 3
+    winx = int(math.floor(cells * (xw - 1) / per)) + 3
+    if winx * winy > TILE:  # a thread stages a cell: gather instead
+        winx = winy = 0
+    pl = pl._replace(winx=winx, winy=winy)
+    chunk = max(1, min(MAX_CHUNK, STAGE_BYTES // (stage_bytes(pl, L) or 1)))
+    pl = pl._replace(chunk=chunk)
+    if pl.fused and plan_smem(pl, L) > SMEM_LIMIT - SMEM_STATIC:
+        return plan(L, False, cells)
+    return pl
+
+
+def span_cells(config, cell_size: float, L: int) -> float:
+    """The span of an L-offset lattice of ``config`` in cells of
+    ``cell_size``: the window ``plan`` stages a beam."""
+    return (L - 1) * float(config.search_linear_resolution) / float(cell_size)
 
 
 def candidate_scores_gather(config, grid: ndt_grid.NDTGrid, spts, smask,
@@ -130,12 +239,13 @@ def _launch(config, origin, cell_size: float, tables, points, point_mask,
     if points.shape[0] > 65535 or A > 65535:
         raise ValueError(f"{points.shape[0]} rows x {A} angles is outside "
                          "the kernel's launch range")
+    pl = plan(L, True, span_cells(config, cell_size, L))
     out, scores = k2.launch_rows(
         "ndt2d_candidate_gather", A * (-(-L * L // TILE)), config, origin,
         cell_size, tables, points, point_mask, nums, num, poses, dths, dls,
-        with_scores)
+        with_scores or not pl.fused, pl)
     launches += 1
-    return out, scores
+    return out, scores if with_scores else None
 
 
 def match_rows(config, grid: ndt_grid.NDTGrid, tables, points, point_mask,
@@ -191,10 +301,12 @@ def partial_rows(config, grid: ndt_grid.NDTGrid, tables, points, point_mask,
         return k2.partial_rows_twin(config, grid, tables, points, point_mask,
                                     num_points, poses, dths, dls, a0, n,
                                     TILE, candidate_scores_gather)
+    L = dls.shape[0]
+    pl = plan(L, True, span_cells(config, grid.cell_size, L))
     out = k2.launch_partials("ndt2d_candidate_gather_partials", config,
                              grid.origin, grid.cell_size, tables, points,
                              point_mask, num_points, poses, dths, dls, a0, n,
-                             blocks_per_angle(dls))
+                             blocks_per_angle(dls), pl, not pl.fused)
     partial_launches += 1
     return out
 
@@ -257,7 +369,8 @@ def stripe_field(config, stripe: ndt_grid.NDTGrid, table, row0: int,
         p(table), p(stripe.origin), float(stripe.cell_size), W, int(row0),
         int(rows), p(points), p(point_mask), P, int(num_points),
         int(config.laser_max_beams), p(pose), p(dths), A, p(dls), L,
-        p(field), _build.stream_ptr(dev))
+        p(field), *plan(L, False, span_cells(config, stripe.cell_size, L)),
+        _build.stream_ptr(dev))
     _build.check(err, "stripe_field")
     field_launches += 1
     return field

@@ -62,11 +62,16 @@ _PARTIAL_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_float]
                  + [ctypes.c_void_p] + [ctypes.c_int] * 2
                  + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
                  + [ctypes.c_void_p] + [ctypes.c_int] + [ctypes.c_void_p] * 2)
-# K2's own entries take its tile plan's five ints before the stream; K6's
-# share the signatures above.
-_TILE_ARGS = _ARGS[:-1] + [ctypes.c_int] * 5 + _ARGS[-1:]
-_TILE_PARTIAL_ARGS = _PARTIAL_ARGS[:-1] + [ctypes.c_int] * 5 \
-    + _PARTIAL_ARGS[-1:]
+
+
+def _with_plan(args: list, ints: int, field: bool = False) -> list:
+    """The signatures above with a launch plan's ``ints`` ints before the
+    stream (K2's tile plan, K6's plan), and K6's partials entry's field
+    pointer before them."""
+    return (args[:-1] + [ctypes.c_void_p] * field + [ctypes.c_int] * ints
+            + args[-1:])
+
+
 _FINALIZE_ARGS = ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4)
 # Per-angle partial of the kernel: best, best index, 10 Olson sums.
@@ -366,7 +371,7 @@ def launch_rows(symbol: str, slots: int, config, origin, cell_size: float,
                 tables, points, point_mask, nums, num: int, poses, dths,
                 dls, with_scores: bool, plan=()):
     """Check the arguments and launch the lattice search ``symbol`` (K2's
-    or K6's C entry, which share their signature up to K2's tile ``plan``
+    or K6's C entry, which share their signature up to their ``plan``
     ints before the stream) over R rows, with a scratch of ``slots``
     partials a row (tables [R, (G,) C, 32], origin [R, (G,) 2]); returns
     (out [R, 13], scores or None).  The caller counts the launch."""
@@ -392,7 +397,7 @@ def launch_rows(symbol: str, slots: int, config, origin, cell_size: float,
     scores = (torch.empty(R, A, L, L, dtype=torch.float32, device=dev)
               if with_scores else None)
     p = _build.ptr
-    err = _build.function(symbol, _TILE_ARGS if plan else _ARGS)(
+    err = _build.function(symbol, _with_plan(_ARGS, len(plan)))(
         p(tables), p(origin), G, float(cell_size), W, H, p(points),
         p(point_mask), R, P, None if nums is None else p(nums), int(num),
         int(config.laser_max_beams), p(poses), p(dths), A, p(dls), L,
@@ -517,11 +522,14 @@ def finalize_rows_twin(config, partials, num_points, dths, dls):
 
 def launch_partials(symbol: str, config, origin, cell_size: float, tables,
                     points, point_mask, num_points, poses, dths, dls,
-                    a0: int, n: int, per_angle: int, plan=()):
+                    a0: int, n: int, per_angle: int, plan=(),
+                    field=None):
     """Check the arguments and launch the partials entry ``symbol`` (K2's
-    or K6's; K2's takes its tile ``plan`` ints before the stream) over R
-    rows for angles a0 .. a0 + n - 1; returns the partials [R, n *
-    per_angle, 12].  The caller counts the launch."""
+    or K6's, each taking its ``plan`` ints before the stream) over R rows
+    for angles a0 .. a0 + n - 1; returns the partials [R, n * per_angle,
+    12].  ``field`` (K6's entry, which takes a field pointer): whether it
+    needs a scratch field [R, n, L, L] (else the pointer is null).  The
+    caller counts the launch."""
     dev = points.device
     W, H = config.grid_cells_x, config.grid_cells_y
     R, P = points.shape[0], points.shape[1]
@@ -545,12 +553,17 @@ def launch_partials(symbol: str, config, origin, cell_size: float, tables,
     partial = torch.empty(R, n * per_angle, _PARTIAL, dtype=torch.float32,
                           device=dev)
     p = _build.ptr
-    err = _build.function(symbol,
-                          _TILE_PARTIAL_ARGS if plan else _PARTIAL_ARGS)(
+    scratch = []  # K6's field pointer, held until the launch
+    if field is not None:
+        buf = (torch.empty(R, n, L, L, dtype=torch.float32, device=dev)
+               if field else None)
+        scratch = [None if buf is None else p(buf)]
+    err = _build.function(symbol, _with_plan(_PARTIAL_ARGS, len(plan),
+                                             field is not None))(
         p(tables), p(origin), G, float(cell_size), W, H, p(points),
         p(point_mask), R, P, None if nums is None else p(nums), num,
         int(config.laser_max_beams), p(poses), p(dths), int(a0), int(n),
-        p(dls), L, p(partial), *plan, _build.stream_ptr(dev))
+        p(dls), L, p(partial), *scratch, *plan, _build.stream_ptr(dev))
     _build.check(err, symbol)
     return partial
 

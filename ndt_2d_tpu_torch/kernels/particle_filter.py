@@ -12,22 +12,27 @@ sample`` and ``ndt_2d_tpu/filter/particle_filter.py::normalize_weights``,
   left on r = cdf[-1] * (1 - u)), truncated bin keys, first occurrence per
   bin in draw order, the prefix count k(m), the KLD bound and n_active;
   with recovery the w_slow/w_fast EWMAs and the free-space injection; then
-  the statistics.  One call, four launches, no host sync;
+  the statistics.  One cooperative launch (``plan``, sized by what the
+  card holds co-resident), no host sync;
 * ``statistics``: ``update_statistics`` alone (or after an injection);
 * ``ewma``: the recovery EWMAs alone (``ParticleFilter.measure``), the
-  resample's first launch.
+  resample's first phase.
 
 The random numbers come in as tensors.  Every float sum is taken in the
 kernel's fixed order (``block_sum``, ``_cdf``): the twins add in that
 order, find first occurrences as the reference does (lexsort +
-segment-min), and so agree with the kernels bitwise on the card.
+segment-min), and so agree with the kernels bitwise on the card.  The
+kernel's scratch is kept per (M, device, stream) and reused by the calls
+on that stream, which run in order; its outputs are new tensors every
+call.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -38,14 +43,23 @@ from ndt_2d_tpu_torch.ndt.grid import f32
 launches = {"pf_motion": 0, "pf_resample": 0, "pf_statistics": 0,
             "pf_ewma": 0}
 
-BLOCK = 1024  # threads of the single-block launches
+BLOCK = 1024  # chunks of every sum: the twin's and the kernel's order
+THREADS = 256  # threads a block of the cooperative chain
+SUMS = 7  # the most sums one stage of the chain folds together
+REGIONS = 13  # stages of the chain with a region of chunk sums each
+SMEM_LIMIT = 232448  # shared memory a block may use on an H100 (227 KB)
+SMEM_STATIC = 36  # the chain's static shared memory (block reductions)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_PLAN = [_P] + [_I] * 6  # the spill scratch, then ChainPlan's ints
+_FIT_ARGS = [_I, ctypes.POINTER(_I)]
 _MOTION_ARGS = [_P, _P, _I] + [_F] * 6 + [_P, _P]
 _RESAMPLE_ARGS = ([_P] * 4 + [_I] * 2 + [_F] * 5 + [_I] * 3 + [_F] * 2
-                  + [_P] * 3 + [_F] + [_P] * 4 + [_P] * 7 + [_I] + [_P] * 9)
-_STATS_ARGS = [_P] * 3 + [_I] * 2 + [_P] * 2 + [_F] + [_P] * 4 + [_P] * 6
-_EWMA_ARGS = [_P, _P, _I, _F, _F] + [_P] * 5
+                  + [_P] * 3 + [_F] + [_P] * 4 + [_P] * 5 + [_I] + [_P] * 8
+                  + _PLAN + [_P])
+_STATS_ARGS = ([_P] * 3 + [_I] * 2 + [_P] * 2 + [_F] + [_P] * 4 + [_P] * 6
+               + _PLAN + [_P])
+_EWMA_ARGS = [_P, _P, _I, _F, _F] + [_P] * 3 + _PLAN + [_P]
 
 
 class Injection(NamedTuple):
@@ -356,6 +370,130 @@ def motion(particles, noise, scalars):
     return out
 
 
+class ChainPlan(NamedTuple):
+    """How the cooperative chain covers M particles: the BLOCK chunks of L
+    items each, ``cpb`` consecutive chunks a block of THREADS threads,
+    ``blocks`` = BLOCK / cpb blocks of ``items`` = cpb * L items; the CDF
+    searched in shared memory where ``staged``; a block's item arrays in
+    device memory where ``spill`` (else in shared memory); ``smem`` the
+    dynamic shared memory of a block (bytes)."""
+    L: int
+    cpb: int
+    blocks: int
+    items: int
+    staged: int
+    spill: int
+    smem: int
+
+
+ITEM_ARRAYS = SUMS + 5  # a block's item arrays (csrc ``kItemArrays``)
+
+
+def chain_smem(M: int, cpb: int, items: int, staged: bool,
+               spill: bool = False) -> int:
+    """The chain's dynamic shared memory (csrc ``smem_bytes``): the staged
+    CDF [M], the ITEM_ARRAYS item arrays unless spilled, the scan's 2 BLOCK
+    floats, the fold's SUMS (THREADS + 1) and two chunk arrays [cpb], 4
+    bytes each."""
+    return 4 * ((M if staged else 0) + (0 if spill else ITEM_ARRAYS * items)
+                + 2 * BLOCK + SUMS * (THREADS + 1) + 2 * cpb)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(M: int, fits: Optional[Callable[[int], int]] = None) -> ChainPlan:
+    """The chain's launch plan for M particles.  It starts from the most
+    chunks a block (a power of two) with at most one item a thread, so a
+    block's items load and compute in one pass; a block keeps its items in
+    shared memory, and the CDF there too, where they fit (else the CDF is
+    searched in device memory, and then the items go to device memory).
+    ``fits(smem)`` is the number of blocks the card holds co-resident at
+    ``smem`` bytes a block (``fits``: none, no limit): while a plan's
+    blocks exceed it, the plan doubles the chunks a block."""
+    if M < 1:
+        raise ValueError(f"{M} particles: the chain needs at least one")
+    L = -(-M // BLOCK)
+    cpb = 1
+    while cpb * 2 <= BLOCK and cpb * 2 * L <= THREADS:
+        cpb *= 2
+    budget = SMEM_LIMIT - SMEM_STATIC
+    while True:
+        items = cpb * L
+        for staged, spill in ((True, False), (False, False), (True, True),
+                              (False, True)):
+            smem = chain_smem(M, cpb, items, staged, spill)
+            if smem <= budget:
+                break
+        else:
+            raise ValueError(f"{M} particles: a block's {smem} bytes of "
+                             "shared memory exceed the card's")
+        blocks = BLOCK // cpb
+        if fits is None or blocks <= fits(smem):
+            return ChainPlan(L, cpb, blocks, items, int(staged), int(spill),
+                             smem)
+        if cpb == BLOCK:
+            raise ValueError(f"{M} particles: the card holds no block of "
+                             f"{smem} bytes of shared memory co-resident")
+        cpb *= 2
+
+
+@functools.lru_cache(maxsize=None)
+def fits_on(dev) -> Callable[[int], int]:
+    """``plan``'s ``fits`` for CUDA device ``dev``: the blocks of the chain
+    it holds co-resident at a block's shared memory, asked of the card
+    once a size."""
+    @functools.lru_cache(maxsize=None)
+    def fits(smem: int) -> int:
+        blocks = _I(0)
+        with torch.cuda.device(dev):
+            err = _build.function("ndt2d_pf_chain_fit", _FIT_ARGS)(
+                smem, ctypes.byref(blocks))
+        _build.check(err, "pf_chain occupancy")
+        return blocks.value
+    return fits
+
+
+class _Scratch(NamedTuple):
+    cdf: torch.Tensor     # [M] f32
+    part: torch.Tensor    # [REGIONS, BLOCK] f32 chunk sums
+    keys: torch.Tensor    # [M, 3] i32
+    table: torch.Tensor   # [2, T] i32 owner and first draw of a slot
+    ipart: torch.Tensor   # [2 BLOCK] i32 block counts and minima
+    spill: Optional[torch.Tensor]  # [BLOCK L ITEM_ARRAYS] f32, if spilled
+
+
+def _make_scratch(M: int, dev, pl: ChainPlan) -> _Scratch:
+    """The chain's scratch for M particles on ``dev`` by plan ``pl``."""
+    f, i32 = torch.float32, torch.int32
+    T = 1 << max(2 * M - 1, 1).bit_length()
+    return _Scratch(torch.empty(M, dtype=f, device=dev),
+                    torch.empty(REGIONS, BLOCK, dtype=f, device=dev),
+                    torch.empty(M, 3, dtype=i32, device=dev),
+                    torch.empty(2, T, dtype=i32, device=dev),
+                    torch.empty(2 * BLOCK, dtype=i32, device=dev),
+                    torch.empty(BLOCK * pl.L * ITEM_ARRAYS, dtype=f,
+                                device=dev) if pl.spill else None)
+
+
+_SCRATCH: dict = {}
+
+
+def _scratch(M: int, dev, pl: ChainPlan, stream: int) -> _Scratch:
+    """The scratch of a call on ``dev``'s ``stream``, made at the first
+    and kept for the next: calls on one stream run in order, so they may
+    share it, and another stream gets its own.  PERF.md §6 gives the host
+    time that making it every call would add."""
+    key = (M, dev, stream, pl.spill)
+    s = _SCRATCH.get(key)
+    if s is None:
+        s = _SCRATCH[key] = _make_scratch(M, dev, pl)
+    return s
+
+
+def _plan_args(pl: ChainPlan, sc: _Scratch, staged: bool) -> list:
+    return [_build.ptr(sc.spill) if pl.spill else None, pl.L, pl.cpb,
+            pl.blocks, pl.items, int(staged and pl.staged), pl.spill]
+
+
 def _outputs(M: int, dev):
     return (torch.empty(M, 3, dtype=torch.float32, device=dev),
             torch.empty(M, dtype=torch.float32, device=dev),
@@ -371,7 +509,9 @@ def resample(weights, n_in, uniforms, particles, bins, kld_err: float,
     active mask (first n_in [1] int32), with the draw's uniforms [M] f32
     and bins [3] f32 (host floats or a tensor); with ``recovery`` the EWMAs
     and the injection too; then the statistics.  CPU tensors run the twin;
-    CUDA tensors launch the kernels."""
+    CUDA tensors launch the kernel, whose plan takes as many blocks as the
+    card holds co-resident; it raises where the card refuses the launch
+    (the plan's blocks or shared memory)."""
     if weights.device.type == "cpu":
         return resample_twin(weights, n_in, uniforms, particles, bins,
                              kld_err, kld_z, min_particles, recovery)
@@ -381,19 +521,14 @@ def resample(weights, n_in, uniforms, particles, bins, kld_err: float,
     _build.require(n_in, "n_in", torch.int32, (1,), dev)
     _build.require(uniforms, "uniforms", torch.float32, (M,), dev)
     _build.require(particles, "particles", torch.float32, (M, 3), dev)
+    pl = plan(M, fits_on(dev))
     bx, by, bt = [float(b) for b in bins]
-    T = 1 << max(2 * M - 1, 1).bit_length()
     levels = int(math.ceil(math.log2(M + 1)))
     f = torch.float32
-    cdf, samp_w, scal = (torch.empty(M, dtype=f, device=dev),
-                         torch.empty(M, dtype=f, device=dev),
-                         torch.empty(1, dtype=f, device=dev))
-    samp = torch.empty(M, 3, dtype=f, device=dev)
-    keys = torch.empty(M, 3, dtype=torch.int32, device=dev)
-    slot, idx = (torch.empty(M, dtype=torch.int32, device=dev),
-                 torch.empty(M, dtype=torch.int32, device=dev))
-    owner, first = (torch.empty(T, dtype=torch.int32, device=dev),
-                    torch.empty(T, dtype=torch.int32, device=dev))
+    stream = _build.stream_ptr(dev)
+    sc = _scratch(M, dev, pl, stream)
+    T = sc.table.shape[1]
+    idx = torch.empty(M, dtype=torch.int32, device=dev)
     marks = torch.empty(M, dtype=torch.bool, device=dev)
     out_p, out_w, out_wn, n_out, stats = _outputs(M, dev)
     p = _build.ptr
@@ -405,12 +540,13 @@ def resample(weights, n_in, uniforms, particles, bins, kld_err: float,
         rec = [1, int(recovery.ewma), float(recovery.alpha_slow),
                float(recovery.alpha_fast), p(recovery.w_state), p(w_state)]
     inj = _inj_args(None if recovery is None else recovery.injection, M, dev)
+    table = p(sc.table)
     err = _build.function("ndt2d_pf_resample", _RESAMPLE_ARGS)(
         p(weights), p(n_in), p(uniforms), p(particles), M, levels, bx, by,
         bt, float(kld_err), float(kld_z), int(min_particles), *rec, *inj,
-        p(cdf), p(samp), p(samp_w), p(keys), p(slot), p(owner), p(first), T,
-        p(scal), p(idx), p(marks), p(out_p), p(out_w), p(out_wn), p(n_out),
-        p(stats), _build.stream_ptr(dev))
+        p(sc.cdf), p(sc.part), p(sc.keys), table, table + 4 * T, T,
+        p(sc.ipart), p(idx), p(marks), p(out_p), p(out_w), p(out_wn),
+        p(n_out), p(stats), *_plan_args(pl, sc, True), stream)
     _build.check(err, "pf_resample")
     launches["pf_resample"] += 1
     return Resampled(out_p, out_w, out_wn, n_out, stats, w_state, idx, marks)
@@ -421,7 +557,8 @@ def ewma(weights, n_in, w_state, alpha_slow: float,
     """The recovery EWMAs alone (``ParticleFilter.measure``): w_state [2]
     f32 (w_slow, w_fast; 0 = unset) updated from raw weights [M] f32 over
     the first n_in [1] int32, in the order of ``resample``'s.  CPU tensors
-    run the twin; CUDA tensors launch the kernel."""
+    run the twin; CUDA tensors launch the kernel (or raise, as
+    ``resample``)."""
     if weights.device.type == "cpu":
         return ewma_twin(weights, n_in, w_state, alpha_slow, alpha_fast)
     dev = weights.device
@@ -430,13 +567,14 @@ def ewma(weights, n_in, w_state, alpha_slow: float,
     _build.require(weights, "weights", f, (M,), dev)
     _build.require(n_in, "n_in", torch.int32, (1,), dev)
     _build.require(w_state, "w_state", f, (2,), dev)
+    pl = plan(M, fits_on(dev))
+    stream = _build.stream_ptr(dev)
+    sc = _scratch(M, dev, pl, stream)
     out = torch.empty(2, dtype=f, device=dev)
-    cdf, scal = (torch.empty(M, dtype=f, device=dev),
-                 torch.empty(1, dtype=f, device=dev))
     p = _build.ptr
     err = _build.function("ndt2d_pf_ewma", _EWMA_ARGS)(
         p(weights), p(n_in), M, float(alpha_slow), float(alpha_fast),
-        p(w_state), p(out), p(cdf), p(scal), _build.stream_ptr(dev))
+        p(w_state), p(out), p(sc.part), *_plan_args(pl, sc, False), stream)
     _build.check(err, "pf_ewma")
     launches["pf_ewma"] += 1
     return out
@@ -447,7 +585,7 @@ def statistics(particles, weights, n_in, injection: Optional[Injection] = None,
     """update_statistics of particles [M, 3] f32 with raw weights [M] f32
     over the first n_in [1] int32; with ``injection`` (and p_inject [1]
     f32) the free-space injection first.  CPU tensors run the twin; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel (or raise, as ``resample``)."""
     if weights.device.type == "cpu":
         return statistics_twin(particles, weights, n_in, injection, p_inject)
     dev = weights.device
@@ -455,6 +593,9 @@ def statistics(particles, weights, n_in, injection: Optional[Injection] = None,
     _build.require(particles, "particles", torch.float32, (M, 3), dev)
     _build.require(weights, "weights", torch.float32, (M,), dev)
     _build.require(n_in, "n_in", torch.int32, (1,), dev)
+    pl = plan(M, fits_on(dev))
+    stream = _build.stream_ptr(dev)
+    sc = _scratch(M, dev, pl, stream)
     scal = None
     if injection is not None:
         _build.require(p_inject, "p_inject", torch.float32, (1,), dev)
@@ -464,8 +605,8 @@ def statistics(particles, weights, n_in, injection: Optional[Injection] = None,
     p = _build.ptr
     err = _build.function("ndt2d_pf_statistics", _STATS_ARGS)(
         p(particles), p(weights), p(n_in), M, int(injection is not None),
-        scal, *inj, p(out_p), p(out_w), p(out_wn),
-        p(n_out), p(stats), _build.stream_ptr(dev))
+        scal, *inj, p(sc.part), p(out_p), p(out_w), p(out_wn), p(n_out),
+        p(stats), *_plan_args(pl, sc, False), stream)
     _build.check(err, "pf_statistics")
     launches["pf_statistics"] += 1
     return Resampled(out_p, out_w, out_wn, n_out, stats)
