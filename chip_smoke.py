@@ -6,6 +6,9 @@
                                       # (synchronous and pipelined)
     python3 chip_smoke.py --kernel-times  # kernel times alone (also in an
                                           # older checkout)
+    python3 chip_smoke.py --session-times  # unprofiled ms/scan, 3 runs of
+                                           # configs 3 and 2 (also in an
+                                           # older checkout)
 
 Phases (any failure exits non-zero):
  1. require CUDA; print the card (nvidia-smi name and power limit), the
@@ -51,10 +54,16 @@ Phases (any failure exits non-zero):
     exact ties, negative limits, k = 3, 8, 20, one-row launches); the
     coarse-to-fine chain ``match_scan_batch_multi_coarse_fine`` against
     the twins' chain bitwise, with no host synchronization inside it and
-    one K1 + K6 + K1 + K2 + K7 launch a chunk; K13 (the pipelined paths'
-    pose compose and correction apply) over a 200-step chain of the
-    config-2 odometry, start poses, corrected poses and window slots
-    bitwise against the twins' chain, and across the +-pi wrap; K11 (the
+    one K1 + K6 + K1 + K2 + K7 launch a chunk; K3's single-pose launch (a
+    block a pose) on config 3's and config 8's windows at their beams and
+    at 1, 31, 32, 33, 100, 128, 129, 1000 and 1025, bitwise its twin and
+    the batched launch's rows, and its composed entry (the pipelined
+    step's start pose dead-reckoned in the same launch) bitwise its twin,
+    also across the +-pi wrap; K13 (the window append: in-place shift, new
+    scan, corrected pose) over a 200-step chain of the config-2 odometry
+    on config 2's window, start poses, corrected poses and the whole
+    window after every step bitwise against the twins' chain and the eager
+    shift it replaced; K11 (the
     correlative matcher's field build, lattice search and point score)
     bitwise against its twins and reproducible, and 64 lattice rows each
     bitwise equal to its R = 1 launch, at config-2 shapes and at the shape
@@ -87,7 +96,8 @@ Phases (any failure exits non-zero):
  4. drive the main paths, each with the launch counts set to 0 before and
     read after: (a) the 200-scan, 600-beam config-2 corridor through
     ``Mapper`` and ``run_bag`` (no loop closure) with its export: every scan
-    accepted, ATE below odometry's, K1 = K2 = K3 = accepted - 1, K5 >= 1,
+    accepted, ATE below odometry's, K1 = K2 = K3 = K13 = accepted - 1, K5
+    >= 1,
     and the first 20 scans on the GPU against the CPU twins; (b) the
     single-device PCG ``solve`` of the district, on the kernels (one
     pcg_solve launch an LM iteration) and on the twins: final RMSE below
@@ -157,7 +167,8 @@ Phases (any failure exits non-zero):
     synchronous arm: (k) config 2 with its dispatch loop under CUDA
     sync-debug "error" (no stream or device synchronization, no blocking
     copy; a drain waits on its step's event): every scan accepted, ATE
-    below odometry's, K13 launched twice a pipelined scan, the first 20
+    below odometry's, a pipelined scan one composed K3 launch, no plain K3
+    and one K13, the first 20
     poses within 0.03 of (a)'s and every pose within 0.03 m across the
     corridor and 0.01 rad in heading of (a)'s; (l) config 3: >= 1 closure and
     optimization, final ATE below odometry's; (m) config 4: the particle
@@ -276,10 +287,10 @@ KERNELS = {
                            "ndt_2d_tpu/parallel/loop_search.py:92"),
     "descriptor_search": ("ndt_2d_tpu_torch/csrc/descriptor_search.cu",
                           "ndt_2d_tpu/parallel/loop_search.py:153"),
-    "pose_compose": ("ndt_2d_tpu_torch/csrc/pose_chain.cu",
-                     "ndt_2d_tpu/matching/matcher.py:657"),
-    "pose_apply": ("ndt_2d_tpu_torch/csrc/pose_chain.cu",
-                   "ndt_2d_tpu/matching/matcher.py:665"),
+    "score_points_compose": ("ndt_2d_tpu_torch/csrc/score_points.cu",
+                             "ndt_2d_tpu/matching/matcher.py:660"),
+    "window_append": ("ndt_2d_tpu_torch/csrc/pose_chain.cu",
+                      "ndt_2d_tpu/matching/matcher.py:485"),
     "correlative_field": ("ndt_2d_tpu_torch/csrc/correlative.cu",
                           "ndt_2d_tpu/matching/correlative.py:38"),
     "correlative_match": ("ndt_2d_tpu_torch/csrc/correlative.cu",
@@ -453,13 +464,14 @@ def phase_build():
               f"stores, {ld} bytes spill loads")
 
 
-# The kernels of K1 and K2 whose registers and spills [3] prints.
+# The kernels of K1, K2, K3 and K13 whose registers and spills [3] prints.
 RESOURCE_KERNELS = ("bin_points", "bin_stripe", "sort_cells", "cell_records",
-                    "score_angles")
+                    "score_angles", "score_points_kernel", "score_pose_kernel",
+                    "window_append_kernel")
 
 
 def kernel_resources(log: str) -> dict:
-    """{K1/K2 kernel: (registers, spill store bytes, spill load bytes)}
+    """{kernel: (registers, spill store bytes, spill load bytes)}
     from nvcc's -Xptxas -v report; a template's arguments (K2's thread
     tile) follow its name.  Empty when the library was already built."""
     import re
@@ -724,7 +736,7 @@ def reset_counts():
         m.partial_launches = m.finalize_launches = 0
     score_points.batch_launches = 0
     descriptors.spectra_launches = 0
-    pose_chain.compose_launches = pose_chain.apply_launches = 0
+    pose_chain.launches = score_points.composed_launches = 0
     correlative.field_launches = correlative.match_launches = 0
     correlative.score_launches = 0
     for d in (normal_blocks.launches, particle_filter.launches):
@@ -748,8 +760,8 @@ def read_counts() -> dict:
            "candidate_gather_partials": candidate_gather.partial_launches,
            "candidate_gather_finalize": candidate_gather.finalize_launches,
            "rank_sum": shard_combine.launches,
-           "pose_compose": pose_chain.compose_launches,
-           "pose_apply": pose_chain.apply_launches,
+           "window_append": pose_chain.launches,
+           "score_points_compose": score_points.composed_launches,
            "correlative_field": correlative.field_launches,
            "correlative_match": correlative.match_launches,
            "correlative_score": correlative.score_launches,
@@ -818,7 +830,11 @@ def phase_session(cfg, bag, dev):
     numbers = session_numbers(stats, bag, dt)
     acc = stats["scans_accepted"]
     require(acc == len(bag), f"accepted {acc} of {len(bag)} scans")
-    for k in ("ndt_build", "candidate_scores", "score_points"):
+    # K13 appends every accepted scan but the first (which fills the
+    # window from the graph) to the window: one launch each, no eager
+    # shift.
+    for k in ("ndt_build", "candidate_scores", "score_points",
+              "window_append"):
         require(launches[k] == acc - 1,
                 f"{k} launched {launches[k]} times, expected {acc - 1}")
     require(launches["raymarch"] >= 1, "raymarch never launched")
@@ -1377,6 +1393,41 @@ def pr_times(dev, ident, both, map4, bag4, m4, kf, cfg, win, query):
 
     # K3 at M = 1: config 3's local window of the office bag's first scans,
     # matched by the next; and config 8's (G = 4).
+    a3, (prev, delta) = config3_window(bag3, dev)
+    both("K3 M = 1 (config 3's window)", lambda: k3.score_at_pose(*a3), 20)
+    # The pipelined step's compose and score: one launch in a tree with
+    # K3's composed entry, K13's compose then K3 in one without.
+    if hasattr(k3, "score_composed"):
+        both("K3 composed, M = 1 (config 3's window)",
+             lambda: k3.score_composed(*a3[:7], prev, delta), 20)
+    else:
+        from ndt_2d_tpu_torch.kernels import pose_chain as k13
+        both("K3 composed, M = 1 (config 3's window)",
+             lambda: k3.score_at_pose(*a3[:7], k13.compose(prev, delta)), 20)
+    k3_launch_path(dev, a3, ident)
+    mc8 = config8(cfg).local_scan_matcher
+    g8, _ = k1.build_window(**win, range_max=15.0,
+                            cell_size=mc8.ndt_resolution,
+                            width=mc8.grid_cells_x, height=mc8.grid_cells_y,
+                            grids=4)
+    a8 = (g8, mc8.grid_cells_x, mc8.grid_cells_y, mc8.laser_max_beams,
+          query["points"], query["point_mask"], query["num_points"],
+          query["pose"])
+    both("K3 M = 1, G = 4 (config 8's window)",
+         lambda: k3.score_at_pose(*a8), 20)
+    window_append_times(dev, both, win, query)
+
+
+def config3_window(bag3, dev):
+    """Config 3's local window of the office bag's first scans and the
+    next scan at its odometry pose, as K3's single-pose arguments (grid,
+    W, H, beams, points, mask, count, pose), and the (previous pose,
+    odometry delta) that compose to that pose's neighbourhood."""
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import ndt_build as k1
+    from ndt_2d_tpu_torch.mapping import laser
     cfg3 = office_config()
     mc3 = cfg3.local_scan_matcher
     D = cfg3.rolling_depth
@@ -1390,23 +1441,149 @@ def pr_times(dev, ident, both, map4, bag4, m4, kf, cfg, win, query):
         point_mask=torch.tensor(np.stack([p[1] for p in pts[:D]]),
                                 device=dev),
         window_mask=torch.ones(D, dtype=torch.bool, device=dev),
-        range_max=rmax, cell_size=mc3.ndt_resolution,
+        range_max=12.0, cell_size=mc3.ndt_resolution,
         width=mc3.grid_cells_x, height=mc3.grid_cells_y)
     a3 = (g3, mc3.grid_cells_x, mc3.grid_cells_y, mc3.laser_max_beams,
           torch.tensor(pts[D][0], device=dev),
           torch.tensor(pts[D][1], device=dev), int(pts[D][1].sum()),
           torch.tensor(bag3.odom[D], dtype=f32, device=dev))
-    both("K3 M = 1 (config 3's window)", lambda: k3.score_at_pose(*a3), 20)
-    mc8 = config8(cfg).local_scan_matcher
-    g8, _ = k1.build_window(**win, range_max=15.0,
-                            cell_size=mc8.ndt_resolution,
-                            width=mc8.grid_cells_x, height=mc8.grid_cells_y,
-                            grids=4)
-    a8 = (g8, mc8.grid_cells_x, mc8.grid_cells_y, mc8.laser_max_beams,
-          query["points"], query["point_mask"], query["num_points"],
-          query["pose"])
-    both("K3 M = 1, G = 4 (config 8's window)",
-         lambda: k3.score_at_pose(*a8), 20)
+    delta = odom_deltas(bag3.odom[D - 1:D + 1])[0]
+    return a3, (torch.tensor(bag3.odom[D - 1], dtype=f32, device=dev),
+                torch.tensor(delta, device=dev))
+
+
+def eager_window_append(window, pose, correction, points, point_mask):
+    """The eager torch operations that appended to the window before K13
+    did (four shifts through a copy, two slot copies, a fill and the
+    corrected pose into its slot): the window append's library arm."""
+    for field in (window.poses, window.points, window.point_mask,
+                  window.mask):
+        field[:-1] = field[1:].clone()
+    window.points[-1] = points
+    window.point_mask[-1] = point_mask
+    window.mask[-1:].fill_(True)
+    new_pose = pose + correction
+    window.poses[-1] = new_pose
+    return new_pose
+
+
+def window_append_times(dev, both, win, query):
+    """K13's window append at config 2's window through ``both``: this
+    tree's one launch (a tree without it: its eager shift and K13's
+    apply), and the eager torch operations alone (``eager_window_append``,
+    the same in every tree)."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import pose_chain as k13
+    from ndt_2d_tpu_torch.matching import matcher
+    D, P = win["points"].shape[:2]
+    w = matcher.make_window(D, P, dev)
+    pose, corr = query["pose"], torch.full((3,), 0.01, device=dev)
+    scan = (query["points"], query["point_mask"])
+    if hasattr(k13, "window_append"):
+        both("K13 window append (config 2's window)",
+             lambda: k13.window_append(pose, corr, w, *scan), 50)
+    else:
+        def shift_apply():
+            matcher.window_shift(w, *scan)
+            return k13.apply(pose, corr, w.poses)
+        both("K13 window append (config 2's window)", shift_apply, 50)
+    both("K13 window append, eager torch (config 2's window)",
+         lambda: eager_window_append(w, pose, corr, *scan), 50)
+
+
+def k3_launch_path(dev, a3, ident) -> dict:
+    """The host side of one K3 single-pose call at config 3's window,
+    piece by piece (``host_us``): this tree's (a plan looked up, one
+    checking pass, one ``new_empty``, the pointers, the stream, the
+    call), or
+    a tree's without plans (seven ``require`` checks, the allocation, the
+    pose's reshape, the 19-argument call, the ``out[0]`` view)."""
+    import ctypes
+
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import _build
+    from ndt_2d_tpu_torch.kernels import score_points as k3
+    g, W, H, mb, pts, msk, n, pose = a3
+    grid_t = (g.origin, g.mean, g.information, g.count)
+    f32 = torch.float32
+    pieces = {"score_at_pose": lambda: k3.score_at_pose(*a3),
+              "stream_ptr": lambda: _build.stream_ptr(dev),
+              "check": lambda: _build.check(0, "score_points")}
+    if hasattr(k3, "_plan"):
+        plan = k3._plan(g, W, 0, H, mb, pts, False)
+        tensors = (pts, msk, *grid_t, pose)
+        out = torch.empty((), dtype=f32, device=dev)
+        fn = _build.function("ndt2d_score_points", k3._ARGS)
+        ptr = [t.data_ptr() for t in tensors]
+        stream = _build.stream_ptr(dev)
+        pieces.update({
+            "_plan": lambda: k3._plan(g, W, 0, H, mb, pts, False),
+            "require_all": lambda: _build.require_all(dev, tensors,
+                                                      plan.pose),
+            "new_empty": lambda: pts.new_empty(()),
+            "data_ptr x 8": lambda: [t.data_ptr() for t in (*tensors, out)],
+            "ctypes call": lambda: fn(plan.address, ptr[0], ptr[1], n,
+                                      ptr[6], 1, *ptr[2:6],
+                                      out.data_ptr(), None, None, None,
+                                      stream)})
+    else:
+        C = W * H
+        poses = pose.reshape(1, 3)
+        out = torch.empty(1, dtype=f32, device=dev)
+        fn = _build.function("ndt2d_score_points", k3._ARGS)
+        ptr = [t.data_ptr() for t in (pts, msk, poses, *grid_t)]
+        stream = _build.stream_ptr(dev)
+        expect = ((pts, f32, (pts.shape[0], 2)), (msk, torch.bool,
+                                                   (pts.shape[0],)),
+                  (poses, f32, (1, 3)), (g.origin, f32, (2,)),
+                  (g.mean, f32, (C, 2)), (g.information, f32, (C, 3)),
+                  (g.count, torch.int32, (C,)))
+        pieces.update({
+            "require x 7": lambda: [_build.require(t, "t", d, sh, dev)
+                                    for t, d, sh in expect],
+            "torch.empty": lambda: torch.empty(1, dtype=f32, device=dev),
+            "reshape": lambda: pose.reshape(1, 3),
+            "data_ptr x 8": lambda: [t.data_ptr() for t in (
+                pts, msk, poses, *grid_t, out)],
+            "ctypes call": lambda: fn(
+                ptr[0], ptr[1], pts.shape[0], n, mb, ptr[2], 1, 1, ptr[3],
+                float(g.cell_size), W, 0, H, ptr[4], ptr[5],
+                ptr[6], 0, out.data_ptr(), stream),
+            "out[0]": lambda: out[0]})
+    us = {k: host_us(f, 2000) for k, f in pieces.items()}
+    torch.cuda.synchronize()
+    print("[5] K3 M = 1 launch path, host us a call (config 3's window): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in us.items())
+          + f" ({ident})")
+    return us
+
+
+def session_times(dev, ident, runs: int = 3) -> dict:
+    """Unprofiled ms/scan, ``runs`` runs of each session in turn: config 3
+    synchronous (the 2000-scan office loop; median over accepted scans 4
+    on), config 2 synchronous and at max_inflight 8 (the 200-scan
+    corridor; scans 4 on).  Calls only ``run_session``, so
+    ``--session-times`` in an older checkout times that checkout."""
+    import numpy as np
+    bag2, cfg2, _, _, _ = inputs(dev)
+    cfg3, bag3 = office_config(), office_bag()
+    sessions = {"config 3 synchronous": (cfg3, bag3, True),
+                "config 2 synchronous": (cfg2, bag2, False),
+                "config 2 pipelined": (pipelined(cfg2), bag2, False)}
+    out = {k: [] for k in sessions}
+    for _ in range(runs):
+        for name, (cfg, bag, accepted_only) in sessions.items():
+            _, _, dt, _, acc, _ = run_session(cfg, bag, dev)
+            dt = dt[acc] if accepted_only else dt
+            out[name].append(float(np.median(dt[4:]) * 1e3))
+    for name, ms in out.items():
+        print(f"[6] {name}: ms/scan medians of {runs} runs "
+              f"{[round(m, 4) for m in ms]}, median "
+              f"{float(np.median(ms)):.4f}, spread "
+              f"{max(ms) - min(ms):.4f} ({ident})")
+    return out
 
 
 def config8(cfg):
@@ -2462,7 +2639,8 @@ class StepRecorder:
 class TwinTrap:
     """Counts calls of the K3-batch and K9 twins while it is active."""
 
-    NAMES = {"score_points": ("score_batch_twin", "score_at_pose_twin"),
+    NAMES = {"score_points": ("score_batch_twin", "score_at_pose_twin",
+                              "score_composed_twin"),
              "particle_filter": ("motion_twin", "resample_twin",
                                  "statistics_twin")}
 
@@ -3555,66 +3733,168 @@ def odom_deltas(odom):
                      -s0 * d[:, 0] + c0 * d[:, 1], dth], 1).astype(np.float32)
 
 
-def phase_k13(bag, dev):
+def phase_k3_pose(cfg, win, query, bag3, dev):
+    """K3's single-pose launch (a block a pose) and its composed entry on
+    config 3's window and config 8's (G = 4): at the configs' beams and at
+    1, 31, 32, 33, 100, 128, 129, 1000 and 1025, each score bitwise its
+    twin and equal to the batched launch's row (a warp a pose) at the same
+    pose; the composed entry's score and pose bitwise
+    ``score_composed_twin`` (``compose_twin`` then the twin's score) and
+    the plain entry's score at that pose, also across the +-pi wrap;
+    times."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import ndt_build as k1
+    from ndt_2d_tpu_torch.kernels import score_points as k3
+    mc8 = config8(cfg).local_scan_matcher
+    g8, _ = k1.build_window(**win, range_max=15.0,
+                            cell_size=mc8.ndt_resolution,
+                            width=mc8.grid_cells_x, height=mc8.grid_cells_y,
+                            grids=4)
+    a8 = (g8, mc8.grid_cells_x, mc8.grid_cells_y, mc8.laser_max_beams,
+          query["points"], query["point_mask"], query["num_points"],
+          query["pose"])
+    a3, (prev3, delta3) = config3_window(bag3, dev)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    beams = (1, 31, 32, 33, 100, 128, 129, 1000, 1025)
+    n_checked = 0
+    for name, a in (("config 3", a3), ("config 8 (G = 4)", a8)):
+        g, W, H, mb, pts, msk, n, pose = a
+        poses = (pose + torch.randn(8, 3, generator=gen, device=dev)
+                 * 0.05).contiguous()
+        for b in (mb, *beams):
+            one = k3.score_at_pose(g, W, H, b, pts, msk, n, pose)
+            twin = k3.score_at_pose_twin(g, W, H, b, pts, msk, n, pose)
+            rows = torch.stack([k3.score_at_pose(g, W, H, b, pts, msk, n,
+                                                 poses[i])
+                                for i in range(poses.shape[0])])
+            batch = k3.score_batch(g, W, H, b, pts, msk, n, poses)
+            torch.cuda.synchronize()
+            require(torch.equal(one, twin), f"K3 {name}, {b} beams: "
+                    f"{float(one)} differs from the twin's {float(twin)}")
+            require(torch.equal(rows, batch), f"K3 {name}, {b} beams: a "
+                    "block-per-pose score differs from the warp-per-pose "
+                    "row at the same pose")
+            n_checked += 1
+        cases = [(prev3, delta3)] if name == "config 3" else [
+            (pose - torch.tensor([0.1, 0.02, 0.01], device=dev),
+             torch.tensor([0.1, 0.02, 0.01], device=dev))]
+        cases += [(torch.tensor([float(pose[0]), float(pose[1]), th],
+                                device=dev),
+                   torch.tensor([0.05, 0.01, dth], device=dev))
+                  for th, dth in ((3.13, 0.03), (-3.13, -0.03))]
+        for prev, delta in cases:
+            sc, p = k3.score_composed(g, W, H, mb, pts, msk, n, prev, delta)
+            sct, pt = k3.score_composed_twin(g, W, H, mb, pts, msk, n, prev,
+                                             delta)
+            plain = k3.score_at_pose(g, W, H, mb, pts, msk, n, p)
+            torch.cuda.synchronize()
+            require(torch.equal(p, pt) and torch.equal(sc, sct),
+                    f"K3 composed {name}: ({float(sc)}, {p.tolist()}) "
+                    f"differs from the twin's ({float(sct)}, {pt.tolist()})")
+            require(torch.equal(sc, plain), f"K3 composed {name}: the "
+                    "score differs from the plain entry's at its pose")
+            require(abs(float(p[2])) <= 3.1416, f"K3 composed {name}: "
+                    f"heading {float(p[2])} not wrapped")
+    print(f"[3] K3 a block a pose: {n_checked} (window, beams) cases at G "
+          f"= 1 and G = 4 bitwise equal to the twin and to the batched "
+          f"launch's rows at 8 poses; the composed entry's score and pose "
+          f"bitwise the twin's and the plain entry's at that pose, also "
+          f"across +-pi")
+    g, W, H, mb, pts, msk, n, pose = a3
+    # compose: prev and delta read, the pose written (36 bytes), ~70
+    # operations.
+    moved, ops = cost_score_points(office_config().local_scan_matcher, g,
+                                   pts, msk, n, pose[None])
+    return {"score_points_compose": timed(
+        0.0, cuda_ms(lambda: k3.score_composed(*a3[:7], prev3, delta3), 20),
+        cuda_ms(lambda: k3.score_composed_twin(*a3[:7], prev3, delta3), 5),
+        moved + 36, ops + 70)}
+
+
+def phase_k13(cfg, win, query, bag, dev):
     """K13 over a 200-step chain of the config-2 corridor's odometry
-    deltas, each step a compose, a window shift and an apply with a
-    lattice-sized correction: every start pose, corrected pose and window
-    slot bitwise against the twins' chain, plus two composes across the
-    +-pi wrap; times."""
+    deltas on config 2's window (10 slots of 512 points), each step K3's
+    composed entry at the window's grid (the start pose), then the window
+    append with a lattice-sized correction and a new scan: every start
+    pose, corrected pose and the whole window after every step bitwise
+    against the twins' chain (``score_composed_twin``,
+    ``window_append_twin``) and against the eager operations that
+    appended before K13 did (``eager_window_append``); the pose-only
+    append (localization) bitwise the twin's; times, the eager operations
+    as the library arm."""
     import numpy as np
     import torch
 
+    from ndt_2d_tpu_torch.kernels import ndt_build as k1
     from ndt_2d_tpu_torch.kernels import pose_chain as k13
+    from ndt_2d_tpu_torch.kernels import score_points as k3
+    from ndt_2d_tpu_torch.matching import matcher
+    mc = cfg.local_scan_matcher
+    g, _ = k1.build_window(**win, range_max=15.0,
+                           cell_size=mc.ndt_resolution,
+                           width=mc.grid_cells_x, height=mc.grid_cells_y)
+    scan = (g, mc.grid_cells_x, mc.grid_cells_y, mc.laser_max_beams,
+            query["points"], query["point_mask"], query["num_points"])
     deltas = odom_deltas(bag.odom)
     rng = np.random.default_rng(13)
     corrs = rng.uniform(-0.05, 0.05, deltas.shape).astype(np.float32)
     dt = torch.tensor(deltas, device=dev)
     ct = torch.tensor(corrs, device=dev)
+    D, P = win["points"].shape[:2]
+    new_pts = torch.tensor(rng.normal(0, 5, (len(deltas), P, 2)).astype(
+        np.float32), device=dev)
+    new_msk = torch.tensor(rng.random((len(deltas), P)) < 0.8, device=dev)
     start = torch.tensor(bag.odom[0], dtype=torch.float32, device=dev)
-    chains = []
-    for compose, apply in ((k13.compose, k13.apply),
-                           (k13.compose_twin, k13.apply_twin)):
-        win = torch.zeros(10, 3, device=dev)
-        prev, starts, news, slots = start, [], [], []
-        for i in range(len(deltas)):
-            pose = compose(prev, dt[i])
-            win[:-1] = win[1:].clone()
-            prev = apply(pose, ct[i], win)
-            starts.append(pose)
-            news.append(prev)
-            slots.append(win[-1].clone())
-        chains.append([torch.stack(x) for x in (starts, news, slots)])
-    torch.cuda.synchronize()
-    (sk, nk, wk), (st, nt, wt) = chains
-    require(torch.equal(sk, st), "K13 compose: start poses differ from the "
-            "twin's chain")
-    require(torch.equal(nk, nt), "K13 apply: corrected poses differ")
-    require(torch.equal(wk, wt) and torch.equal(wk, nk),
-            "K13 apply: window slots differ from the corrected poses")
-    for th, dth in ((3.13, 0.03), (-3.13, -0.03)):
-        prev = torch.tensor([1.0, 2.0, th], device=dev)
-        d = torch.tensor([0.1, 0.02, dth], device=dev)
-        a, b = k13.compose(prev, d), k13.compose_twin(prev, d)
-        require(torch.equal(a, b) and abs(float(a[2])) <= np.pi,
-                f"K13 compose across the wrap: {a.tolist()} {b.tolist()}")
-    print(f"[3] K13 pose_chain: {len(deltas)} steps of the config-2 "
-          f"odometry (compose, window shift, apply), start poses, corrected "
-          f"poses and window slots bitwise equal to the twins' chain; wrap "
-          f"at +-pi bitwise; final pose "
-          f"{[round(float(v), 4) for v in nk[-1]]}")
-    w = torch.zeros(10, 3, device=dev)
-    # compose: reads prev and delta, writes the pose (36 bytes); two cos,
-    # three sin/cos and an atan2 (~12 operations each) and 10 more.
-    # apply: reads the pose and the correction, writes the new pose and
-    # the window slot (48 bytes); three additions.
-    return {"pose_compose": timed(
-                0.0, cuda_ms(lambda: k13.compose(start, dt[0]), 100),
-                cuda_ms(lambda: k13.compose_twin(start, dt[0]), 50), 36,
-                70),
-            "pose_apply": timed(
-                0.0, cuda_ms(lambda: k13.apply(start, ct[0], w), 100),
-                cuda_ms(lambda: k13.apply_twin(start, ct[0], w), 50), 48,
-                3)}
+
+    def eager(pose, corr, w, pts, msk):
+        return eager_window_append(w, pose, corr, pts, msk)
+    arms = {"kernel": (k3.score_composed, k13.window_append),
+            "twin": (k3.score_composed_twin, k13.window_append_twin),
+            "eager": (k3.score_composed_twin, eager)}
+    wins = {k: matcher.make_window(D, P, dev) for k in arms}
+    prevs = {k: start for k in arms}
+    fields = ("poses", "points", "point_mask", "mask")
+    for i in range(len(deltas)):
+        out = {}
+        for k, (score, append) in arms.items():
+            _, pose = score(*scan, prevs[k], dt[i])
+            prevs[k] = append(pose, ct[i], wins[k], new_pts[i], new_msk[i])
+            out[k] = pose
+        for k in ("twin", "eager"):
+            require(torch.equal(out["kernel"], out[k]), f"K13 chain step "
+                    f"{i}: the start pose differs from the {k} arm's")
+            require(torch.equal(prevs["kernel"], prevs[k]), f"K13 chain "
+                    f"step {i}: the corrected pose differs from the {k} "
+                    "arm's")
+            require(all(torch.equal(getattr(wins["kernel"], f),
+                                    getattr(wins[k], f)) for f in fields),
+                    f"K13 chain step {i}: the window differs from the {k} "
+                    "arm's")
+    w = wins["kernel"]
+    require(bool(w.mask.all()) and torch.equal(w.poses[-1], prevs["kernel"])
+            and torch.equal(w.points[0], new_pts[-D]),
+            "K13 chain: the window does not hold the last scans")
+    a = k13.window_append(start, ct[0])
+    require(torch.equal(a, k13.window_append_twin(start, ct[0])),
+            "K13 pose-only append differs from the twin")
+    print(f"[3] K13 window append: {len(deltas)} steps of the config-2 "
+          f"odometry on a {D} x {P} window (K3's composed start pose, then "
+          f"the append), start poses, corrected poses and the whole window "
+          f"after every step bitwise equal to the twins' chain and to the "
+          f"eager shift; the pose-only append bitwise; final pose "
+          f"{[round(float(v), 4) for v in prevs['kernel']]}")
+    wt = matcher.make_window(D, P, dev)
+    args = (start, ct[0], wt, new_pts[0], new_msk[0])
+    # Each input read once, each output written once: the window (D x (3
+    # floats + P x 9 bytes + 1)) twice, the new scan, pose, correction and
+    # the new pose; three additions.
+    moved = 2 * nbytes(*(getattr(wt, f) for f in fields)) + nbytes(
+        new_pts[0], new_msk[0]) + 36
+    return {"window_append": timed(
+        0.0, cuda_ms(lambda: k13.window_append(*args), 100),
+        cuda_ms(lambda: k13.window_append_twin(*args), 50), moved, 3,
+        library_ms=cuda_ms(lambda: eager(*args), 50))}
 
 
 def corridor_scans(bag, cfg, ts):
@@ -3767,7 +4047,20 @@ def pipelined(cfg, inflight=8):
 
 
 def k13_launches(launches) -> int:
-    return launches["pose_compose"] + launches["pose_apply"]
+    return launches["window_append"]
+
+
+def check_pipelined_step(launches, steps: int, what: str) -> None:
+    """A pipelined step launches K3 once with the compose folded in (no
+    plain K3, no separate compose) and K13's window append once."""
+    require(launches["score_points_compose"] == steps
+            and launches["score_points"] == 0,
+            f"{what}: K3 launched {launches['score_points_compose']} times "
+            f"composed and {launches['score_points']} plain, expected "
+            f"{steps} and 0")
+    require(k13_launches(launches) == steps,
+            f"{what}: K13 launched {k13_launches(launches)} times, expected "
+            f"{steps}")
 
 
 def phase_pipelined_config2(cfg, bag, dev, sync_numbers, sync_poses):
@@ -3775,9 +4068,9 @@ def phase_pipelined_config2(cfg, bag, dev, sync_numbers, sync_poses):
     process_scan, the drains of older steps included) under CUDA
     sync-debug "error", so no call in it synchronizes the stream or the
     device or copies to the host blocking; a drain waits on its step's
-    event alone.  Every scan accepted, ATE below odometry's, one K1 + K3 +
-    K2 and two K13 launches a pipelined scan, the first 20 graph poses
-    within 0.03 m of the synchronous run's."""
+    event alone.  Every scan accepted, ATE below odometry's, one K1 + K2,
+    one composed K3 (no plain K3) and one K13 launch a pipelined scan, the
+    first 20 graph poses within 0.03 m of the synchronous run's."""
     import numpy as np
     import torch
 
@@ -3813,12 +4106,10 @@ def phase_pipelined_config2(cfg, bag, dev, sync_numbers, sync_poses):
     odom = metrics.ate_rmse(bag.odom, bag.truth)
     require(np.isfinite(ate) and ate < odom,
             f"pipelined config 2 ATE {ate} not below odometry's {odom}")
-    for k in ("ndt_build", "candidate_scores", "score_points"):
+    for k in ("ndt_build", "candidate_scores"):
         require(launches[k] == acc - 1, f"pipelined {k} launched "
                 f"{launches[k]} times, expected {acc - 1}")
-    require(k13_launches(launches) == 2 * (acc - 1),
-            f"K13 launched {k13_launches(launches)} times, expected "
-            f"{2 * (acc - 1)}")
+    check_pipelined_step(launches, acc - 1, "pipelined config 2")
     g = mapper.graph
     dev20 = float(np.abs(g.poses[:20] - sync_poses[:20]).max())
     require(dev20 <= 0.03, f"pipelined first 20 poses {dev20} from the "
@@ -3873,9 +4164,7 @@ def phase_pipelined_office(cfg, bag, dev, sync):
     require(st.optimizations >= 1, "pipelined config 3: no optimization")
     require(np.isfinite(final) and final < odom, f"pipelined config 3: "
             f"final ATE {final} not below odometry's {odom}")
-    require(k13_launches(launches) == 2 * (acc - 1),
-            f"pipelined config 3: K13 launched {k13_launches(launches)} "
-            f"times for {acc} accepted scans")
+    check_pipelined_step(launches, acc - 1, "pipelined config 3")
     ms = float(np.median(dt[acc_flags][4:]) * 1e3)
     print(f"[4l] config 3 at max_inflight=8: {acc}/{len(bag)} scans "
           f"accepted, {st.loop_closures_accepted} closures accepted "
@@ -4004,8 +4293,7 @@ def phase_pipelined_config4(path_map, dev, sync_ms):
     require(len(serrs) == steps and sm_mean <= 0.12,
             f"pipelined scan-match: {len(serrs)} scans, mean error "
             f"{sm_mean} m")
-    require(k13_launches(sm_launches) == 2 * len(serrs),
-            f"pipelined scan-match: K13 launches {sm_launches}")
+    check_pipelined_step(sm_launches, len(serrs), "pipelined scan-match")
     sms = float(np.median(stimes[2:]) * 1e3)
     print(f"[4m] scan-match at max_inflight=8: mean position error "
           f"{sm_mean:.4f} m, final {float(serrs[-1]):.4f} m, {sms:.3f} "
@@ -4086,8 +4374,9 @@ def phase_config9(dev):
     require(st.optimizations >= 1, "config 9: no optimization")
     require(np.isfinite(final) and final < odom,
             f"config 9: final ATE {final} not below odometry's {odom}")
-    require(k13_launches(launches) >= 2 * (len(used) - 1),
-            f"config 9: K13 launches {launches}")
+    require(k13_launches(launches) >= len(used) - 1
+            and launches["score_points_compose"] >= len(used) - 1,
+            f"config 9: K13 / composed K3 launches {launches}")
     ms = float(np.median(times[3:]) * 1e3)
     timing = st.timer.summary()
     print(f"[4n] config 9 (simlab, {n} scans through the CARMEN importer, "
@@ -4667,8 +4956,10 @@ def phase_mesh_nccl(cfg, bag, cfg6, bag3, dev, tmp):
         require(pst["loop_closures"] >= 1 and pfinal < pst["odom_ate_rmse_m"],
                 f"pipelined config 10 on the mesh: {pst['loop_closures']} "
                 f"closures, final ATE {pfinal}")
-        require(k13_launches(plaunch) >= 2 and plaunch["candidate_partials"]
-                >= 1, f"pipelined config 10 launches {plaunch}")
+        require(k13_launches(plaunch) >= 1
+                and plaunch["score_points_compose"] >= 1
+                and plaunch["candidate_partials"] >= 1,
+                f"pipelined config 10 launches {plaunch}")
         print(f"[4p] config 10 at max_inflight=8 on the mesh: "
               f"{pst['scans_accepted']} accepted, {pst['loop_closures']} "
               f"closures, final ATE {pfinal:.4f} m, "
@@ -5510,6 +5801,14 @@ def main() -> int:
         from ndt_2d_tpu_torch.device import get_device
         profile_sessions(get_device("cuda:0"))
         return 0
+    if "--session-times" in sys.argv[1:]:
+        from ndt_2d_tpu_torch.device import get_device
+        dev = get_device("cuda:0")
+        ident = phase_card()
+        phase_build()
+        print(json.dumps({"session_times": session_times(dev, ident),
+                          "card": ident}))
+        return 0
     if "--kernel-times" in sys.argv[1:]:
         from ndt_2d_tpu_torch.device import get_device
         from ndt_2d_tpu_torch.io.bag import record_synthetic
@@ -5543,7 +5842,8 @@ def main() -> int:
         timing.update(phase_k10(cfg6, bag3, dev))
         phase_chain(cfg6, bag3, dev)
         timing.update(phase_k12(cfg, win, query, cfg3, bag3, cfg6, dev))
-        timing.update(phase_k13(bag, dev))
+        timing.update(phase_k3_pose(cfg, win, query, bag3, dev))
+        timing.update(phase_k13(cfg, win, query, bag, dev))
         timing.update(phase_k11(cfg, bag, win, query, dev))
         bag4 = record_synthetic("box", 150, n_beams=360, seed=2)
         with tempfile.TemporaryDirectory() as tmp:
@@ -5609,9 +5909,9 @@ def main() -> int:
     for k in DESCRIPTOR_KERNELS:
         launches[k] = c6_launches[k]
     launches["candidate_gather_merge"] = merge_launches["candidate_gather"]
-    # K13 from the pipelined config-2 session, K11 from the correlative box
-    # drive.
-    for k in ("pose_compose", "pose_apply"):
+    # K13's window append and K3's composed entry from the pipelined
+    # config-2 session, K11 from the correlative box drive.
+    for k in ("window_append", "score_points_compose"):
         launches[k] = c2p_launches[k]
     for k in ("correlative_field", "correlative_match", "correlative_score"):
         launches[k] = corr_launches[k]

@@ -11,15 +11,35 @@
 // What bounds it on the card: the cell gathers.  Each (pose, beam) reads one
 // cell's mean, information and count (24 bytes, scattered, from a grid that
 // sits in L2) and evaluates one exp; 5000 poses x 100 beams is 0.5 M of
-// them.  At M = 1 (the uncorrected score of every scan) it is launch latency.
-// Design: one warp per pose, kWarps poses per block.  Each block stages the
-// subsampled beams in shared memory, at most kChunk at a time (they are the
-// same for every pose).  Lane l evaluates beams l, l + 32, l + 64, ... in
-// that order, summing from 0, and a fixed __shfl_down_sync tree (16, 8, 4,
-// 2, 1) adds the lanes; the normalization -sum / max(used, 1) follows in the
-// same launch.  A pose's score therefore depends neither on M nor on its
-// index, and the single-pose entry is this kernel at M = 1: a particle's
-// score and the scan's score at the same pose are the same bits.
+// them.  At M = 1 (the uncorrected score of every scan) it is latency: the
+// launch, then one dependent chain of gathers.
+//
+// Every pose's beams are summed in one order: lane l of a warp adds beams
+// l, l + 32, l + 64, ... in that order, summing from 0, and a fixed
+// __shfl_down_sync tree (16, 8, 4, 2, 1) adds the lanes; the normalization
+// -sum / max(used, 1) follows in the same launch.  A pose's score therefore
+// depends neither on M, nor on its index, nor on the layout below: a
+// particle's score and the scan's score at the same pose are the same bits.
+//
+// Two layouts.  M > 1 (the particle filter): one warp per pose, kWarps
+// poses per block; each block stages the subsampled beams in shared memory,
+// at most kChunk at a time (they are the same for every pose), and lane l
+// evaluates its beams one after another.  M = 1 (score_at_pose, and the
+// G = 4 grids of config 8): the pose gets a whole block.  Its threads
+// evaluate up to kPoseThreads slots a pass at once, thread t slot
+// base + t, each term's G grid gathers issued together (the grid loop is
+// unrolled for G = 1 and 4), and stage the terms in shared memory; warp 0
+// then adds them in the order above, lane l slots l, l + 32, ... of the
+// pass, while the other warps go on to the next pass (two buffers, one
+// barrier a pass).  Only the arithmetic runs in parallel; every addition
+// keeps its place.
+//
+// The pipelined step's start pose (K13's compose, matcher.py::
+// mapping_step_async :660-664, localization_step_async :691-695) can be
+// folded into the single-pose launch: given (prev, delta), every thread
+// dead-reckons the pose with pose_chain.cu's expressions (the same cosf /
+// sinf / atan2f, the same order), thread 0 writes it to pose_out for the
+// search that follows, and the score uses it.
 //
 // KB2, the stripe scores: one device's share of the scoring against a
 // y-stripe-sharded map, ndt_2d_tpu/parallel/ndt_blocks.py::
@@ -37,21 +57,75 @@
 namespace {
 
 constexpr int kWarps = 8;
-constexpr int kChunk = 1024;  // most beams staged in shared memory at once
+constexpr int kChunk = 1024;        // most beams staged in shared memory
+constexpr int kPoseThreads = 128;   // slots a pass of the block-per-pose
 
-__global__ void score_points_kernel(
-    const float* __restrict__ points, const uint8_t* __restrict__ pmask,
-    int P, int num_points, int max_beams, int slots, int chunk,
-    const float* __restrict__ poses, int M, int G,
-    const float* __restrict__ origin, float cell, int W, int row0, int h,
-    const float* __restrict__ mean,
-    const float* __restrict__ info, const int* __restrict__ count,
-    int raw, float* __restrict__ out) {
+// The launch's constants, set once a shape by the wrapper
+// (kernels/score_points.py::_Args, field for field).
+struct ScoreArgs {
+  int P, max_beams, G, W, row0, h, raw;
+  float cell;
+};
+
+struct Grids {
+  const float* origin;
+  const float* mean;
+  const float* info;
+  const int* count;
+  size_t C;
+};
+
+// A beam's term at world point (wx, wy): grid 0's clamped Gaussian, or the
+// mean of the G grids' summed from 0 in grid order.  NG > 0 fixes the grid
+// count at compile time (the loop unrolls and its gathers issue together);
+// NG = 0 reads it from the arguments.
+template <int NG>
+__device__ __forceinline__ float beam_term(float wx, float wy, bool used,
+                                           const ScoreArgs& a,
+                                           const Grids& g) {
+  const int G = NG > 0 ? NG : a.G;
+  float term = 0.f;
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    const float ox = g.origin[2 * k], oy = g.origin[2 * k + 1];
+    const float* gmean = g.mean + k * g.C * 2;
+    const float* ginfo = g.info + k * g.C * 3;
+    const int ix = (int)floorf((wx - ox) / a.cell);
+    const int iy = (int)floorf((wy - oy) / a.cell);
+    const bool valid = used && ix >= 0 && ix < a.W && iy >= a.row0 &&
+                       iy < a.row0 + a.h;
+    const int f = valid ? (iy - a.row0) * a.W + ix : 0;
+    const float qx = wx - gmean[2 * f];
+    const float qy = wy - gmean[2 * f + 1];
+    const float e = -0.5f * (ginfo[3 * f] * qx * qx +
+                             2.f * ginfo[3 * f + 1] * qx * qy +
+                             ginfo[3 * f + 2] * qy * qy);
+    const float sc = expf(fminf(e, 0.f));
+    const float v = (valid && g.count[k * g.C + f] >= 5) ? sc : 0.f;
+    term = G == 1 ? v : term + v;
+  }
+  if (G > 1) term = term / (float)G;
+  return term;
+}
+
+__device__ __forceinline__ float lanes_tree(float acc) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_down_sync(0xffffffffu, acc, off);
+  return acc;
+}
+
+__global__ void score_points_kernel(ScoreArgs a,
+                                    const float* __restrict__ points,
+                                    const uint8_t* __restrict__ pmask,
+                                    int num_points, int slots, int chunk,
+                                    const float* __restrict__ poses, int M,
+                                    Grids g, float* __restrict__ out) {
   extern __shared__ float sbeam[];  // [3, chunk]: x, y, in-use flag
   float* sx = sbeam;
   float* sy = sx + chunk;
   float* sv = sy + chunk;
-  const ndt2d::Subsample sub(num_points, max_beams);
+  const ndt2d::Subsample sub(num_points, a.max_beams);
   const int lane = threadIdx.x & 31;
   const int m = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const bool active = m < M;  // whole warps; every thread stages beams
@@ -62,7 +136,6 @@ __global__ void score_points_kernel(
     c = cosf(poses[3 * m + 2]);
     s = sinf(poses[3 * m + 2]);
   }
-  const size_t C = (size_t)W * h;
   float acc = 0.f;
   for (int base = 0; base < slots; base += chunk) {
     const int n = min(chunk, slots - base);
@@ -70,8 +143,8 @@ __global__ void score_points_kernel(
     for (int j = threadIdx.x; j < n; j += blockDim.x) {
       const int i = base + j;
       float x = 0.f, y = 0.f, v = 0.f;
-      if (i < max_beams) {
-        const int idx = sub.index(i, num_points, P);
+      if (i < a.max_beams) {
+        const int idx = sub.index(i, num_points, a.P);
         x = points[2 * idx];
         y = points[2 * idx + 1];
         v = (i < sub.used && pmask[idx]) ? 1.f : 0.f;
@@ -86,59 +159,120 @@ __global__ void score_points_kernel(
       const float px = sx[j], py = sy[j];
       const float wx = c * px - s * py + px0;
       const float wy = s * px + c * py + py0;
-      float term = 0.f;  // the beam's score: grid 0's, or the grids' mean
-      for (int g = 0; g < G; ++g) {
-        const float ox = origin[2 * g], oy = origin[2 * g + 1];
-        const float* gmean = mean + g * C * 2;
-        const float* ginfo = info + g * C * 3;
-        const int ix = (int)floorf((wx - ox) / cell);
-        const int iy = (int)floorf((wy - oy) / cell);
-        const bool valid = sv[j] != 0.f && ix >= 0 && ix < W &&
-                           iy >= row0 && iy < row0 + h;
-        const int f = valid ? (iy - row0) * W + ix : 0;
-        const float qx = wx - gmean[2 * f];
-        const float qy = wy - gmean[2 * f + 1];
-        const float e = -0.5f * (ginfo[3 * f] * qx * qx +
-                                 2.f * ginfo[3 * f + 1] * qx * qy +
-                                 ginfo[3 * f + 2] * qy * qy);
-        const float sc = expf(fminf(e, 0.f));
-        const float v = (valid && count[g * C + f] >= 5) ? sc : 0.f;
-        term = G == 1 ? v : term + v;
-      }
-      if (G > 1) term = term / (float)G;
-      acc += term;
+      acc += beam_term<0>(wx, wy, sv[j] != 0.f, a, g);
     }
   }
   if (!active) return;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
-  if (lane == 0) out[m] = raw ? -acc : -acc / (float)max(sub.used, 1);
+  acc = lanes_tree(acc);
+  if (lane == 0) out[m] = a.raw ? -acc : -acc / (float)max(sub.used, 1);
+}
+
+// One pose, one block: thread t evaluates slot base + t of each pass into
+// sterm[pass & 1]; after the pass's barrier warp 0 adds the pass's slots,
+// lane l slots l, l + 32, ... in order, so across passes lane l adds slots
+// l, l + 32, l + 64, ... as score_points_kernel's lane l does.  With prev
+// non-null the pose is dead-reckoned from (prev, delta) first.
+template <int NG>
+__global__ void __launch_bounds__(kPoseThreads) score_pose_kernel(
+    ScoreArgs a, const float* __restrict__ points,
+    const uint8_t* __restrict__ pmask, int num_points, int slots,
+    const float* __restrict__ pose, const float* __restrict__ prev,
+    const float* __restrict__ delta, float* __restrict__ pose_out, Grids g,
+    float* __restrict__ out) {
+  __shared__ float sterm[2][kPoseThreads];
+  float px0, py0, th;
+  if (prev != nullptr) {  // pose_chain.cu's compose, expression for expression
+    const float c0 = cosf(prev[2]), s0 = sinf(prev[2]);
+    const float t = prev[2] + delta[2];
+    px0 = prev[0] + c0 * delta[0] - s0 * delta[1];
+    py0 = prev[1] + s0 * delta[0] + c0 * delta[1];
+    th = atan2f(sinf(t), cosf(t));
+    if (threadIdx.x == 0) {
+      pose_out[0] = px0;
+      pose_out[1] = py0;
+      pose_out[2] = th;
+    }
+  } else {
+    px0 = pose[0];
+    py0 = pose[1];
+    th = pose[2];
+  }
+  const float c = cosf(th), s = sinf(th);
+  const ndt2d::Subsample sub(num_points, a.max_beams);
+  const int lane = threadIdx.x & 31;
+  const int T = blockDim.x;
+  float acc = 0.f;
+  int buf = 0;
+  for (int base = 0; base < slots; base += T, buf ^= 1) {
+    const int i = base + threadIdx.x;
+    float term = 0.f;
+    if (i < a.max_beams) {
+      const int idx = sub.index(i, num_points, a.P);
+      const float px = points[2 * idx], py = points[2 * idx + 1];
+      const float wx = c * px - s * py + px0;
+      const float wy = s * px + c * py + py0;
+      term = beam_term<NG>(wx, wy, i < sub.used && pmask[idx], a, g);
+    }
+    sterm[buf][threadIdx.x] = term;
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      const int n = min(T, slots - base);
+      for (int j = lane; j < n; j += 32) acc += sterm[buf][j];
+    }
+  }
+  if (threadIdx.x >= 32) return;
+  acc = lanes_tree(acc);
+  if (lane == 0) out[0] = a.raw ? -acc : -acc / (float)max(sub.used, 1);
 }
 
 }  // namespace
 
-// points [P,2] f32, pmask [P] u8, poses [M,3] f32; G grids holding the rows
-// [row0, row0 + h) of a W-wide map: origin [G,2] f32 (the map's), mean
-// [G,h*W,2] f32, info [G,h*W,3] f32, count [G,h*W] i32 -> out [M] f32:
-// -sum / max(used, 1), or the raw -sum when raw != 0.
-NDT2D_API int ndt2d_score_points(const void* points, const void* pmask, int P,
-                                 int num_points, int max_beams,
-                                 const void* poses, int M, int G,
-                                 const void* origin, float cell, int W,
-                                 int row0, int h, const void* mean,
-                                 const void* info, const void* count, int raw,
-                                 void* out, void* stream) {
-  const int slots = ((max_beams + 31) / 32) * 32;
+// args: the launch's constants (ScoreArgs).  points [P,2] f32, pmask [P]
+// u8; G grids holding the rows [row0, row0 + h) of a W-wide map: origin
+// [G,2] f32 (the map's), mean [G,h*W,2] f32, info [G,h*W,3] f32, count
+// [G,h*W] i32 -> out [M] f32: -sum / max(used, 1), or the raw -sum when
+// raw != 0.  M > 1 scores poses [M,3] f32, a warp each.  M = 1 scores one
+// pose in one block: poses [3] f32, or, when prev is non-null, the pose
+// dead-reckoned from prev [3] and delta [3] f32, also written to
+// pose_out [3] f32.
+NDT2D_API int ndt2d_score_points(const void* args, const void* points,
+                                 const void* pmask, int num_points,
+                                 const void* poses, int M, const void* origin,
+                                 const void* mean, const void* info,
+                                 const void* count, void* out,
+                                 const void* prev, const void* delta,
+                                 void* pose_out, void* stream) {
+  const ScoreArgs a = *static_cast<const ScoreArgs*>(args);
+  const int slots = ((a.max_beams + 31) / 32) * 32;
+  const Grids g{static_cast<const float*>(origin),
+                static_cast<const float*>(mean),
+                static_cast<const float*>(info),
+                static_cast<const int*>(count), (size_t)a.W * a.h};
+  const auto pts = static_cast<const float*>(points);
+  const auto pm = static_cast<const uint8_t*>(pmask);
+  const auto po = static_cast<const float*>(poses);
+  const auto st = reinterpret_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  if (M == 1) {
+    const int T = slots < kPoseThreads ? (slots > 32 ? slots : 32)
+                                       : kPoseThreads;
+    const auto pv = static_cast<const float*>(prev);
+    const auto dl = static_cast<const float*>(delta);
+    float* pw = static_cast<float*>(pose_out);
+    if (a.G == 1)
+      score_pose_kernel<1><<<1, T, 0, st>>>(a, pts, pm, num_points, slots,
+                                            po, pv, dl, pw, g, o);
+    else if (a.G == 4)
+      score_pose_kernel<4><<<1, T, 0, st>>>(a, pts, pm, num_points, slots,
+                                            po, pv, dl, pw, g, o);
+    else
+      score_pose_kernel<0><<<1, T, 0, st>>>(a, pts, pm, num_points, slots,
+                                            po, pv, dl, pw, g, o);
+    return (int)cudaGetLastError();
+  }
   const int chunk = slots < kChunk ? (slots > 32 ? slots : 32) : kChunk;
   const size_t smem = (size_t)3 * chunk * sizeof(float);
-  score_points_kernel<<<(M + kWarps - 1) / kWarps, 32 * kWarps, smem,
-                        reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(points), static_cast<const uint8_t*>(pmask),
-      P, num_points, max_beams, slots, chunk,
-      static_cast<const float*>(poses), M, G,
-      static_cast<const float*>(origin), cell, W, row0, h,
-      static_cast<const float*>(mean), static_cast<const float*>(info),
-      static_cast<const int*>(count), raw, static_cast<float*>(out));
+  score_points_kernel<<<(M + kWarps - 1) / kWarps, 32 * kWarps, smem, st>>>(
+      a, pts, pm, num_points, slots, chunk, po, M, g, o);
   return (int)cudaGetLastError();
 }

@@ -168,6 +168,18 @@ def require(t, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
+def require_all(device, tensors, expect) -> None:
+    """``require`` for each tensor against its (name, dtype, shape) in
+    ``expect``, in one pass of cheap comparisons (the device by its index,
+    without making a ``torch.device`` a tensor); the first that differs
+    raises with ``require``'s message."""
+    index = -1 if device.type == "cpu" else device.index
+    for t, (name, dtype, shape) in zip(tensors, expect):
+        if (t.dtype is not dtype or t.shape != shape
+                or t.get_device() != index or not t.is_contiguous()):
+            require(t, name, dtype, shape, device)
+
+
 def check(err: int, what: str) -> None:
     """Raise if a launch returned a CUDA error."""
     if err != 0:

@@ -1,28 +1,34 @@
-"""K13: the pipelined paths' pose chain on the device (CUDA
-``csrc/pose_chain.cu``) and its twins.
+"""K13: the rolling window's append, with the pipelined paths' corrected
+pose (CUDA ``csrc/pose_chain.cu``), and its twins.
 
-Replaces the pose arithmetic of ``ndt_2d_tpu/matching/matcher.py::
-mapping_step_async`` (:657-666) and ``localization_step_async``
-(:697-705): ``compose`` dead-reckons the step's start pose from the
-previous corrected pose and the odometry motion in the previous robot
-frame; ``apply`` adds the search's correction and, while mapping, writes
-the corrected pose into the rolling window's newest slot.  Both read and
-write device tensors only, so a step needs no host read.  The twins are
-the same float32 expressions as eager torch operations; the kernel is
-built with ``-fmad=false``, so on the same CUDA inputs the two agree
-bitwise.
+Replaces ``ndt_2d_tpu/matching/matcher.py::window_append`` (:485-493) and
+the pose arithmetic of ``mapping_step_async`` (:668-669) and
+``localization_step_async`` (:699): ``window_append`` adds the search's
+correction to the step's pose where one is given, and shifts the rolling
+window left by one scan IN PLACE, the new scan and that pose in its last
+slot, all in one launch.  Without a window it writes the corrected pose
+alone (localization).  The step's start pose (``compose_twin``, JAX's
+:660-664 and :691-695) is dead-reckoned inside K3's single-pose launch
+(``score_points.score_composed``), so a pipelined step needs no host read
+and no launch of its own for it.  The twins are the same float32
+expressions as eager torch operations; the kernel is built with
+``-fmad=false``, so on the same CUDA inputs the two agree bitwise.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ndt_2d_tpu_torch.kernels import _build
 
-compose_launches = 0
-apply_launches = 0
+launches = 0
+
+# pose, correction, new_pose, the window's poses, points, point mask and
+# mask, the new points and point mask, D, P, stream.
+_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
 def compose_twin(prev, delta):
@@ -34,58 +40,69 @@ def compose_twin(prev, delta):
                         torch.atan2(torch.sin(th), torch.cos(th))])
 
 
-def apply_twin(pose, correction, window_poses=None):
-    """Plain-PyTorch apply: pose + correction [3]; with ``window_poses``
-    [D, 3] the result also goes into its last row (in place)."""
-    new_pose = pose + correction
-    if window_poses is not None:
-        window_poses[-1] = new_pose
-    return new_pose
+def window_append_twin(pose, correction=None, window=None, points=None,
+                       point_mask=None):
+    """Plain-PyTorch ``window_append``: v = pose + correction (or pose);
+    with ``window`` each of its fields becomes JAX's concatenation of its
+    slots 1.. and the new slot (v, points, point_mask, True), written back
+    in place.  Returns v when a correction is given, else None."""
+    v = pose if correction is None else pose + correction
+    if window is not None:
+        one = torch.ones((), dtype=torch.bool, device=pose.device)
+        for field, new in ((window.poses, v), (window.points, points),
+                           (window.point_mask, point_mask),
+                           (window.mask, one)):
+            field.copy_(torch.cat([field[1:], new[None]]))
+    return None if correction is None else v
 
 
-def _check3(dev, **tensors):
-    for name, t in tensors.items():
-        _build.require(t, name, torch.float32, (3,), dev)
+@functools.lru_cache(maxsize=None)
+def _expect(corrected: bool, D: int, P: int):
+    """The (name, dtype, shape) of each tensor of a launch: the pose, the
+    correction if given, and with D > 0 the window's fields and the new
+    scan."""
+    f32, b = torch.float32, torch.bool
+    out = (("pose", f32, (3,)),)
+    if corrected:
+        out += (("correction", f32, (3,)),)
+    if D:
+        out += (("window.poses", f32, (D, 3)),
+                ("window.points", f32, (D, P, 2)),
+                ("window.point_mask", b, (D, P)), ("window.mask", b, (D,)),
+                ("points", f32, (P, 2)), ("point_mask", b, (P,)))
+    return out
 
 
-def compose(prev, delta):
-    """The step's start pose from the previous corrected pose ``prev`` [3]
-    and the odometry motion ``delta`` [3] in prev's robot frame (float32).
-    CPU tensors run the twin; CUDA tensors launch the kernel."""
-    global compose_launches
-    if prev.device.type == "cpu":
-        return compose_twin(prev, delta)
-    dev = prev.device
-    _check3(dev, prev=prev, delta=delta)
-    pose = torch.empty(3, dtype=torch.float32, device=dev)
-    p = _build.ptr
-    err = _build.function("ndt2d_pose_compose", [ctypes.c_void_p] * 4)(
-        p(prev), p(delta), p(pose), _build.stream_ptr(dev))
-    _build.check(err, "pose_compose")
-    compose_launches += 1
-    return pose
-
-
-def apply(pose, correction, window_poses=None):
-    """pose [3] + correction [3] (a view of the search's output row) into
-    a new [3] tensor, also written into the last row of ``window_poses``
-    [D, 3] when given.  CPU tensors run the twin; CUDA tensors launch the
+def window_append(pose, correction=None, window=None, points=None,
+                  point_mask=None):
+    """The step's pose [3] f32 plus ``correction`` [3] (a view of the
+    search's output row) when given; with ``window`` (a rolling window:
+    poses [D, 3] f32, points [D, P, 2] f32, point_mask [D, P] bool, mask
+    [D] bool) that pose, ``points`` [P, 2] f32 and ``point_mask`` [P] bool
+    appended as its newest slot, the window shifted left IN PLACE.
+    Returns the corrected pose as a new [3] tensor when a correction is
+    given, else None.  CPU tensors run the twin; CUDA tensors launch the
     kernel."""
-    global apply_launches
-    if pose.device.type == "cpu":
-        return apply_twin(pose, correction, window_poses)
+    global launches
     dev = pose.device
-    _check3(dev, pose=pose, correction=correction)
-    slot = None
-    if window_poses is not None:
-        _build.require(window_poses, "window_poses", torch.float32,
-                       (window_poses.shape[0], 3), dev)
-        slot = window_poses[-1]
-    new_pose = torch.empty(3, dtype=torch.float32, device=dev)
-    p = _build.ptr
-    err = _build.function("ndt2d_pose_apply", [ctypes.c_void_p] * 5)(
-        p(pose), p(correction), p(new_pose),
-        None if slot is None else p(slot), _build.stream_ptr(dev))
-    _build.check(err, "pose_apply")
-    apply_launches += 1
+    if dev.type == "cpu":
+        return window_append_twin(pose, correction, window, points,
+                                  point_mask)
+    corrected = correction is not None
+    given = (pose, correction) if corrected else (pose,)
+    D = P = 0
+    scan = (None,) * 6
+    if window is not None:
+        D, P = window.points.shape[:2]
+        scan = (window.poses, window.points, window.point_mask, window.mask,
+                points, point_mask)
+        given += scan
+    _build.require_all(dev, given, _expect(corrected, D, P))
+    new_pose = pose.new_empty(3) if corrected else None
+    ptrs = [None if t is None else t.data_ptr()
+            for t in (pose, correction, new_pose, *scan)]
+    err = _build.function("ndt2d_window_append", _ARGS)(
+        *ptrs, D, P, _build.stream_ptr(dev))
+    _build.check(err, "window_append")
+    launches += 1
     return new_pose

@@ -6,12 +6,18 @@ Replaces ``ndt_2d_tpu/matching/matcher.py::score_points_at_pose`` ->
 grid), and ``matcher.py::score_points_batch``, its ``jax.vmap`` over poses
 (the particle filter's measurement): subsample, transform, cell lookup,
 clamped Gaussian, then -sum / max(used, 1).  ``score_batch`` is one launch
-over M poses; ``score_at_pose`` is the same launch at M = 1, so a pose's
-score is the same bits through either entry.
+over M poses, a warp each; ``score_at_pose`` gives its one pose a whole
+block.  ``score_composed`` is ``score_at_pose`` at the pose K13's compose
+dead-reckons (``matcher.py::mapping_step_async`` :660-664,
+``localization_step_async`` :691-695), in the same launch, and returns
+that pose too.
 
-The beams of a pose are summed in the kernel's order: lane l of a warp adds
-beams l, l + 32, ... from 0, then lanes combine by halving (16, 8, 4, 2, 1).
-The twin adds in that order too, so kernel and twin agree bitwise.
+The beams of a pose are summed in one order whatever the launch: lane l of
+a warp adds beams l, l + 32, ... from 0, then lanes combine by halving
+(16, 8, 4, 2, 1).  The twin adds in that order too, so kernel and twin
+agree bitwise, and a pose's score is the same bits through every entry
+(``block_order_sum`` models how the block-per-pose launch keeps that
+order).
 
 A grid with a grid axis (the four overlapping grids: origin [4, 2], mean
 [4, C, 2], ...) scores each beam as the mean over its grids, summed from 0
@@ -22,6 +28,11 @@ y-stripe of a sharded map (``ndt_2d_tpu/parallel/ndt_blocks.py:88``,
 ``:116``), only the points or beams whose global bin lies in the stripe
 counted, as raw sums in the same lane order (the caller adds the stripes
 and divides).
+
+The launch path: a launch shape's constant scalars sit in one ``_Args``
+block made once a shape (``_plan``), the tensors are checked in one pass
+against the shapes the plan expects, and the C call takes the block's
+address, the pointers, the two counts and the stream.
 """
 
 from __future__ import annotations
@@ -31,18 +42,72 @@ import ctypes
 import torch
 
 from ndt_2d_tpu_torch.kernels import _build
+from ndt_2d_tpu_torch.kernels import pose_chain as k13
 from ndt_2d_tpu_torch.ndt import grid as ndt_grid
 
-# Launches of the single-pose entry and of the batched one.
+# Launches of the single-pose entry, of the batched one and of the
+# single-pose entry with the compose folded in.
 launches = 0
 batch_launches = 0
+composed_launches = 0
 # KB2: launches of the stripe scores (world points; poses).
 stripe_launches = 0
 
-_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-         + [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_float]
-         + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [ctypes.c_int]
-         + [ctypes.c_void_p] * 2)
+# Slots a pass of the block-per-pose launch (the source's kPoseThreads).
+POSE_THREADS = 128
+
+
+class _Args(ctypes.Structure):
+    """A launch shape's constants (``csrc/score_points.cu::ScoreArgs``)."""
+    _fields_ = ([(f, ctypes.c_int) for f in
+                 ("P", "max_beams", "G", "W", "row0", "h", "raw")]
+                + [("cell", ctypes.c_float)])
+
+
+# args, points, pmask, num_points, poses, M, origin, mean, info, count,
+# out, prev, delta, pose_out, stream.
+_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p,
+                                  ctypes.c_int] + [ctypes.c_void_p] * 9)
+
+
+class _Plan:
+    """A launch shape's argument block (kept alive here; its address
+    crosses into C), its device and the (name, dtype, shape) each tensor
+    must have: the scan's and the grid's, then those of the pose entry
+    and of the compose entry."""
+
+    def __init__(self, P, max_beams, mean_shape, width, row0, rows, raw,
+                 cell, dev):
+        G = mean_shape[0] if len(mean_shape) == 3 else 1
+        lead = () if len(mean_shape) == 2 else (G,)
+        C = width * rows
+        f32 = torch.float32
+        self.args = _Args(P, max_beams, G, width, row0, rows, int(raw), cell)
+        self.address = ctypes.addressof(self.args)
+        self.device = dev
+        self.expect = (("points", f32, (P, 2)),
+                       ("point_mask", torch.bool, (P,)),
+                       ("origin", f32, (*lead, 2)),
+                       ("mean", f32, (*lead, C, 2)),
+                       ("information", f32, (*lead, C, 3)),
+                       ("count", torch.int32, (*lead, C)))
+        self.pose = self.expect + (("pose", f32, (3,)),)
+        self.compose = self.expect + (("prev", f32, (3,)),
+                                      ("delta", f32, (3,)))
+
+
+_PLANS: dict = {}
+
+
+def _plan(grid, width, row0, rows, max_beams, points, raw) -> _Plan:
+    """The plan of this launch shape, made at its first launch."""
+    dev = points.device
+    key = (points.shape[0], max_beams, grid.mean.shape, width, row0, rows,
+           raw, grid.cell_size, dev)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _PLANS[key] = _Plan(*key)
+    return plan
 
 
 def subsample(points, point_mask, num_points: int, max_beams: int):
@@ -74,11 +139,37 @@ def lane_tree_sum(terms):
     return acc[:, 0]
 
 
-def score_batch_twin(grid: ndt_grid.NDTGrid, width: int, height: int,
-                     max_beams: int, points, point_mask, num_points: int,
-                     poses):
-    """Plain-PyTorch K3 over poses [M, 3]: [M] mean negative likelihoods,
-    as a [M, beams] expression summed in the kernel's order."""
+def pose_plan(max_beams: int):
+    """(slots, threads) of the block-per-pose launch: the slots rounded up
+    to whole warps, one thread a slot of a pass of at most POSE_THREADS
+    (and at least one warp)."""
+    slots = -(-max_beams // 32) * 32
+    return slots, min(max(slots, 32), POSE_THREADS)
+
+
+def block_order_sum(terms, threads: int):
+    """The block-per-pose launch's additions, step by step, over [slots]
+    terms: pass p stages slots p * threads + t; warp 0's lane l adds the
+    pass's slots l, l + 32, ... to its running sum; the lanes then combine
+    by halving.  Returns a 0-d tensor (equal to ``lane_tree_sum`` bitwise:
+    each lane meets its slots in the same order)."""
+    slots = terms.shape[0]
+    acc = torch.zeros(32, dtype=terms.dtype)
+    for base in range(0, slots, threads):
+        staged = terms[base:base + threads]
+        for lane in range(32):
+            for j in range(lane, min(threads, slots - base), 32):
+                acc[lane] = acc[lane] + staged[j]
+    for off in (16, 8, 4, 2, 1):
+        acc = acc[:off] + acc[off:2 * off]
+    return acc[0]
+
+
+def beam_terms_twin(grid: ndt_grid.NDTGrid, width: int, height: int,
+                    max_beams: int, points, point_mask, num_points: int,
+                    poses):
+    """Plain-PyTorch K3's terms over poses [M, 3]: ([M, slots] per-beam
+    scores, zero past max_beams up to whole warps, and the beams used)."""
     spts, smask, used = subsample(points, point_mask, num_points, max_beams)
     c, s = torch.cos(poses[:, 2:3]), torch.sin(poses[:, 2:3])
     px, py = spts[:, 0], spts[:, 1]
@@ -93,7 +184,16 @@ def score_batch_twin(grid: ndt_grid.NDTGrid, width: int, height: int,
         sc = sum(ndt_grid.score_points(g, w, wmask, width, height)
                  for g in grids) / ndt_grid.f32(len(grids), points.device)
     slots = -(-max_beams // 32) * 32
-    sc = torch.nn.functional.pad(sc, (0, slots - max_beams))
+    return torch.nn.functional.pad(sc, (0, slots - max_beams)), used
+
+
+def score_batch_twin(grid: ndt_grid.NDTGrid, width: int, height: int,
+                     max_beams: int, points, point_mask, num_points: int,
+                     poses):
+    """Plain-PyTorch K3 over poses [M, 3]: [M] mean negative likelihoods,
+    as a [M, beams] expression summed in the kernel's order."""
+    sc, used = beam_terms_twin(grid, width, height, max_beams, points,
+                               point_mask, num_points, poses)
     return -lane_tree_sum(sc) / ndt_grid.f32(max(used, 1), points.device)
 
 
@@ -106,32 +206,45 @@ def score_at_pose_twin(grid: ndt_grid.NDTGrid, width: int, height: int,
                             point_mask, num_points, pose[None])[0]
 
 
-def _launch(grid, width, row0, rows, max_beams, points, point_mask,
-            num_points, poses, raw):
-    """One K3 launch over the grid rows [row0, row0 + rows) (the whole
-    grid at row0 = 0, rows = H); ``raw`` leaves out the division."""
-    dev = points.device
-    P, M, C = points.shape[0], poses.shape[0], width * rows
-    if M < 1:
-        raise ValueError("score_points needs at least one pose")
-    G = grid.mean.shape[0] if grid.mean.dim() == 3 else 1
-    lead = () if grid.mean.dim() == 2 else (G,)
-    _build.require(points, "points", torch.float32, (P, 2), dev)
-    _build.require(point_mask, "point_mask", torch.bool, (P,), dev)
-    _build.require(poses, "poses", torch.float32, (M, 3), dev)
-    _build.require(grid.origin, "origin", torch.float32, (*lead, 2), dev)
-    _build.require(grid.mean, "mean", torch.float32, (*lead, C, 2), dev)
-    _build.require(grid.information, "information", torch.float32,
-                   (*lead, C, 3), dev)
-    _build.require(grid.count, "count", torch.int32, (*lead, C), dev)
-    out = torch.empty(M, dtype=torch.float32, device=dev)
+def score_composed_twin(grid: ndt_grid.NDTGrid, width: int, height: int,
+                        max_beams: int, points, point_mask, num_points: int,
+                        prev, delta):
+    """Plain-PyTorch ``score_composed``: K13's ``compose_twin``, then
+    ``score_at_pose_twin`` at that pose.  Returns (score, pose [3])."""
+    pose = k13.compose_twin(prev, delta)
+    return score_at_pose_twin(grid, width, height, max_beams, points,
+                              point_mask, num_points, pose), pose
+
+
+def _launch(plan: _Plan, grid, points, point_mask, num_points: int, poses,
+            M: int, out, prev=None, delta=None, pose_out=None) -> None:
+    """One K3 launch of ``plan``'s shape (the tensors already checked)."""
     p = _build.ptr
     err = _build.function("ndt2d_score_points", _ARGS)(
-        p(points), p(point_mask), P, int(num_points), int(max_beams),
-        p(poses), M, G, p(grid.origin), float(grid.cell_size), width,
-        int(row0), int(rows), p(grid.mean), p(grid.information),
-        p(grid.count), int(raw), p(out), _build.stream_ptr(dev))
+        plan.address, p(points), p(point_mask), num_points,
+        None if poses is None else p(poses), M, p(grid.origin),
+        p(grid.mean), p(grid.information), p(grid.count), p(out),
+        None if prev is None else p(prev),
+        None if delta is None else p(delta),
+        None if pose_out is None else p(pose_out),
+        _build.stream_ptr(plan.device))
     _build.check(err, "score_points")
+
+
+def _batch(grid, width, row0, rows, max_beams, points, point_mask,
+           num_points, poses, raw):
+    """K3 over poses [M, 3] on the grid rows [row0, row0 + rows) (the
+    whole grid at row0 = 0, rows = H); ``raw`` leaves out the division."""
+    plan = _plan(grid, width, row0, rows, max_beams, points, raw)
+    M = poses.shape[0]
+    if M < 1:
+        raise ValueError("score_points needs at least one pose")
+    _build.require_all(plan.device, (points, point_mask, grid.origin,
+                                     grid.mean, grid.information, grid.count,
+                                     poses),
+                       plan.expect + (("poses", torch.float32, (M, 3)),))
+    out = points.new_empty(M)
+    _launch(plan, grid, points, point_mask, int(num_points), poses, M, out)
     return out
 
 
@@ -144,25 +257,52 @@ def score_batch(grid: ndt_grid.NDTGrid, width: int, height: int,
     if points.device.type == "cpu":
         return score_batch_twin(grid, width, height, max_beams, points,
                                 point_mask, num_points, poses)
-    out = _launch(grid, width, 0, height, max_beams, points, point_mask,
-                  num_points, poses, False)
+    out = _batch(grid, width, 0, height, max_beams, points, point_mask,
+                 num_points, poses, False)
     batch_launches += 1
     return out
 
 
 def score_at_pose(grid: ndt_grid.NDTGrid, width: int, height: int,
                   max_beams: int, points, point_mask, num_points: int, pose):
-    """K3 at one pose [3] f32: the batched launch at M = 1; returns a 0-d
-    float32 tensor.  CPU tensors run the twin; CUDA tensors launch the
-    kernel."""
+    """K3 at one pose [3] f32, one block; returns a 0-d float32 tensor,
+    the same bits as ``score_batch``'s row at that pose.  CPU tensors run
+    the twin; CUDA tensors launch the kernel."""
     global launches
     if points.device.type == "cpu":
         return score_at_pose_twin(grid, width, height, max_beams, points,
                                   point_mask, num_points, pose)
-    out = _launch(grid, width, 0, height, max_beams, points, point_mask,
-                  num_points, pose.reshape(1, 3), False)
+    plan = _plan(grid, width, 0, height, max_beams, points, False)
+    _build.require_all(plan.device, (points, point_mask, grid.origin,
+                                     grid.mean, grid.information, grid.count,
+                                     pose), plan.pose)
+    out = points.new_empty(())
+    _launch(plan, grid, points, point_mask, int(num_points), pose, 1, out)
     launches += 1
-    return out[0]
+    return out
+
+
+def score_composed(grid: ndt_grid.NDTGrid, width: int, height: int,
+                   max_beams: int, points, point_mask, num_points: int,
+                   prev, delta):
+    """K3 at the pose dead-reckoned from the previous corrected pose
+    ``prev`` [3] and the odometry motion ``delta`` [3] in its robot frame
+    (K13's compose), in one launch.  Returns (0-d score, pose [3]), the
+    same bits as ``compose_twin`` then ``score_at_pose``.  CPU tensors run
+    the twin; CUDA tensors launch the kernel."""
+    global composed_launches
+    if points.device.type == "cpu":
+        return score_composed_twin(grid, width, height, max_beams, points,
+                                   point_mask, num_points, prev, delta)
+    plan = _plan(grid, width, 0, height, max_beams, points, False)
+    _build.require_all(plan.device, (points, point_mask, grid.origin,
+                                     grid.mean, grid.information, grid.count,
+                                     prev, delta), plan.compose)
+    out, pose = points.new_empty(()), points.new_empty(3)
+    _launch(plan, grid, points, point_mask, int(num_points), None, 1, out,
+            prev, delta, pose)
+    composed_launches += 1
+    return out, pose
 
 
 # --- KB2: scores against one y-stripe of a sharded map -------------------
@@ -217,8 +357,8 @@ def stripe_points(stripe: ndt_grid.NDTGrid, width: int, row0: int,
         return stripe_points_twin(stripe, width, row0, rows, points, mask)
     P = points.shape[0]
     identity = torch.zeros(1, 3, dtype=torch.float32, device=points.device)
-    out = _launch(stripe, width, row0, rows, P, points, mask, P, identity,
-                  True)
+    out = _batch(stripe, width, row0, rows, P, points, mask, P, identity,
+                 True)
     stripe_launches += 1
     return -out
 
@@ -233,7 +373,7 @@ def stripe_poses(stripe: ndt_grid.NDTGrid, width: int, row0: int, rows: int,
     if points.device.type == "cpu":
         return stripe_poses_twin(stripe, width, row0, rows, max_beams,
                                  points, point_mask, num_points, poses)
-    out = _launch(stripe, width, row0, rows, max_beams, points, point_mask,
-                  num_points, poses, True)
+    out = _batch(stripe, width, row0, rows, max_beams, points, point_mask,
+                 num_points, poses, True)
     stripe_launches += 1
     return out

@@ -19,9 +19,10 @@ reference's ``ndt_2d::Mapper``):
   than NDT (``scan_matcher_type="correlative"``, K11) goes through the
   generic matcher surface instead of the fused dispatch.
 * With ``max_inflight > 0`` the three branches pipeline: the pose chain
-  stays on the device (K13 composes each start pose from the odometry
-  motion and applies each correction, ``matcher.mapping_step_async`` /
-  ``localization_step_async``; the filter's ``step_async``), a step's
+  stays on the device (K3 composes each start pose from the odometry
+  motion as it scores it, K13 applies each correction and appends the
+  scan, ``matcher.mapping_step_async`` / ``localization_step_async``; the
+  filter's ``step_async``), a step's
   results copy to the host without blocking, and up to ``max_inflight``
   steps are in flight.  ``_drain`` fills their poses, constraints and
   statistics in dispatch order, waiting on each step's event; every
@@ -399,7 +400,7 @@ class Mapper:
                               num_points) -> ScanResult:
         """Scan-match localization branch (ndt_mapper.cpp:547-566): score
         and match against the global NDT (K3 + K2), one read; pipelined
-        with max_inflight > 0 (K13 + K3 + K2, no read)."""
+        with max_inflight > 0 (K3 with the compose + K2 + K13, no read)."""
         m = self.global_matcher
         fused = (isinstance(m, matcher_mod.NDTScanMatcher)
                  and m.grid is not None)
@@ -648,8 +649,8 @@ class Mapper:
             # Odometry constraint from the previous scan (ndt_mapper.cpp:527-529).
             pose_graph.make_constraint_np(g, scan_id - 1, scan_id, covariance)
 
-        # Append the corrected scan to the device window (the only per-scan
-        # transfer is the new scan itself).
+        # Append the corrected scan to the device window in one K13 launch
+        # (the only per-scan transfer is the new scan itself).
         if self._window is None or self._window_synced != g.num_scans - 1:
             self._window_synced = -1
             self._sync_window()

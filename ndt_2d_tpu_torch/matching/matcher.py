@@ -15,8 +15,10 @@ and K7 (the reference's K8: ``build_window_ndt`` stacks four half-cell
 shifted grids, and every score is their mean); ``refine_iterations > 0``
 chains K7 after K2 in every match.  The pipelined paths'
 ``mapping_step_async`` and ``localization_step_async`` keep the pose chain
-on the device: K13 composes the start pose from the odometry motion and
-applies the correction around the same kernels, with no host read.  The
+on the device: K3 composes the start pose from the odometry motion as it
+scores it, and K13 applies the correction and appends the scan to the
+rolling window (``window_append``, one launch on every path), with no host
+read.  The
 plain steps of the search live beside their kernels and are re-exported
 here under the reference's names
 (``subsample``, ``window_origin``, ``prepare_neighborhood``,
@@ -340,25 +342,12 @@ def make_window(depth: int, max_points: int, device=None) -> RollingWindow:
         mask=torch.zeros(depth, dtype=torch.bool, device=device))
 
 
-def window_shift(window: RollingWindow, points, point_mask) -> None:
-    """Shift the window left by one scan IN PLACE and put the new scan's
-    points in the last slot; the last pose slot is left for the caller."""
-    for field in (window.poses, window.points, window.point_mask,
-                  window.mask):
-        field[:-1] = field[1:].clone()
-    window.points[-1] = points
-    window.point_mask[-1] = point_mask
-    # fill_ on the device: assigning a Python scalar would copy it from
-    # the host and wait for the stream.
-    window.mask[-1:].fill_(True)
-
-
 def window_append(window: RollingWindow, pose, points,
                   point_mask) -> RollingWindow:
-    """Shift the window left by one scan and put the new scan in the last
-    slot, IN PLACE; returns the same window."""
-    window_shift(window, points, point_mask)
-    window.poses[-1] = pose
+    """Shift the window left by one scan and put the new scan (``pose``
+    [3], ``points`` [P, 2], ``point_mask`` [P]) in the last slot, IN
+    PLACE, in one K13 launch; returns the same window."""
+    k13.window_append(pose, None, window, points, point_mask)
     return window
 
 
@@ -377,22 +366,26 @@ def mapping_step_async(config: ScanMatcherConfig, window: RollingWindow,
                        prev_pose, range_max: float, points, mask,
                        num_points: int, delta, mesh=None):
     """One mapping step with the pose chain on the device (matcher.py:638):
-    compose the start pose from the previous corrected pose ``prev_pose``
-    [3] and the odometry motion ``delta`` [3] in its robot frame (K13),
-    build the window NDT (K1), score the start (K3), match (K2 or K6, K7
-    when refining), then shift the window and apply the correction, which
-    also fills the window's newest pose slot (K13).  Everything runs on the
-    current stream with no host read; the window is updated in place.
+    build the window NDT (K1); compose the start pose from the previous
+    corrected pose ``prev_pose`` [3] and the odometry motion ``delta`` [3]
+    in its robot frame and score the scan there (K3, one launch); match (K2
+    or K6, K7 when refining); then apply the correction and append the scan
+    at the corrected pose to the window (K13, one launch).  Everything
+    runs on the current stream with no host read; the window is updated in
+    place.
 
     Returns (window, new pose [3], (uncorrected, score, correction,
     covariance, new pose) device tensors, a ``HostCopy`` of their flat [17]
     values, already in flight)."""
-    pose = k13.compose(prev_pose, delta)
-    unc, res = match_scan_windowed(
-        config, window.poses, window.points, window.point_mask, window.mask,
-        range_max, points, mask, num_points, pose, mesh)
-    window_shift(window, points, mask)
-    new_pose = k13.apply(pose, res.correction, window.poses)
+    grid, table = build_window_ndt(config, window.poses, window.points,
+                                   window.point_mask, window.mask, range_max)
+    unc, pose = k3.score_composed(grid, config.grid_cells_x,
+                                  config.grid_cells_y,
+                                  config.laser_max_beams, points, mask,
+                                  num_points, prev_pose, delta)
+    res = match_scan(config, grid, points, mask, num_points, pose,
+                     packed_table=table, mesh=mesh)
+    new_pose = k13.window_append(pose, res.correction, window, points, mask)
     out = (unc, res.score, res.correction, res.covariance, new_pose)
     return window, new_pose, out, _host_copy(out)
 
@@ -402,15 +395,19 @@ def localization_step_async(config: ScanMatcherConfig,
                             num_points: int, delta, packed_table=None,
                             mesh=None):
     """Scan-match localization step with the pose chain on the device
-    (matcher.py:675): compose (K13), score and match against the global
-    grid (K3, K2 or K6, K7 when refining), apply the correction (K13), with
-    no host read.  Returns (new pose [3], (uncorrected, score, correction,
-    new pose) device tensors, a ``HostCopy`` of their flat [8] values)."""
-    pose = k13.compose(prev_pose, delta)
-    unc, score, correction, _ = match_scan_with_score(
-        config, grid, points, mask, num_points, pose, packed_table, mesh)
-    new_pose = k13.apply(pose, correction)
-    out = (unc, score, correction, new_pose)
+    (matcher.py:675): compose the start pose and score there (K3, one
+    launch), match against the global grid (K2 or K6, K7 when refining),
+    apply the correction (K13, with no window), with no host read.
+    Returns (new pose [3], (uncorrected, score, correction, new pose)
+    device tensors, a ``HostCopy`` of their flat [8] values)."""
+    unc, pose = k3.score_composed(grid, config.grid_cells_x,
+                                  config.grid_cells_y,
+                                  config.laser_max_beams, points, mask,
+                                  num_points, prev_pose, delta)
+    res = match_scan(config, grid, points, mask, num_points, pose,
+                     packed_table=packed_table, mesh=mesh)
+    new_pose = k13.window_append(pose, res.correction)
+    out = (unc, res.score, res.correction, new_pose)
     return new_pose, out, _host_copy(out)
 
 

@@ -34,6 +34,7 @@ from ndt_2d_tpu_torch.filter.particle_filter import ParticleFilter
 from ndt_2d_tpu_torch.io import carmen
 from ndt_2d_tpu_torch.io.bag import record_synthetic
 from ndt_2d_tpu_torch.kernels import pose_chain as k13
+from ndt_2d_tpu_torch.kernels import score_points as k3
 from ndt_2d_tpu_torch.mapping import runtime
 from ndt_2d_tpu_torch.mapping.mapper import (LOAD_FROM_FILE, SAVE_TO_FILE,
                                              Mapper)
@@ -155,12 +156,21 @@ def test_localization_step_matches_op_by_op_jax(seed):
 
 @pytest.mark.parametrize("theta", [3.13, -3.13, np.pi, -np.pi])
 def test_compose_wraps_at_pi(theta):
-    """The twin's compose against the JAX step's float32 expression, op
-    by op, where the heading crosses +-pi."""
+    """The start pose K3's composed entry dead-reckons (its twin) against
+    the JAX step's float32 expression, op by op, where the heading crosses
+    +-pi."""
     prev = np.asarray([1.0, -2.0, theta], np.float32)
     delta = np.asarray([0.1, 0.02, 0.03 if theta > 0 else -0.03],
                        np.float32)
-    ours = k13.compose(torch.tensor(prev), torch.tensor(delta)).numpy()
+    poses, pts, msk, qp, qm, qn, _, _ = window_inputs(0)
+    grid, _ = matcher.build_window_ndt(
+        SMALL, torch.tensor(poses), torch.tensor(pts), torch.tensor(msk),
+        torch.ones(3, dtype=bool), 15.0)
+    _, pose = k3.score_composed(grid, SMALL.grid_cells_x,
+                                SMALL.grid_cells_y, SMALL.laser_max_beams,
+                                torch.tensor(qp), torch.tensor(qm), qn,
+                                torch.tensor(prev), torch.tensor(delta))
+    ours = pose.numpy()
     with jax.disable_jit():
         p, d = jnp.asarray(prev), jnp.asarray(delta)
         c, s = jnp.cos(p[2]), jnp.sin(p[2])
@@ -174,14 +184,20 @@ def test_compose_wraps_at_pi(theta):
 
 
 def test_apply_writes_the_window_slot():
+    """K13's window append with a correction: the corrected pose comes
+    back and fills the newest slot; without a window it is the pose
+    alone."""
     pose = torch.tensor([1.0, 2.0, 0.5])
     corr = torch.tensor([0.01, -0.02, 0.003])
-    win = torch.zeros(4, 3)
-    new = k13.apply(pose, corr, win)
+    win = matcher.make_window(4, 8, device="cpu")
+    pts = torch.ones(8, 2)
+    new = k13.window_append(pose, corr, win, pts,
+                            torch.ones(8, dtype=torch.bool))
     np.testing.assert_array_equal(new.numpy(), (pose + corr).numpy())
-    np.testing.assert_array_equal(win[-1].numpy(), new.numpy())
-    assert not win[:-1].any()
-    assert torch.equal(k13.apply(pose, corr), new)
+    np.testing.assert_array_equal(win.poses[-1].numpy(), new.numpy())
+    assert not win.poses[:-1].any()
+    assert torch.equal(win.points[-1], pts) and bool(win.mask[-1])
+    assert torch.equal(k13.window_append(pose, corr), new)
 
 
 # --- mapping: port pipelined vs JAX pipelined vs port synchronous --------
