@@ -9,6 +9,11 @@
     python3 chip_smoke.py --session-times  # unprofiled ms/scan, 3 runs of
                                            # configs 3 and 2 (also in an
                                            # older checkout)
+    python3 chip_smoke.py --optimize-times  # the mapper's optimize ms, 3
+                                            # runs of the office recipe,
+                                            # config 9 and drift, and LM
+                                            # iteration walls (also in an
+                                            # older checkout)
 
 Phases (any failure exits non-zero):
  1. require CUDA; print the card (nvidia-smi name and power limit), the
@@ -90,9 +95,11 @@ Phases (any failure exits non-zero):
     (64 config-3 rows, config 8's match, config 2's window), K9's resample
     at 5000 and 20,000 particles (plain and with recovery), K6 over 32
     coarse rows and at the merge's shape, K12's K6 partials, KB3's field
-    and K3 (M = 1 on config 3's window, G = 4, 5000 poses), timed by CUDA
+    and K3 (M = 1 on config 3's window, G = 4, 5000 poses), K4's
+    dense_system and lm_step at N_pad 512 and 1024, timed by CUDA
     events, alone on the device in a CUDA graph and by host time a call
-    (``kernel_times``, the same lines as ``--kernel-times``);
+    (``kernel_times``, the same lines as ``--kernel-times``, which also
+    prints the wall of an LM iteration, kernels against twins);
  4. drive the main paths, each with the launch counts set to 0 before and
     read after: (a) the 200-scan, 600-beam config-2 corridor through
     ``Mapper`` and ``run_bag`` (no loop closure) with its export: every scan
@@ -103,7 +110,19 @@ Phases (any failure exits non-zero):
     pcg_solve launch an LM iteration) and on the twins: final RMSE below
     the initial, the two arms' poses bitwise equal; each LM iteration's CG
     loop again as the host loop over pcg_matvec and fixed_dots (the mesh's
-    loop), bitwise, the walls printed;
+    loop), bitwise, the walls printed; (u) after (g), K4's dense LM step:
+    dense_system (hm with its -0 entries, and rhs, at lam 1e-12, 1e-6 and
+    1e8) and lm_step (accepted, rejected, NaN and mesh-split steps, every
+    state field) bitwise against their twins on the office recipe's
+    final graph and on a synthetic 1024-node graph with duplicate,
+    reversed and self-loop constraints; a whole solve of each on the
+    kernels and on the twins, poses bitwise and the same iterations,
+    launches normal_blocks = dense_system = iterations and lm_step =
+    iterations + 1; the office graph's solve (its poses moved off the
+    optimum) profiled cut at 6 and at 2 iterations, whose difference
+    shows an LM iteration's kernels, no host->device copy and one read;
+    both kernels timed there and the wall of an LM iteration, kernels
+    against twins;
     (f) BASELINE config 8 (run_benchmarks.py:139-162): the config-2
     corridor with four overlapping grids and 10 Newton iterations on both
     matchers: every scan accepted, ATE below odometry's, K1 = K2 = K3 = K7
@@ -191,7 +210,9 @@ Phases (any failure exits non-zero):
     closure and optimization, final ATE below odometry's and within 0.08 m
     of the single-device run's (JAX's office criterion), the export
     bitwise equal to single-device K5 on the same graph, K12's split K2
-    and rank sum launched and the one-launch K2 not; then at max_inflight
+    and rank sum launched and the one-launch K2 not, K4's dense_system
+    and lm_step twice an LM iteration (around the rank sum); then at
+    max_inflight
     8 (>= 1 closure, final ATE below odometry's); config 2's pipelined
     dispatch loop on the mesh with the one-rank group's collectives
     forced through NCCL (the mesh path skips them as the identity), under
@@ -261,6 +282,10 @@ KERNELS = {
                   "ndt_2d_tpu/graph/solver.py:193"),
     "fixed_dot": ("ndt_2d_tpu_torch/csrc/normal_blocks.cu",
                   "ndt_2d_tpu/graph/solver.py:227"),
+    "dense_system": ("ndt_2d_tpu_torch/csrc/normal_blocks.cu",
+                     "ndt_2d_tpu/graph/solver.py:171"),
+    "lm_step": ("ndt_2d_tpu_torch/csrc/normal_blocks.cu",
+                "ndt_2d_tpu/graph/solver.py:122"),
     "score_points_batch": ("ndt_2d_tpu_torch/csrc/score_points.cu",
                            "ndt_2d_tpu/matching/matcher.py:424"),
     "pf_motion": ("ndt_2d_tpu_torch/csrc/particle_filter.cu",
@@ -1304,10 +1329,12 @@ def kernel_times(dev, ident: str, map4: str, bag4) -> dict:
               width=mc.grid_cells_x, row0=0, rows=mc.grid_cells_y // 2)
     both("KB1 stripe 0 of 2", lambda: k1.build_stripe(**sa), 20)
     pr_times(dev, ident, both, map4, bag4, m, kf, cfg, win, query)
+    walls = lm_times(dev, ident, both)
     for name, t in out.items():
         print(f"[5] {name}: {t['cuda_ms']:.4f} ms, in a CUDA graph "
               f"{t['graph_ms']:.5f} ms, host {t['host_us']:.1f} us a call "
               f"({ident})")
+    out.update(walls)
     return out
 
 
@@ -2047,7 +2074,9 @@ def phase_district_solve(truth, district, dev):
 
     def record(*args):
         x, it = real(*args)
-        steps.append((args, x.clone(), it.clone()))
+        # lam is the LM state's, which lm_step updates in place.
+        steps.append((tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                            for a in args), x.clone(), it.clone()))
         return x, it
     k4.pcg_solve = record
     try:
@@ -2213,7 +2242,8 @@ def phase_office(cfg, bag, dev, tag="[4c]", plain=None):
                    rejected=st.loop_closures_rejected,
                    optimizations=st.optimizations, online=online,
                    final=final, ms=ms,
-                   lc_ms=timing["loop_closure"]["mean_ms"])
+                   lc_ms=timing["loop_closure"]["mean_ms"],
+                   graph=mapper.graph, solver=cfg.solver)
     name = "office recipe" if plain else "office config 3"
     print(f"{tag} {name}: {acc}/{len(bag)} scans accepted, "
           f"{st.loop_closures_accepted} closures accepted, "
@@ -2293,6 +2323,427 @@ def phase_replay(rec, tag, dispatches, solve=True):
           f"dispatches, scores bitwise equal, same gate decisions; first "
           f"solve "
           f"({int(kw['node_mask'].sum())} nodes) poses within {diff:.3g}")
+
+
+def lm_graph(nodes: int, n_pad: int, closures: int, seed: int) -> dict:
+    """``solve()`` inputs (numpy) of a synthetic pose graph padded to
+    ``n_pad`` nodes: a noisy chain of ``nodes`` odometry constraints and
+    ``closures`` robust loop closures, a tenth of them twice (duplicate
+    node pairs) and a tenth also reversed (both directions), a live
+    self-loop every 97 nodes, about 5% of the constraints masked, and the
+    padded nodes and constraints masked (N_pad <= 1024 solves densely)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    k = np.arange(nodes)
+    truth = np.stack([0.5 * k, 5.0 * np.sin(k / 20.0),
+                      np.cumsum(rng.normal(0, 0.05, nodes))], -1)
+    a = rng.integers(0, nodes - 30, closures)
+    pairs = [(i, i + 1) for i in range(nodes - 1)]
+    loops = list(zip(a, np.minimum(a + rng.integers(20, 200, closures),
+                                   nodes - 1)))
+    pairs += loops + loops[:closures // 10]
+    pairs += [(j, i) for i, j in loops[closures // 10:closures // 5]]
+    pairs += [(i, i) for i in range(0, nodes, 97)]
+    b = np.array([p[0] for p in pairs])
+    e = np.array([p[1] for p in pairs])
+    c, s = np.cos(truth[b, 2]), np.sin(truth[b, 2])
+    d = truth[e, :2] - truth[b, :2]
+    rel = np.stack([c * d[:, 0] + s * d[:, 1], -s * d[:, 0] + c * d[:, 1],
+                    truth[e, 2] - truth[b, 2]], -1)
+    rel += rng.normal(0, 0.01, rel.shape)
+    C = len(pairs)
+    c_pad = max(64, 1 << (C - 1).bit_length())
+    poses = np.zeros((n_pad, 3), np.float32)
+    poses[:nodes] = truth + np.cumsum(rng.normal(0, 0.02, (nodes, 3)), 0)
+    poses[0] = truth[0]
+    out = dict(poses=poses, begin=np.zeros(c_pad, np.int32),
+               end=np.zeros(c_pad, np.int32),
+               transform=np.zeros((c_pad, 3), np.float32),
+               information=np.zeros((c_pad, 3, 3), np.float32),
+               constraint_mask=np.zeros(c_pad, bool),
+               node_mask=np.arange(n_pad) < nodes,
+               robust_mask=np.zeros(c_pad, bool))
+    out["begin"][:C], out["end"][:C] = b, e
+    out["transform"][:C] = rel
+    out["information"][:C] = np.diag([100.0, 100.0, 400.0])
+    out["constraint_mask"][:C] = rng.random(C) > 0.05
+    out["robust_mask"][nodes - 1:C] = True
+    return out
+
+
+def graph_inputs(graph, scfg, dev) -> dict:
+    """The tensors ``solve_graph`` hands ``solve()`` for a mapper's graph
+    (captured from one solve; the graph's poses are put back)."""
+    from ndt_2d_tpu_torch.graph import solver
+    seen, real = [], solver.solve
+    before = graph.poses.copy()
+
+    def capture(config, **kw):
+        seen.append({k: v.clone() if hasattr(v, "clone") else v
+                     for k, v in kw.items()})
+        return real(config, **kw)
+    solver.solve = capture
+    try:
+        solver.solve_graph(graph, scfg, device=dev)
+    finally:
+        solver.solve = real
+        graph.set_poses(before)
+    kw = seen[0]
+    return {k: kw[k] for k in ("poses", "begin", "end", "transform",
+                               "information", "constraint_mask",
+                               "node_mask", "robust_mask")}
+
+
+def bits(t):
+    """A float32 tensor's bits as int32 (NaN and -0 compare exactly)."""
+    import torch
+    return t.contiguous().view(torch.int32)
+
+
+def same_bits(a, b) -> bool:
+    import torch
+    if a.dtype == torch.float32:
+        return torch.equal(bits(a), bits(b))
+    return torch.equal(a, b)
+
+
+def lm_inputs(kw, scfg, lam: float):
+    """K4's dense-path inputs of one LM step at ``kw``'s poses: the
+    constraint terms, the pair table, Bab, g, D, lam, fm, and the step
+    (delta, info) from the library's Cholesky."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import normal_blocks as k4
+    poses, begin, end = kw["poses"], kw["begin"], kw["end"]
+    n, dev = poses.shape[0], poses.device
+    cmask, rmask = kw["constraint_mask"], kw["robust_mask"]
+    terms = (begin, end, kw["transform"], kw["information"], cmask, rmask,
+             scfg.robust_loss, scfg.huber_delta)
+    fm = (kw["node_mask"] & (torch.arange(n, device=dev) != 0)).float()
+    inc = k4.incidence(begin, end, cmask, n)
+    pairs = k4.pair_table(begin, end, cmask, n)
+    _, bab, _, _, _, g, diag = k4.normal_blocks(
+        poses, *terms[:6], scfg.robust_loss, scfg.huber_delta, inc)
+    lam_t = torch.full((), lam, dtype=torch.float32, device=dev)
+    hm, rhs = k4.dense_system(pairs, bab, g, diag, lam_t, fm)
+    chol, info = torch.linalg.cholesky_ex(hm)
+    delta = torch.cholesky_solve(rhs.reshape(-1, 1), chol).reshape(n, 3)
+    return terms, (pairs, bab, g, diag, lam_t, fm), delta, info
+
+
+def check_lm_kernels(name, kw, scfg) -> str:
+    """``dense_system`` and ``lm_step`` (with its cost mode) bitwise
+    against their twins at ``kw``: the system at lam 1e-12, 1e-6 and 1e8
+    (hm with its -0 entries, and rhs); the step accepted, rejected (a step
+    100x too long), with a NaN step (info != 0) and through the mesh's
+    two launches (an identity combine), every state field."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import normal_blocks as k4
+    terms, sys_args, delta, info = lm_inputs(kw, scfg, 1e-6)
+    negz = 0
+    for lam in (1e-12, 1e-6, 1e8):
+        a = list(sys_args)
+        a[4] = torch.full((), lam, dtype=torch.float32,
+                          device=delta.device)
+        hm, rhs = k4.dense_system(*a)
+        hmt, rhst = k4.dense_system_twin(*a)
+        require(same_bits(hm, hmt) and same_bits(rhs, rhst),
+                f"{name}: dense_system at lam {lam} differs from its twin "
+                f"({int((bits(hm) != bits(hmt)).sum())} entries)")
+        negz = int((bits(hm) == -2 ** 31).sum())
+    poses = kw["poses"]
+    c0, c0t = (k4.robust_cost(poses, None, None, *terms),
+               k4.robust_cost_twin(poses, None, None, *terms))
+    require(same_bits(c0, c0t), f"{name}: the cost differs from its twin")
+    steps = {"accepted": (delta, info), "rejected": (delta * 100.0, info),
+             "NaN step": (delta, torch.ones_like(info)),
+             "mesh launches": (delta, info)}
+    flags = {}
+    for what, (d, inf) in steps.items():
+        combine = (lambda x: x) if what == "mesh launches" else None
+        sk = k4.lm_state(poses, 1e-6, c0, terms[0].shape[0])
+        st = k4.lm_state(poses, 1e-6, c0, terms[0].shape[0])
+        k4.lm_step(sk, d, inf, *terms, 0.5, 10.0, 1e-9, combine)
+        k4.lm_step_twin(st, d, inf, *terms, 0.5, 10.0, 1e-9, combine)
+        for f in ("poses", "lam", "cost", "stall", "flags"):
+            require(same_bits(getattr(sk, f), getattr(st, f)),
+                    f"{name}: lm_step ({what}) {f} differs from its twin")
+        flags[what] = tuple(bool(x) for x in sk.flags)
+    require(flags["accepted"][0] and not flags["rejected"][0]
+            and not flags["NaN step"][0],
+            f"{name}: accept flags {flags}")
+    return (f"dense_system bitwise at lam 1e-12 / 1e-6 / 1e8 ({negz} -0 "
+            f"entries at 1e8), lm_step bitwise on every field (accept, "
+            f"reject, NaN step, mesh launches), cost {float(c0):.6g}")
+
+
+def solve_both(kw, scfg):
+    """One solve on the kernels (launches counted) and one on the twins:
+    (kernel result, twin result, launches, kernel wall s, twin wall s)."""
+    import torch
+
+    from ndt_2d_tpu_torch.graph import solver
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = solver.solve(scfg, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    t0 = time.perf_counter()
+    twin = solver.solve(scfg, **kw, twin=True)
+    torch.cuda.synchronize()
+    return res, twin, launches, wall, time.perf_counter() - t0
+
+
+def solve_profile(kw, scfg) -> dict:
+    """The CUDA kernels and copies of one kernel-path solve, from
+    torch.profiler: kernel name -> count, and the host->device and
+    device->host copies."""
+    import torch
+
+    from ndt_2d_tpu_torch.graph import solver
+    from torch.profiler import ProfilerActivity, profile
+    solver.solve(scfg, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = solver.solve(scfg, **kw)
+        torch.cuda.synchronize()
+    kernels, htod, dtoh = {}, 0, 0
+    htod_ops = sorted({ev.name for ev in prof.events()
+                       if any("HtoD" in k.name for k in ev.kernels)})
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "HtoD" in ev.name:
+            htod += 1
+        elif "DtoH" in ev.name:
+            dtoh += 1
+        elif "Memcpy" not in ev.name and "Memset" not in ev.name:
+            kernels[ev.name] = kernels.get(ev.name, 0) + 1
+    return dict(iterations=int(res.iterations), kernels=kernels, htod=htod,
+                dtoh=dtoh, htod_ops=htod_ops)
+
+
+def phase_lm(dev, office, ident) -> dict:
+    """K4's dense LM step on the card: ``dense_system`` and ``lm_step``
+    bitwise against their twins on the office recipe's final graph (N_pad
+    512; its poses moved off the optimum) and a synthetic 1024-node graph
+    with duplicate, reversed and self-loop constraints; a whole solve of each on the kernels and on the
+    twins (poses bitwise, the same iterations; launches: normal_blocks =
+    dense_system = iterations, lm_step = iterations + 1); profiled
+    solves of the office graph, cut at 6 and at 2 iterations, whose
+    difference is an LM iteration's kernels and copies (none host->device,
+    one read); the kernels' times at the office graph; the wall of an LM
+    iteration, kernels against twins."""
+    import dataclasses
+
+    import torch
+
+    from ndt_2d_tpu_torch.config import SolverConfig
+    from ndt_2d_tpu_torch.graph import solver
+    from ndt_2d_tpu_torch.kernels import normal_blocks as k4
+    ocfg = office["solver"]
+    okw = graph_inputs(office["graph"], ocfg, dev)
+    # The final graph sits at its optimum, where a step is rejected: the
+    # checks start from its poses moved off it (the free nodes by 5 cm /
+    # 0.05 rad, seeded).
+    n = okw["poses"].shape[0]
+    free = okw["node_mask"].cpu() & (torch.arange(n) != 0)
+    noise = torch.randn(n, 3, generator=torch.Generator().manual_seed(0))
+    okw["poses"] = okw["poses"] + (0.05 * noise * free[:, None]).to(dev)
+    skw = {k: torch.from_numpy(v).to(dev)
+           for k, v in lm_graph(1000, 1024, 300, 0).items()}
+    cases = (("office recipe's final graph", okw, ocfg),
+             ("synthetic 1024-node graph", skw,
+              SolverConfig(robust_loss="geman_mcclure")),
+             ("synthetic 1024-node graph, Huber", skw,
+              SolverConfig(robust_loss="huber", huber_delta=1.0)))
+    for name, kw, scfg in cases:
+        msg = check_lm_kernels(name, kw, scfg)
+        res, twin, launches, wall, twin_wall = solve_both(kw, scfg)
+        it = int(res.iterations)
+        require(it == int(twin.iterations) and same_bits(res.poses,
+                                                         twin.poses)
+                and same_bits(res.cost, twin.cost)
+                and bool(res.success) == bool(twin.success),
+                f"{name}: the solve on the kernels parts from the twins' "
+                f"({it} vs {int(twin.iterations)} iterations)")
+        require(launches["normal_blocks"] == launches["dense_system"] == it
+                and launches["lm_step"] == it + 1,
+                f"{name}: launches {launches} over {it} iterations")
+        n_live = int(kw["node_mask"].sum())
+        c_live = int(kw["constraint_mask"].sum())
+        print(f"[4u] {name} ({n_live} nodes of "
+              f"{kw['poses'].shape[0]}, {c_live} live constraints of "
+              f"{kw['begin'].shape[0]}, {scfg.robust_loss}): {msg}; "
+              f"solve on the kernels bitwise the twins' ({it} iterations, "
+              f"success {bool(res.success)}; {wall * 1e3:.3f} ms against "
+              f"{twin_wall * 1e3:.3f} ms on the twins); launches "
+              f"normal_blocks {launches['normal_blocks']}, dense_system "
+              f"{launches['dense_system']}, lm_step {launches['lm_step']}")
+    # An LM iteration's kernels and copies: the difference between solves
+    # cut at 6 and at 2 iterations (each reads the stall count once an
+    # iteration; one that stops on the stall count reads it once more).
+    prof = solve_profile(okw, ocfg)
+    cuts = [solve_profile(okw, dataclasses.replace(ocfg, max_iterations=k))
+            for k in (2, 6)]
+    it = prof["iterations"]
+    require(it > 6, f"[4u] the office graph solved in {it} iterations")
+    di = cuts[1]["iterations"] - cuts[0]["iterations"]
+    require(di == 4 and cuts[1]["htod"] == cuts[0]["htod"]
+            and cuts[1]["dtoh"] - cuts[0]["dtoh"] == di,
+            f"[4u] copies: {cuts[1]['htod']} / {cuts[0]['htod']} "
+            f"host->device, {cuts[1]['dtoh']} / {cuts[0]['dtoh']} "
+            f"device->host over {cuts[1]['iterations']} / "
+            f"{cuts[0]['iterations']} iterations")
+    per_it = {k: (v - cuts[0]["kernels"].get(k, 0)) / di
+              for k, v in cuts[1]["kernels"].items()
+              if v != cuts[0]["kernels"].get(k, 0)}
+    print(f"[4u] profiled solves of the office graph, cut at 6 and at 2 "
+          f"iterations: an LM iteration copies host->device 0 times and "
+          f"device->host once; its CUDA kernels (launches an iteration) "
+          f"{per_it}; a whole solve ({it} iterations) {prof['htod']} "
+          f"host->device copies (by {prof['htod_ops']}), {prof['dtoh']} "
+          f"device->host ({ident})")
+    # Times at the office graph.
+    terms, sys_args, delta, info = lm_inputs(okw, ocfg, 1e-6)
+    pairs, bab, g, diag, lam_t, fm = sys_args
+    N, C = fm.shape[0], terms[0].shape[0]
+    c0 = k4.robust_cost(okw["poses"], None, None, *terms)
+    sk = k4.lm_state(okw["poses"], 1e-6, c0, C)
+    st = k4.lm_state(okw["poses"], 1e-6, c0, C)
+    step = (delta, info, *terms, 0.5, 10.0, 1e-9)
+    hm, rhs = k4.dense_system(*sys_args)
+    hmt, rhst = k4.dense_system_twin(*sys_args)
+    k4.lm_step(sk, *step)
+    k4.lm_step_twin(st, *step)
+    errs = {"dense_system": max_abs_diff([(hm, hmt), (rhs, rhst)]),
+            "lm_step": max_abs_diff([(sk.poses, st.poses), (sk.cost, st.cost),
+                                     (sk.lam, st.lam)])}
+    # Bytes: the system written once (hm and rhs) and its inputs read once;
+    # the step's poses, delta and constraint terms read once and the poses
+    # written once.
+    moved = {"dense_system": (9 * N * N + 3 * N) * 4 + nbytes(
+                 bab, g, diag, fm, pairs.keys, pairs.src, pairs.row_ptr),
+             "lm_step": nbytes(okw["poses"], delta, *terms[:6]) + 12 * N}
+    ops = {"dense_system": 2 * 9 * N * N, "lm_step": 80 * C}
+    calls = {"dense_system": (lambda: k4.dense_system(*sys_args),
+                              lambda: k4.dense_system_twin(*sys_args)),
+             "lm_step": (lambda: k4.lm_step(sk, *step),
+                         lambda: k4.lm_step_twin(st, *step))}
+    out = {}
+    for k, (fn, twin_fn) in calls.items():
+        out[k] = timed(errs[k], cuda_ms(fn, 50), cuda_ms(twin_fn, 5),
+                       moved[k], ops[k])
+        print(f"[5] {k} at the office graph (N_pad {N}, C_pad {C}): "
+              f"cuda_ms {out[k]['ms']:.5f}, in a CUDA graph "
+              f"{graph_ms(fn, 20):.5f} ms, host "
+              f"{host_us(fn, 101, sync=True):.1f} us a call, twin "
+              f"{out[k]['plain_ms']:.4f} ms ({ident})")
+    walls = {"kernels": [], "twins": []}
+    for arm in ("kernels", "twins", "kernels", "twins"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solver.solve(ocfg, **okw, twin=arm == "twins")
+        torch.cuda.synchronize()
+        walls[arm].append((time.perf_counter() - t0) * 1e3
+                          / int(res.iterations))
+    print(f"[5] LM iteration wall on the office graph (N_pad {N}, "
+          f"{int(res.iterations)} iterations a solve): kernels "
+          f"{[round(w, 4) for w in walls['kernels']]} ms, twins "
+          f"{[round(w, 4) for w in walls['twins']]} ms ({ident})")
+    return out
+
+
+def lm_times(dev, ident, both=None) -> dict:
+    """K4's dense LM step on synthetic graphs at N_pad 512 and 1024
+    (``lm_graph``, Geman-McClure): ``dense_system`` and ``lm_step`` through
+    ``both`` where this tree has them, and the wall of an LM iteration (a
+    whole ``solve``'s wall over its iterations, kernels and twins in turn,
+    twice each).  The walls call only ``solve``, so in an older checkout
+    they time that checkout's LM loop."""
+    import torch
+
+    from ndt_2d_tpu_torch.config import SolverConfig
+    from ndt_2d_tpu_torch.graph import solver
+    from ndt_2d_tpu_torch.kernels import normal_blocks as k4
+    scfg = SolverConfig(robust_loss="geman_mcclure")
+    out = {}
+    for nodes, n_pad, closures in ((287, 512, 150), (1000, 1024, 300)):
+        kw = {k: torch.from_numpy(v).to(dev)
+              for k, v in lm_graph(nodes, n_pad, closures, 1).items()}
+        if both is not None and hasattr(k4, "dense_system"):
+            terms, sys_args, delta, info = lm_inputs(kw, scfg, 1e-6)
+            c0 = k4.robust_cost(kw["poses"], None, None, *terms)
+            sk = k4.lm_state(kw["poses"], 1e-6, c0, terms[0].shape[0])
+            both(f"K4 dense_system N_pad {n_pad}",
+                 lambda a=sys_args: k4.dense_system(*a), 50)
+            both(f"K4 lm_step N_pad {n_pad}",
+                 lambda s=sk, d=delta, i=info, t=terms: k4.lm_step(
+                     s, d, i, *t, 0.5, 10.0, 1e-9), 50)
+            hm, rhs = k4.dense_system(*sys_args)
+
+            def factor(hm=hm, rhs=rhs):
+                chol, _ = torch.linalg.cholesky_ex(hm)
+                return torch.cholesky_solve(rhs.reshape(-1, 1), chol)
+            # The library's Cholesky of M = 3 N: M^3 / 3 float32 operations.
+            m = 3 * n_pad
+            ms = cuda_ms(factor, 20)
+            out[f"cuSOLVER N_pad {n_pad}"] = ms
+            print(f"[5] cuSOLVER cholesky_ex + cholesky_solve, N_pad {n_pad} "
+                  f"({m} x {m}): {ms:.4f} ms a call, bound "
+                  f"{m ** 3 / 3 / PEAK_F32_OPS_PER_S * 1e3:.4f} ms "
+                  f"(operations) ({ident})")
+        walls = {"kernels": [], "twins": []}
+        solver.solve(scfg, **kw)
+        for arm in ("kernels", "twins", "kernels", "twins"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = solver.solve(scfg, **kw, twin=arm == "twins")
+            torch.cuda.synchronize()
+            walls[arm].append((time.perf_counter() - t0) * 1e3
+                              / int(res.iterations))
+        out[f"LM iteration wall N_pad {n_pad}"] = walls
+        print(f"[5] LM iteration wall, synthetic graph N_pad {n_pad} "
+              f"({int(res.iterations)} iterations a solve): kernels "
+              f"{[round(w, 4) for w in walls['kernels']]} ms, twins "
+              f"{[round(w, 4) for w in walls['twins']]} ms ({ident})")
+    return out
+
+
+def optimize_times(dev, ident, runs: int = 3) -> dict:
+    """The mapper's ``optimize`` timer (mean ms a solve, solves) of the
+    ``office`` recipe on config 3's bag, config 9 and the ``drift`` recipe,
+    ``runs`` runs of each in turn in one process (the first run of the
+    office recipe holds the process's first dense solve), then
+    ``lm_times``' LM iteration walls.  Calls only ``run_session`` and
+    ``solve``, so ``--optimize-times`` in an older checkout times that
+    checkout."""
+    import numpy as np
+
+    from ndt_2d_tpu_torch.io import carmen
+    bag9 = carmen.load_carmen(os.path.join(ROOT, "datasets",
+                                           "simlab.clf.gz"), range_max=10.0)
+    sessions = {"office recipe": (office_recipe_config(), office_bag()),
+                "config 9": (config9(), bag9),
+                "drift": (office_config("--recipe", "drift"), drift_bag())}
+    out = {k: [] for k in sessions}
+    for _ in range(runs):
+        for name, (cfg, bag) in sessions.items():
+            mapper = run_session(cfg, bag, dev)[-1]
+            t = mapper.stats.timer.summary()["optimize"]
+            out[name].append((t["mean_ms"], t["count"]))
+    for name, runs_ in out.items():
+        ms = [m for m, _ in runs_]
+        print(f"[6] {name}: optimize mean ms of {len(ms)} runs "
+              f"{[round(m, 4) for m in ms]} (solves "
+              f"{[c for _, c in runs_]}), median {float(np.median(ms)):.4f}"
+              f", spread {max(ms) - min(ms):.4f} ({ident})")
+    out.update(lm_times(dev, ident))
+    return out
 
 
 def config4_configs():
@@ -4932,6 +5383,16 @@ def phase_mesh_nccl(cfg, bag, cfg6, bag3, dev, tmp):
                     f"launched {k}: {launches}")
         require(launches["candidate_scores"] == 0, "config 10 on the mesh "
                 "launched the one-launch K2 search")
+        # The mesh's dense LM step: dense_system and lm_step each a launch
+        # before the rank sum and one after (lm_step also one a solve for
+        # the start's cost).
+        lm_it = launches["normal_blocks"]
+        require(lm_it >= 1 and launches["dense_system"] == 2 * lm_it
+                and launches["lm_step"] > 2 * lm_it,
+                f"config 10 on the mesh: dense LM step launches {launches}")
+        print(f"[4p] config 10 on the mesh, the dense LM step split around "
+              f"the rank sum: {lm_it} LM iterations, dense_system "
+              f"{launches['dense_system']}, lm_step {launches['lm_step']}")
         print(f"[4p] config 10 ({len(bag)} office scans) on a one-rank NCCL "
               f"mesh: {st['scans_accepted']} accepted (single-device "
               f"{s['stats']['scans_accepted']}), {st['loop_closures']} "
@@ -5809,6 +6270,14 @@ def main() -> int:
         print(json.dumps({"session_times": session_times(dev, ident),
                           "card": ident}))
         return 0
+    if "--optimize-times" in sys.argv[1:]:
+        from ndt_2d_tpu_torch.device import get_device
+        dev = get_device("cuda:0")
+        ident = phase_card()
+        phase_build()
+        print(json.dumps({"optimize_times": optimize_times(dev, ident),
+                          "card": ident}))
+        return 0
     if "--kernel-times" in sys.argv[1:]:
         from ndt_2d_tpu_torch.device import get_device
         from ndt_2d_tpu_torch.io.bag import record_synthetic
@@ -5860,7 +6329,9 @@ def main() -> int:
                 truth, district, dev)
             launches, plain3 = phase_office(cfg3, bag3, dev)
             phase_pipelined_office(cfg3, bag3, dev, plain3)
-            phase_office(office_recipe_config(), bag3, dev, "[4g]", plain3)
+            _, office = phase_office(office_recipe_config(), bag3, dev,
+                                     "[4g]", plain3)
+            timing.update(phase_lm(dev, office, ident))
             pf_launches, sync4 = phase_config4(map4, keyframes, dev)
             phase_pipelined_config4(map4, dev, sync4)
             phase_config7(os.path.join(tmp, "office_map.npz"), dev)

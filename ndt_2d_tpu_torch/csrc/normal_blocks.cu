@@ -6,7 +6,9 @@
 // _gather_gradient_and_diag (entry ndt2d_normal_blocks), the matvec of
 // _pcg_solve (entry ndt2d_pcg_matvec, the mesh's host loop) and the whole
 // lax.while_loop of _pcg_solve (entry ndt2d_pcg_solve; its dot products
-// alone: ndt2d_fixed_dot).
+// alone: ndt2d_fixed_dot), _dense_solve's assembly of the damped dense
+// system (entry ndt2d_dense_system), and _robust_cost with the accept and
+// update of the LM loop's body, lm_step (entry ndt2d_lm_step).
 //
 // What it computes.  Per constraint k = (a, b): the residual
 // r = (R(th_a)^T (p_b - p_a) - t_xy, normalize(th_b - th_a - t_th)), the
@@ -60,6 +62,39 @@
 // (kernels/normal_blocks.py::pcg_solve_twin, fixed_dot_twin) writes the same
 // operations in the same order.  Data the kernel writes is read back
 // through L2 (__ldcg), never through a stale L1 line.
+//
+// The dense system (ndt2d_dense_system).  Eager, it is ~10 passes over the
+// (3N)^2 matrix (zeros, one scatter a round of duplicate pairs, the
+// diagonal updates, the mask, a permuting copy) and ~40 launches.  What
+// bounds it is writing the matrix once: (3N)^2 x 4 bytes, 9.4 MB at
+// N = 512.  A block takes a node row i: it maps each column node j of the
+// row's node-pair slots (a per-row table of the sorted slot keys, built
+// once per solve on the device) to the slot's first entry in shared
+// memory, then writes its three rows once, float4 by float4, each element
+// computed whole: the slot's entries from +0 in their sorted order (every
+// Bab of the pair in constraint order, then every Bab^T), then the
+// diagonal's D and damping and the free-node mask in the twin's order
+// (kernels/normal_blocks.py::dense_system_twin).  On a mesh the pair sums
+// are added over ranks between the sum and the rest, so a launch writes
+// the sums, K12's rank_sum adds them, and a second launch finishes the
+// matrix in place.
+//
+// The LM step (ndt2d_lm_step).  Eager, the robust cost of the step and
+// the accept/update are ~60 launches and two host->device scalar copies.
+// The work is ~80 bytes a constraint, so launches bound it at the dense
+// path's sizes.  One cooperative launch forms the step's cost a constraint
+// (poses + delta, NaN where the factorization failed, folded in), a thread
+// a constraint, into a scratch row; after a grid sync one thread of block 0
+// adds the row in constraint order from +0 (the twin:
+// kernels/normal_blocks.py::ordered_sum_twin; the reference's XLA:CPU
+// reduce adds a small cost in that order, and a tree order parts from its
+// LM iteration count on a flat-valley graph), staged through shared
+// memory; after a second sync every block decides the accept and writes
+// its poses, and block 0 the damping, cost, stall count and flags.  The
+// serial add chain (C add latencies, ~2.5 ns each) is the floor at the
+// district's 10^5 constraints.  Neither the grid nor the padding (a
+// masked constraint adds +0) changes the bits.  The scalars are
+// arguments: no host->device copy.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -636,6 +671,246 @@ __global__ void __launch_bounds__(kThreads) pcg(const Pcg a) {
   if (tid == 0) *a.iters = it;
 }
 
+
+// --- The dense LM system ----------------------------------------------------
+
+// Rows of the dense system a launch takes: a block's slot table holds one
+// int a node in (default) shared memory.
+constexpr int kDenseMaxN = 12288;
+
+struct Dense {
+  const long long* keys;  // [2C] sorted slot keys i n + j (n n: masked)
+  const int* src;         // [2C] entry: s < C Bab_s, else Bab_{s-C}^T
+  const int* row_ptr;     // [n + 1] row i's sorted positions
+  const float *bab, *diag, *g, *lam, *fm;
+  int n, C, phase;  // 0 all, 1 the pair sums alone, 2 finish hm in place
+  float *hm, *rhs;
+};
+
+// Element (3i + ai, c) of the system: node-pair slot (i, j = c / 3), entry
+// (ai, b = c % 3).  The slot's entries add from +0 in their sorted order
+// (phase 2 starts from `prior`, the combined sum); then, as the twin does,
+// + D, + lam (D_ab e + 1e-12 e) with e = [ai == b], times fm_i, times fm_i
+// again, + (1 - fm_i) e on the diagonal slot, and times fm_i then fm_j
+// elsewhere.  Each operation rounds once, in this order, so -0 and NaN come
+// out as the twin's.
+__device__ __forceinline__ float dense_value(const Dense& a, int i, int ai,
+                                             int c, float fi, float l,
+                                             int hi, const int* slot,
+                                             float prior) {
+  const int j = c / 3, b = c - 3 * j;
+  float v = prior;
+  if (a.phase != 2) {
+    v = 0.f;
+    const int p0 = slot[j];
+    if (p0 >= 0) {
+      const long long key = a.keys[p0];
+      for (int p = p0; p < hi && a.keys[p] == key; ++p) {
+        const int s = a.src[p];
+        v = v + (s < a.C ? a.bab[9 * s + 3 * ai + b]
+                         : a.bab[9 * (s - a.C) + 3 * b + ai]);
+      }
+    }
+    if (a.phase == 1) return v;
+  }
+  if (j != i) return (v * fi) * a.fm[j];
+  const float d = a.diag[9 * i + 3 * ai + b];
+  const float e = ai == b ? 1.f : 0.f;
+  v = v + d;
+  v = v + l * (d * e + static_cast<float>(1e-12) * e);
+  v = (v * fi) * fi;
+  return v + (1.f - fi) * e;
+}
+
+// solver.py::_dense_solve's assembly, a block a node row i: its rows
+// 3i .. 3i + 2 of hm (3 x 3n floats, contiguous) are written once, in
+// float4 stores where a row's length allows, after the block has mapped
+// each column node j of its pair slots to the slot's first sorted entry.
+__global__ void __launch_bounds__(kThreads) dense_system(const Dense a) {
+  extern __shared__ int slot[];
+  const int i = blockIdx.x, n = a.n, w = 3 * n;
+  const int lo = a.row_ptr[i], hi = a.row_ptr[i + 1];
+  if (a.phase != 2) {
+    for (int j = threadIdx.x; j < n; j += kThreads) slot[j] = -1;
+    __syncthreads();
+    const long long base = (long long)i * n;
+    for (int p = lo + threadIdx.x; p < hi; p += kThreads)
+      if (p == lo || a.keys[p] != a.keys[p - 1])
+        slot[(int)(a.keys[p] - base)] = p;
+    __syncthreads();
+  }
+  const float fi = a.fm[i];
+  const float l = a.phase == 1 ? 0.f : a.lam[0];
+  float* row = a.hm + (size_t)3 * i * w;
+  if ((w & 3) == 0) {
+    float4* row4 = reinterpret_cast<float4*>(row);
+    for (int q = threadIdx.x; q < 3 * w / 4; q += kThreads) {
+      const int ai = 4 * q / w, c = 4 * q - ai * w;
+      const float4 prior =
+          a.phase == 2 ? row4[q] : make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 v;
+      v.x = dense_value(a, i, ai, c, fi, l, hi, slot, prior.x);
+      v.y = dense_value(a, i, ai, c + 1, fi, l, hi, slot, prior.y);
+      v.z = dense_value(a, i, ai, c + 2, fi, l, hi, slot, prior.z);
+      v.w = dense_value(a, i, ai, c + 3, fi, l, hi, slot, prior.w);
+      row4[q] = v;
+    }
+  } else {
+    for (int q = threadIdx.x; q < 3 * w; q += kThreads) {
+      const int ai = q / w, c = q - ai * w;
+      row[q] = dense_value(a, i, ai, c, fi, l, hi, slot,
+                           a.phase == 2 ? row[q] : 0.f);
+    }
+  }
+  if (a.phase != 1 && threadIdx.x < 3)
+    a.rhs[3 * i + threadIdx.x] = -a.g[3 * i + threadIdx.x] * fi;
+}
+
+// --- The LM step ------------------------------------------------------------
+
+enum LmMode { kCost = 0, kStep = 1, kUpdate = 2 };
+
+struct Lm {
+  int mode;
+  float* poses;        // [N,3], updated in place (kStep, kUpdate)
+  const float* delta;  // [N,3] or null (the cost of poses)
+  const int* info;     // the factorization's status, or null
+  const int *begin, *end;
+  const float *transform, *information;
+  const uint8_t *cmask, *robust_mask;
+  int loss;
+  float hdelta;
+  int C, N;
+  float* rho;             // [C + 1] the cost a constraint, then the sum
+  float* out;             // kCost: the cost
+  const float* new_cost;  // kUpdate: the (combined) cost of the step
+  float *lam, *cost;
+  int* stall;
+  uint8_t* flags;  // accept, improved
+  float down, up, tol;
+};
+
+// Node n of poses + delta, delta NaN where the factorization failed.
+__device__ __forceinline__ void stepped(const Lm& a, bool ok, int n,
+                                        float* p) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    p[i] = a.poses[3 * n + i];
+    if (a.delta)
+      p[i] = p[i] + (ok ? a.delta[3 * n + i] : __int_as_float(0x7fc00000));
+  }
+}
+
+// solver.py::_robust_cost of constraint k, 0 off cmask.
+__device__ __forceinline__ float robust_rho(const Lm& a, bool ok, int k) {
+  if (!a.cmask[k]) return 0.f;
+  float pa[3], pb[3];
+  stepped(a, ok, a.begin[k], pa);
+  stepped(a, ok, a.end[k], pb);
+  const float* t = a.transform + 3 * k;
+  const float dx = pb[0] - pa[0], dy = pb[1] - pa[1];
+  const float c = cosf(pa[2]), s = sinf(pa[2]);
+  float r[3];
+  r[0] = (c * dx + s * dy) - t[0];
+  r[1] = (-s * dx + c * dy) - t[1];
+  r[2] = normalize_angle((pb[2] - pa[2]) - t[2]);
+  const float* lam = a.information + 9 * k;
+  float l_r[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    l_r[i] = dot3(lam[3 * i], lam[3 * i + 1], lam[3 * i + 2], r[0], r[1],
+                  r[2]);
+  const float s2 = dot3(r[0], r[1], r[2], l_r[0], l_r[1], l_r[2]);
+  if (a.loss == kNone || !a.robust_mask[k]) return s2;
+  const float d = a.hdelta;
+  if (a.loss == kHuber) {
+    const float sn = sqrtf(s2 < static_cast<float>(1e-20)
+                               ? static_cast<float>(1e-20) : s2);
+    return sn > d ? d * (2.f * sn - d) : s2;
+  }
+  return s2 / (1.f + s2 / (d * d));
+}
+
+// Floats of the cost row block 0 stages at a time for its ordered sum.
+constexpr int kSumChunk = 4096;
+
+// x[0] + ... + x[n - 1] in index order from +0, in thread 0 of the calling
+// block (every thread calls it): the block stages kSumChunk floats at a
+// time in shared memory, and thread 0 adds them one by one.
+__device__ __forceinline__ float ordered_sum(const float* x, int n,
+                                             float* stage) {
+  float acc = 0.f;
+  for (int c0 = 0; c0 < n; c0 += kSumChunk) {
+    const int m = min(kSumChunk, n - c0);
+    for (int i = threadIdx.x; i < m; i += kThreads)
+      stage[i] = __ldcg(x + c0 + i);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+#pragma unroll 8
+      for (int i = 0; i < m; ++i) acc = acc + stage[i];
+    }
+    __syncthreads();
+  }
+  return acc;
+}
+
+// solver.py::_robust_cost + lm_step's accept and update (:303-315) in one
+// cooperative launch.  Every block reads the state, then forms its
+// constraints' costs into rho; after a grid sync block 0 adds them in
+// order (kCost: into out, and the launch ends); after a second sync every
+// block reads the sum, decides the accept and writes its share of the
+// poses, and block 0 writes lam, cost, stall and the flags.  No block reads
+// the state after block 0 may have written it.
+__global__ void __launch_bounds__(kThreads) lm_step(const Lm a) {
+  __shared__ float stage[kSumChunk];
+  cg::grid_group grid = cg::this_grid();
+  const int tid = blockIdx.x * kThreads + threadIdx.x;
+  const int nth = gridDim.x * kThreads;
+  const bool ok = a.info == nullptr || *a.info == 0;
+  float cost = 0.f, lam = 0.f;
+  int stall = 0;
+  if (a.mode != kCost) {
+    cost = *a.cost;
+    lam = *a.lam;
+    stall = *a.stall;
+  }
+  if (a.mode != kUpdate)
+    for (int k = tid; k < a.C; k += nth)
+      __stcg(a.rho + k, robust_rho(a, ok, k));
+  grid.sync();
+  if (a.mode != kUpdate) {
+    if (blockIdx.x == 0) {
+      const float total = ordered_sum(a.rho, a.C, stage);
+      if (threadIdx.x == 0)
+        __stcg(a.mode == kCost ? a.out : a.rho + a.C, total);
+    }
+    if (a.mode == kCost) return;
+    grid.sync();
+  }
+  const float total = a.mode == kUpdate ? *a.new_cost : __ldcg(a.rho + a.C);
+  const bool accept = total < cost;
+  if (accept)
+    for (int n = tid; n < a.N; n += nth) {
+      float p[3];
+      stepped(a, ok, n, p);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) a.poses[3 * n + i] = p[i];
+    }
+  if (tid == 0) {
+    // torch.clamp(lam, 1e-12, 1e8), which keeps a NaN.
+    float l = accept ? lam * a.down : lam * a.up;
+    if (l == l)
+      l = fminf(fmaxf(l, static_cast<float>(1e-12)), static_cast<float>(1e8));
+    const bool improved =
+        fabsf(cost - total) > a.tol * (cost + static_cast<float>(1e-12));
+    *a.lam = l;
+    *a.cost = accept ? total : cost;
+    *a.stall = accept && improved ? 0 : stall + 1;
+    a.flags[0] = accept;
+    a.flags[1] = improved;
+  }
+}
+
 }  // namespace
 
 // poses [N,3] f32, begin/end [C] i32 (in [0, N)), transform [C,3] f32,
@@ -780,4 +1055,99 @@ NDT2D_API int ndt2d_pcg_solve(
                                     kThreads, args, 0,
                                     reinterpret_cast<cudaStream_t>(stream));
   return (int)err;
+}
+
+// The damped dense system of one LM step.  keys [2C] i64, src [2C] i32,
+// row_ptr [n+1] i32 (kernels/normal_blocks.py::pair_table); bab [C,3,3],
+// diag [n,3,3], g [n,3], lam [1], fm [n] f32; phase 0 (all), 1 (the pair
+// sums alone into hm) or 2 (finish hm, the pair sums combined over ranks,
+// in place); out: hm [3n,3n], rhs [3n] f32 (rhs not in phase 1).
+NDT2D_API int ndt2d_dense_system(const void* keys, const void* src,
+                                 const void* row_ptr, const void* bab,
+                                 const void* diag, const void* g,
+                                 const void* lam, const void* fm, int n,
+                                 int C, int phase, void* hm, void* rhs,
+                                 void* stream) {
+  if (n < 1 || n > kDenseMaxN || C < 0 || phase < 0 || phase > 2)
+    return (int)cudaErrorInvalidValue;
+  Dense a{static_cast<const long long*>(keys), static_cast<const int*>(src),
+          static_cast<const int*>(row_ptr), static_cast<const float*>(bab),
+          static_cast<const float*>(diag), static_cast<const float*>(g),
+          static_cast<const float*>(lam), static_cast<const float*>(fm),
+          n, C, phase, static_cast<float*>(hm), static_cast<float*>(rhs)};
+  const size_t smem = phase == 2 ? 0 : (size_t)n * sizeof(int);
+  dense_system<<<n, kThreads, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
+      a);
+  return (int)cudaGetLastError();
+}
+
+// The LM-step blocks the current device holds co-resident, into *blocks (0
+// where it cannot launch cooperatively).
+NDT2D_API int ndt2d_lm_step_fit(int* blocks) {
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lm_step,
+                                                        kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  *blocks = coop ? per_sm * sms : 0;
+  return 0;
+}
+
+// One LM step (mode 1), its cost alone (mode 0: into out [1]) or its update
+// from a given cost (mode 2: new_cost [1]).  poses [N,3] f32 (updated in
+// place), delta [N,3] f32 or null, info [1] i32 or null, begin/end [C] i32,
+// transform [C,3], information [C,3,3] f32, cmask/robust_mask [C] u8, loss
+// and hdelta as ndt2d_normal_blocks'; rho [C+1] f32 scratch; state lam,
+// cost [1] f32, stall [1] i32, flags [2] u8 (modes 1, 2); the factors
+// down/up and the tolerance.  One cooperative launch of `blocks` blocks
+// (kernels/normal_blocks.py::lm_plan, at most ndt2d_lm_step_fit's); the
+// launch fails where the card cannot hold them co-resident.
+NDT2D_API int ndt2d_lm_step(int mode, int blocks, void* poses,
+                            const void* delta, const void* info,
+                            const void* begin, const void* end,
+                            const void* transform,
+                            const void* information, const void* cmask,
+                            const void* robust_mask, int loss, float hdelta,
+                            int C, int N, void* rho, void* out,
+                            const void* new_cost, void* lam, void* cost,
+                            void* stall, void* flags, float down, float up,
+                            float tol, void* stream) {
+  if (mode < kCost || mode > kUpdate || blocks < 1 || C < 0 || N < 1)
+    return (int)cudaErrorInvalidValue;
+  if ((mode == kCost && !out) || (mode == kUpdate && !new_cost) ||
+      (mode != kCost && !(lam && cost && stall && flags)))
+    return (int)cudaErrorInvalidValue;
+  Lm a{mode,
+       static_cast<float*>(poses),
+       static_cast<const float*>(delta),
+       static_cast<const int*>(info),
+       static_cast<const int*>(begin),
+       static_cast<const int*>(end),
+       static_cast<const float*>(transform),
+       static_cast<const float*>(information),
+       static_cast<const uint8_t*>(cmask),
+       static_cast<const uint8_t*>(robust_mask),
+       loss,
+       hdelta,
+       C,
+       N,
+       static_cast<float*>(rho),
+       static_cast<float*>(out),
+       static_cast<const float*>(new_cost),
+       static_cast<float*>(lam),
+       static_cast<float*>(cost),
+       static_cast<int*>(stall),
+       static_cast<uint8_t*>(flags),
+       down,
+       up,
+       tol};
+  void* args[] = {&a};
+  return (int)cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(lm_step), blocks, kThreads, args, 0,
+      reinterpret_cast<cudaStream_t>(stream));
 }

@@ -12,20 +12,27 @@ robust weights, the per-constraint blocks and the per-node gradient and
 block diagonal (``normal_blocks``), both summing per node in constraint
 order with no float atomics, and runs each LM step's whole PCG loop in one
 launch (``pcg_solve``: the matvec, fixed-order dot products and the
-reference's stop test on the device).  The dense system is assembled
-deterministically (diagonal blocks from K4's D, off-diagonal blocks summed
-in constraint order per node pair) and solved by
-``torch.linalg.cholesky_ex`` + ``cholesky_solve``, a library call where the
-reference calls ``jax.scipy.linalg.solve``.  The LM loop is a host loop
-that stops at the reference's iteration (one device->host read per
-iteration).  Everything runs in float32 with TF32 off
-(``precision="highest"`` in the reference).
+reference's stop test on the device).  K4's ``dense_system`` assembles the
+damped dense system in one launch (diagonal blocks from K4's D,
+off-diagonal blocks summed in constraint order per node pair, from a
+per-row pair table built once per solve), which
+``torch.linalg.cholesky_ex`` + ``cholesky_solve`` solve, a library call
+where the reference calls ``jax.scipy.linalg.solve``.  K4's ``lm_step``
+then evaluates the step's robust cost (summed in constraint order)
+and accepts or rejects it, updating the poses, damping, cost and stall
+count in place on the device.  An LM iteration on one device is thus
+``normal_blocks``, ``dense_system`` (or ``pcg_solve``), the library's
+factorization and solve, and ``lm_step``, with no host->device copy; the
+LM loop is a host loop that stops at the reference's iteration on its one
+device->host read an iteration (the stall count).  Everything runs in
+float32 with TF32 off (``precision="highest"`` in the reference).
 
 On a device mesh (``mesh``; ``parallel/solver.py``) each rank holds a
 contiguous block of the constraints, over the mesh's ``batch`` axis.  The
-robust cost, gradient, block diagonal, the dense system's off-diagonal
-blocks and each PCG product are then the rank's partials, all-gathered
-and added in rank order (K12's ``rank_sum``), so every rank holds the same
+robust cost, gradient, block diagonal, the dense system's node-pair sums
+and each PCG product are then the rank's partials, all-gathered and added
+in rank order (K12's ``rank_sum``; ``dense_system`` and ``lm_step`` split
+into a launch before the sum and one after), so every rank holds the same
 bits and the LM and CG loops take the same path on every rank.  The mesh's
 CG loop is K4's host loop ``pcg_loop`` over its ``pcg_matvec`` and
 ``fixed_dots``.  A mesh chooses dense or PCG by one device's size rule.
@@ -70,14 +77,11 @@ def _f32(x, like):
     return torch.tensor(x, dtype=like.dtype, device=like.device)
 
 
-def _quad(r, information):
-    """[C] r^T Lambda r."""
-    return k4._dot3(r, k4._mv(information, r))
-
-
 def _cost(poses, begin, end, transform, information, cmask):
-    w = _quad(residuals(poses, begin, end, transform), information)
-    return torch.sum(torch.where(cmask, w, _f32(0.0, w)))
+    """The plain cost, summed in constraint order."""
+    none = torch.zeros_like(cmask)
+    return k4.robust_cost_twin(poses, None, None, begin, end, transform,
+                               information, cmask, none, "none", 1.0)
 
 
 def robust_weights(config: SolverConfig, poses, begin, end, transform,
@@ -92,21 +96,11 @@ def robust_weights(config: SolverConfig, poses, begin, end, transform,
 def _robust_cost(config: SolverConfig, poses, begin, end, transform,
                  information, cmask, robust_mask):
     """Huber rho(s) = s^2 for s <= delta, delta (2 s - delta) beyond;
-    Geman-McClure s^2 / (1 + s^2 / delta^2); plain s^2 off robust_mask."""
-    s2 = _quad(residuals(poses, begin, end, transform), information)
-    zero = _f32(0.0, s2)
-    if config.robust_loss == "none":
-        return torch.sum(torch.where(cmask, s2, zero))
-    delta = _f32(config.huber_delta, s2)
-    if config.robust_loss == "huber":
-        s = torch.sqrt(torch.clamp(s2, min=1e-20))
-        rho = torch.where(s > delta, delta * (_f32(2.0, s) * s - delta), s2)
-    elif config.robust_loss == "geman_mcclure":
-        rho = s2 / (_f32(1.0, s2) + s2 / (delta * delta))
-    else:
-        raise ValueError(f"unknown robust_loss {config.robust_loss!r}")
-    rho = torch.where(robust_mask, rho, s2)
-    return torch.sum(torch.where(cmask, rho, zero))
+    Geman-McClure s^2 / (1 + s^2 / delta^2); plain s^2 off robust_mask;
+    summed in constraint order (``k4.robust_cost_twin``)."""
+    return k4.robust_cost_twin(poses, None, None, begin, end, transform,
+                               information, cmask, robust_mask,
+                               config.robust_loss, config.huber_delta)
 
 
 def _normal_blocks(poses, begin, end, transform, information, cmask):
@@ -129,57 +123,19 @@ def _gather_gradient_and_diag(n, begin, end, baa, bab, bbb, ga, gb,
     return k4.node_sums_twin(baa, bbb, ga, gb, inc)
 
 
-class _Pairs:
-    """Off-diagonal slots of the dense system: the Bab block of each live
-    constraint goes to (begin, end) and its transpose to (end, begin); the
-    entries of one slot add in that order (all Bab in constraint order,
-    then all Bab^T), as the reference's two scatters do.  ``rounds`` holds,
-    per rank, the (flat slot, source entry) pairs whose slots are unique
-    within the round."""
-
-    def __init__(self, begin, end, cmask, n: int):
-        live = torch.nonzero(cmask).squeeze(1)
-        b, e = begin[live].long(), end[live].long()
-        keys = torch.cat([b * n + e, e * n + b])
-        src = torch.cat([live, live + begin.shape[0]])
-        order = torch.sort(keys, stable=True).indices
-        keys, src = keys[order], src[order]
-        first = torch.searchsorted(keys, keys)
-        rank = torch.arange(keys.numel(), device=keys.device) - first
-        depth = int(rank.max()) + 1 if keys.numel() else 0
-        self.rounds = [(keys[rank == d], src[rank == d])
-                       for d in range(depth)]
-
-
-def _dense_solve(n, bab, g, diag, lam, free_mask, pairs: _Pairs, combine):
-    """Assemble the [3N, 3N] damped system and Cholesky-solve it.
-    Off-diagonal blocks add in constraint order per node pair, then over
-    ranks (``combine``); diagonal blocks are K4's D (sum of Baa and Bbb
-    per node, already combined) plus damping."""
-    dev, dt = g.device, g.dtype
-    eye = torch.eye(3, dtype=dt, device=dev)
-    h = torch.zeros(n * n, 3, 3, dtype=dt, device=dev)
-    on_diag = torch.arange(n, device=dev) * (n + 1)
-    entries = torch.cat([bab, bab.transpose(-1, -2)])
-    for keys, src in pairs.rounds:
-        h[keys] = h[keys] + entries[src]
-    h = combine(h)
-    h[on_diag] = h[on_diag] + diag
-    # LM damping on the block diagonal (Marquardt scaling).
-    h[on_diag] = h[on_diag] + lam * (diag * eye + _f32(1e-12, g) * eye)
-    # Gauge fix + inactive nodes: identity rows/cols, zero rhs.
-    fm = free_mask.to(dt)
-    h = h.reshape(n, n, 3, 3) * fm[:, None, None, None] * fm[None, :, None,
-                                                           None]
-    h = h.reshape(n * n, 3, 3)
-    h[on_diag] = h[on_diag] + (1.0 - fm)[:, None, None] * eye
-    rhs = -g * fm[:, None]
-    hm = h.reshape(n, n, 3, 3).permute(0, 2, 1, 3).reshape(3 * n, 3 * n)
+def _dense_solve(n, bab, g, diag, lam, fm, pairs: k4.Pairs, combine,
+                 twin: bool):
+    """K4's damped dense system (``k4.dense_system``, its twin with
+    ``twin``; ``combine`` adds the node-pair sums over a mesh's ranks),
+    Cholesky-solved.  Returns (delta [N, 3], the factorization's 0-d
+    status): a matrix that is not positive definite has info != 0, and
+    ``lm_step`` then steps by NaN, as the reference's Cholesky gives NaN,
+    so the step is rejected."""
+    system = k4.dense_system_twin if twin else k4.dense_system
+    hm, rhs = system(pairs, bab, g, diag, lam, fm, combine)
     chol, info = torch.linalg.cholesky_ex(hm)
     delta = torch.cholesky_solve(rhs.reshape(-1, 1), chol).reshape(n, 3)
-    # A matrix that is not positive definite gives NaN, as the reference's
-    # Cholesky does, so the LM step is rejected.
-    return torch.where(info == 0, delta, _f32(float("nan"), delta))
+    return delta, info
 
 
 def _pcg_solve(begin, end, baa, bab, bbb, g, diag, lam, free_mask,
@@ -293,49 +249,42 @@ def _solve_impl(config, poses, begin, end, transform, information,
     """The LM loop over the constraints given (a rank's shard on a mesh,
     where ``combine`` adds a partial over the ranks)."""
     inc = k4.incidence(begin, end, constraint_mask, n)
-    pairs = _Pairs(begin, end, constraint_mask, n) if use_dense else None
+    pairs = (k4.pair_table(begin, end, constraint_mask, n) if use_dense
+             else None)
     blocks = k4.normal_blocks_twin if twin else k4.normal_blocks
+    step = k4.lm_step_twin if twin else k4.lm_step
+    cost_of = k4.robust_cost_twin if twin else k4.robust_cost
+    fm = free_mask.to(poses.dtype)
     total = combine or (lambda x: x)
-
-    def cost_of(p):
-        c = _robust_cost(config, p, begin, end, transform, information,
-                         constraint_mask, robust_mask)
-        return total(c.reshape(1))[0]
-
-    cost0 = cost_of(poses)
-    start = poses
-    lam = _f32(config.lm_lambda_init, poses)
-    cost = cost0
-    stall = torch.zeros((), dtype=torch.int32, device=poses.device)
+    loss, hdelta = config.robust_loss, config.huber_delta
+    terms = (begin, end, transform, information, constraint_mask,
+             robust_mask, loss, hdelta)
+    cost0 = total(cost_of(poses, None, None, *terms).reshape(1))[0]
+    # The state is a copy: ``poses`` stays the start the result falls back
+    # to.
+    state = k4.lm_state(poses, config.lm_lambda_init, cost0,
+                        begin.shape[0])
     it = 0
-    while it < config.max_iterations and int(stall) < 3:
+    while it < config.max_iterations and int(state.stall) < 3:
         baa, bab, bbb, _, _, g, diag = blocks(
-            poses, begin, end, transform, information, constraint_mask,
-            robust_mask, config.robust_loss, config.huber_delta, inc)
+            state.poses, begin, end, transform, information,
+            constraint_mask, robust_mask, loss, hdelta, inc)
         g, diag = total(g), total(diag)
         if use_dense:
-            delta = _dense_solve(n, bab, g, diag, lam, free_mask, pairs,
-                                 total)
+            delta, info = _dense_solve(n, bab, g, diag, state.lam, fm, pairs,
+                                       combine, twin)
         else:
-            delta = _pcg_solve(begin, end, baa, bab, bbb, g, diag, lam,
+            delta = _pcg_solve(begin, end, baa, bab, bbb, g, diag, state.lam,
                                free_mask, config.cg_max_iterations,
                                config.cg_tolerance, inc, twin, combine)
-        new_poses = poses + delta
-        new_cost = cost_of(new_poses)
-        accept = new_cost < cost
-        poses = torch.where(accept, new_poses, poses)
-        lam = torch.where(accept, lam * config.lm_lambda_down,
-                          lam * config.lm_lambda_up)
-        lam = torch.clamp(lam, 1e-12, 1e8)
-        improved = (torch.abs(cost - new_cost)
-                    > config.tolerance * (cost + 1e-12))
-        stall = torch.where(accept & improved, torch.zeros_like(stall),
-                            stall + 1)
-        cost = torch.where(accept, new_cost, cost)
+            info = None
+        step(state, delta, info, *terms, config.lm_lambda_down,
+             config.lm_lambda_up, config.tolerance, combine)
         it += 1
 
+    cost = state.cost
     ok = torch.isfinite(cost) & (cost <= cost0)
-    final = torch.where(ok, poses, start)
+    final = torch.where(ok, state.poses, poses)
     return SolveResult(poses=final, success=ok, cost=cost,
                        iterations=torch.tensor(it, dtype=torch.int32))
 

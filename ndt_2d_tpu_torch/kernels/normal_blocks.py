@@ -1,11 +1,18 @@
-"""K4: LM normal-equation blocks, the PCG matvec and the whole PCG solve
-(CUDA ``csrc/normal_blocks.cu``) and their plain-PyTorch twins.
+"""K4: LM normal-equation blocks, the PCG matvec and the whole PCG solve,
+the dense LM system and the LM step (CUDA ``csrc/normal_blocks.cu``) and
+their plain-PyTorch twins.
 
 Replaces ``ndt_2d_tpu/graph/solver.py::robust_weights`` +
 ``_normal_blocks`` + ``_gather_gradient_and_diag`` (``normal_blocks``), the
 matvec of ``_pcg_solve`` (``pcg_matvec``, which the mesh's host loop runs)
 and ``_pcg_solve``'s ``lax.while_loop`` as one cooperative launch an LM
-step (``pcg_solve``), with its dot products alone as ``fixed_dots``.  The
+step (``pcg_solve``), with its dot products alone as ``fixed_dots``;
+``_dense_solve``'s assembly of the damped [3N, 3N] system
+(``dense_system``: a block a node row writes its three rows once, from a
+per-row table of node-pair slots, ``pair_table``); and ``_robust_cost``
+with ``lm_step``'s accept and update (``lm_step``: the step's cost summed
+in index order, ``ordered_sum_twin``, then the accept, the damping, the
+stall count and the poses, in place, on the device).  The
 per-node sums walk incidence lists (``Incidence``) in constraint order, and
 a dot adds in a fixed lane-and-tree order (``fixed_dot_twin``), so kernel
 and twin add the same float32 values in the same order and agree bitwise;
@@ -19,14 +26,16 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
+import numpy as np
 import torch
 
 from ndt_2d_tpu_torch.core.pose import normalize_angle_exact
 from ndt_2d_tpu_torch.kernels import _build
 
 launches = {"normal_blocks": 0, "pcg_matvec": 0, "pcg_solve": 0,
-            "fixed_dot": 0}
+            "fixed_dot": 0, "dense_system": 0, "lm_step": 0}
 
 # Lanes of a dot product: kLanes of csrc/normal_blocks.cu.
 DOT_LANES = 2048
@@ -40,6 +49,23 @@ _MV_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 11)
 _DOT_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
 _PCG_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 10
              + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 4)
+_DENSE_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+               + [ctypes.c_void_p] * 3)
+_LM_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
+            + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int]
+            + [ctypes.c_void_p] * 7 + [ctypes.c_float] * 3
+            + [ctypes.c_void_p])
+_LM_FIT_ARGS = [ctypes.POINTER(ctypes.c_int)]
+
+# Threads of a block (kThreads of csrc/normal_blocks.cu) and the most nodes
+# a dense system takes (kDenseMaxN: a block's slot table of an int a node
+# in 48 KB of shared memory).
+THREADS = 256
+DENSE_MAX_N = 12288
+
+# lm_step's modes: the cost alone, the cost and the update, the update from
+# a given cost (a mesh's combined one).
+_COST, _STEP, _UPDATE = 0, 1, 2
 
 
 @dataclasses.dataclass
@@ -126,8 +152,8 @@ def _mv(a, v):
     return _dot3(a, v[..., None, :])
 
 
-def residuals_and_jacobians(poses, begin, end, transform):
-    """(r [C, 3], Ja, Jb [C, 3, 3]) in the kernel's evaluation order."""
+def _residuals(poses, begin, end, transform):
+    """(r [C, 3], dx, dy, c, s [C]) in the kernel's evaluation order."""
     pa, pb = poses[begin.long()], poses[end.long()]
     dx, dy = pb[:, 0] - pa[:, 0], pb[:, 1] - pa[:, 1]
     c, s = torch.cos(pa[:, 2]), torch.sin(pa[:, 2])
@@ -135,6 +161,12 @@ def residuals_and_jacobians(poses, begin, end, transform):
                      (-s * dx + c * dy) - transform[:, 1],
                      normalize_angle_exact((pb[:, 2] - pa[:, 2])
                                       - transform[:, 2])], -1)
+    return r, dx, dy, c, s
+
+
+def residuals_and_jacobians(poses, begin, end, transform):
+    """(r [C, 3], Ja, Jb [C, 3, 3]) in the kernel's evaluation order."""
+    r, dx, dy, c, s = _residuals(poses, begin, end, transform)
     zero, one = torch.zeros_like(c), torch.ones_like(c)
     ja = torch.stack([torch.stack([-c, -s, -s * dx + c * dy], -1),
                       torch.stack([s, -c, -c * dx - s * dy], -1),
@@ -410,3 +442,354 @@ def pcg_solve(begin, end, baa, bab, bbb, diag, lam, fm, pinv, b,
     _build.check(err, "pcg_solve")
     launches["pcg_solve"] += 1
     return x, it
+
+
+# --- The dense LM system -----------------------------------------------------
+
+
+@dataclasses.dataclass
+class Pairs:
+    """The node-pair slots of the dense system over N nodes, built once per
+    solve on the device with no read to the host.  Entry q < C is Bab_q at
+    slot (begin_q, end_q), entry C + q its transpose at (end_q, begin_q).
+    ``keys`` [2C] int64 holds the entries' slots i N + j (N N for a masked
+    constraint's), sorted stably; ``src`` [2C] int32 the entry at each
+    sorted position; row i's entries are positions ``row_ptr[i]`` to
+    ``row_ptr[i + 1]`` ([N + 1] int32), and a slot's entries, consecutive
+    there, add in that order: every Bab of the pair in constraint order,
+    then every Bab^T, as the reference's two scatters do."""
+
+    n: int
+    c: int
+    keys: torch.Tensor
+    src: torch.Tensor
+    row_ptr: torch.Tensor
+    _rounds: list = None
+
+    def rounds(self):
+        """The twin's form (a read of the live count and the depth, made
+        once): per rank d, the (slot, entry) pairs of each slot's d-th
+        entry, unique slots within a round."""
+        if self._rounds is None:
+            live = int(self.row_ptr[-1])
+            keys, src = self.keys[:live], self.src[:live].long()
+            rank = (torch.arange(live, device=keys.device)
+                    - torch.searchsorted(keys, keys))
+            depth = int(rank.max()) + 1 if live else 0
+            self._rounds = [(keys[rank == d], src[rank == d])
+                            for d in range(depth)]
+        return self._rounds
+
+
+def pair_table(begin, end, cmask, n: int) -> Pairs:
+    """``Pairs`` of constraints (begin, end) [C] in [0, n) under ``cmask``
+    [C] bool."""
+    b, e = begin.long(), end.long()
+    dead = torch.full_like(b, n * n)
+    keys = torch.cat([torch.where(cmask, b * n + e, dead),
+                      torch.where(cmask, e * n + b, dead)])
+    keys, order = torch.sort(keys, stable=True)
+    rows = torch.arange(n + 1, device=keys.device) * n
+    return Pairs(n, begin.shape[0], keys, order.to(torch.int32),
+                 torch.searchsorted(keys, rows).to(torch.int32))
+
+
+def dense_system_twin(pairs: Pairs, bab, g, diag, lam, fm, combine=None):
+    """Plain-PyTorch dense system (``_dense_solve``'s assembly): per node
+    pair slot the sum of its entries from +0 (then ``combine``'s sum over
+    ranks, on a mesh), + D on the diagonal, + lam (D o I + 1e-12 I), times
+    fm_i then fm_j, + (1 - fm_i) I on the diagonal; rhs = -g fm.  Returns
+    (hm [3N, 3N], hm[3i + a, 3j + b] = h[i, j, a, b]; rhs [3N])."""
+    n = pairs.n
+    dev, dt = g.device, g.dtype
+    eye = torch.eye(3, dtype=dt, device=dev)
+    h = torch.zeros(n * n, 3, 3, dtype=dt, device=dev)
+    on_diag = torch.arange(n, device=dev) * (n + 1)
+    entries = torch.cat([bab, bab.transpose(-1, -2)])
+    for keys, src in pairs.rounds():
+        h[keys] = h[keys] + entries[src]
+    if combine is not None:
+        h = combine(h)
+    h[on_diag] = h[on_diag] + diag
+    # LM damping on the block diagonal (Marquardt scaling).
+    eps = torch.tensor(1e-12, dtype=dt, device=dev)
+    h[on_diag] = h[on_diag] + lam * (diag * eye + eps * eye)
+    # Gauge fix + inactive nodes: identity rows/cols, zero rhs.
+    h = h.reshape(n, n, 3, 3) * fm[:, None, None, None] * fm[None, :, None,
+                                                           None]
+    h = h.reshape(n * n, 3, 3)
+    h[on_diag] = h[on_diag] + (1.0 - fm)[:, None, None] * eye
+    rhs = -g * fm[:, None]
+    hm = h.reshape(n, n, 3, 3).permute(0, 2, 1, 3).reshape(3 * n, 3 * n)
+    return hm, rhs.reshape(-1)
+
+
+def dense_system(pairs: Pairs, bab, g, diag, lam, fm, combine=None):
+    """The damped dense system of one LM step.  pairs from ``pair_table``
+    (its C the constraints of bab), bab [C, 3, 3], g [N, 3], diag
+    [N, 3, 3], lam 0-d, fm [N] (the free-node mask as float) f32;
+    ``combine`` (a mesh) adds the pair sums over ranks.  Returns (hm
+    [3N, 3N], rhs [3N]) as ``dense_system_twin``.  CPU tensors run the
+    twin; CUDA tensors launch the kernel: a block a node row, one launch,
+    or on a mesh a launch of the pair sums and, after ``combine``, one
+    that finishes the combined matrix in place."""
+    if g.device.type == "cpu":
+        return dense_system_twin(pairs, bab, g, diag, lam, fm, combine)
+    dev = g.device
+    N, C = pairs.n, pairs.c
+    if N > DENSE_MAX_N:
+        raise ValueError(f"a dense system of {N} nodes is past the "
+                         f"kernel's {DENSE_MAX_N}")
+    _build.require_all(dev, (pairs.keys, pairs.src, pairs.row_ptr, bab, g,
+                             diag, lam, fm), (
+        ("keys", torch.int64, (2 * C,)), ("src", torch.int32, (2 * C,)),
+        ("row_ptr", torch.int32, (N + 1,)),
+        ("bab", torch.float32, (C, 3, 3)), ("g", torch.float32, (N, 3)),
+        ("diag", torch.float32, (N, 3, 3)), ("lam", torch.float32, ()),
+        ("fm", torch.float32, (N,))))
+    hm = torch.empty(3 * N, 3 * N, dtype=torch.float32, device=dev)
+    rhs = torch.empty(3 * N, dtype=torch.float32, device=dev)
+    fn = _build.function("ndt2d_dense_system", _DENSE_ARGS)
+    p = _build.ptr
+    head = (p(pairs.keys), p(pairs.src), p(pairs.row_ptr), p(bab), p(diag),
+            p(g), p(lam), p(fm), N, C)
+    if combine is None:
+        phases = ((0, hm),)
+    else:
+        _build.check(fn(*head, 1, p(hm), p(rhs), _build.stream_ptr(dev)),
+                     "dense_system")
+        launches["dense_system"] += 1
+        hm = combine(hm)
+        _build.require(hm, "combined hm", torch.float32, (3 * N, 3 * N), dev)
+        phases = ((2, hm),)
+    for phase, out in phases:
+        _build.check(fn(*head, phase, p(out), p(rhs),
+                        _build.stream_ptr(dev)), "dense_system")
+        launches["dense_system"] += 1
+    return hm, rhs
+
+
+# --- The LM step -------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class LMState:
+    """The LM loop's state on the device, which ``lm_step`` updates in
+    place: poses [N, 3], lam and cost (0-d f32), stall (0-d int32), flags
+    [2] bool (the last step's accept and improved) and rho [C + 1] f32
+    (the kernel's scratch: the cost a constraint, then their sum)."""
+
+    poses: torch.Tensor
+    lam: torch.Tensor
+    cost: torch.Tensor
+    stall: torch.Tensor
+    flags: torch.Tensor
+    rho: torch.Tensor
+
+
+def lm_plan(C: int, N: int, fits: int) -> int:
+    """Blocks of an LM-step launch over C constraints and N nodes: a
+    thread a constraint (or a node, whichever are more), at most ``fits``,
+    the blocks the card holds co-resident (``lm_fits``).  The result does
+    not depend on it: a thread forms whole constraints' costs, one thread
+    adds them in order, and every block folds nothing."""
+    if fits < 1:
+        raise RuntimeError("the card holds no LM-step block co-resident")
+    return min(fits, max(1, -(-max(C, N) // THREADS)))
+
+
+@functools.lru_cache(maxsize=None)
+def lm_fits(index: int) -> int:
+    """The LM-step blocks CUDA device ``index`` holds co-resident (0 where
+    it cannot launch cooperatively), asked of the card once."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _build.function("ndt2d_lm_step_fit", _LM_FIT_ARGS)(
+            ctypes.byref(blocks))
+    _build.check(err, "lm_step occupancy")
+    return blocks.value
+
+
+def lm_state(poses, lam: float, cost, constraints: int) -> LMState:
+    """A fresh state over ``constraints`` constraints: a copy of poses
+    [N, 3] (the caller's stay as they are), lam, the cost 0-d (copied),
+    stall 0; made with no host->device copy."""
+    dev = poses.device
+    return LMState(poses.clone(),
+                   torch.full((), lam, dtype=torch.float32, device=dev),
+                   cost.clone(),
+                   torch.zeros((), dtype=torch.int32, device=dev),
+                   torch.zeros(2, dtype=torch.bool, device=dev),
+                   torch.empty(constraints + 1, dtype=torch.float32,
+                               device=dev))
+
+
+def _stepped(poses, delta, info):
+    """poses + delta, delta NaN where the factorization failed (info != 0,
+    as the reference's Cholesky gives NaN); poses where delta is None."""
+    if delta is None:
+        return poses
+    if info is not None:
+        nan = torch.tensor(float("nan"), dtype=delta.dtype,
+                           device=delta.device)
+        delta = torch.where(info == 0, delta, nan)
+    return poses + delta
+
+
+def ordered_sum_twin(x):
+    """0-d sum of x's elements in index order from +0, one float32 add at a
+    time: the kernel's order, and XLA:CPU's for the reference's cost.  A
+    masked or padded element adds +0, which leaves the sum as it is (a sum
+    from +0 is never -0), so the sum does not depend on the padding.  Added
+    on the host (numpy's accumulate adds in order, in float32)."""
+    v = x.detach().reshape(-1).cpu().numpy()
+    acc = np.add.accumulate(np.concatenate([np.zeros(1, v.dtype), v]))[-1]
+    return torch.tensor(acc, dtype=x.dtype).to(x.device)
+
+
+def robust_cost_twin(poses, delta, info, begin, end, transform, information,
+                     cmask, robust_mask, loss: str, hdelta: float):
+    """Plain-PyTorch robust cost (solver.py::_robust_cost) of ``poses`` +
+    ``delta`` (see ``_stepped``): per constraint s2 = r^T Lambda r, under
+    ``robust_mask`` Huber rho(s) = s^2 for s <= delta, delta (2 s - delta)
+    beyond, or Geman-McClure s^2 / (1 + s^2 / delta^2); 0 off ``cmask``;
+    summed in index order (``ordered_sum_twin``).  0-d."""
+    new = _stepped(poses, delta, info)
+    r = _residuals(new, begin, end, transform)[0]
+    s2 = _dot3(r, _mv(information, r))
+    dev, dt = s2.device, s2.dtype
+    if loss == "none":
+        rho = s2
+    else:
+        d = torch.tensor(hdelta, dtype=dt, device=dev)
+        if loss == "huber":
+            s = torch.sqrt(torch.clamp(s2, min=1e-20))
+            two = torch.tensor(2.0, dtype=dt, device=dev)
+            rho = torch.where(s > d, d * (two * s - d), s2)
+        elif loss == "geman_mcclure":
+            one = torch.ones((), dtype=dt, device=dev)
+            rho = s2 / (one + s2 / (d * d))
+        else:
+            raise ValueError(f"unknown robust_loss {loss!r}")
+        rho = torch.where(robust_mask, rho, s2)
+    return ordered_sum_twin(
+        torch.where(cmask, rho, torch.zeros((), dtype=dt, device=dev)))
+
+
+def _update_twin(state: LMState, new, new_cost, down: float, up: float,
+                 tol: float):
+    """lm_step's accept and update (solver.py:307-314) in place."""
+    cost, lam, stall = state.cost, state.lam, state.stall
+    accept = new_cost < cost
+    lam_new = torch.clamp(torch.where(accept, lam * down, lam * up), 1e-12,
+                          1e8)
+    improved = torch.abs(cost - new_cost) > tol * (cost + 1e-12)
+    stall_new = torch.where(accept & improved, torch.zeros_like(stall),
+                            stall + 1)
+    cost_new = torch.where(accept, new_cost, cost)
+    state.poses.copy_(torch.where(accept, new, state.poses))
+    state.lam.copy_(lam_new)
+    state.cost.copy_(cost_new)
+    state.stall.copy_(stall_new)
+    state.flags.copy_(torch.stack([accept, improved]))
+
+
+def lm_step_twin(state: LMState, delta, info, begin, end, transform,
+                 information, cmask, robust_mask, loss: str, hdelta: float,
+                 down: float, up: float, tol: float, combine=None):
+    """Plain-PyTorch LM step: the robust cost of state.poses + delta
+    (``robust_cost_twin``; on a mesh the rank's partial, then ``combine``'s
+    sum over ranks), then the accept and update of ``state`` in place."""
+    new = _stepped(state.poses, delta, info)
+    new_cost = robust_cost_twin(new, None, None, begin, end, transform,
+                                information, cmask, robust_mask, loss,
+                                hdelta)
+    if combine is not None:
+        new_cost = combine(new_cost.reshape(1))[0]
+    _update_twin(state, new, new_cost, down, up, tol)
+
+
+def _lm_launch(mode: int, poses, delta, info, begin, end, transform,
+               information, cmask, robust_mask, loss: str, hdelta: float,
+               rho, out=None, new_cost=None, state=None, down=0.0, up=0.0,
+               tol=0.0):
+    """One launch of the LM-step kernel in ``mode`` (``_COST``, ``_STEP``,
+    ``_UPDATE``) after checking its tensors."""
+    dev = poses.device
+    N, C = poses.shape[0], begin.shape[0]
+    _build.require_all(dev, (poses, begin, end, transform, information,
+                             cmask, robust_mask, rho), (
+        ("poses", torch.float32, (N, 3)), ("begin", torch.int32, (C,)),
+        ("end", torch.int32, (C,)), ("transform", torch.float32, (C, 3)),
+        ("information", torch.float32, (C, 3, 3)),
+        ("cmask", torch.bool, (C,)), ("robust_mask", torch.bool, (C,)),
+        ("rho", torch.float32, (C + 1,))))
+    if delta is not None:
+        _build.require(delta, "delta", torch.float32, (N, 3), dev)
+    if info is not None:
+        _build.require(info, "info", torch.int32, (), dev)
+    p = _build.ptr
+    opt = (lambda t: None if t is None else t.data_ptr())
+    if state is not None:
+        _build.require_all(dev, (state.lam, state.cost, state.stall,
+                                 state.flags), (
+            ("lam", torch.float32, ()), ("cost", torch.float32, ()),
+            ("stall", torch.int32, ()), ("flags", torch.bool, (2,))))
+        st = (p(state.lam), p(state.cost), p(state.stall), p(state.flags))
+    else:
+        st = (None,) * 4
+    blocks = lm_plan(C, N, lm_fits(dev.index))
+    err = _build.function("ndt2d_lm_step", _LM_ARGS)(
+        mode, blocks, p(poses), opt(delta), opt(info), p(begin), p(end),
+        p(transform), p(information), p(cmask), p(robust_mask), LOSSES[loss],
+        float(hdelta), C, N, p(rho), opt(out), opt(new_cost), *st,
+        float(down), float(up), float(tol), _build.stream_ptr(dev))
+    _build.check(err, "lm_step")
+    launches["lm_step"] += 1
+
+
+def robust_cost(poses, delta, info, begin, end, transform, information,
+                cmask, robust_mask, loss: str, hdelta: float):
+    """The robust cost of poses [N, 3] + delta [N, 3] (None: of poses; info
+    0-d int32 or None, see ``_stepped``) over the constraints, 0-d, as
+    ``robust_cost_twin``.  CPU tensors run the twin; CUDA tensors launch
+    the LM-step kernel in its cost mode."""
+    if poses.device.type == "cpu":
+        return robust_cost_twin(poses, delta, info, begin, end, transform,
+                                information, cmask, robust_mask, loss,
+                                hdelta)
+    dev = poses.device
+    rho = torch.empty(begin.shape[0] + 1, dtype=torch.float32, device=dev)
+    out = torch.empty((), dtype=torch.float32, device=dev)
+    _lm_launch(_COST, poses, delta, info, begin, end, transform,
+               information, cmask, robust_mask, loss, hdelta, rho, out=out)
+    return out
+
+
+def lm_step(state: LMState, delta, info, begin, end, transform, information,
+            cmask, robust_mask, loss: str, hdelta: float, down: float,
+            up: float, tol: float, combine=None):
+    """One LM step's cost, accept and update of ``state`` in place, as
+    ``lm_step_twin``: delta [N, 3] f32 the step, info the factorization's
+    0-d int32 status (None on the PCG path).  CPU tensors run the twin;
+    CUDA tensors launch the kernel once (a cooperative grid: the cost a
+    constraint, a grid sync, block 0 adds them in order, a grid sync,
+    every block updates its poses); with ``combine`` (a mesh) a cost
+    launch, ``combine`` over ranks, then an update launch.  No
+    host->device copy: the scalars are kernel arguments."""
+    if state.poses.device.type == "cpu":
+        return lm_step_twin(state, delta, info, begin, end, transform,
+                            information, cmask, robust_mask, loss, hdelta,
+                            down, up, tol, combine)
+    args = (state.poses, delta, info, begin, end, transform, information,
+            cmask, robust_mask, loss, hdelta, state.rho)
+    if combine is None:
+        _lm_launch(_STEP, *args, state=state, down=down, up=up, tol=tol)
+        return
+    part = torch.empty(1, dtype=torch.float32, device=state.poses.device)
+    _lm_launch(_COST, *args, out=part)
+    total = combine(part)
+    _build.require(total, "combined cost", torch.float32, (1,),
+                   state.poses.device)
+    _lm_launch(_UPDATE, *args, new_cost=total, state=state, down=down, up=up,
+               tol=tol)

@@ -8,7 +8,12 @@ constraints, K4 forms its blocks and, over the shard's own incidence
 lists, its per-node gradient and block diagonal; each PCG matvec is the
 shard's K4 product.  Every such partial, and the robust cost, is
 all-gathered and added in rank order (K12's ``rank_sum``) where JAX
-``psum``s, so every rank holds the same bits.  Poses are replicated.
+``psum``s, so every rank holds the same bits.  Poses are replicated.  A
+host graph small enough for the dense solve (``graph.solver.solve_graph``)
+takes K4's ``dense_system`` as two launches around the combine (the
+shard's node-pair sums, then the rest of the system on the combined sums)
+and K4's ``lm_step`` likewise (the shard's cost, then the accept and
+update from the combined cost).
 """
 
 from __future__ import annotations
