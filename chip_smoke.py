@@ -96,10 +96,11 @@ Phases (any failure exits non-zero):
     at 5000 and 20,000 particles (plain and with recovery), K6 over 32
     coarse rows and at the merge's shape, K12's K6 partials, KB3's field
     and K3 (M = 1 on config 3's window, G = 4, 5000 poses), K4's
-    dense_system and lm_step at N_pad 512 and 1024, timed by CUDA
-    events, alone on the device in a CUDA graph and by host time a call
-    (``kernel_times``, the same lines as ``--kernel-times``, which also
-    prints the wall of an LM iteration, kernels against twins);
+    normal_blocks, dense_system, dense_normal_system (with its bound) and
+    lm_step at N_pad 512 and 1024, timed by CUDA events, alone on the
+    device in a CUDA graph and by host time a call (``kernel_times``, the
+    same lines as ``--kernel-times``, which also prints the wall of an LM
+    iteration, kernels against twins);
  4. drive the main paths, each with the launch counts set to 0 before and
     read after: (a) the 200-scan, 600-beam config-2 corridor through
     ``Mapper`` and ``run_bag`` (no loop closure) with its export: every scan
@@ -111,18 +112,21 @@ Phases (any failure exits non-zero):
     the initial, the two arms' poses bitwise equal; each LM iteration's CG
     loop again as the host loop over pcg_matvec and fixed_dots (the mesh's
     loop), bitwise, the walls printed; (u) after (g), K4's dense LM step:
-    dense_system (hm with its -0 entries, and rhs, at lam 1e-12, 1e-6 and
-    1e8) and lm_step (accepted, rejected, NaN and mesh-split steps, every
-    state field) bitwise against their twins on the office recipe's
-    final graph and on a synthetic 1024-node graph with duplicate,
-    reversed and self-loop constraints; a whole solve of each on the
-    kernels and on the twins, poses bitwise and the same iterations,
-    launches normal_blocks = dense_system = iterations and lm_step =
-    iterations + 1; the office graph's solve (its poses moved off the
-    optimum) profiled cut at 6 and at 2 iterations, whose difference
-    shows an LM iteration's kernels, no host->device copy and one read;
-    both kernels timed there and the wall of an LM iteration, kernels
-    against twins;
+    dense_normal_system (hm with its -0 entries, and rhs, at lam 1e-12,
+    1e-6 and 1e8) bitwise against its twin and against the three launches
+    it replaces (normal_blocks, then dense_system), dense_system and
+    lm_step (accepted, rejected, NaN and mesh-split steps, every state
+    field) bitwise against their twins, on the office recipe's final
+    graph, a synthetic 1024-node graph with duplicate, reversed and
+    self-loop constraints and a hub graph whose hub lists span five
+    staging chunks; a whole solve of each on the kernels and on the
+    twins, poses bitwise and the same iterations, launches
+    dense_normal_system = iterations, normal_blocks = dense_system = 0 and
+    lm_step = iterations + 1; the office graph's solve (its poses moved
+    off the optimum) profiled cut at 6 and at 2 iterations, whose
+    difference shows an LM iteration's kernels (one of K4's before
+    cuSOLVER's), no host->device copy and one read; the kernels timed
+    there and the wall of an LM iteration, kernels against twins;
     (f) BASELINE config 8 (run_benchmarks.py:139-162): the config-2
     corridor with four overlapping grids and 10 Newton iterations on both
     matchers: every scan accepted, ATE below odometry's, K1 = K2 = K3 = K7
@@ -284,6 +288,8 @@ KERNELS = {
                   "ndt_2d_tpu/graph/solver.py:227"),
     "dense_system": ("ndt_2d_tpu_torch/csrc/normal_blocks.cu",
                      "ndt_2d_tpu/graph/solver.py:171"),
+    "dense_normal_system": ("ndt_2d_tpu_torch/csrc/normal_blocks.cu",
+                            "ndt_2d_tpu/graph/solver.py:140"),
     "lm_step": ("ndt_2d_tpu_torch/csrc/normal_blocks.cu",
                 "ndt_2d_tpu/graph/solver.py:122"),
     "score_points_batch": ("ndt_2d_tpu_torch/csrc/score_points.cu",
@@ -489,10 +495,11 @@ def phase_build():
               f"stores, {ld} bytes spill loads")
 
 
-# The kernels of K1, K2, K3 and K13 whose registers and spills [3] prints.
+# The kernels of K1, K2, K3, K4's dense system and K13 whose registers and
+# spills [3] prints.
 RESOURCE_KERNELS = ("bin_points", "bin_stripe", "sort_cells", "cell_records",
                     "score_angles", "score_points_kernel", "score_pose_kernel",
-                    "window_append_kernel")
+                    "dense_normal_system", "window_append_kernel")
 
 
 def kernel_resources(log: str) -> dict:
@@ -2233,8 +2240,11 @@ def phase_office(cfg, bag, dev, tag="[4c]", plain=None):
                 f"{k} launched {launches[k]} times, expected {acc - 1} "
                 f"rolling + {rec.chunks} confirmation chunks")
     require(launches["score_points"] == acc - 1, "score_points count")
-    require(launches["normal_blocks"] >= 1 and launches["raymarch"] >= 1,
-            f"K4/K5 never launched: {launches}")
+    require(launches["dense_normal_system"] >= 1
+            and launches["normal_blocks"] == launches["dense_system"] == 0
+            and launches["raymarch"] >= 1,
+            f"K4's dense path in one launch or K5 never launched: "
+            f"{launches}")
     require(int((grid.data == 100).sum()) > 0, "no occupied cells")
     timing = st.timer.summary()
     ms = float(np.median(dt[acc_flags][4:]) * 1e3)
@@ -2325,13 +2335,16 @@ def phase_replay(rec, tag, dispatches, solve=True):
           f"({int(kw['node_mask'].sum())} nodes) poses within {diff:.3g}")
 
 
-def lm_graph(nodes: int, n_pad: int, closures: int, seed: int) -> dict:
+def lm_graph(nodes: int, n_pad: int, closures: int, seed: int,
+             hub: int = 0) -> dict:
     """``solve()`` inputs (numpy) of a synthetic pose graph padded to
     ``n_pad`` nodes: a noisy chain of ``nodes`` odometry constraints and
     ``closures`` robust loop closures, a tenth of them twice (duplicate
     node pairs) and a tenth also reversed (both directions), a live
-    self-loop every 97 nodes, about 5% of the constraints masked, and the
-    padded nodes and constraints masked (N_pad <= 1024 solves densely)."""
+    self-loop every 97 nodes, ``hub`` robust spokes between the middle
+    node and random nodes (every other one entering it), about 5% of the
+    constraints masked, and the padded nodes and constraints masked
+    (N_pad <= 1024 solves densely)."""
     import numpy as np
     rng = np.random.default_rng(seed)
     k = np.arange(nodes)
@@ -2344,6 +2357,10 @@ def lm_graph(nodes: int, n_pad: int, closures: int, seed: int) -> dict:
     pairs += loops + loops[:closures // 10]
     pairs += [(j, i) for i, j in loops[closures // 10:closures // 5]]
     pairs += [(i, i) for i in range(0, nodes, 97)]
+    if hub:
+        h = nodes // 2
+        pairs += [(h, int(j)) if q % 2 else (int(j), h)
+                  for q, j in enumerate(rng.integers(0, nodes, hub))]
     b = np.array([p[0] for p in pairs])
     e = np.array([p[1] for p in pairs])
     c, s = np.cos(truth[b, 2]), np.sin(truth[b, 2])
@@ -2431,9 +2448,36 @@ def lm_inputs(kw, scfg, lam: float):
     return terms, (pairs, bab, g, diag, lam_t, fm), delta, info
 
 
+def fused_inputs(poses, terms, sys_args) -> tuple:
+    """``dense_normal_system``'s arguments at ``poses`` from
+    ``lm_inputs``' terms and system arguments (the incidence lists made
+    here)."""
+    from ndt_2d_tpu_torch.kernels import normal_blocks as k4
+    pairs, _, _, _, lam, fm = sys_args
+    inc = k4.incidence(terms[0], terms[1], terms[4], fm.shape[0])
+    return (poses, *terms, inc, pairs, lam, fm)
+
+
+def fused_cost(fused) -> tuple:
+    """(bytes, operations) of ``dense_normal_system`` on ``fused``: hm and
+    rhs written once and every input read once; a constraint's terms
+    (~300 operations) and its two pair-slot adds (18), and each diagonal
+    block's damping and mask (~6 a float)."""
+    poses, begin, end, transform, information, cmask, rmask = fused[:7]
+    inc, pairs, lam, fm = fused[9:]
+    N, C = fm.shape[0], begin.shape[0]
+    moved = (9 * N * N + 3 * N) * 4 + nbytes(
+        poses, begin, end, transform, information, cmask, rmask, inc.b_ptr,
+        inc.b_idx, inc.e_ptr, inc.e_idx, pairs.keys, pairs.src,
+        pairs.row_ptr, lam, fm)
+    return moved, 318 * C + 54 * N
+
+
 def check_lm_kernels(name, kw, scfg) -> str:
-    """``dense_system`` and ``lm_step`` (with its cost mode) bitwise
-    against their twins at ``kw``: the system at lam 1e-12, 1e-6 and 1e8
+    """``dense_normal_system`` bitwise against its twin and against the
+    three launches it replaces (``normal_blocks``, then ``dense_system``)
+    at ``kw``, and ``dense_system`` and ``lm_step`` (with its cost mode)
+    bitwise against their twins: the systems at lam 1e-12, 1e-6 and 1e8
     (hm with its -0 entries, and rhs); the step accepted, rejected (a step
     100x too long), with a NaN step (info != 0) and through the mesh's
     two launches (an identity combine), every state field."""
@@ -2451,6 +2495,19 @@ def check_lm_kernels(name, kw, scfg) -> str:
         require(same_bits(hm, hmt) and same_bits(rhs, rhst),
                 f"{name}: dense_system at lam {lam} differs from its twin "
                 f"({int((bits(hm) != bits(hmt)).sum())} entries)")
+        fused = fused_inputs(kw["poses"], terms, a)
+        hf, rf = k4.dense_normal_system(*fused)
+        hft, rft = k4.dense_normal_system_twin(*fused)
+        require(same_bits(hf, hft) and same_bits(rf, rft),
+                f"{name}: dense_normal_system at lam {lam} differs from its "
+                f"twin ({int((bits(hf) != bits(hft)).sum())} entries)")
+        require(same_bits(hf, hm) and same_bits(rf, rhs),
+                f"{name}: dense_normal_system at lam {lam} differs from "
+                f"normal_blocks + dense_system "
+                f"({int((bits(hf) != bits(hm)).sum())} entries)")
+        again = k4.dense_normal_system(*fused)
+        require(same_bits(again[0], hf) and same_bits(again[1], rf),
+                f"{name}: dense_normal_system not bitwise reproducible")
         negz = int((bits(hm) == -2 ** 31).sum())
     poses = kw["poses"]
     c0, c0t = (k4.robust_cost(poses, None, None, *terms),
@@ -2473,8 +2530,10 @@ def check_lm_kernels(name, kw, scfg) -> str:
     require(flags["accepted"][0] and not flags["rejected"][0]
             and not flags["NaN step"][0],
             f"{name}: accept flags {flags}")
-    return (f"dense_system bitwise at lam 1e-12 / 1e-6 / 1e8 ({negz} -0 "
-            f"entries at 1e8), lm_step bitwise on every field (accept, "
+    return (f"dense_normal_system bitwise its twin and normal_blocks + "
+            f"dense_system, dense_system bitwise its twin, at lam 1e-12 / "
+            f"1e-6 / 1e8 ({negz} -0 entries at 1e8), lm_step bitwise on "
+            f"every field (accept, "
             f"reject, NaN step, mesh launches), cost {float(c0):.6g}")
 
 
@@ -2528,16 +2587,20 @@ def solve_profile(kw, scfg) -> dict:
 
 
 def phase_lm(dev, office, ident) -> dict:
-    """K4's dense LM step on the card: ``dense_system`` and ``lm_step``
-    bitwise against their twins on the office recipe's final graph (N_pad
-    512; its poses moved off the optimum) and a synthetic 1024-node graph
-    with duplicate, reversed and self-loop constraints; a whole solve of each on the kernels and on the
-    twins (poses bitwise, the same iterations; launches: normal_blocks =
-    dense_system = iterations, lm_step = iterations + 1); profiled
+    """K4's dense LM step on the card: ``dense_normal_system`` bitwise
+    against its twin and the three launches it replaces, ``dense_system``
+    and ``lm_step`` bitwise against their twins (``check_lm_kernels``), on
+    the office recipe's final graph (N_pad 512; its poses moved off the
+    optimum), a synthetic 1024-node graph with duplicate, reversed and
+    self-loop constraints and a hub graph (600 spokes on one node); a
+    whole solve of each on the kernels and on the twins (poses bitwise,
+    the same iterations; launches: dense_normal_system = iterations,
+    normal_blocks = dense_system = 0, lm_step = iterations + 1); profiled
     solves of the office graph, cut at 6 and at 2 iterations, whose
-    difference is an LM iteration's kernels and copies (none host->device,
-    one read); the kernels' times at the office graph; the wall of an LM
-    iteration, kernels against twins."""
+    difference is an LM iteration's kernels and copies (one K4 kernel
+    before cuSOLVER's, none host->device, one read); the kernels' times at
+    the office graph; the wall of an LM iteration, kernels against
+    twins."""
     import dataclasses
 
     import torch
@@ -2556,10 +2619,14 @@ def phase_lm(dev, office, ident) -> dict:
     okw["poses"] = okw["poses"] + (0.05 * noise * free[:, None]).to(dev)
     skw = {k: torch.from_numpy(v).to(dev)
            for k, v in lm_graph(1000, 1024, 300, 0).items()}
+    hkw = {k: torch.from_numpy(v).to(dev)
+           for k, v in lm_graph(1000, 1024, 300, 2, hub=600).items()}
     cases = (("office recipe's final graph", okw, ocfg),
              ("synthetic 1024-node graph", skw,
               SolverConfig(robust_loss="geman_mcclure")),
              ("synthetic 1024-node graph, Huber", skw,
+              SolverConfig(robust_loss="huber", huber_delta=1.0)),
+             ("hub graph (600 spokes on node 500)", hkw,
               SolverConfig(robust_loss="huber", huber_delta=1.0)))
     for name, kw, scfg in cases:
         msg = check_lm_kernels(name, kw, scfg)
@@ -2571,7 +2638,8 @@ def phase_lm(dev, office, ident) -> dict:
                 and bool(res.success) == bool(twin.success),
                 f"{name}: the solve on the kernels parts from the twins' "
                 f"({it} vs {int(twin.iterations)} iterations)")
-        require(launches["normal_blocks"] == launches["dense_system"] == it
+        require(launches["dense_normal_system"] == it
+                and launches["normal_blocks"] == launches["dense_system"] == 0
                 and launches["lm_step"] == it + 1,
                 f"{name}: launches {launches} over {it} iterations")
         n_live = int(kw["node_mask"].sum())
@@ -2582,6 +2650,7 @@ def phase_lm(dev, office, ident) -> dict:
               f"solve on the kernels bitwise the twins' ({it} iterations, "
               f"success {bool(res.success)}; {wall * 1e3:.3f} ms against "
               f"{twin_wall * 1e3:.3f} ms on the twins); launches "
+              f"dense_normal_system {launches['dense_normal_system']}, "
               f"normal_blocks {launches['normal_blocks']}, dense_system "
               f"{launches['dense_system']}, lm_step {launches['lm_step']}")
     # An LM iteration's kernels and copies: the difference between solves
@@ -2602,9 +2671,17 @@ def phase_lm(dev, office, ident) -> dict:
     per_it = {k: (v - cuts[0]["kernels"].get(k, 0)) / di
               for k, v in cuts[1]["kernels"].items()
               if v != cuts[0]["kernels"].get(k, 0)}
+    fused_it = sum(v for k, v in per_it.items()
+                   if "dense_normal_system" in k)
+    parts = [k for k in per_it if "constraint_blocks" in k
+             or "node_sums" in k
+             or ("dense_system" in k and "dense_normal_system" not in k)]
+    require(fused_it == 1 and not parts,
+            f"[4u] an LM iteration's kernels: {per_it}")
     print(f"[4u] profiled solves of the office graph, cut at 6 and at 2 "
-          f"iterations: an LM iteration copies host->device 0 times and "
-          f"device->host once; its CUDA kernels (launches an iteration) "
+          f"iterations: an LM iteration launches one K4 kernel before "
+          f"cuSOLVER's (dense_normal_system), copies host->device 0 times "
+          f"and device->host once; its CUDA kernels (launches an iteration) "
           f"{per_it}; a whole solve ({it} iterations) {prof['htod']} "
           f"host->device copies (by {prof['htod_ops']}), {prof['dtoh']} "
           f"device->host ({ident})")
@@ -2618,20 +2695,30 @@ def phase_lm(dev, office, ident) -> dict:
     step = (delta, info, *terms, 0.5, 10.0, 1e-9)
     hm, rhs = k4.dense_system(*sys_args)
     hmt, rhst = k4.dense_system_twin(*sys_args)
+    fused = fused_inputs(okw["poses"], terms, sys_args)
+    hf, rf = k4.dense_normal_system(*fused)
+    hft, rft = k4.dense_normal_system_twin(*fused)
     k4.lm_step(sk, *step)
     k4.lm_step_twin(st, *step)
     errs = {"dense_system": max_abs_diff([(hm, hmt), (rhs, rhst)]),
+            "dense_normal_system": max_abs_diff([(hf, hft), (rf, rft)]),
             "lm_step": max_abs_diff([(sk.poses, st.poses), (sk.cost, st.cost),
                                      (sk.lam, st.lam)])}
     # Bytes: the system written once (hm and rhs) and its inputs read once;
     # the step's poses, delta and constraint terms read once and the poses
     # written once.
+    fused_moved, fused_ops = fused_cost(fused)
     moved = {"dense_system": (9 * N * N + 3 * N) * 4 + nbytes(
                  bab, g, diag, fm, pairs.keys, pairs.src, pairs.row_ptr),
+             "dense_normal_system": fused_moved,
              "lm_step": nbytes(okw["poses"], delta, *terms[:6]) + 12 * N}
-    ops = {"dense_system": 2 * 9 * N * N, "lm_step": 80 * C}
+    ops = {"dense_system": 2 * 9 * N * N, "dense_normal_system": fused_ops,
+           "lm_step": 80 * C}
     calls = {"dense_system": (lambda: k4.dense_system(*sys_args),
                               lambda: k4.dense_system_twin(*sys_args)),
+             "dense_normal_system": (
+                 lambda: k4.dense_normal_system(*fused),
+                 lambda: k4.dense_normal_system_twin(*fused)),
              "lm_step": (lambda: k4.lm_step(sk, *step),
                          lambda: k4.lm_step_twin(st, *step))}
     out = {}
@@ -2642,7 +2729,8 @@ def phase_lm(dev, office, ident) -> dict:
               f"cuda_ms {out[k]['ms']:.5f}, in a CUDA graph "
               f"{graph_ms(fn, 20):.5f} ms, host "
               f"{host_us(fn, 101, sync=True):.1f} us a call, twin "
-              f"{out[k]['plain_ms']:.4f} ms ({ident})")
+              f"{out[k]['plain_ms']:.4f} ms, bound {out[k]['bound_ms']:.6f} "
+              f"ms ({out[k]['bound_by']}) ({ident})")
     walls = {"kernels": [], "twins": []}
     for arm in ("kernels", "twins", "kernels", "twins"):
         torch.cuda.synchronize()
@@ -2660,7 +2748,8 @@ def phase_lm(dev, office, ident) -> dict:
 
 def lm_times(dev, ident, both=None) -> dict:
     """K4's dense LM step on synthetic graphs at N_pad 512 and 1024
-    (``lm_graph``, Geman-McClure): ``dense_system`` and ``lm_step`` through
+    (``lm_graph``, Geman-McClure): ``normal_blocks``, ``dense_system``,
+    ``dense_normal_system`` (with its bound) and ``lm_step`` through
     ``both`` where this tree has them, and the wall of an LM iteration (a
     whole ``solve``'s wall over its iterations, kernels and twins in turn,
     twice each).  The walls call only ``solve``, so in an older checkout
@@ -2679,8 +2768,23 @@ def lm_times(dev, ident, both=None) -> dict:
             terms, sys_args, delta, info = lm_inputs(kw, scfg, 1e-6)
             c0 = k4.robust_cost(kw["poses"], None, None, *terms)
             sk = k4.lm_state(kw["poses"], 1e-6, c0, terms[0].shape[0])
+            inc = k4.incidence(terms[0], terms[1], terms[4], n_pad)
+            both(f"K4 normal_blocks N_pad {n_pad}",
+                 lambda a=(kw["poses"], *terms, inc): k4.normal_blocks(*a),
+                 50)
             both(f"K4 dense_system N_pad {n_pad}",
                  lambda a=sys_args: k4.dense_system(*a), 50)
+            if hasattr(k4, "dense_normal_system"):
+                fused = fused_inputs(kw["poses"], terms, sys_args)
+                both(f"K4 dense_normal_system N_pad {n_pad}",
+                     lambda a=fused: k4.dense_normal_system(*a), 50)
+                moved, ops = fused_cost(fused)
+                bound = max(moved / PEAK_BYTES_PER_S,
+                            ops / PEAK_F32_OPS_PER_S) * 1e3
+                out[f"dense_normal_system bound N_pad {n_pad}"] = bound
+                print(f"[5] K4 dense_normal_system N_pad {n_pad}: bound "
+                      f"{bound:.6f} ms ({moved} bytes, {ops} operations) "
+                      f"({ident})")
             both(f"K4 lm_step N_pad {n_pad}",
                  lambda s=sk, d=delta, i=info, t=terms: k4.lm_step(
                      s, d, i, *t, 0.5, 10.0, 1e-9), 50)
@@ -4042,7 +4146,8 @@ def phase_descriptor_session(cfg, bag, dev, tag, name, need_far=False):
             f"{name}: launches {launches}, expected {want}")
     require(rec.far >= 1 and drec.passes >= 1
             and all(launches[k] == drec.passes for k in DESCRIPTOR_KERNELS)
-            and launches["normal_blocks"] >= 1 and launches["raymarch"] >= 1,
+            and launches["normal_blocks"] + launches["dense_normal_system"]
+            >= 1 and launches["raymarch"] >= 1,
             f"{name}: K6, K4 or K5 never launched, or K10 not once a pass "
             f"({drec.passes}): {launches}")
     require(int((grid.data == 100).sum()) > 0, f"{name}: no occupied cells")
@@ -4160,7 +4265,8 @@ def phase_merge(dev):
             >= res.pairs_accepted and launches["descriptors"] == 2
             and launches["descriptor_spectra"] == 2
             and launches["descriptor_search"] == 1
-            and launches["normal_blocks"] >= 1,
+            and launches["normal_blocks"] + launches["dense_normal_system"]
+            >= 1,
             f"merge launches {launches}")
     print(f"[4j] merge: sessions of {ga.num_scans} and {gb.num_scans} "
           f"keyframes, {res.pairs_checked} pairs checked, "
@@ -6358,11 +6464,16 @@ def main() -> int:
         print(f"FAIL: {e}")
         return 1
     # Launch counts from the config-3 session, which runs every kernel but
-    # K4's PCG entries, the batched K3 and K9; the PCG solve's from the
-    # district solve, the matvec's and the dots' from the district solve
-    # by solve_multichip on the (1, 2) gloo mesh (rank 0; the mesh's host
-    # CG loop), the others' from the config-4 particle filter.
-    launches["pcg_solve"] = district_launches["pcg_solve"]
+    # K4's PCG entries and the mesh's dense system (one device's dense
+    # path launches dense_normal_system instead of normal_blocks and
+    # dense_system), the batched K3 and K9; the PCG solve's and the
+    # blocks' from the district solve, the matvec's and the dots' from the
+    # district solve by solve_multichip on the (1, 2) gloo mesh (rank 0;
+    # the mesh's host CG loop), dense_system's from config 10 on the
+    # one-rank NCCL mesh, the others' from the config-4 particle filter.
+    for k in ("pcg_solve", "normal_blocks"):
+        launches[k] = district_launches[k]
+    launches["dense_system"] = k12_launches["dense_system"]
     for k in ("pcg_matvec", "fixed_dot"):
         launches[k] = mesh_district[(1, 2)][k]
     for k in ("score_points_batch", "pf_motion", "pf_resample",

@@ -7,8 +7,10 @@
 // _pcg_solve (entry ndt2d_pcg_matvec, the mesh's host loop) and the whole
 // lax.while_loop of _pcg_solve (entry ndt2d_pcg_solve; its dot products
 // alone: ndt2d_fixed_dot), _dense_solve's assembly of the damped dense
-// system (entry ndt2d_dense_system), and _robust_cost with the accept and
-// update of the LM loop's body, lm_step (entry ndt2d_lm_step).
+// system (entry ndt2d_dense_system, a mesh's), the blocks, node sums and
+// assembly of one device's dense LM iteration in one launch (entry
+// ndt2d_dense_normal_system), and _robust_cost with the accept and update
+// of the LM loop's body, lm_step (entry ndt2d_lm_step).
 //
 // What it computes.  Per constraint k = (a, b): the residual
 // r = (R(th_a)^T (p_b - p_a) - t_xy, normalize(th_b - th_a - t_th)), the
@@ -79,6 +81,19 @@
 // the sums, K12's rank_sum adds them, and a second launch finishes the
 // matrix in place.
 //
+// The dense normal system (ndt2d_dense_normal_system).  On one device the
+// blocks, the node sums and the assembly were three launches: a thread a
+// constraint (4 blocks at 1024 constraints), a thread a node (2 blocks at
+// 512 nodes), then the system, evaluating every one of the (3N)^2
+// elements though nearly all are empty slots.  Baa, Bbb, ga and gb are
+// read only by their own nodes' sums, and Bab only by its rows' slots, so
+// one launch forms them where they are used: a block a node row zero-fills
+// its rows (the write bound), sums its D and g from its incidence lists in
+// the node sums' order, and writes its few nonzero blocks, each entry's
+// Bab recomputed by the same constraint_terms (a few hundred flops against
+// 36 bytes of blocks per use).  A block's lists and slots are the row's
+// degree, so a hub of any degree is chunked, never capped.
+//
 // The LM step (ndt2d_lm_step).  Eager, the robust cost of the step and
 // the accept/update are ~60 launches and two host->device scalar copies.
 // The work is ~80 bytes a constraint, so launches bound it at the dense
@@ -146,18 +161,31 @@ __device__ __forceinline__ void load3(const float* p, float* v) {
   v[2] = p[2];
 }
 
-__global__ void constraint_blocks(
-    const float* __restrict__ poses, const int* __restrict__ begin,
-    const int* __restrict__ end, const float* __restrict__ transform,
-    const float* __restrict__ information, const uint8_t* __restrict__ cmask,
-    const uint8_t* __restrict__ robust_mask, int loss, float delta, int C,
-    float* __restrict__ baa, float* __restrict__ bab, float* __restrict__ bbb,
-    float* __restrict__ ga, float* __restrict__ gb) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= C) return;
-  const float* pa = poses + 3 * begin[k];
-  const float* pb = poses + 3 * end[k];
-  const float* t = transform + 3 * k;
+// The constraint terms' inputs: poses [N,3], begin/end [C], transform
+// [C,3], information [C,3,3], cmask/robust_mask [C], the robust loss and
+// its delta.
+struct Graph {
+  const float* poses;
+  const int *begin, *end;
+  const float *transform, *information;
+  const uint8_t *cmask, *robust_mask;
+  int loss;
+  float delta;
+};
+
+// Constraint k's blocks Baa, Bab, Bbb (row-major 3x3) and gradients ga, gb.
+struct Terms {
+  float baa[9], bab[9], bbb[9], ga[3], gb[3];
+};
+
+// The terms of constraint k at the poses: the residual, its Jacobians, the
+// robust weight and the five blocks.  Every kernel that needs a block calls
+// this one function (the compiler drops the blocks a caller leaves unread),
+// so a block's bits never depend on which kernel formed it.
+__device__ __forceinline__ Terms constraint_terms(const Graph& g, int k) {
+  const float* pa = g.poses + 3 * g.begin[k];
+  const float* pb = g.poses + 3 * g.end[k];
+  const float* t = g.transform + 3 * k;
   // solver.py::residuals.
   const float dx = pb[0] - pa[0], dy = pb[1] - pa[1];
   const float c = cosf(pa[2]), s = sinf(pa[2]);
@@ -171,49 +199,67 @@ __global__ void constraint_blocks(
                        0.f, 0.f, -1.f};
   const float jb[9] = {c, s, 0.f, -s, c, 0.f, 0.f, 0.f, 1.f};
   // solver.py::robust_weights: s2 = r^T Lambda r.
-  const float* lam = information + 9 * k;
+  const float* lam = g.information + 9 * k;
   float w = 1.f;
-  if (loss != kNone && robust_mask[k]) {
+  if (g.loss != kNone && g.robust_mask[k]) {
     float l_r[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i)
       l_r[i] = dot3(lam[3 * i], lam[3 * i + 1], lam[3 * i + 2], r[0], r[1],
                     r[2]);
     const float s2 = dot3(r[0], r[1], r[2], l_r[0], l_r[1], l_r[2]);
-    if (loss == kHuber) {
+    if (g.loss == kHuber) {
       // max(s2, 1e-20) that keeps a NaN, as jnp.maximum and torch.clamp do.
       const float sn = sqrtf(s2 < 1e-20f ? 1e-20f : s2);
-      w = sn > delta ? delta / sn : 1.f;
+      w = sn > g.delta ? g.delta / sn : 1.f;
     } else {
-      const float tt = 1.f + s2 / (delta * delta);
+      const float tt = 1.f + s2 / (g.delta * g.delta);
       w = 1.f / (tt * tt);
     }
   }
   // solver.py::_normal_blocks on Lw = cmask ? w Lambda : 0.
-  const bool live = cmask[k];
+  const bool live = g.cmask[k];
   float lw[9];
 #pragma unroll
   for (int i = 0; i < 9; ++i) lw[i] = live ? lam[i] * w : 0.f;
-  float lja[9], ljb[9], m[9];
+  float lja[9], ljb[9];
   a_b(lw, ja, lja);
   a_b(lw, jb, ljb);
-  at_b(ja, lja, m);
-#pragma unroll
-  for (int i = 0; i < 9; ++i) baa[9 * k + i] = m[i];
-  at_b(ja, ljb, m);
-#pragma unroll
-  for (int i = 0; i < 9; ++i) bab[9 * k + i] = m[i];
-  at_b(jb, ljb, m);
-#pragma unroll
-  for (int i = 0; i < 9; ++i) bbb[9 * k + i] = m[i];
+  Terms out;
+  at_b(ja, lja, out.baa);
+  at_b(ja, ljb, out.bab);
+  at_b(jb, ljb, out.bbb);
   float lr[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i)
     lr[i] = dot3(lw[3 * i], lw[3 * i + 1], lw[3 * i + 2], r[0], r[1], r[2]);
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    ga[3 * k + i] = dot3(ja[i], ja[3 + i], ja[6 + i], lr[0], lr[1], lr[2]);
-    gb[3 * k + i] = dot3(jb[i], jb[3 + i], jb[6 + i], lr[0], lr[1], lr[2]);
+    out.ga[i] = dot3(ja[i], ja[3 + i], ja[6 + i], lr[0], lr[1], lr[2]);
+    out.gb[i] = dot3(jb[i], jb[3 + i], jb[6 + i], lr[0], lr[1], lr[2]);
+  }
+  return out;
+}
+
+__global__ void constraint_blocks(const Graph g, int C,
+                                  float* __restrict__ baa,
+                                  float* __restrict__ bab,
+                                  float* __restrict__ bbb,
+                                  float* __restrict__ ga,
+                                  float* __restrict__ gb) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= C) return;
+  const Terms c = constraint_terms(g, k);
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    baa[9 * k + i] = c.baa[i];
+    bab[9 * k + i] = c.bab[i];
+    bbb[9 * k + i] = c.bbb[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    ga[3 * k + i] = c.ga[i];
+    gb[3 * k + i] = c.gb[i];
   }
 }
 
@@ -687,13 +733,25 @@ struct Dense {
   float *hm, *rhs;
 };
 
+// An element of node-pair slot (i, j) from its pair sum v: as the twin
+// does, + D_ab (d), + lam (D_ab e + 1e-12 e) with e = [ai == b], times
+// fm_i, times fm_i again, + (1 - fm_i) e on the diagonal slot, and times
+// fm_i then fm_j elsewhere.  Each operation rounds once, in this order, so
+// -0 and NaN come out as the twin's.
+__device__ __forceinline__ float finish_element(float v, bool diag, bool e,
+                                                float d, float fi, float fj,
+                                                float l) {
+  if (!diag) return (v * fi) * fj;
+  const float ef = e ? 1.f : 0.f;
+  v = v + d;
+  v = v + l * (d * ef + static_cast<float>(1e-12) * ef);
+  v = (v * fi) * fi;
+  return v + (1.f - fi) * ef;
+}
+
 // Element (3i + ai, c) of the system: node-pair slot (i, j = c / 3), entry
 // (ai, b = c % 3).  The slot's entries add from +0 in their sorted order
-// (phase 2 starts from `prior`, the combined sum); then, as the twin does,
-// + D, + lam (D_ab e + 1e-12 e) with e = [ai == b], times fm_i, times fm_i
-// again, + (1 - fm_i) e on the diagonal slot, and times fm_i then fm_j
-// elsewhere.  Each operation rounds once, in this order, so -0 and NaN come
-// out as the twin's.
+// (phase 2 starts from `prior`, the combined sum), then finish_element.
 __device__ __forceinline__ float dense_value(const Dense& a, int i, int ai,
                                              int c, float fi, float l,
                                              int hi, const int* slot,
@@ -713,13 +771,9 @@ __device__ __forceinline__ float dense_value(const Dense& a, int i, int ai,
     }
     if (a.phase == 1) return v;
   }
-  if (j != i) return (v * fi) * a.fm[j];
-  const float d = a.diag[9 * i + 3 * ai + b];
-  const float e = ai == b ? 1.f : 0.f;
-  v = v + d;
-  v = v + l * (d * e + static_cast<float>(1e-12) * e);
-  v = (v * fi) * fi;
-  return v + (1.f - fi) * e;
+  if (j != i) return finish_element(v, false, false, 0.f, fi, a.fm[j], l);
+  return finish_element(v, true, ai == b, a.diag[9 * i + 3 * ai + b], fi, fi,
+                        l);
 }
 
 // solver.py::_dense_solve's assembly, a block a node row i: its rows
@@ -764,6 +818,144 @@ __global__ void __launch_bounds__(kThreads) dense_system(const Dense a) {
   }
   if (a.phase != 1 && threadIdx.x < 3)
     a.rhs[3 * i + threadIdx.x] = -a.g[3 * i + threadIdx.x] * fi;
+}
+
+// --- The dense normal system ------------------------------------------------
+
+struct DenseNormal {
+  Graph g;
+  int C, n;
+  const int *b_ptr, *b_idx, *e_ptr, *e_idx;  // Incidence
+  const long long* keys;                      // Pairs
+  const int *src, *row_ptr;
+  const float *lam, *fm;
+  float *hm, *rhs;
+};
+
+// Whether sorted keys[lo, hi) hold `key`.
+__device__ __forceinline__ bool has_key(const long long* keys, int lo, int hi,
+                                        long long key) {
+  int a = lo, b = hi;
+  while (a < b) {
+    const int mid = a + (b - a) / 2;
+    if (keys[mid] < key)
+      a = mid + 1;
+    else
+      b = mid;
+  }
+  return a < hi && keys[a] == key;
+}
+
+// Node-pair slot (i, j)'s 3x3 block of the system from its pair sum v:
+// finish_element on each entry, D_i from the block's node sums (`part`:
+// the begin list's 12 sums, then the end list's).
+__device__ __forceinline__ void write_block(const DenseNormal& a, float* row,
+                                            size_t w, int i, int j,
+                                            const float* v, const float* part,
+                                            float fi, float l) {
+  const bool diag = j == i;
+  const float fj = diag ? fi : a.fm[j];
+#pragma unroll
+  for (int ai = 0; ai < 3; ++ai)
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+      const int e = 3 * ai + b;
+      const float d = diag ? part[e] + part[12 + e] : 0.f;
+      row[ai * w + 3 * j + b] =
+          finish_element(v[e], diag, ai == b, d, fi, fj, l);
+    }
+}
+
+// Threads of a dense-normal-system block, and the constraints it stages
+// at a time; 128 keep 8 blocks an SM, so 1024 rows run in one wave.
+constexpr int kDnThreads = 128;
+
+// solver.py's _normal_blocks + _gather_gradient_and_diag + _dense_solve's
+// assembly in one launch, a block a node row i.  (1) It zero-fills its
+// three rows of hm: an empty slot's element is (+0 fi) fm_j = +0, so only
+// the row's nonzero blocks need more.  (2) It forms D_i and g_i as
+// node_sums does: its threads compute the terms of i's begin list, then
+// its end list, kDnThreads constraints a chunk, staged in shared memory,
+// and 24 threads (12 components a list) add each component over the chunk
+// in list order, carried from chunk to chunk from +0; D_i = d0 + d1 and
+// g_i = g0 + g1.  (3) After a sync, a thread takes each slot head among
+// the row's sorted positions of Pairs, adds the slot's entries from +0 in
+// sorted order (each Bab_k formed on the fly by constraint_terms,
+// transposed for an entry past C) and writes the slot's 9 elements as
+// dense_system does; thread 0 writes the diagonal block from +0 where the
+// row has no self-loop slot.  (4) rhs = -g_i fm_i.  Every sum is the three
+// kernels' sum in their order, so the bits are theirs.
+__global__ void __launch_bounds__(kDnThreads, 8)
+    dense_normal_system(const DenseNormal a) {
+  // A staged component's row is padded by a float, so the 24 adding
+  // threads read 24 banks.
+  constexpr int kRow = kDnThreads + 1;
+  __shared__ float stage[12 * kRow];
+  __shared__ float part[24];
+  const int i = blockIdx.x, n = a.n, t = threadIdx.x;
+  const size_t w = 3 * (size_t)n;
+  float* row = a.hm + 3 * (size_t)i * w;
+  if ((n & 3) == 0) {
+    float4* row4 = reinterpret_cast<float4*>(row);
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (size_t q = t; q < 3 * w / 4; q += kDnThreads) row4[q] = zero;
+  } else {
+    for (size_t q = t; q < 3 * w; q += kDnThreads) row[q] = 0.f;
+  }
+  const int b0 = a.b_ptr[i], nb = a.b_ptr[i + 1] - b0;
+  const int e0 = a.e_ptr[i], items = nb + a.e_ptr[i + 1] - e0;
+  const bool end_list = t >= 12;
+  const float* col = stage + (t % 12) * kRow;
+  float acc = 0.f;
+  for (int c0 = 0; c0 < items; c0 += kDnThreads) {
+    const int m = min(kDnThreads, items - c0);
+    if (t < m) {
+      const int q = c0 + t;
+      const bool at_begin = q < nb;
+      const Terms c = constraint_terms(
+          a.g, at_begin ? a.b_idx[b0 + q] : a.e_idx[e0 + q - nb]);
+#pragma unroll
+      for (int r = 0; r < 9; ++r)
+        stage[r * kRow + t] = at_begin ? c.baa[r] : c.bbb[r];
+#pragma unroll
+      for (int r = 0; r < 3; ++r)
+        stage[(9 + r) * kRow + t] = at_begin ? c.ga[r] : c.gb[r];
+    }
+    __syncthreads();
+    if (t < 24) {
+      const int lo = end_list ? max(nb - c0, 0) : 0;
+      const int hi = end_list ? m : min(nb - c0, m);
+      for (int p = lo; p < hi; ++p) acc = acc + col[p];
+    }
+    __syncthreads();
+  }
+  if (t < 24) part[t] = acc;
+  __syncthreads();
+  const float fi = a.fm[i], l = a.lam[0];
+  const int lo = a.row_ptr[i], hi = a.row_ptr[i + 1];
+  const long long base = (long long)i * n;
+  for (int p = lo + t; p < hi; p += kDnThreads) {
+    const long long key = a.keys[p];
+    if (p != lo && a.keys[p - 1] == key) continue;
+    float v[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int q = p; q < hi && a.keys[q] == key; ++q) {
+      const int s = a.src[q];
+      const bool tr = s >= a.C;
+      const Terms c = constraint_terms(a.g, tr ? s - a.C : s);
+#pragma unroll
+      for (int ai = 0; ai < 3; ++ai)
+#pragma unroll
+        for (int b = 0; b < 3; ++b)
+          v[3 * ai + b] =
+              v[3 * ai + b] + (tr ? c.bab[3 * b + ai] : c.bab[3 * ai + b]);
+    }
+    write_block(a, row, w, i, (int)(key - base), v, part, fi, l);
+  }
+  if (t == 0 && !has_key(a.keys, lo, hi, base + i)) {
+    const float v[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    write_block(a, row, w, i, i, v, part, fi, l);
+  }
+  if (t < 3) a.rhs[3 * i + t] = -(part[9 + t] + part[21 + t]) * fi;
 }
 
 // --- The LM step ------------------------------------------------------------
@@ -913,6 +1105,21 @@ __global__ void __launch_bounds__(kThreads) lm_step(const Lm a) {
 
 }  // namespace
 
+static Graph graph_of(const void* poses, const void* begin, const void* end,
+                      const void* transform, const void* information,
+                      const void* cmask, const void* robust_mask, int loss,
+                      float delta) {
+  return Graph{static_cast<const float*>(poses),
+               static_cast<const int*>(begin),
+               static_cast<const int*>(end),
+               static_cast<const float*>(transform),
+               static_cast<const float*>(information),
+               static_cast<const uint8_t*>(cmask),
+               static_cast<const uint8_t*>(robust_mask),
+               loss,
+               delta};
+}
+
 // poses [N,3] f32, begin/end [C] i32 (in [0, N)), transform [C,3] f32,
 // information [C,3,3] f32, cmask/robust_mask [C] u8, loss (0 none, 1 huber,
 // 2 geman_mcclure), delta; incidence lists b_ptr/e_ptr [N+1] i32,
@@ -928,12 +1135,9 @@ NDT2D_API int ndt2d_normal_blocks(
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (C > 0)
     constraint_blocks<<<(C + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-        static_cast<const float*>(poses), static_cast<const int*>(begin),
-        static_cast<const int*>(end), static_cast<const float*>(transform),
-        static_cast<const float*>(information),
-        static_cast<const uint8_t*>(cmask),
-        static_cast<const uint8_t*>(robust_mask), loss, delta, C,
-        static_cast<float*>(baa), static_cast<float*>(bab),
+        graph_of(poses, begin, end, transform, information, cmask,
+                 robust_mask, loss, delta),
+        C, static_cast<float*>(baa), static_cast<float*>(bab),
         static_cast<float*>(bbb), static_cast<float*>(ga),
         static_cast<float*>(gb));
   node_sums<<<(N + kThreads - 1) / kThreads, kThreads, 0, st>>>(
@@ -1078,6 +1282,41 @@ NDT2D_API int ndt2d_dense_system(const void* keys, const void* src,
   const size_t smem = phase == 2 ? 0 : (size_t)n * sizeof(int);
   dense_system<<<n, kThreads, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
       a);
+  return (int)cudaGetLastError();
+}
+
+// The damped dense system of one LM step straight from the poses (one
+// launch; one device, no combine).  The constraint inputs, loss and delta
+// as ndt2d_normal_blocks' (C constraints over n nodes); incidence lists
+// b_ptr/e_ptr [n+1], b_idx/e_idx i32; keys [2C] i64, src [2C] i32, row_ptr
+// [n+1] i32 as ndt2d_dense_system's; lam [1], fm [n] f32; out: hm
+// [3n,3n], rhs [3n] f32, bitwise ndt2d_normal_blocks then
+// ndt2d_dense_system's phase 0.
+NDT2D_API int ndt2d_dense_normal_system(
+    const void* poses, const void* begin, const void* end,
+    const void* transform, const void* information, const void* cmask,
+    const void* robust_mask, int loss, float delta, int C, const void* b_ptr,
+    const void* b_idx, const void* e_ptr, const void* e_idx,
+    const void* keys, const void* src, const void* row_ptr, const void* lam,
+    const void* fm, int n, void* hm, void* rhs, void* stream) {
+  if (n < 1 || C < 0) return (int)cudaErrorInvalidValue;
+  DenseNormal a{graph_of(poses, begin, end, transform, information, cmask,
+                         robust_mask, loss, delta),
+                C,
+                n,
+                static_cast<const int*>(b_ptr),
+                static_cast<const int*>(b_idx),
+                static_cast<const int*>(e_ptr),
+                static_cast<const int*>(e_idx),
+                static_cast<const long long*>(keys),
+                static_cast<const int*>(src),
+                static_cast<const int*>(row_ptr),
+                static_cast<const float*>(lam),
+                static_cast<const float*>(fm),
+                static_cast<float*>(hm),
+                static_cast<float*>(rhs)};
+  dense_normal_system<<<n, kDnThreads, 0,
+                        reinterpret_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -12,27 +12,30 @@ robust weights, the per-constraint blocks and the per-node gradient and
 block diagonal (``normal_blocks``), both summing per node in constraint
 order with no float atomics, and runs each LM step's whole PCG loop in one
 launch (``pcg_solve``: the matvec, fixed-order dot products and the
-reference's stop test on the device).  K4's ``dense_system`` assembles the
-damped dense system in one launch (diagonal blocks from K4's D,
-off-diagonal blocks summed in constraint order per node pair, from a
-per-row pair table built once per solve), which
+reference's stop test on the device).  On the dense path K4's
+``dense_normal_system`` forms the damped dense system straight from the
+poses in one launch (per node row: the node's D and g summed over its
+incidence lists, off-diagonal blocks summed in constraint order per node
+pair from a per-row pair table built once per solve), which
 ``torch.linalg.cholesky_ex`` + ``cholesky_solve`` solve, a library call
 where the reference calls ``jax.scipy.linalg.solve``.  K4's ``lm_step``
 then evaluates the step's robust cost (summed in constraint order)
 and accepts or rejects it, updating the poses, damping, cost and stall
 count in place on the device.  An LM iteration on one device is thus
-``normal_blocks``, ``dense_system`` (or ``pcg_solve``), the library's
-factorization and solve, and ``lm_step``, with no host->device copy; the
-LM loop is a host loop that stops at the reference's iteration on its one
-device->host read an iteration (the stall count).  Everything runs in
-float32 with TF32 off (``precision="highest"`` in the reference).
+``dense_normal_system``, the library's factorization and solve, and
+``lm_step`` (PCG: ``normal_blocks``, ``pcg_solve``, ``lm_step``), with no
+host->device copy; the LM loop is a host loop that stops at the
+reference's iteration on its one device->host read an iteration (the
+stall count).  Everything runs in float32 with TF32 off
+(``precision="highest"`` in the reference).
 
 On a device mesh (``mesh``; ``parallel/solver.py``) each rank holds a
 contiguous block of the constraints, over the mesh's ``batch`` axis.  The
 robust cost, gradient, block diagonal, the dense system's node-pair sums
 and each PCG product are then the rank's partials, all-gathered and added
-in rank order (K12's ``rank_sum``; ``dense_system`` and ``lm_step`` split
-into a launch before the sum and one after), so every rank holds the same
+in rank order (K12's ``rank_sum``; the blocks come from ``normal_blocks``,
+and ``dense_system`` and ``lm_step`` split into a launch before the sum
+and one after), so every rank holds the same
 bits and the LM and CG loops take the same path on every rank.  The mesh's
 CG loop is K4's host loop ``pcg_loop`` over its ``pcg_matvec`` and
 ``fixed_dots``.  A mesh chooses dense or PCG by one device's size rule.
@@ -123,16 +126,12 @@ def _gather_gradient_and_diag(n, begin, end, baa, bab, bbb, ga, gb,
     return k4.node_sums_twin(baa, bbb, ga, gb, inc)
 
 
-def _dense_solve(n, bab, g, diag, lam, fm, pairs: k4.Pairs, combine,
-                 twin: bool):
-    """K4's damped dense system (``k4.dense_system``, its twin with
-    ``twin``; ``combine`` adds the node-pair sums over a mesh's ranks),
-    Cholesky-solved.  Returns (delta [N, 3], the factorization's 0-d
-    status): a matrix that is not positive definite has info != 0, and
-    ``lm_step`` then steps by NaN, as the reference's Cholesky gives NaN,
-    so the step is rejected."""
-    system = k4.dense_system_twin if twin else k4.dense_system
-    hm, rhs = system(pairs, bab, g, diag, lam, fm, combine)
+def _dense_solve(n, hm, rhs):
+    """The damped dense system (hm [3N, 3N], rhs [3N]), Cholesky-solved.
+    Returns (delta [N, 3], the factorization's 0-d status): a matrix that
+    is not positive definite has info != 0, and ``lm_step`` then steps by
+    NaN, as the reference's Cholesky gives NaN, so the step is
+    rejected."""
     chol, info = torch.linalg.cholesky_ex(hm)
     delta = torch.cholesky_solve(rhs.reshape(-1, 1), chol).reshape(n, 3)
     return delta, info
@@ -252,6 +251,8 @@ def _solve_impl(config, poses, begin, end, transform, information,
     pairs = (k4.pair_table(begin, end, constraint_mask, n) if use_dense
              else None)
     blocks = k4.normal_blocks_twin if twin else k4.normal_blocks
+    fused = k4.dense_normal_system_twin if twin else k4.dense_normal_system
+    system = k4.dense_system_twin if twin else k4.dense_system
     step = k4.lm_step_twin if twin else k4.lm_step
     cost_of = k4.robust_cost_twin if twin else k4.robust_cost
     fm = free_mask.to(poses.dtype)
@@ -266,18 +267,24 @@ def _solve_impl(config, poses, begin, end, transform, information,
                         begin.shape[0])
     it = 0
     while it < config.max_iterations and int(state.stall) < 3:
-        baa, bab, bbb, _, _, g, diag = blocks(
-            state.poses, begin, end, transform, information,
-            constraint_mask, robust_mask, loss, hdelta, inc)
-        g, diag = total(g), total(diag)
-        if use_dense:
-            delta, info = _dense_solve(n, bab, g, diag, state.lam, fm, pairs,
-                                       combine, twin)
+        if use_dense and combine is None:
+            # One device: the system straight from the poses, one launch.
+            delta, info = _dense_solve(n, *fused(
+                state.poses, *terms, inc, pairs, state.lam, fm))
         else:
-            delta = _pcg_solve(begin, end, baa, bab, bbb, g, diag, state.lam,
-                               free_mask, config.cg_max_iterations,
-                               config.cg_tolerance, inc, twin, combine)
-            info = None
+            baa, bab, bbb, _, _, g, diag = blocks(
+                state.poses, begin, end, transform, information,
+                constraint_mask, robust_mask, loss, hdelta, inc)
+            g, diag = total(g), total(diag)
+            if use_dense:
+                delta, info = _dense_solve(n, *system(
+                    pairs, bab, g, diag, state.lam, fm, combine))
+            else:
+                delta = _pcg_solve(begin, end, baa, bab, bbb, g, diag,
+                                   state.lam, free_mask,
+                                   config.cg_max_iterations,
+                                   config.cg_tolerance, inc, twin, combine)
+                info = None
         step(state, delta, info, *terms, config.lm_lambda_down,
              config.lm_lambda_up, config.tolerance, combine)
         it += 1

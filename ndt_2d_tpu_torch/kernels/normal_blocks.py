@@ -9,7 +9,10 @@ and ``_pcg_solve``'s ``lax.while_loop`` as one cooperative launch an LM
 step (``pcg_solve``), with its dot products alone as ``fixed_dots``;
 ``_dense_solve``'s assembly of the damped [3N, 3N] system
 (``dense_system``: a block a node row writes its three rows once, from a
-per-row table of node-pair slots, ``pair_table``); and ``_robust_cost``
+per-row table of node-pair slots, ``pair_table``; a mesh's), the blocks,
+node sums and assembly of one device's dense LM iteration in one launch
+(``dense_normal_system``: a block a node row, bitwise ``normal_blocks``
+then ``dense_system``); and ``_robust_cost``
 with ``lm_step``'s accept and update (``lm_step``: the step's cost summed
 in index order, ``ordered_sum_twin``, then the accept, the damping, the
 stall count and the poses, in place, on the device).  The
@@ -35,7 +38,8 @@ from ndt_2d_tpu_torch.core.pose import normalize_angle_exact
 from ndt_2d_tpu_torch.kernels import _build
 
 launches = {"normal_blocks": 0, "pcg_matvec": 0, "pcg_solve": 0,
-            "fixed_dot": 0, "dense_system": 0, "lm_step": 0}
+            "fixed_dot": 0, "dense_system": 0, "dense_normal_system": 0,
+            "lm_step": 0}
 
 # Lanes of a dot product: kLanes of csrc/normal_blocks.cu.
 DOT_LANES = 2048
@@ -51,6 +55,8 @@ _PCG_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 10
              + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 4)
 _DENSE_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
                + [ctypes.c_void_p] * 3)
+_DN_ARGS = (_NB_ARGS[:10] + [ctypes.c_void_p] * 9 + [ctypes.c_int]
+            + [ctypes.c_void_p] * 3)
 _LM_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
             + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int]
             + [ctypes.c_void_p] * 7 + [ctypes.c_float] * 3
@@ -62,6 +68,9 @@ _LM_FIT_ARGS = [ctypes.POINTER(ctypes.c_int)]
 # in 48 KB of shared memory).
 THREADS = 256
 DENSE_MAX_N = 12288
+# Constraints a dense-normal-system block stages at a time (kDnThreads of
+# csrc/normal_blocks.cu).
+DENSE_STAGE = 128
 
 # lm_step's modes: the cost alone, the cost and the update, the update from
 # a given cost (a mesh's combined one).
@@ -566,6 +575,63 @@ def dense_system(pairs: Pairs, bab, g, diag, lam, fm, combine=None):
         _build.check(fn(*head, phase, p(out), p(rhs),
                         _build.stream_ptr(dev)), "dense_system")
         launches["dense_system"] += 1
+    return hm, rhs
+
+
+def dense_normal_system_twin(poses, begin, end, transform, information,
+                             cmask, robust_mask, loss: str, delta: float,
+                             inc: Incidence, pairs: Pairs, lam, fm):
+    """Plain-PyTorch dense normal system: ``normal_blocks_twin`` then
+    ``dense_system_twin``.  Returns (hm [3N, 3N], rhs [3N])."""
+    _, bab, _, _, _, g, diag = normal_blocks_twin(
+        poses, begin, end, transform, information, cmask, robust_mask, loss,
+        delta, inc)
+    return dense_system_twin(pairs, bab, g, diag, lam, fm)
+
+
+def dense_normal_system(poses, begin, end, transform, information, cmask,
+                        robust_mask, loss: str, delta: float, inc: Incidence,
+                        pairs: Pairs, lam, fm):
+    """The damped dense system of one device's LM iteration straight from
+    the poses: ``normal_blocks``' inputs (inc from ``incidence``), pairs
+    from ``pair_table`` over the same constraints, lam 0-d and fm [N] (the
+    free-node mask as float) f32.  Returns (hm [3N, 3N], rhs [3N]) as
+    ``dense_normal_system_twin``.  CPU tensors run the twin; CUDA tensors
+    launch the kernel once (a block a node row: its rows zero-filled, its
+    D and g summed from its incidence lists, its nonzero blocks written
+    from its pair slots), bitwise ``normal_blocks`` then ``dense_system``.
+    """
+    if poses.device.type == "cpu":
+        return dense_normal_system_twin(poses, begin, end, transform,
+                                        information, cmask, robust_mask,
+                                        loss, delta, inc, pairs, lam, fm)
+    dev = poses.device
+    N, C = poses.shape[0], begin.shape[0]
+    _build.require_all(dev, (poses, begin, end, transform, information,
+                             cmask, robust_mask, pairs.keys, pairs.src,
+                             pairs.row_ptr, lam, fm), (
+        ("poses", torch.float32, (N, 3)), ("begin", torch.int32, (C,)),
+        ("end", torch.int32, (C,)), ("transform", torch.float32, (C, 3)),
+        ("information", torch.float32, (C, 3, 3)),
+        ("cmask", torch.bool, (C,)), ("robust_mask", torch.bool, (C,)),
+        ("keys", torch.int64, (2 * C,)), ("src", torch.int32, (2 * C,)),
+        ("row_ptr", torch.int32, (N + 1,)), ("lam", torch.float32, ()),
+        ("fm", torch.float32, (N,))))
+    if inc.n != N or pairs.n != N or pairs.c != C:
+        raise ValueError(f"incidence over {inc.n} nodes and pairs over "
+                         f"{pairs.n} nodes, {pairs.c} constraints: expected "
+                         f"{N}, {C}")
+    hm = torch.empty(3 * N, 3 * N, dtype=torch.float32, device=dev)
+    rhs = torch.empty(3 * N, dtype=torch.float32, device=dev)
+    p = _build.ptr
+    err = _build.function("ndt2d_dense_normal_system", _DN_ARGS)(
+        p(poses), p(begin), p(end), p(transform), p(information), p(cmask),
+        p(robust_mask), LOSSES[loss], float(delta), C, p(inc.b_ptr),
+        p(inc.b_idx), p(inc.e_ptr), p(inc.e_idx), p(pairs.keys),
+        p(pairs.src), p(pairs.row_ptr), p(lam), p(fm), N, p(hm), p(rhs),
+        _build.stream_ptr(dev))
+    _build.check(err, "dense_normal_system")
+    launches["dense_normal_system"] += 1
     return hm, rhs
 
 
