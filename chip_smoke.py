@@ -97,10 +97,12 @@ Phases (any failure exits non-zero):
     coarse rows and at the merge's shape, K12's K6 partials, KB3's field
     and K3 (M = 1 on config 3's window, G = 4, 5000 poses), K4's
     normal_blocks, dense_system, dense_normal_system (with its bound) and
-    lm_step at N_pad 512 and 1024, timed by CUDA events, alone on the
-    device in a CUDA graph and by host time a call (``kernel_times``, the
-    same lines as ``--kernel-times``, which also prints the wall of an LM
-    iteration, kernels against twins);
+    lm_step at N_pad 512 and 1024 (lm_step through its one-block launch
+    and its cooperative grid, and a solve plan's two launches), K5 at
+    config 2's export, timed by CUDA events, alone on the device in a
+    CUDA graph and by host time a call (``kernel_times``, the same lines
+    as ``--kernel-times``, which also prints the wall of an LM iteration,
+    kernels against twins);
  4. drive the main paths, each with the launch counts set to 0 before and
     read after: (a) the 200-scan, 600-beam config-2 corridor through
     ``Mapper`` and ``run_bag`` (no loop closure) with its export: every scan
@@ -115,17 +117,21 @@ Phases (any failure exits non-zero):
     dense_normal_system (hm with its -0 entries, and rhs, at lam 1e-12,
     1e-6 and 1e8) bitwise against its twin and against the three launches
     it replaces (normal_blocks, then dense_system), dense_system and
-    lm_step (accepted, rejected, NaN and mesh-split steps, every state
-    field) bitwise against their twins, on the office recipe's final
-    graph, a synthetic 1024-node graph with duplicate, reversed and
-    self-loop constraints and a hub graph whose hub lists span five
-    staging chunks; a whole solve of each on the kernels and on the
-    twins, poses bitwise and the same iterations, launches
+    lm_step (accepted, rejected, NaN and mesh-split steps: the step,
+    cost and update modes, every state field, each through the one-block
+    launch and through the cooperative grid) bitwise against their twins,
+    on the office recipe's final graph, a synthetic 1024-node graph with
+    duplicate, reversed and self-loop constraints and a hub graph whose
+    hub lists span five staging chunks; a whole solve of each on the
+    kernels (one plan a solve: an iteration's two launches packed once),
+    on the kernels without the plan (the wrappers, as before it) and on
+    the twins, poses bitwise and the same iterations, launches
     dense_normal_system = iterations, normal_blocks = dense_system = 0 and
     lm_step = iterations + 1; the office graph's solve (its poses moved
     off the optimum) profiled cut at 6 and at 2 iterations, whose
     difference shows an LM iteration's kernels (one of K4's before
-    cuSOLVER's), no host->device copy and one read; the kernels timed
+    cuSOLVER's), no host->device copy and one read; the planned launches'
+    host time a call beside the wrappers'; the kernels timed
     there and the wall of an LM iteration, kernels against twins;
     (f) BASELINE config 8 (run_benchmarks.py:139-162): the config-2
     corridor with four overlapping grids and 10 Newton iterations on both
@@ -136,7 +142,9 @@ Phases (any failure exits non-zero):
     (c) the full 2000-scan config-3 office loop (radius loop closure +
     optimization) with its export: >= 1 accepted closure and >= 1
     optimization, final ATE <= 1.10 x online and below odometry's, K1/K2
-    launches = accepted - 1 + confirmation chunks, K4 >= 1; the first two
+    launches = accepted - 1 + confirmation chunks, K4 >= 1; its export's
+    K5 call again on its own rays, bitwise the twin on the card (also in
+    (g)); the first two
     confirmation dispatches and the first solve of that session are
     replayed through the twins on the card and must reach the same scores
     bitwise and poses within 1e-4; (g) the same bag with the CLI's
@@ -363,6 +371,7 @@ COARSE_ROWS = 32         # one far chunk of the mapper
 DRIFT_SCANS = 1000
 TABLE_SCANS = 2048       # the padded capacity of a 2000-keyframe graph
 DISTRICT_NODES = 50_000
+MESH_REPEATS = 64        # the one-block mesh update, again (check_lm_kernels)
 PARTICLES = 5000         # config 4
 GLOBAL_PARTICLES = 20_000  # config 7
 
@@ -1266,7 +1275,8 @@ def kernel_times(dev, ident: str, map4: str, bag4) -> dict:
     4, 10 iterations) and config 2's window at R = 1 (G = 1, 10
     iterations), refining a copy of K2's rows in place call after call
     (the start moves within the trust region; the number of evaluations,
-    and so the work, is fixed).  It calls only the wrappers' public
+    and so the work, is fixed); K5 at config 2's export (102,400 rays x
+    640 samples).  It calls only the wrappers' public
     entries (K7's as this tree or, before K7 read K1's table, as that tree
     calls it), so ``--kernel-times`` in an older checkout times that
     checkout's kernels."""
@@ -1278,8 +1288,10 @@ def kernel_times(dev, ident: str, map4: str, bag4) -> dict:
     from ndt_2d_tpu_torch.kernels import ndt_build as k1
     from ndt_2d_tpu_torch.kernels import newton as k7
     from ndt_2d_tpu_torch.matching import matcher, newton
+    from ndt_2d_tpu_torch.kernels import raymarch as k5
+    from ndt_2d_tpu_torch.mapping import occupancy
     from ndt_2d_tpu_torch.parallel import matcher as pmatcher
-    _, cfg, win, query, _ = inputs(dev)
+    _, cfg, win, query, rays = inputs(dev)
     out = {}
     k7_cases = []
     table_k7 = hasattr(k7, "row_tables")  # K7 reads K1's table
@@ -1288,6 +1300,9 @@ def kernel_times(dev, ident: str, map4: str, bag4) -> dict:
         out[name] = {"cuda_ms": cuda_ms(fn, reps),
                      "graph_ms": graph_ms(fn, reps),
                      "host_us": host_us(fn, 101, sync=True)}
+    a5 = occupancy.ray_tensors(rays, cfg.resolution, dev)
+    both(f"K5 config-2 export ({rays.starts.shape[0]} rays x "
+         f"{rays.num_samples} samples)", lambda: k5.raymarch_counts(*a5), 20)
     for name, mc, grids in (("config 2", cfg.local_scan_matcher, 1),
                             ("config 8 (G = 4)",
                              config8(cfg).local_scan_matcher, 4)):
@@ -2204,6 +2219,45 @@ def office_recipe_config():
     return office_config("--recipe", "office")
 
 
+class ExportRecorder:
+    """Keeps the arguments of every K5 call a session's export makes
+    (``occupancy`` calls ``raymarch.raymarch_counts``)."""
+
+    def __enter__(self):
+        from ndt_2d_tpu_torch.kernels import raymarch
+        self.calls, self.real = [], raymarch.raymarch_counts
+
+        def record(*args):
+            self.calls.append(args)
+            return self.real(*args)
+        raymarch.raymarch_counts = record
+        return self
+
+    def __exit__(self, *exc):
+        from ndt_2d_tpu_torch.kernels import raymarch
+        raymarch.raymarch_counts = self.real
+
+
+def check_export(rec, tag, name) -> None:
+    """Each recorded K5 call of a session's export again, the kernel
+    bitwise against its twin on the card on the session's own rays."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import raymarch as k5
+    require(rec.calls, f"{tag} {name}: the export never called K5")
+    for args in rec.calls:
+        hit, emp = k5.raymarch_counts(*args)
+        hitt, empt = k5.raymarch_counts_twin(*args)
+        require(torch.equal(hit, hitt) and torch.equal(emp, empt),
+                f"{tag} {name}: K5 on the export's rays differs from its "
+                f"twin")
+    R, K = rec.calls[-1][0].shape[0], rec.calls[-1][7]
+    print(f"{tag} {name}: K5 on the export's {R} rays x {K} samples "
+          f"({rec.calls[-1][5]} x {rec.calls[-1][6]} cells) bitwise its "
+          f"twin on the card ({int(hit.sum())} hits, {int(emp.sum())} "
+          f"empty)")
+
+
 def phase_office(cfg, bag, dev, tag="[4c]", plain=None):
     """The config-3 office session on the card, then the twin replay.  With
     ``plain`` (the plain config-3 run's numbers) this is the ``office``
@@ -2214,7 +2268,7 @@ def phase_office(cfg, bag, dev, tag="[4c]", plain=None):
     from ndt_2d_tpu_torch.mapping.mapper import Mapper
     from ndt_2d_tpu_torch.utils import metrics
     mapper = Mapper(cfg, device=dev)
-    with Recorder(mapper) as rec:
+    with Recorder(mapper) as rec, ExportRecorder() as export:
         reset_counts()
         t0 = time.perf_counter()
         stats, grid, dt, _, acc_flags, _ = run_session(cfg, bag, dev,
@@ -2255,6 +2309,7 @@ def phase_office(cfg, bag, dev, tag="[4c]", plain=None):
                    lc_ms=timing["loop_closure"]["mean_ms"],
                    graph=mapper.graph, solver=cfg.solver)
     name = "office recipe" if plain else "office config 3"
+    check_export(export, tag, name)
     print(f"{tag} {name}: {acc}/{len(bag)} scans accepted, "
           f"{st.loop_closures_accepted} closures accepted, "
           f"{st.loop_closures_rejected} rejected, {st.optimizations} "
@@ -2473,6 +2528,26 @@ def fused_cost(fused) -> tuple:
     return moved, 318 * C + 54 * N
 
 
+class LmVariant:
+    """Forces the LM step's launch shape inside a ``with``: the one-block
+    variant (``one_block``; its launch refuses more than 12287
+    constraints) or the cooperative grid, through the choice ``lm_blocks``
+    reads (``k4.lm_one_block``)."""
+
+    def __init__(self, one_block: bool):
+        self.one_block = one_block
+
+    def __enter__(self):
+        from ndt_2d_tpu_torch.kernels import normal_blocks as k4
+        self.real = k4.lm_one_block
+        k4.lm_one_block = lambda C: self.one_block
+        return self
+
+    def __exit__(self, *exc):
+        from ndt_2d_tpu_torch.kernels import normal_blocks as k4
+        k4.lm_one_block = self.real
+
+
 def check_lm_kernels(name, kw, scfg) -> str:
     """``dense_normal_system`` bitwise against its twin and against the
     three launches it replaces (``normal_blocks``, then ``dense_system``)
@@ -2480,7 +2555,11 @@ def check_lm_kernels(name, kw, scfg) -> str:
     bitwise against their twins: the systems at lam 1e-12, 1e-6 and 1e8
     (hm with its -0 entries, and rhs); the step accepted, rejected (a step
     100x too long), with a NaN step (info != 0) and through the mesh's
-    two launches (an identity combine), every state field."""
+    two launches (cost mode, an identity combine, update mode), every
+    state field, each through the one-block launch and the cooperative
+    grid (``LmVariant``); the mesh's update launch through one block
+    ``MESH_REPEATS`` times more, the same bits every time (its threads
+    read the state before thread 0 writes it)."""
     import torch
 
     from ndt_2d_tpu_torch.kernels import normal_blocks as k4
@@ -2510,36 +2589,100 @@ def check_lm_kernels(name, kw, scfg) -> str:
                 f"{name}: dense_normal_system not bitwise reproducible")
         negz = int((bits(hm) == -2 ** 31).sum())
     poses = kw["poses"]
-    c0, c0t = (k4.robust_cost(poses, None, None, *terms),
-               k4.robust_cost_twin(poses, None, None, *terms))
-    require(same_bits(c0, c0t), f"{name}: the cost differs from its twin")
+    c0t = k4.robust_cost_twin(poses, None, None, *terms)
+    variants = ("one block", "grid")
+    for v in variants:
+        with LmVariant(v == "one block"):
+            c0 = k4.robust_cost(poses, None, None, *terms)
+        require(same_bits(c0, c0t),
+                f"{name}: the cost ({v}) differs from its twin")
     steps = {"accepted": (delta, info), "rejected": (delta * 100.0, info),
              "NaN step": (delta, torch.ones_like(info)),
              "mesh launches": (delta, info)}
     flags = {}
     for what, (d, inf) in steps.items():
         combine = (lambda x: x) if what == "mesh launches" else None
-        sk = k4.lm_state(poses, 1e-6, c0, terms[0].shape[0])
         st = k4.lm_state(poses, 1e-6, c0, terms[0].shape[0])
-        k4.lm_step(sk, d, inf, *terms, 0.5, 10.0, 1e-9, combine)
         k4.lm_step_twin(st, d, inf, *terms, 0.5, 10.0, 1e-9, combine)
+        for v in variants:
+            sk = k4.lm_state(poses, 1e-6, c0, terms[0].shape[0])
+            with LmVariant(v == "one block"):
+                k4.lm_step(sk, d, inf, *terms, 0.5, 10.0, 1e-9, combine)
+            for f in ("poses", "lam", "cost", "stall", "flags"):
+                require(same_bits(getattr(sk, f), getattr(st, f)),
+                        f"{name}: lm_step ({what}, {v}) {f} differs from "
+                        f"its twin")
+        flags[what] = tuple(bool(x) for x in sk.flags)
+    for _ in range(MESH_REPEATS):
+        sk = k4.lm_state(poses, 1e-6, c0, terms[0].shape[0])
+        with LmVariant(True):
+            k4.lm_step(sk, delta, info, *terms, 0.5, 10.0, 1e-9,
+                       lambda x: x)
         for f in ("poses", "lam", "cost", "stall", "flags"):
             require(same_bits(getattr(sk, f), getattr(st, f)),
-                    f"{name}: lm_step ({what}) {f} differs from its twin")
-        flags[what] = tuple(bool(x) for x in sk.flags)
+                    f"{name}: lm_step (mesh launches, one block, repeated) "
+                    f"{f} differs from its twin")
     require(flags["accepted"][0] and not flags["rejected"][0]
             and not flags["NaN step"][0],
             f"{name}: accept flags {flags}")
+    C, N = terms[0].shape[0], poses.shape[0]
+    fits = k4.lm_card(poses.device.index)
+    shape = k4.lm_blocks(C, N, fits)
     return (f"dense_normal_system bitwise its twin and normal_blocks + "
             f"dense_system, dense_system bitwise its twin, at lam 1e-12 / "
             f"1e-6 / 1e8 ({negz} -0 entries at 1e8), lm_step bitwise on "
-            f"every field (accept, "
-            f"reject, NaN step, mesh launches), cost {float(c0):.6g}")
+            f"every field (accept, reject, NaN step, mesh launches: cost, "
+            f"update, the one-block update {MESH_REPEATS} times more) "
+            f"through one block and through a cooperative grid of "
+            f"{k4.lm_plan(C, N, fits)} blocks "
+            f"(the solve's launch: "
+            f"{'one block' if shape == 0 else f'{shape} blocks'}), cost "
+            f"{float(c0):.6g}")
+
+
+def unplanned_solve(kw, scfg):
+    """One device's dense solve as the LM loop ran it before the plan: the
+    public wrappers (``dense_normal_system``, the library's solve with no
+    out buffers, ``lm_step``) called afresh every iteration, at ``solve``'s
+    inputs.  Returns (poses, cost, success, iterations) as ``solve``
+    would."""
+    import torch
+
+    from ndt_2d_tpu_torch.graph import solver
+    from ndt_2d_tpu_torch.kernels import normal_blocks as k4
+    poses = kw["poses"].contiguous()
+    n, dev = poses.shape[0], poses.device
+    terms = (torch.clamp(kw["begin"].to(torch.int32), 0, n - 1),
+             torch.clamp(kw["end"].to(torch.int32), 0, n - 1),
+             kw["transform"].contiguous(), kw["information"].contiguous(),
+             kw["constraint_mask"].contiguous(),
+             kw["robust_mask"].contiguous(), scfg.robust_loss,
+             scfg.huber_delta)
+    fm = (kw["node_mask"] & (torch.arange(n, device=dev) != 0)).to(
+        poses.dtype)
+    inc = k4.incidence(terms[0], terms[1], terms[4], n)
+    pairs = k4.pair_table(terms[0], terms[1], terms[4], n)
+    with solver._highest_precision():
+        cost0 = k4.robust_cost(poses, None, None, *terms)
+        state = k4.lm_state(poses, scfg.lm_lambda_init, cost0,
+                            terms[0].shape[0])
+        it = 0
+        while it < scfg.max_iterations and int(state.stall) < 3:
+            delta, info = solver._dense_solve(n, *k4.dense_normal_system(
+                state.poses, *terms, inc, pairs, state.lam, fm))
+            k4.lm_step(state, delta, info, *terms, scfg.lm_lambda_down,
+                       scfg.lm_lambda_up, scfg.tolerance)
+            it += 1
+    ok = torch.isfinite(state.cost) & (state.cost <= cost0)
+    return (torch.where(ok, state.poses, poses), state.cost, bool(ok), it)
 
 
 def solve_both(kw, scfg):
-    """One solve on the kernels (launches counted) and one on the twins:
-    (kernel result, twin result, launches, kernel wall s, twin wall s)."""
+    """One solve on the kernels (planned; launches counted), one on the
+    kernels without the plan (``unplanned_solve``: the public wrappers, as
+    before the plan) and one on the twins: (planned result, twin result,
+    launches, planned wall s, twin wall s, unplanned (poses, cost,
+    success, iterations))."""
     import torch
 
     from ndt_2d_tpu_torch.graph import solver
@@ -2550,10 +2693,11 @@ def solve_both(kw, scfg):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
+    unplanned = unplanned_solve(kw, scfg)
     t0 = time.perf_counter()
     twin = solver.solve(scfg, **kw, twin=True)
     torch.cuda.synchronize()
-    return res, twin, launches, wall, time.perf_counter() - t0
+    return res, twin, launches, wall, time.perf_counter() - t0, unplanned
 
 
 def solve_profile(kw, scfg) -> dict:
@@ -2630,14 +2774,17 @@ def phase_lm(dev, office, ident) -> dict:
               SolverConfig(robust_loss="huber", huber_delta=1.0)))
     for name, kw, scfg in cases:
         msg = check_lm_kernels(name, kw, scfg)
-        res, twin, launches, wall, twin_wall = solve_both(kw, scfg)
+        res, twin, launches, wall, twin_wall, unplanned = solve_both(kw,
+                                                                     scfg)
         it = int(res.iterations)
-        require(it == int(twin.iterations) and same_bits(res.poses,
-                                                         twin.poses)
-                and same_bits(res.cost, twin.cost)
-                and bool(res.success) == bool(twin.success),
-                f"{name}: the solve on the kernels parts from the twins' "
-                f"({it} vs {int(twin.iterations)} iterations)")
+        twin = (twin.poses, twin.cost, bool(twin.success),
+                int(twin.iterations))
+        for other, what in ((twin, "twins'"), (unplanned, "unplanned")):
+            require(it == other[3] and same_bits(res.poses, other[0])
+                    and same_bits(res.cost, other[1])
+                    and bool(res.success) == other[2],
+                    f"{name}: the planned solve parts from the {what} "
+                    f"({it} vs {other[3]} iterations)")
         require(launches["dense_normal_system"] == it
                 and launches["normal_blocks"] == launches["dense_system"] == 0
                 and launches["lm_step"] == it + 1,
@@ -2647,7 +2794,8 @@ def phase_lm(dev, office, ident) -> dict:
         print(f"[4u] {name} ({n_live} nodes of "
               f"{kw['poses'].shape[0]}, {c_live} live constraints of "
               f"{kw['begin'].shape[0]}, {scfg.robust_loss}): {msg}; "
-              f"solve on the kernels bitwise the twins' ({it} iterations, "
+              f"the planned solve bitwise the unplanned kernels' and the "
+              f"twins' ({it} iterations, "
               f"success {bool(res.success)}; {wall * 1e3:.3f} ms against "
               f"{twin_wall * 1e3:.3f} ms on the twins); launches "
               f"dense_normal_system {launches['dense_normal_system']}, "
@@ -2731,6 +2879,11 @@ def phase_lm(dev, office, ident) -> dict:
               f"{host_us(fn, 101, sync=True):.1f} us a call, twin "
               f"{out[k]['plain_ms']:.4f} ms, bound {out[k]['bound_ms']:.6f} "
               f"ms ({out[k]['bound_by']}) ({ident})")
+    lm_variant_times(lambda: k4.lm_step(sk, *step), f"office graph (N_pad "
+                     f"{N}, C_pad {C})", ident)
+    planned_times(okw, ocfg, f"office graph (N_pad {N}, C_pad {C})", ident,
+                  (lambda: k4.dense_normal_system(*fused),
+                   lambda: k4.lm_step(sk, *step)))
     walls = {"kernels": [], "twins": []}
     for arm in ("kernels", "twins", "kernels", "twins"):
         torch.cuda.synchronize()
@@ -2744,6 +2897,60 @@ def phase_lm(dev, office, ident) -> dict:
           f"{[round(w, 4) for w in walls['kernels']]} ms, twins "
           f"{[round(w, 4) for w in walls['twins']]} ms ({ident})")
     return out
+
+
+def lm_variant_times(step, what, ident, both=None) -> None:
+    """``step`` (an ``lm_step`` call) through the one-block launch and the
+    cooperative grid (``LmVariant``): CUDA events, in a CUDA graph and host
+    time a call, through ``both`` where given (keyed by ``what``), else
+    printed as [5] lines."""
+    for v in ("one block", "grid"):
+        with LmVariant(v == "one block"):
+            if both is not None:
+                both(f"K4 lm_step {what}, {v}", step, 50)
+                continue
+            print(f"[5] lm_step at the {what}, {v}: cuda_ms "
+                  f"{cuda_ms(step, 50):.5f}, in a CUDA graph "
+                  f"{graph_ms(step, 20):.5f} ms, host "
+                  f"{host_us(step, 101, sync=True):.1f} us a call ({ident})")
+
+
+def dense_plan(kw, scfg):
+    """A ``k4.DensePlan`` at ``kw``'s poses as ``solve`` builds it (lam
+    1e-6), its step solved once so ``delta`` holds a step."""
+    import torch
+
+    from ndt_2d_tpu_torch.graph import solver
+    from ndt_2d_tpu_torch.kernels import normal_blocks as k4
+    terms, sys_args, _, _ = lm_inputs(kw, scfg, 1e-6)
+    pairs, _, _, _, _, fm = sys_args
+    n = fm.shape[0]
+    inc = k4.incidence(terms[0], terms[1], terms[4], n)
+    c0 = k4.robust_cost(kw["poses"], None, None, *terms)
+    state = k4.lm_state(kw["poses"], 1e-6, c0, terms[0].shape[0])
+    plan = k4.DensePlan(state, *terms, inc, pairs, fm, 0.5, 10.0, 1e-9)
+    solver._dense_solve(n, *plan.system(), plan.solve_out)
+    torch.cuda.synchronize()
+    return plan
+
+
+def planned_times(kw, scfg, what, ident, unplanned=None, both=None):
+    """The host time a call of a plan's two launches (``dense_plan``),
+    beside the unplanned wrappers' (``unplanned``: their two calls) in the
+    same process; through ``both`` where given, else printed."""
+    plan = dense_plan(kw, scfg)
+    if both is not None:
+        both(f"K4 dense_normal_system planned, {what}", plan.system, 50)
+        both(f"K4 lm_step planned, {what}", plan.step, 50)
+        return
+    us = [host_us(plan.system, 101, sync=True),
+          host_us(plan.step, 101, sync=True)]
+    old = [host_us(fn, 101, sync=True) for fn in unplanned]
+    print(f"[4u] planned launches at the {what}: dense_normal_system host "
+          f"{us[0]:.1f} us a call (unplanned {old[0]:.1f}), in a CUDA graph "
+          f"{graph_ms(plan.system, 20):.5f} ms; lm_step host {us[1]:.1f} us "
+          f"a call (unplanned {old[1]:.1f}), in a CUDA graph "
+          f"{graph_ms(plan.step, 20):.5f} ms ({ident})")
 
 
 def lm_times(dev, ident, both=None) -> dict:
@@ -2788,6 +2995,13 @@ def lm_times(dev, ident, both=None) -> dict:
             both(f"K4 lm_step N_pad {n_pad}",
                  lambda s=sk, d=delta, i=info, t=terms: k4.lm_step(
                      s, d, i, *t, 0.5, 10.0, 1e-9), 50)
+            if hasattr(k4, "lm_one_block"):  # two LM-step launches
+                lm_variant_times(
+                    lambda s=sk, d=delta, i=info, t=terms: k4.lm_step(
+                        s, d, i, *t, 0.5, 10.0, 1e-9), f"N_pad {n_pad}",
+                    ident, both)
+            if hasattr(k4, "DensePlan"):  # a tree that plans a solve
+                planned_times(kw, scfg, f"N_pad {n_pad}", ident, both=both)
             hm, rhs = k4.dense_system(*sys_args)
 
             def factor(hm=hm, rhs=rhs):

@@ -10,7 +10,11 @@
 // system (entry ndt2d_dense_system, a mesh's), the blocks, node sums and
 // assembly of one device's dense LM iteration in one launch (entry
 // ndt2d_dense_normal_system), and _robust_cost with the accept and update
-// of the LM loop's body, lm_step (entry ndt2d_lm_step).
+// of the LM loop's body, lm_step (entry ndt2d_lm_step: one block where the
+// costs fit the default 48 KB of shared memory, every dense solve, else
+// one cooperative launch, as the district's PCG solve).  A planned
+// solve packs the last two once and launches them by pointer
+// (ndt2d_dense_normal_system_planned, ndt2d_lm_step_planned).
 //
 // What it computes.  Per constraint k = (a, b): the residual
 // r = (R(th_a)^T (p_b - p_a) - t_xy, normalize(th_b - th_a - t_th)), the
@@ -109,7 +113,10 @@
 // serial add chain (C add latencies, ~2.5 ns each) is the floor at the
 // district's 10^5 constraints.  Neither the grid nor the padding (a
 // masked constraint adds +0) changes the bits.  The scalars are
-// arguments: no host->device copy.
+// arguments: no host->device copy.  Up to 12287 constraints (every dense
+// solve) the same step runs as one ordinary block (lm_step_block): the
+// costs stay in its shared memory and __syncthreads replaces the grid
+// syncs, with the same cost and update bodies and the same add order.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -1046,13 +1053,45 @@ __device__ __forceinline__ float ordered_sum(const float* x, int n,
   return acc;
 }
 
+// lm_step's accept and update (solver.py:303-315) from the step's total
+// cost, given the state the launch started from (cost, lam, stall):
+// thread tid of nth writes its share of the poses where the step is
+// accepted, and thread 0 writes lam, cost, stall and the flags.  Both
+// variants call it, so their bits cannot part.
+__device__ __forceinline__ void lm_update(const Lm& a, bool ok, float total,
+                                          float cost, float lam, int stall,
+                                          int tid, int nth) {
+  const bool accept = total < cost;
+  if (accept)
+    for (int n = tid; n < a.N; n += nth) {
+      float p[3];
+      stepped(a, ok, n, p);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) a.poses[3 * n + i] = p[i];
+    }
+  if (tid == 0) {
+    // torch.clamp(lam, 1e-12, 1e8), which keeps a NaN.
+    float l = accept ? lam * a.down : lam * a.up;
+    if (l == l)
+      l = fminf(fmaxf(l, static_cast<float>(1e-12)), static_cast<float>(1e8));
+    const bool improved =
+        fabsf(cost - total) > a.tol * (cost + static_cast<float>(1e-12));
+    *a.lam = l;
+    *a.cost = accept ? total : cost;
+    *a.stall = accept && improved ? 0 : stall + 1;
+    a.flags[0] = accept;
+    a.flags[1] = improved;
+  }
+}
+
 // solver.py::_robust_cost + lm_step's accept and update (:303-315) in one
-// cooperative launch.  Every block reads the state, then forms its
-// constraints' costs into rho; after a grid sync block 0 adds them in
-// order (kCost: into out, and the launch ends); after a second sync every
-// block reads the sum, decides the accept and writes its share of the
-// poses, and block 0 writes lam, cost, stall and the flags.  No block reads
-// the state after block 0 may have written it.
+// cooperative launch, for more constraints than lm_step_block takes.
+// Every block reads the state, then forms its constraints' costs
+// into rho; after a grid sync block 0 adds them in order (kCost: into out,
+// and the launch ends); after a second sync every block reads the sum,
+// decides the accept and writes its share of the poses, and block 0 writes
+// lam, cost, stall and the flags.  No block reads the state after block 0
+// may have written it.
 __global__ void __launch_bounds__(kThreads) lm_step(const Lm a) {
   __shared__ float stage[kSumChunk];
   cg::grid_group grid = cg::this_grid();
@@ -1080,27 +1119,120 @@ __global__ void __launch_bounds__(kThreads) lm_step(const Lm a) {
     grid.sync();
   }
   const float total = a.mode == kUpdate ? *a.new_cost : __ldcg(a.rho + a.C);
-  const bool accept = total < cost;
-  if (accept)
-    for (int n = tid; n < a.N; n += nth) {
-      float p[3];
-      stepped(a, ok, n, p);
-#pragma unroll
-      for (int i = 0; i < 3; ++i) a.poses[3 * n + i] = p[i];
+  lm_update(a, ok, total, cost, lam, stall, tid, nth);
+}
+
+// Threads of the one-block LM step.
+constexpr int kLmBlock = 1024;
+// acc + v.x + v.y + v.z + v.w, one add at a time.
+__device__ __forceinline__ float add4(float acc, float4 v) {
+  acc = acc + v.x;
+  acc = acc + v.y;
+  acc = acc + v.z;
+  return acc + v.w;
+}
+
+// x[0] + ... + x[n - 1] (x = the float4 row x4) in index order from +0, one
+// add at a time by the calling thread: ordered_sum's order.  The next four
+// float4 groups load while the current four add, so the chain of adds does
+// not wait on shared memory (x4 holds at least n / 4 groups).
+__device__ __forceinline__ float row_sum(const float4* x4, int n) {
+  const int n4 = n / 4;
+  float acc = 0.f;
+  if (n4 > 0) {
+    const int last = n4 - 1;
+    float4 a0 = x4[0], a1 = x4[min(1, last)], a2 = x4[min(2, last)],
+           a3 = x4[min(3, last)];
+    for (int i = 0; i < n4; i += 4) {
+      const float4 b0 = x4[min(i + 4, last)], b1 = x4[min(i + 5, last)],
+                   b2 = x4[min(i + 6, last)], b3 = x4[min(i + 7, last)];
+      acc = add4(acc, a0);
+      if (i + 1 < n4) acc = add4(acc, a1);
+      if (i + 2 < n4) acc = add4(acc, a2);
+      if (i + 3 < n4) acc = add4(acc, a3);
+      a0 = b0;
+      a1 = b1;
+      a2 = b2;
+      a3 = b3;
     }
-  if (tid == 0) {
-    // torch.clamp(lam, 1e-12, 1e8), which keeps a NaN.
-    float l = accept ? lam * a.down : lam * a.up;
-    if (l == l)
-      l = fminf(fmaxf(l, static_cast<float>(1e-12)), static_cast<float>(1e8));
-    const bool improved =
-        fabsf(cost - total) > a.tol * (cost + static_cast<float>(1e-12));
-    *a.lam = l;
-    *a.cost = accept ? total : cost;
-    *a.stall = accept && improved ? 0 : stall + 1;
-    a.flags[0] = accept;
-    a.flags[1] = improved;
   }
+  const float* x = reinterpret_cast<const float*>(x4);
+  for (int i = 4 * n4; i < n; ++i) acc = acc + x[i];
+  return acc;
+}
+
+// The same step as lm_step in one ordinary block, for the constraints whose
+// costs fit the default 48 KB of shared memory (C + 1 floats, C <= 12287;
+// every dense solve): the threads form the costs into shared memory,
+// thread 0 adds them in index order from +0 (float4 loads, one add at a
+// time: ordered_sum's order), and after a second __syncthreads the block
+// decides the accept and writes the poses and the state.  Nothing goes
+// through global memory between the phases.  The barrier before lm_update
+// runs in every mode (kUpdate forms no costs): no thread reads the state
+// after thread 0 may have written it.
+__global__ void __launch_bounds__(kLmBlock) lm_step_block(const Lm a) {
+  extern __shared__ float4 row4[];
+  float* row = reinterpret_cast<float*>(row4);
+  const bool ok = a.info == nullptr || *a.info == 0;
+  float cost = 0.f, lam = 0.f;
+  int stall = 0;
+  if (a.mode != kCost) {
+    cost = *a.cost;
+    lam = *a.lam;
+    stall = *a.stall;
+  }
+  if (a.mode != kUpdate) {
+    for (int k = threadIdx.x; k < a.C; k += kLmBlock)
+      row[k] = robust_rho(a, ok, k);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const float acc = row_sum(row4, a.C);
+      if (a.mode == kCost)
+        *a.out = acc;
+      else
+        row[a.C] = acc;
+    }
+    if (a.mode == kCost) return;
+  }
+  __syncthreads();
+  const float total = a.mode == kUpdate ? *a.new_cost : row[a.C];
+  lm_update(a, ok, total, cost, lam, stall, threadIdx.x, kLmBlock);
+}
+
+// Dynamic shared memory of the one-block step over C constraints: C + 1
+// floats, in whole float4s; at most the default 48 KB a block
+// (kernels/normal_blocks.py::lm_one_block).
+inline size_t lm_block_bytes(int C) {
+  return sizeof(float4) * (size_t)((C + 1 + 3) / 4);
+}
+constexpr size_t kLmBlockBytes = 48 * 1024;
+
+// A launch of the LM step: its arguments and shape, blocks > 0 the
+// cooperative grid, 0 the one-block variant (kernels/normal_blocks.py
+// _LmLaunch mirrors it).
+struct LmLaunch {
+  Lm a;
+  int blocks;
+};
+
+// Launches one LM step as `l` says.
+cudaError_t lm_launch(const LmLaunch& l, cudaStream_t st) {
+  const Lm& a = l.a;
+  if (a.mode < kCost || a.mode > kUpdate || l.blocks < 0 || a.C < 0 ||
+      a.N < 1)
+    return cudaErrorInvalidValue;
+  if ((a.mode == kCost && !a.out) || (a.mode == kUpdate && !a.new_cost) ||
+      (a.mode != kCost && !(a.lam && a.cost && a.stall && a.flags)))
+    return cudaErrorInvalidValue;
+  if (l.blocks > 0) {
+    void* args[] = {const_cast<Lm*>(&a)};
+    return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(lm_step),
+                                       l.blocks, kThreads, args, 0, st);
+  }
+  const size_t smem = lm_block_bytes(a.C);
+  if (smem > kLmBlockBytes) return cudaErrorInvalidValue;
+  lm_step_block<<<1, kLmBlock, smem, st>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1285,6 +1417,17 @@ NDT2D_API int ndt2d_dense_system(const void* keys, const void* src,
   return (int)cudaGetLastError();
 }
 
+// One dense normal system as packed in *plan (ndt2d_dense_normal_system's
+// arguments; kernels/normal_blocks.py::DensePlan packs it once a solve).
+NDT2D_API int ndt2d_dense_normal_system_planned(const void* plan,
+                                                void* stream) {
+  const DenseNormal& a = *static_cast<const DenseNormal*>(plan);
+  if (a.n < 1 || a.C < 0) return (int)cudaErrorInvalidValue;
+  dense_normal_system<<<a.n, kDnThreads, 0,
+                        reinterpret_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
 // The damped dense system of one LM step straight from the poses (one
 // launch; one device, no combine).  The constraint inputs, loss and delta
 // as ndt2d_normal_blocks' (C constraints over n nodes); incidence lists
@@ -1299,7 +1442,6 @@ NDT2D_API int ndt2d_dense_normal_system(
     const void* b_idx, const void* e_ptr, const void* e_idx,
     const void* keys, const void* src, const void* row_ptr, const void* lam,
     const void* fm, int n, void* hm, void* rhs, void* stream) {
-  if (n < 1 || C < 0) return (int)cudaErrorInvalidValue;
   DenseNormal a{graph_of(poses, begin, end, transform, information, cmask,
                          robust_mask, loss, delta),
                 C,
@@ -1315,9 +1457,7 @@ NDT2D_API int ndt2d_dense_normal_system(
                 static_cast<const float*>(fm),
                 static_cast<float*>(hm),
                 static_cast<float*>(rhs)};
-  dense_normal_system<<<n, kDnThreads, 0,
-                        reinterpret_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  return ndt2d_dense_normal_system_planned(&a, stream);
 }
 
 // The LM-step blocks the current device holds co-resident, into *blocks (0
@@ -1341,11 +1481,13 @@ NDT2D_API int ndt2d_lm_step_fit(int* blocks) {
 // from a given cost (mode 2: new_cost [1]).  poses [N,3] f32 (updated in
 // place), delta [N,3] f32 or null, info [1] i32 or null, begin/end [C] i32,
 // transform [C,3], information [C,3,3] f32, cmask/robust_mask [C] u8, loss
-// and hdelta as ndt2d_normal_blocks'; rho [C+1] f32 scratch; state lam,
-// cost [1] f32, stall [1] i32, flags [2] u8 (modes 1, 2); the factors
-// down/up and the tolerance.  One cooperative launch of `blocks` blocks
-// (kernels/normal_blocks.py::lm_plan, at most ndt2d_lm_step_fit's); the
-// launch fails where the card cannot hold them co-resident.
+// and hdelta as ndt2d_normal_blocks'; rho [C+1] f32 scratch (the
+// cooperative launch's); state lam, cost [1] f32, stall [1] i32, flags [2]
+// u8 (modes 1, 2); the factors down/up and the tolerance.  blocks > 0: one
+// cooperative launch of that many blocks (kernels/normal_blocks.py::
+// lm_plan, at most ndt2d_lm_step_fit's), which fails where the card cannot
+// hold them co-resident; blocks = 0: the one-block launch (C + 1 floats of
+// shared memory, at most 48 KB: lm_one_block).
 NDT2D_API int ndt2d_lm_step(int mode, int blocks, void* poses,
                             const void* delta, const void* info,
                             const void* begin, const void* end,
@@ -1356,37 +1498,46 @@ NDT2D_API int ndt2d_lm_step(int mode, int blocks, void* poses,
                             const void* new_cost, void* lam, void* cost,
                             void* stall, void* flags, float down, float up,
                             float tol, void* stream) {
-  if (mode < kCost || mode > kUpdate || blocks < 1 || C < 0 || N < 1)
-    return (int)cudaErrorInvalidValue;
-  if ((mode == kCost && !out) || (mode == kUpdate && !new_cost) ||
-      (mode != kCost && !(lam && cost && stall && flags)))
-    return (int)cudaErrorInvalidValue;
-  Lm a{mode,
-       static_cast<float*>(poses),
-       static_cast<const float*>(delta),
-       static_cast<const int*>(info),
-       static_cast<const int*>(begin),
-       static_cast<const int*>(end),
-       static_cast<const float*>(transform),
-       static_cast<const float*>(information),
-       static_cast<const uint8_t*>(cmask),
-       static_cast<const uint8_t*>(robust_mask),
-       loss,
-       hdelta,
-       C,
-       N,
-       static_cast<float*>(rho),
-       static_cast<float*>(out),
-       static_cast<const float*>(new_cost),
-       static_cast<float*>(lam),
-       static_cast<float*>(cost),
-       static_cast<int*>(stall),
-       static_cast<uint8_t*>(flags),
-       down,
-       up,
-       tol};
-  void* args[] = {&a};
-  return (int)cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(lm_step), blocks, kThreads, args, 0,
-      reinterpret_cast<cudaStream_t>(stream));
+  const LmLaunch l{{mode,
+                    static_cast<float*>(poses),
+                    static_cast<const float*>(delta),
+                    static_cast<const int*>(info),
+                    static_cast<const int*>(begin),
+                    static_cast<const int*>(end),
+                    static_cast<const float*>(transform),
+                    static_cast<const float*>(information),
+                    static_cast<const uint8_t*>(cmask),
+                    static_cast<const uint8_t*>(robust_mask),
+                    loss,
+                    hdelta,
+                    C,
+                    N,
+                    static_cast<float*>(rho),
+                    static_cast<float*>(out),
+                    static_cast<const float*>(new_cost),
+                    static_cast<float*>(lam),
+                    static_cast<float*>(cost),
+                    static_cast<int*>(stall),
+                    static_cast<uint8_t*>(flags),
+                    down,
+                    up,
+                    tol},
+                   blocks};
+  return (int)lm_launch(l, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The planned launches of one solve: the caller packs each launch's
+// arguments once (kernels/normal_blocks.py::DensePlan, whose ctypes
+// structures mirror LmLaunch and DenseNormal; ndt2d_plan_sizes reports
+// their sizes so the mirror is checked) and passes a pointer an iteration.
+NDT2D_API int ndt2d_plan_sizes(int* lm_bytes, int* dense_bytes) {
+  *lm_bytes = (int)sizeof(LmLaunch);
+  *dense_bytes = (int)sizeof(DenseNormal);
+  return 0;
+}
+
+// One LM step as packed in *plan (ndt2d_lm_step's arguments).
+NDT2D_API int ndt2d_lm_step_planned(const void* plan, void* stream) {
+  return (int)lm_launch(*static_cast<const LmLaunch*>(plan),
+                        reinterpret_cast<cudaStream_t>(stream));
 }

@@ -26,8 +26,12 @@ count in place on the device.  An LM iteration on one device is thus
 ``lm_step`` (PCG: ``normal_blocks``, ``pcg_solve``, ``lm_step``), with no
 host->device copy; the LM loop is a host loop that stops at the
 reference's iteration on its one device->host read an iteration (the
-stall count).  Everything runs in float32 with TF32 off
-(``precision="highest"`` in the reference).
+stall count).  One device's dense solve is planned once
+(``k4.DensePlan``: every tensor checked, the system, factor and step
+allocated, and both launches' arguments packed), so on the card an
+iteration's two K4 launches are a ctypes call each (on the CPU, or with
+``twin``, the plan's calls run the twins).  Everything runs in float32
+with TF32 off (``precision="highest"`` in the reference).
 
 On a device mesh (``mesh``; ``parallel/solver.py``) each rank holds a
 contiguous block of the constraints, over the mesh's ``batch`` axis.  The
@@ -126,14 +130,20 @@ def _gather_gradient_and_diag(n, begin, end, baa, bab, bbb, ga, gb,
     return k4.node_sums_twin(baa, bbb, ga, gb, inc)
 
 
-def _dense_solve(n, hm, rhs):
+def _dense_solve(n, hm, rhs, out=None):
     """The damped dense system (hm [3N, 3N], rhs [3N]), Cholesky-solved.
     Returns (delta [N, 3], the factorization's 0-d status): a matrix that
     is not positive definite has info != 0, and ``lm_step`` then steps by
     NaN, as the reference's Cholesky gives NaN, so the step is
-    rejected."""
-    chol, info = torch.linalg.cholesky_ex(hm)
-    delta = torch.cholesky_solve(rhs.reshape(-1, 1), chol).reshape(n, 3)
+    rejected.  ``out``: (factor, info, delta) to write into, a plan's
+    (``k4.DensePlan.solve_out``), the same values."""
+    if out is None:
+        chol, info = torch.linalg.cholesky_ex(hm)
+        delta = torch.cholesky_solve(rhs.reshape(-1, 1), chol).reshape(n, 3)
+        return delta, info
+    chol, info, delta = out
+    torch.linalg.cholesky_ex(hm, out=(chol, info))
+    torch.cholesky_solve(rhs.reshape(-1, 1), chol, out=delta.view(-1, 1))
     return delta, info
 
 
@@ -251,7 +261,6 @@ def _solve_impl(config, poses, begin, end, transform, information,
     pairs = (k4.pair_table(begin, end, constraint_mask, n) if use_dense
              else None)
     blocks = k4.normal_blocks_twin if twin else k4.normal_blocks
-    fused = k4.dense_normal_system_twin if twin else k4.dense_normal_system
     system = k4.dense_system_twin if twin else k4.dense_system
     step = k4.lm_step_twin if twin else k4.lm_step
     cost_of = k4.robust_cost_twin if twin else k4.robust_cost
@@ -265,12 +274,18 @@ def _solve_impl(config, poses, begin, end, transform, information,
     # to.
     state = k4.lm_state(poses, config.lm_lambda_init, cost0,
                         begin.shape[0])
+    plan = None
+    if use_dense and combine is None:
+        # One device: an iteration's two launches planned once a solve, the
+        # system straight from the poses.
+        plan = k4.DensePlan(state, *terms, inc, pairs, fm,
+                            config.lm_lambda_down, config.lm_lambda_up,
+                            config.tolerance, twin)
     it = 0
     while it < config.max_iterations and int(state.stall) < 3:
-        if use_dense and combine is None:
-            # One device: the system straight from the poses, one launch.
-            delta, info = _dense_solve(n, *fused(
-                state.poses, *terms, inc, pairs, state.lam, fm))
+        if plan is not None:
+            _dense_solve(n, *plan.system(), plan.solve_out)
+            plan.step()
         else:
             baa, bab, bbb, _, _, g, diag = blocks(
                 state.poses, begin, end, transform, information,
@@ -285,8 +300,8 @@ def _solve_impl(config, poses, begin, end, transform, information,
                                    config.cg_max_iterations,
                                    config.cg_tolerance, inc, twin, combine)
                 info = None
-        step(state, delta, info, *terms, config.lm_lambda_down,
-             config.lm_lambda_up, config.tolerance, combine)
+            step(state, delta, info, *terms, config.lm_lambda_down,
+                 config.lm_lambda_up, config.tolerance, combine)
         it += 1
 
     cost = state.cost

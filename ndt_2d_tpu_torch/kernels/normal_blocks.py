@@ -15,7 +15,10 @@ node sums and assembly of one device's dense LM iteration in one launch
 then ``dense_system``); and ``_robust_cost``
 with ``lm_step``'s accept and update (``lm_step``: the step's cost summed
 in index order, ``ordered_sum_twin``, then the accept, the damping, the
-stall count and the poses, in place, on the device).  The
+stall count and the poses, in place, on the device; one block where the
+costs fit 48 KB of shared memory, every dense solve, else a cooperative
+grid, ``lm_blocks``).  One device's dense solve packs both launches once
+(``DensePlan``).  The
 per-node sums walk incidence lists (``Incidence``) in constraint order, and
 a dot adds in a fixed lane-and-tree order (``fixed_dot_twin``), so kernel
 and twin add the same float32 values in the same order and agree bitwise;
@@ -62,6 +65,8 @@ _LM_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
             + [ctypes.c_void_p] * 7 + [ctypes.c_float] * 3
             + [ctypes.c_void_p])
 _LM_FIT_ARGS = [ctypes.POINTER(ctypes.c_int)]
+_SIZES_ARGS = [ctypes.POINTER(ctypes.c_int)] * 2
+_PLANNED_ARGS = [ctypes.c_void_p] * 2
 
 # Threads of a block (kThreads of csrc/normal_blocks.cu) and the most nodes
 # a dense system takes (kDenseMaxN: a block's slot table of an int a node
@@ -71,6 +76,8 @@ DENSE_MAX_N = 12288
 # Constraints a dense-normal-system block stages at a time (kDnThreads of
 # csrc/normal_blocks.cu).
 DENSE_STAGE = 128
+# Threads of the one-block LM step (kLmBlock of csrc/normal_blocks.cu).
+LM_BLOCK = 1024
 
 # lm_step's modes: the cost alone, the cost and the update, the update from
 # a given cost (a mesh's combined one).
@@ -654,20 +661,41 @@ class LMState:
 
 
 def lm_plan(C: int, N: int, fits: int) -> int:
-    """Blocks of an LM-step launch over C constraints and N nodes: a
-    thread a constraint (or a node, whichever are more), at most ``fits``,
-    the blocks the card holds co-resident (``lm_fits``).  The result does
-    not depend on it: a thread forms whole constraints' costs, one thread
-    adds them in order, and every block folds nothing."""
+    """Blocks of a cooperative LM-step launch over C constraints and N
+    nodes: a thread a constraint (or a node, whichever are more), at most
+    ``fits``, the blocks the card holds co-resident (``lm_card``).  The
+    result does not depend on it: a thread forms whole constraints' costs,
+    one thread adds them in order, and every block folds nothing."""
     if fits < 1:
         raise RuntimeError("the card holds no LM-step block co-resident")
     return min(fits, max(1, -(-max(C, N) // THREADS)))
 
 
+# Shared memory of the one-block LM step at most (kLmBlockBytes of
+# csrc/normal_blocks.cu): the default a block, no opt-in.
+LM_BLOCK_BYTES = 48 * 1024
+
+
+def lm_one_block(C: int) -> bool:
+    """Whether the LM step over C constraints runs as one ordinary block:
+    its C + 1 costs, in whole float4s, fit the default 48 KB of shared
+    memory (C <= 12287: every dense solve; the district's PCG solve takes
+    the cooperative grid)."""
+    return 16 * ((C + 4) // 4) <= LM_BLOCK_BYTES
+
+
+def lm_blocks(C: int, N: int, fits: int) -> int:
+    """The launch shape ``ndt2d_lm_step`` takes: 0 for the one-block
+    variant, else the cooperative grid's blocks (``lm_plan``; ``fits``,
+    ``lm_card``'s)."""
+    return 0 if lm_one_block(C) else lm_plan(C, N, fits)
+
+
 @functools.lru_cache(maxsize=None)
-def lm_fits(index: int) -> int:
-    """The LM-step blocks CUDA device ``index`` holds co-resident (0 where
-    it cannot launch cooperatively), asked of the card once."""
+def lm_card(index: int) -> int:
+    """The cooperative LM-step blocks CUDA device ``index`` holds
+    co-resident (0 where it cannot launch cooperatively), asked of the card
+    once."""
     blocks = ctypes.c_int(0)
     with torch.cuda.device(index):
         err = _build.function("ndt2d_lm_step_fit", _LM_FIT_ARGS)(
@@ -804,7 +832,7 @@ def _lm_launch(mode: int, poses, delta, info, begin, end, transform,
         st = (p(state.lam), p(state.cost), p(state.stall), p(state.flags))
     else:
         st = (None,) * 4
-    blocks = lm_plan(C, N, lm_fits(dev.index))
+    blocks = lm_blocks(C, N, lm_card(dev.index))
     err = _build.function("ndt2d_lm_step", _LM_ARGS)(
         mode, blocks, p(poses), opt(delta), opt(info), p(begin), p(end),
         p(transform), p(information), p(cmask), p(robust_mask), LOSSES[loss],
@@ -838,11 +866,14 @@ def lm_step(state: LMState, delta, info, begin, end, transform, information,
     """One LM step's cost, accept and update of ``state`` in place, as
     ``lm_step_twin``: delta [N, 3] f32 the step, info the factorization's
     0-d int32 status (None on the PCG path).  CPU tensors run the twin;
-    CUDA tensors launch the kernel once (a cooperative grid: the cost a
-    constraint, a grid sync, block 0 adds them in order, a grid sync,
-    every block updates its poses); with ``combine`` (a mesh) a cost
-    launch, ``combine`` over ranks, then an update launch.  No
-    host->device copy: the scalars are kernel arguments."""
+    CUDA tensors launch the kernel once: one block where the C + 1 costs
+    fit 48 KB of shared memory (the costs formed there, thread 0 adds them
+    in order, the block updates the poses), else a cooperative grid (the
+    cost a constraint, a grid sync, block 0 adds them in order, a grid
+    sync, every block updates its poses), bitwise the same
+    (``lm_blocks``); with ``combine`` (a mesh) a cost launch, ``combine``
+    over ranks, then an update launch.  No host->device copy: the scalars
+    are kernel arguments."""
     if state.poses.device.type == "cpu":
         return lm_step_twin(state, delta, info, begin, end, transform,
                             information, cmask, robust_mask, loss, hdelta,
@@ -859,3 +890,181 @@ def lm_step(state: LMState, delta, info, begin, end, transform, information,
                    state.poses.device)
     _lm_launch(_UPDATE, *args, new_cost=total, state=state, down=down, up=up,
                tol=tol)
+
+
+# --- One plan a dense solve ------------------------------------------------
+
+
+class _Lm(ctypes.Structure):
+    """``struct Lm`` of csrc/normal_blocks.cu."""
+
+    _fields_ = ([("mode", ctypes.c_int)]
+                + [(f, ctypes.c_void_p) for f in (
+                    "poses", "delta", "info", "begin", "end", "transform",
+                    "information", "cmask", "robust_mask")]
+                + [("loss", ctypes.c_int), ("hdelta", ctypes.c_float),
+                   ("C", ctypes.c_int), ("N", ctypes.c_int)]
+                + [(f, ctypes.c_void_p) for f in (
+                    "rho", "out", "new_cost", "lam", "cost", "stall",
+                    "flags")]
+                + [(f, ctypes.c_float) for f in ("down", "up", "tol")])
+
+
+class _LmLaunch(ctypes.Structure):
+    """``struct LmLaunch``: an LM step's arguments and launch shape
+    (``lm_blocks``)."""
+
+    _fields_ = [("a", _Lm), ("blocks", ctypes.c_int)]
+
+
+class _Graph(ctypes.Structure):
+    """``struct Graph``."""
+
+    _fields_ = ([(f, ctypes.c_void_p) for f in (
+        "poses", "begin", "end", "transform", "information", "cmask",
+        "robust_mask")] + [("loss", ctypes.c_int), ("delta", ctypes.c_float)])
+
+
+class _DenseNormal(ctypes.Structure):
+    """``struct DenseNormal``: ``dense_normal_system``'s arguments."""
+
+    _fields_ = ([("g", _Graph), ("C", ctypes.c_int), ("n", ctypes.c_int)]
+                + [(f, ctypes.c_void_p) for f in (
+                    "b_ptr", "b_idx", "e_ptr", "e_idx", "keys", "src",
+                    "row_ptr", "lam", "fm", "hm", "rhs")])
+
+
+@functools.lru_cache(maxsize=None)
+def _planned_functions():
+    """The two planned C entries, after checking that the ctypes mirrors
+    have their C structures' sizes."""
+    lm, dense = ctypes.c_int(0), ctypes.c_int(0)
+    _build.function("ndt2d_plan_sizes", _SIZES_ARGS)(ctypes.byref(lm),
+                                                      ctypes.byref(dense))
+    mine = (ctypes.sizeof(_LmLaunch), ctypes.sizeof(_DenseNormal))
+    if (lm.value, dense.value) != mine:
+        raise RuntimeError(f"plan structures of {mine} bytes, the kernels' "
+                           f"{(lm.value, dense.value)}")
+    return (_build.function("ndt2d_dense_normal_system_planned",
+                            _PLANNED_ARGS),
+            _build.function("ndt2d_lm_step_planned", _PLANNED_ARGS))
+
+
+class DensePlan:
+    """One device's dense LM solve, planned once a solve: every tensor of
+    an iteration's two launches checked once, the system (hm, rhs), the
+    factor, the step and its status allocated once, and each launch's
+    arguments packed once into the C structure its planned entry reads.
+    An iteration is then ``system()`` (``dense_normal_system``: one ctypes
+    call with a pointer and the stream), the library's factorization and
+    solve into ``factor``, ``delta`` and ``info`` (``solve_out``), and
+    ``step()`` (``lm_step`` in its step mode, one call likewise), bitwise
+    the unplanned wrappers.
+
+    ``state`` is the solve's ``lm_state`` (updated in place by the step,
+    so its pointers hold); the constraint terms, ``inc``, ``pairs`` and
+    ``fm`` as ``dense_normal_system``'s; down/up/tol the LM factors.  The
+    plan keeps every tensor it points to.  On CUDA tensors its two calls
+    launch or raise.  With ``twin`` they run the twins
+    (``dense_normal_system_twin``, ``lm_step_twin``), and on CPU tensors
+    the public wrappers (which run the twins there), on its delta and
+    info."""
+
+    def __init__(self, state: LMState, begin, end, transform, information,
+                 cmask, robust_mask, loss: str, hdelta: float,
+                 inc: Incidence, pairs: Pairs, fm, down: float, up: float,
+                 tol: float, twin: bool = False):
+        poses = state.poses
+        dev = poses.device
+        N, C = poses.shape[0], begin.shape[0]
+        _build.require_all(dev, (
+            poses, begin, end, transform, information, cmask, robust_mask,
+            inc.b_ptr, inc.b_idx, inc.e_ptr, inc.e_idx, pairs.keys,
+            pairs.src, pairs.row_ptr, fm, state.lam, state.cost, state.stall,
+            state.flags, state.rho), (
+            ("poses", torch.float32, (N, 3)), ("begin", torch.int32, (C,)),
+            ("end", torch.int32, (C,)), ("transform", torch.float32, (C, 3)),
+            ("information", torch.float32, (C, 3, 3)),
+            ("cmask", torch.bool, (C,)), ("robust_mask", torch.bool, (C,)),
+            ("b_ptr", torch.int32, (N + 1,)),
+            ("b_idx", torch.int32, tuple(inc.b_idx.shape)),
+            ("e_ptr", torch.int32, (N + 1,)),
+            ("e_idx", torch.int32, tuple(inc.e_idx.shape)),
+            ("keys", torch.int64, (2 * C,)), ("src", torch.int32, (2 * C,)),
+            ("row_ptr", torch.int32, (N + 1,)), ("fm", torch.float32, (N,)),
+            ("lam", torch.float32, ()), ("cost", torch.float32, ()),
+            ("stall", torch.int32, ()), ("flags", torch.bool, (2,)),
+            ("rho", torch.float32, (C + 1,))))
+        if inc.n != N or pairs.n != N or pairs.c != C:
+            raise ValueError(f"incidence over {inc.n} nodes and pairs over "
+                             f"{pairs.n} nodes, {pairs.c} constraints: "
+                             f"expected {N}, {C}")
+        if inc.b_idx.dim() != 1 or inc.e_idx.dim() != 1:
+            raise ValueError("incidence lists must be flat")
+        M = 3 * N
+        f32 = dict(dtype=torch.float32, device=dev)
+        self.device = dev
+        # The calls that stand in for the two launches, None on the card.
+        self.eager = ((dense_normal_system_twin, lm_step_twin) if twin
+                      else (dense_normal_system, lm_step)
+                      if dev.type == "cpu" else None)
+        self.hm = torch.empty(M, M, **f32)
+        self.rhs = torch.empty(M, **f32)
+        # Column-major, as the library's factorization writes it: no copy.
+        self.factor = torch.empty_strided((M, M), (1, M), **f32)
+        self.delta = torch.empty(N, 3, **f32)
+        self.info = torch.empty((), dtype=torch.int32, device=dev)
+        self.state = state
+        self.terms = (begin, end, transform, information, cmask, robust_mask,
+                      loss, hdelta)
+        self.sums = (inc, pairs, fm)
+        self.factors = (down, up, tol)
+        p = _build.ptr
+        self.system_args = _DenseNormal(
+            _Graph(p(poses), p(begin), p(end), p(transform), p(information),
+                   p(cmask), p(robust_mask), LOSSES[loss], float(hdelta)),
+            C, N, p(inc.b_ptr), p(inc.b_idx), p(inc.e_ptr), p(inc.e_idx),
+            p(pairs.keys), p(pairs.src), p(pairs.row_ptr), p(state.lam),
+            p(fm), p(self.hm), p(self.rhs))
+        self.step_args = _LmLaunch(
+            _Lm(_STEP, p(poses), p(self.delta), p(self.info), p(begin),
+                p(end), p(transform), p(information), p(cmask),
+                p(robust_mask), LOSSES[loss], float(hdelta), C, N,
+                p(state.rho), None, None, p(state.lam), p(state.cost),
+                p(state.stall), p(state.flags), float(down), float(up),
+                float(tol)),
+            0 if self.eager else lm_blocks(C, N, lm_card(dev.index)))
+        self._system_at = ctypes.addressof(self.system_args)
+        self._step_at = ctypes.addressof(self.step_args)
+
+    @property
+    def solve_out(self) -> tuple:
+        """The buffers the factorization and solve write: (factor, info,
+        delta)."""
+        return self.factor, self.info, self.delta
+
+    def system(self):
+        """One ``dense_normal_system`` launch at the state's poses and lam;
+        returns (hm, rhs), the plan's buffers (the twin's result off the
+        card)."""
+        if self.eager:
+            inc, pairs, fm = self.sums
+            return self.eager[0](self.state.poses, *self.terms, inc, pairs,
+                                 self.state.lam, fm)
+        fn = _planned_functions()[0]
+        _build.check(fn(self._system_at, _build.stream_ptr(self.device)),
+                     "dense_normal_system")
+        launches["dense_normal_system"] += 1
+        return self.hm, self.rhs
+
+    def step(self):
+        """One ``lm_step`` launch (step mode) of ``delta`` and ``info``,
+        updating the state in place."""
+        if self.eager:
+            self.eager[1](self.state, self.delta, self.info, *self.terms,
+                          *self.factors)
+            return
+        fn = _planned_functions()[1]
+        _build.check(fn(self._step_at, _build.stream_ptr(self.device)),
+                     "lm_step")
+        launches["lm_step"] += 1

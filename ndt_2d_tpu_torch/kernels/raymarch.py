@@ -4,6 +4,14 @@ Replaces ``ndt_2d_tpu/mapping/occupancy.py::_raymarch_counts``: per ray,
 K samples at t = linspace(0, 1, K), consecutive repeats of a cell dropped,
 "empty" for every crossed cell but the end cell, "hit" at the end cell.
 Counts are int32 and bitwise equal between the kernel and the twin.
+
+The kernel finds each crossed cell of a ray once (each axis's cell index
+is monotone along the ray, so a lane jumps from one change to the next,
+settling each by the twin's own float32 expression) and counts a block's
+rays into a shared window of cells, one global atomic a touched count;
+``csrc/raymarch.cu`` states the argument, and
+``tests/test_torch_raymarch_plan.py`` holds a numpy model of it bitwise
+against the twin.
 """
 
 from __future__ import annotations
@@ -16,6 +24,13 @@ from ndt_2d_tpu_torch.kernels import _build
 from ndt_2d_tpu_torch.ndt import grid as ndt_grid
 
 launches = 0
+
+# Rays a block counts (kRays of csrc/raymarch.cu), the threads that share
+# a ray's samples (kSegments) and the side of a block's shared window of
+# cells (kWindow).
+BLOCK_RAYS = 32
+SEGMENTS = 8
+WINDOW = 64
 
 _ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p]
          + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
@@ -58,7 +73,8 @@ def raymarch_counts_twin(starts, ends, beam_mask, origin, resolution: float,
 def raymarch_counts(starts, ends, beam_mask, origin, resolution: float,
                     width: int, height: int, num_samples: int):
     """K5.  starts/ends [R, 2] f32, beam_mask [R] bool, origin [2] f32.
-    CPU tensors run the twin; CUDA tensors launch the kernel."""
+    CPU tensors run the twin; CUDA tensors launch the kernel (none for
+    R = 0)."""
     global launches
     if starts.device.type == "cpu":
         return raymarch_counts_twin(starts, ends, beam_mask, origin,
@@ -73,6 +89,8 @@ def raymarch_counts(starts, ends, beam_mask, origin, resolution: float,
         raise ValueError("num_samples must be >= 2")
     hit = torch.zeros(width * height, dtype=torch.int32, device=dev)
     empty = torch.zeros(width * height, dtype=torch.int32, device=dev)
+    if R == 0:
+        return hit, empty
     p = _build.ptr
     err = _build.function("ndt2d_raymarch", _ARGS)(
         p(starts), p(ends), p(beam_mask), R, p(origin), float(resolution),
