@@ -6,6 +6,9 @@
                                       # (synchronous and pipelined)
     python3 chip_smoke.py --kernel-times  # kernel times alone (also in an
                                           # older checkout)
+    python3 chip_smoke.py --mesh-district  # the district's solve on the
+                                           # (1, 2) gloo mesh, twice (also
+                                           # in an older checkout)
     python3 chip_smoke.py --session-times  # unprofiled ms/scan, 3 runs of
                                            # configs 3 and 2 (also in an
                                            # older checkout)
@@ -40,8 +43,15 @@ Phases (any failure exits non-zero):
     sparse CSR product, fixed_dots beside ``torch.dot``, and pcg_solve,
     one LM step's whole CG loop, in x and the step count, the host loop
     over pcg_matvec and fixed_dots bitwise equal to it, timed a CG step
-    beside that loop and the same loop on the CSR product) on the 50,000-node
-    district graph of config 5; K6 over 32 coarse-stage rows of office
+    beside that loop and the same loop on the CSR product; the planned CG
+    loop, ``k4.CgPlan``, a mesh rank's with the identity combine, launch
+    by launch over its first four phases against the same plan on the
+    twins: pcg_matvec plain and with the direction loader, the dot
+    variants (A) and (B), every buffer, scalar and the stop flag bitwise;
+    whole loops reproducible, bitwise ``mesh_cg`` over the twins and equal
+    to pcg_solve) on the 50,000-node district graph of config 5, and again
+    at rank 0's shard of the (1, 2) mesh, where each planned form is timed
+    for the kernels line; K6 over 32 coarse-stage rows of office
     windows (3-scan regions, 192x192 cells of 0.5 m, the coarse lattice of
     about 21x41x41 candidates): scores and rows bitwise against the twin, each row
     bitwise equal at pad 4, pad 32 and R = 1, equal argmin and scores
@@ -99,10 +109,14 @@ Phases (any failure exits non-zero):
     normal_blocks, dense_system, dense_normal_system (with its bound) and
     lm_step at N_pad 512 and 1024 (lm_step through its one-block launch
     and its cooperative grid, and a solve plan's two launches), K5 at
-    config 2's export, timed by CUDA events, alone on the device in a
-    CUDA graph and by host time a call (``kernel_times``, the same lines
-    as ``--kernel-times``, which also prints the wall of an LM iteration,
-    kernels against twins);
+    config 2's export, K4's CG loop launches (``cg_times``: pcg_matvec at
+    the district and at rank 0's shard of the (1, 2) mesh, public and
+    planned, plain and forming the direction, the dot variants (A) and
+    (B), fixed_dots beside ``torch.dot``, and a CG step of pcg_solve, the
+    host loop and the planned loop), timed by CUDA events, alone on the
+    device in a CUDA graph and by host time a call (``kernel_times``, the
+    same lines as ``--kernel-times``, which also prints the wall of an LM
+    iteration, kernels against twins);
  4. drive the main paths, each with the launch counts set to 0 before and
     read after: (a) the 200-scan, 600-beam config-2 corridor through
     ``Mapper`` and ``run_bag`` (no loop closure) with its export: every scan
@@ -112,8 +126,10 @@ Phases (any failure exits non-zero):
     single-device PCG ``solve`` of the district, on the kernels (one
     pcg_solve launch an LM iteration) and on the twins: final RMSE below
     the initial, the two arms' poses bitwise equal; each LM iteration's CG
-    loop again as the host loop over pcg_matvec and fixed_dots (the mesh's
-    loop), bitwise, the walls printed; (u) after (g), K4's dense LM step:
+    loop again as the planned mesh loop (identity combine) and as the host
+    loop over the public pcg_matvec and fixed_dots, each equal to
+    pcg_solve's in x and steps, the walls printed; (u) after (g), K4's
+    dense LM step:
     dense_normal_system (hm with its -0 entries, and rhs, at lam 1e-12,
     1e-6 and 1e8) bitwise against its twin and against the three launches
     it replaces (normal_blocks, then dense_system), dense_system and
@@ -240,8 +256,10 @@ Phases (any failure exits non-zero):
     optimization, final ATE below odometry's and within 0.08 m of one
     device's), the district's PCG solve
     by ``solve_multichip`` (within 5e-3 of the single-device PCG solve,
-    RMSE <= 0.05 m; the launch counts of its host CG loop over pcg_matvec
-    and fixed_dots read around it) and config 4's 5000-particle
+    RMSE <= 0.05 m; the launch counts of its planned CG loop read around
+    it: each of the dot variants (A) and (B) once a matvec, the direction
+    formed in most, no public fixed_dots and no pcg_solve) and config 4's
+    5000-particle
     measurement (bitwise equal to unsharded K3), final poses, export,
     solve and scores bitwise equal on both ranks; correctness and the cost of host-staged
     collectives, not scaling;
@@ -294,6 +312,12 @@ KERNELS = {
                   "ndt_2d_tpu/graph/solver.py:193"),
     "fixed_dot": ("ndt_2d_tpu_torch/csrc/normal_blocks.cu",
                   "ndt_2d_tpu/graph/solver.py:227"),
+    "pcg_matvec_direction": ("ndt_2d_tpu_torch/csrc/normal_blocks.cu",
+                             "ndt_2d_tpu/parallel/solver.py:133"),
+    "fixed_dot_damp": ("ndt_2d_tpu_torch/csrc/normal_blocks.cu",
+                       "ndt_2d_tpu/parallel/solver.py:127"),
+    "fixed_dot_update": ("ndt_2d_tpu_torch/csrc/normal_blocks.cu",
+                         "ndt_2d_tpu/parallel/solver.py:131"),
     "dense_system": ("ndt_2d_tpu_torch/csrc/normal_blocks.cu",
                      "ndt_2d_tpu/graph/solver.py:171"),
     "dense_normal_system": ("ndt_2d_tpu_torch/csrc/normal_blocks.cu",
@@ -1352,6 +1376,7 @@ def kernel_times(dev, ident: str, map4: str, bag4) -> dict:
     both("KB1 stripe 0 of 2", lambda: k1.build_stripe(**sa), 20)
     pr_times(dev, ident, both, map4, bag4, m, kf, cfg, win, query)
     walls = lm_times(dev, ident, both)
+    walls.update(cg_times(dev, ident))
     for name, t in out.items():
         print(f"[5] {name}: {t['cuda_ms']:.4f} ms, in a CUDA graph "
               f"{t['graph_ms']:.5f} ms, host {t['host_us']:.1f} us a call "
@@ -1952,12 +1977,13 @@ def phase_k4(district, dev, ident):
     require(torch.equal(xh, x) and it_h == steps,
             "the host loop over pcg_matvec and fixed_dots differs from "
             "pcg_solve")
+    plan, _ = check_cg_plan(ps, x, steps)
     print(f"[3] K4 on the district ({n} nodes, {t['begin'].numel()} "
           "constraints): normal_blocks (none, huber, geman_mcclure), "
           "pcg_matvec, fixed_dots (one and two pairs) and pcg_solve (one "
           f"LM step, {steps} CG steps: x and the step count) bitwise equal "
           "to their twins and reproducible; the host loop over pcg_matvec "
-          "and fixed_dots bitwise pcg_solve")
+          f"and fixed_dots bitwise pcg_solve; {plan}")
     nb = args + ("none", 1.0, inc)
     C = t["begin"].numel()
     # The library yardstick of the matvec: the same product as one sparse
@@ -2002,8 +2028,9 @@ def phase_k4(district, dev, ident):
           f"{pcg['bound_ms'] / (steps + 1):.6f} ms ({pcg['bound_by']}, "
           f"inputs once a solve), {reread:.6f} ms re-reading a step's "
           f"inputs ({ident})")
-    # fixed_dots: one pair (p . Ap) beside torch.dot, in the kernels line;
-    # two pairs (r . z and r . r, one launch) beside two torch.dot calls.
+    # The public fixed_dots (no path launches it since the mesh's loop is
+    # planned): one pair beside torch.dot, in the kernels line; two pairs
+    # (one launch) beside two torch.dot calls.
     vf, yf = v.reshape(-1), y.reshape(-1)
     dot = timed(0.0, cuda_ms(lambda: k4.fixed_dots((v, y)), 50),
                 cuda_ms(lambda: k4.fixed_dots_twin((v, y)), 10),
@@ -2019,21 +2046,291 @@ def phase_k4(district, dev, ident):
           f"and r . r) {two_ms:.4f} ms, in a CUDA graph {two_graph[0]:.5f} "
           f"ms; two torch.dot calls {two_lib:.4f} ms, in a CUDA graph "
           f"{two_graph[1]:.5f} ms ({ident})")
+    print(f"[5] the public pcg_matvec (damped) on the district: "
+          f"{cuda_ms(lambda: k4.pcg_matvec(*mv), 50):.4f} ms a call, in a "
+          f"CUDA graph {graph_ms(lambda: k4.pcg_matvec(*mv), 50):.5f} ms; "
+          f"CSR x v {cuda_ms(lambda: csr @ v.reshape(-1, 1), 50):.4f} ms "
+          f"({ident})")
     # normal_blocks: per constraint the residual, its Jacobians, the robust
-    # weight and three 3x3 blocks (~300 operations); pcg_matvec: four 3x3
-    # block products and their sums a constraint (~70), ~6 a node.
-    return {"pcg_solve": pcg,
-            "fixed_dot": dot,
-            "normal_blocks": timed(
-                0.0, cuda_ms(lambda: k4.normal_blocks(*nb), 20),
-                cuda_ms(lambda: k4.normal_blocks_twin(*nb), 5),
-                nbytes(*args, *a), 300 * C),
-            "pcg_matvec": timed(
-                0.0, cuda_ms(lambda: k4.pcg_matvec(*mv), 50),
-                cuda_ms(lambda: k4.pcg_matvec_twin(*mv), 10),
-                nbytes(t["begin"], t["end"], baa, bab, bbb, d, fm, v, y),
-                70 * C + 6 * n,
-                library_ms=cuda_ms(lambda: csr @ v.reshape(-1, 1), 50))}
+    # weight and three 3x3 blocks (~300 operations).
+    out = {"pcg_solve": pcg,
+           "fixed_dot": dot,
+           "normal_blocks": timed(
+               0.0, cuda_ms(lambda: k4.normal_blocks(*nb), 20),
+               cuda_ms(lambda: k4.normal_blocks_twin(*nb), 5),
+               nbytes(*args, *a), 300 * C)}
+    out.update(cg_forms(district, dev, ident))
+    return out
+
+
+CG_PHASES = 4  # the start, the plain step and both direction parities
+# The CG loop's launch counts by form (kernels/normal_blocks.py).
+CG_FORMS = ("pcg_matvec", "pcg_matvec_direction", "fixed_dot",
+            "fixed_dot_damp", "fixed_dot_update")
+
+
+def check_cg_plan(ps, x, steps: int):
+    """One LM step's planned CG loop (``k4.CgPlan``, a mesh rank's with the
+    identity combine; ``ps`` pcg_solve's arguments) on the kernels against
+    the same plan on the twins, launch by launch over the first
+    ``CG_PHASES`` phases: after each ``pcg_matvec`` (plain, then with the
+    direction loader), variant (A) and variant (B) launch every buffer,
+    scalar and the stop flag bitwise.  Then whole loops: twice on the
+    kernels (the same bits), bitwise ``mesh_cg`` over the twins, and equal
+    to pcg_solve's x and ``steps``.  Returns a summary and each planned
+    form's largest difference from its twin, by kernels-line name."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import normal_blocks as k4
+    (begin, end, baa, bab, bbb, d, lam, fm, pinv, rhs, max_iter, tol,
+     inc) = ps
+    args = (begin, end, baa, bab, bbb, d, lam, fm, pinv, rhs, inc, tol)
+    kern, twin = k4.CgPlan(*args), k4.CgPlan(*args, twin=True)
+    names = ("part", "ap", "x", "r", "p", "z", "sc", "stop")
+    for plan in (kern, twin):  # the same start for buffers not yet written
+        for nm in ("part", "ap", "r", "p", "z"):
+            getattr(plan, nm).zero_()
+    errs = dict.fromkeys(("pcg_matvec", "pcg_matvec_direction",
+                          "fixed_dot_damp", "fixed_dot_update"), 0.0)
+    for s in range(CG_PHASES):
+        for step in ("matvec", "damp", "update"):
+            for plan in (kern, twin):
+                if step == "damp":
+                    plan.damp(plan.part, s)
+                else:
+                    getattr(plan, step)(s)
+            torch.cuda.synchronize()
+            for nm in names:
+                require(same_bits(getattr(kern, nm), getattr(twin, nm)),
+                        f"K4 CG plan, phase {s}, {step}: {nm} differs from "
+                        "the twins'")
+            key = {"matvec": "pcg_matvec" if s < 2
+                   else "pcg_matvec_direction", "damp": "fixed_dot_damp",
+                   "update": "fixed_dot_update"}[step]
+            errs[key] = max(errs[key], max_abs_diff(
+                (getattr(kern, nm).float(), getattr(twin, nm).float())
+                for nm in names))
+    runs = [k4.CgPlan(*args).run(identity, max_iter) for _ in range(2)]
+    oracle = k4.mesh_cg(*ps, combine=identity, twin=True)
+    torch.cuda.synchronize()
+    (x1, it1), (x2, it2) = runs
+    require(same_bits(x1, x2) and it1 == it2,
+            "K4 CG plan not bitwise reproducible")
+    require(same_bits(x1, oracle[0]) and it1 == oracle[1],
+            f"K4 CG plan: {it1} steps, mesh_cg over the twins {oracle[1]}, "
+            "or x differs")
+    require(torch.equal(x1, x) and it1 == steps,
+            f"K4 CG plan: {it1} steps, pcg_solve {steps}, or x differs")
+    return (f"the planned CG loop (a mesh rank's, identity combine) launch "
+            f"by launch over {CG_PHASES} phases bitwise its twins, {it1} "
+            "steps bitwise mesh_cg over the twins and equal to pcg_solve"
+            ), errs
+
+
+def identity(part):
+    """The combine of a mesh of one rank."""
+    return part
+
+
+def cg_forms(district, dev, ident: str) -> dict:
+    """The planned CG loop's launches at rank 0's shard of the (1, 2) mesh
+    (half the district's constraints over all 50,000 nodes), the shape the
+    mesh's solve gives them: the loop held to its twins launch by launch
+    and to pcg_solve (``check_cg_plan``), then each form timed for the
+    kernels line, after one step of the plan: the matvec with v as given
+    (``pcg_matvec``, a solve's first two phases) beside the sparse CSR
+    product at lam 0, the matvec forming the direction
+    (``pcg_matvec_direction``), variant (A) (``fixed_dot_damp``) and
+    variant (B) (``fixed_dot_update``), each beside the same plan on the
+    twins.  Bounds: the bytes of each input read once and each output
+    written once (of diag only the diagonal, which the launches read; the
+    lists as the kernel reads them, ptr and pairs; (B) reads r, Ap, x, p,
+    pinv and fm and writes x, r and z) and the operations of
+    the launch's arithmetic: the matvec ~70 a constraint and ~6 a node (12
+    with the direction formed), (A) 7 an element (the damping's five, the
+    product and its add), (B) 14 an element (r, z and x updated, the two
+    products and their adds)."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import normal_blocks as k4
+    ps = district_cg(district, dev, half=True)
+    (begin, end, baa, bab, bbb, d, lam, fm, pinv, rhs, max_iter, tol,
+     inc) = ps
+    x, it = k4.pcg_solve(*ps)
+    summary, errs = check_cg_plan(ps, x, int(it))
+    n, C = rhs.shape[0], begin.numel()
+    args = (begin, end, baa, bab, bbb, d, lam, fm, pinv, rhs, inc, tol)
+    kern, twin = k4.CgPlan(*args), k4.CgPlan(*args, twin=True)
+    for plan in (kern, twin):
+        plan.run(identity, 1)
+    csr = block_csr(begin, end, baa, bab, bbb, d, torch.zeros((), device=dev),
+                    fm, n)
+    v = kern.p[0]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        lib = (csr @ v.reshape(-1, 1)).reshape(n, 3)
+        lib_ms = cuda_ms(lambda: csr @ v.reshape(-1, 1), 50)
+        lib_graph = graph_ms(lambda: csr @ v.reshape(-1, 1), 50)
+    kern.matvec(1)
+    torch.cuda.synchronize()
+    require(torch.allclose(lib, kern.part, rtol=1e-4, atol=1e-4 * float(
+        kern.part.abs().max())),
+            "the sparse product differs from the planned matvec")
+    vec = 4 * 3 * n  # one [N, 3] f32 vector
+    walk = nbytes(inc.b_ptr, inc.e_ptr, inc.b_pair, inc.e_pair, baa, bab,
+                  bbb, fm) + vec  # and diag's diagonal
+    forms = {
+        "pcg_matvec": (lambda p: p.matvec(1), walk + 2 * vec + 4,
+                       70 * C + 6 * n, (lib_ms, lib_graph)),
+        "pcg_matvec_direction": (lambda p: p.matvec(2), walk + 4 * vec + 8,
+                                 70 * C + 12 * n, (None, None)),
+        "fixed_dot_damp": (lambda p: p.damp(p.part, 1),
+                           nbytes(fm) + 4 * vec + 16, 7 * 3 * n,
+                           (None, None)),
+        "fixed_dot_update": (lambda p: p.update(1),
+                             nbytes(pinv, fm) + 7 * vec + 24, 14 * 3 * n,
+                             (None, None))}
+    out = {}
+    for name, (fn, moved, ops, (lms, lgraph)) in forms.items():
+        out[name] = timed(errs[name], cuda_ms(lambda: fn(kern), 50),
+                          cuda_ms(lambda: fn(twin), 10), moved, ops,
+                          library_ms=lms,
+                          graph_ms=(graph_ms(lambda: fn(kern), 50), lgraph))
+    print(f"[3] K4's planned CG loop at rank 0's shard of the (1, 2) mesh "
+          f"({C} constraints, {n} nodes): {summary}; the planned matvec "
+          f"within 1e-4 of the sparse CSR product ({ident})")
+    return out
+
+
+def district_cg(district, dev, half: bool = False):
+    """``pcg_solve``'s arguments of the district's first LM step (lam
+    1e-3, node 0 fixed, 150 steps, tol 1e-6); with ``half`` those of rank 0
+    of the (1, 2) mesh: the first half of the constraints over all 50,000
+    nodes (many empty lists), its blocks and incidence, the preconditioner
+    of the whole graph."""
+    import torch
+
+    from ndt_2d_tpu_torch import convert
+    from ndt_2d_tpu_torch.graph import solver
+    from ndt_2d_tpu_torch.kernels import normal_blocks as k4
+    t = convert.solve_inputs_to_port(dev, **district)
+    n = t["poses"].shape[0]
+    keys = ("begin", "end", "transform", "information", "constraint_mask",
+            "robust_mask")
+    args = [t["poses"], *(t[k] for k in keys)]
+    inc = k4.incidence(t["begin"], t["end"], t["constraint_mask"], n)
+    whole = k4.normal_blocks(*args, "none", 1.0, inc)
+    if half:
+        c = t["begin"].numel() // 2
+        args = [t["poses"], *(t[k][:c].contiguous() for k in keys)]
+        inc = k4.incidence(args[1], args[2], args[5], n)
+    baa, bab, bbb = k4.normal_blocks(*args, "none", 1.0, inc)[:3]
+    fm = (torch.arange(n, device=dev) != 0).float()
+    lam = torch.tensor(1e-3, device=dev)
+    pinv, rhs = solver._preconditioner(whole[5], whole[6], lam, fm.bool())
+    return (args[1], args[2], baa, bab, bbb, whole[6], lam, fm, pinv, rhs,
+            150, 1e-6, inc)
+
+
+def cg_times(dev, ident: str) -> dict:
+    """K4's CG loop launches at the district's shapes, each timed by
+    ``cuda_ms`` (host included), ``graph_ms`` (the device alone) and
+    ``host_us`` (the median call with the device idle): the public
+    ``pcg_matvec`` at one device's district and at rank 0's shard of the
+    (1, 2) mesh, the public ``fixed_dots`` of one and two pairs beside
+    ``torch.dot``; where the tree has ``k4.CgPlan``, its planned launches
+    (the matvec plain and with the direction loader, variants (A) and (B);
+    host µs with the stream read once, as the loop reads it); and one LM
+    step's whole CG loop a step: ``pcg_solve``, the host loop over the
+    public wrappers and the planned loop (a mesh rank's with the identity
+    combine); and the digest of one device's PCG solve of the district.
+    Calls only what a tree has, so a copy run in an older checkout times
+    that checkout."""
+    import hashlib
+
+    import torch
+
+    from ndt_2d_tpu_torch import convert
+    from ndt_2d_tpu_torch.config import SolverConfig
+    from ndt_2d_tpu_torch.graph import solver
+    from ndt_2d_tpu_torch.kernels import _build
+    from ndt_2d_tpu_torch.kernels import normal_blocks as k4
+    planned = hasattr(k4, "CgPlan")
+    _, district = district_graph()
+    out = {}
+
+    def three(name, fn, pre=None, reps=50):
+        out[name] = {"cuda_ms": cuda_ms(fn, reps),
+                     "graph_ms": graph_ms(fn, reps),
+                     "host_us": host_us(pre or fn, 101, sync=True)}
+    for shape, half in (("district", False), ("(1, 2) shard", True)):
+        ps = district_cg(district, dev, half)
+        (begin, end, baa, bab, bbb, d, lam, fm, pinv, rhs, max_iter, tol,
+         inc) = ps
+        mv = (begin, end, baa, bab, bbb, d, lam, fm, rhs, inc)
+        three(f"K4 pcg_matvec, {shape}", lambda mv=mv: k4.pcg_matvec(*mv))
+        if not planned:
+            continue
+        plan = k4.CgPlan(begin, end, baa, bab, bbb, d, lam, fm, pinv, rhs,
+                         inc, tol)
+        plan.run(identity, 1)
+        st = _build.stream_ptr(dev)
+        for s, what in ((1, "planned"), (2, "planned, direction formed")):
+            three(f"K4 pcg_matvec, {shape}, {what}",
+                  lambda s=s, plan=plan: plan.matvec(s),
+                  lambda s=s, plan=plan: plan.matvec(s, st))
+        if half:
+            continue
+        for s in (1, 2):
+            three(f"K4 fixed_dots variant (A), step parity {s % 2}",
+                  lambda s=s: plan.damp(plan.part, s),
+                  lambda s=s: plan.damp(plan.part, s, st))
+            three(f"K4 fixed_dots variant (B), step parity {s % 2}",
+                  lambda s=s: plan.update(s),
+                  lambda s=s: plan.update(s, st))
+    v, y = rhs, k4.pcg_matvec(*mv)
+    vf, yf = v.reshape(-1), y.reshape(-1)
+    three("K4 fixed_dots, one pair", lambda: k4.fixed_dots((v, y)))
+    three("K4 fixed_dots, two pairs", lambda: k4.fixed_dots((v, y), (y, y)))
+    three("torch.dot, one pair", lambda: torch.dot(vf, yf))
+    three("torch.dot, two pairs",
+          lambda: (torch.dot(vf, yf), torch.dot(yf, yf)))
+    # One LM step's CG loop, a step.
+    ps = district_cg(district, dev)
+    (begin, end, baa, bab, bbb, d, lam, fm, pinv, rhs, max_iter, tol,
+     inc) = ps
+    steps = int(k4.pcg_solve(*ps)[1])
+
+    def host_loop():
+        return k4.pcg_loop(
+            lambda u: k4.pcg_matvec(begin, end, baa, bab, bbb, d, lam, fm, u,
+                                    inc), k4.fixed_dots, pinv, fm, rhs,
+            max_iter, tol)
+    loops = {"pcg_solve": lambda: k4.pcg_solve(*ps), "host loop": host_loop}
+    if planned:
+        loops["planned loop, identity combine"] = lambda: k4.mesh_cg(
+            *ps, combine=identity)
+    for name, fn in loops.items():
+        out[f"K4 CG step ({name})"] = {"ms_a_step": cuda_ms(fn, 3) / steps,
+                                       "steps": steps}
+    # One device's PCG solve of the district (normal_blocks, pcg_solve,
+    # lm_step): its poses' digest, which two trees' runs compare bitwise.
+    t = convert.solve_inputs_to_port(dev, **district)
+    t.pop("robust_mask")
+    res = solver.solve(SolverConfig(max_iterations=30, cg_max_iterations=150),
+                       **t, use_dense=False)
+    digest = hashlib.sha256(res.poses.cpu().numpy().tobytes()).hexdigest()
+    print(f"[5] district PCG solve on one device: {int(res.iterations)} LM "
+          f"iterations, poses sha256 {digest[:16]} ({ident})")
+    for name, t in out.items():
+        if "ms_a_step" in t:
+            print(f"[5] {name}: {t['ms_a_step']:.5f} ms a step over "
+                  f"{t['steps']} steps ({ident})")
+        else:
+            print(f"[5] {name}: {t['cuda_ms']:.4f} ms, in a CUDA graph "
+                  f"{t['graph_ms']:.5f} ms, host {t['host_us']:.1f} us a "
+                  f"call ({ident})")
+    return out
 
 
 def block_csr(begin, end, baa, bab, bbb, diag, lam, fm, n):
@@ -2068,10 +2365,12 @@ def phase_district_solve(truth, district, dev):
     """The single-device PCG solve of the district (config 5's
     SolverConfig), on the kernels (one ``pcg_solve`` launch an LM step)
     and on the twins, bitwise equal.  Then each LM step's CG loop, recorded
-    from a third kernels' solve, again as the host loop over
-    ``pcg_matvec`` and ``fixed_dots`` (the mesh's loop, and the parent
-    design's), bitwise equal to the kernel's, with the walls of both
-    loops.  Returns the kernels' run's launches and the solved poses."""
+    from a third kernels' solve, again as the planned mesh loop
+    (``k4.mesh_cg`` with the identity combine: three launches a step) and
+    as the host loop over the public ``pcg_matvec`` and ``fixed_dots``
+    (the loop's design before the plan), each equal to the kernel's in x
+    and the step count, with the walls of the three loops.  Returns the
+    kernels' run's launches and the solved poses."""
     import numpy as np
     import torch
 
@@ -2107,7 +2406,7 @@ def phase_district_solve(truth, district, dev):
         k4.pcg_solve = real
     require(torch.equal(again.poses, res.poses),
             "district solve not bitwise reproducible")
-    walls = {"kernel": 0.0, "host loop": 0.0}
+    walls = {"kernel": 0.0, "planned mesh loop": 0.0, "host loop": 0.0}
     cg_steps = 0
     for args, x, it in steps:
         (begin, end, baa, bab, bbb, diag, lam, fm, pinv, b, max_iter, tol,
@@ -2122,6 +2421,10 @@ def phase_district_solve(truth, district, dev):
             if arm == "kernel":
                 xa, ita = real(*args)
                 ita = int(ita)
+            elif arm == "planned mesh loop":
+                # A mesh rank's loop with the identity combine: the
+                # undamped partial, damped by variant (A).
+                xa, ita = k4.mesh_cg(*args, combine=identity)
             else:
                 xa, ita = k4.pcg_loop(matvec, k4.fixed_dots, pinv, fm, b,
                                       max_iter, tol)
@@ -2150,10 +2453,14 @@ def phase_district_solve(truth, district, dev):
           f"{wall:.3f} s on the kernels (one pcg_solve launch an LM "
           f"iteration), {out['twin'][1]:.3f} s on the twins, poses bitwise "
           f"equal; the {lm} CG loops ({cg_steps} steps) {walls['kernel']:.3f}"
-          f" s on pcg_solve, {walls['host loop']:.3f} s as the host loop "
-          f"over pcg_matvec and fixed_dots "
-          f"({walls['host loop'] / walls['kernel']:.2f}x), x and steps "
-          f"bitwise equal; launches normal_blocks "
+          f" s on pcg_solve ({walls['kernel'] / cg_steps * 1e3:.4f} ms a "
+          f"step), {walls['planned mesh loop']:.3f} s as the planned mesh "
+          f"loop (identity combine; "
+          f"{walls['planned mesh loop'] / cg_steps * 1e3:.4f} ms a step), "
+          f"{walls['host loop']:.3f} s as the host loop over the public "
+          f"pcg_matvec and fixed_dots "
+          f"({walls['host loop'] / cg_steps * 1e3:.4f} ms a step), x and "
+          f"steps bitwise equal; launches normal_blocks "
           f"{launches['normal_blocks']}, pcg_solve {launches['pcg_solve']}")
     return launches, poses
 
@@ -5865,14 +6172,11 @@ def mesh_rank(out_dir, space: int, batch: int, map4: str,
     import numpy as np
     import torch
 
-    from ndt_2d_tpu_torch import convert
-    from ndt_2d_tpu_torch.config import SolverConfig
     from ndt_2d_tpu_torch.kernels import score_points as k3
     from ndt_2d_tpu_torch.mapping import laser
     from ndt_2d_tpu_torch.mapping.mapper import Mapper
     from ndt_2d_tpu_torch.parallel import distributed, mesh as mesh_mod
     from ndt_2d_tpu_torch.parallel import filter as pfilter
-    from ndt_2d_tpu_torch.parallel import solver as psolver
     from ndt_2d_tpu_torch.io.bag import record_synthetic
     from ndt_2d_tpu_torch.utils import metrics
     dev = distributed.initialize(device, backend="gloo")
@@ -5892,29 +6196,7 @@ def mesh_rank(out_dir, space: int, batch: int, map4: str,
                                       bag.truth[stats["_est_t"]]),
                ms=float(np.median(dt[acc][4:]) * 1e3), poses=g.poses,
                grid=grid.data)
-    # The district's PCG solve, constraints over 'batch'.
-    _, district = district_graph()
-    nb = mesh_mod.axis_size(mesh, mesh_mod.BATCH_AXIS)
-    d = dict(district)
-    d.pop("robust_mask")
-    (d["begin"], d["end"], d["transform"], d["information"],
-     d["constraint_mask"]) = psolver.pad_constraints(
-        d["begin"], d["end"], d["transform"], d["information"],
-        d["constraint_mask"], nb)
-    t = convert.solve_inputs_to_port(dev, **d)
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
-    res = psolver.solve_multichip(
-        SolverConfig(max_iterations=30, cg_max_iterations=150), mesh, **t)
-    torch.cuda.synchronize()
-    out["district_wall"] = time.perf_counter() - t0
-    counts = read_counts()
-    for k in ("pcg_matvec", "fixed_dot", "pcg_solve"):
-        out[f"district_{k}"] = counts[k]
-    out["district_lm"] = int(res.iterations)
-    out["district_ok"] = bool(res.success)
-    out["district"] = res.poses.cpu().numpy().astype(np.float64)
+    out.update(district_on_mesh(mesh, dev))
     x = torch.zeros(9 * DISTRICT_NODES, device=dev)
     out["gather_ms"] = cuda_ms(
         lambda: distributed.gather(x, torch.distributed.group.WORLD), 20)
@@ -5947,6 +6229,72 @@ def mesh_rank(out_dir, space: int, batch: int, map4: str,
     return 0
 
 
+def district_on_mesh(mesh, dev) -> dict:
+    """The district's PCG solve by ``solve_multichip`` on ``mesh``, the
+    constraints over 'batch' (config 5's SolverConfig), with the launch
+    counts read around it: its wall, counts, LM iterations, success and
+    poses, under ``district_*`` keys."""
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch import convert
+    from ndt_2d_tpu_torch.config import SolverConfig
+    from ndt_2d_tpu_torch.parallel import mesh as mesh_mod
+    from ndt_2d_tpu_torch.parallel import solver as psolver
+    _, district = district_graph()
+    nb = mesh_mod.axis_size(mesh, mesh_mod.BATCH_AXIS)
+    d = dict(district)
+    d.pop("robust_mask")
+    (d["begin"], d["end"], d["transform"], d["information"],
+     d["constraint_mask"]) = psolver.pad_constraints(
+        d["begin"], d["end"], d["transform"], d["information"],
+        d["constraint_mask"], nb)
+    t = convert.solve_inputs_to_port(dev, **d)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = psolver.solve_multichip(
+        SolverConfig(max_iterations=30, cg_max_iterations=150), mesh, **t)
+    torch.cuda.synchronize()
+    out = {"district_wall": time.perf_counter() - t0}
+    counts = read_counts()
+    for k in CG_FORMS + ("pcg_solve",):  # an older tree counts fewer forms
+        out[f"district_{k}"] = counts.get(k, 0)
+    out["district_lm"] = int(res.iterations)
+    out["district_ok"] = bool(res.success)
+    out["district"] = res.poses.cpu().numpy().astype(np.float64)
+    return out
+
+
+def mesh_district_rank(device: str, ident: str) -> int:
+    """One rank of ``--mesh-district``: the district's solve on the (1, 2)
+    gloo mesh of two ranks sharing ``device``; rank 0 prints its wall."""
+    import torch
+
+    from ndt_2d_tpu_torch.parallel import distributed, mesh as mesh_mod
+    dev = distributed.initialize(device, backend="gloo")
+    r = district_on_mesh(mesh_mod.make_mesh(shape=(1, 2)), dev)
+    print(f"[4q] district PCG solve on the (1, 2) gloo mesh alone, rank 0: "
+          f"wall {r['district_wall']:.3f} s, {r['district_lm']} LM "
+          f"iterations, launches "
+          f"{ {k: int(r[f'district_{k}']) for k in CG_FORMS} } ({ident})",
+          flush=True)
+    distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def mesh_district_times(dev, ident: str, runs: int = 2) -> None:
+    """``--mesh-district``: the district's solve on the (1, 2) gloo mesh
+    ``runs`` times, two ranks sharing the card (also in an older
+    checkout: ``solve_multichip`` is the mesh's public entry)."""
+    from ndt_2d_tpu_torch.parallel import distributed
+    for _ in range(runs):
+        distributed.launch([sys.executable, os.path.abspath(__file__),
+                            "--mesh-district-rank", str(dev), ident], 2,
+                           timeout=900)
+
+
 def phase_mesh_shared(cfg, bag, single10, district_poses, district_truth,
                       map4, tmp, dev):
     """Two ranks sharing the one card over gloo (their collectives staged
@@ -5954,7 +6302,7 @@ def phase_mesh_shared(cfg, bag, single10, district_poses, district_truth,
     synchronously, the district's PCG solve and config 4's 5000-particle
     measurement.  Correctness and the cost of host-staged collectives, not
     scaling.  Returns, per mesh shape, rank 0's launches of the district
-    solve's host CG loop (``pcg_matvec``, ``fixed_dot``)."""
+    solve's CG loop by form (``CG_FORMS``) and of ``pcg_solve``."""
     import numpy as np
 
     from ndt_2d_tpu_torch.parallel import distributed
@@ -6004,9 +6352,17 @@ def phase_mesh_shared(cfg, bag, single10, district_poses, district_truth,
                 f"mesh {tag}: the sharded measurement differs from K3")
         lm = int(a["district_lm"])
         counts = {k: int(a[f"district_{k}"])
-                  for k in ("pcg_matvec", "fixed_dot", "pcg_solve")}
-        require(counts["pcg_solve"] == 0 and counts["pcg_matvec"] > lm
-                and counts["fixed_dot"] > lm,
+                  for k in CG_FORMS + ("pcg_solve",)}
+        # The planned loop: a phase is one matvec and the two dot
+        # variants; a solve's first two matvecs take v as given, the
+        # others form the direction; nothing launches the public dots or
+        # pcg_solve.
+        phases = counts["pcg_matvec"] + counts["pcg_matvec_direction"]
+        require(counts["pcg_solve"] == 0 and counts["fixed_dot"] == 0
+                and counts["pcg_matvec"] >= lm
+                and counts["pcg_matvec_direction"] >= 1
+                and counts["fixed_dot_damp"] == phases
+                and counts["fixed_dot_update"] == phases,
                 f"mesh {tag}: the district solve's {lm} LM iterations "
                 f"launched {counts}")
         rows[shape] = counts
@@ -6018,8 +6374,11 @@ def phase_mesh_shared(cfg, bag, single10, district_poses, district_truth,
               f"per accepted scan, session {float(a['wall']):.3f} s; "
               f"district PCG solve {float(a['district_wall']):.3f} s, RMSE "
               f"{rmse(a['district']):.4f} m, {dd:.2e} from the single-device "
-              f"solve, {lm} LM iterations, host CG loop launches pcg_matvec "
-              f"{counts['pcg_matvec']}, fixed_dot {counts['fixed_dot']}; "
+              f"solve, {lm} LM iterations, planned CG loop launches "
+              f"pcg_matvec {counts['pcg_matvec']} plain and "
+              f"{counts['pcg_matvec_direction']} forming the direction, "
+              f"fixed_dot variant (A) {counts['fixed_dot_damp']} and (B) "
+              f"{counts['fixed_dot_update']}, public {counts['fixed_dot']}; "
               f"{PARTICLES}-particle measurement bitwise equal to "
               f"unsharded K3; host-staged all_gather of "
               f"{9 * DISTRICT_NODES} floats {float(a['gather_ms']):.4f} ms; "
@@ -6574,6 +6933,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--mesh-rank"]:
         out, space, batch, map4, device = sys.argv[2:7]
         return mesh_rank(out, int(space), int(batch), map4, device)
+    if sys.argv[1:2] == ["--mesh-district-rank"]:
+        return mesh_district_rank(*sys.argv[2:4])
     if sys.argv[1:2] == ["--blocks-rank"]:
         out, space, batch, map4, map7, device, parts = sys.argv[2:9]
         return blocks_rank(out, int(space), int(batch), map4, map7, device,
@@ -6597,6 +6958,13 @@ def main() -> int:
         phase_build()
         print(json.dumps({"optimize_times": optimize_times(dev, ident),
                           "card": ident}))
+        return 0
+    if "--mesh-district" in sys.argv[1:]:
+        from ndt_2d_tpu_torch.device import get_device
+        dev = get_device("cuda:0")
+        ident = phase_card()
+        phase_build()
+        mesh_district_times(dev, ident)
         return 0
     if "--kernel-times" in sys.argv[1:]:
         from ndt_2d_tpu_torch.device import get_device
@@ -6681,14 +7049,16 @@ def main() -> int:
     # K4's PCG entries and the mesh's dense system (one device's dense
     # path launches dense_normal_system instead of normal_blocks and
     # dense_system), the batched K3 and K9; the PCG solve's and the
-    # blocks' from the district solve, the matvec's and the dots' from the
+    # blocks' from the district solve, the CG loop's forms from the
     # district solve by solve_multichip on the (1, 2) gloo mesh (rank 0;
-    # the mesh's host CG loop), dense_system's from config 10 on the
+    # the mesh's planned CG loop: the matvec plain and forming the
+    # direction, the dot variants (A) and (B); the public fixed_dots,
+    # which no path launches, 0), dense_system's from config 10 on the
     # one-rank NCCL mesh, the others' from the config-4 particle filter.
     for k in ("pcg_solve", "normal_blocks"):
         launches[k] = district_launches[k]
     launches["dense_system"] = k12_launches["dense_system"]
-    for k in ("pcg_matvec", "fixed_dot"):
+    for k in CG_FORMS:
         launches[k] = mesh_district[(1, 2)][k]
     for k in ("score_points_batch", "pf_motion", "pf_resample",
               "pf_statistics"):
@@ -6735,8 +7105,9 @@ def main() -> int:
         lib = ("" if t["library_ms"] is None
                else f", library {t['library_ms']:.4f} ms")
         graph = ("" if t["graph_ms"] is None else
-                 f", in a CUDA graph kernel {t['graph_ms'][0]:.5f} ms, "
-                 f"library {t['graph_ms'][1]:.5f} ms")
+                 f", in a CUDA graph kernel {t['graph_ms'][0]:.5f} ms"
+                 + ("" if t["graph_ms"][1] is None else
+                    f", library {t['graph_ms'][1]:.5f} ms"))
         print(f"[5] {name}: kernel {t['ms']:.4f} ms, twin "
               f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
               f"({t['bound_by']}){lib}{graph} ({ident})")

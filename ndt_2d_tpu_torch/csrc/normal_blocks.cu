@@ -4,9 +4,11 @@
 // Replaces the jitted XLA programs of the JAX package's
 // ndt_2d_tpu/graph/solver.py: robust_weights + _normal_blocks +
 // _gather_gradient_and_diag (entry ndt2d_normal_blocks), the matvec of
-// _pcg_solve (entry ndt2d_pcg_matvec, the mesh's host loop) and the whole
-// lax.while_loop of _pcg_solve (entry ndt2d_pcg_solve; its dot products
-// alone: ndt2d_fixed_dot), _dense_solve's assembly of the damped dense
+// _pcg_solve (entry ndt2d_pcg_matvec) and the whole lax.while_loop of
+// _pcg_solve (entry ndt2d_pcg_solve; its dot products alone:
+// ndt2d_fixed_dot), the same loop on a mesh as three planned launches a
+// step (ndt2d_cg_matvec_planned, ndt2d_cg_damp_planned,
+// ndt2d_cg_update_planned), _dense_solve's assembly of the damped dense
 // system (entry ndt2d_dense_system, a mesh's), the blocks, node sums and
 // assembly of one device's dense LM iteration in one launch (entry
 // ndt2d_dense_normal_system), and _robust_cost with the accept and update
@@ -68,6 +70,25 @@
 // (kernels/normal_blocks.py::pcg_solve_twin, fixed_dot_twin) writes the same
 // operations in the same order.  Data the kernel writes is read back
 // through L2 (__ldcg), never through a stale L1 line.
+//
+// The mesh's CG loop.  On a mesh every CG product is a rank's partial,
+// summed over the ranks between the matvec and the rest of the step, so the
+// loop cannot live in one launch; eager, a step was ~22 PyTorch kernels
+// around two hand ones (the damping, alpha and beta, the x / r / p
+// updates, the preconditioner, the stop test).  A step is now three
+// ordinary launches, each one ctypes call of arguments packed once a solve
+// (kernels/normal_blocks.py::CgPlan), then the combine and one read of the
+// stop flag: (1) the matvec (cg_matvec, a thread a node over lists of
+// (constraint, other node) pairs, forming the direction z + beta p where
+// it reads it and writing its node's), (2) variant (A) of the dots (the
+// combined partial damped element by element, p . Ap, alpha), (3) variant
+// (B) (x, r and z element by element, r . z, r . r, beta, the stop flag).
+// A dot launch (lane_dots) is kGroups ordinary blocks in the lane layout
+// above: each forms its group's lane partials, takes a ticket after a
+// fence, and the last block to finish folds all the lanes in the fixed
+// tree and writes the scalars, so no grid sync and no cooperative launch
+// is needed and which block folds changes no bit.  The arithmetic is
+// pcg's and pcg_loop's, operation for operation.
 //
 // The dense system (ndt2d_dense_system).  Eager, it is ~10 passes over the
 // (3N)^2 matrix (zeros, one scatter a round of duplicate pairs, the
@@ -377,29 +398,6 @@ __device__ __forceinline__ void matvec_row(
   }
 }
 
-// solver.py::_pcg_solve matvec, a thread a node.
-__global__ void matvec(const int* __restrict__ b_ptr,
-                       const int* __restrict__ b_idx,
-                       const int* __restrict__ e_ptr,
-                       const int* __restrict__ e_idx, int N,
-                       const int* __restrict__ begin,
-                       const int* __restrict__ end,
-                       const float* __restrict__ baa,
-                       const float* __restrict__ bab,
-                       const float* __restrict__ bbb,
-                       const float* __restrict__ diag,
-                       const float* __restrict__ lam,
-                       const float* __restrict__ fm,
-                       const float* __restrict__ v, float* __restrict__ out) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  float y[3];
-  matvec_row(b_ptr, b_idx, e_ptr, e_idx, begin, end, baa, bab, bbb, diag,
-             lam[0], fm, Plain{v}, n, y);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) out[3 * n + i] = y[i];
-}
-
 // --- The PCG solve ----------------------------------------------------------
 
 namespace cg = cooperative_groups;
@@ -461,6 +459,85 @@ __device__ __forceinline__ void group_partials(const float* const* x,
   if (warp < D) __stcg(lanes[warp] + 32 * grp + lane, acc);
 }
 
+// group_partials' partials of the launches' dots (lane_dots), whose
+// products a Step forms element by element (Step::load, then Step::apply,
+// which may also write the element's results), in the same order: a
+// product past n is +0, and warp d's lane l adds dot d's column l of the
+// staged rows row by row, continuing from +0.  A thread loads the inputs
+// of a batch of Step::kBatch of its elements before it forms and stores
+// any of them, so a Step that writes keeps that many loads in flight.
+// (pcg keeps group_partials: this form, with its Step, costs pcg's loop
+// registers and stack, and its time.)
+template <int D, class Step>
+__device__ __forceinline__ void step_partials(const Step& s, int n, int grp,
+                                              float* stage,
+                                              float* const* lanes) {
+  constexpr int kLoads = kStageRows * 32 / kThreads;
+  constexpr int kBatch = Step::kBatch;
+  static_assert(kLoads % kBatch == 0, "a batch divides the slots");
+  const int rows = (n + kLanes - 1) / kLanes;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float acc = 0.f;
+  for (int r0 = 0; r0 < rows; r0 += kStageRows) {
+    const int m = min(kStageRows, rows - r0);
+    for (int j0 = 0; j0 < kLoads; j0 += kBatch) {
+      typename Step::In in[kBatch] = {};
+      int es[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const int i = threadIdx.x + kThreads * (j0 + b);  // row i / 32
+        const int e = (r0 + i / 32) * kLanes + 32 * grp + (i & 31);
+        es[b] = i < 32 * m && e < n ? e : -1;
+        if (es[b] >= 0) in[b] = s.load(es[b]);
+      }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const int i = threadIdx.x + kThreads * (j0 + b);
+        float pr[D];
+#pragma unroll
+        for (int d = 0; d < D; ++d) pr[d] = 0.f;
+        if (es[b] >= 0) s.apply(es[b], in[b], pr);
+        if (i < 32 * m) {
+#pragma unroll
+          for (int d = 0; d < D; ++d) stage[d * 32 * m + i] = pr[d];
+        }
+      }
+    }
+    __syncthreads();
+    if (warp < D) {
+      const float* col = stage + warp * 32 * m + lane;
+#pragma unroll 8
+      for (int rr = 0; rr < m; ++rr) acc += col[32 * rr];
+    }
+    __syncthreads();
+  }
+  if (warp < D) __stcg(lanes[warp] + 32 * grp + lane, acc);
+}
+
+// The products x_d[e] y_d[e] of D dots, read through L2.
+template <int D>
+struct Products {
+  const float* x[2];
+  const float* y[2];
+  static constexpr int kBatch = 16;
+  struct In {
+    float x[D], y[D];
+  };
+  __device__ __forceinline__ In load(int e) const {
+    In in;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      in.x[d] = __ldcg(x[d] + e);
+      in.y[d] = __ldcg(y[d] + e);
+    }
+    return in;
+  }
+  __device__ __forceinline__ void apply(int, const In& in, float* pr) const {
+#pragma unroll
+    for (int d = 0; d < D; ++d) pr[d] = in.x[d] * in.y[d];
+  }
+};
+
 // The halving tree over D sets of kLanes partials (lane i + h into lane i,
 // h = kLanes / 2, ..., 1): thread t loads partials t + kThreads k; levels
 // kLanes / 2 .. kThreads fold in registers, kThreads / 2 .. 32 in shared
@@ -512,31 +589,6 @@ __device__ __forceinline__ void fold_lanes(const float* const* lanes,
   for (int d = 0; d < D; ++d)
     total[d] = scratch[d * (kThreads + 1) + kThreads];
   __syncthreads();  // read by every thread before the scratch is reused
-}
-
-// One or two dots x_d . y_d of n floats in one cooperative launch
-// (ndt2d_fixed_dot): block grp forms lane group grp's partials, then after
-// a grid sync block 0 folds the lanes (as pcg's dots) into out [D].
-struct Dots {
-  const float* x[2];
-  const float* y[2];
-  int n;
-  float *lanes, *out;  // lanes: D kLanes partials
-};
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) fixed_dots(const Dots a) {
-  __shared__ float stage[D * kStageRows * 32];
-  __shared__ float scratch[D * (kThreads + 1)];
-  float* ls[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) ls[d] = a.lanes + d * kLanes;
-  group_partials<D>(a.x, a.y, a.n, blockIdx.x, stage, ls);
-  cg::this_grid().sync();
-  if (blockIdx.x != 0) return;
-  float total[D];
-  fold_lanes<D>(ls, scratch, total);
-  if (threadIdx.x < D) a.out[threadIdx.x] = total[threadIdx.x];
 }
 
 // v_n of a vector the kernel writes, read through L2.
@@ -723,6 +775,258 @@ __global__ void __launch_bounds__(kThreads) pcg(const Pcg a) {
 #undef NDT2D_ROW
   if (tid == 0) *a.iters = it;
 }
+
+// --- The mesh's CG loop -----------------------------------------------------
+
+// The damped product y = A v at lam (a zero for a mesh rank's undamped
+// partial), a thread a node, as matvec_row sums it, but walking lists of
+// (constraint, other node) pairs built once a solve: the other node comes
+// with the constraint id, so a list entry is two dependent loads (the
+// pair, then the blocks and the other node's v) where matvec_row's walk
+// is three.  With z it is the loop's direction update too: v is z +
+// beta p from the previous direction p, formed as pcg's Direction forms
+// it wherever it is read, and the node's thread writes its own to p_out.
+// kernels/normal_blocks.py::CgPlan packs one a launch shape; the public
+// ndt2d_pcg_matvec fills one a call.
+struct CgMatvec {
+  const int *b_ptr, *e_ptr;     // Incidence
+  const int2 *b_pair, *e_pair;  // (constraint, other node) in list order
+  const float *baa, *bab, *bbb, *diag, *lam, *fm;
+  const float* v;     // v, or the previous direction (with z)
+  const float* z;     // null: plain v
+  const float* beta;  // with z
+  float* p_out;       // with z: the direction formed
+  float* out;
+  int N;
+};
+
+// Row n of the product: matvec_row's sums in its order.
+template <class Load>
+__device__ __forceinline__ void pair_row(const CgMatvec& a, const Load& v,
+                                         float l, int n, float y[3]) {
+  float vn[3], vo[3], y0[3], y1[3];
+  masked(v, a.fm, n, vn);
+  float sa[3] = {0.f, 0.f, 0.f};
+  for (int q = a.b_ptr[n]; q < a.b_ptr[n + 1]; ++q) {
+    const int2 ko = a.b_pair[q];
+    masked(v, a.fm, ko.y, vo);
+    bx(a.baa + 9 * ko.x, vn, y0);
+    bx(a.bab + 9 * ko.x, vo, y1);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) sa[i] += y0[i] + y1[i];
+  }
+  float sb[3] = {0.f, 0.f, 0.f};
+  for (int q = a.e_ptr[n]; q < a.e_ptr[n + 1]; ++q) {
+    const int2 ko = a.e_pair[q];
+    masked(v, a.fm, ko.y, vo);
+    btx(a.bab + 9 * ko.x, vo, y0);
+    bx(a.bbb + 9 * ko.x, vn, y1);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) sb[i] += y0[i] + y1[i];
+  }
+  const float f = a.fm[n];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float di = a.diag[9 * n + 4 * i] * vn[i];
+    y[i] = ((sa[i] + sb[i]) + l * di) * f;
+  }
+}
+
+// The direction z_n + beta p_n as pcg's Direction forms it, from vectors
+// that earlier launches wrote (plain loads, which L1 may serve).
+struct Formed {
+  const float* z;
+  const float* p;
+  float beta;
+  __device__ __forceinline__ void operator()(int n, float* out) const {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) out[i] = z[3 * n + i] + beta * p[3 * n + i];
+  }
+};
+
+// solver.py::_pcg_solve's matvec (the standalone launch: pcg keeps
+// matvec_row), with the direction update where the plan asks for it.
+__global__ void __launch_bounds__(kThreads) cg_matvec(const CgMatvec a) {
+  const int n = blockIdx.x * kThreads + threadIdx.x;
+  if (n >= a.N) return;
+  const float l = *a.lam;
+  float y[3];
+  if (a.z) {
+    const Formed d{a.z, a.v, *a.beta};
+    pair_row(a, d, l, n, y);
+    float pn[3];
+    d(n, pn);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) a.p_out[3 * n + i] = pn[i];
+  } else {
+    pair_row(a, Plain{a.v}, l, n, y);
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) a.out[3 * n + i] = y[i];
+}
+
+// The lane partials of a dot launch (D kLanes floats), the ticket that
+// picks the block which folds them (0 between launches) and the floats of
+// each vector.
+struct Lanes {
+  float* lanes;
+  unsigned* ticket;
+  int n;
+};
+
+// D dots of a Step in one ordinary launch of kGroups blocks: block grp
+// forms lane group grp's partials; the last block to finish (the one that
+// takes the last ticket, after every block's partials are visible) folds
+// all the lanes in fold_lanes' tree, hands the totals to the Step and
+// resets the ticket.  Which block folds changes no bit: the fold reads the
+// same partials in the same order.
+template <int D, class Step>
+__global__ void __launch_bounds__(kThreads) lane_dots(const Step a) {
+  __shared__ float stage[D * kStageRows * 32];
+  __shared__ float scratch[D * (kThreads + 1)];
+  __shared__ bool last;
+  const Step s = a.ready();
+  float* ls[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) ls[d] = s.dots.lanes + d * kLanes;
+  step_partials<D>(s, s.dots.n, blockIdx.x, stage, ls);
+  __threadfence();  // this block's partials before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(s.dots.ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float total[D];
+  fold_lanes<D>(ls, scratch, total);
+  if (threadIdx.x == 0) {
+    s.finish(total);
+    *s.dots.ticket = 0u;
+  }
+}
+
+// The public dots x_d . y_d (ndt2d_fixed_dot): the totals into out [D].
+template <int D>
+struct PairDots : Products<D> {
+  Lanes dots;
+  float* out;
+  __device__ __forceinline__ PairDots ready() const { return *this; }
+  __device__ __forceinline__ void finish(const float* t) const {
+#pragma unroll
+    for (int d = 0; d < D; ++d) out[d] = t[d];
+  }
+};
+
+// The planned loop's scalars on the device (kernels/normal_blocks.py::
+// CgPlan): alpha, beta, r.z, r.r, p.Ap, and a zero (the lam of a mesh
+// rank's undamped partial).
+enum CgScalar { kAlpha = 0, kBeta = 1, kRz = 2, kRr = 3, kPap = 4,
+                kZeroLam = 5 };
+constexpr float kTiny = 1e-30f;
+
+// The loop's first dots launch, variant (A): Ap = (part + lam (D_ii
+// (p fm))) fm from the combined partial, then p . Ap; the folding block
+// writes p . Ap and alpha = r.z / max(p . Ap, 1e-30).  The expressions
+// and their order are _pcg_solve's mesh branch's and pcg_loop's.
+struct CgDamp {
+  Lanes dots;
+  const float *part, *p, *diag, *fm, *lam;
+  float *ap, *sc;
+  float l;  // *lam, read at launch
+  static constexpr int kBatch = 16;
+  struct In {
+    float p, part, f, d;
+  };
+  __device__ __forceinline__ CgDamp ready() const {
+    CgDamp s = *this;
+    s.l = *lam;
+    return s;
+  }
+  __device__ __forceinline__ In load(int e) const {
+    const int n = e / 3, c = e - 3 * n;
+    In in;
+    in.p = p[e];
+    in.part = part[e];
+    in.f = fm[n];
+    in.d = diag[9 * n + 4 * c];
+    return in;
+  }
+  __device__ __forceinline__ void apply(int e, const In& in,
+                                        float* pr) const {
+    const float a = (in.part + l * (in.d * (in.p * in.f))) * in.f;
+    ap[e] = a;
+    pr[0] = in.p * a;
+  }
+  __device__ __forceinline__ void finish(const float* t) const {
+    sc[kPap] = t[0];
+    sc[kAlpha] = sc[kRz] / max_keep_nan(t[0], kTiny);
+  }
+};
+
+// The loop's second dots launch, variant (B): x += alpha p, r -= alpha Ap
+// and z = (pinv r) fm in pcg's expressions (the first launch of a solve:
+// r = b - Ap, z = (pinv r) fm and p = z, x staying 0), then r . z and
+// r . r; the folding block writes them, beta = r.z / max(the previous
+// r.z, 1e-30) and the stop flag sqrt(r.r) > tol.  An element's z needs
+// its node's whole r, whose other elements other blocks update, so r is
+// read from r_in and written to r_out (two buffers, swapped a step).
+struct CgUpdate {
+  Lanes dots;
+  const float *r_in, *ap, *p, *pinv, *fm;  // r_in: b on the first launch
+  float *x, *r_out, *z, *p_out, *sc;       // p_out: the first launch's p
+  int* stop;
+  float tol;
+  int first;
+  float alpha;  // sc[kAlpha], read at launch
+  static constexpr int kBatch = 8;
+  struct In {
+    float r[3], a[3], m[3], f, x, p;
+  };
+  __device__ __forceinline__ CgUpdate ready() const {
+    CgUpdate s = *this;
+    s.alpha = first ? 0.f : sc[kAlpha];
+    return s;
+  }
+  __device__ __forceinline__ In load(int e) const {
+    const int n = e / 3, c = e - 3 * n;
+    In in;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      in.r[i] = r_in[3 * n + i];
+      in.a[i] = ap[3 * n + i];
+      in.m[i] = pinv[9 * n + 3 * c + i];
+    }
+    in.f = fm[n];
+    in.x = first ? 0.f : x[e];
+    in.p = first ? 0.f : p[e];
+    return in;
+  }
+  __device__ __forceinline__ void apply(int e, const In& in,
+                                        float* pr) const {
+    const int c = e - 3 * (e / 3);
+    float rn[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      rn[i] = first ? in.r[i] - in.a[i] : in.r[i] - alpha * in.a[i];
+    const float zn =
+        dot3(in.m[0], in.m[1], in.m[2], rn[0], rn[1], rn[2]) * in.f;
+    const float re = c == 0 ? rn[0] : c == 1 ? rn[1] : rn[2];
+    if (first)
+      p_out[e] = zn;
+    else
+      x[e] = in.x + alpha * in.p;
+    r_out[e] = re;
+    z[e] = zn;
+    pr[0] = re * zn;
+    pr[1] = re * re;
+  }
+  __device__ __forceinline__ void finish(const float* t) const {
+    if (!first) sc[kBeta] = t[0] / max_keep_nan(sc[kRz], kTiny);
+    sc[kRz] = t[0];
+    sc[kRr] = t[1];
+    *stop = sqrtf(t[1]) > tol;
+  }
+};
 
 
 // --- The dense LM system ----------------------------------------------------
@@ -1281,70 +1585,98 @@ NDT2D_API int ndt2d_normal_blocks(
   return (int)cudaGetLastError();
 }
 
-// Incidence lists as above; begin/end [C] i32; baa/bab/bbb [C,3,3],
-// diag [N,3,3], lam [1], fm [N], v [N,3] f32; out [N,3] f32.
-NDT2D_API int ndt2d_pcg_matvec(const void* b_ptr, const void* b_idx,
-                               const void* e_ptr, const void* e_idx, int N,
-                               const void* begin, const void* end,
+// One planned CG matvec as packed in *plan (CgMatvec).
+NDT2D_API int ndt2d_cg_matvec_planned(const void* plan, void* stream) {
+  const CgMatvec& a = *static_cast<const CgMatvec*>(plan);
+  if (a.N < 1 || (a.z && !(a.beta && a.p_out)))
+    return (int)cudaErrorInvalidValue;
+  cg_matvec<<<(a.N + kThreads - 1) / kThreads, kThreads, 0,
+              reinterpret_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// y = A v: b_ptr/e_ptr [N+1] i32 and b_pair/e_pair [*,2] i32 (each list
+// entry's constraint and other node; kernels/normal_blocks.py::Incidence);
+// baa/bab/bbb [C,3,3], diag [N,3,3], lam [1], fm [N], v [N,3] f32; out
+// [N,3] f32.
+NDT2D_API int ndt2d_pcg_matvec(const void* b_ptr, const void* e_ptr,
+                               const void* b_pair, const void* e_pair, int N,
                                const void* baa, const void* bab,
                                const void* bbb, const void* diag,
                                const void* lam, const void* fm, const void* v,
                                void* out, void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  matvec<<<(N + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      static_cast<const int*>(b_ptr), static_cast<const int*>(b_idx),
-      static_cast<const int*>(e_ptr), static_cast<const int*>(e_idx), N,
-      static_cast<const int*>(begin), static_cast<const int*>(end),
-      static_cast<const float*>(baa), static_cast<const float*>(bab),
-      static_cast<const float*>(bbb), static_cast<const float*>(diag),
-      static_cast<const float*>(lam), static_cast<const float*>(fm),
-      static_cast<const float*>(v), static_cast<float*>(out));
-  return (int)cudaGetLastError();
+  const CgMatvec a{static_cast<const int*>(b_ptr),
+                   static_cast<const int*>(e_ptr),
+                   static_cast<const int2*>(b_pair),
+                   static_cast<const int2*>(e_pair),
+                   static_cast<const float*>(baa),
+                   static_cast<const float*>(bab),
+                   static_cast<const float*>(bbb),
+                   static_cast<const float*>(diag),
+                   static_cast<const float*>(lam),
+                   static_cast<const float*>(fm),
+                   static_cast<const float*>(v),
+                   nullptr,
+                   nullptr,
+                   nullptr,
+                   static_cast<float*>(out),
+                   N};
+  return ndt2d_cg_matvec_planned(&a, stream);
 }
 
 // D = 1 or 2 dots x_d . y_d of n f32 each in the fixed lane-and-tree order
-// (x1, y1 unused at D = 1): out [D + D kLanes] f32, the dots in out[0 .. D)
-// (the lane partials after them).  One cooperative launch of kGroups
-// blocks; fails (no launch) where the card cannot hold them co-resident.
+// (x1, y1 unused at D = 1) into out [D] f32; scratch [2 kLanes + 1] f32:
+// the lane partials, then the ticket, 0 before the launch (the folding
+// block leaves it 0).  One ordinary launch of kGroups blocks.
 NDT2D_API int ndt2d_fixed_dot(const void* x0, const void* y0, const void* x1,
                               const void* y1, int d, int n, void* out,
-                              void* stream) {
+                              void* scratch, void* stream) {
   if ((d != 1 && d != 2) || n < 0) return (int)cudaErrorInvalidValue;
-  // Whether this device can hold the kGroups blocks co-resident, asked once
-  // a device.
-  static int checked = -1;
-  void (*const one)(const Dots) = fixed_dots<1>;
-  void (*const two)(const Dots) = fixed_dots<2>;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (checked != dev) {
-    int coop = 0, sms = 0, per1 = 0, per2 = 0;
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                   dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per1, one,
-                                                          kThreads, 0);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per2, two,
-                                                          kThreads, 0);
-    if (err != cudaSuccess) return (int)err;
-    if (!coop) return (int)cudaErrorNotSupported;
-    if (std::min(per1, per2) * sms < kGroups)
-      return (int)cudaErrorCooperativeLaunchTooLarge;
-    checked = dev;
-  }
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  float* sc = static_cast<float*>(scratch);
+  const Lanes lanes{sc, reinterpret_cast<unsigned*>(sc + 2 * kLanes), n};
+  const float* xs[2] = {static_cast<const float*>(x0),
+                        static_cast<const float*>(x1)};
+  const float* ys[2] = {static_cast<const float*>(y0),
+                        static_cast<const float*>(y1)};
   float* o = static_cast<float*>(out);
-  Dots a{{static_cast<const float*>(x0), static_cast<const float*>(x1)},
-         {static_cast<const float*>(y0), static_cast<const float*>(y1)},
-         n, o + d, o};
-  void* args[] = {&a};
-  void* fn = d == 1 ? reinterpret_cast<void*>(one)
-                    : reinterpret_cast<void*>(two);
-  return (int)cudaLaunchCooperativeKernel(
-      fn, kGroups, kThreads, args, 0, reinterpret_cast<cudaStream_t>(stream));
+  if (d == 1)
+    lane_dots<1><<<kGroups, kThreads, 0, st>>>(
+        PairDots<1>{{{xs[0], xs[1]}, {ys[0], ys[1]}}, lanes, o});
+  else
+    lane_dots<2><<<kGroups, kThreads, 0, st>>>(
+        PairDots<2>{{{xs[0], xs[1]}, {ys[0], ys[1]}}, lanes, o});
+  return (int)cudaGetLastError();
+}
+
+// Variant (A) of a planned CG step as packed in *plan (CgDamp), on the
+// combined partial `part` [N,3] f32.
+NDT2D_API int ndt2d_cg_damp_planned(const void* plan, const void* part,
+                                    void* stream) {
+  CgDamp a = *static_cast<const CgDamp*>(plan);
+  if (a.dots.n < 0 || !part) return (int)cudaErrorInvalidValue;
+  a.part = static_cast<const float*>(part);
+  lane_dots<1><<<kGroups, kThreads, 0,
+                 reinterpret_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Variant (B) of a planned CG step as packed in *plan (CgUpdate).
+NDT2D_API int ndt2d_cg_update_planned(const void* plan, void* stream) {
+  const CgUpdate& a = *static_cast<const CgUpdate*>(plan);
+  if (a.dots.n < 0) return (int)cudaErrorInvalidValue;
+  lane_dots<2><<<kGroups, kThreads, 0,
+                 reinterpret_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The sizes of the planned CG structures (kernels/normal_blocks.py's
+// ctypes mirrors are checked against them).
+NDT2D_API int ndt2d_cg_plan_sizes(int* matvec, int* damp, int* update) {
+  *matvec = (int)sizeof(CgMatvec);
+  *damp = (int)sizeof(CgDamp);
+  *update = (int)sizeof(CgUpdate);
+  return 0;
 }
 
 // The whole PCG loop of one LM step.  Incidence lists, begin/end and the

@@ -41,8 +41,9 @@ in rank order (K12's ``rank_sum``; the blocks come from ``normal_blocks``,
 and ``dense_system`` and ``lm_step`` split into a launch before the sum
 and one after), so every rank holds the same
 bits and the LM and CG loops take the same path on every rank.  The mesh's
-CG loop is K4's host loop ``pcg_loop`` over its ``pcg_matvec`` and
-``fixed_dots``.  A mesh chooses dense or PCG by one device's size rule.
+CG loop is K4's ``mesh_cg``: a plan of three launches a CG step
+(``pcg_loop`` over the twins on the CPU).  A mesh chooses dense or PCG by
+one device's size rule.
 """
 
 from __future__ import annotations
@@ -152,26 +153,18 @@ def _pcg_solve(begin, end, baa, bab, bbb, g, diag, lam, free_mask,
                combine=None):
     """Matrix-free block-Jacobi PCG on the damped normal equations.  On one
     device the whole loop is K4's ``pcg_solve`` (its twin with ``twin``).
-    With ``combine`` (a mesh) it is K4's host loop ``pcg_loop`` on K4's
-    matvec and fixed-order dots: the rank's undamped product is added over
-    ranks, then damped as K4 damps it."""
+    With ``combine`` (a mesh) it is K4's ``mesh_cg``: the rank's undamped
+    product is added over ranks, then damped as K4 damps it, a CG step three
+    planned launches, the combine and one read (``pcg_loop`` over the twins
+    on the CPU or with ``twin``)."""
     fm = free_mask.to(g.dtype)
     pinv, b = _preconditioner(g, diag, lam, free_mask)
     if combine is None:
         solve = k4.pcg_solve_twin if twin else k4.pcg_solve
         return solve(begin, end, baa, bab, bbb, diag, lam, fm, pinv, b,
                      max_iter, tol, inc)[0]
-    mv = k4.pcg_matvec_twin if twin else k4.pcg_matvec
-    zero = _f32(0.0, g)
-    dii = torch.diagonal(diag, dim1=-2, dim2=-1)
-
-    def matvec(v):
-        part = mv(begin, end, baa, bab, bbb, diag, zero, fm, v, inc)
-        return (combine(part) + lam * (dii * (v * fm[:, None]))) \
-            * fm[:, None]
-
-    dots = k4.fixed_dots_twin if twin else k4.fixed_dots
-    return k4.pcg_loop(matvec, dots, pinv, fm, b, max_iter, tol)[0]
+    return k4.mesh_cg(begin, end, baa, bab, bbb, diag, lam, fm, pinv, b,
+                      max_iter, tol, inc, combine, twin)[0]
 
 
 def _preconditioner(g, diag, lam, free_mask):

@@ -4,9 +4,12 @@ their plain-PyTorch twins.
 
 Replaces ``ndt_2d_tpu/graph/solver.py::robust_weights`` +
 ``_normal_blocks`` + ``_gather_gradient_and_diag`` (``normal_blocks``), the
-matvec of ``_pcg_solve`` (``pcg_matvec``, which the mesh's host loop runs)
-and ``_pcg_solve``'s ``lax.while_loop`` as one cooperative launch an LM
-step (``pcg_solve``), with its dot products alone as ``fixed_dots``;
+matvec of ``_pcg_solve`` (``pcg_matvec``) and ``_pcg_solve``'s
+``lax.while_loop`` as one cooperative launch an LM step (``pcg_solve``),
+with its dot products alone as ``fixed_dots`` (an ordinary launch whose
+last block folds); a mesh's loop (``mesh_cg``) as a plan an LM step
+(``CgPlan``: a CG step the matvec, forming the direction, and two
+``fixed_dots`` variants, the damping and the updates folded in);
 ``_dense_solve``'s assembly of the damped [3N, 3N] system
 (``dense_system``: a block a node row writes its three rows once, from a
 per-row table of node-pair slots, ``pair_table``; a mesh's), the blocks,
@@ -40,9 +43,14 @@ import torch
 from ndt_2d_tpu_torch.core.pose import normalize_angle_exact
 from ndt_2d_tpu_torch.kernels import _build
 
-launches = {"normal_blocks": 0, "pcg_matvec": 0, "pcg_solve": 0,
-            "fixed_dot": 0, "dense_system": 0, "dense_normal_system": 0,
-            "lm_step": 0}
+# The CG loop's launches by form: ``pcg_matvec`` (v as given) and
+# ``pcg_matvec_direction`` (the direction formed in the loader),
+# ``fixed_dot`` (the public dots), ``fixed_dot_damp`` and
+# ``fixed_dot_update`` (the planned loop's variants (A) and (B)).
+launches = {"normal_blocks": 0, "pcg_matvec": 0, "pcg_matvec_direction": 0,
+            "pcg_solve": 0, "fixed_dot": 0, "fixed_dot_damp": 0,
+            "fixed_dot_update": 0, "dense_system": 0,
+            "dense_normal_system": 0, "lm_step": 0}
 
 # Lanes of a dot product: kLanes of csrc/normal_blocks.cu.
 DOT_LANES = 2048
@@ -52,8 +60,8 @@ LOSSES = {"none": 0, "huber": 1, "geman_mcclure": 2}
 _NB_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_float,
                                      ctypes.c_int] + [ctypes.c_void_p] * 4
             + [ctypes.c_int] + [ctypes.c_void_p] * 8)
-_MV_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 11)
-_DOT_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+_MV_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 9
+_DOT_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
 _PCG_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 10
              + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 4)
 _DENSE_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
@@ -67,6 +75,8 @@ _LM_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
 _LM_FIT_ARGS = [ctypes.POINTER(ctypes.c_int)]
 _SIZES_ARGS = [ctypes.POINTER(ctypes.c_int)] * 2
 _PLANNED_ARGS = [ctypes.c_void_p] * 2
+_DAMP_ARGS = [ctypes.c_void_p] * 3
+_CG_SIZES_ARGS = [ctypes.POINTER(ctypes.c_int)] * 3
 
 # Threads of a block (kThreads of csrc/normal_blocks.cu) and the most nodes
 # a dense system takes (kDenseMaxN: a block's slot table of an int a node
@@ -89,25 +99,54 @@ class Incidence:
     """Per-node lists of the live constraints that begin (end) at each
     node, in constraint order, for N nodes.
 
-    ``*_ptr`` [N + 1] / ``*_idx`` int32 are the kernel's (CSR) form;
-    ``*_mat`` [N, D] int64 with ``*_ok`` [N, D] bool the twin's (slot d of
-    node n holds its d-th constraint).  Built once per solve: begin, end
-    and the mask do not change inside one."""
+    ``*_ptr`` [N + 1] / ``*_idx`` int32 are the kernels' (CSR) form, and
+    ``*_pair`` [K, 2] int32 each list entry's constraint and other node
+    (the end node of a begin list's constraint, the begin node of an end
+    list's), which the CG matvec walks.  ``*_mat`` [N, D] int64 with
+    ``*_ok`` [N, D] bool are the twin's (slot d of node n holds its d-th
+    constraint): built at a twin's first read of them, with a read of the
+    longest list a side, which a solve on the kernels never makes.  Built
+    once per solve: begin, end and the mask do not change inside one."""
 
     n: int
     b_ptr: torch.Tensor
     b_idx: torch.Tensor
-    b_mat: torch.Tensor
-    b_ok: torch.Tensor
+    b_pair: torch.Tensor
+    b_at: torch.Tensor  # the entries' node ids, int64 (the twin's tables)
     e_ptr: torch.Tensor
     e_idx: torch.Tensor
-    e_mat: torch.Tensor
-    e_ok: torch.Tensor
+    e_pair: torch.Tensor
+    e_at: torch.Tensor
+    _tables: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def _table(self, side: str):
+        if side not in self._tables:
+            self._tables[side] = _slots(getattr(self, f"{side}_ptr"),
+                                        getattr(self, f"{side}_idx"),
+                                        getattr(self, f"{side}_at"), self.n)
+        return self._tables[side]
+
+    @property
+    def b_mat(self):
+        return self._table("b")[0]
+
+    @property
+    def b_ok(self):
+        return self._table("b")[1]
+
+    @property
+    def e_mat(self):
+        return self._table("e")[0]
+
+    @property
+    def e_ok(self):
+        return self._table("e")[1]
 
 
-def _lists(node, live, n: int):
-    """(ptr, idx, mat, ok) of one side: ``node`` [C] int64 node ids,
-    ``live`` [K] ascending ids of the live constraints."""
+def _lists(node, other, live, n: int):
+    """(ptr, idx, pair, at) of one side: ``node`` [C] int64 the side's
+    node ids, ``other`` [C] int64 the other end's, ``live`` [K] ascending
+    ids of the live constraints; ``at`` [K] int64 the sorted node ids."""
     dev = node.device
     at = node[live]
     order = torch.sort(at, stable=True).indices
@@ -116,13 +155,21 @@ def _lists(node, live, n: int):
     counts = torch.bincount(at, minlength=n)
     ptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
     ptr[1:] = torch.cumsum(counts, 0)
-    rank = torch.arange(idx.numel(), device=dev) - ptr[at]
-    width = int(counts.max()) if idx.numel() else 0
-    mat = torch.zeros(n, width, dtype=torch.int64, device=dev)
-    ok = torch.zeros(n, width, dtype=torch.bool, device=dev)
-    mat[at, rank] = idx
+    pair = torch.stack([idx, other[idx]], 1).to(torch.int32)
+    return ptr.to(torch.int32), idx.to(torch.int32), pair, at
+
+
+def _slots(ptr, idx, at, n: int):
+    """The twin's table of one side's lists: (mat [n, D] int64, ok [n, D]
+    bool), D the longest list (one read)."""
+    ptr = ptr.long()
+    rank = torch.arange(idx.numel(), device=idx.device) - ptr[at]
+    width = int((ptr[1:] - ptr[:-1]).max()) if idx.numel() else 0
+    mat = torch.zeros(n, width, dtype=torch.int64, device=idx.device)
+    ok = torch.zeros(n, width, dtype=torch.bool, device=idx.device)
+    mat[at, rank] = idx.long()
     ok[at, rank] = True
-    return ptr.to(torch.int32), idx.to(torch.int32), mat, ok
+    return mat, ok
 
 
 def incidence(begin, end, cmask, n: int) -> Incidence:
@@ -130,9 +177,8 @@ def incidence(begin, end, cmask, n: int) -> Incidence:
     only those in ``cmask`` [C]: a masked constraint's blocks are exact
     zeros, and an in-order sum from +0 is unchanged by adding one."""
     live = torch.nonzero(cmask).squeeze(1)
-    b = _lists(begin.to(torch.int64), live, n)
-    e = _lists(end.to(torch.int64), live, n)
-    return Incidence(n, *b, *e)
+    b, e = begin.to(torch.int64), end.to(torch.int64)
+    return Incidence(n, *_lists(b, e, live, n), *_lists(e, b, live, n))
 
 
 def _ordered_sum(vals, mat, ok):
@@ -300,25 +346,28 @@ def pcg_matvec(begin, end, baa, bab, bbb, diag, lam, fm, v, inc: Incidence):
     """K4 matvec.  begin/end [C] int32, baa/bab/bbb [C, 3, 3], diag
     [N, 3, 3], lam 0-d, fm [N] (free-node mask as float), v [N, 3] f32;
     returns [N, 3].  CPU tensors run the twin; CUDA tensors launch the
-    kernel."""
+    kernel (a thread a node over ``inc``'s pair lists; the mesh's loop
+    launches it planned, ``CgPlan``)."""
     if v.device.type == "cpu":
         return pcg_matvec_twin(begin, end, baa, bab, bbb, diag, lam, fm, v,
                                inc)
     dev = v.device
     N, C = v.shape[0], begin.shape[0]
-    _build.require(begin, "begin", torch.int32, (C,), dev)
-    _build.require(end, "end", torch.int32, (C,), dev)
-    for name, t in (("baa", baa), ("bab", bab), ("bbb", bbb)):
-        _build.require(t, name, torch.float32, (C, 3, 3), dev)
-    _build.require(diag, "diag", torch.float32, (N, 3, 3), dev)
-    _build.require(lam, "lam", torch.float32, (), dev)
-    _build.require(fm, "fm", torch.float32, (N,), dev)
-    _build.require(v, "v", torch.float32, (N, 3), dev)
+    _build.require_all(dev, (begin, end, baa, bab, bbb, diag, lam, fm, v,
+                             inc.b_ptr, inc.e_ptr, inc.b_pair, inc.e_pair), (
+        ("begin", torch.int32, (C,)), ("end", torch.int32, (C,)),
+        ("baa", torch.float32, (C, 3, 3)), ("bab", torch.float32, (C, 3, 3)),
+        ("bbb", torch.float32, (C, 3, 3)), ("diag", torch.float32, (N, 3, 3)),
+        ("lam", torch.float32, ()), ("fm", torch.float32, (N,)),
+        ("v", torch.float32, (N, 3)), ("b_ptr", torch.int32, (N + 1,)),
+        ("e_ptr", torch.int32, (N + 1,)),
+        ("b_pair", torch.int32, (inc.b_pair.shape[0], 2)),
+        ("e_pair", torch.int32, (inc.e_pair.shape[0], 2))))
     out = torch.empty(N, 3, dtype=torch.float32, device=dev)
     p = _build.ptr
     err = _build.function("ndt2d_pcg_matvec", _MV_ARGS)(
-        p(inc.b_ptr), p(inc.b_idx), p(inc.e_ptr), p(inc.e_idx), N, p(begin),
-        p(end), p(baa), p(bab), p(bbb), p(diag), p(lam), p(fm), p(v), p(out),
+        p(inc.b_ptr), p(inc.e_ptr), p(inc.b_pair), p(inc.e_pair), N, p(baa),
+        p(bab), p(bbb), p(diag), p(lam), p(fm), p(v), p(out),
         _build.stream_ptr(dev))
     _build.check(err, "pcg_matvec")
     launches["pcg_matvec"] += 1
@@ -355,8 +404,9 @@ def fixed_dots(*pairs):
     """K4's dot products x . y of one or two pairs (x, y) of contiguous f32
     tensors, all of one shape, in ``fixed_dot_twin``'s order: a tuple of
     0-d tensors.  CPU tensors run the twin; CUDA tensors launch the kernel
-    (one cooperative launch: a block a group of 32 lanes, then one block
-    folds the lanes of every pair)."""
+    (one ordinary launch: a block a group of 32 lanes; the last block to
+    finish folds the lanes of every pair).  The mesh's loop launches its
+    two variants planned (``CgPlan``)."""
     D = len(pairs)
     if D not in (1, 2):
         raise ValueError(f"{D} dot products: the kernel takes 1 or 2")
@@ -364,18 +414,20 @@ def fixed_dots(*pairs):
     if x0.device.type == "cpu":
         return fixed_dots_twin(*pairs)
     dev = x0.device
-    for x, y in pairs:
-        _build.require(x, "x", torch.float32, x0.shape, dev)
-        _build.require(y, "y", torch.float32, x0.shape, dev)
-    out = torch.empty(D * (1 + DOT_LANES), dtype=torch.float32, device=dev)
+    shape = x0.shape
+    _build.require_all(dev, [t for pair in pairs for t in pair],
+                       [(name, torch.float32, shape) for name in "xy" * D])
+    out = torch.empty(D, dtype=torch.float32, device=dev)
+    # The lane partials and the ticket, which the launch needs at 0.
+    scratch = torch.zeros(2 * DOT_LANES + 1, dtype=torch.float32, device=dev)
     x1, y1 = pairs[-1]
     p = _build.ptr
     err = _build.function("ndt2d_fixed_dot", _DOT_ARGS)(
         p(x0), p(pairs[0][1]), p(x1), p(y1), D, x0.numel(), p(out),
-        _build.stream_ptr(dev))
+        p(scratch), _build.stream_ptr(dev))
     _build.check(err, "fixed_dot")
     launches["fixed_dot"] += 1
-    return out[:D].unbind()
+    return out.unbind()
 
 
 def pcg_loop(matvec, dots, pinv, fm, b, max_iter: int, tol):
@@ -458,6 +510,312 @@ def pcg_solve(begin, end, baa, bab, bbb, diag, lam, fm, pinv, b,
     _build.check(err, "pcg_solve")
     launches["pcg_solve"] += 1
     return x, it
+
+
+# --- The mesh's CG loop ------------------------------------------------------
+
+
+def cg_damp_twin(part, p, diag, lam, fm, rz):
+    """Plain-PyTorch variant (A) of the loop's dots: (Ap, p . Ap, alpha).
+    Ap = (part + lam (D_ii (p fm))) fm from the combined undamped partial,
+    as ``_pcg_solve``'s mesh branch damps it; alpha = rz / max(p . Ap,
+    1e-30), as ``pcg_loop``."""
+    dii = torch.diagonal(diag, dim1=-2, dim2=-1)
+    ap = (part + lam * (dii * (p * fm[:, None]))) * fm[:, None]
+    pap = fixed_dot_twin(p, ap)
+    tiny = torch.tensor(1e-30, dtype=pap.dtype, device=pap.device)
+    return ap, pap, rz / torch.maximum(pap, tiny)
+
+
+def cg_update_twin(r, ap, alpha, x, p, pinv, fm, rz, tol: float,
+                   first: bool):
+    """Plain-PyTorch variant (B), ``pcg_loop``'s expressions: x + alpha p,
+    r - alpha Ap, z = (pinv r) fm, r . z and r . r in one ``fixed_dots``,
+    beta = r.z / max(rz, 1e-30) and the stop test sqrt(r . r) > tol.  The
+    first of a solve takes r = b - Ap (``r`` is b) and leaves x, beta None.
+    Returns (x, r, z, r.z, r.r, beta, go)."""
+    tiny = torch.tensor(1e-30, dtype=ap.dtype, device=ap.device)
+    beta = None
+    if first:
+        r = r - ap
+    else:
+        x = x + alpha * p
+        r = r - alpha * ap
+    z = _mv(pinv, r) * fm[:, None]
+    rz_new, rr = fixed_dots_twin((r, z), (r, r))
+    if not first:
+        beta = rz_new / torch.maximum(rz, tiny)
+    go = torch.sqrt(rr) > torch.tensor(tol, dtype=rr.dtype, device=rr.device)
+    return x, r, z, rz_new, rr, beta, go
+
+
+# The loop's scalars in ``CgPlan.sc`` (CgScalar of csrc/normal_blocks.cu).
+_ALPHA, _BETA, _RZ, _RR, _PAP, _ZERO_LAM = range(6)
+
+
+class _Lanes(ctypes.Structure):
+    """``struct Lanes`` of csrc/normal_blocks.cu."""
+
+    _fields_ = [("lanes", ctypes.c_void_p), ("ticket", ctypes.c_void_p),
+                ("n", ctypes.c_int)]
+
+
+class _CgMatvec(ctypes.Structure):
+    """``struct CgMatvec``."""
+
+    _fields_ = ([(f, ctypes.c_void_p) for f in (
+        "b_ptr", "e_ptr", "b_pair", "e_pair", "baa", "bab", "bbb", "diag",
+        "lam", "fm", "v", "z", "beta", "p_out", "out")]
+        + [("N", ctypes.c_int)])
+
+
+class _CgDamp(ctypes.Structure):
+    """``struct CgDamp``."""
+
+    _fields_ = ([("dots", _Lanes)]
+                + [(f, ctypes.c_void_p) for f in (
+                    "part", "p", "diag", "fm", "lam", "ap", "sc")]
+                + [("l", ctypes.c_float)])
+
+
+class _CgUpdate(ctypes.Structure):
+    """``struct CgUpdate``."""
+
+    _fields_ = ([("dots", _Lanes)]
+                + [(f, ctypes.c_void_p) for f in (
+                    "r_in", "ap", "p", "pinv", "fm", "x", "r_out", "z",
+                    "p_out", "sc", "stop")]
+                + [("tol", ctypes.c_float), ("first", ctypes.c_int),
+                   ("alpha", ctypes.c_float)])
+
+
+@functools.lru_cache(maxsize=None)
+def _cg_functions():
+    """The three planned CG entries, after checking that the ctypes
+    mirrors have their C structures' sizes."""
+    sizes = [ctypes.c_int(0) for _ in range(3)]
+    _build.function("ndt2d_cg_plan_sizes", _CG_SIZES_ARGS)(
+        *(ctypes.byref(c) for c in sizes))
+    mine = tuple(ctypes.sizeof(t) for t in (_CgMatvec, _CgDamp, _CgUpdate))
+    theirs = tuple(c.value for c in sizes)
+    if mine != theirs:
+        raise RuntimeError(f"CG plan structures of {mine} bytes, the "
+                           f"kernels' {theirs}")
+    return (_build.function("ndt2d_cg_matvec_planned", _PLANNED_ARGS),
+            _build.function("ndt2d_cg_damp_planned", _DAMP_ARGS),
+            _build.function("ndt2d_cg_update_planned", _PLANNED_ARGS))
+
+
+class CgPlan:
+    """The CG loop of one LM step of a mesh rank, planned once:
+    ``pcg_loop``'s loop as three hand launches a step, ``run``.  Phase s = 0
+    starts the loop (the product at x = 0, r = b - Ap, z, p = z, r . z,
+    r . r); phase s = 1, 2, ... is CG step s - 1:
+
+    * ``pcg_matvec`` (planned): the rank's undamped partial of the
+      direction's product; from step 1 on the launch forms the direction,
+      p = z + beta p (into the other of two direction buffers);
+    * ``combine``: the sum over the mesh's ranks;
+    * ``fixed_dots`` variant (A): Ap (the combined sum damped), p . Ap and
+      alpha on the device;
+    * ``fixed_dots`` variant (B): x, r (two buffers), z, r . z, r . r,
+      beta and the stop flag on the device;
+
+    then one read of the stop flag, as the reference's ``lax.while_loop``
+    tests sqrt(r . r) > tol before a step.  The arguments of every launch
+    shape are packed once into the C structures the planned entries read,
+    so a launch is one ctypes call with a pointer and the stream (read once
+    a loop); the loop's buffers, scalars, lane partials and ticket are the
+    plan's, allocated once; nothing is checked a launch but the combined
+    partial.  The arguments as ``pcg_solve``'s; the plan keeps every tensor
+    it points to.  On CUDA tensors its launches launch or raise; with
+    ``twin`` or on CPU tensors they run the twins (``pcg_matvec_twin``,
+    ``cg_damp_twin``, ``cg_update_twin``) into the same buffers,
+    ``pcg_loop``'s bits."""
+
+    def __init__(self, begin, end, baa, bab, bbb, diag, lam, fm, pinv, b,
+                 inc: Incidence, tol: float, twin: bool = False):
+        dev = b.device
+        N, C = b.shape[0], begin.shape[0]
+        _build.require_all(dev, (
+            begin, end, baa, bab, bbb, diag, lam, fm, pinv, b, inc.b_ptr,
+            inc.e_ptr, inc.b_pair, inc.e_pair), (
+            ("begin", torch.int32, (C,)), ("end", torch.int32, (C,)),
+            ("baa", torch.float32, (C, 3, 3)),
+            ("bab", torch.float32, (C, 3, 3)),
+            ("bbb", torch.float32, (C, 3, 3)),
+            ("diag", torch.float32, (N, 3, 3)), ("lam", torch.float32, ()),
+            ("fm", torch.float32, (N,)), ("pinv", torch.float32, (N, 3, 3)),
+            ("b", torch.float32, (N, 3)), ("b_ptr", torch.int32, (N + 1,)),
+            ("e_ptr", torch.int32, (N + 1,)),
+            ("b_pair", torch.int32, (inc.b_pair.shape[0], 2)),
+            ("e_pair", torch.int32, (inc.e_pair.shape[0], 2))))
+        if inc.n != N:
+            raise ValueError(f"incidence over {inc.n} nodes: expected {N}")
+        self.device = dev
+        self.eager = twin or dev.type == "cpu"
+        self.shape = (N, 3)
+        f32 = dict(dtype=torch.float32, device=dev)
+        n3 = 3 * N
+        # Zeroed once: x (the loop starts at 0), the scalars, the dots'
+        # ticket and the stop flag.
+        zero = torch.zeros(n3 + 16, **f32)
+        self.x = zero[:n3].view(N, 3)
+        self.sc = zero[n3:n3 + 8]
+        ticket = zero[n3 + 8:n3 + 9].view(torch.int32)
+        self.stop = zero[n3 + 9:n3 + 10].view(torch.int32)
+        work = torch.empty(7 * n3 + 2 * DOT_LANES, **f32)
+        self.r = work[:2 * n3].view(2, N, 3)
+        self.p = work[2 * n3:4 * n3].view(2, N, 3)
+        self.z = work[4 * n3:5 * n3].view(N, 3)
+        self.ap = work[5 * n3:6 * n3].view(N, 3)
+        self.part = work[6 * n3:7 * n3].view(N, 3)
+        lanes = work[7 * n3:]
+        self.inputs = (begin, end, baa, bab, bbb, diag, lam, fm, pinv, b)
+        self.inc = inc
+        self._tol = float(tol)
+        self._fns = None if self.eager else _cg_functions()
+        p = _build.ptr
+        sc = p(self.sc)
+        head = (p(inc.b_ptr), p(inc.e_ptr), p(inc.b_pair), p(inc.e_pair),
+                p(baa), p(bab), p(bbb), p(diag), p(self.sc[_ZERO_LAM]), p(fm))
+        P, R = self.p, self.r
+
+        def matvec(v, prev=None, into=None):
+            if prev is None:
+                return _CgMatvec(*head, p(v), None, None, None, p(self.part),
+                                 N)
+            return _CgMatvec(*head, p(prev), p(self.z), p(self.sc[_BETA]),
+                             p(into), p(self.part), N)
+        dots = _Lanes(p(lanes), p(ticket), n3)
+
+        def damp(v):
+            return _CgDamp(dots, None, p(v), p(diag), p(fm), p(lam),
+                           p(self.ap), sc, 0.0)
+
+        def update(r_in, v, r_out, first):
+            return _CgUpdate(dots, p(r_in), p(self.ap), p(v), p(pinv), p(fm),
+                             p(self.x), p(r_out), p(self.z),
+                             p(P[0]) if first else None, sc, p(self.stop),
+                             self._tol, int(first), 0.0)
+        # Phase s's structures: [0] at s = 0, [1] at s = 1, then they
+        # alternate with the direction (P[(s - 1) % 2]) and r's buffers.
+        self._args = (
+            [matvec(self.x), matvec(P[0]), matvec(None, P[0], P[1]),
+             matvec(None, P[1], P[0])],
+            [damp(self.x), damp(P[0]), damp(P[1])],
+            [update(b, self.x, R[0], True), update(R[0], P[0], R[1], False),
+             update(R[1], P[1], R[0], False)])
+        self._at = tuple([ctypes.addressof(a) for a in args]
+                         for args in self._args)
+
+    def run(self, combine, max_iter: int):
+        """The loop from x = 0: phase 0, then a step while fewer than
+        ``max_iter`` were taken and the stop flag (read once a step) says
+        sqrt(r . r) > tol.  ``combine`` sums the matvec's partial over the
+        mesh's ranks.  Returns (x [N, 3], the plan's buffer, and the steps
+        taken)."""
+        st = None if self.eager else _build.stream_ptr(self.device)
+        s = 0
+        while True:
+            self.matvec(s, st)
+            self.damp(combine(self.part), s, st)
+            self.update(s, st)
+            if s >= max_iter or not bool(self.stop):
+                return self.x, s
+            s += 1
+
+    def _stream(self, st):
+        return _build.stream_ptr(self.device) if st is None else st
+
+    def matvec(self, s: int, st=None):
+        """Phase s's ``pcg_matvec`` into ``part`` (``st``: the stream, by
+        default the current one)."""
+        i = s if s < 2 else 2 + s % 2
+        if self.eager:
+            begin, end, baa, bab, bbb, diag, _, fm, _, _ = self.inputs
+            if i == 0:
+                v = self.x
+            elif i == 1:
+                v = self.p[0]
+            else:
+                v = self.z + self.sc[_BETA] * self.p[s % 2]
+                self.p[(s - 1) % 2].copy_(v)
+            self.part.copy_(pcg_matvec_twin(begin, end, baa, bab, bbb, diag,
+                                            self.sc[_ZERO_LAM], fm, v,
+                                            self.inc))
+            return
+        _build.check(self._fns[0](self._at[0][i], self._stream(st)),
+                     "pcg_matvec")
+        launches["pcg_matvec" if i < 2 else "pcg_matvec_direction"] += 1
+
+    def damp(self, part, s: int, st=None):
+        """Phase s's variant (A) on the combined partial ``part``."""
+        i = 0 if s == 0 else 1 + (s - 1) % 2
+        if self.eager:
+            diag, lam, fm = self.inputs[5:8]
+            v = self.x if i == 0 else self.p[i - 1]
+            ap, pap, alpha = cg_damp_twin(part, v, diag, lam, fm,
+                                          self.sc[_RZ])
+            self.ap.copy_(ap)
+            self.sc[_PAP].copy_(pap)
+            self.sc[_ALPHA].copy_(alpha)
+            return
+        _build.require_all(self.device, (part,), (
+            ("combined partial", torch.float32, self.shape),))
+        _build.check(self._fns[1](self._at[1][i], part.data_ptr(),
+                                  self._stream(st)), "fixed_dot")
+        launches["fixed_dot_damp"] += 1
+
+    def update(self, s: int, st=None):
+        """Phase s's variant (B)."""
+        i = 0 if s == 0 else 1 + (s - 1) % 2
+        if self.eager:
+            fm, pinv, b = self.inputs[7:]
+            first = i == 0
+            r_in = b if first else self.r[i - 1]
+            v = self.x if first else self.p[i - 1]
+            x, r, z, rz, rr, beta, go = cg_update_twin(
+                r_in, self.ap, self.sc[_ALPHA], self.x, v, pinv, fm,
+                self.sc[_RZ], self._tol, first)
+            if first:
+                self.p[0].copy_(z)
+            else:
+                self.x.copy_(x)
+                self.sc[_BETA].copy_(beta)
+            self.r[0 if first else i % 2].copy_(r)
+            self.z.copy_(z)
+            self.sc[_RZ].copy_(rz)
+            self.sc[_RR].copy_(rr)
+            self.stop.copy_(go)
+            return
+        _build.check(self._fns[2](self._at[2][i], self._stream(st)),
+                     "fixed_dot")
+        launches["fixed_dot_update"] += 1
+
+
+def mesh_cg(begin, end, baa, bab, bbb, diag, lam, fm, pinv, b,
+            max_iter: int, tol: float, inc: Incidence, combine,
+            twin: bool = False):
+    """The CG loop of one LM step of a mesh (``_pcg_solve``'s mesh branch):
+    ``pcg_solve``'s arguments and ``combine``, the sum of the rank's
+    undamped matvec partial over the ranks.  On CPU tensors, or with
+    ``twin``, it is ``pcg_loop`` over the twins, the oracle: each product
+    the combined partial, damped as K4 damps.  On CUDA tensors it builds one ``CgPlan`` (the blocks are new
+    each LM step) and runs it: a step is three hand launches, the combine
+    and one read.  Returns (x [N, 3], steps taken)."""
+    if twin or b.device.type == "cpu":
+        zero = torch.zeros((), dtype=b.dtype, device=b.device)
+        dii = torch.diagonal(diag, dim1=-2, dim2=-1)
+
+        def matvec(v):
+            part = pcg_matvec_twin(begin, end, baa, bab, bbb, diag, zero, fm,
+                                   v, inc)
+            return (combine(part) + lam * (dii * (v * fm[:, None]))) \
+                * fm[:, None]
+        return pcg_loop(matvec, fixed_dots_twin, pinv, fm, b, max_iter, tol)
+    return CgPlan(begin, end, baa, bab, bbb, diag, lam, fm, pinv, b, inc,
+                  tol).run(combine, max_iter)
 
 
 # --- The dense LM system -----------------------------------------------------
