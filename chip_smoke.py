@@ -12,6 +12,11 @@
     python3 chip_smoke.py --session-times  # unprofiled ms/scan, 3 runs of
                                            # configs 3 and 2 (also in an
                                            # older checkout)
+    python3 chip_smoke.py --slam-times  # the fused step's steps/s and
+                                        # poses hash, 3 runs on one NCCL
+                                        # rank and one device, and K2's
+                                        # rows hashed (also in an older
+                                        # checkout)
     python3 chip_smoke.py --optimize-times  # the mapper's optimize ms, 3
                                             # runs of the office recipe,
                                             # config 9 and drift, and LM
@@ -86,8 +91,14 @@ Phases (any failure exits non-zero):
     (the mesh's split search and rank-ordered sum): K2's partials over
     contiguous angle blocks and their finalize, split 2 and 4 ways, bitwise
     equal to the one-launch K2 and to the twins' split search, at config
-    2's window (R = 1) and over the 64 config-3 rows; K6's the same over
-    the 32 coarse rows; ``rank_sum`` at S = 2, 4 ranks of 3 x 50,000 and
+    2's window (R = 1) and over the 64 config-3 rows, and K2's planned
+    finalize (``SplitPlan``, reading the gathered stack in place) on
+    stacks of 1-4 ranks' blocks built on the card with NaN in every slot
+    it must not read, bitwise its twin and the one-launch K2, at both
+    shapes; the fused step's ``finalize_append`` (the finalize with KB4's
+    append in its launch) at config 2, 64 appends into a chain of slots,
+    output rows and state bitwise its twin's; K6's split search as K2's
+    over the 32 coarse rows; ``rank_sum`` at S = 2, 4 ranks of 3 x 50,000 and
     9 x 50,000 floats (the district's gradient and block diagonal) and at
     3 x 450,001 on a misaligned view against its twin, beside
     ``torch.sum(x, 0)``, with its launch path's host cost piece by piece
@@ -97,8 +108,9 @@ Phases (any failure exits non-zero):
     twin and the dense K1 rows, KB2 (the stripe scores) over the 5000
     particles and the scan's world points, KB3 (a localization scan's
     stripe field, then the reduction of two stripes' summed field) and KB4
-    (the fused step's append into a 256-slot state), each bitwise against
-    its twin; K1 at its sort's edges (every valid point of a 38,400-point
+    (the fused step's append into a 256-slot state; planned, 64 appends
+    into a chain of slots), each bitwise against its twin; K1 at its
+    sort's edges (every valid point of a 38,400-point
     window in one cell, 4277-point rows, a window without a valid point)
     and K2 at its range edges (512 angles x 32 x 32 offsets at R = 1 and
     64), bitwise; K1 and K2 at the main path's shapes, K7 at its three
@@ -113,7 +125,12 @@ Phases (any failure exits non-zero):
     the district and at rank 0's shard of the (1, 2) mesh, public and
     planned, plain and forming the direction, the dot variants (A) and
     (B), fixed_dots beside ``torch.dot``, and a CG step of pcg_solve, the
-    host loop and the planned loop), timed by CUDA events, alone on the
+    host loop and the planned loop), K12's K2 finalize from a 2-way
+    split's gathered stack (planned; in a tree without plans its reordering
+    copy and ``finalize_rows``) and ``finalize_rows`` on one [R, A, 12]
+    buffer at config 2 and over 64 config-3 rows, the fused step's
+    finalize with KB4 (one ``finalize_append`` launch; or the finalize then
+    KB4) and KB4 alone, timed by CUDA events, alone on the
     device in a CUDA graph and by host time a call (``kernel_times``, the
     same lines as ``--kernel-times``, which also prints the wall of an LM
     iteration, kernels against twins);
@@ -245,7 +262,11 @@ Phases (any failure exits non-zero):
     dispatch loop on the mesh with the one-rank group's collectives
     forced through NCCL (the mesh path skips them as the identity), under
     CUDA sync-debug "error", its graph and export bitwise the
-    single-device pipelined run's; config 6 on the mesh beside the
+    single-device pipelined run's; K2's split search with its all-gather
+    forced through NCCL at config 2 and over 64 config-3 rows, under a
+    dispatch mode: bitwise the one-launch search, no operation on a CUDA
+    tensor but allocations, views and the collective (no kernel between
+    the partials and the finalize); config 6 on the mesh beside the
     single-device run (>= 1 closure, final ATE below odometry's and within
     0.08 m of one device's, K6's split search and K10's search launched)
     and, as a witness, one device with the solve forced to PCG; the time
@@ -275,7 +296,10 @@ Phases (any failure exits non-zero):
     scores within 1e-5 relative; at one stripe all bitwise the dense
     results; (s) the fused SLAM step (``parallel/slam_step.py``) over config
     2's 200-scan corridor, optimizing every 8 scans, capacity 256: ATE below
-    odometry's, (2, 1) bitwise the one-rank run; (t) the port's
+    odometry's, (2, 1) bitwise the one-rank run; on the one-rank NCCL
+    mesh KB4 rides in the search's finalize (200 ``finalize_append``
+    launches, no KB4 launch), on one device KB4 launches planned (200),
+    the two runs' poses bitwise equal, their sha256 printed; (t) the port's
     ``dryrun_multichip`` on 1, 2 and 4 ranks;
  5. print the kernels' JSON line and, last, the device JSON line.
 
@@ -287,6 +311,7 @@ one of (r)-(t), started by the script itself.
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -380,6 +405,8 @@ KERNELS = {
                        "ndt_2d_tpu/parallel/ndt_blocks.py:216"),
     "slam_append": ("ndt_2d_tpu_torch/csrc/slam_step.cu",
                     "ndt_2d_tpu/parallel/slam_step.py:71"),
+    "candidate_finalize_append": ("ndt_2d_tpu_torch/csrc/candidate_scores.cu",
+                                  "ndt_2d_tpu/parallel/slam_step.py:100"),
 }
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # The bound of a kernel: the larger of the bytes it must move over the
@@ -799,6 +826,7 @@ def reset_counts():
     candidate_gather.field_partial_launches = 0
     for m in (candidate_scores, candidate_gather):
         m.partial_launches = m.finalize_launches = 0
+    candidate_scores.finalize_append_launches = 0
     score_points.batch_launches = 0
     descriptors.spectra_launches = 0
     pose_chain.launches = score_points.composed_launches = 0
@@ -820,6 +848,8 @@ def read_counts() -> dict:
            "stripe_field": candidate_gather.field_launches,
            "field_partials": candidate_gather.field_partial_launches,
            "slam_append": slam_step.launches,
+           "candidate_finalize_append":
+               candidate_scores.finalize_append_launches,
            "candidate_partials": candidate_scores.partial_launches,
            "candidate_finalize": candidate_scores.finalize_launches,
            "candidate_gather_partials": candidate_gather.partial_launches,
@@ -1292,7 +1322,9 @@ def kernel_times(dev, ident: str, map4: str, bag4) -> dict:
     host's time a call with the device idle (``host_us``, the median of
     101 calls, synchronized outside the timed call): K1 and K2 at config
     2's window, config 8's (G = 4), 64 config-3 rows, K12's partials over
-    those rows (the first of two angle blocks) and KB1 (stripe 0 of 2 of
+    those rows (the first of two angle blocks), K12's K2 finalize at
+    config 2 and over those rows and the fused step's finalize and KB4
+    (``split_times``, ``fold_times``) and KB1 (stripe 0 of 2 of
     config 4's map ``map4``, mapped from ``bag4``); K9, K6, K12's K6
     partials, KB3 and K3 (``pr_times``); and K7 at its three
     shapes: 64 config-3 rows (G = 1, 8 iterations), config 8's match (G =
@@ -1361,6 +1393,12 @@ def kernel_times(dev, ident: str, map4: str, bag4) -> dict:
     both(f"K12 K2 partials, {ROWS} rows, {n} of {dths.shape[0]} angles",
          lambda: k2.partial_rows(gm, gr, tabs, *rows[4:], dths, dls, a0, n),
          10)
+    rows2 = k2_row(cfg.local_scan_matcher, win, query, dev)
+    split_times(both, cfg.local_scan_matcher, rows2,
+                "config 2 (R = 1, 80 angles, S = 2)", dev)
+    split_times(both, gm, (gr, tabs, *rows[4:]),
+                f"{ROWS} config-3 rows (40 angles, S = 2)", dev)
+    fold_times(both, cfg.local_scan_matcher, rows2, query, dev)
     k7_cases.insert(0, (
         f"{ROWS} config-3 rows (G = 1, 8 iterations)",
         dataclasses.replace(gm, refine_iterations=8), gr, tabs,
@@ -1383,6 +1421,152 @@ def kernel_times(dev, ident: str, map4: str, bag4) -> dict:
               f"({ident})")
     out.update(walls)
     return out
+
+
+def k2_row(mc, win, query, dev):
+    """Config 2's window and query scan as K2's one-row arguments (grid,
+    tables, points, mask, counts, poses)."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import ndt_build as k1
+    from ndt_2d_tpu_torch.ndt import grid as ndt_grid
+    g, tab = k1.build_window(**win, range_max=15.0,
+                             cell_size=mc.ndt_resolution,
+                             width=mc.grid_cells_x, height=mc.grid_cells_y)
+    row = ndt_grid.NDTGrid(origin=g.origin[None], cell_size=g.cell_size,
+                           mean=None, information=None, count=None,
+                           covariance=None)
+    return (row, tab[None], query["points"][None], query["point_mask"][None],
+            torch.tensor([query["num_points"]], dtype=torch.int32,
+                         device=dev), query["pose"][None])
+
+
+def parent_stack(mc, rows, dths, dls, S: int):
+    """The stack a search of ``rows`` split S ways gathered before the
+    plan: each rank's partials padded to its block with (+inf, 0) slots,
+    [S, R, blk, 12]."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import candidate_scores as k2
+    from ndt_2d_tpu_torch.parallel import matcher as pmatcher
+    A, R = dths.shape[0], rows[2].shape[0]
+    blk = -(-A // S)
+    mine = []
+    for s in range(S):
+        a0, n = pmatcher.angle_block(A, S, s)
+        pad = torch.zeros(R, blk - n, 12, device=rows[2].device)
+        pad[..., 0] = math.inf
+        part = [k2.partial_rows(mc, *rows, dths, dls, a0, n)] if n else []
+        mine.append(torch.cat(part + [pad], 1))
+    return torch.stack(mine)
+
+
+def split_times(both, mc, rows, name, dev):
+    """K12's K2 finalize through ``both``: from the gathered stack of a
+    2-way split (this tree: the plan's finalize reading it in place; a tree
+    without plans: its reordering copy, then ``finalize_rows``), and the
+    unplanned ``finalize_rows`` on one [R, A, 12] buffer (both trees)."""
+    from ndt_2d_tpu_torch.kernels import candidate_scores as k2
+    from ndt_2d_tpu_torch.matching import matcher
+    dths, dls = matcher._search_offsets(mc, dev)
+    A, R, nums = dths.shape[0], rows[2].shape[0], rows[4]
+    stack = parent_stack(mc, rows, dths, dls, 2)
+    full = stack.permute(1, 0, 2, 3).reshape(R, -1, 12)[:, :A].contiguous()
+    if hasattr(k2, "split_plan"):
+        plan = split_stack(mc, rows, dths, dls, 2, dev)
+
+        def gathered():
+            return plan.finalize(mc, plan.stack, nums, dths, dls)
+    else:
+        def gathered():
+            every = stack.permute(1, 0, 2, 3).reshape(R, -1, 12)
+            return k2.finalize_rows(mc, every[:, :A].contiguous(), nums,
+                                    dths, dls)
+    both(f"K12 K2 finalize from the stack, {name}", gathered, 50)
+    both(f"K12 K2 finalize_rows on [R, A, 12], {name}",
+         lambda: k2.finalize_rows(mc, full, nums, dths, dls), 50)
+
+
+def fold_times(both, mc, rows, query, dev):
+    """The fused step's finalize and KB4 at config 2 (R = 1, S = 2, the
+    256-slot state of 512-point scans) through ``both``: this tree's one
+    ``finalize_append`` launch, or a tree's finalize then KB4; and KB4
+    alone (``kb4.append``: through the state's plan where the tree plans
+    it); in a tree with plans, both launch paths piece by piece."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import candidate_scores as k2
+    from ndt_2d_tpu_torch.kernels import slam_step as kb4
+    from ndt_2d_tpu_torch.matching import matcher
+    from ndt_2d_tpu_torch.parallel import slam_step
+    dths, dls = matcher._search_offsets(mc, dev)
+    A, nums = dths.shape[0], rows[4]
+    P = query["points"].shape[0]
+    st = slam_step.init_state(SLAM_CAPACITY, P, SLAM_CAPACITY, dev)
+    st.prev_pose.copy_(torch.tensor([1.0, 2.0, 0.3], device=dev))
+    est = torch.tensor([1.2, 2.05, 0.31], device=dev)
+    scan = (query["points"], query["point_mask"])
+    corr = torch.tensor([0.005, -0.01, 0.0025], device=dev)
+    cov = torch.tensor([[2e-4, 1e-5, 2e-6], [1e-5, 3e-4, -1e-6],
+                        [2e-6, -1e-6, 4e-5]], device=dev)
+    a4 = (est, corr, cov, *scan, 7, 6, True)
+    planned = hasattr(k2, "split_plan")
+    if planned:
+        plan = split_stack(mc, rows, dths, dls, 2, dev)
+        fold = kb4.Append(kb4.plan_for(st), est, *scan, 7, 6, True)
+
+        def step_end():
+            return plan.finalize(mc, plan.stack, nums, dths, dls, fold)
+    else:
+        stack = parent_stack(mc, rows, dths, dls, 2)
+
+        def step_end():
+            every = stack.permute(1, 0, 2, 3).reshape(1, -1, 12)
+            out = k2.finalize_rows(mc, every[:, :A].contiguous(), nums, dths,
+                                   dls)
+            kb4.append(st, est, out[0, 1:4], out[0, 4:13].view(3, 3), *scan,
+                       7, 6, True)
+    both("K12 K2 finalize + KB4 at config 2 (S = 2)", step_end, 50)
+    both("KB4 (256 slots, 512 points)", lambda: kb4.append(st, *a4), 50)
+    if planned:
+        planned_launch_path(plan, mc, nums, dths, dls, kb4.plan_for(st), a4,
+                            dev)
+
+
+def planned_launch_path(plan, mc, nums, dths, dls, slam, a4, dev) -> dict:
+    """The host side of a planned finalize (config 2, S = 2) and of KB4
+    through the state's plan ``slam``, piece by piece (``host_us``, back to
+    back)."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import _build
+    from ndt_2d_tpu_torch.kernels import candidate_scores as k2
+    from ndt_2d_tpu_torch.kernels import slam_step as kb4
+    plain, _ = k2._planned_functions()
+    at = plan._at[plan.stack.data_ptr()]
+    out = plan.send.new_empty(plan._out_shape)
+    st = _build.stream_ptr(dev)
+    kb4_fn = kb4._function()
+    ptrs = [t.data_ptr() for t in a4[:5]]
+    pieces = {
+        "finalize": lambda: plan.finalize(mc, plan.stack, nums, dths, dls),
+        "require_all (num_points)": lambda: _build.require_all(
+            dev, (nums,), plan._nums_expect),
+        "new_empty": lambda: plan.send.new_empty(plan._out_shape),
+        "stream_ptr": lambda: _build.stream_ptr(dev),
+        "finalize ctypes call": lambda: plain(at, nums.data_ptr(), 0,
+                                              out.data_ptr(), st),
+        "KB4 (kb4.append)": lambda: kb4.append(slam.state, *a4),
+        "KB4 plan_for": lambda: kb4.plan_for(slam.state),
+        "KB4 SlamPlan.append": lambda: slam.append(*a4),
+        "KB4 check (5 tensors, slots)": lambda: slam.check(*a4[:7]),
+        "KB4 ctypes call": lambda: kb4_fn(slam.address, 1, 7, 6, 6, *ptrs,
+                                          st)}
+    us = {k: host_us(f, 2000) for k, f in pieces.items()}
+    torch.cuda.synchronize()
+    print("[5] K12 planned finalize and KB4, launch path, host us a "
+          "call: " + ", ".join(f"{k} {v:.3f}" for k, v in us.items()))
+    return us
 
 
 def pr_times(dev, ident, both, map4, bag4, m4, kf, cfg, win, query):
@@ -5760,6 +5944,134 @@ def check_split(kern, mc, rows, what, dev):
                   R * A * per * 12))
 
 
+def split_stack(mc, rows, dths, dls, S: int, dev):
+    """K12's plan of ``rows`` (grid, tables, points, mask, counts, poses)
+    on a ``space`` line of S ranks, its stack built on one card as the
+    all-gather leaves it: rank s's partials launched into the send buffer's
+    head (NaN everywhere else), the buffer copied into stack row s."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import candidate_scores as k2
+    from ndt_2d_tpu_torch.parallel import matcher as pmatcher
+    A = dths.shape[0]
+    plan = k2.split_plan(dev, S, rows[2].shape[0], A, dls.shape[0],
+                         isinstance(rows[4], torch.Tensor))
+    plan.stack.fill_(math.nan)
+    for s in range(S):
+        a0, n = pmatcher.angle_block(A, S, s)
+        plan.send.fill_(math.nan)
+        if n:
+            k2.partial_rows(mc, *rows, dths, dls, a0, n, out=plan.head(n))
+        plan.stack[s].copy_(plan.send)
+    return plan
+
+
+def check_split_plan(mc, rows, what, ref, dev):
+    """K12's planned finalize of K2 over ``rows``: stacks of S = 1-4
+    ranks' blocks built on the card with NaN in every slot the in-place
+    rule must not read, each finalized bitwise equal to its twin
+    (``finalize_gathered_twin``) and to the one-launch search ``ref``; at
+    S = 1 also read from the send buffer (a group of one); a block's
+    partials launched into the send buffer bitwise the allocating launch's.
+    Returns the timing entry of S = 2's planned finalize."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import candidate_scores as k2
+    from ndt_2d_tpu_torch.matching import matcher
+    from ndt_2d_tpu_torch.parallel import matcher as pmatcher
+    dths, dls = matcher._search_offsets(mc, dev)
+    A, R, nums = dths.shape[0], rows[2].shape[0], rows[4]
+    for S in (1, 2, 3, 4):
+        plan = split_stack(mc, rows, dths, dls, S, dev)
+        g = plan.stack.view(S, R, plan.blk, 12)
+        out = plan.finalize(mc, plan.stack, nums, dths, dls)
+        twin = k2.finalize_gathered_twin(mc, g, nums, dths, dls)
+        torch.cuda.synchronize()
+        require(torch.equal(out, twin) and torch.equal(out, ref),
+                f"{what}: the planned finalize of {S} ranks differs from "
+                "its twin or the one-launch search")
+        if S == 1:
+            require(torch.equal(plan.finalize(mc, plan.send[None], nums,
+                                              dths, dls), ref),
+                    f"{what}: the finalize of the send buffer differs")
+        a0, n = pmatcher.angle_block(A, S, S - 1)
+        require(torch.equal(plan.head(n), k2.partial_rows(
+            mc, *rows, dths, dls, a0, n)), f"{what}: partials into the "
+            "send buffer differ from the allocating launch's")
+    plan = split_stack(mc, rows, dths, dls, 2, dev)
+    g = plan.stack.view(2, R, plan.blk, 12)
+
+    def fin():
+        return plan.finalize(mc, plan.stack, nums, dths, dls)
+
+    def fin_twin():
+        return k2.finalize_gathered_twin(mc, g, nums, dths, dls)
+    print(f"[3] K12 planned finalize, {what}: stacks of 1-4 ranks with NaN "
+          f"in the unread slots, bitwise equal to the twin and to the "
+          f"one-launch search")
+    return timed(0.0, cuda_ms(fin, 50), cuda_ms(fin_twin, 2),
+                 R * A * 12 * 4 + R * 13 * 4 + (A + dls.shape[0]) * 4
+                 + R * 4, R * A * 12, graph_ms=(graph_ms(fin, 50), None))
+
+
+def check_fold(mc, rows, query, dev):
+    """The fused step's finalize with KB4's append in its launch
+    (``finalize_append``) at config 2's shapes (R = 1, 80 angles, S = 2;
+    the 256-slot state of 512-point scans), 64 times into a chain of
+    slots, each output row bitwise its twin's (``finalize_append_twin``)
+    and every state field after the chain.  Returns its timing entry."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import candidate_scores as k2
+    from ndt_2d_tpu_torch.kernels import slam_step as kb4
+    from ndt_2d_tpu_torch.matching import matcher
+    from ndt_2d_tpu_torch.parallel import slam_step
+    dths, dls = matcher._search_offsets(mc, dev)
+    plan = split_stack(mc, rows, dths, dls, 2, dev)
+    g = plan.stack.view(2, 1, plan.blk, 12)
+    nums = rows[4]
+    P = query["points"].shape[0]
+
+    def state():
+        st = slam_step.init_state(SLAM_CAPACITY, P, SLAM_CAPACITY, dev)
+        st.prev_pose.copy_(torch.tensor([1.0, 2.0, 0.3], device=dev))
+        return st
+    scan = (query["points"], query["point_mask"])
+    st, tw = state(), state()
+    for k in range(MESH_REPEATS):
+        est = torch.tensor([1.0 + 0.01 * k, 2.0 - 0.005 * k, 0.3 + 0.001 * k],
+                           device=dev)
+        args = (est, *scan, k, max(k - 1, 0), k > 0)
+        out = plan.finalize(mc, plan.stack, nums, dths, dls,
+                            kb4.Append(kb4.plan_for(st), *args))
+        want = k2.finalize_append_twin(mc, g, nums, dths, dls,
+                                       kb4.Append(kb4.plan_for(tw), *args))
+        require(torch.equal(out, want), f"finalize_append {k}: the output "
+                "row differs from its twin")
+    torch.cuda.synchronize()
+    for f in ("poses", "points", "point_mask", "c_begin", "c_end",
+              "c_transform", "c_information", "prev_pose"):
+        require(torch.equal(getattr(st, f), getattr(tw, f)),
+                f"finalize_append: {f} differs from its twin")
+    est = torch.tensor([1.2, 2.05, 0.31], device=dev)
+    fold = kb4.Append(kb4.plan_for(st), est, *scan, 7, 6, True)
+    tw_fold = kb4.Append(kb4.plan_for(tw), est, *scan, 7, 6, True)
+
+    def run():
+        return plan.finalize(mc, plan.stack, nums, dths, dls, fold)
+
+    def twin():
+        return k2.finalize_append_twin(mc, g, nums, dths, dls, tw_fold)
+    A, L = dths.shape[0], dls.shape[0]
+    print(f"[3] K12 finalize_append at config 2 (S = 2): {MESH_REPEATS} "
+          f"appends into a chain of slots of a {SLAM_CAPACITY}-slot state, "
+          f"output rows and every state field bitwise equal to the twin")
+    return timed(0.0, cuda_ms(run, 50), cuda_ms(twin, 5),
+                 A * 12 * 4 + 13 * 4 + (A + L) * 4 + 4 + nbytes(est, *scan)
+                 * 2 + 4 * (3 + 3 + 9 + 2), A * 12 + 150,
+                 graph_ms=(graph_ms(run, 50), None))
+
+
 def launch_path(dev) -> dict:
     """The host side of one ``rank_sum`` launch at 2 x 450,000, piece by
     piece (``host_us``), beside ``torch.sum(x, 0)``'s; the current stream
@@ -5870,6 +6182,7 @@ def phase_k12(cfg, win, query, cfg3, bag3, cfg6, dev):
     from ndt_2d_tpu_torch.kernels import candidate_gather as k6
     from ndt_2d_tpu_torch.kernels import candidate_scores as k2
     from ndt_2d_tpu_torch.kernels import ndt_build as k1
+    from ndt_2d_tpu_torch.matching import matcher
     from ndt_2d_tpu_torch.ndt import grid as ndt_grid
     out = {}
     mc = cfg.local_scan_matcher
@@ -5885,13 +6198,23 @@ def phase_k12(cfg, win, query, cfg3, bag3, cfg6, dev):
                           device=dev), query["pose"][None])
     p2, f2 = check_split(k2, mc, rows2, "K2 at config 2's window", dev)
     out["candidate_partials_config2"] = p2
-    out["candidate_finalize_config2"] = f2
+    out["candidate_finalize_unplanned_config2"] = f2
+    dths, dls = matcher._search_offsets(mc, dev)
+    out["candidate_finalize_config2"] = check_split_plan(
+        mc, rows2, "K2 at config 2's window",
+        k2.match_rows(mc, *rows2, dths, dls), dev)
+    out["candidate_finalize_append"] = check_fold(mc, rows2, query, dev)
     gm = cfg3.global_scan_matcher
     rows = office_rows(cfg3, bag3, dev)
     gr, tabs = k1.build_windows(*rows[:4], 12.0, gm.ndt_resolution,
                                 gm.grid_cells_x, gm.grid_cells_y)
-    out["candidate_partials"], out["candidate_finalize"] = check_split(
-        k2, gm, (gr, tabs, *rows[4:]), f"K2 over {ROWS} config-3 rows", dev)
+    rows3 = (gr, tabs, *rows[4:])
+    what = f"K2 over {ROWS} config-3 rows"
+    out["candidate_partials"], out["candidate_finalize_unplanned"] = \
+        check_split(k2, gm, rows3, what, dev)
+    dths, dls = matcher._search_offsets(gm, dev)
+    out["candidate_finalize"] = check_split_plan(
+        gm, rows3, what, k2.match_rows(gm, *rows3, dths, dls), dev)
     cm = cfg6.coarse_scan_matcher
     rows = coarse_rows(cfg6, bag3, dev)
     gr, tabs = k1.build_windows(*rows[:4], 12.0, cm.ndt_resolution,
@@ -5947,6 +6270,87 @@ class ForcedCollectives:
         (distributed._alone, dist.all_gather_into_tensor,
          dist.all_reduce) = self.saved
         return False
+
+
+# Tensor operations that launch nothing: allocations and views.
+QUIET_OPS = {"empty", "empty_strided", "new_empty", "view", "slice",
+             "unsqueeze", "alias", "as_strided", "select", "detach",
+             "reshape", "_unsafe_view"}
+
+
+def split_glue(dev, mesh, bag3):
+    """K2's split search (``parallel/matcher.py::search_rows``) on the
+    one-rank NCCL ``mesh`` with its all-gather forced through NCCL, at
+    config 2's window and over 64 config-3 rows, under a dispatch mode:
+    the operations it issues on CUDA tensors (its partials and finalize are
+    hand launches) are allocations, views and the collective only, and its
+    rows are bitwise the one-launch search's.  Returns the operations
+    seen."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    from ndt_2d_tpu_torch.kernels import candidate_scores as k2
+    from ndt_2d_tpu_torch.kernels import ndt_build as k1
+    from ndt_2d_tpu_torch.matching import matcher
+    from ndt_2d_tpu_torch.ndt import grid as ndt_grid
+    from ndt_2d_tpu_torch.parallel import matcher as pmatcher
+
+    class Ops(TorchDispatchMode):
+        """The operations that touch a CUDA tensor (the device mesh's own
+        bookkeeping runs on small CPU tensors)."""
+
+        def __init__(self):
+            super().__init__()
+            self.seen = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if any(isinstance(x, torch.Tensor) and x.is_cuda
+                   for x in tree_flatten((args, kwargs, out))[0]):
+                self.seen.add((func.namespace, func.overloadpacket.__name__))
+            return out
+    _, cfg, win, query, _ = inputs(dev)
+    mc = cfg.local_scan_matcher
+    g, tab = k1.build_window(**win, range_max=15.0,
+                             cell_size=mc.ndt_resolution,
+                             width=mc.grid_cells_x, height=mc.grid_cells_y)
+    row = ndt_grid.NDTGrid(origin=g.origin[None], cell_size=g.cell_size,
+                           mean=None, information=None, count=None,
+                           covariance=None)
+    cases = [(mc, (row, tab[None], query["points"][None],
+                   query["point_mask"][None],
+                   torch.tensor([query["num_points"]], dtype=torch.int32,
+                                device=dev), query["pose"][None]))]
+    cfg3 = office_config()
+    gm = cfg3.global_scan_matcher
+    rows = office_rows(cfg3, bag3, dev)
+    gr, tabs = k1.build_windows(*rows[:4], 12.0, gm.ndt_resolution,
+                                gm.grid_cells_x, gm.grid_cells_y)
+    cases.append((gm, (gr, tabs, *rows[4:])))
+    seen = set()
+    with ForcedCollectives() as forced:
+        for c, r in cases:
+            dths, dls = matcher._search_offsets(c, dev)
+            ref = k2.match_rows(c, *r, dths, dls)
+            mode = Ops()
+            with mode:
+                out = pmatcher.search_rows(k2, c, mesh, *r[:4], r[4], r[5],
+                                           dths, dls)
+            torch.cuda.synchronize()
+            require(torch.equal(out, ref), "K12's planned split search "
+                    "over NCCL differs from the one-launch search")
+            seen |= mode.seen
+    loud = {op for op in seen if op[0] != "c10d" and op[1] not in QUIET_OPS}
+    require(not loud and forced.calls["all_gather"] == 2,
+            f"K12's split search issued tensor operations {sorted(loud)} "
+            f"({forced.calls})")
+    print(f"[4p] K12 split search on the one-rank mesh, its all-gather "
+          f"through NCCL, at config 2 and over {ROWS} config-3 rows: bitwise "
+          f"the one-launch search; operations on CUDA tensors "
+          f"{sorted(seen)} (no kernel between the partials and the "
+          f"finalize)")
+    return seen
 
 
 def phase_mesh_nccl(cfg, bag, cfg6, bag3, dev, tmp):
@@ -6054,6 +6458,7 @@ def phase_mesh_nccl(cfg, bag, cfg6, bag3, dev, tmp):
               f"{float(np.median(pdt[pacc][4:]) * 1e3):.3f} ms per accepted "
               f"scan, session {pwall:.3f} s")
         mesh_sync_debug(dev, mesh)
+        split_glue(dev, mesh, bag3)
         # Config 6: descriptor search (query rows over 'batch') and far rows
         # coarse-to-fine on K6's split search, beside one device; then one
         # device with the solver forced to PCG, the mesh's solve before
@@ -6390,7 +6795,7 @@ def phase_mesh_shared(cfg, bag, single10, district_poses, district_truth,
 # --- K12·blocks: the stripe-sharded map (KB1-KB3), the fused SLAM step (KB4)
 # and the dry run of the multi-device pipeline.
 KB_KERNELS = ("ndt_build_stripe", "stripe_score", "stripe_field",
-              "field_partials", "slam_append")
+              "field_partials", "candidate_finalize_append")
 BLOCK_SHAPES = ((2, 1), (1, 2), (2, 2))
 SLAM_CAPACITY = 256       # scans and constraints of the fused step's state
 SLAM_OPTIMIZE_EVERY = 8
@@ -6610,15 +7015,30 @@ def phase_kb(path4, bag4, dev):
               "c_transform", "c_information", "prev_pose"):
         require(torch.equal(getattr(st, f), getattr(stt, f)),
                 f"KB4: {f} differs from its twin")
+    # 64 more into a chain of slots (est and the correction moving a
+    # step), every field bitwise the twin's.
+    st, stt = state(), state()
+    for k in range(MESH_REPEATS):
+        ak = (est + 0.01 * k, corr * (1.0 + 0.1 * k), cov, scan, smsk, k,
+              max(k - 1, 0), k > 0)
+        kb4.append(st, *ak)
+        kb4.append_twin(stt, *ak)
+    torch.cuda.synchronize()
+    for f in ("poses", "points", "point_mask", "c_begin", "c_end",
+              "c_transform", "c_information", "prev_pose"):
+        require(torch.equal(getattr(st, f), getattr(stt, f)),
+                f"KB4 chain: {f} differs from its twin")
     st = state()
     out["slam_append"] = timed(
         0.0, cuda_ms(lambda: kb4.append(st, *a4), 50),
         cuda_ms(lambda: kb4.append_twin(st, *a4), 10),
-        nbytes(est, corr, cov, scan, smsk) * 2 + 4 * (3 + 3 + 9 + 2),
-        150)
-    print(f"[3] KB4 slam_append: slot 7 of {SLAM_CAPACITY} scans x {P} "
-          f"points, constraint slot 6: poses, points, mask, constraint and "
-          f"previous pose bitwise equal to the twin")
+        nbytes(est, corr, cov, scan, smsk) * 2 + 4 * (3 + 3 + 9 + 2), 150,
+        graph_ms=(graph_ms(lambda: kb4.append(st, *a4), 50), None))
+    print(f"[3] KB4 slam_append (through the state's plan): slot 7 of "
+          f"{SLAM_CAPACITY} scans x {P} points, constraint slot 6: poses, "
+          f"points, mask, constraint and previous pose bitwise equal to the "
+          f"twin; {MESH_REPEATS} appends into a chain of slots bitwise the "
+          f"twin's")
     return out
 
 
@@ -6769,6 +7189,80 @@ def slam_run(mesh, dev) -> dict:
                 slam_scans=state.num_scans, slam_constraints=state.c_num)
 
 
+def poses_digest(poses) -> str:
+    """The first 16 hex digits of the sha256 of [4s]'s final poses (float32
+    bytes, as the state held them)."""
+    import hashlib
+
+    import numpy as np
+    return hashlib.sha256(np.asarray(poses, np.float32).tobytes()
+                          ).hexdigest()[:16]
+
+
+def slam_times(dev, ident: str, runs: int = 3) -> dict:
+    """``--slam-times``: [4s]'s fused step (``slam_run``) ``runs`` times on
+    a one-rank NCCL mesh and on one device, each run's steps/s, the final
+    poses' sha256 and KB4's launches by form; then the sha256 of K2's
+    one-launch rows at config 2's window and over 64 config-3 rows.  It
+    calls only public entries, so a copy run inside an older checkout
+    times and hashes that tree."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from ndt_2d_tpu_torch.kernels import candidate_scores as k2
+    from ndt_2d_tpu_torch.kernels import ndt_build as k1
+    from ndt_2d_tpu_torch.kernels import slam_step as kb4
+    from ndt_2d_tpu_torch.matching import matcher
+    from ndt_2d_tpu_torch.parallel import distributed, mesh as mesh_mod
+
+    def counts():
+        return (kb4.launches, getattr(k2, "finalize_append_launches", 0))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        distributed.initialize(dev, init_method="file://" + os.path.join(
+            tmp, "slam_rendezvous"), world_size=1, rank=0)
+        try:
+            mesh = mesh_mod.make_mesh(1)
+            for name, m in (("one NCCL rank", mesh), ("one device", None)):
+                rates, digests = [], []
+                for _ in range(runs):
+                    before = counts()
+                    r = slam_run(m, dev)
+                    launched = [b - a for a, b in zip(before, counts())]
+                    rates.append(r["slam_steps_per_s"])
+                    digests.append(poses_digest(r["slam_poses"]))
+                out[name] = dict(steps_per_s=rates, sha256=digests,
+                                 ate=r["slam_ate"], kb4=launched)
+                print(f"[6] [4s] on {name}: steps/s {rates}, poses sha256 "
+                      f"{digests}, ATE {r['slam_ate']:.6f} m, KB4 launches "
+                      f"(its own, folded into the finalize) {launched} "
+                      f"({ident})")
+        finally:
+            dist.destroy_process_group()
+
+    def digest(t):
+        torch.cuda.synchronize()
+        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+    _, cfg, win, query, _ = inputs(dev)
+    mc = cfg.local_scan_matcher
+    dths, dls = matcher._search_offsets(mc, dev)
+    out["k2_config2"] = digest(k2.match_rows(
+        mc, *k2_row(mc, win, query, dev), dths, dls))
+    cfg3 = office_config()
+    gm = cfg3.global_scan_matcher
+    rows = office_rows(cfg3, office_bag(), dev)
+    gr, tabs = k1.build_windows(*rows[:4], 12.0, gm.ndt_resolution,
+                                gm.grid_cells_x, gm.grid_cells_y)
+    dths, dls = matcher._search_offsets(gm, dev)
+    out["k2_rows"] = digest(k2.match_rows(gm, gr, tabs, *rows[4:], dths,
+                                          dls))
+    print(f"[6] K2 one-launch rows sha256: config 2 {out['k2_config2']}, "
+          f"{ROWS} config-3 rows {out['k2_rows']} ({ident})")
+    return out
+
+
 def blocks_rank(out_dir, space: int, batch: int, map4: str, map7: str,
                 device: str, parts: str) -> int:
     """One gloo rank of ``phase_blocks`` on a (space, batch) mesh whose
@@ -6845,6 +7339,10 @@ def phase_blocks(map4, map7, dev, tmp):
         one.update(slam_run(mesh, dev))
         torch.cuda.synchronize()
         launches = read_counts()
+        reset_counts()
+        single = slam_run(None, dev)
+        torch.cuda.synchronize()
+        single_launches = read_counts()
         t0 = time.perf_counter()
         dryrun_multichip(1, dev)
         dry_s = time.perf_counter() - t0
@@ -6853,6 +7351,19 @@ def phase_blocks(map4, map7, dev, tmp):
     for k in KB_KERNELS:
         require(launches[k] >= 1, f"[4r]/[4s] never launched {k}: "
                 f"{launches}")
+    # KB4 folded into the search's finalize on the mesh (K2, no polish),
+    # planned on one device; the two runs' poses bitwise equal.
+    require(launches["candidate_finalize_append"] == N_SCANS
+            and launches["slam_append"] == 0
+            and single_launches["slam_append"] == N_SCANS
+            and single_launches["candidate_finalize_append"] == 0,
+            f"[4s] KB4's launches: mesh {launches}, one device "
+            f"{single_launches}")
+    require(np.array_equal(one["slam_poses"], single["slam_poses"]),
+            "[4s] the folded mesh run's poses differ from one device's "
+            "planned run")
+    launches["slam_append"] = single_launches["slam_append"]
+    digest = poses_digest(one["slam_poses"])
     check_blocks_map(one, "[4r] one rank")
     require(one["slam_ate"] < one["slam_odom_ate"]
             and one["slam_scans"] == N_SCANS
@@ -6868,7 +7379,13 @@ def phase_blocks(map4, map7, dev, tmp):
           f"{ {k: launches[k] for k in KB_KERNELS} }")
     print(f"[4s] fused step, config 2 ({N_SCANS} scans) on one NCCL rank: "
           f"{one['slam_steps_per_s']:.1f} steps/s, ATE "
-          f"{one['slam_ate']:.4f} m (odometry {one['slam_odom_ate']:.4f})")
+          f"{one['slam_ate']:.4f} m (odometry {one['slam_odom_ate']:.4f}); "
+          f"KB4 folded into {launches['candidate_finalize_append']} "
+          f"finalize_append launches, 0 of its own; on one device "
+          f"{single['slam_steps_per_s']:.1f} steps/s, KB4 through the "
+          f"state's plan "
+          f"{single_launches['slam_append']} times, poses bitwise "
+          f"equal; poses sha256 {digest}")
     print(f"[4t] dryrun_multichip on one NCCL rank: passed in {dry_s:.1f} s")
     runs = {}
     for shape, parts in (((2, 1), "rst"), ((1, 2), "rs"), ((2, 2), "rt")):
@@ -6957,6 +7474,14 @@ def main() -> int:
         ident = phase_card()
         phase_build()
         print(json.dumps({"optimize_times": optimize_times(dev, ident),
+                          "card": ident}))
+        return 0
+    if "--slam-times" in sys.argv[1:]:
+        from ndt_2d_tpu_torch.device import get_device
+        dev = get_device("cuda:0")
+        ident = phase_card()
+        phase_build()
+        print(json.dumps({"slam_times": slam_times(dev, ident),
                           "card": ident}))
         return 0
     if "--mesh-district" in sys.argv[1:]:
@@ -7087,8 +7612,9 @@ def main() -> int:
         launches[k] = k12_launches[k]
     for k in ("candidate_gather_partials", "candidate_gather_finalize"):
         launches[k] = k12_desc_launches[k]
-    # K12·blocks from [4r] and [4s] on the one-rank NCCL mesh.
-    for k in KB_KERNELS:
+    # K12·blocks from [4r] and [4s] on the one-rank NCCL mesh (KB4 folded
+    # into finalize_append); KB4's own launches from [4s] on one device.
+    for k in KB_KERNELS + ("slam_append",):
         launches[k] = kb_launches[k]
     # K1/K2 times and errors at config-3 confirmation shapes (64 rows);
     # the config-2 single-window ones are printed at [3].

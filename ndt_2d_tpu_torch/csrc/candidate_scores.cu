@@ -73,11 +73,16 @@
 // with its psum and all_gather): the two launches are also entries of their
 // own.  ndt2d_candidate_partials scores a contiguous block of angles
 // starting at global angle a0 (a rank's share; flat indices stay global)
-// and writes only its per-angle partials; ndt2d_candidate_finalize combines
-// the partials of all A angles, gathered from the ranks in rank order.  The
-// finalize adds in angle order, so the split search is the one-launch
-// search bit for bit, whatever the split.
+// and writes only its per-angle partials; the finalize combines the
+// partials of all A angles, gathered from the ranks in rank order, reading
+// the gathered send buffers as they lie (ndt2d_candidate_finalize_planned;
+// ndt2d_candidate_finalize takes one [R, A, 12] buffer).  The finalize adds
+// in angle order, so the split search is the one-launch search bit for bit,
+// whatever the split.  ndt2d_candidate_finalize_append is the planned
+// finalize of the fused SLAM step with KB4's append in the same launch
+// (step_append.cuh).
 #include "common.cuh"
+#include "step_append.cuh"
 
 namespace {
 
@@ -474,76 +479,155 @@ cudaError_t launch_scores(const int* plan, int A, int R, cudaStream_t st,
 }
 
 // Combine the per-angle partials in angle order; matcher.py::finalize_match.
-// out = [score, correction (3), covariance (9, row-major)].  The block
-// stages the partials in shared memory with coalesced loads; then thread
-// k < 10 adds Olson sum k over the angles in order while warp 1's first
-// thread takes the (min, first index) chain, each a chain of its own (one
-// thread walking all eleven would serialize on their shared-memory loads).
-constexpr int kFinalizeThreads = 128;
+// out = [score, correction (3), covariance (9, row-major)].
+//
+// Where a row's partials lie.  A split search's S ranks each write their
+// block of blk = ceil(A / S) angles (K2: one partial an angle) at the head
+// of a send buffer of R x blk partials, and the all-gather stacks the S
+// buffers in rank order; the finalize reads that stack as it lies: angle a
+// is rank s = a / blk's angle j = a - s * blk, and rank s's [R, n_s, 12]
+// block (n_s = min(blk, A - s * blk) angles) starts its buffer, so row r's
+// partial j sits at (s * R * blk + r * n_s + j) * 12.  At R = 1, or where
+// n_s = blk, that is slot j of the stack seen as [S, R, blk, 12].  A
+// buffer's tail (a short or empty last block) is never read, and no copy
+// reorders the stack.  The one-launch search is the same rule at S = 1
+// (blk = A: its scratch [R, A, 12]).
+//
+// The fold.  The block stages the row's partials in shared memory in
+// angle order, three 16-byte loads a partial, then warp 0 folds them with
+// no second block sync: lane k < 10 adds Olson sum k over the angles in
+// order, and lane 10 walks the (min, first index) chain, strictly lower
+// scores replacing the best (a NaN never replaces it; one at the first
+// angle stays), the twin's first-index argmin on ordered scores.  Every
+// lane runs the same loop, the sums' adds and the chain's compare and
+// selects predicated, so the warp does not split; the chain's compare and
+// select are the critical path (~A x 8 cycles).  The winner's (min,
+// index) is not folded by a tree: a tree's combine is not associative
+// where a NaN follows the first angle.  Lane 0 takes the ten sums and the
+// winner by shuffles and writes the row; the other warps exit after
+// staging.
+//
+// With an Append (the fused SLAM step, R = 1), lane 0 then forms the
+// corrected pose from the winner's correction and covariance in registers
+// and writes KB4's constraint, slot and previous pose (step_append.cuh's
+// step_constraint, the body KB4's own launch runs), while warps 1.. copy
+// the scan into slot i.
+constexpr int kFinalizeThreads = 256;
 constexpr int kMaxAngles = 512;
 
-// Grid (R): row r = blockIdx.x.
-__global__ void finalize(const float* __restrict__ partial, int A, int L,
-                         const int* __restrict__ nums, int num,
-                         int max_beams, const float* __restrict__ dths,
-                         const float* __restrict__ dls,
-                         float* __restrict__ out) {
-  __shared__ float sp[kMaxAngles * kPartial];
-  __shared__ float folded[kPartial];
-  const size_t r = blockIdx.x;
-  const int num_points = row_points(nums, num, r);
-  partial += r * A * kPartial;
-  out += r * 13;
-  for (int i = threadIdx.x; i < A * kPartial; i += blockDim.x)
-    sp[i] = partial[i];
-  __syncthreads();
+struct Append {
+  StepState st;
+  StepInputs in;
+};
+
+__device__ __forceinline__ size_t split_at(int a, int r, int R, int A,
+                                           int blk) {
+  const int s = a / blk;
+  const int j = a - s * blk;
+  const int n = min(blk, A - s * blk);
+  return ((size_t)s * R * blk + (size_t)r * n + j) * kPartial;
+}
+
+// Grid (R): row r = blockIdx.x.  gathered: the stacked send buffers (16-byte
+// aligned); blk the angles of a rank's block.
+template <bool kAppend>
+__global__ void __launch_bounds__(kFinalizeThreads) finalize(
+    const float* __restrict__ gathered, int R, int A, int L, int blk,
+    const int* __restrict__ nums, int num, int max_beams,
+    const float* __restrict__ dths, const float* __restrict__ dls,
+    float* __restrict__ out, Append ap) {
+  __shared__ float4 sp4[kMaxAngles * 3];
+  const float* sp = reinterpret_cast<const float*>(sp4);
+  const int r = blockIdx.x;
   const int t = threadIdx.x;
-  if (t < kSums) {
-    float v = sp[2 + t];
-    for (int a = 1; a < A; ++a) v += sp[a * kPartial + 2 + t];
-    folded[2 + t] = v;
-  } else if (t == 32) {
-    float best = sp[0];
-    int bi = __float_as_int(sp[1]);
-    for (int a = 1; a < A; ++a) {
-      const float* p = sp + a * kPartial;
-      if (p[0] < best) {  // strict: earlier angles hold lower flat indices
-        best = p[0];
-        bi = __float_as_int(p[1]);
-      }
-    }
-    folded[0] = best;
-    folded[1] = __int_as_float(bi);
+#pragma unroll 4
+  for (int q = t; q < A * 3; q += kFinalizeThreads) {
+    const int a = q / 3;
+    sp4[q] = reinterpret_cast<const float4*>(
+        gathered + split_at(a, r, R, A, blk))[q - 3 * a];
   }
   __syncthreads();
-  if (t != 0) return;
-  const float best = folded[0];
-  const int bi = __float_as_int(folded[1]);
-  float v[kSums];
+  if (t >= 32) {
+    if (kAppend) step_copy_scan(ap.st, ap.in, t - 32, kFinalizeThreads - 32);
+    return;
+  }
+  const int col = t < kSums ? 2 + t : 0;
+  float v = 0.f, best = 0.f;
+  int bi = 0;
+  if (t <= kSums) {
+    v = sp[col];
+    best = v;
+    bi = __float_as_int(sp[1]);
+    for (int a = 1; a < A; ++a) {
+      const float x = sp[a * kPartial + col];
+      const int xi = __float_as_int(sp[a * kPartial + 1]);
+      v += x;
+      if (x < best) {  // strict: earlier angles hold lower flat indices
+        best = x;
+        bi = xi;
+      }
+    }
+  }
+  float sums[kSums];
 #pragma unroll
-  for (int k = 0; k < kSums; ++k) v[k] = folded[2 + k];
+  for (int k = 0; k < kSums; ++k) sums[k] = __shfl_sync(0xffffffffu, v, k);
+  best = __shfl_sync(0xffffffffu, best, kSums);
+  bi = __shfl_sync(0xffffffffu, bi, kSums);
+  if (t != 0) return;
+  const int num_points = row_points(nums, num, r);
   const int LL = L * L;
   const int ai = bi / LL, xi = (bi / L) % L, yi = bi % L;
   const bool apply = best < 0.f;
-  out[1] = apply ? dls[xi] : 0.f;
-  out[2] = apply ? dls[yi] : 0.f;
-  out[3] = apply ? dths[ai] : 0.f;
+  float o[13];
+  o[1] = apply ? dls[xi] : 0.f;
+  o[2] = apply ? dls[yi] : 0.f;
+  o[3] = apply ? dths[ai] : 0.f;
 
-  const float s = v[0];
-  const float u[3] = {v[1], v[2], v[3]};
-  const float k[3][3] = {{v[4], v[5], v[6]}, {v[5], v[7], v[8]},
-                         {v[6], v[8], v[9]}};
+  const float s = sums[0];
+  const float u[3] = {sums[1], sums[2], sums[3]};
+  const float k[3][3] = {{sums[4], sums[5], sums[6]},
+                         {sums[5], sums[7], sums[8]},
+                         {sums[6], sums[8], sums[9]}};
   const bool ok = s < 0.f;
   const float safe = ok ? s : -1.f;
   const float fallback[3] = {1.f, 1.f, 0.25f};
+#pragma unroll
   for (int i = 0; i < 3; ++i)
+#pragma unroll
     for (int j = 0; j < 3; ++j)
-      out[4 + 3 * i + j] =
+      o[4 + 3 * i + j] =
           ok ? k[i][j] / safe + (u[i] * u[j]) / (safe * safe)
              : (i == j ? fallback[i] : 0.f);
   const int used = min(max_beams, num_points);
-  out[0] = best / (float)max(used, 1);
+  o[0] = best / (float)max(used, 1);
+  out += (size_t)r * 13;
+#pragma unroll
+  for (int i = 0; i < 13; ++i) out[i] = o[i];
+  if (kAppend) step_constraint(ap.st, ap.in, o + 1, o + 4);
 }
+
+// The finalize of a stack read by the rule above (blk = A: one [R, A, 12]
+// buffer).
+cudaError_t launch_finalize(const float* gathered, int R, int A, int L,
+                            int blk, const int* nums, int num, int max_beams,
+                            const float* dths, const float* dls, float* out,
+                            cudaStream_t st) {
+  if (A < 1 || A > kMaxAngles || blk < 1 || blk > A)
+    return cudaErrorInvalidValue;
+  finalize<false><<<R, kFinalizeThreads, 0, st>>>(
+      gathered, R, A, L, blk, nums, num, max_beams, dths, dls, out, Append{});
+  return cudaGetLastError();
+}
+
+// A split search's finalize, planned (k2.SplitPlan): the stack it reads,
+// its shape, the lattice (dths [A], dls [L] f32) and max_beams, packed once
+// (the lattice again when the matcher's changes).
+struct SplitFinalize {
+  const float* gathered;
+  const float* dths;
+  const float* dls;
+  int R, A, L, blk, max_beams;
+};
 
 }  // namespace
 
@@ -569,11 +653,11 @@ NDT2D_API int ndt2d_candidate_scores(
       static_cast<const float*>(dls), L, static_cast<float*>(partial),
       static_cast<float*>(scores));
   if (err != cudaSuccess) return (int)err;
-  finalize<<<R, kFinalizeThreads, 0, st>>>(
-      static_cast<const float*>(partial), A, L, static_cast<const int*>(nums),
-      num, max_beams, static_cast<const float*>(dths),
-      static_cast<const float*>(dls), static_cast<float*>(out));
-  return (int)cudaGetLastError();
+  return (int)launch_finalize(
+      static_cast<const float*>(partial), R, A, L, A,
+      static_cast<const int*>(nums), num, max_beams,
+      static_cast<const float*>(dths), static_cast<const float*>(dls),
+      static_cast<float*>(out), st);
 }
 
 // K12, first half: the partials [R, A, 12] f32 of angles a0 .. a0 + A - 1 of
@@ -605,10 +689,52 @@ NDT2D_API int ndt2d_candidate_finalize(const void* partial, int R, int A,
                                        int max_beams, const void* dths,
                                        const void* dls, void* out,
                                        void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  finalize<<<R, kFinalizeThreads, 0, st>>>(
-      static_cast<const float*>(partial), A, L, static_cast<const int*>(nums),
-      num, max_beams, static_cast<const float*>(dths),
-      static_cast<const float*>(dls), static_cast<float*>(out));
+  return (int)launch_finalize(
+      static_cast<const float*>(partial), R, A, L, A,
+      static_cast<const int*>(nums), num, max_beams,
+      static_cast<const float*>(dths), static_cast<const float*>(dls),
+      static_cast<float*>(out), reinterpret_cast<cudaStream_t>(stream));
+}
+
+// K12, second half, planned: out [R, 13] from the split search's gathered
+// send buffers as they lie (*plan: the stack, its shape and the lattice;
+// the rule above finalize); nums [R] i32 or null (every row has `num`
+// points).
+NDT2D_API int ndt2d_candidate_finalize_planned(const void* plan,
+                                               const void* nums, int num,
+                                               void* out, void* stream) {
+  const SplitFinalize& p = *static_cast<const SplitFinalize*>(plan);
+  return (int)launch_finalize(
+      p.gathered, p.R, p.A, p.L, p.blk, static_cast<const int*>(nums), num,
+      p.max_beams, p.dths, p.dls, static_cast<float*>(out),
+      reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The planned finalize of one row (plan->R = 1) with the fused SLAM step's
+// append in the same launch: *state the step's StepState (kernels/
+// slam_step.py::SlamPlan), has_prior, slots i and j, the constraint's
+// begin id, est [3] f32, scan_points [P,2] f32, scan_mask [P] u8.  out is
+// written as ndt2d_candidate_finalize_planned writes it; the state as
+// ndt2d_slam_append writes it from that row's correction and covariance.
+NDT2D_API int ndt2d_candidate_finalize_append(
+    const void* plan, const void* nums, int num, void* out,
+    const void* state, int has_prior, int i, int j, int begin_id,
+    const void* est, const void* scan_points, const void* scan_mask,
+    void* stream) {
+  const SplitFinalize& p = *static_cast<const SplitFinalize*>(plan);
+  if (p.R != 1 || p.A < 1 || p.A > kMaxAngles || p.blk < 1 || p.blk > p.A)
+    return (int)cudaErrorInvalidValue;
+  const Append ap = {*static_cast<const StepState*>(state),
+                     {has_prior, i, j, begin_id,
+                      static_cast<const float*>(est),
+                      static_cast<const float*>(scan_points),
+                      static_cast<const uint8_t*>(scan_mask)}};
+  finalize<true><<<1, kFinalizeThreads, 0,
+                   reinterpret_cast<cudaStream_t>(stream)>>>(
+      p.gathered, 1, p.A, p.L, p.blk, static_cast<const int*>(nums), num,
+      p.max_beams, p.dths, p.dls, static_cast<float*>(out), ap);
   return (int)cudaGetLastError();
 }
+
+// sizeof(SplitFinalize), for the ctypes mirror's check.
+NDT2D_API int ndt2d_split_plan_size() { return (int)sizeof(SplitFinalize); }

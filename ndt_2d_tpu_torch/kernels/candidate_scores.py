@@ -43,6 +43,7 @@ from typing import NamedTuple
 import torch
 
 from ndt_2d_tpu_torch.kernels import _build
+from ndt_2d_tpu_torch.kernels import slam_step as kb4
 from ndt_2d_tpu_torch.kernels.score_points import subsample
 from ndt_2d_tpu_torch.ndt import grid as ndt_grid
 
@@ -523,13 +524,13 @@ def finalize_rows_twin(config, partials, num_points, dths, dls):
 def launch_partials(symbol: str, config, origin, cell_size: float, tables,
                     points, point_mask, num_points, poses, dths, dls,
                     a0: int, n: int, per_angle: int, plan=(),
-                    field=None):
+                    field=None, out=None):
     """Check the arguments and launch the partials entry ``symbol`` (K2's
     or K6's, each taking its ``plan`` ints before the stream) over R rows
     for angles a0 .. a0 + n - 1; returns the partials [R, n * per_angle,
-    12].  ``field`` (K6's entry, which takes a field pointer): whether it
-    needs a scratch field [R, n, L, L] (else the pointer is null).  The
-    caller counts the launch."""
+    12], written into ``out`` when given.  ``field`` (K6's entry, which
+    takes a field pointer): whether it needs a scratch field [R, n, L, L]
+    (else the pointer is null).  The caller counts the launch."""
     dev = points.device
     W, H = config.grid_cells_x, config.grid_cells_y
     R, P = points.shape[0], points.shape[1]
@@ -550,8 +551,13 @@ def launch_partials(symbol: str, config, origin, cell_size: float, tables,
     _build.require(poses, "poses", torch.float32, (R, 3), dev)
     _build.require(dths, "dths", torch.float32, (A,), dev)
     _build.require(dls, "dls", torch.float32, (L,), dev)
-    partial = torch.empty(R, n * per_angle, _PARTIAL, dtype=torch.float32,
-                          device=dev)
+    if out is None:
+        partial = torch.empty(R, n * per_angle, _PARTIAL,
+                              dtype=torch.float32, device=dev)
+    else:
+        _build.require(out, "out", torch.float32, (R, n * per_angle,
+                                                   _PARTIAL), dev)
+        partial = out
     p = _build.ptr
     scratch = []  # K6's field pointer, held until the launch
     if field is not None:
@@ -594,20 +600,22 @@ def launch_finalize(symbol: str, config, partials, num_points, dths, dls,
 
 
 def partial_rows(config, grid: ndt_grid.NDTGrid, tables, points, point_mask,
-                 num_points, poses, dths, dls, a0: int, n: int):
+                 num_points, poses, dths, dls, a0: int, n: int, out=None):
     """K12's first half on K2: the per-angle partials [R, n, 12] of angles
     a0 .. a0 + n - 1 of the lattice ``dths`` (one rank's block), flat
-    indices global.  Arguments as ``match_rows``; ``num_points`` an int32
-    [R] tensor or one int.  CPU tensors run the twin; CUDA tensors launch
-    the kernel."""
+    indices global, written into ``out`` when given (a split plan's send
+    buffer, ``SplitPlan.head``).  Arguments as ``match_rows``;
+    ``num_points`` an int32 [R] tensor or one int.  CPU tensors run the
+    twin; CUDA tensors launch the kernel."""
     global partial_launches
     if points.device.type == "cpu":
-        return partial_rows_twin(config, grid, tables, points, point_mask,
+        rows = partial_rows_twin(config, grid, tables, points, point_mask,
                                  num_points, poses, dths, dls, a0, n)
+        return rows if out is None else out.copy_(rows)
     out = launch_partials("ndt2d_candidate_partials", config, grid.origin,
                           grid.cell_size, tables, points, point_mask,
                           num_points, poses, dths, dls, a0, n, 1,
-                          _tiles(tables, points, dls, n))
+                          _tiles(tables, points, dls, n), out=out)
     partial_launches += 1
     return out
 
@@ -626,3 +634,213 @@ def finalize_rows(config, partials, num_points, dths, dls):
                           num_points, dths, dls, 1)
     finalize_launches += 1
     return out
+
+
+# --- K12: the split search's finalize, planned ----------------------------
+# Launches of the fused SLAM step's finalize with KB4's append in it.
+finalize_append_launches = 0
+
+_PLANNED_FINALIZE_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+                          + [ctypes.c_void_p] * 2)
+_FINALIZE_APPEND_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+                         + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                         + [ctypes.c_void_p] * 4)
+
+
+def gathered_rows(gathered, A: int):
+    """The partials [R, A, 12] of all A angles in angle order, read from a
+    split search's gathered send buffers [S, R, blk, 12] (blk = ceil(A /
+    S)) by the finalize's rule: rank s's [R, n_s, 12] block (n_s = min(blk,
+    A - s * blk) angles, none past the lattice's end) starts its buffer,
+    whose tail is never read."""
+    S, R, blk = gathered.shape[:3]
+    if blk != -(-A // S):
+        raise ValueError(f"{S} blocks of {blk} angles do not split {A}")
+    flat = gathered.reshape(S, -1)
+    parts = [flat[s, :R * n * _PARTIAL].view(R, n, _PARTIAL)
+             for s, n in ((s, min(blk, A - s * blk)) for s in range(S))
+             if n > 0]
+    return torch.cat(parts, 1)
+
+
+def finalize_gathered_twin(config, gathered, num_points, dths, dls):
+    """Plain-PyTorch ``SplitPlan.finalize``: [R, 13] from the gathered send
+    buffers [S, R, blk, 12] read in place (``gathered_rows``), folded as
+    ``finalize_rows_twin`` folds them."""
+    return finalize_rows_twin(config, gathered_rows(gathered, dths.shape[0]),
+                              num_points, dths, dls)
+
+
+def finalize_append_twin(config, gathered, num_points, dths, dls, append):
+    """Plain-PyTorch ``SplitPlan.finalize`` with the fused step's append
+    (``append``, a ``kernels.slam_step.Append`` at R = 1): the finalize's
+    [1, 13] row, then KB4's twin from its correction and covariance."""
+    out = finalize_gathered_twin(config, gathered, num_points, dths, dls)
+    kb4.append_twin(append.plan.state, append.est_pose, out[0, 1:4],
+                    out[0, 4:13].view(3, 3), append.scan_points,
+                    append.scan_mask, append.i, append.j, append.has_prior)
+    return out
+
+
+class _SplitFinalize(ctypes.Structure):
+    """``struct SplitFinalize`` (``csrc/candidate_scores.cu``)."""
+
+    _fields_ = ([(f, ctypes.c_void_p) for f in ("gathered", "dths", "dls")]
+                + [(f, ctypes.c_int) for f in ("R", "A", "L", "blk",
+                                               "max_beams")])
+
+
+@functools.lru_cache(maxsize=None)
+def _planned_functions():
+    """The planned finalize's two entries, after checking that
+    ``_SplitFinalize`` has the C structure's size."""
+    theirs = _build.function("ndt2d_split_plan_size", [])()
+    if ctypes.sizeof(_SplitFinalize) != theirs:
+        raise RuntimeError(f"SplitFinalize of {ctypes.sizeof(_SplitFinalize)}"
+                           f" bytes, the kernels' {theirs}")
+    return (_build.function("ndt2d_candidate_finalize_planned",
+                            _PLANNED_FINALIZE_ARGS),
+            _build.function("ndt2d_candidate_finalize_append",
+                            _FINALIZE_APPEND_ARGS))
+
+
+class SplitPlan:
+    """K12's split K2 search of R rows on one rank of a ``space`` line of
+    S ranks, planned once for (device, S, R, A, L, the form of
+    ``num_points``): the rank's send buffer of R x blk partials (blk =
+    ceil(A / S)), whose head [R, n, 12] the partials launch writes
+    (``head``), the stack [S, R x blk x 12] the all-gather writes, and the
+    finalize's arguments packed into two ``SplitFinalize`` structures, one
+    reading the stack and one reading the send buffer (a group of one rank
+    gathers nothing: the send buffer is the stack), with the lattice and
+    ``max_beams`` (checked and packed again when they change: the
+    matcher's lattice is cached, ``_search_offsets``).  ``finalize`` reads
+    the stack in place, with no reordering copy, and makes one ctypes call
+    with the structure, the row counts, the output and the stream; it
+    allocates the [R, 13] output a call (a caller may keep a search's rows
+    while the next search runs).  Plans are kept (``split_plan``); every
+    launch of a plan's buffers runs on the current stream, in issue order.
+    On CPU tensors ``finalize`` runs ``finalize_gathered_twin`` (with an
+    append, ``finalize_append_twin``)."""
+
+    def __init__(self, device, shards: int, R: int, A: int, L: int,
+                 nums: bool):
+        if not 1 <= A <= 512 or L * L > 1024 or shards < 1 or R < 1:
+            raise ValueError(f"a split of {A}x{L}x{L} candidates over "
+                             f"{shards} ranks, {R} rows, is outside the "
+                             "kernel's range")
+        self.device = torch.device(device)
+        self.eager = self.device.type == "cpu"
+        self.shards, self.R, self.A, self.L = shards, R, A, L
+        self.blk = blk = -(-A // shards)
+        n = R * blk * _PARTIAL
+        buf = torch.empty((shards + 1) * n, dtype=torch.float32,
+                          device=self.device)
+        self.send = buf[:n]
+        self.stack = buf[n:].view(shards, n)
+        self._heads = {}
+        f32 = torch.float32
+        self._lattice_expect = (("dths", f32, (A,)), ("dls", f32, (L,)))
+        self._nums_expect = (("num_points", torch.int32, (R,)),)
+        self._nums = nums
+        self._lattice = (None, None, None)  # (dths, dls, max_beams) packed
+        self._out_shape = (R, 13)
+        self._structs = {t.data_ptr(): _SplitFinalize(t.data_ptr(), None,
+                                                      None, R, A, L, blk, 0)
+                         for t in (self.send, self.stack)}
+        self._at = {k: ctypes.addressof(v) for k, v in self._structs.items()}
+
+    def head(self, n: int):
+        """The send buffer's head [R, n, 12], where a block of n angles'
+        partials go."""
+        view = self._heads.get(n)
+        if view is None:
+            if not 0 < n <= self.blk:
+                raise ValueError(f"{n} angles: a block holds {self.blk}")
+            view = self._heads[n] = self.send[:self.R * n * _PARTIAL].view(
+                self.R, n, _PARTIAL)
+        return view
+
+    def _pack(self, dths, dls, max_beams: int) -> None:
+        """Check the lattice and pack it and ``max_beams`` into both
+        structures."""
+        _build.require_all(self.device, (dths, dls), self._lattice_expect)
+        for st in self._structs.values():
+            st.dths, st.dls, st.max_beams = (dths.data_ptr(), dls.data_ptr(),
+                                             max_beams)
+        self._lattice = (dths, dls, max_beams)
+
+    def finalize(self, config, gathered, num_points, dths, dls, append=None):
+        """[R, 13] output rows from ``gathered``, the send buffer (a group
+        of one) or the stack after the all-gather; bitwise the one-launch
+        search's.  ``num_points`` an int32 [R] tensor or one int, as
+        planned.  ``append`` (a ``kernels.slam_step.Append``, R = 1): the
+        fused step's KB4 in the same launch."""
+        global finalize_launches, finalize_append_launches
+        if self.eager:
+            g = gathered.view(self.shards, self.R, self.blk, _PARTIAL)
+            if append is None:
+                return finalize_gathered_twin(config, g, num_points, dths,
+                                              dls)
+            _append_check(self, append)
+            return finalize_append_twin(config, g, num_points, dths, dls,
+                                        append)
+        at = self._at.get(gathered.data_ptr())
+        if at is None:
+            raise ValueError("gathered: not this plan's send buffer or "
+                             "stack")
+        last = self._lattice
+        if (dths is not last[0] or dls is not last[1]
+                or config.laser_max_beams != last[2]):
+            self._pack(dths, dls, int(config.laser_max_beams))
+        if isinstance(num_points, torch.Tensor) != self._nums:
+            raise TypeError("num_points: not in the planned form")
+        if self._nums:
+            _build.require_all(self.device, (num_points,), self._nums_expect)
+            nums, num = num_points.data_ptr(), 0
+        else:
+            nums, num = None, int(num_points)
+        out = self.send.new_empty(self._out_shape)
+        plain, folded = _planned_functions()
+        st = _build.stream_ptr(self.device)
+        if append is None:
+            _build.check(plain(at, nums, num, out.data_ptr(), st),
+                         "candidate_finalize")
+            finalize_launches += 1
+            return out
+        _append_check(self, append)
+        a = append
+        i, j = int(a.i), int(a.j)
+        _build.check(folded(
+            at, nums, num, out.data_ptr(), a.plan.address,
+            int(bool(a.has_prior)), i, j, max(i - 1, 0),
+            a.est_pose.data_ptr(), a.scan_points.data_ptr(),
+            a.scan_mask.data_ptr(), st), "candidate_finalize_append")
+        finalize_append_launches += 1
+        return out
+
+
+def _append_check(plan: SplitPlan, append) -> None:
+    """Raise unless ``append`` fits a one-row plan on its device."""
+    if plan.R != 1:
+        raise ValueError(f"the append rides in a one-row finalize, not "
+                         f"{plan.R} rows")
+    if append.plan.device != plan.device:
+        raise ValueError(f"the state is on {append.plan.device}, the search "
+                         f"on {plan.device}")
+    append.plan.check_fold(append.est_pose, append.scan_points,
+                           append.scan_mask, append.i, append.j)
+
+
+_SPLIT_PLANS = {}
+
+
+def split_plan(device, shards: int, R: int, A: int, L: int,
+               nums: bool) -> SplitPlan:
+    """The kept ``SplitPlan`` of this key (``nums``: whether the searches
+    pass ``num_points`` as an int32 [R] tensor), made at its first use."""
+    key = (device, shards, R, A, L, nums)
+    plan = _SPLIT_PLANS.get(key)
+    if plan is None:
+        plan = _SPLIT_PLANS[key] = SplitPlan(device, shards, R, A, L, nums)
+    return plan

@@ -112,21 +112,24 @@ def build_window_ndt(config: ScanMatcherConfig, poses, points, point_mask,
 
 
 def _search_rows(config: ScanMatcherConfig, grid: ndt_grid.NDTGrid, tables,
-                 points, point_mask, num_points, poses, mesh=None):
+                 points, point_mask, num_points, poses, mesh=None,
+                 append=None):
     """The lattice search (K2 or K6) of R rows: [R, 13] output rows.  With
-    a ``mesh`` its angles shard over the ``space`` axis (K12)."""
+    a ``mesh`` its angles shard over the ``space`` axis (K12), and
+    ``append`` (the fused SLAM step's KB4) rides in its finalize."""
     kern = search_kernel(config)
     dths, dls = _search_offsets(config, points.device)
     if mesh is None:
         return kern.match_rows(config, grid, tables, points, point_mask,
                                num_points, poses, dths, dls)
     return pmatcher.search_rows(kern, config, mesh, grid, tables, points,
-                                point_mask, num_points, poses, dths, dls)
+                                point_mask, num_points, poses, dths, dls,
+                                append)
 
 
 def match_scan(config: ScanMatcherConfig, grid: ndt_grid.NDTGrid, points,
                point_mask, num_points: int, pose, range_max=None,
-               packed_table=None, mesh=None) -> MatchResult:
+               packed_table=None, mesh=None, append=None) -> MatchResult:
     """Exhaustive 3-DoF search of one scan against a window NDT (K2 or
     K6), then with refine_iterations > 0 its Newton polish from the lattice
     winner (K7, matcher.py:384-393): the refined score and correction, the
@@ -134,8 +137,14 @@ def match_scan(config: ScanMatcherConfig, grid: ndt_grid.NDTGrid, points,
 
     ``packed_table`` is K1's patch table; without it the table is laid out
     from the grid.  With a ``mesh`` the search's angles shard over its
-    ``space`` axis (parallel/matcher.py:48) and the polish is replicated."""
+    ``space`` axis (parallel/matcher.py:48) and the polish is replicated.
+    ``append`` (a ``kernels.slam_step.Append``; a mesh's K2 search without
+    the polish, ``parallel/slam_step.py::append_route``): the fused SLAM
+    step's KB4, written by the search's finalize launch."""
     del range_max  # part of the reference's signature; unused here
+    if append is not None and (mesh is None or config.refine_iterations > 0):
+        raise ValueError("the append rides in a mesh's finalize, with no "
+                         "polish after it")
     if packed_table is None:
         if is_multi_grid(grid):
             packed_table = torch.stack([
@@ -154,7 +163,8 @@ def match_scan(config: ScanMatcherConfig, grid: ndt_grid.NDTGrid, points,
                                cell_size=grid.cell_size, mean=None,
                                information=None, count=None, covariance=None)
         out = _search_rows(config, row, packed_table[None], points[None],
-                           point_mask[None], num_points, pose[None], mesh)
+                           point_mask[None], num_points, pose[None], mesh,
+                           append)
     if config.refine_iterations > 0:
         out = k7.refine(config, grid, packed_table, points, point_mask,
                         num_points, pose, out, config.refine_iterations)

@@ -101,21 +101,26 @@ def _staged(t: torch.Tensor, group) -> bool:
     return t.is_cuda and dist.get_backend(group) != "nccl"
 
 
-def gather(t: torch.Tensor, group) -> torch.Tensor:
+def gather(t: torch.Tensor, group, out=None) -> torch.Tensor:
     """[S, *t.shape]: every rank's ``t`` in group-rank order (an
-    all-gather).  ``group`` None (or of one rank) is this rank alone."""
+    all-gather), written into ``out`` [S, *t.shape] when given (on a
+    group of more than one rank).  ``group`` None (or of one rank) is this
+    rank alone: ``t[None]``, nothing copied."""
     if _alone(group):
         return t[None]
     S = dist.get_world_size(group)
     if not _staged(t, group) and t.is_cuda:
-        out = torch.empty((S, *t.shape), dtype=t.dtype, device=t.device)
+        if out is None:
+            out = torch.empty((S, *t.shape), dtype=t.dtype, device=t.device)
         dist.all_gather_into_tensor(out, t.contiguous(), group=group)
         return out
     src = t.cpu() if t.is_cuda else t.contiguous()
     parts = [torch.empty_like(src) for _ in range(S)]
     dist.all_gather(parts, src, group=group)
-    out = torch.stack(parts)
-    return out.to(t.device) if t.is_cuda else out
+    stacked = torch.stack(parts)
+    if out is not None:
+        return out.copy_(stacked)
+    return stacked.to(t.device) if t.is_cuda else stacked
 
 
 def sum_int(t: torch.Tensor, group=None) -> torch.Tensor:

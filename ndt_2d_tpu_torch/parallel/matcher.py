@@ -7,16 +7,25 @@ runs its search here, then the Newton polish replicated.  The NDT grid
 and the scan are replicated; each rank of a ``space`` line scores a
 contiguous block of ceil(A / S) angles (K12's ``partial_rows`` of K2 or
 K6), the blocks' partials are all-gathered in rank order, and every rank
-folds all of them in angle order (K12's ``finalize_rows``).  The fold is
-the one the one-launch search makes, so the sharded search equals the
+folds all of them in angle order (K12's finalize).  The fold is the one
+the one-launch search makes, so the sharded search equals the
 single-device one bitwise, on every rank.
 
-Padding: the last blocks may hold fewer (or no) angles; their slots carry
-best = +inf and zero sums and are dropped before the fold.  The JAX mesh
-instead pads with angle-0 candidates whose scores it zeroes
+K2's split search runs under a plan (``kernels/candidate_scores.py::
+SplitPlan``): the partials launch writes the head of the plan's send
+buffer, the all-gather writes the plan's stack, and the finalize reads the
+stack in place (a short or empty last block's unread tail is its
+padding).  On an NCCL group, or a group of one rank, no tensor operation
+runs between the partials and the finalize; over gloo the stack comes
+through the host into the plan's stack.  With the fused SLAM step's
+``append`` the finalize also writes KB4's append in the same launch.
+K6's split search pads its blocks with best = +inf and zero sums,
+reorders the stack by a copy and drops the padding before its finalize.
+The JAX mesh instead pads with angle-0 candidates whose scores it zeroes
 (``_padded_angles``); both give the single-device winner, except that on
 an all-zero score field JAX's padded slots tie with the real first
-candidate (its tie-break keeps the real one) while here they never enter.
+candidate (its tie-break keeps the real one) while here they never
+enter.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ import math
 
 import torch
 
+from ndt_2d_tpu_torch.kernels import candidate_scores as k2
 from ndt_2d_tpu_torch.parallel import distributed
 from ndt_2d_tpu_torch.parallel.mesh import (
     SPACE_AXIS, axis_group, axis_rank, axis_size)
@@ -39,17 +49,39 @@ def angle_block(n_angles: int, n_shards: int, shard: int):
 
 
 def search_rows(kern, config, mesh, grid, tables, points, point_mask,
-                num_points, poses, dths, dls):
+                num_points, poses, dths, dls, append=None):
     """The lattice search of R rows with the angle axis sharded over the
     mesh's ``space`` axis: [R, 13] output rows, equal on every rank and
     bitwise equal to ``kern.match_rows`` on one device.  ``kern`` is the
     search's kernel module (K2 or K6); the other arguments are its
-    ``match_rows``' (``num_points`` an int32 [R] tensor or one int)."""
+    ``match_rows``' (``num_points`` an int32 [R] tensor or one int).
+    ``append`` (K2 only, a ``kernels.slam_step.Append``): the fused SLAM
+    step's KB4, carried by the finalize's launch."""
     S = axis_size(mesh, SPACE_AXIS)
-    s = axis_rank(mesh, SPACE_AXIS)
+    a0, n = angle_block(dths.shape[0], S, axis_rank(mesh, SPACE_AXIS))
+    group = axis_group(mesh, SPACE_AXIS)
+    if kern is not k2:
+        if append is not None:
+            raise ValueError("only K2's split search carries the append")
+        return _search_reordered(kern, config, group, S, a0, n, grid, tables,
+                                 points, point_mask, num_points, poses, dths,
+                                 dls)
+    plan = k2.split_plan(points.device, S, points.shape[0], dths.shape[0],
+                         dls.shape[0], isinstance(num_points, torch.Tensor))
+    if n:
+        k2.partial_rows(config, grid, tables, points, point_mask, num_points,
+                        poses, dths, dls, a0, n, out=plan.head(n))
+    every = distributed.gather(plan.send, group, out=plan.stack)
+    return plan.finalize(config, every, num_points, dths, dls, append)
+
+
+def _search_reordered(kern, config, group, S: int, a0: int, n: int, grid,
+                      tables, points, point_mask, num_points, poses, dths,
+                      dls):
+    """K6's split search: this rank's partials padded to its block, the
+    stack reordered into angle order by a copy, the finalize."""
     A = dths.shape[0]
     per = kern.blocks_per_angle(dls)
-    a0, n = angle_block(A, S, s)
     slots = -(-A // S) * per
     R, dev = points.shape[0], points.device
     parts = []
@@ -63,7 +95,7 @@ def search_rows(kern, config, mesh, grid, tables, points, point_mask,
         pad[..., 0].fill_(math.inf)
         parts.append(pad)
     mine = torch.cat(parts, 1) if len(parts) > 1 else parts[0]
-    every = distributed.gather(mine, axis_group(mesh, SPACE_AXIS))
+    every = distributed.gather(mine, group)
     every = every.permute(1, 0, 2, 3).reshape(R, S * slots, 12)
     return kern.finalize_rows(config, every[:, :A * per].contiguous(),
                               num_points, dths, dls)

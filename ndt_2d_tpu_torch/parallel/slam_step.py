@@ -9,8 +9,10 @@ zero-round-trip core step:
      (``matching/matcher.py::match_scan`` with the mesh: K12's split K2
      or K6);
   3. the scan and its odometry constraint appended into the padded
-     buffers in one launch (KB4, ``kernels/slam_step.py``; the constraint
-     is ``core/constraint.py::make_constraint``'s);
+     buffers (KB4, ``kernels/slam_step.py``; the constraint is
+     ``core/constraint.py::make_constraint``'s): in the search's own
+     finalize launch where the search is the split K2 and nothing polishes
+     its winner, else in KB4's planned launch (``append_route``);
   4. every ``optimize_every`` scans, the constraint-sharded solve
      (``parallel/solver.py::solve_multichip``, constraints over
      ``batch``).
@@ -33,6 +35,7 @@ import torch
 
 from ndt_2d_tpu_torch.config import MapperConfig
 from ndt_2d_tpu_torch.device import get_device, upload
+from ndt_2d_tpu_torch.kernels import candidate_scores as k2
 from ndt_2d_tpu_torch.kernels import slam_step as kb4
 from ndt_2d_tpu_torch.matching import matcher
 from ndt_2d_tpu_torch.parallel import solver as psolver
@@ -53,6 +56,9 @@ class SlamState:
     c_information: torch.Tensor  # [C, 3, 3]
     c_num: int
     prev_pose: torch.Tensor      # [3] the last corrected robot pose
+    # KB4's plan of these tensors (``kb4.plan_for``), made at the first step.
+    plan: Optional[kb4.SlamPlan] = dataclasses.field(default=None,
+                                                     repr=False)
 
 
 def init_state(max_scans: int, max_points: int, max_constraints: int,
@@ -71,11 +77,29 @@ def init_state(max_scans: int, max_points: int, max_constraints: int,
         prev_pose=zeros(3))
 
 
+# How a step's KB4 runs (``append_route``).
+FOLDED = "folded"
+PLANNED = "planned"
+
+
+def append_route(mesh, search, refine_iterations: int) -> str:
+    """FOLDED when the append rides in the search's finalize launch: the
+    search is K2's (``search``, the kernel module of
+    ``matching/matcher.py::search_kernel``) split over a ``mesh``, and no
+    Newton polish runs between the search and the append; else PLANNED,
+    KB4's own launch through the state's plan."""
+    if mesh is not None and search is k2 and refine_iterations == 0:
+        return FOLDED
+    return PLANNED
+
+
 def make_slam_step(mesh, config: MapperConfig, range_max: float,
                    optimize_every: int = 8):
     """The SLAM step for ``mesh`` (None: one device) and ``config``."""
     mcfg = config.local_scan_matcher
     depth = config.rolling_depth
+    route = append_route(mesh, matcher.search_kernel(mcfg),
+                         mcfg.refine_iterations)
 
     def step(state: SlamState, scan_points, scan_mask, odom_delta,
              num_points: Optional[int] = None):
@@ -106,14 +130,19 @@ def make_slam_step(mesh, config: MapperConfig, range_max: float,
         grid, table = matcher.build_window_ndt(
             mcfg, state.poses, state.points, state.point_mask, wmask,
             range_max)
-        # 2. The search, angles over the mesh's 'space' axis.
+        # 2. The search, angles over the mesh's 'space' axis; 3. the scan +
+        # odometry constraint append (KB4), folded into the search's
+        # finalize or planned after it.
+        has_prior = i > 0
+        plan = kb4.plan_for(state)
+        fold = (kb4.Append(plan, est_pose, scan_points, scan_mask, i, j,
+                           has_prior) if route == FOLDED else None)
         res = matcher.match_scan(mcfg, grid, scan_points, scan_mask,
                                  num_points, est_pose, packed_table=table,
-                                 mesh=mesh)
-        # 3. Scan + odometry constraint append (KB4).
-        has_prior = i > 0
-        kb4.append(state, est_pose, res.correction, res.covariance,
-                   scan_points, scan_mask, i, j, has_prior)
+                                 mesh=mesh, append=fold)
+        if fold is None:
+            plan.append(est_pose, res.correction, res.covariance,
+                        scan_points, scan_mask, i, j, has_prior)
         state.num_scans = i + 1
         state.c_num = j + 1 if has_prior else j
         # 4. Periodic constraint-sharded pose-graph refinement.
