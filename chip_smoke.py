@@ -17,6 +17,12 @@
                                         # rank and one device, and K2's
                                         # rows hashed (also in an older
                                         # checkout)
+    python3 chip_smoke.py --pf-times  # config 4's filter: the per-scan
+                                      # launches' times, the planned
+                                      # launch's host side, 3 sessions
+                                      # with pf_step ms, the host parts of
+                                      # a step and the particles' sha256
+                                      # (also in an older checkout)
     python3 chip_smoke.py --optimize-times  # the mapper's optimize ms, 3
                                             # runs of the office recipe,
                                             # config 9 and drift, and LM
@@ -117,7 +123,11 @@ Phases (any failure exits non-zero):
     (64 config-3 rows, config 8's match, config 2's window), K9's resample
     at 5000 and 20,000 particles (plain and with recovery), K6 over 32
     coarse rows and at the merge's shape, K12's K6 partials, KB3's field
-    and K3 (M = 1 on config 3's window, G = 4, 5000 poses), K4's
+    and K3 (M = 1 on config 3's window, G = 4, 5000 poses), the filter's
+    per-scan launches at 5000 and 20,000 particles (K9's motion, the SoA
+    K3 batch, the two back to back, K3's particle launch with the motion
+    folded in and with it off; ``pf_rows``) and the planned particle
+    launch's host side piece by piece, K4's
     normal_blocks, dense_system, dense_normal_system (with its bound) and
     lm_step at N_pad 512 and 1024 (lm_step through its one-block launch
     and its cooperative grid, and a solve plan's two launches), K5 at
@@ -192,13 +202,20 @@ Phases (any failure exits non-zero):
     150-scan box (360 beams, seed 2), mapped and saved before [3], is
     loaded; the 150-scan box bag (seed 7) is localized with the particle
     filter (5000 particles, KLD min 500, odometry alphas 0.05, seed 3):
-    mean position error <= 0.10 m and below odometry's, every step on
-    K3-batch and K9; the first three filter steps replayed through the
-    twins with the same draws give the same n_active and particles
-    bitwise; then the scan-match branch on the same map and bag: mean
-    error <= 0.12 m.  Before it, [3] holds K3 over 5000 and over 20,000
-    poses of the config-4 grid against its twin (bitwise, and 64 rows
-    bitwise equal to their M = 1 launch) and K9's motion, resample (plain
+    mean position error <= 0.10 m and below odometry's, every step two
+    launches, K3's particle launch with K9's motion folded in and K9's
+    resample (no K9 motion launch, no other batched K3), the final
+    particles' sha256 printed; the first three filter steps replayed
+    through the twins with the same draws give the same n_active and
+    particles bitwise; then the scan-match branch on the same map and bag:
+    mean error <= 0.12 m.  Before it, [3] holds K3 over 5000 and over
+    20,000 poses of the config-4 grid against its twin (bitwise, and 64
+    rows bitwise equal to their M = 1 launch), K3's particle launch with
+    the motion off (each cell one record of K1's table) bitwise the SoA
+    batch, and with K9's motion folded in bitwise ``motion_twin`` +
+    ``score_batch_twin`` and K9's motion then the SoA batch (the parent
+    design's two launches) on the same draws, 64 rows bitwise their M = 1
+    launch at the moved pose, reproducible; K9's motion, resample (plain
     and recovery), EWMAs and statistics (alone and after an injection)
     against their twins on the same scores and draws at both counts
     (bitwise: n_active, drawn indices, first-occurrence marks, particles,
@@ -210,9 +227,10 @@ Phases (any failure exits non-zero):
     items in device memory) the resample, EWMAs and statistics bitwise
     against their twins; (e) BASELINE config 7 (run_benchmarks.py:
     598-657): 20,000 particles seeded over the free space (K5), 40 scans;
-    the scan it converged at and its final error are printed, not gated;
-    K3-batch and K9 launched every step and no twin ran; the first two
-    steps replayed
+    the scan it converged at, its final error and the final particles'
+    sha256 are printed, not gated; K3's particle launch and K9's resample
+    launched every step (no K9 motion launch) and no twin ran; the first
+    two steps replayed
     through the twins give the same n_active and particles bitwise;
     (h) BASELINE config 6 (run_benchmarks.py:248-303): the 2000-scan office
     bag of (c) with descriptor loop search as ``run --recipe
@@ -258,8 +276,11 @@ Phases (any failure exits non-zero):
     and rank sum launched and the one-launch K2 not, K4's dense_system
     and lm_step twice an LM iteration (around the rank sum); then at
     max_inflight
-    8 (>= 1 closure, final ATE below odometry's); config 2's pipelined
-    dispatch loop on the mesh with the one-rank group's collectives
+    8 (>= 1 closure, final ATE below odometry's); config 4's particle
+    filter on the mesh (a step K9's motion launch, the sharded measurement
+    on K3's particle launch with the motion off, the resample), its final
+    particles bitwise (sha256) the single-device session's; config 2's
+    pipelined dispatch loop on the mesh with the one-rank group's collectives
     forced through NCCL (the mesh path skips them as the identity), under
     CUDA sync-debug "error", its graph and export bitwise the
     single-device pipelined run's; K2's split search with its all-gather
@@ -353,6 +374,8 @@ KERNELS = {
                            "ndt_2d_tpu/matching/matcher.py:424"),
     "pf_motion": ("ndt_2d_tpu_torch/csrc/particle_filter.cu",
                   "ndt_2d_tpu/filter/motion_model.py:21"),
+    "pf_motion_score": ("ndt_2d_tpu_torch/csrc/score_points.cu",
+                        "ndt_2d_tpu/filter/particle_filter.py:152"),
     "pf_resample": ("ndt_2d_tpu_torch/csrc/particle_filter.cu",
                     "ndt_2d_tpu/filter/particle_filter.py:81"),
     "pf_statistics": ("ndt_2d_tpu_torch/csrc/particle_filter.cu",
@@ -559,7 +582,8 @@ def phase_build():
 # spills [3] prints.
 RESOURCE_KERNELS = ("bin_points", "bin_stripe", "sort_cells", "cell_records",
                     "score_angles", "score_points_kernel", "score_pose_kernel",
-                    "dense_normal_system", "window_append_kernel")
+                    "particle_kernel", "dense_normal_system",
+                    "window_append_kernel")
 
 
 def kernel_resources(log: str) -> dict:
@@ -795,6 +819,22 @@ def cost_score_points(mc, grid, points, point_mask, num_points: int, poses):
             M * grids * used * 20)
 
 
+def cost_particles(mc, grid, points, point_mask, num_points: int, poses,
+                   moved=None):
+    """K3's particle launch's (bytes, operations) at poses [M, 3], or with
+    the motion folded in at the ``moved`` poses: each distinct cell record
+    the used beams land in (32 bytes), the used beams, the poses (and the
+    noise read, the moved poses written) and the M scores; ~20 operations
+    a (pose, used beam, grid) and, with the motion, ~40 a particle."""
+    at = poses if moved is None else moved
+    spts, smask, used = used_beams(mc, points, point_mask, num_points)
+    keys = cells_read(mc, grid.origin, grid.cell_size, spts, smask, at)
+    M, grids = at.shape[0], grid.origin.reshape(-1, 2).shape[0]
+    motion = 0 if moved is None else M * (12 + 12)
+    return (32 * keys.numel() + used * 9 + M * 16 + motion,
+            M * grids * used * 20 + (0 if moved is None else 40 * M))
+
+
 def cost_newton(mc, origin, cell_size, count, points, point_mask,
                 num_points: int, start, final, iterations: int):
     """K7's (bytes, operations) for one row: the cells its used beams land
@@ -828,6 +868,7 @@ def reset_counts():
         m.partial_launches = m.finalize_launches = 0
     candidate_scores.finalize_append_launches = 0
     score_points.batch_launches = 0
+    score_points.particle_launches = score_points.record_launches = 0
     descriptors.spectra_launches = 0
     pose_chain.launches = score_points.composed_launches = 0
     correlative.field_launches = correlative.match_launches = 0
@@ -866,7 +907,9 @@ def read_counts() -> dict:
            "descriptor_spectra": descriptors.spectra_launches,
            "descriptor_search": descriptor_search.launches,
            "score_points": score_points.launches,
-           "score_points_batch": score_points.batch_launches,
+           "score_points_batch": score_points.record_launches,
+           "score_points_batch_soa": score_points.batch_launches,
+           "pf_motion_score": score_points.particle_launches,
            "raymarch": raymarch.launches, "newton": newton.launches}
     out.update(normal_blocks.launches)
     out.update(particle_filter.launches)
@@ -1612,6 +1655,9 @@ def pr_times(dev, ident, both, map4, bag4, m4, kf, cfg, win, query):
                   f"scratch saves), host {made:.1f} us a call ({ident})")
         if M == PARTICLES:
             both(f"K3 batch M = {M}", lambda a=c.sa: k3.score_batch(*a), 20)
+    pf_rows(dev, both, m, pcfg, scan, center)
+    if hasattr(k3, "ParticlePlan"):
+        particle_launch_path(dev, m, pcfg, scan, center)
 
     cfg6, bag3 = config6(), office_bag()
     cm = cfg6.coarse_scan_matcher
@@ -1674,6 +1720,211 @@ def pr_times(dev, ident, both, map4, bag4, m4, kf, cfg, win, query):
     both("K3 M = 1, G = 4 (config 8's window)",
          lambda: k3.score_at_pose(*a8), 20)
     window_append_times(dev, both, win, query)
+
+
+def pf_rows(dev, both, m, pcfg, scan, center) -> None:
+    """The filter's per-scan launches through ``both`` at config 4's 5000
+    and config 7's 20,000 particles (``pf_case``'s inputs): K9's motion,
+    the SoA K3 batch at the moved particles, the two back to back (the
+    parent design's step), and, in a tree with K3's particle launch, that
+    launch with the motion folded in and with it off."""
+    from ndt_2d_tpu_torch.kernels import particle_filter as k9
+    from ndt_2d_tpu_torch.kernels import score_points as k3
+    W, H = m.config.grid_cells_x, m.config.grid_cells_y
+    B = m.config.laser_max_beams
+    q, qm, n = scan
+    fused = hasattr(k3, "motion_score")
+    for M in (PARTICLES, GLOBAL_PARTICLES):
+        c = pf_case(m, pcfg, scan, center, M, dev)
+        ma = (c.poses, c.draws.motion, c.scal)
+        ba = (m.grid, W, H, B, q, qm, n)
+        both(f"K9 motion {M}", lambda a=ma: k9.motion(*a), 100)
+        both(f"K3 batch (SoA) {M}", lambda a=ba, p=c.pm: k3.score_batch(*a, p),
+             100)
+        both(f"K9 motion, then K3 batch (SoA) {M}",
+             lambda a=ba, b=ma: k3.score_batch(*a, k9.motion(*b)), 100)
+        if fused:
+            ra = (m.grid, m.packed_table, W, H, B, q, qm, n)
+            both(f"K3 particle launch, motion folded in {M}",
+                 lambda a=ra, b=ma: k3.motion_score(*a, *b), 100)
+            both(f"K3 particle launch, motion off {M}",
+                 lambda a=ra, p=c.pm: k3.score_records(*a, p), 100)
+
+
+def particle_launch_path(dev, m, pcfg, scan, center) -> dict:
+    """The host side of the planned particle launch at config 4's 5000
+    particles, piece by piece (``host_us``, back to back): the whole
+    call, the plan's lookup, the step tensors' check, the two outputs'
+    allocation, the writes of the step's pointers and scalars into the
+    launch block, the stream read (the raw read the plan makes, and
+    ``stream_ptr``'s), the ctypes call; and ``motion_scalars``."""
+    import torch
+
+    from ndt_2d_tpu_torch.filter import motion_model
+    from ndt_2d_tpu_torch.kernels import _build
+    from ndt_2d_tpu_torch.kernels import score_points as k3
+    W, H = m.config.grid_cells_x, m.config.grid_cells_y
+    B = m.config.laser_max_beams
+    q, qm, n = scan
+    c = pf_case(m, pcfg, scan, center, PARTICLES, dev)
+    tab, noise = m.packed_table, c.draws.motion
+    fa = (m.grid, tab, W, H, B, q, qm, n, c.poses, noise, c.scal)
+    k3.motion_score(*fa)
+    plan = k3.particle_plan(m.grid, tab, W, H, B, q, PARTICLES, True)
+    moved, out = c.poses.new_empty(PARTICLES, 3), c.poses.new_empty(PARTICLES)
+    step = (q, qm, c.poses, noise)
+    L = plan.launch
+
+    def block_writes():
+        L.out, L.poses = out.data_ptr(), c.poses.data_ptr()
+        L.points, L.pmask = q.data_ptr(), qm.data_ptr()
+        L.num_points = n
+        L.moved, L.noise = moved.data_ptr(), noise.data_ptr()
+        L.rot1, L.trans, L.rot2, L.s_rot1, L.s_trans, L.s_rot2 = c.scal
+    pieces = {
+        "motion_score": lambda: k3.motion_score(*fa),
+        "particle_plan": lambda: k3.particle_plan(m.grid, tab, W, H, B, q,
+                                                  PARTICLES, True),
+        "require_all (4 tensors)": lambda: _build.require_all(
+            dev, step, plan.expect),
+        "new_empty x 2": lambda: (c.poses.new_empty(PARTICLES),
+                                  c.poses.new_empty(PARTICLES, 3)),
+        "launch block writes": block_writes,
+        "stream read (raw)": plan._stream,
+        "stream_ptr": lambda: _build.stream_ptr(dev),
+        "ctypes call": lambda: plan._fn(plan.address, plan._stream()),
+        "motion_scalars": lambda: motion_model.motion_scalars(
+            0.05, 0.002, 0.03, 0.05, 0.05, 0.05, 0.05)}
+    us = {k: host_us(f, 2000) for k, f in pieces.items()}
+    torch.cuda.synchronize()
+    print("[5] K3 particle launch (5000), launch path, host us a call: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in us.items()))
+    return us
+
+
+class StepParts:
+    """Host time of a filter step's parts (``time.perf_counter_ns`` around
+    each): the draws, the scan uploads, ``motion_scalars``, the particle
+    launch (or, in a tree without it, K9's motion and the K3 batch), the
+    resample and the read of the statistics (``HostCopy.wait``, which
+    waits for the step on the device), summed over the steps after the
+    first two; ``step`` is ``ParticleFilter.step`` whole."""
+
+    def __init__(self):
+        from ndt_2d_tpu_torch import device
+        from ndt_2d_tpu_torch.filter import motion_model
+        from ndt_2d_tpu_torch.filter import particle_filter as pf_mod
+        from ndt_2d_tpu_torch.kernels import particle_filter as k9
+        from ndt_2d_tpu_torch.kernels import score_points as k3
+        self.targets = [
+            ("step", pf_mod.ParticleFilter, "step"),
+            ("draws", pf_mod, "draw_step"), ("uploads", pf_mod, "upload"),
+            ("motion_scalars", motion_model, "motion_scalars"),
+            ("particle launch", k3, "motion_score"),
+            ("K9 motion", k9, "motion"), ("K3 batch", k3, "score_batch"),
+            ("resample", k9, "resample"), ("read", device.HostCopy, "wait")]
+        self.ns = {name: 0 for name, _, _ in self.targets}
+        self.calls = dict(self.ns)
+        self.steps = 0
+        self.saved = []
+
+    def __enter__(self):
+        for name, owner, attr in self.targets:
+            real = getattr(owner, attr, None)
+            if real is None:
+                continue
+            self.saved.append((owner, attr, real))
+
+            def timed_part(*a, _real=real, _name=name, **kw):
+                if _name == "step":
+                    self.steps += 1
+                t0 = time.perf_counter_ns()
+                try:
+                    return _real(*a, **kw)
+                finally:
+                    if self.steps > 2:
+                        self.ns[_name] += time.perf_counter_ns() - t0
+                        self.calls[_name] += 1
+            setattr(owner, attr, timed_part)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, real in self.saved:
+            setattr(owner, attr, real)
+
+    def per_step_us(self) -> dict:
+        n = max(self.calls["step"], 1)
+        out = {k: v / n / 1e3 for k, v in self.ns.items() if self.calls[k]}
+        out["calls a step"] = {k: v / n for k, v in self.calls.items() if v}
+        return out
+
+
+def pf_times(dev, ident: str, runs: int = 3) -> dict:
+    """Config 4's filter as ``--pf-times`` runs it (also in an older
+    checkout): the config-4 map, the per-scan launches' rows (``pf_rows``,
+    ``cuda_ms``, ``graph_ms``, host us), the planned launch's host side,
+    then ``runs`` sessions of config 4 (``phase_config4``'s bag, seed and
+    start), each with its ``pf_step`` section mean, ms/scan median, errors,
+    final particles sha256, launches and the host parts of a step
+    (``StepParts``)."""
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.io.bag import record_synthetic
+    from ndt_2d_tpu_torch.kernels import score_points as k3
+    from ndt_2d_tpu_torch.utils import metrics
+    rows = {}
+
+    def both(name, fn, reps):
+        rows[name] = {"cuda_ms": cuda_ms(fn, reps),
+                      "graph_ms": graph_ms(fn, reps),
+                      "host_us": host_us(fn, 101, sync=True)}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        map4 = os.path.join(tmp, "box_map.npz")
+        bag4 = record_synthetic("box", 150, n_beams=360, seed=2)
+        map_and_save(config4_configs()[0], bag4, map4, dev)
+        m, pcfg, scan, center = pf_setup(map4, bag4, dev)
+        pf_rows(dev, both, m, pcfg, scan, center)
+        for name, t in rows.items():
+            print(f"[5] {name}: {t['cuda_ms']:.4f} ms, in a CUDA graph "
+                  f"{t['graph_ms']:.5f} ms, host {t['host_us']:.1f} us a "
+                  f"call ({ident})")
+        out["rows"] = rows
+        if hasattr(k3, "ParticlePlan"):
+            out["launch_path"] = particle_launch_path(dev, m, pcfg, scan,
+                                                      center)
+        _, cfg = config4_configs()
+        loc_bag = record_synthetic("box", 150, n_beams=360, seed=7,
+                                   odom_trans_noise=0.01)
+        rel = metrics.relative_to_first(loc_bag.truth)
+        scans = [(t, msg, odom) for t, (msg, odom) in enumerate(loc_bag)
+                 if t > 0]
+        out["sessions"] = []
+        for _ in range(runs):
+            reset_counts()
+            loc = localizer(cfg, map4, dev, 3)
+            loc.set_initial_pose(rel[0], np.diag([0.04, 0.04, 0.01]),
+                                 loc_bag.truth[0])
+            with StepParts() as parts:
+                errs, _, times = track(loc, scans, rel)
+            torch.cuda.synchronize()
+            timer = loc.stats.timer
+            r = dict(pf_step_mean_ms=timer.total["pf_step"] * 1e3
+                     / timer.count["pf_step"],
+                     ms_scan_median=float(np.median(times[2:]) * 1e3),
+                     mean_err=float(np.mean(errs)),
+                     final_err=float(errs[-1]), steps=len(errs),
+                     digest=poses_digest(loc.filter.particles.cpu().numpy()),
+                     launches={k: v for k, v in read_counts().items() if v},
+                     parts_us=parts.per_step_us())
+            print(f"[4d] config 4 session: pf_step {r['pf_step_mean_ms']} ms "
+                  f"mean, {r['ms_scan_median']} ms/scan median, error mean "
+                  f"{r['mean_err']:.4f} final {r['final_err']:.4f} m, "
+                  f"particles sha256 {r['digest']}; host us a step "
+                  f"{r['parts_us']}; launches {r['launches']} ({ident})")
+            out["sessions"].append(r)
+    return out
 
 
 def config3_window(bag3, dev):
@@ -3713,13 +3964,18 @@ def pf_case(m, pcfg, scan, center, M, dev):
 
 
 def pf_kernels_at(m, pcfg, scan, center, M, dev):
-    """K3 over M poses around ``center`` and K9 on those scores: each
-    bitwise equal to its twin and reproducible; returns the times."""
+    """K3 over M poses around ``center`` (the SoA batch and the particle
+    launch with the motion off, reading K1's table), the particle launch
+    with K9's motion folded in, and K9 on those scores: each bitwise equal
+    to its twin and reproducible, the fused launch also to the parent
+    design's two launches (K9's motion, then the SoA batch) on the same
+    draws; returns the times."""
     import torch
 
     from ndt_2d_tpu_torch.kernels import particle_filter as k9
     from ndt_2d_tpu_torch.kernels import score_points as k3
     W, H = m.config.grid_cells_x, m.config.grid_cells_y
+    B = m.config.laser_max_beams
     c = pf_case(m, pcfg, scan, center, M, dev)
     q, qm, n = scan
     sa, sc, poses = c.sa, c.sc, c.poses
@@ -3734,13 +3990,66 @@ def pf_kernels_at(m, pcfg, scan, center, M, dev):
                 "from its M = 1 launch")
     require(torch.equal(k3.score_batch(*sa), sc),
             f"K3 batch ({M} poses) not bitwise reproducible")
+    # The particle launch with the motion off: each cell read as a record
+    # of K1's table, the SoA batch's bits.
+    ra = (m.grid, m.packed_table, W, H, B, q, qm, n, poses)
+    rs, rst = k3.score_records(*ra), k3.records_twin(*ra)
+    torch.cuda.synchronize()
+    require(torch.equal(rs, sc) and torch.equal(rst, sct),
+            f"K3's particle launch, motion off ({M} poses), differs from "
+            "the SoA batch or its twin from the SoA twin")
+    require(torch.equal(k3.score_records(*ra), rs),
+            f"K3's particle launch, motion off ({M}), not reproducible")
     print(f"[3] K3 batch: {M} poses on the config-4 grid ({W}x{H}), "
           f"scores {float(sc.min()):.4f}..{float(sc.max()):.4f}, bitwise "
-          f"equal to the twin, 64 rows bitwise equal to their M = 1 launch")
+          f"equal to the twin, 64 rows bitwise equal to their M = 1 launch; "
+          f"the particle launch with the motion off (one record a beam from "
+          f"K1's table) bitwise the SoA batch, its twin the SoA twin")
     out = {"score_points_batch": timed(
-        max_abs_diff([(sc, sct)]), cuda_ms(lambda: k3.score_batch(*sa), 20),
-        cuda_ms(lambda: k3.score_batch_twin(*sa), 5),
-        *cost_score_points(m.config, m.grid, q, qm, n, poses))}
+        max_abs_diff([(rs, rst)]), cuda_ms(lambda: k3.score_records(*ra), 20),
+        cuda_ms(lambda: k3.records_twin(*ra), 5),
+        *cost_particles(m.config, m.grid, q, qm, n, poses))}
+
+    # K9's motion folded into the particle launch, on the step's draws.
+    draws, scal = c.draws, c.scal
+    fa = (m.grid, m.packed_table, W, H, B, q, qm, n, poses, draws.motion,
+          scal)
+    fm, fs = k3.motion_score(*fa)
+    tm = k9.motion_twin(poses, draws.motion, scal)
+    ts = k3.score_batch_twin(m.grid, W, H, B, q, qm, n, tm)
+    rtm, rts = k3.motion_score_twin(*fa)
+    pm2 = k9.motion(poses, draws.motion, scal)
+    ps2 = k3.score_batch(m.grid, W, H, B, q, qm, n, pm2)
+    torch.cuda.synchronize()
+    require(torch.equal(fm, tm) and torch.equal(fs, ts),
+            f"the fused launch ({M}) differs from motion_twin + "
+            "score_batch_twin")
+    require(torch.equal(rtm, tm) and torch.equal(rts, ts),
+            f"the fused twin ({M}) differs from motion_twin + "
+            "score_batch_twin")
+    require(torch.equal(fm, pm2) and torch.equal(fs, ps2),
+            f"the fused launch ({M}) differs from K9's motion then the SoA "
+            "batch (the parent design's two launches)")
+    for i in range(0, M, M // 64):
+        one = k3.score_at_pose(m.grid, W, H, B, q, qm, n, fm[i])
+        require(torch.equal(one, fs[i]), f"fused row {i} of {M} differs "
+                "from its M = 1 launch at the moved pose")
+    fm2, fs2 = k3.motion_score(*fa)
+    torch.cuda.synchronize()
+    require(torch.equal(fm2, fm) and torch.equal(fs2, fs),
+            f"the fused launch ({M}) not bitwise reproducible")
+    stride = m.packed_table.shape[-1]
+    print(f"[3] K3's particle launch with K9's motion folded in: {M} "
+          f"particles moved and scored in one launch ({stride}-float "
+          f"table rows), moved particles and scores bitwise equal to "
+          f"motion_twin + score_batch_twin and to K9's motion then the SoA "
+          f"batch, 64 rows bitwise their M = 1 launch at the moved pose, "
+          f"reproducible")
+    out["pf_motion_score"] = timed(
+        max_abs_diff([(fm, tm), (fs, ts)]),
+        cuda_ms(lambda: k3.motion_score(*fa), 20),
+        cuda_ms(lambda: k3.motion_score_twin(*fa), 5),
+        *cost_particles(m.config, m.grid, q, qm, n, poses, fm))
 
     # K9 on those scores, with one set of draws for kernel and twin.
     draws, scal, pm, n_in, w0 = c.draws, c.scal, c.pm, c.n_in, c.w0
@@ -3900,7 +4209,8 @@ class TwinTrap:
     """Counts calls of the K3-batch and K9 twins while it is active."""
 
     NAMES = {"score_points": ("score_batch_twin", "score_at_pose_twin",
-                              "score_composed_twin"),
+                              "score_composed_twin", "records_twin",
+                              "motion_score_twin"),
              "particle_filter": ("motion_twin", "resample_twin",
                                  "statistics_twin")}
 
@@ -3976,9 +4286,7 @@ def phase_config4(path_map, keyframes, dev):
     require(steps >= 50, f"PF accepted {steps} of {len(scans)} scans")
     # Odometry alone over the same scans, from the same initial pose.
     odom_err = float(np.mean(np.hypot(*(odom_rel[ts, :2] - rel[ts, :2]).T)))
-    for k in ("score_points_batch", "pf_motion", "pf_resample"):
-        require(launches[k] == steps,
-                f"{k} launched {launches[k]} times, expected {steps}")
+    one_device_pf_launches(launches, steps, "config 4")
     require(launches["pf_statistics"] >= 1, "pf_statistics never launched")
     require(launches["ndt_build"] >= 1, "the global NDT was not built")
     mean_err, final_err = float(np.mean(errs)), float(errs[-1])
@@ -3987,13 +4295,15 @@ def phase_config4(path_map, keyframes, dev):
     require(mean_err < odom_err, f"PF mean error {mean_err} not below "
             f"odometry's {odom_err}")
     pf_t = loc.stats.timer.summary()["pf_step"]
+    digest = poses_digest(loc.filter.particles.cpu().numpy())
     print(f"[4d] config 4: {keyframes}-keyframe box map saved and loaded; "
           f"PF {PARTICLES} particles over {steps} accepted of "
           f"{len(scans)} scans: mean position "
           f"error {mean_err:.4f} m, final {final_err:.4f} m (odometry "
           f"{odom_err:.4f} m), {np.median(times[2:]) * 1e3:.3f} ms/scan "
           f"median, pf_step {pf_t['mean_ms']:.3f} ms x {pf_t['count']}, "
-          f"n_active at the end {loc.filter.n_active}; launches {launches}")
+          f"n_active at the end {loc.filter.n_active}, final particles "
+          f"sha256 {digest}; launches {launches}")
     phase_pf_replay(rec, "[4d]", 3)
 
     # The scan-match branch on the same map and bag.
@@ -4016,7 +4326,20 @@ def phase_config4(path_map, keyframes, dev):
           f"{np.median(stimes[2:]) * 1e3:.3f} ms/scan median; launches "
           f"{sm_launches}")
     return launches, dict(pf=float(np.median(times[2:]) * 1e3),
-                          sm=float(np.median(stimes[2:]) * 1e3))
+                          sm=float(np.median(stimes[2:]) * 1e3),
+                          digest=digest)
+
+
+def one_device_pf_launches(launches, steps: int, what: str) -> None:
+    """A one-device filter step is two launches: K3's particle launch with
+    K9's motion folded in and K9's resample chain; no K9 motion launch and
+    no other batched scoring."""
+    for k in ("pf_motion_score", "pf_resample"):
+        require(launches[k] == steps, f"{what}: {k} launched {launches[k]} "
+                f"times, expected {steps}")
+    for k in ("pf_motion", "score_points_batch", "score_points_batch_soa"):
+        require(launches[k] == 0, f"{what}: {k} launched {launches[k]} "
+                "times on one device, expected 0")
 
 
 def twin_step(draws, particles, n, control, mcfg, grid, points, point_mask,
@@ -4112,17 +4435,16 @@ def phase_config7(path_map, dev):
         launches = read_counts()
     require(trap.calls == 0, f"{trap.calls} twin calls on the CUDA path")
     steps = len(errs)
-    for k in ("score_points_batch", "pf_motion", "pf_resample"):
-        require(launches[k] == steps, f"config 7: {k} launched "
-                f"{launches[k]} times, expected {steps}")
+    one_device_pf_launches(launches, steps, "config 7")
     require(launches["raymarch"] >= 1, "config 7: the free space was not "
             "rendered on K5")
     conv = next((int(t) for t, e in zip(ts, errs) if e < 0.5), None)
     print(f"[4e] config 7: {GLOBAL_PARTICLES} particles over the free space "
           f"(initial x variance {spread:.3f} m^2), {steps} scans; converged "
           f"(< 0.5 m) at scan {conv}, final error {float(errs[-1]):.4f} m, "
-          f"{np.median(times[2:]) * 1e3:.3f} ms/scan median; no twin ran; "
-          f"launches {launches}")
+          f"{np.median(times[2:]) * 1e3:.3f} ms/scan median, final particles "
+          f"sha256 {poses_digest(loc.filter.particles.cpu().numpy())}; no "
+          f"twin ran; launches {launches}")
     phase_pf_replay(rec, "[4e]", 2)
     return launches
 
@@ -5517,9 +5839,7 @@ def phase_pipelined_config4(path_map, dev, sync_ms):
     mean_err = float(np.mean(errs))
     require(steps >= 50, f"pipelined PF accepted {steps} of {len(scans)} "
             "scans")
-    for k in ("score_points_batch", "pf_motion", "pf_resample"):
-        require(launches[k] == steps, f"pipelined PF: {k} launched "
-                f"{launches[k]} times, expected {steps}")
+    one_device_pf_launches(launches, steps, "pipelined PF")
     require(np.isfinite(errs).all() and mean_err <= 0.10,
             f"pipelined PF mean error {mean_err} > 0.10 m")
     require(mean_err < odom_err, f"pipelined PF mean error {mean_err} not "
@@ -6353,10 +6673,42 @@ def split_glue(dev, mesh, bag3):
     return seen
 
 
-def phase_mesh_nccl(cfg, bag, cfg6, bag3, dev, tmp):
+def pf_mesh_session(path_map, dev, mesh):
+    """Config 4's particle filter (``phase_config4``'s bag, seed and start)
+    through ``Mapper(mesh=mesh)``: a step is K9's motion launch, the
+    sharded measurement (K3's particle launch with the motion off) and the
+    resample.  Returns (launches, steps, mean error, final particles
+    sha256)."""
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.io.bag import record_synthetic
+    from ndt_2d_tpu_torch.mapping.mapper import LOAD_FROM_FILE, Mapper
+    from ndt_2d_tpu_torch.utils import metrics
+    _, cfg = config4_configs()
+    loc_bag = record_synthetic("box", 150, n_beams=360, seed=7,
+                               odom_trans_noise=0.01)
+    rel = metrics.relative_to_first(loc_bag.truth)
+    scans = [(t, msg, odom) for t, (msg, odom) in enumerate(loc_bag)
+             if t > 0]
+    reset_counts()
+    loc = Mapper(cfg, seed=3, device=dev, mesh=mesh)
+    loc.configure(LOAD_FROM_FILE, path_map)
+    loc.set_initial_pose(rel[0], np.diag([0.04, 0.04, 0.01]),
+                         loc_bag.truth[0])
+    errs, _, _ = track(loc, scans, rel)
+    torch.cuda.synchronize()
+    return (read_counts(), len(errs), float(np.mean(errs)),
+            poses_digest(loc.filter.particles.cpu().numpy()))
+
+
+def phase_mesh_nccl(cfg, bag, cfg6, bag3, dev, tmp, pf_digest):
     """The mesh path on one rank over NCCL (cuda:0): config 10 through
     ``Mapper(mesh=make_mesh(1))`` synchronously and at max_inflight 8,
-    beside the single-device run of the same bag; config 2's pipelined
+    beside the single-device run of the same bag; config 4's particle
+    filter on the mesh (K9's motion launch and the sharded measurement a
+    step), its final particles bitwise the single-device session's
+    (``pf_digest``); config 2's pipelined
     dispatch loop and export on the mesh with the one-rank collectives
     forced through NCCL, the loop under CUDA sync-debug "error"; config 6
     (descriptor search, far rows on K6) on the mesh beside the
@@ -6364,7 +6716,7 @@ def phase_mesh_nccl(cfg, bag, cfg6, bag3, dev, tmp):
     single-device run with the solve forced to PCG; the time of
     ``distributed.gather`` through NCCL at the solver's shape.  Returns
     (config 10's launches, config 6's, the gather ms, the single-device
-    config-10 run)."""
+    config-10 run, the mesh filter's launches)."""
     import dataclasses
 
     import numpy as np
@@ -6457,6 +6809,23 @@ def phase_mesh_nccl(cfg, bag, cfg6, bag3, dev, tmp):
               f"closures, final ATE {pfinal:.4f} m, "
               f"{float(np.median(pdt[pacc][4:]) * 1e3):.3f} ms per accepted "
               f"scan, session {pwall:.3f} s")
+        pf_launches, steps, pf_err, digest = pf_mesh_session(
+            os.path.join(tmp, "box_map.npz"), dev, mesh)
+        for k in ("pf_motion", "score_points_batch", "pf_resample"):
+            require(pf_launches[k] == steps, f"config 4's filter on the "
+                    f"mesh: {k} launched {pf_launches[k]} times, expected "
+                    f"{steps}")
+        require(pf_launches["pf_motion_score"] == 0, "config 4's filter on "
+                "the mesh launched the one-device fused step")
+        require(digest == pf_digest, f"config 4's filter on the mesh: final "
+                f"particles sha256 {digest}, one device's {pf_digest}")
+        print(f"[4p] config 4's particle filter on the mesh: {steps} steps, "
+              f"mean position error {pf_err:.4f} m, final particles sha256 "
+              f"{digest}, bitwise the single-device session's; a step K9's "
+              f"motion, the sharded measurement and the resample "
+              f"(pf_motion {pf_launches['pf_motion']}, score_points_batch "
+              f"{pf_launches['score_points_batch']}, pf_motion_score "
+              f"{pf_launches['pf_motion_score']})")
         mesh_sync_debug(dev, mesh)
         split_glue(dev, mesh, bag3)
         # Config 6: descriptor search (query rows over 'batch') and far rows
@@ -6516,7 +6885,7 @@ def phase_mesh_nccl(cfg, bag, cfg6, bag3, dev, tmp):
               f"{gather_ms:.4f} ms")
     finally:
         dist.destroy_process_group()
-    return launches, dlaunch, gather_ms, s
+    return launches, dlaunch, gather_ms, s, pf_launches
 
 
 def mesh_sync_debug(dev, mesh):
@@ -6620,7 +6989,7 @@ def mesh_rank(out_dir, space: int, batch: int, map4: str,
     poses = (center + torch.randn(PARTICLES, 3, generator=gen, device=dev)
              * torch.tensor([0.2, 0.2, 0.05], device=dev)).contiguous()
     sc = pfilter.measure_multichip(m.config, mesh, m.grid, q, qm,
-                                   int(msk.sum()), poses)
+                                   int(msk.sum()), poses, m.packed_table)
     one = k3.score_batch(m.grid, m.config.grid_cells_x, m.config.grid_cells_y,
                          m.config.laser_max_beams, q, qm, int(msk.sum()),
                          poses)
@@ -7491,6 +7860,13 @@ def main() -> int:
         phase_build()
         mesh_district_times(dev, ident)
         return 0
+    if "--pf-times" in sys.argv[1:]:
+        from ndt_2d_tpu_torch.device import get_device
+        dev = get_device("cuda:0")
+        ident = phase_card()
+        phase_build()
+        print(json.dumps({"pf_times": pf_times(dev, ident), "card": ident}))
+        return 0
     if "--kernel-times" in sys.argv[1:]:
         from ndt_2d_tpu_torch.device import get_device
         from ndt_2d_tpu_torch.io.bag import record_synthetic
@@ -7549,8 +7925,9 @@ def main() -> int:
             phase_pipelined_config4(map4, dev, sync4)
             phase_config7(os.path.join(tmp, "office_map.npz"), dev)
             cfg10, bag10 = config10()
-            (k12_launches, k12_desc_launches, gather_ms,
-             single10) = phase_mesh_nccl(cfg10, bag10, cfg6, bag3, dev, tmp)
+            (k12_launches, k12_desc_launches, gather_ms, single10,
+             pf_mesh_launches) = phase_mesh_nccl(cfg10, bag10, cfg6, bag3,
+                                                 dev, tmp, sync4["digest"])
             mesh_district = phase_mesh_shared(cfg10, bag10, single10,
                                               district_poses, truth, map4,
                                               tmp, dev)
@@ -7573,7 +7950,7 @@ def main() -> int:
     # Launch counts from the config-3 session, which runs every kernel but
     # K4's PCG entries and the mesh's dense system (one device's dense
     # path launches dense_normal_system instead of normal_blocks and
-    # dense_system), the batched K3 and K9; the PCG solve's and the
+    # dense_system), K3's particle launch and K9; the PCG solve's and the
     # blocks' from the district solve, the CG loop's forms from the
     # district solve by solve_multichip on the (1, 2) gloo mesh (rank 0;
     # the mesh's planned CG loop: the matvec plain and forming the
@@ -7585,9 +7962,12 @@ def main() -> int:
     launches["dense_system"] = k12_launches["dense_system"]
     for k in CG_FORMS:
         launches[k] = mesh_district[(1, 2)][k]
-    for k in ("score_points_batch", "pf_motion", "pf_resample",
-              "pf_statistics"):
+    for k in ("pf_motion_score", "pf_resample", "pf_statistics"):
         launches[k] = pf_launches[k]
+    # K9's own motion launch and K3's particle launch with the motion off
+    # (0 on one device's step): config 4's filter on the one-rank mesh.
+    for k in ("pf_motion", "score_points_batch"):
+        launches[k] = pf_mesh_launches[k]
     # K7 and the G = 4 launches of K1/K2/K3 from the config-8 session.
     launches["newton"] = c8_launches["newton"]
     for k in ("ndt_build", "candidate_scores", "score_points"):

@@ -36,4 +36,11 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
+// core/pose.py::normalize_angle in float32: t - 2 pi floor((t + pi) / 2 pi).
+__device__ __forceinline__ float normalize_angle(float t) {
+  constexpr float kPi = 3.14159265358979323846f;
+  constexpr float kTwoPi = 6.28318530717958647692f;
+  return t - kTwoPi * floorf((t + kPi) / kTwoPi);
+}
+
 }  // namespace ndt2d

@@ -13,7 +13,10 @@
 // them (a CDF, a draw, a first-occurrence mark, a prefix count, weighted
 // sums), each a few microseconds wide.  Two launches a resample:
 //  * pf_motion: one thread per particle (rot-trans-rot sample with pre-drawn
-//    standard normals and host-computed scalars).
+//    standard normals and host-computed scalars; the body in pf_motion.cuh,
+//    which K3's particle launch, score_points.cu, also runs: on one device
+//    the filter's step folds the motion into that launch, and this one
+//    serves the mesh's step and ParticleFilter.update).
 //  * pf_chain: everything else in one cooperative launch of `blocks` blocks
 //    (kernels/particle_filter.py::plan), phases separated by grid syncs:
 //    the masked weight total (and, with recovery, the sum of the negated
@@ -52,6 +55,7 @@
 #include <limits.h>
 
 #include "common.cuh"
+#include "pf_motion.cuh"
 
 namespace {
 
@@ -62,8 +66,6 @@ constexpr int kChunks = 1024;             // chunks of every sum
 constexpr int kPer = kChunks / kThreads;  // chunk sums a thread folds
 constexpr int kSums = 7;                  // the most sums of one stage
 constexpr int kWarps = kThreads / 32;
-constexpr float kPi = 3.14159265358979323846f;
-constexpr float kTwoPi = 6.28318530717958647692f;
 
 // Modes of pf_chain (update_statistics ends every mode but kRecovery
 // alone).
@@ -83,10 +85,7 @@ enum Region {
   kRegions
 };
 
-// core/pose.py::normalize_angle in float32.
-__device__ __forceinline__ float normalize_angle(float t) {
-  return t - kTwoPi * floorf((t + kPi) / kTwoPi);
-}
+using ndt2d::normalize_angle;
 
 __device__ __forceinline__ unsigned key_hash(int a, int b, int c) {
   unsigned h = (unsigned)a * 73856093u;
@@ -296,19 +295,15 @@ __device__ __forceinline__ int search(const float* cdf, int M, int levels,
 }
 
 __global__ void pf_motion(const float* __restrict__ in,
-                          const float* __restrict__ noise, int M, float rot1,
-                          float trans, float rot2, float s_rot1,
-                          float s_trans, float s_rot2,
-                          float* __restrict__ out) {
+                          const float* __restrict__ noise, int M,
+                          ndt2d::Motion mo, float* __restrict__ out) {
   const int m = blockIdx.x * blockDim.x + threadIdx.x;
   if (m >= M) return;
-  const float r1 = rot1 + noise[3 * m] * s_rot1;
-  const float t = trans + noise[3 * m + 1] * s_trans;
-  const float r2 = rot2 + noise[3 * m + 2] * s_rot2;
-  const float a = in[3 * m + 2] + r1;
-  out[3 * m] = in[3 * m] + t * cosf(a);
-  out[3 * m + 1] = in[3 * m + 1] + t * sinf(a);
-  out[3 * m + 2] = normalize_angle(a + r2);
+  float p[3];
+  ndt2d::motion_sample(in + 3 * m, noise + 3 * m, mo, p);
+  out[3 * m] = p[0];
+  out[3 * m + 1] = p[1];
+  out[3 * m + 2] = p[2];
 }
 
 __global__ void __launch_bounds__(kThreads) pf_chain(const Chain a) {
@@ -713,7 +708,7 @@ NDT2D_API int ndt2d_pf_motion(const void* particles, const void* noise, int M,
   pf_motion<<<(M + kThreads - 1) / kThreads, kThreads, 0,
               reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(particles), static_cast<const float*>(noise),
-      M, rot1, trans, rot2, s_rot1, s_trans, s_rot2,
+      M, ndt2d::Motion{rot1, trans, rot2, s_rot1, s_trans, s_rot2},
       static_cast<float*>(out));
   return (int)cudaGetLastError();
 }

@@ -21,18 +21,18 @@
 // depends neither on M, nor on its index, nor on the layout below: a
 // particle's score and the scan's score at the same pose are the same bits.
 //
-// Two layouts.  M > 1 (the particle filter): one warp per pose, kWarps
-// poses per block; each block stages the subsampled beams in shared memory,
-// at most kChunk at a time (they are the same for every pose), and lane l
-// evaluates its beams one after another.  M = 1 (score_at_pose, and the
-// G = 4 grids of config 8): the pose gets a whole block.  Its threads
-// evaluate up to kPoseThreads slots a pass at once, thread t slot
-// base + t, each term's G grid gathers issued together (the grid loop is
-// unrolled for G = 1 and 4), and stage the terms in shared memory; warp 0
-// then adds them in the order above, lane l slots l, l + 32, ... of the
-// pass, while the other warps go on to the next pass (two buffers, one
-// barrier a pass).  Only the arithmetic runs in parallel; every addition
-// keeps its place.
+// Two layouts of the SoA read.  M > 1 (score_batch, KB2's stripes; the
+// particle filter's own launch is particle_kernel, below): one warp per pose,
+// kWarps poses per block; each block stages the subsampled beams in shared
+// memory, at most kChunk at a time (they are the same for every pose), and
+// lane l evaluates its beams one after another.  M = 1 (score_at_pose, and the
+// G = 4 grids of config 8): the pose gets a whole block.  Its threads evaluate
+// up to kPoseThreads slots a pass at once, thread t slot base + t, each term's
+// G grid gathers issued together (the grid loop is unrolled for G = 1 and 4),
+// and stage the terms in shared memory; warp 0 then adds them in the order
+// above, lane l slots l, l + 32, ... of the pass, while the other warps go on
+// to the next pass (two buffers, one barrier a pass).  Only the arithmetic
+// runs in parallel; every addition keeps its place.
 //
 // The pipelined step's start pose (K13's compose, matcher.py::
 // mapping_step_async :660-664, localization_step_async :691-695) can be
@@ -40,6 +40,26 @@
 // dead-reckons the pose with pose_chain.cu's expressions (the same cosf /
 // sinf / atan2f, the same order), thread 0 writes it to pose_out for the
 // search that follows, and the score uses it.
+//
+// The particle filter's launch (particle_kernel, M poses, a warp each):
+// with motion on, each pose's warp first moves its particle by K9's motion
+// sample (pf_motion.cuh, the body K9's own launch runs; ndt_2d_tpu/filter/
+// particle_filter.py::pf_step's motion_model.sample) and lane 0 writes the
+// moved pose; with motion off it scores the poses as given (the mesh's
+// sharded measurement).  It reads each beam's cell as one record, the first
+// 32 bytes of a row of K1's patch table (or of a [C, 8] cell table): mean
+// x, mean y, i00, i01, i11 and the count >= 5 flag, the same bits as the
+// SoA arrays (ndt/grid.py::packed_cell_table), two 16-byte loads from one
+// 32-byte sector where the SoA gathers make five loads over three sectors.
+// Lane l adds slots l, l + 32, ... from 0, then the same shuffle tree and
+// -sum / max(used, 1): every score is score_points_kernel's and
+// score_pose_kernel's at the same pose, bit for bit.  The launch asks for
+// kParticleBlocks blocks an SM (32 registers), so config 7's 20,000 poses
+// take three waves of the card, not five.  Loading a lane's next terms'
+// records together (2 or 4 at a time), a block of eight poses whose
+// (pose, beam) terms are spread over all its threads, and an approximate
+// division with an exact fallback were each timed and were no faster
+// (PERF.md §6, the particle launch).
 //
 // KB2, the stripe scores: one device's share of the scoring against a
 // y-stripe-sharded map, ndt_2d_tpu/parallel/ndt_blocks.py::
@@ -53,18 +73,49 @@
 // world points are scored at the identity pose with num_points = max_beams
 // = P, so every point counts, in order.
 #include "common.cuh"
+#include "pf_motion.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kChunk = 1024;        // most beams staged in shared memory
 constexpr int kPoseThreads = 128;   // slots a pass of the block-per-pose
+// The particle launch: poses (warps) a block, blocks an SM it asks for.
+constexpr int kParticleWarps = 8;
+constexpr int kParticleBlocks = 8;
 
 // The launch's constants, set once a shape by the wrapper
 // (kernels/score_points.py::_Args, field for field).
 struct ScoreArgs {
   int P, max_beams, G, W, row0, h, raw;
   float cell;
+};
+
+// The particle launch's constants, set once a plan by the wrapper
+// (kernels/score_points.py::_ParticleArgs, field for field): H rows of a
+// W-wide grid, G grids, a table row of `stride` floats whose first 8 are
+// the cell's record, M poses, motion on or off.
+struct ParticleArgs {
+  int P, max_beams, G, W, H, stride, M, motion;
+  float cell;
+};
+
+// One particle launch, kept by the plan and filled a call
+// (kernels/score_points.py::_ParticleLaunch, field for field): its
+// constants, the tensors' pointers (noise and moved null with the motion
+// off), the step's six motion scalars and the scan's point count.
+struct ParticleLaunch {
+  ParticleArgs a;
+  const float* poses;
+  const float* noise;
+  const float* points;
+  const uint8_t* pmask;
+  const float* origin;
+  const float* table;
+  float* moved;
+  float* out;
+  float rot1, trans, rot2, s_rot1, s_trans, s_rot2;
+  int num_points;
 };
 
 struct Grids {
@@ -225,7 +276,140 @@ __global__ void __launch_bounds__(kPoseThreads) score_pose_kernel(
   if (lane == 0) out[0] = a.raw ? -acc : -acc / (float)max(sub.used, 1);
 }
 
+// beam_term with each cell read as its record: grid k's row f of the
+// table (f = 0 off the grid or unused), two 16-byte loads of its first 8
+// floats (mean x, mean y, i00, i01; i11, scorable, 0, 0) for the three SoA
+// gathers, the same expressions in the same order.
+template <int NG>
+__device__ __forceinline__ float record_term(float wx, float wy, bool used,
+                                             const ParticleArgs& a,
+                                             const float* origin,
+                                             const float* table) {
+  const int G = NG > 0 ? NG : a.G;
+  float term = 0.f;
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    const float ox = origin[2 * k], oy = origin[2 * k + 1];
+    const int ix = (int)floorf((wx - ox) / a.cell);
+    const int iy = (int)floorf((wy - oy) / a.cell);
+    const bool valid = used && ix >= 0 && ix < a.W && iy >= 0 && iy < a.H;
+    const int f = valid ? iy * a.W + ix : 0;
+    const float4* row = reinterpret_cast<const float4*>(
+        table + ((size_t)k * a.W * a.H + f) * a.stride);
+    const float4 r0 = __ldg(row), r1 = __ldg(row + 1);
+    const float qx = wx - r0.x;
+    const float qy = wy - r0.y;
+    const float e = -0.5f * (r0.z * qx * qx + 2.f * r0.w * qx * qy +
+                             r1.x * qy * qy);
+    const float sc = expf(fminf(e, 0.f));
+    const float v = (valid && r1.y != 0.f) ? sc : 0.f;
+    term = G == 1 ? v : term + v;
+  }
+  if (G > 1) term = term / (float)G;
+  return term;
+}
+
+// M poses, a warp each (kParticleWarps a block); the beams staged in
+// shared memory as score_points_kernel stages them.  With a.motion the
+// pose is particle m moved by the motion sample (written to moved by lane
+// 0), else poses[m].
+template <int NG>
+__global__ void __launch_bounds__(kParticleWarps * 32, kParticleBlocks)
+    particle_kernel(ParticleArgs a, const float* __restrict__ poses,
+                    const float* __restrict__ noise, ndt2d::Motion mo,
+                    const float* __restrict__ points,
+                    const uint8_t* __restrict__ pmask, int num_points,
+                    int slots, int chunk, const float* __restrict__ origin,
+                    const float* __restrict__ table,
+                    float* __restrict__ moved, float* __restrict__ out) {
+  extern __shared__ float sbeam[];  // [3, chunk]: x, y, in-use flag
+  float* sx = sbeam;
+  float* sy = sx + chunk;
+  float* sv = sy + chunk;
+  const ndt2d::Subsample sub(num_points, a.max_beams);
+  const int lane = threadIdx.x & 31;
+  const int m = blockIdx.x * kParticleWarps + (threadIdx.x >> 5);
+  const bool active = m < a.M;  // whole warps; every thread stages beams
+  float pose[3] = {0.f, 0.f, 0.f};
+  if (active) {
+    if (a.motion) {
+      ndt2d::motion_sample(poses + 3 * m, noise + 3 * m, mo, pose);
+      if (lane == 0) {
+        moved[3 * m] = pose[0];
+        moved[3 * m + 1] = pose[1];
+        moved[3 * m + 2] = pose[2];
+      }
+    } else {
+      pose[0] = poses[3 * m];
+      pose[1] = poses[3 * m + 1];
+      pose[2] = poses[3 * m + 2];
+    }
+  }
+  const float c = cosf(pose[2]), s = sinf(pose[2]);
+  float acc = 0.f;
+  for (int base = 0; base < slots; base += chunk) {
+    const int n = min(chunk, slots - base);
+    __syncthreads();  // every warp is done with the previous chunk
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {
+      const int i = base + j;
+      float x = 0.f, y = 0.f, v = 0.f;
+      if (i < a.max_beams) {
+        const int idx = sub.index(i, num_points, a.P);
+        x = points[2 * idx];
+        y = points[2 * idx + 1];
+        v = (i < sub.used && pmask[idx]) ? 1.f : 0.f;
+      }
+      sx[j] = x;
+      sy[j] = y;
+      sv[j] = v;
+    }
+    __syncthreads();
+    if (!active) continue;
+    for (int j = lane; j < n; j += 32) {
+      const float px = sx[j], py = sy[j];
+      const float wx = c * px - s * py + pose[0];
+      const float wy = s * px + c * py + pose[1];
+      acc += record_term<NG>(wx, wy, sv[j] != 0.f, a, origin, table);
+    }
+  }
+  if (!active) return;
+  acc = lanes_tree(acc);
+  if (lane == 0) out[m] = -acc / (float)max(sub.used, 1);
+}
+
 }  // namespace
+
+// The particle launch (ParticleLaunch): poses [M,3] f32 (motion on: the
+// particles before the step, with noise [M,3] f32 standard normals and the
+// step's six scalars; moved [M,3] f32 receives the moved particles),
+// points [P,2] f32, pmask [P] u8, origin [G,2] f32, table [G,H*W,stride]
+// f32 (K1's patch table, stride 32, or a cell table, stride 8) -> out [M]
+// f32: -sum / max(used, 1) at each (moved) pose.
+NDT2D_API int ndt2d_particle_scores(const void* launch, void* stream) {
+  const ParticleLaunch& l = *static_cast<const ParticleLaunch*>(launch);
+  const ParticleArgs& a = l.a;
+  const int slots = ((a.max_beams + 31) / 32) * 32;
+  const int chunk = slots < kChunk ? (slots > 32 ? slots : 32) : kChunk;
+  const size_t smem = (size_t)3 * chunk * sizeof(float);
+  const ndt2d::Motion mo{l.rot1, l.trans, l.rot2,
+                         l.s_rot1, l.s_trans, l.s_rot2};
+  const auto st = reinterpret_cast<cudaStream_t>(stream);
+  const int blocks = (a.M + kParticleWarps - 1) / kParticleWarps;
+  const int threads = 32 * kParticleWarps;
+  if (a.G == 1)
+    particle_kernel<1><<<blocks, threads, smem, st>>>(
+        a, l.poses, l.noise, mo, l.points, l.pmask, l.num_points, slots,
+        chunk, l.origin, l.table, l.moved, l.out);
+  else if (a.G == 4)
+    particle_kernel<4><<<blocks, threads, smem, st>>>(
+        a, l.poses, l.noise, mo, l.points, l.pmask, l.num_points, slots,
+        chunk, l.origin, l.table, l.moved, l.out);
+  else
+    particle_kernel<0><<<blocks, threads, smem, st>>>(
+        a, l.poses, l.noise, mo, l.points, l.pmask, l.num_points, slots,
+        chunk, l.origin, l.table, l.moved, l.out);
+  return (int)cudaGetLastError();
+}
 
 // args: the launch's constants (ScoreArgs).  points [P,2] f32, pmask [P]
 // u8; G grids holding the rows [row0, row0 + h) of a W-wide map: origin

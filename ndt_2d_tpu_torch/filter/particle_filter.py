@@ -1,17 +1,20 @@
 """AMCL-style particle filter with KLD-adaptive resampling, on the port's
 kernels.
 
-Port of ``ndt_2d_tpu/filter/particle_filter.py``.  A scan update
-(``pf_step``) is the motion sample, the measurement of every particle and
-the KLD resample with its statistics: K9's motion launch, one K3 launch
-over all particles (``matcher.score_points_batch``) and K9's resample
-chain, with no host sync between them; the host reads n_active, the mean
-and the covariance once per scan.  ``pf_step_recovery`` adds the AMCL
-w_slow/w_fast EWMAs and the free-space injection inside the same chain.
+Port of ``ndt_2d_tpu/filter/particle_filter.py``.  A scan update (``pf_step``)
+is the motion sample, the measurement of every particle and the KLD resample
+with its statistics: on one device two launches, K3's particle launch with K9's
+motion sample folded in (``score_points. motion_score``: the moved particles
+and their scores, each beam's cell read from the global matcher's patch table)
+and K9's resample chain, with no host sync between them; the host reads
+n_active, the mean and the covariance once per scan.  On a mesh the motion is
+K9's own launch and the measurement shards the particles
+(``parallel/filter.py``).  ``pf_step_recovery`` adds the AMCL w_slow/w_fast
+EWMAs and the free-space injection inside the same chain.
 ``ParticleFilter.step_async`` dispatches a step without that read (the
-particles, weights, active count and EWMAs chain on the device, the
-statistics copy to the host in flight) and ``resolve_async`` waits for
-it; ``step`` is the two back to back.
+particles, weights, active count and EWMAs chain on the device, the statistics
+copy to the host in flight) and ``resolve_async`` waits for it; ``step`` is the
+two back to back.
 
 Random numbers come from a ``torch.Generator`` on the filter's device,
 seeded from ``seed``; each step draws its ``Draws`` in a fixed order and
@@ -37,7 +40,9 @@ from ndt_2d_tpu_torch.core.pose import normalize_angle_exact
 from ndt_2d_tpu_torch.device import HostCopy, get_device, upload
 from ndt_2d_tpu_torch.filter import motion_model
 from ndt_2d_tpu_torch.kernels import particle_filter as k9
+from ndt_2d_tpu_torch.kernels import score_points as k3
 from ndt_2d_tpu_torch.matching import matcher as matcher_mod
+from ndt_2d_tpu_torch.ndt import grid as ndt_grid
 from ndt_2d_tpu_torch.config import ParticleFilterConfig
 
 
@@ -133,28 +138,41 @@ def inject_free_space(particles, weights, n, free_xy, free_cell: float,
 
 
 def _motion_and_measure(draws: Draws, particles, control, mcfg, grid,
-                        points, point_mask, num_points, alphas, mesh=None):
-    p = motion_model.sample(particles, draws.motion, control[0], control[1],
-                            control[2], alphas[0], alphas[1], alphas[2],
-                            alphas[3])
-    scores = matcher_mod.score_points_batch(mcfg, grid, points, point_mask,
-                                            num_points, p, mesh=mesh)
-    return p, scores
+                        points, point_mask, num_points, alphas, mesh,
+                        packed_table):
+    """The moved particles and their scores: one launch of K3's particle
+    kernel with the motion folded in on one device; on a mesh K9's motion
+    launch, then the sharded measurement."""
+    if packed_table is None:
+        packed_table = ndt_grid.patch_tables(grid, mcfg.grid_cells_x)
+    scalars = motion_model.motion_scalars(*control, *alphas)
+    if mesh is None:
+        return k3.motion_score(grid, packed_table, mcfg.grid_cells_x,
+                               mcfg.grid_cells_y, mcfg.laser_max_beams,
+                               points, point_mask, num_points, particles,
+                               draws.motion, scalars)
+    p = k9.motion(particles, draws.motion, scalars)
+    return p, matcher_mod.score_points_batch(mcfg, grid, points, point_mask,
+                                             num_points, p, mesh=mesh,
+                                             packed_table=packed_table)
 
 
 def pf_step(draws: Draws, particles, n, control, mcfg, grid, points,
             point_mask, num_points: int, alphas, kld_err: float, kld_z: float,
-            bin_sizes, min_particles: int, mesh=None) -> StepResult:
+            bin_sizes, min_particles: int, mesh=None,
+            packed_table=None) -> StepResult:
     """One scan update: motion sample + measurement of every particle + KLD
     resample + statistics (the laserCallback PF branch,
     ndt_mapper.cpp:471-476), with the host-side ``control`` [3] and
     ``alphas`` [4].  ``n`` is the active count (int or int32 [1]); the
-    kernels derive the mask from it on the device.  With a ``mesh`` the
-    measurement shards the particles over its ``batch`` axis
-    (parallel/filter.py); everything else is replicated."""
+    kernels derive the mask from it on the device.  ``packed_table``: K1's
+    patch table of ``grid`` (the global matcher's; without it the table is
+    laid out from the grid).  With a ``mesh`` the measurement shards the
+    particles over its ``batch`` axis (parallel/filter.py); everything else
+    is replicated."""
     p, scores = _motion_and_measure(draws, particles, control, mcfg, grid,
                                     points, point_mask, num_points, alphas,
-                                    mesh)
+                                    mesh, packed_table)
     r = k9.resample(scores, _n_tensor(n, scores.device), draws.resample, p,
                     bin_sizes, kld_err, kld_z, min_particles)
     return StepResult(r.particles, r.normalized, r.n, r.stats)
@@ -164,7 +182,8 @@ def pf_step_recovery(draws: Draws, particles, n, control, mcfg, grid, points,
                      point_mask, num_points: int, alphas, kld_err: float,
                      kld_z: float, bin_sizes, min_particles: int, free_xy,
                      free_cell: float, w_state, alpha_slow: float,
-                     alpha_fast: float, mesh=None) -> StepResult:
+                     alpha_fast: float, mesh=None,
+                     packed_table=None) -> StepResult:
     """pf_step + AMCL w_slow/w_fast recovery (Probabilistic Robotics table
     8.3): the EWMAs of the mean likelihood of the active particles set
     p_inject = max(0, 1 - w_fast / w_slow), and each resampled particle is
@@ -173,7 +192,7 @@ def pf_step_recovery(draws: Draws, particles, n, control, mcfg, grid, points,
     ``StepResult.w_state``."""
     p, scores = _motion_and_measure(draws, particles, control, mcfg, grid,
                                     points, point_mask, num_points, alphas,
-                                    mesh)
+                                    mesh, packed_table)
     inj = k9.Injection(free_xy, float(free_cell), draws.inject_sel,
                        draws.inject_idx, draws.inject_jitter,
                        draws.inject_theta)
@@ -333,7 +352,8 @@ class ParticleFilter:
         pts, msk = self._scan(points, point_mask)
         scores = matcher_mod.score_points_batch(
             matcher.config, matcher.grid, pts, msk, int(num_points),
-            self.particles, mesh=mesh)
+            self.particles, mesh=mesh,
+            packed_table=getattr(matcher, "packed_table", None))
         if self.recovery_enabled:
             c = self.config
             self.w_state = k9.ewma(scores, self._n(), self.w_state,
@@ -384,13 +404,15 @@ class ParticleFilter:
                 matcher.config, matcher.grid, pts, msk, int(num_points),
                 self._alphas(), float(np.float32(c.kld_err)),
                 float(np.float32(c.kld_z)), self._bin_sizes(), c.min_particles)
+        table = getattr(matcher, "packed_table", None)
         if self.recovery_enabled:
             r = pf_step_recovery(*args, self.free_xy, self.free_cell,
                                  self.w_state, c.recovery_alpha_slow,
-                                 c.recovery_alpha_fast, mesh=mesh)
+                                 c.recovery_alpha_fast, mesh=mesh,
+                                 packed_table=table)
             self.w_state = r.w_state
         else:
-            r = pf_step(*args, mesh=mesh)
+            r = pf_step(*args, mesh=mesh, packed_table=table)
         self.particles, self.weights, self._n_dev = r.particles, r.weights, \
             r.n
         return HostCopy(r.stats)

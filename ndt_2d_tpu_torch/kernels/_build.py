@@ -207,3 +207,16 @@ def stream_ptr(device) -> int:
     index = device.index
     return torch.cuda.current_stream(
         device if index is None else index).cuda_stream
+
+
+def stream_reader(device):
+    """A function of no arguments that returns PyTorch's current CUDA
+    stream on ``device`` as an int, read on every call as ``stream_ptr``
+    reads it, but as one C call that makes no ``Stream`` object
+    (``torch._C._cuda_getCurrentRawStream``) where this PyTorch has it."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return functools.partial(stream_ptr, torch.device("cuda", index))
+    return functools.partial(raw, index)

@@ -7,7 +7,10 @@ sample`` and ``ndt_2d_tpu/filter/particle_filter.py::normalize_weights``,
 ``pf_step`` / ``pf_step_recovery``).  Three entries:
 
 * ``motion``: the per-particle rot-trans-rot sample, given standard normals
-  and the host's motion scalars (``filter/motion_model.py``);
+  and the host's motion scalars (``filter/motion_model.py``), launched
+  through a ``MotionPlan``: the mesh's filter step and
+  ``ParticleFilter.update``; on one device the step folds the same body
+  into K3's particle launch (``score_points.motion_score``);
 * ``resample``: normalize + CDF, the ``jax.random.choice`` draw (searchsorted
   left on r = cdf[-1] * (1 - u)), truncated bin keys, first occurrence per
   bin in draw order, the prefix count k(m), the KLD bound and n_active;
@@ -349,23 +352,53 @@ def _inj_args(inj: Optional[Injection], M: int, dev) -> list:
             p(inj.jitter), p(inj.theta)]
 
 
+class MotionPlan:
+    """The motion launch at M particles on one device (``motion_plan``):
+    the C function bound once and the (name, dtype, shape) of its two
+    tensors; ``run`` checks them in one pass, allocates the moved
+    particles and makes one ctypes call.  The body
+    (``csrc/pf_motion.cuh``) is the one K3's particle launch folds in."""
+
+    def __init__(self, M: int, dev):
+        self.M, self.device = M, dev
+        self.expect = (("particles", torch.float32, (M, 3)),
+                       ("noise", torch.float32, (M, 3)))
+        self._fn = None
+        self._stream = None
+
+    def run(self, particles, noise, scalars):
+        _build.require_all(self.device, (particles, noise), self.expect)
+        if self._fn is None:
+            self._fn = _build.function("ndt2d_pf_motion", _MOTION_ARGS)
+            self._stream = _build.stream_reader(self.device)
+        out = particles.new_empty(self.M, 3)
+        p = _build.ptr
+        _build.check(self._fn(p(particles), p(noise), self.M, *scalars,
+                              p(out), self._stream()), "pf_motion")
+        return out
+
+
+_MOTION_PLANS: dict = {}
+
+
+def motion_plan(M: int, dev) -> MotionPlan:
+    """The motion plan of M particles on ``dev``, made at its first
+    launch."""
+    plan = _MOTION_PLANS.get((M, dev))
+    if plan is None:
+        plan = _MOTION_PLANS[(M, dev)] = MotionPlan(M, dev)
+    return plan
+
+
 def motion(particles, noise, scalars):
     """Motion sample of particles [M, 3] f32 with standard normals noise
     [M, 3] f32 and the host scalars (rot1, trans, rot2, sigma_rot1,
     sigma_trans, sigma_rot2); returns new particles [M, 3].  CPU tensors
-    run the twin; CUDA tensors launch the kernel."""
+    run the twin; CUDA tensors launch the kernel (through its plan)."""
     if particles.device.type == "cpu":
         return motion_twin(particles, noise, scalars)
-    dev = particles.device
-    M = particles.shape[0]
-    _build.require(particles, "particles", torch.float32, (M, 3), dev)
-    _build.require(noise, "noise", torch.float32, (M, 3), dev)
-    out = torch.empty(M, 3, dtype=torch.float32, device=dev)
-    p = _build.ptr
-    err = _build.function("ndt2d_pf_motion", _MOTION_ARGS)(
-        p(particles), p(noise), M, *[float(s) for s in scalars], p(out),
-        _build.stream_ptr(dev))
-    _build.check(err, "pf_motion")
+    out = motion_plan(particles.shape[0], particles.device).run(
+        particles, noise, [float(s) for s in scalars])
     launches["pf_motion"] += 1
     return out
 

@@ -19,6 +19,19 @@ agree bitwise, and a pose's score is the same bits through every entry
 (``block_order_sum`` models how the block-per-pose launch keeps that
 order).
 
+The particle filter's launch (``motion_score``, ``score_records``) is a warp a
+pose too, eight blocks an SM, but reads each beam's cell as one record, the
+first 8 floats of a row of K1's patch table (mean x, mean y, i00, i01, i11, the
+count >= 5 flag: ``ndt/grid.py::packed_cell_table``'s bits), and with motion on
+first moves each particle by K9's motion sample in the same launch
+(``ndt_2d_tpu/filter/particle_filter.py::pf_step``'s ``motion_model.sample``
+then ``score_points_batch``), returning the moved particles with the scores.
+Its twin is ``motion_twin`` then ``records_twin``, which is
+``score_batch_twin`` read from the records, the same bits.  A shape's launch is
+a ``ParticlePlan``, made once: its argument block packed, the C function bound,
+the map's tensors checked when they change; a call checks the step's tensors,
+allocates the two outputs and makes one ctypes call.
+
 A grid with a grid axis (the four overlapping grids: origin [4, 2], mean
 [4, C, 2], ...) scores each beam as the mean over its grids, summed from 0
 in grid order, before the beams are summed (matcher.py:411-416).
@@ -42,6 +55,7 @@ import ctypes
 import torch
 
 from ndt_2d_tpu_torch.kernels import _build
+from ndt_2d_tpu_torch.kernels import particle_filter as k9
 from ndt_2d_tpu_torch.kernels import pose_chain as k13
 from ndt_2d_tpu_torch.ndt import grid as ndt_grid
 
@@ -52,6 +66,9 @@ batch_launches = 0
 composed_launches = 0
 # KB2: launches of the stripe scores (world points; poses).
 stripe_launches = 0
+# The particle launch: with the motion sample folded in; scoring given poses.
+particle_launches = 0
+record_launches = 0
 
 # Slots a pass of the block-per-pose launch (the source's kPoseThreads).
 POSE_THREADS = 128
@@ -303,6 +320,213 @@ def score_composed(grid: ndt_grid.NDTGrid, width: int, height: int,
             prev, delta, pose)
     composed_launches += 1
     return out, pose
+
+
+# --- the particle filter's launch: motion sample and record read -------------
+class _ParticleArgs(ctypes.Structure):
+    """A particle plan's constants (``csrc/score_points.cu::ParticleArgs``)."""
+    _fields_ = ([(f, ctypes.c_int) for f in
+                 ("P", "max_beams", "G", "W", "H", "stride", "M", "motion")]
+                + [("cell", ctypes.c_float)])
+
+
+class _ParticleLaunch(ctypes.Structure):
+    """One particle launch (``csrc/score_points.cu::ParticleLaunch``): the
+    plan's constants, the tensors' pointers, the six motion scalars and
+    the scan's point count."""
+    _fields_ = ([("a", _ParticleArgs)]
+                + [(f, ctypes.c_void_p) for f in
+                   ("poses", "noise", "points", "pmask", "origin", "table",
+                    "moved", "out")]
+                + [(f, ctypes.c_float) for f in
+                   ("rot1", "trans", "rot2", "s_rot1", "s_trans", "s_rot2")]
+                + [("num_points", ctypes.c_int)])
+
+
+# The launch block's address and the stream.
+_PARTICLE_ARGS = [ctypes.c_void_p, ctypes.c_void_p]
+
+
+def record_scores(origin, cell_size: float, width: int, height: int,
+                  records, w, wmask):
+    """Clamped Gaussian scores of world points ``w`` [..., 2] (mask
+    ``wmask``) on one grid, each point's cell read from its record
+    ``records`` [C, >= 8] (mean x, mean y, i00, i01, i11, scorable):
+    ``ndt_grid.score_points``'s expression on the same values."""
+    cell = ndt_grid.f32(cell_size, w.device)
+    flat, valid = ndt_grid.cell_index(origin, cell, width, height, w)
+    valid = valid & wmask
+    safe = torch.where(valid, flat, torch.zeros_like(flat)).to(torch.int64)
+    rec = records[safe]
+    q = w - rec[..., 0:2]
+    qx, qy = q[..., 0], q[..., 1]
+    e = -0.5 * (rec[..., 2] * qx * qx + 2.0 * rec[..., 3] * qx * qy
+                + rec[..., 4] * qy * qy)
+    s = torch.exp(torch.clamp(e, max=0.0))
+    return torch.where(valid & (rec[..., 5] != 0), s, torch.zeros_like(s))
+
+
+def records_twin(grid: ndt_grid.NDTGrid, table, width: int, height: int,
+                 max_beams: int, points, point_mask, num_points: int, poses):
+    """Plain-PyTorch ``score_records``: ``score_batch_twin`` with each cell
+    read from its record in ``table`` [(G,) C, 8 or 32] (K1's patch table
+    or ``ndt_grid.packed_cell_table``), the same bits."""
+    spts, smask, used = subsample(points, point_mask, num_points, max_beams)
+    c, s = torch.cos(poses[:, 2:3]), torch.sin(poses[:, 2:3])
+    px, py = spts[:, 0], spts[:, 1]
+    w = torch.stack([c * px - s * py + poses[:, 0:1],
+                     s * px + c * py + poses[:, 1:2]], dim=-1)
+    wmask = smask.expand(poses.shape[0], -1)
+    if table.dim() == 2:
+        sc = record_scores(grid.origin, grid.cell_size, width, height, table,
+                           w, wmask)
+    else:
+        sc = sum(record_scores(grid.origin[k], grid.cell_size, width, height,
+                               table[k], w, wmask)
+                 for k in range(table.shape[0])) / ndt_grid.f32(
+                     table.shape[0], points.device)
+    return -lane_tree_sum(_pad32(sc)) / ndt_grid.f32(max(used, 1),
+                                                     points.device)
+
+
+def motion_score_twin(grid: ndt_grid.NDTGrid, table, width: int,
+                      height: int, max_beams: int, points, point_mask,
+                      num_points: int, particles, noise, scalars):
+    """Plain-PyTorch ``motion_score``: K9's ``motion_twin``, then
+    ``records_twin`` at the moved particles.  Returns (moved [M, 3],
+    scores [M])."""
+    moved = k9.motion_twin(particles, noise, scalars)
+    return moved, records_twin(grid, table, width, height, max_beams, points,
+                               point_mask, num_points, moved)
+
+
+class ParticlePlan:
+    """One shape of the particle launch (``particle_plan``): its
+    ``_ParticleLaunch`` block, whose address crosses into C, the C function
+    bound once, the (name, dtype, shape) of every tensor and the stream
+    reader.  The map's origin and table are checked, and their pointers
+    written, when they change (by identity); ``run`` checks the step's
+    tensors in one pass, allocates the outputs (the caller keeps them: the
+    resample reads them, a replay or a comparison may hold them), writes
+    the step's pointers and scalars into the block and makes one ctypes
+    call with its address and the stream."""
+
+    def __init__(self, P, max_beams, table_shape, width, height, cell, M,
+                 motion, dev):
+        lead = tuple(table_shape[:-2])
+        if (len(lead) > 1 or table_shape[-1] not in (8, 32)
+                or table_shape[-2] != width * height):
+            raise ValueError(f"table {tuple(table_shape)}: expected [(G,) "
+                             f"{width * height}, 8 or 32]")
+        f32 = torch.float32
+        self.M, self.motion, self.device = M, bool(motion), dev
+        self.launch = _ParticleLaunch(_ParticleArgs(
+            P, max_beams, lead[0] if lead else 1, width, height,
+            table_shape[-1], M, int(motion), cell))
+        self.args = self.launch.a
+        self.address = ctypes.addressof(self.launch)
+        self.map_expect = (("origin", f32, (*lead, 2)),
+                           ("table", f32, tuple(table_shape)))
+        self.expect = (("points", f32, (P, 2)),
+                       ("point_mask", torch.bool, (P,)),
+                       ("poses", f32, (M, 3)))
+        if motion:
+            self.expect += (("noise", f32, (M, 3)),)
+        self._map = None  # the (origin, table) last checked
+        self._fn = None
+        self._stream = None
+
+    def _check_map(self, origin, table) -> None:
+        _build.require_all(self.device, (origin, table), self.map_expect)
+        if table.data_ptr() % 16:
+            raise ValueError("table: rows must start 16-byte aligned")
+        self._map = (origin, table)
+        self.launch.origin, self.launch.table = origin.data_ptr(), \
+            table.data_ptr()
+
+    def run(self, points, point_mask, num_points: int, origin, table, poses,
+            noise=None, scalars=None):
+        """(moved [M, 3] or None, scores [M]) of one launch; ``noise`` and
+        the six ``scalars`` with the motion on."""
+        m = self._map
+        if m is None or m[0] is not origin or m[1] is not table:
+            self._check_map(origin, table)
+        _build.require_all(self.device, (points, point_mask, poses, noise),
+                           self.expect)
+        if self._fn is None:
+            self._fn = _build.function("ndt2d_particle_scores",
+                                       _PARTICLE_ARGS)
+            self._stream = _build.stream_reader(self.device)
+        L = self.launch
+        out = poses.new_empty(self.M)
+        L.out, L.poses = out.data_ptr(), poses.data_ptr()
+        L.points, L.pmask = points.data_ptr(), point_mask.data_ptr()
+        L.num_points = num_points
+        moved = None
+        if self.motion:
+            moved = poses.new_empty(self.M, 3)
+            L.moved, L.noise = moved.data_ptr(), noise.data_ptr()
+            (L.rot1, L.trans, L.rot2, L.s_rot1, L.s_trans,
+             L.s_rot2) = scalars
+        _build.check(self._fn(self.address, self._stream()),
+                     "particle_scores")
+        return moved, out
+
+
+_PARTICLE_PLANS: dict = {}
+
+
+def particle_plan(grid, table, width: int, height: int, max_beams: int,
+                  points, M: int, motion: bool) -> ParticlePlan:
+    """The particle plan of this shape, made at its first launch."""
+    dev = points.device
+    key = (points.shape[0], max_beams, table.shape, width, height,
+           grid.cell_size, M, motion, dev)
+    plan = _PARTICLE_PLANS.get(key)
+    if plan is None:
+        plan = _PARTICLE_PLANS[key] = ParticlePlan(*key)
+    return plan
+
+
+def motion_score(grid: ndt_grid.NDTGrid, table, width: int, height: int,
+                 max_beams: int, points, point_mask, num_points: int,
+                 particles, noise, scalars):
+    """K9's motion sample of particles [M, 3] f32 (standard normals noise
+    [M, 3] f32, the host's six ``motion_model.motion_scalars``) and K3 at
+    the moved particles, in one launch reading each cell's record from
+    ``table`` (K1's patch table [(G,) C, 32] or a [(G,) C, 8] cell table
+    of ``grid``).  Returns (moved [M, 3], scores [M]), the same bits as
+    ``k9.motion`` then ``score_batch``.  CPU tensors run the twin; CUDA
+    tensors launch the kernel."""
+    global particle_launches
+    if points.device.type == "cpu":
+        return motion_score_twin(grid, table, width, height, max_beams,
+                                 points, point_mask, num_points, particles,
+                                 noise, scalars)
+    plan = particle_plan(grid, table, width, height, max_beams, points,
+                         particles.shape[0], True)
+    out = plan.run(points, point_mask, int(num_points), grid.origin, table,
+                   particles, noise, scalars)
+    particle_launches += 1
+    return out
+
+
+def score_records(grid: ndt_grid.NDTGrid, table, width: int, height: int,
+                  max_beams: int, points, point_mask, num_points: int, poses):
+    """K3 over poses [M, 3] f32 through the particle launch with the motion
+    off, each cell read from its record in ``table`` (as ``motion_score``);
+    returns [M] float32, the same bits as ``score_batch``.  CPU tensors run
+    the twin; CUDA tensors launch the kernel."""
+    global record_launches
+    if points.device.type == "cpu":
+        return records_twin(grid, table, width, height, max_beams, points,
+                            point_mask, num_points, poses)
+    plan = particle_plan(grid, table, width, height, max_beams, points,
+                         poses.shape[0], False)
+    _, out = plan.run(points, point_mask, int(num_points), grid.origin,
+                      table, poses)
+    record_launches += 1
+    return out
 
 
 # --- KB2: scores against one y-stripe of a sharded map -------------------

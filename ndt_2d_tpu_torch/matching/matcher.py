@@ -146,13 +146,7 @@ def match_scan(config: ScanMatcherConfig, grid: ndt_grid.NDTGrid, points,
         raise ValueError("the append rides in a mesh's finalize, with no "
                          "polish after it")
     if packed_table is None:
-        if is_multi_grid(grid):
-            packed_table = torch.stack([
-                ndt_grid.packed_patch_table(g, config.grid_cells_x)
-                for g in ndt_grid.split_grids(grid)])
-        else:
-            packed_table = ndt_grid.packed_patch_table(grid,
-                                                       config.grid_cells_x)
+        packed_table = ndt_grid.patch_tables(grid, config.grid_cells_x)
     if mesh is None:
         dths, dls = _search_offsets(config, points.device)
         out = search_kernel(config).match(config, grid, packed_table,
@@ -182,18 +176,23 @@ def score_points_at_pose(config: ScanMatcherConfig, grid: ndt_grid.NDTGrid,
 
 def score_points_batch(config: ScanMatcherConfig, grid: ndt_grid.NDTGrid,
                        points, point_mask, num_points: int, poses,
-                       mesh=None):
-    """scorePoints over poses [M, 3] in one K3 launch: the particle
-    filter's measurement (replaces the per-particle loop at
+                       mesh=None, packed_table=None):
+    """scorePoints over poses [M, 3] in one launch of K3's particle kernel,
+    each cell read from its record in ``packed_table`` (K1's patch table;
+    without it the table is laid out from the grid): the particle filter's
+    measurement (replaces the per-particle loop at
     src/particle_filter.cpp:81-88).  Row m equals ``score_points_at_pose``
     at poses[m] bitwise.  With a ``mesh`` the poses shard over its
     ``batch`` axis (parallel/filter.py)."""
     if mesh is not None:
         return pfilter.measure_multichip(config, mesh, grid, points,
-                                         point_mask, num_points, poses)
-    return k3.score_batch(grid, config.grid_cells_x, config.grid_cells_y,
-                          config.laser_max_beams, points, point_mask,
-                          num_points, poses)
+                                         point_mask, num_points, poses,
+                                         packed_table)
+    if packed_table is None:
+        packed_table = ndt_grid.patch_tables(grid, config.grid_cells_x)
+    return k3.score_records(grid, packed_table, config.grid_cells_x,
+                            config.grid_cells_y, config.laser_max_beams,
+                            points, point_mask, num_points, poses)
 
 
 def match_scan_with_score(config: ScanMatcherConfig,

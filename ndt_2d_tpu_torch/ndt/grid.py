@@ -201,6 +201,15 @@ def packed_patch_table(grid: NDTGrid, width: int) -> torch.Tensor:
                       torch.roll(t, -(width + 1), 0)], dim=1)
 
 
+def patch_tables(grid: NDTGrid, width: int) -> torch.Tensor:
+    """K1's patch table laid out from the grid's fields: [C, 32], or
+    [G, C, 32] for a grid with a grid axis (the overlapping grids)."""
+    if grid.mean.dim() == 3:
+        return torch.stack([packed_patch_table(g, width)
+                            for g in split_grids(grid)])
+    return packed_patch_table(grid, width)
+
+
 def score_at_cells(mean_table, info_table, count_table, points, valid, flat):
     """Clamped Gaussian scores for points with precomputed cell bindings."""
     safe = torch.where(valid, flat, torch.zeros_like(flat)).to(torch.int64)
