@@ -23,6 +23,22 @@
                                       # with pf_step ms, the host parts of
                                       # a step and the particles' sha256
                                       # (also in an older checkout)
+    python3 chip_smoke.py --pcg-lattice-times  # the district's PCG solve
+                                               # (walls, CG steps, RMSE,
+                                               # sha256), K4's PCG system
+                                               # and K11's lattice against
+                                               # their parent forms, the
+                                               # box drive's decisions and
+                                               # config 6 forced to PCG from
+                                               # five starts (also in an
+                                               # older checkout)
+    python3 chip_smoke.py --config6-spread  # config 6 forced to PCG from
+                                            # 16 starts a few ulps apart,
+                                            # with the tree's inverse, the
+                                            # parent's cuBLAS one and one
+                                            # rounded from float64, then
+                                            # dense (an older checkout:
+                                            # its own inverse)
     python3 chip_smoke.py --optimize-times  # the mapper's optimize ms, 3
                                             # runs of the office recipe,
                                             # config 9 and drift, and LM
@@ -50,7 +66,11 @@ Phases (any failure exits non-zero):
     and K7 on them (8 iterations; bitwise also at 20, 40, 90 and 200
     beams, 1-4 warps a grid and lanes over two strides), each row
     bitwise equal to its R = 1 launch and to itself at pad 4 and pad 16,
-    without and with K7; K4 (normal_blocks, pcg_matvec beside a torch
+    without and with K7; K4 (normal_blocks; pcg_normal_system, the
+    blocks, D, the block-Jacobi preconditioner and b in one launch, for
+    the three losses, and its planned form, ``k4.PcgPlan``, and the
+    standalone preconditioner, each bitwise, timed beside the parent's
+    normal_blocks + eager preconditioner; pcg_matvec beside a torch
     sparse CSR product, fixed_dots beside ``torch.dot``, and pcg_solve,
     one LM step's whole CG loop, in x and the step count, the host loop
     over pcg_matvec and fixed_dots bitwise equal to it, timed a CG step
@@ -91,8 +111,10 @@ Phases (any failure exits non-zero):
     window after every step bitwise against the twins' chain and the eager
     shift it replaced; K11 (the
     correlative matcher's field build, lattice search and point score)
-    bitwise against its twins and reproducible, and 64 lattice rows each
-    bitwise equal to its R = 1 launch, at config-2 shapes and at the shape
+    bitwise against its twins and reproducible, the lattice (one launch)
+    bitwise the parent's two launches and timed beside them, and 64
+    lattice rows each bitwise equal to its R = 1 launch and to the
+    parent's, at config-2 shapes and at the shape
     of (o)'s box drive (160x160 cells, the widened 80x40x40 lattice); K12
     (the mesh's split search and rank-ordered sum): K2's partials over
     contiguous angle blocks and their finalize, split 2 and 4 ways, bitwise
@@ -151,8 +173,13 @@ Phases (any failure exits non-zero):
     >= 1,
     and the first 20 scans on the GPU against the CPU twins; (b) the
     single-device PCG ``solve`` of the district, on the kernels (one
-    pcg_solve launch an LM iteration) and on the twins: final RMSE below
-    the initial, the two arms' poses bitwise equal; each LM iteration's CG
+    pcg_normal_system and one pcg_solve launch an LM iteration, no
+    normal_blocks) and on the twins: final RMSE below the initial, the
+    two arms' poses bitwise equal; one LM iteration under torch.profiler,
+    its device events from the system's launch to lm_step exactly
+    pcg_normal_system, pcg and lm_step (no library inverse, no copy),
+    printed beside the parent's iteration replayed from its pieces; each
+    LM iteration's CG
     loop again as the planned mesh loop (identity combine) and as the host
     loop over the public pcg_matvec and fixed_dots, each equal to
     pcg_solve's in x and steps, the walls printed; (u) after (g), K4's
@@ -331,6 +358,7 @@ one of (r)-(t), started by the script itself.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -352,6 +380,10 @@ KERNELS = {
                  "ndt_2d_tpu/mapping/occupancy.py:51"),
     "normal_blocks": ("ndt_2d_tpu_torch/csrc/normal_blocks.cu",
                       "ndt_2d_tpu/graph/solver.py:140"),
+    "pcg_normal_system": ("ndt_2d_tpu_torch/csrc/normal_blocks.cu",
+                          "ndt_2d_tpu/graph/solver.py:140"),
+    "preconditioner": ("ndt_2d_tpu_torch/csrc/normal_blocks.cu",
+                       "ndt_2d_tpu/graph/solver.py:197"),
     "pcg_matvec": ("ndt_2d_tpu_torch/csrc/normal_blocks.cu",
                    "ndt_2d_tpu/graph/solver.py:203"),
     "pcg_solve": ("ndt_2d_tpu_torch/csrc/normal_blocks.cu",
@@ -578,12 +610,13 @@ def phase_build():
               f"stores, {ld} bytes spill loads")
 
 
-# The kernels of K1, K2, K3, K4's dense system and K13 whose registers and
-# spills [3] prints.
+# The kernels of K1, K2, K3, K4's dense and PCG systems, K11's lattice and
+# K13 whose registers and spills [3] prints.
 RESOURCE_KERNELS = ("bin_points", "bin_stripe", "sort_cells", "cell_records",
                     "score_angles", "score_points_kernel", "score_pose_kernel",
                     "particle_kernel", "dense_normal_system",
-                    "window_append_kernel")
+                    "pcg_normal_system", "precondition_nodes",
+                    "lattice_tables", "window_append_kernel")
 
 
 def kernel_resources(log: str) -> dict:
@@ -2367,6 +2400,7 @@ def phase_k4(district, dev, ident):
     v = torch.randn(n, 3, generator=gen, device=dev)
     fm = (torch.arange(n, device=dev) != 0).float()
     lam = torch.tensor(1e-3, device=dev)
+    system = check_pcg_system(t, args, inc, lam, fm, ident)
     mv = (t["begin"], t["end"], baa, bab, bbb, d, lam, fm, v, inc)
     y, yt, y2 = k4.pcg_matvec(*mv), k4.pcg_matvec_twin(*mv), \
         k4.pcg_matvec(*mv)
@@ -2493,8 +2527,236 @@ def phase_k4(district, dev, ident):
            "normal_blocks": timed(
                0.0, cuda_ms(lambda: k4.normal_blocks(*nb), 20),
                cuda_ms(lambda: k4.normal_blocks_twin(*nb), 5),
-               nbytes(*args, *a), 300 * C)}
+               nbytes(*args, *a), 300 * C,
+               graph_ms=(graph_ms(lambda: k4.normal_blocks(*nb), 20),
+                         None))}
+    out.update(system)
     out.update(cg_forms(district, dev, ident))
+    return out
+
+
+def parent_preconditioner(g, diag, lam, free_mask, eps=None):
+    """The parent tree's ``graph/solver.py::_preconditioner``, eager on the
+    card: a host->device copy of 1e-8, ~8 elementwise kernels and a batched
+    ``torch.linalg.inv`` (which reads its status back: a sync).  With
+    ``eps`` (1e-8 already on the device) and ``torch.linalg.inv_ex``: the
+    same kernels without the copy and the read, to capture in a CUDA
+    graph."""
+    import torch
+    dt, dev = g.dtype, g.device
+    eye = torch.eye(3, dtype=dt, device=dev)
+    one = (torch.tensor(1e-8, dtype=dt, device=dev) if eps is None
+           else eps)
+    dd = diag + lam * (diag * eye) + one * eye
+    fm = free_mask.to(dt)
+    m = dd + (1.0 - fm)[:, None, None] * eye
+    pinv = torch.linalg.inv(m) if eps is None else torch.linalg.inv_ex(m)[0]
+    return pinv.contiguous(), -g * fm[:, None]
+
+
+def check_pcg_system(t, args, inc, lam, fm, ident) -> dict:
+    """K4's PCG normal system on the district: ``pcg_normal_system`` (the
+    blocks, D, pinv and b in one launch) bitwise its twin for the three
+    losses and reproducible, its planned form (``k4.PcgPlan``) bitwise the
+    unplanned, and the mesh's standalone ``preconditioner`` bitwise its
+    twin and the fused launch's pinv and b.  Times the fused launch
+    (planned and not, host µs a call) beside its parent's arm, which ran
+    ``normal_blocks`` and the eager preconditioner (with its copy and
+    read; its kernels alone in a CUDA graph), and the preconditioner
+    alone.  Returns the kernels line's entries."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import normal_blocks as k4
+    n, C = t["poses"].shape[0], t["begin"].numel()
+    for loss in ("none", "huber", "geman_mcclure"):
+        sys_args = args + (loss, 1.0, inc, lam, fm)
+        a = k4.pcg_normal_system(*sys_args)
+        b = k4.pcg_normal_system_twin(*sys_args)
+        again = k4.pcg_normal_system(*sys_args)
+        blocks = k4.normal_blocks(*args, loss, 1.0, inc)
+        torch.cuda.synchronize()
+        names = ("Baa", "Bab", "Bbb", "D", "pinv", "b")
+        for name, x, y, z in zip(names, a, b, again):
+            require(same_bits(x, y), f"K4 pcg_normal_system ({loss}): "
+                    f"{name} differs from twin")
+            require(same_bits(x, z), f"K4 pcg_normal_system ({loss}) not "
+                    "bitwise reproducible")
+        for x, y in zip(a[:4], blocks[:3] + blocks[6:]):
+            require(same_bits(x, y), f"K4 pcg_normal_system ({loss}): the "
+                    "blocks or D differ from normal_blocks'")
+        g = blocks[5]
+        pre = k4.preconditioner(g, a[3], lam, fm)
+        pre_t = k4.preconditioner_twin(g, a[3], lam, fm)
+        torch.cuda.synchronize()
+        require(same_bits(pre[0], pre_t[0]) and same_bits(pre[1], pre_t[1]),
+                f"K4 preconditioner ({loss}) differs from its twin")
+        require(same_bits(pre[0], a[4]) and same_bits(pre[1], a[5]),
+                f"K4 preconditioner ({loss}) differs from the fused launch")
+        pre2 = k4.preconditioner(g, a[3], lam, fm)
+        require(same_bits(pre[0], pre2[0]) and same_bits(pre[1], pre2[1]),
+                f"K4 preconditioner ({loss}) not bitwise reproducible")
+    terms = args[1:] + ("none", 1.0)
+    state = k4.lm_state(t["poses"], 1e-3, torch.zeros((), device=lam.device),
+                        C)
+    state.lam.copy_(lam)
+    plan = k4.PcgPlan(state, *terms, inc, fm)
+    ps = (t["poses"],) + terms + (inc, lam, fm)
+    planned = [x.clone() for x in plan.system()]
+    torch.cuda.synchronize()
+    require(all(same_bits(x, y) for x, y in zip(
+        planned, k4.pcg_normal_system(*ps))),
+            "K4 PcgPlan's launch differs from the unplanned one")
+    # The parent's arm: normal_blocks, then the eager preconditioner.
+    par = parent_preconditioner(g, a[3], lam, fm.bool())
+    torch.cuda.synchronize()
+    rel = float(((par[0] - a[4]).abs().amax(dim=(1, 2))
+                 / a[4].abs().amax(dim=(1, 2))).max())
+    require(same_bits(par[1], a[5]) and rel < 1e-3,
+            f"the fused pinv is {rel} from the parent's cuBLAS inverse")
+    nb = args + ("none", 1.0, inc)
+    eps = torch.tensor(1e-8, device=lam.device)
+
+    def parent():
+        blocks = k4.normal_blocks(*nb)
+        return parent_preconditioner(blocks[5], blocks[6], lam, fm.bool())
+
+    def parent_graphable():
+        blocks = k4.normal_blocks(*nb)
+        return parent_preconditioner(blocks[5], blocks[6], lam, fm.bool(),
+                                     eps)
+    fused_ms = cuda_ms(plan.system, 50)
+    # Five graph readings, their median kept: one replay of 20 calls can
+    # read a stall twice the launch's time.
+    fused_graphs = [graph_ms(plan.system, 20) for _ in range(5)]
+    fused_graph = sorted(fused_graphs)[2]
+    unplanned_ms = cuda_ms(lambda: k4.pcg_normal_system(*ps), 50)
+    parent_ms = cuda_ms(parent, 20)
+    parent_graph = graph_ms(parent_graphable, 10)
+    nb_graph = graph_ms(lambda: k4.normal_blocks(*nb), 20)
+    host_plan = host_us(plan.system, 50, sync=True)
+    host_unplanned = host_us(lambda: k4.pcg_normal_system(*ps), 50, sync=True)
+    host_parent = host_us(parent, 20, sync=True)
+    pre_ms = cuda_ms(lambda: k4.preconditioner(g, a[3], lam, fm), 50)
+    pre_graph = graph_ms(lambda: k4.preconditioner(g, a[3], lam, fm), 50)
+    lists = (inc.b_ptr, inc.b_idx, inc.e_ptr, inc.e_idx)
+    print(f"[3] K4 pcg_normal_system on the district ({n} nodes, {C} "
+          "constraints): Baa, Bab, Bbb, D, pinv and b bitwise its twin for "
+          "the three losses and reproducible, the blocks and D bitwise "
+          "normal_blocks', PcgPlan bitwise the unplanned launch; the "
+          "standalone preconditioner bitwise its twin and the fused pinv "
+          f"and b, and reproducible; pinv within {rel:.2e} (relative to "
+          "each block's largest entry) of the parent's cuBLAS inverse, b "
+          "bitwise")
+    print(f"[5] K4 pcg_normal_system (district): planned {fused_ms:.4f} ms, "
+          f"in a CUDA graph {fused_graph:.5f} ms (median of "
+          f"{', '.join(f'{x:.5f}' for x in fused_graphs)}), host "
+          f"{host_plan:.1f} us; "
+          f"unplanned {unplanned_ms:.4f} ms, host {host_unplanned:.1f} us; "
+          f"[parent: normal_blocks + the eager preconditioner {parent_ms:.4f}"
+          f" ms, host {host_parent:.1f} us; in a CUDA graph (inv_ex, the "
+          f"1e-8 on the device) {parent_graph:.5f} ms, of it normal_blocks "
+          f"{nb_graph:.5f} ms]; the preconditioner alone {pre_ms:.4f} ms, "
+          f"in a CUDA graph {pre_graph:.5f} ms ({ident})")
+    return {
+        "pcg_normal_system": timed(
+            0.0, fused_ms, cuda_ms(lambda: k4.pcg_normal_system_twin(*ps), 3),
+            nbytes(*args, *lists, lam, fm, *planned),
+            300 * C + 150 * n, graph_ms=(fused_graph, None)),
+        "preconditioner": timed(
+            0.0, pre_ms,
+            cuda_ms(lambda: k4.preconditioner_twin(g, a[3], lam, fm), 5),
+            nbytes(g, a[3], lam, fm, *pre), 150 * n,
+            graph_ms=(pre_graph, None))}
+
+
+def pcg_iteration_kernels(district, dev) -> list:
+    """The device events (kernels and copies, in start order) of one
+    device's PCG LM iteration on the district, from torch.profiler: from
+    the iteration's ``pcg_normal_system`` launch to its ``lm_step``.
+    Fails on a library inverse, a copy, or any kernel between the
+    normal-system launch and ``pcg_solve``'s."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ndt_2d_tpu_torch import convert
+    from ndt_2d_tpu_torch.config import SolverConfig
+    from ndt_2d_tpu_torch.graph import solver
+    cfg = SolverConfig(max_iterations=2, cg_max_iterations=150)
+    t = convert.solve_inputs_to_port(dev, **district)
+    t.pop("robust_mask")
+    solver.solve(cfg, **t, use_dense=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        solver.solve(cfg, **t, use_dense=False)
+        torch.cuda.synchronize()
+    evs = sorted((ev for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda ev: ev.time_range.start)
+    names = [ev.name for ev in evs]
+    first = next((i for i, x in enumerate(names)
+                  if "pcg_normal_system" in x), None)
+    require(first is not None, f"no pcg_normal_system kernel in {names}")
+    last = next((i for i in range(first, len(names))
+                 if "lm_step" in names[i]), None)
+    require(last is not None, f"no lm_step after the system: {names}")
+    window = names[first:last + 1]
+    require(not any("inv" in x.lower() or "getr" in x.lower()
+                    for x in names), f"a library inverse in {names}")
+    require(len(window) == 3 and "pcg" in window[1]
+            and "Memcpy" not in window[1],
+            f"one PCG LM iteration launched {window}")
+    return window
+
+
+def parent_iteration_kernels(district, dev) -> list:
+    """The parent's PCG LM iteration on the same card, replayed from its
+    pieces (``normal_blocks``, the eager preconditioner, ``pcg_solve``,
+    ``lm_step``): its device events from the first to ``lm_step``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ndt_2d_tpu_torch import convert
+    from ndt_2d_tpu_torch.kernels import normal_blocks as k4
+    t = convert.solve_inputs_to_port(dev, **district)
+    n, C = t["poses"].shape[0], t["begin"].numel()
+    inc = k4.incidence(t["begin"], t["end"], t["constraint_mask"], n)
+    free = t["node_mask"] & (torch.arange(n, device=dev) != 0)
+    fm = free.float()
+    terms = (t["begin"], t["end"], t["transform"], t["information"],
+             t["constraint_mask"], t["robust_mask"], "none", 1.0)
+    cost0 = k4.robust_cost(t["poses"], None, None, *terms)
+
+    def iteration():
+        state = k4.lm_state(t["poses"], 1e-4, cost0, C)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            baa, bab, bbb, _, _, g, diag = k4.normal_blocks(
+                state.poses, *terms, inc)
+            pinv, b = parent_preconditioner(g, diag, state.lam, free)
+            x = k4.pcg_solve(t["begin"], t["end"], baa, bab, bbb, diag,
+                             state.lam, fm, pinv, b, 150, 1e-6, inc)[0]
+            k4.lm_step(state, x, None, *terms, 0.5, 10.0, 1e-9)
+            torch.cuda.synchronize()
+        return prof
+    iteration()
+    evs = sorted((ev for ev in iteration().events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda ev: ev.time_range.start)
+    return [ev.name for ev in evs]
+
+
+def short_names(names) -> list:
+    """Kernel names without namespaces, template arguments and
+    signatures (copies as the profiler names them)."""
+    import re
+    out = []
+    for x in names:
+        if not x.startswith(("Memcpy", "Memset")):
+            x = re.sub(r"^void ", "", x.replace("(anonymous namespace)::", ""))
+            x = re.split(r"[<(]", x, maxsplit=1)[0] or x
+        out.append(x)
     return out
 
 
@@ -2502,6 +2764,9 @@ CG_PHASES = 4  # the start, the plain step and both direction parities
 # The CG loop's launch counts by form (kernels/normal_blocks.py).
 CG_FORMS = ("pcg_matvec", "pcg_matvec_direction", "fixed_dot",
             "fixed_dot_damp", "fixed_dot_update")
+# The mesh's district solve's K4 launches rank 0 reports.
+MESH_DISTRICT_KERNELS = CG_FORMS + ("pcg_solve", "normal_blocks",
+                                    "preconditioner", "pcg_normal_system")
 
 
 def check_cg_plan(ps, x, steps: int):
@@ -2881,7 +3146,9 @@ def phase_district_solve(truth, district, dev):
     require(torch.equal(res.poses, out["twin"][0].poses),
             "district solve: the twins' poses differ from the kernels'")
     require(launches["pcg_solve"] == lm == len(steps)
-            and launches["normal_blocks"] >= 1,
+            and launches["pcg_normal_system"] == lm
+            and launches["normal_blocks"] == 0
+            and launches["preconditioner"] == 0,
             f"district solve: {lm} LM iterations, launches {launches}")
     print(f"[4b] district PCG solve ({truth.shape[0]} nodes): RMSE "
           f"{init:.4f} -> {final:.4f} m in {lm} LM iterations; wall "
@@ -2895,8 +3162,18 @@ def phase_district_solve(truth, district, dev):
           f"{walls['host loop']:.3f} s as the host loop over the public "
           f"pcg_matvec and fixed_dots "
           f"({walls['host loop'] / cg_steps * 1e3:.4f} ms a step), x and "
-          f"steps bitwise equal; launches normal_blocks "
-          f"{launches['normal_blocks']}, pcg_solve {launches['pcg_solve']}")
+          f"steps bitwise equal; launches pcg_normal_system "
+          f"{launches['pcg_normal_system']}, pcg_solve "
+          f"{launches['pcg_solve']}, normal_blocks "
+          f"{launches['normal_blocks']}")
+    window = pcg_iteration_kernels(district, dev)
+    parent = parent_iteration_kernels(district, dev)
+    print(f"[4b] one PCG LM iteration's device events (torch.profiler, "
+          f"from the system's launch to lm_step): {short_names(window)}; "
+          f"the parent's iteration replayed from its pieces: "
+          f"{short_names(parent)} ({len(parent)} events, "
+          f"{sum('HtoD' in x for x in parent)} host->device and "
+          f"{sum('DtoH' in x for x in parent)} device->host copies)")
     return launches, poses
 
 
@@ -4456,8 +4733,8 @@ def cost_candidate_gather(mc, origin, cell_size, points, point_mask,
     bytes) that any (candidate, used beam) looks up on its grids, the used
     beams (9 bytes each), the start pose and the [13] output; ~30
     operations (shift, division, floor, quadratic form, exp, sum) a
-    (candidate, used beam) per grid.  K11's lattice reads a 4-byte field
-    value and does ~10 (shift, division, floor, bounds, sum)."""
+    (candidate, used beam) per grid (``record_bytes``, ``term_ops``: another
+    record and term)."""
     import torch
     W, H = mc.grid_cells_x, mc.grid_cells_y
     spts, smask, used = used_beams(mc, points, point_mask, num_points)
@@ -4478,6 +4755,21 @@ def cost_candidate_gather(mc, origin, cell_size, points, point_mask,
     L = dls.numel()
     return (cells * record_bytes + used * 9 + 12 + 13 * 4,
             origins.shape[0] * dths.numel() * L * L * used * term_ops)
+
+
+def cost_lattice_tables(mc, origin, points, point_mask, num_points: int,
+                        pose, dths, dls):
+    """K11's lattice's (bytes, operations) for one row: K6's bytes with a
+    4-byte field value a cell; a (candidate, used beam) term an index add
+    and a float add, since a beam's cell columns and row offsets depend on
+    one offset each: ~10 operations (rotation share, shift, division,
+    floor, bounds) for each of the 2 L entries of an (angle, used beam)."""
+    moved, terms = cost_candidate_gather(mc, origin, mc.ndt_resolution,
+                                         points, point_mask, num_points,
+                                         pose, dths, dls, record_bytes=4,
+                                         term_ops=2)
+    used = used_beams(mc, points, point_mask, num_points)[2]
+    return moved, terms + dths.numel() * used * 2 * dls.numel() * 10
 
 
 def edge_candidates(mc, origin, cell_size, points, point_mask, num_points,
@@ -5174,6 +5466,7 @@ def phase_descriptor_session(cfg, bag, dev, tag, name, need_far=False):
     require(rec.far >= 1 and drec.passes >= 1
             and all(launches[k] == drec.passes for k in DESCRIPTOR_KERNELS)
             and launches["normal_blocks"] + launches["dense_normal_system"]
+            + launches["pcg_normal_system"]
             >= 1 and launches["raymarch"] >= 1,
             f"{name}: K6, K4 or K5 never launched, or K10 not once a pass "
             f"({drec.passes}): {launches}")
@@ -5293,6 +5586,7 @@ def phase_merge(dev):
             and launches["descriptor_spectra"] == 2
             and launches["descriptor_search"] == 1
             and launches["normal_blocks"] + launches["dense_normal_system"]
+            + launches["pcg_normal_system"]
             >= 1,
             f"merge launches {launches}")
     print(f"[4j] merge: sessions of {ga.num_scans} and {gb.num_scans} "
@@ -5491,6 +5785,56 @@ def corridor_scans(bag, cfg, ts):
     return np.stack([p for p, _ in out]), np.stack([m for _, m in out])
 
 
+# The parent's lattice entry (csrc/correlative.cu, kept beside the tables
+# form as this script's comparison arm; no path of the package launches it).
+PARENT_MATCH_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_float]
+                     + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+                     + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+                     + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+                     + [ctypes.c_int] + [ctypes.c_void_p] + [ctypes.c_int]
+                     + [ctypes.c_void_p] * 4)
+
+
+def parent_match_rows(mc, fields, origins, points, point_mask, nums, poses,
+                      dths, dls, num: int = 0, with_scores: bool = False):
+    """The parent's lattice search over R rows (``k11.match_rows``'
+    arguments; ``nums`` None: ``num`` points every row): a block a tile,
+    two divisions a term, then ``lattice::finalize`` as a second launch.
+    Returns the [R, 13] rows, or (rows, scores [R, A, L, L])."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import _build
+    from ndt_2d_tpu_torch.kernels.candidate_gather import TILE
+    dev = points.device
+    R, P = points.shape[0], points.shape[1]
+    A, L = dths.shape[0], dls.shape[0]
+    partial = torch.empty(R, A * -(-L * L // TILE), 12, dtype=torch.float32,
+                          device=dev)
+    out = torch.empty(R, 13, dtype=torch.float32, device=dev)
+    scores = (torch.empty(R, A, L, L, dtype=torch.float32, device=dev)
+              if with_scores else None)
+    p = _build.ptr
+    err = _build.function("ndt2d_correlative_match", PARENT_MATCH_ARGS)(
+        p(fields), p(origins), float(mc.ndt_resolution), mc.grid_cells_x,
+        mc.grid_cells_y, p(points), p(point_mask), R, P,
+        None if nums is None else p(nums), int(num),
+        int(mc.laser_max_beams), p(poses), p(dths), A, p(dls), L,
+        p(partial), p(out), None if scores is None else p(scores),
+        _build.stream_ptr(dev))
+    _build.check(err, "correlative_match (parent)")
+    return (out, scores) if with_scores else out
+
+
+def parent_match(mc, field, origin, points, point_mask, num_points: int,
+                 pose, dths, dls, with_scores: bool = False):
+    """The parent's lattice search of one scan (``k11.match``'s arguments):
+    its [1, 13] row, or (row, scores [A, L, L])."""
+    res = parent_match_rows(mc, field[None], origin[None], points[None],
+                            point_mask[None], None, pose[None], dths, dls,
+                            num_points, with_scores)
+    return (res[0], res[1][0]) if with_scores else res
+
+
 def k11_shape(mc, win, query, odom, pts, msk, ks, rmax, dev, what):
     """K11's three entries at one shape: the field of window ``win``, the
     lattice of ``mc`` and the point score of ``query``, bitwise against the
@@ -5498,7 +5842,10 @@ def k11_shape(mc, win, query, odom, pts, msk, ks, rmax, dev, what):
     ``odom``/``pts``/``msk``, query k + D from its odometry pose shifted
     by (0.02, -0.01, 0.01), k in ``ks``) bitwise equal to their R = 1
     launches.  Returns the timing entries."""
+    import dataclasses
+
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from ndt_2d_tpu_torch.kernels import correlative as k11
     from ndt_2d_tpu_torch.matching.matcher import _search_offsets
@@ -5528,15 +5875,86 @@ def k11_shape(mc, win, query, odom, pts, msk, ks, rmax, dev, what):
              query["num_points"], query["pose"], dths, dls)
     row, sc = k11.match(*margs, with_scores=True)
     rest, sct = k11.match_twin(*margs)
+    prow, psc = parent_match(*margs, with_scores=True)
     torch.cuda.synchronize()
     check_match(row, sc, one_row(rest), sct, f"K11 lattice ({what})")
     check_match(row, sc, *k11.match(*margs, with_scores=True),
                 f"K11 lattice reproducibility ({what})")
+    check_match(row, sc, prow, psc, f"K11 lattice against the parent's "
+                f"two launches ({what})")
+    # Beams whose cells do not fit their window read the field as the
+    # parent did: offsets in descending order (no beam takes a window) and
+    # offsets 0.6 cell apart (beams past their window beside beams that
+    # reach no cell); and a lattice whose tables fill the block's shared
+    # memory beside its static part (40 x 57 x 57, offsets 0.05 cell
+    # apart); each bitwise the twin and the parent.
+    fine = dataclasses.replace(mc, search_linear_resolution=0.05
+                               * mc.ndt_resolution)
+    full = (fine,) + margs[1:7] + (
+        dths[:40].contiguous(),
+        (torch.arange(57, dtype=torch.float32, device=dev) - 28)
+        * float(fine.search_linear_resolution))
+    for name, m2 in (("descending offsets",
+                      margs[:8] + (dls.flip(0).contiguous(),)),
+                     ("offsets 0.6 cell apart", margs[:8] + (dls * float(
+                         0.6 * mc.ndt_resolution
+                         / mc.search_linear_resolution),)),
+                     ("tables filling shared memory", full)):
+        r2, s2 = k11.match(*m2, with_scores=True)
+        t2, ts2 = k11.match_twin(*m2)
+        p2, ps2 = parent_match(*m2, with_scores=True)
+        torch.cuda.synchronize()
+        check_match(r2, s2, one_row(t2), ts2, f"K11 lattice, {name} "
+                    f"({what})")
+        check_match(r2, s2, p2, ps2, f"K11 lattice, {name}, against the "
+                    f"parent's launches ({what})")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tight = k11.lattice_plan(full[7].numel(), full[8].numel(), 1,
+                             mc.laser_max_beams, sms, 0.05)
+    print(f"[5] K11 lattice ({what}), tables filling shared memory: "
+          f"{tight.smem} dynamic bytes beside the kernel's static "
+          f"{4 * k11.static_words(tight.threads)} (blocks of "
+          f"{tight.threads}, {tight.chunk} beams a chunk), bitwise the twin "
+          f"and the parent")
+    A, L = dths.numel(), dls.numel()
+    plan = k11.lattice_plan(A, L, 1, mc.laser_max_beams, sms,
+                            mc.search_linear_resolution / mc.ndt_resolution)
+    new_ms = cuda_ms(lambda: k11.match(*margs), 20)
+    new_graph = graph_ms(lambda: k11.match(*margs), 20)
+    par_ms = cuda_ms(lambda: parent_match(*margs), 20)
+    par_graph = graph_ms(lambda: parent_match(*margs), 20)
+    new_host = host_us(lambda: k11.match(*margs), 20, sync=True)
+    par_host = host_us(lambda: parent_match(*margs), 20,
+                       sync=True)
+    # One match in a profiler window shows one kernel.  A window that
+    # shows no device event at all (the profiler lost its records; seen
+    # once in 13 runs) is taken again, up to three times.
+    for _ in range(3):
+        before = k11.match_launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            k11.match(*margs)
+            torch.cuda.synchronize()
+        kernels = [ev.name for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    require(k11.match_launches == before + 1 and len(kernels) == 1,
+            f"K11 lattice ({what}): one match launched {kernels}")
+    print(f"[5] K11 lattice, {what} ({A}x{L}x{L} x "
+          f"{mc.laser_max_beams} beams; blocks of {plan.threads}, "
+          f"{plan.per} tiles a thread, {A * plan.groups} blocks, tables "
+          f"{plan.nx}+{L} x {plan.chunk} beams, windows {plan.cx}x"
+          f"{plan.cy}): one launch {new_ms:.4f} ms, in a CUDA graph "
+          f"{new_graph:.5f} ms, host {new_host:.1f} us [parent, two "
+          f"launches: {par_ms:.4f} ms, in a CUDA graph {par_graph:.5f} ms, "
+          f"host {par_host:.1f} us] ({short_names(kernels)})")
     out["correlative_match"] = timed(
-        0.0, cuda_ms(lambda: k11.match(*margs), 20),
-        cuda_ms(lambda: k11.match_twin(*margs), 3),
-        *cost_candidate_gather(mc, o, mc.ndt_resolution, *margs[3:],
-                               record_bytes=4, term_ops=10))
+        0.0, new_ms, cuda_ms(lambda: k11.match_twin(*margs), 3),
+        *cost_lattice_tables(mc, o, *margs[3:]),
+        graph_ms=(new_graph, None))
+    print(f"[5] K11 lattice, {what}: bound "
+          f"{out['correlative_match']['bound_ms']:.6f} ms (by "
+          f"{out['correlative_match']['bound_by']})")
 
     sargs = (mc, f, o, query["points"], query["point_mask"],
              query["num_points"], query["pose"][None])
@@ -5569,6 +5987,8 @@ def k11_shape(mc, win, query, odom, pts, msk, ks, rmax, dev, what):
             torch.tensor(odom[qi] + [0.02, -0.01, 0.01],
                          dtype=torch.float32, device=dev))
     many = k11.match_rows(mc, *rows, dths, dls)
+    require(torch.equal(many, parent_match_rows(mc, *rows, dths, dls)),
+            f"K11 lattice rows differ from the parent's launches ({what})")
     for r in range(R):
         one = k11.match(mc, rows[0][r], rows[1][r], rows[2][r], rows[3][r],
                         int(rows[4][r]), rows[5][r], dths, dls)
@@ -5579,8 +5999,12 @@ def k11_shape(mc, win, query, odom, pts, msk, ks, rmax, dev, what):
           f"lattice of {sc.numel()} candidates (score {float(row[0, 0]):.5f}, "
           f"correction {[round(float(x), 4) for x in row[0, 1:4]]}) and "
           f"point score {float(u[0]):.5f} bitwise equal to their twins and "
-          f"reproducible; {R} lattice rows bitwise equal to their R = 1 "
-          f"launches ({int((many[:, 0] < -0.3).sum())} score below -0.3)")
+          f"reproducible, the lattice bitwise the parent's two launches "
+          f"(also with descending offsets and offsets 0.6 cell apart, "
+          f"beams past their windows); "
+          f"{R} lattice rows bitwise equal to their R = 1 launches and to "
+          f"the parent's ({int((many[:, 0] < -0.3).sum())} score below "
+          f"-0.3)")
     return out
 
 
@@ -5593,10 +6017,6 @@ def phase_k11(cfg, bag, win, query, dev):
     widened lattice (+-0.15 m at 0.0075 m, 80x40x40 candidates x 100
     beams) over 10 box scans of 360 beams to 12 m, rows from consecutive
     scans of a box bag."""
-    import numpy as np
-    import torch
-
-    from ndt_2d_tpu_torch.io.bag import record_synthetic
     D = cfg.rolling_depth
     ks = [2 * r for r in range(ROWS)]
     pts, msk = corridor_scans(bag, cfg, range(max(ks) + D + 1))
@@ -5604,6 +6024,22 @@ def phase_k11(cfg, bag, win, query, dev):
         cfg.local_scan_matcher, win, query, bag.odom, pts, msk, ks,
         bag.range_max, dev, "config 2").items()}
 
+    box_cfg, box, bpts, bmsk, bwin, bquery = box_window(D, dev)
+    out.update(k11_shape(box_cfg.local_scan_matcher, bwin, bquery, box.odom,
+                         bpts, bmsk, list(range(ROWS)), box.range_max, dev,
+                         "box drive's shape"))
+    return out
+
+
+def box_window(D: int, dev):
+    """The correlative box drive's shape: its config, a box bag of ROWS +
+    D scans of 360 beams to 12 m, their points and masks, the window of
+    its first D scans and the query scan D from its odometry pose shifted
+    by (0.02, -0.01, 0.01)."""
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.io.bag import record_synthetic
     box_cfg = correlative_box_config()
     box = record_synthetic("box", ROWS + D, n_beams=360, range_max=12.0,
                            seed=4)
@@ -5619,10 +6055,7 @@ def phase_k11(cfg, bag, win, query, dev):
                   num_points=int(bmsk[D].sum()),
                   pose=t((box.odom[D] + [0.02, -0.01, 0.01]).astype(
                       np.float32)))
-    out.update(k11_shape(box_cfg.local_scan_matcher, bwin, bquery, box.odom,
-                         bpts, bmsk, list(range(ROWS)), box.range_max, dev,
-                         "box drive's shape"))
-    return out
+    return box_cfg, box, bpts, bmsk, bwin, bquery
 
 
 def pipelined(cfg, inflight=8):
@@ -5992,7 +6425,8 @@ def correlative_box_config():
 
 def correlative_box(dev):
     """The box drive of tests/test_correlative.py:68-99 with the
-    correlative matcher: (accepted, scans, ATE, odometry ATE)."""
+    correlative matcher: (accepted, scans, ATE, odometry ATE, the accepted
+    poses' sha256)."""
     import numpy as np
 
     from ndt_2d_tpu_torch.mapping.mapper import Mapper
@@ -6012,7 +6446,7 @@ def correlative_box(dev):
             est.append(res.pose)
             tru.append(truth[t])
     return (len(est), n, metrics.ate_rmse(np.asarray(est), np.asarray(tru)),
-            metrics.ate_rmse(odom, truth))
+            metrics.ate_rmse(odom, truth), poses_digest(np.asarray(est)))
 
 
 def phase_correlative(cfg, bag, dev):
@@ -6025,7 +6459,7 @@ def phase_correlative(cfg, bag, dev):
 
     import numpy as np
     reset_counts()
-    acc, n, ate, odom = correlative_box(dev)
+    acc, n, ate, odom, digest = correlative_box(dev)
     launches = read_counts()
     require(acc >= 12, f"correlative box: {acc} of {n} accepted")
     require(ate < odom and ate < 0.15,
@@ -6036,7 +6470,8 @@ def phase_correlative(cfg, bag, dev):
     require(launches["ndt_build"] == 0 and launches["candidate_scores"] == 0,
             f"correlative box ran an NDT kernel: {launches}")
     print(f"[4o] correlative matcher, box drive: {acc}/{n} accepted, ATE "
-          f"{ate:.4f} m (odometry {odom:.4f}); launches {launches}")
+          f"{ate:.4f} m (odometry {odom:.4f}), poses sha256 {digest}; "
+          f"launches {launches}")
     local = dataclasses.replace(cfg.local_scan_matcher,
                                 search_linear_size=0.15,
                                 search_linear_resolution=0.0075)
@@ -6868,7 +7303,9 @@ def phase_mesh_nccl(cfg, bag, cfg6, bag3, dev, tmp, pf_digest):
               f"{dp['stats']['session']['optimizations']} optimizations, "
               f"final ATE {dp['final']:.4f} m (dense "
               f"{d1['final']:.4f}), {dp['launches']['pcg_solve']} PCG "
-              f"solves (one launch an LM step), session {dp['wall']:.3f} s")
+              f"solves (one launch an LM step) after "
+              f"{dp['launches']['pcg_normal_system']} pcg_normal_system "
+              f"launches, session {dp['wall']:.3f} s")
         # distributed.gather through NCCL at the solver's shape (the
         # block diagonal of the district's 50,000 nodes).
         x = torch.randn(9 * DISTRICT_NODES, device=dev)
@@ -7032,7 +7469,7 @@ def district_on_mesh(mesh, dev) -> dict:
     torch.cuda.synchronize()
     out = {"district_wall": time.perf_counter() - t0}
     counts = read_counts()
-    for k in CG_FORMS + ("pcg_solve",):  # an older tree counts fewer forms
+    for k in MESH_DISTRICT_KERNELS:  # an older tree counts fewer forms
         out[f"district_{k}"] = counts.get(k, 0)
     out["district_lm"] = int(res.iterations)
     out["district_ok"] = bool(res.success)
@@ -7126,13 +7563,16 @@ def phase_mesh_shared(cfg, bag, single10, district_poses, district_truth,
                 f"mesh {tag}: the sharded measurement differs from K3")
         lm = int(a["district_lm"])
         counts = {k: int(a[f"district_{k}"])
-                  for k in CG_FORMS + ("pcg_solve",)}
+                  for k in MESH_DISTRICT_KERNELS}
         # The planned loop: a phase is one matvec and the two dot
         # variants; a solve's first two matvecs take v as given, the
         # others form the direction; nothing launches the public dots or
         # pcg_solve.
         phases = counts["pcg_matvec"] + counts["pcg_matvec_direction"]
         require(counts["pcg_solve"] == 0 and counts["fixed_dot"] == 0
+                and counts["normal_blocks"] == lm
+                and counts["preconditioner"] == lm
+                and counts["pcg_normal_system"] == 0
                 and counts["pcg_matvec"] >= lm
                 and counts["pcg_matvec_direction"] >= 1
                 and counts["fixed_dot_damp"] == phases
@@ -7152,7 +7592,10 @@ def phase_mesh_shared(cfg, bag, single10, district_poses, district_truth,
               f"pcg_matvec {counts['pcg_matvec']} plain and "
               f"{counts['pcg_matvec_direction']} forming the direction, "
               f"fixed_dot variant (A) {counts['fixed_dot_damp']} and (B) "
-              f"{counts['fixed_dot_update']}, public {counts['fixed_dot']}; "
+              f"{counts['fixed_dot_update']}, public {counts['fixed_dot']}, "
+              f"normal_blocks {counts['normal_blocks']} and the standalone "
+              f"preconditioner {counts['preconditioner']} (after the "
+              f"combine); "
               f"{PARTICLES}-particle measurement bitwise equal to "
               f"unsharded K3; host-staged all_gather of "
               f"{9 * DISTRICT_NODES} floats {float(a['gather_ms']):.4f} ms; "
@@ -7807,6 +8250,263 @@ def phase_blocks(map4, map7, dev, tmp):
     return launches
 
 
+def pcg_lattice_times(dev, ident: str) -> dict:
+    """``--pcg-lattice-times``: the district's PCG solve on one device
+    (walls of three solves, LM iterations, CG steps, RMSE, poses sha256),
+    K4's PCG system against its parent's arm (``normal_blocks`` and the
+    eager preconditioner) in a CUDA graph and by CUDA events, parent,
+    change, change, parent, K11's lattice at the box drive's and config
+    2's shapes against the parent form likewise, and the box drive's
+    decisions (accepted, ATE, poses sha256), and config 6 forced to PCG
+    from perturbed starts (``config6_pcg_spread``).  In an older tree (this
+    script copied into it) the arms it lacks are left out and its own
+    forms are timed as "tree"."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch import convert
+    from ndt_2d_tpu_torch.config import SolverConfig
+    from ndt_2d_tpu_torch.graph import solver
+    from ndt_2d_tpu_torch.kernels import correlative as k11
+    from ndt_2d_tpu_torch.kernels import normal_blocks as k4
+    from ndt_2d_tpu_torch.matching.matcher import _search_offsets
+    out = {"card": ident}
+    truth, district = district_graph()
+    t = convert.solve_inputs_to_port(dev, **district)
+    t.pop("robust_mask")
+    cfg = SolverConfig(max_iterations=30, cg_max_iterations=150)
+    solver.solve(cfg, **t, use_dense=False)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.solve(cfg, **t, use_dense=False)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    real, steps = k4.pcg_solve, []
+
+    def counted(*args):
+        x, it = real(*args)
+        steps.append(it)
+        return x, it
+    k4.pcg_solve = counted
+    try:
+        res = solver.solve(cfg, **t, use_dense=False)
+    finally:
+        k4.pcg_solve = real
+    poses = res.poses.cpu().numpy().astype(np.float64)
+    out["district"] = dict(
+        walls=walls, lm=int(res.iterations),
+        cg_steps=[int(i) for i in steps],
+        rmse=float(np.sqrt(np.mean(np.sum(
+            (poses[:, :2] - truth[:, :2]) ** 2, -1)))),
+        sha=hashlib.sha256(res.poses.cpu().numpy().tobytes()).hexdigest()[:16])
+    print(f"[6] district PCG solve: walls {[round(w, 4) for w in walls]} s, "
+          f"{out['district']['lm']} LM iterations, "
+          f"{sum(out['district']['cg_steps'])} CG steps "
+          f"{out['district']['cg_steps']}, RMSE {out['district']['rmse']:.4f}"
+          f" m, poses sha256 {out['district']['sha']} ({ident})")
+    # K4: the system an LM iteration hands pcg_solve, at the district.
+    n, C = t["poses"].shape[0], t["begin"].numel()
+    robust = torch.zeros(C, dtype=torch.bool, device=dev)
+    terms = (t["begin"], t["end"], t["transform"], t["information"],
+             t["constraint_mask"], robust, "none", 1.0)
+    inc = k4.incidence(t["begin"], t["end"], t["constraint_mask"], n)
+    free = t["node_mask"] & (torch.arange(n, device=dev) != 0)
+    fm = free.float()
+    lam = torch.tensor(1e-3, device=dev)
+    eps = torch.tensor(1e-8, device=dev)
+
+    def parent():
+        b = k4.normal_blocks(t["poses"], *terms, inc)
+        return parent_preconditioner(b[5], b[6], lam, free)
+
+    def parent_graphable():
+        b = k4.normal_blocks(t["poses"], *terms, inc)
+        return parent_preconditioner(b[5], b[6], lam, free, eps)
+    arms = {"parent": (parent, parent_graphable)}
+    if hasattr(k4, "PcgPlan"):
+        state = k4.lm_state(t["poses"], 1e-3,
+                            torch.zeros((), device=dev), C)
+        state.lam.copy_(lam)
+        plan = k4.PcgPlan(state, *terms, inc, fm)
+        arms["change"] = (plan.system, plan.system)
+    order = (["parent", "change", "change", "parent"] if "change" in arms
+             else ["parent", "parent"])
+    k4_rows = []
+    for arm in order:
+        eager, graphable = arms[arm]
+        k4_rows.append(dict(arm=arm, ms=cuda_ms(eager, 50),
+                            graph_ms=graph_ms(graphable, 20),
+                            host_us=host_us(eager, 30, sync=True)))
+        print(f"[6] K4 PCG system (district), {arm}: {k4_rows[-1]['ms']:.4f}"
+              f" ms, in a CUDA graph {k4_rows[-1]['graph_ms']:.5f} ms, host "
+              f"{k4_rows[-1]['host_us']:.1f} us ({ident})")
+    out["k4"] = k4_rows
+    # K11's lattice at both shapes.
+    bag, cfg2, win, query, _ = inputs(dev)
+    D = cfg2.rolling_depth
+    box_cfg, _, _, _, bwin, bquery = box_window(D, dev)
+    # A tree with the tables form times the parent's entry beside it; an
+    # older tree's own lattice is the parent's.
+    has_parent = hasattr(k11, "lattice_plan")
+    k11_rows = []
+    for what, mc, w, q in (("box", box_cfg.local_scan_matcher, bwin, bquery),
+                           ("config 2", cfg2.local_scan_matcher, win,
+                            query)):
+        W, H = mc.grid_cells_x, mc.grid_cells_y
+        f, o = k11.build_field(w["poses"], w["points"], w["point_mask"],
+                               w["window_mask"], 12.0 if what == "box"
+                               else bag.range_max, mc.ndt_resolution, W, H)
+        dths, dls = _search_offsets(mc, dev)
+        margs = (mc, f, o, q["points"], q["point_mask"], q["num_points"],
+                 q["pose"], dths, dls)
+        forms = ({"parent": lambda: parent_match(*margs),
+                  "change": lambda: k11.match(*margs)} if has_parent
+                 else {"tree": lambda: k11.match(*margs)})
+        for arm in (["parent", "change", "change", "parent"] if has_parent
+                    else ["tree", "tree"]):
+            fn = forms[arm]
+            row = dict(shape=what, arm=arm, ms=cuda_ms(fn, 50),
+                       graph_ms=graph_ms(fn, 50),
+                       host_us=host_us(fn, 30, sync=True))
+            k11_rows.append(row)
+            print(f"[6] K11 lattice ({what}, {dths.numel()}x{dls.numel()}x"
+                  f"{dls.numel()}), {arm}: {row['ms']:.4f} ms, in a CUDA "
+                  f"graph {row['graph_ms']:.5f} ms, host {row['host_us']:.1f}"
+                  f" us ({ident})")
+        out[f"k11_{what}_row"] = k11.match(*margs).cpu().numpy().tolist()
+    out["k11"] = k11_rows
+    acc, nscans, ate, odom, digest = correlative_box(dev)
+    out["box"] = dict(accepted=acc, scans=nscans, ate=ate, odom=odom,
+                      sha=digest)
+    print(f"[6] correlative box drive: {acc}/{nscans} accepted, ATE "
+          f"{ate:.4f} m (odometry {odom:.4f}), poses sha256 {digest}")
+    out["config6_pcg"] = config6_pcg_spread(dev)
+    return out
+
+
+class ReplacedInverse:
+    """Within the block, one device's PCG system (``k4.PcgPlan.system``)
+    hands ``pcg_solve`` another block-Jacobi inverse of the same damped
+    blocks: "cublas", the parent's eager ``torch.linalg.inv``; "float64",
+    the inverse in float64 rounded to float32.  Isolates the inverse's
+    bits from the rest of the iteration."""
+
+    def __init__(self, kind: str):
+        self.kind = kind
+
+    def __enter__(self):
+        import torch
+
+        from ndt_2d_tpu_torch.kernels import normal_blocks as k4
+        self.real = real = k4.PcgPlan.system
+        kind = self.kind
+
+        def system(plan):
+            out = real(plan)
+            diag, pinv = out[3], out[4]
+            eye = torch.eye(3, dtype=diag.dtype, device=diag.device)
+            eps = torch.tensor(1e-8, dtype=diag.dtype, device=diag.device)
+            m = (diag + plan.state.lam * (diag * eye) + eps * eye
+                 + (1.0 - plan.fm)[:, None, None] * eye)
+            pinv.copy_(torch.linalg.inv(m) if kind == "cublas"
+                       else torch.linalg.inv(m.double()).to(pinv.dtype))
+            return out
+        k4.PcgPlan.system = system
+        return self
+
+    def __exit__(self, *exc):
+        from ndt_2d_tpu_torch.kernels import normal_blocks as k4
+        k4.PcgPlan.system = self.real
+        return False
+
+
+class SolveResiduals:
+    """Within the block, each of one device's PCG solves (``k4.pcg_solve``)
+    is followed by its relative residual |A x - b| / |b| of the damped
+    system, in float64 through the matvec's twin, and its step count."""
+
+    def __init__(self):
+        self.rows = []
+
+    def __enter__(self):
+        import torch
+
+        from ndt_2d_tpu_torch.kernels import normal_blocks as k4
+        self.real = real = k4.pcg_solve
+        rows = self.rows
+
+        def solve(begin, end, baa, bab, bbb, diag, lam, fm, pinv, b,
+                  max_iter, tol, inc):
+            x, it = real(begin, end, baa, bab, bbb, diag, lam, fm, pinv, b,
+                         max_iter, tol, inc)
+            d = [t.double() for t in (baa, bab, bbb, diag, lam, fm, x, b)]
+            ax = k4.pcg_matvec_twin(begin, end, *d[:6], d[6], inc)
+            rows.append((float(torch.linalg.norm(ax - d[7])
+                               / torch.linalg.norm(d[7])), int(it)))
+            return x, it
+        k4.pcg_solve = solve
+        return self
+
+    def __exit__(self, *exc):
+        from ndt_2d_tpu_torch.kernels import normal_blocks as k4
+        k4.pcg_solve = self.real
+        return False
+
+
+def config6_pcg_spread(dev, starts: int = 5, inverses=("tree",)) -> list:
+    """Config 6 on one device with the solve forced to PCG (the smoke's
+    ungated witness), from the solver's start damping and from
+    ``starts`` - 1 starts perturbed in its last bits (``lm_lambda_init``
+    x (1 + j 2^-20), j = 1, 2, ...: 8 j float32 ulps), for each of
+    ``inverses`` ("tree": the tree's own block-Jacobi inverse, else a
+    ``ReplacedInverse``), then dense from the first start: each session's
+    closures, optimizations and final ATE, the spread the witness's move
+    is read against."""
+    import contextlib
+    import dataclasses
+
+    from ndt_2d_tpu_torch.mapping.mapper import Mapper
+    cfg6, bag3 = config6(), office_bag()
+    lam0 = cfg6.solver.lm_lambda_init
+    rows = []
+    runs = [(kind, j, 0) for kind in inverses for j in range(starts)]
+    for kind, j, limit in runs + [("tree", 0, cfg6.solver.dense_size_limit)]:
+        c6 = dataclasses.replace(cfg6, solver=dataclasses.replace(
+            cfg6.solver, dense_size_limit=limit,
+            lm_lambda_init=lam0 * (1 + j * 2.0 ** -20)))
+        # The first start's solves also record their residuals: its first
+        # solve is the same system under every inverse.
+        probe = SolveResiduals() if j == 0 and limit == 0 else None
+        with (contextlib.nullcontext() if kind == "tree"
+              else ReplacedInverse(kind)), (
+                probe or contextlib.nullcontext()):
+            st6, _, _, _, _, mp6 = run_session(
+                c6, bag3, dev, mapper=Mapper(c6, device=dev))
+        rows.append(dict(solve="pcg" if limit == 0 else "dense",
+                         inverse=kind, j=j, closures=st6["loop_closures"],
+                         optimizations=st6["session"]["optimizations"],
+                         final_ate=final_ate(mp6, st6, bag3)))
+        print(f"[6] config 6, {rows[-1]['solve']} ({kind} inverse), "
+              f"lm_lambda_init x (1 + {j} 2^-20): {rows[-1]['closures']} "
+              f"closures, {rows[-1]['optimizations']} optimizations, final "
+              f"ATE {rows[-1]['final_ate']:.4f} m")
+        if probe is not None and probe.rows:
+            res = sorted(r for r, _ in probe.rows)
+            capped = sum(it >= c6.solver.cg_max_iterations
+                         for _, it in probe.rows)
+            rows[-1]["residuals"] = probe.rows
+            print(f"[6] config 6, pcg ({kind} inverse), its {len(res)} "
+                  f"solves: the first's relative residual "
+                  f"{probe.rows[0][0]:.4e} in {probe.rows[0][1]} steps, "
+                  f"median {res[len(res) // 2]:.4e}, largest {res[-1]:.4e}, "
+                  f"{capped} at the step cap")
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -7866,6 +8566,25 @@ def main() -> int:
         ident = phase_card()
         phase_build()
         print(json.dumps({"pf_times": pf_times(dev, ident), "card": ident}))
+        return 0
+    if "--config6-spread" in sys.argv[1:]:
+        from ndt_2d_tpu_torch.device import get_device
+        dev = get_device("cuda:0")
+        ident = phase_card()
+        phase_build()
+        from ndt_2d_tpu_torch.kernels import normal_blocks as k4
+        kinds = (("tree", "cublas", "float64") if hasattr(k4, "PcgPlan")
+                 else ("tree",))
+        print(json.dumps({"config6_pcg": config6_pcg_spread(dev, 16, kinds),
+                          "card": ident}))
+        return 0
+    if "--pcg-lattice-times" in sys.argv[1:]:
+        from ndt_2d_tpu_torch.device import get_device
+        dev = get_device("cuda:0")
+        ident = phase_card()
+        phase_build()
+        print(json.dumps({"pcg_lattice_times": pcg_lattice_times(dev,
+                                                                 ident)}))
         return 0
     if "--kernel-times" in sys.argv[1:]:
         from ndt_2d_tpu_torch.device import get_device
@@ -7951,14 +8670,17 @@ def main() -> int:
     # K4's PCG entries and the mesh's dense system (one device's dense
     # path launches dense_normal_system instead of normal_blocks and
     # dense_system), K3's particle launch and K9; the PCG solve's and the
-    # blocks' from the district solve, the CG loop's forms from the
+    # fused PCG system's from the district solve, normal_blocks', the
+    # standalone preconditioner's and the CG loop's forms from the
     # district solve by solve_multichip on the (1, 2) gloo mesh (rank 0;
     # the mesh's planned CG loop: the matvec plain and forming the
     # direction, the dot variants (A) and (B); the public fixed_dots,
     # which no path launches, 0), dense_system's from config 10 on the
     # one-rank NCCL mesh, the others' from the config-4 particle filter.
-    for k in ("pcg_solve", "normal_blocks"):
+    for k in ("pcg_solve", "pcg_normal_system"):
         launches[k] = district_launches[k]
+    for k in ("normal_blocks", "preconditioner"):
+        launches[k] = mesh_district[(1, 2)][k]
     launches["dense_system"] = k12_launches["dense_system"]
     for k in CG_FORMS:
         launches[k] = mesh_district[(1, 2)][k]

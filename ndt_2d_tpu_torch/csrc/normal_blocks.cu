@@ -11,7 +11,11 @@
 // ndt2d_cg_update_planned), _dense_solve's assembly of the damped dense
 // system (entry ndt2d_dense_system, a mesh's), the blocks, node sums and
 // assembly of one device's dense LM iteration in one launch (entry
-// ndt2d_dense_normal_system), and _robust_cost with the accept and update
+// ndt2d_dense_normal_system), the blocks, node sums, block-Jacobi
+// preconditioner and right-hand side of one device's PCG LM iteration in
+// one launch (entry ndt2d_pcg_normal_system; the preconditioner alone after
+// a mesh's combine: ndt2d_preconditioner), and _robust_cost with the accept
+// and update
 // of the LM loop's body, lm_step (entry ndt2d_lm_step: one block where the
 // costs fit the default 48 KB of shared memory, every dense solve, else
 // one cooperative launch, as the district's PCG solve).  A planned
@@ -119,6 +123,23 @@
 // 36 bytes of blocks per use).  A block's lists and slots are the row's
 // degree, so a hub of any degree is chunked, never capped.
 //
+// The PCG normal system (ndt2d_pcg_normal_system).  One device's PCG
+// iteration was normal_blocks' two launches (constraint_blocks writing 33
+// floats a constraint at 36-byte strides a thread, node_sums reading Baa,
+// Bbb, ga and gb back as scattered records), then ~10 eager kernels for
+// the preconditioner (a batched cuBLAS inverse whose status read synced
+// the device, and a host->device copy of 1e-8).  pcg_solve reads Baa, Bab,
+// Bbb, D, pinv and b, nothing of ga and gb.  One launch now forms them: a
+// constraint block writes its constraints' three blocks through shared
+// memory (coalesced stores), and a node block forms each node's D and g
+// as dense_normal_system does, its incident constraints' terms formed
+// again by constraint_terms (the district's ~2 a node) instead of read
+// back, then the damped 3x3 block's inverse by three LU solves (solve3.cuh,
+// bitwise on the CPU and the card, where cuBLAS and LAPACK round
+// differently) and b = -g fm, written through shared memory.  lam is read
+// on the device: no upload, no read.  What bounds it is bytes: the inputs
+// once, 108 bytes of blocks a constraint and 84 a node written.
+//
 // The LM step (ndt2d_lm_step).  Eager, the robust cost of the step and
 // the accept/update are ~60 launches and two host->device scalar copies.
 // The work is ~80 bytes a constraint, so launches bound it at the dense
@@ -143,6 +164,7 @@
 #include <algorithm>
 
 #include "common.cuh"
+#include "solve3.cuh"
 
 namespace {
 
@@ -1269,6 +1291,160 @@ __global__ void __launch_bounds__(kDnThreads, 8)
   if (t < 3) a.rhs[3 * i + t] = -(part[9 + t] + part[21 + t]) * fi;
 }
 
+// --- The PCG normal system -------------------------------------------------
+
+// The damped block-Jacobi inverse of one node's diagonal block d (row-major
+// 3x3), _pcg_solve's (solver.py:197-199): dd = d + lam (d o I) + 1e-8 I,
+// plus I where the node is fixed (fm = 0), each element in JAX's expression
+// order; column j of pinv is solve3(dd, e_j) (LU with partial pivoting,
+// the twin's matching/newton.py::solve3).  A singular or NaN block gives
+// inf / NaN, as jnp.linalg.inv does, and raises nothing.
+__device__ __forceinline__ void damped_inverse(const float* d, float lam,
+                                               float fm, float* pinv) {
+  float dd[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float e = i == j ? 1.f : 0.f;
+      const float v = d[3 * i + j];
+      dd[i][j] = ((v + lam * (v * e)) + 1e-8f * e) + (1.f - fm) * e;
+    }
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    float a[3][3], b[3], x[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) a[i][k] = dd[i][k];
+      b[i] = i == j ? 1.f : 0.f;
+    }
+    solve3(a, b, x);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) pinv[3 * i + j] = x[i];
+  }
+}
+
+// The arguments of one device's PCG normal system (ndt2d_pcg_normal_system;
+// kernels/normal_blocks.py::PcgPlan mirrors it).
+struct PcgSystem {
+  Graph g;
+  int C, N;
+  const int *b_ptr, *b_idx, *e_ptr, *e_idx;  // Incidence
+  const float *lam, *fm;
+  float *baa, *bab, *bbb;  // [C,3,3]
+  float *d, *pinv, *b;     // [N,3,3], [N,3,3], [N,3]
+};
+
+// Words of a block's staged outputs: a constraint block's three 3x3 blocks
+// for kThreads constraints, or a node block's D, pinv and b.
+constexpr int kSysStage = 27 * kThreads;
+
+// Writes a block's m staged records of `width` floats (`stage`, record t
+// at width t) to out from record `first` on, consecutive threads on
+// consecutive words.
+__device__ __forceinline__ void store_staged(float* __restrict__ out,
+                                             size_t first, int m, int width,
+                                             const float* stage) {
+  for (int q = threadIdx.x; q < width * m; q += kThreads)
+    out[width * first + q] = stage[q];
+}
+
+// solver.py's _normal_blocks + _gather_gradient_and_diag + _pcg_solve's
+// preconditioner and right-hand side (:197-199, :215) in one launch of
+// ceil(C / kThreads) constraint blocks, then ceil(N / kThreads) node
+// blocks.  A constraint block forms its constraints' Baa, Bab and Bbb (a
+// thread a constraint, constraint_terms) and writes them through shared
+// memory, so the stores coalesce.  A node block's thread n sums D_n and
+// g_n over its incidence lists in node_sums' order (the begin list's Baa
+// and ga from +0, the end list's Bbb and gb from +0, then their sums),
+// each term formed again by constraint_terms instead of read back; then
+// pinv_n (damped_inverse at lam, read on the device) and b_n = -g_n fm_n,
+// and the block writes D, pinv and b through shared memory.  No float
+// atomics, and no block waits on another: the sums are node_sums' and the
+// blocks constraint_blocks', bit for bit.
+__global__ void __launch_bounds__(kThreads) pcg_normal_system(
+    const PcgSystem a) {
+  __shared__ float stage[kSysStage];
+  const int t = threadIdx.x;
+  const int cblocks = (a.C + kThreads - 1) / kThreads;
+  if ((int)blockIdx.x < cblocks) {
+    const int k0 = blockIdx.x * kThreads, m = min(kThreads, a.C - k0);
+    if (t < m) {
+      const Terms c = constraint_terms(a.g, k0 + t);
+#pragma unroll
+      for (int i = 0; i < 9; ++i) {
+        stage[9 * t + i] = c.baa[i];
+        stage[9 * (kThreads + t) + i] = c.bab[i];
+        stage[9 * (2 * kThreads + t) + i] = c.bbb[i];
+      }
+    }
+    __syncthreads();
+    store_staged(a.baa, k0, m, 9, stage);
+    store_staged(a.bab, k0, m, 9, stage + 9 * kThreads);
+    store_staged(a.bbb, k0, m, 9, stage + 18 * kThreads);
+    return;
+  }
+  const int n0 = (blockIdx.x - cblocks) * kThreads;
+  const int m = min(kThreads, a.N - n0);
+  if (t < m) {
+    const int n = n0 + t;
+    float g0[3] = {0.f, 0.f, 0.f}, d0[9] = {0.f};
+    for (int q = a.b_ptr[n]; q < a.b_ptr[n + 1]; ++q) {
+      const Terms c = constraint_terms(a.g, a.b_idx[q]);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) g0[i] += c.ga[i];
+#pragma unroll
+      for (int i = 0; i < 9; ++i) d0[i] += c.baa[i];
+    }
+    float g1[3] = {0.f, 0.f, 0.f}, d1[9] = {0.f};
+    for (int q = a.e_ptr[n]; q < a.e_ptr[n + 1]; ++q) {
+      const Terms c = constraint_terms(a.g, a.e_idx[q]);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) g1[i] += c.gb[i];
+#pragma unroll
+      for (int i = 0; i < 9; ++i) d1[i] += c.bbb[i];
+    }
+    float dn[9], pinv[9];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) dn[i] = d0[i] + d1[i];
+    const float fm = a.fm[n];
+    damped_inverse(dn, a.lam[0], fm, pinv);
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      stage[9 * t + i] = dn[i];
+      stage[9 * (kThreads + t) + i] = pinv[i];
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      stage[18 * kThreads + 3 * t + i] = -(g0[i] + g1[i]) * fm;
+  }
+  __syncthreads();
+  store_staged(a.d, n0, m, 9, stage);
+  store_staged(a.pinv, n0, m, 9, stage + 9 * kThreads);
+  store_staged(a.b, n0, m, 3, stage + 18 * kThreads);
+}
+
+// The preconditioner alone, a thread a node (a mesh's, after the combine
+// has summed g and D over the ranks): damped_inverse and b = -g fm, as
+// pcg_normal_system's node blocks form them.
+__global__ void __launch_bounds__(kThreads) precondition_nodes(
+    const float* __restrict__ g, const float* __restrict__ d,
+    const float* __restrict__ lam, const float* __restrict__ fm, int N,
+    float* __restrict__ pinv, float* __restrict__ b) {
+  const int n = blockIdx.x * kThreads + threadIdx.x;
+  if (n >= N) return;
+  float dn[9], p[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) dn[i] = d[9 * n + i];
+  const float f = fm[n];
+  damped_inverse(dn, lam[0], f, p);
+#pragma unroll
+  for (int i = 0; i < 9; ++i) pinv[9 * n + i] = p[i];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) b[3 * n + i] = -g[3 * n + i] * f;
+}
+
 // --- The LM step ------------------------------------------------------------
 
 enum LmMode { kCost = 0, kStep = 1, kUpdate = 2 };
@@ -1790,6 +1966,72 @@ NDT2D_API int ndt2d_dense_normal_system(
                 static_cast<float*>(hm),
                 static_cast<float*>(rhs)};
   return ndt2d_dense_normal_system_planned(&a, stream);
+}
+
+// One device's PCG normal system as packed in *plan (PcgSystem;
+// kernels/normal_blocks.py::PcgPlan packs it once a solve): the blocks, D,
+// pinv and b in one launch.
+NDT2D_API int ndt2d_pcg_normal_system_planned(const void* plan,
+                                              void* stream) {
+  const PcgSystem& a = *static_cast<const PcgSystem*>(plan);
+  if (a.N < 1 || a.C < 0) return (int)cudaErrorInvalidValue;
+  const int blocks =
+      (a.C + kThreads - 1) / kThreads + (a.N + kThreads - 1) / kThreads;
+  pcg_normal_system<<<blocks, kThreads, 0,
+                      reinterpret_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The PCG normal system of one LM step on one device.  The constraint
+// inputs, loss and delta as ndt2d_normal_blocks' (C constraints over N
+// nodes), its incidence lists; lam [1], fm [N] f32 (the free-node mask);
+// out: baa/bab/bbb [C,3,3], d [N,3,3] (bitwise ndt2d_normal_blocks'),
+// pinv [N,3,3] (the damped block-Jacobi inverse) and b [N,3] (-g fm) f32.
+NDT2D_API int ndt2d_pcg_normal_system(
+    const void* poses, const void* begin, const void* end,
+    const void* transform, const void* information, const void* cmask,
+    const void* robust_mask, int loss, float delta, int C, const void* b_ptr,
+    const void* b_idx, const void* e_ptr, const void* e_idx, int N,
+    const void* lam, const void* fm, void* baa, void* bab, void* bbb,
+    void* d, void* pinv, void* b, void* stream) {
+  const PcgSystem a{graph_of(poses, begin, end, transform, information,
+                             cmask, robust_mask, loss, delta),
+                    C,
+                    N,
+                    static_cast<const int*>(b_ptr),
+                    static_cast<const int*>(b_idx),
+                    static_cast<const int*>(e_ptr),
+                    static_cast<const int*>(e_idx),
+                    static_cast<const float*>(lam),
+                    static_cast<const float*>(fm),
+                    static_cast<float*>(baa),
+                    static_cast<float*>(bab),
+                    static_cast<float*>(bbb),
+                    static_cast<float*>(d),
+                    static_cast<float*>(pinv),
+                    static_cast<float*>(b)};
+  return ndt2d_pcg_normal_system_planned(&a, stream);
+}
+
+// The size of PcgSystem (kernels/normal_blocks.py's mirror is checked
+// against it).
+NDT2D_API int ndt2d_pcg_plan_size(int* bytes) {
+  *bytes = (int)sizeof(PcgSystem);
+  return 0;
+}
+
+// The preconditioner alone: g [N,3], d [N,3,3], lam [1], fm [N] f32 ->
+// pinv [N,3,3], b [N,3] f32, as ndt2d_pcg_normal_system forms them.
+NDT2D_API int ndt2d_preconditioner(const void* g, const void* d,
+                                   const void* lam, const void* fm, int N,
+                                   void* pinv, void* b, void* stream) {
+  if (N < 1) return (int)cudaErrorInvalidValue;
+  precondition_nodes<<<(N + kThreads - 1) / kThreads, kThreads, 0,
+                       reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(g), static_cast<const float*>(d),
+      static_cast<const float*>(lam), static_cast<const float*>(fm), N,
+      static_cast<float*>(pinv), static_cast<float*>(b));
+  return (int)cudaGetLastError();
 }
 
 // The LM-step blocks the current device holds co-resident, into *blocks (0

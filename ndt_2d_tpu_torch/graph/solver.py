@@ -23,14 +23,16 @@ then evaluates the step's robust cost (summed in constraint order)
 and accepts or rejects it, updating the poses, damping, cost and stall
 count in place on the device.  An LM iteration on one device is thus
 ``dense_normal_system``, the library's factorization and solve, and
-``lm_step`` (PCG: ``normal_blocks``, ``pcg_solve``, ``lm_step``), with no
-host->device copy; the LM loop is a host loop that stops at the
+``lm_step`` (PCG: ``pcg_normal_system``, which also forms the block-Jacobi
+preconditioner and the right-hand side, ``pcg_solve``, ``lm_step``), with
+no host->device copy; the LM loop is a host loop that stops at the
 reference's iteration on its one device->host read an iteration (the
 stall count).  One device's dense solve is planned once
 (``k4.DensePlan``: every tensor checked, the system, factor and step
 allocated, and both launches' arguments packed), so on the card an
 iteration's two K4 launches are a ctypes call each (on the CPU, or with
-``twin``, the plan's calls run the twins).  Everything runs in float32
+``twin``, the plan's calls run the twins); one device's PCG solve plans
+its system launch likewise (``k4.PcgPlan``).  Everything runs in float32
 with TF32 off (``precision="highest"`` in the reference).
 
 On a device mesh (``mesh``; ``parallel/solver.py``) each rank holds a
@@ -38,6 +40,7 @@ contiguous block of the constraints, over the mesh's ``batch`` axis.  The
 robust cost, gradient, block diagonal, the dense system's node-pair sums
 and each PCG product are then the rank's partials, all-gathered and added
 in rank order (K12's ``rank_sum``; the blocks come from ``normal_blocks``,
+PCG's preconditioner from ``k4.preconditioner`` after the combine,
 and ``dense_system`` and ``lm_step`` split into a launch before the sum
 and one after), so every rank holds the same
 bits and the LM and CG loops take the same path on every rank.  The mesh's
@@ -79,10 +82,6 @@ def _jacobian_blocks(poses, begin, end):
     zero = torch.zeros(begin.shape[0], 3, dtype=poses.dtype,
                        device=poses.device)
     return k4.residuals_and_jacobians(poses, begin, end, zero)[1:]
-
-
-def _f32(x, like):
-    return torch.tensor(x, dtype=like.dtype, device=like.device)
 
 
 def _cost(poses, begin, end, transform, information, cmask):
@@ -148,17 +147,18 @@ def _dense_solve(n, hm, rhs, out=None):
     return delta, info
 
 
-def _pcg_solve(begin, end, baa, bab, bbb, g, diag, lam, free_mask,
+def _pcg_solve(begin, end, baa, bab, bbb, diag, lam, fm, pinv, b,
                max_iter: int, tol, inc: k4.Incidence, twin: bool,
                combine=None):
-    """Matrix-free block-Jacobi PCG on the damped normal equations.  On one
-    device the whole loop is K4's ``pcg_solve`` (its twin with ``twin``).
-    With ``combine`` (a mesh) it is K4's ``mesh_cg``: the rank's undamped
-    product is added over ranks, then damped as K4 damps it, a CG step three
-    planned launches, the combine and one read (``pcg_loop`` over the twins
-    on the CPU or with ``twin``)."""
-    fm = free_mask.to(g.dtype)
-    pinv, b = _preconditioner(g, diag, lam, free_mask)
+    """Matrix-free block-Jacobi PCG on the damped normal equations, from
+    the preconditioner ``pinv`` and right-hand side ``b`` (one device's
+    from ``k4.PcgPlan``'s launch, a mesh's from ``k4.preconditioner``
+    after the combine).  On one device the whole loop is K4's
+    ``pcg_solve`` (its twin with ``twin``).  With ``combine`` (a mesh) it
+    is K4's ``mesh_cg``: the rank's undamped product is added over ranks,
+    then damped as K4 damps it, a CG step three planned launches, the
+    combine and one read (``pcg_loop`` over the twins on the CPU or with
+    ``twin``)."""
     if combine is None:
         solve = k4.pcg_solve_twin if twin else k4.pcg_solve
         return solve(begin, end, baa, bab, bbb, diag, lam, fm, pinv, b,
@@ -170,13 +170,9 @@ def _pcg_solve(begin, end, baa, bab, bbb, g, diag, lam, free_mask,
 def _preconditioner(g, diag, lam, free_mask):
     """The block-Jacobi inverse pinv [N, 3, 3] of the damped diagonal
     blocks (identity at fixed nodes) and the right-hand side -g over the
-    free nodes [N, 3]."""
-    dt, dev = g.dtype, g.device
-    eye = torch.eye(3, dtype=dt, device=dev)
-    dd = diag + lam * (diag * eye) + _f32(1e-8, g) * eye
-    fm = free_mask.to(dt)
-    pinv = torch.linalg.inv(dd + (1.0 - fm)[:, None, None] * eye)
-    return pinv.contiguous(), -g * fm[:, None]
+    free nodes [N, 3]: K4's twin (``k4.preconditioner_twin``: three LU
+    solves a block, no library inverse)."""
+    return k4.preconditioner_twin(g, diag, lam, free_mask.to(g.dtype))
 
 
 @contextlib.contextmanager
@@ -256,6 +252,7 @@ def _solve_impl(config, poses, begin, end, transform, information,
     blocks = k4.normal_blocks_twin if twin else k4.normal_blocks
     system = k4.dense_system_twin if twin else k4.dense_system
     step = k4.lm_step_twin if twin else k4.lm_step
+    precondition = k4.preconditioner_twin if twin else k4.preconditioner
     cost_of = k4.robust_cost_twin if twin else k4.robust_cost
     fm = free_mask.to(poses.dtype)
     total = combine or (lambda x: x)
@@ -267,18 +264,29 @@ def _solve_impl(config, poses, begin, end, transform, information,
     # to.
     state = k4.lm_state(poses, config.lm_lambda_init, cost0,
                         begin.shape[0])
-    plan = None
+    plan = pcg = None
     if use_dense and combine is None:
         # One device: an iteration's two launches planned once a solve, the
         # system straight from the poses.
         plan = k4.DensePlan(state, *terms, inc, pairs, fm,
                             config.lm_lambda_down, config.lm_lambda_up,
                             config.tolerance, twin)
+    elif combine is None:
+        # One device's PCG: the blocks, D, the preconditioner and b in one
+        # launch a solve planned (lam read on the device), then pcg_solve.
+        pcg = k4.PcgPlan(state, *terms, inc, fm, twin)
     it = 0
     while it < config.max_iterations and int(state.stall) < 3:
         if plan is not None:
             _dense_solve(n, *plan.system(), plan.solve_out)
             plan.step()
+        elif pcg is not None:
+            baa, bab, bbb, diag, pinv, b = pcg.system()
+            delta = _pcg_solve(begin, end, baa, bab, bbb, diag, state.lam,
+                               fm, pinv, b, config.cg_max_iterations,
+                               config.cg_tolerance, inc, twin)
+            step(state, delta, None, *terms, config.lm_lambda_down,
+                 config.lm_lambda_up, config.tolerance)
         else:
             baa, bab, bbb, _, _, g, diag = blocks(
                 state.poses, begin, end, transform, information,
@@ -288,8 +296,9 @@ def _solve_impl(config, poses, begin, end, transform, information,
                 delta, info = _dense_solve(n, *system(
                     pairs, bab, g, diag, state.lam, fm, combine))
             else:
-                delta = _pcg_solve(begin, end, baa, bab, bbb, g, diag,
-                                   state.lam, free_mask,
+                pinv, b = precondition(g, diag, state.lam, fm)
+                delta = _pcg_solve(begin, end, baa, bab, bbb, diag,
+                                   state.lam, fm, pinv, b,
                                    config.cg_max_iterations,
                                    config.cg_tolerance, inc, twin, combine)
                 info = None

@@ -8,17 +8,24 @@ candidate pose scores minus the field values under its subsampled beams.
 
 The lattice search has K6's interface (``kernels/candidate_gather.py``):
 ``match_rows`` over R rows, ``match`` at R = 1, both returning the [R, 13]
-output rows ``candidate_scores.unpack`` reads, reduced by K6's tiles.  The
-twins add in the kernels' orders (the blur's 7 taps in index order, each
-candidate's beams from 0 and the Olson sums per 256-offset tile, each
-pose's beams lane by lane then halving), so on the same CUDA inputs kernel
-and twin agree bitwise.
+output rows ``candidate_scores.unpack`` reads, reduced by K6's tiles.  It
+is one launch (``lattice_tables``): a block scores ``lattice_plan``'s run
+of 256-offset tiles of one (angle, row) from per-beam tables of cell
+columns and row offsets it computes once (``beam_tables``), and the row's
+last block folds the row's partials.  The twins add in the kernels'
+orders (the blur's 7 taps in index order, each candidate's beams
+from 0 and the Olson sums per 256-offset tile, each pose's beams lane by
+lane then halving), so on the same CUDA inputs kernel and twin agree
+bitwise; ``lattice_scores_tables`` (the tables, then the beams) is bitwise
+``lattice_scores`` (a division a term).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import math
 
 import torch
 
@@ -36,6 +43,26 @@ match_launches = 0
 score_launches = 0
 
 RADIUS = 3  # blur taps: sigma 1 cell, 2 * RADIUS + 1 of them
+# The index tables' sentinel (kOff of csrc/correlative.cu): a column or row
+# offset off the grid, or an unused beam's column.
+OFF = -(1 << 30)
+# A lattice block's (threads, tiles a thread) in the order the plan tries
+# them for one wave of blocks, then the tiles a thread of a block of 256
+# may take (together the kernel's instantiations, SHAPES); the 4-byte words
+# of shared memory a block may hold (48 KB, static and dynamic together;
+# ``static_words`` is the static part), the words a beam of a table
+# chunk takes beside its tables and window (kBeamWords of
+# csrc/correlative.cu), the most words a beam's field window may take, the
+# words of a partial (lattice.cuh's kPartial) and the fewest partials the
+# fold stages at a time (its kStage).
+WAVE_SHAPES = ((256, 1), (512, 1), (1024, 1), (1024, 2))
+PER_CHOICES = (8, 4, 2, 1)
+SHAPES = WAVE_SHAPES + tuple((256, p) for p in PER_CHOICES if p > 1)
+TABLE_WORDS = 12 * 1024
+BEAM_WORDS = 6
+WINDOW_WORDS = 64
+PARTIAL_WORDS = 12
+FOLD_STAGE = 256
 
 
 @functools.lru_cache(maxsize=4)
@@ -151,14 +178,162 @@ def lattice_scores(config, field, origin, spts, smask, pose, dths, dls):
     return -acc
 
 
+def beam_tables(config, origin, spts, smask, pose, dths, dls):
+    """The lattice kernel's per-angle tables: (xs, ys) [A, B, L] int64,
+    xs[a, b, i] the cell column of beam b at angle a shifted by dls[i] and
+    ys[a, b, i] its row offset iy W at dls[i], each ``OFF`` off the grid
+    (xs also for an unused beam), in ``lattice_scores``' expressions."""
+    W, H = config.grid_cells_x, config.grid_cells_y
+    cell = f32(config.ndt_resolution, spts.device)
+    th = pose[2] + dths
+    c, s = torch.cos(th)[:, None], torch.sin(th)[:, None]
+    px, py = spts[:, 0][None, :], spts[:, 1][None, :]
+    rx = c * px - s * py + pose[0]                         # [A, B]
+    ry = s * px + c * py + pose[1]
+    ix = torch.floor((rx[:, :, None] + dls - origin[0]) / cell).to(
+        torch.int64)
+    iy = torch.floor((ry[:, :, None] + dls - origin[1]) / cell).to(
+        torch.int64)
+    off = torch.full((), OFF, dtype=torch.int64, device=spts.device)
+    xs = torch.where(smask[None, :, None] & (ix >= 0) & (ix < W), ix, off)
+    ys = torch.where((iy >= 0) & (iy < H), iy * W, off)
+    return xs, ys
+
+
+def lattice_scores_tables(config, field, origin, spts, smask, pose, dths,
+                          dls):
+    """``lattice_scores`` as the kernel forms it: the tables of
+    ``beam_tables``, then for each beam in order from 0 the field value at
+    column + row offset (0 where either is a sentinel).  Bitwise
+    ``lattice_scores``."""
+    xs, ys = beam_tables(config, origin, spts, smask, pose, dths, dls)
+    flat_field = field.reshape(-1)
+    A, L = dths.shape[0], dls.shape[0]
+    zero = torch.zeros((), dtype=spts.dtype, device=spts.device)
+    acc = torch.zeros(A, L, L, dtype=spts.dtype, device=spts.device)
+    for b in range(spts.shape[0]):
+        cell = xs[:, b, :, None] + ys[:, b, None, :]      # [A, L, L]
+        acc = acc + torch.where(cell >= 0,
+                                flat_field[torch.clamp(cell, min=0)], zero)
+    return -acc
+
+
+@dataclasses.dataclass(frozen=True)
+class LatticePlan:
+    """A lattice launch's shape: blocks of ``threads`` (groups of 256, a
+    candidate of a tile of 256 flat offsets a thread), ``per`` tiles a
+    thread (``groups`` blocks an angle of ``tiles``), the column table's rows
+    ``nx`` (the most dx values a block's offsets span), a beam's field
+    window of ``cx`` x ``cy`` cells, ``chunk`` beams a table chunk (a
+    multiple of 4; the tables' row ``stride``, 4 mod 32), the partials the
+    fold stages at a time and the block's dynamic shared memory in bytes.
+    """
+
+    threads: int
+    per: int
+    tiles: int
+    groups: int
+    nx: int
+    cx: int
+    cy: int
+    chunk: int
+    stride: int
+    stage: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=64)
+def lattice_plan(A: int, L: int, R: int, max_beams: int, sms: int,
+                 step_cells: float = 0.0) -> LatticePlan:
+    """The lattice launch's shape: the first of ``WAVE_SHAPES`` whose blocks
+    fit one wave (one block an SM), else blocks of 256 with the most tiles a
+    thread (of ``PER_CHOICES``, at most the next power of two of an angle's
+    tiles) that still gives ``2 sms`` blocks, else one; a beam's field
+    window of
+    the cells its offsets span, ``step_cells`` (the offsets' step over the
+    cell size) apart (floor(span) + 2 a side: a beam whose cells do not fit
+    reads the field itself; none at all past ``WINDOW_WORDS``); the tables
+    and windows of as many beams as fit ``TABLE_WORDS`` words beside the
+    block's ``static_words``.  The shape changes which block forms a
+    partial, never a bit."""
+    LL = L * L
+    tiles = -(-LL // TILE)
+    shape = next((sh for sh in WAVE_SHAPES
+                  if A * R * -(-tiles // (sh[0] // TILE * sh[1])) <= sms),
+                 None)
+    if shape is None:
+        shape = (TILE, 1)
+        for p in PER_CHOICES:
+            if p < 2 * tiles and A * R * -(-tiles // p) >= 2 * sms:
+                shape = (TILE, p)
+                break
+    threads, per = shape
+    span = threads // TILE * per  # tiles a block
+    groups = -(-tiles // span)
+    nx = 0
+    for j in range(groups):
+        f0, f1 = j * span * TILE, min((j + 1) * span * TILE, LL)
+        nx = max(nx, (f1 - 1) // L - f0 // L + 1)
+    cx = int(math.floor((nx - 1) * step_cells)) + 2
+    cy = int(math.floor((L - 1) * step_cells)) + 2
+    if (cx + 1) * (cy + 1) > WINDOW_WORDS:
+        cx = cy = 0
+    rows = nx + L + (cx + 1) * (cy + 1)  # table rows of a beam each
+    budget = TABLE_WORDS - static_words(threads)
+    chunk = -(-max(max_beams, 1) // 4) * 4
+    while chunk >= 4 and (BEAM_WORDS * chunk + rows * stride_of(chunk)
+                          > budget):
+        chunk -= 4
+    if chunk < 4 or max_beams < 1:
+        raise ValueError(f"a lattice of {L} offsets a side or {max_beams} "
+                         "beams is outside the kernel's tables")
+    stride = stride_of(chunk)
+    words = BEAM_WORDS * chunk + rows * stride
+    # The fold stages every partial of a row where they fit the block's
+    # shared memory (and one partial more), else as many as fit, at least
+    # FOLD_STAGE.
+    stage = min(A * tiles, max(words // PARTIAL_WORDS - 1, FOLD_STAGE))
+    fold = PARTIAL_WORDS * (stage + 1)
+    return LatticePlan(threads, per, tiles, groups, nx, cx, cy, chunk,
+                       stride, stage, 4 * max(words, fold))
+
+
+def static_words(threads: int) -> int:
+    """A lattice block's static shared memory in 4-byte words: the warp
+    sums of ``lattice.cuh::reduce_tiles`` (a partial a warp) and the fold's
+    flag, rounded up to 16 bytes.  The C entry refuses a launch whose
+    dynamic and static shared memory together pass 48 KB."""
+    return threads // 32 * PARTIAL_WORDS + 4
+
+
+def stride_of(chunk: int) -> int:
+    """The tables' row stride for ``chunk`` beams: the least >= chunk
+    that is 4 mod 32."""
+    return chunk + (4 - chunk) % 32
+
+
+# The lattice launch's tickets, [R] uint32 a (device, stream), zeroed once
+# (each launch leaves them 0).
+_TICKETS: dict = {}
+
+
+def _tickets(dev, stream: int, R: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < R:
+        t = torch.zeros(max(R, 64), dtype=torch.int32, device=dev)
+        _TICKETS[key] = t
+    return t
+
+
 def match_twin(config, field, origin, points, point_mask, num_points: int,
                pose, dths, dls):
     """Plain-PyTorch lattice search of one scan: (MatchResult, scores
     [A, L, L])."""
     spts, smask, used = subsample(points, point_mask, num_points,
                                   config.laser_max_beams)
-    cand = lattice_scores(config, field, origin, spts, smask, pose, dths,
-                          dls)
+    cand = lattice_scores_tables(config, field, origin, spts, smask, pose,
+                                 dths, dls)
     best, correction, k, u, s = k2.reduce_candidates(cand, dths, dls, TILE)
     return k2.finalize_match(best, correction, k, u, s, used), cand
 
@@ -177,6 +352,13 @@ def match_rows_twin(config, fields, origins, points, point_mask, num_points,
     return (MatchResult(*[torch.stack([getattr(m, f) for m in res])
                           for f in MatchResult._fields]),
             torch.stack(cand))
+
+
+_TABLES_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_float] + [ctypes.c_int] * 2
+                + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                + [ctypes.c_void_p] + [ctypes.c_int] * 2
+                + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p]
+                + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 5)
 
 
 def _launch_match(config, fields, origins, points, point_mask, nums,
@@ -204,17 +386,20 @@ def _launch_match(config, fields, origins, points, point_mask, nums,
     scores = (torch.empty(R, A, L, L, dtype=torch.float32, device=dev)
               if with_scores else None)
     p = _build.ptr
-    err = _build.function(
-        "ndt2d_correlative_match",
-        [ctypes.c_void_p] * 2 + [ctypes.c_float] + [ctypes.c_int] * 2
-        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-        + [ctypes.c_void_p] + [ctypes.c_int] + [ctypes.c_void_p] * 4)(
+    stream = _build.stream_ptr(dev)
+    plan = lattice_plan(A, L, R, int(config.laser_max_beams),
+                        _build.sm_count(dev.index if dev.index is not None
+                                        else torch.cuda.current_device()),
+                        config.search_linear_resolution
+                        / config.ndt_resolution)
+    err = _build.function("ndt2d_correlative_match_tables", _TABLES_ARGS)(
         p(fields), p(origins), float(config.ndt_resolution), W, H,
         p(points), p(point_mask), R, P, None if nums is None else p(nums),
-        int(num), int(config.laser_max_beams), p(poses), p(dths), A, p(dls),
-        L, p(partial), p(out), None if scores is None else p(scores),
-        _build.stream_ptr(dev))
+        int(num), int(config.laser_max_beams), p(poses), p(dths), A,
+        p(dls), L, plan.threads, plan.per, plan.nx, plan.cx, plan.cy,
+        plan.chunk, plan.stride, plan.stage, p(partial), p(out),
+        None if scores is None else p(scores),
+        p(_tickets(dev, stream, R)), stream)
     _build.check(err, "correlative_match")
     match_launches += 1
     return out, scores

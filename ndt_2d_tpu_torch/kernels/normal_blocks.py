@@ -15,7 +15,12 @@ last block folds); a mesh's loop (``mesh_cg``) as a plan an LM step
 per-row table of node-pair slots, ``pair_table``; a mesh's), the blocks,
 node sums and assembly of one device's dense LM iteration in one launch
 (``dense_normal_system``: a block a node row, bitwise ``normal_blocks``
-then ``dense_system``); and ``_robust_cost``
+then ``dense_system``), the blocks, node sums, block-Jacobi
+preconditioner and right-hand side of one device's PCG iteration in one
+launch (``pcg_normal_system``, planned once a solve by ``PcgPlan``; the
+preconditioner alone after a mesh's combine: ``preconditioner``; the
+inverse three LU solves a node, ``matching.newton.solve3``'s); and
+``_robust_cost``
 with ``lm_step``'s accept and update (``lm_step``: the step's cost summed
 in index order, ``ordered_sum_twin``, then the accept, the damping, the
 stall count and the poses, in place, on the device; one block where the
@@ -42,12 +47,14 @@ import torch
 
 from ndt_2d_tpu_torch.core.pose import normalize_angle_exact
 from ndt_2d_tpu_torch.kernels import _build
+from ndt_2d_tpu_torch.matching.newton import solve3
 
 # The CG loop's launches by form: ``pcg_matvec`` (v as given) and
 # ``pcg_matvec_direction`` (the direction formed in the loader),
 # ``fixed_dot`` (the public dots), ``fixed_dot_damp`` and
 # ``fixed_dot_update`` (the planned loop's variants (A) and (B)).
-launches = {"normal_blocks": 0, "pcg_matvec": 0, "pcg_matvec_direction": 0,
+launches = {"normal_blocks": 0, "pcg_normal_system": 0, "preconditioner": 0,
+            "pcg_matvec": 0, "pcg_matvec_direction": 0,
             "pcg_solve": 0, "fixed_dot": 0, "fixed_dot_damp": 0,
             "fixed_dot_update": 0, "dense_system": 0,
             "dense_normal_system": 0, "lm_step": 0}
@@ -77,6 +84,9 @@ _SIZES_ARGS = [ctypes.POINTER(ctypes.c_int)] * 2
 _PLANNED_ARGS = [ctypes.c_void_p] * 2
 _DAMP_ARGS = [ctypes.c_void_p] * 3
 _CG_SIZES_ARGS = [ctypes.POINTER(ctypes.c_int)] * 3
+_PS_ARGS = (_NB_ARGS[:15] + [ctypes.c_void_p] * 9)
+_PREC_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+_PS_SIZE_ARGS = [ctypes.POINTER(ctypes.c_int)]
 
 # Threads of a block (kThreads of csrc/normal_blocks.cu) and the most nodes
 # a dense system takes (kDenseMaxN: a block's slot table of an int a node
@@ -326,6 +336,117 @@ def normal_blocks(poses, begin, end, transform, information, cmask,
     _build.check(err, "normal_blocks")
     launches["normal_blocks"] += 1
     return blocks[0], blocks[1], blocks[2], grads[0], grads[1], g, d
+
+
+# --- The PCG normal system ---------------------------------------------------
+
+
+def preconditioner_twin(g, diag, lam, fm):
+    """Plain-PyTorch block-Jacobi preconditioner of ``_pcg_solve``
+    (solver.py:197-199): pinv [N, 3, 3], the inverse of dd = D + lam (D o
+    I) + 1e-8 I (plus I at a fixed node, fm = 0) in JAX's expression
+    order, by ``matching.newton.solve3`` of each unit vector (the kernel's
+    LU, no library inverse: a singular or NaN block gives inf / NaN and
+    raises nothing), and b = -g fm [N, 3].  fm [N] is the free-node mask
+    as float."""
+    eye = torch.eye(3, dtype=diag.dtype, device=diag.device)
+    dd = diag + lam * (diag * eye) + 1e-8 * eye
+    dd = dd + (1.0 - fm)[:, None, None] * eye
+    a = [[dd[:, i, j] for j in range(3)] for i in range(3)]
+    one, zero = torch.ones_like(fm), torch.zeros_like(fm)
+    cols = [solve3(a, [one if i == j else zero for i in range(3)])
+            for j in range(3)]
+    pinv = torch.stack([torch.stack([cols[j][i] for j in range(3)], -1)
+                        for i in range(3)], -2)
+    return pinv, -g * fm[:, None]
+
+
+def preconditioner(g, diag, lam, fm):
+    """The preconditioner alone (a mesh's, after its combine summed g and
+    D): g [N, 3], diag [N, 3, 3], lam 0-d, fm [N] f32.  Returns (pinv
+    [N, 3, 3], b [N, 3]) as ``preconditioner_twin``.  CPU tensors run the
+    twin; CUDA tensors launch the kernel (a thread a node, the fused
+    launch's ``damped_inverse``)."""
+    if g.device.type == "cpu":
+        return preconditioner_twin(g, diag, lam, fm)
+    dev = g.device
+    N = g.shape[0]
+    _build.require_all(dev, (g, diag, lam, fm), (
+        ("g", torch.float32, (N, 3)), ("diag", torch.float32, (N, 3, 3)),
+        ("lam", torch.float32, ()), ("fm", torch.float32, (N,))))
+    pinv = torch.empty(N, 3, 3, dtype=torch.float32, device=dev)
+    b = torch.empty(N, 3, dtype=torch.float32, device=dev)
+    p = _build.ptr
+    err = _build.function("ndt2d_preconditioner", _PREC_ARGS)(
+        p(g), p(diag), p(lam), p(fm), N, p(pinv), p(b),
+        _build.stream_ptr(dev))
+    _build.check(err, "preconditioner")
+    launches["preconditioner"] += 1
+    return pinv, b
+
+
+def pcg_normal_system_twin(poses, begin, end, transform, information, cmask,
+                           robust_mask, loss: str, delta: float,
+                           inc: Incidence, lam, fm):
+    """Plain-PyTorch PCG normal system: ``normal_blocks_twin``'s blocks and
+    sums, then ``preconditioner_twin``.  Returns (Baa, Bab, Bbb [C, 3, 3],
+    D [N, 3, 3], pinv [N, 3, 3], b [N, 3])."""
+    baa, bab, bbb, _, _, g, diag = normal_blocks_twin(
+        poses, begin, end, transform, information, cmask, robust_mask, loss,
+        delta, inc)
+    return (baa, bab, bbb, diag, *preconditioner_twin(g, diag, lam, fm))
+
+
+def _pcg_system_checks(dev, N: int, C: int, tensors, inc: Incidence):
+    _build.require_all(dev, tensors, (
+        ("poses", torch.float32, (N, 3)), ("begin", torch.int32, (C,)),
+        ("end", torch.int32, (C,)), ("transform", torch.float32, (C, 3)),
+        ("information", torch.float32, (C, 3, 3)),
+        ("cmask", torch.bool, (C,)), ("robust_mask", torch.bool, (C,)),
+        ("b_ptr", torch.int32, (N + 1,)),
+        ("b_idx", torch.int32, tuple(inc.b_idx.shape)),
+        ("e_ptr", torch.int32, (N + 1,)),
+        ("e_idx", torch.int32, tuple(inc.e_idx.shape)),
+        ("lam", torch.float32, ()), ("fm", torch.float32, (N,))))
+    if inc.n != N:
+        raise ValueError(f"incidence over {inc.n} nodes, expected {N}")
+
+
+def _pcg_system_out(N: int, C: int, dev) -> tuple:
+    """(Baa, Bab, Bbb, D, pinv, b), allocated."""
+    blocks = torch.empty(3, C, 3, 3, dtype=torch.float32, device=dev)
+    node = torch.empty(2, N, 3, 3, dtype=torch.float32, device=dev)
+    b = torch.empty(N, 3, dtype=torch.float32, device=dev)
+    return blocks[0], blocks[1], blocks[2], node[0], node[1], b
+
+
+def pcg_normal_system(poses, begin, end, transform, information, cmask,
+                      robust_mask, loss: str, delta: float, inc: Incidence,
+                      lam, fm):
+    """What one device's PCG iteration hands ``pcg_solve``, in one launch:
+    ``normal_blocks``' inputs, lam 0-d and fm [N] f32.  Returns (Baa, Bab,
+    Bbb [C, 3, 3], D [N, 3, 3], pinv [N, 3, 3], b [N, 3]) as
+    ``pcg_normal_system_twin``.  CPU tensors run the twin; CUDA tensors
+    launch the kernel (``PcgPlan`` packs the same launch once a solve)."""
+    if poses.device.type == "cpu":
+        return pcg_normal_system_twin(poses, begin, end, transform,
+                                      information, cmask, robust_mask, loss,
+                                      delta, inc, lam, fm)
+    dev = poses.device
+    N, C = poses.shape[0], begin.shape[0]
+    _pcg_system_checks(dev, N, C, (
+        poses, begin, end, transform, information, cmask, robust_mask,
+        inc.b_ptr, inc.b_idx, inc.e_ptr, inc.e_idx, lam, fm), inc)
+    out = _pcg_system_out(N, C, dev)
+    p = _build.ptr
+    err = _build.function("ndt2d_pcg_normal_system", _PS_ARGS)(
+        p(poses), p(begin), p(end), p(transform), p(information), p(cmask),
+        p(robust_mask), LOSSES[loss], float(delta), C, p(inc.b_ptr),
+        p(inc.b_idx), p(inc.e_ptr), p(inc.e_idx), N, p(lam), p(fm),
+        *[p(t) for t in out], _build.stream_ptr(dev))
+    _build.check(err, "pcg_normal_system")
+    launches["pcg_normal_system"] += 1
+    return out
 
 
 def pcg_matvec_twin(begin, end, baa, bab, bbb, diag, lam, fm, v,
@@ -1426,3 +1547,82 @@ class DensePlan:
         _build.check(fn(self._step_at, _build.stream_ptr(self.device)),
                      "lm_step")
         launches["lm_step"] += 1
+
+
+# --- One plan a PCG solve ----------------------------------------------------
+
+
+class _PcgSystem(ctypes.Structure):
+    """``struct PcgSystem`` of csrc/normal_blocks.cu."""
+
+    _fields_ = ([("g", _Graph), ("C", ctypes.c_int), ("N", ctypes.c_int)]
+                + [(f, ctypes.c_void_p) for f in (
+                    "b_ptr", "b_idx", "e_ptr", "e_idx", "lam", "fm", "baa",
+                    "bab", "bbb", "d", "pinv", "b")])
+
+
+@functools.lru_cache(maxsize=None)
+def _pcg_planned():
+    """The planned PCG system entry, after checking that the ctypes mirror
+    has its C structure's size."""
+    size = ctypes.c_int(0)
+    _build.function("ndt2d_pcg_plan_size", _PS_SIZE_ARGS)(ctypes.byref(size))
+    if size.value != ctypes.sizeof(_PcgSystem):
+        raise RuntimeError(f"PcgSystem of {ctypes.sizeof(_PcgSystem)} "
+                           f"bytes, the kernel's {size.value}")
+    return _build.function("ndt2d_pcg_normal_system_planned", _PLANNED_ARGS)
+
+
+class PcgPlan:
+    """One device's PCG LM solve, planned once a solve: every tensor of
+    ``pcg_normal_system`` checked once, its six outputs allocated once and
+    its arguments packed once into ``struct PcgSystem``.  ``system()`` is
+    then one ctypes call with a pointer and the stream, bitwise the
+    unplanned wrapper, at the state's poses and lam (both read on the
+    device).  The outputs are the plan's, rewritten by each call: the
+    iteration's ``pcg_solve`` reads them before the next call on the
+    stream, and a caller that keeps them clones them.
+
+    ``state`` is the solve's ``lm_state`` (updated in place by the step);
+    the constraint terms and ``inc`` as ``pcg_normal_system``'s; fm [N]
+    f32.  On CUDA tensors the call launches or raises.  With ``twin`` it
+    runs ``pcg_normal_system_twin``, and on CPU tensors the public wrapper
+    (the twin there)."""
+
+    def __init__(self, state: LMState, begin, end, transform, information,
+                 cmask, robust_mask, loss: str, hdelta: float,
+                 inc: Incidence, fm, twin: bool = False):
+        poses = state.poses
+        dev = poses.device
+        N, C = poses.shape[0], begin.shape[0]
+        _pcg_system_checks(dev, N, C, (
+            poses, begin, end, transform, information, cmask, robust_mask,
+            inc.b_ptr, inc.b_idx, inc.e_ptr, inc.e_idx, state.lam, fm), inc)
+        self.device = dev
+        self.state = state
+        self.terms = (begin, end, transform, information, cmask, robust_mask,
+                      loss, hdelta)
+        self.inc, self.fm = inc, fm
+        self.eager = (pcg_normal_system_twin if twin
+                      else pcg_normal_system if dev.type == "cpu" else None)
+        if self.eager:
+            return
+        self.out = _pcg_system_out(N, C, dev)
+        p = _build.ptr
+        self.args = _PcgSystem(
+            _Graph(p(poses), p(begin), p(end), p(transform), p(information),
+                   p(cmask), p(robust_mask), LOSSES[loss], float(hdelta)),
+            C, N, p(inc.b_ptr), p(inc.b_idx), p(inc.e_ptr), p(inc.e_idx),
+            p(state.lam), p(fm), *[p(t) for t in self.out])
+        self._at = ctypes.addressof(self.args)
+
+    def system(self):
+        """One ``pcg_normal_system`` launch: (Baa, Bab, Bbb, D, pinv, b)."""
+        if self.eager:
+            return self.eager(self.state.poses, *self.terms, self.inc,
+                              self.state.lam, self.fm)
+        _build.check(_pcg_planned()(self._at,
+                                    _build.stream_ptr(self.device)),
+                     "pcg_normal_system")
+        launches["pcg_normal_system"] += 1
+        return self.out

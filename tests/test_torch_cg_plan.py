@@ -419,10 +419,8 @@ def test_solver_mesh_branch_runs_mesh_cg_once_an_lm_iteration(monkeypatch):
         calls.append(a[13])  # the combine
         return real(*a, **kw)
     monkeypatch.setattr(k4, "mesh_cg", counting)
-    g = -b
-    x = solver._pcg_solve(begin, end, baa, bab, bbb, g, diag, lam,
-                          fm.bool(), mi, tol, inc, False,
-                          combine=lambda part: part)
+    x = solver._pcg_solve(begin, end, baa, bab, bbb, diag, lam, fm, pinv,
+                          b, mi, tol, inc, False, combine=lambda part: part)
     assert len(calls) == 1 and same(x.numpy(), real(
         *args, combine=lambda part: part)[0])
 

@@ -255,7 +255,7 @@ class Counted:
     """Counts the calls of K4's wrappers the LM loop may take."""
 
     NAMES = ("dense_normal_system", "normal_blocks", "dense_system",
-             "pcg_solve", "lm_step")
+             "pcg_normal_system", "pcg_solve", "lm_step")
 
     def __init__(self, monkeypatch):
         self.calls = collections.Counter()
@@ -285,7 +285,7 @@ def test_one_device_dense_iteration_is_one_fused_call(monkeypatch, loss):
     assert counted.take() == {"dense_normal_system": it, "lm_step": it}
     pcg = solver.solve(cfg, **t, use_dense=False)
     it = int(pcg.iterations)
-    assert counted.take() == {"normal_blocks": it, "pcg_solve": it,
+    assert counted.take() == {"pcg_normal_system": it, "pcg_solve": it,
                               "lm_step": it}
     # A mesh of one rank: the combine's path, the identity as the sum.
     monkeypatch.setattr(solver, "_constraint_shard",

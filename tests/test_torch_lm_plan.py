@@ -442,7 +442,7 @@ class Counted:
     plans it builds (``plan``) and their two calls."""
 
     NAMES = ("dense_normal_system", "normal_blocks", "dense_system",
-             "pcg_solve", "lm_step", "robust_cost")
+             "pcg_normal_system", "pcg_solve", "lm_step", "robust_cost")
 
     def __init__(self, monkeypatch):
         self.calls = collections.Counter()
@@ -521,7 +521,7 @@ def test_pcg_and_a_mesh_keep_the_wrappers(planned, monkeypatch):
     cfg = SolverConfig(robust_loss="geman_mcclure")
     pcg = solver.solve(cfg, **t, use_dense=False)
     it = int(pcg.iterations)
-    assert planned.take() == {"robust_cost": 1, "normal_blocks": it,
+    assert planned.take() == {"robust_cost": 1, "pcg_normal_system": it,
                               "pcg_solve": it, "lm_step": it}
     monkeypatch.setattr(solver, "_constraint_shard",
                         lambda mesh, arrays: (list(arrays), lambda x: x))

@@ -180,8 +180,8 @@ def twin_and_host_loop(step, max_iter, tol):
     x, it = k4.pcg_solve_twin(begin, end, baa, bab, bbb, diag, lam, fm, pinv,
                               b, max_iter, tol, inc)
 
-    host = solver._pcg_solve(begin, end, baa, bab, bbb, g, diag, lam, free,
-                             max_iter, tol, inc, twin=False,
+    host = solver._pcg_solve(begin, end, baa, bab, bbb, diag, lam, fm, pinv,
+                             b, max_iter, tol, inc, twin=False,
                              combine=lambda part: part)
     return x, int(it), host
 
@@ -202,8 +202,8 @@ def test_pcg_solve_twin_is_the_host_loop_bitwise(graph):
     x2, it2 = k4.pcg_solve(begin, end, baa, bab, bbb, diag, lam, fm, pinv, b,
                            250, 1e-6, inc)
     assert torch.equal(x2, x) and int(it2) == it
-    x3 = solver._pcg_solve(begin, end, baa, bab, bbb, g, diag, lam, free,
-                           250, 1e-6, inc, twin=False)
+    x3 = solver._pcg_solve(begin, end, baa, bab, bbb, diag, lam, fm, pinv,
+                           b, 250, 1e-6, inc, twin=False)
     assert torch.equal(x3, x)
 
 
