@@ -39,6 +39,16 @@
                                             # rounded from float64, then
                                             # dense (an older checkout:
                                             # its own inverse)
+    python3 chip_smoke.py --field-bins-times DIR  # K11's field and K10's
+                                                  # bins (graph ms, cuda_ms,
+                                                  # host us, device ops,
+                                                  # output sha256), the next
+                                                  # rows' graph ms and the
+                                                  # decisions, in DIR (an
+                                                  # older git archive, this
+                                                  # script copied in) and
+                                                  # here: parent, change,
+                                                  # change, parent
     python3 chip_smoke.py --optimize-times  # the mapper's optimize ms, 3
                                             # runs of the office recipe,
                                             # config 9 and drift, and LM
@@ -92,7 +102,9 @@ Phases (any failure exits non-zero):
     path (offsets wider than the staged windows, and no window), rows,
     scores and partials bitwise, and a plan whose shared memory the card
     refuses (the wrapper raises, counts nothing);
-    K10 over a 2048 x 512 point
+    K10's bins at each block shape of its plan over 512 office slots with
+    a scan of 512 points in one sector and an all-masked scan, bitwise the
+    twin; K10 over a 2048 x 512 point
     table of the office bag: its bin tables, descriptors and all-pairs
     top-k bitwise against the twins, rows of ``search_all_pairs`` bitwise
     equal to ``search_dense``, scores against a matrix product, and the
@@ -111,11 +123,19 @@ Phases (any failure exits non-zero):
     window after every step bitwise against the twins' chain and the eager
     shift it replaced; K11 (the
     correlative matcher's field build, lattice search and point score)
-    bitwise against its twins and reproducible, the lattice (one launch)
-    bitwise the parent's two launches and timed beside them, and 64
-    lattice rows each bitwise equal to its R = 1 launch and to the
-    parent's, at config-2 shapes and at the shape
-    of (o)'s box drive (160x160 cells, the widened 80x40x40 lattice); K12
+    bitwise against its twins and reproducible, the field (one cluster
+    launch, one device operation a build in a CUDA graph) bitwise the
+    seven-step form and timed beside it in a CUDA graph, the lattice (one
+    launch) bitwise the parent's two launches and timed beside them, and
+    64 lattice rows each bitwise equal to its R = 1 launch and to the
+    parent's, at config-2 shapes and at the shape of (o)'s box drive
+    (160x160 cells, the widened 80x40x40 lattice); then the field at 128 x
+    128, 200 x 150 (15 CTAs) and 202 x 150 (forced to 8), 512 x 512 (16
+    CTAs of 156 kB), 1024 x 352 (16 CTAs of 229 kB), 1024 x 353 (the
+    seven-step form by the plan), an empty window, a
+    window without a live scan and poses at -0 and +0 with range_max 0,
+    each bitwise its twin and the seven-step form (the last: the origin's
+    bits against the seven-step form, printed beside the twin's); K12
     (the mesh's split search and rank-ordered sum): K2's partials over
     contiguous angle blocks and their finalize, split 2 and 4 ways, bitwise
     equal to the one-launch K2 and to the twins' split search, at config
@@ -579,6 +599,37 @@ def host_us(fn, reps: int, sync: bool = False) -> float:
     for _ in range(reps):
         fn()
     return (time.perf_counter() - t0) / reps * 1e6
+
+
+def graph_nodes(fn) -> list:
+    """The device operations one call of ``fn`` enqueues, read off a CUDA
+    graph of the call (after a warm-up call off the capturing stream): each
+    node's type ("kernel", "memset", "memcpy", ...) in the graph's order,
+    through the driver's ``cuGraphGetNodes`` and ``cuGraphNodeGetType``."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    drv = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    require(drv.cuGraphGetNodes(raw, None, ctypes.byref(count)) == 0,
+            "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    drv.cuGraphGetNodes(raw, nodes, ctypes.byref(count))
+    names = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
+             5: "empty", 6: "wait_event", 7: "event_record"}
+    out = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        drv.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        out.append(names.get(kind.value, str(kind.value)))
+    return out
 
 
 def phase_card():
@@ -5245,11 +5296,75 @@ def check_search_odd(dev):
           "the twin; rows 0-3, 17, 36 bitwise equal to one-row launches")
 
 
+def check_bins_shapes(pts, msk, dev):
+    """K10's bins at both block shapes of the plan (128 and 256 threads)
+    and the plan's own, bitwise against ``bin_twin``: over the first 512
+    slots of the office table with a scan whose every point lies in one
+    sector (the longest chain) and an all-masked scan, then over 64 random
+    scans of 7000 points and of the parent kernel's largest scan, past the
+    default 48 KB of shared memory."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import descriptors as k10
+    P = msk.shape[1]
+    pts, msk = pts[:512].clone(), msk[:512].clone()
+    pts[0, :, 0] = torch.linspace(0.5, 11.5, P, device=dev)
+    pts[0, :, 1] = 0.1 * pts[0, :, 0]
+    msk[0] = True
+    msk[1] = False
+    want = k10.bin_twin(pts, msk, 12.0)
+    require(float(want.sector_count[0].max()) == P
+            and float(want.total[1]) == 0.0,
+            "K10: the one-sector or the empty scan is not what it should be")
+    for threads in k10.BIN_THREADS + (None,):
+        got = (k10.bin_points(pts, msk, 12.0) if threads is None
+               else bins_arm(pts, msk, threads)())
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"K10 bins with blocks of {threads} differ from the twin")
+    print(f"[3] K10 bins at blocks of {k10.BIN_THREADS} threads and the "
+          f"plan's ({k10.bins_plan(512, P).threads} at 512 slots), with a "
+          f"scan of {P} points in one sector and an all-masked scan: the "
+          f"five tables bitwise the twin")
+    # Scans past the default 48 KB of shared memory: 7000 points and the
+    # parent kernel's largest scan (6 P + 1412 bytes within 48 KB), random
+    # points from a seed, one scan in one sector and one all masked.
+    gen = torch.Generator(device=dev).manual_seed(21)
+    parent_max = (48 * 1024 - 4 * (64 * 5 + 32 + 1)) // 6
+    sizes = []
+    for P in (7000, parent_max):
+        S = 64
+        r = 12.0 * torch.rand(S, P, generator=gen, device=dev)
+        th = 2 * math.pi * torch.rand(S, P, generator=gen, device=dev)
+        pts = torch.stack([r * torch.cos(th), r * torch.sin(th)], 2)
+        msk = torch.rand(S, P, generator=gen, device=dev) > 0.1
+        pts[0, :, 0] = torch.linspace(0.5, 11.5, P, device=dev)
+        pts[0, :, 1] = 0.1 * pts[0, :, 0]
+        msk[0] = True
+        msk[1] = False
+        want = k10.bin_twin(pts, msk, 12.0)
+        for threads in k10.BIN_THREADS + (None,):
+            got = (k10.bin_points(pts, msk, 12.0) if threads is None
+                   else bins_arm(pts, msk, threads)())
+            torch.cuda.synchronize()
+            require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                    f"K10 bins of {P} points with blocks of {threads} "
+                    "differ from the twin")
+        plan = k10.bins_plan(S, P)
+        sizes.append(f"{P} points ({plan.threads} threads, {plan.smem} "
+                     "shared bytes)")
+    print(f"[3] K10 bins past 48 KB of shared memory, {S} slots of "
+          f"{' and '.join(sizes)}, a one-sector and an all-masked scan: "
+          f"the five tables bitwise the twin at both block shapes and the "
+          f"plan's")
+
+
 def phase_k10(cfg, bag, dev):
     """K10 over the office bag's point table at a 2000-keyframe graph's
     padded capacity, then the search at an odd shape."""
     check_search_odd(dev)
     pts, msk = office_table(cfg, bag, dev)
+    check_bins_shapes(pts, msk, dev)
     return check_descriptors(
         pts, msk, 12.0, cfg.descriptor_bins, len(bag),
         cfg.global_search_limit, cfg.rolling_depth + 1,
@@ -5835,6 +5950,47 @@ def parent_match(mc, field, origin, points, point_mask, num_points: int,
     return (res[0], res[1][0]) if with_scores else res
 
 
+def field_arm(plan, args):
+    """A K11 field build of ``args`` (``build_field``'s) in the form
+    ``plan`` names, through a launcher of its own: a comparison or timing
+    arm beside the plan the package takes."""
+    from ndt_2d_tpu_torch.kernels import correlative as k11
+    S, P = args[1].shape[:2]
+    launcher = k11.FieldLauncher(plan, S, P, float(args[4]), float(args[5]),
+                                 args[0].device)
+    return lambda: launcher.run(*args[:4])
+
+
+def seven_steps(W: int, H: int):
+    """K11's seven-step form of a [H, W] field (a memset and six
+    launches)."""
+    from ndt_2d_tpu_torch.kernels import correlative as k11
+    return k11.FieldPlan(W, H, 0, 0, 0, 0)
+
+
+def bins_arm(pts, msk, threads: int, rmax: float = 12.0):
+    """K10's bins of ``pts`` / ``msk`` at blocks of ``threads``, through
+    the C entry (``bin_points`` takes ``bins_plan``'s): a comparison or
+    timing arm.  Returns the call."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import _build
+    from ndt_2d_tpu_torch.kernels import descriptors as k10
+    S, P = msk.shape
+    fn = _build.function("ndt2d_descriptor_bins", k10._ARGS)
+
+    def call():
+        out = k10.Bins(*(torch.empty(*shape, device=pts.device)
+                         for shape in ((S, 64), (S, 64), (S, 4 * 64),
+                                       (S, 32), (S,))))
+        p = _build.ptr
+        _build.check(fn(p(pts), p(msk), S, P, rmax, 64, 4, 32, threads,
+                        *[p(t) for t in out], _build.stream_ptr(pts.device)),
+                     "descriptor_bins")
+        return out
+    return call
+
+
 def k11_shape(mc, win, query, odom, pts, msk, ks, rmax, dev, what):
     """K11's three entries at one shape: the field of window ``win``, the
     lattice of ``mc`` and the point score of ``query``, bitwise against the
@@ -5845,30 +6001,52 @@ def k11_shape(mc, win, query, odom, pts, msk, ks, rmax, dev, what):
     import dataclasses
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from ndt_2d_tpu_torch.kernels import correlative as k11
     from ndt_2d_tpu_torch.matching.matcher import _search_offsets
     W, H = mc.grid_cells_x, mc.grid_cells_y
+    S, P = win["points"].shape[:2]
     fargs = (win["poses"], win["points"], win["point_mask"],
              win["window_mask"], rmax, mc.ndt_resolution, W, H)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = k11.field_plan(W, H, sms, S, S * P)
+    seven = field_arm(seven_steps(W, H), fargs)
     f, o = k11.build_field(*fargs)
     ft, ot = k11.build_field_twin(*fargs)
     f2, o2 = k11.build_field(*fargs)
+    f7, o7 = seven()
     torch.cuda.synchronize()
+    require(plan.cluster, f"K11 field plan {plan} ({what})")
     require(torch.equal(f, ft) and torch.equal(o, ot),
             f"K11 field differs from its twin ({what})")
     require(torch.equal(f, f2) and torch.equal(o, o2),
             f"K11 field not bitwise reproducible ({what})")
+    require(torch.equal(f, f7) and torch.equal(o, o7),
+            f"K11 cluster field differs from the seven-step form ({what})")
+    ops = graph_nodes(lambda: k11.build_field(*fargs))
+    ops7 = graph_nodes(seven)
+    require(ops == ["kernel"]
+            and sorted(ops7) == ["kernel"] * 6 + ["memset"],
+            f"K11 field ({what}): device operations {ops}, seven-step "
+            f"{ops7}")
     ids = k11.cell_ids(win["poses"], win["points"], win["point_mask"],
                        win["window_mask"], o, mc.ndt_resolution, W, H)
-    S, P = win["points"].shape[:2]
+    field_graph = graph_ms(lambda: k11.build_field(*fargs), 20)
+    seven_graph = graph_ms(seven, 20)
+    print(f"[3] K11 field, {what}: one cluster of {plan.n} CTAs x "
+          f"{plan.threads} threads, stripes of {plan.h} rows ({plan.smem} "
+          f"shared bytes a CTA), field and origin bitwise the twin, "
+          f"reproducible and bitwise the seven-step form; one device "
+          f"operation a build (graph nodes {ops}; seven-step: "
+          f"{len(ops7)}); in a CUDA graph {field_graph:.5f} ms "
+          f"[seven-step {seven_graph:.5f}]")
     out = {"correlative_field": timed(
         0.0, cuda_ms(lambda: k11.build_field(*fargs), 20),
         cuda_ms(lambda: k11.build_field_twin(*fargs), 5),
         nbytes(*win.values(), f, o) + 28,
         15 * S * P + 30 * W * H,
-        cuda_ms(lambda: torch.bincount(ids, minlength=W * H), 20))}
+        cuda_ms(lambda: torch.bincount(ids, minlength=W * H), 20),
+        graph_ms=(field_graph, None))}
 
     dths, dls = _search_offsets(mc, dev)
     margs = (mc, f, o, query["points"], query["point_mask"],
@@ -5926,20 +6104,13 @@ def k11_shape(mc, win, query, odom, pts, msk, ks, rmax, dev, what):
     new_host = host_us(lambda: k11.match(*margs), 20, sync=True)
     par_host = host_us(lambda: parent_match(*margs), 20,
                        sync=True)
-    # One match in a profiler window shows one kernel.  A window that
-    # shows no device event at all (the profiler lost its records; seen
-    # once in 13 runs) is taken again, up to three times.
-    for _ in range(3):
-        before = k11.match_launches
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            k11.match(*margs)
-            torch.cuda.synchronize()
-        kernels = [ev.name for ev in prof.events()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA]
-        if kernels:
-            break
-    require(k11.match_launches == before + 1 and len(kernels) == 1,
-            f"K11 lattice ({what}): one match launched {kernels}")
+    # One match is one kernel: the nodes of a CUDA graph of one call (a
+    # profiler window lost its records in one run of 13, and all three
+    # retakes in another).
+    before = k11.match_launches
+    kernels = graph_nodes(lambda: k11.match(*margs))
+    require(k11.match_launches == before + 2 and kernels == ["kernel"],
+            f"K11 lattice ({what}): one match enqueued {kernels}")
     print(f"[5] K11 lattice, {what} ({A}x{L}x{L} x "
           f"{mc.laser_max_beams} beams; blocks of {plan.threads}, "
           f"{plan.per} tiles a thread, {A * plan.groups} blocks, tables "
@@ -5947,7 +6118,7 @@ def k11_shape(mc, win, query, odom, pts, msk, ks, rmax, dev, what):
           f"{plan.cy}): one launch {new_ms:.4f} ms, in a CUDA graph "
           f"{new_graph:.5f} ms, host {new_host:.1f} us [parent, two "
           f"launches: {par_ms:.4f} ms, in a CUDA graph {par_graph:.5f} ms, "
-          f"host {par_host:.1f} us] ({short_names(kernels)})")
+          f"host {par_host:.1f} us] (graph nodes of a match: {kernels})")
     out["correlative_match"] = timed(
         0.0, new_ms, cuda_ms(lambda: k11.match_twin(*margs), 3),
         *cost_lattice_tables(mc, o, *margs[3:]),
@@ -6029,6 +6200,113 @@ def phase_k11(cfg, bag, win, query, dev):
                          bpts, bmsk, list(range(ROWS)), box.range_max, dev,
                          "box drive's shape"))
     return out
+
+
+def edge_window(width: int, height: int, seed: int, dev, S: int = 3,
+                P: int = 256):
+    """A window for K11's field on a [height, width] grid of 0.25 m cells
+    from range_max 4: scan 0 at the origin, heading 0, with one point
+    exactly on each row's lower edge (rows -2 .. H + 1) and the rest off
+    the grid on every side; the other scans turned, random points; a tenth
+    of the points masked."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    poses = np.zeros((S, 3), np.float32)
+    poses[1:] = rng.uniform(-1.0, 1.0, (S - 1, 3))
+    pts = rng.uniform(-4.0, 4.0, (S, P, 2)).astype(np.float32)
+    rows = np.arange(min(height + 4, P)) - 2
+    pts[0, :len(rows), 1] = -4.0 + rows * 0.25
+    pts[0, len(rows):] = rng.uniform(-5.0, -3.0 + max(width, height) * 0.25,
+                                     (P - len(rows), 2))
+    mask = rng.random((S, P)) > 0.1
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return t(poses), t(pts), t(mask), torch.ones(S, dtype=torch.bool,
+                                                  device=dev)
+
+
+def phase_k11_fields(dev):
+    """K11's field past the main path's two shapes, each field and origin
+    bitwise its twin and the seven-step form: the global matcher's 128 x
+    128, a non-square 200 x 150 (15 stripes of 10 rows) and 202 x 150
+    (forced to 8 CTAs, H % 8 != 0; rows not a multiple of 4 cells), 512 x
+    512 (16 CTAs of 155,712 bytes), 1024 x 352
+    (16 stripes of 22 rows, 229,440 bytes) and 1024 x 353 (past 16
+    stripes' shared memory: the seven-step form by the plan), the
+    box window at 128 x 128 with cells of 0.25 m and 0.35 m (the exact
+    reciprocal and the divisions), an empty window and a window without a
+    live scan; and poses at +0 and -0 with range_max 0 (a zero minimum's sign:
+    the origin bitwise the seven-step form, its bits printed beside the
+    twin's)."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import correlative as k11
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    def check(args, W, H, what, n=None, cluster=True, twin_origin=True):
+        S, P = args[1].shape[:2]
+        fargs = (*args, W, H)
+        if n is None:  # the package's own plan
+            plan = k11.field_plan(W, H, sms, S, S * P)
+            f, o = k11.build_field(*fargs)
+        else:
+            plan = k11.field_stripes(W, H, n, S)
+            f, o = field_arm(plan, fargs)()
+        require(plan.cluster == cluster, f"K11 field {what}: plan {plan}")
+        ft, ot = k11.build_field_twin(*fargs)
+        f7, o7 = field_arm(seven_steps(W, H), fargs)()
+        torch.cuda.synchronize()
+        pairs = [(f, ft), (f, f7), (o, o7)] + ([(o, ot)] if twin_origin
+                                               else [])
+        require(all(torch.equal(bits(a), bits(b)) for a, b in pairs),
+                f"K11 field {what} ({W} x {H}, {plan}) differs from its "
+                "twin or the seven-step form")
+        return plan, o, ot
+
+    done = []
+    for W, H, n in ((128, 128, None), (200, 150, None), (202, 150, 8),
+                    (512, 512, None), (1024, 352, None), (1024, 353, None)):
+        args = (*edge_window(W, H, W + H, dev), 4.0, 0.25)
+        plan = check(args, W, H, "on stripe edges", n, H != 353)[0]
+        done.append(f"{W}x{H}: n {plan.n}, h {plan.h}")
+    D = 10
+    _, _, _, _, bwin, _ = box_window(D, dev)
+    box = (bwin["poses"], bwin["points"], bwin["point_mask"],
+           bwin["window_mask"], 12.0, 0.25)
+    check(box, 128, 128, "of the box window")
+    check(box[:5] + (0.35,), 128, 128, "of the box window, 0.35 m cells")
+    empty = (bwin["poses"], bwin["points"],
+             torch.zeros_like(bwin["point_mask"]), bwin["window_mask"],
+             12.0, 0.25)
+    check(empty, 160, 160, "of an empty window")
+    dead = (bwin["poses"], bwin["points"], bwin["point_mask"],
+            torch.zeros_like(bwin["window_mask"]), 12.0, 0.25)
+    check(dead, 160, 160, "without a live scan")
+    # The kernels' fminf puts -0 below +0 in any order; the twin's
+    # torch.amin keeps the sign the poses' order gives it, so with range_max
+    # 0 the origins may part by the sign of 0 (the fields do not).
+    signs = []
+    for first in (True, False):
+        poses, pts, mask, wmask = edge_window(96, 40, 5, dev)
+        poses[:, :2] = 0.0
+        poses[0 if first else -1, :2] = -0.0
+        _, o, ot = check((poses, pts, mask, wmask, 0.0, 0.25), 96, 40,
+                         "from poses at -0 and +0, range_max 0",
+                         twin_origin=False)
+        signs.append(f"-0 {'first' if first else 'last'}: kernels "
+                     f"{bits(o).tolist()}, twin {bits(ot).tolist()}")
+    print(f"[3] K11 field past the main path's shapes ({'; '.join(done)}; "
+          f"the box window at 128 x 128 with cells of 0.25 and 0.35 m, an "
+          f"empty window, no live scan): "
+          f"field and origin bitwise the twin and the seven-step form; "
+          f"poses at -0 and +0 with range_max 0: fields bitwise, origins "
+          f"bitwise the seven-step form, origin bits "
+          f"{'; '.join(signs)}")
 
 
 def box_window(D: int, dev):
@@ -8388,6 +8666,197 @@ def pcg_lattice_times(dev, ident: str) -> dict:
     return out
 
 
+def digest(*tensors) -> str:
+    """The first 16 hex digits of the sha256 of ``tensors``' bytes."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def arm_times(fn, reps: int = 20) -> dict:
+    """One call's device time alone (``graph_ms``), its time by CUDA
+    events (``cuda_ms``), its host microseconds (the median of calls each
+    timed alone) and its device operations (a CUDA graph's nodes)."""
+    ops = graph_nodes(fn)
+    return dict(graph_ms=graph_ms(fn, reps), cuda_ms=cuda_ms(fn, 50),
+                host_us=host_us(fn, 30, sync=True), ops=len(ops),
+                op_names=ops)
+
+
+def descriptor_decisions(cfg, bag, dev) -> dict:
+    """A descriptor-mode session's decisions: accepted scans, closures,
+    optimizations, final ATE and the sha256 of its last descriptor pass's
+    bin tables and descriptors."""
+    from ndt_2d_tpu_torch.kernels import descriptors as k10
+    from ndt_2d_tpu_torch.mapping.mapper import Mapper
+    with DescriptorRecorder() as drec:
+        st, _, _, _, _, mp = run_session(cfg, bag, dev,
+                                         mapper=Mapper(cfg, device=dev))
+    pts, msk, rmax, n_bins = drec.args
+    bins = k10.bin_points(pts, msk, rmax, 64, 4, n_bins)
+    return dict(accepted=st["scans_accepted"], closures=st["loop_closures"],
+                optimizations=st["session"]["optimizations"],
+                final_ate=final_ate(mp, st, bag), slots=int(msk.shape[0]),
+                scans=int(msk.any(dim=1).sum()), bins_sha=digest(*bins),
+                table_sha=digest(drec.table))
+
+
+def field_bins_times(dev, ident: str, decisions: bool) -> dict:
+    """``--field-bins-arm``: in this process's tree, K11's field at the box
+    drive's window (160 x 160, 10 scans of 512 points) and config 2's (192
+    x 192, 10 x 512), K10's bins over the office table's first 512 slots
+    and its 2048 (``arm_times`` each, and the outputs' sha256), the graph
+    ms of the next rows of the queue (K10's spectra at both tables, K11's
+    point score at both windows, K12's K6 finalize at config 6's 32 coarse
+    rows split 2 ways); with ``decisions``, the box drive (accepted, ATE,
+    poses sha256), config 6 and the drift recipe (``descriptor_decisions``).
+    Calls only public entries, so it runs in an older tree too."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import candidate_gather as k6
+    from ndt_2d_tpu_torch.kernels import correlative as k11
+    from ndt_2d_tpu_torch.kernels import descriptors as k10
+    from ndt_2d_tpu_torch.kernels import ndt_build as k1
+    from ndt_2d_tpu_torch.matching import matcher
+    from ndt_2d_tpu_torch.parallel import matcher as pmatcher
+    out = {"card": ident, "k11": {}, "k10": {}, "next": {}}
+    bag, cfg2, win, query, _ = inputs(dev)
+    box_cfg, _, _, _, bwin, bquery = box_window(cfg2.rolling_depth, dev)
+    for what, mc, w, q, rmax in (
+            ("box", box_cfg.local_scan_matcher, bwin, bquery, 12.0),
+            ("config 2", cfg2.local_scan_matcher, win, query,
+             bag.range_max)):
+        fargs = (w["poses"], w["points"], w["point_mask"], w["window_mask"],
+                 rmax, mc.ndt_resolution, mc.grid_cells_x, mc.grid_cells_y)
+        row = arm_times(lambda: k11.build_field(*fargs))
+        f, o = k11.build_field(*fargs)
+        row["sha"] = digest(f, o)
+        if hasattr(k11, "FieldLauncher"):
+            # The cluster sizes and the seven-step form, graph ms.
+            W, H, S = mc.grid_cells_x, mc.grid_cells_y, w["points"].shape[0]
+            row["sweep"] = {}
+            for n in (2, 4, 8, 12, 16, 0):
+                plan = (k11.field_stripes(W, H, n, S) if n
+                        else seven_steps(W, H))
+                row["sweep"][f"n {plan.n}" if plan.cluster
+                             else "seven-step"] = graph_ms(
+                    field_arm(plan, fargs), 20)
+        out["k11"][what] = row
+        sargs = (mc, f, o, q["points"], q["point_mask"], q["num_points"],
+                 q["pose"][None])
+        out["next"][f"K11 score, {what}"] = graph_ms(
+            lambda: k11.score_batch(*sargs), 50)
+        print(f"[6] K11 field, {what} ({mc.grid_cells_x}x{mc.grid_cells_y}, "
+              f"{tuple(w['points'].shape[:2])} points): in a CUDA graph "
+              f"{row['graph_ms']:.5f} ms, cuda_ms {row['cuda_ms']:.4f}, host "
+              f"{row['host_us']:.1f} us, {row['ops']} device operations "
+              f"{row['op_names']}, sha256 {row['sha']} ({ident})")
+    cfg6, bag3 = config6(), office_bag()
+    pts, msk = office_table(cfg6, bag3, dev)
+    for S in (512, TABLE_SCANS):
+        p_, m_ = pts[:S].contiguous(), msk[:S].contiguous()
+        row = arm_times(lambda: k10.bin_points(p_, m_, 12.0))
+        bins = k10.bin_points(p_, m_, 12.0)
+        row["sha"] = digest(*bins)
+        if hasattr(k10, "bins_plan"):
+            # Each block shape, graph ms.
+            row["sweep"] = {}
+            for threads in k10.BIN_THREADS:
+                row["sweep"][f"{threads} threads"] = graph_ms(
+                    bins_arm(p_, m_, threads), 20)
+        out["k10"][f"{S} slots"] = row
+        out["next"][f"K10 spectra, {S} slots"] = graph_ms(
+            lambda: k10.spectra(bins, 12.0), 50)
+        print(f"[6] K10 bins, {S} slots: in a CUDA graph "
+              f"{row['graph_ms']:.5f} ms, cuda_ms {row['cuda_ms']:.4f}, host "
+              f"{row['host_us']:.1f} us, {row['ops']} device operations "
+              f"{row['op_names']}, sha256 {row['sha']} ({ident})")
+    cm = cfg6.coarse_scan_matcher
+    rows = coarse_rows(cfg6, bag3, dev)
+    gr, tabs = k1.build_windows(*rows[:4], 12.0, cm.ndt_resolution,
+                                cm.grid_cells_x, cm.grid_cells_y)
+    rows = (gr, tabs, *rows[4:])
+    dths, dls = matcher._search_offsets(cm, dev)
+    A = dths.shape[0]
+    _, n = pmatcher.angle_block(A, 2, 0)
+    full = torch.cat([k6.partial_rows(cm, *rows, dths, dls, 0, n),
+                      k6.partial_rows(cm, *rows, dths, dls, n, A - n)], 1)
+    out["next"]["K12 K6 finalize, 32 coarse rows"] = graph_ms(
+        lambda: k6.finalize_rows(cm, full, rows[4], dths, dls), 50)
+    for k, v in out["next"].items():
+        print(f"[6] {k}: in a CUDA graph {v:.5f} ms ({ident})")
+    if decisions:
+        acc, nscans, ate, odom, sha = correlative_box(dev)
+        out["box"] = dict(accepted=acc, scans=nscans, ate=ate, odom=odom,
+                          sha=sha)
+        out["config6"] = descriptor_decisions(cfg6, bag3, dev)
+        out["drift"] = descriptor_decisions(
+            office_config("--recipe", "drift"), drift_bag(), dev)
+        print(f"[6] box drive {acc}/{nscans} accepted, ATE {ate:.4f} m, "
+              f"poses sha256 {sha}; config 6 {out['config6']}; drift "
+              f"{out['drift']}")
+    return out
+
+
+def field_bins_arms(parent: str) -> int:
+    """``--field-bins-times PARENT``: this script copied into PARENT (a
+    ``git archive`` of an older tree) as smoke_new.py, then
+    ``--field-bins-arm`` in four processes: parent (with its decisions),
+    change (with its decisions), change, parent.  Each arm's lines are
+    printed; then, for each kernel and shape, the arms' graph ms, cuda_ms,
+    host us and device operations, and whether the outputs' sha256 and
+    the decisions agree across the trees.  Exits 1 where they differ."""
+    import shutil
+    import subprocess
+    script, parent = os.path.abspath(__file__), os.path.abspath(parent)
+    shutil.copy(script, os.path.join(parent, "smoke_new.py"))
+    trees = {"parent": (parent, os.path.join(parent, "smoke_new.py")),
+             "change": (ROOT, script)}
+    arms = []
+    for i, name in enumerate(("parent", "change", "change", "parent")):
+        cwd, path = trees[name]
+        cmd = [sys.executable, path, "--field-bins-arm"]
+        cmd += ["--decisions"] if i < 2 else []
+        run = subprocess.run(cmd, cwd=cwd, capture_output=True, text=True)
+        print(run.stdout[-6000:], end="")
+        if run.returncode != 0:
+            print(f"FAIL: the {name} arm exited {run.returncode}: "
+                  f"{run.stderr[-3000:]}")
+            return 1
+        arms.append((name, json.loads(run.stdout.strip().splitlines()[-1])[
+            "field_bins_times"]))
+    ok = True
+    for kernel, shapes in (("k11", ("box", "config 2")),
+                           ("k10", ("512 slots", f"{TABLE_SCANS} slots"))):
+        for shape in shapes:
+            rows = [(n, a[kernel][shape]) for n, a in arms]
+            same = len({r["sha"] for _, r in rows}) == 1
+            ok &= same
+            print(f"[6] {kernel.upper()} {shape}: " + "; ".join(
+                f"{n} graph {r['graph_ms']:.5f} ms, cuda_ms "
+                f"{r['cuda_ms']:.4f}, host {r['host_us']:.1f} us, "
+                f"{r['ops']} ops" for n, r in rows)
+                + f"; outputs bitwise equal across the trees: {same}")
+            for n, r in rows:
+                if "sweep" in r:
+                    print(f"[6] {kernel.upper()} {shape}, {n}, graph ms by "
+                          "form: " + ", ".join(
+                              f"{k} {v:.5f}" for k, v in r["sweep"].items()))
+    for key in arms[0][1]["next"]:
+        print(f"[6] {key}: graph ms " + ", ".join(
+            f"{n} {a['next'][key]:.5f}" for n, a in arms))
+    p, c = arms[0][1], arms[1][1]
+    for key in ("box", "config6", "drift"):
+        same = p[key] == c[key]
+        ok &= same
+        print(f"[6] decisions, {key}: parent {p[key]}, change {c[key]}; "
+              f"equal: {same}")
+    print(json.dumps({"field_bins_times": dict(arms=arms, equal=ok)}))
+    return 0 if ok else 1
+
+
 class ReplacedInverse:
     """Within the block, one device's PCG system (``k4.PcgPlan.system``)
     hands ``pcg_solve`` another block-Jacobi inverse of the same damped
@@ -8586,6 +9055,16 @@ def main() -> int:
         print(json.dumps({"pcg_lattice_times": pcg_lattice_times(dev,
                                                                  ident)}))
         return 0
+    if "--field-bins-arm" in sys.argv[1:]:
+        from ndt_2d_tpu_torch.device import get_device
+        dev = get_device("cuda:0")
+        ident = phase_card()
+        phase_build()
+        print(json.dumps({"field_bins_times": field_bins_times(
+            dev, ident, "--decisions" in sys.argv[1:])}))
+        return 0
+    if sys.argv[1:2] == ["--field-bins-times"]:
+        return field_bins_arms(sys.argv[2])
     if "--kernel-times" in sys.argv[1:]:
         from ndt_2d_tpu_torch.device import get_device
         from ndt_2d_tpu_torch.io.bag import record_synthetic
@@ -8622,6 +9101,7 @@ def main() -> int:
         timing.update(phase_k3_pose(cfg, win, query, bag3, dev))
         timing.update(phase_k13(cfg, win, query, bag, dev))
         timing.update(phase_k11(cfg, bag, win, query, dev))
+        phase_k11_fields(dev)
         bag4 = record_synthetic("box", 150, n_beams=360, seed=2)
         with tempfile.TemporaryDirectory() as tmp:
             map4 = os.path.join(tmp, "box_map.npz")

@@ -25,10 +25,25 @@
 //
 // Designs.  Field: hit counts by integer atomics (exact in any order), the
 // blur one thread per cell adding its 7 taps in index order from 0 (the
-// taps computed once by torch and handed in), the maximum by one block
-// (order-free), the division by it last; the twin does each step in the
-// same order.  Point score: K3's, one warp per pose, lane l adding beams l,
-// l + 32, ... from 0, then a __shfl_down_sync tree (16, 8, 4, 2, 1).
+// taps computed once by torch and handed in), the maximum (order-free),
+// the division by it last; the twin does each step in the same order.  At
+// 128-192 cells a side the plane is ~100-300 kB and the work a few
+// microseconds, so a build is bound by its launch chain, not by bytes:
+// where the stripes fit (kernels/correlative.py::field_plan) it is one
+// launch of a thread-block cluster (field_cluster).  CTA k of n keeps its
+// stripe of h rows, with the 3 rows above and below, of the int hit plane
+// and of the x-blurred float plane in its shared memory; every CTA forms
+// the origin and transforms every window point, counting those of its
+// rows (no atomic crosses a CTA, no plane is zeroed in device memory);
+// it blurs along x and y from its own rows, takes its stripe's maximum
+// and hands it to every CTA through DSMEM before one cluster barrier, then
+// writes its rows of field / peak once.  Each float operation is the
+// seven-step form's on the same operands in the same order, so both forms
+// are bitwise the twin.  Grids whose stripes do not fit 16 CTAs keep the
+// seven-step form (a memset and six launches through device memory),
+// chosen by the plan from the shape.  Point score: K3's, one warp per
+// pose, lane l adding beams l, l + 32, ... from 0, then a __shfl_down_sync
+// tree (16, 8, 4, 2, 1).
 //
 // Lattice (lattice_tables, entry ndt2d_correlative_match_tables).  A term
 // (candidate, beam) needs the cell column ix = floor((rx_b + dx - ox) /
@@ -53,6 +68,8 @@
 // rows.  The block's shape (kernels/correlative.py::lattice_plan: one
 // wave of blocks of up to 1024 threads where the lattice allows it)
 // changes which block forms a partial, never its bits.
+#include <cooperative_groups.h>
+
 #include <algorithm>
 
 #include "lattice.cuh"
@@ -63,8 +80,42 @@ using lattice::kTile;
 constexpr int kThreads = 256;
 constexpr int kBeamChunk = 128;
 constexpr int kTaps = 7;  // radius 3
+constexpr int kHalo = kTaps / 2;
 constexpr int kPeakThreads = 1024;
 constexpr int kWarpsPerBlock = 8;
+constexpr int kFieldThreads = 1024;  // the cluster form's CTA, at most
+constexpr int kMaxCluster = 16;      // Hopper's non-portable cluster limit
+constexpr float kFloatMax = 3.402823466e+38f;
+
+// One field build (kernels/correlative.py::_FieldLaunch, field for field):
+// the tensors' pointers (the seven-step form's scratch hits, tmp and peak;
+// null in the cluster form), the shape, and the plan: n CTAs of `threads`
+// a cluster, h rows a stripe, `smem` dynamic bytes a CTA; n = 0 is the
+// seven-step form.
+struct FieldLaunch {
+  const float* poses;     // [S, 3]
+  const float* points;    // [S, P, 2]
+  const uint8_t* pmask;   // [S, P]
+  const uint8_t* wmask;   // [S]
+  const float* taps;      // [7]
+  float* origin;          // [2]
+  float* field;           // [H, W]
+  int* hits;              // [H * W] scratch (seven-step form)
+  float* tmp;             // [H * W] scratch (seven-step form)
+  float* peak;            // [1] scratch (seven-step form)
+  int S, P, W, H;
+  int n, h, threads, smem;
+  float range_max, cell;
+};
+
+// u / d and u % d for u d < 2^32 by a multiply-high with m = ceil(2^32 /
+// d) (exact there: the error u / 2^32 stays below 1 / d).
+__device__ __forceinline__ unsigned magic(unsigned d) {
+  return 0xffffffffu / d + 1u;
+}
+__device__ __forceinline__ int quot(int u, unsigned m) {
+  return (int)__umulhi((unsigned)u, m);
+}
 
 // min over the window's poses - range_max, per axis (window_origin); one
 // thread.  A window without a scan keeps FLT_MAX - range_max, as the
@@ -150,6 +201,277 @@ __global__ void field_scale(float* __restrict__ field, int n,
   if (i < n) field[i] = field[i] / peak[0];
 }
 
+// The whole build in one cluster of l.n CTAs (the grid is the cluster):
+// CTA k owns rows [k h, k h + rows) of the plane.  Each CTA transforms
+// every window point and counts those of its rows and of the kHalo rows
+// above and below them (its window of rows + 2 kHalo rows; rows off the
+// plane stay 0, as the blur's zero edge), so that it blurs along x and y
+// from its own shared memory: the only exchange between CTAs is the
+// maximum: the bits of the (nonnegative) blurred values compare as
+// unsigned ints, and each CTA's maximum is stored through DSMEM into a
+// slot of every CTA of the cluster before the one cluster barrier (after
+// a wait on a barrier every CTA arrives at on entry, so that every target
+// has started).  Dynamic shared memory: each window scan's (x, y, cos,
+// sin) and flag, the int hit window [h + 2 kHalo, W] (reused for the
+// y-blurred stripe as float), then the x-blurred window [h + 2 kHalo, W].  Every global load of a phase is
+// issued before its first use (the scans' poses a thread a scan, a
+// thread's first kBatch points); a point's row is found by a
+// multiplication first, and field_hits' divisions run only for the points
+// within a row of the window; a blur item is kRun consecutive cells of a
+// row (x) or of a column (y), its 6 + kRun inputs loaded once.
+constexpr int kBatch = 8;
+constexpr int kRun = 4;
+
+__global__ void __launch_bounds__(kFieldThreads) field_cluster(FieldLaunch l) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float taps_s[kTaps];
+  __shared__ unsigned warp_max[kFieldThreads / 32];
+  __shared__ unsigned maxima[kMaxCluster];
+  const int W = l.W, H = l.H, P = l.P, S = l.S;
+  const int k = (int)cluster.block_rank();
+  const int row0 = k * l.h;
+  const int rows = max(0, min(l.h, H - row0));
+  const int win = rows + 2 * kHalo;  // the window's rows, from row0 - kHalo
+  const int win_max = l.h + 2 * kHalo;
+  const int t = threadIdx.x, nt = blockDim.x, lane = t & 31;
+  float4* scan = reinterpret_cast<float4*>(smem);
+  int* live = reinterpret_cast<int*>(scan + S);  // S ints, padded to 4
+  int* hits = live + (S + 3) / 4 * 4;
+  float* yblur = reinterpret_cast<float*>(hits);
+  float* xblur = reinterpret_cast<float*>(hits + (size_t)win_max * W);
+  // Arrive at a cluster barrier now and wait on it just before the DSMEM
+  // store below: a CTA's shared memory may be written by another only once
+  // that CTA has started, which the barrier shows.  Relaxed: it orders no
+  // memory, and every CTA has long arrived by the wait.
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  // Stage the taps and each scan's pose with cosf / sinf of its heading
+  // (field_hits' values), zero the hit window and load this thread's
+  // first points (point i = t + j nt, of scan i / P).
+  if (t < kTaps) taps_s[t] = l.taps[t];
+  for (int s = t; s < S; s += nt) {
+    const float th = l.poses[3 * s + 2];
+    scan[s] = make_float4(l.poses[3 * s], l.poses[3 * s + 1], cosf(th),
+                          sinf(th));
+    live[s] = l.wmask[s];
+  }
+  for (int i = t; i < win * W; i += nt) hits[i] = 0;
+  const float2* pts = reinterpret_cast<const float2*>(l.points);
+  const int total = S * P;
+  float2 p[kBatch];
+  bool ok[kBatch];
+#pragma unroll
+  for (int j = 0; j < kBatch; ++j) {
+    const int i = t + j * nt;
+    ok[j] = i < total && l.pmask[i];
+    p[j] = i < total ? pts[i] : make_float2(0.f, 0.f);
+  }
+  __syncthreads();
+  float tp[kTaps];
+#pragma unroll
+  for (int q = 0; q < kTaps; ++q) tp[q] = taps_s[q];
+
+  // The origin, as field_origin forms it: each warp's lanes take the
+  // minimum of every 32nd live pose, then a shuffle tree.  A minimum is
+  // the same value in any order but for the sign of a zero, so a zero
+  // minimum is folded again in scan order.  CTA 0 writes it.
+  float mx = kFloatMax, my = kFloatMax;
+  for (int s = lane; s < S; s += 32)
+    if (live[s]) {
+      mx = fminf(mx, scan[s].x);
+      my = fminf(my, scan[s].y);
+    }
+  for (int off = 16; off > 0; off >>= 1) {
+    mx = fminf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    my = fminf(my, __shfl_xor_sync(0xffffffffu, my, off));
+  }
+  if (mx == 0.f || my == 0.f) {
+    mx = my = kFloatMax;
+    for (int s = 0; s < S; ++s)
+      if (live[s]) {
+        mx = fminf(mx, scan[s].x);
+        my = fminf(my, scan[s].y);
+      }
+  }
+  const float ox = mx - l.range_max, oy = my - l.range_max;
+  if (k == 0 && t == 0) {
+    l.origin[0] = ox;
+    l.origin[1] = oy;
+  }
+
+  // Hits: field_hits' expressions, counted by shared-memory integer
+  // atomics (exact in any order) where the row lies in the window.  The
+  // product by 1 / cell is within a row of the quotient, so a point whose
+  // product lies more than a row outside the window is not in it; where
+  // the cell is a power of 2 its reciprocal is exact and the product is
+  // the quotient, bit for bit (then no division runs).
+  const int lo = max(row0 - kHalo, 0), hi = min(row0 + rows + kHalo, H);
+  const float inv = 1.f / l.cell;
+  int e2;
+  const bool pow2 = frexpf(l.cell, &e2) == 0.5f;
+  const float flo = (float)(lo - 1), fhi = (float)(hi + 1);
+  const int ds = nt / P, dr = nt - ds * P;
+  int s = t / P, r = t - s * P;
+  for (int b = t; b < total; b += kBatch * nt) {
+    if (b != t) {
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int i = b + j * nt;
+        ok[j] = i < total && l.pmask[i];
+        p[j] = i < total ? pts[i] : make_float2(0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      if (b + j * nt >= total) break;
+      const int sj = s;
+      s += ds;
+      r += dr;
+      if (r >= P) {
+        r -= P;
+        ++s;
+      }
+      const int sc = ok[j] ? sj : 0;  // a masked or missing point: scan 0
+      const float4 q = scan[sc];
+      const float wy = (q.w * p[j].x + q.z * p[j].y) + q.y;
+      const float fy = (wy - oy) * inv;
+      if (!(ok[j] && live[sc] && fy >= flo && fy < fhi)) continue;
+      const int iy = (int)floorf(pow2 ? fy : (wy - oy) / l.cell);
+      if (iy < lo || iy >= hi) continue;
+      const float wx = (q.z * p[j].x - q.w * p[j].y) + q.x;
+      const int ix =
+          (int)floorf(pow2 ? (wx - ox) * inv : (wx - ox) / l.cell);
+      if (ix < 0 || ix >= W) continue;
+      atomicAdd(&hits[(iy - row0 + kHalo) * W + ix], 1);
+    }
+  }
+  __syncthreads();
+
+  // Blur along x (field_blur<int>) over the window: kRun cells of a row a
+  // thread, each its 7 taps in index order from 0, 0 past the row's ends.
+  // A count is below 2^23 (the launcher keeps S P there), so 2^23 + n as a
+  // float's bits, less 2^23, is (float)n without the quarter-rate
+  // conversion.
+  const auto count = [](int n) {
+    return __int_as_float(0x4B000000 + n) - 8388608.f;
+  };
+  const int xruns = (W + kRun - 1) / kRun;
+  const unsigned mx_runs = magic(xruns), m_w = magic(W);
+  for (int it = t; it < win * xruns; it += nt) {
+    const int y = quot(it, mx_runs), x0 = (it - y * xruns) * kRun;
+    const int* row = hits + y * W;
+    float v[kRun + 2 * kHalo];
+    if (W % kRun == 0) {
+      // Rows start 16-byte aligned: three int4 loads cover x0 - 4 ..
+      // x0 + 7 (zero past the row's ends), one float4 store.
+      const int4* r4 = reinterpret_cast<const int4*>(row) + x0 / kRun;
+      const int4 zero = make_int4(0, 0, 0, 0);
+      const int4 a = x0 > 0 ? r4[-1] : zero, b = r4[0];
+      const int4 c = x0 + kRun < W ? r4[1] : zero;
+      const int n[kRun + 2 * kHalo] = {a.y, a.z, a.w, b.x, b.y,
+                                       b.z, b.w, c.x, c.y, c.z};
+#pragma unroll
+      for (int q = 0; q < kRun + 2 * kHalo; ++q) v[q] = count(n[q]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < kRun + 2 * kHalo; ++q) {
+        const int x = x0 + q - kHalo;
+        v[q] = (x >= 0 && x < W) ? count(row[x]) : 0.f;
+      }
+    }
+    float o[kRun];
+#pragma unroll
+    for (int c = 0; c < kRun; ++c) {
+      float acc = 0.f;
+#pragma unroll
+      for (int q = 0; q < kTaps; ++q) acc = acc + tp[q] * v[c + q];
+      o[c] = acc;
+    }
+    if (W % kRun == 0) {
+      *reinterpret_cast<float4*>(xblur + y * W + x0) =
+          make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kRun; ++c)
+        if (x0 + c < W) xblur[y * W + x0 + c] = o[c];
+    }
+  }
+  __syncthreads();
+
+  // Blur along y (field_blur<float>): kRun rows of a column a thread, from
+  // the window's rows (0 off the plane), into the hit window's storage;
+  // the stripe's maximum into the CTA's word.
+  const int yruns = (rows + kRun - 1) / kRun;
+  float m = 0.f;
+  for (int it = t; it < yruns * W; it += nt) {
+    const int j = quot(it, m_w), x = it - j * W, y0 = j * kRun;
+    float v[kRun + 2 * kHalo];
+#pragma unroll
+    for (int q = 0; q < kRun + 2 * kHalo; ++q)
+      v[q] = y0 + q < win ? xblur[(y0 + q) * W + x] : 0.f;
+#pragma unroll
+    for (int c = 0; c < kRun; ++c) {
+      float acc = 0.f;
+#pragma unroll
+      for (int q = 0; q < kTaps; ++q) acc = acc + tp[q] * v[c + q];
+      if (y0 + c < rows) {
+        yblur[(y0 + c) * W + x] = acc;
+        m = fmaxf(m, acc);
+      }
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_down_sync(0xffffffffu, m, off));
+  if (lane == 0) warp_max[t >> 5] = __float_as_uint(m);
+  __syncthreads();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  // Warp 0 takes the warps' maxima (a shuffle tree, order-free), and lane
+  // c stores the stripe's maximum into CTA c's slot k through DSMEM; after
+  // the barrier every CTA holds the n maxima.
+  if (t < 32) {
+    unsigned b = lane < nt / 32 ? warp_max[lane] : 0u;
+    for (int off = 16; off > 0; off >>= 1)
+      b = max(b, __shfl_xor_sync(0xffffffffu, b, off));
+    if (lane < l.n) cluster.map_shared_rank(maxima, lane)[k] = b;
+  }
+  cluster.sync();
+
+  // The peak: the maximum of the n slots (order-free), floored at 1e-6;
+  // then each thread's cells of field / peak (a zero cell is itself: 0 /
+  // peak), written once.
+  unsigned bits = 0u;
+  for (int c = 0; c < l.n; ++c) bits = max(bits, maxima[c]);
+  const float pk = fmaxf(__uint_as_float(bits), 1e-6f);
+  float* out = l.field + (size_t)row0 * W;
+  for (int it = t; it < yruns * W; it += nt) {
+    const int j = quot(it, m_w), x = it - j * W, y0 = j * kRun;
+#pragma unroll
+    for (int c = 0; c < kRun; ++c)
+      if (y0 + c < rows) {
+        const float v = yblur[(y0 + c) * W + x];
+        out[(y0 + c) * W + x] = v == 0.f ? v : v / pk;
+      }
+  }
+}
+
+// The cluster launch's configuration (one cluster of l.n CTAs).
+void field_config(const FieldLaunch& l, cudaStream_t st,
+                  cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(l.n);
+  cfg->blockDim = dim3(l.threads);
+  cfg->dynamicSmemBytes = (size_t)l.smem;
+  cfg->stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = l.n;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
 // The tables' sentinel: a column or row offset off the grid (or an unused
 // beam's column).  A term's cell is the sum of its two entries, negative
 // exactly where either is a sentinel (W H <= 2^30, checked by the entry).
@@ -186,14 +508,6 @@ struct LatticeTables {
 // its cells fit the window.
 constexpr int kBeamWords = 6;
 
-// u / d and u % d for u d < 2^32 by a multiply-high with m = ceil(2^32 /
-// d) (exact there: the error u / 2^32 stays below 1 / d).
-__device__ __forceinline__ unsigned magic(unsigned d) {
-  return 0xffffffffu / d + 1u;
-}
-__device__ __forceinline__ int quot(int u, unsigned m) {
-  return (int)__umulhi((unsigned)u, m);
-}
 
 // Grid (A * groups, R), blocks of kG kTile threads: block (a * groups + j,
 // r) scores the kG kPer tiles from j kG kPer of angle a of row r, thread t
@@ -540,39 +854,93 @@ __global__ void point_scores(const float* __restrict__ field,
 
 int blocks(int n, int threads) { return (n + threads - 1) / threads; }
 
+// The seven-step form: a memset of the hit plane and six launches, each
+// plane through device memory (the scratch hits, tmp and peak).
+cudaError_t field_seven_steps(const FieldLaunch& l, cudaStream_t st) {
+  const int C = l.W * l.H;
+  cudaError_t err = cudaMemsetAsync(l.hits, 0, (size_t)C * sizeof(int), st);
+  if (err != cudaSuccess) return err;
+  field_origin<<<1, 1, 0, st>>>(l.poses, l.wmask, l.S, l.range_max,
+                                l.origin);
+  if (l.S * l.P > 0)
+    field_hits<<<blocks(l.S * l.P, kThreads), kThreads, 0, st>>>(
+        l.poses, l.points, l.pmask, l.wmask, l.S, l.P, l.origin, l.cell,
+        l.W, l.H, l.hits);
+  field_blur<int><<<blocks(C, kThreads), kThreads, 0, st>>>(
+      l.hits, l.taps, l.W, l.H, false, l.tmp);
+  field_blur<float><<<blocks(C, kThreads), kThreads, 0, st>>>(
+      l.tmp, l.taps, l.W, l.H, true, l.field);
+  field_peak<<<1, kPeakThreads, 0, st>>>(l.field, C, l.peak);
+  field_scale<<<blocks(C, kThreads), kThreads, 0, st>>>(l.field, C, l.peak);
+  return cudaGetLastError();
+}
+
+// The cluster form's plan is launchable: n, h and threads consistent with
+// the shape, the stripes within the card's opt-in shared memory.
+bool field_plan_ok(const FieldLaunch& l, int optin) {
+  return l.n >= 1 && l.n <= kMaxCluster && l.h >= 1 &&
+         (long long)l.h * l.n >= l.H && (long long)l.h * (l.n - 1) < l.H &&
+         l.threads >= 32 && l.threads <= kFieldThreads &&
+         l.threads % 32 == 0 &&
+         (long long)l.smem >=
+             8ll * (l.h + 2 * kHalo) * l.W + 16ll * l.S +
+                 4ll * ((l.S + 3) / 4 * 4) &&
+         l.smem <= optin;
+}
+
 }  // namespace
 
-// poses [S,3] f32, points [S,P,2] f32, pmask [S,P] u8, wmask [S] u8, taps
-// [7] f32; scratch hits [H*W] i32, tmp [H*W] f32, peak [1] f32 -> origin
-// [2] f32, field [H*W] f32.
-NDT2D_API int ndt2d_correlative_field(
-    const void* poses, const void* points, const void* pmask,
-    const void* wmask, int S, int P, float range_max, float cell, int W,
-    int H, const void* taps, void* hits, void* tmp, void* peak, void* origin,
-    void* field, void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int C = W * H;
-  const float* fposes = static_cast<const float*>(poses);
-  const uint8_t* fwmask = static_cast<const uint8_t*>(wmask);
-  float* forigin = static_cast<float*>(origin);
-  cudaError_t err = cudaMemsetAsync(hits, 0, (size_t)C * sizeof(int), st);
+// sizeof(FieldLaunch), for the wrapper's check of its mirror.
+NDT2D_API int ndt2d_correlative_field_launch_size() {
+  return (int)sizeof(FieldLaunch);
+}
+
+// Readies the cluster form for plans of up to `smem` dynamic bytes (the
+// kernel's opt-in shared memory, clusters past 8 CTAs) and reports in
+// *clusters how many clusters of the launch block's plan the card holds at
+// once (0: it cannot be launched).
+NDT2D_API int ndt2d_correlative_field_setup(const void* launch,
+                                            int* clusters) {
+  const FieldLaunch& l = *static_cast<const FieldLaunch*>(launch);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-  field_origin<<<1, 1, 0, st>>>(fposes, fwmask, S, range_max, forigin);
-  if (S * P > 0)
-    field_hits<<<blocks(S * P, kThreads), kThreads, 0, st>>>(
-        fposes, static_cast<const float*>(points),
-        static_cast<const uint8_t*>(pmask), fwmask, S, P, forigin, cell, W,
-        H, static_cast<int*>(hits));
-  field_blur<int><<<blocks(C, kThreads), kThreads, 0, st>>>(
-      static_cast<const int*>(hits), static_cast<const float*>(taps), W, H,
-      false, static_cast<float*>(tmp));
-  field_blur<float><<<blocks(C, kThreads), kThreads, 0, st>>>(
-      static_cast<const float*>(tmp), static_cast<const float*>(taps), W, H,
-      true, static_cast<float*>(field));
-  field_peak<<<1, kPeakThreads, 0, st>>>(static_cast<const float*>(field), C,
-                                         static_cast<float*>(peak));
-  field_scale<<<blocks(C, kThreads), kThreads, 0, st>>>(
-      static_cast<float*>(field), C, static_cast<const float*>(peak));
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, field_cluster);
+  if (err != cudaSuccess) return (int)err;
+  if (!field_plan_ok(l, optin - (int)fa.sharedSizeBytes))
+    return (int)cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(field_cluster,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin - (int)fa.sharedSizeBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        field_cluster, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  field_config(l, nullptr, &cfg, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, field_cluster, &cfg);
+}
+
+// One field build from its launch block (FieldLaunch): poses [S,3] f32,
+// points [S,P,2] f32 (8-byte aligned), pmask [S,P] u8, wmask [S] u8, taps
+// [7] f32 -> origin [2] f32, field [H*W] f32.  n = 0: the seven-step form,
+// with its scratch; else one cluster launch, after
+// ndt2d_correlative_field_setup has readied its plan.
+NDT2D_API int ndt2d_correlative_field_planned(const void* launch,
+                                              void* stream) {
+  const FieldLaunch& l = *static_cast<const FieldLaunch*>(launch);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (l.n == 0) return (int)field_seven_steps(l, st);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  field_config(l, st, &cfg, &attr);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, field_cluster, l);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

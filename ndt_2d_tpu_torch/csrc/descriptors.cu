@@ -18,24 +18,39 @@
 // What bounds it on the card: bytes.  The table of S x P points is read
 // once (9 bytes a point) and S x (2 n_sectors + n_rings n_sectors + n_bins
 // + 1) floats are written; the arithmetic is one atan2, one sqrt and two
-// divisions a point.  Design: one block per scan.  Every thread bins its
-// points (p = thread, thread + 128, ...), keeps each point's sector and r
-// in shared memory and counts with shared-memory integer atomics, which
-// are exact in any order.  The range sum per sector is a float sum, so one
-// thread per sector then adds its sector's ranges in point order from 0:
-// no float atomics, and the twin adds in the same order.  Operands are
-// never negative, so the int casts truncate as floor does.
+// divisions a point.  Design: one block per scan, its warps owning
+// consecutive runs of its points.  The counts are shared-memory integer
+// atomics, exact in any order.  The range sum per sector is a float sum,
+// added in point order from +0 (the twin's order) with no thread walking
+// all P points: a stable counting sort of the masked points by sector.
+// Each warp bins its run 32 points at a time in order (one float2 load a
+// point); the lanes of one sector (a __match_any_sync group) take
+// consecutive ranks in lane order after the warp's earlier points of the
+// sector, kept beside r.  Warp c then sums the counts of sectors [32 c,
+// 32 c + 32) over the warps, gives each warp its base in the sector and
+// scans the counts into the runs' starts; every thread places r at its
+// warp's base + its rank, and one thread a sector adds its contiguous
+// run.  A sector's chain is its own count of adds, not P.  No
+// float atomics.  Operands are never negative, so the int casts truncate
+// as floor does.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kAhead = 4;  // rounds of a warp's points loaded together
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kTwoPi = 6.28318530717958647692f;
 
-// Grid (S): scan s = blockIdx.x.  Dynamic shared memory: P floats (r), P
-// int16 (sector, -1 for a masked point), then the integer counters.
-__global__ void __launch_bounds__(kThreads) bin_scans(
+// Grid (S): scan s = blockIdx.x, kWarps warps; warp w owns points [w Q,
+// w Q + Q), Q = the points rounded up to 32 kWarps, over kWarps.  Dynamic
+// shared memory: P floats r, P floats sorted, the integer counters
+// (sectors, ring x sector, range bins), kWarps x n_sectors warp counts,
+// kWarps x n_sectors warp bases, n_sectors run starts, then P int16
+// sectors (-1 for a masked point) and P int16 ranks within the warp's
+// points of the sector.
+template <int kWarps>
+__global__ void __launch_bounds__(kWarps * 32) bin_scans(
     const float* __restrict__ points, const uint8_t* __restrict__ mask,
     int P, float range_max, int n_sectors, int n_rings, int n_bins,
     float* __restrict__ sector_count, float* __restrict__ sector_range,
@@ -43,59 +58,158 @@ __global__ void __launch_bounds__(kThreads) bin_scans(
     float* __restrict__ total) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* rs = reinterpret_cast<float*>(smem);
-  int* counts = reinterpret_cast<int*>(rs + P);
-  short* secs = reinterpret_cast<short*>(counts + n_sectors +
-                                         n_rings * n_sectors + n_bins + 1);
-  int* c_sec = counts;
+  float* sorted = rs + P;
+  int* c_sec = reinterpret_cast<int*>(sorted + P);
   int* c_ring = c_sec + n_sectors;
   int* c_hist = c_ring + n_rings * n_sectors;
-  int* c_total = c_hist + n_bins;
-  const int n_counts = n_sectors + n_rings * n_sectors + n_bins + 1;
+  int* wcount = c_hist + n_bins;           // [kWarps, n_sectors]
+  int* wbase = wcount + kWarps * n_sectors;  // [kWarps, n_sectors]
+  int* start = wbase + kWarps * n_sectors;   // [n_sectors]
+  short* secs = reinterpret_cast<short*>(start + n_sectors);
+  short* rank = secs + P;
 
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int Q = ((P + 32 * kWarps - 1) / (32 * kWarps)) * 32;
   const size_t s = blockIdx.x;
-  points += s * P * 2;
+  const float2* pts = reinterpret_cast<const float2*>(points) + s * P;
   mask += s * P;
-  for (int i = threadIdx.x; i < n_counts; i += blockDim.x) counts[i] = 0;
-  __syncthreads();
-  for (int p = threadIdx.x; p < P; p += blockDim.x) {
-    const float x = points[2 * p], y = points[2 * p + 1];
-    const float r = sqrtf(x * x + y * y);
-    const float ang = atan2f(y, x);
-    const int sec = ndt2d::clampi(
-        (int)((ang + kPi) / kTwoPi * (float)n_sectors), 0, n_sectors - 1);
-    const int ring = ndt2d::clampi((int)(r / range_max * (float)n_rings), 0,
-                                   n_rings - 1);
-    const int b = ndt2d::clampi((int)(r / range_max * (float)n_bins), 0,
-                                n_bins - 1);
-    rs[p] = r;
-    if (mask[p]) {
-      secs[p] = (short)sec;
-      atomicAdd(&c_sec[sec], 1);
-      atomicAdd(&c_ring[ring * n_sectors + sec], 1);
-      atomicAdd(&c_hist[b], 1);
-      atomicAdd(c_total, 1);
-    } else {
-      secs[p] = -1;
+  // A warp's points, kAhead rounds of 32 at a time (the first rounds'
+  // loads in flight across the counters' zeroing).
+  float2 xy[kAhead];
+  bool keep[kAhead];
+  const auto load = [&](int j0) {
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int p = w * Q + j0 + 32 * u + lane;
+      const bool in = j0 + 32 * u < Q && p < P;
+      xy[u] = in ? pts[p] : make_float2(0.f, 0.f);
+      keep[u] = in && mask[p];
     }
+  };
+  load(0);
+  for (int i = t; i < n_rings * n_sectors + n_bins + kWarps * n_sectors;
+       i += kWarps * 32)
+    c_ring[i] = 0;
+  __syncthreads();
+  // Bin, 32 points of the warp's run at a time in order, kAhead rounds
+  // together: each masked point's r, sector and counts for all of them,
+  // then round by round its rank among the warp's points of its sector (a
+  // __match_any_sync group's lanes in lane order after the earlier ones).
+  int* own = wcount + w * n_sectors;
+  for (int j0 = 0; j0 < Q; j0 += 32 * kAhead) {
+    if (j0 > 0) load(j0);
+    int sec[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      sec[u] = -1;
+      if (j0 + 32 * u >= Q) break;
+      const int p = w * Q + j0 + 32 * u + lane;
+      if (p >= P) continue;
+      if (keep[u]) {
+        const float x = xy[u].x, y = xy[u].y;
+        const float r = sqrtf(x * x + y * y);
+        const float ang = atan2f(y, x);
+        rs[p] = r;
+        sec[u] = ndt2d::clampi((int)((ang + kPi) / kTwoPi * (float)n_sectors),
+                               0, n_sectors - 1);
+        const int ring = ndt2d::clampi((int)(r / range_max * (float)n_rings),
+                                       0, n_rings - 1);
+        const int b = ndt2d::clampi((int)(r / range_max * (float)n_bins), 0,
+                                    n_bins - 1);
+        atomicAdd(&c_ring[ring * n_sectors + sec[u]], 1);
+        atomicAdd(&c_hist[b], 1);
+      }
+      secs[p] = (short)sec[u];
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      if (j0 + 32 * u >= Q) break;
+      const int p = w * Q + j0 + 32 * u + lane;
+      const unsigned group = __match_any_sync(0xffffffffu, sec[u]);
+      if (sec[u] >= 0)
+        rank[p] = (short)(own[sec[u]] + __popc(group & below));
+      __syncwarp();
+      if (sec[u] >= 0 && (group & below) == 0) own[sec[u]] += __popc(group);
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+  // Warp c takes sectors [32 c, 32 c + 32): each sector's count over the
+  // warps and each warp's base in it (the warps before it), the counts of
+  // the sectors before the chunk (its carry), then the run starts by an
+  // exclusive scan; the last chunk's warp writes the scan's total.
+  const int chunks = (n_sectors + 31) / 32;
+  for (int c = w; c < chunks; c += kWarps) {
+    int carry = 0;
+    for (int a = lane; a < 32 * c; a += 32)
+#pragma unroll
+      for (int v = 0; v < kWarps; ++v) carry += wcount[v * n_sectors + a];
+    for (int off = 16; off > 0; off >>= 1)
+      carry += __shfl_xor_sync(0xffffffffu, carry, off);
+    const int a = 32 * c + lane;
+    int n[kWarps];
+#pragma unroll
+    for (int v = 0; v < kWarps; ++v)
+      n[v] = a < n_sectors ? wcount[v * n_sectors + a] : 0;
+    int cnt = 0;
+#pragma unroll
+    for (int v = 0; v < kWarps; ++v) cnt += n[v];
+    int inc = cnt;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, inc, off);
+      if (lane >= off) inc += u;
+    }
+    const int first = carry + inc - cnt;
+    if (a < n_sectors) {
+      c_sec[a] = cnt;
+      start[a] = first;
+      int b = first;
+#pragma unroll
+      for (int v = 0; v < kWarps; ++v) {
+        wbase[v * n_sectors + a] = b;
+        b += n[v];
+      }
+    }
+    if (c == chunks - 1 && lane == 31) total[s] = (float)(carry + inc);
+  }
+  __syncthreads();
+  // Place each masked point's r at its warp's base in its sector + its
+  // rank (each warp its own run).
+  const int* base = wbase + w * n_sectors;
+  for (int j = lane; j < Q; j += 32) {
+    const int p = w * Q + j;
+    if (p >= P) break;
+    const int sec = secs[p];
+    if (sec >= 0) sorted[base[sec] + rank[p]] = rs[p];
   }
   __syncthreads();
   sector_count += s * n_sectors;
   sector_range += s * n_sectors;
   ring_count += s * n_rings * n_sectors;
   hist += s * n_bins;
-  // The range sum of each sector, its points in order from 0.
-  for (int a = threadIdx.x; a < n_sectors; a += blockDim.x) {
+  // The range sum of each sector: its run of the sorted ranges, in point
+  // order from 0.
+  for (int a = t; a < n_sectors; a += kWarps * 32) {
+    const float* run = sorted + start[a];
+    const int n = c_sec[a];
     float acc = 0.f;
-    for (int p = 0; p < P; ++p)
-      if (secs[p] == a) acc += rs[p];
+    int i = 0;
+    for (; i + 4 <= n; i += 4) {  // four loads in flight, adds in order
+      const float r0 = run[i], r1 = run[i + 1], r2 = run[i + 2],
+                  r3 = run[i + 3];
+      acc += r0;
+      acc += r1;
+      acc += r2;
+      acc += r3;
+    }
+    for (; i < n; ++i) acc += run[i];
     sector_range[a] = acc;
-    sector_count[a] = (float)c_sec[a];
+    sector_count[a] = (float)n;
   }
-  for (int i = threadIdx.x; i < n_rings * n_sectors; i += blockDim.x)
+  for (int i = t; i < n_rings * n_sectors; i += kWarps * 32)
     ring_count[i] = (float)c_ring[i];
-  for (int i = threadIdx.x; i < n_bins; i += blockDim.x)
-    hist[i] = (float)c_hist[i];
-  if (threadIdx.x == 0) total[s] = (float)c_total[0];
+  for (int i = t; i < n_bins; i += kWarps * 32) hist[i] = (float)c_hist[i];
 }
 
 // The descriptor of scan s = blockIdx.x from its bin tables (:92-127 of the
@@ -165,6 +279,15 @@ __global__ void __launch_bounds__(kThreads) scan_spectra(
     out[e] = points > 0.f ? d[e] / norm : 0.f;
 }
 
+// Dynamic shared bytes of a bins block of `warps` warps.
+size_t bins_shared(int P, int n_sectors, int n_rings, int n_bins,
+                   int warps) {
+  const int n_counts = n_sectors + n_rings * n_sectors + n_bins;
+  return (size_t)P * (2 * sizeof(float) + 2 * sizeof(short)) +
+         ((size_t)n_counts + (size_t)(2 * warps + 1) * n_sectors) *
+             sizeof(int);
+}
+
 }  // namespace
 
 // The bin tables of ndt2d_descriptor_bins, cos_t and sin_t [n_sectors,
@@ -190,22 +313,30 @@ NDT2D_API int ndt2d_descriptor_spectra(
   return (int)cudaGetLastError();
 }
 
-// points [S,P,2] f32, mask [S,P] u8; outputs sector_count [S,n_sectors],
-// sector_range [S,n_sectors], ring_count [S,n_rings*n_sectors], hist
-// [S,n_bins], total [S], all f32.  n_sectors < 32768.
+// points [S,P,2] f32 (8-byte aligned), mask [S,P] u8; outputs sector_count
+// [S,n_sectors], sector_range [S,n_sectors], ring_count
+// [S,n_rings*n_sectors], hist [S,n_bins], total [S], all f32.  threads:
+// 128 or 256 (kernels/descriptors.py::bins_plan).  n_sectors < 32768; a
+// block past the default 48 KB of shared memory opts in to more (the
+// card's limit, 227 KB on the H100, refuses the launch past it).
 NDT2D_API int ndt2d_descriptor_bins(
     const void* points, const void* mask, int S, int P, float range_max,
-    int n_sectors, int n_rings, int n_bins, void* sector_count,
+    int n_sectors, int n_rings, int n_bins, int threads, void* sector_count,
     void* sector_range, void* ring_count, void* hist, void* total,
     void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int n_counts = n_sectors + n_rings * n_sectors + n_bins + 1;
-  const size_t shared = (size_t)P * sizeof(float) +
-                        (size_t)n_counts * sizeof(int) +
-                        (size_t)P * sizeof(short);
-  if (shared > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const size_t shared =
+      bins_shared(P, n_sectors, n_rings, n_bins, threads / 32);
+  if (n_sectors >= 32768 || (threads != 128 && threads != 256))
+    return (int)cudaErrorInvalidValue;
+  const auto kernel = threads == 128 ? &bin_scans<4> : &bin_scans<8>;
+  if (shared > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+    if (err != cudaSuccess) return (int)err;
+  }
   if (S == 0) return 0;
-  bin_scans<<<S, kThreads, shared, st>>>(
+  kernel<<<S, threads, shared, st>>>(
       static_cast<const float*>(points), static_cast<const uint8_t*>(mask),
       P, range_max, n_sectors, n_rings, n_bins,
       static_cast<float*>(sector_count), static_cast<float*>(sector_range),

@@ -5,6 +5,9 @@ Replaces ``ndt_2d_tpu/matching/correlative.py``'s ``build_field`` (:38),
 ``match_scan_field`` (:76) and ``score_points_field`` (:108).  The field is
 a blurred hit count of the window's points, normalized to a peak of 1; a
 candidate pose scores minus the field values under its subsampled beams.
+The field is one launch of a thread-block cluster whose CTAs each hold a
+stripe of rows in shared memory (``field_plan``; the seven-step form
+through device memory where the stripes do not fit 16 CTAs).
 
 The lattice search has K6's interface (``kernels/candidate_gather.py``):
 ``match_rows`` over R rows, ``match`` at R = 1, both returning the [R, 13]
@@ -26,6 +29,7 @@ import ctypes
 import dataclasses
 import functools
 import math
+from typing import Optional
 
 import torch
 
@@ -115,40 +119,203 @@ def build_field_twin(poses, points, point_mask, window_mask,
     return f / peak, origin
 
 
+@dataclasses.dataclass(frozen=True)
+class FieldPlan:
+    """How one grid shape's field is built (``field_plan``): ``n`` CTAs of
+    ``threads`` in one thread-block cluster, CTA k holding rows [k h, k h +
+    h) of the [height, width] plane in ``smem`` dynamic bytes of shared
+    memory (with the RADIUS rows above and below); ``n`` = 0 is the
+    seven-step form (a memset and six launches through device memory)."""
+    width: int
+    height: int
+    n: int
+    h: int
+    threads: int
+    smem: int
+
+    @property
+    def cluster(self) -> bool:
+        return self.n > 0
+
+
+# The cluster form's CTA (kFieldThreads of csrc/correlative.cu), the
+# cluster sizes Hopper launches (8 portable, 16 with the non-portable
+# attribute), and the dynamic shared memory a CTA may take: the H100's 227
+# KB opt-in, less 1 KB for the kernel's static part.  The plan takes the
+# largest cluster: every CTA transforms every window point whatever n is,
+# and more CTAs share the blurs (PERF.md: the device time by n).
+FIELD_THREADS = 1024
+FIELD_PORTABLE = 8
+FIELD_POINTS = 1 << 23  # a cell's count converts exactly below 2^23
+FIELD_CLUSTER_MAX = 16
+FIELD_SHARED = 232448 - 1024
+
+
+def field_shared(width: int, h: int, scans: int = 0) -> int:
+    """Dynamic shared bytes of a stripe of ``h`` rows: each window scan's
+    pose, cos and sin (16 bytes) and flag (4, the flags padded to 16
+    bytes), then the int hit window and the x-blurred float window, the
+    stripe and the RADIUS rows above and below it, 4 bytes a cell each."""
+    return 16 * scans + 16 * -(-scans // 4) + 8 * (h + 2 * RADIUS) * width
+
+
+def field_stripes(width: int, height: int, n: int,
+                  scans: int = 0) -> Optional[FieldPlan]:
+    """The cluster form of ``n`` CTAs: stripes of h = ceil(height / n)
+    rows, n then cut to ceil(height / h) so that no CTA is empty; None
+    where the stripes do not fit ``FIELD_SHARED`` or n is outside 1 ..
+    ``FIELD_CLUSTER_MAX``."""
+    if not 1 <= n <= FIELD_CLUSTER_MAX:
+        return None
+    h = -(-height // n)
+    smem = field_shared(width, h, scans)
+    if smem > FIELD_SHARED:
+        return None
+    return FieldPlan(width, height, -(-height // h), h, FIELD_THREADS, smem)
+
+
+def field_plan(width: int, height: int, sms: int = 132, scans: int = 0,
+               points: int = 0) -> FieldPlan:
+    """The build of a [height, width] field from a window of ``scans``
+    scans and ``points`` points in all: one cluster of min(16, sms,
+    height) CTAs (``field_stripes``); the seven-step form where those
+    stripes do not fit or the window holds ``FIELD_POINTS`` points or
+    more."""
+    if width < 1 or height < 1:
+        raise ValueError(f"field of {width} x {height} cells")
+    plan = (field_stripes(width, height,
+                          min(FIELD_CLUSTER_MAX, sms, height), scans)
+            if points < FIELD_POINTS else None)
+    return plan or FieldPlan(width, height, 0, 0, 0, 0)
+
+
+class _FieldLaunch(ctypes.Structure):
+    """One field build (``csrc/correlative.cu::FieldLaunch``): the tensors'
+    pointers, the shape and the plan."""
+    _fields_ = ([(f, ctypes.c_void_p) for f in
+                 ("poses", "points", "pmask", "wmask", "taps", "origin",
+                  "field", "hits", "tmp", "peak")]
+                + [(f, ctypes.c_int) for f in
+                   ("S", "P", "W", "H", "n", "h", "threads", "smem")]
+                + [("range_max", ctypes.c_float), ("cell", ctypes.c_float)])
+
+
+class FieldLauncher:
+    """One build shape's launch: its ``_FieldLaunch`` block packed once
+    (the plan, the shape, the taps), the C function bound once and the
+    stream reader.  ``run`` checks the window's tensors in one pass,
+    allocates origin and field (callers keep both: the matcher across
+    matches, a comparison two builds), in the seven-step form its scratch
+    too, writes the pointers and makes one ctypes call.  The cluster
+    form's plan is readied on the card (``clusters``) at the first run."""
+
+    def __init__(self, plan: FieldPlan, S: int, P: int, range_max: float,
+                 cell_size: float, dev):
+        self.plan, self.device = plan, dev
+        self.taps = blur_taps(dev)  # kept: the block holds its address
+        self.launch = _FieldLaunch(
+            taps=self.taps.data_ptr(), S=S, P=P, W=plan.width,
+            H=plan.height, n=plan.n, h=plan.h, threads=plan.threads,
+            smem=plan.smem, range_max=range_max, cell=cell_size)
+        self.address = ctypes.addressof(self.launch)
+        f32 = torch.float32
+        self.expect = (("poses", f32, (S, 3)), ("points", f32, (S, P, 2)),
+                       ("point_mask", torch.bool, (S, P)),
+                       ("window_mask", torch.bool, (S,)))
+        self._fn = None
+        self._stream = None
+
+    def clusters(self) -> int:
+        """Readies the cluster form's kernel for this plan and returns how
+        many such clusters the card holds at once (0: none)."""
+        size = _build.function("ndt2d_correlative_field_launch_size", [])()
+        if size != ctypes.sizeof(_FieldLaunch):
+            raise RuntimeError(f"FieldLaunch is {size} bytes in C, "
+                               f"{ctypes.sizeof(_FieldLaunch)} here")
+        count = ctypes.c_int(0)
+        _build.check(_build.function(
+            "ndt2d_correlative_field_setup",
+            [ctypes.c_void_p, ctypes.c_void_p])(
+                self.address, ctypes.addressof(count)),
+            "correlative_field setup")
+        return count.value
+
+    def run(self, poses, points, point_mask, window_mask):
+        global field_launches
+        _build.require_all(self.device,
+                           (poses, points, point_mask, window_mask),
+                           self.expect)
+        if points.data_ptr() % 8:
+            raise ValueError("points: must start 8-byte aligned")
+        if self.plan.cluster and points.shape[0] * points.shape[1] \
+                >= FIELD_POINTS:
+            raise ValueError(f"{tuple(points.shape[:2])} points: the "
+                             "cluster form counts fewer than 2^23")
+        if self._fn is None:
+            if self.plan.cluster and self.clusters() < 1:
+                raise RuntimeError(f"{self.plan}: the card holds no such "
+                                   "cluster")
+            self._fn = _build.function("ndt2d_correlative_field_planned",
+                                       [ctypes.c_void_p, ctypes.c_void_p])
+            self._stream = _build.stream_reader(self.device)
+        L = self.launch
+        origin = poses.new_empty(2)
+        field = poses.new_empty(self.plan.height, self.plan.width)
+        L.poses, L.points = poses.data_ptr(), points.data_ptr()
+        L.pmask, L.wmask = point_mask.data_ptr(), window_mask.data_ptr()
+        L.origin, L.field = origin.data_ptr(), field.data_ptr()
+        if not self.plan.cluster:
+            C = self.plan.width * self.plan.height
+            hits = torch.empty(C, dtype=torch.int32, device=self.device)
+            tmp, peak = poses.new_empty(C), poses.new_empty(1)
+            L.hits, L.tmp, L.peak = (hits.data_ptr(), tmp.data_ptr(),
+                                     peak.data_ptr())
+        _build.check(self._fn(self.address, self._stream()),
+                     "correlative_field")
+        field_launches += 1
+        return field, origin
+
+
+_FIELD_LAUNCHERS: dict = {}
+
+
+def field_launcher(S: int, P: int, range_max: float, cell_size: float,
+                   width: int, height: int, dev) -> FieldLauncher:
+    """The launcher of this build shape, made at its first build: the plan
+    is ``field_plan``'s on the card's SMs, with the portable cluster of
+    ``FIELD_PORTABLE`` (or the seven-step form) where the card holds no
+    larger one."""
+    key = (S, P, float(range_max), float(cell_size), width, height, dev)
+    launcher = _FIELD_LAUNCHERS.get(key)
+    if launcher is None:
+        args = (S, P, float(range_max), float(cell_size), dev)
+        sms = _build.sm_count(dev.index if dev.index is not None
+                              else torch.cuda.current_device())
+        launcher = FieldLauncher(field_plan(width, height, sms, S, S * P),
+                                 *args)
+        if launcher.plan.n > FIELD_PORTABLE and launcher.clusters() < 1:
+            plan = field_stripes(width, height,
+                                 min(FIELD_PORTABLE, sms, height), S)
+            launcher = FieldLauncher(
+                plan or FieldPlan(width, height, 0, 0, 0, 0), *args)
+        _FIELD_LAUNCHERS[key] = launcher
+    return launcher
+
+
 def build_field(poses, points, point_mask, window_mask, range_max: float,
                 cell_size: float, width: int, height: int):
     """The window's blurred, normalized hit field and its origin.  poses
     [S, 3] f32, points [S, P, 2] f32, point_mask [S, P] bool, window_mask
     [S] bool.  Returns (field [H, W] f32, origin [2] f32).  CPU tensors run
-    the twin; CUDA tensors launch the kernel."""
-    global field_launches
+    the twin; CUDA tensors launch the kernel in ``field_launcher``'s
+    form."""
     if poses.device.type == "cpu":
         return build_field_twin(poses, points, point_mask, window_mask,
                                 range_max, cell_size, width, height)
-    dev = poses.device
     S, P = points.shape[0], points.shape[1]
-    _build.require(poses, "poses", torch.float32, (S, 3), dev)
-    _build.require(points, "points", torch.float32, (S, P, 2), dev)
-    _build.require(point_mask, "point_mask", torch.bool, (S, P), dev)
-    _build.require(window_mask, "window_mask", torch.bool, (S,), dev)
-    C = width * height
-    hits = torch.empty(C, dtype=torch.int32, device=dev)
-    tmp = torch.empty(C, dtype=torch.float32, device=dev)
-    peak = torch.empty(1, dtype=torch.float32, device=dev)
-    origin = torch.empty(2, dtype=torch.float32, device=dev)
-    field = torch.empty(height, width, dtype=torch.float32, device=dev)
-    p = _build.ptr
-    err = _build.function(
-        "ndt2d_correlative_field",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7)(
-        p(poses), p(points), p(point_mask), p(window_mask), S, P,
-        float(range_max), float(cell_size), width, height,
-        p(blur_taps(dev)), p(hits), p(tmp), p(peak), p(origin), p(field),
-        _build.stream_ptr(dev))
-    _build.check(err, "correlative_field")
-    field_launches += 1
-    return field, origin
+    return field_launcher(S, P, range_max, cell_size, width, height,
+                          poses.device).run(poses, points, point_mask,
+                                            window_mask)
 
 
 def lattice_scores(config, field, origin, spts, smask, pose, dths, dls):

@@ -14,7 +14,9 @@ range histogram, and the joint L2 norm.
 The counts are exact in any order.  Every float sum (a sector's ranges over
 its points, a DFT term over the sectors, the histogram's mean, the norm)
 adds in index order from 0, in the kernels and in the twins, so on the same
-CUDA inputs they agree bitwise.
+CUDA inputs they agree bitwise.  The kernel forms a sector's range sum
+from a stable counting sort of the scan's points by sector (``bins_plan``
+picks its block), so no thread walks every point.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ launches = 0           # bin_points
 spectra_launches = 0
 
 _ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_float]
-         + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6)
+         + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6)
 _SPECTRA_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_float]
                  + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
 
@@ -89,11 +91,51 @@ def bin_twin(points, point_mask, range_max: float, n_sectors: int = 64,
                 point_mask.sum(dim=1).to(torch.float32))
 
 
+class BinsPlan(NamedTuple):
+    threads: int   # a block's threads, one block a scan: 128 or 256
+    smem: int      # its dynamic shared bytes
+
+
+# A bins block's shapes (the kernel's instantiations), the most threads an
+# SM runs at once, and the shared memory a block may take: the H100's 227
+# KB opt-in (the entry opts a block past the default 48 KB in; a card with
+# less refuses the launch).  It holds scans of up to ~18,900 points.
+BIN_THREADS = (128, 256)
+SM_THREADS = 2048
+BIN_SHARED = 232448
+
+
+def bins_shared(P: int, n_sectors: int, n_rings: int, n_bins: int,
+                threads: int) -> int:
+    """Dynamic shared bytes of a bins block (``bins_shared`` of
+    csrc/descriptors.cu): r and the sorted ranges (4 bytes each), the
+    sector and the rank (2 each) of every point, the integer counters, a
+    count and a base per (warp, sector) and a run start per sector."""
+    n_counts = n_sectors * (1 + n_rings) + n_bins
+    return 12 * P + 4 * (n_counts + (threads // 16 + 1) * n_sectors)
+
+
+def bins_plan(S: int, P: int, n_sectors: int = 64, n_rings: int = 4,
+              n_bins: int = 32, sms: int = 132) -> BinsPlan:
+    """The bins launch of S scans of P points: blocks of 256 threads where
+    every block of the launch is resident at once (S <= sms x 2048 / 256),
+    else of 128; raises where a block's shared memory passes
+    ``BIN_SHARED``."""
+    threads = 256 if S * 256 <= sms * SM_THREADS else 128
+    smem = bins_shared(P, n_sectors, n_rings, n_bins, threads)
+    if (min(n_sectors, n_rings, n_bins) < 1 or n_sectors >= 32768
+            or smem > BIN_SHARED):
+        raise ValueError(f"{P} points x {n_sectors} sectors x {n_rings} "
+                         f"rings, {n_bins} bins is outside the kernel's "
+                         "range")
+    return BinsPlan(threads, smem)
+
+
 def bin_points(points, point_mask, range_max: float, n_sectors: int = 64,
                n_rings: int = 4, n_bins: int = 32) -> Bins:
     """K10 over S scans in one launch: points [S, P, 2] f32 robot frame,
-    point_mask [S, P] bool.  CPU tensors run the twin; CUDA tensors launch
-    the kernel."""
+    point_mask [S, P] bool, blocks as ``bins_plan`` says.  CPU tensors run
+    the twin; CUDA tensors launch the kernel."""
     global launches
     if points.device.type == "cpu":
         return bin_twin(points, point_mask, range_max, n_sectors, n_rings,
@@ -102,12 +144,10 @@ def bin_points(points, point_mask, range_max: float, n_sectors: int = 64,
     S, P = points.shape[0], points.shape[1]
     _build.require(points, "points", torch.float32, (S, P, 2), dev)
     _build.require(point_mask, "point_mask", torch.bool, (S, P), dev)
-    # One block's shared memory: r and sector per point, the counters.
-    shared = 6 * P + 4 * (n_sectors * (1 + n_rings) + n_bins + 1)
-    if min(n_sectors, n_rings, n_bins) < 1 or shared > 48 * 1024:
-        raise ValueError(f"{P} points x {n_sectors} sectors x {n_rings} "
-                         f"rings, {n_bins} bins is outside the kernel's "
-                         "range")
+    if points.data_ptr() % 8:
+        raise ValueError("points: must start 8-byte aligned")
+    plan = bins_plan(S, P, n_sectors, n_rings, n_bins, _build.sm_count(
+        dev.index if dev.index is not None else torch.cuda.current_device()))
 
     def empty(*shape):
         return torch.empty(*shape, dtype=torch.float32, device=dev)
@@ -116,7 +156,8 @@ def bin_points(points, point_mask, range_max: float, n_sectors: int = 64,
     p = _build.ptr
     err = _build.function("ndt2d_descriptor_bins", _ARGS)(
         p(points), p(point_mask), S, P, float(range_max), n_sectors,
-        n_rings, n_bins, *[p(t) for t in out], _build.stream_ptr(dev))
+        n_rings, n_bins, plan.threads, *[p(t) for t in out],
+        _build.stream_ptr(dev))
     _build.check(err, "descriptor_bins")
     launches += 1
     return out
