@@ -49,6 +49,17 @@
                                                   # script copied in) and
                                                   # here: parent, change,
                                                   # change, parent
+    python3 chip_smoke.py --spectra-finalize-times DIR  # K10's spectra,
+                                  # K6's one-device search, K12's K6
+                                  # finalize, the merge-shape fold, KB3's
+                                  # reduction, K2's planned finalize, the
+                                  # split search's glue, K11's lattice
+                                  # (graph ms, cuda_ms, host us, device
+                                  # ops, output sha256) and the decisions
+                                  # of config 6, drift, the merge and
+                                  # [4r]'s winners, in DIR (an older git
+                                  # archive, this script copied in) and
+                                  # here: parent, change, change, parent
     python3 chip_smoke.py --optimize-times  # the mapper's optimize ms, 3
                                             # runs of the office recipe,
                                             # config 9 and drift, and LM
@@ -104,7 +115,11 @@ Phases (any failure exits non-zero):
     refuses (the wrapper raises, counts nothing);
     K10's bins at each block shape of its plan over 512 office slots with
     a scan of 512 points in one sector and an all-masked scan, bitwise the
-    twin; K10 over a 2048 x 512 point
+    twin; K10's spectra (a warp a scan) at every block shape of its plan
+    (1-8 scans a block, the DFT tables staged or not) over 300 office
+    scans with an empty and a one-sector scan, the plan's at 1, 5, 512 and
+    2048 scans, and at 62 / 128 / 256 sectors, 6 rings and 40 bins,
+    bitwise the twin; K10 over a 2048 x 512 point
     table of the office bag: its bin tables, descriptors and all-pairs
     top-k bitwise against the twins, rows of ``search_all_pairs`` bitwise
     equal to ``search_dense``, scores against a matrix product, and the
@@ -146,7 +161,12 @@ Phases (any failure exits non-zero):
     shapes; the fused step's ``finalize_append`` (the finalize with KB4's
     append in its launch) at config 2, 64 appends into a chain of slots,
     output rows and state bitwise its twin's; K6's split search as K2's
-    over the 32 coarse rows; ``rank_sum`` at S = 2, 4 ranks of 3 x 50,000 and
+    over the 32 coarse rows, and its planned finalize (K2's launch at 7
+    partials an angle) on stacks of 1, 2, 3, 4 and 8 ranks with NaN in the
+    unread slots; K2's finalize launch over rows longer than a stage (the
+    merge's 126 x 7 partials, 512, 513 and 300 x 7, one buffer and split
+    stacks of 2 and 3), bitwise the twin, and with NaN lows the serial
+    scan's winner; ``rank_sum`` at S = 2, 4 ranks of 3 x 50,000 and
     9 x 50,000 floats (the district's gradient and block diagonal) and at
     3 x 450,001 on a misaligned view against its twin, beside
     ``torch.sum(x, 0)``, with its launch path's host cost piece by piece
@@ -155,7 +175,8 @@ Phases (any failure exits non-zero):
     map: KB1 (the stripe build) on every stripe of 2 and of 4, bitwise its
     twin and the dense K1 rows, KB2 (the stripe scores) over the 5000
     particles and the scan's world points, KB3 (a localization scan's
-    stripe field, then the reduction of two stripes' summed field) and KB4
+    stripe field, then the reduction of two stripes' summed field and
+    K6's fold of it) and KB4
     (the fused step's append into a 256-slot state; planned, 64 appends
     into a chain of slots), each bitwise against its twin; K1 at its
     sort's edges (every valid point of a 38,400-point
@@ -466,7 +487,7 @@ KERNELS = {
                            "ndt_2d_tpu/parallel/matcher.py:89"),
     "candidate_gather_partials": ("ndt_2d_tpu_torch/csrc/candidate_gather.cu",
                                   "ndt_2d_tpu/parallel/runtime.py:127"),
-    "candidate_gather_finalize": ("ndt_2d_tpu_torch/csrc/candidate_gather.cu",
+    "candidate_gather_finalize": ("ndt_2d_tpu_torch/csrc/candidate_scores.cu",
                                   "ndt_2d_tpu/parallel/runtime.py:131"),
     "rank_sum": ("ndt_2d_tpu_torch/csrc/shard_combine.cu",
                  "ndt_2d_tpu/parallel/solver.py:92"),
@@ -478,6 +499,8 @@ KERNELS = {
                      "ndt_2d_tpu/parallel/ndt_blocks.py:169"),
     "field_partials": ("ndt_2d_tpu_torch/csrc/candidate_gather.cu",
                        "ndt_2d_tpu/parallel/ndt_blocks.py:216"),
+    "field_fold": ("ndt_2d_tpu_torch/csrc/candidate_scores.cu",
+                   "ndt_2d_tpu/parallel/ndt_blocks.py:217"),
     "slam_append": ("ndt_2d_tpu_torch/csrc/slam_step.cu",
                     "ndt_2d_tpu/parallel/slam_step.py:71"),
     "candidate_finalize_append": ("ndt_2d_tpu_torch/csrc/candidate_scores.cu",
@@ -951,6 +974,7 @@ def reset_counts():
     for m in (candidate_scores, candidate_gather):
         m.partial_launches = m.finalize_launches = 0
     candidate_scores.finalize_append_launches = 0
+    candidate_scores.gather_finalize_launches = 0
     score_points.batch_launches = 0
     score_points.particle_launches = score_points.record_launches = 0
     descriptors.spectra_launches = 0
@@ -978,7 +1002,9 @@ def read_counts() -> dict:
            "candidate_partials": candidate_scores.partial_launches,
            "candidate_finalize": candidate_scores.finalize_launches,
            "candidate_gather_partials": candidate_gather.partial_launches,
-           "candidate_gather_finalize": candidate_gather.finalize_launches,
+           "candidate_gather_finalize":
+               candidate_scores.gather_finalize_launches,
+           "field_fold": candidate_gather.finalize_launches,
            "rank_sum": shard_combine.launches,
            "window_append": pose_chain.launches,
            "score_points_compose": score_points.composed_launches,
@@ -5244,7 +5270,8 @@ def check_descriptors(pts, msk, rmax, n_bins, n_valid, k, ex, what,
         names[1]: timed(
             max_abs_diff([(table, table_t)]), cuda_ms(spectra, 20),
             cuda_ms(spectra_twin, 1), nbytes(*a, cos_t, sin_t, table),
-            int(full.sum()) * (4 * 5 * 32 * 64 + 8 * B)),
+            int(full.sum()) * (4 * 5 * 32 * 64 + 8 * B),
+            graph_ms=(graph_ms(spectra, 20), None)),
         names[2]: timed(
             max_abs_diff([(torch.nan_to_num(sims, neginf=0.0),
                            torch.nan_to_num(sims_t, neginf=0.0))]),
@@ -5359,12 +5386,96 @@ def check_bins_shapes(pts, msk, dev):
           f"plan's")
 
 
+def spectra_arm(bins, warps: int, staged: int, rmax: float = 12.0,
+                shape=(64, 4, 32)):
+    """K10's spectra launch at a given block shape (``warps`` scans a
+    block, the tables ``staged`` in shared memory or not), the C entry
+    bound here (a tree without the plan has no such entry); returns a
+    callable that launches it into a new output."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import _build
+    from ndt_2d_tpu_torch.kernels import descriptors as k10
+    dev = bins.total.device
+    S = bins.total.shape[0]
+    n_sectors, n_rings, n_bins = shape
+    cos_t, sin_t = k10.dft_tables(n_sectors, dev)
+    fn = _build.function("ndt2d_descriptor_spectra", k10._SPECTRA_ARGS)
+    width = (1 + n_rings) * (n_sectors // 2) + n_bins
+
+    def run():
+        out = torch.empty(S, width, device=dev)
+        p = _build.ptr
+        _build.check(fn(*[p(t) for t in bins], p(cos_t), p(sin_t), S,
+                        float(rmax), n_sectors, n_rings, n_bins, warps,
+                        staged, p(out), _build.stream_ptr(dev)),
+                     "descriptor_spectra")
+        return out
+    return run
+
+
+SPECTRA_FORMS = ((1, 1), (2, 1), (4, 1), (8, 1), (8, 0))
+
+
+def check_spectra_shapes(pts, msk, dev):
+    """K10's spectra at every block shape the plan takes (1-8 scans a
+    block, the tables staged or read from global memory) over the office
+    table with an empty scan and a one-sector scan added, bitwise the
+    twin; the plan's own form at 1, 5, 512 and 2048 scans; then shapes off
+    the main path: 62 sectors (no 16-byte profile loads, a frequency past
+    lane 30 idle), 6 rings (two passes of chains), 40 bins (past one a
+    lane), 128 sectors (64 frequencies, two a lane; the tables unstaged
+    at 8 warps) and 256 (unstaged by the plan)."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import descriptors as k10
+    P = pts.shape[1]
+    one = torch.zeros(1, P, 2, device=dev)
+    one[0, :, 0] = torch.linspace(0.5, 11.5, P, device=dev)
+    one[0, :, 1] = 0.1 * one[0, :, 0]
+    p_ = torch.cat([pts[:300], one, pts[:1]]).contiguous()
+    m_ = torch.cat([msk[:300], torch.ones(1, P, dtype=torch.bool,
+                                          device=dev),
+                    torch.zeros(1, P, dtype=torch.bool, device=dev)])
+    bins = k10.bin_points(p_, m_, 12.0)
+    twin = k10.spectra_twin(bins, 12.0)
+    for warps, staged in SPECTRA_FORMS:
+        out = spectra_arm(bins, warps, staged)()
+        torch.cuda.synchronize()
+        require(torch.equal(out, twin), f"K10 spectra at {warps} warps a "
+                f"block, tables staged {staged}: differs from the twin")
+    require(float(twin[-1].abs().sum()) == 0.0, "K10 spectra: the empty "
+            "scan's descriptor is not zero")
+    for S in (1, 5, 512, TABLE_SCANS):
+        b = k10.bin_points(pts[:S].contiguous(), msk[:S].contiguous(), 12.0)
+        require(torch.equal(k10.spectra(b, 12.0), k10.spectra_twin(
+            b, 12.0)), f"K10 spectra of {S} scans differ from the twin")
+    shapes = ((62, 4, 32), (64, 6, 32), (64, 4, 40), (128, 4, 32),
+              (256, 4, 32))
+    for shape in shapes:
+        b = k10.bin_points(p_, m_, 12.0, *shape)
+        want = k10.spectra_twin(b, 12.0, *shape)
+        require(torch.equal(k10.spectra(b, 12.0, *shape), want),
+                f"K10 spectra at {shape} differ from the twin")
+        if shape[0] <= 128:
+            require(torch.equal(spectra_arm(b, 8, 0, 12.0, shape)(), want),
+                    f"K10 spectra at {shape}, tables unstaged, differ from "
+                    "the twin")
+    plans = {S: tuple(k10.spectra_plan(S)[:2]) for S in (512, TABLE_SCANS)}
+    print(f"[3] K10 spectra at block shapes (warps, staged) "
+          f"{list(SPECTRA_FORMS)} over {p_.shape[0]} scans with an empty and "
+          f"a one-sector scan, the plan's at 1, 5, 512 and {TABLE_SCANS} "
+          f"scans ({plans}) and sectors x rings x bins {list(shapes)}: "
+          f"bitwise the twin")
+
+
 def phase_k10(cfg, bag, dev):
     """K10 over the office bag's point table at a 2000-keyframe graph's
     padded capacity, then the search at an odd shape."""
     check_search_odd(dev)
     pts, msk = office_table(cfg, bag, dev)
     check_bins_shapes(pts, msk, dev)
+    check_spectra_shapes(pts, msk, dev)
     return check_descriptors(
         pts, msk, 12.0, cfg.descriptor_bins, len(bag),
         cfg.global_search_limit, cfg.rolling_depth + 1,
@@ -6977,32 +7088,38 @@ def check_split(kern, mc, rows, what, dev):
                   R * A * per * 12))
 
 
-def split_stack(mc, rows, dths, dls, S: int, dev):
+def split_stack(mc, rows, dths, dls, S: int, dev, kern=None):
     """K12's plan of ``rows`` (grid, tables, points, mask, counts, poses)
-    on a ``space`` line of S ranks, its stack built on one card as the
-    all-gather leaves it: rank s's partials launched into the send buffer's
-    head (NaN everywhere else), the buffer copied into stack row s."""
+    on a ``space`` line of S ranks for ``kern`` (K2 by default, or K6), its
+    stack built on one card as the all-gather leaves it: rank s's partials
+    launched into the send buffer's head (NaN everywhere else), the buffer
+    copied into stack row s."""
     import torch
 
     from ndt_2d_tpu_torch.kernels import candidate_scores as k2
     from ndt_2d_tpu_torch.parallel import matcher as pmatcher
     A = dths.shape[0]
+    extra = () if kern is None or kern is k2 else (
+        kern.blocks_per_angle(dls),)
+    kern = k2 if kern is None else kern
     plan = k2.split_plan(dev, S, rows[2].shape[0], A, dls.shape[0],
-                         isinstance(rows[4], torch.Tensor))
+                         isinstance(rows[4], torch.Tensor), *extra)
     plan.stack.fill_(math.nan)
     for s in range(S):
         a0, n = pmatcher.angle_block(A, S, s)
         plan.send.fill_(math.nan)
         if n:
-            k2.partial_rows(mc, *rows, dths, dls, a0, n, out=plan.head(n))
+            kern.partial_rows(mc, *rows, dths, dls, a0, n, out=plan.head(n))
         plan.stack[s].copy_(plan.send)
     return plan
 
 
-def check_split_plan(mc, rows, what, ref, dev):
-    """K12's planned finalize of K2 over ``rows``: stacks of S = 1-4
-    ranks' blocks built on the card with NaN in every slot the in-place
-    rule must not read, each finalized bitwise equal to its twin
+def check_split_plan(mc, rows, what, ref, dev, kern=None,
+                     shards=(1, 2, 3, 4)):
+    """K12's planned finalize of ``kern`` (K2 by default, or K6 at its
+    partials an angle) over ``rows``: stacks of S ranks' blocks (each of
+    ``shards``) built on the card with NaN in every slot the in-place rule
+    must not read, each finalized bitwise equal to its twin
     (``finalize_gathered_twin``) and to the one-launch search ``ref``; at
     S = 1 also read from the send buffer (a group of one); a block's
     partials launched into the send buffer bitwise the allocating launch's.
@@ -7012,11 +7129,13 @@ def check_split_plan(mc, rows, what, ref, dev):
     from ndt_2d_tpu_torch.kernels import candidate_scores as k2
     from ndt_2d_tpu_torch.matching import matcher
     from ndt_2d_tpu_torch.parallel import matcher as pmatcher
+    kern = k2 if kern is None else kern
     dths, dls = matcher._search_offsets(mc, dev)
     A, R, nums = dths.shape[0], rows[2].shape[0], rows[4]
-    for S in (1, 2, 3, 4):
-        plan = split_stack(mc, rows, dths, dls, S, dev)
-        g = plan.stack.view(S, R, plan.blk, 12)
+    per = kern.blocks_per_angle(dls)
+    for S in shards:
+        plan = split_stack(mc, rows, dths, dls, S, dev, kern)
+        g = plan.stack.view(S, R, plan.blk * per, 12)
         out = plan.finalize(mc, plan.stack, nums, dths, dls)
         twin = k2.finalize_gathered_twin(mc, g, nums, dths, dls)
         torch.cuda.synchronize()
@@ -7028,23 +7147,24 @@ def check_split_plan(mc, rows, what, ref, dev):
                                               dths, dls), ref),
                     f"{what}: the finalize of the send buffer differs")
         a0, n = pmatcher.angle_block(A, S, S - 1)
-        require(torch.equal(plan.head(n), k2.partial_rows(
-            mc, *rows, dths, dls, a0, n)), f"{what}: partials into the "
-            "send buffer differ from the allocating launch's")
-    plan = split_stack(mc, rows, dths, dls, 2, dev)
-    g = plan.stack.view(2, R, plan.blk, 12)
+        if n:
+            require(torch.equal(plan.head(n), kern.partial_rows(
+                mc, *rows, dths, dls, a0, n)), f"{what}: partials into the "
+                "send buffer differ from the allocating launch's")
+    plan = split_stack(mc, rows, dths, dls, 2, dev, kern)
+    g = plan.stack.view(2, R, plan.blk * per, 12)
 
     def fin():
         return plan.finalize(mc, plan.stack, nums, dths, dls)
 
     def fin_twin():
         return k2.finalize_gathered_twin(mc, g, nums, dths, dls)
-    print(f"[3] K12 planned finalize, {what}: stacks of 1-4 ranks with NaN "
-          f"in the unread slots, bitwise equal to the twin and to the "
-          f"one-launch search")
+    print(f"[3] K12 planned finalize, {what}: stacks of {shards} ranks "
+          f"({per} partials an angle) with NaN in the unread slots, bitwise "
+          f"equal to the twin and to the one-launch search")
     return timed(0.0, cuda_ms(fin, 50), cuda_ms(fin_twin, 2),
-                 R * A * 12 * 4 + R * 13 * 4 + (A + dls.shape[0]) * 4
-                 + R * 4, R * A * 12, graph_ms=(graph_ms(fin, 50), None))
+                 R * A * per * 12 * 4 + R * 13 * 4 + (A + dls.shape[0]) * 4
+                 + R * 4, R * A * per * 12, graph_ms=(graph_ms(fin, 50), None))
 
 
 def check_fold(mc, rows, query, dev):
@@ -7252,12 +7372,136 @@ def phase_k12(cfg, win, query, cfg3, bag3, cfg6, dev):
     rows = coarse_rows(cfg6, bag3, dev)
     gr, tabs = k1.build_windows(*rows[:4], 12.0, cm.ndt_resolution,
                                 cm.grid_cells_x, cm.grid_cells_y)
-    (out["candidate_gather_partials"],
-     out["candidate_gather_finalize"]) = check_split(
-        k6, cm, (gr, tabs, *rows[4:]),
-        f"K6 over {COARSE_ROWS} config-6 coarse rows", dev)
+    rows6 = (gr, tabs, *rows[4:])
+    what = f"K6 over {COARSE_ROWS} config-6 coarse rows"
+    out["candidate_gather_partials"], _ = check_split(k6, cm, rows6, what,
+                                                      dev)
+    # K6's planned finalize: S = 2 (a short last block), 3, 4 and 8 (an
+    # empty one) at config 6's 21 angles of 7 tiles.
+    dths, dls = matcher._search_offsets(cm, dev)
+    out["candidate_gather_finalize"] = check_split_plan(
+        cm, rows6, what, k6.match_rows(cm, *rows6, dths, dls), dev, k6,
+        (1, 2, 3, 4, 8))
+    check_long_folds(dev)
     out.update(check_rank_sum(dev))
     return out
+
+
+def fold_partials_rows(R: int, A: int, per: int, L: int, seed: int,
+                       nan_first: bool = False, nan_later: bool = False):
+    """Synthetic [R, A * per, 12] partials of an A x L x L lattice in
+    (angle, tile) order: lows with ties, -0, +0 and +-inf, each partial's
+    flat index inside its tile, Olson sums with s < 0; NaN lows at the
+    first partial and / or later ones where asked."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    N = A * per
+    best = rng.choice([-3.0, -2.5, -1.0, -0.0, 0.0, 2.0],
+                      (R, N)).astype(np.float32)
+    best[:, rng.integers(0, N, 3)] = -np.inf
+    best[:, rng.integers(0, N, 3)] = np.inf
+    if nan_first:
+        best[:, 0] = np.nan
+    if nan_later:
+        best[:, rng.integers(1, N, 5)] = np.nan
+    i = np.arange(N)
+    tile = (i // per) * L * L + (i % per) * 256
+    span = np.minimum(256, L * L - (i % per) * 256)
+    index = (tile[None] + rng.integers(0, 1 << 20, (R, N)) % span[None]
+             ).astype(np.int32)
+    sums = rng.normal(0.0, 1.0, (R, N, 10)).astype(np.float32)
+    sums[..., 0] = -np.abs(sums[..., 0])
+    out = np.concatenate([best[..., None], index.view(np.float32)[..., None],
+                          sums], -1)
+    return torch.from_numpy(out)
+
+
+def serial_fold(p):
+    """The serial scan's (min, first index) of one row's partials [N, 12]
+    (numpy): the first opens the pair; a later one replaces it where
+    strictly less."""
+    best, bi = p[0, 0], int(p[0, 1:2].view("int32")[0])
+    for j in range(1, p.shape[0]):
+        if p[j, 0] < best:
+            best, bi = p[j, 0], int(p[j, 1:2].view("int32")[0])
+    return best, bi
+
+
+def check_long_folds(dev):
+    """K2's finalize launch over rows longer than one stage: the merge's
+    126 angles x 7 tiles (882 partials, four rounds), 512 x 1 (one round at
+    the stage's size), 513 x 1 and 300 x 7 (2100), R = 1 and 5, from one
+    [R, N, 12] buffer (``finalize_rows``) and from split stacks of 2 and 3
+    ranks with NaN in the unread slots (``SplitPlan``), each row bitwise
+    ``finalize_rows_twin``; rows with a NaN low, first or later: the
+    covariance bitwise the twin, the score and correction the serial
+    scan's."""
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.config import ScanMatcherConfig
+    from ndt_2d_tpu_torch.kernels import candidate_gather as k6
+    from ndt_2d_tpu_torch.kernels import candidate_scores as k2
+    from ndt_2d_tpu_torch.parallel import matcher as pmatcher
+    mc = ScanMatcherConfig(laser_max_beams=100)
+    cases = ((126, 7, 40), (512, 1, 5), (513, 1, 5), (300, 7, 40))
+    done = []
+    for k, (A, per, L) in enumerate(cases):
+        dths = torch.linspace(-3.1, 3.1, A, device=dev)
+        dls = torch.linspace(-1.0, 1.0, L, device=dev)
+        for R in (1, 5):
+            nums = torch.arange(60, 60 + 20 * R, 20, dtype=torch.int32,
+                                device=dev)
+            for nan_first, nan_later in ((False, False), (True, False),
+                                         (False, True)):
+                rows = fold_partials_rows(R, A, per, L, 100 * k + R,
+                                          nan_first, nan_later).to(dev)
+                twin = k2.finalize_rows_twin(mc, rows, nums, dths, dls)
+                outs = [k6.finalize_rows(mc, rows, nums, dths, dls)]
+                for S in (2, 3):
+                    plan = k2.SplitPlan(dev, S, R, A, L, True, per)
+                    plan.stack.fill_(math.nan)
+                    st = plan.stack.view(S, R, plan.blk * per, 12)
+                    for s in range(S):
+                        a0, n = pmatcher.angle_block(A, S, s)
+                        st[s].view(-1)[:R * n * per * 12].copy_(
+                            rows[:, a0 * per:(a0 + n) * per].reshape(-1))
+                    outs.append(plan.finalize(mc, plan.stack, nums, dths,
+                                              dls))
+                torch.cuda.synchronize()
+                for out in outs:
+                    if not (nan_first or nan_later):
+                        require(torch.equal(out, twin),
+                                f"finalize of {R} x {A} x {per} partials "
+                                "differs from its twin")
+                        continue
+                    require(torch.equal(out[:, 4:], twin[:, 4:]),
+                            f"finalize of {R} x {A} x {per} partials with "
+                            "NaN lows: covariance differs from the twin")
+                    host = rows.cpu().numpy()
+                    for r in range(R):
+                        best, bi = serial_fold(host[r])
+                        ai, xi, yi = bi // (L * L), (bi // L) % L, bi % L
+                        used = max(min(100, int(nums[r])), 1)
+                        want = np.float32(best) / np.float32(used)
+                        got = out[r].cpu().numpy()
+                        corr = ([dls[xi], dls[yi], dths[ai]] if best < 0
+                                else [0.0, 0.0, 0.0])
+                        same = (bool(np.isnan(got[0])) if np.isnan(want)
+                                else np.array_equal(
+                                    got[:1].view(np.int32), np.asarray(
+                                        [want], np.float32).view(np.int32)))
+                        require(same and np.array_equal(
+                            got[1:4], np.asarray([float(c) for c in corr],
+                                                 np.float32)),
+                            f"finalize of {R} x {A} x {per} partials with "
+                            f"NaN lows: row {r} is not the serial scan's")
+        done.append(f"{A}x{per}")
+    print(f"[3] K2/K6 finalize over long rows ({', '.join(done)} partials, "
+          f"R = 1 and 5, one buffer and split stacks of 2 and 3 ranks): "
+          f"bitwise the twin; with NaN lows first or later, the serial "
+          f"scan's winner")
 
 
 def mesh_launches(launches) -> dict:
@@ -7885,7 +8129,7 @@ def phase_mesh_shared(cfg, bag, single10, district_poses, district_truth,
 # --- K12·blocks: the stripe-sharded map (KB1-KB3), the fused SLAM step (KB4)
 # and the dry run of the multi-device pipeline.
 KB_KERNELS = ("ndt_build_stripe", "stripe_score", "stripe_field",
-              "field_partials", "candidate_finalize_append")
+              "field_partials", "field_fold", "candidate_finalize_append")
 BLOCK_SHAPES = ((2, 1), (1, 2), (2, 2))
 SLAM_CAPACITY = 256       # scans and constraints of the fused step's state
 SLAM_OPTIMIZE_EVERY = 8
@@ -8054,6 +8298,11 @@ def phase_kb(path4, bag4, dev):
              k2.block_partials(total, dths, dls, 0, k6.TILE))
     require(torch.equal(p, pt), "KB3 partials differ from the twin")
     row = k6.finalize_rows(mc, p[None], ln, dths, dls)
+    row_t = k2.finalize_rows_twin(mc, p[None], ln, dths, dls)
+    torch.cuda.synchronize()
+    require(torch.equal(row, row_t) and torch.equal(
+        row, k6.finalize_rows(mc, p[None], ln, dths, dls)),
+        "KB3's fold differs from its twin or is not reproducible")
     dense = k6.match(mc, grid, m.packed_table, lq, lqm, ln, start, dths, dls)
     print(f"[3] KB3 stripe_field + field_partials: {dths.numel()}x"
           f"{dls.numel()}x{dls.numel()} candidates x {B} beams on stripe 0 "
@@ -8082,6 +8331,14 @@ def phase_kb(path4, bag4, dev):
         0.0, cuda_ms(lambda: k6.field_partials(total, dths, dls), 20),
         cuda_ms(lambda: k2.block_partials(total, dths, dls, 0, k6.TILE), 3),
         nbytes(total, dths, dls, p), total.numel() * 22)
+
+    def fold():
+        return k6.finalize_rows(mc, p[None], ln, dths, dls)
+    out["field_fold"] = timed(
+        0.0, cuda_ms(fold, 20),
+        cuda_ms(lambda: k2.finalize_rows_twin(mc, p[None], ln, dths, dls),
+                3), nbytes(p, dths, dls, row) + 4, p.numel(),
+        graph_ms=(graph_ms(fold, 20), None))
 
     # KB4 on the fused step's 256-slot state, config 2's 512-point scans.
     P = 512
@@ -8857,6 +9114,335 @@ def field_bins_arms(parent: str) -> int:
     return 0 if ok else 1
 
 
+def merge_decisions(dev) -> dict:
+    """The merge of ``merge_sessions``' two sessions: pairs checked and
+    accepted, the transform's errors and the merged ATE."""
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.core import pose as pose_ops
+    from ndt_2d_tpu_torch.mapping import merge
+    from ndt_2d_tpu_torch.utils import metrics
+    truth_a, truth_b, ga, gb = merge_sessions(dev)
+    res = merge.merge_maps(ga, gb, range_max=14.0, score_threshold=-0.25,
+                           device=dev)
+
+    def f32(p):
+        return torch.tensor(np.asarray(p), dtype=torch.float32)
+    t_true = pose_ops.compose(pose_ops.inverse(f32(truth_a[0])),
+                              f32(truth_b[0])).numpy()
+    rel_b = metrics.relative_to_first(truth_b)
+    truth_b_in_a = pose_ops.compose(f32(t_true), f32(rel_b)).numpy()
+    return dict(
+        checked=int(res.pairs_checked), accepted=int(res.pairs_accepted),
+        err_xy=float(np.hypot(*(res.transform[:2] - t_true[:2]))),
+        err_th=abs(float(pose_ops.normalize_angle(
+            f32(res.transform[2] - t_true[2])))),
+        ate=float(metrics.ate_rmse(res.graph.poses[ga.num_scans:],
+                                   truth_b_in_a)),
+        transform_sha=digest(torch.tensor(np.asarray(res.transform))))
+
+
+def kb3_winners(dev) -> dict:
+    """``[4r]``'s matches on one card: config 4's saved map in two stripes
+    (KB1), each of the 150 localization scans matched against both
+    stripes (KB3: the fields added in rank order, the reduction, K6's
+    fold) from the dense K6 chain's start poses; the sha256 of the 150
+    winner rows and of the dense ones."""
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.core import pose as pose_ops
+    from ndt_2d_tpu_torch.io.bag import record_synthetic
+    from ndt_2d_tpu_torch.kernels import candidate_gather as k6
+    from ndt_2d_tpu_torch.kernels import candidate_scores as k2
+    from ndt_2d_tpu_torch.mapping import laser
+    from ndt_2d_tpu_torch.utils import metrics
+    bag4 = record_synthetic("box", 150, n_beams=360, seed=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        map4 = os.path.join(tmp, "box_map.npz")
+        map_and_save(config4_configs()[0], bag4, map4, dev)
+        _, cfg = config4_configs()
+        m, kf = blocks_map(map4, cfg, bag4.range_max, dev)
+    mc = m.config
+    stripes = [stripe_of(m, kf, 2, s) for s in range(2)]
+    loc_bag = record_synthetic("box", MAP4_SCANS, n_beams=360, seed=7,
+                               odom_trans_noise=0.01)
+    dths, dls = k2.search_offsets(mc, dev)
+    start = np.asarray(metrics.relative_to_first(loc_bag.truth)[0],
+                       np.float64)
+    dense_rows, rows = [], []
+    for t in range(MAP4_SCANS):
+        pts, msk = laser.project_scan(loc_bag[t][0], loc_bag.range_max,
+                                      np.zeros(3), False, None,
+                                      cfg.max_points_per_scan)
+        q, qm = torch.tensor(pts, device=dev), torch.tensor(msk, device=dev)
+        nt = int(msk.sum())
+        pose = torch.tensor(start, dtype=torch.float32, device=dev)
+        dense = k6.match(mc, m.grid, m.packed_table, q, qm, nt, pose, dths,
+                         dls)[0]
+        fields = [k6.stripe_field(mc, g, tab, s * h, h, q, qm, nt, pose,
+                                  dths, dls)
+                  for s, ((g, tab), h) in enumerate(stripes)]
+        part = k6.field_partials(fields[0] + fields[1], dths, dls)
+        rows.append(k6.finalize_rows(mc, part[None], nt, dths, dls)[0])
+        dense_rows.append(dense)
+        corrected = torch.tensor(start + dense.cpu().numpy()[1:4])
+        if t + 1 < MAP4_SCANS:
+            start = pose_ops.compose(corrected, pose_ops.relative(
+                *torch.tensor(loc_bag.odom[t:t + 2]))).numpy()
+    rows, dense_rows = torch.stack(rows), torch.stack(dense_rows)
+    return dict(winners_sha=digest(rows), dense_sha=digest(dense_rows),
+                corrections_equal=bool(torch.equal(rows[:, 1:4],
+                                                   dense_rows[:, 1:4])))
+
+
+def glue_search(kern, mc, rows, dths, dls, dev):
+    """Rank 1 of a 2-rank ``space`` line's split search of ``rows`` by
+    ``parallel/matcher.py::search_rows`` on one card, the line's gather
+    stubbed by a stack filled beforehand (no device operation): a tree's
+    plan (the stack it gathers into) or, in a tree without K6's plan, the
+    padded blocks its reordering path gathers.  Returns (the search as a
+    callable, a function undoing the stubs)."""
+    import inspect
+
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import candidate_scores as k2
+    from ndt_2d_tpu_torch.parallel import matcher as pmatcher
+    A, R = dths.shape[0], rows[2].shape[0]
+    per = kern.blocks_per_angle(dls)
+    planned = (kern is k2
+               or "per" in inspect.signature(k2.split_plan).parameters)
+    if planned:
+        stack = split_stack(mc, rows, dths, dls, 2, dev, kern).stack
+    else:
+        blk = -(-A // 2)
+        parts = []
+        for s in range(2):
+            a0, n = pmatcher.angle_block(A, 2, s)
+            mine = kern.partial_rows(mc, *rows, dths, dls, a0, n)
+            pad = torch.zeros(R, (blk - n) * per, 12, device=dev)
+            pad[..., 0].fill_(math.inf)
+            parts.append(torch.cat([mine, pad], 1))
+        stack = torch.stack(parts)
+    saved = {k: getattr(pmatcher, k) for k in ("axis_size", "axis_rank",
+                                               "axis_group")}
+    saved_gather = pmatcher.distributed.gather
+    pmatcher.axis_size = lambda mesh, axis: 2
+    pmatcher.axis_rank = lambda mesh, axis: 1
+    pmatcher.axis_group = lambda mesh, axis: "line"
+    pmatcher.distributed.gather = (
+        lambda t, group, out=None: stack if out is None else out)
+
+    def undo():
+        for k, v in saved.items():
+            setattr(pmatcher, k, v)
+        pmatcher.distributed.gather = saved_gather
+    return (lambda: pmatcher.search_rows(kern, mc, "line", *rows, dths,
+                                         dls)), undo
+
+
+def spectra_finalize_times(dev, ident: str, decisions: bool) -> dict:
+    """``--spectra-finalize-arm``: in this process's tree, K10's spectra
+    over the office table's first 512 slots and its 2048; K6's one-device
+    search at config 6's 32 coarse rows and at the merge's shape; K12's
+    K6 finalize of those rows split 2 ways (the tree's split finalize:
+    planned, or ``finalize_rows`` on the reordered copy) and K6's fold of
+    one [R, A * tiles, 12] buffer there and at the merge's shape (R = 1,
+    126 x 7 partials); KB3's reduction of an 80 x 21 x 21 field (its
+    partials and the fold); K2's planned finalize at config 2 and over 64
+    config-3 rows (S = 2); the split K6 search's glue on rank 1 of 2
+    (``glue_search``: its device operations, host us); K11's lattice at
+    the box drive's and config 2's shapes (``arm_times`` each, and the
+    outputs' sha256).  With ``decisions``: config 6 and drift
+    (``descriptor_decisions``), the merge (``merge_decisions``) and [4r]'s
+    winners (``kb3_winners``).  Calls only public entries, so it runs in
+    an older tree too."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import candidate_gather as k6
+    from ndt_2d_tpu_torch.kernels import candidate_scores as k2
+    from ndt_2d_tpu_torch.kernels import correlative as k11
+    from ndt_2d_tpu_torch.kernels import descriptors as k10
+    from ndt_2d_tpu_torch.kernels import ndt_build as k1
+    from ndt_2d_tpu_torch.mapping import merge
+    from ndt_2d_tpu_torch.matching import matcher
+    out = {"card": ident, "rows": {}, "sweep": {}}
+
+    def arm(name, fn, *keep):
+        row = arm_times(fn)
+        row["sha"] = digest(*(keep or (fn(),)))
+        out["rows"][name] = row
+        print(f"[6] {name}: in a CUDA graph {row['graph_ms']:.5f} ms, "
+              f"cuda_ms {row['cuda_ms']:.4f}, host {row['host_us']:.1f} us, "
+              f"{row['ops']} device operations {row['op_names']}, sha256 "
+              f"{row['sha']} ({ident})")
+    cfg6, bag3 = config6(), office_bag()
+    pts, msk = office_table(cfg6, bag3, dev)
+    for S in (512, TABLE_SCANS):
+        bins = k10.bin_points(pts[:S].contiguous(), msk[:S].contiguous(),
+                              12.0)
+        arm(f"K10 spectra, {S} slots", lambda: k10.spectra(bins, 12.0))
+        if hasattr(k10, "spectra_plan"):
+            out["sweep"][f"K10 spectra, {S} slots"] = {
+                f"{w} warps, staged {st}": graph_ms(spectra_arm(bins, w, st),
+                                                    20)
+                for w, st in SPECTRA_FORMS}
+    cm = cfg6.coarse_scan_matcher
+    rows = coarse_rows(cfg6, bag3, dev)
+    gr, tabs = k1.build_windows(*rows[:4], 12.0, cm.ndt_resolution,
+                                cm.grid_cells_x, cm.grid_cells_y)
+    rows6 = (gr, tabs, *rows[4:])
+    dths, dls = matcher._search_offsets(cm, dev)
+    A, nums = dths.shape[0], rows6[4]
+    arm(f"K6 search, {COARSE_ROWS} coarse rows",
+        lambda: k6.match_rows(cm, *rows6, dths, dls))
+    mrows = office_rows(cfg6, bag3, dev, 1, region=tuple(range(7)),
+                        shift=(0.4, -0.3, 2.5))
+    span = float(np.ptp(mrows[0][0, :, :2].cpu().numpy(), axis=0).max())
+    mm = merge._coarse_config(12.0, span)
+    md, ml = matcher._search_offsets(mm, dev)
+    mg, mtab = k1.build_windows(*mrows[:4], 12.0, mm.ndt_resolution,
+                                mm.grid_cells_x, mm.grid_cells_y)
+    mrows = (mg, mtab, *mrows[4:])
+    arm(f"K6 search, merge shape ({md.numel()}x{ml.numel()}x{ml.numel()})",
+        lambda: k6.match_rows(mm, *mrows, md, ml))
+    full = k6.partial_rows(cm, *rows6, dths, dls, 0, A)
+    mfull = k6.partial_rows(mm, *mrows, md, ml, 0, md.numel())
+    search, undo = glue_search(k6, cm, rows6, dths, dls, dev)
+    try:
+        split = search()
+        arm(f"K12 K6 split search, rank 1 of 2, {COARSE_ROWS} coarse rows",
+            search, split)
+    finally:
+        undo()
+    planned = "per" in inspect.signature(k2.split_plan).parameters
+    if planned:
+        plan = split_stack(cm, rows6, dths, dls, 2, dev, k6)
+        arm(f"K12 K6 finalize, {COARSE_ROWS} coarse rows split 2",
+            lambda: plan.finalize(cm, plan.stack, nums, dths, dls))
+    else:
+        arm(f"K12 K6 finalize, {COARSE_ROWS} coarse rows split 2",
+            lambda: k6.finalize_rows(cm, full, nums, dths, dls))
+    arm(f"K6 fold of one buffer, {COARSE_ROWS} coarse rows",
+        lambda: k6.finalize_rows(cm, full, nums, dths, dls))
+    arm(f"K6 fold of one buffer, merge shape ({mfull.shape[1]} partials)",
+        lambda: k6.finalize_rows(mm, mfull, mrows[4], md, ml))
+    _, cfg4 = config4_configs()
+    mc4 = cfg4.global_scan_matcher
+    d4, l4 = k2.search_offsets(mc4, dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    field = -torch.rand(d4.numel(), l4.numel(), l4.numel(), generator=gen,
+                        device=dev).mul_(40.0).floor_()
+
+    def kb3():
+        return k6.finalize_rows(mc4, k6.field_partials(field, d4, l4)[None],
+                                300, d4, l4)
+    arm(f"KB3 reduction ({d4.numel()}x{l4.numel()}x{l4.numel()} field)",
+        kb3)
+    bag, cfg2, win, query, _ = inputs(dev)
+    mc2 = cfg2.local_scan_matcher
+    g, tab = k1.build_window(**win, range_max=15.0,
+                             cell_size=mc2.ndt_resolution,
+                             width=mc2.grid_cells_x,
+                             height=mc2.grid_cells_y)
+    from ndt_2d_tpu_torch.ndt import grid as ndt_grid
+    row = ndt_grid.NDTGrid(origin=g.origin[None], cell_size=g.cell_size,
+                           mean=None, information=None, count=None,
+                           covariance=None)
+    rows2 = (row, tab[None], query["points"][None],
+             query["point_mask"][None],
+             torch.tensor([query["num_points"]], dtype=torch.int32,
+                          device=dev), query["pose"][None])
+    cfg3 = office_config()
+    gm = cfg3.global_scan_matcher
+    r3 = office_rows(cfg3, bag3, dev)
+    gr3, tabs3 = k1.build_windows(*r3[:4], 12.0, gm.ndt_resolution,
+                                  gm.grid_cells_x, gm.grid_cells_y)
+    rows3 = (gr3, tabs3, *r3[4:])
+    for what, mc, rr in (("config 2", mc2, rows2),
+                         (f"{ROWS} config-3 rows", gm, rows3)):
+        d_, l_ = matcher._search_offsets(mc, dev)
+        kplan = split_stack(mc, rr, d_, l_, 2, dev)
+        arm(f"K12 K2 planned finalize, {what} split 2",
+            lambda kplan=kplan, mc=mc, rr=rr, d_=d_, l_=l_: kplan.finalize(
+                mc, kplan.stack, rr[4], d_, l_))
+    box_cfg, _, _, _, bwin, bquery = box_window(cfg2.rolling_depth, dev)
+    for what, mc, w, q, rmax in (
+            ("box", box_cfg.local_scan_matcher, bwin, bquery, 12.0),
+            ("config 2", mc2, win, query, bag.range_max)):
+        f, o = k11.build_field(w["poses"], w["points"], w["point_mask"],
+                               w["window_mask"], rmax, mc.ndt_resolution,
+                               mc.grid_cells_x, mc.grid_cells_y)
+        d_, l_ = matcher._search_offsets(mc, dev)
+        margs = (mc, f, o, q["points"], q["point_mask"], q["num_points"],
+                 q["pose"], d_, l_)
+        arm(f"K11 lattice, {what}", lambda margs=margs: k11.match(*margs))
+    for key, sweep in out["sweep"].items():
+        print(f"[6] {key}, graph ms by block shape: " + ", ".join(
+            f"{k} {v:.5f}" for k, v in sweep.items()) + f" ({ident})")
+    if decisions:
+        out["config6"] = descriptor_decisions(cfg6, bag3, dev)
+        out["drift"] = descriptor_decisions(
+            office_config("--recipe", "drift"), drift_bag(), dev)
+        out["merge"] = merge_decisions(dev)
+        out["kb3"] = kb3_winners(dev)
+        print(f"[6] decisions: config 6 {out['config6']}; drift "
+              f"{out['drift']}; merge {out['merge']}; [4r]'s winners "
+              f"{out['kb3']}")
+    return out
+
+
+def spectra_finalize_arms(parent: str) -> int:
+    """``--spectra-finalize-times PARENT``: this script copied into PARENT
+    (a ``git archive`` of an older tree) as smoke_new.py, then
+    ``--spectra-finalize-arm`` in four processes: parent (with its
+    decisions), change (with its decisions), change, parent.  Each arm's
+    lines are printed; then, for each row, the arms' graph ms, cuda_ms,
+    host us and device operations, and whether the outputs' sha256 and the
+    decisions agree across the trees.  Exits 1 where they differ."""
+    import shutil
+    import subprocess
+    script, parent = os.path.abspath(__file__), os.path.abspath(parent)
+    shutil.copy(script, os.path.join(parent, "smoke_new.py"))
+    trees = {"parent": (parent, os.path.join(parent, "smoke_new.py")),
+             "change": (ROOT, script)}
+    arms = []
+    for i, name in enumerate(("parent", "change", "change", "parent")):
+        cwd, path = trees[name]
+        cmd = [sys.executable, path, "--spectra-finalize-arm"]
+        cmd += ["--decisions"] if i < 2 else []
+        run = subprocess.run(cmd, cwd=cwd, capture_output=True, text=True)
+        print(run.stdout[-8000:], end="")
+        if run.returncode != 0:
+            print(f"FAIL: the {name} arm exited {run.returncode}: "
+                  f"{run.stderr[-3000:]}")
+            return 1
+        arms.append((name, json.loads(run.stdout.strip().splitlines()[-1])[
+            "spectra_finalize_times"]))
+    ok = True
+    for key in arms[0][1]["rows"]:
+        rows = [(n, a["rows"][key]) for n, a in arms]
+        same = len({r["sha"] for _, r in rows}) == 1
+        ok &= same
+        print(f"[6] {key}: " + "; ".join(
+            f"{n} graph {r['graph_ms']:.5f} ms, cuda_ms {r['cuda_ms']:.4f}, "
+            f"host {r['host_us']:.1f} us, {r['ops']} ops" for n, r in rows)
+            + f"; outputs bitwise equal across the trees: {same}")
+    p, c = arms[0][1], arms[1][1]
+    for key in ("config6", "drift", "merge", "kb3"):
+        same = p[key] == c[key]
+        ok &= same
+        print(f"[6] decisions, {key}: parent {p[key]}, change {c[key]}; "
+              f"equal: {same}")
+    print(json.dumps({"spectra_finalize_times": dict(arms=arms, equal=ok)}))
+    return 0 if ok else 1
+
+
 class ReplacedInverse:
     """Within the block, one device's PCG system (``k4.PcgPlan.system``)
     hands ``pcg_solve`` another block-Jacobi inverse of the same damped
@@ -9065,6 +9651,16 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--field-bins-times"]:
         return field_bins_arms(sys.argv[2])
+    if "--spectra-finalize-arm" in sys.argv[1:]:
+        from ndt_2d_tpu_torch.device import get_device
+        dev = get_device("cuda:0")
+        ident = phase_card()
+        phase_build()
+        print(json.dumps({"spectra_finalize_times": spectra_finalize_times(
+            dev, ident, "--decisions" in sys.argv[1:])}))
+        return 0
+    if sys.argv[1:2] == ["--spectra-finalize-times"]:
+        return spectra_finalize_arms(sys.argv[2])
     if "--kernel-times" in sys.argv[1:]:
         from ndt_2d_tpu_torch.device import get_device
         from ndt_2d_tpu_torch.io.bag import record_synthetic

@@ -57,8 +57,10 @@
 //    scores to shared memory and folds them tile by tile, 256 offsets a
 //    tile, through lattice::reduce_tile: the (angle, tile) partials of the
 //    one-block-a-tile design.  A second launch, one block per row, combines
-//    a row's partials in order and finalizes (lattice.cuh, shared with
-//    K11's lattice).  Where no tile covers the lattice in one pass (L >
+//    a row's partials in order and finalizes: K2's fold
+//    (candidate_scores.cu's finalize through ndt2d::split_finalize, at
+//    `per` = the tiles an angle; lanes add the sums, a warp finds the
+//    (min, first index)).  Where no tile covers the lattice in one pass (L >
 //    42), a block a pass writes its scores to a field in device memory and
 //    field_tiles folds the field into the same partials; KB3's field
 //    (nothing to fold) takes a block a pass too.
@@ -74,8 +76,10 @@
 // K2's are.  ndt2d_candidate_gather_partials scores a contiguous block of
 // angles from global angle a0 (flat indices stay global) and writes its
 // (angle, tile) partials; ndt2d_candidate_gather_finalize combines the
-// partials of all A angles, gathered from the ranks in rank order, in
-// (angle, tile) order: bit for bit the one-launch search.
+// partials of all A angles in one [R, A * tiles, 12] buffer, in (angle,
+// tile) order: bit for bit the one-launch search.  A split search's
+// planned finalize (k2.SplitPlan at per = tiles) reads the gathered send
+// buffers in place through ndt2d_candidate_finalize_planned.
 //
 // KB3 (a y-stripe-sharded map, ndt_2d_tpu/parallel/ndt_blocks.py::
 // match_scan_sharded_map, :169-217): ndt2d_stripe_field runs the same
@@ -577,12 +581,11 @@ NDT2D_API int ndt2d_candidate_gather(
       score(k, Plan{kx, ky, nxg, nyg, passes, chunk, fused, winx, winy}, st);
   if (err != 0) return err;
   const int tiles = (L * L + kTile - 1) / kTile;
-  lattice::finalize<<<R, lattice::kFinalizeThreads, 0, st>>>(
-      static_cast<const float*>(partial), A * tiles, L,
+  return (int)ndt2d::split_finalize(
+      static_cast<const float*>(partial), R, A, L, A, tiles,
       static_cast<const int*>(nums), num, max_beams,
       static_cast<const float*>(dths), static_cast<const float*>(dls),
-      static_cast<float*>(out));
-  return (int)cudaGetLastError();
+      static_cast<float*>(out), st);
 }
 
 // K12, first half: the (angle, tile) partials [R, A * tiles, 12] f32 of
@@ -617,12 +620,11 @@ NDT2D_API int ndt2d_candidate_gather_finalize(
     void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int tiles = (L * L + kTile - 1) / kTile;
-  lattice::finalize<<<R, lattice::kFinalizeThreads, 0, st>>>(
-      static_cast<const float*>(partial), A * tiles, L,
+  return (int)ndt2d::split_finalize(
+      static_cast<const float*>(partial), R, A, L, A, tiles,
       static_cast<const int*>(nums), num, max_beams,
       static_cast<const float*>(dths), static_cast<const float*>(dls),
-      static_cast<float*>(out));
-  return (int)cudaGetLastError();
+      static_cast<float*>(out), st);
 }
 
 // KB3, the field: table [h*W,32] f32 (KB1's stripe table), origin [2] f32

@@ -58,9 +58,9 @@
 //    then the warps in order (min, first flat index and the 10 Olson
 //    sums); a tiled block goes through its scores in shared memory, a
 //    block of one candidate a thread (thread t is flat index t) folds
-//    from registers.  A second launch, one block per row, combines the
-//    row's angles in angle order and finalizes (A <= 512 angles, L*L <=
-//    1024 offsets per angle).
+//    from registers (L*L <= 1024 offsets per angle).  A second launch,
+//    one block per row, combines the row's angles in angle order and
+//    finalizes; it also folds K6's (angle, tile) partials.
 // Each candidate's sum is a chain of max_beams dependent adds, so a launch
 // of few rows is bound by that chain's latency, not by the SMs it fills:
 // spreading an angle's candidates over a cluster of blocks only added
@@ -478,102 +478,167 @@ cudaError_t launch_scores(const int* plan, int A, int R, cudaStream_t st,
   return cudaErrorInvalidValue;
 }
 
-// Combine the per-angle partials in angle order; matcher.py::finalize_match.
-// out = [score, correction (3), covariance (9, row-major)].
+// Combine a row's partials in order; matcher.py::finalize_match.  out =
+// [score, correction (3), covariance (9, row-major)].  K2 writes one
+// partial an angle, K6 (candidate_gather.cu) `per` = ceil(L*L / 256) an
+// angle, one a tile of its offsets: a row's N = A x per partials in
+// (angle, tile) order.  This launch folds both searches' rows, split or
+// not, and KB3's.
 //
 // Where a row's partials lie.  A split search's S ranks each write their
-// block of blk = ceil(A / S) angles (K2: one partial an angle) at the head
-// of a send buffer of R x blk partials, and the all-gather stacks the S
-// buffers in rank order; the finalize reads that stack as it lies: angle a
-// is rank s = a / blk's angle j = a - s * blk, and rank s's [R, n_s, 12]
-// block (n_s = min(blk, A - s * blk) angles) starts its buffer, so row r's
-// partial j sits at (s * R * blk + r * n_s + j) * 12.  At R = 1, or where
-// n_s = blk, that is slot j of the stack seen as [S, R, blk, 12].  A
-// buffer's tail (a short or empty last block) is never read, and no copy
-// reorders the stack.  The one-launch search is the same rule at S = 1
-// (blk = A: its scratch [R, A, 12]).
+// block of blk = ceil(A / S) angles at the head of a send buffer of R x
+// blk x per partials, and the all-gather stacks the S buffers in rank
+// order; the finalize reads that stack as it lies: partial i is angle a =
+// i / per's tile t = i - a per, angle a is rank s = a / blk's angle j = a
+// - s blk, and rank s's [R, n_s per, 12] block (n_s = min(blk, A - s blk)
+// angles) starts its buffer, so row r's partial (j, t) sits at ((s R blk
+// + r n_s) per + j per + t) 12.  At R = 1, or where n_s = blk, that is
+// slot j per + t of the stack seen as [S, R, blk per, 12].  A buffer's
+// tail (a short or empty last block) is never read, and no copy reorders
+// the stack.  The one-launch search is the same rule at S = 1 (blk = A:
+// its scratch [R, A per, 12]).
 //
 // The fold.  The block stages the row's partials in shared memory in
-// angle order, three 16-byte loads a partial, then warp 0 folds them with
-// no second block sync: lane k < 10 adds Olson sum k over the angles in
-// order, and lane 10 walks the (min, first index) chain, strictly lower
-// scores replacing the best (a NaN never replaces it; one at the first
-// angle stays), the twin's first-index argmin on ordered scores.  Every
-// lane runs the same loop, the sums' adds and the chain's compare and
-// selects predicated, so the warp does not split; the chain's compare and
-// select are the critical path (~A x 8 cycles).  The winner's (min,
-// index) is not folded by a tree: a tree's combine is not associative
-// where a NaN follows the first angle.  Lane 0 takes the ten sums and the
-// winner by shuffles and writes the row; the other warps exit after
-// staging.
+// order, three 16-byte loads a partial: a row of up to kStagePartials in
+// one round by every thread, a longer one in rounds of kStagePartials / 2
+// through the stage's two halves, round k + 1 loaded by warps 2.. while
+// warps 0 and 1 fold round k.  Lane k < 10 of warp 0 adds Olson sum k over
+// the partials in order, from the first partial on.  Warp 1 finds a
+// round's (min, first index): lanes over strided partials with strict
+// `<` from +inf (a NaN never enters), then a shuffle tree that breaks
+// ties by the lower index; the row's first partial opens the running
+// pair and a round's pair replaces it only where strictly less.  That is
+// the serial scan's result: with a non-NaN first partial, the first of
+// the least non-NaN values; with a NaN one, the NaN.  Warp 1 hands its
+// pair to warp 0 through shared memory at a barrier of the two warps;
+// lane 0 takes the ten sums by shuffles and writes the row; the other
+// warps leave after staging.
 //
-// With an Append (the fused SLAM step, R = 1), lane 0 then forms the
+// With an Append (the fused SLAM step, K2 at R = 1), lane 0 then forms the
 // corrected pose from the winner's correction and covariance in registers
 // and writes KB4's constraint, slot and previous pose (step_append.cuh's
-// step_constraint, the body KB4's own launch runs), while warps 1.. copy
+// step_constraint, the body KB4's own launch runs), while warps 2.. copy
 // the scan into slot i.
 constexpr int kFinalizeThreads = 256;
-constexpr int kMaxAngles = 512;
+constexpr int kStagePartials = 512;
+constexpr int kFoldWarps = 2;  // warp 0 the sums, warp 1 the (min, index)
 
 struct Append {
   StepState st;
   StepInputs in;
 };
 
-__device__ __forceinline__ size_t split_at(int a, int r, int R, int A,
-                                           int blk) {
+__device__ __forceinline__ size_t split_at(int i, int r, int R, int A,
+                                           int blk, int per) {
+  const int a = i / per;
+  const int t = i - a * per;
   const int s = a / blk;
   const int j = a - s * blk;
   const int n = min(blk, A - s * blk);
-  return ((size_t)s * R * blk + (size_t)r * n + j) * kPartial;
+  return (((size_t)s * R * blk + (size_t)r * n) * per + (size_t)j * per +
+          t) *
+         kPartial;
+}
+
+// Partials [base, base + n) of row r into dst, by threads tid of nt.
+__device__ __forceinline__ void stage_partials(
+    float4* __restrict__ dst, const float* __restrict__ gathered, int base,
+    int n, int r, int R, int A, int blk, int per, int tid, int nt) {
+#pragma unroll 4
+  for (int q = tid; q < n * 3; q += nt) {
+    const int i = q / 3;
+    dst[q] = reinterpret_cast<const float4*>(
+        gathered + split_at(base + i, r, R, A, blk, per))[q - 3 * i];
+  }
 }
 
 // Grid (R): row r = blockIdx.x.  gathered: the stacked send buffers (16-byte
-// aligned); blk the angles of a rank's block.
+// aligned); blk the angles of a rank's block, per the partials an angle.
 template <bool kAppend>
 __global__ void __launch_bounds__(kFinalizeThreads) finalize(
     const float* __restrict__ gathered, int R, int A, int L, int blk,
-    const int* __restrict__ nums, int num, int max_beams,
+    int per, const int* __restrict__ nums, int num, int max_beams,
     const float* __restrict__ dths, const float* __restrict__ dls,
     float* __restrict__ out, Append ap) {
-  __shared__ float4 sp4[kMaxAngles * 3];
-  const float* sp = reinterpret_cast<const float*>(sp4);
+  __shared__ float4 sp4[kStagePartials * 3];
+  __shared__ float pair[2];
   const int r = blockIdx.x;
-  const int t = threadIdx.x;
-#pragma unroll 4
-  for (int q = t; q < A * 3; q += kFinalizeThreads) {
-    const int a = q / 3;
-    sp4[q] = reinterpret_cast<const float4*>(
-        gathered + split_at(a, r, R, A, blk))[q - 3 * a];
-  }
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int N = A * per;
+  const int chunk = N <= kStagePartials ? N : kStagePartials / 2;
+  stage_partials(sp4, gathered, 0, chunk, r, R, A, blk, per, t,
+                 kFinalizeThreads);
   __syncthreads();
-  if (t >= 32) {
-    if (kAppend) step_copy_scan(ap.st, ap.in, t - 32, kFinalizeThreads - 32);
-    return;
-  }
-  const int col = t < kSums ? 2 + t : 0;
+  const int col = lane < kSums ? 2 + lane : 2;
   float v = 0.f, best = 0.f;
   int bi = 0;
-  if (t <= kSums) {
-    v = sp[col];
-    best = v;
-    bi = __float_as_int(sp[1]);
-    for (int a = 1; a < A; ++a) {
-      const float x = sp[a * kPartial + col];
-      const int xi = __float_as_int(sp[a * kPartial + 1]);
-      v += x;
-      if (x < best) {  // strict: earlier angles hold lower flat indices
-        best = x;
-        bi = xi;
+  for (int base = 0, k = 0; base < N; base += chunk, ++k) {
+    const int n = min(chunk, N - base);
+    const float* sp = reinterpret_cast<const float*>(
+        sp4 + (k & 1) * (kStagePartials / 2) * 3);
+    if (warp >= kFoldWarps) {
+      const int next = base + chunk;
+      if (next < N)
+        stage_partials(sp4 + ((k + 1) & 1) * (kStagePartials / 2) * 3,
+                       gathered, next, min(chunk, N - next), r, R, A, blk,
+                       per, t - 32 * kFoldWarps,
+                       kFinalizeThreads - 32 * kFoldWarps);
+    } else if (warp == 0) {
+      int j = 0;
+      if (base == 0) {
+        v = sp[col];
+        j = 1;
+      }
+#pragma unroll 16
+      for (; j < n; ++j) v += sp[j * kPartial + col];
+    } else {
+      float b = __int_as_float(0x7f800000);  // +inf
+      int i = 0x7fffffff;
+      for (int j = lane; j < n; j += 32) {
+        const float pv = sp[j * kPartial];
+        if (pv < b) {
+          b = pv;
+          i = __float_as_int(sp[j * kPartial + 1]);
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ob = __shfl_down_sync(0xffffffffu, b, off);
+        const int oi = __shfl_down_sync(0xffffffffu, i, off);
+        if (ob < b || (ob == b && oi < i)) {
+          b = ob;
+          i = oi;
+        }
+      }
+      if (base == 0) {
+        best = sp[0];
+        bi = __float_as_int(sp[1]);
+      }
+      if (b < best) {  // strict: earlier partials hold lower flat indices
+        best = b;
+        bi = i;
       }
     }
+    if (base + chunk < N) __syncthreads();
   }
+  if (warp >= kFoldWarps) {
+    if (kAppend)
+      step_copy_scan(ap.st, ap.in, t - 32 * kFoldWarps,
+                     kFinalizeThreads - 32 * kFoldWarps);
+    return;
+  }
+  if (warp == 1 && lane == 0) {
+    pair[0] = best;
+    pair[1] = __int_as_float(bi);
+  }
+  asm volatile("bar.sync 1, 64;" ::: "memory");  // warps 0 and 1
+  if (warp != 0) return;
   float sums[kSums];
 #pragma unroll
   for (int k = 0; k < kSums; ++k) sums[k] = __shfl_sync(0xffffffffu, v, k);
-  best = __shfl_sync(0xffffffffu, best, kSums);
-  bi = __shfl_sync(0xffffffffu, bi, kSums);
-  if (t != 0) return;
+  if (lane != 0) return;
+  best = pair[0];
+  bi = __float_as_int(pair[1]);
   const int num_points = row_points(nums, num, r);
   const int LL = L * L;
   const int ai = bi / LL, xi = (bi / L) % L, yi = bi % L;
@@ -585,9 +650,9 @@ __global__ void __launch_bounds__(kFinalizeThreads) finalize(
 
   const float s = sums[0];
   const float u[3] = {sums[1], sums[2], sums[3]};
-  const float k[3][3] = {{sums[4], sums[5], sums[6]},
-                         {sums[5], sums[7], sums[8]},
-                         {sums[6], sums[8], sums[9]}};
+  const float kk[3][3] = {{sums[4], sums[5], sums[6]},
+                          {sums[5], sums[7], sums[8]},
+                          {sums[6], sums[8], sums[9]}};
   const bool ok = s < 0.f;
   const float safe = ok ? s : -1.f;
   const float fallback[3] = {1.f, 1.f, 0.25f};
@@ -596,7 +661,7 @@ __global__ void __launch_bounds__(kFinalizeThreads) finalize(
 #pragma unroll
     for (int j = 0; j < 3; ++j)
       o[4 + 3 * i + j] =
-          ok ? k[i][j] / safe + (u[i] * u[j]) / (safe * safe)
+          ok ? kk[i][j] / safe + (u[i] * u[j]) / (safe * safe)
              : (i == j ? fallback[i] : 0.f);
   const int used = min(max_beams, num_points);
   o[0] = best / (float)max(used, 1);
@@ -606,27 +671,37 @@ __global__ void __launch_bounds__(kFinalizeThreads) finalize(
   if (kAppend) step_constraint(ap.st, ap.in, o + 1, o + 4);
 }
 
-// The finalize of a stack read by the rule above (blk = A: one [R, A, 12]
-// buffer).
-cudaError_t launch_finalize(const float* gathered, int R, int A, int L,
-                            int blk, const int* nums, int num, int max_beams,
-                            const float* dths, const float* dls, float* out,
-                            cudaStream_t st) {
-  if (A < 1 || A > kMaxAngles || blk < 1 || blk > A)
+}  // namespace
+
+// The finalize of a stack read by the rule above (blk = A: one [R, A *
+// per, 12] buffer); K6's and KB3's entries (candidate_gather.cu) launch it
+// too.
+cudaError_t ndt2d::split_finalize(const float* gathered, int R, int A,
+                                  int L, int blk, int per, const int* nums,
+                                  int num, int max_beams, const float* dths,
+                                  const float* dls, float* out,
+                                  cudaStream_t st) {
+  if (A < 1 || blk < 1 || blk > A || per < 1 ||
+      reinterpret_cast<uintptr_t>(gathered) % 16 != 0)
     return cudaErrorInvalidValue;
-  finalize<false><<<R, kFinalizeThreads, 0, st>>>(
-      gathered, R, A, L, blk, nums, num, max_beams, dths, dls, out, Append{});
+  if (R == 0) return cudaSuccess;
+  finalize<false><<<R, kFinalizeThreads, 0, st>>>(gathered, R, A, L, blk,
+                                                  per, nums, num, max_beams,
+                                                  dths, dls, out, Append{});
   return cudaGetLastError();
 }
 
+namespace {
+
 // A split search's finalize, planned (k2.SplitPlan): the stack it reads,
-// its shape, the lattice (dths [A], dls [L] f32) and max_beams, packed once
-// (the lattice again when the matcher's changes).
+// its shape (with the partials an angle), the lattice (dths [A], dls [L]
+// f32) and max_beams, packed once (the lattice again when the matcher's
+// changes).
 struct SplitFinalize {
   const float* gathered;
   const float* dths;
   const float* dls;
-  int R, A, L, blk, max_beams;
+  int R, A, L, blk, per, max_beams;
 };
 
 }  // namespace
@@ -653,8 +728,8 @@ NDT2D_API int ndt2d_candidate_scores(
       static_cast<const float*>(dls), L, static_cast<float*>(partial),
       static_cast<float*>(scores));
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_finalize(
-      static_cast<const float*>(partial), R, A, L, A,
+  return (int)ndt2d::split_finalize(
+      static_cast<const float*>(partial), R, A, L, A, 1,
       static_cast<const int*>(nums), num, max_beams,
       static_cast<const float*>(dths), static_cast<const float*>(dls),
       static_cast<float*>(out), st);
@@ -689,8 +764,8 @@ NDT2D_API int ndt2d_candidate_finalize(const void* partial, int R, int A,
                                        int max_beams, const void* dths,
                                        const void* dls, void* out,
                                        void* stream) {
-  return (int)launch_finalize(
-      static_cast<const float*>(partial), R, A, L, A,
+  return (int)ndt2d::split_finalize(
+      static_cast<const float*>(partial), R, A, L, A, 1,
       static_cast<const int*>(nums), num, max_beams,
       static_cast<const float*>(dths), static_cast<const float*>(dls),
       static_cast<float*>(out), reinterpret_cast<cudaStream_t>(stream));
@@ -704,9 +779,9 @@ NDT2D_API int ndt2d_candidate_finalize_planned(const void* plan,
                                                const void* nums, int num,
                                                void* out, void* stream) {
   const SplitFinalize& p = *static_cast<const SplitFinalize*>(plan);
-  return (int)launch_finalize(
-      p.gathered, p.R, p.A, p.L, p.blk, static_cast<const int*>(nums), num,
-      p.max_beams, p.dths, p.dls, static_cast<float*>(out),
+  return (int)ndt2d::split_finalize(
+      p.gathered, p.R, p.A, p.L, p.blk, p.per, static_cast<const int*>(nums),
+      num, p.max_beams, p.dths, p.dls, static_cast<float*>(out),
       reinterpret_cast<cudaStream_t>(stream));
 }
 
@@ -722,7 +797,8 @@ NDT2D_API int ndt2d_candidate_finalize_append(
     const void* est, const void* scan_points, const void* scan_mask,
     void* stream) {
   const SplitFinalize& p = *static_cast<const SplitFinalize*>(plan);
-  if (p.R != 1 || p.A < 1 || p.A > kMaxAngles || p.blk < 1 || p.blk > p.A)
+  if (p.R != 1 || p.A < 1 || p.blk < 1 || p.blk > p.A || p.per != 1 ||
+      reinterpret_cast<uintptr_t>(p.gathered) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const Append ap = {*static_cast<const StepState*>(state),
                      {has_prior, i, j, begin_id,
@@ -731,7 +807,7 @@ NDT2D_API int ndt2d_candidate_finalize_append(
                       static_cast<const uint8_t*>(scan_mask)}};
   finalize<true><<<1, kFinalizeThreads, 0,
                    reinterpret_cast<cudaStream_t>(stream)>>>(
-      p.gathered, 1, p.A, p.L, p.blk, static_cast<const int*>(nums), num,
+      p.gathered, 1, p.A, p.L, p.blk, 1, static_cast<const int*>(nums), num,
       p.max_beams, p.dths, p.dls, static_cast<float*>(out), ap);
   return (int)cudaGetLastError();
 }

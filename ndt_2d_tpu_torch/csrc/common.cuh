@@ -36,6 +36,17 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
+// The lattice searches' finalize (K2, K6, KB3; defined in
+// candidate_scores.cu): out [R, 13] from each row's A x per partials of 12
+// floats in (angle, tile) order, read from the gathered send buffers of a
+// split of blk angles a rank as they lie (blk = A: one [R, A * per, 12]
+// buffer, 16-byte aligned); nums [R] i32 or null (every row has `num`
+// points), dths [A], dls [L] f32.
+cudaError_t split_finalize(const float* gathered, int R, int A, int L,
+                           int blk, int per, const int* nums, int num,
+                           int max_beams, const float* dths,
+                           const float* dls, float* out, cudaStream_t st);
+
 // core/pose.py::normalize_angle in float32: t - 2 pi floor((t + pi) / 2 pi).
 __device__ __forceinline__ float normalize_angle(float t) {
   constexpr float kPi = 3.14159265358979323846f;

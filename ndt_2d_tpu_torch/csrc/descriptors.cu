@@ -37,7 +37,6 @@
 
 namespace {
 
-constexpr int kThreads = 128;
 constexpr int kAhead = 4;  // rounds of a warp's points loaded together
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kTwoPi = 6.28318530717958647692f;
@@ -212,71 +211,284 @@ __global__ void __launch_bounds__(kWarps * 32) bin_scans(
   for (int i = t; i < n_bins; i += kWarps * 32) hist[i] = (float)c_hist[i];
 }
 
-// The descriptor of scan s = blockIdx.x from its bin tables (:92-127 of the
+// The descriptor of each scan from its bin tables (:92-127 of the
 // reference): the mean-range profile and the n_rings occupancy profiles,
 // each through |DFT| at the frequencies 1 .. n_sectors / 2 against the
 // cos/sin tables [n_sectors, F] it is handed, then the mean-centred range
 // histogram, all divided by their joint L2 norm; zero for a scan with no
 // point.  Every sum adds in index order from 0 (a DFT term over the
 // sectors, the histogram's mean over the bins, the norm over the
-// descriptor's elements), as the twin does.  Dynamic shared memory:
-// (1 + n_rings) * n_sectors profile floats, then the D descriptor floats.
-__global__ void __launch_bounds__(kThreads) scan_spectra(
+// descriptor's elements), as the twin does.
+//
+// What bounds it: bytes (the tables in, the descriptors out), but a scan
+// is a few latency chains.  Design: a warp a scan, blockDim / 32 scans a
+// block.  Every load of the prologue is in flight at once: a thread's
+// share of the cos/sin tables, which the block stages in shared memory
+// (kStaged; else the terms read them from global memory through L1), and
+// a lane's sectors, ring cells and bins of its scan (two sectors, eight
+// ring cells and a bin a lane at the main path's 64 x 4 x 32; loops take
+// what a batch does not hold), each divided in the lane that loaded it.
+// A zero over a positive divisor is kept as itself (quotient): the same
+// bits as the division, without its slow path.  Every lane adds the
+// histogram's quotients in order for the mean, so no lane waits for
+// another's chain.  Lane f owns frequency f
+// (f + 32, ... past 32) across all 1 + n_rings profiles, so each (cos,
+// sin) pair it reads feeds 2 (1 + n_rings) independent chains over the
+// sectors in order (dft_pass, 5 profiles a pass), the profiles read four
+// sectors a 16-byte broadcast load.  The squares of the descriptor are
+// formed a lane an element, then every lane adds them in order (broadcast
+// loads, eight 16-byte loads at a time): the norm's chain of D adds is the
+// one long serial part.  Dynamic shared memory: the tables (staged), then
+// per warp its profiles (reused for the squares) and its D descriptor
+// floats, each region a multiple of 16 bytes.
+constexpr int kSpectraChains = 5;  // profiles a lane's pass takes at once
+constexpr int kTableLoads = 8;     // float4 of the tables a thread loads
+constexpr int kSectorLoads = 2;    // sectors a lane's first batch holds
+constexpr int kRingLoads = 8;      // ring cells a lane's first batch holds
+constexpr int kOutLoads = 8;       // descriptor floats a lane's batch holds
+
+__host__ __device__ __forceinline__ int round4(int n) {
+  return (n + 3) & ~3;
+}
+
+// num / den, rounded as IEEE division; a zero num over a positive finite
+// den is that zero itself (what the division returns), without the
+// division's slow path, which a zero dividend takes.
+__device__ __forceinline__ float quotient(float num, float den) {
+  return num == 0.f && den > 0.f && den < __int_as_float(0x7f800000)
+             ? num
+             : num / den;
+}
+
+// |DFT| at frequency f of the kN profiles from p0 on: 2 kN chains over
+// the sectors in order from +0 (a term's product rounded, then added),
+// the profiles read four sectors a 16-byte broadcast load where
+// n_sectors is a multiple of 4.  Writes d[(p0 + j) F + f].
+template <int kN>
+__device__ __forceinline__ void dft_pass(const float* __restrict__ prof,
+                                         const float* ct, const float* st,
+                                         int n_sectors, int F, int f, int p0,
+                                         float* __restrict__ d) {
+  float re[kN], im[kN];
+#pragma unroll
+  for (int j = 0; j < kN; ++j) re[j] = im[j] = 0.f;
+  const float* pp = prof + p0 * n_sectors;
+  int a = 0;
+  if ((n_sectors & 3) == 0) {
+#pragma unroll 2
+    for (; a < n_sectors; a += 4) {
+      float c[4], sn[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        c[u] = ct[(a + u) * F + f];
+        sn[u] = st[(a + u) * F + f];
+      }
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        const float4 pv =
+            *reinterpret_cast<const float4*>(pp + j * n_sectors + a);
+        re[j] += pv.x * c[0];
+        im[j] += pv.x * sn[0];
+        re[j] += pv.y * c[1];
+        im[j] += pv.y * sn[1];
+        re[j] += pv.z * c[2];
+        im[j] += pv.z * sn[2];
+        re[j] += pv.w * c[3];
+        im[j] += pv.w * sn[3];
+      }
+    }
+  }
+  for (; a < n_sectors; ++a) {
+    const float c = ct[a * F + f], sn = st[a * F + f];
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      const float pv = pp[j * n_sectors + a];
+      re[j] += pv * c;
+      im[j] += pv * sn;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kN; ++j)
+    d[(p0 + j) * F + f] = sqrtf(re[j] * re[j] + im[j] * im[j]);
+}
+
+template <bool kStaged>
+__global__ void __launch_bounds__(256) scan_spectra(
     const float* __restrict__ sector_count,
     const float* __restrict__ sector_range,
     const float* __restrict__ ring_count, const float* __restrict__ hist,
     const float* __restrict__ total, const float* __restrict__ cos_t,
-    const float* __restrict__ sin_t, float range_max, int n_sectors,
+    const float* __restrict__ sin_t, int S, float range_max, int n_sectors,
     int n_rings, int n_bins, float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* prof = reinterpret_cast<float*>(smem);
+  extern __shared__ __align__(16) float sm[];
   const int F = n_sectors / 2;
   const int n_prof = 1 + n_rings;
   const int n_spec = n_prof * F;
   const int D = n_spec + n_bins;
-  float* d = prof + n_prof * n_sectors;
-  __shared__ float norm;
-
-  const size_t s = blockIdx.x;
+  const int n_ring = n_rings * n_sectors;
+  const int table = n_sectors * F;
+  const int region = round4(max(n_prof * n_sectors, D));
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  float* prof = sm + (kStaged ? round4(2 * table) : 0) +
+                w * (region + round4(D));  // [n_prof, n_sectors]
+  float* d = prof + region;                  // [D]
+  const size_t s = (size_t)blockIdx.x * (blockDim.x >> 5) + w;
+  const bool live = s < (size_t)S;
   sector_count += s * n_sectors;
   sector_range += s * n_sectors;
-  ring_count += s * n_rings * n_sectors;
+  ring_count += s * n_ring;
   hist += s * n_bins;
-  out += s * D;
-  const float points = total[s];
-  const float tot = fmaxf(points, 1.f);
-  for (int i = threadIdx.x; i < n_prof * n_sectors; i += blockDim.x) {
-    if (i < n_sectors)
-      prof[i] = sector_range[i] / fmaxf(sector_count[i], 1.f) / range_max;
-    else
-      prof[i] = ring_count[i - n_sectors] / tot;
+  // The first batch of the tables and of the scan's inputs, every load
+  // issued before any store.
+  const bool vec = (table & 3) == 0;
+  const int n4 = kStaged && vec ? table / 2 : 0;  // float4 of both tables
+  float4 tv[kTableLoads];
+#pragma unroll
+  for (int u = 0; u < kTableLoads; ++u) {
+    const int i = threadIdx.x + u * blockDim.x;
+    if (i < n4)
+      tv[u] = i < n4 / 2 ? reinterpret_cast<const float4*>(cos_t)[i]
+                         : reinterpret_cast<const float4*>(sin_t)[i - n4 / 2];
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < D; e += blockDim.x) {
-    if (e < n_spec) {
-      const float* p = prof + (e / F) * n_sectors;
-      const int f = e % F;
-      float re = 0.f, im = 0.f;
-      for (int a = 0; a < n_sectors; ++a) {
-        re += p[a] * cos_t[a * F + f];
-        im += p[a] * sin_t[a * F + f];
-      }
-      d[e] = sqrtf(re * re + im * im);
-    } else {
-      float sum = 0.f;
-      for (int b = 0; b < n_bins; ++b) sum += hist[b] / tot;
-      d[e] = hist[e - n_spec] / tot - sum / (float)n_bins;
+  float cnt[kSectorLoads], rng[kSectorLoads], ring[kRingLoads], hq = 0.f;
+#pragma unroll
+  for (int u = 0; u < kSectorLoads; ++u) {
+    const int i = lane + 32 * u;
+    if (live && i < n_sectors) {
+      cnt[u] = sector_count[i];
+      rng[u] = sector_range[i];
     }
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float sq = 0.f;
-    for (int e = 0; e < D; ++e) sq += d[e] * d[e];
-    norm = fmaxf(sqrtf(sq), 1e-12f);
+#pragma unroll
+  for (int u = 0; u < kRingLoads; ++u) {
+    const int i = lane + 32 * u;
+    if (live && i < n_ring) ring[u] = ring_count[i];
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < D; e += blockDim.x)
-    out[e] = points > 0.f ? d[e] / norm : 0.f;
+  if (live && lane < n_bins) hq = hist[lane];
+  const float points = live ? total[s] : 0.f;
+#pragma unroll
+  for (int u = 0; u < kTableLoads; ++u) {
+    const int i = threadIdx.x + u * blockDim.x;
+    if (i < n4) reinterpret_cast<float4*>(sm)[i] = tv[u];
+  }
+  if (kStaged) {  // what the first batch did not hold
+    if (vec) {
+      for (int i = threadIdx.x + kTableLoads * blockDim.x; i < n4;
+           i += blockDim.x)
+        reinterpret_cast<float4*>(sm)[i] =
+            i < n4 / 2 ? reinterpret_cast<const float4*>(cos_t)[i]
+                       : reinterpret_cast<const float4*>(sin_t)[i - n4 / 2];
+    } else {
+      for (int i = threadIdx.x; i < table; i += blockDim.x) {
+        sm[i] = cos_t[i];
+        sm[table + i] = sin_t[i];
+      }
+    }
+  }
+  // The profiles and the histogram's quotients, each in the lane that
+  // loaded it, then what the first batch did not hold.
+  const float tot = fmaxf(points, 1.f);
+  if (live) {
+#pragma unroll
+    for (int u = 0; u < kSectorLoads; ++u) {
+      const int i = lane + 32 * u;
+      if (i < n_sectors)
+        prof[i] = quotient(quotient(rng[u], fmaxf(cnt[u], 1.f)), range_max);
+    }
+#pragma unroll
+    for (int u = 0; u < kRingLoads; ++u) {
+      const int i = lane + 32 * u;
+      if (i < n_ring) prof[n_sectors + i] = quotient(ring[u], tot);
+    }
+    hq = quotient(hq, tot);
+    for (int i = lane + 32 * kSectorLoads; i < n_sectors; i += 32)
+      prof[i] = quotient(quotient(sector_range[i], fmaxf(sector_count[i],
+                                                          1.f)),
+                         range_max);
+    for (int i = lane + 32 * kRingLoads; i < n_ring; i += 32)
+      prof[n_sectors + i] = quotient(ring_count[i], tot);
+    for (int b = lane; b < n_bins; b += 32)
+      d[n_spec + b] = b < 32 ? hq : quotient(hist[b], tot);
+  }
+  if (kStaged) __syncthreads();
+  if (!live) return;
+  const float* ct = kStaged ? sm : cos_t;
+  const float* st = kStaged ? sm + table : sin_t;
+  __syncwarp();
+  // The histogram's mean, every lane adding the quotients in order
+  // (broadcast loads).
+  float sum = 0.f;
+#pragma unroll 8
+  for (int b = 0; b < n_bins; ++b) sum += d[n_spec + b];
+  const float mean = sum / (float)n_bins;
+  // |DFT| of every profile at lane f's frequencies, kSpectraChains
+  // profiles a pass (one at a time past the last full pass).
+  for (int f = lane; f < F; f += 32) {
+    int p0 = 0;
+    for (; p0 + kSpectraChains <= n_prof; p0 += kSpectraChains)
+      dft_pass<kSpectraChains>(prof, ct, st, n_sectors, F, f, p0, d);
+    for (; p0 < n_prof; ++p0)
+      dft_pass<1>(prof, ct, st, n_sectors, F, f, p0, d);
+  }
+  for (int b = lane; b < n_bins; b += 32) d[n_spec + b] -= mean;
+  __syncwarp();
+  // The squares a lane an element, over the profiles (kOutLoads loads a
+  // lane before their stores); every lane adds them in order, eight
+  // 16-byte broadcast loads at a time.
+  float* sq = prof;
+  float v[kOutLoads];
+#pragma unroll
+  for (int u = 0; u < kOutLoads; ++u) {
+    const int e = lane + 32 * u;
+    v[u] = e < D ? d[e] : 0.f;
+  }
+#pragma unroll
+  for (int u = 0; u < kOutLoads; ++u) {
+    const int e = lane + 32 * u;
+    if (e < D) sq[e] = v[u] * v[u];
+  }
+  for (int e = lane + 32 * kOutLoads; e < D; e += 32) sq[e] = d[e] * d[e];
+  __syncwarp();
+  float acc = 0.f;
+  {
+    const float4* sq4 = reinterpret_cast<const float4*>(sq);
+    const int m4 = D / 4;
+    int g = 0;
+    for (; g + 8 <= m4; g += 8) {  // eight loads, then their 32 adds
+      float4 x[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) x[u] = sq4[g + u];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        acc += x[u].x;
+        acc += x[u].y;
+        acc += x[u].z;
+        acc += x[u].w;
+      }
+    }
+    for (int e = 4 * g; e < D; ++e) acc += sq[e];
+  }
+  const float norm = fmaxf(sqrtf(acc), 1e-12f);
+  out += s * D;
+#pragma unroll
+  for (int u = 0; u < kOutLoads; ++u) {
+    const int e = lane + 32 * u;
+    if (e < D) out[e] = points > 0.f ? quotient(v[u], norm) : 0.f;
+  }
+  for (int e = lane + 32 * kOutLoads; e < D; e += 32)
+    out[e] = points > 0.f ? quotient(d[e], norm) : 0.f;
+}
+
+// Dynamic shared bytes of a spectra block of `warps` warps (kernels/
+// descriptors.py::spectra_shared).
+size_t spectra_shared(int n_sectors, int n_rings, int n_bins, int warps,
+                      int staged) {
+  const int F = n_sectors / 2, n_prof = 1 + n_rings;
+  const int D = n_prof * F + n_bins;
+  const int prof = n_prof * n_sectors;
+  const size_t region = round4(prof > D ? prof : D) + round4(D);
+  return ((staged ? (size_t)round4(2 * n_sectors * F) : 0) + warps * region) *
+         sizeof(float);
 }
 
 // Dynamic shared bytes of a bins block of `warps` warps.
@@ -291,24 +503,30 @@ size_t bins_shared(int P, int n_sectors, int n_rings, int n_bins,
 }  // namespace
 
 // The bin tables of ndt2d_descriptor_bins, cos_t and sin_t [n_sectors,
-// n_sectors/2] f32; out [S, (1+n_rings)*n_sectors/2 + n_bins] f32.
+// n_sectors/2] f32; out [S, (1+n_rings)*n_sectors/2 + n_bins] f32.  The
+// plan (kernels/descriptors.py::spectra_plan): `warps` scans a block (1,
+// 2, 4 or 8), the tables `staged` in shared memory or not; refused past
+// the default 48 KB of shared memory.
 NDT2D_API int ndt2d_descriptor_spectra(
     const void* sector_count, const void* sector_range,
     const void* ring_count, const void* hist, const void* total,
     const void* cos_t, const void* sin_t, int S, float range_max,
-    int n_sectors, int n_rings, int n_bins, void* out, void* stream) {
+    int n_sectors, int n_rings, int n_bins, int warps, int staged,
+    void* out, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int F = n_sectors / 2;
   const size_t shared =
-      ((size_t)(1 + n_rings) * (n_sectors + F) + n_bins) * sizeof(float);
-  if (shared > 48 * 1024) return (int)cudaErrorInvalidValue;
+      spectra_shared(n_sectors, n_rings, n_bins, warps, staged);
+  if (shared > 48 * 1024 || n_sectors < 2 || n_rings < 1 || n_bins < 1 ||
+      (warps != 1 && warps != 2 && warps != 4 && warps != 8))
+    return (int)cudaErrorInvalidValue;
   if (S == 0) return 0;
-  scan_spectra<<<S, kThreads, shared, st>>>(
+  const auto kernel = staged ? &scan_spectra<true> : &scan_spectra<false>;
+  kernel<<<(S + warps - 1) / warps, warps * 32, shared, st>>>(
       static_cast<const float*>(sector_count),
       static_cast<const float*>(sector_range),
       static_cast<const float*>(ring_count), static_cast<const float*>(hist),
       static_cast<const float*>(total), static_cast<const float*>(cos_t),
-      static_cast<const float*>(sin_t), range_max, n_sectors, n_rings,
+      static_cast<const float*>(sin_t), S, range_max, n_sectors, n_rings,
       n_bins, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }

@@ -8,10 +8,13 @@
 // flat index) and the 10 Olson sums through a fixed-shape warp tree, then
 // the warps in order.  finalize_row combines a row's (angle, tile)
 // partials in order and writes the [13] output row (score, correction,
-// row-major covariance), K2's layout, so K7 chains after either search: as
-// its own launch (finalize, a block a row) or inside K11's lattice launch,
-// by the row's last block.  Every sum has a fixed order, so a row's bits
-// depend neither on the launch nor on the other rows.
+// row-major covariance), K2's layout, so K7 chains after either search:
+// inside K11's lattice launch, by the row's last block, or as its own
+// launch (finalize, a block a row: the parent form of K11's lattice, kept
+// for comparison).  K6's rows fold in K2's finalize launch
+// (ndt2d::split_finalize, common.cuh), in the same order.  Every sum has a
+// fixed order, so a row's bits depend neither on the launch nor on the
+// other rows.
 #pragma once
 
 #include "common.cuh"

@@ -193,9 +193,10 @@ def ptr(t) -> int:
 
 
 @functools.lru_cache(maxsize=None)
+@functools.lru_cache(maxsize=None)
 def sm_count(index: int) -> int:
     """Streaming multiprocessors of CUDA device ``index`` (a launch plan
-    sizes its grid by them)."""
+    sizes its grid by them; asked once a device)."""
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 

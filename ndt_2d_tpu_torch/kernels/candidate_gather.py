@@ -20,8 +20,11 @@ The twin adds in the kernel's order (each candidate's beams from 0; the
 Olson sums per 256-offset tile through the warp tree, warps, tiles and
 angles in order), so on the same CUDA inputs kernel and twin agree
 bitwise.  For a device mesh (K12) the launch splits in two as K2's does:
-``partial_rows`` over one rank's block of angles, ``finalize_rows`` over
-the (angle, tile) partials of all angles gathered in rank order.
+``partial_rows`` over one rank's block of angles, then K2's finalize over
+the (angle, tile) partials of all angles gathered in rank order, read in
+place under a ``candidate_scores.SplitPlan`` (``per`` =
+``blocks_per_angle``); ``finalize_rows`` folds one [R, A * tiles, 12]
+buffer.
 
 KB3 (``ndt_2d_tpu/parallel/ndt_blocks.py::match_scan_sharded_map``):
 ``stripe_field`` scores the lattice against one y-stripe of a sharded map
@@ -291,31 +294,37 @@ def blocks_per_angle(dls) -> int:
 
 
 def partial_rows(config, grid: ndt_grid.NDTGrid, tables, points, point_mask,
-                 num_points, poses, dths, dls, a0: int, n: int):
+                 num_points, poses, dths, dls, a0: int, n: int, out=None):
     """K12's first half on K6: the (angle, tile) partials [R, n * tiles,
-    12] of angles a0 .. a0 + n - 1 (one rank's block), flat indices global;
-    arguments as K2's ``partial_rows``.  CPU tensors run the twin; CUDA
-    tensors launch the kernel."""
+    12] of angles a0 .. a0 + n - 1 (one rank's block), flat indices global,
+    written into ``out`` when given (a split plan's send buffer,
+    ``SplitPlan.head``); arguments as K2's ``partial_rows``.  CPU tensors
+    run the twin; CUDA tensors launch the kernel."""
     global partial_launches
     if points.device.type == "cpu":
-        return k2.partial_rows_twin(config, grid, tables, points, point_mask,
+        rows = k2.partial_rows_twin(config, grid, tables, points, point_mask,
                                     num_points, poses, dths, dls, a0, n,
                                     TILE, candidate_scores_gather)
+        return rows if out is None else out.copy_(rows)
     L = dls.shape[0]
     pl = plan(L, True, span_cells(config, grid.cell_size, L))
     out = k2.launch_partials("ndt2d_candidate_gather_partials", config,
                              grid.origin, grid.cell_size, tables, points,
                              point_mask, num_points, poses, dths, dls, a0, n,
-                             blocks_per_angle(dls), pl, not pl.fused)
+                             blocks_per_angle(dls), pl, not pl.fused,
+                             out=out)
     partial_launches += 1
     return out
 
 
 def finalize_rows(config, partials, num_points, dths, dls):
-    """K12's second half on K6: [R, 13] from the partials [R, A * tiles,
-    12] of every angle in (angle, tile) order.  Bitwise the one-launch
-    ``match_rows``.  CPU tensors run the twin; CUDA tensors launch the
-    kernel."""
+    """K12's second half on K6 and KB3's fold: [R, 13] from the partials
+    [R, A * tiles, 12] of every angle in (angle, tile) order (16-byte
+    aligned), folded by K2's finalize launch.  Bitwise the one-launch
+    ``match_rows``.  A split search folds its gathered stack in place
+    instead (``candidate_scores.SplitPlan`` at ``per`` =
+    ``blocks_per_angle``).  CPU tensors run the twin; CUDA tensors launch
+    the kernel."""
     global finalize_launches
     if partials.device.type == "cpu":
         return k2.finalize_rows_twin(config, partials, num_points, dths, dls)

@@ -628,8 +628,6 @@ def finalize_rows(config, partials, num_points, dths, dls):
     global finalize_launches
     if partials.device.type == "cpu":
         return finalize_rows_twin(config, partials, num_points, dths, dls)
-    if dths.shape[0] > 512:
-        raise ValueError("more than 512 angles is outside the kernel's range")
     out = launch_finalize("ndt2d_candidate_finalize", config, partials,
                           num_points, dths, dls, 1)
     finalize_launches += 1
@@ -639,6 +637,9 @@ def finalize_rows(config, partials, num_points, dths, dls):
 # --- K12: the split search's finalize, planned ----------------------------
 # Launches of the fused SLAM step's finalize with KB4's append in it.
 finalize_append_launches = 0
+# Launches of K6's planned finalize (a plan of more than one partial an
+# angle; the same kernel as K2's).
+gather_finalize_launches = 0
 
 _PLANNED_FINALIZE_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                           + [ctypes.c_void_p] * 2)
@@ -648,16 +649,20 @@ _FINALIZE_APPEND_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
 
 
 def gathered_rows(gathered, A: int):
-    """The partials [R, A, 12] of all A angles in angle order, read from a
-    split search's gathered send buffers [S, R, blk, 12] (blk = ceil(A /
-    S)) by the finalize's rule: rank s's [R, n_s, 12] block (n_s = min(blk,
+    """The partials [R, A * per, 12] of all A angles in (angle, tile)
+    order, read from a split search's gathered send buffers [S, R, blk *
+    per, 12] (blk = ceil(A / S); K2 one partial an angle, K6 ``per``) by
+    the finalize's rule: rank s's [R, n_s * per, 12] block (n_s = min(blk,
     A - s * blk) angles, none past the lattice's end) starts its buffer,
     whose tail is never read."""
-    S, R, blk = gathered.shape[:3]
-    if blk != -(-A // S):
-        raise ValueError(f"{S} blocks of {blk} angles do not split {A}")
+    S, R, width = gathered.shape[:3]
+    blk = -(-A // S)
+    if width % blk:
+        raise ValueError(f"{S} blocks of {width} partials do not split {A} "
+                         "angles")
+    per = width // blk
     flat = gathered.reshape(S, -1)
-    parts = [flat[s, :R * n * _PARTIAL].view(R, n, _PARTIAL)
+    parts = [flat[s, :R * n * per * _PARTIAL].view(R, n * per, _PARTIAL)
              for s, n in ((s, min(blk, A - s * blk)) for s in range(S))
              if n > 0]
     return torch.cat(parts, 1)
@@ -665,8 +670,8 @@ def gathered_rows(gathered, A: int):
 
 def finalize_gathered_twin(config, gathered, num_points, dths, dls):
     """Plain-PyTorch ``SplitPlan.finalize``: [R, 13] from the gathered send
-    buffers [S, R, blk, 12] read in place (``gathered_rows``), folded as
-    ``finalize_rows_twin`` folds them."""
+    buffers [S, R, blk * per, 12] read in place (``gathered_rows``), folded
+    as ``finalize_rows_twin`` folds them."""
     return finalize_rows_twin(config, gathered_rows(gathered, dths.shape[0]),
                               num_points, dths, dls)
 
@@ -686,7 +691,7 @@ class _SplitFinalize(ctypes.Structure):
     """``struct SplitFinalize`` (``csrc/candidate_scores.cu``)."""
 
     _fields_ = ([(f, ctypes.c_void_p) for f in ("gathered", "dths", "dls")]
-                + [(f, ctypes.c_int) for f in ("R", "A", "L", "blk",
+                + [(f, ctypes.c_int) for f in ("R", "A", "L", "blk", "per",
                                                "max_beams")])
 
 
@@ -705,35 +710,39 @@ def _planned_functions():
 
 
 class SplitPlan:
-    """K12's split K2 search of R rows on one rank of a ``space`` line of
-    S ranks, planned once for (device, S, R, A, L, the form of
-    ``num_points``): the rank's send buffer of R x blk partials (blk =
-    ceil(A / S)), whose head [R, n, 12] the partials launch writes
-    (``head``), the stack [S, R x blk x 12] the all-gather writes, and the
-    finalize's arguments packed into two ``SplitFinalize`` structures, one
-    reading the stack and one reading the send buffer (a group of one rank
-    gathers nothing: the send buffer is the stack), with the lattice and
-    ``max_beams`` (checked and packed again when they change: the
-    matcher's lattice is cached, ``_search_offsets``).  ``finalize`` reads
-    the stack in place, with no reordering copy, and makes one ctypes call
-    with the structure, the row counts, the output and the stream; it
-    allocates the [R, 13] output a call (a caller may keep a search's rows
-    while the next search runs).  Plans are kept (``split_plan``); every
-    launch of a plan's buffers runs on the current stream, in issue order.
-    On CPU tensors ``finalize`` runs ``finalize_gathered_twin`` (with an
-    append, ``finalize_append_twin``)."""
+    """K12's split search of R rows on one rank of a ``space`` line of S
+    ranks, planned once for (device, S, R, A, L, the form of
+    ``num_points``, ``per``): K2's (one partial an angle, ``per`` = 1) or
+    K6's (``per`` = ``candidate_gather.blocks_per_angle``, a partial a tile
+    of an angle's offsets).  The rank's send buffer of R x blk x per
+    partials (blk = ceil(A / S)), whose head [R, n * per, 12] the partials
+    launch writes (``head``), the stack [S, R x blk x per x 12] the
+    all-gather writes, and the finalize's arguments packed into two
+    ``SplitFinalize`` structures, one reading the stack and one reading the
+    send buffer (a group of one rank gathers nothing: the send buffer is
+    the stack), with the lattice and ``max_beams`` (checked and packed
+    again when they change: the matcher's lattice is cached,
+    ``_search_offsets``).  ``finalize`` reads the stack in place, with no
+    reordering copy, and makes one ctypes call with the structure, the row
+    counts, the output and the stream; it allocates the [R, 13] output a
+    call (a caller may keep a search's rows while the next search runs).
+    Plans are kept (``split_plan``); every launch of a plan's buffers runs
+    on the current stream, in issue order.  ``finalize`` refuses a buffer
+    that is not the plan's and ``num_points`` not in the planned form; on
+    CPU tensors it then runs ``finalize_gathered_twin`` (with an append,
+    ``finalize_append_twin``)."""
 
     def __init__(self, device, shards: int, R: int, A: int, L: int,
-                 nums: bool):
-        if not 1 <= A <= 512 or L * L > 1024 or shards < 1 or R < 1:
+                 nums: bool, per: int = 1):
+        if A < 1 or L < 1 or shards < 1 or R < 1 or per < 1:
             raise ValueError(f"a split of {A}x{L}x{L} candidates over "
-                             f"{shards} ranks, {R} rows, is outside the "
-                             "kernel's range")
+                             f"{shards} ranks, {R} rows, {per} partials an "
+                             "angle, is outside the kernel's range")
         self.device = torch.device(device)
         self.eager = self.device.type == "cpu"
-        self.shards, self.R, self.A, self.L = shards, R, A, L
+        self.shards, self.R, self.A, self.L, self.per = shards, R, A, L, per
         self.blk = blk = -(-A // shards)
-        n = R * blk * _PARTIAL
+        n = R * blk * per * _PARTIAL
         buf = torch.empty((shards + 1) * n, dtype=torch.float32,
                           device=self.device)
         self.send = buf[:n]
@@ -746,19 +755,23 @@ class SplitPlan:
         self._lattice = (None, None, None)  # (dths, dls, max_beams) packed
         self._out_shape = (R, 13)
         self._structs = {t.data_ptr(): _SplitFinalize(t.data_ptr(), None,
-                                                      None, R, A, L, blk, 0)
+                                                      None, R, A, L, blk,
+                                                      per, 0)
                          for t in (self.send, self.stack)}
         self._at = {k: ctypes.addressof(v) for k, v in self._structs.items()}
+        self._sizes = {t.data_ptr(): t.numel() for t in (self.send,
+                                                         self.stack)}
 
     def head(self, n: int):
-        """The send buffer's head [R, n, 12], where a block of n angles'
-        partials go."""
+        """The send buffer's head [R, n * per, 12], where a block of n
+        angles' partials go."""
         view = self._heads.get(n)
         if view is None:
             if not 0 < n <= self.blk:
                 raise ValueError(f"{n} angles: a block holds {self.blk}")
-            view = self._heads[n] = self.send[:self.R * n * _PARTIAL].view(
-                self.R, n, _PARTIAL)
+            m = n * self.per
+            view = self._heads[n] = self.send[:self.R * m * _PARTIAL].view(
+                self.R, m, _PARTIAL)
         return view
 
     def _pack(self, dths, dls, max_beams: int) -> None:
@@ -776,25 +789,27 @@ class SplitPlan:
         search's.  ``num_points`` an int32 [R] tensor or one int, as
         planned.  ``append`` (a ``kernels.slam_step.Append``, R = 1): the
         fused step's KB4 in the same launch."""
-        global finalize_launches, finalize_append_launches
+        global finalize_launches, finalize_append_launches, \
+            gather_finalize_launches
+        ptr = gathered.data_ptr()
+        at = self._at.get(ptr)
+        if at is None or gathered.numel() != self._sizes[ptr]:
+            raise ValueError("gathered: not this plan's send buffer or "
+                             "stack")
+        if isinstance(num_points, torch.Tensor) != self._nums:
+            raise TypeError("num_points: not in the planned form")
         if self.eager:
-            g = gathered.view(self.shards, self.R, self.blk, _PARTIAL)
+            g = gathered.view(-1, self.R, self.blk * self.per, _PARTIAL)
             if append is None:
                 return finalize_gathered_twin(config, g, num_points, dths,
                                               dls)
             _append_check(self, append)
             return finalize_append_twin(config, g, num_points, dths, dls,
                                         append)
-        at = self._at.get(gathered.data_ptr())
-        if at is None:
-            raise ValueError("gathered: not this plan's send buffer or "
-                             "stack")
         last = self._lattice
         if (dths is not last[0] or dls is not last[1]
                 or config.laser_max_beams != last[2]):
             self._pack(dths, dls, int(config.laser_max_beams))
-        if isinstance(num_points, torch.Tensor) != self._nums:
-            raise TypeError("num_points: not in the planned form")
         if self._nums:
             _build.require_all(self.device, (num_points,), self._nums_expect)
             nums, num = num_points.data_ptr(), 0
@@ -806,7 +821,10 @@ class SplitPlan:
         if append is None:
             _build.check(plain(at, nums, num, out.data_ptr(), st),
                          "candidate_finalize")
-            finalize_launches += 1
+            if self.per == 1:
+                finalize_launches += 1
+            else:
+                gather_finalize_launches += 1
             return out
         _append_check(self, append)
         a = append
@@ -821,7 +839,9 @@ class SplitPlan:
 
 
 def _append_check(plan: SplitPlan, append) -> None:
-    """Raise unless ``append`` fits a one-row plan on its device."""
+    """Raise unless ``append`` fits a one-row K2 plan on its device."""
+    if plan.per != 1:
+        raise ValueError("only K2's split search carries the append")
     if plan.R != 1:
         raise ValueError(f"the append rides in a one-row finalize, not "
                          f"{plan.R} rows")
@@ -836,11 +856,13 @@ _SPLIT_PLANS = {}
 
 
 def split_plan(device, shards: int, R: int, A: int, L: int,
-               nums: bool) -> SplitPlan:
+               nums: bool, per: int = 1) -> SplitPlan:
     """The kept ``SplitPlan`` of this key (``nums``: whether the searches
-    pass ``num_points`` as an int32 [R] tensor), made at its first use."""
-    key = (device, shards, R, A, L, nums)
+    pass ``num_points`` as an int32 [R] tensor; ``per``: the partials an
+    angle, 1 for K2), made at its first use."""
+    key = (device, shards, R, A, L, nums, per)
     plan = _SPLIT_PLANS.get(key)
     if plan is None:
-        plan = _SPLIT_PLANS[key] = SplitPlan(device, shards, R, A, L, nums)
+        plan = _SPLIT_PLANS[key] = SplitPlan(device, shards, R, A, L, nums,
+                                             per)
     return plan

@@ -9,7 +9,9 @@ angular sector, the sum of their ranges per sector, the points per (ring,
 sector), the points per range bin and the points of the scan.  ``spectra``
 turns these tables into the descriptors: the mean-range profile and the
 ring occupancy profiles through |DFT| over the sectors, the mean-centred
-range histogram, and the joint L2 norm.
+range histogram, and the joint L2 norm, a warp a scan (``spectra_plan``
+picks the scans a block and whether the DFT tables fit in its shared
+memory).
 
 The counts are exact in any order.  Every float sum (a sector's ranges over
 its points, a DFT term over the sectors, the histogram's mean, the norm)
@@ -37,7 +39,7 @@ spectra_launches = 0
 _ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_float]
          + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6)
 _SPECTRA_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_float]
-                 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+                 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
 
 
 class Bins(NamedTuple):
@@ -211,11 +213,62 @@ def spectra_twin(bins: Bins, range_max: float, n_sectors: int = 64,
     return torch.where(bins.total[:, None] > 0, out, torch.zeros_like(out))
 
 
+class SpectraPlan(NamedTuple):
+    warps: int    # scans a block, a warp each: 1, 2, 4 or 8
+    staged: int   # 1: the block stages the cos/sin tables in shared memory
+    smem: int     # its dynamic shared bytes
+
+
+SPECTRA_SHARED = 48 * 1024  # a block's dynamic shared memory, the default
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def spectra_shared(n_sectors: int, n_rings: int, n_bins: int, warps: int,
+                   staged: int) -> int:
+    """Dynamic shared bytes of a spectra block (``spectra_shared`` of
+    csrc/descriptors.cu): the cos and sin tables where staged, then a warp's
+    profiles (its squares later) and its descriptor, each rounded up to 16
+    bytes."""
+    half, prof = n_sectors // 2, (1 + n_rings) * n_sectors
+    D = (1 + n_rings) * half + n_bins
+    region = _round4(max(prof, D)) + _round4(D)
+    return 4 * ((_round4(2 * n_sectors * half) if staged else 0)
+                + warps * region)
+
+
+@functools.lru_cache(maxsize=None)
+def spectra_plan(S: int, n_sectors: int = 64, n_rings: int = 4,
+                 n_bins: int = 32, sms: int = 132) -> SpectraPlan:
+    """The spectra launch of S scans: blocks of 8 warps where that still
+    gives every SM a block (S >= 8 sms), else 4, fewer where a block's
+    warps do not fit in the default 48 KB of shared memory; the tables
+    staged where they fit beside them.  Raises where one warp's part does
+    not fit."""
+    if min(n_sectors // 2, n_rings, n_bins) < 1:
+        raise ValueError(f"{n_sectors} sectors x {n_rings} rings, {n_bins} "
+                         "bins is outside the kernel's range")
+    warps = 8 if S >= 8 * sms else 4
+    while (warps > 1 and spectra_shared(n_sectors, n_rings, n_bins, warps,
+                                        0) > SPECTRA_SHARED):
+        warps //= 2
+    smem = spectra_shared(n_sectors, n_rings, n_bins, warps, 1)
+    if smem <= SPECTRA_SHARED:
+        return SpectraPlan(warps, 1, smem)
+    smem = spectra_shared(n_sectors, n_rings, n_bins, warps, 0)
+    if smem > SPECTRA_SHARED:
+        raise ValueError(f"{n_sectors} sectors x {n_rings} rings, {n_bins} "
+                         "bins is outside the kernel's range")
+    return SpectraPlan(warps, 0, smem)
+
+
 def spectra(bins: Bins, range_max: float, n_sectors: int = 64,
             n_rings: int = 4, n_bins: int = 32):
     """The L2-normalized descriptors [S, (1 + n_rings) * n_sectors / 2 +
-    n_bins] of K10's bin tables, in one launch.  CPU tensors run the twin;
-    CUDA tensors launch the kernel."""
+    n_bins] of K10's bin tables, in one launch (``spectra_plan``).  CPU
+    tensors run the twin; CUDA tensors launch the kernel."""
     global spectra_launches
     dev = bins.total.device
     if dev.type == "cpu":
@@ -226,18 +279,16 @@ def spectra(bins: Bins, range_max: float, n_sectors: int = 64,
                                n_bins)):
         _build.require(t, name, torch.float32, (S, width), dev)
     _build.require(bins.total, "total", torch.float32, (S,), dev)
-    half = n_sectors // 2
-    width = (1 + n_rings) * half + n_bins
-    if (min(half, n_rings, n_bins) < 1
-            or 4 * ((1 + n_rings) * (n_sectors + half) + n_bins) > 48 * 1024):
-        raise ValueError(f"{n_sectors} sectors x {n_rings} rings, {n_bins} "
-                         "bins is outside the kernel's range")
+    plan = spectra_plan(S, n_sectors, n_rings, n_bins, _build.sm_count(
+        dev.index if dev.index is not None else torch.cuda.current_device()))
     cos_t, sin_t = dft_tables(n_sectors, dev)
-    out = torch.empty(S, width, dtype=torch.float32, device=dev)
+    out = torch.empty(S, (1 + n_rings) * (n_sectors // 2) + n_bins,
+                      dtype=torch.float32, device=dev)
     p = _build.ptr
     err = _build.function("ndt2d_descriptor_spectra", _SPECTRA_ARGS)(
         *[p(t) for t in bins], p(cos_t), p(sin_t), S, float(range_max),
-        n_sectors, n_rings, n_bins, p(out), _build.stream_ptr(dev))
+        n_sectors, n_rings, n_bins, plan.warps, plan.staged, p(out),
+        _build.stream_ptr(dev))
     _build.check(err, "descriptor_spectra")
     spectra_launches += 1
     return out

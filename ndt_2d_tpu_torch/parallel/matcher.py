@@ -11,26 +11,22 @@ folds all of them in angle order (K12's finalize).  The fold is the one
 the one-launch search makes, so the sharded search equals the
 single-device one bitwise, on every rank.
 
-K2's split search runs under a plan (``kernels/candidate_scores.py::
-SplitPlan``): the partials launch writes the head of the plan's send
-buffer, the all-gather writes the plan's stack, and the finalize reads the
-stack in place (a short or empty last block's unread tail is its
-padding).  On an NCCL group, or a group of one rank, no tensor operation
-runs between the partials and the finalize; over gloo the stack comes
-through the host into the plan's stack.  With the fused SLAM step's
-``append`` the finalize also writes KB4's append in the same launch.
-K6's split search pads its blocks with best = +inf and zero sums,
-reorders the stack by a copy and drops the padding before its finalize.
-The JAX mesh instead pads with angle-0 candidates whose scores it zeroes
-(``_padded_angles``); both give the single-device winner, except that on
-an all-zero score field JAX's padded slots tie with the real first
-candidate (its tie-break keeps the real one) while here they never
-enter.
+Both searches' split runs under a plan (``kernels/candidate_scores.py::
+SplitPlan``, at K6's partials an angle for K6): the partials launch writes
+the head of the plan's send buffer, the all-gather writes the plan's
+stack, and the finalize reads the stack in place (a short or empty last
+block's unread tail is its padding).  On an NCCL group, or a group of one
+rank, no tensor operation runs between the partials and the finalize;
+over gloo the stack comes through the host into the plan's stack.  With
+the fused SLAM step's ``append`` (K2 only) the finalize also writes KB4's
+append in the same launch.  The JAX mesh instead pads with angle-0
+candidates whose scores it zeroes (``_padded_angles``); both give the
+single-device winner, except that on an all-zero score field JAX's padded
+slots tie with the real first candidate (its tie-break keeps the real one)
+while here they never enter.
 """
 
 from __future__ import annotations
-
-import math
 
 import torch
 
@@ -57,45 +53,17 @@ def search_rows(kern, config, mesh, grid, tables, points, point_mask,
     ``match_rows``' (``num_points`` an int32 [R] tensor or one int).
     ``append`` (K2 only, a ``kernels.slam_step.Append``): the fused SLAM
     step's KB4, carried by the finalize's launch."""
+    if append is not None and kern is not k2:
+        raise ValueError("only K2's split search carries the append")
     S = axis_size(mesh, SPACE_AXIS)
     a0, n = angle_block(dths.shape[0], S, axis_rank(mesh, SPACE_AXIS))
     group = axis_group(mesh, SPACE_AXIS)
-    if kern is not k2:
-        if append is not None:
-            raise ValueError("only K2's split search carries the append")
-        return _search_reordered(kern, config, group, S, a0, n, grid, tables,
-                                 points, point_mask, num_points, poses, dths,
-                                 dls)
     plan = k2.split_plan(points.device, S, points.shape[0], dths.shape[0],
-                         dls.shape[0], isinstance(num_points, torch.Tensor))
+                         dls.shape[0], isinstance(num_points, torch.Tensor),
+                         kern.blocks_per_angle(dls))
     if n:
-        k2.partial_rows(config, grid, tables, points, point_mask, num_points,
-                        poses, dths, dls, a0, n, out=plan.head(n))
+        kern.partial_rows(config, grid, tables, points, point_mask,
+                          num_points, poses, dths, dls, a0, n,
+                          out=plan.head(n))
     every = distributed.gather(plan.send, group, out=plan.stack)
     return plan.finalize(config, every, num_points, dths, dls, append)
-
-
-def _search_reordered(kern, config, group, S: int, a0: int, n: int, grid,
-                      tables, points, point_mask, num_points, poses, dths,
-                      dls):
-    """K6's split search: this rank's partials padded to its block, the
-    stack reordered into angle order by a copy, the finalize."""
-    A = dths.shape[0]
-    per = kern.blocks_per_angle(dls)
-    slots = -(-A // S) * per
-    R, dev = points.shape[0], points.device
-    parts = []
-    if n:
-        parts.append(kern.partial_rows(config, grid, tables, points,
-                                       point_mask, num_points, poses, dths,
-                                       dls, a0, n))
-    if n * per < slots:
-        pad = torch.zeros(R, slots - n * per, 12, dtype=torch.float32,
-                          device=dev)
-        pad[..., 0].fill_(math.inf)
-        parts.append(pad)
-    mine = torch.cat(parts, 1) if len(parts) > 1 else parts[0]
-    every = distributed.gather(mine, group)
-    every = every.permute(1, 0, 2, 3).reshape(R, S * slots, 12)
-    return kern.finalize_rows(config, every[:, :A * per].contiguous(),
-                              num_points, dths, dls)
