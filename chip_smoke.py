@@ -60,6 +60,18 @@
                                   # [4r]'s winners, in DIR (an older git
                                   # archive, this script copied in) and
                                   # here: parent, change, change, parent
+    python3 chip_smoke.py --score-fold-times DIR  # K11's lattice alone
+                                  # and with its point score, a matched
+                                  # correlative scan through the matcher
+                                  # (device ops, host us), and KB2's
+                                  # stripe scores (graph ms, cuda_ms,
+                                  # host us, device ops, output sha256),
+                                  # the goals met or missed, and the
+                                  # decisions of the correlative box drive
+                                  # and [4r]'s winners, in DIR (an older
+                                  # git archive, this script copied in)
+                                  # and here: parent, change, change,
+                                  # parent
     python3 chip_smoke.py --optimize-times  # the mapper's optimize ms, 3
                                             # runs of the office recipe,
                                             # config 9 and drift, and LM
@@ -141,9 +153,13 @@ Phases (any failure exits non-zero):
     bitwise against its twins and reproducible, the field (one cluster
     launch, one device operation a build in a CUDA graph) bitwise the
     seven-step form and timed beside it in a CUDA graph, the lattice (one
-    launch) bitwise the parent's two launches and timed beside them, and
+    launch) bitwise the parent's two launches and timed beside them, the
+    point score in the lattice's launch (the mapper's form: one device
+    operation, the rows unchanged) bitwise the standalone point_scores
+    and the twin, timed beside the lattice then point_scores, and
     64 lattice rows each bitwise equal to its R = 1 launch and to the
-    parent's, at config-2 shapes and at the shape of (o)'s box drive
+    parent's, their fused point scores to point_scores' at each row's
+    pose, at config-2 shapes and at the shape of (o)'s box drive
     (160x160 cells, the widened 80x40x40 lattice); then the field at 128 x
     128, 200 x 150 (15 CTAs) and 202 x 150 (forced to 8), 512 x 512 (16
     CTAs of 156 kB), 1024 x 352 (16 CTAs of 229 kB), 1024 x 353 (the
@@ -173,8 +189,11 @@ Phases (any failure exits non-zero):
     (K10's search and ``rank_sum`` also timed on the device alone, in a
     CUDA graph, beside their library calls); K12·blocks on config 4's saved
     map: KB1 (the stripe build) on every stripe of 2 and of 4, bitwise its
-    twin and the dense K1 rows, KB2 (the stripe scores) over the 5000
-    particles and the scan's world points, KB3 (a localization scan's
+    twin and the dense K1 rows, KB2 (the stripe scores: K3's particle
+    launch reading KB1's stripe table, one record a beam) over the 5000
+    particles on stripes 0 and 1 of 2, 20,000 on stripe 0 and the scan's
+    world points (one block), each bitwise its twin, the SoA twin and the
+    SoA launch (the parent design), KB3 (a localization scan's
     stripe field, then the reduction of two stripes' summed field and
     K6's fold of it) and KB4
     (the fused step's append into a 256-slot state; planned, 64 appends
@@ -332,7 +351,8 @@ Phases (any failure exits non-zero):
     optimization, final ATE below the odometry ATE of the same run; (o)
     the correlative matcher on the box drive of tests/test_correlative.py
     (>= 12 of 14 accepted, ATE below odometry's and < 0.15 m, one K11
-    field, lattice and score launch a matched scan), then on the config-2
+    field and lattice launch a matched scan, the point score inside the
+    lattice's: no standalone score launch), then on the config-2
     corridor with the widened local lattice, printed and not gated;
     the mesh path (K12): (p) one rank over NCCL on cuda:0, BASELINE config
     10 (benchmarks/mesh_slam_bench.py:48-62, the 600-scan office bag with
@@ -6230,13 +6250,6 @@ def k11_shape(mc, win, query, odom, pts, msk, ks, rmax, dev, what):
           f"{new_graph:.5f} ms, host {new_host:.1f} us [parent, two "
           f"launches: {par_ms:.4f} ms, in a CUDA graph {par_graph:.5f} ms, "
           f"host {par_host:.1f} us] (graph nodes of a match: {kernels})")
-    out["correlative_match"] = timed(
-        0.0, new_ms, cuda_ms(lambda: k11.match_twin(*margs), 3),
-        *cost_lattice_tables(mc, o, *margs[3:]),
-        graph_ms=(new_graph, None))
-    print(f"[5] K11 lattice, {what}: bound "
-          f"{out['correlative_match']['bound_ms']:.6f} ms (by "
-          f"{out['correlative_match']['bound_by']})")
 
     sargs = (mc, f, o, query["points"], query["point_mask"],
              query["num_points"], query["pose"][None])
@@ -6245,10 +6258,51 @@ def k11_shape(mc, win, query, odom, pts, msk, ks, rmax, dev, what):
             f"from the twin's {float(ut[0])} ({what})")
     spts, smask, used = used_beams(mc, *sargs[3:6])
     keys = cells_read(mc, o, mc.ndt_resolution, spts, smask, sargs[6])
+    score_cost = (4 * keys.numel() + used * 9 + 16, 12 * used)
     out["correlative_score"] = timed(
         0.0, cuda_ms(lambda: k11.score_batch(*sargs), 20),
-        cuda_ms(lambda: k11.score_batch_twin(*sargs), 5),
-        4 * keys.numel() + used * 9 + 16, 12 * used)
+        cuda_ms(lambda: k11.score_batch_twin(*sargs), 5), *score_cost,
+        graph_ms=(graph_ms(lambda: k11.score_batch(*sargs), 20), None))
+    # The point score in the lattice's launch (the mapper's match): the
+    # rows unchanged, the score bitwise the standalone kernel's and the
+    # twin's, reproducible; timed as the main path launches it.
+    frow, fu = k11.match(*margs, with_unc=True)
+    frow2, fu2 = k11.match(*margs, with_unc=True)
+    torch.cuda.synchronize()
+    require(torch.equal(frow, row) and torch.equal(frow2, row),
+            f"K11 lattice with its point score: rows differ ({what})")
+    require(torch.equal(fu, u) and torch.equal(fu, ut)
+            and torch.equal(fu2, fu),
+            f"K11 fused point score {float(fu[0])} differs from "
+            f"point_scores' {float(u[0])} or the twin's ({what})")
+    fused_ms = cuda_ms(lambda: k11.match(*margs, with_unc=True), 20)
+    fused_graph = graph_ms(lambda: k11.match(*margs, with_unc=True), 20)
+    fused_host = host_us(lambda: k11.match(*margs, with_unc=True), 20,
+                         sync=True)
+    two = (lambda: (k11.match(*margs), k11.score_batch(*sargs)))
+    two_graph = graph_ms(two, 20)
+    fused_ops = graph_nodes(lambda: k11.match(*margs, with_unc=True))
+    require(fused_ops == ["kernel"], f"K11 lattice with its point score "
+            f"({what}): one call enqueued {fused_ops}")
+    lattice_cost = cost_lattice_tables(mc, o, *margs[3:])
+    out["correlative_match"] = timed(
+        0.0, fused_ms, cuda_ms(lambda: (k11.match_twin(*margs),
+                                        k11.score_batch_twin(*sargs)), 3),
+        *sum_costs([lattice_cost, score_cost]),
+        graph_ms=(fused_graph, None))
+    print(f"[3] K11 point score in the lattice's launch, {what}: "
+          f"{float(fu[0]):.6f}, bitwise point_scores and the twin, "
+          f"reproducible, rows bitwise the lattice alone; one device "
+          f"operation ({fused_ops}); lattice + score {fused_ms:.4f} ms, in "
+          f"a CUDA graph {fused_graph:.5f} ms, host {fused_host:.1f} us "
+          f"[lattice alone {new_graph:.5f}, lattice then point_scores "
+          f"{two_graph:.5f}]; point_scores alone "
+          f"{out['correlative_score']['ms']:.4f} ms, graph "
+          f"{out['correlative_score']['graph_ms'][0]:.5f}; bounds: score "
+          f"{out['correlative_score']['bound_ms']:.8f} ms, lattice + score "
+          f"{out['correlative_match']['bound_ms']:.6f} ms (by "
+          f"{out['correlative_match']['bound_by']}); library: none (no "
+          f"call scores a lattice or gathers a field's mean)")
 
     R, D = len(ks), win["points"].shape[0]
     fields, origins = [], []
@@ -6271,11 +6325,18 @@ def k11_shape(mc, win, query, odom, pts, msk, ks, rmax, dev, what):
     many = k11.match_rows(mc, *rows, dths, dls)
     require(torch.equal(many, parent_match_rows(mc, *rows, dths, dls)),
             f"K11 lattice rows differ from the parent's launches ({what})")
+    many_u, uncs = k11.match_rows(mc, *rows, dths, dls, with_unc=True)
+    require(torch.equal(many_u, many), f"K11 lattice rows with their point "
+            f"scores differ from the rows alone ({what})")
     for r in range(R):
         one = k11.match(mc, rows[0][r], rows[1][r], rows[2][r], rows[3][r],
                         int(rows[4][r]), rows[5][r], dths, dls)
         require(torch.equal(many[r:r + 1], one),
                 f"K11 lattice row {r} differs from its R = 1 launch ({what})")
+        ur = k11.score_batch(mc, rows[0][r], rows[1][r], rows[2][r],
+                             rows[3][r], int(rows[4][r]), rows[5][r][None])
+        require(torch.equal(uncs[r:r + 1], ur), f"K11 fused point score of "
+                f"row {r} differs from point_scores' ({what})")
     print(f"[3] K11 correlative, {what}: field of {S} scans x {P} points on "
           f"{W}x{H} cells ({int((ids >= 0).sum())} hits, peak-normalized), "
           f"lattice of {sc.numel()} candidates (score {float(row[0, 0]):.5f}, "
@@ -6286,7 +6347,8 @@ def k11_shape(mc, win, query, odom, pts, msk, ks, rmax, dev, what):
           f"beams past their windows); "
           f"{R} lattice rows bitwise equal to their R = 1 launches and to "
           f"the parent's ({int((many[:, 0] < -0.3).sum())} score below "
-          f"-0.3)")
+          f"-0.3), their fused point scores bitwise point_scores' at each "
+          f"row's pose")
     return out
 
 
@@ -6812,10 +6874,11 @@ def correlative_box_config():
                         max_points_per_scan=512, loop_closure_every=10**9)
 
 
-def correlative_box(dev):
+def correlative_box(dev, scores: bool = False):
     """The box drive of tests/test_correlative.py:68-99 with the
     correlative matcher: (accepted, scans, ATE, odometry ATE, the accepted
-    poses' sha256)."""
+    poses' sha256), with ``scores`` also the sha256 of every scan's
+    uncorrected and matched scores."""
     import numpy as np
 
     from ndt_2d_tpu_torch.mapping.mapper import Mapper
@@ -6826,16 +6889,18 @@ def correlative_box(dev):
                       np.zeros(n)], -1)
     odom = sim.drift_odometry(truth, 0.04, 0.012, seed=3)
     mapper = Mapper(correlative_box_config(), device=dev)
-    est, tru = [], []
+    est, tru, both = [], [], []
     for t in range(n):
         msg = sim.scan_at_pose(world, truth[t], n_beams=360, range_max=12.0,
                                noise=0.01, rng=np.random.default_rng(t))
         res = mapper.process_scan(msg, odom[t])
+        both.append((res.uncorrected_score, res.matched_score))
         if res.accepted:
             est.append(res.pose)
             tru.append(truth[t])
-    return (len(est), n, metrics.ate_rmse(np.asarray(est), np.asarray(tru)),
-            metrics.ate_rmse(odom, truth), poses_digest(np.asarray(est)))
+    out = (len(est), n, metrics.ate_rmse(np.asarray(est), np.asarray(tru)),
+           metrics.ate_rmse(odom, truth), poses_digest(np.asarray(est)))
+    return out + (poses_digest(np.asarray(both)),) if scores else out
 
 
 def phase_correlative(cfg, bag, dev):
@@ -6848,19 +6913,24 @@ def phase_correlative(cfg, bag, dev):
 
     import numpy as np
     reset_counts()
-    acc, n, ate, odom, digest = correlative_box(dev)
+    acc, n, ate, odom, digest, sdigest = correlative_box(dev, scores=True)
     launches = read_counts()
     require(acc >= 12, f"correlative box: {acc} of {n} accepted")
     require(ate < odom and ate < 0.15,
             f"correlative box ATE {ate} (odometry {odom})")
-    for k in ("correlative_field", "correlative_match", "correlative_score"):
+    # The point score rides in the lattice's launch: no standalone score
+    # launch.
+    for k in ("correlative_field", "correlative_match"):
         require(launches[k] == acc - 1, f"correlative box: {k} launched "
                 f"{launches[k]} times, expected {acc - 1}")
+    require(launches["correlative_score"] == 0, f"correlative box: "
+            f"correlative_score launched {launches['correlative_score']} "
+            "times, expected 0 (the score is the lattice launch's)")
     require(launches["ndt_build"] == 0 and launches["candidate_scores"] == 0,
             f"correlative box ran an NDT kernel: {launches}")
     print(f"[4o] correlative matcher, box drive: {acc}/{n} accepted, ATE "
-          f"{ate:.4f} m (odometry {odom:.4f}), poses sha256 {digest}; "
-          f"launches {launches}")
+          f"{ate:.4f} m (odometry {odom:.4f}), poses sha256 {digest}, "
+          f"scores sha256 {sdigest}; launches {launches}")
     local = dataclasses.replace(cfg.local_scan_matcher,
                                 search_linear_size=0.15,
                                 search_linear_resolution=0.0075)
@@ -8249,35 +8319,89 @@ def phase_kb(path4, bag4, dev):
                g.covariance, g.count, tab),
         ops_ndt_build(1, 1, n_pts, h * W))
 
-    # KB2 over config 4's 5000 particles, and over the scan's world points.
+    # KB2 over config 4's 5000 particles, and over the scan's world points:
+    # the particle launch's record read against its twin, the SoA twin and
+    # the SoA launch (the parent design), on stripe 0 and on stripe 1 (row0
+    # = h), and at config 7's 20,000 particles.
     q, qm, n, center = map4_scan(bag4, 40, cfg, dev)
     poses = particle_poses(center, PARTICLES, dev)
     B = mc.laser_max_beams
-    a2 = (g, W, 0, h, B, q, qm, n, poses)
-    sc, sct = k3.stripe_poses(*a2), k3.stripe_poses_twin(*a2)
-    require(torch.equal(sc, sct), "KB2 (poses) differs from its twin")
-    require(torch.equal(sc, k3.stripe_poses(*a2)),
-            "KB2 not bitwise reproducible")
+    (g1, tab1), _ = stripe_of(m, kf, 2, 1)
+    for sg, stab, row0, M in ((g, tab, 0, PARTICLES), (g1, tab1, h, PARTICLES),
+                              (g, tab, 0, GLOBAL_PARTICLES)):
+        ps = poses if M == PARTICLES else particle_poses(center, M, dev)
+        soa_args = (sg, W, row0, h, B, q, qm, n, ps)
+        sc = k3.stripe_poses(sg, stab, W, row0, h, B, q, qm, n, ps)
+        sct = k3.records_twin(sg, stab, W, h, B, q, qm, n, ps, row0, True)
+        require(torch.equal(sc, sct), f"KB2 (poses, row0 {row0}, {M}) "
+                "differs from its twin")
+        require(torch.equal(sc, k3.stripe_poses_twin(*soa_args))
+                and torch.equal(sc, k3.stripe_poses_soa(*soa_args)),
+                f"KB2 (poses, row0 {row0}, {M}) differs from the SoA twin "
+                "or launch")
+        require(torch.equal(sc, k3.stripe_poses(sg, stab, W, row0, h, B, q,
+                                                qm, n, ps)),
+                "KB2 not bitwise reproducible")
+    a2 = (g, tab, W, 0, h, B, q, qm, n, poses)
+    soa2 = (g, W, 0, h, B, q, qm, n, poses)
     world = pose_ops.transform_points(center, q).contiguous()
-    wp, wpt = (k3.stripe_points(g, W, 0, h, world, qm),
+    P = world.shape[0]
+    identity = torch.zeros(1, 3, device=dev)
+    wp, wpt = (k3.stripe_points(g, tab, W, 0, h, world, qm),
                k3.stripe_points_twin(g, W, 0, h, world, qm))
-    require(torch.equal(wp, wpt), "KB2 (points) differs from its twin")
+    wsoa = -k3.stripe_poses_soa(g, W, 0, h, P, world, qm, P, identity)
+    require(torch.equal(wp, wpt) and torch.equal(wp, wsoa),
+            "KB2 (points) differs from its twin or the SoA launch")
     spts, smask, used = used_beams(mc, q, qm, n)
     c, s_ = torch.cos(poses[:, 2:3]), torch.sin(poses[:, 2:3])
     x = c * spts[:, 0] - s_ * spts[:, 1] + poses[:, 0:1]
     y = s_ * spts[:, 0] + c * spts[:, 1] + poses[:, 1:2]
     keys = stripe_keys(mc, grid.origin, cell, x, y,
                        smask[None].expand_as(x), 0, h)
+    new_graph = graph_ms(lambda: k3.stripe_poses(*a2), 20)
+    soa_graph = graph_ms(lambda: k3.stripe_poses_soa(*soa2), 20)
     out["stripe_score"] = timed(
         0.0, cuda_ms(lambda: k3.stripe_poses(*a2), 20),
-        cuda_ms(lambda: k3.stripe_poses_twin(*a2), 3),
+        cuda_ms(lambda: k3.records_twin(g, tab, W, h, B, q, qm, n, poses, 0,
+                                        True), 3),
         cell_bytes(keys, g.count) + used * 9 + PARTICLES * 16,
-        PARTICLES * used * 20)
-    pts_ms = cuda_ms(lambda: k3.stripe_points(g, W, 0, h, world, qm), 20)
-    print(f"[3] KB2 stripe_score: {PARTICLES} particles on stripe 0 of 2 "
-          f"and the scan's {int(qm.sum())} world points ({float(wp):.4f}), "
-          f"bitwise equal to the twins and reproducible; world-point entry "
-          f"{pts_ms:.4f} ms")
+        PARTICLES * used * 20, graph_ms=(new_graph, None))
+    wkeys = stripe_keys(mc, grid.origin, cell, world[:, 0], world[:, 1], qm,
+                        0, h)
+    pts_ms = cuda_ms(lambda: k3.stripe_points(g, tab, W, 0, h, world, qm), 20)
+    pts_graph = graph_ms(lambda: k3.stripe_points(g, tab, W, 0, h, world,
+                                                  qm), 20)
+    pts_soa = graph_ms(lambda: k3.stripe_poses_soa(g, W, 0, h, P, world, qm,
+                                                   P, identity), 20)
+    # The one-pose forms of the record read, each launch alone: a block
+    # (the entry's form at M = 1) and warps (the particle launch at M = 2,
+    # the same identity twice: a warp a pose).
+    twice = torch.zeros(2, 3, device=dev)
+    wblock = k3.stripe_poses(g, tab, W, 0, h, P, world, qm, P, identity)
+    wwarps = k3.stripe_poses(g, tab, W, 0, h, P, world, qm, P, twice)
+    require(torch.equal(-wblock, wp) and torch.equal(wwarps, wblock.expand(2)),
+            "KB2 (points): the record read's block and warp forms differ")
+    pts_block = graph_ms(lambda: k3.stripe_poses(g, tab, W, 0, h, P, world,
+                                                 qm, P, identity), 20)
+    pts_warps = graph_ms(lambda: k3.stripe_poses(g, tab, W, 0, h, P, world,
+                                                 qm, P, twice), 20)
+    pts_bound = timed(0.0, pts_ms, 0.0,
+                      cell_bytes(wkeys, g.count) + P * 9 + 16, P * 20)
+    print(f"[3] KB2 stripe_score: {PARTICLES} particles on stripe 0 and on "
+          f"stripe 1 of 2, {GLOBAL_PARTICLES} on stripe 0, and the scan's "
+          f"{int(qm.sum())} world points ({float(wp):.4f}): the particle "
+          f"launch reading KB1's stripe table (one record a beam) bitwise "
+          f"its twin (records_twin at row0), the SoA twin and the SoA "
+          f"launch, reproducible; {PARTICLES} particles "
+          f"{out['stripe_score']['ms']:.4f} ms, in a CUDA graph "
+          f"{new_graph:.5f} ms [SoA launch {soa_graph:.5f}], bound "
+          f"{out['stripe_score']['bound_ms']:.6f} ms "
+          f"({out['stripe_score']['bound_by']}); world points (one block) "
+          f"{pts_ms:.4f} ms, graph {pts_graph:.5f} with its sign flip, the "
+          f"launch alone {pts_block:.5f} [a warp a pose, M = 2: "
+          f"{pts_warps:.5f}; SoA launch {pts_soa:.5f}], bound "
+          f"{pts_bound['bound_ms']:.8f} ({pts_bound['bound_by']}); library: "
+          f"none (gather + exp + sum: no one call)")
 
     # KB3: one localization scan's field on stripe 0 of 2, and the
     # reduction of the two stripes' summed field.
@@ -8291,7 +8415,6 @@ def phase_kb(path4, bag4, dev):
     require(torch.equal(f0, f0t), "KB3 field differs from its twin")
     require(torch.equal(f0, k6.stripe_field(*a3)),
             "KB3 field not bitwise reproducible")
-    (g1, tab1), _ = stripe_of(m, kf, 2, 1)
     f1 = k6.stripe_field(mc, g1, tab1, h, h, lq, lqm, ln, start, dths, dls)
     total = f0 + f1
     p, pt = (k6.field_partials(total, dths, dls),
@@ -9443,6 +9566,227 @@ def spectra_finalize_arms(parent: str) -> int:
     return 0 if ok else 1
 
 
+def score_fold_times(dev, ident: str, decisions: bool) -> dict:
+    """``--score-fold-arm``: in this process's tree, K11's lattice alone
+    and with the point score (the tree's form: one launch with
+    ``with_unc``, or the lattice then ``score_batch``) at the box drive's
+    and config 2's shapes; a matched correlative scan through the matcher
+    (the field, then the score and the match: the tree's fused call, or
+    ``score_points`` then ``match_scan``) and its score and match alone,
+    beside ``match_scan`` alone; KB2's stripe scores over 5000 and 20,000
+    particles on stripe 0 of 2 of config 4's map and over the scan's world
+    points (``arm_times`` each, and the outputs' sha256).  With
+    ``decisions``: the correlative box drive (accepts, ATE,
+    poses' and scores' sha256, K11's launches), the config-2 corridor with
+    the correlative matcher (ms/scan, not gated) and [4r]'s winners
+    (``kb3_winners``).  Calls only public entries, so it runs in an older
+    tree too."""
+    import dataclasses
+    import inspect
+
+    import numpy as np
+
+    from ndt_2d_tpu_torch.core import pose as pose_ops
+    from ndt_2d_tpu_torch.io.bag import record_synthetic
+    from ndt_2d_tpu_torch.kernels import correlative as k11
+    from ndt_2d_tpu_torch.kernels import score_points as k3
+    from ndt_2d_tpu_torch.matching import correlative
+    from ndt_2d_tpu_torch.matching import matcher
+    fused = "with_unc" in inspect.signature(k11.match).parameters
+    records = "table" in inspect.signature(k3.stripe_poses).parameters
+    out = {"card": ident, "fused": fused, "records": records, "rows": {}}
+
+    def arm(name, fn, *keep):
+        row = arm_times(fn)
+        row["sha"] = digest(*(keep or fn()))
+        out["rows"][name] = row
+        print(f"[6] {name}: in a CUDA graph {row['graph_ms']:.5f} ms, "
+              f"cuda_ms {row['cuda_ms']:.4f}, host {row['host_us']:.1f} us, "
+              f"{row['ops']} device operations {row['op_names']}, sha256 "
+              f"{row['sha']} ({ident})")
+    bag, cfg2, win, query, _ = inputs(dev)
+    box_cfg, _, _, _, bwin, bquery = box_window(cfg2.rolling_depth, dev)
+    for what, mc, w, q, rmax in (
+            ("box", box_cfg.local_scan_matcher, bwin, bquery, 12.0),
+            ("config 2", cfg2.local_scan_matcher, win, query,
+             bag.range_max)):
+        f, o = k11.build_field(w["poses"], w["points"], w["point_mask"],
+                               w["window_mask"], rmax, mc.ndt_resolution,
+                               mc.grid_cells_x, mc.grid_cells_y)
+        d_, l_ = matcher._search_offsets(mc, dev)
+        margs = (mc, f, o, q["points"], q["point_mask"], q["num_points"],
+                 q["pose"], d_, l_)
+        sargs = margs[:6] + (q["pose"][None],)
+
+        def both(margs=margs, sargs=sargs):
+            if fused:
+                return k11.match(*margs, with_unc=True)
+            return k11.match(*margs), k11.score_batch(*sargs)
+        arm(f"K11 lattice alone, {what}",
+            lambda margs=margs: (k11.match(*margs),))
+        arm(f"K11 lattice + point score, {what}", both)
+        m = correlative.CorrelativeScanMatcher(mc, rmax, device=dev)
+        wargs = (w["poses"], w["points"], w["point_mask"], w["window_mask"])
+        qargs = (q["points"], q["point_mask"], q["num_points"], q["pose"])
+
+        def score_match(m=m, qargs=qargs):
+            if fused:
+                unc, res = m.match_scan_with_score(*qargs)
+            else:
+                unc = m.score_points(*qargs)
+                res = m.match_scan(*qargs)
+            return (unc.reshape(1), res.score.reshape(1), res.correction,
+                    res.covariance.reshape(9))
+
+        def scan(m=m, wargs=wargs, score_match=score_match):
+            m.add_scans(*wargs)
+            return score_match()
+        arm(f"a matched correlative scan (field, score, match), {what}",
+            scan)
+        arm(f"matcher score and match, {what}", score_match)
+        arm(f"matcher match_scan alone, {what}",
+            lambda m=m, qargs=qargs: (m.match_scan(*qargs).score.reshape(1),))
+
+    # KB2 on stripe 0 of 2 of config 4's map.
+    bag4 = record_synthetic("box", 150, n_beams=360, seed=2)
+    _, cfg4 = config4_configs()
+    with tempfile.TemporaryDirectory() as tmp:
+        map4 = os.path.join(tmp, "box_map.npz")
+        map_and_save(config4_configs()[0], bag4, map4, dev)
+        m4, kf = blocks_map(map4, cfg4, bag4.range_max, dev)
+    mc4 = m4.config
+    (g, tab), h = stripe_of(m4, kf, 2, 0)
+    W, B = mc4.grid_cells_x, mc4.laser_max_beams
+    q4, qm4, n4, center = map4_scan(bag4, 40, cfg4, dev)
+    lead = (g, tab) if records else (g,)
+    for M in (PARTICLES, GLOBAL_PARTICLES):
+        ps = particle_poses(center, M, dev)
+        arm(f"KB2 stripe scores, {M} particles, stripe 0 of 2",
+            lambda ps=ps: (k3.stripe_poses(*lead, W, 0, h, B, q4, qm4, n4,
+                                           ps),))
+    world = pose_ops.transform_points(center, q4).contiguous()
+    arm("KB2 stripe scores, the scan's world points, stripe 0 of 2",
+        lambda: (k3.stripe_points(*lead, W, 0, h, world, qm4),))
+    if decisions:
+        reset_counts()
+        acc, n, ate, odom, psha, ssha = correlative_box(dev, scores=True)
+        launches = read_counts()
+        out["box"] = dict(accepted=acc, scans=n, ate=ate, odom=odom,
+                          poses_sha=psha, scores_sha=ssha,
+                          launches={k: launches[k] for k in (
+                              "correlative_field", "correlative_match",
+                              "correlative_score")})
+        local = dataclasses.replace(cfg2.local_scan_matcher,
+                                    search_linear_size=0.15,
+                                    search_linear_resolution=0.0075)
+        ccfg = dataclasses.replace(cfg2, scan_matcher_type="correlative",
+                                   local_scan_matcher=local)
+        stats, _, dt, _, _, _ = run_session(ccfg, bag, dev)
+        out["corridor_ms"] = float(np.median(dt[4:]) * 1e3)
+        out["corridor"] = dict(accepted=stats["scans_accepted"],
+                               ate=stats["ate_rmse_m"])
+        out["kb3"] = kb3_winners(dev)
+        print(f"[6] decisions: correlative box {out['box']}; config-2 "
+              f"corridor, correlative (not gated) {out['corridor_ms']:.3f} "
+              f"ms/scan median, {out['corridor']}; [4r]'s winners "
+              f"{out['kb3']} ({ident})")
+    return out
+
+
+def score_fold_arms(parent: str) -> int:
+    """``--score-fold-times PARENT``: this script copied into PARENT (a
+    ``git archive`` of an older tree) as smoke_new.py, then
+    ``--score-fold-arm`` in four processes: parent (with its decisions),
+    change (with its decisions), change, parent.  Each arm's lines are
+    printed; then, for each row, the arms' graph ms, cuda_ms, host us and
+    device operations and whether the outputs' sha256 agree across the
+    trees; each goal met or missed; and whether the
+    decisions agree.  Exits 1 where hashes or decisions differ."""
+    import statistics
+    script, parent = os.path.abspath(__file__), os.path.abspath(parent)
+    shutil.copy(script, os.path.join(parent, "smoke_new.py"))
+    trees = {"parent": (parent, os.path.join(parent, "smoke_new.py")),
+             "change": (ROOT, script)}
+    arms = []
+    for i, name in enumerate(("parent", "change", "change", "parent")):
+        cwd, path = trees[name]
+        cmd = [sys.executable, path, "--score-fold-arm"]
+        cmd += ["--decisions"] if i < 2 else []
+        run = subprocess.run(cmd, cwd=cwd, capture_output=True, text=True)
+        print(run.stdout[-8000:], end="")
+        if run.returncode != 0:
+            print(f"FAIL: the {name} arm exited {run.returncode}: "
+                  f"{run.stderr[-3000:]}")
+            return 1
+        arms.append((name, json.loads(run.stdout.strip().splitlines()[-1])[
+            "score_fold_times"]))
+    ok = True
+    for key in arms[0][1]["rows"]:
+        rows = [(n, a["rows"][key]) for n, a in arms]
+        same = len({r["sha"] for _, r in rows}) == 1
+        ok &= same
+        print(f"[6] {key}: " + "; ".join(
+            f"{n} graph {r['graph_ms']:.5f} ms, cuda_ms {r['cuda_ms']:.4f}, "
+            f"host {r['host_us']:.1f} us, {r['ops']} ops" for n, r in rows)
+            + f"; outputs bitwise equal across the trees: {same}")
+
+    def med(tree, key, field="graph_ms"):
+        return statistics.median(a["rows"][key][field] for n, a in arms
+                                 if n == tree)
+    goals = []
+    for what in ("box", "config 2"):
+        scan = f"a matched correlative scan (field, score, match), {what}"
+        ops = [a["rows"][scan]["ops"] for n, a in arms if n == "change"]
+        goals.append((f"device operations a matched scan, {what}",
+                      f"{ops} [{med('parent', scan, 'ops')}]",
+                      all(o == 2 for o in ops)))
+        key = f"K11 lattice + point score, {what}"
+        both, pboth = med("change", key), med("parent", key)
+        alone = med("parent", f"K11 lattice alone, {what}")
+        goals.append((f"lattice + score graph ms, {what}",
+                      f"{both:.5f} [parent lattice alone {alone:.5f}, "
+                      f"lattice + score {pboth:.5f}]",
+                      both <= alone + 0.0008))
+        key = f"matcher score and match, {what}"
+        host, phost = med("change", key, "host_us"), med("parent", key,
+                                                         "host_us")
+        palone = med("parent", f"matcher match_scan alone, {what}",
+                     "host_us")
+        goals.append((f"host us of the score and match, {what}",
+                      f"{host:.1f} [parent match_scan alone {palone:.1f}, "
+                      f"both {phost:.1f}]", host <= palone))
+    for M in (PARTICLES, GLOBAL_PARTICLES):
+        key = f"KB2 stripe scores, {M} particles, stripe 0 of 2"
+        c, p = med("change", key), med("parent", key)
+        goals.append((f"KB2 graph ms, {M} particles", f"{c:.5f} [{p:.5f}], "
+                      f"{c / p:.3f}x", c <= 0.85 * p))
+    key = "KB2 stripe scores, the scan's world points, stripe 0 of 2"
+    c, p = med("change", key), med("parent", key)
+    goals.append(("KB2 graph ms, world points", f"{c:.5f} [{p:.5f}]",
+                  c <= p))
+    key = f"KB2 stripe scores, {PARTICLES} particles, stripe 0 of 2"
+    c, p = med("change", key, "host_us"), med("parent", key, "host_us")
+    goals.append(("KB2 host us a stripe_poses call", f"{c:.1f} [{p:.1f}]",
+                  c <= p))
+    for name, figures, met in goals:
+        print(f"[6] goal, {name}: {figures}: "
+              f"{'met' if met else 'MISSED'}")
+    p, c = arms[0][1], arms[1][1]
+    for key in ("box", "kb3", "corridor"):
+        same = (p[key] == c[key] if key != "box" else all(
+            p[key][k] == c[key][k] for k in ("accepted", "ate", "poses_sha",
+                                             "scores_sha")))
+        ok &= same
+        print(f"[6] decisions, {key}: parent {p[key]}, change {c[key]}; "
+              f"equal: {same}")
+    print(f"[6] config-2 corridor, correlative (not gated): parent "
+          f"{p['corridor_ms']:.3f} ms/scan, change {c['corridor_ms']:.3f}")
+    print(json.dumps({"score_fold_times": dict(
+        arms=arms, goals=[dict(name=n, figures=f, met=m)
+                          for n, f, m in goals], equal=ok)}))
+    return 0 if ok else 1
+
+
 class ReplacedInverse:
     """Within the block, one device's PCG system (``k4.PcgPlan.system``)
     hands ``pcg_solve`` another block-Jacobi inverse of the same damped
@@ -9661,6 +10005,16 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--spectra-finalize-times"]:
         return spectra_finalize_arms(sys.argv[2])
+    if "--score-fold-arm" in sys.argv[1:]:
+        from ndt_2d_tpu_torch.device import get_device
+        dev = get_device("cuda:0")
+        ident = phase_card()
+        phase_build()
+        print(json.dumps({"score_fold_times": score_fold_times(
+            dev, ident, "--decisions" in sys.argv[1:])}))
+        return 0
+    if sys.argv[1:2] == ["--score-fold-times"]:
+        return score_fold_arms(sys.argv[2])
     if "--kernel-times" in sys.argv[1:]:
         from ndt_2d_tpu_torch.device import get_device
         from ndt_2d_tpu_torch.io.bag import record_synthetic

@@ -43,9 +43,14 @@
 // seven-step form (a memset and six launches through device memory),
 // chosen by the plan from the shape.  Point score: K3's, one warp per
 // pose, lane l adding beams l, l + 32, ... from 0, then a __shfl_down_sync
-// tree (16, 8, 4, 2, 1).
+// tree (16, 8, 4, 2, 1) (warp_point_score).  The mapper scores the scan at
+// the lattice's centre before every match, so the lattice launch takes it
+// too: given unc, each row's grid has one block more (blockIdx.x = A
+// groups), whose warp 0 runs warp_point_score at the row's pose and
+// leaves.  It takes no ticket and no block waits for it, so the fold's
+// tail is the same; its bits are point_scores'.
 //
-// Lattice (lattice_tables, entry ndt2d_correlative_match_tables).  A term
+// Lattice (lattice_tables, entry ndt2d_correlative_match_planned).  A term
 // (candidate, beam) needs the cell column ix = floor((rx_b + dx - ox) /
 // cell) and the row iy = floor((ry_b + dy - oy) / cell); ix depends only on
 // (angle, beam, dx) and iy only on (angle, beam, dy), so a block computes
@@ -67,7 +72,9 @@
 // warp's) and resets the ticket: one launch a match and one a batch of
 // rows.  The block's shape (kernels/correlative.py::lattice_plan: one
 // wave of blocks of up to 1024 threads where the lattice allows it)
-// changes which block forms a partial, never its bits.
+// changes which block forms a partial, never its bits.  The host packs a
+// launch's constants once a shape (kernels/correlative.py::LatticeLauncher)
+// and passes the block's address: one ctypes call of two arguments.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -477,6 +484,8 @@ void field_config(const FieldLaunch& l, cudaStream_t st,
 // exactly where either is a sentinel (W H <= 2^30, checked by the entry).
 constexpr int kOff = -(1 << 30);
 
+// The lattice launch's arguments (kernels/correlative.py::_LatticeTables,
+// field for field).
 struct LatticeTables {
   const float* field;   // [R, H*W]
   const float* origin;  // [R, 2]
@@ -500,8 +509,44 @@ struct LatticeTables {
   float* partial;    // [R, A * tiles, kPartial]
   float* scores;     // [R, A, L, L] or null
   float* out;        // [R, 13]
+  float* unc;        // [R] point scores at the rows' poses, or null
   unsigned* ticket;  // [R], 0 before the launch; the folding block resets
 };
+
+// Minus the mean field value under the used beams at (px0, py0, th), by
+// the calling warp: lane l adds slots l, l + 32, ... from 0, then the
+// shuffle tree (16, 8, 4, 2, 1); lane 0's result is the score (every
+// lane's on return).  point_scores' body and the lattice's fused score.
+__device__ __forceinline__ float warp_point_score(
+    const float* __restrict__ field, float ox, float oy, float cell, int W,
+    int H, const float* __restrict__ points,
+    const uint8_t* __restrict__ pmask, int P, int num_points, int max_beams,
+    float px0, float py0, float th) {
+  const int lane = threadIdx.x & 31;
+  const ndt2d::Subsample sub(num_points, max_beams);
+  const float c = cosf(th), s = sinf(th);
+  const int slots = ((max_beams + 31) / 32) * 32;
+  float acc = 0.f;
+  for (int i = lane; i < slots; i += 32) {
+    float v = 0.f;
+    if (i < max_beams) {
+      const int idx = sub.index(i, num_points, P);
+      const float x = points[2 * idx], y = points[2 * idx + 1];
+      const float wx = c * x - s * y + px0;
+      const float wy = s * x + c * y + py0;
+      const int ix = (int)floorf((wx - ox) / cell);
+      const int iy = (int)floorf((wy - oy) / cell);
+      const bool ok = i < sub.used && pmask[idx] && ix >= 0 && iy >= 0 &&
+                      ix < W && iy < H;
+      v = ok ? field[iy * W + ix] : 0.f;
+    }
+    acc += v;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_down_sync(0xffffffffu, acc, off);
+  return -acc / (float)max(sub.used, 1);
+}
 
 // Words of shared memory a beam of a chunk takes beside its tables and
 // window: its rotated x and y, used flag, window corner (x, y) and whether
@@ -511,7 +556,8 @@ constexpr int kBeamWords = 6;
 
 // Grid (A * groups, R), blocks of kG kTile threads: block (a * groups + j,
 // r) scores the kG kPer tiles from j kG kPer of angle a of row r, thread t
-// of group g a candidate of tiles j kG kPer + p kG + g, p < kPer.
+// of group g a candidate of tiles j kG kPer + p kG + g, p < kPer.  With
+// unc, block (A * groups, r) is the row's point score (warp 0).
 // Dynamic shared memory: max(kBeamWords chunk + (nx + L + (cx + 1) (cy +
 // 1)) S, 12 stage + 12) 4-byte words, S = stride: a chunk's beams, its
 // column table [nx, S], its row table [L, S] and the beams' field windows
@@ -551,6 +597,18 @@ __global__ void __launch_bounds__(kG* kTile) lattice_tables(
   const uint8_t* pmask = a.pmask + r * a.P;
   const float* pose = a.pose + r * 3;
   const float ox = a.origin[2 * r], oy = a.origin[2 * r + 1];
+  // The row's point score: warp 0 of a block of its own after the row's
+  // last, which takes no ticket and waits at no barrier, so that the fold's
+  // tail does not wait for it.
+  if (blockIdx.x == a.A * a.groups) {
+    if (warp == 0) {
+      const float u = warp_point_score(field, ox, oy, a.cell, W, H, points,
+                                       pmask, a.P, num_points, a.max_beams,
+                                       pose[0], pose[1], pose[2]);
+      if (lane == 0) a.unc[r] = u;
+    }
+    return;
+  }
   const int tile0 = grp * kG * kPer;
   const int f0 = tile0 * kTile;
   const int f1 = min((tile0 + kG * kPer) * kTile, LL);
@@ -740,9 +798,49 @@ cudaError_t launch_tables(const LatticeTables& a, int R, size_t smem,
                : (size_t)48 * 1024;
   }();
   if (smem + fixed > 48 * 1024) return cudaErrorInvalidValue;
+  const int score_block = a.unc != nullptr;
   lattice_tables<kG, kPer>
-      <<<dim3(a.A * a.groups, R), kG * kTile, smem, st>>>(a);
+      <<<dim3(a.A * a.groups + score_block, R), kG * kTile, smem, st>>>(a);
   return cudaGetLastError();
+}
+
+// One lattice launch (kernels/correlative.py::_LatticeLaunch, field for
+// field): the kernel's arguments, then the block's threads (256, 512 or
+// 1024), tiles a thread (per: 1, 2, 4 or 8 at 256, 1 at 512, 1 or 2 at
+// 1024; kernels/correlative.py::SHAPES) and the rows R.
+struct LatticeLaunch {
+  LatticeTables a;
+  int threads, per, R;
+};
+
+// The launch of l, refused where its shape is outside the kernel's
+// instantiations or its tables (W H <= 2^30, chunks of a multiple of 4
+// beams, a stride 4 mod 32) outside what the kernel indexes.
+cudaError_t launch_lattice(const LatticeLaunch& l, cudaStream_t st) {
+  const LatticeTables& a = l.a;
+  const int tiles = (a.L * a.L + kTile - 1) / kTile;
+  if (l.R < 1 || a.A < 1 || a.L < 1 || a.max_beams < 1 || a.chunk < 4 ||
+      a.chunk % 4 || a.nx < 1 || a.cx < 0 || a.cy < 0 ||
+      a.stride < a.chunk || a.stride % 32 != 4 || a.stage < 1 ||
+      (long long)a.W * a.H > (1ll << 30) || a.tiles != tiles ||
+      a.groups != (tiles + l.per * (l.threads / kTile) - 1) /
+                      (l.per * (l.threads / kTile)))
+    return cudaErrorInvalidValue;
+  const size_t words =
+      std::max((size_t)kBeamWords * a.chunk +
+                   (size_t)(a.nx + a.L + (a.cx + 1) * (a.cy + 1)) * a.stride,
+               (size_t)lattice::kPartial * (a.stage + 1));
+  const size_t smem = words * sizeof(int);
+  switch (l.threads * 16 + l.per) {
+    case 256 * 16 + 1: return launch_tables<1, 1>(a, l.R, smem, st);
+    case 256 * 16 + 2: return launch_tables<1, 2>(a, l.R, smem, st);
+    case 256 * 16 + 4: return launch_tables<1, 4>(a, l.R, smem, st);
+    case 256 * 16 + 8: return launch_tables<1, 8>(a, l.R, smem, st);
+    case 512 * 16 + 1: return launch_tables<2, 1>(a, l.R, smem, st);
+    case 1024 * 16 + 1: return launch_tables<4, 1>(a, l.R, smem, st);
+    case 1024 * 16 + 2: return launch_tables<4, 2>(a, l.R, smem, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 struct Beam {
@@ -823,33 +921,12 @@ __global__ void point_scores(const float* __restrict__ field,
                              int num_points, int max_beams,
                              const float* __restrict__ poses, int M,
                              float* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
   const int m = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (m >= M) return;  // whole warps leave together
-  const ndt2d::Subsample sub(num_points, max_beams);
-  const float px0 = poses[3 * m], py0 = poses[3 * m + 1];
-  const float c = cosf(poses[3 * m + 2]), s = sinf(poses[3 * m + 2]);
-  const int slots = ((max_beams + 31) / 32) * 32;
-  float acc = 0.f;
-  for (int i = lane; i < slots; i += 32) {
-    float v = 0.f;
-    if (i < max_beams) {
-      const int idx = sub.index(i, num_points, P);
-      const float x = points[2 * idx], y = points[2 * idx + 1];
-      const float wx = c * x - s * y + px0;
-      const float wy = s * x + c * y + py0;
-      const int ix = (int)floorf((wx - origin[0]) / cell);
-      const int iy = (int)floorf((wy - origin[1]) / cell);
-      const bool ok = i < sub.used && pmask[idx] && ix >= 0 && iy >= 0 &&
-                      ix < W && iy < H;
-      v = ok ? field[iy * W + ix] : 0.f;
-    }
-    acc += v;
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
-  if (lane == 0) out[m] = -acc / (float)max(sub.used, 1);
+  const float u = warp_point_score(
+      field, origin[0], origin[1], cell, W, H, points, pmask, P, num_points,
+      max_beams, poses[3 * m], poses[3 * m + 1], poses[3 * m + 2]);
+  if ((threadIdx.x & 31) == 0) out[m] = u;
 }
 
 int blocks(int n, int threads) { return (n + threads - 1) / threads; }
@@ -974,73 +1051,26 @@ NDT2D_API int ndt2d_correlative_match(
   return (int)cudaGetLastError();
 }
 
-// The lattice search in one launch (lattice_tables): the arguments as
-// ndt2d_correlative_match's, with threads (a block's: 256, 512 or 1024)
-// and per (tiles a thread: 1, 2, 4 or 8 at 256, 1 at 512, 1 or 2 at
-// 1024; kernels/correlative.py::SHAPES), nx
-// (the column table's rows), cx x cy (a beam's field window), chunk (beams
-// a table chunk, a multiple of 4), stride (the tables' row stride, 4 mod
-// 32) and stage (partials the fold stages at a time) from
-// kernels/correlative.py::lattice_plan, and ticket [R] u32, 0 before the
-// launch (left 0).  partial [R, A * ceil(L*L / 256), 12] f32 scratch; out
-// [R,13] f32; scores [R,A,L,L] f32 or null.
-NDT2D_API int ndt2d_correlative_match_tables(
-    const void* field, const void* origin, float cell, int W, int H,
-    const void* points, const void* pmask, int R, int P, const void* nums,
-    int num, int max_beams, const void* pose, const void* dths, int A,
-    const void* dls, int L, int threads, int per, int nx, int cx, int cy,
-    int chunk, int stride, int stage, void* partial, void* out,
-    void* scores, void* ticket, void* stream) {
-  if (R < 1 || A < 1 || L < 1 || max_beams < 1 || chunk < 4 ||
-      chunk % 4 || nx < 1 || cx < 0 || cy < 0 || stride < chunk ||
-      stride % 32 != 4 || stage < 1 || (long long)W * H > (1ll << 30))
-    return (int)cudaErrorInvalidValue;
-  const int tiles = (L * L + kTile - 1) / kTile;
-  const LatticeTables a{static_cast<const float*>(field),
-                        static_cast<const float*>(origin),
-                        cell,
-                        W,
-                        H,
-                        static_cast<const float*>(points),
-                        static_cast<const uint8_t*>(pmask),
-                        P,
-                        static_cast<const int*>(nums),
-                        num,
-                        max_beams,
-                        static_cast<const float*>(pose),
-                        static_cast<const float*>(dths),
-                        static_cast<const float*>(dls),
-                        A,
-                        L,
-                        tiles,
-                        (tiles + per * (threads / kTile) - 1) /
-                            (per * (threads / kTile)),
-                        nx,
-                        cx,
-                        cy,
-                        chunk,
-                        stride,
-                        stage,
-                        static_cast<float*>(partial),
-                        static_cast<float*>(scores),
-                        static_cast<float*>(out),
-                        static_cast<unsigned*>(ticket)};
-  const size_t words =
-      std::max((size_t)kBeamWords * chunk +
-                   (size_t)(nx + L + (cx + 1) * (cy + 1)) * stride,
-               (size_t)lattice::kPartial * (stage + 1));
-  const size_t smem = words * sizeof(int);
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  switch (threads * 16 + per) {
-    case 256 * 16 + 1: return (int)launch_tables<1, 1>(a, R, smem, st);
-    case 256 * 16 + 2: return (int)launch_tables<1, 2>(a, R, smem, st);
-    case 256 * 16 + 4: return (int)launch_tables<1, 4>(a, R, smem, st);
-    case 256 * 16 + 8: return (int)launch_tables<1, 8>(a, R, smem, st);
-    case 512 * 16 + 1: return (int)launch_tables<2, 1>(a, R, smem, st);
-    case 1024 * 16 + 1: return (int)launch_tables<4, 1>(a, R, smem, st);
-    case 1024 * 16 + 2: return (int)launch_tables<4, 2>(a, R, smem, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// sizeof(LatticeLaunch), for the wrapper's check of its mirror.
+NDT2D_API int ndt2d_correlative_lattice_launch_size() {
+  return (int)sizeof(LatticeLaunch);
+}
+
+// The lattice search in one launch (lattice_tables) from its launch block
+// (LatticeLaunch): field [R,H*W] f32, origin [R,2] f32, points [R,P,2] f32,
+// pmask [R,P] u8, nums [R] i32 (or null: every row has `num` points), pose
+// [R,3] f32, dths [A] f32, dls [L] f32; the plan's tiles, groups, nx
+// (the column table's rows), cx x cy (a beam's field window), chunk
+// (beams a table chunk, a multiple of 4), stride (the tables' row stride,
+// 4 mod 32) and stage (partials the fold stages at a time) from
+// kernels/correlative.py::lattice_plan; partial [R, A * tiles, 12] f32
+// scratch; out [R,13] f32; scores [R,A,L,L] f32 or null; unc [R] f32 (each
+// row's point score at its pose, ndt2d_correlative_score's bits) or null;
+// ticket [R] u32, 0 before the launch (left 0).
+NDT2D_API int ndt2d_correlative_match_planned(const void* launch,
+                                              void* stream) {
+  return (int)launch_lattice(*static_cast<const LatticeLaunch*>(launch),
+                             reinterpret_cast<cudaStream_t>(stream));
 }
 
 // field [H*W] f32, origin [2] f32, points [P,2] f32, pmask [P] u8, poses

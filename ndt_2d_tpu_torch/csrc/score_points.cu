@@ -21,8 +21,9 @@
 // depends neither on M, nor on its index, nor on the layout below: a
 // particle's score and the scan's score at the same pose are the same bits.
 //
-// Two layouts of the SoA read.  M > 1 (score_batch, KB2's stripes; the
-// particle filter's own launch is particle_kernel, below): one warp per pose,
+// Two layouts of the SoA read.  M > 1 (score_batch, the particle launch's
+// parent design; the particle filter's and KB2's launch is
+// particle_kernel, below): one warp per pose,
 // kWarps poses per block; each block stages the subsampled beams in shared
 // memory, at most kChunk at a time (they are the same for every pose), and
 // lane l evaluates its beams one after another.  M = 1 (score_at_pose, and the
@@ -59,19 +60,23 @@
 // records together (2 or 4 at a time), a block of eight poses whose
 // (pose, beam) terms are spread over all its threads, and an approximate
 // division with an exact fallback were each timed and were no faster
-// (PERF.md §6, the particle launch).
+// (PERF.md §6, the particle launch).  One pose with the motion off (M = 1)
+// gets a block instead (record_pose_kernel, score_pose_kernel's passes
+// over record_term): the same order, the same bits.
 //
 // KB2, the stripe scores: one device's share of the scoring against a
 // y-stripe-sharded map, ndt_2d_tpu/parallel/ndt_blocks.py::
 // score_points_sharded (:88-113) and score_particles_sharded_map
-// (:116-166), is this kernel on the grid rows [row0, row0 + h) with raw = 1
-// (the dense grid is row0 = 0, h = H).  A beam counts only when its GLOBAL
+// (:116-166), is the particle launch with the motion off on the grid rows
+// [row0, row0 + h) with raw = 1, reading KB1's stripe table (the dense
+// grid is row0 = 0, h = H, raw = 0).  A beam counts only when its GLOBAL
 // bin (against the map's origin) lies in those rows; it reads the stripe's
-// cell (iy - row0) * W + ix.  raw = 1 writes -sum without the division: the
-// stripes' partials are added in rank order first (K12's rank_sum) and the
-// caller divides by max(used, 1) after, as JAX psums then divides.  Given
-// world points are scored at the identity pose with num_points = max_beams
-// = P, so every point counts, in order.
+// record (iy - row0) * W + ix.  raw = 1 writes -sum without the division:
+// the stripes' partials are added in rank order first (K12's rank_sum) and
+// the caller divides by max(used, 1) after, as JAX psums then divides.
+// Given world points are scored at the identity pose with num_points =
+// max_beams = P, so every point counts, in order (M = 1: a block).  The
+// SoA launch's ScoreArgs keep row0, h and raw for the comparison arm.
 #include "common.cuh"
 #include "pf_motion.cuh"
 
@@ -92,11 +97,12 @@ struct ScoreArgs {
 };
 
 // The particle launch's constants, set once a plan by the wrapper
-// (kernels/score_points.py::_ParticleArgs, field for field): H rows of a
-// W-wide grid, G grids, a table row of `stride` floats whose first 8 are
-// the cell's record, M poses, motion on or off.
+// (kernels/score_points.py::_ParticleArgs, field for field): the rows
+// [row0, row0 + h) of a W-wide grid (the whole grid: row0 = 0, h = H), G
+// grids, a table row of `stride` floats whose first 8 are the cell's
+// record, M poses, motion on or off, raw (-sum, no division) or not.
 struct ParticleArgs {
-  int P, max_beams, G, W, H, stride, M, motion;
+  int P, max_beams, G, W, row0, h, stride, M, motion, raw;
   float cell;
 };
 
@@ -166,6 +172,29 @@ __device__ __forceinline__ float lanes_tree(float acc) {
   return acc;
 }
 
+// One pose's sum by a block: thread t evaluates slot base + t of each pass
+// (term(i)) into sterm[pass & 1]; after the pass's barrier warp 0 adds the
+// pass's slots, lane l slots l, l + 32, ... in order, so across passes lane
+// l adds slots l, l + 32, l + 64, ... as a warp-per-pose lane does; then
+// the lanes' tree.  The sum is thread 0's.
+template <typename Term>
+__device__ __forceinline__ float block_pose_sum(int slots, Term term) {
+  __shared__ float sterm[2][kPoseThreads];
+  const int lane = threadIdx.x & 31;
+  const int T = blockDim.x;
+  float acc = 0.f;
+  int buf = 0;
+  for (int base = 0; base < slots; base += T, buf ^= 1) {
+    sterm[buf][threadIdx.x] = term(base + threadIdx.x);
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      const int n = min(T, slots - base);
+      for (int j = lane; j < n; j += 32) acc += sterm[buf][j];
+    }
+  }
+  return threadIdx.x < 32 ? lanes_tree(acc) : acc;
+}
+
 __global__ void score_points_kernel(ScoreArgs a,
                                     const float* __restrict__ points,
                                     const uint8_t* __restrict__ pmask,
@@ -218,11 +247,9 @@ __global__ void score_points_kernel(ScoreArgs a,
   if (lane == 0) out[m] = a.raw ? -acc : -acc / (float)max(sub.used, 1);
 }
 
-// One pose, one block: thread t evaluates slot base + t of each pass into
-// sterm[pass & 1]; after the pass's barrier warp 0 adds the pass's slots,
-// lane l slots l, l + 32, ... in order, so across passes lane l adds slots
-// l, l + 32, l + 64, ... as score_points_kernel's lane l does.  With prev
-// non-null the pose is dead-reckoned from (prev, delta) first.
+// One pose, one block (block_pose_sum), so lane l adds slots l, l + 32,
+// ... as score_points_kernel's lane l does.  With prev non-null the pose
+// is dead-reckoned from (prev, delta) first.
 template <int NG>
 __global__ void __launch_bounds__(kPoseThreads) score_pose_kernel(
     ScoreArgs a, const float* __restrict__ points,
@@ -230,7 +257,6 @@ __global__ void __launch_bounds__(kPoseThreads) score_pose_kernel(
     const float* __restrict__ pose, const float* __restrict__ prev,
     const float* __restrict__ delta, float* __restrict__ pose_out, Grids g,
     float* __restrict__ out) {
-  __shared__ float sterm[2][kPoseThreads];
   float px0, py0, th;
   if (prev != nullptr) {  // pose_chain.cu's compose, expression for expression
     const float c0 = cosf(prev[2]), s0 = sinf(prev[2]);
@@ -250,12 +276,7 @@ __global__ void __launch_bounds__(kPoseThreads) score_pose_kernel(
   }
   const float c = cosf(th), s = sinf(th);
   const ndt2d::Subsample sub(num_points, a.max_beams);
-  const int lane = threadIdx.x & 31;
-  const int T = blockDim.x;
-  float acc = 0.f;
-  int buf = 0;
-  for (int base = 0; base < slots; base += T, buf ^= 1) {
-    const int i = base + threadIdx.x;
+  const float acc = block_pose_sum(slots, [&](int i) {
     float term = 0.f;
     if (i < a.max_beams) {
       const int idx = sub.index(i, num_points, a.P);
@@ -264,22 +285,16 @@ __global__ void __launch_bounds__(kPoseThreads) score_pose_kernel(
       const float wy = s * px + c * py + py0;
       term = beam_term<NG>(wx, wy, i < sub.used && pmask[idx], a, g);
     }
-    sterm[buf][threadIdx.x] = term;
-    __syncthreads();
-    if (threadIdx.x < 32) {
-      const int n = min(T, slots - base);
-      for (int j = lane; j < n; j += 32) acc += sterm[buf][j];
-    }
-  }
-  if (threadIdx.x >= 32) return;
-  acc = lanes_tree(acc);
-  if (lane == 0) out[0] = a.raw ? -acc : -acc / (float)max(sub.used, 1);
+    return term;
+  });
+  if (threadIdx.x == 0)
+    out[0] = a.raw ? -acc : -acc / (float)max(sub.used, 1);
 }
 
 // beam_term with each cell read as its record: grid k's row f of the
-// table (f = 0 off the grid or unused), two 16-byte loads of its first 8
-// floats (mean x, mean y, i00, i01; i11, scorable, 0, 0) for the three SoA
-// gathers, the same expressions in the same order.
+// table (f = 0 off the rows [row0, row0 + h) or unused), two 16-byte loads
+// of its first 8 floats (mean x, mean y, i00, i01; i11, scorable, 0, 0)
+// for the three SoA gathers, the same expressions in the same order.
 template <int NG>
 __device__ __forceinline__ float record_term(float wx, float wy, bool used,
                                              const ParticleArgs& a,
@@ -292,10 +307,11 @@ __device__ __forceinline__ float record_term(float wx, float wy, bool used,
     const float ox = origin[2 * k], oy = origin[2 * k + 1];
     const int ix = (int)floorf((wx - ox) / a.cell);
     const int iy = (int)floorf((wy - oy) / a.cell);
-    const bool valid = used && ix >= 0 && ix < a.W && iy >= 0 && iy < a.H;
-    const int f = valid ? iy * a.W + ix : 0;
+    const bool valid = used && ix >= 0 && ix < a.W && iy >= a.row0 &&
+                       iy < a.row0 + a.h;
+    const int f = valid ? (iy - a.row0) * a.W + ix : 0;
     const float4* row = reinterpret_cast<const float4*>(
-        table + ((size_t)k * a.W * a.H + f) * a.stride);
+        table + ((size_t)k * a.W * a.h + f) * a.stride);
     const float4 r0 = __ldg(row), r1 = __ldg(row + 1);
     const float qx = wx - r0.x;
     const float qy = wy - r0.y;
@@ -374,7 +390,41 @@ __global__ void __launch_bounds__(kParticleWarps * 32, kParticleBlocks)
   }
   if (!active) return;
   acc = lanes_tree(acc);
-  if (lane == 0) out[m] = -acc / (float)max(sub.used, 1);
+  if (lane == 0) out[m] = a.raw ? -acc : -acc / (float)max(sub.used, 1);
+}
+
+// One pose with the motion off, one block (block_pose_sum over
+// record_term): particle_kernel's sum at that pose, the same bits, with
+// kPoseThreads slots in flight a pass where a warp has one.
+template <int NG>
+__global__ void __launch_bounds__(kPoseThreads) record_pose_kernel(
+    ParticleArgs a, const float* __restrict__ pose,
+    const float* __restrict__ points, const uint8_t* __restrict__ pmask,
+    int num_points, int slots, const float* __restrict__ origin,
+    const float* __restrict__ table, float* __restrict__ out) {
+  const float px0 = pose[0], py0 = pose[1];
+  const float c = cosf(pose[2]), s = sinf(pose[2]);
+  const ndt2d::Subsample sub(num_points, a.max_beams);
+  const float acc = block_pose_sum(slots, [&](int i) {
+    float term = 0.f;
+    if (i < a.max_beams) {
+      const int idx = sub.index(i, num_points, a.P);
+      const float px = points[2 * idx], py = points[2 * idx + 1];
+      const float wx = c * px - s * py + px0;
+      const float wy = s * px + c * py + py0;
+      term = record_term<NG>(wx, wy, i < sub.used && pmask[idx], a, origin,
+                             table);
+    }
+    return term;
+  });
+  if (threadIdx.x == 0)
+    out[0] = a.raw ? -acc : -acc / (float)max(sub.used, 1);
+}
+
+// Threads of the block-per-pose launches: the slots, at least a warp, at
+// most kPoseThreads.
+int pose_threads(int slots) {
+  return slots < kPoseThreads ? (slots > 32 ? slots : 32) : kPoseThreads;
 }
 
 }  // namespace
@@ -382,18 +432,36 @@ __global__ void __launch_bounds__(kParticleWarps * 32, kParticleBlocks)
 // The particle launch (ParticleLaunch): poses [M,3] f32 (motion on: the
 // particles before the step, with noise [M,3] f32 standard normals and the
 // step's six scalars; moved [M,3] f32 receives the moved particles),
-// points [P,2] f32, pmask [P] u8, origin [G,2] f32, table [G,H*W,stride]
-// f32 (K1's patch table, stride 32, or a cell table, stride 8) -> out [M]
-// f32: -sum / max(used, 1) at each (moved) pose.
+// points [P,2] f32, pmask [P] u8, origin [G,2] f32 (the map's), table
+// [G,h*W,stride] f32 (the rows [row0, row0 + h): K1's patch table or KB1's
+// stripe table, stride 32, or a cell table, stride 8) -> out [M] f32:
+// -sum / max(used, 1) at each (moved) pose, or the raw -sum.  M = 1 with
+// the motion off: one block (record_pose_kernel).
 NDT2D_API int ndt2d_particle_scores(const void* launch, void* stream) {
   const ParticleLaunch& l = *static_cast<const ParticleLaunch*>(launch);
   const ParticleArgs& a = l.a;
   const int slots = ((a.max_beams + 31) / 32) * 32;
+  const auto st = reinterpret_cast<cudaStream_t>(stream);
+  if (a.M == 1 && !a.motion) {
+    const int T = pose_threads(slots);
+    if (a.G == 1)
+      record_pose_kernel<1><<<1, T, 0, st>>>(a, l.poses, l.points, l.pmask,
+                                             l.num_points, slots, l.origin,
+                                             l.table, l.out);
+    else if (a.G == 4)
+      record_pose_kernel<4><<<1, T, 0, st>>>(a, l.poses, l.points, l.pmask,
+                                             l.num_points, slots, l.origin,
+                                             l.table, l.out);
+    else
+      record_pose_kernel<0><<<1, T, 0, st>>>(a, l.poses, l.points, l.pmask,
+                                             l.num_points, slots, l.origin,
+                                             l.table, l.out);
+    return (int)cudaGetLastError();
+  }
   const int chunk = slots < kChunk ? (slots > 32 ? slots : 32) : kChunk;
   const size_t smem = (size_t)3 * chunk * sizeof(float);
   const ndt2d::Motion mo{l.rot1, l.trans, l.rot2,
                          l.s_rot1, l.s_trans, l.s_rot2};
-  const auto st = reinterpret_cast<cudaStream_t>(stream);
   const int blocks = (a.M + kParticleWarps - 1) / kParticleWarps;
   const int threads = 32 * kParticleWarps;
   if (a.G == 1)
@@ -438,8 +506,7 @@ NDT2D_API int ndt2d_score_points(const void* args, const void* points,
   const auto st = reinterpret_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
   if (M == 1) {
-    const int T = slots < kPoseThreads ? (slots > 32 ? slots : 32)
-                                       : kPoseThreads;
+    const int T = pose_threads(slots);
     const auto pv = static_cast<const float*>(prev);
     const auto dl = static_cast<const float*>(delta);
     float* pw = static_cast<float*>(pose_out);

@@ -15,7 +15,12 @@ output rows ``candidate_scores.unpack`` reads, reduced by K6's tiles.  It
 is one launch (``lattice_tables``): a block scores ``lattice_plan``'s run
 of 256-offset tiles of one (angle, row) from per-beam tables of cell
 columns and row offsets it computes once (``beam_tables``), and the row's
-last block folds the row's partials.  The twins add in the kernels'
+last block folds the row's partials; a shape's launch is a
+``LatticeLauncher`` (its argument block packed once, one ctypes call a
+search).  With ``with_unc`` the same launch
+also writes each row's point score at its pose (one more block a row, a
+warp of which runs the point score's body): a matched scan is two device
+operations, the field and the lattice.  The twins add in the kernels'
 orders (the blur's 7 taps in index order, each candidate's beams
 from 0 and the Olson sums per 256-offset tile, each pose's beams lane by
 lane then halving), so on the same CUDA inputs kernel and twin agree
@@ -411,11 +416,12 @@ class LatticePlan:
 
 @functools.lru_cache(maxsize=64)
 def lattice_plan(A: int, L: int, R: int, max_beams: int, sms: int,
-                 step_cells: float = 0.0) -> LatticePlan:
+                 step_cells: float = 0.0, score: bool = False) -> LatticePlan:
     """The lattice launch's shape: the first of ``WAVE_SHAPES`` whose blocks
     fit one wave (one block an SM), else blocks of 256 with the most tiles a
     thread (of ``PER_CHOICES``, at most the next power of two of an angle's
-    tiles) that still gives ``2 sms`` blocks, else one; a beam's field
+    tiles) that still gives ``2 sms`` blocks, else one (with ``score``, each
+    row's point-score block counts among the blocks); a beam's field
     window of
     the cells its offsets span, ``step_cells`` (the offsets' step over the
     cell size) apart (floor(span) + 2 a side: a beam whose cells do not fit
@@ -425,13 +431,14 @@ def lattice_plan(A: int, L: int, R: int, max_beams: int, sms: int,
     partial, never a bit."""
     LL = L * L
     tiles = -(-LL // TILE)
+    extra = int(score)  # the point score's block a row
     shape = next((sh for sh in WAVE_SHAPES
-                  if A * R * -(-tiles // (sh[0] // TILE * sh[1])) <= sms),
-                 None)
+                  if R * (A * -(-tiles // (sh[0] // TILE * sh[1])) + extra)
+                  <= sms), None)
     if shape is None:
         shape = (TILE, 1)
         for p in PER_CHOICES:
-            if p < 2 * tiles and A * R * -(-tiles // p) >= 2 * sms:
+            if p < 2 * tiles and R * (A * -(-tiles // p) + extra) >= 2 * sms:
                 shape = (TILE, p)
                 break
     threads, per = shape
@@ -521,91 +528,201 @@ def match_rows_twin(config, fields, origins, points, point_mask, num_points,
             torch.stack(cand))
 
 
-_TABLES_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_float] + [ctypes.c_int] * 2
-                + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-                + [ctypes.c_void_p] + [ctypes.c_int] * 2
-                + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p]
-                + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 5)
+class _LatticeTables(ctypes.Structure):
+    """The lattice kernel's arguments (``csrc/correlative.cu::
+    LatticeTables``, field for field)."""
+    _fields_ = ([("field", ctypes.c_void_p), ("origin", ctypes.c_void_p),
+                 ("cell", ctypes.c_float), ("W", ctypes.c_int),
+                 ("H", ctypes.c_int), ("points", ctypes.c_void_p),
+                 ("pmask", ctypes.c_void_p), ("P", ctypes.c_int),
+                 ("nums", ctypes.c_void_p), ("num", ctypes.c_int),
+                 ("max_beams", ctypes.c_int), ("pose", ctypes.c_void_p),
+                 ("dths", ctypes.c_void_p), ("dls", ctypes.c_void_p)]
+                + [(f, ctypes.c_int) for f in
+                   ("A", "L", "tiles", "groups", "nx", "cx", "cy", "chunk",
+                    "stride", "stage")]
+                + [(f, ctypes.c_void_p) for f in
+                   ("partial", "scores", "out", "unc", "ticket")])
+
+
+class _LatticeLaunch(ctypes.Structure):
+    """One lattice launch (``csrc/correlative.cu::LatticeLaunch``): the
+    kernel's arguments, the block's threads, tiles a thread and the rows."""
+    _fields_ = [("a", _LatticeTables), ("threads", ctypes.c_int),
+                ("per", ctypes.c_int), ("R", ctypes.c_int)]
+
+
+class LatticeLauncher:
+    """One lattice search shape's launch (``lattice_launcher``): its
+    ``_LatticeLaunch`` block packed once (the grid, the beams, the plan,
+    the rows), the C function bound once and the stream reader.  ``run``
+    checks the rows' tensors in one pass, allocates the partials' scratch,
+    the rows and the point scores as views of one tensor (and the scores),
+    writes the pointers, the ticket row of the stream and the point count
+    into the block and makes one ctypes call with its address."""
+
+    def __init__(self, config, A: int, L: int, R: int, P: int, dev,
+                 with_unc: bool = False):
+        W, H = config.grid_cells_x, config.grid_cells_y
+        if R > 65535 or A > 65535:
+            raise ValueError(f"{R} rows x {A} angles is outside the "
+                             "kernel's launch range")
+        beams = int(config.laser_max_beams)
+        plan = lattice_plan(A, L, R, beams,
+                            _build.sm_count(dev.index if dev.index is not None
+                                            else torch.cuda.current_device()),
+                            config.search_linear_resolution
+                            / config.ndt_resolution, with_unc)
+        self.plan, self.device, self.R = plan, dev, R
+        self.n_partial = R * A * plan.tiles * 12
+        self.scores_shape = (R, A, L, L)
+        self.launch = _LatticeLaunch(
+            _LatticeTables(cell=float(config.ndt_resolution), W=W, H=H, P=P,
+                           max_beams=beams, A=A, L=L, tiles=plan.tiles,
+                           groups=plan.groups, nx=plan.nx, cx=plan.cx,
+                           cy=plan.cy, chunk=plan.chunk, stride=plan.stride,
+                           stage=plan.stage),
+            threads=plan.threads, per=plan.per, R=R)
+        self.address = ctypes.addressof(self.launch)
+        f32 = torch.float32
+        self.expect = (("fields", f32, (R, H, W)), ("origins", f32, (R, 2)),
+                       ("points", f32, (R, P, 2)),
+                       ("point_mask", torch.bool, (R, P)),
+                       ("poses", f32, (R, 3)), ("dths", f32, (A,)),
+                       ("dls", f32, (L,)))
+        self.nums = (("num_points", torch.int32, (R,)),)
+        self._fn = None
+        self._stream = None
+
+    def run(self, fields, origins, points, point_mask, nums, num: int,
+            poses, dths, dls, with_scores: bool = False,
+            with_unc: bool = False):
+        """(out [R, 13], scores [R, A, L, L] or None, unc [R] or None) of
+        one launch; ``nums`` [R] int32, or None with ``num`` points every
+        row."""
+        global match_launches
+        dev, R = self.device, self.R
+        _build.require_all(dev, (fields, origins, points, point_mask, poses,
+                                 dths, dls), self.expect)
+        if nums is not None:
+            _build.require_all(dev, (nums,), self.nums)
+        if self._fn is None:
+            size = _build.function("ndt2d_correlative_lattice_launch_size",
+                                   [])()
+            if size != ctypes.sizeof(_LatticeLaunch):
+                raise RuntimeError(f"LatticeLaunch is {size} bytes in C, "
+                                   f"{ctypes.sizeof(_LatticeLaunch)} here")
+            self._fn = _build.function("ndt2d_correlative_match_planned",
+                                       [ctypes.c_void_p, ctypes.c_void_p])
+            self._stream = _build.stream_reader(dev)
+        n = self.n_partial
+        buf = torch.empty(n + R * (14 if with_unc else 13),
+                          dtype=torch.float32, device=dev)
+        out = buf[n:n + R * 13].view(R, 13)
+        unc = buf[n + R * 13:] if with_unc else None
+        scores = (torch.empty(self.scores_shape, dtype=torch.float32,
+                              device=dev) if with_scores else None)
+        stream = self._stream()
+        a = self.launch.a
+        a.field, a.origin = fields.data_ptr(), origins.data_ptr()
+        a.points, a.pmask = points.data_ptr(), point_mask.data_ptr()
+        a.nums = None if nums is None else nums.data_ptr()
+        a.num = num
+        a.pose, a.dths, a.dls = poses.data_ptr(), dths.data_ptr(), \
+            dls.data_ptr()
+        a.partial = buf.data_ptr()
+        a.out = out.data_ptr()
+        a.scores = None if scores is None else scores.data_ptr()
+        a.unc = None if unc is None else unc.data_ptr()
+        a.ticket = _tickets(dev, stream, R).data_ptr()
+        _build.check(self._fn(self.address, stream), "correlative_match")
+        match_launches += 1
+        return out, scores, unc
+
+
+_LATTICE_LAUNCHERS: dict = {}
+
+
+def lattice_launcher(config, A: int, L: int, R: int, P: int, dev,
+                     with_unc: bool = False) -> LatticeLauncher:
+    """The launcher of this search shape, with or without the point score,
+    made at its first launch."""
+    key = (config.grid_cells_x, config.grid_cells_y,
+           float(config.ndt_resolution), int(config.laser_max_beams),
+           float(config.search_linear_resolution), A, L, R, P, dev,
+           with_unc)
+    launcher = _LATTICE_LAUNCHERS.get(key)
+    if launcher is None:
+        launcher = _LATTICE_LAUNCHERS[key] = LatticeLauncher(
+            config, A, L, R, P, dev, with_unc)
+    return launcher
 
 
 def _launch_match(config, fields, origins, points, point_mask, nums,
-                  num: int, poses, dths, dls, with_scores: bool):
-    global match_launches
-    dev = points.device
-    W, H = config.grid_cells_x, config.grid_cells_y
-    R, P = points.shape[0], points.shape[1]
-    A, L = dths.shape[0], dls.shape[0]
-    if R > 65535 or A > 65535:
-        raise ValueError(f"{R} rows x {A} angles is outside the kernel's "
-                         "launch range")
-    _build.require(fields, "fields", torch.float32, (R, H, W), dev)
-    _build.require(origins, "origins", torch.float32, (R, 2), dev)
-    _build.require(points, "points", torch.float32, (R, P, 2), dev)
-    _build.require(point_mask, "point_mask", torch.bool, (R, P), dev)
-    if nums is not None:
-        _build.require(nums, "num_points", torch.int32, (R,), dev)
-    _build.require(poses, "poses", torch.float32, (R, 3), dev)
-    _build.require(dths, "dths", torch.float32, (A,), dev)
-    _build.require(dls, "dls", torch.float32, (L,), dev)
-    tiles = -(-L * L // TILE)
-    partial = torch.empty(R, A * tiles, 12, dtype=torch.float32, device=dev)
-    out = torch.empty(R, 13, dtype=torch.float32, device=dev)
-    scores = (torch.empty(R, A, L, L, dtype=torch.float32, device=dev)
-              if with_scores else None)
-    p = _build.ptr
-    stream = _build.stream_ptr(dev)
-    plan = lattice_plan(A, L, R, int(config.laser_max_beams),
-                        _build.sm_count(dev.index if dev.index is not None
-                                        else torch.cuda.current_device()),
-                        config.search_linear_resolution
-                        / config.ndt_resolution)
-    err = _build.function("ndt2d_correlative_match_tables", _TABLES_ARGS)(
-        p(fields), p(origins), float(config.ndt_resolution), W, H,
-        p(points), p(point_mask), R, P, None if nums is None else p(nums),
-        int(num), int(config.laser_max_beams), p(poses), p(dths), A,
-        p(dls), L, plan.threads, plan.per, plan.nx, plan.cx, plan.cy,
-        plan.chunk, plan.stride, plan.stage, p(partial), p(out),
-        None if scores is None else p(scores),
-        p(_tickets(dev, stream, R)), stream)
-    _build.check(err, "correlative_match")
-    match_launches += 1
-    return out, scores
+                  num: int, poses, dths, dls, with_scores: bool,
+                  with_unc: bool = False):
+    """One lattice launch over R rows through its shape's launcher: (out
+    [R, 13], scores or None, unc [R] or None)."""
+    return lattice_launcher(config, dths.shape[0], dls.shape[0],
+                            points.shape[0], points.shape[1],
+                            points.device, with_unc).run(
+        fields, origins, points, point_mask, nums, int(num), poses, dths,
+        dls, with_scores, with_unc)
+
+
+def _returns(out, scores, unc, with_scores: bool, with_unc: bool):
+    """A search's return: the rows, then the scores and the point scores
+    each where asked for."""
+    extra = ((scores,) if with_scores else ()) + ((unc,) if with_unc else ())
+    return (out, *extra) if extra else out
 
 
 def match_rows(config, fields, origins, points, point_mask, num_points,
-               poses, dths, dls, with_scores: bool = False):
+               poses, dths, dls, with_scores: bool = False,
+               with_unc: bool = False):
     """The lattice search over R rows in one launch: fields [R, H, W] f32,
     origins [R, 2] f32, points [R, P, 2] f32, point_mask [R, P] bool,
     num_points [R] int32, poses [R, 3] f32, dths [A] / dls [L] f32.
-    Returns the [R, 13] output rows, or (rows, scores [R, A, L, L]) with
-    ``with_scores``.  CPU tensors run the twin; CUDA tensors launch the
-    kernel."""
+    Returns the [R, 13] output rows; with ``with_scores`` also the scores
+    [R, A, L, L], with ``with_unc`` also each row's point score at its pose
+    ([R], ``score_batch``'s bits), in that order.  CPU tensors run the
+    twin; CUDA tensors launch the kernel."""
     if points.device.type == "cpu":
         res, cand = match_rows_twin(config, fields, origins, points,
                                     point_mask, num_points, poses, dths, dls)
-        return (k2.pack(res), cand) if with_scores else k2.pack(res)
-    out, scores = _launch_match(config, fields, origins, points, point_mask,
-                                num_points, 0, poses, dths, dls,
-                                with_scores)
-    return (out, scores) if with_scores else out
+        unc = (torch.cat([score_batch_twin(
+            config, fields[r], origins[r], points[r], point_mask[r],
+            int(num_points[r]), poses[r:r + 1])
+            for r in range(points.shape[0])]) if with_unc else None)
+        return _returns(k2.pack(res), cand, unc, with_scores, with_unc)
+    out, scores, unc = _launch_match(config, fields, origins, points,
+                                     point_mask, num_points, 0, poses, dths,
+                                     dls, with_scores, with_unc)
+    return _returns(out, scores, unc, with_scores, with_unc)
 
 
 def match(config, field, origin, points, point_mask, num_points: int, pose,
-          dths, dls, with_scores: bool = False):
+          dths, dls, with_scores: bool = False, with_unc: bool = False):
     """The lattice search of one scan: ``match_rows``' launch at R = 1.
     field [H, W], origin [2], points [P, 2], point_mask [P], pose [3].
-    Returns its [1, 13] output row, or (row, scores [A, L, L]).  CPU
-    tensors run the twin; CUDA tensors launch the kernel."""
+    Returns its [1, 13] output row; with ``with_scores`` also the scores
+    [A, L, L], with ``with_unc`` also the point score at ``pose`` ([1]),
+    in that order.  CPU tensors run the twin; CUDA tensors launch the
+    kernel."""
     if points.device.type == "cpu":
         res, cand = match_twin(config, field, origin, points, point_mask,
                                num_points, pose, dths, dls)
         out = k2.pack(MatchResult(*[x[None] for x in res]))
-        return (out, cand) if with_scores else out
-    out, scores = _launch_match(config, field[None], origin[None],
-                                points[None], point_mask[None], None,
-                                num_points, pose[None], dths, dls,
-                                with_scores)
-    return (out, scores[0]) if with_scores else out
+        unc = (score_batch_twin(config, field, origin, points, point_mask,
+                                num_points, pose[None])
+               if with_unc else None)
+        return _returns(out, cand, unc, with_scores, with_unc)
+    out, scores, unc = _launch_match(config, field[None], origin[None],
+                                     points[None], point_mask[None], None,
+                                     num_points, pose[None], dths, dls,
+                                     with_scores, with_unc)
+    return _returns(out, None if scores is None else scores[0], unc,
+                    with_scores, with_unc)
 
 
 def score_batch_twin(config, field, origin, points, point_mask,

@@ -36,11 +36,13 @@ A grid with a grid axis (the four overlapping grids: origin [4, 2], mean
 [4, C, 2], ...) scores each beam as the mean over its grids, summed from 0
 in grid order, before the beams are summed (matcher.py:411-416).
 
-KB2, ``stripe_points`` / ``stripe_poses``: the same kernel against one
-y-stripe of a sharded map (``ndt_2d_tpu/parallel/ndt_blocks.py:88``,
-``:116``), only the points or beams whose global bin lies in the stripe
-counted, as raw sums in the same lane order (the caller adds the stripes
-and divides).
+KB2, ``stripe_points`` / ``stripe_poses``: the particle launch with the
+motion off against one y-stripe of a sharded map
+(``ndt_2d_tpu/parallel/ndt_blocks.py:88``, ``:116``), each beam's cell one
+record of KB1's stripe table, only the points or beams whose global bin
+lies in the stripe counted, as raw sums in the same lane order (the caller
+adds the stripes and divides); a plan kept a stripe.  ``records_twin`` at
+``row0`` / ``raw`` is its twin, bitwise the SoA ``stripe_poses_twin``.
 
 The launch path: a launch shape's constant scalars sit in one ``_Args``
 block made once a shape (``_plan``), the tensors are checked in one pass
@@ -324,9 +326,11 @@ def score_composed(grid: ndt_grid.NDTGrid, width: int, height: int,
 
 # --- the particle filter's launch: motion sample and record read -------------
 class _ParticleArgs(ctypes.Structure):
-    """A particle plan's constants (``csrc/score_points.cu::ParticleArgs``)."""
+    """A particle plan's constants (``csrc/score_points.cu::ParticleArgs``):
+    the grid rows [row0, row0 + h) its table holds, raw sums or divided."""
     _fields_ = ([(f, ctypes.c_int) for f in
-                 ("P", "max_beams", "G", "W", "H", "stride", "M", "motion")]
+                 ("P", "max_beams", "G", "W", "row0", "h", "stride", "M",
+                  "motion", "raw")]
                 + [("cell", ctypes.c_float)])
 
 
@@ -348,13 +352,14 @@ _PARTICLE_ARGS = [ctypes.c_void_p, ctypes.c_void_p]
 
 
 def record_scores(origin, cell_size: float, width: int, height: int,
-                  records, w, wmask):
+                  records, w, wmask, row0: int = 0):
     """Clamped Gaussian scores of world points ``w`` [..., 2] (mask
-    ``wmask``) on one grid, each point's cell read from its record
-    ``records`` [C, >= 8] (mean x, mean y, i00, i01, i11, scorable):
-    ``ndt_grid.score_points``'s expression on the same values."""
-    cell = ndt_grid.f32(cell_size, w.device)
-    flat, valid = ndt_grid.cell_index(origin, cell, width, height, w)
+    ``wmask``) on one grid's rows [row0, row0 + height), each point's cell
+    read from its record ``records`` [height * width, >= 8] (mean x, mean
+    y, i00, i01, i11, scorable): ``ndt_grid.score_points``'s expression on
+    the same values."""
+    flat, valid = ndt_grid.stripe_cells(origin, cell_size, width, row0,
+                                        height, w)
     valid = valid & wmask
     safe = torch.where(valid, flat, torch.zeros_like(flat)).to(torch.int64)
     rec = records[safe]
@@ -367,10 +372,14 @@ def record_scores(origin, cell_size: float, width: int, height: int,
 
 
 def records_twin(grid: ndt_grid.NDTGrid, table, width: int, height: int,
-                 max_beams: int, points, point_mask, num_points: int, poses):
+                 max_beams: int, points, point_mask, num_points: int, poses,
+                 row0: int = 0, raw: bool = False):
     """Plain-PyTorch ``score_records``: ``score_batch_twin`` with each cell
     read from its record in ``table`` [(G,) C, 8 or 32] (K1's patch table
-    or ``ndt_grid.packed_cell_table``), the same bits."""
+    or ``ndt_grid.packed_cell_table``), the same bits.  With ``row0`` the
+    table holds the grid rows [row0, row0 + height) (KB1's stripe table)
+    and only beams binned there count; ``raw`` leaves out the division
+    (``stripe_poses_twin``'s bits)."""
     spts, smask, used = subsample(points, point_mask, num_points, max_beams)
     c, s = torch.cos(poses[:, 2:3]), torch.sin(poses[:, 2:3])
     px, py = spts[:, 0], spts[:, 1]
@@ -379,14 +388,15 @@ def records_twin(grid: ndt_grid.NDTGrid, table, width: int, height: int,
     wmask = smask.expand(poses.shape[0], -1)
     if table.dim() == 2:
         sc = record_scores(grid.origin, grid.cell_size, width, height, table,
-                           w, wmask)
+                           w, wmask, row0)
     else:
         sc = sum(record_scores(grid.origin[k], grid.cell_size, width, height,
-                               table[k], w, wmask)
+                               table[k], w, wmask, row0)
                  for k in range(table.shape[0])) / ndt_grid.f32(
                      table.shape[0], points.device)
-    return -lane_tree_sum(_pad32(sc)) / ndt_grid.f32(max(used, 1),
-                                                     points.device)
+    total = -lane_tree_sum(_pad32(sc))
+    return total if raw else total / ndt_grid.f32(max(used, 1),
+                                                  points.device)
 
 
 def motion_score_twin(grid: ndt_grid.NDTGrid, table, width: int,
@@ -404,15 +414,17 @@ class ParticlePlan:
     """One shape of the particle launch (``particle_plan``): its
     ``_ParticleLaunch`` block, whose address crosses into C, the C function
     bound once, the (name, dtype, shape) of every tensor and the stream
-    reader.  The map's origin and table are checked, and their pointers
-    written, when they change (by identity); ``run`` checks the step's
+    reader.  ``height`` is the rows the table holds, from ``row0`` (a
+    stripe's; the whole grid: 0); ``raw`` writes -sum undivided.  The
+    map's origin and table are checked, and their pointers written, when
+    they change (by identity); ``run`` checks the step's
     tensors in one pass, allocates the outputs (the caller keeps them: the
     resample reads them, a replay or a comparison may hold them), writes
     the step's pointers and scalars into the block and makes one ctypes
     call with its address and the stream."""
 
     def __init__(self, P, max_beams, table_shape, width, height, cell, M,
-                 motion, dev):
+                 motion, dev, row0: int = 0, raw: bool = False):
         lead = tuple(table_shape[:-2])
         if (len(lead) > 1 or table_shape[-1] not in (8, 32)
                 or table_shape[-2] != width * height):
@@ -421,8 +433,8 @@ class ParticlePlan:
         f32 = torch.float32
         self.M, self.motion, self.device = M, bool(motion), dev
         self.launch = _ParticleLaunch(_ParticleArgs(
-            P, max_beams, lead[0] if lead else 1, width, height,
-            table_shape[-1], M, int(motion), cell))
+            P, max_beams, lead[0] if lead else 1, width, row0, height,
+            table_shape[-1], M, int(motion), int(raw), cell))
         self.args = self.launch.a
         self.address = ctypes.addressof(self.launch)
         self.map_expect = (("origin", f32, (*lead, 2)),
@@ -477,11 +489,13 @@ _PARTICLE_PLANS: dict = {}
 
 
 def particle_plan(grid, table, width: int, height: int, max_beams: int,
-                  points, M: int, motion: bool) -> ParticlePlan:
-    """The particle plan of this shape, made at its first launch."""
+                  points, M: int, motion: bool, row0: int = 0,
+                  raw: bool = False) -> ParticlePlan:
+    """The particle plan of this shape, made at its first launch (a
+    stripe's: the ``height`` rows from ``row0`` its table holds)."""
     dev = points.device
     key = (points.shape[0], max_beams, table.shape, width, height,
-           grid.cell_size, M, motion, dev)
+           grid.cell_size, M, motion, dev, row0, raw)
     plan = _PARTICLE_PLANS.get(key)
     if plan is None:
         plan = _PARTICLE_PLANS[key] = ParticlePlan(*key)
@@ -569,35 +583,66 @@ def stripe_poses_twin(stripe: ndt_grid.NDTGrid, width: int, row0: int,
     return -lane_tree_sum(_pad32(sc))
 
 
-def stripe_points(stripe: ndt_grid.NDTGrid, width: int, row0: int,
+# The identity pose a device's world-point stripe scores are taken at.
+_IDENTITY: dict = {}
+
+
+def stripe_points(stripe: ndt_grid.NDTGrid, table, width: int, row0: int,
                   rows: int, points, mask):
     """KB2 over world points [N, 2] f32 (mask [N] bool): [1], the sum of
     the clamped Gaussian scores of the masked points whose global bin lies
-    in the stripe's rows [row0, row0 + rows).  ``stripe`` is KB1's (the
-    map's origin, rows * width cells).  CPU tensors run the twin; CUDA
-    tensors launch the kernel."""
+    in the stripe's rows [row0, row0 + rows), each cell read from its
+    record in KB1's stripe ``table`` [rows * width, 32].  ``stripe`` is
+    KB1's (the map's origin, rows * width cells).  One pose, so one block
+    of the particle launch at the identity.  CPU tensors run the twin;
+    CUDA tensors launch the kernel."""
     global stripe_launches
     if points.device.type == "cpu":
         return stripe_points_twin(stripe, width, row0, rows, points, mask)
+    dev = points.device
+    identity = _IDENTITY.get(dev)
+    if identity is None:
+        identity = _IDENTITY[dev] = torch.zeros(1, 3, dtype=torch.float32,
+                                                device=dev)
     P = points.shape[0]
-    identity = torch.zeros(1, 3, dtype=torch.float32, device=points.device)
-    out = _batch(stripe, width, row0, rows, P, points, mask, P, identity,
-                 True)
+    plan = particle_plan(stripe, table, width, rows, P, points, 1, False,
+                         row0, True)
+    _, out = plan.run(points, mask, P, stripe.origin, table, identity)
     stripe_launches += 1
     return -out
 
 
-def stripe_poses(stripe: ndt_grid.NDTGrid, width: int, row0: int, rows: int,
-                 max_beams: int, points, point_mask, num_points: int, poses):
+def stripe_poses(stripe: ndt_grid.NDTGrid, table, width: int, row0: int,
+                 rows: int, max_beams: int, points, point_mask,
+                 num_points: int, poses):
     """KB2 over poses [M, 3] f32 (points [P, 2] f32 robot frame,
     point_mask [P] bool): [M], each pose's -sum of scores over its
-    subsampled beams in the stripe, not yet divided by the beams used.
-    CPU tensors run the twin; CUDA tensors launch the kernel."""
+    subsampled beams in the stripe, not yet divided by the beams used:
+    the particle launch with the motion off through the stripe's plan,
+    each cell read from its record in KB1's stripe ``table``
+    [rows * width, 32] (``records_twin`` at ``row0``, raw).  CPU tensors
+    run the twin; CUDA tensors launch the kernel."""
     global stripe_launches
+    if points.device.type == "cpu":
+        return records_twin(stripe, table, width, rows, max_beams, points,
+                            point_mask, num_points, poses, row0, True)
+    plan = particle_plan(stripe, table, width, rows, max_beams, points,
+                         poses.shape[0], False, row0, True)
+    _, out = plan.run(points, point_mask, int(num_points), stripe.origin,
+                      table, poses)
+    stripe_launches += 1
+    return out
+
+
+def stripe_poses_soa(stripe: ndt_grid.NDTGrid, width: int, row0: int,
+                     rows: int, max_beams: int, points, point_mask,
+                     num_points: int, poses):
+    """``stripe_poses`` through the SoA launch (the parent design: the
+    stripe's mean, information and count arrays, a warp a pose); no
+    package path calls it.  CPU tensors run its twin,
+    ``stripe_poses_twin``; CUDA tensors launch the kernel."""
     if points.device.type == "cpu":
         return stripe_poses_twin(stripe, width, row0, rows, max_beams,
                                  points, point_mask, num_points, poses)
-    out = _batch(stripe, width, row0, rows, max_beams, points, point_mask,
-                 num_points, poses, True)
-    stripe_launches += 1
-    return out
+    return _batch(stripe, width, row0, rows, max_beams, points, point_mask,
+                  num_points, poses, True)

@@ -17,7 +17,8 @@ reference's ``ndt_2d::Mapper``):
   (``use_particle_filter``): one fused filter step (K9 motion, K3 over all
   particles, K9 resample and statistics) and one read.  A matcher other
   than NDT (``scan_matcher_type="correlative"``, K11) goes through the
-  generic matcher surface instead of the fused dispatch.
+  generic matcher surface instead of the fused dispatch (the correlative
+  matcher's score and match in one lattice launch, ``_score_and_match``).
 * With ``max_inflight > 0`` the three branches pipeline: the pose chain
   stays on the device (K3 composes each start pose from the odometry
   motion as it scores it, K13 applies each correction and appends the
@@ -108,6 +109,18 @@ def _compose_host(pose, delta) -> np.ndarray:
     return np.asarray([pose[0] + c * delta[0] - s * delta[1],
                        pose[1] + s * delta[0] + c * delta[1],
                        _normalize_angle(pose[2] + delta[2])])
+
+
+def _score_and_match(m, points, mask, num_points, pose):
+    """A generic matcher's score at ``pose`` and its match from it: one
+    call where the matcher has ``match_scan_with_score`` (the correlative
+    matcher: one lattice launch), else ``score_points`` then
+    ``match_scan``.  Returns (0-d score, MatchResult)."""
+    both = getattr(m, "match_scan_with_score", None)
+    if both is not None:
+        return both(points, mask, num_points, pose)
+    return (m.score_points(points, mask, num_points, pose),
+            m.match_scan(points, mask, num_points, pose))
 
 
 @dataclasses.dataclass
@@ -420,8 +433,8 @@ class Mapper:
                                   out[2].reshape(3)]).cpu().numpy()
             else:  # other matchers, or no map: the generic surface
                 pose32 = robot_pose.astype(np.float32)
-                unc = m.score_points(points, mask, num_points, pose32)
-                res = m.match_scan(points, mask, num_points, pose32)
+                unc, res = _score_and_match(m, points, mask, num_points,
+                                            pose32)
                 host = torch.cat([unc.reshape(1), res.score.reshape(1),
                                   res.correction.reshape(3)]).cpu().numpy()
         unc, score = float(host[0]), float(host[1])
@@ -626,11 +639,9 @@ class Mapper:
                     m = self.local_matcher
                     m.add_scans(window.poses, window.points,
                                 window.point_mask, window.mask)
-                    res = m.match_scan(dev_points, dev_mask, num_points,
-                                       pose32)
-                    out = (m.score_points(dev_points, dev_mask, num_points,
-                                          pose32),
-                           res.score, res.correction, res.covariance)
+                    unc, res = _score_and_match(m, dev_points, dev_mask,
+                                                num_points, pose32)
+                    out = (unc, res.score, res.correction, res.covariance)
                 flat = torch.cat([out[0].reshape(1), out[1].reshape(1),
                                   out[2].reshape(3), out[3].reshape(9)])
                 host = flat.cpu().numpy()

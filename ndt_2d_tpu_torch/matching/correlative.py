@@ -7,8 +7,10 @@ field (``build_field``); a candidate pose scores minus the field values
 under its subsampled beams, searched over the NDT matcher's exhaustive
 (angle, dx, dy) lattice with its argmin, per-beam normalization and Olson
 covariance (``match_scan_field``), so the mapper's gates and constraints
-take it unchanged.  Select it with ``scan_matcher_type="correlative"``.
-The field's resolution is ``ndt_resolution``.
+take it unchanged.  ``match_scan_with_score`` is the mapper's score at the
+start pose and the search from it in one lattice launch.  Select it with
+``scan_matcher_type="correlative"``.  The field's resolution is
+``ndt_resolution``.
 """
 
 from __future__ import annotations
@@ -42,6 +44,20 @@ def match_scan_field(config: ScanMatcherConfig, field, origin, points,
     res = k2.unpack(k11.match(config, field, origin, points, point_mask,
                               num_points, pose, dths, dls))
     return MatchResult(res.score[0], res.correction[0], res.covariance[0])
+
+
+def match_scan_with_score(config: ScanMatcherConfig, field, origin, points,
+                          point_mask, num_points: int, pose):
+    """``score_points_field`` at ``pose``, then ``match_scan_field`` from
+    it, in one lattice launch (the score written by a warp of the
+    search's own launch).  Returns (0-d score, MatchResult), the same bits
+    as the two calls."""
+    dths, dls = _search_offsets(config, points.device)
+    out, unc = k11.match(config, field, origin, points, point_mask,
+                         num_points, pose, dths, dls, with_unc=True)
+    res = k2.unpack(out)
+    return unc[0], MatchResult(res.score[0], res.correction[0],
+                               res.covariance[0])
 
 
 def score_points_field(config: ScanMatcherConfig, field, origin, points,
@@ -89,6 +105,19 @@ class CorrelativeScanMatcher:
                                 self._tensor(point_mask, torch.bool),
                                 int(num_points),
                                 self._tensor(pose, torch.float32))
+
+    def match_scan_with_score(self, points, point_mask, num_points, pose):
+        """``score_points`` at ``pose`` and ``match_scan`` from it in one
+        lattice launch: (0-d score, MatchResult), zeros before any scan
+        is added."""
+        if self.field is None:
+            return (torch.zeros((), device=self.device),
+                    self.match_scan(points, point_mask, num_points, pose))
+        return match_scan_with_score(self.config, self.field, self.origin,
+                                     self._tensor(points, torch.float32),
+                                     self._tensor(point_mask, torch.bool),
+                                     int(num_points),
+                                     self._tensor(pose, torch.float32))
 
     def score_points(self, points, point_mask, num_points, pose):
         """scorePoints: minus the mean field value at ``pose``."""

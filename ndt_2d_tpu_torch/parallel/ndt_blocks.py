@@ -9,7 +9,8 @@ holds the grid rows [s h, (s + 1) h), h = H / S:
   replicated; each rank bins them against the map's GLOBAL origin and
   builds its stripe's cells, bitwise the same rows of the dense K1 grid;
 * **score / measure** (KB2, ``kernels/score_points.py``): each rank scores
-  the points or beams in its stripe, the partials are gathered over
+  the points or beams in its stripe (K3's particle launch reading the
+  stripe's table, one record a beam), the partials are gathered over
   ``space`` and added in rank order (K12's ``rank_sum``) where JAX psums,
   then divided by the beams used;
 * **match** (KB3, ``kernels/candidate_gather.py``): each rank scores the
@@ -105,8 +106,9 @@ def score_points_sharded(mesh, grid: StripeGrid, points, mask):
     """Summed likelihood of world points [N, 2] (mask [N]) against the
     sharded map: a 0-d tensor, the same bits on every rank (KB2 on each
     stripe, then the rank-ordered sum)."""
-    part = k3.stripe_points(grid, grid.width, grid.row0, grid.rows,
-                            points.contiguous(), mask.contiguous())
+    part = k3.stripe_points(grid, grid.table, grid.width, grid.row0,
+                            grid.rows, points.contiguous(),
+                            mask.contiguous())
     return _space_sum(mesh, part)[0]
 
 
@@ -126,9 +128,9 @@ def score_particles_sharded_map(config: ScanMatcherConfig, mesh,
                          f"{BATCH_AXIS!r} shard count {n_batch}")
     b = axis_rank(mesh, BATCH_AXIS)
     mine = particle_poses[b * (N // n_batch):(b + 1) * (N // n_batch)]
-    part = k3.stripe_poses(grid, grid.width, grid.row0, grid.rows,
-                           config.laser_max_beams, points, point_mask,
-                           num_points, mine.contiguous())
+    part = k3.stripe_poses(grid, grid.table, grid.width, grid.row0,
+                           grid.rows, config.laser_max_beams, points,
+                           point_mask, num_points, mine.contiguous())
     used = min(int(config.laser_max_beams), int(num_points))
     total = _space_sum(mesh, part) / ndt_grid.f32(max(used, 1),
                                                   points.device)

@@ -19,10 +19,12 @@ bitwise against its twin and the parent kernel.  Here:
 * the matcher's decisions equal op-by-op JAX's (the correction equal, the
   score within 1e-5 relative, as tests/test_torch_correlative.py holds
   them), here on a wider lattice;
-* rows are their own R = 1 searches, and a launch hands the C entry the
-  plan's ints and a zeroed ticket row kept a (device, stream).
+* rows are their own R = 1 searches, and a launch hands the C entry its
+  shape's launch block, the plan's ints packed once, and a zeroed ticket
+  row kept a (device, stream).
 """
 
+import ctypes
 import re
 from pathlib import Path
 
@@ -400,33 +402,48 @@ class _Recorder:
 
 @pytest.mark.parametrize("R", [1, 3])
 def test_launch_hands_the_plan_and_a_kept_ticket_row(monkeypatch, R):
+    """A search shape's launcher packs lattice_plan's ints into its launch
+    block once; each launch is one C call with the block's address and
+    the stream, the block holding the rows' pointers and a zeroed ticket
+    row kept a (device, stream)."""
     cfg, field, origin, pts, mask, pose, dths, dls = edge_case(40, A=80)
     rec = {}
 
     def function(name, argtypes):
+        if name == "ndt2d_correlative_lattice_launch_size":
+            return lambda: ctypes.sizeof(k11._LatticeLaunch)
         rec.setdefault(name, (_Recorder(), argtypes))
         return rec[name][0]
     monkeypatch.setattr(_build, "function", function)
-    monkeypatch.setattr(_build, "stream_ptr", lambda dev: 4321)
+    monkeypatch.setattr(_build, "stream_reader", lambda dev: lambda: 4321)
     monkeypatch.setattr(_build, "sm_count", lambda index: 132)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(k11, "_TICKETS", {})
+    monkeypatch.setattr(k11, "_LATTICE_LAUNCHERS", {})
     before = k11.match_launches
     rows = [x[None].expand(R, *x.shape).contiguous()
             for x in (field, origin, pts, mask, pose)]
     nums = torch.full((R,), int(mask.sum()), dtype=torch.int32)
-    for _ in range(2):
-        k11._launch_match(cfg, *rows[:4], nums, 0, rows[4], dths, dls,
-                          False)
-    fn, argtypes = rec["ndt2d_correlative_match_tables"]
+    outs = [k11._launch_match(cfg, *rows[:4], nums, 0, rows[4], dths, dls,
+                              False)[0] for _ in range(2)]
+    fn, argtypes = rec["ndt2d_correlative_match_planned"]
+    launcher, = k11._LATTICE_LAUNCHERS.values()
     assert len(fn.calls) == 2 and k11.match_launches == before + 2
-    args = fn.calls[0]
-    assert len(args) == len(argtypes) == len(k11._TABLES_ARGS)
+    assert fn.calls == [(launcher.address, 4321)] * 2
+    assert len(argtypes) == 2
     plan = k11.lattice_plan(80, 40, R, cfg.laser_max_beams, 132,
                             cfg.search_linear_resolution / CELL)
-    assert args[17:25] == (plan.threads, plan.per, plan.nx, plan.cx,
-                           plan.cy, plan.chunk, plan.stride, plan.stage)
-    assert args[-1] == 4321
+    L, a = launcher.launch, launcher.launch.a
+    assert (L.threads, L.per, L.R) == (plan.threads, plan.per, R)
+    assert (a.tiles, a.groups, a.nx, a.cx, a.cy, a.chunk, a.stride,
+            a.stage) == (plan.tiles, plan.groups, plan.nx, plan.cx, plan.cy,
+                         plan.chunk, plan.stride, plan.stage)
+    assert (a.W, a.H, a.A, a.L, a.max_beams) == (
+        cfg.grid_cells_x, cfg.grid_cells_y, 80, 40, cfg.laser_max_beams)
+    assert (a.field, a.points, a.nums, a.pose) == (
+        rows[0].data_ptr(), rows[2].data_ptr(), nums.data_ptr(),
+        rows[4].data_ptr())
+    assert a.out == outs[1].data_ptr() and a.scores is None
     ticket = k11._TICKETS[(None, 4321)]
-    assert args[-2] == ticket.data_ptr() == fn.calls[1][-2]
+    assert a.ticket == ticket.data_ptr()
     assert ticket.numel() >= R and not bool(ticket.any())

@@ -292,15 +292,15 @@ def _source_struct(name):
 
 
 def test_args_block_matches_the_source_layout():
-    """csrc/score_points.cu::ParticleArgs: eight ints, then the cell."""
+    """csrc/score_points.cu::ParticleArgs: ten ints, then the cell."""
     src = _source_struct("ParticleArgs")
     names = [f for f, _ in k3._ParticleArgs._fields_]
     assert names == [f for _, f in src]
     kinds = {"int": ctypes.c_int, "float": ctypes.c_float}
     assert [kinds[k] for k, _ in src] == [t for _, t in
                                           k3._ParticleArgs._fields_]
-    assert ctypes.sizeof(k3._ParticleArgs) == 36
-    assert k3._ParticleArgs.cell.offset == 32
+    assert ctypes.sizeof(k3._ParticleArgs) == 44
+    assert k3._ParticleArgs.cell.offset == 40
 
 
 def test_launch_block_matches_the_source_layout():
@@ -315,9 +315,9 @@ def test_launch_block_matches_the_source_layout():
     for (kind, name), (_, t) in zip(src, k3._ParticleLaunch._fields_):
         want = ctypes.c_void_p if kind.endswith("*") else kinds[kind]
         assert t is want, name
-    assert k3._ParticleLaunch.poses.offset == 40  # after 36 bytes, aligned
-    assert k3._ParticleLaunch.rot1.offset == 40 + 8 * 8
-    assert ctypes.sizeof(k3._ParticleLaunch) == 136
+    assert k3._ParticleLaunch.poses.offset == 48  # after 44 bytes, aligned
+    assert k3._ParticleLaunch.rot1.offset == 48 + 8 * 8
+    assert ctypes.sizeof(k3._ParticleLaunch) == 144
     sig = re.search(r"NDT2D_API int ndt2d_particle_scores\((.*?)\)\s*\{",
                     open(SRC).read(), re.S).group(1)
     assert [a.split()[-1] for a in sig.split(",")] == ["launch", "stream"]
@@ -332,9 +332,9 @@ def test_plan_is_made_once_a_shape(box):
     assert k3.particle_plan(grid, table, W, H, 100, qp, 257, False) is not a
     assert k3.particle_plan(grid, table, W, H, 99, qp, 257, True) is not a
     assert ctypes.addressof(a.args) == a.address
-    assert (a.args.P, a.args.max_beams, a.args.G, a.args.W, a.args.H,
-            a.args.stride, a.args.M, a.args.motion) == (P, 100, 1, W, H, 32,
-                                                        257, 1)
+    assert (a.args.P, a.args.max_beams, a.args.G, a.args.W, a.args.row0,
+            a.args.h, a.args.stride, a.args.M, a.args.motion,
+            a.args.raw) == (P, 100, 1, W, 0, H, 32, 257, 1, 0)
     assert a.args.cell == CELL
     shapes = {name: shape for name, _, shape in a.map_expect + a.expect}
     assert shapes == {"origin": (2,), "table": (W * H, 32),
