@@ -410,6 +410,28 @@ Phases (any failure exits non-zero):
     launches, no KB4 launch), on one device KB4 launches planned (200),
     the two runs' poses bitwise equal, their sha256 printed; (t) the port's
     ``dryrun_multichip`` on 1, 2 and 4 ranks;
+    the runtime surface: (v) sessions: config 2 split at scan 100 by
+    ``save_session`` / ``load_session``, synchronous and at max_inflight 8:
+    every scan accepted, ATE below odometry's, within 0.03 m across the
+    corridor and 0.01 rad of (a)'s and (k)'s poses, whether bitwise and
+    where they part printed; config 4's filter split at scan 75 with its
+    CUDA generator's state restored: final error <= 0.10 m, particles'
+    sha256 beside (m)'s; config 3's graph saved and loaded, timed; (w) the
+    control channel: ``run_bag(control=...)`` over config 2 with mapping
+    off, a save, a load, mapping on and an initial pose sent between
+    scans, the state checked after each; ``run --session-out`` and ``run
+    --resume`` on config 2's halves beside one ``run``, three processes:
+    the same accepted count, within (v)'s bounds; (x) the live server:
+    ``stream_bag`` windowed into a ScanServer on config 2 at max_inflight
+    8, a pose for every deferred scan bitwise the graph's, K13 from the
+    client's thread and K5 from the publisher's, state.json and map.npz
+    written; a synchronous server answering every scan with the graph's
+    pose; the client's ms a scan of both protocols; (y) ``run
+    --trace-dir`` over 30 scans: the Chrome trace holds K1's, K2's, K3's
+    and K13's kernels by symbol; ``export-rosbag2`` then
+    ``import-rosbag2`` of config 3's map give back every array, ``info``
+    prints; the PNG outputs where matplotlib is installed, else a line
+    saying they were not run;
  5. print the kernels' JSON line and, last, the device JSON line.
 
 ``python3 chip_smoke.py --mesh-rank OUT SPACE BATCH MAP DEVICE`` is one
@@ -419,6 +441,7 @@ one of (r)-(t), started by the script itself.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import math
@@ -3816,34 +3839,44 @@ def solve_both(kw, scfg):
     return res, twin, launches, wall, time.perf_counter() - t0, unplanned
 
 
-def solve_profile(kw, scfg) -> dict:
+def solve_profile(kw, scfg, profiles: int = 3) -> dict:
     """The CUDA kernels and copies of one kernel-path solve, from
     torch.profiler: kernel name -> count, and the host->device and
-    device->host copies."""
+    device->host copies.  The profiler can drop device activity records
+    and never adds one (on the H100 machine one solve's device->host
+    copies read 11, 8 and 10 in successive profiles of one process), so
+    the solve is profiled ``profiles`` times and the profile with the most
+    device events is kept."""
     import torch
 
     from ndt_2d_tpu_torch.graph import solver
     from torch.profiler import ProfilerActivity, profile
     solver.solve(scfg, **kw)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        res = solver.solve(scfg, **kw)
-        torch.cuda.synchronize()
-    kernels, htod, dtoh = {}, 0, 0
-    htod_ops = sorted({ev.name for ev in prof.events()
-                       if any("HtoD" in k.name for k in ev.kernels)})
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        if "HtoD" in ev.name:
-            htod += 1
-        elif "DtoH" in ev.name:
-            dtoh += 1
-        elif "Memcpy" not in ev.name and "Memset" not in ev.name:
-            kernels[ev.name] = kernels.get(ev.name, 0) + 1
-    return dict(iterations=int(res.iterations), kernels=kernels, htod=htod,
-                dtoh=dtoh, htod_ops=htod_ops)
+    best = None
+    for _ in range(profiles):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res = solver.solve(scfg, **kw)
+            torch.cuda.synchronize()
+        kernels, htod, dtoh = {}, 0, 0
+        htod_ops = sorted({ev.name for ev in prof.events()
+                           if any("HtoD" in k.name for k in ev.kernels)})
+        for ev in prof.events():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            if "HtoD" in ev.name:
+                htod += 1
+            elif "DtoH" in ev.name:
+                dtoh += 1
+            elif "Memcpy" not in ev.name and "Memset" not in ev.name:
+                kernels[ev.name] = kernels.get(ev.name, 0) + 1
+        out = dict(iterations=int(res.iterations), kernels=kernels,
+                   htod=htod, dtoh=dtoh, htod_ops=htod_ops)
+        events = htod + dtoh + sum(kernels.values())
+        if best is None or events > best[0]:
+            best = (events, out)
+    return best[1]
 
 
 def phase_lm(dev, office, ident) -> dict:
@@ -6605,7 +6638,7 @@ def phase_pipelined_config2(cfg, bag, dev, sync_numbers, sync_poses):
           f"{ms:.3f} ms/scan median (synchronous {sync_numbers['ms']:.3f}); "
           f"dispatch loop {dispatch:.3f} s, session {wall:.3f} s; launches "
           f"{launches}")
-    return launches, dict(ms=ms, ate=ate)
+    return launches, dict(ms=ms, ate=ate, poses=g.poses.copy())
 
 
 def phase_pipelined_office(cfg, bag, dev, sync):
@@ -9906,6 +9939,446 @@ def config6_pcg_spread(dev, starts: int = 5, inverses=("tree",)) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The runtime surface: sessions, the control channel, the live server, the
+# trace and the remaining verbs ([4v]-[4y]).
+def first_parting(a, b) -> str:
+    """"bitwise" when the pose arrays ``a`` and ``b`` are equal, else the
+    first row where they differ and the largest difference."""
+    import numpy as np
+    if a.shape == b.shape and np.array_equal(a, b):
+        return "bitwise equal"
+    n = min(len(a), len(b))
+    diff = np.abs(a[:n] - b[:n])
+    rows = np.nonzero(diff.max(1) > 0)[0]
+    first = int(rows[0]) if len(rows) else n
+    return (f"not bitwise: first parts at scan {first}, at most "
+            f"{diff.max(0).tolist()} (x, y, theta)")
+
+
+def split_session(cfg, bag, dev, at: int, path: str, closure: bool):
+    """Map ``bag`` to scan ``at``, save the session to ``path``, load it
+    and map the rest (each scan's sweep end from the whole bag, as
+    ``run_bag`` gives it); flush, and with ``closure`` the final loop
+    closure pass of ``run_bag``.  Returns (resumed mapper, accepted,
+    save s, load s)."""
+    from ndt_2d_tpu_torch.io import serialization
+    from ndt_2d_tpu_torch.mapping import runtime
+    from ndt_2d_tpu_torch.mapping.mapper import Mapper
+    mapper, accepted = Mapper(cfg, device=dev), 0
+    for t in range(len(bag)):
+        if t == at:
+            t0 = time.perf_counter()
+            serialization.save_session(mapper, path)
+            t1 = time.perf_counter()
+            mapper = serialization.load_session(path, cfg, device=dev)
+            t2 = time.perf_counter()
+        msg, odom = bag[t]
+        res = mapper.process_scan(msg, odom,
+                                  runtime.sweep_end_odom(bag, t, msg))
+        accepted += int(res.accepted)
+    mapper.flush()
+    if closure:
+        mapper.loop_closure()
+    return mapper, accepted, t1 - t0, t2 - t1
+
+
+def phase_resume(cfg, bag, dev, sync_poses, pipelined_poses, map4, digest4,
+                 graph3, tmp):
+    """[4v] Sessions on the card.  Config 2's corridor split at scan 100
+    (save, load, go on), synchronous and at max_inflight = 8: every scan
+    accepted as in the continuous runs, ATE below odometry's, within
+    0.03 m across the corridor and 0.01 rad in heading of the continuous
+    run's poses ([4a], [4k]); printed whether bitwise and where they part.
+    Config 4's filter split at its 75th scan with the CUDA generator's
+    state restored: final error <= 0.10 m, particles' sha256 beside [4d]'s.
+    The save and load of config 3's final graph, timed."""
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.io import serialization
+    from ndt_2d_tpu_torch.io.bag import record_synthetic
+    from ndt_2d_tpu_torch.mapping.mapper import Mapper
+    from ndt_2d_tpu_torch.utils import metrics
+    odom_ate = metrics.ate_rmse(bag.odom, bag.truth)
+    for name, c, cont, closure in (
+            ("synchronous", cfg, sync_poses, True),
+            ("max_inflight=8", pipelined(cfg), pipelined_poses, False)):
+        path = os.path.join(tmp, "config2_session.npz")
+        m, acc, save_s, load_s = split_session(c, bag, dev, 100, path,
+                                               closure)
+        g = m.graph
+        require(acc == len(bag) and g.num_scans == len(cont),
+                f"[4v] {name}: split session accepted {acc} scans, graph "
+                f"{g.num_scans}, continuous {len(cont)}")
+        ate = metrics.ate_rmse(g.poses, bag.truth)
+        require(np.isfinite(ate) and ate < odom_ate, f"[4v] {name}: split "
+                f"session ATE {ate} not below odometry's {odom_ate}")
+        dx, dy, dth = np.abs(g.poses - cont).max(0)
+        require(dy <= 0.03 and dth <= 0.01, f"[4v] {name}: split session "
+                f"parts from the continuous run across the corridor by "
+                f"{dy} m or in heading by {dth} rad")
+        print(f"[4v] config 2 {name} split at scan 100 (save "
+              f"{save_s:.3f} s, load {load_s:.3f} s): {acc}/{len(bag)} "
+              f"accepted, ATE {ate:.4f} m (odometry {odom_ate:.4f}); "
+              f"against the continuous run: {first_parting(g.poses, cont)}")
+
+    # Config 4's particle filter, split mid-run.
+    _, pcfg = config4_configs()
+    loc_bag = record_synthetic("box", 150, n_beams=360, seed=7,
+                               odom_trans_noise=0.01)
+    rel = metrics.relative_to_first(loc_bag.truth)
+    loc = localizer(pcfg, map4, dev, 3)
+    loc.set_initial_pose(rel[0], np.diag([0.04, 0.04, 0.01]),
+                         loc_bag.truth[0])
+    path = os.path.join(tmp, "config4_session.npz")
+    errs = []
+    for t in range(1, len(loc_bag)):
+        if t == 75:
+            serialization.save_session(loc, path)
+            state = loc.filter.gen.get_state()
+            loc = serialization.load_session(path, pcfg, seed=0, device=dev)
+            require(loc.filter.gen.device.type == "cuda"
+                    and torch.equal(loc.filter.gen.get_state(), state),
+                    "[4v] the filter's CUDA generator state was not "
+                    "restored")
+        msg, odom = loc_bag[t]
+        res = loc.process_scan(msg, odom)
+        if res.accepted:
+            errs.append(float(np.hypot(*(res.pose[:2] - rel[t][:2]))))
+    final = errs[-1]
+    require(np.isfinite(errs).all() and final <= 0.10,
+            f"[4v] config 4 split filter: final error {final} > 0.10 m")
+    digest = poses_digest(loc.filter.particles.cpu().numpy())
+    print(f"[4v] config 4 filter split at scan 75 (CUDA generator state "
+          f"restored, {state.numel()} bytes): {len(errs)} accepted, mean "
+          f"error {float(np.mean(errs)):.4f} m, final {final:.4f} m; "
+          f"particles sha256 {digest}, [4d]'s continuous {digest4}: "
+          f"{'equal' if digest == digest4 else 'DIFFERENT'}")
+
+    # Save and load of config 3's final graph.
+    m3 = Mapper(office_config(), graph=graph3, device=dev)
+    path = os.path.join(tmp, "config3_session.npz")
+    t0 = time.perf_counter()
+    serialization.save_session(m3, path)
+    t1 = time.perf_counter()
+    back = serialization.load_session(path, office_config(), device=dev)
+    t2 = time.perf_counter()
+    require(np.array_equal(back.graph.poses, graph3.poses)
+            and np.array_equal(back.graph.points, graph3.points),
+            "[4v] config 3's graph did not load back equal")
+    print(f"[4v] config 3's final graph ({graph3.num_scans} scans, "
+          f"{graph3.num_constraints} constraints, "
+          f"{os.path.getsize(path) / 2**20:.2f} MiB): save_session "
+          f"{t1 - t0:.3f} s, load_session {t2 - t1:.3f} s wall")
+
+
+def cli_run(argv, what: str) -> dict:
+    """``python3 -m ndt_2d_tpu_torch.cli`` ``argv`` in a process of its
+    own; its stats line."""
+    out = subprocess.run(
+        [sys.executable, "-m", "ndt_2d_tpu_torch.cli", *argv],
+        capture_output=True, text=True, cwd=ROOT, timeout=300,
+        env=dict(os.environ, PYTHONPATH=ROOT))
+    require(out.returncode == 0, f"{what} exited {out.returncode}: "
+            f"{out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+CONFIG2_FLAGS = ["--local_scan_matcher.grid_cells", "192",
+                 "--global_scan_matcher.grid_cells", "192",
+                 "--max-points-per-scan", "512",
+                 "--loop-closure-every", "1000000000"]
+
+
+def phase_control(cfg, bag, dev, tmp):
+    """[4w] The control channel on the card: ``run_bag(control=...)`` over
+    config 2's bag with actions sent from the progress callback (mapping
+    off after scan 59; after scan 69 a save, a load of that map, mapping
+    on and an initial pose 1.8 m on, within the reference's squared 10 m²
+    radius of the graph), the mapper's state checked after each; then
+    ``run --session-out`` and ``run --resume`` on the bag's two halves
+    beside one ``run`` of the whole, each a process of its own."""
+    import numpy as np
+
+    from ndt_2d_tpu_torch.io import serialization
+    from ndt_2d_tpu_torch.io.bag import ScanBag, save_bag
+    from ndt_2d_tpu_torch.mapping import runtime
+    from ndt_2d_tpu_torch.mapping.mapper import Mapper
+    from ndt_2d_tpu_torch.utils import metrics
+    rel = metrics.relative_to_first(bag.truth)
+    mapper = Mapper(cfg, device=dev)
+    map_path = os.path.join(tmp, "mid_map.npz")
+    sock = "ctl.sock"
+    seen = {}
+
+    def progress(t, res):
+        if t == 59:
+            require(runtime.send_configure(sock, 2)["ok"]
+                    and not mapper.enable_mapping
+                    and not mapper.prev_odom_pose_is_initialized,
+                    "[4w] DISABLE_MAPPING did not take")
+            seen["off"] = mapper.graph.num_scans
+        elif t == 69:
+            require(mapper.graph.num_scans == seen["off"],
+                    "[4w] the graph grew while mapping was off")
+            require(runtime.send_configure(sock, 8, map_path)["ok"]
+                    and serialization.load_graph(map_path, 512).num_scans
+                    == seen["off"], "[4w] SAVE_TO_FILE")
+            require(runtime.send_configure(sock, 4, map_path)["ok"]
+                    and mapper.graph.num_scans == seen["off"]
+                    and mapper._window_synced == -1, "[4w] LOAD_FROM_FILE")
+            require(runtime.send_configure(sock, 1)["ok"]
+                    and mapper.enable_mapping, "[4w] ENABLE_MAPPING")
+            require(mapper.set_initial_pose(
+                rel[t], np.diag([0.04, 0.04, 0.01]), bag.odom[t]),
+                "[4w] the initial pose after the load was refused")
+    # In tmp, UNIX sockets are bound by a short relative name (a socket's
+    # path is limited to 108 bytes).
+    with contextlib.chdir(tmp):
+        control = runtime.ControlServer(mapper, sock)
+        try:
+            reset_counts()
+            stats = runtime.run_bag(mapper, bag, progress=progress,
+                                    control=control)
+            launches = read_counts()
+        finally:
+            control.close()
+    on = len(bag) - 70
+    require(stats["scans_accepted"] == seen["off"] + on
+            and mapper.graph.num_scans == seen["off"] + 1 + on,
+            f"[4w] {stats['scans_accepted']} accepted, graph "
+            f"{mapper.graph.num_scans}: expected {seen['off']} + {on}")
+    err = float(np.hypot(*(mapper.graph.poses[-1, :2] - rel[-1, :2])))
+    require(err <= 0.25, f"[4w] final pose {err} m from the truth")
+    require(launches["window_append"] >= on - 1,
+            f"[4w] K13 launched {launches['window_append']} times")
+    print(f"[4w] run_bag with the control channel over config 2: mapping "
+          f"off after scan 59 ({seen['off']} scans), a save, a load and "
+          f"mapping on after scan 69, then {on} more scans mapped; final "
+          f"pose {err:.4f} m from the truth; launches {launches}")
+
+    # The CLI in processes of its own: two halves through a session
+    # checkpoint beside one run.
+    half = len(bag) // 2
+    paths = {}
+    for name, sl in (("whole", slice(None)), ("a", slice(0, half)),
+                     ("b", slice(half, None))):
+        paths[name] = os.path.join(tmp, f"config2_{name}.npz")
+        save_bag(ScanBag(ranges=bag.ranges[sl], angle_min=bag.angle_min,
+                         angle_increment=bag.angle_increment,
+                         time_increment=bag.time_increment,
+                         range_max=bag.range_max, odom=bag.odom[sl],
+                         truth=bag.truth[sl]), paths[name])
+    session = os.path.join(tmp, "cli_session.npz")
+    one_map, split_map = (os.path.join(tmp, "one_map.npz"),
+                          os.path.join(tmp, "split_map.npz"))
+    t0 = time.perf_counter()
+    one = cli_run(["run", "--bag", paths["whole"], "--map-out", one_map,
+                   *CONFIG2_FLAGS], "[4w] run")
+    a = cli_run(["run", "--bag", paths["a"], "--session-out", session,
+                 *CONFIG2_FLAGS], "[4w] run --session-out")
+    b = cli_run(["run", "--bag", paths["b"], "--resume", session,
+                 "--map-out", split_map, *CONFIG2_FLAGS], "[4w] run --resume")
+    wall = time.perf_counter() - t0
+    require(a["scans_accepted"] + b["scans_accepted"]
+            == one["scans_accepted"] == len(bag)
+            and b["graph_scans"] == one["graph_scans"],
+            f"[4w] CLI halves accepted {a['scans_accepted']} + "
+            f"{b['scans_accepted']}, one run {one['scans_accepted']}")
+    p_one = serialization.load_graph(one_map, 512).poses
+    p_split = serialization.load_graph(split_map, 512).poses
+    _, dy, dth = np.abs(p_split - p_one).max(0)
+    require(dy <= 0.03 and dth <= 0.01, f"[4w] CLI split run parts from one "
+            f"run by {dy} m across the corridor or {dth} rad")
+    print(f"[4w] CLI run --session-out / run --resume on config 2's halves "
+          f"(bags with time_increment {bag.time_increment}: no de-skew, so "
+          f"the first half's last scan loses nothing) beside one run: "
+          f"{a['scans_accepted']} + {b['scans_accepted']} accepted, ATE "
+          f"{b.get('ate_rmse_m', float('nan')):.4f} (second half) / "
+          f"{one['ate_rmse_m']:.4f} m (one run); maps "
+          f"{first_parting(p_split, p_one)}; three processes {wall:.1f} s")
+
+
+def sync_stream(path, sock) -> tuple:
+    """The synchronous protocol scan by scan: every reply, and each
+    scan's request-to-reply seconds."""
+    import socket
+
+    from ndt_2d_tpu_torch.io.bag import load_bag
+    bag = load_bag(path)
+    replies, times = [], []
+    with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as s:
+        s.connect(sock)
+        f = s.makefile("rwb")
+        for t, (msg, odom) in enumerate(bag):
+            req = {"id": t, "ranges": msg.ranges.astype(float).tolist(),
+                   "angle_min": msg.angle_min,
+                   "angle_increment": msg.angle_increment,
+                   "time_increment": msg.time_increment,
+                   "range_max": msg.range_max, "odom": odom.tolist()}
+            t0 = time.perf_counter()
+            f.write(json.dumps(req).encode() + b"\n")
+            f.flush()
+            replies.append(json.loads(f.readline()))
+            times.append(time.perf_counter() - t0)
+    return replies, times
+
+
+def phase_live(cfg, bag, dev, tmp):
+    """[4x] The live server on the card.  A ScanServer on the pipelined
+    mapper (max_inflight = 8) with its publisher: ``stream_bag(...,
+    windowed=True)`` of config 2's bag returns a pose for every deferred
+    scan, each bitwise the graph's; the publisher writes state.json and
+    map.npz from its thread (K5 launched there).  A synchronous server,
+    publishing alike, answers every scan with the graph's pose.  The
+    client's median ms a scan of both protocols, printed."""
+    import numpy as np
+
+    from ndt_2d_tpu_torch.io.bag import save_bag
+    from ndt_2d_tpu_torch.mapping import server as server_mod
+    from ndt_2d_tpu_torch.mapping.mapper import Mapper
+    path = os.path.join(tmp, "config2_live.npz")
+    save_bag(bag, path)
+    pub = os.path.join(tmp, "pub")
+    # In tmp, UNIX sockets are bound by a short relative name (a socket's
+    # path is limited to 108 bytes).
+    with contextlib.chdir(tmp):
+        mapper = Mapper(pipelined(cfg), device=dev)
+        srv = server_mod.ScanServer(mapper, "scan.sock", publish_dir=pub)
+        try:
+            reset_counts()
+            last = server_mod.stream_bag(path, "scan.sock", windowed=True)
+            deadline = time.time() + 30.0
+            while (srv.publisher.publish_count < 1
+                   or mapper.map_update_available) and \
+                    time.time() < deadline:
+                time.sleep(0.05)
+            launches = read_counts()
+        finally:
+            srv.close()
+        require(last["ok"], f"[4x] windowed stream: {last}")
+        results = last["results"]
+        g = mapper.graph
+        require(g.num_scans == len(bag) and len(results) == len(bag) - 1,
+                f"[4x] windowed: graph {g.num_scans}, {len(results)} "
+                "results")
+        got = np.asarray([results[t]["pose"] for t in range(1, len(bag))])
+        require(np.array_equal(got, g.poses[1:]),
+                "[4x] a windowed result is not bitwise the graph's pose")
+        require(srv.publisher.publish_count >= 1
+                and os.path.exists(os.path.join(pub, "map.npz"))
+                and os.path.exists(os.path.join(pub, "state.json")),
+                "[4x] the publisher wrote no map.npz or state.json")
+        require(launches["raymarch"] >= 1, "[4x] K5 never launched from "
+                "the publisher's thread")
+        require(launches["window_append"] == len(bag) - 1,
+                f"[4x] K13 launched {launches['window_append']} times from "
+                "the client thread")
+        with open(os.path.join(pub, "state.json")) as f:
+            state = json.load(f)
+        w_ms = float(np.median(last["scan_times_s"][3:]) * 1e3)
+
+        # The synchronous server publishes too, so that the two protocols'
+        # client times are taken under the same publisher.
+        smapper = Mapper(cfg, device=dev)
+        ssrv = server_mod.ScanServer(smapper, "sync.sock",
+                                     publish_dir=os.path.join(tmp, "pub_s"))
+        try:
+            replies, times = sync_stream(path, "sync.sock")
+        finally:
+            ssrv.close()
+        require(all(r["ok"] and r["accepted"] and len(r["pose"]) == 3
+                    for r in replies) and len(replies) == len(bag),
+                "[4x] the synchronous server left a scan without a pose")
+        sposes = np.asarray([r["pose"] for r in replies])
+        require(np.array_equal(sposes, smapper.graph.poses),
+                "[4x] a synchronous reply is not the graph's pose")
+        s_ms = float(np.median(times[3:]) * 1e3)
+    print(f"[4x] live server, config 2 over a UNIX socket: windowed "
+          f"protocol on max_inflight=8, {len(results)} deferred poses "
+          f"bitwise the graph's, {w_ms:.3f} ms a scan (client median, scans "
+          f"3+); synchronous protocol, {len(replies)} replies each with a "
+          f"pose, {s_ms:.3f} ms a scan; windowed / synchronous "
+          f"{w_ms / s_ms:.3f}; publisher (4 Hz, both servers): "
+          f"{srv.publisher.publish_count} and "
+          f"{ssrv.publisher.publish_count} map.npz, state.json at "
+          f"{state['nodes']} nodes; launches {launches}")
+
+
+TRACE_KERNELS = {"K1": ("bin_points", "sort_cells", "cell_records"),
+                 "K2": ("score_angles",),
+                 "K3": ("score_pose_kernel", "score_points_kernel"),
+                 "K13": ("window_append_kernel",)}
+
+
+def phase_trace_verbs(bag, graph3, dev, tmp):
+    """[4y] ``run --trace-dir`` over config 2's first 30 scans leaves a
+    Chrome trace holding CUDA kernel events of K1, K2, K3 and K13 by their
+    symbols; ``export-rosbag2`` then ``import-rosbag2`` of config 3's map
+    give back equal arrays, and ``info`` prints.  The PNG outputs need
+    matplotlib, which the card's machine may lack: the phase says which."""
+    import importlib.util
+
+    import numpy as np
+
+    from ndt_2d_tpu_torch import cli
+    from ndt_2d_tpu_torch.io import serialization
+    from ndt_2d_tpu_torch.io.bag import ScanBag, save_bag
+    from ndt_2d_tpu_torch.utils.profiling import TRACE_FILE
+    path = os.path.join(tmp, "config2_30.npz")
+    save_bag(ScanBag(ranges=bag.ranges[:30], angle_min=bag.angle_min,
+                     angle_increment=bag.angle_increment,
+                     time_increment=bag.time_increment,
+                     range_max=bag.range_max, odom=bag.odom[:30],
+                     truth=bag.truth[:30]), path)
+    trace_dir = os.path.join(tmp, "trace")
+    require(cli.main(["run", "--bag", path, "--trace-dir", trace_dir,
+                      *CONFIG2_FLAGS]) == 0, "[4y] run --trace-dir")
+    with open(os.path.join(trace_dir, TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {}
+    for k, symbols in TRACE_KERNELS.items():
+        found[k] = sum(any(s in n for s in symbols) for n in kernels)
+        require(found[k] >= 1, f"[4y] the trace holds no kernel of {k} "
+                f"({symbols}); kernels: {sorted(set(kernels))[:20]}")
+    print(f"[4y] run --trace-dir over 30 scans: "
+          f"{os.path.getsize(os.path.join(trace_dir, TRACE_FILE)) / 2**20:.1f}"
+          f" MiB trace, {len(kernels)} kernel events, by kernel {found}")
+
+    native = os.path.join(tmp, "config3_map.npz")
+    serialization.save_graph(graph3, native)
+    bag_dir = os.path.join(tmp, "config3_rosbag2")
+    back = os.path.join(tmp, "config3_back.npz")
+    require(cli.main(["export-rosbag2", "--map", native, "--out",
+                      bag_dir]) == 0
+            and cli.main(["import-rosbag2", "--bag", bag_dir, "--out",
+                          back]) == 0, "[4y] rosbag2 verbs")
+    a, b = (serialization.load_graph(native, 512),
+            serialization.load_graph(back, 512))
+    for name in ("poses", "points", "point_mask", "constraint_begin",
+                 "constraint_end", "constraint_transform",
+                 "constraint_information", "constraint_switchable"):
+        require(np.array_equal(getattr(a, name), getattr(b, name)),
+                f"[4y] {name} differs after the rosbag2 round trip")
+    require(cli.main(["info", "--map", back]) == 0, "[4y] info")
+    print(f"[4y] export-rosbag2 / import-rosbag2 of config 3's map "
+          f"({a.num_scans} scans, {a.num_constraints} constraints): every "
+          f"array equal")
+    if importlib.util.find_spec("matplotlib") is None:
+        print("[4y] viz, run --viz-out and serve --publish-png not run: "
+              "matplotlib is not installed on this machine")
+    else:
+        png = os.path.join(tmp, "config3.png")
+        require(cli.main(["viz", "--map", native, "--render-grid",
+                          "--out", png]) == 0, "[4y] viz")
+        with open(png, "rb") as f:
+            require(f.read(8) == b"\x89PNG\r\n\x1a\n", "[4y] viz PNG")
+        print(f"[4y] viz of config 3's map with the grid rendered on the "
+              f"card: {os.path.getsize(png)} bytes of PNG")
+
+
 def main() -> int:
     try:
         import torch
@@ -10060,8 +10533,8 @@ def main() -> int:
             timing.update(phase_kb(map4, bag4, dev))
             kernel_times(dev, ident, map4, bag4)
             _, config2, sync_poses = phase_session(cfg, bag, dev)
-            c2p_launches, _ = phase_pipelined_config2(cfg, bag, dev, config2,
-                                                      sync_poses)
+            c2p_launches, c2p = phase_pipelined_config2(cfg, bag, dev,
+                                                        config2, sync_poses)
             c8_launches = phase_config8(cfg, bag, dev, config2)
             district_launches, district_poses = phase_district_solve(
                 truth, district, dev)
@@ -10092,6 +10565,16 @@ def main() -> int:
         merge_launches = phase_merge(dev)
         phase_config9(dev)
         corr_launches = phase_correlative(cfg, bag, dev)
+        # The runtime surface: config 4's box map again (the one above
+        # went with its directory).
+        with tempfile.TemporaryDirectory() as tmp:
+            map4 = os.path.join(tmp, "box_map.npz")
+            map_and_save(config4_configs()[0], bag4, map4, dev)
+            phase_resume(cfg, bag, dev, sync_poses, c2p["poses"], map4,
+                         sync4["digest"], plain3["graph"], tmp)
+            phase_control(cfg, bag, dev, tmp)
+            phase_live(cfg, bag, dev, tmp)
+            phase_trace_verbs(bag, plain3["graph"], dev, tmp)
         require("jax" not in sys.modules, "jax was imported")
     except SmokeFailure as e:
         print(f"FAIL: {e}")

@@ -1,5 +1,7 @@
-"""Command-line interface of the port: ``simulate``, ``import-carmen``,
-``run``, ``localize`` and ``merge-maps``.
+"""Command-line interface of the port: every verb of ``python -m
+ndt_2d_tpu.cli`` (the reference's scripts/enable_mapping.py,
+disable_mapping.py, save_map.py, load_map.py and the node itself, in one
+binary), on the port's kernels.
 
   python -m ndt_2d_tpu_torch.cli simulate --world corridor --scans 200 \\
       --beams 600 --out bag.npz
@@ -9,12 +11,25 @@
   python -m ndt_2d_tpu_torch.cli localize --bag bag.npz --map map.npz \\
       --particle-filter --pf.max_particles 5000
   python -m ndt_2d_tpu_torch.cli run --bag bag.npz --recipe drift
+  python -m ndt_2d_tpu_torch.cli run --bag a.npz --session-out s.npz
+  python -m ndt_2d_tpu_torch.cli run --bag b.npz --resume s.npz
+  python -m ndt_2d_tpu_torch.cli run --bag bag.npz --socket ctl.sock
+  python -m ndt_2d_tpu_torch.cli disable-mapping --socket ctl.sock
+  python -m ndt_2d_tpu_torch.cli save-map --socket ctl.sock --filename m.npz
+  python -m ndt_2d_tpu_torch.cli serve --socket scan.sock --publish-dir pub \\
+      --max-inflight 8
+  python -m ndt_2d_tpu_torch.cli feed --bag bag.npz --socket scan.sock \\
+      --windowed
   python -m ndt_2d_tpu_torch.cli import-carmen \
       --log datasets/simlab.clf.gz --range-max 10 --out simlab.npz
   python -m ndt_2d_tpu_torch.cli run --bag simlab.npz --recipe simlab \
       --max-inflight 8
   python -m ndt_2d_tpu_torch.cli merge-maps --map-a a.npz --map-b b.npz \
       --out merged.npz
+  python -m ndt_2d_tpu_torch.cli export-rosbag2 --map m.npz --out m_bag
+  python -m ndt_2d_tpu_torch.cli import-rosbag2 --bag m_bag --out m.npz
+  python -m ndt_2d_tpu_torch.cli info --map m.npz
+  python -m ndt_2d_tpu_torch.cli viz --map m.npz --render-grid --out m.png
 
 ``run`` and ``localize`` print the same JSON stats line as ``python -m
 ndt_2d_tpu.cli`` and take the reference CLI's names for the flags they
@@ -24,24 +39,31 @@ the Newton polish and ``.overlapping_grids 1`` for the four overlapping
 grids), the loop-closure and solver flags (``--loop-search`` radius,
 descriptor or both, with the far-row pruning levers), ``--recipe`` (the
 reference CLI's measured presets ``office``, ``office-descriptor``,
-``simlab`` and ``drift``; an explicit flag overrides its preset value), and
-for ``localize`` ``--map``,
-``--particle-filter``, ``--global-init`` and the ``--pf.*`` filter
-parameters.  ``--max-inflight N`` pipelines ``run`` and ``localize`` (the
-pose chain stays on the device, up to N steps in flight), and
-``--scan-matcher-type correlative`` swaps the NDT matchers for the
-correlative one.  ``localize``
-starts from the bag's first true pose (or its origin), or with
-``--global-init`` from a particle cloud over the map's free space.
-``merge-maps`` aligns and fuses two saved maps (``mapping/merge.py``);
-``import-carmen`` converts a CARMEN log (``io/carmen.py``) to a bag.  All
-run on the CUDA device unless ``--device cpu`` is given.
+``simlab`` and ``drift``; an explicit flag overrides its preset value),
+``--map``, ``--particle-filter``, ``--global-init`` and the ``--pf.*``
+filter parameters.  ``--max-inflight N`` pipelines them (the pose chain
+stays on the device, up to N steps in flight), and ``--scan-matcher-type
+correlative`` swaps the NDT matchers for the correlative one.  ``localize``,
+and ``run --map``, start from the bag's first true pose (or its origin), or
+with ``--global-init`` from a particle cloud over the map's free space.
+``--session-out`` checkpoints the whole session (graph, estimator state,
+particle cloud and its generator) and ``--resume`` continues one
+(``io/serialization.py``); ``--socket`` opens the control channel the four
+configure verbs talk to (``mapping/runtime.py``); ``--viz-out`` draws the
+session (matplotlib) and ``--trace-dir`` traces it with ``torch.profiler``.
+``serve`` is the live node (``mapping/server.py``) and ``feed`` streams a
+bag into it.  ``merge-maps`` aligns and fuses two saved maps
+(``mapping/merge.py``); ``import-carmen`` converts a CARMEN log
+(``io/carmen.py``) to a bag; ``import-rosbag2`` and ``export-rosbag2``
+move maps from and to the reference's rosbag2 format (``io/rosbag2.py``).
+All run on the CUDA device unless ``--device cpu`` is given.
 
 ``run`` and ``localize`` shard the session over a device mesh
 (``parallel/``) with ``--mesh N``, which starts N local ranks, one per
 CUDA device (gloo ranks with ``--device cpu``), or with ``--distributed``,
 which joins the process group ``torchrun`` describes in its environment
-and meshes over all of its ranks; rank 0 writes the outputs:
+and meshes over all of its ranks; rank 0 writes the outputs, every rank
+loads ``--resume``, and ``--socket`` is refused:
 
   python -m ndt_2d_tpu_torch.cli run --bag bag.npz --mesh 2 --map-out m.npz
   torchrun --nproc-per-node 2 -m ndt_2d_tpu_torch.cli run --bag bag.npz \
@@ -51,9 +73,11 @@ and meshes over all of its ranks; rank 0 writes the outputs:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import logging
+import os
 import sys
 
 import numpy as np
@@ -174,17 +198,18 @@ def _pf_config(args) -> ParticleFilterConfig:
 
 def _mapper_config(args) -> MapperConfig:
     """The session's MapperConfig: defaults, then the ``--recipe`` preset,
-    then every explicit flag (ndt_2d_tpu/cli.py:139-179)."""
-    recipe = dict(_RECIPES.get(args.recipe or "", {}))
+    then every explicit flag (ndt_2d_tpu/cli.py:139-179); a verb without
+    some of the flags (``serve``) keeps their defaults."""
+    recipe = dict(_RECIPES.get(getattr(args, "recipe", None) or "", {}))
     robust_loss = recipe.pop("robust_loss", None)
-    robust_loss = args.robust_loss or robust_loss
+    robust_loss = getattr(args, "robust_loss", None) or robust_loss
     global_refine = recipe.pop("global_refine_iterations", None)
     kw = recipe
     kw.update({f: getattr(args, f) for f in _MAPPER_FLAGS
-               if getattr(args, f) is not None})
+               if getattr(args, f, None) is not None})
     if robust_loss is not None:
         kw["solver"] = SolverConfig(robust_loss=robust_loss)
-    if args.no_mapping:
+    if getattr(args, "no_mapping", False):
         kw["enable_mapping"] = False
     if getattr(args, "particle_filter", False):
         kw["use_particle_filter"] = True
@@ -228,44 +253,122 @@ def _session_mesh(args):
     return mesh_mod.make_mesh()
 
 
-def cmd_run(args) -> int:
+def _run_session(args, localize: bool) -> int:
+    """``run`` (mapping) or ``localize`` (``enable_mapping`` off) of a bag:
+    from scratch, from a map (``--map``; the pose seeded at the bag's first
+    true pose, or with ``--global-init`` over the map's free space) or from
+    a session checkpoint (``--resume``), with the control channel on
+    ``--socket``."""
+    from ndt_2d_tpu_torch.mapping import runtime
     from ndt_2d_tpu_torch.mapping.mapper import Mapper
 
+    if args.global_init and (args.resume or (not localize
+                                             and args.map is None)):
+        print(json.dumps({"error": "--global-init requires a map to "
+                          "localize in and is incompatible with --resume"}))
+        return 1
+    if args.socket and (args.mesh is not None or args.distributed):
+        raise ValueError("--socket cannot be used with --mesh or "
+                         "--distributed: every rank would have to apply "
+                         "each action at the same scan boundary")
     if _spawn_mesh(args):
         return 0
     mesh = _session_mesh(args)
-    mapper = Mapper(_mapper_config(args), device=args.device, mesh=mesh)
-    return _replay(args, mapper, load_bag(args.bag))
+    cfg = _mapper_config(args)
+    if localize:
+        cfg = dataclasses.replace(cfg, enable_mapping=False)
+    graph = None
+    if args.map:
+        graph = serialization.load_graph(args.map, cfg.max_points_per_scan,
+                                         cfg.use_barycenter)
+    if args.resume:
+        mapper = serialization.load_session(args.resume, cfg, mesh=mesh,
+                                            device=args.device)
+    else:
+        mapper = Mapper(cfg, graph=graph, device=args.device, mesh=mesh)
+    bag = load_bag(args.bag)
+    if (localize or graph is not None) and not args.resume:
+        if args.global_init:
+            # No initial pose: a uniform cloud over the map's free space.
+            if not mapper.global_localize(bag.odom[0]):
+                print(json.dumps({"error": "global_localize failed "
+                                  "(requires --particle-filter and a map)"}))
+                return 1
+        else:
+            # Start at the bag's first true pose in the map frame (a
+            # resumed session already carries its pose estimate).
+            init = (metrics.relative_to_first(bag.truth)[0]
+                    if bag.truth is not None else np.zeros(3))
+            mapper.set_initial_pose(init, np.diag([0.25, 0.25, 0.06]),
+                                    bag.odom[0])
+    control = (runtime.ControlServer(mapper, args.socket) if args.socket
+               else None)
+    try:
+        return _replay(args, mapper, bag, control)
+    finally:
+        if control:
+            control.close()
+
+
+def cmd_run(args) -> int:
+    return _run_session(args, localize=False)
 
 
 def cmd_localize(args) -> int:
     """Localize a bag against a saved map: the particle filter with
     ``--particle-filter``, else scan-match tracking."""
-    from ndt_2d_tpu_torch.mapping.mapper import Mapper
+    return _run_session(args, localize=True)
 
-    if _spawn_mesh(args):
-        return 0
-    mesh = _session_mesh(args)
-    cfg = dataclasses.replace(_mapper_config(args), enable_mapping=False)
+
+def cmd_configure(args, action: int) -> int:
+    """One configure call on a running session's control channel."""
+    from ndt_2d_tpu_torch.mapping import runtime
+    out = runtime.send_configure(args.socket, action,
+                                 getattr(args, "filename", "") or "")
+    print(json.dumps(out))
+    return 0 if out.get("ok") else 1
+
+
+def cmd_serve(args) -> int:
+    """The live node: scans in over a UNIX socket, poses out, latched map
+    artifacts in ``--publish-dir``; runs until SIGINT or SIGTERM."""
+    import signal
+    import threading
+
+    from ndt_2d_tpu_torch.mapping.mapper import Mapper
+    from ndt_2d_tpu_torch.mapping.server import ScanServer
+
+    cfg = _mapper_config(args)
     graph = None
     if args.map:
         graph = serialization.load_graph(args.map, cfg.max_points_per_scan,
                                          cfg.use_barycenter)
-    mapper = Mapper(cfg, graph=graph, device=args.device, mesh=mesh)
-    bag = load_bag(args.bag)
-    if args.global_init:
-        # No initial pose: a uniform cloud over the map's free space.
-        if not mapper.global_localize(bag.odom[0]):
-            print(json.dumps({"error": "global_localize failed (requires "
-                              "--particle-filter and a map)"}))
-            return 1
-    else:
-        # Start at the bag's first true pose in the map frame.
-        init = (metrics.relative_to_first(bag.truth)[0]
-                if bag.truth is not None else np.zeros(3))
-        mapper.set_initial_pose(init, np.diag([0.25, 0.25, 0.06]),
-                                bag.odom[0])
-    return _replay(args, mapper, bag)
+    mapper = Mapper(cfg, graph=graph, device=args.device)
+    server = ScanServer(mapper, args.socket, publish_dir=args.publish_dir,
+                        publish_png=args.publish_png)
+    print(json.dumps({"serving": args.socket,
+                      "publish_dir": args.publish_dir}), flush=True)
+    stop = threading.Event()
+    signal.signal(signal.SIGINT, lambda *_: stop.set())
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    try:
+        stop.wait()
+    finally:
+        server.close()
+    return 0
+
+
+def cmd_feed(args) -> int:
+    """Stream a bag into a running ``serve``."""
+    from ndt_2d_tpu_torch.mapping.server import stream_bag
+    last = stream_bag(args.bag, args.socket, realtime_hz=args.hz,
+                      windowed=args.windowed)
+    last["results"] = len(last.get("results", {}))  # keep the print short
+    times = last.pop("scan_times_s", [])
+    if len(times) > 3:  # median over scans 4.. (the first launches build)
+        last["scan_ms_median"] = round(float(np.median(times[3:])) * 1e3, 2)
+    print(json.dumps(last))
+    return 0 if last.get("ok") else 1
 
 
 def cmd_import_carmen(args) -> int:
@@ -313,10 +416,70 @@ def cmd_merge_maps(args) -> int:
     return 0
 
 
-def _replay(args, mapper, bag) -> int:
-    """Run ``bag`` through ``mapper``, write the requested outputs and
-    print the stats line (rank 0 of a mesh only)."""
+def cmd_import_rosbag2(args) -> int:
+    """One-way migration of a reference (ROS ndt_2d) map file
+    (src/graph.cpp:49-105 format) into the native npz schema."""
+    from ndt_2d_tpu_torch.io import rosbag2
+    g = rosbag2.import_map(args.bag, args.max_points)
+    serialization.save_graph(g, args.out)
+    print(json.dumps({"out": args.out, "scans": g.num_scans,
+                      "constraints": g.num_constraints,
+                      "loop_closures": int(g.constraint_switchable.sum())}))
+    return 0
+
+
+def cmd_export_rosbag2(args) -> int:
+    """Write a native map as a reference-format rosbag2 directory so the
+    ROS ndt_2d package can load it (src/graph.cpp:107-165 format)."""
+    from ndt_2d_tpu_torch.io import rosbag2
+    g = serialization.load_graph(args.map, args.max_points)
+    rosbag2.export_map(g, args.out)
+    print(json.dumps({"out": args.out, "scans": g.num_scans,
+                      "constraints": g.num_constraints}))
+    return 0
+
+
+def cmd_viz(args) -> int:
+    """Render a saved map (and an occupancy grid) to PNG — the offline
+    analog of the reference's RViz graph/map displays."""
+    from ndt_2d_tpu_torch.mapping import occupancy
+    from ndt_2d_tpu_torch.utils import viz
+    g = serialization.load_graph(args.map, args.max_points)
+    grid = None
+    if args.grid:
+        z = np.load(args.grid)
+        grid = occupancy.OccupancyGridResult(
+            data=z["data"], origin=z["origin"],
+            resolution=float(z["resolution"]))
+    elif args.render_grid:
+        grid = occupancy.render_occupancy(g.poses, g.points, g.point_mask,
+                                          args.resolution, 0.25,
+                                          device=args.device)
+    viz.save_graph_png(g, args.out, grid=grid)
+    print(json.dumps({"out": args.out, "scans": g.num_scans,
+                      "constraints": g.num_constraints}))
+    return 0
+
+
+def cmd_info(args) -> int:
+    """One line about a saved map: its size and the extent of its poses."""
+    g = serialization.load_graph(args.map, 512)
+    print(json.dumps({
+        "scans": g.num_scans,
+        "constraints": g.num_constraints,
+        "loop_closures": int(g.constraint_switchable.sum()),
+        "bounds_min": g.poses[:, :2].min(0).tolist() if g.num_scans else None,
+        "bounds_max": g.poses[:, :2].max(0).tolist() if g.num_scans else None,
+    }))
+    return 0
+
+
+def _replay(args, mapper, bag, control=None) -> int:
+    """Run ``bag`` through ``mapper`` (traced into ``--trace-dir``), write
+    the requested outputs and print the stats line (rank 0 of a mesh
+    only; each rank of a mesh traces into its own subdirectory)."""
     from ndt_2d_tpu_torch.mapping import runtime
+    from ndt_2d_tpu_torch.parallel import distributed
 
     def progress(t, res):
         # A pipelined scan's pose is still in flight: nothing to print.
@@ -324,9 +487,23 @@ def _replay(args, mapper, bag) -> int:
             print(f"scan {t}: pose={np.round(res.pose, 3)} "
                   f"score={res.matched_score:.3f}", file=sys.stderr)
 
-    stats = runtime.run_bag(mapper, bag, progress=progress)
+    trace = contextlib.nullcontext()
+    if args.trace_dir:
+        from ndt_2d_tpu_torch.utils.profiling import device_trace
+        trace_dir = args.trace_dir
+        if mapper.mesh is not None:
+            trace_dir = os.path.join(trace_dir, f"rank{distributed.rank()}")
+        trace = device_trace(trace_dir)
+    with trace:
+        stats = runtime.run_bag(mapper, bag, progress=progress,
+                                control=control)
+    if args.trace_dir:
+        stats["trace_dir"] = trace_dir
+    truth = (metrics.relative_to_first(bag.truth) if bag.truth is not None
+             else None)
     runtime.write_outputs(mapper, stats, args.traj_out, args.map_out,
-                          args.grid_out)
+                          args.grid_out, args.session_out, args.viz_out,
+                          truth)
     return 0
 
 
@@ -365,18 +542,90 @@ def _build_parser() -> argparse.ArgumentParser:
         p = sub.add_parser(name, help="replay a bag, " + (
             "localizing in a saved map" if localize else "mapping"))
         _add_session_args(p)
-        if localize:
-            p.add_argument("--map", default=None,
-                           help="pose graph npz to localize in")
-            p.add_argument("--particle-filter", action="store_true",
-                           dest="particle_filter")
-            p.add_argument("--global-init", action="store_true",
-                           dest="global_init",
-                           help="global relocalization: a uniform particle "
-                                "cloud over the map's free space instead of "
-                                "an initial pose (needs --particle-filter)")
-            _add_pf_args(p)
         p.set_defaults(fn=cmd_localize if localize else cmd_run)
+
+    # The four reference scripts (scripts/*.py) as control-channel verbs.
+    for name, action, filename in (("enable-mapping", 1, False),
+                                   ("disable-mapping", 2, False),
+                                   ("load-map", 4, True),
+                                   ("save-map", 8, True)):
+        p = sub.add_parser(name, help=f"configure action {action} on a "
+                                      "running session's --socket")
+        p.add_argument("--socket", required=True)
+        if filename:
+            p.add_argument("--filename", required=True)
+        p.set_defaults(fn=lambda a, action=action: cmd_configure(a, action))
+
+    p = sub.add_parser("serve", help="live scan server (the node analog): "
+                                     "scans in over a socket, pose out, "
+                                     "4 Hz latched map artifacts")
+    p.add_argument("--socket", required=True, help="UNIX socket path")
+    p.add_argument("--map", default=None, help="map to load at startup")
+    p.add_argument("--publish-dir", default=None,
+                   help="directory for latched map.npz/state.json artifacts")
+    p.add_argument("--publish-png", action="store_true",
+                   help="also draw map.png at each publish (matplotlib)")
+    p.add_argument("--particle-filter", action="store_true",
+                   dest="particle_filter")
+    p.add_argument("--no-mapping", action="store_true", dest="no_mapping")
+    _add_matcher_args(p, "local_scan_matcher")
+    _add_matcher_args(p, "global_scan_matcher")
+    _add_loop_closure_args(p)
+    p.add_argument("--max-range", type=float, default=None, dest="max_range")
+    p.add_argument("--max-inflight", type=int, default=None,
+                   dest="max_inflight",
+                   help="pipelined device pose chain (what lets windowed "
+                        "clients overlap scans; see 'feed --windowed')")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the kernels) or cpu (their plain twins)")
+    p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("feed", help="stream a bag into a running server")
+    p.add_argument("--bag", required=True)
+    p.add_argument("--socket", required=True)
+    p.add_argument("--hz", type=float, default=0.0,
+                   help="pace the stream (0 = as fast as possible)")
+    p.add_argument("--windowed", action="store_true",
+                   help="windowed protocol: immediate per-scan acks, poses "
+                        "stream back as their copies land (pairs with a "
+                        "server run with --max-inflight)")
+    p.set_defaults(fn=cmd_feed)
+
+    p = sub.add_parser("import-rosbag2",
+                       help="migrate a reference (ROS ndt_2d) rosbag2 map "
+                            "file to the native npz schema")
+    p.add_argument("--bag", required=True,
+                   help="bag directory or .db3 file written by the "
+                        "reference's save_map")
+    p.add_argument("--out", required=True)
+    p.add_argument("--max-points", type=int, default=512)
+    p.set_defaults(fn=cmd_import_rosbag2)
+
+    p = sub.add_parser("export-rosbag2",
+                       help="write a native map as a reference-format "
+                            "rosbag2 directory (loadable by the ROS "
+                            "ndt_2d package)")
+    p.add_argument("--map", required=True)
+    p.add_argument("--out", required=True, help="bag DIRECTORY to create")
+    p.add_argument("--max-points", type=int, default=512)
+    p.set_defaults(fn=cmd_export_rosbag2)
+
+    p = sub.add_parser("info", help="inspect a saved map")
+    p.add_argument("--map", required=True)
+    p.set_defaults(fn=cmd_info)
+
+    p = sub.add_parser("viz", help="render a saved map to PNG (matplotlib)")
+    p.add_argument("--map", required=True)
+    p.add_argument("--grid", default=None, help="occupancy grid npz overlay")
+    p.add_argument("--render-grid", action="store_true",
+                   help="re-render the occupancy grid from the map")
+    p.add_argument("--resolution", type=float, default=0.05)
+    p.add_argument("--max-points", type=int, default=512)
+    p.add_argument("--out", required=True)
+    p.add_argument("--device", default="cuda",
+                   help="where --render-grid renders: cuda (the kernel) or "
+                        "cpu (its plain twin)")
+    p.set_defaults(fn=cmd_viz)
 
     p = sub.add_parser("merge-maps",
                        help="align and fuse two saved maps (descriptor "
@@ -398,59 +647,9 @@ def _build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _add_session_args(p: argparse.ArgumentParser) -> None:
-    """The flags ``run`` and ``localize`` share."""
-    p.add_argument("--bag", required=True)
-    p.add_argument("--map-out", default=None, help="pose graph npz output")
-    p.add_argument("--grid-out", default=None,
-                   help="occupancy grid npz output")
-    p.add_argument("--traj-out", default=None,
-                   help="estimated trajectory in TUM format (timestamps = "
-                        "scan indices)")
-    # The mapper's parameters (ndt_mapper.cpp:59-103).
-    p.add_argument("--resolution", type=float, default=None,
-                   help="occupancy-grid export resolution (m)")
-    p.add_argument("--loop-closure-every", type=int, default=None,
-                   dest="loop_closure_every")
-    p.add_argument("--max-points-per-scan", type=int, default=None,
-                   dest="max_points_per_scan")
-    p.add_argument("--minimum-travel-distance", type=float, default=None,
-                   dest="minimum_travel_distance")
-    p.add_argument("--minimum-travel-rotation", type=float, default=None,
-                   dest="minimum_travel_rotation")
-    p.add_argument("--rolling-depth", type=int, default=None,
-                   dest="rolling_depth")
-    p.add_argument("--occupancy-threshold", type=float, default=None,
-                   dest="occupancy_threshold")
-    p.add_argument("--max-range", type=float, default=None,
-                   dest="max_range",
-                   help="beam range cap (m; negative = the bag's range)")
-    p.add_argument("--auto-grow-grids",
-                   action=argparse.BooleanOptionalAction, default=None,
-                   dest="auto_grow_grids",
-                   help="rebuild a matcher at a larger static grid when a "
-                        "session outgrows it (default on; --no-... raises "
-                        "with sizing advice instead)")
-    p.add_argument("--no-mapping", action="store_true", dest="no_mapping",
-                   help="track without adding scans to the map")
-    p.add_argument("--global-search-size", type=float, default=None,
-                   dest="global_search_size",
-                   help="loop-closure radius search bound (squared meters)")
-    p.add_argument("--global-search-limit", type=int, default=None,
-                   dest="global_search_limit")
-    p.add_argument("--optimization-node-limit", type=int, default=None,
-                   dest="optimization_node_limit")
-    p.add_argument("--max-inflight", type=int, default=None,
-                   dest="max_inflight",
-                   help="pipelined mapping and localization: the pose chain "
-                        "stays on the device with up to N steps in flight "
-                        "(0 = synchronous, the default)")
-    p.add_argument("--scan-matcher-type", default=None,
-                   dest="scan_matcher_type",
-                   help="matcher plugin (ndt_mapper.cpp:91-92): ndt, "
-                        "ndt_newton or correlative")
-    _add_matcher_args(p, "local_scan_matcher")
-    _add_matcher_args(p, "global_scan_matcher")
+def _add_loop_closure_args(p: argparse.ArgumentParser) -> None:
+    """The loop-closure and solver flags, shared by ``run``, ``localize``
+    and ``serve`` (the live node tunes closures as a replay does)."""
     p.add_argument("--loop-search", choices=["radius", "descriptor", "both"],
                    default=None, dest="loop_search",
                    help="loop-closure candidate source (default radius; "
@@ -495,6 +694,87 @@ def _add_session_args(p: argparse.ArgumentParser) -> None:
                    choices=sorted(_RECIPES),
                    help="measured loop-closure preset (explicit flags "
                         "override its values)")
+
+
+def _add_session_args(p: argparse.ArgumentParser) -> None:
+    """The flags ``run`` and ``localize`` share."""
+    p.add_argument("--bag", required=True)
+    p.add_argument("--map", default=None,
+                   help="pose graph npz to start from (localize in it, or "
+                        "map on from it)")
+    p.add_argument("--map-out", default=None, help="pose graph npz output")
+    p.add_argument("--session-out", default=None, dest="session_out",
+                   help="full session checkpoint (graph, estimator state, "
+                        "particle cloud and its generator): resume exactly, "
+                        "no re-localization")
+    p.add_argument("--resume", default=None,
+                   help="resume from a --session-out checkpoint (of either "
+                        "package)")
+    p.add_argument("--grid-out", default=None,
+                   help="occupancy grid npz output")
+    p.add_argument("--traj-out", default=None,
+                   help="estimated trajectory in TUM format (timestamps = "
+                        "scan indices)")
+    p.add_argument("--viz-out", default=None, dest="viz_out",
+                   help="session picture, PNG (graph + map + particles over "
+                        "ground truth; matplotlib)")
+    p.add_argument("--socket", default=None,
+                   help="UNIX socket path of the runtime control channel")
+    p.add_argument("--trace-dir", default=None, dest="trace_dir",
+                   help="trace the session with torch.profiler into "
+                        "DIR/trace.json (Chrome trace format)")
+    p.add_argument("--particle-filter", action="store_true",
+                   dest="particle_filter")
+    p.add_argument("--global-init", action="store_true", dest="global_init",
+                   help="global relocalization: a uniform particle cloud "
+                        "over the map's free space instead of an initial "
+                        "pose (needs --particle-filter and --map)")
+    _add_pf_args(p)
+    # The mapper's parameters (ndt_mapper.cpp:59-103).
+    p.add_argument("--resolution", type=float, default=None,
+                   help="occupancy-grid export resolution (m)")
+    p.add_argument("--loop-closure-every", type=int, default=None,
+                   dest="loop_closure_every")
+    p.add_argument("--max-points-per-scan", type=int, default=None,
+                   dest="max_points_per_scan")
+    p.add_argument("--minimum-travel-distance", type=float, default=None,
+                   dest="minimum_travel_distance")
+    p.add_argument("--minimum-travel-rotation", type=float, default=None,
+                   dest="minimum_travel_rotation")
+    p.add_argument("--rolling-depth", type=int, default=None,
+                   dest="rolling_depth")
+    p.add_argument("--occupancy-threshold", type=float, default=None,
+                   dest="occupancy_threshold")
+    p.add_argument("--max-range", type=float, default=None,
+                   dest="max_range",
+                   help="beam range cap (m; negative = the bag's range)")
+    p.add_argument("--auto-grow-grids",
+                   action=argparse.BooleanOptionalAction, default=None,
+                   dest="auto_grow_grids",
+                   help="rebuild a matcher at a larger static grid when a "
+                        "session outgrows it (default on; --no-... raises "
+                        "with sizing advice instead)")
+    p.add_argument("--no-mapping", action="store_true", dest="no_mapping",
+                   help="track without adding scans to the map")
+    p.add_argument("--global-search-size", type=float, default=None,
+                   dest="global_search_size",
+                   help="loop-closure radius search bound (squared meters)")
+    p.add_argument("--global-search-limit", type=int, default=None,
+                   dest="global_search_limit")
+    p.add_argument("--optimization-node-limit", type=int, default=None,
+                   dest="optimization_node_limit")
+    p.add_argument("--max-inflight", type=int, default=None,
+                   dest="max_inflight",
+                   help="pipelined mapping and localization: the pose chain "
+                        "stays on the device with up to N steps in flight "
+                        "(0 = synchronous, the default)")
+    p.add_argument("--scan-matcher-type", default=None,
+                   dest="scan_matcher_type",
+                   help="matcher plugin (ndt_mapper.cpp:91-92): ndt, "
+                        "ndt_newton or correlative")
+    _add_matcher_args(p, "local_scan_matcher")
+    _add_matcher_args(p, "global_scan_matcher")
+    _add_loop_closure_args(p)
     p.add_argument("--device", default="cuda",
                    help="cuda (the kernels) or cpu (their plain twins)")
     p.add_argument("--mesh", type=int, default=None, metavar="N",

@@ -7,9 +7,10 @@ tensor's device, never on a fallback).
 
 from __future__ import annotations
 
+import functools
 import shutil
 import subprocess
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -28,6 +29,19 @@ def get_device(device: Optional[Union[str, torch.device]] = None
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def thread_binder(dev: torch.device) -> Callable[[], None]:
+    """A function that makes ``dev`` the calling thread's current CUDA
+    device (a new thread starts on device 0); a thread that launches on
+    ``dev`` calls it first.  ``cuda`` without an index means the device
+    current in the thread that asks for the binder.  On the CPU it does
+    nothing."""
+    if dev.type != "cuda":
+        return lambda: None
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    return functools.partial(torch.cuda.set_device, index)
 
 
 def upload(array, device: torch.device) -> torch.Tensor:
@@ -59,11 +73,19 @@ class HostCopy:
             self.host = flat.clone()
 
     def wait(self) -> np.ndarray:
-        """The host values, after waiting on this copy's event alone."""
-        if self.event is not None:
-            self.event.synchronize()
+        """The host values, after waiting on this copy's event alone.  Safe
+        from several threads (the live server's client reads a copy that
+        the mapper's drain may read at the same time)."""
+        event = self.event
+        if event is not None:
+            event.synchronize()
             self.event = self._source = None
         return self.host.numpy()
+
+    def ready(self) -> bool:
+        """True once the copy has landed; never blocks."""
+        event = self.event
+        return event is None or event.query()
 
     def future(self, index) -> "HostFuture":
         """A future of ``wait()[index]``."""
@@ -79,6 +101,10 @@ class HostFuture:
 
     def result(self) -> np.ndarray:
         return np.asarray(self.copy.wait()[self.index], np.float64)
+
+    def ready(self) -> bool:
+        """True once ``result()`` would not wait."""
+        return self.copy.ready()
 
 
 def card_identity() -> str:

@@ -212,8 +212,9 @@ class ParticleFilter:
                  device=None):
         self.config = config
         self.device = get_device(device)
+        self.seed = int(seed)
         self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(int(seed))
+        self.gen.manual_seed(self.seed)
         m = config.max_particles
         self.particles = torch.zeros(m, 3, device=self.device)
         self.weights = torch.full((m,), 1.0 / config.min_particles,

@@ -1,18 +1,41 @@
-"""Timing and session metrics: the port's copy of ``Timer`` and
-``SessionStats`` from ``ndt_2d_tpu/utils/profiling.py``.
+"""Tracing, timing and session metrics: the port's copy of
+``ndt_2d_tpu/utils/profiling.py``.
 
 The reference has no profiling or metrics subsystem at all — its only
 quality signal is a log line of match scores (SURVEY.md section 5.1).  The
 host runtime keeps cheap aggregate statistics that the CLI reports per
-session; device traces of the port come from ``torch.profiler``.
+session; device traces come from ``torch.profiler`` (``device_trace``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 from typing import Dict, Optional
+
+TRACE_FILE = "trace.json"
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str):
+    """Trace the body with ``torch.profiler`` (host activity, and the CUDA
+    kernels and copies where PyTorch sees a card) and write it as a Chrome
+    trace, ``log_dir/trace.json`` (chrome://tracing, Perfetto)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
 
 
 class Timer:
