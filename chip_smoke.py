@@ -63,15 +63,23 @@
     python3 chip_smoke.py --score-fold-times DIR  # K11's lattice alone
                                   # and with its point score, a matched
                                   # correlative scan through the matcher
-                                  # (device ops, host us), and KB2's
-                                  # stripe scores (graph ms, cuda_ms,
-                                  # host us, device ops, output sha256),
-                                  # the goals met or missed, and the
-                                  # decisions of the correlative box drive
-                                  # and [4r]'s winners, in DIR (an older
-                                  # git archive, this script copied in)
-                                  # and here: parent, change, change,
-                                  # parent
+                                  # (device ops, host us), KB2's stripe
+                                  # scores and KB3's match at S = 2 and 1
+                                  # (graph ms, cuda_ms, host us, device
+                                  # ops, output sha256), the goals met or
+                                  # missed, and the decisions of the
+                                  # correlative box drive and [4r]'s
+                                  # winners (with its matches' seconds),
+                                  # in DIR (an older git archive, this
+                                  # script copied in) and here: parent,
+                                  # change, change, parent
+    python3 chip_smoke.py --kb3-breakdown  # KB3's match at S = 2 and 1
+                                           # beside variants built here
+                                           # (partials only, + ticket,
+                                           # float4 loads, the fold
+                                           # alone, an empty launch),
+                                           # rank_sum, K2's fold and
+                                           # torch.sum: graph ms, host us
     python3 chip_smoke.py --optimize-times  # the mapper's optimize ms, 3
                                             # runs of the office recipe,
                                             # config 9 and drift, and LM
@@ -194,8 +202,12 @@ Phases (any failure exits non-zero):
     particles on stripes 0 and 1 of 2, 20,000 on stripe 0 and the scan's
     world points (one block), each bitwise its twin, the SoA twin and the
     SoA launch (the parent design), KB3 (a localization scan's
-    stripe field, then the reduction of two stripes' summed field and
-    K6's fold of it) and KB4
+    stripe field, also into a ``FieldPlan``'s send buffer; the match of two
+    stripes' fields, one launch reading the plan's stack, bitwise its twin,
+    the parent chain of K12's rank_sum, the partials and K2's fold, and
+    itself 64 times back to back; at one stripe bitwise the dense K6 row;
+    stacks of 3 and 13 stripes and lattices of 7x5x5 and 9x33x33 bitwise
+    the twin) and KB4
     (the fused step's append into a 256-slot state; planned, 64 appends
     into a chain of slots), each bitwise against its twin; K1 at its
     sort's edges (every valid point of a 38,400-point
@@ -403,7 +415,8 @@ Phases (any failure exits non-zero):
     localization bag (seed 7) matched against the stripes from the starts
     of a dense K6 chain, each winner the dense K6 one or printed with both
     scores within 1e-5 relative; at one stripe all bitwise the dense
-    results; (s) the fused SLAM step (``parallel/slam_step.py``) over config
+    results; each match two launches (KB3's field and match), no rank sum
+    and no K6 fold, its seconds printed; (s) the fused SLAM step (``parallel/slam_step.py``) over config
     2's 200-scan corridor, optimizing every 8 scans, capacity 256: ATE below
     odometry's, (2, 1) bitwise the one-rank run; on the one-rank NCCL
     mesh KB4 rides in the search's finalize (200 ``finalize_append``
@@ -421,7 +434,14 @@ Phases (any failure exits non-zero):
     off, a save, a load, mapping on and an initial pose sent between
     scans, the state checked after each; ``run --session-out`` and ``run
     --resume`` on config 2's halves beside one ``run``, three processes:
-    the same accepted count, within (v)'s bounds; (x) the live server:
+    the same accepted count, within (v)'s bounds; (z) the control channel
+    on a mesh: ``run --mesh 1 --socket`` on config 2's bag takes a
+    save-map from a client thread and exits 0; two gloo ranks sharing the
+    card replay config 2's first 100 scans with mapping off after scan 3,
+    on after 6 and a save after 9, applied directly and sent over the
+    channel from rank 0's callback: the ranks' final graphs bitwise equal,
+    the channel's equal to the direct runs', the map written once by rank
+    0, ms a scan with and without the channel; (x) the live server:
     ``stream_bag`` windowed into a ScanServer on config 2 at max_inflight
     8, a pose for every deferred scan bitwise the graph's, K13 from the
     client's thread and K5 from the publisher's, state.json and map.npz
@@ -435,8 +455,9 @@ Phases (any failure exits non-zero):
  5. print the kernels' JSON line and, last, the device JSON line.
 
 ``python3 chip_smoke.py --mesh-rank OUT SPACE BATCH MAP DEVICE`` is one
-rank of (q), and ``--blocks-rank OUT SPACE BATCH MAP4 MAP7 DEVICE PARTS``
-one of (r)-(t), started by the script itself.
+rank of (q), ``--blocks-rank OUT SPACE BATCH MAP4 MAP7 DEVICE PARTS``
+one of (r)-(t), and ``--control-rank OUT DEVICE`` one of (z), started by
+the script itself.
 """
 
 from __future__ import annotations
@@ -540,10 +561,8 @@ KERNELS = {
                      "ndt_2d_tpu/parallel/ndt_blocks.py:116"),
     "stripe_field": ("ndt_2d_tpu_torch/csrc/candidate_gather.cu",
                      "ndt_2d_tpu/parallel/ndt_blocks.py:169"),
-    "field_partials": ("ndt_2d_tpu_torch/csrc/candidate_gather.cu",
-                       "ndt_2d_tpu/parallel/ndt_blocks.py:216"),
-    "field_fold": ("ndt_2d_tpu_torch/csrc/candidate_scores.cu",
-                   "ndt_2d_tpu/parallel/ndt_blocks.py:217"),
+    "field_match": ("ndt_2d_tpu_torch/csrc/candidate_gather.cu",
+                    "ndt_2d_tpu/parallel/ndt_blocks.py:212"),
     "slam_append": ("ndt_2d_tpu_torch/csrc/slam_step.cu",
                     "ndt_2d_tpu/parallel/slam_step.py:71"),
     "candidate_finalize_append": ("ndt_2d_tpu_torch/csrc/candidate_scores.cu",
@@ -1013,7 +1032,7 @@ def reset_counts():
         m.launches = 0
     ndt_build.stripe_launches = score_points.stripe_launches = 0
     candidate_gather.field_launches = 0
-    candidate_gather.field_partial_launches = 0
+    candidate_gather.field_match_launches = 0
     for m in (candidate_scores, candidate_gather):
         m.partial_launches = m.finalize_launches = 0
     candidate_scores.finalize_append_launches = 0
@@ -1038,7 +1057,7 @@ def read_counts() -> dict:
            "ndt_build_stripe": ndt_build.stripe_launches,
            "stripe_score": score_points.stripe_launches,
            "stripe_field": candidate_gather.field_launches,
-           "field_partials": candidate_gather.field_partial_launches,
+           "field_match": candidate_gather.field_match_launches,
            "slam_append": slam_step.launches,
            "candidate_finalize_append":
                candidate_scores.finalize_append_launches,
@@ -8232,7 +8251,7 @@ def phase_mesh_shared(cfg, bag, single10, district_poses, district_truth,
 # --- K12·blocks: the stripe-sharded map (KB1-KB3), the fused SLAM step (KB4)
 # and the dry run of the multi-device pipeline.
 KB_KERNELS = ("ndt_build_stripe", "stripe_score", "stripe_field",
-              "field_partials", "field_fold", "candidate_finalize_append")
+              "field_match", "candidate_finalize_append")
 BLOCK_SHAPES = ((2, 1), (1, 2), (2, 2))
 SLAM_CAPACITY = 256       # scans and constraints of the fused step's state
 SLAM_OPTIMIZE_EVERY = 8
@@ -8436,43 +8455,111 @@ def phase_kb(path4, bag4, dev):
           f"{pts_bound['bound_ms']:.8f} ({pts_bound['bound_by']}); library: "
           f"none (gather + exp + sum: no one call)")
 
-    # KB3: one localization scan's field on stripe 0 of 2, and the
-    # reduction of the two stripes' summed field.
+    # KB3: one localization scan's field on stripe 0 of 2, into a plan's
+    # send buffer; the match of both stripes' fields in one launch reading
+    # the plan's stack in place, against its twin, the parent chain (K12's
+    # rank_sum, the reduction's partials, K2's fold) and, at one stripe,
+    # the dense K6 row.
+    from ndt_2d_tpu_torch.kernels import shard_combine
     loc_bag = record_synthetic("box", MAP4_SCANS, n_beams=360, seed=7,
                                odom_trans_noise=0.01)
     lq, lqm, ln, lcenter = map4_scan(loc_bag, 20, cfg, dev)
     start = (lcenter + torch.tensor([0.02, -0.01, 0.01], device=dev))
     dths, dls = k2.search_offsets(mc, dev)
+    A, L = dths.numel(), dls.numel()
     a3 = (mc, g, tab, 0, h, lq, lqm, ln, start, dths, dls)
     f0, f0t = k6.stripe_field(*a3), k6.stripe_field_twin(*a3)
     require(torch.equal(f0, f0t), "KB3 field differs from its twin")
     require(torch.equal(f0, k6.stripe_field(*a3)),
             "KB3 field not bitwise reproducible")
-    f1 = k6.stripe_field(mc, g1, tab1, h, h, lq, lqm, ln, start, dths, dls)
-    total = f0 + f1
-    p, pt = (k6.field_partials(total, dths, dls),
-             k2.block_partials(total, dths, dls, 0, k6.TILE))
-    require(torch.equal(p, pt), "KB3 partials differ from the twin")
-    row = k6.finalize_rows(mc, p[None], ln, dths, dls)
-    row_t = k2.finalize_rows_twin(mc, p[None], ln, dths, dls)
+    plan = k6.field_plan(dev, 2, A, L)
+    stack = plan.stack.view(2, A, L, L)
+    require(k6.stripe_field(*a3, out=plan.send) is plan.send
+            and torch.equal(plan.send, f0),
+            "KB3 field into the plan's send buffer differs")
+    stack[0].copy_(plan.send)  # rank 0's part of the gather
+    k6.stripe_field(mc, g1, tab1, h, h, lq, lqm, ln, start, dths, dls,
+                    out=stack[1])
+
+    def match():
+        return k6.field_match(mc, plan, plan.stack, ln, dths, dls)
+    row = match()
+    row_t = k6.field_match_twin(mc, plan.stack, ln, dths, dls)
+    chain = k6.finalize_rows(mc, k2.block_partials(
+        shard_combine.rank_sum(stack), dths, dls, 0, k6.TILE)[None], ln,
+        dths, dls)[0]
+    # Back to back on the stream: each launch's last block resets the
+    # ticket for the next.
+    again = torch.stack([match() for _ in range(MESH_REPEATS)])
     torch.cuda.synchronize()
-    require(torch.equal(row, row_t) and torch.equal(
-        row, k6.finalize_rows(mc, p[None], ln, dths, dls)),
-        "KB3's fold differs from its twin or is not reproducible")
+    require(torch.equal(row, row_t), "KB3 match differs from its twin")
+    require(torch.equal(row, chain), "KB3 match differs from the parent "
+            "chain (rank_sum, the partials, K2's fold)")
+    require(torch.equal(again, row.expand_as(again)),
+            "KB3 match not bitwise reproducible back to back")
+    # One stripe: the whole map's field, whose match is the dense K6 row.
+    plan1 = k6.field_plan(dev, 1, A, L)
+    k6.stripe_field(mc, grid, m.packed_table, 0, H, lq, lqm, ln, start,
+                    dths, dls, out=plan1.send)
+
+    def match1():
+        return k6.field_match(mc, plan1, plan1.send[None], ln, dths, dls)
+    one = match1()
     dense = k6.match(mc, grid, m.packed_table, lq, lqm, ln, start, dths, dls)
-    print(f"[3] KB3 stripe_field + field_partials: {dths.numel()}x"
-          f"{dls.numel()}x{dls.numel()} candidates x {B} beams on stripe 0 "
-          f"of 2, field and partials bitwise equal to the twins; two "
-          f"stripes' match score {float(row[0, 0]):.6f}, dense K6 "
-          f"{float(dense[0, 0]):.6f}, corrections equal: "
-          f"{torch.equal(row[0, 1:4], dense[0, 1:4])}")
+    require(torch.equal(one, dense[0]), "KB3 match at one stripe differs "
+            "from the dense K6 row")
+    # Odd and many stripes (3, 13) and odd lattices (7x5x5, 9x33x33: tiles
+    # that start at any address), random fields: bitwise the twin.
+    gen = torch.Generator(device=dev).manual_seed(11)
+    shapes = ((3, A, L), (13, A, L), (2, 7, 5), (2, 9, 33))
+    for S, a_, l_ in shapes:
+        d_ = dths[:a_].contiguous()
+        l2 = torch.linspace(-0.2, 0.2, l_, device=dev)
+        pl = k6.field_plan(dev, S, a_, l_)
+        pl.stack.copy_(torch.randn(S, a_ * l_ * l_, generator=gen,
+                                   device=dev))
+        r_ = k6.field_match(mc, pl, pl.stack, ln, d_, l2)
+        require(torch.equal(r_, k6.field_match_twin(mc, pl.stack, ln, d_,
+                                                     l2)),
+                f"KB3 match of {S} stripes of {a_}x{l_}x{l_} differs from "
+                "its twin")
+    launched = k6.field_match_launches
+    graph2, graph1 = graph_ms(match, 20), graph_ms(match1, 20)
+    lib2 = graph_ms(lambda: torch.sum(stack, 0), 20)
+    lib1 = graph_ms(lambda: torch.sum(plan1.send[None], 0), 20)
+    # The parent chain's pieces the package still has: the fold of the
+    # same partials as a launch of its own (K2's finalize), and rank_sum.
+    parts = k2.block_partials(shard_combine.rank_sum(stack), dths, dls, 0,
+                              k6.TILE)[None]
+    fold_alone = graph_ms(lambda: k6.finalize_rows(mc, parts, ln, dths,
+                                                   dls), 20)
+    sum_alone = graph_ms(lambda: shard_combine.rank_sum(stack), 20)
+    host2, host1 = host_us(match, 30, sync=True), host_us(match1, 30,
+                                                          sync=True)
+    ops = [graph_nodes(match), graph_nodes(match1)]
+    require(ops == [["kernel"], ["kernel"]],
+            f"KB3 match: device operations {ops}, expected one kernel")
+    print(f"[3] KB3 stripe_field + field_match: {A}x{L}x{L} candidates x "
+          f"{B} beams on stripe 0 of 2, the field bitwise its twin (also "
+          f"into the plan's send buffer); the match of 2 stripes' fields "
+          f"(one launch, one device operation, reading the plan's stack) "
+          f"bitwise its twin, the parent chain and itself "
+          f"{MESH_REPEATS} times back to back; at one stripe bitwise the "
+          f"dense K6 row; {len(shapes)} more stacks (3 and 13 stripes, "
+          f"7x5x5, 9x33x33) bitwise the twin; two stripes' score "
+          f"{float(row[0]):.6f}, dense K6 {float(dense[0, 0]):.6f}, "
+          f"corrections equal: {torch.equal(row[1:4], dense[0, 1:4])}; "
+          f"graph S = 2 {graph2:.5f} ms [torch.sum(stack, 0) {lib2:.5f}], "
+          f"S = 1 {graph1:.5f} [{lib1:.5f}]; the fold of the same partials "
+          f"as a launch of its own (K2's finalize) {fold_alone:.5f}, "
+          f"rank_sum of the stack {sum_alone:.5f}; host {host2:.1f} / "
+          f"{host1:.1f} us a match ({launched} launches here)")
     th = start[2] + dths
     c, s_ = torch.cos(th)[:, None], torch.sin(th)[:, None]
     lsp, lsm, lused = used_beams(mc, lq, lqm, ln)
     lsp = lsp[lsm]
     rx = c * lsp[:, 0] - s_ * lsp[:, 1] + start[0]
     ry = s_ * lsp[:, 0] + c * lsp[:, 1] + start[1]
-    L = dls.numel()
     xs = rx[:, :, None, None] + dls[None, None, :, None]
     ys = ry[:, :, None, None] + dls[None, None, None, :]
     xs, ys = torch.broadcast_tensors(xs, ys)
@@ -8481,20 +8568,23 @@ def phase_kb(path4, bag4, dev):
     out["stripe_field"] = timed(
         0.0, cuda_ms(lambda: k6.stripe_field(*a3), 20),
         cuda_ms(lambda: k6.stripe_field_twin(*a3), 3),
-        fkeys.numel() * 32 + lused * 9 + 12 + total.numel() * 4,
-        dths.numel() * L * L * lused * 30)
-    out["field_partials"] = timed(
-        0.0, cuda_ms(lambda: k6.field_partials(total, dths, dls), 20),
-        cuda_ms(lambda: k2.block_partials(total, dths, dls, 0, k6.TILE), 3),
-        nbytes(total, dths, dls, p), total.numel() * 22)
-
-    def fold():
-        return k6.finalize_rows(mc, p[None], ln, dths, dls)
-    out["field_fold"] = timed(
-        0.0, cuda_ms(fold, 20),
-        cuda_ms(lambda: k2.finalize_rows_twin(mc, p[None], ln, dths, dls),
-                3), nbytes(p, dths, dls, row) + 4, p.numel(),
-        graph_ms=(graph_ms(fold, 20), None))
+        fkeys.numel() * 32 + lused * 9 + 12 + f0.numel() * 4,
+        A * L * L * lused * 30)
+    # The match's bound: each stripe's field read once, the lattice, the
+    # row written; the rank-ordered adds and reduce_tile's 22 operations
+    # a candidate.  The kernels line's row is [4r]'s shape (one rank: S =
+    # 1); S = 2 beside it.
+    for key, fn, st, lib, graph in (
+            ("field_match", match1, plan1.send[None], lib1, graph1),
+            ("field_match_s2", match, stack, lib2, graph2)):
+        out[key] = timed(
+            0.0, cuda_ms(fn, 20),
+            cuda_ms(lambda st=st: k6.field_match_twin(mc, st, ln, dths,
+                                                      dls), 3),
+            nbytes(st, dths, dls) + 13 * 4,
+            (st.shape[0] - 1) * A * L * L + A * L * L * 22,
+            library_ms=cuda_ms(lambda st=st: torch.sum(st, 0), 20),
+            graph_ms=(graph, lib))
 
     # KB4 on the fused step's 256-slot state, config 2's 512-point scans.
     P = 512
@@ -8560,6 +8650,7 @@ def blocks_map_run(mesh, dev, map4, map7) -> dict:
     from ndt_2d_tpu_torch.kernels import candidate_gather as k6
     from ndt_2d_tpu_torch.kernels import candidate_scores as k2
     from ndt_2d_tpu_torch.kernels import score_points as k3
+    from ndt_2d_tpu_torch.kernels import shard_combine
     from ndt_2d_tpu_torch.mapping import laser
     from ndt_2d_tpu_torch.parallel import ndt_blocks
     from ndt_2d_tpu_torch.parallel import mesh as mesh_mod
@@ -8598,6 +8689,7 @@ def blocks_map_run(mesh, dev, map4, map7) -> dict:
     rel = metrics.relative_to_first(loc_bag.truth)
     start = np.asarray(rel[0], np.float64)
     rows_d, rows_s, parted = [], [], []
+    match_s, sums, folds = 0.0, shard_combine.launches, k6.finalize_launches
     for t in range(MAP4_SCANS):
         pts, msk = laser.project_scan(loc_bag[t][0], loc_bag.range_max,
                                       np.zeros(3), False, None,
@@ -8607,10 +8699,14 @@ def blocks_map_run(mesh, dev, map4, map7) -> dict:
         pose = torch.tensor(start, dtype=torch.float32, device=dev)
         dense = k6.match(mc, grid, m.packed_table, q, qm, nt, pose, dths,
                          dls)[0]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
         res = ndt_blocks.match_scan_sharded_map(mc, mesh, sg, q, qm, nt,
                                                 pose)
         sharded = torch.cat([res.score.reshape(1), res.correction,
                              res.covariance.reshape(9)])
+        torch.cuda.synchronize()
+        match_s += time.perf_counter() - t1
         rows_d.append(dense.cpu().numpy())
         rows_s.append(sharded.cpu().numpy())
         if not torch.equal(sharded[1:4], dense[1:4]):
@@ -8621,6 +8717,11 @@ def blocks_map_run(mesh, dev, map4, map7) -> dict:
                 *torch.tensor(loc_bag.odom[t:t + 2]))).numpy()
     out["match_dense"], out["match"] = np.stack(rows_d), np.stack(rows_s)
     out["match_parted"] = np.asarray(parted, np.int64)
+    # The sharded matches' own seconds, and the rank sums and K6 folds
+    # they launched (none: the stack is summed inside KB3's match).
+    out["match_seconds"] = match_s
+    out["match_rank_sums"] = shard_combine.launches - sums
+    out["match_folds"] = k6.finalize_launches - folds
     # Config 7's 20,000 particles on the office map.
     truth7, _, cfg7, scan7 = config7()
     m7, kf7 = blocks_map(map7, cfg7, 14.0, dev)
@@ -8799,6 +8900,9 @@ def blocks_rank(out_dir, space: int, batch: int, map4: str, map7: str,
 def check_blocks_map(r, tag):
     """[4r]'s gates on one rank's results."""
     import numpy as np
+    require(int(r["match_rank_sums"]) == 0 and int(r["match_folds"]) == 0,
+            f"{tag}: the sharded matches launched {int(r['match_rank_sums'])}"
+            f" rank sums and {int(r['match_folds'])} K6 folds")
     require(bool(r["stripes_equal"]) and bool(r["gathered_equal"]),
             f"{tag}: the stripes differ from the dense K1 rows")
     require(float(r["weights_rel"]) <= 1e-5 and float(r["weights7_rel"])
@@ -8874,11 +8978,17 @@ def phase_blocks(map4, map7, dev, tmp):
             f"[4s] one rank: ATE {one['slam_ate']} (odometry "
             f"{one['slam_odom_ate']}), {one['slam_scans']} scans, "
             f"{one['slam_constraints']} constraints")
+    require(launches["field_match"] == MAP4_SCANS
+            and launches["field_fold"] == 0,
+            f"[4r] KB3's launches: {launches['field_match']} field_match, "
+            f"{launches['field_fold']} K6 folds; expected {MAP4_SCANS}, 0")
     print(f"[4r] config 4's {one['grid']} map on a one-rank NCCL mesh: "
           f"stripe bitwise the dense K1 grid; {PARTICLES} and "
           f"{GLOBAL_PARTICLES} (config 7) particle measurements and all "
           f"{MAP4_SCANS} matches bitwise the dense K3 / K6 results; "
-          f"{one['seconds']:.3f} s; launches "
+          f"{one['seconds']:.3f} s, the sharded matches "
+          f"{float(one['match_seconds']):.4f} s (two launches a match, 0 "
+          f"rank sums, 0 K6 folds); launches "
           f"{ {k: launches[k] for k in KB_KERNELS} }")
     print(f"[4s] fused step, config 2 ({N_SCANS} scans) on one NCCL rank: "
           f"{one['slam_steps_per_s']:.1f} steps/s, ATE "
@@ -8923,7 +9033,8 @@ def phase_blocks(map4, map7, dev, tmp):
             msg.append(f"[4r] stripes bitwise the dense rows, measurements "
                        f"within {rel:.2e} of dense K3, "
                        f"{len(a['match_parted'])} of {MAP4_SCANS} winners "
-                       f"parted, {float(a['seconds']):.3f} s")
+                       f"parted, {float(a['seconds']):.3f} s (matches "
+                       f"{float(a['match_seconds']):.3f} s)")
         if "s" in parts:
             require(float(a["slam_ate"]) < float(a["slam_odom_ate"]),
                     f"[4s] {tag}: ATE {float(a['slam_ate'])}")
@@ -9299,12 +9410,244 @@ def merge_decisions(dev) -> dict:
         transform_sha=digest(torch.tensor(np.asarray(res.transform))))
 
 
+def kb3_form(mc, fields, num_points: int, dths, dls):
+    """This tree's KB3 match of the stripes' ``fields`` ([A, L, L] each,
+    rank order) as a function of no arguments returning the [13] row: one
+    launch reading a ``FieldPlan``'s stack, filled here as the gather
+    fills it, where the tree has ``field_match``; else the parent chain
+    (K12's ``rank_sum`` of the stacked fields, ``field_partials``, K2's
+    fold)."""
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import candidate_gather as k6
+    from ndt_2d_tpu_torch.kernels import shard_combine
+    S, A, L = len(fields), dths.numel(), dls.numel()
+    if hasattr(k6, "field_match"):
+        plan = k6.field_plan(fields[0].device, S, A, L)
+        for s, f in enumerate(fields):
+            plan.stack[s].copy_(f.reshape(-1))
+        return lambda: k6.field_match(mc, plan, plan.stack, num_points,
+                                      dths, dls)
+    stack = torch.stack(fields)
+    return lambda: k6.finalize_rows(mc, k6.field_partials(
+        shard_combine.rank_sum(stack), dths, dls)[None], num_points, dths,
+        dls)[0]
+
+
+# Variants of KB3's match (``csrc/candidate_gather.cu::field_match``) that
+# ``--kb3-breakdown`` times beside the shipped launch: which part of its
+# time is the loads, the ticket and the fold.  kMode 0: the match as
+# shipped (one float a load); 1: the partials only; 2: the partials, the
+# fence and the ticket, no fold; 3: the match with each stripe's tile
+# loaded as float4s staged through shared memory where aligned (the form
+# before one load path).  fold_only: the last block's fold alone.
+KB3_VARIANTS_CU = r"""
+#include "lattice.cuh"
+
+namespace {
+using lattice::kTile;
+
+struct FieldMatch {
+  const float* stack;
+  const float* dths;
+  const float* dls;
+  float* partial;
+  unsigned* ticket;
+  int S, A, L, max_beams;
+};
+constexpr int kGroup = (lattice::kStage + 1) * lattice::kPartial / kTile;
+
+template <int kMode>
+__global__ void __launch_bounds__(kTile) match(const FieldMatch m,
+                                               int num_points, float* out) {
+  __shared__ __align__(16) float sp[(lattice::kStage + 1) *
+                                    lattice::kPartial];
+  __shared__ bool last;
+  const int tile = blockIdx.x, tiles = gridDim.x, a = blockIdx.y;
+  const int L = m.L, LL = L * L, t = threadIdx.x;
+  const int f = tile * kTile + t;
+  const bool live = f < LL;
+  const int n = min(kTile, LL - tile * kTile);
+  const size_t stride = (size_t)m.A * LL;
+  const float* first = m.stack + (size_t)a * LL + (size_t)tile * kTile;
+  const bool vec = kMode == 3 &&
+                   reinterpret_cast<uintptr_t>(m.stack) % 16 == 0 &&
+                   stride % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(first) % 16 == 0;
+  float cand = 0.f;
+  if (vec) {
+    for (int s0 = 0; s0 < m.S; s0 += kGroup) {
+      const int g = min(kGroup, m.S - s0);
+      constexpr int kVecs = kTile / 4;
+      for (int q = t; q < g * kVecs; q += kTile) {
+        const int s = q / kVecs, v = q - s * kVecs;
+        if (4 * v + 4 <= n)
+          reinterpret_cast<float4*>(sp + s * kTile)[v] =
+              reinterpret_cast<const float4*>(first + (s0 + s) * stride)[v];
+      }
+      if (live && t >= (n & ~3))
+        for (int s = 0; s < g; ++s)
+          sp[s * kTile + t] = first[(s0 + s) * stride + t];
+      __syncthreads();
+      if (live)
+        for (int s = 0; s < g; ++s)
+          cand = s0 + s == 0 ? sp[t] : cand + sp[s * kTile + t];
+      __syncthreads();
+    }
+  } else if (live) {
+    cand = first[t];
+    for (int s = 1; s < m.S; ++s) cand += first[s * stride + t];
+  }
+  const int lx = live ? f / L : 0, ly = live ? f % L : 0;
+  lattice::reduce_tile(cand, live, a * LL + f, m.dls[lx], m.dls[ly],
+                       m.dths[a],
+                       m.partial + ((size_t)a * tiles + tile) *
+                                       lattice::kPartial);
+  if (kMode == 1) return;
+  __threadfence();
+  __syncthreads();
+  if (t == 0) last = atomicAdd(m.ticket, 1u) == (unsigned)(m.A * tiles - 1);
+  __syncthreads();
+  if (!last) return;
+  if (kMode != 2) {
+    __threadfence();
+    lattice::finalize_row<true, true>(m.partial, m.A * tiles, L, num_points,
+                                      m.max_beams, m.dths, m.dls, out, sp);
+  }
+  if (t == 0) *m.ticket = 0u;
+}
+
+__global__ void __launch_bounds__(kTile) fold_only(const FieldMatch m,
+                                                   int num_points,
+                                                   float* out) {
+  __shared__ __align__(16) float sp[(lattice::kStage + 1) *
+                                    lattice::kPartial];
+  const int tiles = (m.L * m.L + kTile - 1) / kTile;
+  lattice::finalize_row<true, true>(m.partial, m.A * tiles, m.L, num_points,
+                                    m.max_beams, m.dths, m.dls, out, sp);
+}
+
+__global__ void empty_kernel() {}
+}  // namespace
+
+NDT2D_API int kb3_variant(int mode, const void* plan, int num, void* out,
+                          void* stream) {
+  const FieldMatch& m = *static_cast<const FieldMatch*>(plan);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  const dim3 grid((m.L * m.L + kTile - 1) / kTile, m.A);
+  switch (mode) {
+    case 0: match<0><<<grid, kTile, 0, st>>>(m, num, o); break;
+    case 1: match<1><<<grid, kTile, 0, st>>>(m, num, o); break;
+    case 2: match<2><<<grid, kTile, 0, st>>>(m, num, o); break;
+    case 3: match<3><<<grid, kTile, 0, st>>>(m, num, o); break;
+    case 4: fold_only<<<1, kTile, 0, st>>>(m, num, o); break;
+    case 5: empty_kernel<<<1, 32, 0, st>>>(); break;
+    default: return 1;
+  }
+  return (int)cudaGetLastError();
+}
+"""
+
+KB3_VARIANTS = {0: "variant: the match as shipped", 1: "variant: partials "
+                "only", 2: "variant: partials + ticket", 3: "variant: the "
+                "match, float4 loads staged where aligned", 4: "variant: the "
+                "fold alone (one block)", 5: "an empty launch"}
+
+
+def kb3_breakdown() -> int:
+    """``--kb3-breakdown``: KB3's match at 80x21x21 (config 4's lattice)
+    over a random stack of S = 2 and 1 stripes, in one process: the
+    package's ``field_match``, the variants of ``KB3_VARIANTS_CU`` (built
+    here with nvcc beside the package's library; the full variants checked
+    bitwise against ``field_match``), ``rank_sum`` alone, K2's finalize
+    launch of the same partials (``k6.finalize_rows``) and
+    ``torch.sum(stack, 0)``; graph ms and host us (synchronized a call)
+    of each, the rows in turn, twice.  Prints one line a row and rep, then
+    the medians."""
+    import statistics
+
+    import torch
+
+    from ndt_2d_tpu_torch.config import ScanMatcherConfig
+    from ndt_2d_tpu_torch.kernels import _build
+    from ndt_2d_tpu_torch.kernels import candidate_gather as k6
+    from ndt_2d_tpu_torch.kernels import candidate_scores as k2
+    from ndt_2d_tpu_torch.kernels import shard_combine
+    ident = phase_card()
+    phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        src, so = os.path.join(tmp, "kb3.cu"), os.path.join(tmp, "kb3.so")
+        with open(src, "w") as f:
+            f.write(KB3_VARIANTS_CU)
+        subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared",
+                        "-I", _build.CSRC, src, "-o", so], check=True,
+                       capture_output=True)
+        variant = ctypes.CDLL(so).kb3_variant
+    variant.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.c_void_p, ctypes.c_void_p]
+    dev = torch.device("cuda", 0)
+    mc = ScanMatcherConfig(grid_cells_x=192, grid_cells_y=192)
+    dths, dls = k2.search_offsets(mc, dev)
+    A, L = dths.numel(), dls.numel()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    medians = {}
+    for S in (2, 1):
+        plan = k6.FieldPlan(dev, S, A, L)
+        plan.stack.copy_(-torch.rand(S, A * L * L, generator=gen,
+                                     device=dev) * 40)
+        want = k6.field_match(mc, plan, plan.stack, 300, dths, dls)
+        stack = plan.stack.view(S, A, L, L)
+        parts = k2.block_partials(shard_combine.rank_sum(stack), dths, dls,
+                                  0, k6.TILE)
+
+        def run(mode, plan=plan):
+            out = torch.empty(13, device=dev)
+            _build.check(variant(mode, plan.address, 300, out.data_ptr(),
+                                 torch.cuda.current_stream().cuda_stream),
+                         f"KB3 variant {mode}")
+            return out
+        for mode in (0, 3):
+            require(torch.equal(run(mode), want),
+                    f"KB3 {KB3_VARIANTS[mode]} differs from field_match")
+        rows = {"field_match (package)": lambda plan=plan: k6.field_match(
+            mc, plan, plan.stack, 300, dths, dls)}
+        for mode, name in KB3_VARIANTS.items():
+            rows[name] = lambda mode=mode: run(mode)
+        rows["rank_sum alone"] = lambda stack=stack: shard_combine.rank_sum(
+            stack)
+        rows["K2's finalize launch of the partials"] = (
+            lambda parts=parts: k6.finalize_rows(mc, parts[None], 300, dths,
+                                                 dls))
+        rows["torch.sum(stack, 0)"] = lambda stack=stack: torch.sum(stack, 0)
+        times = {name: [] for name in rows}
+        for rep in range(2):
+            for name, fn in rows.items():
+                g, h = graph_ms(fn, 20), host_us(fn, 30, sync=True)
+                times[name].append((g, h))
+                print(f"[6] KB3 breakdown, S = {S}, rep {rep}, {name}: "
+                      f"graph {g:.5f} ms, host {h:.1f} us ({ident})",
+                      flush=True)
+        for name, got in times.items():
+            medians[f"S = {S}, {name}"] = (
+                statistics.median(g for g, _ in got),
+                statistics.median(h for _, h in got))
+    for key, (g, h) in medians.items():
+        print(f"[6] KB3 breakdown, {key}: graph {g:.5f} ms, host {h:.1f} us "
+              f"(medians of 2; {ident})")
+    print(json.dumps({"kb3_breakdown": {k: list(v) for k, v in
+                                        medians.items()}, "card": ident}))
+    return 0
+
+
 def kb3_winners(dev) -> dict:
     """``[4r]``'s matches on one card: config 4's saved map in two stripes
     (KB1), each of the 150 localization scans matched against both
-    stripes (KB3: the fields added in rank order, the reduction, K6's
-    fold) from the dense K6 chain's start poses; the sha256 of the 150
-    winner rows and of the dense ones."""
+    stripes (KB3: the fields, then this tree's match of them,
+    ``kb3_form``) from the dense K6 chain's start poses; the sha256 of the
+    150 winner rows and of the dense ones, and the seconds of the 150
+    matches of the stripes' fields (``match_s``, the device synchronized
+    around each)."""
     import numpy as np
     import torch
 
@@ -9327,7 +9670,7 @@ def kb3_winners(dev) -> dict:
     dths, dls = k2.search_offsets(mc, dev)
     start = np.asarray(metrics.relative_to_first(loc_bag.truth)[0],
                        np.float64)
-    dense_rows, rows = [], []
+    dense_rows, rows, match_s = [], [], 0.0
     for t in range(MAP4_SCANS):
         pts, msk = laser.project_scan(loc_bag[t][0], loc_bag.range_max,
                                       np.zeros(3), False, None,
@@ -9340,8 +9683,12 @@ def kb3_winners(dev) -> dict:
         fields = [k6.stripe_field(mc, g, tab, s * h, h, q, qm, nt, pose,
                                   dths, dls)
                   for s, ((g, tab), h) in enumerate(stripes)]
-        part = k6.field_partials(fields[0] + fields[1], dths, dls)
-        rows.append(k6.finalize_rows(mc, part[None], nt, dths, dls)[0])
+        match = kb3_form(mc, fields, nt, dths, dls)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows.append(match())
+        torch.cuda.synchronize()
+        match_s += time.perf_counter() - t0
         dense_rows.append(dense)
         corrected = torch.tensor(start + dense.cpu().numpy()[1:4])
         if t + 1 < MAP4_SCANS:
@@ -9350,7 +9697,8 @@ def kb3_winners(dev) -> dict:
     rows, dense_rows = torch.stack(rows), torch.stack(dense_rows)
     return dict(winners_sha=digest(rows), dense_sha=digest(dense_rows),
                 corrections_equal=bool(torch.equal(rows[:, 1:4],
-                                                   dense_rows[:, 1:4])))
+                                                   dense_rows[:, 1:4])),
+                match_s=match_s)
 
 
 def glue_search(kern, mc, rows, dths, dls, dev):
@@ -9495,11 +9843,8 @@ def spectra_finalize_times(dev, ident: str, decisions: bool) -> dict:
     field = -torch.rand(d4.numel(), l4.numel(), l4.numel(), generator=gen,
                         device=dev).mul_(40.0).floor_()
 
-    def kb3():
-        return k6.finalize_rows(mc4, k6.field_partials(field, d4, l4)[None],
-                                300, d4, l4)
     arm(f"KB3 reduction ({d4.numel()}x{l4.numel()}x{l4.numel()} field)",
-        kb3)
+        kb3_form(mc4, [field], 300, d4, l4))
     bag, cfg2, win, query, _ = inputs(dev)
     mc2 = cfg2.local_scan_matcher
     g, tab = k1.build_window(**win, range_max=15.0,
@@ -9547,6 +9892,7 @@ def spectra_finalize_times(dev, ident: str, decisions: bool) -> dict:
             office_config("--recipe", "drift"), drift_bag(), dev)
         out["merge"] = merge_decisions(dev)
         out["kb3"] = kb3_winners(dev)
+        out["kb3_match_s"] = out["kb3"].pop("match_s")
         print(f"[6] decisions: config 6 {out['config6']}; drift "
               f"{out['drift']}; merge {out['merge']}; [4r]'s winners "
               f"{out['kb3']}")
@@ -9608,12 +9954,15 @@ def score_fold_times(dev, ident: str, decisions: bool) -> dict:
     ``score_points`` then ``match_scan``) and its score and match alone,
     beside ``match_scan`` alone; KB2's stripe scores over 5000 and 20,000
     particles on stripe 0 of 2 of config 4's map and over the scan's world
-    points (``arm_times`` each, and the outputs' sha256).  With
-    ``decisions``: the correlative box drive (accepts, ATE,
-    poses' and scores' sha256, K11's launches), the config-2 corridor with
-    the correlative matcher (ms/scan, not gated) and [4r]'s winners
-    (``kb3_winners``).  Calls only public entries, so it runs in an older
-    tree too."""
+    points; KB3's match (``kb3_form``: the tree's one launch, or the
+    parent's rank sum, reduction and fold) of a localization scan's two
+    stripe fields and of the whole map's one (``arm_times`` each, and the
+    outputs' sha256).  With ``decisions``: the correlative box drive
+    (accepts, ATE, poses' and scores' sha256, K11's launches), the
+    config-2 corridor with the correlative matcher (ms/scan, not gated)
+    and [4r]'s winners (``kb3_winners``, with the seconds of its 150
+    matches).  Calls only public entries, so it runs in an older tree
+    too."""
     import dataclasses
     import inspect
 
@@ -9625,9 +9974,14 @@ def score_fold_times(dev, ident: str, decisions: bool) -> dict:
     from ndt_2d_tpu_torch.kernels import score_points as k3
     from ndt_2d_tpu_torch.matching import correlative
     from ndt_2d_tpu_torch.matching import matcher
+    import torch
+
+    from ndt_2d_tpu_torch.kernels import candidate_gather as k6
+    from ndt_2d_tpu_torch.kernels import candidate_scores as k2
     fused = "with_unc" in inspect.signature(k11.match).parameters
     records = "table" in inspect.signature(k3.stripe_poses).parameters
-    out = {"card": ident, "fused": fused, "records": records, "rows": {}}
+    out = {"card": ident, "fused": fused, "records": records,
+           "kb3_one_launch": hasattr(k6, "field_match"), "rows": {}}
 
     def arm(name, fn, *keep):
         row = arm_times(fn)
@@ -9700,6 +10054,25 @@ def score_fold_times(dev, ident: str, decisions: bool) -> dict:
     world = pose_ops.transform_points(center, q4).contiguous()
     arm("KB2 stripe scores, the scan's world points, stripe 0 of 2",
         lambda: (k3.stripe_points(*lead, W, 0, h, world, qm4),))
+    # KB3's match of a localization scan's stripe fields (config 4's map,
+    # 80x21x21 x 100 beams), in this tree's form (``kb3_form``): two
+    # stripes' fields, and one stripe's (the whole map: [4r]'s one rank).
+    loc_bag = record_synthetic("box", MAP4_SCANS, n_beams=360, seed=7,
+                               odom_trans_noise=0.01)
+    lq, lqm, ln, lc = map4_scan(loc_bag, 20, cfg4, dev)
+    start = lc + torch.tensor([0.02, -0.01, 0.01], device=dev)
+    d4, l4 = k2.search_offsets(mc4, dev)
+    (g1, tab1), _ = stripe_of(m4, kf, 2, 1)
+    two = [k6.stripe_field(mc4, sg, st, s * h, h, lq, lqm, ln, start, d4,
+                           l4)
+           for s, (sg, st) in enumerate(((g, tab), (g1, tab1)))]
+    whole = [k6.stripe_field(mc4, m4.grid, m4.packed_table, 0,
+                             mc4.grid_cells_y, lq, lqm, ln, start, d4, l4)]
+    kb3_shape = f"{d4.numel()}x{l4.numel()}x{l4.numel()}"
+    for S, fields in ((2, two), (1, whole)):
+        match = kb3_form(mc4, fields, ln, d4, l4)
+        arm(f"KB3 match of {S} stripes' fields ({kb3_shape})",
+            lambda match=match: (match(),))
     if decisions:
         reset_counts()
         acc, n, ate, odom, psha, ssha = correlative_box(dev, scores=True)
@@ -9719,6 +10092,7 @@ def score_fold_times(dev, ident: str, decisions: bool) -> dict:
         out["corridor"] = dict(accepted=stats["scans_accepted"],
                                ate=stats["ate_rmse_m"])
         out["kb3"] = kb3_winners(dev)
+        out["kb3_match_s"] = out["kb3"].pop("match_s")
         print(f"[6] decisions: correlative box {out['box']}; config-2 "
               f"corridor, correlative (not gated) {out['corridor_ms']:.3f} "
               f"ms/scan median, {out['corridor']}; [4r]'s winners "
@@ -9801,6 +10175,19 @@ def score_fold_arms(parent: str) -> int:
     c, p = med("change", key, "host_us"), med("parent", key, "host_us")
     goals.append(("KB2 host us a stripe_poses call", f"{c:.1f} [{p:.1f}]",
                   c <= p))
+    for S in (2, 1):
+        key = next(k for k in arms[0][1]["rows"]
+                   if k.startswith(f"KB3 match of {S} stripes'"))
+        c, p = med("change", key), med("parent", key)
+        goals.append((f"KB3 match graph ms, S = {S}",
+                      f"{c:.5f} [{p:.5f}], {c / p:.3f}x", c <= 0.6 * p))
+        ops = [a["rows"][key]["ops"] for n, a in arms if n == "change"]
+        goals.append((f"KB3 device operations a match, S = {S}",
+                      f"{ops} [{med('parent', key, 'ops')}]",
+                      all(o == 1 for o in ops)))
+        c, p = med("change", key, "host_us"), med("parent", key, "host_us")
+        goals.append((f"KB3 host us a match, S = {S}", f"{c:.1f} [{p:.1f}]",
+                      c <= p))
     for name, figures, met in goals:
         print(f"[6] goal, {name}: {figures}: "
               f"{'met' if met else 'MISSED'}")
@@ -9814,6 +10201,9 @@ def score_fold_arms(parent: str) -> int:
               f"equal: {same}")
     print(f"[6] config-2 corridor, correlative (not gated): parent "
           f"{p['corridor_ms']:.3f} ms/scan, change {c['corridor_ms']:.3f}")
+    print(f"[6] [4r]'s 150 matches of two stripes' fields on one card (the "
+          f"device synchronized around each): parent "
+          f"{p['kb3_match_s']:.4f} s, change {c['kb3_match_s']:.4f} s")
     print(json.dumps({"score_fold_times": dict(
         arms=arms, goals=[dict(name=n, figures=f, met=m)
                           for n, f, m in goals], equal=ok)}))
@@ -10200,6 +10590,223 @@ def phase_control(cfg, bag, dev, tmp):
           f"{first_parting(p_split, p_one)}; three processes {wall:.1f} s")
 
 
+# [4z]: the actions two gloo ranks take after scan t (at the boundary
+# before scan t + 1), as the CPU test of the mesh's control channel sends
+# them; every rank sets its pose again after scan 6 (mapping off forgot
+# it).  The ranks replay config 2's first Z_SCANS scans.
+Z_ACTIONS = {3: (2, ""), 6: (1, ""), 9: (8, "z_map.npz")}
+Z_SCANS = 100
+
+
+def control_session(cfg, bag, dev, mesh, channel: bool) -> dict:
+    """One [4z] session on a rank of ``mesh``: ``bag`` through ``run_bag``
+    with Z_ACTIONS sent over the control channel from rank 0's progress
+    callback (``channel``; each request queued before the callback
+    returns, the reply awaited by a client thread), or applied straight
+    through ``Mapper.configure`` by every rank's callback (a save by rank 0
+    alone).  Returns the final poses' digest, each scan's wall (ms, from
+    one callback to the next), the replies and the files this rank
+    wrote."""
+    import threading
+
+    import numpy as np
+
+    from ndt_2d_tpu_torch.io import serialization
+    from ndt_2d_tpu_torch.mapping import runtime
+    from ndt_2d_tpu_torch.mapping.mapper import SAVE_TO_FILE, Mapper
+    from ndt_2d_tpu_torch.parallel import distributed
+    from ndt_2d_tpu_torch.utils import metrics
+    rank = distributed.rank()
+    mapper = Mapper(cfg, device=dev, mesh=mesh)
+    rel = metrics.relative_to_first(bag.truth)
+    saves, stamps, replies, clients = [], [], [], []
+    real_save = serialization.save_graph
+
+    def save_graph(graph, path):
+        saves.append(path)
+        real_save(graph, path)
+    control = (runtime.ControlServer(mapper, "z.sock", mesh=mesh)
+               if channel else None)
+
+    def progress(t, res):
+        stamps.append(time.perf_counter())
+        if t == 6:
+            mapper.set_initial_pose(rel[t], np.diag([0.04, 0.04, 0.01]),
+                                    bag.odom[t])
+        if t not in Z_ACTIONS:
+            return
+        action, filename = Z_ACTIONS[t]
+        if not channel:
+            mapper.configure(action if rank == 0
+                             else action & ~SAVE_TO_FILE, filename)
+        elif rank == 0:
+            c = threading.Thread(target=lambda: replies.append(
+                runtime.send_configure("z.sock", action, filename)))
+            c.start()
+            clients.append(c)
+            while control.pending() == 0 and c.is_alive():
+                c.join(0.0005)
+    serialization.save_graph = save_graph
+    try:
+        runtime.run_bag(mapper, bag, progress=progress, control=control)
+    finally:
+        for c in clients:
+            c.join()
+        if control is not None:
+            control.close()
+        serialization.save_graph = real_save
+    g = mapper.graph
+    return dict(digest=poses_digest(g.poses[:g.num_scans]),
+                walls=np.diff(np.asarray(stamps)) * 1e3, replies=replies,
+                saves=saves, scans=g.num_scans)
+
+
+def control_rank(out_dir: str, device: str) -> int:
+    """One gloo rank of ``phase_mesh_control``: a (2, 1) mesh whose ranks
+    share ``device``; config 2's first Z_SCANS scans four times, without
+    and with the control channel (without, with, with, without), the
+    results saved to ``out_dir``."""
+    import numpy as np
+    import torch
+
+    from ndt_2d_tpu_torch.parallel import distributed, mesh as mesh_mod
+    from ndt_2d_tpu_torch.config import MapperConfig, ScanMatcherConfig
+    from ndt_2d_tpu_torch.io.bag import record_synthetic
+    dev = distributed.initialize(device, backend="gloo")
+    mesh = mesh_mod.make_mesh(shape=(2, 1))
+    bag = bag_prefix(record_synthetic("corridor", N_SCANS, n_beams=N_BEAMS,
+                                      seed=0), Z_SCANS)
+    m = ScanMatcherConfig(grid_cells_x=192, grid_cells_y=192)
+    cfg = MapperConfig(local_scan_matcher=m, global_scan_matcher=m,
+                       max_points_per_scan=512, loop_closure_every=10**9)
+    os.chdir(out_dir)  # a socket's path is limited to 108 bytes
+    out = {}
+    for i, channel in enumerate((False, True, True, False)):
+        r = control_session(cfg, bag, dev, mesh, channel)
+        out[f"run{i}_digest"] = r["digest"]
+        out[f"run{i}_walls"] = r["walls"]
+        out[f"run{i}_scans"] = r["scans"]
+        out[f"local_run{i}_saves"] = np.asarray(r["saves"])
+        out[f"local_run{i}_replies"] = np.asarray(
+            [json.dumps(x) for x in r["replies"]])
+    out["jax"] = "jax" in sys.modules
+    np.savez(os.path.join(out_dir, f"rank{distributed.rank()}.npz"),
+             **{k: np.asarray(v) for k, v in out.items()})
+    distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def bag_prefix(bag, n: int):
+    """The first ``n`` scans of ``bag``."""
+    from ndt_2d_tpu_torch.io.bag import ScanBag
+    return ScanBag(ranges=bag.ranges[:n], angle_min=bag.angle_min,
+                   angle_increment=bag.angle_increment,
+                   time_increment=bag.time_increment,
+                   range_max=bag.range_max, odom=bag.odom[:n],
+                   truth=bag.truth[:n])
+
+
+def phase_mesh_control(bag, tmp):
+    """[4z] The control channel on a mesh.  ``run --mesh 1 --socket`` on
+    config 2's bag (one NCCL rank, a process of its own) takes a save-map
+    from a client thread and exits 0; then two gloo ranks sharing the
+    card replay config 2's first Z_SCANS scans with Z_ACTIONS, applied
+    directly and sent over the channel (``control_rank``): the two ranks'
+    final graphs hash equal, the channel's equal the direct runs', the map
+    written once, by rank 0; ms a scan with and without the channel (the
+    broadcast's cost)."""
+    import threading
+
+    import numpy as np
+
+    from ndt_2d_tpu_torch.io import serialization
+    from ndt_2d_tpu_torch.io.bag import save_bag
+    from ndt_2d_tpu_torch.mapping import runtime
+    from ndt_2d_tpu_torch.parallel import distributed
+    path = os.path.join(tmp, "z_config2.npz")
+    save_bag(bag, path)
+    out_map = os.path.join(tmp, "z_cli_map.npz")
+    box = {}
+
+    def client():
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < 300 and "reply" not in box:
+            try:
+                box["reply"] = runtime.send_configure("z_cli.sock", 8,
+                                                      out_map)
+            except (FileNotFoundError, ConnectionRefusedError):
+                time.sleep(0.001)
+    # In tmp, the socket is bound and reached by a short relative name.
+    with contextlib.chdir(tmp):
+        c = threading.Thread(target=client)
+        c.start()
+        t0 = time.perf_counter()
+        try:
+            run = subprocess.run(
+                [sys.executable, "-m", "ndt_2d_tpu_torch.cli", "run",
+                 "--bag", path, "--mesh", "1", "--socket", "z_cli.sock",
+                 *CONFIG2_FLAGS], capture_output=True, text=True, cwd=tmp,
+                timeout=300, env=dict(os.environ, PYTHONPATH=ROOT))
+        finally:
+            box.setdefault("reply", {"ok": False, "error": "no reply"})
+            c.join()
+        wall = time.perf_counter() - t0
+    require(run.returncode == 0, f"[4z] run --mesh 1 --socket exited "
+            f"{run.returncode}: {run.stderr[-2000:]}")
+    require(box["reply"] == {"ok": True}, f"[4z] save-map over the channel "
+            f"of run --mesh 1: {box['reply']}")
+    stats = json.loads(run.stdout.strip().splitlines()[-1])
+    saved = serialization.load_graph(out_map, 512).num_scans
+    require(1 <= saved <= stats["graph_scans"], f"[4z] the saved map holds "
+            f"{saved} scans")
+    print(f"[4z] run --mesh 1 --socket on config 2's bag (one NCCL rank): "
+          f"save-map answered ok, a map of {saved} scans, "
+          f"{stats['scans_accepted']} of {stats['scans_in']} accepted; "
+          f"process {wall:.1f} s")
+
+    out = os.path.join(tmp, "z_ranks")
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    distributed.launch([sys.executable, os.path.abspath(__file__),
+                        "--control-rank", out, "cuda:0"], 2, timeout=600)
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with np.load(os.path.join(out, f"rank{r}.npz")) as z:
+            ranks.append({k: z[k] for k in z.files})
+    a, b = ranks
+    require(not a["jax"] and not b["jax"], "[4z] a rank imported jax")
+    digests = {str(a[f"run{i}_digest"]) for i in range(4)}
+    for i in range(4):
+        require(str(a[f"run{i}_digest"]) == str(b[f"run{i}_digest"]),
+                f"[4z] run {i}: the ranks' final graphs differ")
+    require(len(digests) == 1, f"[4z] the runs' graphs differ: {digests}")
+    for i in (1, 2):
+        replies = [json.loads(x) for x in a[f"local_run{i}_replies"]]
+        require(replies == [{"ok": True}] * len(Z_ACTIONS),
+                f"[4z] run {i}: replies {replies}")
+    for i in range(4):
+        require(list(a[f"local_run{i}_saves"]) == ["z_map.npz"]
+                and b[f"local_run{i}_saves"].size == 0,
+                f"[4z] run {i}: saves {a[f'local_run{i}_saves']}, "
+                f"{b[f'local_run{i}_saves']}")
+
+    def ms(i):  # scans 12 on, after the actions
+        return [float(np.median(r[f"run{i}_walls"][12:])) for r in ranks]
+    plain, chan = ms(0) + ms(3), ms(1) + ms(2)
+    print(f"[4z] 2 gloo ranks on cuda:0, config 2's first {Z_SCANS} scans, "
+          f"mapping off after scan 3 and on after 6, a save after 9: over "
+          f"the channel from rank 0's callback and straight through "
+          f"configure, final graphs bitwise equal on both ranks and across "
+          f"the runs (sha256 {digests.pop()}), the map written once by rank "
+          f"0; ms a scan (median, scans 12 on; rank 0, rank 1 of each run) "
+          f"without the channel {[round(x, 4) for x in plain]}, with "
+          f"{[round(x, 4) for x in chan]}: the broadcast "
+          f"{float(np.median(chan)) - float(np.median(plain)):+.4f} ms a "
+          f"scan; launch + 2 ranks {wall:.1f} s")
+
+
 def sync_stream(path, sock) -> tuple:
     """The synchronous protocol scan by scan: every reply, and each
     scan's request-to-reply seconds."""
@@ -10393,6 +11000,8 @@ def main() -> int:
         return mesh_rank(out, int(space), int(batch), map4, device)
     if sys.argv[1:2] == ["--mesh-district-rank"]:
         return mesh_district_rank(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--control-rank"]:
+        return control_rank(*sys.argv[2:4])
     if sys.argv[1:2] == ["--blocks-rank"]:
         out, space, batch, map4, map7, device, parts = sys.argv[2:9]
         return blocks_rank(out, int(space), int(batch), map4, map7, device,
@@ -10488,6 +11097,8 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--score-fold-times"]:
         return score_fold_arms(sys.argv[2])
+    if "--kb3-breakdown" in sys.argv[1:]:
+        return kb3_breakdown()
     if "--kernel-times" in sys.argv[1:]:
         from ndt_2d_tpu_torch.device import get_device
         from ndt_2d_tpu_torch.io.bag import record_synthetic
@@ -10573,6 +11184,7 @@ def main() -> int:
             phase_resume(cfg, bag, dev, sync_poses, c2p["poses"], map4,
                          sync4["digest"], plain3["graph"], tmp)
             phase_control(cfg, bag, dev, tmp)
+            phase_mesh_control(bag, tmp)
             phase_live(cfg, bag, dev, tmp)
             phase_trace_verbs(bag, plain3["graph"], dev, tmp)
         require("jax" not in sys.modules, "jax was imported")

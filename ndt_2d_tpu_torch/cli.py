@@ -63,9 +63,12 @@ All run on the CUDA device unless ``--device cpu`` is given.
 CUDA device (gloo ranks with ``--device cpu``), or with ``--distributed``,
 which joins the process group ``torchrun`` describes in its environment
 and meshes over all of its ranks; rank 0 writes the outputs, every rank
-loads ``--resume``, and ``--socket`` is refused:
+loads ``--resume``, and ``--socket`` opens the control channel on rank 0,
+which broadcasts each action to every rank at a scan boundary
+(``mapping/runtime.py::ControlServer``):
 
   python -m ndt_2d_tpu_torch.cli run --bag bag.npz --mesh 2 --map-out m.npz
+  python -m ndt_2d_tpu_torch.cli run --bag bag.npz --mesh 2 --socket ctl.sock
   torchrun --nproc-per-node 2 -m ndt_2d_tpu_torch.cli run --bag bag.npz \
       --distributed
 """
@@ -267,10 +270,6 @@ def _run_session(args, localize: bool) -> int:
         print(json.dumps({"error": "--global-init requires a map to "
                           "localize in and is incompatible with --resume"}))
         return 1
-    if args.socket and (args.mesh is not None or args.distributed):
-        raise ValueError("--socket cannot be used with --mesh or "
-                         "--distributed: every rank would have to apply "
-                         "each action at the same scan boundary")
     if _spawn_mesh(args):
         return 0
     mesh = _session_mesh(args)
@@ -301,8 +300,8 @@ def _run_session(args, localize: bool) -> int:
                     if bag.truth is not None else np.zeros(3))
             mapper.set_initial_pose(init, np.diag([0.25, 0.25, 0.06]),
                                     bag.odom[0])
-    control = (runtime.ControlServer(mapper, args.socket) if args.socket
-               else None)
+    control = (runtime.ControlServer(mapper, args.socket, mesh=mesh)
+               if args.socket else None)
     try:
         return _replay(args, mapper, bag, control)
     finally:

@@ -86,11 +86,11 @@
 // scoring over the whole lattice against one stripe's cells, a beam
 // counting only where its GLOBAL bin lies in the stripe's rows [row0,
 // row0 + h), and writes the raw [A, L, L] field, no reduction (the stripe
-// table is KB1's, [h * W, 32]).  The ranks add their fields in rank order
-// (K12's rank_sum); ndt2d_field_partials then reduces a given field into
-// this search's (angle, tile) partials, which ndt2d_candidate_gather_finalize
-// folds into the [13] row.  At one stripe (row0 = 0, h = H) the field is
-// the one-launch search's candidate scores bit for bit, and so is the row.
+// table is KB1's, [h * W, 32]).  The ranks all-gather their fields in rank
+// order, and ndt2d_field_match turns the gathered stack into the [13] row
+// in one launch (its note is above the kernel, field_match).  At one
+// stripe (row0 = 0, h = H) the field is the one-launch search's candidate
+// scores bit for bit, and so is the row.
 #include "lattice.cuh"
 
 namespace {
@@ -492,6 +492,89 @@ __global__ void __launch_bounds__(kTile) field_tiles(
                                      lattice::kPartial);
 }
 
+// KB3's match: the stripes' fields, all-gathered in rank order, to the
+// [13] row in one launch.
+//
+// Replaces, in ndt_2d_tpu/parallel/ndt_blocks.py::match_scan_sharded_map,
+// the psum of the stripes' fields over 'space' (:212), reduce_candidates
+// (:216) and finalize_match (:217).  Every rank runs it on the same
+// gathered stack, so every rank holds the same bits.
+//
+// What bounds it on the card: bytes.  The stack's S x A x L x L floats are
+// read once, and the A x tiles partials (48 bytes each) are written and
+// read back once; at S = 2 and 80 x 21 x 21 that is 282,240 + 15,360
+// bytes, 0.0000888 ms at 3.35 TB/s, far below one launch.  So the floor is
+// one launch and the fold's serial chain, and the design has no more than
+// that: one launch where there were three (K12's rank_sum into a summed
+// field, field_tiles into the partials, K2's finalize launch), no summed
+// field in device memory, and the scratch and ticket kept by the plan
+// (nothing allocated a match but the row).
+//
+// Design.  Grid (tiles, A) of 256 threads, thread t of block (q, a) the
+// candidate f = q * 256 + t of angle a.  The block reads its tile from
+// each of the S stripes, neighbouring threads on neighbouring addresses,
+// one float a load: 16-byte loads staged through shared memory timed no
+// faster on the H100 at 80 x 21 x 21 (PERF.md §6, KB3's row), so there
+// is one load path, whatever the alignment.  Each thread adds its
+// candidate's stripes in rank order from rank 0's value, as
+// shard_combine.cu's rank_sum adds, so the sum has the summed field's
+// bits.
+// lattice::reduce_tile folds the tile into its (angle, tile) partial,
+// field_tiles' tree; then, after __threadfence(), the block takes a
+// ticket, and the last of the A x tiles blocks folds the partials with
+// lattice::finalize_row and resets the ticket for the plan's next launch
+// on the stream (K11's lattice launch does the same, correlative.cu).
+//
+// Why the fold has the bits of K2's finalize launch (ndt2d::split_finalize)
+// on the same partials: both add each Olson sum by one lane, serially, in
+// (angle, tile) order from the first partial; both find a round's (min,
+// first index) by lanes over strided partials with a strict `<` and a
+// shuffle tree that breaks ties by the lower index, and carry it across
+// rounds with a strict `<` from the first partial, which is the serial
+// scan's winner whatever the round's length (256 partials here, 512 there);
+// and both finish the row with the same expressions.
+struct FieldMatch {
+  const float* stack;   // [S, A * L * L], rank r's field in row r
+  const float* dths;    // [A]
+  const float* dls;     // [L]
+  float* partial;       // scratch [A * tiles, 12]
+  unsigned* ticket;     // [1], 0 before and after a launch
+  int S, A, L, max_beams;
+};
+
+__global__ void __launch_bounds__(kTile) field_match(const FieldMatch m,
+                                                     int num_points,
+                                                     float* __restrict__ out) {
+  __shared__ __align__(16) float sp[(lattice::kStage + 1) *
+                                    lattice::kPartial];  // the fold's
+  __shared__ bool last;
+  const int tile = blockIdx.x, tiles = gridDim.x, a = blockIdx.y;
+  const int L = m.L, LL = L * L, t = threadIdx.x;
+  const int f = tile * kTile + t;
+  const bool live = f < LL;
+  const size_t stride = (size_t)m.A * LL;  // a stripe's field
+  const float* first = m.stack + (size_t)a * LL + f;
+  float cand = 0.f;
+  if (live) {
+    cand = first[0];
+    for (int s = 1; s < m.S; ++s) cand += first[s * stride];
+  }
+  const int lx = live ? f / L : 0, ly = live ? f % L : 0;
+  lattice::reduce_tile(cand, live, a * LL + f, m.dls[lx], m.dls[ly],
+                       m.dths[a],
+                       m.partial + ((size_t)a * tiles + tile) *
+                                       lattice::kPartial);
+  __threadfence();  // this block's partial before its ticket
+  __syncthreads();
+  if (t == 0) last = atomicAdd(m.ticket, 1u) == (unsigned)(m.A * tiles - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  lattice::finalize_row<true, true>(m.partial, m.A * tiles, L, num_points,
+                                    m.max_beams, m.dths, m.dls, out, sp);
+  if (t == 0) *m.ticket = 0u;
+}
+
 // gather_lattice<KX, KY> with `smem` bytes of dynamic shared memory (above
 // the default 48 KB the card is asked first, once a device and size).
 template <int KX, int KY>
@@ -653,15 +736,24 @@ NDT2D_API int ndt2d_stripe_field(const void* table, const void* origin,
                reinterpret_cast<cudaStream_t>(stream));
 }
 
-// KB3, the reduction: field [A,L,L] f32 -> partial [A * ceil(L*L / 256), 12]
-// f32 in (angle, tile) order, the input of ndt2d_candidate_gather_finalize.
-NDT2D_API int ndt2d_field_partials(const void* field, int A, const void* dths,
-                                   const void* dls, int L, void* partial,
-                                   void* stream) {
-  const int tiles = (L * L + kTile - 1) / kTile;
-  field_tiles<<<dim3(tiles, A, 1), kTile, 0,
+// KB3, the match, planned (candidate_gather.py::FieldPlan): sizeof the
+// FieldMatch block the plan packs.
+NDT2D_API int ndt2d_field_match_plan_size() { return (int)sizeof(FieldMatch); }
+
+// KB3, the match: *plan (the stack [S, A*L*L] f32 of the stripes' fields in
+// rank order, dths [A] f32, dls [L] f32, the scratch [A * ceil(L*L / 256),
+// 12] f32, the ticket [1] u32 at 0, S, A, L, max_beams), `num` points of
+// the scan -> out [13] f32, the row ndt2d_candidate_gather_finalize writes
+// from the summed field's partials.
+NDT2D_API int ndt2d_field_match(const void* plan, int num, void* out,
+                                void* stream) {
+  const FieldMatch& m = *static_cast<const FieldMatch*>(plan);
+  if (m.S < 1 || m.A < 1 || m.A > 65535 || m.L < 1 ||
+      (long long)m.S * m.A * m.L * m.L >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (m.L * m.L + kTile - 1) / kTile;
+  field_match<<<dim3(tiles, m.A), kTile, 0,
                 reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(field), static_cast<const float*>(dths), 0,
-      static_cast<const float*>(dls), A, L, static_cast<float*>(partial));
+      m, num, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }

@@ -24,12 +24,14 @@ bitwise.  For a device mesh (K12) the launch splits in two as K2's does:
 the (angle, tile) partials of all angles gathered in rank order, read in
 place under a ``candidate_scores.SplitPlan`` (``per`` =
 ``blocks_per_angle``); ``finalize_rows`` folds one [R, A * tiles, 12]
-buffer.
+buffer, an entry no path launches, kept to hold the planned folds against.
 
 KB3 (``ndt_2d_tpu/parallel/ndt_blocks.py::match_scan_sharded_map``):
 ``stripe_field`` scores the lattice against one y-stripe of a sharded map
-into the raw [A, L, L] field, and ``field_partials`` reduces the stripes'
-summed field into this search's partials for ``finalize_rows``.
+into the raw [A, L, L] field (a ``FieldPlan``'s send buffer), and
+``field_match`` turns the stripes' fields, gathered in rank order into the
+plan's stack, into the [13] row in one launch: the rank-ordered sum, the
+reduction and the fold (``field_match_twin`` composes the three).
 
 Each launch follows ``plan``: the threads' tile of candidates, the beams
 staged at a time and the window of cell records staged a beam (from the
@@ -56,18 +58,18 @@ launches = 0
 # K12: launches of the split search's two entries.
 partial_launches = 0
 finalize_launches = 0
-# KB3: launches of the stripe field and of the field's reduction.
+# KB3: launches of the stripe field and of the match of the gathered
+# fields.
 field_launches = 0
-field_partial_launches = 0
+field_match_launches = 0
 
 _FIELD_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_float] + [ctypes.c_int] * 3
                + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
                + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p]
                + [ctypes.c_int] + [ctypes.c_void_p] + [ctypes.c_int] * 9
                + [ctypes.c_void_p])
-_FIELD_PARTIAL_ARGS = ([ctypes.c_void_p] + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 2)
+_FIELD_MATCH_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                     ctypes.c_void_p]
 
 # Threads a block of the kernel; offsets a tile of the reduction.
 TILE = 256
@@ -318,13 +320,15 @@ def partial_rows(config, grid: ndt_grid.NDTGrid, tables, points, point_mask,
 
 
 def finalize_rows(config, partials, num_points, dths, dls):
-    """K12's second half on K6 and KB3's fold: [R, 13] from the partials
-    [R, A * tiles, 12] of every angle in (angle, tile) order (16-byte
-    aligned), folded by K2's finalize launch.  Bitwise the one-launch
-    ``match_rows``.  A split search folds its gathered stack in place
-    instead (``candidate_scores.SplitPlan`` at ``per`` =
-    ``blocks_per_angle``).  CPU tensors run the twin; CUDA tensors launch
-    the kernel."""
+    """K2's finalize launch on K6's partials, unplanned: [R, 13] from the
+    partials [R, A * tiles, 12] of every angle in (angle, tile) order
+    (16-byte aligned).  Bitwise the one-launch ``match_rows``.  No path of
+    the package launches it: a split search folds its gathered stack in
+    place (``candidate_scores.SplitPlan`` at ``per`` =
+    ``blocks_per_angle``) and KB3's match folds in its own launch
+    (``field_match``).  It stays as the plain entry of the fold that the
+    planned fold and ``field_match`` are held bitwise against on the card.
+    CPU tensors run the twin; CUDA tensors launch the kernel."""
     global finalize_launches
     if partials.device.type == "cpu":
         return k2.finalize_rows_twin(config, partials, num_points, dths, dls)
@@ -349,20 +353,24 @@ def stripe_field_twin(config, stripe: ndt_grid.NDTGrid, table, row0: int,
 
 def stripe_field(config, stripe: ndt_grid.NDTGrid, table, row0: int,
                  rows: int, points, point_mask, num_points: int, pose, dths,
-                 dls):
+                 dls, out=None):
     """KB3: the raw [A, L, L] candidate field of one scan against the
     stripe of grid rows [row0, row0 + rows) (``stripe`` and ``table``
     [rows * W, 32] KB1's, origin the map's), K6's per-candidate gather with
-    only the stripe's beams counted.  points [P, 2] f32, point_mask [P]
-    bool, pose [3] f32, dths [A] / dls [L] f32.  CPU tensors run the twin;
-    CUDA tensors launch the kernel."""
+    only the stripe's beams counted, written into ``out`` [A, L, L] when
+    given (a ``FieldPlan``'s send buffer).  points [P, 2] f32, point_mask
+    [P] bool, pose [3] f32, dths [A] / dls [L] f32.  CPU tensors run the
+    twin; CUDA tensors launch the kernel."""
     global field_launches
-    if points.device.type == "cpu":
-        return stripe_field_twin(config, stripe, table, row0, rows, points,
-                                 point_mask, num_points, pose, dths, dls)
     dev = points.device
-    W, P = config.grid_cells_x, points.shape[0]
     A, L = dths.shape[0], dls.shape[0]
+    if out is not None:
+        _build.require(out, "out", torch.float32, (A, L, L), dev)
+    if dev.type == "cpu":
+        field = stripe_field_twin(config, stripe, table, row0, rows, points,
+                                  point_mask, num_points, pose, dths, dls)
+        return field if out is None else out.copy_(field)
+    W, P = config.grid_cells_x, points.shape[0]
     if A > 65535:
         raise ValueError(f"{A} angles is outside the kernel's launch range")
     _build.require(table, "table", torch.float32, (rows * W, 32), dev)
@@ -372,7 +380,8 @@ def stripe_field(config, stripe: ndt_grid.NDTGrid, table, row0: int,
     _build.require(pose, "pose", torch.float32, (3,), dev)
     _build.require(dths, "dths", torch.float32, (A,), dev)
     _build.require(dls, "dls", torch.float32, (L,), dev)
-    field = torch.empty(A, L, L, dtype=torch.float32, device=dev)
+    field = (torch.empty(A, L, L, dtype=torch.float32, device=dev)
+             if out is None else out)
     p = _build.ptr
     err = _build.function("ndt2d_stripe_field", _FIELD_ARGS)(
         p(table), p(stripe.origin), float(stripe.cell_size), W, int(row0),
@@ -385,24 +394,133 @@ def stripe_field(config, stripe: ndt_grid.NDTGrid, table, row0: int,
     return field
 
 
-def field_partials(field, dths, dls):
-    """KB3's reduction: a [A, L, L] candidate field (the stripes' fields
-    added in rank order) -> this search's (angle, tile) partials
-    [A * tiles, 12], which ``finalize_rows`` folds.  CPU tensors run the
-    twin (``block_partials``); CUDA tensors launch the kernel."""
-    global field_partial_launches
-    if field.device.type == "cpu":
-        return k2.block_partials(field, dths, dls, 0, TILE)
-    dev = field.device
+
+
+# --- KB3: the match of the stripes' gathered fields -----------------------
+def field_match_twin(config, gathered, num_points: int, dths, dls):
+    """Plain-PyTorch ``field_match``: [13] from the stripes' fields
+    ``gathered`` [S, A * L * L] (any view of S rows), composed of the three
+    steps the launch folds: the rows added in rank order from row 0's
+    (``shard_combine.rank_sum_twin``), the reduction's (angle, tile)
+    partials (``candidate_scores.block_partials`` at ``TILE``) and K2's
+    fold (``finalize_rows_twin``)."""
     A, L = dths.shape[0], dls.shape[0]
-    _build.require(field, "field", torch.float32, (A, L, L), dev)
-    _build.require(dths, "dths", torch.float32, (A,), dev)
-    _build.require(dls, "dls", torch.float32, (L,), dev)
-    out = torch.empty(A * blocks_per_angle(dls), k2._PARTIAL,
-                      dtype=torch.float32, device=dev)
-    p = _build.ptr
-    err = _build.function("ndt2d_field_partials", _FIELD_PARTIAL_ARGS)(
-        p(field), A, p(dths), p(dls), L, p(out), _build.stream_ptr(dev))
-    _build.check(err, "field_partials")
-    field_partial_launches += 1
+    rows = gathered.reshape(-1, A, L, L)
+    total = rows[0].clone()
+    for r in range(1, rows.shape[0]):
+        total = total + rows[r]
+    partials = k2.block_partials(total, dths, dls, 0, TILE)
+    return k2.finalize_rows_twin(config, partials[None], num_points, dths,
+                                 dls)[0]
+
+
+class _FieldMatch(ctypes.Structure):
+    """``struct FieldMatch`` (``csrc/candidate_gather.cu``)."""
+
+    _fields_ = ([(f, ctypes.c_void_p) for f in ("stack", "dths", "dls",
+                                                "partial", "ticket")]
+                + [(f, ctypes.c_int) for f in ("S", "A", "L", "max_beams")])
+
+
+class FieldPlan:
+    """KB3's match on one rank of a ``space`` line of S ranks, planned once
+    for (device, S, A, L) (``field_plan``): the rank's send buffer ``send``
+    [A, L, L], which ``stripe_field(..., out=send)`` writes, the stack
+    ``stack`` [S, A * L * L], which the all-gather writes
+    (``distributed.gather(send, group, out=stack.view(S, A, L, L))``; on a
+    group of one rank the send buffer is the stack), the partials' scratch
+    and the ticket (zeroed once; the launch's last block resets it), and
+    the launch's arguments packed once into a ``_FieldMatch`` block, the
+    lattice and ``max_beams`` packed again when they change.  A match is
+    one ctypes call (``field_match``); it allocates only its [13] row.
+    Every launch of a plan's buffers runs on the current stream, in the
+    order the calls enqueue them."""
+
+    def __init__(self, device, shards: int, A: int, L: int):
+        if shards < 1 or A < 1 or L < 1 or A > 65535 \
+                or shards * A * L * L >= 2 ** 31:
+            raise ValueError(f"a match of {A}x{L}x{L} candidates over "
+                             f"{shards} stripes is outside the kernel's "
+                             "range")
+        self.device = torch.device(device)
+        self.eager = self.device.type == "cpu"
+        self.shards, self.A, self.L = shards, A, L
+        f32 = torch.float32
+        self.send = torch.empty(A, L, L, dtype=f32, device=self.device)
+        n = A * L * L
+        self.stack = (self.send.view(1, n) if shards == 1 else
+                      torch.empty(shards, n, dtype=f32, device=self.device))
+        tiles = -(-L * L // TILE)
+        self._partial = torch.empty(A * tiles, k2._PARTIAL, dtype=f32,
+                                    device=self.device)
+        self._ticket = torch.zeros(1, dtype=torch.int32, device=self.device)
+        self._expect = (("dths", f32, (A,)), ("dls", f32, (L,)))
+        self._args = _FieldMatch(self.stack.data_ptr(), None, None,
+                                 self._partial.data_ptr(),
+                                 self._ticket.data_ptr(), shards, A, L, 0)
+        self.address = ctypes.addressof(self._args)
+        self._lattice = (None, None, None)  # (dths, dls, max_beams) packed
+
+    def check(self, gathered, dths, dls) -> None:
+        """Raise unless ``gathered`` is this plan's stack (any view of it)
+        and the lattice has the plan's shape on its device."""
+        if (gathered.data_ptr() != self.stack.data_ptr()
+                or gathered.numel() != self.stack.numel()
+                or not gathered.is_contiguous()):
+            raise ValueError("gathered: not this plan's stack")
+        _build.require_all(self.device, (dths, dls), self._expect)
+
+    def pack(self, dths, dls, max_beams: int) -> None:
+        """The lattice and ``max_beams`` into the launch's block, where
+        they changed (the matcher's lattice is cached)."""
+        last = self._lattice
+        if dths is last[0] and dls is last[1] and max_beams == last[2]:
+            return
+        self._args.dths, self._args.dls = dths.data_ptr(), dls.data_ptr()
+        self._args.max_beams = max_beams
+        self._lattice = (dths, dls, max_beams)
+
+
+_FIELD_PLANS: dict = {}
+
+
+def field_plan(device, shards: int, A: int, L: int) -> FieldPlan:
+    """The kept ``FieldPlan`` of this key, made at its first use."""
+    key = (torch.device(device), shards, A, L)
+    plan = _FIELD_PLANS.get(key)
+    if plan is None:
+        plan = _FIELD_PLANS[key] = FieldPlan(device, shards, A, L)
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _field_match_function():
+    """``ndt2d_field_match``, after checking that ``_FieldMatch`` has the C
+    block's size."""
+    theirs = _build.function("ndt2d_field_match_plan_size", [])()
+    if ctypes.sizeof(_FieldMatch) != theirs:
+        raise RuntimeError(f"FieldMatch of {ctypes.sizeof(_FieldMatch)} "
+                           f"bytes, the kernels' {theirs}")
+    return _build.function("ndt2d_field_match", _FIELD_MATCH_ARGS)
+
+
+def field_match(config, plan: FieldPlan, gathered, num_points: int, dths,
+                dls):
+    """KB3's match: the [13] row (score, correction, covariance) of the
+    stripes' fields ``gathered``, the plan's stack after the all-gather,
+    read in place: the fields added in rank order, reduced and folded in
+    one launch (``ndt2d_field_match``), bitwise the rank-ordered sum, the
+    reduction and K2's fold of the sum.  Raises on a buffer that is not
+    the plan's.  CPU tensors run ``field_match_twin``; CUDA tensors launch
+    the kernel."""
+    global field_match_launches
+    plan.check(gathered, dths, dls)
+    if plan.eager:
+        return field_match_twin(config, gathered, int(num_points), dths, dls)
+    plan.pack(dths, dls, int(config.laser_max_beams))
+    out = torch.empty(13, dtype=torch.float32, device=plan.device)
+    _build.check(_field_match_function()(
+        plan.address, int(num_points), out.data_ptr(),
+        _build.stream_ptr(plan.device)), "field_match")
+    field_match_launches += 1
     return out

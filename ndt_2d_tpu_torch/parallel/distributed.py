@@ -123,6 +123,30 @@ def gather(t: torch.Tensor, group, out=None) -> torch.Tensor:
     return stacked.to(t.device) if t.is_cuda else stacked
 
 
+def host_group():
+    """A new gloo group of the whole world, for small host tensors that
+    must not wait for a CUDA stream under NCCL.  Every rank calls it, at
+    the same point of its program."""
+    return dist.new_group(backend="gloo")
+
+
+def broadcast(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` as the group's first rank holds it, on every rank of the
+    group, written into ``t`` in place and returned.  ``group`` None is the
+    whole world; outside a process group, or on a group of one rank,
+    nothing is sent."""
+    if not dist.is_initialized() or _alone(
+            dist.group.WORLD if group is None else group):
+        return t
+    root = 0 if group is None else dist.get_global_rank(group, 0)
+    if _staged(t, group):
+        x = t.cpu()
+        dist.broadcast(x, root, group=group)
+        return t.copy_(x)
+    dist.broadcast(t, root, group=group)
+    return t
+
+
 def sum_int(t: torch.Tensor, group=None) -> torch.Tensor:
     """The sum over the group's ranks of an integer tensor (all-reduce:
     exact in any order).  ``group`` None is the whole world."""

@@ -15,8 +15,9 @@ holds the grid rows [s h, (s + 1) h), h = H / S:
   then divided by the beams used;
 * **match** (KB3, ``kernels/candidate_gather.py``): each rank scores the
   whole lattice against its stripe into a raw [A, L, L] field, the fields
-  are added in rank order, and the sum is reduced (KB3) and finalized
-  (K6's finalize) on every rank.
+  are gathered over ``space``, and one launch on every rank adds them in
+  rank order, reduces the sum and folds it into the match's row
+  (``field_match``, through a ``FieldPlan``: two launches a match).
 
 Every combine is a gather and a rank-ordered sum, so every rank holds the
 same bits.  The stripes' partial sums associate differently from the dense
@@ -142,17 +143,19 @@ def match_scan_sharded_map(config: ScanMatcherConfig, mesh,
                            grid: StripeGrid, points, point_mask,
                            num_points: int, pose) -> k2.MatchResult:
     """matchScan against a sharded map: each rank's raw [A, L, L] field of
-    its stripe (KB3, K6's per-candidate gather), the fields added in rank
-    order, then the reduction (KB3) and K6's finalize on every rank.  The
-    search always takes the gather path, whatever the lattice's width, as
-    JAX's does.  Returns a MatchResult of 0-d / [3] / [3, 3] tensors."""
-    dths, dls = k2.search_offsets(config, points.device)
-    field = k6.stripe_field(config, grid, grid.table, grid.row0, grid.rows,
-                            points, point_mask, num_points, pose, dths, dls)
-    total = _space_sum(mesh, field)
-    partials = k6.field_partials(total, dths, dls)
-    out = k6.finalize_rows(config, partials[None], int(num_points), dths,
-                           dls)
-    res = k2.unpack(out)
-    return k2.MatchResult(res.score[0], res.correction[0],
-                          res.covariance[0])
+    its stripe (KB3, K6's per-candidate gather) into its plan's send
+    buffer, the fields gathered over ``space`` into the plan's stack, then
+    one launch adds them in rank order, reduces and folds them on every
+    rank (``k6.field_match``).  The search always takes the gather path,
+    whatever the lattice's width, as JAX's does.  Returns a MatchResult of
+    0-d / [3] / [3, 3] tensors."""
+    dev = points.device
+    dths, dls = k2.search_offsets(config, dev)
+    S, A, L = axis_size(mesh, SPACE_AXIS), dths.shape[0], dls.shape[0]
+    plan = k6.field_plan(dev, S, A, L)
+    k6.stripe_field(config, grid, grid.table, grid.row0, grid.rows, points,
+                    point_mask, num_points, pose, dths, dls, out=plan.send)
+    gathered = distributed.gather(plan.send, axis_group(mesh, SPACE_AXIS),
+                                  out=plan.stack.view(S, A, L, L))
+    out = k6.field_match(config, plan, gathered, int(num_points), dths, dls)
+    return k2.MatchResult(out[0], out[1:4], out[4:13].view(3, 3))

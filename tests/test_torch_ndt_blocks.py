@@ -276,13 +276,10 @@ def test_jitted_jax_blocks_make_the_same_decision(meshed, x, shape):
 
 
 # --- the kernels' twins against op-by-op JAX ------------------------------
-@pytest.mark.parametrize("S", [1, 2, 4])
-def test_stripe_field_twin_matches_jax(x, dense, jax_ops, S):
-    """KB3's twin: the fields of the S stripes, added in order, against
-    JAX's psum of its stripes' fields; at S = 1 it is K6's scores."""
-    dths, dls = k2.search_offsets(CFG, torch.device("cpu"))
+def _stripes(dense, S: int):
+    """The dense grid's S stripes and their patch tables."""
     g, h = dense["grid"], H // S
-    total = 0.0
+    out = []
     for i in range(S):
         rows = slice(i * h * W, (i + 1) * h * W)
         stripe = ndt_grid.NDTGrid(origin=g.origin, cell_size=g.cell_size,
@@ -290,12 +287,34 @@ def test_stripe_field_twin_matches_jax(x, dense, jax_ops, S):
                                   information=g.information[rows],
                                   count=g.count[rows],
                                   covariance=g.covariance[rows])
-        table = ndt_grid.packed_patch_table(stripe, W)
-        f = k6.stripe_field(CFG, stripe, table, i * h, h,
-                            t(x["match_points"]), t(x["match_mask"]),
-                            int(x["match_mask"].sum()), t(x["match_pose"]),
-                            dths, dls)
-        total = f if i == 0 else total + f
+        out.append((stripe, ndt_grid.packed_patch_table(stripe, W), i * h,
+                    h))
+    return out
+
+
+def _field_args(x):
+    return (t(x["match_points"]), t(x["match_mask"]),
+            int(x["match_mask"].sum()), t(x["match_pose"]))
+
+
+@pytest.fixture(scope="module")
+def fields(x, dense):
+    """KB3's twin fields of the match scan on each of S stripes, S = 1, 2,
+    4."""
+    dths, dls = k2.search_offsets(CFG, torch.device("cpu"))
+    return {S: [k6.stripe_field(CFG, *st, *_field_args(x), dths, dls)
+                for st in _stripes(dense, S)] for S in (1, 2, 4)}
+
+
+@pytest.mark.parametrize("S", [1, 2, 4])
+def test_stripe_field_twin_matches_jax(x, dense, jax_ops, fields, S):
+    """KB3's twin: the fields of the S stripes, added in order, against
+    JAX's psum of its stripes' fields; at S = 1 it is K6's scores, and the
+    match of the stripes' fields is the dense K6 row."""
+    dths, dls = k2.search_offsets(CFG, torch.device("cpu"))
+    total = fields[S][0]
+    for f in fields[S][1:]:
+        total = total + f
     # At the angles where torch's and XLA's float32 cos and sin agree
     # bitwise (noise-free beams sit on cell edges; an ulp moves them).
     th = x["match_pose"][2] + dths
@@ -306,7 +325,83 @@ def test_stripe_field_twin_matches_jax(x, dense, jax_ops, S):
     np.testing.assert_allclose(total.numpy()[same],
                                jax_ops[S]["field"][same], rtol=1e-5,
                                atol=1e-6)
-    out = k6.finalize_rows(CFG, k6.field_partials(total, dths, dls)[None],
-                           int(x["match_mask"].sum()), dths, dls)
+    plan = k6.FieldPlan("cpu", S, dths.numel(), dls.numel())
+    plan.stack.copy_(torch.stack(fields[S]).reshape(S, -1))
+    out = k6.field_match(CFG, plan, plan.stack, int(x["match_mask"].sum()),
+                         dths, dls)
     if S == 1:
-        np.testing.assert_array_equal(out[0].numpy(), dense["match"])
+        np.testing.assert_array_equal(out.numpy(), dense["match"])
+
+
+def _old_chain(stack, num_points, dths, dls):
+    """KB3 before its one launch: the rank-ordered sum (K12's rank_sum),
+    the reduction's partials and K2's fold of them."""
+    from ndt_2d_tpu_torch.kernels import shard_combine
+    total = shard_combine.rank_sum(stack)
+    partials = k2.block_partials(total, dths, dls, 0, k6.TILE)
+    return k2.finalize_rows_twin(CFG, partials[None], num_points, dths,
+                                 dls)[0]
+
+
+@pytest.mark.parametrize("S", [1, 2, 4])
+def test_field_match_is_the_old_chain(x, fields, S):
+    """``field_match`` over a plan's stack, filled by ``stripe_field``
+    through the send buffer as a rank's gather would, is bitwise the
+    rank-ordered sum, the reduction and the fold; so is its twin."""
+    dths, dls = k2.search_offsets(CFG, torch.device("cpu"))
+    A, L = dths.numel(), dls.numel()
+    plan = k6.FieldPlan("cpu", S, A, L)
+    for s, f in enumerate(fields[S]):
+        plan.stack[s].copy_(f.reshape(-1))
+    n = int(x["match_mask"].sum())
+    stack = torch.stack(fields[S])
+    want = _old_chain(stack, n, dths, dls)
+    got = k6.field_match(CFG, plan, plan.stack.view(S, A, L, L), n, dths,
+                         dls)
+    assert got.shape == (13,)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_array_equal(
+        k6.field_match_twin(CFG, stack, n, dths, dls).numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("S", [1, 2, 4])
+def test_stripe_field_writes_the_plans_send_buffer(x, dense, fields, S):
+    """``stripe_field(..., out=plan.send)`` writes the send buffer in
+    place; at S = 1 the send buffer is the stack."""
+    dths, dls = k2.search_offsets(CFG, torch.device("cpu"))
+    plan = k6.FieldPlan("cpu", S, dths.numel(), dls.numel())
+    st = _stripes(dense, S)[-1]
+    got = k6.stripe_field(CFG, *st, *_field_args(x), dths, dls,
+                          out=plan.send)
+    assert got is plan.send
+    np.testing.assert_array_equal(got.numpy(), fields[S][-1].numpy())
+    assert (plan.stack.data_ptr() == plan.send.data_ptr()) == (S == 1)
+
+
+@pytest.mark.parametrize("case", ["foreign", "short", "lattice", "send"])
+def test_field_plan_refuses(x, dense, case):
+    """A buffer that is not the plan's stack, a part of it, a lattice of
+    another shape and a send buffer of another shape are refused."""
+    dths, dls = k2.search_offsets(CFG, torch.device("cpu"))
+    A, L = dths.numel(), dls.numel()
+    plan = k6.FieldPlan("cpu", 2, A, L)
+    n = int(x["match_mask"].sum())
+    with pytest.raises(ValueError):
+        if case == "foreign":
+            k6.field_match(CFG, plan, torch.zeros_like(plan.stack), n, dths,
+                           dls)
+        elif case == "short":
+            k6.field_match(CFG, plan, plan.stack[:1], n, dths, dls)
+        elif case == "lattice":
+            k6.field_match(CFG, plan, plan.stack, n, dths[:-1], dls)
+        else:
+            k6.stripe_field(CFG, *_stripes(dense, 2)[0], *_field_args(x),
+                            dths, dls, out=plan.stack)
+
+
+def test_field_plans_are_kept():
+    a = k6.field_plan("cpu", 2, 5, 7)
+    assert k6.field_plan(torch.device("cpu"), 2, 5, 7) is a
+    assert k6.field_plan("cpu", 4, 5, 7) is not a
+    with pytest.raises(ValueError):
+        k6.FieldPlan("cpu", 0, 5, 7)

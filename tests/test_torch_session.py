@@ -502,10 +502,43 @@ def test_global_init_refused(tmp_path, capsys, bags, case):
     assert "--global-init requires a map" in _last_json(capsys)["error"]
 
 
-def test_socket_with_mesh_is_refused(tmp_path, bags):
-    with pytest.raises(ValueError, match="--socket cannot be used with"):
-        cli.main(["run", "--bag", bags[0], "--device", "cpu", "--mesh", "2",
-                  "--socket", str(tmp_path / "c.sock")])
+def test_socket_with_mesh_serves_the_verbs(tmp_path, monkeypatch, capsys,
+                                          bags):
+    """``run --mesh 2 --socket``: rank 0 serves the channel while the two
+    gloo ranks replay the bag; saves sent from a client thread are each
+    written once, at a scan boundary, and the run exits 0.  The first save
+    may land at the boundary before scan 0; the second, sent after the
+    first's reply, lands at a later boundary, after at least one scan."""
+    import threading
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # a torch thread a rank
+    sock = "mesh.sock"
+    first, out = str(tmp_path / "first.npz"), str(tmp_path / "mesh_map.npz")
+    box = {}
+
+    def client():
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < 120:
+            try:
+                box["first"] = runtime.send_configure(sock, 8, first)
+                break
+            except (FileNotFoundError, ConnectionRefusedError):
+                time.sleep(0.002)
+        box["out"] = runtime.send_configure(sock, 8, out)
+    c = threading.Thread(target=client)
+    c.start()
+    try:
+        assert cli.main(["run", "--bag", bags[0], "--mesh", "2", "--socket",
+                         sock, *RUN]) == 0
+    finally:
+        c.join()
+    capsys.readouterr()
+    assert box["first"] == {"ok": True}
+    assert box["out"] == {"ok": True}
+    early = serialization.load_graph(first, 512)
+    saved = serialization.load_graph(out, 512)
+    assert early.num_scans <= saved.num_scans
+    assert 1 <= saved.num_scans <= N
 
 
 def test_run_with_socket_serves_the_verbs(tmp_path, monkeypatch, capsys,

@@ -14,6 +14,7 @@ the ranks stay JAX-free; each rank records whether either was imported.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import sys
 from types import SimpleNamespace
@@ -27,7 +28,7 @@ from ndt_2d_tpu_torch.filter.particle_filter import ParticleFilter
 from ndt_2d_tpu_torch.graph import pose_graph, solver
 from ndt_2d_tpu_torch.mapping import laser, occupancy
 from ndt_2d_tpu_torch.mapping.mapper import (
-    LOAD_FROM_FILE, SAVE_TO_FILE, Mapper)
+    DISABLE_MAPPING, ENABLE_MAPPING, LOAD_FROM_FILE, SAVE_TO_FILE, Mapper)
 from ndt_2d_tpu_torch.matching import matcher
 from ndt_2d_tpu_torch.parallel import distributed, loop_search
 from ndt_2d_tpu_torch.parallel import mesh as mesh_mod
@@ -392,9 +393,114 @@ def box_session(mesh=None) -> dict:
             "poses": mapper.graph.poses.copy()}
 
 
+CONTROL_SCANS = 18
+# The control channel's actions after scan t (applied at the boundary
+# before scan t + 1): a save with a filename too long for a mesh's
+# request (refused at rank 0), a request of no action, mapping off and on,
+# a save, a load of the saved map and a load of a file that does not exist
+# (fails on every rank).
+CONTROL_ACTIONS = {1: (SAVE_TO_FILE, "m" * 1100 + ".npz"), 2: (0, ""),
+                   3: (DISABLE_MAPPING, ""), 6: (ENABLE_MAPPING, ""),
+                   9: (SAVE_TO_FILE, "map.npz"),
+                   12: (LOAD_FROM_FILE, "map.npz"),
+                   14: (LOAD_FROM_FILE, "missing.npz")}
+
+
+def control_session(mesh=None, out_dir=".", mode="socket") -> dict:
+    """An 18-scan box bag through ``run_bag`` with CONTROL_ACTIONS (and
+    the pose set again on every rank after scan 6, which mapping off
+    forgot): sent
+    over the control channel from rank 0's progress callback (``mode``
+    "socket"; each request queued before the callback returns, the reply
+    awaited by a client thread), or applied by every rank's callback
+    straight through ``Mapper.configure`` at the same boundaries ("direct";
+    a save by rank 0 alone).  Returns the graph, its scan count after
+    every scan, the replies (rank 0, socket) and the files this rank
+    wrote (``local_saves``)."""
+    import threading
+
+    from ndt_2d_tpu_torch.io import serialization
+    from ndt_2d_tpu_torch.io.bag import record_synthetic
+    from ndt_2d_tpu_torch.mapping import runtime as rt
+    os.chdir(out_dir)  # a socket's path is limited to 108 bytes
+    saves = []
+    real_save = serialization.save_graph
+
+    def save_graph(graph, path):
+        saves.append(path)
+        real_save(graph, path)
+    serialization.save_graph = save_graph
+    m = ScanMatcherConfig(grid_cells_x=160, grid_cells_y=160)
+    cfg = MapperConfig(local_scan_matcher=m, global_scan_matcher=m,
+                       max_points_per_scan=512, loop_closure_every=10 ** 9)
+    mapper = Mapper(cfg, device="cpu", mesh=mesh)
+    bag = record_synthetic("box", CONTROL_SCANS, n_beams=180, seed=0)
+    rank = distributed.rank()
+    control = (rt.ControlServer(mapper, "ctl.sock", mesh=mesh)
+               if mode == "socket" else None)
+    counts, replies, clients = [], {}, []
+
+    def send(t, action, filename):
+        try:
+            replies[t] = rt.send_configure("ctl.sock", action, filename)
+        except Exception as e:  # a reply that never came
+            replies[t] = {"ok": False, "error": repr(e)}
+
+    rel = metrics.relative_to_first(bag.truth)
+
+    def progress(t, res):
+        counts.append(mapper.graph.num_scans)
+        if t == 6:  # mapping off forgot the pose: every rank sets it again
+            mapper.set_initial_pose(rel[t], np.diag([0.04, 0.04, 0.01]),
+                                    bag.odom[t])
+        if t not in CONTROL_ACTIONS:
+            return
+        action, filename = CONTROL_ACTIONS[t]
+        if mode == "direct":
+            if len(filename) > rt.FILENAME_ROOM:
+                return
+            try:
+                mapper.configure(action if rank == 0
+                                 else action & ~SAVE_TO_FILE, filename)
+            except FileNotFoundError:
+                pass
+        elif rank == 0:
+            queued = control.pending()
+            c = threading.Thread(target=send, args=(t, action, filename))
+            c.start()
+            clients.append(c)
+            # A refused request is answered at once and never queued.
+            while (control.pending() == queued
+                   and len(filename) <= rt.FILENAME_ROOM):
+                c.join(0.001)
+    try:
+        stats = rt.run_bag(mapper, bag, progress=progress, control=control)
+    finally:
+        for c in clients:
+            c.join()
+        if control is not None:
+            control.close()
+        serialization.save_graph = real_save
+    g = mapper.graph
+    out = {"poses": g.poses[:g.num_scans].copy(),
+           "counts": np.asarray(counts), "accepted":
+           np.asarray(stats["scans_accepted"]),
+           "enable_mapping": np.asarray(mapper.enable_mapping),
+           "local_saves": np.asarray(saves)}
+    if mode == "socket":
+        # Where the boundary's request lives and which backend carries it.
+        out["request_on"] = np.asarray(
+            [control._request.device.type,
+             torch.distributed.get_backend(control._group)])
+    if mode == "socket" and rank == 0:
+        out["local_replies"] = np.asarray(
+            [json.dumps(replies[t]) for t in sorted(replies)])
+    return out
+
+
 SCENARIOS = {"kernels": kernel_results, "office": office_session,
              "pipelined": pipelined_session, "localize": localize_session,
-             "box": box_session}
+             "box": box_session, "control": control_session}
 
 
 def run_ranks(scenario: str, out_dir: str, space: int, batch: int,
@@ -422,6 +528,8 @@ def main(argv, scenarios=SCENARIOS) -> int:
     kwargs = {"mesh": mesh}
     if scenario == "localize":
         kwargs.update(kind=argv[4], map_path=os.path.join(out_dir, "map.npz"))
+    elif scenario == "control":
+        kwargs.update(out_dir=out_dir, mode=argv[4])
     elif len(argv) > 4:
         kwargs["loop_search"] = argv[4]
     res = scenarios[scenario](**kwargs)
